@@ -39,6 +39,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy compile/golden tests — excluded from the default "
         "fast tier; run with X2I_FULL_TESTS=1 or -m slow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels have no "
+        "CPU mode); skips itself when none is available")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,39 @@
+"""The port stands alone: nothing under x2i_torch/, and not chip_smoke.py,
+imports jax, flax or the JAX package (x2i_tpu), at any level of a module.
+Checked on the syntax tree, so imports inside functions count too."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "x2i_tpu")
+FILES = sorted((ROOT / "x2i_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_the_port_has_modules_to_check():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"x2i_torch/pipeline.py", "x2i_torch/ops/flash_attention.py",
+            "x2i_torch/ops/fused_glue.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_import(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -1,0 +1,183 @@
+"""Typed configuration for the PyTorch port.
+
+Own copies of the dataclasses of ``x2i_tpu/core/config.py`` that the
+text->image serving path reads, with torch dtypes. Only the fields this
+path uses are here: no quantization, ring or sharding fields yet.
+
+``dtype`` is both the parameter storage type and the compute type (the
+JAX package keeps them as two fields; every shipped config sets them
+equal).
+
+``attention_impl`` replaces the JAX ``use_pallas_attention`` flag:
+"auto" takes the hand-written kernel on a CUDA tensor when the shapes
+allow it and the plain attention on the CPU (the JAX rule: Pallas off the
+CPU), "kernel" always calls the kernel's wrapper (on a CPU tensor that is
+the kernel's plain version, the counterpart of Pallas interpret mode),
+"plain" always takes the plain attention.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class FluxConfig:
+    """FLUX-class rectified-flow DiT (FLUX.1-schnell defaults): 19 double
+    and 38 single blocks, 24 heads x 128, 3-axis RoPE."""
+
+    patch_size: int = 1
+    in_channels: int = 64            # packed latents: 16 ch x 2x2 patch
+    num_layers: int = 19             # double-stream (MMDiT) blocks
+    num_single_layers: int = 38      # single-stream blocks
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096  # text conditioning width
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = False    # True for FLUX.1-dev, False for schnell
+    axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
+    mlp_ratio: float = 4.0
+    time_embed_dim: int = 256
+    qk_norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"     # "auto" | "kernel" | "plain"
+    fused_glue: bool = False         # ln_mod kernel for LayerNorm+modulate
+                                     # and the qk RMSNorm folded into the
+                                     # attention kernel (inference only)
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+@dataclass(frozen=True)
+class ProjConfig:
+    """Alignment network (Proj7Exp + MLP3). in_channels = MLLM hidden-state
+    layer count + 1 (embedding layer)."""
+
+    in_channels: int = 25
+    kernel_size: int = 5
+    input_dim: int = 896
+    output_dim0: int = 768            # pooled (CLIP-replacement) width
+    output_dim1: int = 4096           # sequence (T5-replacement) width
+    norm_eps: float = 1e-6
+    use_scale: bool = False
+    use_cnn: bool = True
+    dtype: Any = torch.bfloat16
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """FLUX AutoencoderKL (diffusers config of black-forest-labs/FLUX.1-*)."""
+
+    out_channels: int = 3
+    latent_channels: int = 16
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.3611
+    shift_factor: float = 0.1159
+    use_mid_attention: bool = True
+    dtype: Any = torch.bfloat16
+
+
+@dataclass(frozen=True)
+class Qwen2Config:
+    """Qwen2-family causal LM. Defaults = Qwen2.5-0.5B-Instruct, the LM
+    inside InternVL2.5-1B (hidden 896, 24 layers -> 25 hidden states)."""
+
+    vocab_size: int = 151674
+    hidden_size: int = 896
+    intermediate_size: int = 4864
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 14
+    num_key_value_heads: int = 2
+    head_dim: int = 64
+    rope_theta: float = 1000000.0
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = True
+    attention_bias: bool = True
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"
+
+    @property
+    def num_layers_with_embedding(self) -> int:
+        return self.num_hidden_layers + 1
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Flow-match Euler discrete scheduler (diffusers semantics)."""
+
+    shift: float = 1.0               # 1.0 schnell, 3.0 dev
+    use_dynamic_shifting: bool = False
+    base_shift: float = 0.5
+    max_shift: float = 1.16
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 4096
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """Sampling operating point."""
+
+    height: int = 1024
+    width: int = 1024
+    num_inference_steps: int = 4
+    guidance_scale: float = 3.5      # dev models' baked guidance embed
+    seed: int = 0
+    vae_tile_px: int = 1536          # tiled decode above this size (not
+                                     # ported yet: generate raises there)
+
+
+PROJ_REGISTRY: Dict[str, ProjConfig] = {
+    "internvl1b": ProjConfig(in_channels=25, input_dim=896, use_scale=True,
+                             use_cnn=False),
+}
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    """One registry entry: the text path's LM, proj, DiT and scheduler."""
+
+    llm: Qwen2Config = field(default_factory=Qwen2Config)
+    proj: ProjConfig = field(default_factory=ProjConfig)
+    flux: FluxConfig = field(default_factory=FluxConfig)
+    vae: VAEConfig = field(default_factory=VAEConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+
+
+MODEL_REGISTRY: Dict[str, ModelSpec] = {
+    # InternVL2.5-1B's LM (Qwen2.5-0.5B) + FLUX.1-schnell; the text path
+    # runs the LM only (the ViT is not on it).
+    "x2i-internvl2.5-1b": ModelSpec(
+        llm=Qwen2Config(),
+        proj=PROJ_REGISTRY["internvl1b"],
+        flux=FluxConfig(guidance_embeds=False),
+        vae=VAEConfig(),
+        scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False)),
+}
+
+
+def tiny_flux_config(**overrides) -> FluxConfig:
+    """A miniature FLUX used by tests and CPU dry-runs."""
+    base = dict(
+        num_layers=2, num_single_layers=4, attention_head_dim=32,
+        num_attention_heads=4, joint_attention_dim=64,
+        pooled_projection_dim=32, time_embed_dim=32,
+        axes_dims_rope=(8, 12, 12), dtype=torch.float32,
+        attention_impl="plain")
+    base.update(overrides)
+    return FluxConfig(**base)
+
+
+def tiny_qwen2_config(**overrides) -> Qwen2Config:
+    base = dict(
+        vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, dtype=torch.float32, attention_impl="plain")
+    base.update(overrides)
+    return Qwen2Config(**base)

@@ -1,0 +1,291 @@
+"""FLUX-class rectified-flow DiT for inference, the counterpart of
+``x2i_tpu/models/flux.py``: 19 double-stream blocks, 38 single-stream
+blocks, AdaLN-Zero modulation, 3-axis RoPE in the half layout.
+
+The JAX blocks run under ``nn.scan`` with stacked parameters; here they are
+``nn.ModuleList``s, one module per layer (``x2i_torch.params`` unstacks the
+JAX tree). The FLUX MLPs use the tanh form of gelu (flax ``nn.gelu``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x2i_torch.core.config import FluxConfig
+from x2i_torch.ops.attention import attention
+from x2i_torch.ops.fused_glue import ln_mod
+from x2i_torch.ops.norms import layer_norm, rms_norm
+from x2i_torch.ops.rope import flux_rope_freqs_half
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding, diffusers flip_sin_to_cos=True, shift 0; f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def _linear(cfg, d_in, d_out, device, bias=True):
+    return nn.Linear(d_in, d_out, bias=bias, device=device, dtype=cfg.dtype)
+
+
+class MLPEmbedder(nn.Module):
+    """linear -> silu -> linear."""
+
+    def __init__(self, cfg, in_dim: int, hidden_dim: int, device=None):
+        super().__init__()
+        self.in_layer = _linear(cfg, in_dim, hidden_dim, device)
+        self.out_layer = _linear(cfg, hidden_dim, hidden_dim, device)
+
+    def forward(self, x):
+        return self.out_layer(F.silu(self.in_layer(x)))
+
+
+class QKNorm(nn.Module):
+    """Per-head RMSNorm scale of q or k (diffusers qk_norm='rms_norm')."""
+
+    def __init__(self, head_dim: int, eps: float, dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(head_dim, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
+
+
+def _modulate(x, shift, scale):
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def _norm_modulate(cfg, x, shift, scale):
+    """LayerNorm (no affine) + modulate: the ln_mod kernel with fused glue,
+    the two plain steps otherwise."""
+    if cfg.fused_glue:
+        return ln_mod(x, shift, scale)
+    return _modulate(layer_norm(x), shift, scale)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+class FluxDoubleBlock(nn.Module):
+    """Dual-stream MMDiT block: joint attention over cat(txt, img)."""
+
+    def __init__(self, cfg: FluxConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dim, hd = cfg.inner_dim, cfg.attention_head_dim
+        mlp = int(dim * cfg.mlp_ratio)
+        for s in ("img", "txt"):
+            self.add_module(f"{s}_mod", _linear(cfg, dim, 6 * dim, device))
+            for n in ("q", "k", "v", "attn_out"):
+                self.add_module(f"{s}_{n}", _linear(cfg, dim, dim, device))
+            for n in ("q_norm", "k_norm"):
+                self.add_module(f"{s}_{n}", QKNorm(hd, cfg.qk_norm_eps,
+                                                   cfg.dtype, device))
+            self.add_module(f"{s}_mlp_in", _linear(cfg, dim, mlp, device))
+            self.add_module(f"{s}_mlp_out", _linear(cfg, mlp, dim, device))
+
+    def mods(self, temb):
+        """The adaLN rows (img, txt), each (N, 6 * dim)."""
+        t = F.silu(temb)
+        return self.img_mod(t), self.txt_mod(t)
+
+    def forward(self, hidden, encoder, temb, rope, mods=None):
+        cfg = self.cfg
+        heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
+        mod, cmod = self.mods(temb) if mods is None else mods
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
+        (c_shift_msa, c_scale_msa, c_gate_msa,
+         c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmod.chunk(6, dim=-1)
+
+        img_in = _norm_modulate(cfg, hidden, shift_msa, scale_msa)
+        txt_in = _norm_modulate(cfg, encoder, c_shift_msa, c_scale_msa)
+        b, s_img, s_txt = hidden.shape[0], hidden.shape[1], encoder.shape[1]
+
+        def heads_of(x):
+            return x.view(b, -1, heads, hd)
+
+        q, k, v = (heads_of(self.img_q(img_in)), heads_of(self.img_k(img_in)),
+                   heads_of(self.img_v(img_in)))
+        cq, ck, cv = (heads_of(self.txt_q(txt_in)),
+                      heads_of(self.txt_k(txt_in)),
+                      heads_of(self.txt_v(txt_in)))
+        qk_norm = None
+        if cfg.fused_glue:
+            # per-row (S, D) scale tables, txt rows first: the norm itself
+            # runs inside the attention kernel
+            def rows(tw, iw):
+                return torch.cat([tw.float().expand(s_txt, hd),
+                                  iw.float().expand(s_img, hd)])
+            qk_norm = (rows(self.txt_q_norm.scale, self.img_q_norm.scale),
+                       rows(self.txt_k_norm.scale, self.img_k_norm.scale),
+                       cfg.qk_norm_eps)
+        else:
+            q, k = self.img_q_norm(q), self.img_k_norm(k)
+            cq, ck = self.txt_q_norm(cq), self.txt_k_norm(ck)
+
+        # joint attention: text tokens first, then image tokens
+        attn = attention(torch.cat([cq, q], 1), torch.cat([ck, k], 1),
+                         torch.cat([cv, v], 1),
+                         implementation=cfg.attention_impl, rope=rope,
+                         qk_norm=qk_norm)
+        attn = attn.reshape(b, s_txt + s_img, heads * hd)
+        txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
+
+        hidden = hidden + gate_msa[:, None, :] * self.img_attn_out(img_attn)
+        ff_in = _norm_modulate(cfg, hidden, shift_mlp, scale_mlp)
+        ff = self.img_mlp_out(_gelu(self.img_mlp_in(ff_in)))
+        hidden = hidden + gate_mlp[:, None, :] * ff
+
+        encoder = encoder + c_gate_msa[:, None, :] * self.txt_attn_out(txt_attn)
+        cff_in = _norm_modulate(cfg, encoder, c_shift_mlp, c_scale_mlp)
+        cff = self.txt_mlp_out(_gelu(self.txt_mlp_in(cff_in)))
+        encoder = encoder + c_gate_mlp[:, None, :] * cff
+        return hidden, encoder
+
+
+class FluxSingleBlock(nn.Module):
+    """Single-stream block: parallel attention + MLP with one fused output
+    projection over cat(attn, mlp)."""
+
+    def __init__(self, cfg: FluxConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dim, hd = cfg.inner_dim, cfg.attention_head_dim
+        mlp = int(dim * cfg.mlp_ratio)
+        self.mod = _linear(cfg, dim, 3 * dim, device)
+        self.q = _linear(cfg, dim, dim, device)
+        self.k = _linear(cfg, dim, dim, device)
+        self.v = _linear(cfg, dim, dim, device)
+        self.q_norm = QKNorm(hd, cfg.qk_norm_eps, cfg.dtype, device)
+        self.k_norm = QKNorm(hd, cfg.qk_norm_eps, cfg.dtype, device)
+        self.mlp_in = _linear(cfg, dim, mlp, device)
+        self.out = _linear(cfg, dim + mlp, dim, device)
+
+    def mods(self, temb):
+        return self.mod(F.silu(temb))
+
+    def forward(self, hidden, temb, rope, mods=None):
+        cfg = self.cfg
+        heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
+        mod = self.mods(temb) if mods is None else mods
+        shift, scale, gate = mod.chunk(3, dim=-1)
+        x = _norm_modulate(cfg, hidden, shift, scale)
+        b, s = hidden.shape[:2]
+        q = self.q(x).view(b, s, heads, hd)
+        k = self.k(x).view(b, s, heads, hd)
+        qk_norm = None
+        if cfg.fused_glue:
+            qk_norm = (self.q_norm.scale, self.k_norm.scale, cfg.qk_norm_eps)
+        else:
+            q, k = self.q_norm(q), self.k_norm(k)
+        v = self.v(x).view(b, s, heads, hd)
+        attn = attention(q, k, v, implementation=cfg.attention_impl,
+                         rope=rope, qk_norm=qk_norm).reshape(b, s, heads * hd)
+        mlp = _gelu(self.mlp_in(x))
+        out = self.out(torch.cat([attn, mlp], dim=-1))
+        return hidden + gate[:, None, :] * out
+
+
+class FluxTransformer2D(nn.Module):
+    """Top-level DiT. ``mods_only=True`` returns every step's adaLN rows
+    (``timestep`` is then the (T,) sigma vector); ``precomputed_mods``
+    feeds one step's rows back in."""
+
+    def __init__(self, cfg: FluxConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dim = cfg.inner_dim
+        self.x_embedder = _linear(cfg, cfg.in_channels, dim, device)
+        self.context_embedder = _linear(cfg, cfg.joint_attention_dim, dim,
+                                        device)
+        self.time_embedder = MLPEmbedder(cfg, cfg.time_embed_dim, dim, device)
+        self.pooled_embedder = MLPEmbedder(cfg, cfg.pooled_projection_dim,
+                                           dim, device)
+        if cfg.guidance_embeds:
+            self.guidance_embedder = MLPEmbedder(cfg, cfg.time_embed_dim,
+                                                 dim, device)
+        self.double_blocks = nn.ModuleList(
+            FluxDoubleBlock(cfg, device) for _ in range(cfg.num_layers))
+        self.single_blocks = nn.ModuleList(
+            FluxSingleBlock(cfg, device)
+            for _ in range(cfg.num_single_layers))
+        self.norm_out = _linear(cfg, dim, 2 * dim, device)
+        self.proj_out = _linear(cfg, dim, cfg.patch_size ** 2
+                                * cfg.in_channels, device)
+
+    def _temb(self, timestep, pooled, guidance):
+        cfg = self.cfg
+        temb = self.time_embedder(
+            timestep_embedding(timestep * 1000.0, cfg.time_embed_dim)
+            .to(cfg.dtype))
+        temb = temb + self.pooled_embedder(pooled.to(cfg.dtype))
+        if cfg.guidance_embeds:
+            if guidance is None:
+                raise ValueError("guidance_embeds=True requires guidance")
+            temb = temb + self.guidance_embedder(
+                timestep_embedding(guidance * 1000.0, cfg.time_embed_dim)
+                .to(cfg.dtype))
+        return temb
+
+    def forward(self, hidden_states, encoder_hidden_states,
+                pooled_projections, timestep, img_ids, txt_ids,
+                guidance: Optional[torch.Tensor] = None,
+                precomputed_mods: Optional[dict] = None,
+                mods_only: bool = False):
+        """hidden_states (B, S_img, in_channels); encoder_hidden_states
+        (B, S_txt, joint_dim); pooled (B, pooled_dim); timestep (B,) in
+        [0, 1]; img_ids (S_img, 3); txt_ids (S_txt, 3)."""
+        cfg = self.cfg
+        if mods_only:
+            batch, n_t = pooled_projections.shape[0], timestep.shape[0]
+            temb = self._temb(
+                timestep.repeat_interleave(batch),
+                pooled_projections.repeat(n_t, 1),
+                None if guidance is None else guidance.repeat(n_t))
+
+            def per_step(rows):          # (L, T*B, X) -> (T, L, B, X)
+                lyr, _, x = rows.shape
+                return rows.view(lyr, n_t, batch, x).transpose(0, 1)
+
+            dmods = [blk.mods(temb) for blk in self.double_blocks]
+            return {
+                "double_img": per_step(torch.stack([m[0] for m in dmods])),
+                "double_txt": per_step(torch.stack([m[1] for m in dmods])),
+                "single": per_step(torch.stack(
+                    [blk.mods(temb) for blk in self.single_blocks]))}
+
+        hidden = self.x_embedder(hidden_states.to(cfg.dtype))
+        encoder = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
+        temb = self._temb(timestep, pooled_projections, guidance)
+        rope = flux_rope_freqs_half(torch.cat([txt_ids, img_ids]),
+                                    cfg.axes_dims_rope)
+
+        m = precomputed_mods
+        for i, blk in enumerate(self.double_blocks):
+            hidden, encoder = blk(
+                hidden, encoder, temb, rope,
+                None if m is None else (m["double_img"][i],
+                                        m["double_txt"][i]))
+        joint = torch.cat([encoder, hidden], dim=1)
+        for i, blk in enumerate(self.single_blocks):
+            joint = blk(joint, temb, rope,
+                        None if m is None else m["single"][i])
+        hidden = joint[:, encoder.shape[1]:]
+
+        # AdaLayerNormContinuous: diffusers chunks SCALE first, then shift
+        scale, shift = self.norm_out(F.silu(temb)).chunk(2, dim=-1)
+        return self.proj_out(_norm_modulate(cfg, hidden, shift, scale))

@@ -1,0 +1,119 @@
+"""Qwen2-family causal LM, cache-less prefill exporting every hidden state,
+the counterpart of ``x2i_tpu/models/qwen2.py`` (decode and the KV cache
+are not ported yet).
+
+Biases sit on q/k/v but not on o; the embeddings are tied (no separate
+head); positions are ``cumsum(mask) - 1`` clipped at 0, and the rotation is
+applied before the attention kernel, which sees plain q/k.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x2i_torch.core.config import Qwen2Config
+from x2i_torch.ops.attention import attention
+from x2i_torch.ops.norms import rms_norm
+from x2i_torch.ops.rope import apply_rope_half, rope_freqs_half
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
+
+
+class Qwen2Block(nn.Module):
+    """One decoder layer."""
+
+    def __init__(self, cfg: Qwen2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                    cfg.head_dim)
+        hid, inter, ab = cfg.hidden_size, cfg.intermediate_size, \
+            cfg.attention_bias
+
+        def lin(i, o, bias):
+            return nn.Linear(i, o, bias=bias, device=device, dtype=cfg.dtype)
+
+        self.input_norm = RMSNorm(hid, cfg.rms_norm_eps, cfg.dtype, device)
+        self.q_proj = lin(hid, h * d, ab)
+        self.k_proj = lin(hid, hk * d, ab)
+        self.v_proj = lin(hid, hk * d, ab)
+        self.o_proj = lin(h * d, hid, False)
+        self.post_attn_norm = RMSNorm(hid, cfg.rms_norm_eps, cfg.dtype,
+                                      device)
+        self.gate_proj = lin(hid, inter, False)
+        self.up_proj = lin(hid, inter, False)
+        self.down_proj = lin(inter, hid, False)
+
+    def forward(self, hidden, cos, sin, kv_mask):
+        cfg = self.cfg
+        b, s, _ = hidden.shape
+        h, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                    cfg.head_dim)
+        x = self.input_norm(hidden)
+        q = apply_rope_half(self.q_proj(x).view(b, s, h, d), cos, sin)
+        k = apply_rope_half(self.k_proj(x).view(b, s, hk, d), cos, sin)
+        v = self.v_proj(x).view(b, s, hk, d)
+        attn = attention(q, k, v, kv_mask=kv_mask, causal=True,
+                         implementation=cfg.attention_impl)
+        hidden = hidden + self.o_proj(attn.reshape(b, s, h * d))
+        x = self.post_attn_norm(hidden)
+        return hidden + self.down_proj(F.silu(self.gate_proj(x))
+                                       * self.up_proj(x))
+
+
+class Qwen2LM(nn.Module):
+    """Embedding + blocks + final norm."""
+
+    def __init__(self, cfg: Qwen2Config, device=None):
+        super().__init__()
+        if not cfg.tie_word_embeddings:
+            raise NotImplementedError("an untied LM head is not ported yet")
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         device=device, dtype=cfg.dtype)
+        self.layers = nn.ModuleList(Qwen2Block(cfg, device)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                                  cfg.dtype, device)
+
+    def embed(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None):
+        """Prefill exporting all hidden states.
+
+        Returns (all_hidden (B, L+1, S, H): embeddings, blocks 1..L-1,
+        then the final-normed last block -- HF's hidden_states order --,
+        last_hidden (B, S, H) final-normed)."""
+        cfg = self.cfg
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        b, s, _ = inputs_embeds.shape
+        if attention_mask is None:
+            attention_mask = torch.ones((b, s), dtype=torch.bool,
+                                        device=inputs_embeds.device)
+        attention_mask = attention_mask.bool()
+        positions = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
+        cos, sin = rope_freqs_half(positions, cfg.head_dim, cfg.rope_theta)
+        states = [inputs_embeds]
+        hidden = inputs_embeds
+        for blk in self.layers:
+            hidden = blk(hidden, cos, sin, attention_mask)
+            states.append(hidden)
+        normed = self.final_norm(hidden)
+        states[-1] = normed
+        return torch.stack(states, dim=1), normed

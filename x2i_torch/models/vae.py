@@ -1,0 +1,160 @@
+"""FLUX AutoencoderKL decoder, the counterpart of the decode half of
+``x2i_tpu/models/vae.py`` (``encode`` and ``decode_tiled`` are not ported
+yet).
+
+Layout: the public ``AutoencoderKL.decode`` takes NHWC latents and returns
+NHWC pixels, as the JAX package does; inside, the convolutions run NCHW,
+PyTorch's layout, with one transpose at each end.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x2i_torch.core.config import VAEConfig
+
+
+class GroupNorm(nn.Module):
+    """flax GroupNorm numerics: f32 statistics with the fast variance
+    E[x^2] - E[x]^2 clipped at 0, scale and bias in f32, eps 1e-6."""
+
+    def __init__(self, groups: int, channels: int, dtype, device=None):
+        super().__init__()
+        self.groups = groups
+        self.scale = nn.Parameter(torch.ones(channels, dtype=dtype,
+                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):                         # (B, C, H, W)
+        b, c, h, w = x.shape
+        xf = x.float().view(b, self.groups, c // self.groups, h, w)
+        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+        var = (xf.square().mean(dim=(2, 3, 4), keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        y = (xf - mean) * torch.rsqrt(var + 1e-6)
+        y = y.view(b, c, h, w) * self.scale.float()[:, None, None] \
+            + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+def _conv(cin, cout, k, dtype, device):
+    return nn.Conv2d(cin, cout, k, padding=k // 2, device=device, dtype=dtype)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, groups: int, dtype, device=None):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, cin, dtype, device)
+        self.conv1 = _conv(cin, cout, 3, dtype, device)
+        self.norm2 = GroupNorm(groups, cout, dtype, device)
+        self.conv2 = _conv(cout, cout, 3, dtype, device)
+        if cin != cout:
+            self.conv_shortcut = _conv(cin, cout, 1, dtype, device)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class MidAttention(nn.Module):
+    """Single-head spatial self-attention of the mid block, in f32 and
+    chunked over query rows (one (B, 1024, HW) score block at a time).
+    Its head size (the channel count, 512) is outside the flash kernel's,
+    so it stays eager PyTorch, as it stays XLA in the JAX package."""
+
+    def __init__(self, c: int, groups: int, dtype, device=None):
+        super().__init__()
+        self.group_norm = GroupNorm(groups, c, dtype, device)
+        for n in ("to_q", "to_k", "to_v", "to_out"):
+            self.add_module(n, nn.Linear(c, c, device=device, dtype=dtype))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        y = self.group_norm(x).flatten(2).transpose(1, 2)     # (B, HW, C)
+        q, k, v = self.to_q(y), self.to_k(y).float(), self.to_v(y).float()
+        scale = 1.0 / math.sqrt(c)
+        n = h * w
+        chunk = next((cand for cand in (1024, 512, 256, 128)
+                      if n % cand == 0 and n > cand), n)
+        outs = []
+        for i in range(0, n, chunk):
+            s = (q[:, i:i + chunk].float() @ k.transpose(1, 2)) * scale
+            outs.append((torch.softmax(s, dim=-1) @ v).to(x.dtype))
+        o = self.to_out(torch.cat(outs, dim=1))
+        return x + o.transpose(1, 2).reshape(b, c, h, w)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        ch, g, dt = cfg.block_out_channels, cfg.norm_num_groups, cfg.dtype
+        self.cfg = cfg
+        self.conv_in = _conv(cfg.latent_channels, ch[-1], 3, dt, device)
+        self.mid_block_1 = ResnetBlock(ch[-1], ch[-1], g, dt, device)
+        if cfg.use_mid_attention:
+            self.mid_attn = MidAttention(ch[-1], g, dt, device)
+        self.mid_block_2 = ResnetBlock(ch[-1], ch[-1], g, dt, device)
+        rev = tuple(reversed(ch))
+        cin = ch[-1]
+        for i, c in enumerate(rev):
+            for j in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{i}_block_{j}",
+                                ResnetBlock(cin, c, g, dt, device))
+                cin = c
+            if i < len(rev) - 1:
+                self.add_module(f"up_{i}_upsample", _conv(c, c, 3, dt, device))
+        self.conv_norm_out = GroupNorm(g, ch[0], dt, device)
+        self.conv_out = _conv(ch[0], cfg.out_channels, 3, dt, device)
+
+    def forward(self, z):
+        """z (B, C, h, w) -> pixels (B, 3, 8h, 8w), NCHW."""
+        cfg = self.cfg
+        x = self.mid_block_1(self.conv_in(z))
+        if cfg.use_mid_attention:
+            x = self.mid_attn(x)
+        x = self.mid_block_2(x)
+        n_up = len(cfg.block_out_channels)
+        for i in range(n_up):
+            for j in range(cfg.layers_per_block + 1):
+                x = getattr(self, f"up_{i}_block_{j}")(x)
+            if i < n_up - 1:
+                x = F.interpolate(x, scale_factor=2, mode="nearest")
+                x = getattr(self, f"up_{i}_upsample")(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
+class AutoencoderKL(nn.Module):
+    """Decode with the FLUX latent scale/shift convention."""
+
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = Decoder(cfg, device)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled NHWC latents (B, h, w, C) -> NHWC pixels in [-1, 1].
+        A batch decodes one image at a time above 64x64 latents, as in the
+        JAX package, to hold the peak memory at the batch-1 footprint."""
+        z = z.to(self.cfg.dtype) / self.cfg.scaling_factor \
+            + self.cfg.shift_factor
+        z = z.permute(0, 3, 1, 2)
+        if z.shape[0] == 1 or z.shape[2] * z.shape[3] <= 64 * 64:
+            out = self.decoder(z)
+        else:
+            out = torch.cat([self.decoder(z[i:i + 1])
+                             for i in range(z.shape[0])])
+        return out.permute(0, 2, 3, 1)
+
+
+def postprocess(pixels: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> uint8."""
+    x = (pixels.float() / 2 + 0.5).clamp(0.0, 1.0)
+    return torch.round(x * 255.0).to(torch.uint8)

@@ -1,0 +1,86 @@
+"""Attention dispatcher, the counterpart of ``x2i_tpu/ops/attention.py``.
+
+Tensors are (batch, seq, heads, head_dim) at this boundary. The dispatcher
+picks the flash kernel by the JAX package's static rule (a kernel off the
+CPU when ``supported``; with ``implementation="kernel"`` always), pads odd
+lengths to a multiple of 128 with masked keys, and applies the qk RMSNorm
+and the rope here whenever the kernel route does not take them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from x2i_torch.ops import flash_attention as fa
+from x2i_torch.ops.norms import rms_norm
+from x2i_torch.ops.rope import apply_rope_half
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_mask: Optional[torch.Tensor] = None,
+              causal: bool = False,
+              scale: Optional[float] = None,
+              implementation: str = "auto",
+              rope=None, qk_norm=None) -> torch.Tensor:
+    """Multi-head (optionally grouped-query) attention.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hk, D); kv_mask: optional (B, Skv)
+    bool, True where the key is valid; implementation: "auto" | "kernel" |
+    "plain". rope: optional (cos, sin) half-layout tables, each (S, D) f32,
+    applied to q and k. qk_norm: optional (q_scale, k_scale, eps) with (D,)
+    or per-row (S, D) scales, applied before the rope.
+
+    Returns (B, Sq, Hq, D) in q.dtype."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+
+    kernel_ok = implementation == "kernel" or (
+        implementation == "auto" and q.device.type != "cpu")
+    use_kernel = kernel_ok and fa.supported((b, hq, sq, d), skv)
+    pad_q, pad_kv = (-sq) % 128, (-skv) % 128
+    pad_path = (not use_kernel and kernel_ok and not causal
+                and d in fa.HEAD_DIMS and bool(pad_q or pad_kv))
+
+    kernel_rope = (rope is not None and (use_kernel or pad_path)
+                   and sq == skv and not causal)
+    if qk_norm is not None and not kernel_rope:
+        qw, kw, eps = qk_norm
+        qw = qw if qw.dim() == 1 else qw[:, None, :]
+        kw = kw if kw.dim() == 1 else kw[:, None, :]
+        q, k = rms_norm(q, qw, eps), rms_norm(k, kw, eps)
+        qk_norm = None
+    if rope is not None and not kernel_rope:
+        q, k = apply_rope_half(q, *rope), apply_rope_half(k, *rope)
+        rope = None
+
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if pad_path:
+        qp = F.pad(qt, (0, 0, 0, pad_q))
+        kp = F.pad(kt, (0, 0, 0, pad_kv))
+        vp = F.pad(vt, (0, 0, 0, pad_kv))
+        mask = (kv_mask if kv_mask is not None else
+                torch.ones((b, skv), dtype=torch.bool, device=q.device))
+        mask = F.pad(mask.bool(), (0, pad_kv), value=False)
+        if rope is not None:
+            # zero table rows rotate pad rows to zero: pad keys are masked
+            # out, pad q rows are sliced off below
+            rope = tuple(F.pad(t, (0, 0, 0, pad_kv)) for t in rope)
+        if qk_norm is not None:
+            qk_norm = tuple(F.pad(w, (0, 0, 0, pad_kv)) if w.dim() == 2
+                            else w for w in qk_norm[:2]) + (qk_norm[2],)
+        out = fa.flash_attention(qp, kp, vp, kv_mask=mask, causal=False,
+                                 scale=scale, rope=rope,
+                                 qk_norm=qk_norm)[:, :, :sq]
+    elif use_kernel:
+        out = fa.flash_attention(qt, kt, vt, kv_mask=kv_mask, causal=causal,
+                                 scale=scale, rope=rope, qk_norm=qk_norm)
+    else:
+        out = fa.xla_attention(qt, kt, vt, kv_mask=kv_mask, causal=causal,
+                               scale=scale)
+    return out.transpose(1, 2)

@@ -1,0 +1,152 @@
+"""Weights for the port's modules: the bridge from a flax param tree, and
+random weights drawn from a ``torch.Generator``.
+
+The bridge takes the JAX package's param trees as nested dicts of numpy
+arrays and copies every leaf into the matching PyTorch parameter:
+
+* scan-stacked layers (a leading L axis: FLUX ``double_blocks`` and
+  ``single_blocks``, or ``single_blocks_{i}`` chunks, and Qwen2
+  ``layers/block``) fill one module of an ``nn.ModuleList`` per index;
+* Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
+* ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
+* Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
+* every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``)
+  -> the parameter of the same name.
+
+The FLUX q/k channels stay in the half-RoPE permutation the tree already
+carries. Every parameter must be filled exactly once and every leaf used,
+or the bridge raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+Tree = Mapping[str, Any]
+
+
+def _params(tree: Tree) -> Tree:
+    return tree["params"] if "params" in tree else tree
+
+
+def _slice(tree: Tree, i: int) -> Dict[str, Any]:
+    return {k: (_slice(v, i) if isinstance(v, Mapping) else v[i])
+            for k, v in tree.items()}
+
+
+def _stack_chunks(tree: Tree, name: str) -> Tree:
+    """Merge ``single_blocks_{i}`` chunk stacks back into one stack."""
+    chunks = sorted((k for k in tree if k.startswith(name + "_")),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    if not chunks:
+        return tree
+    out = {k: v for k, v in tree.items() if k not in chunks}
+
+    def cat(*subs):
+        if isinstance(subs[0], Mapping):
+            return {k: cat(*(s[k] for s in subs)) for k in subs[0]}
+        return np.concatenate(subs, axis=0)
+
+    out[name] = cat(*(tree[k] for k in chunks))
+    return out
+
+
+def _copy(param: torch.Tensor, value, name: str, filled: set):
+    value = torch.as_tensor(np.asarray(value, np.float32))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: flax shape {tuple(value.shape)} does not "
+                         f"fit {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value.to(param.dtype))
+    filled.add(id(param))
+
+
+def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        child = getattr(module, key, None)
+        if child is None:
+            raise KeyError(f"{name}: no such parameter or module in "
+                           f"{type(module).__name__}")
+        if isinstance(child, nn.ModuleList):
+            if set(val) == {"block"}:      # the Qwen2 scan's wrapper name
+                val = val["block"]
+            for i, sub in enumerate(child):
+                _load(sub, _slice(val, i), f"{name}.{i}.", filled)
+            lead = {np.shape(v)[0] for v in _leaves(val)}
+            if lead != {len(child)}:
+                raise ValueError(f"{name}: {lead} stacked layers for "
+                                 f"{len(child)} modules")
+        elif isinstance(child, nn.Linear):
+            _copy(child.weight, np.swapaxes(val["kernel"], -1, -2),
+                  name + ".kernel", filled)
+            if "bias" in val:
+                _copy(child.bias, val["bias"], name + ".bias", filled)
+            _only(val, {"kernel", "bias"}, name)
+        elif isinstance(child, nn.Conv2d):
+            _copy(child.weight, np.transpose(val["kernel"], (3, 2, 0, 1)),
+                  name + ".kernel", filled)
+            _copy(child.bias, val["bias"], name + ".bias", filled)
+            _only(val, {"kernel", "bias"}, name)
+        elif isinstance(child, nn.Embedding):
+            _copy(child.weight, val["embedding"], name + ".embedding",
+                  filled)
+            _only(val, {"embedding"}, name)
+        elif isinstance(child, nn.Module):
+            _load(child, val, name + ".", filled)
+        else:
+            _copy(child, val, name, filled)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _only(val: Tree, keys: set, name: str):
+    extra = set(val) - keys
+    if extra:
+        raise KeyError(f"{name}: unexpected leaves {sorted(extra)}")
+
+
+def load_flax(module: nn.Module, tree: Tree) -> nn.Module:
+    """Fill ``module`` from a flax param tree (numpy leaves); returns it.
+    Raises when a leaf has no home or a parameter stays unfilled."""
+    tree = _stack_chunks(_params(tree), "single_blocks")
+    filled: set = set()
+    _load(module, tree, "", filled)
+    missing = [n for n, p in module.named_parameters()
+               if id(p) not in filled]
+    if missing:
+        raise KeyError(f"parameters the flax tree did not fill: {missing}")
+    return module
+
+
+def random_init_(module: nn.Module, generator: torch.Generator
+                 ) -> nn.Module:
+    """Random weights in place: Linear and Conv2d weights normal with std
+    1/sqrt(fan_in), embeddings normal with std 1, biases 0, every other
+    parameter (norm scales, the proj's channel scale) 1 -- except norm
+    biases, 0."""
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                                   generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, 1.0, generator=generator)
+            else:
+                for name, p in mod.named_parameters(recurse=False):
+                    p.fill_(0.0 if name.endswith("bias") else 1.0)
+    return module

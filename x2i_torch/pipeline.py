@@ -1,0 +1,226 @@
+"""X2I text->image pipeline: LM hidden states -> proj -> FLUX -> VAE, the
+counterpart of ``x2i_tpu/pipeline.py`` on the text path.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device and no ``device="cpu"`` they raise.
+They set ``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False, so that float32 products and
+convolutions are float32 as in the JAX reference (the full-size path runs
+in bf16, where the flags change nothing).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from x2i_torch.core.config import (GenerationConfig, ProjConfig,
+                                   SchedulerConfig, VAEConfig,
+                                   tiny_flux_config, tiny_qwen2_config)
+from x2i_torch.diffusion.sampling import (denoise_flux,
+                                          prepare_latent_image_ids,
+                                          unpack_latents)
+from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from x2i_torch.models.flux import FluxTransformer2D
+from x2i_torch.models.proj import Proj
+from x2i_torch.models.qwen2 import Qwen2LM
+from x2i_torch.models.vae import AutoencoderKL, postprocess
+from x2i_torch.params import random_init_
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. Also fixes float32 matmuls and convolutions at full float32
+    (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "x2i_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple]):
+    """-> (encoder_fn, encoder_batch_fn) over a Qwen2 LM.
+
+    tokenize(text) -> (ids (S,) ints, mask (S,) bools); every prompt of a
+    batch must give the same S. Text requests only: image, video, audio
+    and use_answer inputs belong to encoders not ported yet."""
+    def encoder_batch_fn(requests: Sequence[Dict[str, Any]]):
+        for r in requests:
+            if any(r.get(k) for k in ("images", "video", "audio",
+                                      "use_answer")):
+                raise NotImplementedError(
+                    "only text prompts are ported to x2i_torch so far")
+        ids, mask = zip(*(tokenize(r.get("prompt") or "") for r in requests))
+        dev = lm.embed_tokens.weight.device
+        with torch.inference_mode():
+            states, _ = lm(torch.as_tensor(np.stack(ids), device=dev),
+                           attention_mask=torch.as_tensor(np.stack(mask),
+                                                          device=dev))
+        return states
+
+    def encoder_fn(inputs: Dict[str, Any]):
+        return encoder_batch_fn([inputs])
+
+    return encoder_fn, encoder_batch_fn
+
+
+@dataclasses.dataclass
+class X2IPipeline:
+    """encoder_fn(inputs: dict) -> (B, C, S, H) LM hidden-state stack;
+    encoder_batch_fn(list of dicts) -> the same for a batch, in one
+    prefill; the other stages are modules on one device."""
+
+    encoder_fn: Callable[[Dict[str, Any]], torch.Tensor]
+    proj: Proj
+    flux: FluxTransformer2D
+    vae: AutoencoderKL
+    scheduler: FlowMatchEulerScheduler
+    gen_cfg: GenerationConfig = GenerationConfig()
+    encoder_batch_fn: Optional[Callable] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.flux.x_embedder.weight.device
+
+    @torch.inference_mode()
+    def encode(self, encoder_inputs: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (pooled (B, 768), prompt_embeds (B, S, 4096))."""
+        return self.proj(self.encoder_fn(encoder_inputs))
+
+    @torch.inference_mode()
+    def encode_batch(self, requests: Sequence[Dict[str, Any]]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One LM prefill for the whole request list when encoder_batch_fn
+        is set, else one per request."""
+        if self.encoder_batch_fn is not None:
+            states = self.encoder_batch_fn(list(requests))
+        else:
+            states = torch.cat([self.encoder_fn(r) for r in requests])
+        return self.proj(states)
+
+    @torch.inference_mode()
+    def _generate(self, noise: torch.Tensor, prompt_embeds: torch.Tensor,
+                  pooled: torch.Tensor, height: int, width: int,
+                  num_steps: int) -> torch.Tensor:
+        """Packed noise (B, S_img, 64) -> pixels (B, H, W, 3) in [-1, 1]
+        before postprocess: all steps' adaLN modulations, the Euler
+        denoise, unpack, VAE decode."""
+        if self.gen_cfg.vae_tile_px and max(height, width) > \
+                self.gen_cfg.vae_tile_px:
+            raise NotImplementedError(
+                f"{height}x{width} needs the tiled VAE decode, which is "
+                f"not ported yet (above {self.gen_cfg.vae_tile_px} px)")
+        dev, dt = self.device, self.flux.cfg.dtype
+        img_ids = prepare_latent_image_ids(2 * (height // 16),
+                                           2 * (width // 16), dev)
+        txt_ids = torch.zeros((prompt_embeds.shape[1], 3),
+                              dtype=torch.float32, device=dev)
+        sigmas = self.scheduler.inference_sigmas(
+            num_steps, image_seq_len=noise.shape[1], device=dev)
+        gscale = (self.gen_cfg.guidance_scale
+                  if self.flux.cfg.guidance_embeds else None)
+        lat = denoise_flux(self.flux, noise.to(dev), prompt_embeds.to(dev, dt),
+                           pooled.to(dev, dt), sigmas, img_ids, txt_ids,
+                           guidance_scale=gscale)
+        lat = unpack_latents(lat, height, width)
+        return self.vae.decode(lat.permute(0, 2, 3, 1))
+
+    def generate(self, pooled: torch.Tensor, prompt_embeds: torch.Tensor,
+                 height: Optional[int] = None, width: Optional[int] = None,
+                 num_steps: Optional[int] = None, seed: Optional[int] = None
+                 ) -> np.ndarray:
+        """-> uint8 images (B, H, W, 3). The noise is drawn from a
+        torch.Generator on the pipeline's device, seeded with ``seed``."""
+        g = self.gen_cfg
+        height, width = height or g.height, width or g.width
+        num_steps = num_steps or g.num_inference_steps
+        seed = g.seed if seed is None else seed
+        s_img = (height // 16) * (width // 16)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        noise = torch.randn((prompt_embeds.shape[0], s_img,
+                             self.flux.cfg.in_channels), generator=gen,
+                            device=self.device, dtype=self.flux.cfg.dtype)
+        pixels = self._generate(noise, prompt_embeds, pooled, height, width,
+                                num_steps)
+        return postprocess(pixels).cpu().numpy()
+
+    def run_task(self, task: str, prompt: Optional[str] = None,
+                 **gen_kwargs) -> np.ndarray:
+        pooled, prompt_embeds = self.encode({"prompt": prompt, "task": task})
+        return self.generate(pooled, prompt_embeds, **gen_kwargs)
+
+    def text2image(self, prompt: str, **kw) -> np.ndarray:
+        return self.run_task("text2image", prompt=prompt, **kw)
+
+    def run_batch(self, requests, **gen_kwargs) -> np.ndarray:
+        """One batched LM prefill and one batched denoise for a request
+        list (the serving engine's call)."""
+        pooled, embeds = self.encode_batch(requests)
+        return self.generate(pooled, embeds, **gen_kwargs)
+
+    def serving_server(self, batch_size: int = 1, max_wait_s: float = 0.05,
+                       buckets=None, **gen_kwargs):
+        """-> x2i_torch.serve.BatchingServer over this pipeline."""
+        from x2i_torch.serve import BatchingServer
+        return BatchingServer(
+            lambda reqs: self.run_batch(reqs, **gen_kwargs),
+            batch_size=batch_size, max_wait_s=max_wait_s, buckets=buckets)
+
+
+def tiny_vae_config(**overrides) -> VAEConfig:
+    base = dict(block_out_channels=(32, 32, 32, 32), layers_per_block=1,
+                latent_channels=16, norm_num_groups=4)
+    base.update(overrides)
+    return VAEConfig(**base)
+
+
+def build_random_pipeline(scale: str = "tiny", seed: int = 0,
+                          gen_cfg: Optional[GenerationConfig] = None,
+                          device=None, dtype=torch.bfloat16
+                          ) -> X2IPipeline:
+    """Random-weight tiny pipeline for smoke runs without checkpoints,
+    mirroring the JAX ``build_random_pipeline("tiny")``: a tiny Qwen2 over
+    per-character token ids (crc32, stable across processes), padded to 32
+    tokens and all attended, as the JAX tiny encoder does."""
+    if scale != "tiny":
+        raise NotImplementedError("full-scale weights need checkpoints")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flux_cfg = tiny_flux_config(dtype=dtype, attention_impl="auto")
+    lm_cfg = tiny_qwen2_config(dtype=dtype, attention_impl="auto")
+    proj_cfg = ProjConfig(in_channels=lm_cfg.num_layers_with_embedding,
+                          input_dim=lm_cfg.hidden_size,
+                          output_dim0=flux_cfg.pooled_projection_dim,
+                          output_dim1=flux_cfg.joint_attention_dim,
+                          dtype=dtype)
+    seq = 32
+
+    def tokenize(text: str):
+        ids = np.zeros(seq, np.int64)
+        toks = [zlib.crc32(c.encode()) % lm_cfg.vocab_size
+                for c in (text or "")][:seq]
+        ids[:len(toks)] = toks
+        return ids, np.ones(seq, bool)
+
+    lm = random_init_(Qwen2LM(lm_cfg, dev), gen)
+    encoder_fn, encoder_batch_fn = lm_text_encoder(lm, tokenize)
+    return X2IPipeline(
+        encoder_fn=encoder_fn,
+        proj=random_init_(Proj(proj_cfg, dev), gen),
+        flux=random_init_(FluxTransformer2D(flux_cfg, dev), gen),
+        vae=random_init_(AutoencoderKL(tiny_vae_config(dtype=dtype), dev),
+                         gen),
+        scheduler=FlowMatchEulerScheduler(SchedulerConfig(shift=1.0)),
+        gen_cfg=gen_cfg or GenerationConfig(height=64, width=64,
+                                            num_inference_steps=4),
+        encoder_batch_fn=encoder_batch_fn)

@@ -28,7 +28,9 @@ def _imports(path: Path):
 def test_the_port_has_modules_to_check():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"x2i_torch/pipeline.py", "x2i_torch/ops/flash_attention.py",
-            "x2i_torch/ops/fused_glue.py", "chip_smoke.py"} <= names
+            "x2i_torch/ops/fused_glue.py", "x2i_torch/ops/quant.py",
+            "x2i_torch/ops/int8_gemm.py", "x2i_torch/ops/cuda_lib.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -10,7 +10,14 @@ mode. Tolerances: flash attention within 1e-2 max and 1e-3 mean absolute
 of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body); ln_mod's normalized row
 within one bf16 step (2^-7 relative, 1e-4 absolute) of the plain
-version's, and its modulate bit for bit.
+version's, and its modulate bit for bit. quant_rows (K8) bit for bit
+(its max, IEEE divisions and rounding leave no room); ln_mod_quant (K6)
+codes within one step, at most 1% flipped, scales within one bf16 step
+(a normalized value can flip by one bf16 step, as in ln_mod); gelu_quant
+(K7) the JAX package's bar: codes within one step, at most 10% flipped,
+scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
+tanhf). The int8 GEMM: its int32 sum exact, its bf16 output within one
+bf16 step.
 """
 
 import pytest
@@ -20,6 +27,7 @@ from x2i_torch.diffusion.sampling import prepare_latent_image_ids
 from x2i_torch.ops import attention as tattn
 from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
+from x2i_torch.ops import int8_gemm as tgemm
 from x2i_torch.ops.rope import flux_rope_freqs_half
 
 BF = torch.bfloat16
@@ -154,3 +162,137 @@ def test_ln_mod_kernel(dev, rows):
     assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
     with pytest.raises(ValueError, match="bf16"):
         tfg.ln_mod(x.float(), shift.float(), scale.float())
+
+
+def _rows(g, dev, *shape, mean=3.0):
+    """Rows x * sigma + mu, sigma per row over four decades."""
+    lead = (*shape[:-1], 1)
+    sigma = 10.0 ** (4 * torch.rand(lead, generator=g, device=dev) - 2)
+    mu = mean * sigma * torch.randn(lead, generator=g, device=dev)
+    return (torch.randn(shape, generator=g, device=dev) * sigma + mu).to(BF)
+
+
+def _codes_close(got, want, flips):
+    d = (got[0].int() - want[0].int()).abs()
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    assert got[1].shape == want[1].shape
+    assert d.max().item() <= 1
+    assert (d != 0).float().mean().item() <= flips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 300])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_ln_mod_quant_kernel(dev, rows, batch):
+    g = torch.Generator(device=dev).manual_seed(rows + batch)
+    x = _rows(g, dev, batch, rows, 3072)
+    mod = _randn(g, dev, batch, 6 * 3072)
+    shift, scale = mod[:, :3072], mod[:, 3072:6144]
+    before = tfg.LAUNCHES["ln_mod_quant"]
+    got = tfg.ln_mod_quant(x, shift, scale)
+    assert tfg.LAUNCHES["ln_mod_quant"] == before + 1
+    want = tfg.ln_mod_quant_plain(x, shift, scale)
+    _codes_close(got, want, 0.01)
+    rel = (got[1] - want[1]).abs() / want[1]
+    assert rel.max().item() <= 2.0 ** -7
+    with pytest.raises(ValueError, match="bf16"):
+        tfg.ln_mod_quant(x.float(), shift.float(), scale.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 300, 12288), (4, 3072), (1, 64)])
+def test_gelu_and_quant_rows_kernels(dev, shape):
+    """(B, S, D) and the (N, D) rows of the unfused layers' inputs."""
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = _rows(g, dev, *shape, mean=0.0)
+    before = dict(tfg.LAUNCHES)
+    got = tfg.gelu_quant(x)
+    _codes_close(got, tfg.gelu_quant_plain(x), 0.10)
+    torch.testing.assert_close(got[1], tfg.gelu_quant_plain(x)[1],
+                               rtol=2e-2, atol=0)
+    q, a = tfg.quant_rows(x)
+    q_plain, a_plain = tfg.quant_rows_plain(x)
+    assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+    assert tfg.LAUNCHES["gelu_quant"] == before["gelu_quant"] + 1
+    assert tfg.LAUNCHES["quant_rows"] == before["quant_rows"] + 1
+
+
+def _gemm_inputs(g, dev, m, k, n, width=None):
+    xq, a = tfg.quant_rows_plain(_rows(g, dev, m, k))
+    w = torch.randint(-127, 128, (n, width or k), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = (torch.rand(n, generator=g, device=dev) + 0.5) / 127 / 64
+    bias = _randn(g, dev, n)
+    return xq, a, w, scale, bias
+
+
+def _bf16_close(got, want):
+    assert got.dtype == BF and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * want.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 3072, 640), (4, 3072, 1152),
+                                   (1, 256, 3072), (129, 64, 64)])
+def test_int8_gemm_kernel(dev, m, k, n):
+    """Ragged M, the M = 4 adaLN rows, M = 1, K = 64 / N = 64 (the DiT's
+    x_embedder and proj_out)."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq, a, w, scale, bias = _gemm_inputs(g, dev, m, k, n)
+    assert torch.equal(tgemm.int8_matmul_acc(xq, w),
+                       tgemm.int8_matmul_acc_plain(xq, w))
+    before = tgemm.GEMM.launches["int8_gemm"]
+    for b in (None, bias):
+        got = tgemm.int8_linear(xq, a, w, scale, bias=b)
+        _bf16_close(got, tgemm.int8_linear_plain(xq, a, w, scale, bias=b))
+    assert tgemm.GEMM.launches["int8_gemm"] == before + 2
+
+
+@pytest.mark.cuda
+def test_int8_gemm_k_offset_chunks(dev):
+    """The single block's output layer: two chunks, K-slices of one
+    (N, 3072 + 12288)-shaped weight, the second adding the first's bf16
+    part and the bias in its epilogue."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    m, n = 200, 384
+    xa, aa, w, scale, bias = _gemm_inputs(g, dev, m, 3072, n, 3072 + 12288)
+    xb, ab = tfg.quant_rows_plain(_rows(g, dev, m, 12288))
+    assert torch.equal(tgemm.int8_matmul_acc(xb, w, k0=3072),
+                       tgemm.int8_matmul_acc_plain(xb, w, k0=3072))
+    part = tgemm.int8_linear(xa, aa, w, scale)
+    got = tgemm.int8_linear(xb, ab, w, scale, bias=bias, k0=3072,
+                            addend=part)
+    want_part = tgemm.int8_linear_plain(xa, aa, w, scale)
+    assert torch.equal(part, want_part)
+    want = tgemm.int8_linear_plain(xb, ab, w, scale, bias=bias, k0=3072,
+                                   addend=want_part)
+    _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_refuses_what_it_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    xq, a, w, scale, _ = _gemm_inputs(g, dev, 8, 128, 64)
+    with pytest.raises(ValueError, match="unsupported"):
+        tgemm.int8_linear(xq[:, :96], a, w, scale)           # K % 64
+    with pytest.raises(ValueError, match="unsupported"):
+        tgemm.int8_linear(xq, a, w[:60], scale[:60])         # N % 8
+    with pytest.raises(ValueError, match="unsupported"):
+        tgemm.int8_linear(xq[:, :64], a, w, scale, k0=8)     # k0 % 16
+    with pytest.raises(ValueError, match="bf16"):
+        tgemm.int8_linear(xq, a, w, scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="int8"):
+        tgemm.int8_linear(xq.float(), a, w, scale)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_on_the_card_matches_the_cpu(dev):
+    """quantize_kernel gives the same codes and scales on the card as on
+    the CPU (IEEE divisions on both, round half to even)."""
+    from x2i_torch.ops.quant import quantize_kernel
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn((3072, 640), generator=g, device=dev) / 3072 ** 0.5
+    q, s = quantize_kernel(w)
+    q_cpu, s_cpu = quantize_kernel(w.cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)

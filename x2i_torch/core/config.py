@@ -2,7 +2,7 @@
 
 Own copies of the dataclasses of ``x2i_tpu/core/config.py`` that the
 text->image serving path reads, with torch dtypes. Only the fields this
-path uses are here: no quantization, ring or sharding fields yet.
+path uses are here: no ring or sharding fields yet.
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -14,14 +14,36 @@ allow it and the plain attention on the CPU (the JAX rule: Pallas off the
 CPU), "kernel" always calls the kernel's wrapper (on a CPU tensor that is
 the kernel's plain version, the counterpart of Pallas interpret mode),
 "plain" always takes the plain attention.
+
+``quantized`` is the JAX field (False | "w8" | "w8a8"; w4 and w4a8 are
+not ported). With ``fused_glue`` and "w8a8" the DiT's glue is the
+quantizing kernels K6/K7/K8 (the JAX ``_use_fused_glue`` mode "quant"),
+otherwise ``ln_mod`` (mode "ln"). ``quant_impl`` picks the route of the
+int8 quantization and product: "auto" takes the kernels on a CUDA tensor
+and their plain versions on the CPU, "plain" always the plain versions
+(the wrappers have no CPU route of their own for a "kernel" value to
+force, as ``attention_impl`` has).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+QUANT_MODES = ("w8", "w8a8")
+
+
+def quant_mode(quantized) -> Optional[str]:
+    """False | "w8" | "w8a8" -> None or the mode; raises on the modes not
+    ported yet (w4, w4a8)."""
+    if not quantized:
+        return None
+    if quantized not in QUANT_MODES:
+        raise NotImplementedError(f"quantized={quantized!r}: only "
+                                  f"{QUANT_MODES} are ported")
+    return quantized
 
 
 @dataclass(frozen=True)
@@ -44,13 +66,29 @@ class FluxConfig:
     qk_norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     attention_impl: str = "auto"     # "auto" | "kernel" | "plain"
-    fused_glue: bool = False         # ln_mod kernel for LayerNorm+modulate
-                                     # and the qk RMSNorm folded into the
-                                     # attention kernel (inference only)
+    fused_glue: bool = False         # glue kernels for LayerNorm+modulate
+                                     # (and gelu and the activation
+                                     # quantization in w8a8) and the qk
+                                     # RMSNorm folded into the attention
+                                     # kernel (inference only)
+    quantized: Any = False           # False | "w8" | "w8a8"
+    quant_impl: str = "auto"         # "auto" | "plain"
+
+    def __post_init__(self):
+        quant_mode(self.quantized)
+        if self.quant_impl not in ("auto", "plain"):
+            raise ValueError(f"quant_impl={self.quant_impl!r}")
 
     @property
     def inner_dim(self) -> int:
         return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def glue(self):
+        """The fused glue mode: None (unfused), "ln" or "quant"."""
+        if not self.fused_glue:
+            return None
+        return "quant" if self.quantized == "w8a8" else "ln"
 
 
 @dataclass(frozen=True)

@@ -5,6 +5,11 @@ blocks, AdaLN-Zero modulation, 3-axis RoPE in the half layout.
 The JAX blocks run under ``nn.scan`` with stacked parameters; here they are
 ``nn.ModuleList``s, one module per layer (``x2i_torch.params`` unstacks the
 JAX tree). The FLUX MLPs use the tanh form of gelu (flax ``nn.gelu``).
+Every dense layer is ``make_linear(cfg.quantized)``: ``nn.Linear``, or a
+``QuantLinear`` in w8 or w8a8. In the w8a8 "quant" glue mode the inputs
+of the attention and MLP projections come pre-quantized from the glue
+kernels K6/K7/K8 (``ops/fused_glue.py``), and the single block's output
+layer takes ``[attn, mlp]`` as two chunks, never their concatenation.
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from torch import nn
 
 from x2i_torch.core.config import FluxConfig
 from x2i_torch.ops.attention import attention
-from x2i_torch.ops.fused_glue import ln_mod
+from x2i_torch.ops.fused_glue import (gelu_quant, ln_mod, ln_mod_quant,
+                                      quant_rows)
 from x2i_torch.ops.norms import layer_norm, rms_norm
+from x2i_torch.ops.quant import make_linear
 from x2i_torch.ops.rope import flux_rope_freqs_half
 
 
@@ -35,7 +42,8 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 
 def _linear(cfg, d_in, d_out, device, bias=True):
-    return nn.Linear(d_in, d_out, bias=bias, device=device, dtype=cfg.dtype)
+    return make_linear(cfg.quantized, cfg.dtype, cfg.quant_impl)(
+        d_in, d_out, bias=bias, device=device)
 
 
 class MLPEmbedder(nn.Module):
@@ -68,11 +76,27 @@ def _modulate(x, shift, scale):
 
 
 def _norm_modulate(cfg, x, shift, scale):
-    """LayerNorm (no affine) + modulate: the ln_mod kernel with fused glue,
-    the two plain steps otherwise."""
-    if cfg.fused_glue:
+    """LayerNorm (no affine) + modulate: the ln_mod kernel in the "ln" glue
+    mode, ln_mod_quant's (codes, row scales) in "quant", the two plain
+    steps otherwise."""
+    if cfg.glue == "quant":
+        return ln_mod_quant(x, shift, scale, impl=cfg.quant_impl)
+    if cfg.glue == "ln":
         return ln_mod(x, shift, scale)
     return _modulate(layer_norm(x), shift, scale)
+
+
+def _mlp_out(cfg, layer, mid):
+    """gelu, then the MLP's output layer (through gelu_quant in "quant")."""
+    if cfg.glue == "quant":
+        return layer(gelu_quant(mid, impl=cfg.quant_impl))
+    return layer(_gelu(mid))
+
+
+def _attn_out(cfg, layer, attn):
+    if cfg.glue == "quant":
+        return layer(quant_rows(attn, impl=cfg.quant_impl))
+    return layer(attn)
 
 
 def _gelu(x):
@@ -145,14 +169,16 @@ class FluxDoubleBlock(nn.Module):
         attn = attn.reshape(b, s_txt + s_img, heads * hd)
         txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
 
-        hidden = hidden + gate_msa[:, None, :] * self.img_attn_out(img_attn)
+        hidden = hidden + gate_msa[:, None, :] * _attn_out(
+            cfg, self.img_attn_out, img_attn)
         ff_in = _norm_modulate(cfg, hidden, shift_mlp, scale_mlp)
-        ff = self.img_mlp_out(_gelu(self.img_mlp_in(ff_in)))
+        ff = _mlp_out(cfg, self.img_mlp_out, self.img_mlp_in(ff_in))
         hidden = hidden + gate_mlp[:, None, :] * ff
 
-        encoder = encoder + c_gate_msa[:, None, :] * self.txt_attn_out(txt_attn)
+        encoder = encoder + c_gate_msa[:, None, :] * _attn_out(
+            cfg, self.txt_attn_out, txt_attn)
         cff_in = _norm_modulate(cfg, encoder, c_shift_mlp, c_scale_mlp)
-        cff = self.txt_mlp_out(_gelu(self.txt_mlp_in(cff_in)))
+        cff = _mlp_out(cfg, self.txt_mlp_out, self.txt_mlp_in(cff_in))
         encoder = encoder + c_gate_mlp[:, None, :] * cff
         return hidden, encoder
 
@@ -195,8 +221,14 @@ class FluxSingleBlock(nn.Module):
         v = self.v(x).view(b, s, heads, hd)
         attn = attention(q, k, v, implementation=cfg.attention_impl,
                          rope=rope, qk_norm=qk_norm).reshape(b, s, heads * hd)
-        mlp = _gelu(self.mlp_in(x))
-        out = self.out(torch.cat([attn, mlp], dim=-1))
+        if cfg.glue == "quant":
+            # two pre-quantized chunks, K-slices of the one output weight
+            impl = cfg.quant_impl
+            mlp = gelu_quant(self.mlp_in(x), impl=impl)
+            out = self.out([quant_rows(attn, impl=impl), mlp])
+        else:
+            mlp = _gelu(self.mlp_in(x))
+            out = self.out(torch.cat([attn, mlp], dim=-1))
         return hidden + gate[:, None, :] * out
 
 

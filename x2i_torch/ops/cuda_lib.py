@@ -1,0 +1,76 @@
+"""Build and load one of the port's CUDA sources (``x2i_torch/csrc/*.cu``).
+
+Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, under the ignored
+``x2i_torch/_build/``, and loaded with ``ctypes``. The library's name
+carries a hash of the source and the flags, so an edit rebuilds it. Each
+library keeps the launch counts of its kernels, which its wrappers raise
+by one per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+class CudaLibrary:
+    """One source file's library (built once per process) and its launch
+    counts. ``bind(lib)`` sets the ctypes signatures of its C functions."""
+
+    def __init__(self, source: str, stem: str, kernels: Sequence[str],
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.src = CSRC / source
+        self.stem = stem
+        self.launches = {name: 0 for name in kernels}
+        self.build_log = ""
+        self._bind = bind
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.src.read_bytes() + " ".join(NVCC_FLAGS)
+                                .encode()).hexdigest()[:12]
+        return BUILD_DIR / f"{self.stem}_{digest}.so"
+
+    def build(self) -> Path:
+        """Compile the source with nvcc for sm_90a (seconds)."""
+        path = self.library_path()
+        if path.exists():
+            return path
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                               str(self.src)],
+                              capture_output=True, text=True, check=False)
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.src}:\n"
+                               f"{self.build_log}")
+        os.replace(tmp, path)
+        return path
+
+    def lib(self):
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self._bind(lib)
+                self._lib = lib
+        return self._lib
+
+    def reset_launches(self):
+        for key in self.launches:
+            self.launches[key] = 0

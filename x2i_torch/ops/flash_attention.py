@@ -30,26 +30,16 @@ built from the repository's source with ``nvcc`` at first use, into
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from x2i_torch.ops.cuda_lib import CudaLibrary
+
 NEG_INF = -1e30
 LOG2_E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 
 
 def supported(q_shape, kv_seq: int) -> bool:
@@ -139,57 +129,19 @@ def xla_attention(q, k, v, kv_mask=None, causal=False, scale=None
     return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
 
 
-class FlashKernel:
-    """The compiled library (built once per process) and its launch
-    counts: ``flash_fwd_rope`` for the rope variant (K1a, FLUX), and
-    ``flash_fwd`` for the other (K1b, LM prefill)."""
-
-    def __init__(self):
-        self.launches = {"flash_fwd_rope": 0, "flash_fwd": 0}
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS)
-                                .encode()).hexdigest()[:12]
-        return BUILD_DIR / f"libx2i_flash_{digest}.so"
-
-    def build(self) -> Path:
-        """Compile csrc/flash_fwd.cu with nvcc for sm_90a (seconds)."""
-        path = self.library_path()
-        if path.exists():
-            return path
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True, check=False)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{self.build_log}")
-        os.replace(tmp, path)
-        return path
-
-    def lib(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_float)
-                lib.x2i_flash_fwd.argtypes = [
-                    p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
-                    i, i, i, i, i, i, i, i, f, f, p]
-                lib.x2i_flash_fwd.restype = ctypes.c_int
-                self._lib = lib
-        return self._lib
-
-    def reset_launches(self):
-        for key in self.launches:
-            self.launches[key] = 0
+def _bind(lib):
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    lib.x2i_flash_fwd.argtypes = [
+        p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
+        i, i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_fwd.restype = ctypes.c_int
 
 
-KERNEL = FlashKernel()
+# the compiled library and its launch counts: ``flash_fwd_rope`` for the
+# rope variant (K1a, FLUX), ``flash_fwd`` for the other (K1b, LM prefill)
+KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
+                     ("flash_fwd_rope", "flash_fwd"), _bind)
 
 
 def _check(name, t, ndim):

@@ -1,22 +1,50 @@
-"""LayerNorm + AdaLN modulate in one pass: the Triton kernel K5, its plain
-PyTorch version and the wrapper that picks between them.
+"""Row-local glue kernels of the DiT in Triton, their plain PyTorch
+versions, and the wrappers that pick between them.
 
-Replaces the TPU kernel ``x2i_tpu/ops/fused_glue.py::_ln_mod_kernel``
-(body ``_ln_modulate``), launched through ``_rows_call`` by ``ln_mod``.
-It computes ``modulate(layer_norm(x), shift, scale)`` with f32 row
-statistics (eps 1e-6, no affine), the normalized row rounded to x.dtype
-before ``* (1 + scale) + shift`` -- the rounding point of the unfused path,
-whose ``layer_norm`` returns the input dtype.
+Counterparts of the TPU kernels of ``x2i_tpu/ops/fused_glue.py``, all
+launched there through ``_rows_call``:
 
-What bounds it on an H100: a (1, 4608, 3072) bf16 row block is one read
-and one write of 28 MB each, against a few FLOP per byte, so memory
-bandwidth bounds it (about 17 us at the 3.35 TB/s data-sheet rate).
+* K5 ``ln_mod`` (``_ln_mod_kernel``): ``modulate(layer_norm(x), shift,
+  scale)`` in x.dtype, the glue of the bf16 and w8 paths;
+* K6 ``ln_mod_quant`` (``_ln_mod_quant_kernel``): the same, then per-row
+  int8 quantization;
+* K7 ``gelu_quant`` (``_gelu_quant_kernel``): tanh-gelu rounded to x.dtype,
+  then per-row int8 quantization;
+* K8 ``quant_rows`` (``_quant_kernel``): per-row int8 quantization.
 
-Design: one Triton program per (batch, token) row, the whole 3072-wide row
-in one masked 4096-wide block, so each byte of x is read once and each
-byte of the output written once, which is all the bound allows. Triton is
-imported inside the launching function: a machine without it can still
-import this module and run the plain version.
+The LayerNorm has f32 row statistics (eps 1e-6, no affine) and rounds the
+normalized row to x.dtype before ``* (1 + scale) + shift``, the rounding
+point of the unfused path, whose ``layer_norm`` returns the input dtype.
+K5 and K6 share one Triton body for it, as the TPU kernels share
+``_ln_modulate``, so that their numerics cannot drift apart. The
+quantization is the w8a8 mode's dynamic one (``x2i_tpu/ops/quant.py:39-42``)::
+
+    a_scale = max(max|row|, 1e-6) / 127        (f32, IEEE division)
+    codes   = clip(round_half_even(row / a_scale), -127, 127)  (int8)
+
+and returns ``(codes (..., D) int8, a_scale (..., 1) f32)``, the
+pre-quantized input form of ``QuantLinear``.
+
+What bounds them on an H100: each reads a bf16 row block once and writes
+it once (bf16, or int8 plus a scale per row) against a few operations per
+byte, so memory bandwidth does: at 4608 rows about 17 us for K5, 13 us
+for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s).
+
+Design: one Triton program per (batch, token) row, the whole row in one
+masked power-of-two block, so each byte is read once and written once,
+which is all the bound allows. Rounding to bf16 is done with integer ops
+on the f32 bits, so that the compiler can fold no f32 -> bf16 -> f32 round
+trip away; the quantization's divisions are ``div_rn`` (Triton's ``/``
+on f32 is an approximate division) and its rounding is ``rint`` (a float
+-> int cast truncates). K7's gelu alone uses the approximate ``/`` and
+``exp``: the bf16 rounding after it absorbs most of their ulps, and the
+JAX package's bar for K7 (codes within one step, at most 10% flipped)
+covers the rest. Triton is imported inside the launching function: a machine
+without it can still import this module and run the plain versions.
+
+Every wrapper takes its plain version for a CPU tensor or for
+``impl="plain"`` (the plain route of ``FluxConfig.quant_impl``), and
+launches its kernel otherwise.
 """
 
 from __future__ import annotations
@@ -25,15 +53,20 @@ import functools
 import os
 
 import torch
+import torch.nn.functional as F
 
-from x2i_torch.ops.flash_attention import BUILD_DIR
+from x2i_torch.ops.cuda_lib import BUILD_DIR
 
-LAUNCHES = {"ln_mod": 0}
+LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
+            "quant_rows": 0}
 
 
 def reset_launches():
-    LAUNCHES["ln_mod"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
+
+# ------------------------------------------------------------------ plain
 
 def ln_mod_plain(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
@@ -45,80 +78,238 @@ def ln_mod_plain(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     return y * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
+def quant_rows_plain(x: torch.Tensor):
+    """Per-row int8 quantization of (..., D) -> (int8 (..., D), f32
+    (..., 1)), bit for bit the dynamic quantization of the JAX
+    ``w8a8_matmul``."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient (the
+    # divisor is filled on the device: a copy from the host would block)
+    a_scale = amax / amax.new_full((), 127.0)
+    q = torch.round(xf / a_scale).clamp(-127.0, 127.0).to(torch.int8)
+    return q, a_scale
+
+
+def ln_mod_quant_plain(x, shift, scale, eps: float = 1e-6):
+    return quant_rows_plain(ln_mod_plain(x, shift, scale, eps))
+
+
+def gelu_quant_plain(x: torch.Tensor):
+    """tanh-gelu in f32, rounded to x.dtype (the unfused gelu's output),
+    then quantized."""
+    return quant_rows_plain(F.gelu(x.float(), approximate="tanh")
+                            .to(x.dtype))
+
+
+# ----------------------------------------------------------------- Triton
+
 @functools.cache
 def _triton_kernel():
-    # Triton's compile cache goes with the CUDA build, inside the checkout
+    # Triton's compile cache goes with the CUDA builds, inside the checkout
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
     import triton
     import triton.language as tl
+    try:
+        from triton.language.extra import libdevice
+    except ImportError:              # Triton before 3.0
+        from triton.language.extra.cuda import libdevice
 
     @triton.jit
-    def ln_mod_kernel(x_ptr, shift_ptr, scale_ptr, out_ptr, seq, dim,
-                      stride_xb, stride_xs, stride_eb, eps,
-                      BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
+    def round_bf16(v):
+        # nearest even on the bf16 grid, with integer ops on the f32 bits
+        u = v.to(tl.uint32, bitcast=True)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).to(
+            tl.float32, bitcast=True)
+
+    @triton.jit
+    def load_row(x_ptr, row, seq, dim, stride_xb, stride_xs,
+                 BLOCK_D: tl.constexpr):
         b = row // seq
         s = row % seq
         cols = tl.arange(0, BLOCK_D)
         valid = cols < dim
         x = tl.load(x_ptr + b * stride_xb + s * stride_xs + cols,
                     mask=valid, other=0.0).to(tl.float32)
+        return x, b, cols, valid
+
+    @triton.jit
+    def ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq, dim, stride_xb,
+                    stride_xs, stride_eb, eps, BLOCK_D: tl.constexpr):
+        # the shared LN + modulate body of K5 and K6: the modulated row in
+        # f32, each intermediate rounded to bf16 where the plain version
+        # rounds it in x.dtype
+        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
+                                     stride_xs, BLOCK_D)
         mean = tl.sum(x, axis=0) / dim
         xc = tl.where(valid, x - mean, 0.0)
         var = tl.sum(xc * xc, axis=0) / dim
-        dt = out_ptr.dtype.element_ty
-        # Each intermediate is rounded to x.dtype's grid (bf16, nearest
-        # even) with integer ops on the f32 bits, so that the compiler can
-        # fold no f32 -> bf16 -> f32 round trip away: the same per-op
-        # rounding as the plain version in x.dtype.
-        u = (xc * tl.rsqrt(var + eps)).to(tl.uint32, bitcast=True)
-        y = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).to(
-            tl.float32, bitcast=True)
+        y = round_bf16(xc * tl.rsqrt(var + eps))
         sc = tl.load(scale_ptr + b * stride_eb + cols, mask=valid,
                      other=0.0).to(tl.float32)
         sh = tl.load(shift_ptr + b * stride_eb + cols, mask=valid,
                      other=0.0).to(tl.float32)
-        u = (1.0 + sc).to(tl.uint32, bitcast=True)
-        t = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).to(
-            tl.float32, bitcast=True)
-        u = (y * t).to(tl.uint32, bitcast=True)
-        m = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).to(
-            tl.float32, bitcast=True)
-        o = (m + sh).to(dt)
-        tl.store(out_ptr + row * dim + cols, o, mask=valid)
+        m = round_bf16(y * round_bf16(1.0 + sc))
+        return round_bf16(m + sh), cols, valid
 
-    return triton, ln_mod_kernel
+    @triton.jit
+    def quantize_row(v, valid, cols, row, dim, q_ptr, s_ptr):
+        amax = tl.max(tl.where(valid, tl.abs(v), 0.0), axis=0)
+        a = libdevice.div_rn(tl.maximum(amax, 1e-6), 127.0)
+        q = libdevice.rint(libdevice.div_rn(v, a))
+        q = tl.minimum(tl.maximum(q, -127.0), 127.0)
+        tl.store(q_ptr + row * dim + cols, q.to(tl.int8), mask=valid)
+        tl.store(s_ptr + row, a)
+
+    @triton.jit
+    def ln_mod_kernel(x_ptr, shift_ptr, scale_ptr, out_ptr, seq, dim,
+                      stride_xb, stride_xs, stride_eb, eps,
+                      BLOCK_D: tl.constexpr):
+        row = tl.program_id(0)
+        o, cols, valid = ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq,
+                                     dim, stride_xb, stride_xs, stride_eb,
+                                     eps, BLOCK_D)
+        tl.store(out_ptr + row * dim + cols,
+                 o.to(out_ptr.dtype.element_ty), mask=valid)
+
+    @triton.jit
+    def ln_mod_quant_kernel(x_ptr, shift_ptr, scale_ptr, q_ptr, s_ptr, seq,
+                            dim, stride_xb, stride_xs, stride_eb, eps,
+                            BLOCK_D: tl.constexpr):
+        row = tl.program_id(0)
+        o, cols, valid = ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq,
+                                     dim, stride_xb, stride_xs, stride_eb,
+                                     eps, BLOCK_D)
+        quantize_row(o, valid, cols, row, dim, q_ptr, s_ptr)
+
+    @triton.jit
+    def gelu_quant_kernel(x_ptr, q_ptr, s_ptr, seq, dim, stride_xb,
+                          stride_xs, BLOCK_D: tl.constexpr):
+        row = tl.program_id(0)
+        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
+                                     stride_xs, BLOCK_D)
+        # the tanh form 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715
+        # x^3), written as x / (1 + exp(-2u)), which is the same function:
+        # libdevice's tanhf made the kernel 1.4x slower on an H100; the
+        # approximate division and exp cost ulps that the bf16 rounding
+        # after them mostly absorbs (not div_rn: K7's bar allows a flip)
+        inner = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
+        g = round_bf16(x / (1.0 + tl.exp(-2.0 * inner)))
+        quantize_row(g, valid, cols, row, dim, q_ptr, s_ptr)
+
+    @triton.jit
+    def quant_rows_kernel(x_ptr, q_ptr, s_ptr, seq, dim, stride_xb,
+                          stride_xs, BLOCK_D: tl.constexpr):
+        row = tl.program_id(0)
+        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
+                                     stride_xs, BLOCK_D)
+        quantize_row(x, valid, cols, row, dim, q_ptr, s_ptr)
+
+    return triton, {"ln_mod": ln_mod_kernel,
+                    "ln_mod_quant": ln_mod_quant_kernel,
+                    "gelu_quant": gelu_quant_kernel,
+                    "quant_rows": quant_rows_kernel}
 
 
-def _ln_mod_cuda(x, shift, scale, eps):
-    # the kernel's explicit rounding is to the bf16 grid
-    if x.dtype != torch.bfloat16 or x.dim() != 3 or x.stride(-1) != 1:
-        raise ValueError(f"ln_mod kernel: x must be (B, S, D) bf16 with a "
-                         f"contiguous last dim, got {x.dtype} "
+def _launch_config(triton, dim):
+    # 8 warps for the 3072-wide rows, 32 for gelu's 12288-wide ones (faster
+    # than 16 on an H100: fewer elements held by each thread)
+    block = triton.next_power_of_2(dim)
+    return dict(BLOCK_D=block, num_warps=max(1, min(32, block // 512)))
+
+
+def _rows3(name, x):
+    """(B, S, D) or (N, D) bf16 with a contiguous last dim -> (B, S, D)."""
+    if (x.dtype != torch.bfloat16 or x.dim() not in (2, 3)
+            or x.stride(-1) != 1):
+        raise ValueError(f"{name} kernel: x must be (B, S, D) or (N, D) bf16 "
+                         f"with a contiguous last dim, got {x.dtype} "
                          f"{tuple(x.shape)} strides {x.stride()}")
-    b, s, d = x.shape
-    for name, t in (("shift", shift), ("scale", scale)):
+    return x if x.dim() == 3 else x[None]
+
+
+def _extras(name, x, shift, scale):
+    b, _, d = x.shape
+    for label, t in (("shift", shift), ("scale", scale)):
         if (t.dtype != x.dtype or t.shape != (b, d) or t.stride(1) != 1
                 or t.device != x.device):
-            raise ValueError(f"ln_mod kernel: {name} must be ({b}, {d}) "
+            raise ValueError(f"{name} kernel: {label} must be ({b}, {d}) "
                              f"{x.dtype} on {x.device}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     if shift.stride(0) != scale.stride(0):
         shift, scale = shift.contiguous(), scale.contiguous()
-    triton, kernel = _triton_kernel()
+    return shift, scale
+
+
+def _run_quant(name, x, *extra, eps=None):
+    """Launch K6, K7 or K8 over (B, S, D) or (N, D) x -> (int8 codes of
+    x's shape, f32 row scales (..., 1))."""
+    shape = x.shape
+    x = _rows3(name, x)
+    b, s, d = x.shape
+    triton, kernels = _triton_kernel()
+    q = torch.empty(shape, dtype=torch.int8, device=x.device)
+    a = torch.empty((*shape[:-1], 1), dtype=torch.float32, device=x.device)
+    if extra:
+        shift, scale = _extras(name, x, *extra)
+        args = (x, shift, scale, q, a, s, d, x.stride(0), x.stride(1),
+                shift.stride(0), eps)
+    else:
+        args = (x, q, a, s, d, x.stride(0), x.stride(1))
+    kernels[name][(b * s,)](*args, **_launch_config(triton, d))
+    LAUNCHES[name] += 1
+    return q, a
+
+
+def _ln_mod_cuda(x, shift, scale, eps):
+    x = _rows3("ln_mod", x)
+    shift, scale = _extras("ln_mod", x, shift, scale)
+    b, s, d = x.shape
+    triton, kernels = _triton_kernel()
     out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
-    kernel[(b * s,)](x, shift, scale, out, s, d, x.stride(0), x.stride(1),
-                     shift.stride(0), eps,
-                     BLOCK_D=triton.next_power_of_2(d), num_warps=8)
+    kernels["ln_mod"][(b * s,)](x, shift, scale, out, s, d, x.stride(0),
+                                x.stride(1), shift.stride(0), eps,
+                                **_launch_config(triton, d))
     LAUNCHES["ln_mod"] += 1
     return out
 
 
+def _plain(x, impl):
+    return impl == "plain" or x.device.type == "cpu"
+
+
 def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
            eps: float = 1e-6) -> torch.Tensor:
-    """modulate(layer_norm(x), shift, scale) in one pass, x.dtype out.
-    A CUDA tensor launches the Triton kernel (which raises on what it does
-    not take); a CPU tensor takes ``ln_mod_plain``."""
+    """K5: modulate(layer_norm(x), shift, scale) in one pass, x.dtype out.
+    x (B, S, D); shift/scale (B, D). A CUDA tensor launches the Triton
+    kernel (which raises on what it does not take); a CPU tensor takes
+    ``ln_mod_plain``."""
     if x.device.type == "cpu":
         return ln_mod_plain(x, shift, scale, eps)
     return _ln_mod_cuda(x, shift, scale, eps)
+
+
+def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6, impl: str = "auto"):
+    """K6: quantize(modulate(layer_norm(x), shift, scale)) in one pass.
+    x (B, S, D); shift/scale (B, D) -> (int8 (B, S, D), f32 (B, S, 1))."""
+    if _plain(x, impl):
+        return ln_mod_quant_plain(x, shift, scale, eps)
+    return _run_quant("ln_mod_quant", x, shift, scale, eps=eps)
+
+
+def gelu_quant(x: torch.Tensor, impl: str = "auto"):
+    """K7: quantize(gelu_tanh(x) rounded to x.dtype) in one pass; x is
+    (B, S, D) or (N, D)."""
+    if _plain(x, impl):
+        return gelu_quant_plain(x)
+    return _run_quant("gelu_quant", x)
+
+
+def quant_rows(x: torch.Tensor, impl: str = "auto"):
+    """K8: per-row int8 quantization in one pass; x is (B, S, D) or
+    (N, D)."""
+    if _plain(x, impl):
+        return quant_rows_plain(x)
+    return _run_quant("quant_rows", x)

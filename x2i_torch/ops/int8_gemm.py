@@ -1,0 +1,175 @@
+"""The int8 GEMM of the w8a8 mode: the CUDA kernel ``csrc/int8_gemm.cu``,
+its plain PyTorch version, and the wrapper that picks between them.
+
+Counterpart of the int8 products in ``x2i_tpu/ops/quant.py``
+(``w8a8_matmul`` and ``w8a8_matmul_prequant``, XLA dots on the TPU). For
+activation codes ``xq`` (..., K) int8 with row scales ``a_scale``
+(..., 1) f32, and weight codes ``qweight`` (N, in) int8 with per-output
+scales ``scale`` (N,) f32, it computes over the weight's columns
+``[k0, k0 + K)``::
+
+    acc = xq @ qweight[:, k0:k0 + K].T                       (int32, exact)
+    out = ((f32(acc) * a_scale) * scale).to(out_dtype)
+    out = addend + out                                       (if given)
+    out = out + bias                                         (if given)
+
+in the JAX package's order and at its rounding points: the rescale in f32
+and rounded once, each addition then rounded in ``out_dtype``. The int32
+sum is exact: at most 127 * 127 * 15360 < 2^31 on the DiT's widest input.
+
+``int8_linear`` launches the kernel for a CUDA tensor (bf16 out only) and
+takes ``int8_linear_plain`` for a CPU tensor; there is no other fallback.
+The plain version sums in int32 on the CPU and in float64 on a card
+(cuBLAS has no int32 product; float64 is exact below 2^53).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from x2i_torch.ops.cuda_lib import CudaLibrary
+
+K_STEP = 64          # K must be a multiple of it (the kernel zero-fills its
+                     # 128-byte K tiles past K)
+
+
+def _bind(lib):
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.x2i_int8_gemm.argtypes = [p, ll, p, ll, ll, p, p, p, p, ll, p, ll,
+                                  i, i, i, i, p]
+    lib.x2i_int8_gemm.restype = ctypes.c_int
+
+
+GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm", ("int8_gemm",),
+                   _bind)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def int8_matmul_acc_plain(xq: torch.Tensor, qweight: torch.Tensor,
+                          k0: int = 0) -> torch.Tensor:
+    """The exact int32 accumulator (..., N) of xq against the weight's
+    columns [k0, k0 + K)."""
+    w = qweight[:, k0:k0 + xq.shape[-1]]
+    if xq.device.type == "cpu":
+        acc = _rows(xq).int() @ w.int().T
+    else:
+        acc = (_rows(xq).double() @ w.double().T).int()
+    return acc.reshape(*xq.shape[:-1], w.shape[0])
+
+
+def int8_linear_plain(xq: torch.Tensor, a_scale: torch.Tensor,
+                      qweight: torch.Tensor, scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, k0: int = 0,
+                      addend: Optional[torch.Tensor] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernel's function step by step in PyTorch."""
+    acc = int8_matmul_acc_plain(xq, qweight, k0)
+    out = (acc.float() * a_scale.float() * scale.float()).to(out_dtype)
+    if addend is not None:
+        out = addend.to(out_dtype) + out
+    if bias is not None:
+        out = out + bias.to(out_dtype)
+    return out
+
+
+def _check(name, t, dtype, device):
+    if t.dtype != dtype or t.device != device:
+        raise ValueError(f"int8 GEMM: {name} must be {dtype} on {device}, "
+                         f"got {t.dtype} on {t.device}")
+
+
+def _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
+            acc_only):
+    dev = xq.device
+    if dev.type != "cuda":
+        raise ValueError(f"int8 GEMM kernel: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    x = _rows(xq)
+    m, k = x.shape
+    n, width = qweight.shape if qweight.dim() == 2 else (-1, -1)
+    _check("xq", x, torch.int8, dev)
+    _check("qweight", qweight, torch.int8, dev)
+    if (n < 0 or k % K_STEP or n % 8 or k0 % 16 or k0 < 0
+            or k0 + k > width or m < 1):
+        raise ValueError(f"int8 GEMM kernel: unsupported shapes xq "
+                         f"{tuple(xq.shape)}, qweight {tuple(qweight.shape)}"
+                         f", k0 {k0} (K % {K_STEP}, N % 8 and k0 % 16 "
+                         f"must be 0)")
+    if (x.stride(1) != 1 or qweight.stride(1) != 1 or x.stride(0) % 16
+            or qweight.stride(0) % 16 or x.data_ptr() % 16
+            or qweight.data_ptr() % 16):
+        raise ValueError("int8 GEMM kernel: xq and qweight need contiguous "
+                         "rows with 16-byte aligned starts and strides")
+    a = sc = b = d = None
+    ldd = 0
+    if acc_only:
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    else:
+        if out_dtype != torch.bfloat16:
+            raise ValueError(f"int8 GEMM kernel: bf16 output only, got "
+                             f"{out_dtype}")
+        a = a_scale.reshape(-1)
+        sc = scale
+        _check("a_scale", a, torch.float32, dev)
+        _check("scale", sc, torch.float32, dev)
+        if a.shape != (m,) or sc.shape != (n,) or a.stride(0) != 1 \
+                or sc.stride(0) != 1:
+            raise ValueError(f"int8 GEMM kernel: a_scale must hold {m} and "
+                             f"scale {n} contiguous f32 values, got "
+                             f"{tuple(a_scale.shape)}, {tuple(scale.shape)}")
+        if bias is not None:
+            b = bias
+            _check("bias", b, torch.bfloat16, dev)
+            if b.shape != (n,) or b.stride(0) != 1:
+                raise ValueError(f"int8 GEMM kernel: bias must be ({n},)")
+        if addend is not None:
+            d = _rows(addend)
+            _check("addend", d, torch.bfloat16, dev)
+            if d.shape != (m, n) or d.stride(1) != 1 or d.stride(0) % 2:
+                raise ValueError(f"int8 GEMM kernel: addend must be "
+                                 f"({m}, {n}) with contiguous rows")
+            ldd = d.stride(0)
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = GEMM.lib().x2i_int8_gemm(
+        x.data_ptr(), x.stride(0), qweight.data_ptr(), qweight.stride(0), k0,
+        ptr(a), ptr(sc), ptr(b), ptr(d), ldd, out.data_ptr(), n, m, n, k,
+        int(acc_only), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 GEMM launch failed: cudaError_t {err}")
+    GEMM.launches["int8_gemm"] += 1
+    return out.reshape(*xq.shape[:-1], n)
+
+
+def int8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
+                qweight: torch.Tensor, scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, k0: int = 0,
+                addend: Optional[torch.Tensor] = None,
+                out_dtype=torch.bfloat16,
+                impl: str = "auto") -> torch.Tensor:
+    """The w8a8 product of pre-quantized activations (see the module
+    docstring). A CUDA tensor launches the kernel, which raises on what it
+    does not take; a CPU tensor, or ``impl="plain"``, takes
+    ``int8_linear_plain``."""
+    if impl == "plain" or xq.device.type == "cpu":
+        return int8_linear_plain(xq, a_scale, qweight, scale, bias, k0,
+                                 addend, out_dtype)
+    return _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
+                   acc_only=False)
+
+
+def int8_matmul_acc(xq: torch.Tensor, qweight: torch.Tensor,
+                    k0: int = 0) -> torch.Tensor:
+    """The int32 accumulator alone (the function of ``torch._int_mm``):
+    the kernel for a CUDA tensor, the plain version for a CPU one. Not on
+    the main path; the checks hold the kernel's sum exact with it."""
+    if xq.device.type == "cpu":
+        return int8_matmul_acc_plain(xq, qweight, k0)
+    return _launch(xq, None, qweight, None, None, k0, None, None,
+                   acc_only=True)

@@ -8,14 +8,16 @@ arrays and copies every leaf into the matching PyTorch parameter:
   ``single_blocks``, or ``single_blocks_{i}`` chunks, and Qwen2
   ``layers/block``) fill one module of an ``nn.ModuleList`` per index;
 * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
+* ``QuantDense`` ``qkernel`` (in, out) int8, ``scale`` (out,) f32 and
+  ``bias`` -> ``QuantLinear`` ``qweight`` (out, in), ``scale``, ``bias``;
 * ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
 * Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
 * every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``)
   -> the parameter of the same name.
 
 The FLUX q/k channels stay in the half-RoPE permutation the tree already
-carries. Every parameter must be filled exactly once and every leaf used,
-or the bridge raises.
+carries. Every parameter and buffer must be filled exactly once and every
+leaf used, or the bridge raises.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from x2i_torch.ops.quant import QuantLinear
 
 Tree = Mapping[str, Any]
 
@@ -57,7 +61,10 @@ def _stack_chunks(tree: Tree, name: str) -> Tree:
 
 
 def _copy(param: torch.Tensor, value, name: str, filled: set):
-    value = torch.as_tensor(np.asarray(value, np.float32))
+    value = np.asarray(value)
+    if value.dtype.kind not in "iu":       # int8 codes stay integers
+        value = value.astype(np.float32)
+    value = torch.as_tensor(value)
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{name}: flax shape {tuple(value.shape)} does not "
                          f"fit {tuple(param.shape)}")
@@ -82,7 +89,18 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
             if lead != {len(child)}:
                 raise ValueError(f"{name}: {lead} stacked layers for "
                                  f"{len(child)} modules")
+        elif isinstance(child, QuantLinear):
+            _copy(child.qweight, np.swapaxes(val["qkernel"], -1, -2),
+                  name + ".qkernel", filled)
+            _copy(child.scale, val["scale"], name + ".scale", filled)
+            if "bias" in val:
+                _copy(child.bias, val["bias"], name + ".bias", filled)
+            _only(val, {"qkernel", "scale", "bias"}, name)
         elif isinstance(child, nn.Linear):
+            if "kernel" not in val:
+                raise KeyError(f"{name}: leaves {sorted(val)} for a float "
+                               f"Linear (quantized trees need a model "
+                               f"built with cfg.quantized)")
             _copy(child.weight, np.swapaxes(val["kernel"], -1, -2),
                   name + ".kernel", filled)
             if "bias" in val:
@@ -123,22 +141,34 @@ def load_flax(module: nn.Module, tree: Tree) -> nn.Module:
     tree = _stack_chunks(_params(tree), "single_blocks")
     filled: set = set()
     _load(module, tree, "", filled)
-    missing = [n for n, p in module.named_parameters()
+    missing = [n for n, p in [*module.named_parameters(),
+                              *module.named_buffers()]
                if id(p) not in filled]
     if missing:
-        raise KeyError(f"parameters the flax tree did not fill: {missing}")
+        raise KeyError(f"parameters or buffers the flax tree did not fill: "
+                       f"{missing}")
     return module
 
 
 def random_init_(module: nn.Module, generator: torch.Generator
                  ) -> nn.Module:
     """Random weights in place: Linear and Conv2d weights normal with std
-    1/sqrt(fan_in), embeddings normal with std 1, biases 0, every other
+    1/sqrt(fan_in) (a QuantLinear quantizes such a weight), embeddings
+    normal with std 1, biases 0, every other
     parameter (norm scales, the proj's channel scale) 1 -- except norm
     biases, 0."""
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if isinstance(mod, QuantLinear):
+                # a float weight drawn the same way, then quantized
+                w = torch.empty((mod.out_features, mod.in_features),
+                                device=mod.qweight.device)
+                mod.set_weight_(w.normal_(
+                    0.0, 1.0 / math.sqrt(mod.in_features),
+                    generator=generator))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                    generator=generator)

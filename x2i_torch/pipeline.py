@@ -89,7 +89,7 @@ class X2IPipeline:
 
     @property
     def device(self) -> torch.device:
-        return self.flux.x_embedder.weight.device
+        return next(self.flux.parameters()).device
 
     @torch.inference_mode()
     def encode(self, encoder_inputs: Dict[str, Any]

@@ -30,7 +30,10 @@ def test_the_port_has_modules_to_check():
     assert {"x2i_torch/pipeline.py", "x2i_torch/ops/flash_attention.py",
             "x2i_torch/ops/fused_glue.py", "x2i_torch/ops/quant.py",
             "x2i_torch/ops/int8_gemm.py", "x2i_torch/ops/cuda_lib.py",
-            "chip_smoke.py"} <= names
+            "x2i_torch/ops/kd.py", "x2i_torch/models/t5.py",
+            "x2i_torch/models/clip.py", "x2i_torch/train/distill.py",
+            "x2i_torch/train/single_chip.py", "x2i_torch/train/harness.py",
+            "x2i_torch/train/runner.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

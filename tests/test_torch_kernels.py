@@ -8,7 +8,11 @@ run on a machine that has only PyTorch:
 Without a CUDA device each test skips itself: a CUDA kernel has no CPU
 mode. Tolerances: flash attention within 1e-2 max and 1e-3 mean absolute
 of the plain version in bf16 (f32 accumulation in another order, p rounded
-to bf16 against a running max in the exact body); ln_mod's normalized row
+to bf16 against a running max in the exact body), its lse within 1e-3 in
+log2 units; the backward kernels K3 and K4 within 2e-2 max and 2e-3 mean
+absolute error relative to the largest gradient (bf16 outputs, ds and p
+rounded to bf16 at the same points, summed in another order); ln_mod's
+normalized row
 within one bf16 step (2^-7 relative, 1e-4 absolute) of the plain
 version's, and its modulate bit for bit. quant_rows (K8) bit for bit
 (its max, IEEE divisions and rounding leave no room); ln_mod_quant (K6)
@@ -23,12 +27,15 @@ bf16 step.
 import pytest
 import torch
 
+from x2i_torch.core.config import tiny_flux_config
 from x2i_torch.diffusion.sampling import prepare_latent_image_ids
+from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.ops import attention as tattn
 from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
 from x2i_torch.ops import int8_gemm as tgemm
 from x2i_torch.ops.rope import flux_rope_freqs_half
+from x2i_torch.params import random_init_
 
 BF = torch.bfloat16
 
@@ -102,6 +109,92 @@ def test_flash_kernel_masks_and_gqa(dev, d, case):
     if case == "row0-masked":
         mean_v = v.float().mean(dim=2).repeat_interleave(3, dim=1)
         assert (got[:, :, 0].float() - mean_v).abs().max() <= 1e-2
+
+
+def _grad_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    assert bool(torch.isfinite(got).all()) and got.dtype == want.dtype
+    assert diff.max() <= 2e-2 * top and diff.mean() <= 2e-3 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["plain", "mask-causal-gqa", "rope",
+                                  "rope-mask-causal"])
+def test_flash_lse_and_backward_kernels(dev, d, case):
+    """K1 with the lse (exact body), K3 and K4 against their plain
+    versions, both backward kernels on the plain forward's residuals. The
+    masked cases have a row whose keys are all masked (lse -1e30)."""
+    g = torch.Generator(device=dev).manual_seed(7 * d)
+    s, b = 256, 2
+    hq, hk = (6, 2) if "gqa" in case else (3, 3)
+    q, do = (_randn(g, dev, b, s, hq, d).transpose(1, 2) for _ in range(2))
+    k, v = (_randn(g, dev, b, s, hk, d).transpose(1, 2) for _ in range(2))
+    kw = {}
+    if "mask" in case:
+        mask = torch.arange(s, device=dev)[None] < torch.tensor(
+            [[200], [37]], device=dev)
+        mask[1, 0] = False
+        kw.update(kv_mask=mask, causal=True)
+    if "rope" in case:
+        kw["rope"] = _tables(s, d, dev)
+    before = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    o, lse = tfa.flash_forward_lse(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _close(o, o_p)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    assert (lse - lse_p).abs().max().item() <= 1e-3
+    mask, causal = kw.pop("kv_mask", None), kw.pop("causal", False)
+    res = (mask, o_p, lse_p, do, causal)
+    for got, want in zip(tfa.flash_backward(q, k, v, *res, **kw),
+                         tfa.flash_backward_plain(q, k, v, *res, **kw)):
+        _grad_close(got, want)
+    after = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.cuda
+def test_gradient_reaches_the_projections_on_the_card(dev):
+    """A bf16 DiT (head_dim 64, 64 + 64 joint tokens) on the card: the
+    backward runs K1 with the lse, K3 and K4 in every block, every q/k/v
+    projection gets a gradient, and the gradient of the text conditioning
+    agrees with the plain route's (relative L2 below 5e-2, bf16)."""
+    kw = dict(attention_head_dim=64, axes_dims_rope=(16, 24, 24),
+              dtype=BF)
+    g = torch.Generator(device=dev).manual_seed(2)
+    model = random_init_(FluxTransformer2D(
+        tiny_flux_config(attention_impl="auto", **kw), dev), g)
+    plain = FluxTransformer2D(tiny_flux_config(attention_impl="plain", **kw),
+                              dev)
+    plain.load_state_dict(model.state_dict())
+    args = (_randn(g, dev, 1, 64, 64), _randn(g, dev, 1, 64, 64),
+            _randn(g, dev, 1, 32), torch.full((1,), 0.5, device=dev),
+            prepare_latent_image_ids(16, 16, dev),
+            torch.zeros((64, 3), device=dev))
+    w = _randn(g, dev, 1, 64, 64)
+
+    def grad(m):
+        txt = args[1].clone().requires_grad_()
+        (m(args[0], txt, *args[2:]).float() * w.float()).sum().backward()
+        return txt.grad.float()
+
+    before = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    got = grad(model)
+    after = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    blocks = 2 + 4
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"flash_fwd_lse": blocks, "flash_bwd_dq": blocks,
+                  "flash_bwd_dkv": blocks}
+    for blk in [*model.double_blocks, *model.single_blocks]:
+        for name in ("q", "k", "v", "img_q", "img_k", "img_v", "txt_q",
+                     "txt_k", "txt_v"):
+            if hasattr(blk, name):
+                grad_w = getattr(blk, name).weight.grad
+                assert grad_w is not None and grad_w.abs().sum() > 0
+    want = grad(plain)
+    assert ((got - want).norm() / want.norm()).item() < 5e-2
 
 
 @pytest.mark.cuda

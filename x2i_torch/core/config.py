@@ -1,8 +1,11 @@
 """Typed configuration for the PyTorch port.
 
-Own copies of the dataclasses of ``x2i_tpu/core/config.py`` that the
-text->image serving path reads, with torch dtypes. Only the fields this
-path uses are here: no ring or sharding fields yet.
+Own copies of the dataclasses of ``x2i_tpu/core/config.py`` (and of the
+T5 and CLIP configs of ``x2i_tpu/models/t5.py`` and ``clip.py``) that the
+text->image serving path and the phase-1 distillation trainer read, with
+torch dtypes. Only the fields these paths use are here: no ring or
+sharding fields, no ``single_scan_chunks`` and no ``remat="stack"`` (XLA
+scan memory devices, not ported).
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -73,11 +76,20 @@ class FluxConfig:
                                      # kernel (inference only)
     quantized: Any = False           # False | "w8" | "w8a8"
     quant_impl: str = "auto"         # "auto" | "plain"
+    remat: bool = False              # True: recompute each block in the
+                                     # backward (torch.utils.checkpoint,
+                                     # non-reentrant)
+    rope_in_kernel: bool = True      # rotate q/k inside the attention
+                                     # kernel; False rotates them before
+                                     # (the trainer's setting)
 
     def __post_init__(self):
         quant_mode(self.quantized)
         if self.quant_impl not in ("auto", "plain"):
             raise ValueError(f"quant_impl={self.quant_impl!r}")
+        if self.remat not in (False, True):
+            raise NotImplementedError(f"remat={self.remat!r}: only False "
+                                      f"and True are ported")
 
     @property
     def inner_dim(self) -> int:
@@ -169,6 +181,69 @@ class GenerationConfig:
     seed: int = 0
     vae_tile_px: int = 1536          # tiled decode above this size (not
                                      # ported yet: generate raises there)
+
+
+@dataclass(frozen=True)
+class DistillConfig:
+    """Phase-1 attention-distillation operating point (the JAX
+    ``DistillConfig``). ``use_8bit_adam`` and ``gradient_accumulation_steps
+    > 1`` are not ported: the optimizer raises on them."""
+
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 100
+    max_train_steps: int = 100_000
+    train_batch_size: int = 1
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    use_8bit_adam: bool = False
+    kd_stacks_int8: bool = False     # per-token int8 teacher KD stacks
+    inline_kd: bool = False          # KD terms computed inside each student
+                                     # block (scalars leave the blocks)
+    kd_temperature: float = 3.0
+    latent_height: int = 128         # 128x128 latent grid = 4096 img tokens
+    latent_width: int = 128
+    text_seq_len: int = 512
+    checkpointing_steps: int = 1000
+    checkpoints_total_limit: Optional[int] = 5
+    seed: int = 2024
+    remat: bool = True
+
+
+@dataclass(frozen=True)
+class T5Config:
+    """T5 v1.1 encoder (defaults: T5-XXL, the teacher text encoder)."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP text tower (defaults: openai/clip-vit-large-patch14, the pooled
+    teacher)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407
+    dtype: Any = torch.bfloat16
 
 
 PROJ_REGISTRY: Dict[str, ProjConfig] = {

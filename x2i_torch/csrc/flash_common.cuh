@@ -1,0 +1,198 @@
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// the bf16 mma.sync m16n8k16 product with f32 accumulators, fragment
+// loads from padded shared-memory tiles, tile copies, and the row-wise
+// qk RMSNorm + half-layout rotation with its once-per-launch pass over a
+// whole (B, H, S, D) tensor into a contiguous bf16 scratch buffer.
+//
+// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t4):
+//   A (16 x 16, row-major): a0 = A[g][2t4..], a1 = A[g+8][2t4..],
+//                           a2 = A[g][2t4+8..], a3 = A[g+8][2t4+8..]
+//   B (16 x 8, "col"):      b0 = B[2t4..2t4+1][g], b1 = B[2t4+8..2t4+9][g]
+//   C (16 x 8):             c0, c1 = C[g][2t4..], c2, c3 = C[g+8][2t4..]
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;        // q rows per block
+constexpr int kBK = 64;        // kv rows per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;        // bf16 elements of row padding in smem
+constexpr float kNegInf = -1e30f;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 from one column of a row-major tile, rows r and r+1.
+__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p, int pitch) {
+  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + pitch);
+  return lo | (hi << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows r0..r0+15, columns k0..k0+15 of a padded tile.
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
+                                       int pitch, int r0, int k0, int g,
+                                       int t4) {
+  const bf16* p = tile + (r0 + g) * pitch + k0 + t4 * 2;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * pitch);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * pitch + 8);
+}
+
+// The A fragment of a 16 x 16 block held in C fragments c[2kk], c[2kk+1]
+// (the columns of two n-tiles), rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t* a, const float* c0,
+                                       const float* c1) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// One warp: optional RMSNorm (f32 row statistics, eps, per-channel scale
+// w), then the half-layout rotation with the first halves of the (cos,
+// sin) rows, then * post, rounded to bf16. Lane l holds channels
+// l + 32 t; channel j's rotation partner j +- D/2 lives in the same lane.
+template <int D>
+__device__ __forceinline__ void norm_rope_row(
+    const bf16* src, bf16* dst, const float* cos_row, const float* sin_row,
+    const float* w_row, float eps, float post, int lane) {
+  constexpr int T = D / 32;
+  constexpr int H = T / 2;
+  float x[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) x[t] = __bfloat162float(src[lane + 32 * t]);
+  if (w_row != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int t = 0; t < T; ++t) ss += x[t] * x[t];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    const float r = rsqrtf(ss / D + eps);
+#pragma unroll
+    for (int t = 0; t < T; ++t) x[t] = x[t] * r * w_row[lane + 32 * t];
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int jh = lane + 32 * (t % H);
+    const float c = cos_row[jh], s = sin_row[jh];
+    const float partner = x[(t + H) % T];
+    const float y = t < H ? x[t] * c - partner * s : x[t] * c + partner * s;
+    dst[lane + 32 * t] = __float2bfloat16_rn(y * post);
+  }
+}
+
+// x (B, H, S, D) strided -> normalized, rotated, * post, contiguous bf16;
+// one warp per row.
+template <int D>
+__global__ void __launch_bounds__(256) rope_rows_kernel(
+    const bf16* __restrict__ x, bf16* __restrict__ out, long long x_sb,
+    long long x_sh, long long x_ss, int heads, int seq, long long rows,
+    const float* cos, const float* sin, long long tab_rs, const float* w,
+    long long w_rs, float eps, float post) {
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                          threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= rows) return;
+  const int s = static_cast<int>(warp % seq);
+  const long long bh = warp / seq;
+  const int h = static_cast<int>(bh % heads);
+  const long long b = bh / heads;
+  norm_rope_row<D>(x + b * x_sb + h * x_sh + s * x_ss, out + warp * D,
+                   cos + s * tab_rs, sin + s * tab_rs,
+                   w == nullptr ? nullptr : w + s * w_rs, eps, post, lane);
+}
+
+template <int D>
+cudaError_t launch_rope_rows(const bf16* x, bf16* out, long long x_sb,
+                             long long x_sh, long long x_ss, int batch,
+                             int heads, int seq, const float* cos,
+                             const float* sin, long long tab_rs,
+                             const float* w, long long w_rs, float eps,
+                             float post, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * heads * seq;
+  const int per_block = 256 / 32;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  rope_rows_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      x, out, x_sb, x_sh, x_ss, heads, seq, rows, cos, sin, tab_rs, w, w_rs,
+      eps, post);
+  return cudaGetLastError();
+}
+
+// Copy ROWS rows of D bf16 (at `stride` elements) into padded smem rows.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile(const bf16* src, long long stride,
+                                          bf16* dst, int tid) {
+  constexpr int kChunks = D / 8;              // 16-byte chunks per row
+  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, cc = c % kChunks;
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
+        *reinterpret_cast<const uint4*>(src + r * stride + cc * 8);
+  }
+}
+
+// The transpose of the half-layout rotation, applied in place to the
+// f32 C fragments acc[D/8][4] of one warp's 16 rows (row_a = its row g,
+// row_b = row g + 8): g1' = g1 c + g2 s, g2' = g2 c - g1 s. Column j's
+// partner j + D/2 is fragment dn + D/16 of the same thread.
+template <int D>
+__device__ __forceinline__ void counter_rotate(float (*acc)[4],
+                                               const float* cos,
+                                               const float* sin,
+                                               long long tab_rs, int row_a,
+                                               int row_b, int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 16; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? row_a : row_b;
+      const int col = dn * 8 + t4 * 2 + (e & 1);
+      const float c = cos[row * tab_rs + col], s = sin[row * tab_rs + col];
+      const float g1 = acc[dn][e], g2 = acc[dn + D / 16][e];
+      acc[dn][e] = g1 * c + g2 * s;
+      acc[dn + D / 16][e] = g2 * c - g1 * s;
+    }
+  }
+}
+
+// Rows row_a and row_b of a C-fragment accumulator, rounded to bf16.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
+                                           const float (*acc)[4], int row_a,
+                                           int row_b, int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(base + row_a * row_stride + col) =
+        pack_bf16(acc[dn][0], acc[dn][1]);
+    *reinterpret_cast<uint32_t*>(base + row_b * row_stride + col) =
+        pack_bf16(acc[dn][2], acc[dn][3]);
+  }
+}
+
+}  // namespace

@@ -14,7 +14,12 @@
 //     (running-max) softmax over kv tiles, which equals the one-pass body
 //     up to rounding. No kv tile is skipped, so a row whose keys are all
 //     masked gives the mean of V over all keys, as the TPU body does.
-//     Qwen2 LM prefill.
+//     Qwen2 LM prefill. With an lse buffer it also writes the base-2 row
+//     logsumexp m + log2(l) in f32 (:220-221), the residual the backward
+//     kernels (flash_bwd.cu) read: here m and l are the online softmax's
+//     final running max and sum, so a fully masked row gives the one-pass
+//     body's value, -1e30 + log2(Skv). The training forward always takes
+//     this body, as return_lse forces pipeline_kc = 0 in JAX (:247-254).
 //
 // What bounds it on an H100: at the FLUX point (24 heads x 4608 x 128) the
 // two products take 2.6e11 FLOP per launch against 113 MB of q, k, v, o:
@@ -42,117 +47,16 @@
 // Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last dim
 // contiguous and the other strides multiples of 8 elements.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // bf16 elements of row padding in smem
-constexpr float kNegInf = -1e30f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from one column of a row-major tile, rows r and r+1.
-__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p, int pitch) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + pitch);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp: optional RMSNorm (f32 row statistics, eps, per-channel scale
-// w), then the half-layout rotation with the first halves of the (cos,
-// sin) rows, then * post, rounded to bf16. Lane l holds channels
-// l + 32 t; channel j's rotation partner j +- D/2 lives in the same lane.
-template <int D>
-__device__ __forceinline__ void norm_rope_row(
-    const bf16* src, bf16* dst, const float* cos_row, const float* sin_row,
-    const float* w_row, float eps, float post, int lane) {
-  constexpr int T = D / 32;
-  constexpr int H = T / 2;
-  float x[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) x[t] = __bfloat162float(src[lane + 32 * t]);
-  if (w_row != nullptr) {
-    float ss = 0.f;
-#pragma unroll
-    for (int t = 0; t < T; ++t) ss += x[t] * x[t];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    const float r = rsqrtf(ss / D + eps);
-#pragma unroll
-    for (int t = 0; t < T; ++t) x[t] = x[t] * r * w_row[lane + 32 * t];
-  }
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    const int jh = lane + 32 * (t % H);
-    const float c = cos_row[jh], s = sin_row[jh];
-    const float partner = x[(t + H) % T];
-    const float y = t < H ? x[t] * c - partner * s : x[t] * c + partner * s;
-    dst[lane + 32 * t] = __float2bfloat16_rn(y * post);
-  }
-}
-
-// K (B, Hk, Skv, D) strided -> normalized, rotated, contiguous bf16.
-template <int D>
-__global__ void __launch_bounds__(256) rope_k_kernel(
-    const bf16* __restrict__ k, bf16* __restrict__ out, long long k_sb,
-    long long k_sh, long long k_ss, int hk, int skv, long long rows,
-    const float* cos, const float* sin, long long tab_rs, const float* kw,
-    long long kw_rs, float eps) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                          threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= rows) return;
-  const int s = static_cast<int>(warp % skv);
-  const long long bh = warp / skv;
-  const int h = static_cast<int>(bh % hk);
-  const long long b = bh / hk;
-  norm_rope_row<D>(k + b * k_sb + h * k_sh + s * k_ss,
-                   out + warp * D, cos + s * tab_rs, sin + s * tab_rs,
-                   kw == nullptr ? nullptr : kw + s * kw_rs, eps, 1.f, lane);
-}
-
-// Copy a 64-row tile (rows of D bf16 at `stride`) into padded smem rows.
-template <int D>
-__device__ __forceinline__ void copy_tile(const bf16* src, long long stride,
-                                          bf16* dst, int tid) {
-  constexpr int kChunks = D / 8;              // 16-byte chunks per row
-  for (int c = tid; c < kBK * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + r * stride + cc * 8);
-  }
-}
 
 struct Args {
   const bf16* q;
   const bf16* k;
   const bf16* v;
   bf16* o;
+  float* lse;                    // (B, Hq, Sq) contiguous, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   const float* cos;
@@ -162,7 +66,7 @@ struct Args {
   long long qw_rs;
   const unsigned char* mask;
   long long mask_sb;
-  int group, skv, causal;
+  int group, sq, skv, causal;
   float scale_log2e, eps;
 };
 
@@ -191,20 +95,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
                        a.eps, a.scale_log2e, lane);
     }
   } else {
-    copy_tile<D>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
+    copy_tile<D, kBQ>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
   }
   __syncthreads();
 
   const int r0 = warp * 16;
   uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p = sQ + (r0 + g) * P + kk * 16 + t4 * 2;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * P);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * P + 8);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) load_a(qa[kk], sQ, P, r0, kk * 16, g, t4);
 
   float o[D / 8][4];
 #pragma unroll
@@ -217,10 +115,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
   for (int kv0 = 0; kv0 < a.skv; kv0 += kBK) {
     __syncthreads();                           // previous tile consumed
-    copy_tile<D>(kb + kv0 * a.k_ss, a.k_ss, sK, tid);
-    copy_tile<D>(vb + kv0 * a.v_ss, a.v_ss, sV, tid);
+    copy_tile<D, kBK>(kb + kv0 * a.k_ss, a.k_ss, sK, tid);
+    copy_tile<D, kBK>(vb + kv0 * a.v_ss, a.v_ss, sV, tid);
     __syncthreads();
-
     float s[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
@@ -296,10 +193,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         const bf16* p = sV + (kk * 16 + t4 * 2) * P + dn * 8 + g;
@@ -313,15 +208,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  bf16* ob = a.o + b * a.o_sb + h * a.o_sh;
+  if (EXACT && a.lse != nullptr && t4 == 0) {
+    float* lse = a.lse + (static_cast<long long>(b) * gridDim.y + h) * a.sq;
+    lse[row_a] = m0 + log2f(l0);
+    lse[row_b] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(ob + row_a * a.o_ss + col) =
-        pack_bf16(o[dn][0] / l0, o[dn][1] / l0);
-    *reinterpret_cast<uint32_t*>(ob + row_b * a.o_ss + col) =
-        pack_bf16(o[dn][2] / l1, o[dn][3] / l1);
+    o[dn][0] /= l0;
+    o[dn][1] /= l0;
+    o[dn][2] /= l1;
+    o[dn][3] /= l1;
   }
+  store_rows<D>(a.o + b * a.o_sb + h * a.o_sh, a.o_ss, o, row_a, row_b, t4);
 }
 
 template <int D, bool ROPE, bool EXACT>
@@ -347,38 +246,26 @@ cudaError_t launch(const Args& a, int batch, int hq, int sq, bool rope,
                : launch_main<D, false, false>(a, batch, hq, sq, stream);
 }
 
-template <int D>
-cudaError_t launch_rope_k(const bf16* k, bf16* out, const long long* st,
-                          int batch, int hk, int skv, const float* cos,
-                          const float* sin, long long tab_rs, const float* kw,
-                          long long kw_rs, float eps, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(batch) * hk * skv;
-  const int per_block = 256 / 32;
-  const long long blocks = (rows + per_block - 1) / per_block;
-  rope_k_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      k, out, st[3], st[4], st[5], hk, skv, rows, cos, sin, tab_rs, kw,
-      kw_rs, eps);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v, o: (B, H, S, D) bf16 with the strides in `st` (elements):
 // q (b, h, s), k (b, h, s), v (b, h, s), o (b, h, s); the last dim is
-// contiguous. cos/sin: (Sq, >= D/2) f32 rows at tab_rs, or null (no rope).
+// contiguous. lse: (B, Hq, Sq) f32 contiguous, or null; it needs the exact
+// body. cos/sin: (Sq, >= D/2) f32 rows at tab_rs, or null (no rope).
 // qw/kw: f32 qk-norm scales with row strides qw_rs/kw_rs (0 = one shared
 // (D,) row), or null (no norm; rope only). k_scratch: B*Hk*Skv*D bf16 when
 // rope is given. mask: (B, Skv) bytes at mask_sb, or null. Returns the
 // cudaError_t of the launches.
 extern "C" int x2i_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, void* k_scratch,
-    const long long* st, const float* cos, const float* sin,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    void* k_scratch, const long long* st, const float* cos, const float* sin,
     long long tab_rs, const float* qw, long long qw_rs, const float* kw,
     long long kw_rs, const unsigned char* mask, long long mask_sb, int batch,
     int hq, int hk, int sq, int skv, int d, int causal, int exact,
     float scale_log2e, float eps, void* stream_ptr) {
   if ((d != 64 && d != 128) || sq % kBQ || skv % kBK || hk <= 0 ||
-      hq % hk || (cos != nullptr && (k_scratch == nullptr || sq != skv)))
+      hq % hk || (cos != nullptr && (k_scratch == nullptr || sq != skv)) ||
+      (lse != nullptr && !exact))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool rope = cos != nullptr;
@@ -387,6 +274,7 @@ extern "C" int x2i_flash_fwd(
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.o = static_cast<bf16*>(o);
+  a.lse = lse;
   a.q_sb = st[0]; a.q_sh = st[1]; a.q_ss = st[2];
   a.k_sb = st[3]; a.k_sh = st[4]; a.k_ss = st[5];
   a.v_sb = st[6]; a.v_sh = st[7]; a.v_ss = st[8];
@@ -399,17 +287,22 @@ extern "C" int x2i_flash_fwd(
   a.mask = mask;
   a.mask_sb = mask_sb;
   a.group = hq / hk;
+  a.sq = sq;
   a.skv = skv;
   a.causal = causal;
   a.scale_log2e = scale_log2e;
   a.eps = eps;
   cudaError_t err = cudaSuccess;
   if (rope) {
+    // K normalized and rotated once per launch (no scale: it is folded
+    // into the q tile)
     bf16* ks = static_cast<bf16*>(k_scratch);
-    err = d == 64 ? launch_rope_k<64>(a.k, ks, st, batch, hk, skv, cos, sin,
-                                      tab_rs, kw, kw_rs, eps, stream)
-                  : launch_rope_k<128>(a.k, ks, st, batch, hk, skv, cos, sin,
-                                       tab_rs, kw, kw_rs, eps, stream);
+    err = d == 64 ? launch_rope_rows<64>(a.k, ks, st[3], st[4], st[5], batch,
+                                         hk, skv, cos, sin, tab_rs, kw, kw_rs,
+                                         eps, 1.f, stream)
+                  : launch_rope_rows<128>(a.k, ks, st[3], st[4], st[5], batch,
+                                          hk, skv, cos, sin, tab_rs, kw,
+                                          kw_rs, eps, 1.f, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     a.k = ks;
     a.k_ss = d;

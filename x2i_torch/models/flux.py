@@ -1,4 +1,4 @@
-"""FLUX-class rectified-flow DiT for inference, the counterpart of
+"""FLUX-class rectified-flow DiT, the counterpart of
 ``x2i_tpu/models/flux.py``: 19 double-stream blocks, 38 single-stream
 blocks, AdaLN-Zero modulation, 3-axis RoPE in the half layout.
 
@@ -10,24 +10,37 @@ Every dense layer is ``make_linear(cfg.quantized)``: ``nn.Linear``, or a
 of the attention and MLP projections come pre-quantized from the glue
 kernels K6/K7/K8 (``ops/fused_glue.py``), and the single block's output
 layer takes ``[attn, mlp]`` as two chunks, never their concatenation.
+
+For attention distillation the model also returns each block's attention
+output (the double blocks' after their out layers, the single blocks'
+raw head concatenation): stacked as KD stacks, optionally per-token int8,
+or turned inside each block into its KD term against a teacher's stack
+(``kd_targets``), so that only scalars leave the blocks. Under
+``kd_targets`` the fused glue is off, as in JAX, since its kernels have no
+backward. ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``); ``cfg.rope_in_kernel=False`` rotates q and k
+before the attention call instead of inside the kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from x2i_torch.core.config import FluxConfig
 from x2i_torch.ops.attention import attention
 from x2i_torch.ops.fused_glue import (gelu_quant, ln_mod, ln_mod_quant,
                                       quant_rows)
+from x2i_torch.ops.kd import kl_term, quantize_kd_tensor
 from x2i_torch.ops.norms import layer_norm, rms_norm
 from x2i_torch.ops.quant import make_linear
-from x2i_torch.ops.rope import flux_rope_freqs_half
+from x2i_torch.ops.rope import apply_rope_half, flux_rope_freqs_half
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -75,28 +88,56 @@ def _modulate(x, shift, scale):
     return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _norm_modulate(cfg, x, shift, scale):
+def _norm_modulate(cfg, glue, x, shift, scale):
     """LayerNorm (no affine) + modulate: the ln_mod kernel in the "ln" glue
     mode, ln_mod_quant's (codes, row scales) in "quant", the two plain
     steps otherwise."""
-    if cfg.glue == "quant":
+    if glue == "quant":
         return ln_mod_quant(x, shift, scale, impl=cfg.quant_impl)
-    if cfg.glue == "ln":
+    if glue == "ln":
         return ln_mod(x, shift, scale)
     return _modulate(layer_norm(x), shift, scale)
 
 
-def _mlp_out(cfg, layer, mid):
+def _mlp_out(cfg, glue, layer, mid):
     """gelu, then the MLP's output layer (through gelu_quant in "quant")."""
-    if cfg.glue == "quant":
+    if glue == "quant":
         return layer(gelu_quant(mid, impl=cfg.quant_impl))
     return layer(_gelu(mid))
 
 
-def _attn_out(cfg, layer, attn):
-    if cfg.glue == "quant":
+def _attn_out(cfg, glue, layer, attn):
+    if glue == "quant":
         return layer(quant_rows(attn, impl=cfg.quant_impl))
     return layer(attn)
+
+
+def _roped_attention(cfg, q, k, v, rope, qk_norm):
+    """Joint attention of (B, S, H, D) q/k/v with the rope tables inside
+    the kernel, or applied here first when ``cfg.rope_in_kernel`` is off
+    (the qk norm is then never folded: see ``_fold_qk``)."""
+    if not cfg.rope_in_kernel:
+        q, k = apply_rope_half(q, *rope), apply_rope_half(k, *rope)
+        rope = None
+    return attention(q, k, v, implementation=cfg.attention_impl, rope=rope,
+                     qk_norm=qk_norm)
+
+
+def _fold_qk(cfg, glue) -> bool:
+    """Whether the qk RMSNorm runs inside the attention kernel: in every
+    fused glue mode, with the rope in the kernel."""
+    return glue is not None and cfg.rope_in_kernel
+
+
+def _block_aux(attns, kd_target, kd_tau, kd_quantize):
+    """What a block hands out beside its carry: its KD terms against
+    ``kd_target``, or its attention outputs (int8 pairs with
+    ``kd_quantize``)."""
+    if kd_target is not None:
+        return tuple(kl_term(t, a, kd_tau) for t, a in zip(kd_target, attns))
+    if kd_quantize:
+        return tuple(quantize_kd_tensor(a) for a in attns)
+    return attns
 
 
 def _gelu(x):
@@ -126,7 +167,11 @@ class FluxDoubleBlock(nn.Module):
         t = F.silu(temb)
         return self.img_mod(t), self.txt_mod(t)
 
-    def forward(self, hidden, encoder, temb, rope, mods=None):
+    def forward(self, hidden, encoder, temb, rope, mods=None, glue=None,
+                kd_target=None, kd_tau=3.0, kd_quantize=False):
+        """-> (hidden, encoder, aux): aux is (img_attn, txt_attn) after
+        the out layers, their KD terms against kd_target = (teacher img,
+        teacher txt), or int8 pairs with kd_quantize."""
         cfg = self.cfg
         heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
         mod, cmod = self.mods(temb) if mods is None else mods
@@ -135,8 +180,8 @@ class FluxDoubleBlock(nn.Module):
         (c_shift_msa, c_scale_msa, c_gate_msa,
          c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmod.chunk(6, dim=-1)
 
-        img_in = _norm_modulate(cfg, hidden, shift_msa, scale_msa)
-        txt_in = _norm_modulate(cfg, encoder, c_shift_msa, c_scale_msa)
+        img_in = _norm_modulate(cfg, glue, hidden, shift_msa, scale_msa)
+        txt_in = _norm_modulate(cfg, glue, encoder, c_shift_msa, c_scale_msa)
         b, s_img, s_txt = hidden.shape[0], hidden.shape[1], encoder.shape[1]
 
         def heads_of(x):
@@ -148,7 +193,7 @@ class FluxDoubleBlock(nn.Module):
                       heads_of(self.txt_k(txt_in)),
                       heads_of(self.txt_v(txt_in)))
         qk_norm = None
-        if cfg.fused_glue:
+        if _fold_qk(cfg, glue):
             # per-row (S, D) scale tables, txt rows first: the norm itself
             # runs inside the attention kernel
             def rows(tw, iw):
@@ -162,25 +207,25 @@ class FluxDoubleBlock(nn.Module):
             cq, ck = self.txt_q_norm(cq), self.txt_k_norm(ck)
 
         # joint attention: text tokens first, then image tokens
-        attn = attention(torch.cat([cq, q], 1), torch.cat([ck, k], 1),
-                         torch.cat([cv, v], 1),
-                         implementation=cfg.attention_impl, rope=rope,
-                         qk_norm=qk_norm)
+        attn = _roped_attention(cfg, torch.cat([cq, q], 1),
+                                torch.cat([ck, k], 1), torch.cat([cv, v], 1),
+                                rope, qk_norm)
         attn = attn.reshape(b, s_txt + s_img, heads * hd)
         txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
 
-        hidden = hidden + gate_msa[:, None, :] * _attn_out(
-            cfg, self.img_attn_out, img_attn)
-        ff_in = _norm_modulate(cfg, hidden, shift_mlp, scale_mlp)
-        ff = _mlp_out(cfg, self.img_mlp_out, self.img_mlp_in(ff_in))
+        img_attn = _attn_out(cfg, glue, self.img_attn_out, img_attn)
+        txt_attn = _attn_out(cfg, glue, self.txt_attn_out, txt_attn)
+        hidden = hidden + gate_msa[:, None, :] * img_attn
+        ff_in = _norm_modulate(cfg, glue, hidden, shift_mlp, scale_mlp)
+        ff = _mlp_out(cfg, glue, self.img_mlp_out, self.img_mlp_in(ff_in))
         hidden = hidden + gate_mlp[:, None, :] * ff
 
-        encoder = encoder + c_gate_msa[:, None, :] * _attn_out(
-            cfg, self.txt_attn_out, txt_attn)
-        cff_in = _norm_modulate(cfg, encoder, c_shift_mlp, c_scale_mlp)
-        cff = _mlp_out(cfg, self.txt_mlp_out, self.txt_mlp_in(cff_in))
+        encoder = encoder + c_gate_msa[:, None, :] * txt_attn
+        cff_in = _norm_modulate(cfg, glue, encoder, c_shift_mlp, c_scale_mlp)
+        cff = _mlp_out(cfg, glue, self.txt_mlp_out, self.txt_mlp_in(cff_in))
         encoder = encoder + c_gate_mlp[:, None, :] * cff
-        return hidden, encoder
+        return hidden, encoder, _block_aux((img_attn, txt_attn), kd_target,
+                                           kd_tau, kd_quantize)
 
 
 class FluxSingleBlock(nn.Module):
@@ -204,24 +249,27 @@ class FluxSingleBlock(nn.Module):
     def mods(self, temb):
         return self.mod(F.silu(temb))
 
-    def forward(self, hidden, temb, rope, mods=None):
+    def forward(self, hidden, temb, rope, mods=None, glue=None,
+                kd_target=None, kd_tau=3.0, kd_quantize=False):
+        """-> (hidden, aux): aux is the raw attention output (B, S, dim),
+        its KD term against kd_target, or an int8 pair with kd_quantize."""
         cfg = self.cfg
         heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
         mod = self.mods(temb) if mods is None else mods
         shift, scale, gate = mod.chunk(3, dim=-1)
-        x = _norm_modulate(cfg, hidden, shift, scale)
+        x = _norm_modulate(cfg, glue, hidden, shift, scale)
         b, s = hidden.shape[:2]
         q = self.q(x).view(b, s, heads, hd)
         k = self.k(x).view(b, s, heads, hd)
         qk_norm = None
-        if cfg.fused_glue:
+        if _fold_qk(cfg, glue):
             qk_norm = (self.q_norm.scale, self.k_norm.scale, cfg.qk_norm_eps)
         else:
             q, k = self.q_norm(q), self.k_norm(k)
         v = self.v(x).view(b, s, heads, hd)
-        attn = attention(q, k, v, implementation=cfg.attention_impl,
-                         rope=rope, qk_norm=qk_norm).reshape(b, s, heads * hd)
-        if cfg.glue == "quant":
+        attn = _roped_attention(cfg, q, k, v, rope, qk_norm).reshape(
+            b, s, heads * hd)
+        if glue == "quant":
             # two pre-quantized chunks, K-slices of the one output weight
             impl = cfg.quant_impl
             mlp = gelu_quant(self.mlp_in(x), impl=impl)
@@ -229,13 +277,16 @@ class FluxSingleBlock(nn.Module):
         else:
             mlp = _gelu(self.mlp_in(x))
             out = self.out(torch.cat([attn, mlp], dim=-1))
-        return hidden + gate[:, None, :] * out
+        hidden = hidden + gate[:, None, :] * out
+        kd = None if kd_target is None else (kd_target,)
+        return hidden, _block_aux((attn,), kd, kd_tau, kd_quantize)[0]
 
 
 class FluxTransformer2D(nn.Module):
     """Top-level DiT. ``mods_only=True`` returns every step's adaLN rows
     (``timestep`` is then the (T,) sigma vector); ``precomputed_mods``
-    feeds one step's rows back in."""
+    feeds one step's rows back in; ``return_attn_outputs`` and
+    ``kd_targets`` serve the distillation trainer (see ``forward``)."""
 
     def __init__(self, cfg: FluxConfig, device=None):
         super().__init__()
@@ -259,6 +310,16 @@ class FluxTransformer2D(nn.Module):
         self.proj_out = _linear(cfg, dim, cfg.patch_size ** 2
                                 * cfg.in_channels, device)
 
+    def replace_config(self, **changes) -> "FluxTransformer2D":
+        """Set fields of the config of this model and of every block in
+        place (e.g. a trainer's ``remat``, ``rope_in_kernel`` and
+        ``fused_glue`` on a serving model's weights); returns the model."""
+        self.cfg = dataclasses.replace(self.cfg, **changes)
+        for mod in self.modules():
+            if isinstance(getattr(mod, "cfg", None), FluxConfig):
+                mod.cfg = self.cfg
+        return self
+
     def _temb(self, timestep, pooled, guidance):
         cfg = self.cfg
         temb = self.time_embedder(
@@ -277,10 +338,24 @@ class FluxTransformer2D(nn.Module):
                 pooled_projections, timestep, img_ids, txt_ids,
                 guidance: Optional[torch.Tensor] = None,
                 precomputed_mods: Optional[dict] = None,
-                mods_only: bool = False):
+                mods_only: bool = False,
+                return_attn_outputs: bool = False,
+                quantize_attn_outputs: bool = False,
+                kd_targets: Optional[dict] = None,
+                kd_temperature: float = 3.0,
+                aux_layout: str = "reference"):
         """hidden_states (B, S_img, in_channels); encoder_hidden_states
         (B, S_txt, joint_dim); pooled (B, pooled_dim); timestep (B,) in
-        [0, 1]; img_ids (S_img, 3); txt_ids (S_txt, 3)."""
+        [0, 1]; img_ids (S_img, 3); txt_ids (S_txt, 3).
+
+        Returns the velocity (B, S_img, in_channels); with
+        ``return_attn_outputs`` also the KD stacks {"double_img",
+        "double_txt", "single"}, each (B, L, S, dim) in the "reference"
+        ``aux_layout`` or (L, B, S, dim) in "scan", as (int8, f32 scale)
+        pairs with ``quantize_attn_outputs``. With ``kd_targets`` (a
+        teacher's stacks in ``aux_layout``, dense or int8 pairs) it returns
+        (velocity, KD loss summed over the blocks), each block's term
+        computed inside the block."""
         cfg = self.cfg
         if mods_only:
             batch, n_t = pooled_projections.shape[0], timestep.shape[0]
@@ -300,24 +375,64 @@ class FluxTransformer2D(nn.Module):
                 "single": per_step(torch.stack(
                     [blk.mods(temb) for blk in self.single_blocks]))}
 
+        if aux_layout not in ("reference", "scan"):
+            raise ValueError(f"aux_layout={aux_layout!r}")
+        # the fused glue has no backward: KD (training) paths take the
+        # plain glue, as JAX's _use_fused_glue does
+        glue = None if kd_targets is not None else cfg.glue
+        kd_quantize = quantize_attn_outputs and kd_targets is None
+        axis = 0 if aux_layout == "scan" else 1
+
+        def layer(stack, i):             # one block's slice of a KD stack
+            if isinstance(stack, tuple):
+                return tuple(t.select(axis, i) for t in stack)
+            return stack.select(axis, i)
+
+        def run(blk, *args, **kw):
+            if cfg.remat and torch.is_grad_enabled():
+                return checkpoint(blk, *args, use_reentrant=False, **kw)
+            return blk(*args, **kw)
+
         hidden = self.x_embedder(hidden_states.to(cfg.dtype))
         encoder = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
         temb = self._temb(timestep, pooled_projections, guidance)
         rope = flux_rope_freqs_half(torch.cat([txt_ids, img_ids]),
                                     cfg.axes_dims_rope)
 
-        m = precomputed_mods
+        m, kd = precomputed_mods, kd_targets
+        aux = {"double_img": [], "double_txt": [], "single": []}
         for i, blk in enumerate(self.double_blocks):
-            hidden, encoder = blk(
-                hidden, encoder, temb, rope,
+            hidden, encoder, (a_img, a_txt) = run(
+                blk, hidden, encoder, temb, rope,
                 None if m is None else (m["double_img"][i],
-                                        m["double_txt"][i]))
+                                        m["double_txt"][i]),
+                glue=glue, kd_tau=kd_temperature, kd_quantize=kd_quantize,
+                kd_target=None if kd is None else (
+                    layer(kd["double_img"], i), layer(kd["double_txt"], i)))
+            aux["double_img"].append(a_img)
+            aux["double_txt"].append(a_txt)
         joint = torch.cat([encoder, hidden], dim=1)
         for i, blk in enumerate(self.single_blocks):
-            joint = blk(joint, temb, rope,
-                        None if m is None else m["single"][i])
+            joint, a = run(blk, joint, temb, rope,
+                           None if m is None else m["single"][i], glue=glue,
+                           kd_tau=kd_temperature, kd_quantize=kd_quantize,
+                           kd_target=None if kd is None else layer(
+                               kd["single"], i))
+            aux["single"].append(a)
         hidden = joint[:, encoder.shape[1]:]
 
         # AdaLayerNormContinuous: diffusers chunks SCALE first, then shift
         scale, shift = self.norm_out(F.silu(temb)).chunk(2, dim=-1)
-        return self.proj_out(_norm_modulate(cfg, hidden, shift, scale))
+        output = self.proj_out(_norm_modulate(cfg, glue, hidden, shift,
+                                              scale))
+        if kd_targets is not None:
+            kl = sum(torch.stack(aux[key]).sum()
+                     for key in ("double_img", "double_txt", "single"))
+            return output, kl
+        if return_attn_outputs:
+            def stack(ys):
+                if isinstance(ys[0], tuple):
+                    return tuple(torch.stack(t, axis) for t in zip(*ys))
+                return torch.stack(ys, axis)
+            return output, {key: stack(ys) for key, ys in aux.items()}
+        return output

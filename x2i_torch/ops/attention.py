@@ -4,7 +4,10 @@ Tensors are (batch, seq, heads, head_dim) at this boundary. The dispatcher
 picks the flash kernel by the JAX package's static rule (a kernel off the
 CPU when ``supported``; with ``implementation="kernel"`` always), pads odd
 lengths to a multiple of 128 with masked keys, and applies the qk RMSNorm
-and the rope here whenever the kernel route does not take them.
+and the rope here whenever the kernel route does not take them. Every
+route is differentiable (the kernel route through the flash kernels'
+autograd ``Function``), except the kernel route with qk_norm, which is
+forward-only as in JAX.
 """
 
 from __future__ import annotations
@@ -25,14 +28,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False,
               scale: Optional[float] = None,
               implementation: str = "auto",
-              rope=None, qk_norm=None) -> torch.Tensor:
+              rope=None, qk_norm=None,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head (optionally grouped-query) attention.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hk, D); kv_mask: optional (B, Skv)
     bool, True where the key is valid; implementation: "auto" | "kernel" |
     "plain". rope: optional (cos, sin) half-layout tables, each (S, D) f32,
     applied to q and k. qk_norm: optional (q_scale, k_scale, eps) with (D,)
-    or per-row (S, D) scales, applied before the rope.
+    or per-row (S, D) scales, applied before the rope. bias: optional
+    additive logits bias broadcast to (B, H, Sq, Skv) (T5's relative
+    position bias); it takes the plain route, as it forces the XLA path in
+    JAX.
 
     Returns (B, Sq, Hq, D) in q.dtype."""
     b, sq, hq, d = q.shape
@@ -40,8 +47,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
 
-    kernel_ok = implementation == "kernel" or (
-        implementation == "auto" and q.device.type != "cpu")
+    kernel_ok = bias is None and (implementation == "kernel" or (
+        implementation == "auto" and q.device.type != "cpu"))
     use_kernel = kernel_ok and fa.supported((b, hq, sq, d), skv)
     pad_q, pad_kv = (-sq) % 128, (-skv) % 128
     pad_path = (not use_kernel and kernel_ok and not causal
@@ -82,5 +89,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale=scale, rope=rope, qk_norm=qk_norm)
     else:
         out = fa.xla_attention(qt, kt, vt, kv_mask=kv_mask, causal=causal,
-                               scale=scale)
+                               scale=scale, bias=bias)
     return out.transpose(1, 2)

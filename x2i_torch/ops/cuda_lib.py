@@ -6,6 +6,8 @@ shared library with a plain C interface, under the ignored
 carries a hash of the source and the flags, so an edit rebuilds it. Each
 library keeps the launch counts of its kernels, which its wrappers raise
 by one per launch.
+
+``refuse_grad`` is the guard of every kernel wrapper without a backward.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -41,8 +45,10 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.src.read_bytes() + " ".join(NVCC_FLAGS)
-                                .encode()).hexdigest()[:12]
+        # the source, the shared headers and the flags
+        parts = [self.src.read_bytes(), " ".join(NVCC_FLAGS).encode()]
+        parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+        digest = hashlib.sha256(b"".join(parts)).hexdigest()[:12]
         return BUILD_DIR / f"{self.stem}_{digest}.so"
 
     def build(self) -> Path:
@@ -74,3 +80,14 @@ class CudaLibrary:
     def reset_launches(self):
         for key in self.launches:
             self.launches[key] = 0
+
+
+def refuse_grad(kernel: str, *tensors):
+    """Raise when autograd records and one of ``tensors`` requires grad:
+    ``kernel`` is forward-only (as its TPU counterpart is), and returning
+    its output detached would drop that part of every gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: call it under torch.no_grad() or "
+            f"torch.inference_mode(), or take the plain route for training")

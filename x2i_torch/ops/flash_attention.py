@@ -1,30 +1,40 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` (K1), its
-plain PyTorch version, and the plain attention for shapes the kernel does
-not take.
+"""Flash attention on the card: the CUDA kernels ``csrc/flash_fwd.cu``
+(K1, the forward, with the lse output the backward reads) and
+``csrc/flash_bwd.cu`` (K3 dq, K4 dk/dv), their plain PyTorch versions, the
+plain attention for shapes the kernels do not take, and the autograd
+``Function`` that ties forward and backward together.
 
-Counterpart of ``x2i_tpu/ops/flash_attention.py`` (forward only). The TPU
-kernel ``_flash_kernel`` has two forward bodies, and so do the plain
-version here and the CUDA kernel:
+Counterpart of ``x2i_tpu/ops/flash_attention.py``. The TPU forward kernel
+``_flash_kernel`` has two bodies, and so do the plain version here and
+the CUDA kernel:
 
-* pipelined (no kv mask, not causal, Skv >= 256 -- the TPU rule that picks
-  ``pipeline_kc``): softmax as ``exp2(clip(s, -100, 100))`` with no row
-  max; FLUX joint attention, with the half-layout rope and the qk RMSNorm
-  applied inside;
-* exact (otherwise): kv mask and causal mask with the finite ``NEG_INF``,
-  GQA, row-max softmax; the Qwen2 LM prefill.
+* pipelined (no kv mask, not causal, Skv >= 256, no lse -- the TPU rule
+  that picks ``pipeline_kc``): softmax as ``exp2(clip(s, -100, 100))``
+  with no row max; FLUX joint attention, with the half-layout rope and the
+  qk RMSNorm applied inside;
+* exact (otherwise, and always when the lse is asked for): kv mask and
+  causal mask with the finite ``NEG_INF``, GQA, row-max softmax; the Qwen2
+  LM prefill, and every forward that autograd will differentiate. It can
+  return the base-2 row logsumexp ``lse = m + log2(l)``, f32 (B, Hq, Sq).
 
-The rounding points are the TPU kernel's: with rope, q after norm -> rope
+The rounding points are the TPU kernels': with rope, q after norm -> rope
 -> ``* scale * log2(e)`` is rounded to the input dtype, rotated K likewise,
-and ``p`` is cast to the input dtype before the PV product.
+and ``p`` is cast to the input dtype before the PV product. The backward
+kernels round as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` do (see
+``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``).
 
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
 ``apply_rope_half`` reads them.
 
-``flash_attention`` launches the kernel for a CUDA tensor and takes the
-plain version for a CPU tensor; there is no other fallback. The kernel is
-built from the repository's source with ``nvcc`` at first use, into
-``x2i_torch/_build/``.
+``flash_attention`` is differentiable: when autograd records (grad mode on
+and an input requiring grad) it runs ``_FlashAttention``, whose forward is
+K1 with the lse and whose backward is K3 and K4, the counterpart of the
+JAX ``custom_vjp`` ``_flash``. With ``qk_norm`` it is forward-only, as in
+JAX, and raises under grad. Each wrapper launches its kernel for a CUDA
+tensor and takes its plain version for a CPU tensor; there is no other
+fallback. The kernels are built from the repository's sources with
+``nvcc`` at first use, into ``x2i_torch/_build/``.
 """
 
 from __future__ import annotations
@@ -35,11 +45,16 @@ from typing import Optional
 
 import torch
 
-from x2i_torch.ops.cuda_lib import CudaLibrary
+from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 
 NEG_INF = -1e30
 LOG2_E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
+# the JAX package's limits: above MAX_KV_SEQ kv tokens its backward
+# recomputes through the plain attention; above ROPE_MAX_KV the rope is
+# applied outside the kernels
+MAX_KV_SEQ = 8192
+ROPE_MAX_KV = 6144
 
 
 def supported(q_shape, kv_seq: int) -> bool:
@@ -51,8 +66,8 @@ def supported(q_shape, kv_seq: int) -> bool:
 
 
 def is_exact(kv_mask, causal: bool, skv: int) -> bool:
-    """The TPU kernel's choice of body: the pipelined one needs no mask,
-    no causal mask and at least two 128-row kv chunks."""
+    """The TPU kernel's choice of body without the lse: the pipelined one
+    needs no mask, no causal mask and at least two 128-row kv chunks."""
     return kv_mask is not None or causal or skv < 256
 
 
@@ -73,11 +88,42 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def _rotate_t(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """The transpose (= inverse) of ``_rotate``, for cotangents: the TPU
+    kernels' ``_counter_rotate``."""
+    d2 = g.shape[-1] // 2
+    c, s = cos[:, :d2].float(), sin[:, :d2].float()
+    g1, g2 = g[..., :d2], g[..., d2:]
+    return torch.cat([g1 * c + g2 * s, g2 * c - g1 * s], dim=-1)
+
+
+def rope_bhsd(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """The rotation applied outside the kernels ((B, H, S, D), f32, x.dtype
+    out), differentiable: the JAX ``_rope_bhsd``."""
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
+def _mask_scores(s, kv_mask, causal):
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
+    if causal:
+        sq, skv = s.shape[-2:]
+        rows = torch.arange(sq, device=s.device)[:, None]
+        cols = torch.arange(skv, device=s.device)[None, :]
+        s = s.masked_fill(cols > rows, NEG_INF)
+    return s
+
+
+def _repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:
+    return t.repeat_interleave(group, dim=1)
+
+
 def flash_attention_plain(q, k, v, kv_mask=None, causal=False, scale=None,
-                          rope=None, qk_norm=None) -> torch.Tensor:
+                          rope=None, qk_norm=None, return_lse=False):
     """The kernel's function step by step in PyTorch: (B, Hq, Sq, D) q,
     (B, Hk, Skv, D) k/v, (B, Skv) bool kv_mask -> (B, Hq, Sq, D) in
-    q.dtype."""
+    q.dtype, and with ``return_lse`` also the f32 (B, Hq, Sq) base-2 lse
+    (the exact body)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     post = scale * LOG2_E
@@ -88,60 +134,157 @@ def flash_attention_plain(q, k, v, kv_mask=None, causal=False, scale=None,
         qr = (_rotate(_norm_rows(q.float(), qw, eps), cos, sin) * post
               ).to(q.dtype)
         kr = _rotate(_norm_rows(k.float(), kw, eps), cos, sin).to(k.dtype)
-        kr = kr.repeat_interleave(group, dim=1)
-        s = qr.float() @ kr.float().transpose(-1, -2)
+        s = qr.float() @ _repeat_kv(kr, group).float().transpose(-1, -2)
     else:
-        kf = k.repeat_interleave(group, dim=1).float()
+        kf = _repeat_kv(k, group).float()
         s = (q.float() @ kf.transpose(-1, -2)) * post
-    vf = v.repeat_interleave(group, dim=1)
-    if is_exact(kv_mask, causal, k.shape[2]):
-        if kv_mask is not None:
-            s = s.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
-        if causal:
-            sq, skv = s.shape[-2:]
-            rows = torch.arange(sq, device=s.device)[:, None]
-            cols = torch.arange(skv, device=s.device)[None, :]
-            s = s.masked_fill(cols > rows, NEG_INF)
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
+    vf = _repeat_kv(v, group)
+    lse = None
+    if return_lse or is_exact(kv_mask, causal, k.shape[2]):
+        s = _mask_scores(s, kv_mask, causal)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        if return_lse:
+            lse = (m + torch.log2(p.sum(-1, keepdim=True)))[..., 0
+                                                           ].contiguous()
     else:
         p = torch.exp2(s.clamp(-100.0, 100.0))
-    o = (p.to(v.dtype).float() @ vf.float()) / p.sum(-1, keepdim=True)
-    return o.to(q.dtype)
+    o = ((p.to(v.dtype).float() @ vf.float()) / p.sum(-1, keepdim=True)
+         ).to(q.dtype)
+    return (o, lse) if return_lse else o
 
 
-def xla_attention(q, k, v, kv_mask=None, causal=False, scale=None
-                  ) -> torch.Tensor:
+def _delta(o, do):
+    """sum(do * o) per row in f32, (B, Hq, Sq): computed outside the
+    kernels, as in JAX."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_mask=None, causal=False,
+                       scale=None, rope=None):
+    """K3 step by step: dq (B, Hq, Sq, D) in q.dtype. With rope, q is
+    rotated, scaled by scale * log2(e) and rounded, k rotated and rounded
+    (the forward's recipe), and dq is counter-rotated."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    post = scale * LOG2_E
+    group = q.shape[1] // k.shape[1]
+    if rope is not None:
+        cos, sin = rope
+        qs = (_rotate(q.float(), cos, sin) * post).to(q.dtype)
+        kr = _repeat_kv(_rotate(k.float(), cos, sin).to(k.dtype), group)
+        s = qs.float() @ kr.float().transpose(-1, -2)
+    else:
+        kr = _repeat_kv(k, group)
+        s = (q.float() @ kr.float().transpose(-1, -2)) * post
+    p = torch.exp2(_mask_scores(s, kv_mask, causal) - lse[..., None])
+    dp = do.to(v.dtype).float() @ _repeat_kv(v, group).float().transpose(
+        -1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = ds.to(k.dtype).float() @ kr.float()
+    if rope is not None:
+        dq = _rotate_t(dq, *rope)
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_mask=None, causal=False,
+                        scale=None, rope=None):
+    """K4 step by step: (dk, dv), each (B, Hk, Skv, D), the GQA group summed
+    in f32. With rope, q and k are rotated and rounded WITHOUT the scale,
+    which multiplies the f32 scores instead, and dk is counter-rotated."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b, hq, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    group = hq // hk
+    if rope is not None:
+        qr = _rotate(q.float(), *rope).to(q.dtype)
+        kr = _rotate(k.float(), *rope).to(k.dtype)
+    else:
+        qr, kr = q, k
+    s = (qr.float() @ _repeat_kv(kr, group).float().transpose(-1, -2)
+         ) * (scale * LOG2_E)
+    p = torch.exp2(_mask_scores(s, kv_mask, causal) - lse[..., None])
+    dof = do.to(v.dtype).float()
+    dp = dof @ _repeat_kv(v, group).float().transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+
+    def group_sum(a, x):          # (B, Hq, Sq, Skv), (B, Hq, Sq, D)
+        return torch.einsum("bhgqk,bhgqd->bhkd",
+                            a.view(b, hk, group, sq, skv),
+                            x.view(b, hk, group, sq, d))
+
+    dv = group_sum(p.to(do.dtype).float(), dof)
+    dk = group_sum(ds.to(q.dtype).float(), qr.float())
+    if rope is not None:
+        dk = _rotate_t(dk, *rope)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, kv_mask, o, lse, do, causal=False,
+                         scale=None, rope=None):
+    """K3 and K4's plain versions: (dq, dk, dv)."""
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_mask, causal, scale,
+                            rope)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_mask,
+                                     causal, scale, rope))
+
+
+def xla_attention(q, k, v, kv_mask=None, causal=False, scale=None,
+                  bias=None) -> torch.Tensor:
     """Plain f32 softmax attention over (B, H, S, D), the counterpart of
-    the JAX ``xla_attention`` (the route for shapes no kernel takes)."""
+    the JAX ``xla_attention`` (the route for shapes no kernel takes).
+    bias: optional additive f32 logits bias broadcast to (B, H, Sq, Skv)
+    (T5's relative position bias)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     group = q.shape[1] // k.shape[1]
-    kf = k.repeat_interleave(group, dim=1).float()
-    vf = v.repeat_interleave(group, dim=1).float()
+    kf = _repeat_kv(k, group).float()
+    vf = _repeat_kv(v, group).float()
     s = (q.float() @ kf.transpose(-1, -2)) * scale
-    if kv_mask is not None:
-        s = s.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
-    if causal:
-        sq, skv = s.shape[-2:]
-        rows = torch.arange(sq, device=s.device)[:, None]
-        cols = torch.arange(skv, device=s.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
+    if bias is not None:
+        s = s + bias.float()
+    s = _mask_scores(s, kv_mask, causal)
     return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
 
+
+# ------------------------------------------------------------------ CUDA
 
 def _bind(lib):
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
     lib.x2i_flash_fwd.argtypes = [
-        p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
+        p, p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
         i, i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_fwd.restype = ctypes.c_int
 
 
-# the compiled library and its launch counts: ``flash_fwd_rope`` for the
-# rope variant (K1a, FLUX), ``flash_fwd`` for the other (K1b, LM prefill)
+def _bind_bwd(lib):
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    lib.x2i_flash_bwd_dq.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, ll, p, ll,
+        i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_bwd_dkv.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, ll, p, ll,
+        i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_bwd_dq.restype = ctypes.c_int
+    lib.x2i_flash_bwd_dkv.restype = ctypes.c_int
+
+
+# the compiled forward library and its launch counts: ``flash_fwd_rope``
+# for the rope variant without lse (K1a, FLUX serving), ``flash_fwd`` for
+# the exact body without rope or lse (K1b, LM prefill), ``flash_fwd_pipe``
+# for the pipelined body without rope (K1c, the DiT with rope outside, as
+# the distillation teacher runs it), ``flash_fwd_lse`` for every forward
+# that writes the lse (the exact body, with or without rope)
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
-                     ("flash_fwd_rope", "flash_fwd"), _bind)
+                     ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
+                      "flash_fwd_lse"), _bind)
+# the backward library: K3 and K4
+KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
+                         ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd)
 
 
 def _check(name, t, ndim):
@@ -164,6 +307,14 @@ def _f32_table(name, t, rows, cols):
     return t
 
 
+def _rows_f32(name, t, shape, device):
+    if (t.dtype != torch.float32 or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"flash kernel: {name} must be a contiguous f32 "
+                         f"{shape} tensor on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
 def _qk_scale(w, s, d):
     """-> (f32 table, row stride): a (D,) scale is shared (stride 0); an
     (S, D) table is rounded to bf16 first, as the TPU kernel stores it."""
@@ -173,27 +324,67 @@ def _qk_scale(w, s, d):
                       s, d), d
 
 
-def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm):
+def _shapes(q, k, v, extra=()):
+    """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``) -> (b,
+    hq, hk, sq, skv, d)."""
     b, hq, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _check(name, t, 4)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or hq % hk or d not in HEAD_DIMS or sq % 64 or skv % 64):
+            or hq % hk or d not in HEAD_DIMS or sq % 64 or skv % 64
+            or any(t.shape != q.shape for _, t in extra)):
         raise ValueError(f"flash kernel: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    exact = is_exact(kv_mask, causal, skv)
-    cos = sin = qw = kw = mask = scratch = None
-    tab_rs = qw_rs = kw_rs = mask_sb = 0
+    return b, hq, hk, sq, skv, d
+
+
+def _mask_arg(kv_mask, b, skv, device):
+    if kv_mask is None:
+        return None, 0
+    if (kv_mask.dtype != torch.bool or kv_mask.shape != (b, skv)
+            or kv_mask.stride(1) != 1 or kv_mask.device != device):
+        raise ValueError("flash kernel: kv_mask must be a (B, Skv) bool "
+                         "CUDA tensor with contiguous rows")
+    return kv_mask, kv_mask.stride(0)
+
+
+def _rope_args(rope, sq, skv, d):
+    if rope is None:
+        return None, None, 0
+    if sq != skv:
+        raise ValueError("flash kernel: rope needs Sq == Skv")
+    cos = _f32_table("cos", rope[0], sq, d // 2)
+    sin = _f32_table("sin", rope[1], sq, d // 2)
+    if sin.stride(0) != cos.stride(0):
+        raise ValueError("flash kernel: cos and sin strides differ")
+    return cos, sin, cos.stride(0)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _out_bhsd(b, h, s, d, like):
+    """A (B, H, S, D) output laid out (B, S, H, D), as the dispatcher
+    transposes it back."""
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
+                return_lse=False):
+    b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    exact = return_lse or is_exact(kv_mask, causal, skv)
+    cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
+    qw = kw = scratch = None
+    qw_rs = kw_rs = 0
     eps = 1e-6
     if rope is not None:
-        if sq != skv:
-            raise ValueError("flash kernel: rope needs Sq == Skv")
-        cos = _f32_table("cos", rope[0], sq, d // 2)
-        sin = _f32_table("sin", rope[1], sq, d // 2)
-        tab_rs = cos.stride(0)
-        if sin.stride(0) != tab_rs:
-            raise ValueError("flash kernel: cos and sin strides differ")
         # rotated K, written once per launch; like every buffer here it is
         # allocated on the launch stream, so the caching allocator reuses
         # it only after the kernel
@@ -204,46 +395,184 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm):
             eps = float(qk_norm[2])
     elif qk_norm is not None:
         raise ValueError("flash kernel: qk_norm rides the rope path")
-    if kv_mask is not None:
-        if (kv_mask.dtype != torch.bool or kv_mask.shape != (b, skv)
-                or kv_mask.stride(1) != 1 or kv_mask.device != q.device):
-            raise ValueError("flash kernel: kv_mask must be a (B, Skv) bool "
-                             "CUDA tensor with contiguous rows")
-        mask, mask_sb = kv_mask, kv_mask.stride(0)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
+    out = _out_bhsd(b, hq, sq, d, q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    lib = KERNEL.lib()
-    err = lib.x2i_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ptr(scratch), strides, ptr(cos), ptr(sin), tab_rs, ptr(qw), qw_rs,
-        ptr(kw), kw_rs, ptr(mask), mask_sb, b, hq, hk, sq, skv, d,
-        int(causal), int(exact), scale * LOG2_E, eps,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = KERNEL.lib().x2i_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(qw),
+        qw_rs, _ptr(kw), kw_rs, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d,
+        int(causal), int(exact), scale * LOG2_E, eps, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
-    KERNEL.launches["flash_fwd_rope" if rope is not None else
-                    "flash_fwd"] += 1
-    return out
+    name = ("flash_fwd_lse" if return_lse else "flash_fwd_rope"
+            if rope is not None else "flash_fwd" if exact else
+            "flash_fwd_pipe")
+    KERNEL.launches[name] += 1
+    return (out, lse) if return_lse else out
+
+
+def _bwd_args(q, k, v, do, lse, delta, kv_mask, rope):
+    b, hq, hk, sq, skv, d = _shapes(q, k, v, (("do", do),))
+    for name, t in (("lse", lse), ("delta", delta)):
+        _rows_f32(name, t, (b, hq, sq), q.device)
+    mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
+    cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
+    return (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs)
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
+    (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs) = \
+        _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
+    dq = _out_bhsd(b, hq, sq, d, q)
+    scratch = (torch.empty((b, hk, skv, d), dtype=k.dtype, device=k.device)
+               if rope is not None else None)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3])
+    err = KERNEL_BWD.lib().x2i_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(scratch),
+        strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(mask), mask_sb, b, hq,
+        hk, sq, skv, d, int(causal), scale, scale * LOG2_E, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash dq kernel launch failed: cudaError_t "
+                           f"{err}")
+    KERNEL_BWD.launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
+    (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs) = \
+        _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
+    dk, dv = _out_bhsd(b, hk, skv, d, k), _out_bhsd(b, hk, skv, d, v)
+    scratch = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+               if rope is not None else None)
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3])
+    err = KERNEL_BWD.lib().x2i_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(mask),
+        mask_sb, b, hq, hk, sq, skv, d, int(causal), scale, scale * LOG2_E,
+        _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash dk/dv kernel launch failed: cudaError_t "
+                           f"{err}")
+    KERNEL_BWD.launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+# ------------------------------------------------------ the wrappers
+
+def _default_scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def flash_forward_lse(q, k, v, kv_mask=None, causal=False, scale=None,
+                      rope=None):
+    """K1 with the lse (the exact body): -> (o (B, Hq, Sq, D), lse f32
+    (B, Hq, Sq), base 2). A CUDA tensor launches the kernel, a CPU tensor
+    takes ``flash_attention_plain``. Not differentiable itself: it is the
+    forward of ``_FlashAttention``."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_mask, causal, scale, rope,
+                                     return_lse=True)
+    return _flash_cuda(q, k, v, kv_mask, causal, scale, rope, None,
+                       return_lse=True)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, kv_mask=None, causal=False,
+                 scale=None, rope=None):
+    """K3: dq from the forward's lse and delta = sum(do * o). A CUDA
+    tensor launches the kernel, a CPU tensor takes ``flash_bwd_dq_plain``."""
+    scale = _default_scale(q, scale)
+    fn = flash_bwd_dq_plain if q.device.type == "cpu" else _bwd_dq_cuda
+    return fn(q, k, v, do, lse, delta, kv_mask, causal, scale, rope)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, kv_mask=None, causal=False,
+                  scale=None, rope=None):
+    """K4: (dk, dv), the GQA group summed. A CUDA tensor launches the
+    kernel, a CPU tensor takes ``flash_bwd_dkv_plain``."""
+    scale = _default_scale(q, scale)
+    fn = flash_bwd_dkv_plain if q.device.type == "cpu" else _bwd_dkv_cuda
+    return fn(q, k, v, do, lse, delta, kv_mask, causal, scale, rope)
+
+
+def flash_backward(q, k, v, kv_mask, o, lse, do, causal=False, scale=None,
+                   rope=None):
+    """K3 then K4: (dq, dk, dv) in the inputs' dtypes."""
+    delta = _delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, kv_mask, causal, scale, rope)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, kv_mask, causal,
+                               scale, rope))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 with the lse forward, K3/K4 backward: the JAX ``_flash``
+    ``custom_vjp`` with the branches of its ``_flash_bwd``. Rope tables
+    given here are applied inside the kernels (Skv <= ROPE_MAX_KV);
+    ``flash_attention`` rotates outside above that, and autograd carries
+    the rotation's transpose. Above MAX_KV_SEQ the backward recomputes
+    through the plain attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, cos, sin, causal, scale):
+        rope = None if cos is None else (cos, sin)
+        o, lse = flash_forward_lse(q, k, v, kv_mask, causal, scale, rope)
+        ctx.save_for_backward(q, k, v, kv_mask, cos, sin, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, cos, sin, o, lse = ctx.saved_tensors
+        causal, scale = ctx.causal, ctx.scale
+        rope = None if cos is None else (cos, sin)
+        if rope is None and k.shape[2] > MAX_KV_SEQ:
+            with torch.enable_grad():
+                args = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = xla_attention(*args, kv_mask, causal, scale)
+                dq, dk, dv = torch.autograd.grad(out, args, do)
+        else:
+            dq, dk, dv = flash_backward(q, k, v, kv_mask, o, lse,
+                                        do.contiguous(), causal, scale,
+                                        rope)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None,
                     causal: bool = False, scale: Optional[float] = None,
                     rope=None, qk_norm=None) -> torch.Tensor:
-    """Flash attention forward over (B, H, S, D) tensors.
+    """Flash attention over (B, H, S, D) tensors; differentiable, except
+    with qk_norm.
 
     rope: optional (cos, sin) half-layout tables, each (S, D) f32,
     applied to q and k inside the kernel (Sq == Skv). qk_norm: optional
     (q_scale, k_scale, eps) with (D,) or per-row (S, D) scales: RMSNorm of
-    q and k before the rotation (requires rope).
+    q and k before the rotation (requires rope); forward-only, as in JAX,
+    so it raises when autograd records.
 
-    A CUDA tensor launches the kernel (which raises on what it does not
-    take); a CPU tensor takes ``flash_attention_plain``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    Without autograd recording, a CUDA tensor launches the forward kernel
+    (which raises on what it does not take) and a CPU tensor takes
+    ``flash_attention_plain``. When it records, the call goes through
+    ``_FlashAttention`` (the same routing for each of its kernels)."""
+    scale = _default_scale(q, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if qk_norm is not None:
+            refuse_grad("the flash kernel with qk_norm", q, k, v)
+        if rope is not None and k.shape[2] > min(MAX_KV_SEQ, ROPE_MAX_KV):
+            q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None
+        cos, sin = (None, None) if rope is None else rope
+        return _FlashAttention.apply(q, k, v, kv_mask, cos, sin, causal,
+                                     scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal, scale, rope,
                                      qk_norm)

@@ -44,7 +44,9 @@ without it can still import this module and run the plain versions.
 
 Every wrapper takes its plain version for a CPU tensor or for
 ``impl="plain"`` (the plain route of ``FluxConfig.quant_impl``), and
-launches its kernel otherwise.
+launches its kernel otherwise. The kernels have no backward, as the TPU
+ones have none: except on the "plain" route, a wrapper raises when
+autograd records and an input requires grad, on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from x2i_torch.ops.cuda_lib import BUILD_DIR
+from x2i_torch.ops.cuda_lib import BUILD_DIR, refuse_grad
 
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
             "quant_rows": 0}
@@ -275,8 +277,13 @@ def _ln_mod_cuda(x, shift, scale, eps):
     return out
 
 
-def _plain(x, impl):
-    return impl == "plain" or x.device.type == "cpu"
+def _plain(name, impl, *tensors):
+    """Whether to take the plain version; off the "plain" route, refuse
+    autograd first."""
+    if impl == "plain":
+        return True
+    refuse_grad(f"the {name} kernel", *tensors)
+    return tensors[0].device.type == "cpu"
 
 
 def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
@@ -285,7 +292,7 @@ def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     x (B, S, D); shift/scale (B, D). A CUDA tensor launches the Triton
     kernel (which raises on what it does not take); a CPU tensor takes
     ``ln_mod_plain``."""
-    if x.device.type == "cpu":
+    if _plain("ln_mod", "auto", x, shift, scale):
         return ln_mod_plain(x, shift, scale, eps)
     return _ln_mod_cuda(x, shift, scale, eps)
 
@@ -294,7 +301,7 @@ def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-6, impl: str = "auto"):
     """K6: quantize(modulate(layer_norm(x), shift, scale)) in one pass.
     x (B, S, D); shift/scale (B, D) -> (int8 (B, S, D), f32 (B, S, 1))."""
-    if _plain(x, impl):
+    if _plain("ln_mod_quant", impl, x, shift, scale):
         return ln_mod_quant_plain(x, shift, scale, eps)
     return _run_quant("ln_mod_quant", x, shift, scale, eps=eps)
 
@@ -302,7 +309,7 @@ def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
 def gelu_quant(x: torch.Tensor, impl: str = "auto"):
     """K7: quantize(gelu_tanh(x) rounded to x.dtype) in one pass; x is
     (B, S, D) or (N, D)."""
-    if _plain(x, impl):
+    if _plain("gelu_quant", impl, x):
         return gelu_quant_plain(x)
     return _run_quant("gelu_quant", x)
 
@@ -310,6 +317,6 @@ def gelu_quant(x: torch.Tensor, impl: str = "auto"):
 def quant_rows(x: torch.Tensor, impl: str = "auto"):
     """K8: per-row int8 quantization in one pass; x is (B, S, D) or
     (N, D)."""
-    if _plain(x, impl):
+    if _plain("quant_rows", impl, x):
         return quant_rows_plain(x)
     return _run_quant("quant_rows", x)

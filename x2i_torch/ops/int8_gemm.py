@@ -19,6 +19,8 @@ sum is exact: at most 127 * 127 * 15360 < 2^31 on the DiT's widest input.
 
 ``int8_linear`` launches the kernel for a CUDA tensor (bf16 out only) and
 takes ``int8_linear_plain`` for a CPU tensor; there is no other fallback.
+The kernel has no backward: off ``impl="plain"`` the wrapper raises when
+autograd records and an input requires grad.
 The plain version sums in int32 on the CPU and in float64 on a card
 (cuBLAS has no int32 product; float64 is exact below 2^53).
 """
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from x2i_torch.ops.cuda_lib import CudaLibrary
+from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 
 K_STEP = 64          # K must be a multiple of it (the kernel zero-fills its
                      # 128-byte K tiles past K)
@@ -157,6 +159,8 @@ def int8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
     docstring). A CUDA tensor launches the kernel, which raises on what it
     does not take; a CPU tensor, or ``impl="plain"``, takes
     ``int8_linear_plain``."""
+    if impl != "plain":
+        refuse_grad("the int8 GEMM", a_scale, scale, bias, addend)
     if impl == "plain" or xq.device.type == "cpu":
         return int8_linear_plain(xq, a_scale, qweight, scale, bias, k0,
                                  addend, out_dtype)

@@ -32,6 +32,8 @@ from torch import nn
 from x2i_torch.ops.quant import QuantLinear
 
 Tree = Mapping[str, Any]
+# parameters that random_init_ draws from a normal law, with its std
+RANDOM_TABLES = {"rel_bias": 1.0, "position_embedding": 0.02}
 
 
 def _params(tree: Tree) -> Tree:
@@ -154,9 +156,10 @@ def random_init_(module: nn.Module, generator: torch.Generator
                  ) -> nn.Module:
     """Random weights in place: Linear and Conv2d weights normal with std
     1/sqrt(fan_in) (a QuantLinear quantizes such a weight), embeddings
-    normal with std 1, biases 0, every other
-    parameter (norm scales, the proj's channel scale) 1 -- except norm
-    biases, 0."""
+    normal with std 1, as T5's relative position bias table; CLIP's
+    position embeddings normal with std 0.02 (the JAX initializers of the
+    two); biases 0, every other parameter (norm scales, the proj's channel
+    scale) 1 -- except norm biases, 0."""
     with torch.no_grad():
         for mod in module.modules():
             if isinstance(mod, QuantLinear):
@@ -178,5 +181,9 @@ def random_init_(module: nn.Module, generator: torch.Generator
                 mod.weight.normal_(0.0, 1.0, generator=generator)
             else:
                 for name, p in mod.named_parameters(recurse=False):
-                    p.fill_(0.0 if name.endswith("bias") else 1.0)
+                    if name in RANDOM_TABLES:
+                        p.normal_(0.0, RANDOM_TABLES[name],
+                                  generator=generator)
+                    else:
+                        p.fill_(0.0 if name.endswith("bias") else 1.0)
     return module

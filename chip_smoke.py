@@ -5,21 +5,33 @@
 
 Phases, each printing one JSON line per record:
 
-1. build: compile the CUDA sources (csrc/flash_fwd.cu, csrc/flash_bwd.cu
-   and csrc/int8_gemm.cu, one nvcc each, started together) while the
-   Triton glue kernels (ln_mod, ln_mod_quant, gelu_quant, quant_rows)
-   compile, all from the sources in this checkout;
+1. build: compile the CUDA sources (csrc/flash_fwd.cu,
+   csrc/flash_chunked.cu, csrc/flash_bwd.cu and csrc/int8_gemm.cu, one
+   nvcc each, started together) while the Triton glue kernels (ln_mod,
+   ln_mod_quant, gelu_quant, quant_rows) compile, all from the sources in
+   this checkout;
 2. kernels: hold each kernel against its plain PyTorch version at the main
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
    the same function (device time, see ``kernel_ms``); the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
+   the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
+   shapes, also against the plain f32 attention;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
    2+2-block full-width DiT holds the kernel route against the plain one;
 4. serve: a BatchingServer over the same pipeline answers 3 concurrent
    requests at 512x512;
+4a. text2image-2048: the same pipeline makes a 2048x2048 image (16,896
+   joint tokens: every DiT attention is K2, norm and rope outside it; the
+   VAE decodes 6 x 6 tiles), with exact launch counts; a 2+2-block
+   full-width DiT holds the kernel route against the plain one at 9,728
+   tokens;
+4b. long-prompt: a 32,768-token prompt (30,000 valid) through
+   ``Qwen2LM.encode_premixed`` and ``Proj.mlp`` on the same LM and proj
+   (24 K2 launches, no K1); the streamed encode held against the stack
+   route at 8,448 tokens;
 5. distill: the full-width phase-1 distillation trainer on the same bf16
    DiT and LM (no second copy), with T5-XXL's encoder and CLIP-L's text
    tower drawn on the card: one warm-up step and three timed steps, each
@@ -59,6 +71,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 FLASH_SRC = "x2i_torch/csrc/flash_fwd.cu"
+FLASH_CHUNKED_SRC = "x2i_torch/csrc/flash_chunked.cu"
 FLASH_BWD_SRC = "x2i_torch/csrc/flash_bwd.cu"
 GEMM_SRC = "x2i_torch/csrc/int8_gemm.cu"
 GLUE_SRC = "x2i_torch/ops/fused_glue.py"
@@ -173,11 +186,9 @@ def phase_build():
 
     import torch
     from x2i_torch.ops import fused_glue as fg
-    from x2i_torch.ops.flash_attention import KERNEL, KERNEL_BWD
-    from x2i_torch.ops.int8_gemm import GEMM
 
     t0 = time.perf_counter()
-    libs = (KERNEL, KERNEL_BWD, GEMM)
+    libs = _cuda_libraries()
     with ThreadPoolExecutor(len(libs)) as pool:
         builds = [pool.submit(lambda lib=lib: (lib.lib(),
                                                time.perf_counter() - t0))
@@ -398,13 +409,6 @@ def check_training_attention(g, records):
     check_flash_train("FLUX, rope outside", *bhsd, records, lib)
     check_flash_train("FLUX, rope in the kernel", *bhsd, records, lib,
                       rope=rope)
-    # K2, the chunked forward (Skv > 8192), is not ported: its bound at
-    # 2048^2 (16384 image + 512 text tokens), computed from the shapes
-    s2 = s_txt + (2048 // 16) ** 2
-    k2_ms, k2_by = bound(4.0 * s2 * s2 * d * heads, 4 * s2 * heads * d * 2)
-    emit({"phase": "kernels", "kernel": "flash_chunked (K2, not ported)",
-          "shape": [1, heads, s2, d], "bound_ms": k2_ms, "bound_by": k2_by,
-          "flop": 4.0 * s2 * s2 * d * heads, "computed_from_shapes": True})
     s, hq, hk, d = 512, 14, 2, 64
     q, do = randn(1, s, hq, d), randn(1, s, hq, d)
     k, v = randn(1, s, hk, d), randn(1, s, hk, d)
@@ -416,6 +420,147 @@ def check_training_attention(g, records):
     check_flash_train("LM, kv mask, causal",
                       *[t.transpose(1, 2) for t in (q, k, v, do)], records,
                       lib, kv_mask=mask, causal=True)
+
+
+def _attention_rows_f32(q, k, v, r0, r1, kv_mask, causal):
+    """The plain f32 softmax attention of q rows r0..r1 of (B, H, S, D)
+    tensors (GQA, kv mask, causal diagonal aligned at row 0): one block of
+    rows, so that the (rows, Skv) f32 scores fit beside the model."""
+    import torch
+    from x2i_torch.ops.flash_attention import NEG_INF
+    group = q.shape[1] // k.shape[1]
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    s = (q[:, :, r0:r1].float() @ kf.transpose(-1, -2)) / math.sqrt(
+        q.shape[-1])
+    if kv_mask is not None:
+        s.masked_fill_(~kv_mask[:, None, None, :], NEG_INF)
+    if causal:
+        rows = torch.arange(r0, r1, device=q.device)[:, None]
+        cols = torch.arange(k.shape[2], device=q.device)[None, :]
+        s.masked_fill_(cols > rows, NEG_INF)
+    return torch.softmax(s, dim=-1) @ vf
+
+
+def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
+                        kv_mask=None, causal=False):
+    """K2 at one shape, with and without the lse: against its plain
+    version (256 x 512 tiles with the block skip against the kernel's 64 x
+    64: o within 1e-2 max and 1e-3 mean absolute error in bf16, the lse
+    within 1e-3 in log2 units) and o against the plain f32 attention,
+    block of q rows by block (the same bars). Every row of these cases has
+    a valid key. q, k, v are (B, H, S, D) views of (B, S, H, D) tensors,
+    as the dispatcher passes them; `library` is (fn, inputs). The bound
+    counts the (query, key) pairs the data needs: valid keys at or below
+    the diagonal, whatever tiles an implementation visits."""
+    import torch
+    from x2i_torch.ops import flash_attention as fa
+    kw = dict(kv_mask=kv_mask, causal=causal)
+    o = fa.flash_forward_chunked(q, k, v, **kw)
+    o_l, lse = fa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+    o_p, lse_p = fa.flash_forward_chunked_plain(q, k, v, return_lse=True,
+                                                **kw)
+    torch.cuda.synchronize()
+    diff = (o.float() - o_p.float()).abs()
+    ref_max, ref_sum = 0.0, 0.0
+    for r0 in range(0, q.shape[2], rows_per_block):
+        r1 = min(q.shape[2], r0 + rows_per_block)
+        d = (o[:, :, r0:r1].float()
+             - _attention_rows_f32(q, k, v, r0, r1, kv_mask, causal)).abs()
+        ref_max, ref_sum = max(ref_max, d.max().item()), ref_sum + d.sum(
+            ).item()
+        del d
+    pairs = _pairs(q, k, kw)
+    rec = {"phase": "kernels", "kernel": f"flash_chunked[{label}]",
+           "shape": list(q.shape), "kv_shape": list(k.shape),
+           "causal": causal,
+           "valid_keys": None if kv_mask is None else int(kv_mask.sum()),
+           "max_abs_err": diff.max().item(),
+           "mean_abs_err": diff.mean().item(),
+           "lse_max_abs_err": (lse - lse_p).abs().max().item(),
+           "lse_output_same_o": torch.equal(o, o_l),
+           "max_abs_err_vs_f32_attention": ref_max,
+           "mean_abs_err_vs_f32_attention": ref_sum / o.numel(),
+           "finite": bool(torch.isfinite(o).all()
+                          and torch.isfinite(lse).all()),
+           "ms": kernel_ms(lambda *t: fa.flash_forward_chunked(*t, **kw),
+                           q, k, v),
+           "ms_with_lse": kernel_ms(lambda *t: fa.flash_forward_chunked(
+               *t, return_lse=True, **kw), q, k, v),
+           # the plain version is thousands of launches per call, more
+           # than the launch queue holds behind ``kernel_ms``'s sleep
+           # kernel: it is timed call by call, with 4096 x 4096 tiles so
+           # that the card and not the host bounds it
+           "plain_ms": call_ms(lambda: fa.flash_forward_chunked_plain(
+               q, k, v, block_q=4096, block_k=4096, **kw), iters=3),
+           "plain_ms_timing": "call_ms, 4096 x 4096 tiles",
+           "library_ms": (kernel_ms(library[0], *library[1]) if library
+                          else None),
+           "library": "SDPA forward on contiguous (B, H, S, D) inputs"
+                      + (", bool mask (causal and keys), k/v repeated"
+                         if causal or kv_mask is not None else ""),
+           "flop": 4.0 * pairs * q.shape[-1]}
+    rec["bound_ms"], rec["bound_by"] = bound(
+        rec["flop"], nbytes(q, k, v, o, kv_mask))
+    emit(rec)
+    if not (rec["finite"] and rec["lse_output_same_o"]
+            and rec["max_abs_err"] <= 1e-2 and rec["mean_abs_err"] <= 1e-3
+            and rec["lse_max_abs_err"] <= 1e-3 and ref_max <= 1e-2
+            and rec["mean_abs_err_vs_f32_attention"] <= 1e-3):
+        raise AssertionError(f"flash_chunked[{label}] disagrees with its "
+                             f"plain version: {rec}")
+    records.setdefault("flash_chunked", []).append(rec)
+
+
+def check_chunked_attention(g, records):
+    """K2 at the long-sequence path's shapes: the DiT at 2048^2 (1, 24,
+    16896, 128), no mask, not causal; the LM's 32,768-token prefill, 14 q
+    heads on 2 kv heads x 64, causal, a right-padded mask that leaves
+    30,000 keys valid; and an odd case at D = 128 (batch 2, Sq 640 !=
+    Skv 1152, mask and causal together, GQA 6 / 2)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def masked_sdpa(q, k, v, mask, group):
+        sq, skv = q.shape[1], k.shape[1]
+        keep = (torch.ones((sq, skv), dtype=torch.bool, device=dev).tril()
+                & mask[:, None, :])[:, None]
+        ins = [q.transpose(1, 2).contiguous()] + [
+            t.transpose(1, 2).repeat_interleave(group, dim=1).contiguous()
+            for t in (k, v)]
+        return (lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=keep)), ins
+
+    s = 512 + (2048 // 16) ** 2
+    q, k, v = (randn(1, s, 24, 128) for _ in range(3))
+    lib = (lambda *t: F.scaled_dot_product_attention(*t),
+           [t.transpose(1, 2).contiguous() for t in (q, k, v)])
+    check_flash_chunked("DiT 2048^2", *(t.transpose(1, 2) for t in (q, k, v)),
+                        records, lib, 2048)
+    del q, k, v, lib
+    s, hq, hk, d = 32768, 14, 2, 64
+    q, k, v = randn(1, s, hq, d), randn(1, s, hk, d), randn(1, s, hk, d)
+    mask = torch.arange(s, device=dev)[None] < 30000
+    check_flash_chunked("LM 32k, kv mask, causal",
+                        *(t.transpose(1, 2) for t in (q, k, v)), records,
+                        masked_sdpa(q, k, v, mask, hq // hk), 1024,
+                        kv_mask=mask, causal=True)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    q, k, v = randn(2, 640, 6, 128), randn(2, 1152, 2, 128), \
+        randn(2, 1152, 2, 128)
+    mask = torch.arange(1152, device=dev)[None] < torch.tensor(
+        [[1100], [37]], device=dev)
+    check_flash_chunked("Sq != Skv, mask, causal, D 128",
+                        *(t.transpose(1, 2) for t in (q, k, v)), records,
+                        masked_sdpa(q, k, v, mask, 3), 640, kv_mask=mask,
+                        causal=True)
 
 
 def phase_kernels(seed: int):
@@ -491,8 +636,9 @@ def phase_kernels(seed: int):
                (qc, kr, vr))
         check_flash(f"flash_fwd[{label}]", q, k, v, recs, library=lib,
                     kv_mask=mask, causal=True)
-    # K5: ln_mod at the three row counts of the 1024^2 DiT
-    for rows_n in (4096, 512, 4608):
+    # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
+    # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
+    for rows_n in (4096, 512, 4608, 16384, 16896):
         x = rows(1, rows_n, 3072)
         shift, scale = randn(1, 3072, scale=0.5), randn(1, 3072, scale=0.5)
         got = fg.ln_mod(x, shift, scale)
@@ -529,6 +675,7 @@ def phase_kernels(seed: int):
         ln.append(rec)
     recs = {**flash, "ln_mod": ln}
     check_training_attention(g, recs)
+    check_chunked_attention(g, recs)
     check_glue(randn, rows, recs)
     check_gemms(g, rows, recs)
     return recs
@@ -746,38 +893,45 @@ def build_pipeline(seed: int):
         encoder_batch_fn=encoder_batch_fn)
 
 
+def _cuda_libraries():
+    from x2i_torch.ops.flash_attention import (KERNEL, KERNEL_BWD,
+                                               KERNEL_CHUNKED)
+    from x2i_torch.ops.int8_gemm import GEMM
+    return KERNEL, KERNEL_CHUNKED, KERNEL_BWD, GEMM
+
+
 def launch_counts():
     from x2i_torch.ops import fused_glue as fg
-    from x2i_torch.ops.flash_attention import KERNEL, KERNEL_BWD
-    from x2i_torch.ops.int8_gemm import GEMM
-    return {**KERNEL.launches, **KERNEL_BWD.launches, **fg.LAUNCHES,
-            **GEMM.launches}
+    counts = dict(fg.LAUNCHES)
+    for lib in _cuda_libraries():
+        counts.update(lib.launches)
+    return counts
 
 
 def reset_counts():
     from x2i_torch.ops import fused_glue as fg
-    from x2i_torch.ops.flash_attention import KERNEL, KERNEL_BWD
-    from x2i_torch.ops.int8_gemm import GEMM
-    KERNEL.reset_launches()
-    KERNEL_BWD.reset_launches()
+    for lib in _cuda_libraries():
+        lib.reset_launches()
     fg.reset_launches()
-    GEMM.reset_launches()
 
 
 NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
-               "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-               "ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
-               "quant_rows": 0, "int8_gemm": 0}
+               "flash_fwd_lse": 0, "flash_chunked": 0, "flash_bwd_dq": 0,
+               "flash_bwd_dkv": 0, "ln_mod": 0, "ln_mod_quant": 0,
+               "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
-                      mods_pass: bool = True):
+                      mods_pass: bool = True, joint_tokens: int = 4608):
     """Kernel launches of one image (``steps`` DiT steps, n2 double and n1
     single blocks, the adaLN rows in one pass first) or, with
     ``mods_pass=False`` and the LM's count left out, of one DiT call that
-    computes its mods inline."""
+    computes its mods inline. Above 8192 joint tokens the DiT's attention
+    is K2 (norm and rope outside), else K1a."""
     lm = 24 if mods_pass else 0           # one K1b per LM layer
-    want = dict(NO_LAUNCHES, flash_fwd_rope=(n2 + n1) * steps, flash_fwd=lm)
+    dit = "flash_chunked" if joint_tokens > 8192 else "flash_fwd_rope"
+    want = dict(NO_LAUNCHES, flash_fwd=lm)
+    want[dit] = (n2 + n1) * steps
     if quantized != "w8a8":
         # per step 4 per double block, 1 per single block, 1 for the head
         want["ln_mod"] = (4 * n2 + n1 + 1) * steps
@@ -801,14 +955,16 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     return want
 
 
-def check_routes(seed: int):
+def check_routes(seed: int, px: int = 512,
+                 label: str = "text2image-reference"):
     """Agreement with a reference on a small input: a full-width DiT cut to
-    2 double + 2 single blocks, one step at 512^2 (1024 image + 512 text
-    tokens), through the kernels (fused glue, K1 and K5) and through the
-    plain route (unfused glue, plain attention) on the same bf16 weights.
-    The two round at different points (the plain route keeps p in f32 and
-    rounds q/k after the norm and again after the rope), so they agree to
-    bf16 accuracy, not bit for bit: relative L2 error at most 2e-2."""
+    2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
+    text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
+    K2), through the kernels (fused glue, K1 or K2, and K5) and through
+    the plain route (unfused glue, plain attention) on the same bf16
+    weights. The two round at different points (the plain route keeps p
+    in f32; K1 rounds q/k once after norm, rope and scale), so they agree
+    to bf16 accuracy, not bit for bit: relative L2 error at most 2e-2."""
     import dataclasses
 
     import torch
@@ -831,22 +987,25 @@ def check_routes(seed: int):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
 
-    args = (rnd(1, 1024, 64), rnd(1, 512, 4096), rnd(1, 768),
+    s_img = (px // 16) ** 2
+    args = (rnd(1, s_img, 64), rnd(1, 512, 4096), rnd(1, 768),
             torch.full((1,), 0.75, device=dev),
-            prepare_latent_image_ids(64, 64, dev),
+            prepare_latent_image_ids(px // 8, px // 8, dev),
             torch.zeros((512, 3), device=dev))
     before = launch_counts()
     with torch.inference_mode():
-        got, want = kern(*args).float(), plain(*args).float()
-    used = {k: v - before[k] for k, v in launch_counts().items()}
+        got = kern(*args).float()
+        used = {k: v - before[k] for k, v in launch_counts().items()}
+        want = plain(*args).float()
     rel = ((got - want).norm() / want.norm()).item()
-    rec = {"phase": "text2image-reference", "blocks": [2, 2],
-           "tokens": [1024, 512], "rel_l2_err": rel,
+    rec = {"phase": label, "blocks": [2, 2],
+           "tokens": [s_img, 512], "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
            "kernel_launches": used}
     emit(rec)
-    want_used = expected_launches(False, 1, 2, 2, mods_pass=False)
+    want_used = expected_launches(False, 1, 2, 2, mods_pass=False,
+                                  joint_tokens=s_img + 512)
     if not (rec["finite"] and rel <= 2e-2 and used == want_used):
         raise AssertionError(f"kernel route disagrees with the plain route: "
                              f"{rec}")
@@ -910,21 +1069,23 @@ def check_routes_w8a8(seed: int):
                              f"route: {rec}")
 
 
-def run_image(pipe, seed: int, label: str, want: dict):
-    """One warm-up image, then the main path: one 1024^2 4-step image with
+def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024):
+    """One warm-up image, then the main path: one px^2 4-step image with
     every launch count set to 0 just before and read just after; then the
-    layer times and the pre-postprocess pixels of the same image."""
+    layer times and the pre-postprocess pixels of the same image. Above
+    ``vae_tile_px`` the decode timed is the tiled one, as on the path."""
     import torch
     from x2i_torch.diffusion.sampling import prepare_latent_image_ids
 
-    steps, px = 4, 1024
+    steps = 4
+    size = dict(height=px, width=px)
     t0 = time.perf_counter()
-    pipe.text2image(PROMPTS[0], seed=seed)               # warm-up
+    pipe.text2image(PROMPTS[0], seed=seed, **size)       # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    img = pipe.text2image(PROMPTS[0], seed=seed)         # the main path
+    img = pipe.text2image(PROMPTS[0], seed=seed, **size)  # the main path
     sec = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -952,7 +1113,9 @@ def run_image(pipe, seed: int, label: str, want: dict):
                          iters=3)
         lat = torch.randn((1, px // 8, px // 8, 16), generator=g,
                           device=dev, dtype=dt)
-        vae_ms = call_ms(lambda: pipe.vae.decode(lat), iters=3)
+        tiled = px > pipe.gen_cfg.vae_tile_px
+        decode = pipe.vae.decode_tiled if tiled else pipe.vae.decode
+        vae_ms = call_ms(lambda: decode(lat), iters=3)
     finite = bool(torch.isfinite(pixels).all())
     std = pixels.float().std().item()
     dit_bytes = sum(t.numel() * t.element_size() for t in
@@ -963,7 +1126,9 @@ def run_image(pipe, seed: int, label: str, want: dict):
            "pixels_finite": finite, "pixels_std": std,
            "s_per_image": sec, "warmup_s": warm_s,
            "lm_prefill_ms": prefill_ms, "dit_step_ms": dit_ms,
-           "vae_decode_ms": vae_ms, "max_memory_allocated": peak,
+           "vae_decode_ms": vae_ms, "vae_decode_tiled": tiled,
+           "joint_tokens": emb.shape[1] + (px // 16) ** 2,
+           "max_memory_allocated": peak,
            "dit_weight_bytes": dit_bytes,
            "launches": counts, "launches_expected": want}
     if (tuple(img.shape) != (1, px, px, 3) or str(img.dtype) != "uint8"
@@ -989,6 +1154,112 @@ def phase_text2image(seed: int):
                              f"!= {want}")
     check_routes(seed)
     return pipe, lm, counts, pixels
+
+
+def phase_text2image_2048(pipe, seed: int):
+    """One 2048 x 2048, 4-step image on the bf16 pipeline: 16,384 image +
+    512 text tokens, so every DiT attention is K2 with the qk norm and the
+    rope applied outside it, the LM's 512-token prefill stays K1b, and the
+    VAE decodes 6 x 6 tiles of 64 latents. Then the 2+2-block route check
+    above 8192 tokens."""
+    px = 2048
+    want = expected_launches(False, 4, joint_tokens=512 + (px // 16) ** 2)
+    rec, _, counts = run_image(pipe, seed, "text2image-2048", want, px)
+    emit(rec)
+    if counts != want or not rec["vae_decode_tiled"]:
+        raise AssertionError(f"the 2048^2 path missed its kernels: {counts} "
+                             f"!= {want}")
+    check_routes(seed + 3, 1536, "text2image-2048-reference")
+    return counts
+
+
+def phase_long_prompt(pipe, lm, seed: int):
+    """A 32,768-token prompt (seeded ids, 30,000 valid, right-padded)
+    through ``encode_premixed`` and ``Proj.mlp`` on the full LM and proj:
+    one warm-up, then one encode with the launch counts set to 0 just
+    before and read just after (24 K2 launches, one per layer, and no K1),
+    and a timed one. Then the streamed encode against the stack route
+    (``Qwen2LM.__call__`` + ``Proj``) at 8,448 tokens (8,000 valid), which
+    also takes K2: the stack route mixes the channels in bf16, the streamed
+    one in f32, so they agree to bf16 accuracy, relative L2 at most 2e-2."""
+    import numpy as np
+    import torch
+    from x2i_torch.models.proj import streaming_mix_spec
+
+    dev = pipe.device
+    weights, mix_fn = streaming_mix_spec(pipe.proj,
+                                         lm.cfg.num_hidden_layers)
+    rng = np.random.default_rng([seed, 32768])
+
+    def prompt(s, valid):
+        ids = np.zeros((1, s), np.int64)
+        ids[0, :valid] = rng.integers(0, lm.cfg.vocab_size, valid)
+        return (torch.as_tensor(ids, device=dev),
+                torch.arange(s, device=dev)[None] < valid)
+
+    def encode(ids, mask):
+        with torch.inference_mode():
+            mixed, _ = lm.encode_premixed(ids, weights, mix_fn,
+                                          attention_mask=mask)
+            out = pipe.proj.mlp(mixed)
+        torch.cuda.synchronize()
+        return out
+
+    s, valid = 32768, 30000
+    ids, mask = prompt(s, valid)
+    t0 = time.perf_counter()
+    encode(ids, mask)                                    # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pooled, embeds = encode(ids, mask)                   # the main path
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        encode(ids, mask)
+        times.append(time.perf_counter() - t0)
+    want = dict(NO_LAUNCHES, flash_chunked=lm.cfg.num_hidden_layers)
+    finite = bool(torch.isfinite(pooled).all()
+                  and torch.isfinite(embeds).all())
+    rec = {"phase": "long-prompt", "model": MODEL, "tokens": s,
+           "valid_tokens": valid, "encode_ms": sec * 1e3,
+           "encode_ms_repeats": [t * 1e3 for t in times],
+           "warmup_s": warm_s, "tokens_per_s": s / sec,
+           "pooled_shape": list(pooled.shape),
+           "embeds_shape": list(embeds.shape), "finite": finite,
+           "embeds_std": embeds[:, :valid].float().std().item(),
+           "max_memory_allocated": peak, "launches": counts,
+           "launches_expected": want}
+    emit(rec)
+    if (counts != want or not finite or not rec["embeds_std"] > 0
+            or tuple(pooled.shape) != (1, pipe.proj.cfg.output_dim0)
+            or tuple(embeds.shape) != (1, s, pipe.proj.cfg.output_dim1)):
+        raise AssertionError(f"the long-prompt encode is wrong: {rec}")
+    del pooled, embeds, ids, mask
+
+    s, valid = 8448, 8000
+    ids, mask = prompt(s, valid)
+    reset_counts()
+    got = encode(ids, mask)
+    used = launch_counts()
+    with torch.inference_mode():
+        states, _ = lm(ids, attention_mask=mask)
+        ref = pipe.proj(states)
+    rels = [((g.float() - r.float()).norm() / r.float().norm()).item()
+            for g, r in zip(got, ref)]
+    rec = {"phase": "long-prompt-reference", "tokens": s,
+           "valid_tokens": valid, "stack_shape": list(states.shape),
+           "pooled_rel_l2_err": rels[0], "embeds_rel_l2_err": rels[1],
+           "kernel_launches": used}
+    emit(rec)
+    if not (max(rels) <= 2e-2 and used == want):
+        raise AssertionError(f"the streamed encode disagrees with the stack "
+                             f"route: {rec}")
+    return counts
 
 
 # per training step: the teacher's DiT forward (K1c, rope outside), the
@@ -1189,17 +1460,19 @@ def phase_serve(pipe):
 
 
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
-# whose launches it reports -- one image, or one timed distillation step --,
-# the record whose times it reports)
+# whose launches it reports -- one image, one 32k-token encode, or one
+# timed distillation step --, the record whose times it reports)
 KERNEL_TABLE = (
     ("flash_fwd_rope", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "bf16", 0),
     ("flash_fwd", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "bf16", 0),
-    ("ln_mod", "triton", GLUE_SRC, f"{TPU_GLUE}:84", "bf16", -1),
+    ("ln_mod", "triton", GLUE_SRC, f"{TPU_GLUE}:84", "bf16", 2),
     ("ln_mod_quant", "triton", GLUE_SRC, f"{TPU_GLUE}:62", "w8a8", 2),
     ("gelu_quant", "triton", GLUE_SRC, f"{TPU_GLUE}:70", "w8a8", -1),
     ("quant_rows", "triton", GLUE_SRC, f"{TPU_GLUE}:78", "w8a8", -1),
     ("int8_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:94", "w8a8",
      GEMM_MAIN),
+    ("flash_chunked", "cuda", FLASH_CHUNKED_SRC, f"{TPU_FLASH}:368",
+     "bf16-2048", 0),
     ("flash_fwd_pipe", "cuda", FLASH_SRC, f"{TPU_FLASH}:160", "distill", 0),
     ("flash_fwd_lse", "cuda", FLASH_SRC, f"{TPU_FLASH}:220", "distill", 0),
     ("flash_bwd_dq", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:526", "distill",
@@ -1229,10 +1502,13 @@ def main(argv=None) -> int:
     recs = phase_kernels(args.seed)
     pipe, lm, launches, bf16_pixels = phase_text2image(args.seed)
     phase_serve(pipe)
+    launches_2048 = phase_text2image_2048(pipe, args.seed)
+    launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
     launches_w8a8 = phase_w8a8(pipe, bf16_pixels, args.seed)
     runs = {"bf16": launches, "w8a8": launches_w8a8,
-            "distill": launches_distill}
+            "distill": launches_distill, "bf16-2048": launches_2048,
+            "long-prompt": launches_long}
 
     table = []
     for name, route, source, replaces, run, main in KERNEL_TABLE:
@@ -1250,6 +1526,11 @@ def main(argv=None) -> int:
             "main_path": run})
         if top.get("library"):
             table[-1]["library"] = top["library"]
+        # a kernel's launches on the other main paths that run it
+        others = {r: runs[r][name] for r in runs
+                  if r != run and runs[r][name]}
+        if others:
+            table[-1]["launches_on_other_paths"] = others
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

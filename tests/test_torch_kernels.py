@@ -155,6 +155,87 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
             } == {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
+def _valid_rows(mask, causal, sq):
+    """(B, Sq) bool: rows with at least one valid key."""
+    if not causal:
+        return mask.any(-1, keepdim=True).expand(-1, sq)
+    seen = mask.int().cumsum(-1) > 0
+    skv = mask.shape[1]
+    return seen[:, :sq] if sq <= skv else torch.cat(
+        [seen, seen[:, -1:].expand(-1, sq - skv)], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["plain", "causal", "mask", "left-pad",
+                                  "mask-causal-gqa", "sq>skv", "sq<skv"])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_chunked_kernel(dev, d, case, with_lse):
+    """K2 against its plain version (256 x 512 tiles with the block skip,
+    against the kernel's 64 x 64) and against the plain f32 attention, on
+    the rows that have a valid key: kv mask, causal mask and its skip, GQA
+    6/2, Sq != Skv with the diagonal aligned at row 0, batch 2 on
+    (B, S, H, D)-strided views, and the lse within 1e-3 in log2 units."""
+    g = torch.Generator(device=dev).manual_seed(3 * d)
+    sq, skv = {"sq>skv": (640, 384), "sq<skv": (256, 704)}.get(case,
+                                                              (640, 640))
+    hq, hk = (6, 2) if "gqa" in case else (3, 3)
+    q = _randn(g, dev, 2, sq, hq, d).transpose(1, 2)
+    k, v = (_randn(g, dev, 2, skv, hk, d).transpose(1, 2) for _ in range(2))
+    kw = {}
+    cols = torch.arange(skv, device=dev)[None]
+    valid = torch.ones((2, skv), dtype=torch.bool, device=dev)
+    if case == "left-pad":
+        valid = cols >= torch.tensor([[70], [300]], device=dev)
+        kw.update(kv_mask=valid, causal=True)
+    elif "mask" in case or "sq" in case:
+        valid = cols < torch.tensor([[skv - 50], [37]], device=dev)
+        kw["kv_mask"] = valid
+    if "causal" in case or "sq" in case:
+        kw["causal"] = True
+    before = tfa.KERNEL_CHUNKED.launches["flash_chunked"]
+    got = tfa.flash_forward_chunked(q, k, v, return_lse=with_lse, **kw)
+    assert tfa.KERNEL_CHUNKED.launches["flash_chunked"] == before + 1
+    want = tfa.flash_forward_chunked_plain(q, k, v, return_lse=with_lse, **kw)
+    rows = _valid_rows(valid, kw.get("causal", False), sq)[:, None, :]
+    if with_lse:
+        (got, lse), (want, lse_p) = got, want
+        assert lse.shape == (2, hq, sq) and lse.dtype == torch.float32
+        assert ((lse - lse_p).abs() * rows).max().item() <= 1e-3
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    ref = tfa.xla_attention(q, k, v, **kw)
+    for other in (want, ref):
+        _close(got * rows[..., None], other * rows[..., None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["none", "shared", "per-row"])
+def test_flash_attention_routes_to_chunked_above_max_kv_seq(dev, norm,
+                                                            monkeypatch):
+    """Above MAX_KV_SEQ (lowered to 128) ``flash_attention`` runs the norm
+    and the rope outside and launches K2 and no K1 variant; through the
+    dispatcher an odd length (200 -> 256) reaches K2 with the padded
+    mask."""
+    monkeypatch.setattr(tfa, "MAX_KV_SEQ", 128)
+    g = torch.Generator(device=dev).manual_seed(5)
+    s, d = 200, 64
+    q, k, v = (_randn(g, dev, 1, s, 2, d) for _ in range(3))
+    ids = torch.cat([torch.zeros((s - 64, 3), device=dev),
+                     prepare_latent_image_ids(16, 16, dev)])
+    rope = flux_rope_freqs_half(ids, (16, 24, 24))
+    shape = {"shared": (d,), "per-row": (s, d)}.get(norm)
+    qk_norm = None if shape is None else (
+        *(1 + 0.1 * torch.randn(shape, generator=g, device=dev)
+          for _ in range(2)), 1e-6)
+    before = {**tfa.KERNEL.launches, **tfa.KERNEL_CHUNKED.launches}
+    got = tattn.attention(q, k, v, rope=rope, qk_norm=qk_norm)
+    after = {**tfa.KERNEL.launches, **tfa.KERNEL_CHUNKED.launches}
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]
+            } == {"flash_chunked": 1}
+    _close(got, tattn.attention(q, k, v, implementation="plain", rope=rope,
+                                qk_norm=qk_norm))
+
+
 @pytest.mark.cuda
 def test_gradient_reaches_the_projections_on_the_card(dev):
     """A bf16 DiT (head_dim 64, 64 + 64 joint tokens) on the card: the

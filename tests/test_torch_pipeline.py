@@ -3,6 +3,7 @@ CPU: tiny float32 weights carried across by the bridge, the same token ids
 and the same noise. Pre-postprocess pixels agree to 1e-4 of their largest
 magnitude, uint8 images to one level."""
 
+import dataclasses
 import functools
 
 import jax
@@ -160,5 +161,14 @@ def test_pipeline_refuses_what_is_not_ported():
     pipe = build_random_pipeline(device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         pipe.encode({"prompt": "x", "images": ["img.png"]})
-    with pytest.raises(NotImplementedError, match="tiled"):
-        pipe.generate(*pipe.encode({"prompt": "x"}), height=2048, width=64)
+    # above vae_tile_px the tiled decode runs (it used to be refused)
+    pipe.gen_cfg = dataclasses.replace(pipe.gen_cfg, vae_tile_px=64)
+    tiled = []
+    decode_tiled = pipe.vae.decode_tiled
+    pipe.vae.decode_tiled = lambda z: (tiled.append(tuple(z.shape)),
+                                       decode_tiled(z, tile_latent=8))[1]
+    img = pipe.generate(*pipe.encode({"prompt": "x"}), height=96, width=64)
+    assert img.shape == (1, 96, 64, 3) and img.dtype == np.uint8
+    assert tiled == [(1, 12, 8, 16)]
+    pipe.generate(*pipe.encode({"prompt": "x"}), height=64, width=64)
+    assert len(tiled) == 1

@@ -116,6 +116,8 @@ class ProjConfig:
     norm_eps: float = 1e-6
     use_scale: bool = False
     use_cnn: bool = True
+    use_t5: bool = False              # T5-style refiner stack (not ported:
+                                      # Proj raises; off in shipped configs)
     dtype: Any = torch.bfloat16
 
 
@@ -179,8 +181,7 @@ class GenerationConfig:
     num_inference_steps: int = 4
     guidance_scale: float = 3.5      # dev models' baked guidance embed
     seed: int = 0
-    vae_tile_px: int = 1536          # tiled decode above this size (not
-                                     # ported yet: generate raises there)
+    vae_tile_px: int = 1536          # tiled VAE decode above this size
 
 
 @dataclass(frozen=True)

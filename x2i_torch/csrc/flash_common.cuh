@@ -1,4 +1,5 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// Pieces shared by the flash-attention kernels (flash_fwd.cu,
+// flash_chunked.cu, flash_bwd.cu):
 // the bf16 mma.sync m16n8k16 product with f32 accumulators, fragment
 // loads from padded shared-memory tiles, tile copies, and the row-wise
 // qk RMSNorm + half-layout rotation with its once-per-launch pass over a

@@ -7,11 +7,15 @@ channels are mixed by a learned per-layer scale, a 5x5 Conv2d(C -> 1), or
 a mean; then an MLP makes the sequence embeds (B, S, 4096) and the pooled
 embeds (B, 768). The proj uses the exact erf form of gelu (torch
 ``nn.GELU``'s default), unlike the DiT's tanh form.
+
+For long prompts ``streaming_mix_spec`` splits ``Proj.mix`` into one linear
+contribution per channel, which ``Qwen2LM.encode_premixed`` sums while the
+layers run, so that the (B, C, S, H) stack is never built.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,8 @@ class Proj(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = cfg.dtype
+        if cfg.use_t5:
+            raise NotImplementedError("the proj's T5 refiner is not ported")
         if cfg.use_scale:
             self.cha_scale = nn.Parameter(torch.ones(
                 (1, cfg.in_channels, 1, 1), dtype=dt, device=device))
@@ -67,3 +73,61 @@ class Proj(nn.Module):
         x2 = self.proj_out(F.gelu(self.proj_in(x)))
         pooled = self.pooled_out(F.gelu(x2)).mean(dim=1)
         return pooled, x2
+
+
+def streaming_mix_spec(proj: Proj, num_layers: int
+                       ) -> Tuple[Dict[str, Any], Callable]:
+    """``Proj.mix`` as per-channel linear contributions, for
+    ``Qwen2LM.encode_premixed`` (the long-prompt path).
+
+    The proj's channels are [embeddings, layer outputs 0..L-2, the
+    final-normed last state], C = num_layers + 1, and every mix mode is
+    linear over that axis: channel c contributes ``mix_fn(state, w_c)``.
+
+    -> (weights, mix_fn): weights = {"embed": w_0, "layers": (L, ...) with
+    the LAST entry zero (the last layer's raw output is not a channel),
+    "final": w_{C-1}, "bias": the conv bias as an f32 scalar, or None};
+    mix_fn(x (B, S, H), w) -> the f32 (B, S, H) contribution. Raises
+    ValueError for the t5 refiner (it mixes across channels) and for
+    ``in_channels != num_layers + 1``."""
+    cfg = proj.cfg
+    if cfg.use_t5:
+        raise ValueError("the t5 refiner mixes across channels; "
+                         "streaming mix supports scale/cnn/mean only")
+    c = cfg.in_channels
+    if c != num_layers + 1:
+        raise ValueError(f"proj in_channels {c} != num_layers+1 "
+                         f"({num_layers + 1})")
+    bias = None
+
+    def mix_fn(x, wc):
+        return wc * x.float()
+
+    if cfg.use_scale:
+        w = proj.cha_scale.detach().reshape(c).float() / c
+    elif cfg.use_cnn:
+        w = proj.conv.weight.detach()[0]                  # (C, k, k)
+        bias = proj.conv.bias.detach().reshape(()).float()
+        k = cfg.kernel_size
+        lo = (k - 1) // 2
+        hi = k - 1 - lo
+
+        def mix_fn(x, wc):
+            # the single-channel 2D convolution as k * k shifted
+            # multiply-adds in f32, each (B, S, H) elementwise
+            b, s, h = x.shape
+            xp = F.pad(x.float(), (lo, hi, lo, hi))
+            out = torch.zeros((b, s, h), dtype=torch.float32,
+                              device=x.device)
+            for i in range(k):
+                for j in range(k):
+                    out = out + wc[i, j].float() * xp[:, i:i + s, j:j + h]
+            return out
+    else:
+        w = torch.full((c,), 1.0 / c, dtype=torch.float32,
+                       device=proj.ln_scale.device)
+
+    layers = w[1:].clone()
+    layers[-1] = 0
+    return {"embed": w[0], "layers": layers, "final": w[-1],
+            "bias": bias}, mix_fn

@@ -1,6 +1,7 @@
 """Qwen2-family causal LM, cache-less prefill exporting every hidden state,
 the counterpart of ``x2i_tpu/models/qwen2.py`` (decode and the KV cache
-are not ported yet).
+are not ported yet). ``encode_premixed`` is the long-prompt prefill that
+sums the proj's channel mix layer by layer.
 
 Biases sit on q/k/v but not on o; the embeddings are tied (no separate
 head); positions are ``cumsum(mask) - 1`` clipped at 0, and the rotation is
@@ -91,14 +92,10 @@ class Qwen2LM(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
 
-    def forward(self, input_ids: Optional[torch.Tensor] = None,
-                attention_mask: Optional[torch.Tensor] = None,
-                inputs_embeds: Optional[torch.Tensor] = None):
-        """Prefill exporting all hidden states.
-
-        Returns (all_hidden (B, L+1, S, H): embeddings, blocks 1..L-1,
-        then the final-normed last block -- HF's hidden_states order --,
-        last_hidden (B, S, H) final-normed)."""
+    def _prefill_inputs(self, input_ids, attention_mask, inputs_embeds):
+        """-> (embeddings, bool mask, cos, sin): positions are
+        ``cumsum(mask) - 1`` clipped at 0, their f32 tables as
+        ``rope_freqs_half`` builds them."""
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
@@ -109,6 +106,18 @@ class Qwen2LM(nn.Module):
         attention_mask = attention_mask.bool()
         positions = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
         cos, sin = rope_freqs_half(positions, cfg.head_dim, cfg.rope_theta)
+        return inputs_embeds, attention_mask, cos, sin
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None):
+        """Prefill exporting all hidden states.
+
+        Returns (all_hidden (B, L+1, S, H): embeddings, blocks 1..L-1,
+        then the final-normed last block -- HF's hidden_states order --,
+        last_hidden (B, S, H) final-normed)."""
+        inputs_embeds, attention_mask, cos, sin = self._prefill_inputs(
+            input_ids, attention_mask, inputs_embeds)
         states = [inputs_embeds]
         hidden = inputs_embeds
         for blk in self.layers:
@@ -117,3 +126,27 @@ class Qwen2LM(nn.Module):
         normed = self.final_norm(hidden)
         states[-1] = normed
         return torch.stack(states, dim=1), normed
+
+    def encode_premixed(self, input_ids, mix_weights, mix_fn,
+                        attention_mask: Optional[torch.Tensor] = None,
+                        inputs_embeds: Optional[torch.Tensor] = None):
+        """Prefill with the proj's channel mix summed while the layers
+        run: ``Proj.mix`` of the hidden-state stack (plus the conv bias)
+        without ever building the (B, L+1, S, H) stack; the extra memory
+        is one f32 (B, S, H) accumulator. ``mix_weights`` and ``mix_fn``
+        come from ``models/proj.py::streaming_mix_spec``; feed the result
+        to ``Proj.mlp``.
+
+        Returns (mixed (B, S, H) f32, last_hidden (B, S, H) final-normed).
+        """
+        hidden, attention_mask, cos, sin = self._prefill_inputs(
+            input_ids, attention_mask, inputs_embeds)
+        acc = mix_fn(hidden, mix_weights["embed"])
+        for blk, w in zip(self.layers, mix_weights["layers"]):
+            hidden = blk(hidden, cos, sin, attention_mask)
+            acc = acc + mix_fn(hidden, w)
+        normed = self.final_norm(hidden)
+        acc = acc + mix_fn(normed, mix_weights["final"])
+        if mix_weights.get("bias") is not None:
+            acc = acc + mix_weights["bias"]
+        return acc, normed

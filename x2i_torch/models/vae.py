@@ -1,6 +1,7 @@
 """FLUX AutoencoderKL decoder, the counterpart of the decode half of
-``x2i_tpu/models/vae.py`` (``encode`` and ``decode_tiled`` are not ported
-yet).
+``x2i_tpu/models/vae.py``: ``decode`` and, for images whose decoder
+activations are too large to hold at once, ``decode_tiled`` (``encode`` is
+not ported yet).
 
 Layout: the public ``AutoencoderKL.decode`` takes NHWC latents and returns
 NHWC pixels, as the JAX package does; inside, the convolutions run NCHW,
@@ -151,6 +152,61 @@ class AutoencoderKL(nn.Module):
         else:
             out = torch.cat([self.decoder(z[i:i + 1])
                              for i in range(z.shape[0])])
+        return out.permute(0, 2, 3, 1)
+
+    def decode_tiled(self, z: torch.Tensor, tile_latent: int = 64,
+                     overlap: float = 0.25) -> torch.Tensor:
+        """Scaled NHWC latents -> NHWC pixels, decoded in overlapping
+        latent tiles whose seams are blended linearly (diffusers'
+        ``tiled_decode``: tiles of 64 latents = 512 px, 25% overlap, so a
+        stride of 48 latents, a 128-px blend and 384 px kept of each
+        tile). Group-norm statistics are per tile. The ramps are f32 and
+        the mix is cast back; a tile is blended with the one above before
+        the one to its left; edge tiles are smaller than a tile. A latent
+        that fits one tile is exactly ``decode``. The tiles decode one
+        after another (eager PyTorch orders them; the JAX package chains
+        them with ``optimization_barrier`` to the same end)."""
+        cfg = self.cfg
+        b, h, w, _ = z.shape
+        if h <= tile_latent and w <= tile_latent:
+            return self.decode(z)
+        z = (z.to(cfg.dtype) / cfg.scaling_factor + cfg.shift_factor
+             ).permute(0, 3, 1, 2)
+        stride = max(1, int(tile_latent * (1 - overlap)))
+        # latent -> pixel upscale: one 2x resize per non-final up block
+        scale = 2 ** (len(cfg.block_out_channels) - 1)
+        tile_px = tile_latent * scale
+        blend = int(tile_px * overlap)
+        keep = tile_px - blend
+
+        def blended(prev, tile, dim):
+            """``tile`` with its first rows (dim 2) or columns (dim 3)
+            ramped in from the last ones of ``prev``."""
+            n = min(blend, prev.shape[dim], tile.shape[dim])
+            shape = [1, 1, 1, 1]
+            shape[dim] = n
+            ramp = (torch.arange(n, dtype=torch.float32, device=tile.device)
+                    / n).view(shape)
+            tail = prev.narrow(dim, prev.shape[dim] - n, n).float()
+            mixed = tail * (1 - ramp) + tile.narrow(dim, 0, n).float() * ramp
+            out = tile.clone()
+            out.narrow(dim, 0, n).copy_(mixed.to(tile.dtype))
+            return out
+
+        rows = [[self.decoder(z[:, :, i:i + tile_latent, j:j + tile_latent])
+                 for j in range(0, w, stride)] for i in range(0, h, stride)]
+        out_rows = []
+        for i, row in enumerate(rows):
+            parts = []
+            for j, tile in enumerate(row):
+                # against the tiles as decoded, not as blended, as in JAX
+                if i > 0:
+                    tile = blended(rows[i - 1][j], tile, 2)
+                if j > 0:
+                    tile = blended(row[j - 1], tile, 3)
+                parts.append(tile[:, :, :keep, :keep])
+            out_rows.append(torch.cat(parts, dim=3))
+        out = torch.cat(out_rows, dim=2)[:, :, :h * scale, :w * scale]
         return out.permute(0, 2, 3, 1)
 
 

@@ -4,7 +4,9 @@ Tensors are (batch, seq, heads, head_dim) at this boundary. The dispatcher
 picks the flash kernel by the JAX package's static rule (a kernel off the
 CPU when ``supported``; with ``implementation="kernel"`` always), pads odd
 lengths to a multiple of 128 with masked keys, and applies the qk RMSNorm
-and the rope here whenever the kernel route does not take them. Every
+and the rope here whenever the kernel route does not take them (above
+``MAX_KV_SEQ`` kv tokens ``flash_attention`` applies both itself, ahead of
+the chunked kernel, also on the padded tensors of the pad route). Every
 route is differentiable (the kernel route through the flash kernels'
 autograd ``Function``), except the kernel route with qk_norm, which is
 forward-only as in JAX.

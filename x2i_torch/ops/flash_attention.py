@@ -1,8 +1,10 @@
 """Flash attention on the card: the CUDA kernels ``csrc/flash_fwd.cu``
-(K1, the forward, with the lse output the backward reads) and
-``csrc/flash_bwd.cu`` (K3 dq, K4 dk/dv), their plain PyTorch versions, the
-plain attention for shapes the kernels do not take, and the autograd
-``Function`` that ties forward and backward together.
+(K1, the forward, with the lse output the backward reads),
+``csrc/flash_chunked.cu`` (K2, the online-softmax forward for more than
+``MAX_KV_SEQ`` kv tokens) and ``csrc/flash_bwd.cu`` (K3 dq, K4 dk/dv),
+their plain PyTorch versions, the plain attention for shapes the kernels
+do not take, and the autograd ``Function`` that ties forward and backward
+together.
 
 Counterpart of ``x2i_tpu/ops/flash_attention.py``. The TPU forward kernel
 ``_flash_kernel`` has two bodies, and so do the plain version here and
@@ -17,6 +19,13 @@ the CUDA kernel:
   LM prefill, and every forward that autograd will differentiate. It can
   return the base-2 row logsumexp ``lse = m + log2(l)``, f32 (B, Hq, Sq).
 
+Above ``MAX_KV_SEQ`` kv tokens the forward is K2, the counterpart of
+``_flash_chunked_kernel``: an exact online softmax over kv tiles with the
+kv mask, the causal mask and its block skip, GQA and the optional lse, and
+with no rope or qk norm inside. ``flash_attention`` then applies the
+RMSNorm and the rotation first, each rounded to the input dtype, as the
+JAX ``flash_attention`` and ``_fwd_impl`` do.
+
 The rounding points are the TPU kernels': with rope, q after norm -> rope
 -> ``* scale * log2(e)`` is rounded to the input dtype, rotated K likewise,
 and ``p`` is cast to the input dtype before the PV product. The backward
@@ -29,9 +38,11 @@ cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
 
 ``flash_attention`` is differentiable: when autograd records (grad mode on
 and an input requiring grad) it runs ``_FlashAttention``, whose forward is
-K1 with the lse and whose backward is K3 and K4, the counterpart of the
-JAX ``custom_vjp`` ``_flash``. With ``qk_norm`` it is forward-only, as in
-JAX, and raises under grad. Each wrapper launches its kernel for a CUDA
+K1 with the lse (K2 with the lse above ``MAX_KV_SEQ``) and whose backward
+is K3 and K4 (above ``MAX_KV_SEQ`` a recompute through the plain
+attention), the counterpart of the JAX ``custom_vjp`` ``_flash``. With
+``qk_norm`` inside the kernel it is forward-only, as in JAX, and raises
+under grad. Each wrapper launches its kernel for a CUDA
 tensor and takes its plain version for a CPU tensor; there is no other
 fallback. The kernels are built from the repository's sources with
 ``nvcc`` at first use, into ``x2i_torch/_build/``.
@@ -46,13 +57,15 @@ from typing import Optional
 import torch
 
 from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
+from x2i_torch.ops.norms import rms_norm
 
 NEG_INF = -1e30
 LOG2_E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
-# the JAX package's limits: above MAX_KV_SEQ kv tokens its backward
-# recomputes through the plain attention; above ROPE_MAX_KV the rope is
-# applied outside the kernels
+# the JAX package's limits: above MAX_KV_SEQ kv tokens the forward is the
+# chunked kernel K2 (norm and rope outside) and the backward recomputes
+# through the plain attention; above ROPE_MAX_KV the differentiable route
+# applies the rope outside the kernels. Both are read at call time.
 MAX_KV_SEQ = 8192
 ROPE_MAX_KV = 6144
 
@@ -152,6 +165,66 @@ def flash_attention_plain(q, k, v, kv_mask=None, causal=False, scale=None,
     o = ((p.to(v.dtype).float() @ vf.float()) / p.sum(-1, keepdim=True)
          ).to(q.dtype)
     return (o, lse) if return_lse else o
+
+
+def flash_forward_chunked_plain(q, k, v, kv_mask=None, causal=False,
+                                scale=None, return_lse=False,
+                                block_q: int = 256, block_k: int = 512,
+                                causal_skip: bool = True):
+    """K2 step by step, tile by tile as ``_flash_chunked_kernel`` walks
+    its grid: f32 scores of a (block_q, block_k) tile times scale *
+    log2(e), the kv and causal masks with the finite ``NEG_INF``, the
+    running max m (from ``NEG_INF``) and sum l, p rounded to v.dtype
+    before the PV product, o = acc / l in q.dtype and, with
+    ``return_lse``, the f32 (B, Hq, Sq) base-2 lse = m + log2(l). Under
+    the causal mask a kv tile that starts above the q tile's last row is
+    skipped (``causal_skip``), as in the TPU kernel. Sq != Skv is legal;
+    the causal diagonal is aligned at row 0.
+
+    A row with no valid key (left padding under the causal mask) gives
+    the mean of v over the keys of the tiles it visited, which depends on
+    the tile sizes and on the skip, here as in JAX: compare such rows with
+    nothing."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    post = scale * LOG2_E
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    group = hq // k.shape[1]
+    block_q, block_k = min(block_q, sq), min(block_k, skv)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    for i0 in range(0, sq, block_q):
+        qi = q[:, :, i0:i0 + block_q].float()
+        nq = qi.shape[2]
+        rows = torch.arange(i0, i0 + nq, device=q.device)[:, None]
+        m = torch.full((b, hq, nq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hq, nq, d), dtype=torch.float32,
+                          device=q.device)
+        for j0 in range(0, skv, block_k):
+            if causal and causal_skip and j0 >= i0 + block_q:
+                break
+            kj = _repeat_kv(k[:, :, j0:j0 + block_k], group)
+            vj = _repeat_kv(v[:, :, j0:j0 + block_k], group)
+            s = (qi @ kj.float().transpose(-1, -2)) * post
+            if kv_mask is not None:
+                s = s.masked_fill(
+                    ~kv_mask[:, None, None, j0:j0 + block_k], NEG_INF)
+            if causal:
+                cols = torch.arange(j0, j0 + kj.shape[2],
+                                    device=q.device)[None, :]
+                s = s.masked_fill(cols > rows, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ vj.float()
+            m = m_new
+        out[:, :, i0:i0 + nq] = (acc / l).to(q.dtype)
+        lse[:, :, i0:i0 + nq] = (m + torch.log2(l))[..., 0]
+    return (out, lse) if return_lse else out
 
 
 def _delta(o, do):
@@ -260,6 +333,14 @@ def _bind(lib):
     lib.x2i_flash_fwd.restype = ctypes.c_int
 
 
+def _bind_chunked(lib):
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    lib.x2i_flash_chunked.argtypes = [
+        p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, p]
+    lib.x2i_flash_chunked.restype = ctypes.c_int
+
+
 def _bind_bwd(lib):
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
@@ -282,6 +363,9 @@ def _bind_bwd(lib):
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
                       "flash_fwd_lse"), _bind)
+# K2, the chunked forward above MAX_KV_SEQ kv tokens
+KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
+                             ("flash_chunked",), _bind_chunked)
 # the backward library: K3 and K4
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                          ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd)
@@ -415,6 +499,25 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
     return (out, lse) if return_lse else out
 
 
+def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
+    b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
+    out = _out_bhsd(b, hq, sq, d, q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    err = KERNEL_CHUNKED.lib().x2i_flash_chunked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        strides, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal),
+        scale * LOG2_E, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"chunked flash kernel launch failed: "
+                           f"cudaError_t {err}")
+    KERNEL_CHUNKED.launches["flash_chunked"] += 1
+    return (out, lse) if return_lse else out
+
+
 def _bwd_args(q, k, v, do, lse, delta, kv_mask, rope):
     b, hq, hk, sq, skv, d = _shapes(q, k, v, (("do", do),))
     for name, t in (("lse", lse), ("delta", delta)):
@@ -487,6 +590,21 @@ def flash_forward_lse(q, k, v, kv_mask=None, causal=False, scale=None,
                        return_lse=True)
 
 
+def flash_forward_chunked(q, k, v, kv_mask=None, causal=False, scale=None,
+                          return_lse=False):
+    """K2, the online softmax over kv tiles: -> o (B, Hq, Sq, D) and,
+    with ``return_lse``, the f32 (B, Hq, Sq) base-2 lse. q (B, Hq, Sq, D),
+    k and v (B, Hk, Skv, D), Sq != Skv allowed, no rope and no qk norm
+    inside. A CUDA tensor launches the kernel, a CPU tensor takes
+    ``flash_forward_chunked_plain``. Forward-only: it is the forward of
+    ``_FlashAttention`` above ``MAX_KV_SEQ``."""
+    refuse_grad("the chunked flash kernel", q, k, v)
+    scale = _default_scale(q, scale)
+    fn = (flash_forward_chunked_plain if q.device.type == "cpu"
+          else _flash_chunked_cuda)
+    return fn(q, k, v, kv_mask, causal, scale, return_lse)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, kv_mask=None, causal=False,
                  scale=None, rope=None):
     """K3: dq from the forward's lse and delta = sum(do * o). A CUDA
@@ -519,13 +637,21 @@ class _FlashAttention(torch.autograd.Function):
     ``custom_vjp`` with the branches of its ``_flash_bwd``. Rope tables
     given here are applied inside the kernels (Skv <= ROPE_MAX_KV);
     ``flash_attention`` rotates outside above that, and autograd carries
-    the rotation's transpose. Above MAX_KV_SEQ the backward recomputes
-    through the plain attention."""
+    the rotation's transpose. Above MAX_KV_SEQ the forward is K2 with the
+    lse and the backward recomputes through the plain attention."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, cos, sin, causal, scale):
         rope = None if cos is None else (cos, sin)
-        o, lse = flash_forward_lse(q, k, v, kv_mask, causal, scale, rope)
+        if k.shape[2] > MAX_KV_SEQ:
+            if rope is not None:
+                raise ValueError("above MAX_KV_SEQ the rope is applied "
+                                 "outside the kernel")
+            o, lse = flash_forward_chunked(q, k, v, kv_mask, causal, scale,
+                                           return_lse=True)
+        else:
+            o, lse = flash_forward_lse(q, k, v, kv_mask, causal, scale,
+                                       rope)
         ctx.save_for_backward(q, k, v, kv_mask, cos, sin, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -552,27 +678,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     rope=None, qk_norm=None) -> torch.Tensor:
     """Flash attention over (B, H, S, D) tensors; differentiable, except
-    with qk_norm.
+    with qk_norm inside the kernel.
 
     rope: optional (cos, sin) half-layout tables, each (S, D) f32,
-    applied to q and k inside the kernel (Sq == Skv). qk_norm: optional
-    (q_scale, k_scale, eps) with (D,) or per-row (S, D) scales: RMSNorm of
-    q and k before the rotation (requires rope); forward-only, as in JAX,
-    so it raises when autograd records.
+    applied to q and k (Sq == Skv). qk_norm: optional (q_scale, k_scale,
+    eps) with (D,) or per-row (S, D) scales: RMSNorm of q and k before the
+    rotation (requires rope).
+
+    Up to ``MAX_KV_SEQ`` kv tokens the norm and the rotation run inside
+    K1; that route is forward-only with qk_norm, as in JAX, and raises
+    when autograd records. Above ``MAX_KV_SEQ`` the forward is K2: the
+    norm runs first (``rms_norm``, rounded to the input dtype), then the
+    rotation (``rope_bhsd``, rounded again), both outside the kernel and
+    both differentiable, as JAX's ``flash_attention`` and ``_fwd_impl``
+    order them.
 
     Without autograd recording, a CUDA tensor launches the forward kernel
-    (which raises on what it does not take) and a CPU tensor takes
-    ``flash_attention_plain``. When it records, the call goes through
+    (which raises on what it does not take) and a CPU tensor takes the
+    kernel's plain version. When it records, the call goes through
     ``_FlashAttention`` (the same routing for each of its kernels)."""
     scale = _default_scale(q, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    chunked = k.shape[2] > MAX_KV_SEQ
+    if chunked and qk_norm is not None:
+        if rope is None:
+            raise ValueError("flash kernel: qk_norm rides the rope path")
+        qw, kw, eps = qk_norm
+        q, k, qk_norm = rms_norm(q, qw, eps), rms_norm(k, kw, eps), None
+    # after the norm: scales that require grad make q and k require it
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if rope is not None and (chunked or (recording
+                                         and k.shape[2] > ROPE_MAX_KV)):
+        q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None
+    if recording:
         if qk_norm is not None:
             refuse_grad("the flash kernel with qk_norm", q, k, v)
-        if rope is not None and k.shape[2] > min(MAX_KV_SEQ, ROPE_MAX_KV):
-            q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None
         cos, sin = (None, None) if rope is None else rope
         return _FlashAttention.apply(q, k, v, kv_mask, cos, sin, causal,
                                      scale)
+    if chunked:
+        return flash_forward_chunked(q, k, v, kv_mask, causal, scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal, scale, rope,
                                      qk_norm)

@@ -114,12 +114,8 @@ class X2IPipeline:
                   num_steps: int) -> torch.Tensor:
         """Packed noise (B, S_img, 64) -> pixels (B, H, W, 3) in [-1, 1]
         before postprocess: all steps' adaLN modulations, the Euler
-        denoise, unpack, VAE decode."""
-        if self.gen_cfg.vae_tile_px and max(height, width) > \
-                self.gen_cfg.vae_tile_px:
-            raise NotImplementedError(
-                f"{height}x{width} needs the tiled VAE decode, which is "
-                f"not ported yet (above {self.gen_cfg.vae_tile_px} px)")
+        denoise, unpack, VAE decode (tiled above ``gen_cfg.vae_tile_px``,
+        as in the JAX pipeline)."""
         dev, dt = self.device, self.flux.cfg.dtype
         img_ids = prepare_latent_image_ids(2 * (height // 16),
                                            2 * (width // 16), dev)
@@ -132,8 +128,11 @@ class X2IPipeline:
         lat = denoise_flux(self.flux, noise.to(dev), prompt_embeds.to(dev, dt),
                            pooled.to(dev, dt), sigmas, img_ids, txt_ids,
                            guidance_scale=gscale)
-        lat = unpack_latents(lat, height, width)
-        return self.vae.decode(lat.permute(0, 2, 3, 1))
+        lat = unpack_latents(lat, height, width).permute(0, 2, 3, 1)
+        tile_px = self.gen_cfg.vae_tile_px
+        if tile_px and max(height, width) > tile_px:
+            return self.vae.decode_tiled(lat)
+        return self.vae.decode(lat)
 
     def generate(self, pooled: torch.Tensor, prompt_embeds: torch.Tensor,
                  height: Optional[int] = None, width: Optional[int] = None,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (x2i_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernels-only]
 
 Phases, each printing one JSON line per record:
 
@@ -9,11 +9,15 @@ Phases, each printing one JSON line per record:
    csrc/flash_chunked.cu, csrc/flash_bwd.cu and csrc/int8_gemm.cu, one
    nvcc each, started together) while the Triton glue kernels (ln_mod,
    ln_mod_quant, gelu_quant, quant_rows) compile, all from the sources in
-   this checkout;
+   this checkout; print what ptxas said of every kernel (registers,
+   spills, serialized wgmma) and fail on a spill or a serialized wgmma
+   pipeline in flash_fwd.cu;
 2. kernels: hold each kernel against its plain PyTorch version at the main
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
-   the same function (device time, see ``kernel_ms``); the attention
+   the same function (device time, see ``kernel_ms``), the K1 records
+   with their TFLOP/s and share of the bound, K1b's with the host time
+   of one call; the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention;
@@ -79,7 +83,14 @@ TPU_FLASH = "x2i_tpu/ops/flash_attention.py"
 TPU_GLUE = "x2i_tpu/ops/fused_glue.py"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's record also says when it was printed, in
+    seconds since the script started (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -186,6 +197,7 @@ def phase_build():
 
     import torch
     from x2i_torch.ops import fused_glue as fg
+    from x2i_torch.ops.cuda_lib import ptxas_report
 
     t0 = time.perf_counter()
     libs = _cuda_libraries()
@@ -204,14 +216,29 @@ def phase_build():
         torch.cuda.synchronize()
         triton_s = time.perf_counter() - t0
         nvcc_s = [f.result()[1] for f in builds]
-    ptxas = {lib.src.name: [ln.strip() for ln in lib.build_log.splitlines()
-                            if "registers" in ln or "spill" in ln]
-             for lib in libs}
+    # per library and kernel: registers, spill bytes, serialized wgmma
+    ptxas = {lib.src.name: ptxas_report(lib.build_log) for lib in libs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(zip([lib.src.name for lib in libs], nvcc_s)),
           "triton_seconds": triton_s,
           "libraries": [lib.library_path().name for lib in libs],
           "ptxas": ptxas})
+    # K1 is built on wgmma: a spill or a serialized pipeline leaves it far
+    # below the tensor cores' rate with no other sign
+    k1 = ptxas["flash_fwd.cu"]
+    bad = {name: r for name, r in k1.items()
+           if r["spill_bytes"] or r["wgmma_serialized"]
+           or r["registers"] is None}
+    flash_log = next(lib.build_log for lib in libs
+                     if lib.src.name == "flash_fwd.cu")
+    if "'setmaxnreg' ignored" in flash_log:
+        # the consumers would be left with the registers of a third of
+        # the SM and spill
+        raise AssertionError("flash_fwd.cu: ptxas ignored setmaxnreg")
+    if bad or not any("flash_fwd_kernel" in name for name in k1):
+        raise AssertionError(f"flash_fwd.cu: ptxas reports spills or a "
+                             f"serialized wgmma pipeline, or its log names "
+                             f"no kernel or no register count: {bad or k1}")
 
 
 # -------------------------------------------------------------- kernels
@@ -251,11 +278,20 @@ def _tables(kw):
     return tables
 
 
+def rate(rec, flops):
+    """Adds the achieved TFLOP/s and the share of the bound to a record
+    that has its time and its bound."""
+    rec["tflops"] = flops / rec["ms"] / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
 def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
-                library=None, **kw):
+                library=None, host_time=False, **kw):
     """q (B, S, H, D) etc. are passed as (B, H, S, D) views, as the
     dispatcher passes them on the main path. `library` is (fn, inputs),
-    the one PyTorch call timed as a yardstick."""
+    the one PyTorch call timed as a yardstick. `host_time` adds
+    ``call_ms``, one call as its caller sees it, host path included: a
+    launch-bound kernel's row is then told from a slow kernel's."""
     import torch
     from x2i_torch.ops import flash_attention as fa
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -278,6 +314,10 @@ def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
            "mean_abs_err": err_mean, "finite": finite, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
            "bound_by": by}
+    rate(rec, 4.0 * _pairs(qt, kt, kw) * qt.shape[-1])
+    if host_time:
+        rec["call_ms"] = call_ms(
+            lambda: fa.flash_attention(qt, kt, vt, **kw), iters=50)
     emit(rec)
     if not (finite and err_max <= tol_max and err_mean <= tol_mean):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -334,6 +374,7 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
            "library": "SDPA forward (no rope, no lse output)"}
     fwd["bound_ms"], fwd["bound_by"] = bound(
         4.0 * pairs * d, nbytes(q, k, v, o, lse, mask, *tables))
+    rate(fwd, 4.0 * pairs * d)
     ok = (fwd["finite"] and fwd["max_abs_err"] <= 1e-2
           and fwd["mean_abs_err"] <= 1e-3 and fwd["lse_max_abs_err"] <= 1e-3)
     out = [("flash_fwd_lse", fwd)]
@@ -635,7 +676,7 @@ def phase_kernels(seed: int):
                 F.scaled_dot_product_attention(*t, attn_mask=m)),
                (qc, kr, vr))
         check_flash(f"flash_fwd[{label}]", q, k, v, recs, library=lib,
-                    kv_mask=mask, causal=True)
+                    host_time=True, kv_mask=mask, causal=True)
     # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
     # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
     for rows_n in (4096, 512, 4608, 16384, 16896):
@@ -1485,6 +1526,10 @@ KERNEL_TABLE = (
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build and kernels phases, before "
+                         "any model is built: to measure a kernel after an "
+                         "edit; prints no final ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1500,6 +1545,11 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     phase_build()
     recs = phase_kernels(args.seed)
+    if args.kernels_only:
+        print(smi, flush=True)
+        emit({"kernels_only": True,
+              "kind": torch.cuda.get_device_name(0)})
+        return 0
     pipe, lm, launches, bf16_pixels = phase_text2image(args.seed)
     phase_serve(pipe)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
@@ -1524,8 +1574,9 @@ def main(argv=None) -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "shape": top["shape"],
             "main_path": run})
-        if top.get("library"):
-            table[-1]["library"] = top["library"]
+        for extra in ("library", "tflops", "bound_share", "call_ms"):
+            if top.get(extra) is not None:
+                table[-1][extra] = top[extra]
         # a kernel's launches on the other main paths that run it
         others = {r: runs[r][name] for r in runs
                   if r != run and runs[r][name]}

@@ -1,0 +1,126 @@
+"""The port's CUDA build helper (``x2i_torch/ops/cuda_lib.py``) on the CPU:
+what ``ptxas_report`` reads out of ``nvcc -Xptxas -v`` output (registers,
+spills, a serialized ``wgmma`` pipeline), and that a library's file name
+follows its source, every shared header and the flags. No compiler and no
+card are needed: the ptxas text is canned, in the form nvcc 12 prints it
+for ``sm_90a``, and the sources are a copy of ``csrc/`` under ``tmp_path``.
+"""
+
+import shutil
+
+import pytest
+
+from x2i_torch.ops import cuda_lib
+
+_TU = "_ZN42_GLOBAL__N__0000_12_flash_fwd_cu"
+KERNEL = _TU + "16flash_fwd_kernelILi128ELi2ELb1ELi0EEEvNS_4ArgsE"
+ROPE = _TU + "16rope_rows_kernelILi128EEEvPK13__nv_bfloat16"
+
+
+def _entry(name, regs, stores=0, loads=0):
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {name}\n"
+            f"    {8 if stores else 0} bytes stack frame, {stores} bytes "
+            f"spill stores, {loads} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 3 barriers, 688 "
+            f"bytes cmem[0]\n")
+
+
+SERIALIZED = (
+    "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+    "instructions are serialized due to non wgmma instructions defining "
+    "accumulator registers of a wgmma between start and end of the pipeline "
+    f"stage in the function '{KERNEL}'\n")
+HEAD = "ptxas info    : 0 bytes gmem\n"
+
+CASES = {
+    "clean": (HEAD + _entry(KERNEL, 207) + _entry(ROPE, 28),
+              {KERNEL: (207, 0, False), ROPE: (28, 0, False)}),
+    "spilled": (HEAD + _entry(KERNEL, 255, 1204, 768) + _entry(ROPE, 28),
+                {KERNEL: (255, 1972, False), ROPE: (28, 0, False)}),
+    # ptxas prints the warning before the entry it belongs to
+    "serialized": (HEAD + SERIALIZED + _entry(KERNEL, 246) + _entry(ROPE, 28),
+                   {KERNEL: (246, 0, True), ROPE: (28, 0, False)}),
+    "serialized-after": (HEAD + _entry(ROPE, 28) + _entry(KERNEL, 246)
+                         + SERIALIZED,
+                         {KERNEL: (246, 0, True), ROPE: (28, 0, False)}),
+    "empty": ("", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_ptxas_report(case):
+    log, want = CASES[case]
+    got = cuda_lib.ptxas_report(log)
+    assert got == {name: {"registers": regs, "spill_bytes": spill,
+                          "wgmma_serialized": ser}
+                   for name, (regs, spill, ser) in want.items()}
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of ``csrc/`` and an empty build directory under tmp_path."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, copy)
+    monkeypatch.setattr(cuda_lib, "CSRC", copy)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "_build")
+    return copy
+
+
+def _flash_library():
+    return cuda_lib.CudaLibrary("flash_fwd.cu", "libx2i_flash", ("k",),
+                                lambda lib: None)
+
+
+@pytest.mark.parametrize("edited,changes", [
+    ("flash_common.cuh", True), ("hopper_mma.cuh", True),
+    ("flash_fwd.cu", True), ("int8_gemm.cu", False)])
+def test_library_name_follows_source_and_headers(csrc_copy, edited, changes):
+    """An edit to the library's source or to any shared header gives the
+    library another file name (so it is rebuilt); another library's
+    source does not."""
+    lib = _flash_library()
+    before = lib.library_path()
+    assert before == lib.library_path()
+    assert before.parent == cuda_lib.BUILD_DIR
+    with open(csrc_copy / edited, "a") as f:
+        f.write("\n// edited\n")
+    assert (lib.library_path() != before) == changes
+
+
+def test_library_name_follows_flags(csrc_copy, monkeypatch):
+    lib = _flash_library()
+    before = lib.library_path()
+    monkeypatch.setattr(cuda_lib, "NVCC_FLAGS",
+                        cuda_lib.NVCC_FLAGS + ("-DX2I_TEST",))
+    assert lib.library_path() != before
+
+
+def test_build_reuses_a_library_and_its_log(csrc_copy, monkeypatch):
+    """A library that an earlier process built is not compiled again, and
+    its ptxas log, kept beside it, is read back for the report."""
+    lib = _flash_library()
+    path = lib.library_path()
+    path.parent.mkdir(parents=True)
+    path.write_bytes(b"")
+    path.with_suffix(".log").write_text(CASES["clean"][0])
+
+    def no_compiler(*args, **kwargs):
+        raise AssertionError("the compiler must not run")
+
+    monkeypatch.setattr(cuda_lib.subprocess, "run", no_compiler)
+    assert lib.build() == path
+    assert cuda_lib.ptxas_report(lib.build_log)[KERNEL]["registers"] == 207
+
+
+def test_build_failure_raises_with_the_log(csrc_copy, monkeypatch):
+    """No fallback: a failed build raises, with the compiler's output."""
+    class Failed:
+        returncode, stdout, stderr = 1, "", "flash_fwd.cu(1): error: boom"
+
+    monkeypatch.setattr(cuda_lib.subprocess, "run", lambda *a, **k: Failed())
+    lib = _flash_library()
+    with pytest.raises(RuntimeError, match="boom"):
+        lib.build()
+    assert not lib.library_path().exists()

@@ -6,8 +6,11 @@ run on a machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Without a CUDA device each test skips itself: a CUDA kernel has no CPU
-mode. Tolerances: flash attention within 1e-2 max and 1e-3 mean absolute
-of the plain version in bf16 (f32 accumulation in another order, p rounded
+mode. The K1 cases sit on the edges of its tiling (128-row q tiles on two
+warpgroups, or 64-row ones where the grid is small; 128-row kv tiles): one
+and two kv tiles, 4608 and 8192 tokens, Sq != Skv, GQA groups 1, 3 and 7,
+strided and contiguous inputs. Tolerances: flash attention within 1e-2
+max and 1e-3 mean absolute of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body), its lse within 1e-3 in
 log2 units; the backward kernels K3 and K4 within 2e-2 max and 2e-3 mean
 absolute error relative to the largest gradient (bf16 outputs, ds and p
@@ -23,6 +26,8 @@ scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
 tanhf). The int8 GEMM: its int32 sum exact, its bf16 output within one
 bf16 step.
 """
+
+import math
 
 import pytest
 import torch
@@ -64,50 +69,98 @@ def _close(got, want):
     assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
 
 
+def _layout(t, layout):
+    """(B, S, H, D) storage -> the (B, H, S, D) tensor a kernel gets: the
+    strided view the dispatcher passes, or a contiguous copy."""
+    t = t.transpose(1, 2)
+    return t.contiguous() if layout == "contiguous" else t
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [128, 256])
-@pytest.mark.parametrize("per_row", [True, False])
-def test_flash_rope_kernel(dev, d, s, per_row):
-    """K1a: in-kernel qk norm and rope; S=128 runs the exact body, S=256
-    the pipelined one."""
+@pytest.mark.parametrize("s", [128, 256, 4608, 8192])
+@pytest.mark.parametrize("case", ["per-row", "shared", "contiguous",
+                                  "clamp"])
+def test_flash_rope_kernel(dev, d, s, case):
+    """K1a: in-kernel qk norm and rope, batch 2; S=128 is one kv tile and
+    runs the exact body, S=256 is the least the pipelined body takes (two
+    tiles), 4608 and 8192 (the longest the kernel takes) fill the card, so
+    they run the two-warpgroup instance, the short ones the 64-row one.
+    "contiguous" passes (B, H, S, D) tensors instead of the strided views;
+    "clamp" has k = q and qk scales of 3, so every row's own score passes
+    100 in log2 units and exp2 would overflow without the clamp."""
     g = torch.Generator(device=dev).manual_seed(s + d)
-    q, k, v = (_randn(g, dev, 2, s, 3, d).transpose(1, 2) for _ in range(3))
-    shape = (s, d) if per_row else (d,)
+    layout = "contiguous" if case == "contiguous" else "strided"
+    q, k, v = (_layout(_randn(g, dev, 2, s, 3, d), layout) for _ in range(3))
+    shape = (s, d) if case == "per-row" else (d,)
     qw, kw = (1 + 0.1 * torch.randn(shape, generator=g, device=dev)
               for _ in range(2))
-    kw_ = dict(rope=_tables(s, d, dev), qk_norm=(qw, kw, 1e-6))
+    rope = _tables(s, d, dev)
+    if case == "clamp":
+        k, qw = q, torch.full((d,), 3.0, device=dev)
+        kw = qw
+        qn = tfa._rotate(tfa._norm_rows(q.float(), qw, 1e-6), *rope)
+        assert (qn.square().sum(-1) * tfa.LOG2_E / d ** 0.5 > 100).all()
+    kw_ = dict(rope=rope, qk_norm=(qw, kw, 1e-6))
     before = tfa.KERNEL.launches["flash_fwd_rope"]
     got = tfa.flash_attention(q, k, v, **kw_)
     assert tfa.KERNEL.launches["flash_fwd_rope"] == before + 1
     _close(got, tfa.flash_attention_plain(q, k, v, **kw_))
 
 
+# case -> (Sq, Skv, q heads, kv heads, kv mask, causal, layout)
+MASK_CASES = {
+    "mask+causal": (256, 256, 6, 2, True, True, "strided"),
+    "row0-masked": (256, 256, 6, 2, True, True, "strided"),
+    "causal": (256, 256, 6, 2, False, True, "strided"),
+    "plain": (256, 256, 6, 2, False, False, "strided"),
+    "one-tile": (128, 128, 3, 3, False, False, "strided"),
+    "one-tile-mask+causal": (128, 128, 6, 2, True, True, "strided"),
+    "gqa1-mask+causal": (512, 512, 2, 2, True, True, "strided"),
+    "gqa7-mask+causal": (512, 512, 14, 2, True, True, "strided"),
+    "gqa7-contiguous": (512, 512, 14, 2, True, True, "contiguous"),
+    "sq128-skv1152-mask": (128, 1152, 6, 2, True, False, "strided"),
+    "sq1152-skv128": (1152, 128, 3, 3, False, False, "strided"),
+    "plain-contiguous": (256, 256, 6, 2, False, False, "contiguous"),
+    # enough 128-row blocks (2 x 36 x 6) for the two-warpgroup instance
+    "wide-mask+causal": (768, 768, 36, 12, True, True, "strided"),
+    "wide-row0-masked": (768, 768, 36, 12, True, True, "strided"),
+    "wide-causal": (768, 768, 36, 36, False, True, "contiguous"),
+    "wide-plain": (768, 768, 36, 12, False, False, "strided"),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("case", ["mask+causal", "row0-masked", "causal",
-                                  "plain"])
+@pytest.mark.parametrize("case", list(MASK_CASES))
 def test_flash_kernel_masks_and_gqa(dev, d, case):
-    """K1b: GQA 6/2, kv mask, causal mask; a row with every key masked
-    gives the mean of V; "plain" (no mask, S=256) runs the pipelined body
-    without rope."""
+    """K1b and K1c, batch 2: GQA groups 1, 3 and 7, kv mask, causal mask;
+    a row with every key masked gives the mean of V; one kv tile (128),
+    Sq != Skv (128 x 1152 exact under a mask, 1152 x 128 exact for its
+    single tile); the "plain" cases (no mask, Skv >= 256) run the
+    pipelined body without rope; the "wide" cases have enough blocks for
+    the two-warpgroup instance, the others run the 64-row one."""
     g = torch.Generator(device=dev).manual_seed(d)
-    s = 256
-    q = _randn(g, dev, 2, s, 6, d).transpose(1, 2)
-    k, v = (_randn(g, dev, 2, s, 2, d).transpose(1, 2) for _ in range(2))
-    mask = torch.arange(s, device=dev)[None] < torch.tensor(
-        [[200], [37]], device=dev)
-    if case == "row0-masked":
+    sq, skv, hq, hk, masked, causal, layout = MASK_CASES[case]
+    q = _layout(_randn(g, dev, 2, sq, hq, d), layout)
+    k, v = (_layout(_randn(g, dev, 2, skv, hk, d), layout) for _ in range(2))
+    mask = torch.arange(skv, device=dev)[None] < torch.tensor(
+        [[skv - 56], [37]], device=dev)
+    if "row0-masked" in case:
         mask[:, 0] = False
     kw = {}
-    if "mask" in case:
+    if masked:
         kw["kv_mask"] = mask
-    if case != "plain":
+    if causal:
         kw["causal"] = True
+    name = "flash_fwd" if tfa.is_exact(kw.get("kv_mask"), causal, skv) \
+        else "flash_fwd_pipe"
+    before = tfa.KERNEL.launches[name]
     got = tfa.flash_attention(q, k, v, **kw)
+    assert tfa.KERNEL.launches[name] == before + 1
     _close(got, tfa.flash_attention_plain(q, k, v, **kw))
-    if case == "row0-masked":
-        mean_v = v.float().mean(dim=2).repeat_interleave(3, dim=1)
+    if "row0-masked" in case:
+        mean_v = v.float().mean(dim=2).repeat_interleave(hq // hk, dim=1)
         assert (got[:, :, 0].float() - mean_v).abs().max() <= 1e-2
 
 
@@ -118,23 +171,42 @@ def _grad_close(got, want):
     assert diff.max() <= 2e-2 * top and diff.mean() <= 2e-3 * top
 
 
+# case -> (S, q heads, kv heads, layout); "mask" adds a kv mask with a
+# fully masked row under the causal mask, "rope" the rotation inside
+LSE_CASES = {
+    "plain": (256, 3, 3, "strided"),
+    "mask-causal-gqa": (256, 6, 2, "strided"),
+    "rope": (256, 3, 3, "strided"),
+    "rope-mask-causal": (256, 3, 3, "strided"),
+    "one-tile-plain": (128, 3, 3, "strided"),
+    "one-tile-rope-mask-causal": (128, 3, 3, "strided"),
+    "mask-causal-gqa7": (512, 14, 2, "strided"),
+    "plain-contiguous": (256, 3, 3, "contiguous"),
+    # enough 128-row blocks (2 x 36 x 5) for the two-warpgroup forward
+    "wide-plain": (640, 36, 36, "strided"),
+    "wide-rope": (640, 36, 36, "strided"),
+    "wide-mask-causal-gqa": (640, 36, 12, "strided"),
+    "wide-rope-mask-causal": (640, 36, 36, "contiguous"),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("case", ["plain", "mask-causal-gqa", "rope",
-                                  "rope-mask-causal"])
+@pytest.mark.parametrize("case", list(LSE_CASES))
 def test_flash_lse_and_backward_kernels(dev, d, case):
     """K1 with the lse (exact body), K3 and K4 against their plain
     versions, both backward kernels on the plain forward's residuals. The
-    masked cases have a row whose keys are all masked (lse -1e30)."""
+    masked cases have a row whose keys are all masked (lse -1e30 +
+    log2(S)); the "wide" cases run the forward's two-warpgroup instance."""
     g = torch.Generator(device=dev).manual_seed(7 * d)
-    s, b = 256, 2
-    hq, hk = (6, 2) if "gqa" in case else (3, 3)
-    q, do = (_randn(g, dev, b, s, hq, d).transpose(1, 2) for _ in range(2))
-    k, v = (_randn(g, dev, b, s, hk, d).transpose(1, 2) for _ in range(2))
+    b = 2
+    s, hq, hk, layout = LSE_CASES[case]
+    q, do = (_layout(_randn(g, dev, b, s, hq, d), layout) for _ in range(2))
+    k, v = (_layout(_randn(g, dev, b, s, hk, d), layout) for _ in range(2))
     kw = {}
     if "mask" in case:
         mask = torch.arange(s, device=dev)[None] < torch.tensor(
-            [[200], [37]], device=dev)
+            [[s - 56], [37]], device=dev)
         mask[1, 0] = False
         kw.update(kv_mask=mask, causal=True)
     if "rope" in case:
@@ -145,6 +217,10 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
     _close(o, o_p)
     assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
     assert (lse - lse_p).abs().max().item() <= 1e-3
+    if "mask" in case:
+        # row 0 of batch 1 sees no valid key: the one-pass body's value
+        want = torch.tensor(-1e30 + math.log2(s), device=dev)
+        assert bool((lse[1, :, 0] == want).all())
     mask, causal = kw.pop("kv_mask", None), kw.pop("causal", False)
     res = (mask, o_p, lse_p, do, causal)
     for got, want in zip(tfa.flash_backward(q, k, v, *res, **kw),
@@ -306,6 +382,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 2, 96, 64), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(q, q, q)                 # 96 % 64 != 0
+    q = torch.zeros((1, 2, 192, 64), device=dev, dtype=BF)
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.flash_attention(q, q, q)                 # 192 % 128 != 0
     q = torch.zeros((1, 2, 128, 32), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(q, q, q)                 # head dim 32

@@ -78,16 +78,20 @@ __device__ __forceinline__ void pack_a(uint32_t* a, const float* c0,
 // w), then the half-layout rotation with the first halves of the (cos,
 // sin) rows, then * post, rounded to bf16. Lane l holds channels
 // l + 32 t; channel j's rotation partner j +- D/2 lives in the same lane.
-template <int D>
-__device__ __forceinline__ void norm_rope_row(
-    const bf16* src, bf16* dst, const float* cos_row, const float* sin_row,
+// norm_rope_vals leaves the f32 values y[t] of channels l + 32 t before the
+// rounding; norm_rope_row rounds and stores them into a linear row. A
+// caller that knows w_row is given says so (NORM), which leaves the row's
+// code free of branches, so that the loads of several rows overlap.
+template <int D, bool NORM = false>
+__device__ __forceinline__ void norm_rope_vals(
+    const bf16* src, float* y, const float* cos_row, const float* sin_row,
     const float* w_row, float eps, float post, int lane) {
   constexpr int T = D / 32;
   constexpr int H = T / 2;
   float x[T];
 #pragma unroll
   for (int t = 0; t < T; ++t) x[t] = __bfloat162float(src[lane + 32 * t]);
-  if (w_row != nullptr) {
+  if (NORM || w_row != nullptr) {
     float ss = 0.f;
 #pragma unroll
     for (int t = 0; t < T; ++t) ss += x[t] * x[t];
@@ -103,9 +107,19 @@ __device__ __forceinline__ void norm_rope_row(
     const int jh = lane + 32 * (t % H);
     const float c = cos_row[jh], s = sin_row[jh];
     const float partner = x[(t + H) % T];
-    const float y = t < H ? x[t] * c - partner * s : x[t] * c + partner * s;
-    dst[lane + 32 * t] = __float2bfloat16_rn(y * post);
+    y[t] = (t < H ? x[t] * c - partner * s : x[t] * c + partner * s) * post;
   }
+}
+
+template <int D>
+__device__ __forceinline__ void norm_rope_row(
+    const bf16* src, bf16* dst, const float* cos_row, const float* sin_row,
+    const float* w_row, float eps, float post, int lane) {
+  float y[D / 32];
+  norm_rope_vals<D>(src, y, cos_row, sin_row, w_row, eps, post, lane);
+#pragma unroll
+  for (int t = 0; t < D / 32; ++t)
+    dst[lane + 32 * t] = __float2bfloat16_rn(y[t]);
 }
 
 // x (B, H, S, D) strided -> normalized, rotated, * post, contiguous bf16;

@@ -24,7 +24,9 @@
 // What bounds it on an H100: at the FLUX point (24 heads x 4608 x 128) the
 // two products take 2.6e11 FLOP per launch against 113 MB of q, k, v, o:
 // about 2300 FLOP per byte, far above the card's ~295, so the tensor cores
-// bound it (0.26 ms at the 989 TFLOP/s bf16 data-sheet peak). The LM
+// bound it (0.26 ms at the 989 TFLOP/s bf16 data-sheet peak). The exp2 of
+// the 5.1e8 scores alone is about 0.14 ms of the special-function units,
+// so the softmax has to run under the products, not between them. The LM
 // prefill (14 heads x 512 x 64) is too small to fill the card and is bound
 // by launch latency.
 //
@@ -37,19 +39,57 @@
 //     the same single rotation the TPU kernel stores in VMEM scratch.
 //     Rotating each K tile as it is staged instead would re-read the f32
 //     tables once per q tile (about 4 GB of L2 traffic per launch);
-//   * one block per (64-row q tile, q head, batch), four warps of 16 q
-//     rows each; a loop over 64-row kv tiles staged through shared memory
-//     (padded rows, so fragment loads are free of bank conflicts);
-//   * bf16 mma.sync m16n8k16 with f32 accumulators in registers; the score
-//     fragments are reused as the A operand of the PV product after being
-//     rounded to bf16, as the TPU body casts p before its PV matmul (:193);
-//   * no cp.async pipelining, no wgmma or TMA: those are later work.
-// Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last dim
+//   * one block per (128-row q tile, q head, batch): two warpgroups of 64
+//     q rows each, one block per SM. Both products are wgmma.mma_async
+//     (hopper_mma.cuh): s = q k^T reads the q tile and the K tile from
+//     128-byte-swizzled shared memory (m64n128k16, both K-major); o += p v
+//     takes p from the score registers, rounded to bf16 where the TPU body
+//     casts p before its PV matmul (:193, :217), and the V tile from
+//     shared memory as it lies, kv rows x D, through the descriptor's
+//     transpose bit. 128 q rows halve the L2 reads of K and V against 64;
+//   * 128-row kv tiles in a ring of kStages = 3 (K tile, V tile) stages
+//     (at D = 128: q 32 KB + 3 x 64 KB of the 227 KB), filled by TMA: one
+//     thread of a producer warpgroup starts cp.async.bulk.tensor copies of
+//     128 rows x 64 columns through tensor maps that carry the (B, H, S, D)
+//     strides of K and V as they lie (views of (B, S, H, D) storage
+//     included) and write the swizzle; it runs up to three tiles ahead. A
+//     `full` mbarrier per stage counts the bytes as they land, an `empty`
+//     one the consumer threads that are done reading. The producer gives
+//     its registers back (setmaxnreg), the consumers take 232 each. The
+//     consumers spend no instruction on K and V; they load only their q
+//     tile (cp.async, or the rope variant's rows by ordinary stores);
+//   * the softmax runs under the tensor cores. A warpgroup queues the
+//     scores of tile j and, behind them, p v of tile j - 1; once the scores
+//     are there it does the softmax of tile j while p v of tile j - 1 is
+//     still in flight: one score buffer, 64 + 64 + 32 registers for s, o
+//     and p at D = 128. The two warpgroups take turns at queueing (two
+//     named barriers), so that one's softmax falls under the other's
+//     products; exp2 is one ex2.approx per score;
+//   * the exact body keeps the online softmax: the mask tests exist only
+//     in the instance that gets a mask or the causal flag, and there only
+//     on tiles that reach above the diagonal or carry a kv mask; o is
+//     rescaled (just before the next p v is queued, when the previous one
+//     has left it) only when a row maximum of the warp moved;
+//   * a grid of fewer 128-row blocks than the card has SMs (the LM
+//     prefill: 56) takes the one-warpgroup instance of the same kernel,
+//     64 q rows per block.
+// Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
 // contiguous and the other strides multiples of 8 elements.
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
+
+constexpr int kTileKV = 128;   // kv rows per tile
+constexpr int kStages = 3;     // (K tile, V tile) stages in the ring
+
+enum Body { kPipelined = 0, kExactBody = 1, kExactMasked = 2 };
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
 
 struct Args {
   const bf16* q;
@@ -70,100 +110,173 @@ struct Args {
   float scale_log2e, eps;
 };
 
-template <int D, bool ROPE, bool EXACT>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int P = D + kPad;                 // smem row pitch (elements)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * P;
-  bf16* sV = sK + kBK * P;
+// Shared memory of one block: the q tile, the ring, the barriers, and the
+// slack that aligns the tiles to the swizzle's 1024 bytes.
+template <int D, int WGS>
+constexpr int smem_bytes() {
+  return 64 * WGS * D * 2 + 2 * kStages * kTileKV * D * 2 +
+         (2 * kStages + 1) * static_cast<int>(sizeof(uint64_t)) +
+         kSwizzleAtomBytes;
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = a.k + b * a.k_sb + hkv * a.k_sh;
-  const bf16* vb = a.v + b * a.v_sb + hkv * a.v_sh;
+// 2^x on the special-function unit. For the x met here it is exp2f's value:
+// the pipelined body clamps x to +-100, and in the exact body x <= 0,
+// where a result below 2^-126 is flushed to 0 beside a row sum >= 1.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  if (ROPE) {
-    for (int r = warp; r < kBQ; r += kWarps) {
-      const int row = q0 + r;
-      norm_rope_row<D>(qb + row * a.q_ss, sQ + r * P, a.cos + row * a.tab_rs,
-                       a.sin + row * a.tab_rs,
-                       a.qw == nullptr ? nullptr : a.qw + row * a.qw_rs,
-                       a.eps, a.scale_log2e, lane);
-    }
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 8][4],
+                                           const uint32_t (&p)[4],
+                                           uint64_t v_desc) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(o, p, v_desc);
   } else {
-    copy_tile<D, kBQ>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
+    wgmma_rs_n64(o, p, v_desc);
+  }
+}
+
+template <int D, int WGS, bool ROPE, int BODY>
+__global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
+    const __grid_constant__ TileMap map_k,
+    const __grid_constant__ TileMap map_v, Args a) {
+  constexpr int BQ = 64 * WGS, NT = 128 * WGS, BK = kTileKV;
+  constexpr bool EXACT = BODY != kPipelined, MASKED = BODY == kExactMasked;
+  constexpr uint32_t kQBytes = BQ * D * 2, kTileBytes = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (sQ - raw);
+  const uint32_t sK = sQ + kQBytes, sV = sK + kStages * kTileBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kQBytes + 2 * kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_ready = empty + kStages;
+
+  // NT consumer threads (WGS warpgroups), then the producer's warpgroup
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
+  const int q0 = blockIdx.x * BQ;
+  const int n_tiles = a.skv / BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NT);
+    }
+    mbar_init(q_ready, NT);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
+  // The register file is shared out by warpgroup: the kernel starts with
+  // the 168 registers that three warpgroups leave each thread, the
+  // producer hands back what it does not need and the consumers take it.
+  // From here the two roles never meet again (setmaxnreg needs that).
+  // (One consumer warpgroup and the producer's have 255 registers a thread
+  // from the start.)
+  if (tid >= NT) {
+    if constexpr (WGS == 2) setmaxnreg_dec<40>();
+    // The producer: one thread keeps the ring full, up to kStages tiles
+    // ahead of the consumers. A stage is two TMA copies per 64 columns
+    // (K rows and V rows of the tile), all completing on its `full`.
+    if (tid == NT) {
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qa[kk], sQ, P, r0, kk * 16, g, t4);
+        for (int cb = 0; cb < D / 64; ++cb) {
+          const uint32_t off =
+              st * kTileBytes + cb * BK * kSwizzleRowBytes;
+          tma_load_tile(map_k, sK + off, cb * 64, t * BK, hkv, b, &full[st]);
+          tma_load_tile(map_v, sV + off, cb * 64, t * BK, hkv, b, &full[st]);
+        }
+      }
+    }
+    return;
+  }
 
-  float o[D / 8][4];
+  // The consumers bring in the q tile meanwhile.
+  if constexpr (WGS == 2) setmaxnreg_inc<232>();
+  const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
+  if (ROPE) {
+    // 16 rows per warp, four in flight: a row is a chain of dependent
+    // loads (the row, its table rows) and shuffles
+    auto rope_q_rows = [&](auto norm) {
+      constexpr bool kNorm = decltype(norm)::value;
+#pragma unroll 4
+      for (int r = tid / 32; r < BQ; r += NT / 32) {
+        const int row = q0 + r;
+        float y[D / 32];
+        norm_rope_vals<D, kNorm>(
+            qb + row * a.q_ss, y, a.cos + row * a.tab_rs,
+            a.sin + row * a.tab_rs, kNorm ? a.qw + row * a.qw_rs : nullptr,
+            a.eps, a.scale_log2e, lane);
+#pragma unroll
+        for (int t = 0; t < D / 32; ++t)
+          *reinterpret_cast<bf16*>(smem + swizzled_offset<BQ>(
+                                              r, lane + 32 * t)) =
+              __float2bfloat16_rn(y[t]);
+      }
+    };
+    if (a.qw != nullptr) {
+      rope_q_rows(Flag<true>());
+    } else {
+      rope_q_rows(Flag<false>());
+    }
+    fence_proxy_async();
+    mbar_arrive(q_ready);
+  } else {
+    cp_async_tile<D, BQ, NT>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
+    cp_async_arrive(q_ready);
+  }
+  mbar_wait(q_ready, 0);
+  fence_proxy_async();
+
+  const uint64_t q_desc =
+      wgmma_desc(sQ + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
+  float o[D / 8][4], s[BK / 8][4];
+  uint32_t p[BK / 16][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
     o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < BK / 8; ++jj)
+    s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;
+  // the exact body's pending rescale of o, by exp2(m_old - m_new) per row
+  float al0 = 1.f, al1 = 1.f;
+  bool moved = false;
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
   const unsigned char* mask =
-      a.mask == nullptr ? nullptr : a.mask + b * a.mask_sb;
+      MASKED && a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
 
-  for (int kv0 = 0; kv0 < a.skv; kv0 += kBK) {
-    __syncthreads();                           // previous tile consumed
-    copy_tile<D, kBK>(kb + kv0 * a.k_ss, a.k_ss, sK, tid);
-    copy_tile<D, kBK>(vb + kv0 * a.v_ss, a.v_ss, sV, tid);
-    __syncthreads();
-    float s[kBK / 8][4];
+  // s = q k^T for kv tile t, queued and committed
+  auto qk_product = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    const uint64_t k_desc =
+        wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes);
+    wgmma_pin(s);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* p = sK + (j * 8 + g) * P + kk * 16 + t4 * 2;
-        mma_bf16(s[j], qa[kk], ld32(p), ld32(p + 8));
-      }
-    }
-    if (!ROPE) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= a.scale_log2e;
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
+                    desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
+    wgmma_commit();
+  };
 
-    if (EXACT) {
-      if (mask != nullptr || a.causal) {
-#pragma unroll
-        for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
-            const int row = e < 2 ? row_a : row_b;
-            const bool keep = (mask == nullptr || mask[col]) &&
-                              (!a.causal || col <= row);
-            if (!keep) s[j][e] = kNegInf;
-          }
-      }
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= al0;
-      l1 *= al1;
+  // o += p v for kv tile t, queued and committed; the exact body first
+  // brings o to the row maxima that p was taken against
+  auto pv_queue = [&](int t) {
+    if (EXACT && moved) {
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         o[dn][0] *= al0;
@@ -171,37 +284,141 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         o[dn][2] *= al1;
         o[dn][3] *= al1;
       }
+    }
+    const uint64_t v_desc =
+        wgmma_desc(sV + (t % kStages) * kTileBytes, BK * kSwizzleRowBytes,
+                   kSwizzleAtomBytes);
+    wgmma_pin(o);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        s[j][0] = exp2f(s[j][0] - mx0);
-        s[j][1] = exp2f(s[j][1] - mx0);
-        s[j][2] = exp2f(s[j][2] - mx1);
-        s[j][3] = exp2f(s[j][3] - mx1);
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pv_product<D>(o, p[kk],
+                    desc_advance(v_desc, kk * 2 * kSwizzleAtomBytes));
+    wgmma_commit();
+  };
+
+  // the scores of kv tile t in s -> the unnormalized probabilities, in
+  // place; the row sums l (and in the exact body the running maxima m)
+  auto softmax_tile = [&](int t) {
+    if (!ROPE) {
+      // without rope the scale is not folded into q: the TPU's _logits
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale_log2e;
+    }
+    if (EXACT) {
+      if (MASKED) {
+        const int kv0 = t * BK;
+        // a causal tile wholly at or below the warp's first row needs no
+        // test
+        const bool diag = a.causal && kv0 + BK - 1 > row_a - g;
+        if (mask != nullptr || diag) {
+#pragma unroll
+          for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = kv0 + jj * 8 + t4 * 2 + (e & 1);
+              const int row = e < 2 ? row_a : row_b;
+              const bool keep = (mask == nullptr || mask[col]) &&
+                                (!a.causal || col <= row);
+              if (!keep) s[jj][e] = kNegInf;
+            }
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // exp2(m - mx) is exactly 1 for a row whose maximum stayed: o and l
+      // are rescaled only when a maximum of the warp's rows moved
+      moved = __any_sync(0xffffffffu, mx0 != m0 || mx1 != m1);
+      if (moved) {
+        al0 = exp2f(m0 - mx0);
+        al1 = exp2f(m1 - mx1);
+        l0 *= al0;
+        l1 *= al1;
+        m0 = mx0;
+        m1 = mx1;
+      }
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        s[jj][0] = fast_exp2(s[jj][0] - mx0);
+        s[jj][1] = fast_exp2(s[jj][1] - mx0);
+        s[jj][2] = fast_exp2(s[jj][2] - mx1);
+        s[jj][3] = fast_exp2(s[jj][3] - mx1);
+        l0 += s[jj][0] + s[jj][1];
+        l1 += s[jj][2] + s[jj][3];
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
+      for (int jj = 0; jj < BK / 8; ++jj) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[j][e] = exp2f(fminf(fmaxf(s[j][e], -100.f), 100.f));
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+          s[jj][e] = fast_exp2(fminf(fmaxf(s[jj][e], -100.f), 100.f));
+        l0 += s[jj][0] + s[jj][1];
+        l1 += s[jj][2] + s[jj][3];
       }
     }
+  };
 
+  // p rounded to bf16: the A operand of the PV product
+  auto round_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const bf16* p = sV + (kk * 16 + t4 * 2) * P + dn * 8 + g;
-        mma_bf16(o[dn], pa, ld_col_pair(p, P), ld_col_pair(p + 8 * P, P));
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pack_a(p[kk], s[2 * kk], s[2 * kk + 1]);
+  };
+
+  // The schedule, per warpgroup: the scores of tile j and, behind them,
+  // p v of tile j - 1 are queued on the tensor cores; as soon as the
+  // scores are there the softmax of tile j runs while p v of tile j - 1
+  // is still in flight (the TPU body's pipeline, :185-195, with the two
+  // products in the other order). Tile j + kStages - 2 is copied
+  // meanwhile, into the stage that tile j - 2 left.
+  // With two warpgroups, they take turns at queueing their products, so
+  // that one's softmax falls under the other's products instead of both
+  // leaving the tensor cores idle at once: named barrier 1 + wg opens
+  // warpgroup wg's turn, and warpgroup 1 opens the first one.
+  auto turn_wait = [&]() {
+    if (WGS == 2) named_barrier_sync(1 + wg, NT);
+  };
+  auto turn_pass = [&]() {
+    if (WGS == 2) named_barrier_arrive(2 - wg, NT);
+  };
+  if (WGS == 2 && wg == 1) named_barrier_arrive(1, NT);
+  turn_wait();
+  qk_product(0);
+  turn_pass();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  softmax_tile(0);
+  round_p();
+#pragma unroll 1
+  for (int j = 1; j < n_tiles; ++j) {
+    turn_wait();
+    qk_product(j);
+    pv_queue(j - 1);
+    turn_pass();
+    wgmma_wait<1>();
+    wgmma_pin(s);
+    softmax_tile(j);
+    wgmma_wait<0>();
+    wgmma_pin(o);
+    wgmma_pin_a(p);
+    mbar_arrive(&empty[(j - 1) % kStages]);
+    round_p();
   }
+  pv_queue(n_tiles - 1);
+  wgmma_wait<0>();
+  wgmma_pin(o);
+  wgmma_pin_a(p);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -223,27 +440,58 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   store_rows<D>(a.o + b * a.o_sb + h * a.o_sh, a.o_ss, o, row_a, row_b, t4);
 }
 
-template <int D, bool ROPE, bool EXACT>
-cudaError_t launch_main(const Args& a, int batch, int hq, int sq,
-                        cudaStream_t stream) {
-  const int smem = (kBQ + 2 * kBK) * (D + kPad) * static_cast<int>(sizeof(bf16));
-  auto kernel = flash_fwd_kernel<D, ROPE, EXACT>;
+struct Maps {
+  TileMap k, v;
+};
+
+template <int D, int WGS, bool ROPE, int BODY>
+cudaError_t launch_main(const Maps& m, const Args& a, int batch, int hq,
+                        int sq, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, WGS>();
+  auto kernel = flash_fwd_kernel<D, WGS, ROPE, BODY>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(sq / kBQ, hq, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid(sq / (64 * WGS), hq, batch);
+  kernel<<<grid, 128 * WGS + 128, smem, stream>>>(m.k, m.v, a);
   return cudaGetLastError();
 }
 
+template <int D, int WGS, bool ROPE>
+cudaError_t launch_body(const Maps& m, const Args& a, int batch, int hq,
+                        int sq, int body, cudaStream_t stream) {
+  if (body == kPipelined)
+    return launch_main<D, WGS, ROPE, kPipelined>(m, a, batch, hq, sq, stream);
+  if (body == kExactBody)
+    return launch_main<D, WGS, ROPE, kExactBody>(m, a, batch, hq, sq, stream);
+  return launch_main<D, WGS, ROPE, kExactMasked>(m, a, batch, hq, sq, stream);
+}
+
 template <int D>
-cudaError_t launch(const Args& a, int batch, int hq, int sq, bool rope,
-                   bool exact, cudaStream_t stream) {
-  if (rope)
-    return exact ? launch_main<D, true, true>(a, batch, hq, sq, stream)
-                 : launch_main<D, true, false>(a, batch, hq, sq, stream);
-  return exact ? launch_main<D, false, true>(a, batch, hq, sq, stream)
-               : launch_main<D, false, false>(a, batch, hq, sq, stream);
+cudaError_t launch(const Maps& m, const Args& a, int batch, int hq, int sq,
+                   bool rope, int body, bool small_grid,
+                   cudaStream_t stream) {
+  if (small_grid)
+    return rope ? launch_body<D, 1, true>(m, a, batch, hq, sq, body, stream)
+                : launch_body<D, 1, false>(m, a, batch, hq, sq, body, stream);
+  return rope ? launch_body<D, 2, true>(m, a, batch, hq, sq, body, stream)
+              : launch_body<D, 2, false>(m, a, batch, hq, sq, body, stream);
+}
+
+// The card's SM count, asked once per device.
+cudaError_t sm_count(int* sms) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -263,9 +511,11 @@ extern "C" int x2i_flash_fwd(
     long long kw_rs, const unsigned char* mask, long long mask_sb, int batch,
     int hq, int hk, int sq, int skv, int d, int causal, int exact,
     float scale_log2e, float eps, void* stream_ptr) {
-  if ((d != 64 && d != 128) || sq % kBQ || skv % kBK || hk <= 0 ||
-      hq % hk || (cos != nullptr && (k_scratch == nullptr || sq != skv)) ||
-      (lse != nullptr && !exact))
+  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 128 ||
+      skv % kTileKV || hk <= 0 || hq % hk ||
+      (cos != nullptr && (k_scratch == nullptr || sq != skv)) ||
+      (lse != nullptr && !exact) ||
+      (!exact && (mask != nullptr || causal)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool rope = cos != nullptr;
@@ -292,7 +542,9 @@ extern "C" int x2i_flash_fwd(
   a.causal = causal;
   a.scale_log2e = scale_log2e;
   a.eps = eps;
-  cudaError_t err = cudaSuccess;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (rope) {
     // K normalized and rotated once per launch (no scale: it is folded
     // into the q tile)
@@ -309,7 +561,23 @@ extern "C" int x2i_flash_fwd(
     a.k_sh = static_cast<long long>(skv) * d;
     a.k_sb = a.k_sh * hk;
   }
-  err = d == 64 ? launch<64>(a, batch, hq, sq, rope, exact != 0, stream)
-                : launch<128>(a, batch, hq, sq, rope, exact != 0, stream);
+  const int body = !exact ? kPipelined
+                   : (mask != nullptr || causal) ? kExactMasked
+                                                 : kExactBody;
+  // fewer 128-row blocks than SMs: 64-row blocks fill more of the card
+  const bool small_grid =
+      static_cast<long long>(sq / 128) * hq * batch < sms;
+  // K and V as the producer reads them: K from the scratch under rope
+  Maps m;
+  err = make_tile_map(&m.k, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
+                      kTileKV);
+  if (err == cudaSuccess)
+    err = make_tile_map(&m.v, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
+                        kTileKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = d == 64 ? launch<64>(m, a, batch, hq, sq, rope, body, small_grid,
+                             stream)
+                : launch<128>(m, a, batch, hq, sq, rope, body, small_grid,
+                              stream);
   return static_cast<int>(err);
 }

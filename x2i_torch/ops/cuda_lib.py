@@ -7,6 +7,8 @@ carries a hash of the source and the flags, so an edit rebuilds it. Each
 library keeps the launch counts of its kernels, which its wrappers raise
 by one per launch.
 
+``ptxas_report`` reads what ``ptxas -v`` said of a build: each kernel's
+registers and spills, and whether its ``wgmma`` pipeline was serialized.
 ``refuse_grad`` is the guard of every kernel wrapper without a backward.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,9 +28,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# --split-compile 0: the optimizer and ptxas run on all the host's cores, one
+# kernel each (flash_fwd.cu has 24 instances of its kernel: 28 s on one
+# core, 12 s on eight)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "--split-compile", "0")
 
 
 class CudaLibrary:
@@ -54,7 +60,10 @@ class CudaLibrary:
     def build(self) -> Path:
         """Compile the source with nvcc for sm_90a (seconds)."""
         path = self.library_path()
+        log = path.with_suffix(".log")
         if path.exists():
+            # an earlier process built it: its log lies beside it
+            self.build_log = log.read_text() if log.exists() else ""
             return path
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,6 +75,7 @@ class CudaLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.src}:\n"
                                f"{self.build_log}")
+        log.write_text(self.build_log)
         os.replace(tmp, path)
         return path
 
@@ -80,6 +90,40 @@ class CudaLibrary:
     def reset_launches(self):
         for key in self.launches:
             self.launches[key] = 0
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SERIALIZED = re.compile(
+    r"wgmma\.mma_async instructions are serialized.*?function '([^']+)'")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """What ``ptxas -v`` said, per kernel (mangled entry name):
+    ``{"registers": n, "spill_bytes": stores + loads, "wgmma_serialized":
+    bool}``. ptxas names a kernel ("Compiling entry function"), then gives
+    its spills and its registers; it reports a ``wgmma`` pipeline that it
+    had to serialize (the kernel then runs far below the tensor cores'
+    rate, with no other sign) on a line that names the function."""
+    report: dict = {}
+
+    def entry(name):
+        return report.setdefault(name, {"registers": None, "spill_bytes": 0,
+                                        "wgmma_serialized": False})
+
+    current = None
+    for line in build_log.splitlines():
+        if m := _SERIALIZED.search(line):
+            entry(m.group(1))["wgmma_serialized"] = True
+        elif m := _ENTRY.search(line):
+            current = entry(m.group(1))
+        elif current is not None:
+            if m := _SPILL.search(line):
+                current["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+            elif m := _REGS.search(line):
+                current["registers"] = int(m.group(1))
+    return report
 
 
 def refuse_grad(kernel: str, *tensors):

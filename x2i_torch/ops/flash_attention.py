@@ -463,6 +463,9 @@ def _out_bhsd(b, h, s, d, like):
 def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
                 return_lse=False):
     b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    if sq % 128 or skv % 128:
+        raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
+                         f"Skv in multiples of 128, got {sq} and {skv}")
     exact = return_lse or is_exact(kv_mask, causal, skv)
     cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
     qw = kw = scratch = None

@@ -10,8 +10,9 @@ Phases, each printing one JSON line per record:
    nvcc each, started together) while the Triton glue kernels (ln_mod,
    ln_mod_quant, gelu_quant, quant_rows) compile, all from the sources in
    this checkout; print what ptxas said of every kernel (registers,
-   spills, serialized wgmma) and fail on a spill or a serialized wgmma
-   pipeline in flash_fwd.cu;
+   spills, serialized wgmma) and fail on a spill, a serialized wgmma
+   pipeline or an ignored setmaxnreg in flash_fwd.cu or flash_bwd.cu
+   (``cuda_lib.build_faults``);
 2. kernels: hold each kernel against its plain PyTorch version at the main
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
@@ -197,7 +198,7 @@ def phase_build():
 
     import torch
     from x2i_torch.ops import fused_glue as fg
-    from x2i_torch.ops.cuda_lib import ptxas_report
+    from x2i_torch.ops.cuda_lib import build_faults, ptxas_report
 
     t0 = time.perf_counter()
     libs = _cuda_libraries()
@@ -223,22 +224,13 @@ def phase_build():
           "triton_seconds": triton_s,
           "libraries": [lib.library_path().name for lib in libs],
           "ptxas": ptxas})
-    # K1 is built on wgmma: a spill or a serialized pipeline leaves it far
-    # below the tensor cores' rate with no other sign
-    k1 = ptxas["flash_fwd.cu"]
-    bad = {name: r for name, r in k1.items()
-           if r["spill_bytes"] or r["wgmma_serialized"]
-           or r["registers"] is None}
-    flash_log = next(lib.build_log for lib in libs
-                     if lib.src.name == "flash_fwd.cu")
-    if "'setmaxnreg' ignored" in flash_log:
-        # the consumers would be left with the registers of a third of
-        # the SM and spill
-        raise AssertionError("flash_fwd.cu: ptxas ignored setmaxnreg")
-    if bad or not any("flash_fwd_kernel" in name for name in k1):
-        raise AssertionError(f"flash_fwd.cu: ptxas reports spills or a "
-                             f"serialized wgmma pipeline, or its log names "
-                             f"no kernel or no register count: {bad or k1}")
+    # the kernels built on wgmma (K1, K3, K4): a spill, a serialized
+    # pipeline or an ignored setmaxnreg leaves them far below the tensor
+    # cores' rate with no other sign
+    for lib in libs:
+        if lib.wgmma_kernels and (faults := build_faults(lib.build_log,
+                                                         lib.wgmma_kernels)):
+            raise AssertionError(f"{lib.src.name}: {faults}")
 
 
 # -------------------------------------------------------------- kernels
@@ -398,6 +390,7 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
                           "minus the forward (both kernels' work, no rope)"}
         rec["bound_ms"], rec["bound_by"] = bound(
             flops * pairs * d, nbytes(q, k, v, *res, mask, *tables, *got))
+        rate(rec, flops * pairs * d)
         ok = ok and (rec["finite"] and rec["max_rel_err"] <= 2e-2
                      and rec["mean_rel_err"] <= 2e-3)
         out.append((name, rec))

@@ -1,7 +1,8 @@
 """The port's CUDA build helper (``x2i_torch/ops/cuda_lib.py``) on the CPU:
 what ``ptxas_report`` reads out of ``nvcc -Xptxas -v`` output (registers,
-spills, a serialized ``wgmma`` pipeline), and that a library's file name
-follows its source, every shared header and the flags. No compiler and no
+spills, a serialized ``wgmma`` pipeline), the faults ``build_faults`` finds
+in it, and that a library's file name follows its source, every shared
+header and the flags. No compiler and no
 card are needed: the ptxas text is canned, in the form nvcc 12 prints it
 for ``sm_90a``, and the sources are a copy of ``csrc/`` under ``tmp_path``.
 """
@@ -56,6 +57,53 @@ def test_ptxas_report(case):
     assert got == {name: {"registers": regs, "spill_bytes": spill,
                           "wgmma_serialized": ser}
                    for name, (regs, spill, ser) in want.items()}
+
+
+DQ = ("_ZN42_GLOBAL__N__0000_12_flash_bwd_cu19flash_bwd_dq_kernel"
+      "ILi128ELb0ELb0EEEvNS_7TileMapES1_NS_7BwdArgsE")
+DKV = ("_ZN42_GLOBAL__N__0000_12_flash_bwd_cu20flash_bwd_dkv_kernel"
+       "ILi128ELb0ELb0EEEvNS_7TileMapES1_NS_7BwdArgsE")
+BWD = (DQ, DKV)
+IGNORED = ("ptxas info    : (C7508) Potential Performance Loss: "
+           "'setmaxnreg' ignored; unable to determine register count at "
+           "entry\n")
+
+# case -> (log, the faults build_faults finds, by a word of each line)
+FAULT_CASES = {
+    "clean": (HEAD + _entry(DQ, 168) + _entry(DKV, 236) + _entry(ROPE, 28),
+              []),
+    "spilled": (HEAD + _entry(DQ, 168) + _entry(DKV, 240, 96, 96)
+                + _entry(ROPE, 28), ["spills"]),
+    "serialized": (HEAD + _entry(DQ, 168) + _entry(DKV, 236)
+                   + SERIALIZED.replace(KERNEL, DKV), ["serialized"]),
+    "setmaxnreg-ignored": (HEAD + IGNORED + _entry(DQ, 168)
+                           + _entry(DKV, 236), ["setmaxnreg"]),
+    "missing-kernel": (HEAD + _entry(DQ, 168) + _entry(ROPE, 28),
+                       ["flash_bwd_dkv_kernel"]),
+    "no-register-count": (HEAD + _entry(DQ, 168)
+                          + _entry(DKV, 236).rsplit("ptxas info", 1)[0],
+                          ["register count"]),
+}
+
+
+@pytest.mark.parametrize("case", list(FAULT_CASES))
+def test_build_faults(case):
+    """The build gate of the wgmma kernels: a clean log passes, and each
+    fault that leaves a kernel right but slow is named."""
+    log, want = FAULT_CASES[case]
+    faults = cuda_lib.build_faults(log, ("flash_bwd_dq_kernel",
+                                         "flash_bwd_dkv_kernel"))
+    assert len(faults) == len(want)
+    for fault, word in zip(faults, want):
+        assert word in fault
+
+
+def test_flash_libraries_gate_their_wgmma_kernels():
+    from x2i_torch.ops import flash_attention as tfa
+    assert tfa.KERNEL.wgmma_kernels == ("flash_fwd_kernel",)
+    assert tfa.KERNEL_BWD.wgmma_kernels == ("flash_bwd_dq_kernel",
+                                            "flash_bwd_dkv_kernel")
+    assert tfa.KERNEL_CHUNKED.wgmma_kernels == ()
 
 
 @pytest.fixture

@@ -152,6 +152,60 @@ def test_long_rope_and_long_kv_routes_match_plain_autograd(monkeypatch):
             np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
 
 
+def test_qk_norm_above_rope_max_kv_matches_jax_grad(monkeypatch):
+    """With qk_norm between ROPE_MAX_KV and MAX_KV_SEQ (lowered to 64 and
+    256 in both packages, so that 128 tokens lie between them) a call that
+    autograd records normalizes and rotates outside the kernels and is
+    differentiable, as JAX's: the value and the q/k/v gradients against
+    jax.grad of JAX's ``flash_attention``, the Pallas kernels in interpret
+    mode."""
+    monkeypatch.setattr(tfa, "ROPE_MAX_KV", 64)
+    monkeypatch.setattr(tfa, "MAX_KV_SEQ", 256)
+    monkeypatch.setenv("X2I_FA_ROPE_MAX_KV", "64")
+    monkeypatch.setattr(jfa, "MAX_KV_SEQ", 256)
+    b, h, s, d = 1, 2, 128, 64
+    q, k, v, do, _, tables = _case(b, h, h, s, d, False, True, seed=6)
+    rng = np.random.default_rng(7)
+    qw, kw = (1.0 + 0.1 * rng.standard_normal(d).astype(np.float32)
+              for _ in range(2))
+    jtab = tuple(jnp.asarray(t) for t in tables)
+
+    def jax_out(q, k, v):
+        return jfa.flash_attention(q, k, v, rope=jtab, qk_norm=(
+            jnp.asarray(qw), jnp.asarray(kw), 1e-6))
+
+    with pltpu.force_tpu_interpret_mode():
+        jargs = [jnp.asarray(x) for x in (q, k, v)]
+        want_o = jax_out(*jargs)
+        want = jax.grad(lambda *a: jnp.sum(jax_out(*a) * jnp.asarray(do)),
+                        argnums=(0, 1, 2))(*jargs)
+    args = [_t(x).requires_grad_() for x in (q, k, v)]
+    o = tfa.flash_attention(*args, rope=tuple(_t(x) for x in tables),
+                            qk_norm=(_t(qw), _t(kw), 1e-6))
+    assert o.grad_fn is not None
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o), **TOL)
+    (o * _t(do)).sum().backward()
+    for got, w in zip(args, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("blocks,stages,sms,want", [
+    (864, 72, 132, 1),        # FLUX: 36 kv tiles x 24 heads, no split
+    (132, 8, 132, 1),
+    (8, 56, 132, 14),         # the LM: 4 kv tiles x 2 kv heads, 7 x 8
+    (8, 8, 132, 8),           # one stage per share
+    (2, 3, 132, 3),
+    (100, 40, 132, 2),
+])
+def test_dkv_splits(blocks, stages, sms, want):
+    """K4's split of its (group x q tiles) stages at small grids: about one
+    block per SM, every share non-empty."""
+    splits = tfa.dkv_splits(blocks, stages, sms)
+    assert splits == want
+    per = -(-stages // splits)
+    assert (splits - 1) * per < stages <= splits * per
+
+
 def test_dispatcher_routes_carry_gradients():
     """The kernel route (flash Function), the pad-and-mask route and the
     plain route give the same gradients with respect to q, k and v."""

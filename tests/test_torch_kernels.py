@@ -9,7 +9,9 @@ Without a CUDA device each test skips itself: a CUDA kernel has no CPU
 mode. The K1 cases sit on the edges of its tiling (128-row q tiles on two
 warpgroups, or 64-row ones where the grid is small; 128-row kv tiles): one
 and two kv tiles, 4608 and 8192 tokens, Sq != Skv, GQA groups 1, 3 and 7,
-strided and contiguous inputs. Tolerances: flash attention within 1e-2
+strided and contiguous inputs; the K3 and K4 cases on the edges of theirs
+(one 128-row tile, a ring of 64-row tiles that wraps, K4's split over the
+grid with and without rope). Tolerances: flash attention within 1e-2
 max and 1e-3 mean absolute of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body), its lse within 1e-3 in
 log2 units; the backward kernels K3 and K4 within 2e-2 max and 2e-3 mean
@@ -171,22 +173,31 @@ def _grad_close(got, want):
     assert diff.max() <= 2e-2 * top and diff.mean() <= 2e-3 * top
 
 
-# case -> (S, q heads, kv heads, layout); "mask" adds a kv mask with a
-# fully masked row under the causal mask, "rope" the rotation inside
+# case -> (S, q heads, kv heads, layout, batch); "mask" adds a kv mask with
+# a fully masked row under the causal mask, "rope" the rotation inside.
+# K3 and K4 stream 64-row tiles through a ring of four stages, which wraps
+# above 256 rows; K4 splits its stages over the grid where its 128-row kv
+# blocks are fewer than the card's SMs (every case but the "wide" ones)
 LSE_CASES = {
-    "plain": (256, 3, 3, "strided"),
-    "mask-causal-gqa": (256, 6, 2, "strided"),
-    "rope": (256, 3, 3, "strided"),
-    "rope-mask-causal": (256, 3, 3, "strided"),
-    "one-tile-plain": (128, 3, 3, "strided"),
-    "one-tile-rope-mask-causal": (128, 3, 3, "strided"),
-    "mask-causal-gqa7": (512, 14, 2, "strided"),
-    "plain-contiguous": (256, 3, 3, "contiguous"),
+    "plain": (256, 3, 3, "strided", 2),
+    "mask-causal-gqa": (256, 6, 2, "strided", 2),
+    "rope": (256, 3, 3, "strided", 2),
+    "rope-mask-causal": (256, 3, 3, "strided", 2),
+    "one-tile-plain": (128, 3, 3, "strided", 2),
+    "one-tile-rope-mask-causal": (128, 3, 3, "strided", 2),
+    "mask-causal-gqa7": (512, 14, 2, "strided", 2),
+    "plain-contiguous": (256, 3, 3, "contiguous", 2),
+    "ring-384-mask-causal-gqa": (384, 6, 2, "strided", 2),
+    "ring-640-rope": (640, 3, 3, "strided", 2),
+    # the LM's shape, one batch: K4 split 14 ways
+    "split-lm-mask-causal-gqa7": (512, 14, 2, "strided", 1),
+    "split-rope-mask-causal": (512, 2, 2, "strided", 1),
     # enough 128-row blocks (2 x 36 x 5) for the two-warpgroup forward
-    "wide-plain": (640, 36, 36, "strided"),
-    "wide-rope": (640, 36, 36, "strided"),
-    "wide-mask-causal-gqa": (640, 36, 12, "strided"),
-    "wide-rope-mask-causal": (640, 36, 36, "contiguous"),
+    "wide-plain": (640, 36, 36, "strided", 2),
+    "wide-rope": (640, 36, 36, "strided", 2),
+    "wide-mask-causal-gqa": (640, 36, 12, "strided", 2),
+    "wide-rope-mask-causal": (640, 36, 36, "contiguous", 2),
+    "wide-ring-384-rope-mask-causal": (384, 24, 24, "strided", 2),
 }
 
 
@@ -197,17 +208,17 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
     """K1 with the lse (exact body), K3 and K4 against their plain
     versions, both backward kernels on the plain forward's residuals. The
     masked cases have a row whose keys are all masked (lse -1e30 +
-    log2(S)); the "wide" cases run the forward's two-warpgroup instance."""
+    log2(S)); the "wide" cases run the forward's two-warpgroup instance
+    and K4 without a split."""
     g = torch.Generator(device=dev).manual_seed(7 * d)
-    b = 2
-    s, hq, hk, layout = LSE_CASES[case]
+    s, hq, hk, layout, b = LSE_CASES[case]
     q, do = (_layout(_randn(g, dev, b, s, hq, d), layout) for _ in range(2))
     k, v = (_layout(_randn(g, dev, b, s, hk, d), layout) for _ in range(2))
     kw = {}
     if "mask" in case:
         mask = torch.arange(s, device=dev)[None] < torch.tensor(
-            [[s - 56], [37]], device=dev)
-        mask[1, 0] = False
+            [[s - 56], [37]][:b], device=dev)
+        mask[b - 1, 0] = False
         kw.update(kv_mask=mask, causal=True)
     if "rope" in case:
         kw["rope"] = _tables(s, d, dev)
@@ -218,9 +229,10 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
     assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
     assert (lse - lse_p).abs().max().item() <= 1e-3
     if "mask" in case:
-        # row 0 of batch 1 sees no valid key: the one-pass body's value
+        # row 0 of the last batch sees no valid key: the one-pass body's
+        # value
         want = torch.tensor(-1e30 + math.log2(s), device=dev)
-        assert bool((lse[1, :, 0] == want).all())
+        assert bool((lse[b - 1, :, 0] == want).all())
     mask, causal = kw.pop("kv_mask", None), kw.pop("causal", False)
     res = (mask, o_p, lse_p, do, causal)
     for got, want in zip(tfa.flash_backward(q, k, v, *res, **kw),
@@ -388,6 +400,14 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 2, 128, 32), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(q, q, q)                 # head dim 32
+    # K3 and K4 take Sq and Skv in multiples of 128 only
+    for sq, skv in ((192, 128), (128, 192)):
+        q = torch.zeros((1, 2, sq, 64), device=dev, dtype=BF)
+        k = torch.zeros((1, 2, skv, 64), device=dev, dtype=BF)
+        rows = torch.zeros((1, 2, sq), device=dev)
+        for fn in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="unsupported"):
+                fn(q, k, k, q, rows, rows)
 
 
 @pytest.mark.cuda

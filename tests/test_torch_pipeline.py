@@ -144,6 +144,21 @@ def test_server_answers_three_requests():
     np.testing.assert_array_equal(images[2], pipe.text2image("c")[0])
 
 
+def test_generate_draws_bf16_noise_for_an_f32_dit():
+    """The noise is bf16 whatever the DiT's dtype, as the JAX pipeline
+    draws it."""
+    pipe = build_random_pipeline(device="cpu", dtype=torch.float32)
+    assert pipe.flux.cfg.dtype == torch.float32
+    noises = []
+    generate = pipe._generate
+    pipe._generate = lambda noise, *a: (noises.append(noise),
+                                        generate(noise, *a))[1]
+    img = pipe.text2image("a")
+    assert img.shape == (1, PX, PX, 3)
+    assert [(n.dtype, tuple(n.shape)) for n in noises] == [
+        (torch.bfloat16, (1, (PX // 16) ** 2, 64))]
+
+
 def test_entry_points_need_cuda_or_an_explicit_cpu():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"

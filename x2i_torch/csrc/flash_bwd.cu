@@ -22,8 +22,8 @@
 // and the two differ on purpose:
 //   * K3 rotates the q tile in f32, folds scale * log2(e) in, rounds to
 //     bf16 (:555-556), so p = exp2(s - lse) reuses the forward's recipe;
-//     K is normalized-free rotated once per launch into a bf16 scratch
-//     buffer (rope_rows_kernel, as in the forward);
+//     K is rotated once per launch into a bf16 scratch buffer
+//     (rope_rows_kernel, as in the forward);
 //   * K4 rotates its k tile and all of Q (once per launch, into a scratch
 //     buffer, as _rotate_rows_to_scratch :493-516) WITHOUT the scale, and
 //     applies scale * log2(e) to the f32 scores (:605-607, :626).
@@ -35,23 +35,57 @@
 // 4608 x 128, batch 1) K3 does three S x S x D products, 6 S^2 D H =
 // 3.9e11 FLOP (0.40 ms at the 989 TFLOP/s bf16 peak), and K4 four,
 // 5.2e11 FLOP (0.53 ms), against about 170 MB of inputs and outputs: the
-// tensor cores bound both.
+// tensor cores bound both. The 5.1e8 exp2 of each kernel are about 0.14 ms
+// of the special-function units, so they have to run under the products.
 //
-// Design: simple and right first. One block of four warps per 64-row tile
-// (each warp 16 rows), bf16 mma.sync m16n8k16 with f32 accumulators, tiles
-// staged through padded shared memory. K3 keeps its q fragments and its dq
-// accumulators in registers and loops over 64-row kv tiles. K4 keeps dk and
-// dv accumulators in registers and loops over the group and over 32-row q
-// tiles (32, not 64, so that the score and dp fragments fit beside the two
-// accumulators at D = 128). No cp.async pipelining, no wgmma or TMA: later
-// work. Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last
-// dim contiguous and the other strides multiples of 8 elements.
+// Design: two kernels, each with K1's skeleton (flash_fwd.cu), so that the
+// gradients stay deterministic (no f32 atomics) and each keeps its TPU
+// body's rounding points:
+//   * a block is two consumer warpgroups and a producer warpgroup. The
+//     producer keeps a ring of kStages stages full by TMA through tensor
+//     maps over the strided (B, H, S, D) views (hopper_mma.cuh), then
+//     gives its registers back (setmaxnreg 24 / 240). `full` mbarriers
+//     count the bytes as they land, `empty` ones the consumer threads that
+//     are done with a stage;
+//   * every product is wgmma.mma_async: the two score products (m64n64k16)
+//     read both operands K-major from 128-byte-swizzled shared memory, the
+//     gradient products take their A operand from the score registers,
+//     rounded to bf16 where the TPU body casts it, and read their B tile as
+//     it lies, through the descriptor's transpose bit (as K1 reads V);
+//   * per stage a warpgroup queues the gradient products of the stage
+//     before and the score products of this one (K4: once the former are
+//     done), then computes p and ds of this stage while the other
+//     warpgroup's products run: the two take turns at queueing through
+//     named barriers, as in K1;
+//   * K3: one block per (128-row q tile, q head, batch); each warpgroup
+//     owns 64 q rows, its q and do tiles stay in shared memory, the ring
+//     brings (K tile, V tile) stages of 64 kv rows. Registers at D = 128:
+//     dq 64, s 32, dp 32, ds 16;
+//   * K4: one block per (128-row kv tile, kv head, batch); each warpgroup
+//     owns 64 kv rows, its K and V tiles stay in shared memory, the ring
+//     brings (q tile, do tile, lse, delta) stages of 64 q rows over every
+//     (head of the group, q tile) pair, with no round trip of p or ds
+//     through shared memory. Registers at D = 128: dk 64, dv 64, s 32,
+//     dp 32, then p and ds as bf16 A operands (16 + 16) as s and dp die;
+//   * K4 at a small grid (fewer 128-row blocks than the card has SMs: the
+//     LM's 2 kv heads x 512 tokens give 8) splits the (group x q tiles)
+//     loop over a grid dimension; each split writes f32 partial dk and dv
+//     into a scratch buffer that the wrapper allocates, and a second kernel
+//     sums the splits in a fixed order, counter-rotates and rounds.
+// Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
+// contiguous and the other strides multiples of 8 elements, lse and delta
+// 16-byte aligned.
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kBQ4 = 32;        // q rows per inner tile of K4
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kBlockThreads = kConsumers + 128;
+constexpr int kStages = 4;
+constexpr int kRows = 64;                     // rows of a ring tile
+constexpr int kBlockRows = 128;               // q rows (K3), kv rows (K4)
 
 struct BwdArgs {
   const bf16* q;                // (B, Hq, Sq, D), or rotated Q (K4, rope)
@@ -63,6 +97,7 @@ struct BwdArgs {
   bf16* dq;                     // (B, Hq, Sq, D)
   bf16* dk;                     // (B, Hk, Skv, D)
   bf16* dv;
+  float* partial;               // K4 split: (2, splits, B, Hk, Skv, D) f32
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss;
   long long dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
@@ -71,113 +106,267 @@ struct BwdArgs {
   long long tab_rs;
   const unsigned char* mask;
   long long mask_sb;
-  int hq, group, sq, skv, causal;
+  int hq, group, sq, skv, causal, splits, per_split;
   float scale, scale_log2e;
 };
 
-// ------------------------------------------------------------------- K3
+// Shared memory of a block: two resident tiles of kBlockRows rows, the
+// ring of kStages stages of two kRows-row tiles and `extra` bytes each,
+// the barriers, and the slack that aligns the tiles to the swizzle.
+template <int D>
+constexpr int smem_bytes(int extra) {
+  return 2 * kBlockRows * D * 2 + kStages * (2 * kRows * D * 2 + extra) +
+         2 * kStages * static_cast<int>(sizeof(uint64_t)) + kSwizzleAtomBytes;
+}
 
+// The resident tiles, each kBlockRows rows of one (b, h) from row row0 on:
+// the rows of `rope_src` rotated (no norm), times `post` and rounded with
+// rope, else copied, into the tile at sa (generic address tile_a), and the
+// rows of `src` copied into the tile at sb; by the consumer threads, then
+// published to the tensor cores.
 template <int D, bool ROPE>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int P = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + kBQ * P;
-  bf16* sK = sDO + kBQ * P;
-  bf16* sV = sK + kBK * P;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
-  const bf16* dob = a.dout + b * a.do_sb + h * a.do_sh;
-  const bf16* kb = a.k + b * a.k_sb + hkv * a.k_sh;
-  const bf16* vb = a.v + b * a.v_sb + hkv * a.v_sh;
-
+__device__ __forceinline__ void load_resident(
+    const bf16* rope_src, long long rope_ss, const bf16* src, long long ss,
+    int row0, const BwdArgs& a, float post, unsigned char* tile_a,
+    uint32_t sa, uint32_t sb, int tid) {
+  cp_async_tile<D, kBlockRows, kConsumers>(src + row0 * ss, ss, sb, tid);
   if (ROPE) {
-    for (int r = warp; r < kBQ; r += kWarps) {
-      const int row = q0 + r;
-      norm_rope_row<D>(qb + row * a.q_ss, sQ + r * P, a.cos + row * a.tab_rs,
-                       a.sin + row * a.tab_rs, nullptr, 0.f, a.scale_log2e,
-                       lane);
+    const int lane = tid % 32;
+#pragma unroll 4
+    for (int r = tid / 32; r < kBlockRows; r += kConsumers / 32) {
+      const int row = row0 + r;
+      float y[D / 32];
+      norm_rope_vals<D>(rope_src + row * rope_ss, y, a.cos + row * a.tab_rs,
+                        a.sin + row * a.tab_rs, nullptr, 0.f, post, lane);
+#pragma unroll
+      for (int t = 0; t < D / 32; ++t)
+        *reinterpret_cast<bf16*>(tile_a + swizzled_offset<kBlockRows>(
+                                              r, lane + 32 * t)) =
+            __float2bfloat16_rn(y[t]);
     }
   } else {
-    copy_tile<D, kBQ>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
+    cp_async_tile<D, kBlockRows, kConsumers>(rope_src + row0 * rope_ss,
+                                             rope_ss, sa, tid);
   }
-  copy_tile<D, kBQ>(dob + q0 * a.do_ss, a.do_ss, sDO, tid);
+  cp_async_wait_all();
+  fence_proxy_async();
+  named_barrier_sync(3, kConsumers);
+  fence_proxy_async();
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+}
+
+// acc (64 x 64) = A B^T over D, both K-major: the A tile's 64 rows at
+// desc_a in a tile of kBlockRows rows, the B tile of kRows rows at desc_b.
+template <int D>
+__device__ __forceinline__ void score_product(float (&acc)[kRows / 8][4],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(acc, desc_advance(desc_a, kmajor_kstep<kBlockRows>(kk)),
+                 desc_advance(desc_b, kmajor_kstep<kRows>(kk)), kk != 0);
+}
+
+// acc (64 x D) += A B over the kRows rows of a ring tile: A from registers,
+// B the tile as it lies (MN-major).
+template <int D>
+__device__ __forceinline__ void grad_product(float (&acc)[D / 8][4],
+                                             const uint32_t (&a)[kRows / 16]
+                                                                [4],
+                                             uint32_t tile) {
+  const uint64_t desc =
+      wgmma_desc(tile, kRows * kSwizzleRowBytes, kSwizzleAtomBytes);
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk)
+    wgmma_rs<D>(acc, a[kk], desc_advance(desc, kk * 2 * kSwizzleAtomBytes));
+}
+
+// One thread: a ring stage's TMA copies, 64 columns at a time, of two
+// tiles of kRows rows at sequence row `row`.
+template <int D>
+__device__ __forceinline__ void tma_stage(const TileMap& m0,
+                                          const TileMap& m1, uint32_t s0,
+                                          uint32_t s1, int row, int h, int b,
+                                          uint64_t* bar) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+    const uint32_t off = cb * kRows * kSwizzleRowBytes;
+    tma_load_tile(m0, s0 + off, cb * 64, row, h, b, bar);
+    tma_load_tile(m1, s1 + off, cb * 64, row, h, b, bar);
+  }
+}
+
+// ------------------------------------------------------------------- K3
+
+template <int D, bool ROPE, bool MASKED>
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ TileMap map_k,
+    const __grid_constant__ TileMap map_v, BwdArgs a) {
+  constexpr uint32_t kResBytes = kBlockRows * D * 2;
+  constexpr uint32_t kTileBytes = kRows * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (sQ - raw);
+  const uint32_t sDO = sQ + kResBytes, sK = sDO + kResBytes;
+  const uint32_t sV = sK + kStages * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + 2 * kResBytes + 2 * kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+
+  // kConsumers consumer threads, then the producer's warpgroup
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
+  const int q0 = blockIdx.x * kBlockRows;
+  const int n_tiles = a.skv / kRows;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qa[kk], sQ, P, r0, kk * 16, g, t4);
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<24>();
+    // the producer: (K tile, V tile) stages, up to kStages ahead
+    if (tid == kConsumers) {
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        tma_stage<D>(map_k, map_v, sK + st * kTileBytes,
+                     sV + st * kTileBytes, t * kRows, hkv, b, &full[st]);
+      }
+    }
+    return;
+  }
 
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;
+  setmaxnreg_inc<240>();
+  // the q tile (rotated, scaled and rounded with rope) and the do tile
+  load_resident<D, ROPE>(a.q + b * a.q_sb + h * a.q_sh, a.q_ss,
+                         a.dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a,
+                         a.scale_log2e, smem, sQ, sDO, tid);
+
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
   const long long bh = static_cast<long long>(b) * a.hq + h;
-  const float lse0 = a.lse[bh * a.sq + row_a], lse1 = a.lse[bh * a.sq + row_b];
+  const float lse0 = a.lse[bh * a.sq + row_a];
+  const float lse1 = a.lse[bh * a.sq + row_b];
   const float dl0 = a.delta[bh * a.sq + row_a];
   const float dl1 = a.delta[bh * a.sq + row_b];
   const unsigned char* mask =
-      a.mask == nullptr ? nullptr : a.mask + b * a.mask_sb;
+      MASKED && a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
+  const uint64_t q_desc =
+      wgmma_desc(sQ + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
+  const uint64_t do_desc =
+      wgmma_desc(sDO + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  float dq[D / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
+  uint32_t ds[kRows / 16][4];
+  zero(dq);
 
-  for (int kv0 = 0; kv0 < a.skv; kv0 += kBK) {
-    __syncthreads();                           // previous tile consumed
-    copy_tile<D, kBK>(kb + kv0 * a.k_ss, a.k_ss, sK, tid);
-    copy_tile<D, kBK>(vb + kv0 * a.v_ss, a.v_ss, sV, tid);
-    __syncthreads();
-
-    // s = q k^T and dp = do v^T, each 16 x 64 per warp
-    float s[kBK / 8][4], dp[kBK / 8][4];
+  // s = q k^T and dp = do v^T for kv tile t, queued and committed
+  auto score_products = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    wgmma_fresh(s);
+    wgmma_fresh(dp);
+    wgmma_fence();
+    score_product<D>(s, q_desc,
+                     wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes));
+    score_product<D>(dp, do_desc,
+                     wgmma_desc(sV + st * kTileBytes, 16, kSwizzleAtomBytes));
+    wgmma_commit();
+  };
+  // dq += bf16(ds) k for kv tile t, queued and committed
+  auto dq_product = [&](int t) {
+    wgmma_pin(dq);
+    wgmma_fence();
+    grad_product<D>(dq, ds, sK + (t % kStages) * kTileBytes);
+    wgmma_commit();
+  };
+  // the scores of kv tile t -> ds = p (dp - delta) scale, in s; then ds
+  // rounded to bf16, the A operand of the dq product
+  auto ds_tile = [&](int t) {
+    if (!ROPE) {
+      // without rope the scale is not folded into q: the TPU's _logits
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+      for (int jj = 0; jj < kRows / 8; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale_log2e;
+    }
+    if (MASKED) {
+      const int kv0 = t * kRows;
+      // a causal tile wholly at or below the warp's first row needs no test
+      const bool diag = a.causal && kv0 + kRows - 1 > row_a - g;
+      if (mask != nullptr || diag) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t da[4];
-      load_a(da, sDO, P, r0, kk * 16, g, t4);
+        for (int jj = 0; jj < kRows / 8; ++jj)
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        const bf16* pk = sK + (j * 8 + g) * P + kk * 16 + t4 * 2;
-        mma_bf16(s[j], qa[kk], ld32(pk), ld32(pk + 8));
-        const bf16* pv = sV + (j * 8 + g) * P + kk * 16 + t4 * 2;
-        mma_bf16(dp[j], da, ld32(pv), ld32(pv + 8));
+          for (int e = 0; e < 4; ++e) {
+            const int col = kv0 + jj * 8 + t4 * 2 + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            const bool keep = (mask == nullptr || mask[col]) &&
+                              (!a.causal || col <= row);
+            if (!keep) s[jj][e] = kNegInf;
+          }
       }
     }
-
-    // p = exp2(s - lse), ds = p (dp - delta) scale, in place of s
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int jj = 0; jj < kRows / 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        float x = ROPE ? s[j][e] : s[j][e] * a.scale_log2e;
-        const bool keep = (mask == nullptr || mask[col]) &&
-                          (!a.causal || col <= row);
-        if (!keep) x = kNegInf;
-        const float p = exp2f(x - (e < 2 ? lse0 : lse1));
-        s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * a.scale;
+        const float p = fast_exp2(s[jj][e] - (e < 2 ? lse0 : lse1));
+        s[jj][e] = p * (dp[jj][e] - (e < 2 ? dl0 : dl1)) * a.scale;
       }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      pack_a(ds[kk], s[2 * kk], s[2 * kk + 1]);
+  };
 
-    // dq += bf16(ds) k
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const bf16* p = sK + (kk * 16 + t4 * 2) * P + dn * 8 + g;
-        mma_bf16(dq[dn], pa, ld_col_pair(p, P), ld_col_pair(p + 8 * P, P));
-      }
-    }
+  // Per kv tile a warpgroup queues the dq product of the tile before and
+  // the score products of this one, then forms ds while the other
+  // warpgroup's products run: named barrier 1 + wg opens warpgroup wg's
+  // turn, and warpgroup 1 opens the first one. The last tile is peeled, so
+  // that no product is queued under a condition.
+  auto turn_wait = [&]() { named_barrier_sync(1 + wg, kConsumers); };
+  auto turn_pass = [&]() { named_barrier_arrive(2 - wg, kConsumers); };
+  if (wg == 1) named_barrier_arrive(1, kConsumers);
+  turn_wait();
+  score_products(0);
+  turn_pass();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  wgmma_pin(dp);
+  ds_tile(0);
+#pragma unroll 1
+  for (int j = 1; j < n_tiles; ++j) {
+    turn_wait();
+    dq_product(j - 1);
+    score_products(j);
+    turn_pass();
+    wgmma_wait<0>();
+    wgmma_pin(dq);
+    wgmma_pin(s);
+    wgmma_pin(dp);
+    wgmma_pin_a(ds);
+    mbar_arrive(&empty[(j - 1) % kStages]);
+    ds_tile(j);
   }
+  dq_product(n_tiles - 1);
+  wgmma_wait<0>();
+  wgmma_pin(dq);
+  wgmma_pin_a(ds);
 
   if (ROPE) counter_rotate<D>(dq, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
   store_rows<D>(a.dq + b * a.dq_sb + h * a.dq_sh, a.dq_ss, dq, row_a, row_b,
@@ -186,155 +375,332 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 
 // ------------------------------------------------------------------- K4
 
+// Rows row_a and row_b of a C-fragment accumulator in f32, into rows of D.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* base,
+                                               const float (*acc)[4],
+                                               int row_a, int row_b, int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t4 * 2;
+    *reinterpret_cast<float2*>(base + row_a * D + col) =
+        make_float2(acc[dn][0], acc[dn][1]);
+    *reinterpret_cast<float2*>(base + row_b * D + col) =
+        make_float2(acc[dn][2], acc[dn][3]);
+  }
+}
+
+// A special register read anew: a value derived from it after a long loop
+// is computed there, and need not stay live across the loop.
+__device__ __forceinline__ int read_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int3 read_ctaid() {
+  int3 v;
+  asm volatile("mov.u32 %0, %%ctaid.x;\nmov.u32 %1, %%ctaid.y;\n"
+               "mov.u32 %2, %%ctaid.z;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z));
+  return v;
+}
+
+// K4's epilogue: dk and dv of the thread's rows, counter-rotated and
+// rounded, or as f32 partial sums of a split, (2, splits, B, Hk, Skv, D).
+// It derives its rows and pointers from the indices read anew: at D = 128
+// the main loop has no register to spare for them.
 template <int D, bool ROPE>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int P = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kBK * P;
-  bf16* sQ = sV + kBK * P;
-  bf16* sDO = sQ + kBQ4 * P;
-  float* sL = reinterpret_cast<float*>(sDO + kBQ4 * P);
-  float* sD = sL + kBQ4;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kBK;
-  const bf16* kb = a.k + b * a.k_sb + hk * a.k_sh;
-  const bf16* vb = a.v + b * a.v_sb + hk * a.v_sh;
-
-  if (ROPE) {
-    for (int r = warp; r < kBK; r += kWarps) {
-      const int row = k0 + r;
-      norm_rope_row<D>(kb + row * a.k_ss, sK + r * P, a.cos + row * a.tab_rs,
-                       a.sin + row * a.tab_rs, nullptr, 0.f, 1.f, lane);
-    }
-  } else {
-    copy_tile<D, kBK>(kb + k0 * a.k_ss, a.k_ss, sK, tid);
+__device__ __forceinline__ void store_dkv(float (&dk)[D / 8][4],
+                                          float (&dv)[D / 8][4],
+                                          const BwdArgs& a) {
+  const int tid = read_tid();
+  const int3 blk = read_ctaid();
+  const int lane = tid % 32, t4 = lane & 3;
+  const int hk = blk.y, b = blk.z / a.splits, split = blk.z % a.splits;
+  const int row_a =
+      blk.x * kBlockRows + (tid / 128) * 64 + (tid % 128) / 32 * 16 +
+      (lane >> 2);
+  const int row_b = row_a + 8;
+  if (a.partial != nullptr) {
+    const long long half =
+        static_cast<long long>(gridDim.z) * gridDim.y * a.skv * D;
+    float* part = a.partial +
+                  ((static_cast<long long>(split) * (gridDim.z / a.splits) +
+                    b) * gridDim.y + hk) * a.skv * D;
+    store_rows_f32<D>(part, dk, row_a, row_b, t4);
+    store_rows_f32<D>(part + half, dv, row_a, row_b, t4);
+    return;
   }
-  copy_tile<D, kBK>(vb + k0 * a.v_ss, a.v_ss, sV, tid);
-
-  const int r0 = warp * 16;
-  const int row_a = k0 + r0 + g, row_b = row_a + 8;   // kv rows
-  const unsigned char* mask =
-      a.mask == nullptr ? nullptr : a.mask + b * a.mask_sb;
-  const bool valid_a = mask == nullptr || mask[row_a];
-  const bool valid_b = mask == nullptr || mask[row_b];
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
-  for (int gi = 0; gi < a.group; ++gi) {
-    const int h = hk * a.group + gi;
-    const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
-    const bf16* dob = a.dout + b * a.do_sb + h * a.do_sh;
-    const long long bh = static_cast<long long>(b) * a.hq + h;
-    for (int q0 = 0; q0 < a.sq; q0 += kBQ4) {
-      __syncthreads();                         // previous tile consumed
-      copy_tile<D, kBQ4>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
-      copy_tile<D, kBQ4>(dob + q0 * a.do_ss, a.do_ss, sDO, tid);
-      if (tid < kBQ4) {
-        sL[tid] = a.lse[bh * a.sq + q0 + tid];
-        sD[tid] = a.delta[bh * a.sq + q0 + tid];
-      }
-      __syncthreads();
-
-      // s^T = k q^T and dp^T = v do^T, each 16 kv rows x 32 q cols
-      float s[kBQ4 / 8][4], dp[kBQ4 / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBQ4 / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, sK, P, r0, kk * 16, g, t4);
-        load_a(va, sV, P, r0, kk * 16, g, t4);
-#pragma unroll
-        for (int j = 0; j < kBQ4 / 8; ++j) {
-          const bf16* pq = sQ + (j * 8 + g) * P + kk * 16 + t4 * 2;
-          mma_bf16(s[j], ka, ld32(pq), ld32(pq + 8));
-          const bf16* pd = sDO + (j * 8 + g) * P + kk * 16 + t4 * 2;
-          mma_bf16(dp[j], va, ld32(pd), ld32(pd + 8));
-        }
-      }
-
-      // p^T = exp2(s^T scale log2e - lse); s keeps p, dp becomes ds
-#pragma unroll
-      for (int j = 0; j < kBQ4 / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + t4 * 2 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          float x = s[j][e] * a.scale_log2e;
-          const bool keep = (e < 2 ? valid_a : valid_b) &&
-                            (!a.causal || row <= q0 + c);
-          if (!keep) x = kNegInf;
-          const float p = exp2f(x - sL[c]);
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - sD[c]) * a.scale;
-        }
-
-      // dv += bf16(p)^T do, dk += bf16(ds)^T q (k over the 32 q rows)
-#pragma unroll
-      for (int kk = 0; kk < kBQ4 / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-        pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const bf16* pd = sDO + (kk * 16 + t4 * 2) * P + dn * 8 + g;
-          mma_bf16(dv[dn], pa, ld_col_pair(pd, P), ld_col_pair(pd + 8 * P, P));
-          const bf16* pq = sQ + (kk * 16 + t4 * 2) * P + dn * 8 + g;
-          mma_bf16(dk[dn], sa, ld_col_pair(pq, P), ld_col_pair(pq + 8 * P, P));
-        }
-      }
-    }
-  }
-
+  // dv first: its registers are free while dk is counter-rotated
+  store_rows<D>(a.dv + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, dv, row_a, row_b,
+                t4);
   if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
   store_rows<D>(a.dk + b * a.dk_sb + hk * a.dk_sh, a.dk_ss, dk, row_a, row_b,
                 t4);
-  store_rows<D>(a.dv + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, dv, row_a, row_b,
-                t4);
 }
+
+template <int D, bool ROPE, bool MASKED>
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
+    const __grid_constant__ TileMap map_q,
+    const __grid_constant__ TileMap map_do, BwdArgs a) {
+  constexpr uint32_t kResBytes = kBlockRows * D * 2;
+  constexpr uint32_t kTileBytes = kRows * D * 2;
+  constexpr uint32_t kVecBytes = kRows * 4;     // lse or delta of a stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (sK - raw);
+  const uint32_t sV = sK + kResBytes, sQ = sV + kResBytes;
+  const uint32_t sDO = sQ + kStages * kTileBytes;
+  const uint32_t sL = sDO + kStages * kTileBytes;
+  const uint32_t sDl = sL + kStages * kVecBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + (sDl - sK) + kStages * kVecBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int hk = blockIdx.y, b = blockIdx.z / a.splits;
+  const int split = blockIdx.z % a.splits;
+  const int k0 = blockIdx.x * kBlockRows;
+  // this block's share of the (head of the group, q tile) stages
+  const int nq = a.sq / kRows, first = split * a.per_split;
+  const int n = min(a.group * nq - first, a.per_split);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<24>();
+    // the producer: (q tile, do tile, lse, delta) stages
+    if (tid == kConsumers) {
+#pragma unroll 1
+      for (int t = 0; t < n; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes + 2 * kVecBytes);
+        const int idx = first + t, h = hk * a.group + idx / nq;
+        const int q_row = (idx % nq) * kRows;
+        tma_stage<D>(map_q, map_do, sQ + st * kTileBytes,
+                     sDO + st * kTileBytes, q_row, h, b, &full[st]);
+        const long long r = (static_cast<long long>(b) * a.hq + h) * a.sq +
+                            q_row;
+        bulk_load(sL + st * kVecBytes, a.lse + r, kVecBytes, &full[st]);
+        bulk_load(sDl + st * kVecBytes, a.delta + r, kVecBytes, &full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  // the k tile (rotated and rounded, no scale, with rope) and the v tile
+  load_resident<D, ROPE>(a.k + b * a.k_sb + hk * a.k_sh, a.k_ss,
+                         a.v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a, 1.f,
+                         smem, sK, sV, tid);
+
+  // q column c of a stage is masked for kv row r where c < key(r) - the
+  // stage's first q row: every column when the kv mask drops r, the
+  // columns before r under the causal mask, none otherwise
+  int key_a = 0, key_b = 0;
+  if (MASKED) {
+    const int row_a = k0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+    const unsigned char* mask =
+        a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
+    constexpr int kAll = 1 << 30, kNone = -(1 << 30);
+    key_a = mask != nullptr && !mask[row_a] ? kAll : a.causal ? row_a : kNone;
+    key_b = mask != nullptr && !mask[row_b] ? kAll : a.causal ? row_b : kNone;
+  }
+  // The descriptor of this warpgroup's 64 rows of a resident tile, made
+  // anew in every stage from the thread index read anew: descriptors kept
+  // across the loop are kept with all their k steps, and at D = 128 the
+  // loop has no registers for them (ptxas spilled them).
+  auto resident_desc = [&](uint32_t tile) {
+    return wgmma_desc(tile + (read_tid() / 128) * 64 * kSwizzleRowBytes, 16,
+                      kSwizzleAtomBytes);
+  };
+
+  float dk[D / 8][4], dv[D / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
+  uint32_t pa[kRows / 16][4], da[kRows / 16][4];
+  zero(dk);
+  zero(dv);
+
+  // s^T = k q^T and dp^T = v do^T for stage t, queued and committed
+  auto score_products = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    wgmma_fresh(s);
+    wgmma_fresh(dp);
+    wgmma_fence();
+    score_product<D>(s, resident_desc(sK),
+                     wgmma_desc(sQ + st * kTileBytes, 16, kSwizzleAtomBytes));
+    score_product<D>(dp, resident_desc(sV),
+                     wgmma_desc(sDO + st * kTileBytes, 16,
+                                kSwizzleAtomBytes));
+    wgmma_commit();
+  };
+  // dv += bf16(p)^T do and dk += bf16(ds)^T q for stage t
+  auto kv_products = [&](int t) {
+    const int st = t % kStages;
+    wgmma_pin(dk);
+    wgmma_pin(dv);
+    wgmma_fence();
+    grad_product<D>(dv, pa, sDO + st * kTileBytes);
+    grad_product<D>(dk, da, sQ + st * kTileBytes);
+    wgmma_commit();
+  };
+  // the scores of stage t -> p^T = exp2(s^T scale log2(e) - lse[col]) and
+  // ds^T = p^T (dp^T - delta[col]) scale, 16 columns at a time, each block
+  // rounded to bf16 (the A operands of the dv and dk products) as soon as
+  // it is formed
+  auto p_ds_tile = [&](int t) {
+    const int st = t % kStages;
+    const uint32_t lse = sL + st * kVecBytes, delta = sDl + st * kVecBytes;
+    const int q_row = MASKED ? ((first + t) % nq) * kRows : 0;
+    const int lim_a = key_a - q_row, lim_b = key_b - q_row;
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+      for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
+        const int c = jj * 8 + t4 * 2;
+        const float2 l = ld_shared_f2(lse + c * 4);
+        const float2 dl = ld_shared_f2(delta + c * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[jj][e] * a.scale_log2e;
+          if (MASKED && c + (e & 1) < (e < 2 ? lim_a : lim_b)) x = kNegInf;
+          const float p = fast_exp2(x - ((e & 1) ? l.y : l.x));
+          s[jj][e] = p;
+          dp[jj][e] = p * (dp[jj][e] - ((e & 1) ? dl.y : dl.x)) * a.scale;
+        }
+      }
+      pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      pack_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+    }
+  };
+
+  // Per stage, in its turn, a warpgroup queues the dv and dk products of
+  // the stage before and, once they are done (their A operands and the
+  // stage free), the score products of this one: dk, dv, s and dp with p
+  // and ds beside them do not fit the 240 registers at D = 128 while both
+  // groups of products are in flight (ptxas spilled and serialized the
+  // pipeline). The tensor cores then take a warpgroup's four products in
+  // a row, and its p and ds run under the other's. The last stage is
+  // peeled, as in K3.
+  auto turn_wait = [&]() { named_barrier_sync(1 + wg, kConsumers); };
+  auto turn_pass = [&]() { named_barrier_arrive(2 - wg, kConsumers); };
+  if (wg == 1) named_barrier_arrive(1, kConsumers);
+  turn_wait();
+  score_products(0);
+  turn_pass();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  wgmma_pin(dp);
+  p_ds_tile(0);
+#pragma unroll 1
+  for (int t = 1; t < n; ++t) {
+    turn_wait();
+    kv_products(t - 1);
+    wgmma_wait<0>();
+    wgmma_pin(dk);
+    wgmma_pin(dv);
+    wgmma_pin_a(pa);
+    wgmma_pin_a(da);
+    mbar_arrive(&empty[(t - 1) % kStages]);
+    score_products(t);
+    turn_pass();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    wgmma_pin(dp);
+    p_ds_tile(t);
+  }
+  kv_products(n - 1);
+  wgmma_wait<0>();
+  wgmma_pin(dk);
+  wgmma_pin(dv);
+  wgmma_pin_a(pa);
+  wgmma_pin_a(da);
+
+  store_dkv<D, ROPE>(dk, dv, a);
+}
+
+// K4's splits summed in split order, dk counter-rotated with rope, both
+// rounded to bf16: one thread per row and column pair (j, j + D/2).
+template <int D>
+__global__ void __launch_bounds__(256) dkv_reduce_kernel(BwdArgs a, int hk,
+                                                         long long rows) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= rows * (D / 2)) return;
+  const int j = static_cast<int>(i % (D / 2));
+  const long long r = i / (D / 2);            // ((b, h), s) over B Hk Skv
+  const int s = static_cast<int>(r % a.skv);
+  const int h = static_cast<int>((r / a.skv) % hk);
+  const long long b = r / a.skv / hk;
+  float k1 = 0.f, k2 = 0.f, v1 = 0.f, v2 = 0.f;
+  for (int sp = 0; sp < a.splits; ++sp) {
+    const float* pk = a.partial + (sp * rows + r) * D;
+    const float* pv = pk + a.splits * rows * D;
+    k1 += pk[j];
+    k2 += pk[j + D / 2];
+    v1 += pv[j];
+    v2 += pv[j + D / 2];
+  }
+  if (a.cos != nullptr) {
+    const float c = a.cos[s * a.tab_rs + j], sn = a.sin[s * a.tab_rs + j];
+    const float g1 = k1;
+    k1 = g1 * c + k2 * sn;
+    k2 = k2 * c - g1 * sn;
+  }
+  bf16* dk = a.dk + b * a.dk_sb + h * a.dk_sh + s * a.dk_ss;
+  bf16* dv = a.dv + b * a.dv_sb + h * a.dv_sh + s * a.dv_ss;
+  dk[j] = __float2bfloat16_rn(k1);
+  dk[j + D / 2] = __float2bfloat16_rn(k2);
+  dv[j] = __float2bfloat16_rn(v1);
+  dv[j + D / 2] = __float2bfloat16_rn(v2);
+}
+
+// ------------------------------------------------------------- launches
 
 template <typename Kernel>
 cudaError_t launch_kernel(Kernel kernel, dim3 grid, int smem,
+                          const TileMap& m0, const TileMap& m1,
                           const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kBlockThreads, smem, stream>>>(m0, m1, a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const BwdArgs& a, int batch, bool rope,
-                      cudaStream_t stream) {
-  const int smem = 2 * (kBQ + kBK) * (D + kPad) * static_cast<int>(sizeof(bf16));
-  const dim3 grid(a.sq / kBQ, a.hq, batch);
-  return rope ? launch_kernel(flash_bwd_dq_kernel<D, true>, grid, smem, a,
-                              stream)
-              : launch_kernel(flash_bwd_dq_kernel<D, false>, grid, smem, a,
-                              stream);
-}
-
-template <int D>
-cudaError_t launch_dkv(const BwdArgs& a, int batch, bool rope,
-                       cudaStream_t stream) {
-  const int smem =
-      2 * (kBK + kBQ4) * (D + kPad) * static_cast<int>(sizeof(bf16)) +
-      2 * kBQ4 * static_cast<int>(sizeof(float));
-  const dim3 grid(a.skv / kBK, a.hq / a.group, batch);
-  return rope ? launch_kernel(flash_bwd_dkv_kernel<D, true>, grid, smem, a,
-                              stream)
-              : launch_kernel(flash_bwd_dkv_kernel<D, false>, grid, smem, a,
-                              stream);
+// K3 (dq) or K4 (dk, dv) in the instance that the rope and the masks ask
+// for.
+template <int D, bool DQ>
+cudaError_t launch(const TileMap& m0, const TileMap& m1, const BwdArgs& a,
+                   dim3 grid, cudaStream_t stream) {
+  const bool rope = a.cos != nullptr;
+  const bool masked = a.mask != nullptr || a.causal;
+  if constexpr (DQ) {
+    const int smem = smem_bytes<D>(0);
+    auto k = rope ? (masked ? &flash_bwd_dq_kernel<D, true, true>
+                            : &flash_bwd_dq_kernel<D, true, false>)
+                  : (masked ? &flash_bwd_dq_kernel<D, false, true>
+                            : &flash_bwd_dq_kernel<D, false, false>);
+    return launch_kernel(k, grid, smem, m0, m1, a, stream);
+  }
+  const int smem = smem_bytes<D>(2 * kRows * 4);
+  auto k = rope ? (masked ? &flash_bwd_dkv_kernel<D, true, true>
+                          : &flash_bwd_dkv_kernel<D, true, false>)
+                : (masked ? &flash_bwd_dkv_kernel<D, false, true>
+                          : &flash_bwd_dkv_kernel<D, false, false>);
+  return launch_kernel(k, grid, smem, m0, m1, a, stream);
 }
 
 // Fill the arguments both entry points share; false on shapes the kernels
@@ -345,9 +711,13 @@ bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
                long long tab_rs, const unsigned char* mask, long long mask_sb,
                int hq, int hk, int sq, int skv, int d, int causal,
                float scale, float scale_log2e) {
-  if ((d != 64 && d != 128) || sq % kBQ || skv % kBK || hk <= 0 ||
-      hq % hk || (cos != nullptr && sq != skv))
+  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % kBlockRows ||
+      skv % kBlockRows || hk <= 0 || hq % hk ||
+      (cos != nullptr && sq != skv) ||
+      reinterpret_cast<uintptr_t>(lse) % 16 ||
+      reinterpret_cast<uintptr_t>(delta) % 16)
     return false;
+  a = BwdArgs{};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -368,9 +738,32 @@ bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
   a.sq = sq;
   a.skv = skv;
   a.causal = causal;
+  a.splits = 1;
+  a.per_split = a.group * (sq / kRows);
   a.scale = scale;
   a.scale_log2e = scale_log2e;
   return true;
+}
+
+// x (B, H, S, D) at the strides in a -> rotated (no norm, no scale) into
+// the contiguous bf16 scratch, which then stands for x.
+cudaError_t rotate_into(const bf16*& x, long long& sb, long long& sh,
+                        long long& ss, void* scratch, int batch, int heads,
+                        int seq, int d, const BwdArgs& a,
+                        cudaStream_t stream) {
+  bf16* out = static_cast<bf16*>(scratch);
+  cudaError_t err =
+      d == 64 ? launch_rope_rows<64>(x, out, sb, sh, ss, batch, heads, seq,
+                                     a.cos, a.sin, a.tab_rs, nullptr, 0, 0.f,
+                                     1.f, stream)
+              : launch_rope_rows<128>(x, out, sb, sh, ss, batch, heads, seq,
+                                      a.cos, a.sin, a.tab_rs, nullptr, 0,
+                                      0.f, 1.f, stream);
+  x = out;
+  ss = d;
+  sh = static_cast<long long>(seq) * d;
+  sb = sh * heads;
+  return err;
 }
 
 }  // namespace
@@ -378,9 +771,9 @@ bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
 // Shared arguments of both entry points. q, do: (B, Hq, Sq, D) bf16; k, v:
 // (B, Hk, Skv, D) bf16, with the strides in `st` (elements): q, k, v, do,
 // then the outputs', each (b, h, s); last dims contiguous. lse, delta:
-// (B, Hq, Sq) f32 contiguous. cos/sin: (S, >= D/2) f32 rows at tab_rs, or
-// null (no rope). mask: (B, Skv) bytes at mask_sb, or null. Each returns
-// the cudaError_t of its launches.
+// (B, Hq, Sq) f32 contiguous, 16-byte aligned. cos/sin: (S, >= D/2) f32
+// rows at tab_rs, or null (no rope). mask: (B, Skv) bytes at mask_sb, or
+// null. Each returns the cudaError_t of its launches.
 
 // K3: dq (B, Hq, Sq, D) bf16 at st[12..14]. With rope, k_scratch holds
 // B*Hk*Skv*D bf16 for the rotated K.
@@ -399,63 +792,76 @@ extern "C" int x2i_flash_bwd_dq(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   a.dq = static_cast<bf16*>(dq);
   a.dq_sb = st[12]; a.dq_sh = st[13]; a.dq_ss = st[14];
-  const bool rope = cos != nullptr;
-  if (rope) {
+  cudaError_t err = cudaSuccess;
+  if (cos != nullptr)
     // K rotated once per launch, no scale (K3 folds it into the q tile)
-    bf16* ks = static_cast<bf16*>(k_scratch);
-    cudaError_t err =
-        d == 64 ? launch_rope_rows<64>(a.k, ks, a.k_sb, a.k_sh, a.k_ss, batch,
-                                       hk, skv, cos, sin, tab_rs, nullptr, 0,
-                                       0.f, 1.f, stream)
-                : launch_rope_rows<128>(a.k, ks, a.k_sb, a.k_sh, a.k_ss,
-                                        batch, hk, skv, cos, sin, tab_rs,
-                                        nullptr, 0, 0.f, 1.f, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    a.k = ks;
-    a.k_ss = d;
-    a.k_sh = static_cast<long long>(skv) * d;
-    a.k_sb = a.k_sh * hk;
-  }
-  return static_cast<int>(d == 64 ? launch_dq<64>(a, batch, rope, stream)
-                                  : launch_dq<128>(a, batch, rope, stream));
+    err = rotate_into(a.k, a.k_sb, a.k_sh, a.k_ss, k_scratch, batch, hk, skv,
+                      d, a, stream);
+  TileMap mk, mv;
+  if (err == cudaSuccess)
+    err = make_tile_map(&mk, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
+                        kRows);
+  if (err == cudaSuccess)
+    err = make_tile_map(&mv, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
+                        kRows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(sq / kBlockRows, hq, batch);
+  return static_cast<int>(d == 64 ? launch<64, true>(mk, mv, a, grid, stream)
+                                  : launch<128, true>(mk, mv, a, grid,
+                                                      stream));
 }
 
 // K4: dk, dv (B, Hk, Skv, D) bf16 at st[12..14] and st[15..17]. With rope,
-// q_scratch holds B*Hq*Sq*D bf16 for the rotated Q.
+// q_scratch holds B*Hq*Sq*D bf16 for the rotated Q. `splits` > 1 splits
+// each block's (group x Sq/64) stages into that many shares, none empty;
+// `partial` then holds 2*splits*B*Hk*Skv*D f32 for their sums.
 extern "C" int x2i_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    void* q_scratch, const long long* st, const float* cos, const float* sin,
-    long long tab_rs, const unsigned char* mask, long long mask_sb,
-    int batch, int hq, int hk, int sq, int skv, int d, int causal,
-    float scale, float scale_log2e, void* stream_ptr) {
+    void* q_scratch, float* partial, int splits, const long long* st,
+    const float* cos, const float* sin, long long tab_rs,
+    const unsigned char* mask, long long mask_sb, int batch, int hq, int hk,
+    int sq, int skv, int d, int causal, float scale, float scale_log2e,
+    void* stream_ptr) {
   BwdArgs a;
   if (!fill_args(a, q, k, v, dout, lse, delta, st, cos, sin, tab_rs, mask,
                  mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
-      (cos != nullptr && q_scratch == nullptr))
+      (cos != nullptr && q_scratch == nullptr) || splits < 1 ||
+      (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = a.per_split;
+  a.splits = splits;
+  a.per_split = (stages + splits - 1) / splits;
+  if ((splits - 1) * a.per_split >= stages)        // an empty split
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.partial = splits > 1 ? partial : nullptr;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dk_sb = st[12]; a.dk_sh = st[13]; a.dk_ss = st[14];
   a.dv_sb = st[15]; a.dv_sh = st[16]; a.dv_ss = st[17];
-  const bool rope = cos != nullptr;
-  if (rope) {
+  cudaError_t err = cudaSuccess;
+  if (cos != nullptr)
     // Q rotated once per launch, no scale (K4 scales the f32 scores)
-    bf16* qs = static_cast<bf16*>(q_scratch);
-    cudaError_t err =
-        d == 64 ? launch_rope_rows<64>(a.q, qs, a.q_sb, a.q_sh, a.q_ss, batch,
-                                       hq, sq, cos, sin, tab_rs, nullptr, 0,
-                                       0.f, 1.f, stream)
-                : launch_rope_rows<128>(a.q, qs, a.q_sb, a.q_sh, a.q_ss,
-                                        batch, hq, sq, cos, sin, tab_rs,
-                                        nullptr, 0, 0.f, 1.f, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    a.q = qs;
-    a.q_ss = d;
-    a.q_sh = static_cast<long long>(sq) * d;
-    a.q_sb = a.q_sh * hq;
-  }
-  return static_cast<int>(d == 64 ? launch_dkv<64>(a, batch, rope, stream)
-                                  : launch_dkv<128>(a, batch, rope, stream));
+    err = rotate_into(a.q, a.q_sb, a.q_sh, a.q_ss, q_scratch, batch, hq, sq,
+                      d, a, stream);
+  TileMap mq, mdo;
+  if (err == cudaSuccess)
+    err = make_tile_map(&mq, a.q, a.q_sb, a.q_sh, a.q_ss, batch, hq, sq, d,
+                        kRows);
+  if (err == cudaSuccess)
+    err = make_tile_map(&mdo, a.dout, a.do_sb, a.do_sh, a.do_ss, batch, hq,
+                        sq, d, kRows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(skv / kBlockRows, hk, batch * splits);
+  err = d == 64 ? launch<64, false>(mq, mdo, a, grid, stream)
+                : launch<128, false>(mq, mdo, a, grid, stream);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(batch) * hk * skv;
+  const unsigned blocks = static_cast<unsigned>((rows * (d / 2) + 255) / 256);
+  if (d == 64)
+    dkv_reduce_kernel<64><<<blocks, 256, 0, stream>>>(a, hk, rows);
+  else
+    dkv_reduce_kernel<128><<<blocks, 256, 0, stream>>>(a, hk, rows);
+  return static_cast<int>(cudaGetLastError());
 }

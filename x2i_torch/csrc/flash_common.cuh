@@ -1,9 +1,10 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu,
 // flash_chunked.cu, flash_bwd.cu):
-// the bf16 mma.sync m16n8k16 product with f32 accumulators, fragment
-// loads from padded shared-memory tiles, tile copies, and the row-wise
-// qk RMSNorm + half-layout rotation with its once-per-launch pass over a
-// whole (B, H, S, D) tensor into a contiguous bf16 scratch buffer.
+// the bf16 mma.sync m16n8k16 product with f32 accumulators (K2), fragment
+// loads from padded shared-memory tiles, exp2 on the special-function unit,
+// the bf16 rounding of accumulator fragments and their stores, and the
+// row-wise qk RMSNorm + half-layout rotation with its once-per-launch pass
+// over a whole (B, H, S, D) tensor into a contiguous bf16 scratch buffer.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t4):
 //   A (16 x 16, row-major): a0 = A[g][2t4..], a1 = A[g+8][2t4..],
@@ -21,12 +22,21 @@ namespace {
 
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 4 * 32;
 constexpr int kPad = 8;        // bf16 elements of row padding in smem
 constexpr float kNegInf = -1e30f;
 
 typedef __nv_bfloat16 bf16;
+
+// 2^x on the special-function unit. Where x <= 0 (p = exp2(s - m) against
+// a row maximum or a row logsumexp) or is clamped (the pipelined forward's
+// +-100) it is exp2f's value, except that a result below 2^-126 is flushed
+// to 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -35,13 +45,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from one column of a row-major tile, rows r and r+1.
-__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p, int pitch) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + pitch);
-  return lo | (hi << 16);
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -157,18 +160,6 @@ cudaError_t launch_rope_rows(const bf16* x, bf16* out, long long x_sb,
       x, out, x_sb, x_sh, x_ss, heads, seq, rows, cos, sin, tab_rs, w, w_rs,
       eps, post);
   return cudaGetLastError();
-}
-
-// Copy ROWS rows of D bf16 (at `stride` elements) into padded smem rows.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_tile(const bf16* src, long long stride,
-                                          bf16* dst, int tid) {
-  constexpr int kChunks = D / 8;              // 16-byte chunks per row
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + r * stride + cc * 8);
-  }
 }
 
 // The transpose of the half-layout rotation, applied in place to the

@@ -119,26 +119,6 @@ constexpr int smem_bytes() {
          kSwizzleAtomBytes;
 }
 
-// 2^x on the special-function unit. For the x met here it is exp2f's value:
-// the pipelined body clamps x to +-100, and in the exact body x <= 0,
-// where a result below 2^-126 is flushed to 0 beside a row sum >= 1.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 8][4],
-                                           const uint32_t (&p)[4],
-                                           uint64_t v_desc) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, p, v_desc);
-  } else {
-    wgmma_rs_n64(o, p, v_desc);
-  }
-}
-
 template <int D, int WGS, bool ROPE, int BODY>
 __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     const __grid_constant__ TileMap map_k,
@@ -292,8 +272,7 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      pv_product<D>(o, p[kk],
-                    desc_advance(v_desc, kk * 2 * kSwizzleAtomBytes));
+      wgmma_rs<D>(o, p[kk], desc_advance(v_desc, kk * 2 * kSwizzleAtomBytes));
     wgmma_commit();
   };
 

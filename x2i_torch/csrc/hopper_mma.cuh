@@ -2,7 +2,8 @@
 // matrix product wgmma.mma_async (bf16 in, f32 accumulate) with its
 // shared-memory matrix descriptors, the 128-byte swizzle those descriptors
 // name, TMA tile loads through tensor maps over strided (B, H, S, D)
-// tensors, cp.async copies into swizzled tiles, mbarrier completion, named
+// tensors and bulk copies of contiguous rows, cp.async copies into
+// swizzled tiles, mbarrier completion, named
 // barriers and setmaxnreg for a producer / consumer split.
 //
 // Tiles. A shared-memory tile of ROWS x COLS bf16 is stored as COLS / 64
@@ -106,6 +107,18 @@ __device__ __forceinline__ void wgmma_pin(float (&d)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
+// Declares an accumulator's earlier values dead before a product that
+// overwrites it (scale_d = 0 on its first k step): unlike wgmma_pin, it
+// keeps no value alive from before, so that the registers are free while
+// other products are in flight. It emits no instruction.
+template <int N>
+__device__ __forceinline__ void wgmma_fresh(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "=f"(d[j][e])::"memory");
+}
+
 // Keeps a register A operand alive until its product has been awaited.
 template <int N>
 __device__ __forceinline__ void wgmma_pin_a(uint32_t (&a)[N][4]) {
@@ -122,6 +135,31 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---------------------------------------------------------------- wgmma
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B^T (B 64 x 16, shared,
+// K-major); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) B^T (B 128 x 16, shared,
 // K-major); scale_d = 0 overwrites d.
@@ -224,7 +262,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x N, f32) += A (registers) B (16 x N, shared, MN-major), for the
+// output widths N = 64 and 128 of a head dim.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "head dim");
+  if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
+  }
+}
+
 // ---------------------------------------------------------------- copies
+
+// Two floats at shared address `addr` (8-byte aligned).
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -250,6 +312,11 @@ __device__ __forceinline__ void cp_async_tile(const __nv_bfloat16* src,
   for (int i = 0; i < ROWS / kRowsPerPass; ++i)
     cp_async_16(dst + i * kRowsPerPass * kSwizzleRowBytes,
                 p + i * kRowsPerPass * stride);
+}
+
+// Wait until every cp.async this thread has started has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ registers
@@ -336,6 +403,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 }
 
 // ------------------------------------------------------------------- TMA
+
+// One thread: copy `bytes` (a multiple of 16) of contiguous global memory at
+// `src` to shared address `dst`, both 16-byte aligned; the bytes complete
+// on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // A tensor map over a (B, H, S, D) bf16 tensor with any strides (the last
 // dim contiguous), for tiles of `box_rows` sequence rows x 64 columns

@@ -8,8 +8,10 @@ library keeps the launch counts of its kernels, which its wrappers raise
 by one per launch.
 
 ``ptxas_report`` reads what ``ptxas -v`` said of a build: each kernel's
-registers and spills, and whether its ``wgmma`` pipeline was serialized.
-``refuse_grad`` is the guard of every kernel wrapper without a backward.
+registers and spills, and whether its ``wgmma`` pipeline was serialized;
+``build_faults`` lists what in it would leave a ``wgmma`` kernel far below
+the tensor cores' rate with no other sign. ``refuse_grad`` is the guard of
+every kernel wrapper without a backward.
 """
 
 from __future__ import annotations
@@ -38,13 +40,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 class CudaLibrary:
     """One source file's library (built once per process) and its launch
-    counts. ``bind(lib)`` sets the ctypes signatures of its C functions."""
+    counts. ``bind(lib)`` sets the ctypes signatures of its C functions.
+    ``wgmma_kernels`` names the source's kernels that are built on
+    ``wgmma``, whose build ``build_faults`` checks."""
 
     def __init__(self, source: str, stem: str, kernels: Sequence[str],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 wgmma_kernels: Sequence[str] = ()):
         self.src = CSRC / source
         self.stem = stem
         self.launches = {name: 0 for name in kernels}
+        self.wgmma_kernels = tuple(wgmma_kernels)
         self.build_log = ""
         self._bind = bind
         self._lib = None
@@ -124,6 +130,28 @@ def ptxas_report(build_log: str) -> dict:
             elif m := _REGS.search(line):
                 current["registers"] = int(m.group(1))
     return report
+
+
+def build_faults(build_log: str, wgmma_kernels: Sequence[str]) -> list:
+    """What in a library's ptxas log leaves its ``wgmma`` kernels right
+    but several times slower, with no other sign: spills in any kernel, a
+    serialized ``wgmma`` pipeline, an ignored ``setmaxnreg`` (its consumers
+    would keep a third of the register file and spill), and a log that
+    names no kernel of ``wgmma_kernels`` or gives a kernel no register
+    count (a report that cannot be read). -> one line per fault; none for
+    a clean build."""
+    report = ptxas_report(build_log)
+    faults = [f"{name}: {r['spill_bytes']} bytes of spills"
+              for name, r in report.items() if r["spill_bytes"]]
+    faults += [f"{name}: ptxas serialized its wgmma pipeline"
+               for name, r in report.items() if r["wgmma_serialized"]]
+    faults += [f"{name}: no register count" for name, r in report.items()
+               if r["registers"] is None]
+    if "'setmaxnreg' ignored" in build_log:
+        faults.append("ptxas ignored setmaxnreg")
+    faults += [f"the log names no kernel {kernel}" for kernel in wgmma_kernels
+               if not any(kernel in name for name in report)]
+    return faults
 
 
 def refuse_grad(kernel: str, *tensors):

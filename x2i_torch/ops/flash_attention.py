@@ -348,7 +348,7 @@ def _bind_bwd(lib):
         p, p, p, p, p, p, p, p, p, p, p, ll, p, ll,
         i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_bwd_dkv.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, p, p, ll, p, ll,
+        p, p, p, p, p, p, p, p, p, p, i, p, p, p, ll, p, ll,
         i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_bwd_dq.restype = ctypes.c_int
     lib.x2i_flash_bwd_dkv.restype = ctypes.c_int
@@ -362,13 +362,16 @@ def _bind_bwd(lib):
 # that writes the lse (the exact body, with or without rope)
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
-                      "flash_fwd_lse"), _bind)
+                      "flash_fwd_lse"), _bind,
+                     wgmma_kernels=("flash_fwd_kernel",))
 # K2, the chunked forward above MAX_KV_SEQ kv tokens
 KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
                              ("flash_chunked",), _bind_chunked)
 # the backward library: K3 and K4
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
-                         ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd)
+                         ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd,
+                         wgmma_kernels=("flash_bwd_dq_kernel",
+                                        "flash_bwd_dkv_kernel"))
 
 
 def _check(name, t, ndim):
@@ -523,8 +526,14 @@ def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
 
 def _bwd_args(q, k, v, do, lse, delta, kv_mask, rope):
     b, hq, hk, sq, skv, d = _shapes(q, k, v, (("do", do),))
+    if sq % 128 or skv % 128:
+        raise ValueError(f"flash kernel: unsupported shapes: K3 and K4 take "
+                         f"Sq and Skv in multiples of 128, got {sq} and "
+                         f"{skv}")
     for name, t in (("lse", lse), ("delta", delta)):
         _rows_f32(name, t, (b, hq, sq), q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash kernel: {name} must be 16-byte aligned")
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
     return (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs)
@@ -551,21 +560,41 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     return dq
 
 
+def dkv_splits(blocks: int, stages: int, sms: int) -> int:
+    """How many shares K4 splits each block's ``stages`` (GQA group x
+    64-row q tiles) into: 1 where its ``blocks`` (128-row kv tiles x kv
+    heads x batch) fill the card's ``sms``, else enough for about one block
+    per SM, each share non-empty."""
+    if blocks >= sms:
+        return 1
+    per = -(-stages // min(stages, -(-sms // blocks)))
+    return -(-stages // per)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs) = \
         _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
     dk, dv = _out_bhsd(b, hk, skv, d, k), _out_bhsd(b, hk, skv, d, v)
     scratch = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
                if rope is not None else None)
+    splits = dkv_splits(skv // 128 * hk * b, hq // hk * sq // 64,
+                        _sm_count(q.device))
+    # a split's f32 partial dk and dv, summed in split order by the library
+    partial = (torch.empty((2, splits, b, hk, skv, d), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3])
     err = KERNEL_BWD.lib().x2i_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(mask),
-        mask_sb, b, hq, hk, sq, skv, d, int(causal), scale, scale * LOG2_E,
-        _stream(q))
+        _ptr(scratch), _ptr(partial), splits, strides, _ptr(cos), _ptr(sin),
+        tab_rs, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal),
+        scale, scale * LOG2_E, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash dk/dv kernel launch failed: cudaError_t "
                            f"{err}")
@@ -690,11 +719,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Up to ``MAX_KV_SEQ`` kv tokens the norm and the rotation run inside
     K1; that route is forward-only with qk_norm, as in JAX, and raises
-    when autograd records. Above ``MAX_KV_SEQ`` the forward is K2: the
-    norm runs first (``rms_norm``, rounded to the input dtype), then the
-    rotation (``rope_bhsd``, rounded again), both outside the kernel and
-    both differentiable, as JAX's ``flash_attention`` and ``_fwd_impl``
-    order them.
+    when autograd records. Above ``MAX_KV_SEQ`` the forward is K2, and
+    when autograd records above ``ROPE_MAX_KV`` it is ``_FlashAttention``
+    with the rope outside: on both routes the norm runs first
+    (``rms_norm``, rounded to the input dtype), then the rotation
+    (``rope_bhsd``, rounded again), both outside the kernels and both
+    differentiable, as JAX's ``flash_attention`` and ``_fwd_impl`` order
+    them.
 
     Without autograd recording, a CUDA tensor launches the forward kernel
     (which raises on what it does not take) and a CPU tensor takes the
@@ -702,20 +733,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``_FlashAttention`` (the same routing for each of its kernels)."""
     scale = _default_scale(q, scale)
     chunked = k.shape[2] > MAX_KV_SEQ
-    if chunked and qk_norm is not None:
+    norm_scales = () if qk_norm is None else qk_norm[:2]
+    recording = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, *norm_scales))
+    # the routes that rotate outside the kernels normalize outside too
+    rope_outside = chunked or (recording and k.shape[2] > ROPE_MAX_KV)
+    if rope_outside and qk_norm is not None:
         if rope is None:
             raise ValueError("flash kernel: qk_norm rides the rope path")
         qw, kw, eps = qk_norm
         q, k, qk_norm = rms_norm(q, qw, eps), rms_norm(k, kw, eps), None
-    # after the norm: scales that require grad make q and k require it
-    recording = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    if rope is not None and (chunked or (recording
-                                         and k.shape[2] > ROPE_MAX_KV)):
+    if rope is not None and rope_outside:
         q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None
     if recording:
         if qk_norm is not None:
-            refuse_grad("the flash kernel with qk_norm", q, k, v)
+            refuse_grad("the flash kernel with qk_norm", q, k, v,
+                        *norm_scales)
         cos, sin = (None, None) if rope is None else rope
         return _FlashAttention.apply(q, k, v, kv_mask, cos, sin, causal,
                                      scale)

@@ -138,8 +138,10 @@ class X2IPipeline:
                  height: Optional[int] = None, width: Optional[int] = None,
                  num_steps: Optional[int] = None, seed: Optional[int] = None
                  ) -> np.ndarray:
-        """-> uint8 images (B, H, W, 3). The noise is drawn from a
-        torch.Generator on the pipeline's device, seeded with ``seed``."""
+        """-> uint8 images (B, H, W, 3). The noise is drawn in bf16,
+        whatever the DiT's dtype, as the JAX pipeline draws it, from a
+        torch.Generator on the pipeline's device seeded with ``seed``; the
+        latents keep that dtype through the Euler steps."""
         g = self.gen_cfg
         height, width = height or g.height, width or g.width
         num_steps = num_steps or g.num_inference_steps
@@ -148,7 +150,7 @@ class X2IPipeline:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         noise = torch.randn((prompt_embeds.shape[0], s_img,
                              self.flux.cfg.in_channels), generator=gen,
-                            device=self.device, dtype=self.flux.cfg.dtype)
+                            device=self.device, dtype=torch.bfloat16)
         pixels = self._generate(noise, prompt_embeds, pooled, height, width,
                                 num_steps)
         return postprocess(pixels).cpu().numpy()

@@ -11,8 +11,8 @@ Phases, each printing one JSON line per record:
    ln_mod_quant, gelu_quant, quant_rows) compile, all from the sources in
    this checkout; print what ptxas said of every kernel (registers,
    spills, serialized wgmma) and fail on a spill, a serialized wgmma
-   pipeline or an ignored setmaxnreg in flash_fwd.cu or flash_bwd.cu
-   (``cuda_lib.build_faults``);
+   pipeline or an ignored setmaxnreg in any of the four libraries, whose
+   kernels are all built on wgmma (``cuda_lib.build_faults``);
 2. kernels: hold each kernel against its plain PyTorch version at the main
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
@@ -21,7 +21,8 @@ Phases, each printing one JSON line per record:
    of one call; the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
-   shapes, also against the plain f32 attention;
+   shapes, also against the plain f32 attention; the int8 GEMM at the
+   w8a8 DiT's twelve shapes;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
@@ -224,9 +225,9 @@ def phase_build():
           "triton_seconds": triton_s,
           "libraries": [lib.library_path().name for lib in libs],
           "ptxas": ptxas})
-    # the kernels built on wgmma (K1, K3, K4): a spill, a serialized
-    # pipeline or an ignored setmaxnreg leaves them far below the tensor
-    # cores' rate with no other sign
+    # the kernels built on wgmma (K1, K2, K3, K4, the int8 GEMM): a spill,
+    # a serialized pipeline or an ignored setmaxnreg leaves them far below
+    # the tensor cores' rate with no other sign
     for lib in libs:
         if lib.wgmma_kernels and (faults := build_faults(lib.build_log,
                                                          lib.wgmma_kernels)):
@@ -476,15 +477,25 @@ def _attention_rows_f32(q, k, v, r0, r1, kv_mask, causal):
     return torch.softmax(s, dim=-1) @ vf
 
 
+# K2's error relative to the size of o: the largest error over the largest
+# |o| and the mean error over the mean |o|. The absolute bars alone are
+# loose where the softmax spreads over thousands of keys: at the 2048^2
+# DiT point |o| is about 0.01. There a kernel that dropped one of its 132
+# kv tiles erred by 8% of the mean |o| and 34% of the largest, and the
+# right one by 0.2% and 0.6% (PERF.md, NVIDIA H100 80GB HBM3).
+K2_REL_MAX, K2_REL_MEAN = 2e-2, 1e-2
+
+
 def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
                         kv_mask=None, causal=False):
     """K2 at one shape, with and without the lse: against its plain
-    version (256 x 512 tiles with the block skip against the kernel's 64 x
-    64: o within 1e-2 max and 1e-3 mean absolute error in bf16, the lse
-    within 1e-3 in log2 units) and o against the plain f32 attention,
-    block of q rows by block (the same bars). Every row of these cases has
-    a valid key. q, k, v are (B, H, S, D) views of (B, S, H, D) tensors,
-    as the dispatcher passes them; `library` is (fn, inputs). The bound
+    version (256 x 512 tiles with the block skip against the kernel's 128 x
+    128: o within 1e-2 max and 1e-3 mean absolute error in bf16 and within
+    ``K2_REL_MAX`` / ``K2_REL_MEAN`` relative to |o|, the lse within 1e-3
+    in log2 units) and o against the plain f32 attention, block of q rows
+    by block (the same bars). Every row of these cases has a valid key.
+    q, k, v are (B, H, S, D) views of (B, S, H, D) tensors, as the
+    dispatcher passes them; `library` is (fn, inputs). The bound
     counts the (query, key) pairs the data needs: valid keys at or below
     the diagonal, whatever tiles an implementation visits."""
     import torch
@@ -496,14 +507,17 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
                                                 **kw)
     torch.cuda.synchronize()
     diff = (o.float() - o_p.float()).abs()
-    ref_max, ref_sum = 0.0, 0.0
+    o_p_abs = o_p.float().abs()
+    ref_max = ref_sum = ref_abs_max = ref_abs_sum = 0.0
     for r0 in range(0, q.shape[2], rows_per_block):
         r1 = min(q.shape[2], r0 + rows_per_block)
-        d = (o[:, :, r0:r1].float()
-             - _attention_rows_f32(q, k, v, r0, r1, kv_mask, causal)).abs()
+        ref = _attention_rows_f32(q, k, v, r0, r1, kv_mask, causal)
+        d = (o[:, :, r0:r1].float() - ref).abs()
         ref_max, ref_sum = max(ref_max, d.max().item()), ref_sum + d.sum(
             ).item()
-        del d
+        ref_abs_max = max(ref_abs_max, ref.abs().max().item())
+        ref_abs_sum += ref.abs().sum().item()
+        del d, ref
     pairs = _pairs(q, k, kw)
     rec = {"phase": "kernels", "kernel": f"flash_chunked[{label}]",
            "shape": list(q.shape), "kv_shape": list(k.shape),
@@ -511,10 +525,14 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
            "valid_keys": None if kv_mask is None else int(kv_mask.sum()),
            "max_abs_err": diff.max().item(),
            "mean_abs_err": diff.mean().item(),
+           "rel_max_err": diff.max().item() / o_p_abs.max().item(),
+           "rel_mean_err": diff.mean().item() / o_p_abs.mean().item(),
            "lse_max_abs_err": (lse - lse_p).abs().max().item(),
            "lse_output_same_o": torch.equal(o, o_l),
            "max_abs_err_vs_f32_attention": ref_max,
            "mean_abs_err_vs_f32_attention": ref_sum / o.numel(),
+           "rel_max_err_vs_f32_attention": ref_max / ref_abs_max,
+           "rel_mean_err_vs_f32_attention": ref_sum / ref_abs_sum,
            "finite": bool(torch.isfinite(o).all()
                           and torch.isfinite(lse).all()),
            "ms": kernel_ms(lambda *t: fa.flash_forward_chunked(*t, **kw),
@@ -536,11 +554,16 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
            "flop": 4.0 * pairs * q.shape[-1]}
     rec["bound_ms"], rec["bound_by"] = bound(
         rec["flop"], nbytes(q, k, v, o, kv_mask))
+    rate(rec, rec["flop"])
     emit(rec)
     if not (rec["finite"] and rec["lse_output_same_o"]
             and rec["max_abs_err"] <= 1e-2 and rec["mean_abs_err"] <= 1e-3
             and rec["lse_max_abs_err"] <= 1e-3 and ref_max <= 1e-2
-            and rec["mean_abs_err_vs_f32_attention"] <= 1e-3):
+            and rec["mean_abs_err_vs_f32_attention"] <= 1e-3
+            and rec["rel_max_err"] <= K2_REL_MAX
+            and rec["rel_mean_err"] <= K2_REL_MEAN
+            and rec["rel_max_err_vs_f32_attention"] <= K2_REL_MAX
+            and rec["rel_mean_err_vs_f32_attention"] <= K2_REL_MEAN):
         raise AssertionError(f"flash_chunked[{label}] disagrees with its "
                              f"plain version: {rec}")
     records.setdefault("flash_chunked", []).append(rec)
@@ -867,6 +890,7 @@ def check_gemms(g, rows, recs):
             2.0 * m * n * k, nbytes(xq, a, w_k, scale, bias, add, got),
             PEAK_INT8_OPS)
         rec["tops"] = 2.0 * m * n * k / rec["ms"] / 1e9
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         emit(rec)
         if not (acc_exact and one_step):
             raise AssertionError(f"int8 GEMM disagrees with its plain "
@@ -1567,7 +1591,8 @@ def main(argv=None) -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "shape": top["shape"],
             "main_path": run})
-        for extra in ("library", "tflops", "bound_share", "call_ms"):
+        for extra in ("library", "tflops", "tops", "bound_share",
+                      "call_ms"):
             if top.get(extra) is not None:
                 table[-1][extra] = top[extra]
         # a kernel's launches on the other main paths that run it

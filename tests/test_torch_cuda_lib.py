@@ -103,7 +103,65 @@ def test_flash_libraries_gate_their_wgmma_kernels():
     assert tfa.KERNEL.wgmma_kernels == ("flash_fwd_kernel",)
     assert tfa.KERNEL_BWD.wgmma_kernels == ("flash_bwd_dq_kernel",
                                             "flash_bwd_dkv_kernel")
-    assert tfa.KERNEL_CHUNKED.wgmma_kernels == ()
+    assert tfa.KERNEL_CHUNKED.wgmma_kernels == ("flash_chunked_kernel",)
+
+
+def test_gemm_library_gates_its_wgmma_kernel():
+    from x2i_torch.ops import int8_gemm as tgemm
+    assert tgemm.GEMM.wgmma_kernels == ("int8_gemm_kernel",)
+
+
+# the instances of K2 (D, masked) and of the int8 GEMM (acc_only), named
+# as nvcc 12 mangles them
+_CHUNKED_TU = "_ZN49_GLOBAL__N__9351ae3b_16_flash_chunked_cu_be12862a"
+CHUNKED = tuple(
+    f"{_CHUNKED_TU}20flash_chunked_kernelILi{d}ELb{m}EEEvNS_7TileMapES1_S1_"
+    f"NS_4ArgsE" for d in (64, 128) for m in (0, 1))
+_GEMM_TU = "_ZN49_GLOBAL__N__b0cd12f3_12_int8_gemm_cu_004656628"
+GEMM_KERNELS = tuple(
+    f"{_GEMM_TU}16int8_gemm_kernelILb{a}EEEv14CUtensorMap_stS1_NS_4ArgsE"
+    for a in (0, 1))
+LIBRARY_KERNELS = {"flash_chunked": (CHUNKED, "flash_chunked_kernel"),
+                   "int8_gemm": (GEMM_KERNELS, "int8_gemm_kernel")}
+
+
+def _library_log(names, spill=None, serialized=None):
+    """A build log of every instance in ``names``: 168 registers each (the
+    start of a 384-thread block), 84 + 84 bytes of spills in ``spill``, a
+    serialized pipeline in ``serialized``."""
+    log = HEAD
+    for name in names:
+        log += _entry(name, 168, *((84, 84) if name == spill else ()))
+        if name == serialized:
+            log += SERIALIZED.replace(KERNEL, name)
+    return log
+
+
+# case -> (log of the library's instances, the faults by a word of each)
+LIBRARY_CASES = {
+    "clean": (lambda k: _library_log(k), []),
+    "spilled": (lambda k: _library_log(k, spill=k[-1]), ["spills"]),
+    "serialized": (lambda k: _library_log(k, serialized=k[0]),
+                   ["serialized"]),
+    "setmaxnreg-ignored": (lambda k: IGNORED + _library_log(k),
+                           ["setmaxnreg"]),
+    "every instance missing": (lambda k: HEAD + _entry(ROPE, 28),
+                               ["names no kernel"]),
+}
+
+
+@pytest.mark.parametrize("case", list(LIBRARY_CASES))
+@pytest.mark.parametrize("library", list(LIBRARY_KERNELS))
+def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
+    """The build gate on K2's and the int8 GEMM's wgmma instances: a clean
+    log passes, and each fault that leaves them right but slow is named,
+    as for K1, K3 and K4."""
+    names, gate = LIBRARY_KERNELS[library]
+    make, want = LIBRARY_CASES[case]
+    faults = cuda_lib.build_faults(make(names), (gate,))
+    assert len(faults) == len(want), faults
+    for fault, word in zip(faults, want):
+        assert word in fault
 
 
 @pytest.fixture

@@ -1,0 +1,131 @@
+"""The argument checks of the port's CUDA kernel wrappers, on the CPU: the
+shapes and layouts that the chunked flash forward K2
+(``ops/flash_attention.py``) and the int8 GEMM (``ops/int8_gemm.py``)
+take. The checks are plain functions of
+shapes, strides and addresses, so they run here without a card; the
+kernels themselves are held against their plain versions by the ``cuda``
+tests in ``test_torch_kernels.py``.
+"""
+
+import pytest
+
+from x2i_torch.ops import flash_attention as tfa
+from x2i_torch.ops import int8_gemm as tgemm
+
+# (q shape, k shape), each legal for K2: Sq and Skv multiples of 64, a last
+# tile of 64 rows on either side, GQA, the 2048^2 DiT's and the LM's shapes
+K2_LEGAL = {
+    "DiT 2048^2": ((1, 24, 16896, 128), (1, 24, 16896, 128)),
+    "LM 32k": ((1, 14, 32768, 64), (1, 2, 32768, 64)),
+    "sq > skv": ((2, 3, 640, 128), (2, 3, 384, 128)),
+    "last kv tile of 64": ((2, 3, 256, 64), (2, 3, 704, 64)),
+    "last q tile of 64": ((2, 6, 320, 128), (2, 2, 1152, 128)),
+    "one tile of 64": ((1, 1, 64, 64), (1, 1, 64, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_LEGAL))
+def test_chunked_shapes_taken(case):
+    q, k = K2_LEGAL[case]
+    assert tfa.check_shapes(q, k, k) == (q[0], q[1], k[1], q[2], k[2], q[3])
+
+
+K2_ILLEGAL = {
+    "sq % 64": ((1, 2, 96, 64), (1, 2, 128, 64), None),
+    "skv % 64": ((1, 2, 128, 64), (1, 2, 200, 64), None),
+    "head dim 32": ((1, 2, 128, 32), (1, 2, 128, 32), None),
+    "head dim 256": ((1, 2, 128, 256), (1, 2, 128, 256), None),
+    "hq % hk": ((1, 5, 128, 64), (1, 2, 128, 64), None),
+    "k and v differ": ((1, 2, 128, 64), (1, 2, 128, 64), (1, 2, 192, 64)),
+    "batch differs": ((2, 2, 128, 64), (1, 2, 128, 64), None),
+    "3-d": ((2, 128, 64), (2, 128, 64), None),
+    "empty": ((1, 2, 0, 64), (1, 2, 128, 64), None),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_ILLEGAL))
+def test_chunked_shapes_refused(case):
+    q, k, v = K2_ILLEGAL[case]
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.check_shapes(q, k, v or k)
+
+
+def test_chunked_extra_shapes_must_match_q():
+    q = (1, 2, 128, 64)
+    assert tfa.check_shapes(q, q, q, [q])[3] == 128
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.check_shapes(q, q, q, [(1, 2, 64, 64)])
+
+
+# (shape, strides, data_ptr) -> legal: the strided (B, S, H, D) views the
+# dispatcher passes, a contiguous tensor, a misaligned start or stride
+ROWS = {
+    "strided view": ((1, 24, 16896, 128), (24 * 16896 * 128, 128, 24 * 128,
+                                           1), 4096, True),
+    "contiguous": ((2, 3, 640, 64), (3 * 640 * 64, 640 * 64, 64, 1), 256,
+                   True),
+    "last dim strided": ((1, 2, 128, 64), (16384, 8192, 64, 2), 256, False),
+    "row stride % 8": ((1, 2, 128, 64), (16384 + 4, 8196, 68, 1), 256,
+                       False),
+    "start not 16-byte aligned": ((1, 2, 128, 64), (16384, 8192, 64, 1), 264,
+                                  False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROWS))
+def test_chunked_row_layout(case):
+    shape, strides, ptr, legal = ROWS[case]
+    if legal:
+        tfa.check_rows("q", shape, strides, ptr)
+    else:
+        with pytest.raises(ValueError, match="q"):
+            tfa.check_rows("q", shape, strides, ptr)
+
+
+# (M, K, N, weight width, k0) -> legal
+GEMM_ARGS = {
+    "main shape": ((4608, 3072, 12288, 3072, 0), True),
+    "attention chunk": ((4608, 3072, 3072, 15360, 0), True),
+    "mlp chunk at koff 3072": ((4608, 12288, 3072, 15360, 3072), True),
+    "one row": ((1, 3072, 6144, 3072, 0), True),
+    "K 64, N 64": ((4096, 64, 64, 64, 0), True),
+    "koff on 16 bytes": ((8, 64, 64, 128, 48), True),
+    "K % 64": ((8, 96, 64, 128, 0), False),
+    "N % 8": ((8, 128, 60, 128, 0), False),
+    "koff % 16": ((8, 64, 64, 128, 8), False),
+    "koff past the width": ((8, 128, 64, 192, 128), False),
+    "negative koff": ((8, 64, 64, 128, -16), False),
+    "no rows": ((0, 64, 64, 64, 0), False),
+    "no columns": ((8, 64, 0, 64, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(GEMM_ARGS))
+def test_gemm_shapes(case):
+    args, legal = GEMM_ARGS[case]
+    if legal:
+        tgemm.check_gemm_shapes(*args)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            tgemm.check_gemm_shapes(*args)
+
+
+# (x strides, w strides, x ptr, w ptr) -> legal
+GEMM_LAYOUTS = {
+    "contiguous": (((3072, 1), (15360, 1), 0, 512), True),
+    "rows of a wider activation": (((4096, 1), (3072, 1), 16, 32), True),
+    "x column-strided": (((1, 4608), (3072, 1), 0, 0), False),
+    "w row stride % 16": (((3072, 1), (3080, 1), 0, 0), False),
+    "x start % 16": (((3072, 1), (3072, 1), 8, 0), False),
+    "w start % 16": (((3072, 1), (3072, 1), 0, 4), False),
+}
+
+
+@pytest.mark.parametrize("case", list(GEMM_LAYOUTS))
+def test_gemm_layout(case):
+    args, legal = GEMM_LAYOUTS[case]
+    if legal:
+        tgemm.check_gemm_layout(*args)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            tgemm.check_gemm_layout(*args)

@@ -11,7 +11,11 @@ warpgroups, or 64-row ones where the grid is small; 128-row kv tiles): one
 and two kv tiles, 4608 and 8192 tokens, Sq != Skv, GQA groups 1, 3 and 7,
 strided and contiguous inputs; the K3 and K4 cases on the edges of theirs
 (one 128-row tile, a ring of 64-row tiles that wraps, K4's split over the
-grid with and without rope). Tolerances: flash attention within 1e-2
+grid with and without rope); the K2 cases on the edges of its (128 q
+rows by 128 kv rows, a ring of 3 stages, a last tile of 64 rows on either
+side); the int8 GEMM's on the edges of its (128 x 256 tiles, a ring of
+128-byte K steps, few rows, koff).
+Tolerances: flash attention within 1e-2
 max and 1e-3 mean absolute of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body), its lse within 1e-3 in
 log2 units; the backward kernels K3 and K4 within 2e-2 max and 2e-3 mean
@@ -296,6 +300,57 @@ def test_flash_chunked_kernel(dev, d, case, with_lse):
         _close(got * rows[..., None], other * rows[..., None])
 
 
+# K2's tiling edges: case -> (Sq, Skv, Hq, Hk, kv mask, causal). Its tiles
+# are 128 q rows (two warpgroups of 64) by 128 kv rows in a ring of 3
+# stages; Sq and Skv are multiples of 64.
+CHUNKED_EDGES = {
+    "last kv tile of 64 rows": (256, 320, 3, 3, False, False),
+    "last kv tile of 64, mask and causal": (320, 320, 3, 3, True, True),
+    "last q tile of 64 rows": (320, 640, 3, 3, False, False),
+    "one tile of 64": (64, 64, 2, 2, True, False),
+    "ring wraps": (256, 1152, 2, 2, False, False),
+    "ring wraps, kv mask": (128, 1408, 2, 1, True, False),
+    "causal skip, Sq < Skv": (384, 1024, 3, 3, False, True),
+    "causal skip, Sq > Skv": (1024, 384, 3, 3, True, True),
+    "GQA 7:1, mask, causal": (640, 640, 14, 2, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(CHUNKED_EDGES))
+def test_flash_chunked_kernel_tiling_edges(dev, d, case):
+    """K2 on the edges of its tiling, with the lse: a last kv tile of 64
+    rows (zero-filled past Skv), a last q tile of 64 rows (its other
+    warpgroup writes nothing), a ring of 3 stages that wraps, the causal
+    block skip at Sq != Skv, D = 64 with GQA 7:1; o and the lse of the
+    rows that have a valid key against the plain version. Not against the
+    plain f32 attention: these masks leave rows of two or three valid keys,
+    where p rounded to bf16 before p v (the TPU kernel's rounding point,
+    which the plain version keeps) can move o by a bf16 step of |o| (about
+    2 here), more than 1e-2, for kernel and plain version alike;
+    test_flash_chunked_kernel holds the kernel to the f32 attention."""
+    sq, skv, hq, hk, masked, causal = CHUNKED_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(sq + skv + d)
+    q = _randn(g, dev, 2, sq, hq, d).transpose(1, 2)
+    k, v = (_randn(g, dev, 2, skv, hk, d).transpose(1, 2) for _ in range(2))
+    valid = torch.ones((2, skv), dtype=torch.bool, device=dev)
+    if masked:
+        cols = torch.arange(skv, device=dev)[None]
+        valid = (cols < torch.tensor([[skv - 40], [skv // 3]], device=dev)) \
+            & (cols >= torch.tensor([[0], [5]], device=dev))
+    kw = {"kv_mask": valid if masked else None, "causal": causal}
+    before = tfa.KERNEL_CHUNKED.launches["flash_chunked"]
+    got, lse = tfa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+    assert tfa.KERNEL_CHUNKED.launches["flash_chunked"] == before + 1
+    want, lse_p = tfa.flash_forward_chunked_plain(q, k, v, return_lse=True,
+                                                  **kw)
+    rows = _valid_rows(valid, causal, sq)[:, None, :]
+    assert bool(torch.isfinite(lse).all())
+    assert ((lse - lse_p).abs() * rows).max().item() <= 1e-3
+    _close(got * rows[..., None], want * rows[..., None])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("norm", ["none", "shared", "per-row"])
 def test_flash_attention_routes_to_chunked_above_max_kv_seq(dev, norm,
@@ -541,6 +596,41 @@ def test_int8_gemm_k_offset_chunks(dev):
     want = tgemm.int8_linear_plain(xb, ab, w, scale, bias=bias, k0=3072,
                                    addend=want_part)
     _bf16_close(got, want)
+
+
+# the GEMM's tiling edges: case -> (M, K, N, weight width, k0). Its tiles
+# are 128 rows by 256 columns, in K steps of 128 bytes through a ring of 4
+# stages.
+GEMM_EDGES = {
+    "M 1": (1, 3072, 6144, None, 0),
+    "M 4": (4, 3072, 1152, None, 0),
+    "M 65": (65, 768, 640, None, 0),
+    "M 4608": (4608, 512, 384, None, 0),
+    "N 64": (200, 3072, 64, None, 0),
+    "K 64": (300, 64, 512, None, 0),
+    "koff chunk": (130, 1024, 264, 4096, 3072),
+    "ring wraps at K 12288": (129, 12288, 256, None, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GEMM_EDGES))
+def test_int8_gemm_tiling_edges(dev, case):
+    """The GEMM on the edges of its tiling: a few rows, a ragged last row
+    tile, N and K of 64 (one overhanging tile and K step), a K-slice of a
+    wider weight at koff, a ring that wraps 96 times: the int32 sum
+    (acc_only) exact, and the bf16 output with the bias within one bf16
+    step of the plain version."""
+    m, k, n, width, k0 = GEMM_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq, a, w, scale, bias = _gemm_inputs(g, dev, m, k, n, width)
+    before = tgemm.GEMM.launches["int8_gemm"]
+    assert torch.equal(tgemm.int8_matmul_acc(xq, w, k0),
+                       tgemm.int8_matmul_acc_plain(xq, w, k0))
+    got = tgemm.int8_linear(xq, a, w, scale, bias=bias, k0=k0)
+    assert tgemm.GEMM.launches["int8_gemm"] == before + 2
+    _bf16_close(got, tgemm.int8_linear_plain(xq, a, w, scale, bias=bias,
+                                             k0=k0))
 
 
 @pytest.mark.cuda

@@ -24,39 +24,68 @@
 // below its last row, which halves the work of a long causal prefill. A
 // skipped tile contributes exactly zero to a row that has a valid key. A
 // row with no valid key (left padding) averages v over the keys of the
-// tiles it visited, so its value depends on the tile sizes, here (64 x 64)
-// as on the TPU (256 x 512): such rows carry no meaning in either.
+// tiles it visited, so its value depends on the tile sizes, here (128 x
+// 128) as on the TPU (256 x 512): such rows carry no meaning in either.
 //
 // What bounds it on an H100: at the 2048^2 FLUX point (24 heads x 16896 x
 // 128) the two products take 3.5e12 FLOP per launch against 415 MB of q, k,
 // v, o, so the tensor cores bound it (3.5 ms at the 989 TFLOP/s bf16
-// data-sheet peak); the 32k-token causal LM prefill (14 q heads on 2 kv
-// heads x 32768 x 64) needs half of 3.8e12 FLOP.
+// data-sheet peak); the exp2 of its 6.9e9 scores is about 1.8 ms of the
+// special-function units, so the softmax has to run under the products.
+// The 32k-token causal LM prefill (14 q heads on 2 kv heads x 32768 x 64)
+// needs half of 3.8e12 FLOP; at D = 64 a score costs half the tensor work
+// of one at D = 128 and the same exp2, so there the two are about even.
 //
-// Design: one block per (64-row q tile, q head, batch), four warps of 16 q
-// rows each; 64-row kv tiles double-buffered in shared memory with
-// cp.async, so that the copy of tile t + 1 runs under the products of tile
-// t; bf16 mma.sync m16n8k16 with f32 accumulators, the K and V operand
-// fragments read with ldmatrix (V transposed on the way); padded shared
-// rows keep both free of bank conflicts. The q tiles are scheduled
-// last-first, so that under the causal mask the longest blocks start
-// first. GQA: q head h reads kv head h / group. No wgmma, no TMA: those
-// are later work.
+// Design: the exact body of the forward kernel K1 (flash_fwd.cu), with the
+// block skip, any kv length and tiles that overhang the ends:
+//   * one block per (128-row q tile, q head, batch): two consumer
+//     warpgroups of 64 q rows each and a producer warpgroup; q tiles are
+//     scheduled last-first, so that under the causal mask the longest
+//     blocks start first. GQA: q head h reads kv head h / group;
+//   * both products are wgmma.mma_async (hopper_mma.cuh): s = q k^T
+//     (m64n128k16, q and K tiles K-major in 128-byte-swizzled shared
+//     memory) and o += p v with p from the score registers, rounded to
+//     bf16, and the V tile read as it lies through the transpose bit;
+//   * the producer's one thread loads the q tile and then keeps a ring of
+//     kStages = 3 (K tile, V tile) stages of 128 kv rows full by TMA,
+//     through tensor maps that carry the (B, H, S, D) strides as they lie
+//     (views of (B, S, H, D) storage included); it gives its registers
+//     back (setmaxnreg 24) and the consumers take 240. At D = 128 the
+//     block holds q 32 KB + 3 x 64 KB of the 227 KB;
+//   * the softmax of tile j runs while p v of tile j - 1 is in flight, and
+//     the two warpgroups take turns at queueing their products (named
+//     barriers), so that one's softmax falls under the other's products;
+//     exp2 is one ex2.approx per score; o is rescaled only when a row
+//     maximum of the warp moved;
+//   * mask tests run only on the tiles that need them: the diagonal tiles
+//     under the causal mask, tiles in which the kv mask drops a key, and a
+//     last tile of 64 kv rows, which TMA fills with zeros past Skv. A warp
+//     reads the kv mask of a tile as four ballots over four keys a lane,
+//     so that a thread keeps the bits of its 32 columns in two registers
+//     (32 byte loads would hold as many: the masked D = 128 instance
+//     spilled); the causal mask and the end of Skv are one column limit
+//     per row. The columns past Skv get NEG_INF like masked keys: to a row
+//     with a valid key they add exactly nothing, and a row without one
+//     carries no meaning (above);
+//   * a last q tile of 64 rows is zero-filled past Sq in the same way and
+//     writes only its own rows.
 // Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last dim
-// contiguous and the other strides multiples of 8 elements; every offset
-// is 64-bit.
+// contiguous, the other strides multiples of 8 elements and 16-byte
+// aligned bases; every offset is 64-bit.
 
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
+constexpr int kTileQ = 128;      // q rows per block: two warpgroups of 64
+constexpr int kTileKV = 128;     // kv rows per tile
+constexpr int kStages = 3;       // (K tile, V tile) stages in the ring
+constexpr int kConsumers = 256;  // two consumer warpgroups
+
 struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   float* lse;                    // (B, Hq, Sq) contiguous, or null
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   const unsigned char* mask;     // (B, Skv) bytes, or null
   long long mask_sb;
@@ -64,199 +93,268 @@ struct Args {
   float scale_log2e;
 };
 
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives, of each, the pair [l / 4][2 (l % 4)..] or,
-// transposed, [2 (l % 4)..][l / 4].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// Queue the copy of ROWS rows of D bf16 (at `stride` elements) into padded
-// smem rows.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_tile(const bf16* src, long long stride,
-                                           bf16* dst, int tid) {
-  constexpr int kChunks = D / 8;              // 16-byte chunks per row
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    cp_async16(dst + r * (D + kPad) + cc * 8, src + r * stride + cc * 8);
-  }
+// Shared memory of one block: the q tile, the ring, the barriers, and the
+// slack that aligns the tiles to the swizzle's 1024 bytes.
+template <int D>
+constexpr int smem_bytes() {
+  return kTileQ * D * 2 + 2 * kStages * kTileKV * D * 2 +
+         (2 * kStages + 1) * static_cast<int>(sizeof(uint64_t)) +
+         kSwizzleAtomBytes;
 }
 
 template <int D, bool MASKED>
-__global__ void __launch_bounds__(kThreads) flash_chunked_kernel(Args a) {
-  constexpr int P = D + kPad;                 // smem row pitch (elements)
-  constexpr int kTile = kBK * P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * P;                    // two buffers
-  bf16* sV = sK + 2 * kTile;                  // two buffers
-  unsigned char* sM = reinterpret_cast<unsigned char*>(sV + 2 * kTile);
+__global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
+    const __grid_constant__ TileMap map_q,
+    const __grid_constant__ TileMap map_k,
+    const __grid_constant__ TileMap map_v, Args a) {
+  constexpr int BQ = kTileQ, BK = kTileKV, NT = kConsumers;
+  constexpr uint32_t kQBytes = BQ * D * 2, kTileBytes = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (sQ - raw);
+  const uint32_t sK = sQ + kQBytes, sV = sK + kStages * kTileBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kQBytes + 2 * kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
+  // NT consumer threads (two warpgroups), then the producer's warpgroup
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = a.k + b * a.k_sb + hkv * a.k_sh;
-  const bf16* vb = a.v + b * a.v_sb + hkv * a.v_sh;
-  const unsigned char* mask =
-      MASKED && a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  // the block skip: no kv tile that starts above the q tile's last row
+  int n_tiles = (a.skv + BK - 1) / BK;
+  if (MASKED && a.causal)
+    n_tiles = min(n_tiles, (min(q0 + BQ, a.sq) - 1) / BK + 1);
 
-  // the block skip: kv tiles that start above the q tile's last row
-  int n_tiles = a.skv / kBK;
-  if (MASKED && a.causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NT);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  auto stage = [&](int t) {
-    const int buf = t & 1;
-    const long long kv0 = static_cast<long long>(t) * kBK;
-    stage_tile<D, kBK>(kb + kv0 * a.k_ss, a.k_ss, sK + buf * kTile, tid);
-    stage_tile<D, kBK>(vb + kv0 * a.v_ss, a.v_ss, sV + buf * kTile, tid);
-    if (mask != nullptr && tid < kBK) sM[buf * kBK + tid] = mask[kv0 + tid];
-    cp_async_commit();
-  };
+  // The register file is shared out by warpgroup: the producer hands back
+  // what it does not need and the consumers take it. From here the two
+  // roles never meet again (setmaxnreg needs that).
+  if (tid >= NT) {
+    setmaxnreg_dec<24>();
+    // The producer: one thread loads the q tile, then keeps the ring
+    // full, up to kStages tiles ahead of the consumers. A stage is two TMA
+    // copies per 64 columns (K rows and V rows of the tile), all
+    // completing on its `full`.
+    if (tid == NT) {
+      mbar_arrive_expect_tx(q_full, kQBytes);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_load_tile(map_q, sQ + cb * BQ * kSwizzleRowBytes, cb * 64, q0, h,
+                      b, q_full);
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          const uint32_t off = st * kTileBytes + cb * BK * kSwizzleRowBytes;
+          tma_load_tile(map_k, sK + off, cb * 64, t * BK, hkv, b, &full[st]);
+          tma_load_tile(map_v, sV + off, cb * 64, t * BK, hkv, b, &full[st]);
+        }
+      }
+    }
+    return;
+  }
 
-  stage_tile<D, kBQ>(qb + q0 * a.q_ss, a.q_ss, sQ, tid);
-  stage(0);
+  setmaxnreg_inc<240>();
+  mbar_wait(q_full, 0);
 
-  const int r0 = warp * 16;
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;
-  uint32_t qa[D / 16][4];
-  float o[D / 8][4];
+  const uint64_t q_desc =
+      wgmma_desc(sQ + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
+  float o[D / 8][4], s[BK / 8][4];
+  uint32_t p[BK / 16][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
     o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < BK / 8; ++jj)
+    s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  // this lane's row of the ldmatrix reads: K rows by kv index, V rows by
-  // kv index within a 16-row step
-  const int lrow = lane & 7, lmat = lane >> 3;
+  // the pending rescale of o, by exp2(m_old - m_new) per row
+  float al0 = 1.f, al1 = 1.f;
+  bool moved = false;
+  const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+  const unsigned char* mask =
+      MASKED && a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      stage(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
+  // s = q k^T for kv tile t, queued and committed
+  auto qk_product = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    const uint64_t k_desc =
+        wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes);
+    wgmma_pin(s);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        load_a(qa[kk], sQ, P, r0, kk * 16, g, t4);
-    }
-    const bf16* tK = sK + (t & 1) * kTile;
-    const bf16* tV = sV + (t & 1) * kTile;
-    const int kv0 = t * kBK;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
+                    desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
+    wgmma_commit();
+  };
 
-    float s[kBK / 8][4];
+  // o += p v for kv tile t, queued and committed, after bringing o to the
+  // row maxima that p was taken against
+  auto pv_queue = [&](int t) {
+    if (moved) {
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < D / 32; ++k2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, tK + (j * 8 + lrow) * P + k2 * 32 + lmat * 8);
-        mma_bf16(s[j], qa[2 * k2], kf[0], kf[1]);
-        mma_bf16(s[j], qa[2 * k2 + 1], kf[2], kf[3]);
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[dn][0] *= al0;
+        o[dn][1] *= al0;
+        o[dn][2] *= al1;
+        o[dn][3] *= al1;
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= a.scale_log2e;
     }
+    const uint64_t v_desc =
+        wgmma_desc(sV + (t % kStages) * kTileBytes, BK * kSwizzleRowBytes,
+                   kSwizzleAtomBytes);
+    wgmma_pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(o, p[kk], desc_advance(v_desc, kk * 2 * kSwizzleAtomBytes));
+    wgmma_commit();
+  };
 
+  // the scores of kv tile t in s -> the unnormalized probabilities, in
+  // place; the running maxima m and the row sums l
+  auto softmax_tile = [&](int t) {
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale_log2e;
+    const int kv0 = t * BK;
+    // In tile columns: the first column that rows row_a and row_b may not
+    // see (the end of Skv, which a last tile of 64 rows overhangs, and
+    // under the causal mask the row's own index + 1) ...
+    int lim_a = a.skv - kv0, lim_b = lim_a;
+    bool test = lim_a < BK;
+    // ... and the kv mask's bits of this thread's even and odd columns:
+    // bit 2 jj of keep<e> is its column 8 jj + 2 t4 + e
+    uint32_t keep0 = ~0u, keep1 = ~0u;
     if (MASKED) {
-      // a tile wholly at or below the warp's first row needs no causal test
-      const bool diag = a.causal && kv0 + kBK - 1 > q0 + r0;
-      if (mask != nullptr || diag) {
-        const unsigned char* tM = sM + (t & 1) * kBK;
+      if (a.causal) {
+        lim_a = min(lim_a, row_a + 1 - kv0);
+        lim_b = min(lim_b, row_b + 1 - kv0);
+        // a tile wholly at or below the warp's first row needs no test
+        test |= kv0 + BK - 1 > row_a - g;
+      }
+      if (mask != nullptr) {
+        // the tile's 128 keys as four ballots of the warp, four keys a
+        // lane: bit l of w[i] is key 4 l + i
+        const int c = kv0 + 4 * lane;
+        uint32_t w[4];
 #pragma unroll
-        for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = j * 8 + t4 * 2 + (e & 1);
-            const int row = e < 2 ? row_a : row_b;
-            const bool keep = (mask == nullptr || tM[c]) &&
-                              (!diag || kv0 + c <= row);
-            if (!keep) s[j][e] = kNegInf;
-          }
+        for (int i = 0; i < 4; ++i)
+          w[i] = __ballot_sync(0xffffffffu, c < a.skv && mask[c + i]);
+        test |= (w[0] & w[1] & w[2] & w[3]) != ~0u;
+        keep0 = (t4 & 1 ? w[2] : w[0]) >> (t4 >> 1);
+        keep1 = (t4 & 1 ? w[3] : w[1]) >> (t4 >> 1);
       }
     }
-
+    if (test) {
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = jj * 8 + t4 * 2 + (e & 1);
+          const uint32_t keep = (e & 1 ? keep1 : keep0) >> (2 * jj);
+          if (col >= (e < 2 ? lim_a : lim_b) || !(keep & 1u))
+            s[jj][e] = kNegInf;
+        }
+    }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= al0;
-    l1 *= al1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= al0;
-      o[dn][1] *= al0;
-      o[dn][2] *= al1;
-      o[dn][3] *= al1;
+    // exp2(m - mx) is exactly 1 for a row whose maximum stayed: o and l
+    // are rescaled only when a maximum of the warp's rows moved
+    moved = __any_sync(0xffffffffu, mx0 != m0 || mx1 != m1);
+    if (moved) {
+      al0 = exp2f(m0 - mx0);
+      al1 = exp2f(m1 - mx1);
+      l0 *= al0;
+      l1 *= al1;
+      m0 = mx0;
+      m1 = mx1;
     }
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mx0);
-      s[j][1] = exp2f(s[j][1] - mx0);
-      s[j][2] = exp2f(s[j][2] - mx1);
-      s[j][3] = exp2f(s[j][3] - mx1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      s[jj][0] = fast_exp2(s[jj][0] - mx0);
+      s[jj][1] = fast_exp2(s[jj][1] - mx0);
+      s[jj][2] = fast_exp2(s[jj][2] - mx1);
+      s[jj][3] = fast_exp2(s[jj][3] - mx1);
+      l0 += s[jj][0] + s[jj][1];
+      l1 += s[jj][2] + s[jj][3];
     }
+  };
 
+  // p rounded to bf16: the A operand of the PV product
+  auto round_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, tV + (kk * 16 + (lmat & 1) * 8 + lrow) * P +
-                                  (d2 * 2 + (lmat >> 1)) * 8);
-        mma_bf16(o[2 * d2], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * d2 + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                           // tile consumed
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pack_a(p[kk], s[2 * kk], s[2 * kk + 1]);
+  };
+
+  // The schedule, per warpgroup, as in K1: the scores of tile j and,
+  // behind them, p v of tile j - 1 are queued on the tensor cores; as soon
+  // as the scores are there the softmax of tile j runs while p v of tile
+  // j - 1 is still in flight. The two warpgroups take turns at queueing
+  // their products: named barrier 1 + wg opens warpgroup wg's turn, and
+  // warpgroup 1 opens the first one.
+  auto turn_wait = [&]() { named_barrier_sync(1 + wg, NT); };
+  auto turn_pass = [&]() { named_barrier_arrive(2 - wg, NT); };
+  if (wg == 1) named_barrier_arrive(1, NT);
+  turn_wait();
+  qk_product(0);
+  turn_pass();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  softmax_tile(0);
+  round_p();
+#pragma unroll 1
+  for (int j = 1; j < n_tiles; ++j) {
+    turn_wait();
+    qk_product(j);
+    pv_queue(j - 1);
+    turn_pass();
+    wgmma_wait<1>();
+    wgmma_pin(s);
+    softmax_tile(j);
+    wgmma_wait<0>();
+    wgmma_pin(o);
+    wgmma_pin_a(p);
+    mbar_arrive(&empty[(j - 1) % kStages]);
+    round_p();
   }
+  pv_queue(n_tiles - 1);
+  wgmma_wait<0>();
+  wgmma_pin(o);
+  wgmma_pin_a(p);
 
+  // a warpgroup's 64 rows lie wholly inside Sq or wholly past it
+  if (q0 + wg * 64 >= a.sq) return;
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -277,16 +375,20 @@ __global__ void __launch_bounds__(kThreads) flash_chunked_kernel(Args a) {
   store_rows<D>(a.o + b * a.o_sb + h * a.o_sh, a.o_ss, o, row_a, row_b, t4);
 }
 
+struct Maps {
+  TileMap q, k, v;
+};
+
 template <int D, bool MASKED>
-cudaError_t launch(const Args& a, int batch, int hq, cudaStream_t stream) {
-  const int smem = (kBQ + 4 * kBK) * (D + kPad) *
-                       static_cast<int>(sizeof(bf16)) + 2 * kBK;
+cudaError_t launch(const Maps& m, const Args& a, int batch, int hq,
+                   cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
   auto kernel = flash_chunked_kernel<D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.sq / kBQ, hq, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid((a.sq + kTileQ - 1) / kTileQ, hq, batch);
+  kernel<<<grid, kConsumers + 128, smem, stream>>>(m.q, m.k, m.v, a);
   return cudaGetLastError();
 }
 
@@ -302,20 +404,13 @@ extern "C" int x2i_flash_chunked(
     const long long* st, const unsigned char* mask, long long mask_sb,
     int batch, int hq, int hk, int sq, int skv, int d, int causal,
     float scale_log2e, void* stream_ptr) {
-  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % kBQ ||
-      skv % kBK || hk <= 0 || hq % hk || batch <= 0 || batch > 65535 ||
-      hq > 65535)
+  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 64 || skv % 64 ||
+      hk <= 0 || hq % hk || batch <= 0 || batch > 65535 || hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
   a.o = static_cast<bf16*>(o);
   a.lse = lse;
-  a.q_sb = st[0]; a.q_sh = st[1]; a.q_ss = st[2];
-  a.k_sb = st[3]; a.k_sh = st[4]; a.k_ss = st[5];
-  a.v_sb = st[6]; a.v_sh = st[7]; a.v_ss = st[8];
   a.o_sb = st[9]; a.o_sh = st[10]; a.o_ss = st[11];
   a.mask = mask;
   a.mask_sb = mask_sb;
@@ -324,13 +419,22 @@ extern "C" int x2i_flash_chunked(
   a.skv = skv;
   a.causal = causal;
   a.scale_log2e = scale_log2e;
+  Maps m;
+  cudaError_t err = make_tile_map(&m.q, q, st[0], st[1], st[2], batch, hq, sq,
+                                  d, kTileQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&m.k, k, st[3], st[4], st[5], batch, hk, skv, d,
+                        kTileKV);
+  if (err == cudaSuccess)
+    err = make_tile_map(&m.v, v, st[6], st[7], st[8], batch, hk, skv, d,
+                        kTileKV);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const bool masked = mask != nullptr || causal != 0;
-  cudaError_t err;
   if (d == 64)
-    err = masked ? launch<64, true>(a, batch, hq, stream)
-                 : launch<64, false>(a, batch, hq, stream);
+    err = masked ? launch<64, true>(m, a, batch, hq, stream)
+                 : launch<64, false>(m, a, batch, hq, stream);
   else
-    err = masked ? launch<128, true>(a, batch, hq, stream)
-                 : launch<128, false>(a, batch, hq, stream);
+    err = masked ? launch<128, true>(m, a, batch, hq, stream)
+                 : launch<128, false>(m, a, batch, hq, stream);
   return static_cast<int>(err);
 }

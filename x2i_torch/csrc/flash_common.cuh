@@ -1,12 +1,12 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu,
-// flash_chunked.cu, flash_bwd.cu):
-// the bf16 mma.sync m16n8k16 product with f32 accumulators (K2), fragment
-// loads from padded shared-memory tiles, exp2 on the special-function unit,
-// the bf16 rounding of accumulator fragments and their stores, and the
-// row-wise qk RMSNorm + half-layout rotation with its once-per-launch pass
-// over a whole (B, H, S, D) tensor into a contiguous bf16 scratch buffer.
+// flash_chunked.cu, flash_bwd.cu): exp2 on the special-function unit, the
+// bf16 rounding of accumulator fragments into the A operand of the next
+// product and their stores, and the row-wise qk RMSNorm + half-layout
+// rotation with its once-per-launch pass over a whole (B, H, S, D) tensor
+// into a contiguous bf16 scratch buffer.
 //
-// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t4):
+// Fragment layouts of mma.sync.m16n8k16.row.col, which a warp's 16 rows of
+// a wgmma accumulator and register A operand share (lane = 4 g + t4):
 //   A (16 x 16, row-major): a0 = A[g][2t4..], a1 = A[g+8][2t4..],
 //                           a2 = A[g][2t4+8..], a3 = A[g+8][2t4+8..]
 //   B (16 x 8, "col"):      b0 = B[2t4..2t4+1][g], b1 = B[2t4+8..2t4+9][g]
@@ -20,10 +20,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // kv rows per tile
-constexpr int kThreads = 4 * 32;
-constexpr int kPad = 8;        // bf16 elements of row padding in smem
 constexpr float kNegInf = -1e30f;
 
 typedef __nv_bfloat16 bf16;
@@ -41,30 +37,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows r0..r0+15, columns k0..k0+15 of a padded tile.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
-                                       int pitch, int r0, int k0, int g,
-                                       int t4) {
-  const bf16* p = tile + (r0 + g) * pitch + k0 + t4 * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * pitch);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * pitch + 8);
 }
 
 // The A fragment of a 16 x 16 block held in C fragments c[2kk], c[2kk+1]

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks for the attention kernels: the warpgroup
-// matrix product wgmma.mma_async (bf16 in, f32 accumulate) with its
+// Hopper (sm_90a) building blocks for the attention kernels and the int8
+// GEMM: the warpgroup matrix product wgmma.mma_async (bf16 in, f32
+// accumulate; int8 in, s32 accumulate) with its
 // shared-memory matrix descriptors, the 128-byte swizzle those descriptors
 // name, TMA tile loads through tensor maps over strided (B, H, S, D)
-// tensors and bulk copies of contiguous rows, cp.async copies into
-// swizzled tiles, mbarrier completion, named
-// barriers and setmaxnreg for a producer / consumer split.
+// tensors and over byte matrices, bulk copies of contiguous rows, cp.async
+// copies into swizzled tiles, mbarrier completion, named barriers and
+// setmaxnreg for a producer / consumer split.
 //
 // Tiles. A shared-memory tile of ROWS x COLS bf16 is stored as COLS / 64
 // column blocks, each ROWS rows of 128 bytes (64 bf16), and inside every
@@ -13,7 +14,8 @@
 // address bits, so a tile starts on a 1024-byte boundary. Both operand
 // orientations read the same storage:
 //   * K-major (the reduction index contiguous: q and k rows for q k^T): one
-//     wgmma takes 16 reduction columns = 32 bytes of every row, so the k
+//     wgmma takes 16 reduction columns = 32 bytes of every row (32 columns
+//     of an int8 tile, whose swizzled row holds 128 values), so the k
 //     step advances the descriptor's start by 32 bytes inside the 128-byte
 //     row and by a column block every four steps; rows 8 apart are SBO =
 //     1024 bytes apart;
@@ -105,6 +107,15 @@ __device__ __forceinline__ void wgmma_pin(float (&d)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// The same for an s32 accumulator (the int8 products).
+template <int N>
+__device__ __forceinline__ void wgmma_pin(int (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
 }
 
 // Declares an accumulator's earlier values dead before a product that
@@ -274,6 +285,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
   } else {
     wgmma_rs_n64(d, a, desc_b);
   }
+}
+
+// ------------------------------------------------------------ int8 wgmma
+
+// d (64 x 256, s32) (+)= A (64 x 32 int8, shared, K-major) B^T (B 256 x 32
+// int8, shared, K-major); scale_d = 0 overwrites d. 8-bit operands are
+// K-major only.
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[32][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      :
+        "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3]),
+        "+r"(d[16][0]), "+r"(d[16][1]), "+r"(d[16][2]), "+r"(d[16][3]),
+        "+r"(d[17][0]), "+r"(d[17][1]), "+r"(d[17][2]), "+r"(d[17][3]),
+        "+r"(d[18][0]), "+r"(d[18][1]), "+r"(d[18][2]), "+r"(d[18][3]),
+        "+r"(d[19][0]), "+r"(d[19][1]), "+r"(d[19][2]), "+r"(d[19][3]),
+        "+r"(d[20][0]), "+r"(d[20][1]), "+r"(d[20][2]), "+r"(d[20][3]),
+        "+r"(d[21][0]), "+r"(d[21][1]), "+r"(d[21][2]), "+r"(d[21][3]),
+        "+r"(d[22][0]), "+r"(d[22][1]), "+r"(d[22][2]), "+r"(d[22][3]),
+        "+r"(d[23][0]), "+r"(d[23][1]), "+r"(d[23][2]), "+r"(d[23][3]),
+        "+r"(d[24][0]), "+r"(d[24][1]), "+r"(d[24][2]), "+r"(d[24][3]),
+        "+r"(d[25][0]), "+r"(d[25][1]), "+r"(d[25][2]), "+r"(d[25][3]),
+        "+r"(d[26][0]), "+r"(d[26][1]), "+r"(d[26][2]), "+r"(d[26][3]),
+        "+r"(d[27][0]), "+r"(d[27][1]), "+r"(d[27][2]), "+r"(d[27][3]),
+        "+r"(d[28][0]), "+r"(d[28][1]), "+r"(d[28][2]), "+r"(d[28][3]),
+        "+r"(d[29][0]), "+r"(d[29][1]), "+r"(d[29][2]), "+r"(d[29][3]),
+        "+r"(d[30][0]), "+r"(d[30][1]), "+r"(d[30][2]), "+r"(d[30][3]),
+        "+r"(d[31][0]), "+r"(d[31][1]), "+r"(d[31][2]), "+r"(d[31][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------- copies
@@ -499,6 +574,43 @@ __device__ __forceinline__ void tma_load_tile(const TileMap& m, uint32_t dst,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(&m.map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A tensor map over a row-major (rows, cols) matrix of bytes (the int8
+// GEMM's operands) whose rows lie `ld` bytes apart (a multiple of 16), for
+// boxes of `box_rows` rows x 128 bytes written with the 128-byte swizzle:
+// one K step of a K-major int8 tile. Bytes past `cols` or `rows` read as
+// zero, so a tile may overhang the matrix's edges.
+inline cudaError_t make_byte_matrix_map(CUtensorMap* out, const void* base,
+                                        long long cols, long long rows,
+                                        long long ld, int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t size[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t stride[1] = {static_cast<cuuint64_t>(ld)};
+  cuuint32_t box[2] = {static_cast<cuuint32_t>(kSwizzleRowBytes),
+                       static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t step[2] = {1, 1};
+  const CUresult res = encode(
+      out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), size,
+      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One thread: copy the box at byte column c0, row r0 of a matrix map to
+// shared address `dst`; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(const CUtensorMap& m,
+                                            uint32_t dst, int c0, int r0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&m)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(r0)
       : "memory");
 }
 

@@ -22,70 +22,40 @@
 // of operands, so the int8 tensor-core rate (1979 TOP/s dense) bounds it;
 // at M = 1..4 (the adaLN and timestep rows) reading the weight bounds it.
 //
-// Design (a first, simple version): 128 x 128 output tiles, 8 warps each
-// computing 64 x 32 with mma.sync m16n8k32 (s8 in, s32 accumulate), K in
-// steps of 128 bytes through a 3-stage cp.async ring in shared memory (108
-// KB, two blocks on an SM), rows padded to 144 bytes so that ldmatrix
-// reads are free of bank conflicts. Rows of A past M, rows of B past N and
-// columns past K are zero-filled, so any M, any N that is a multiple of 8
-// and any K that is a multiple of 64 work. No wgmma or TMA yet. Of the
-// layouts tried on an H100 (tile 128 or 256 by 128 or 256, warp tiles
-// 64 x 32 and 64 x 64, K steps of 64 and 128 bytes, 3 or 4 stages), this
-// one was the fastest: two blocks of 8 warps on each SM hide mma.sync's
-// latency better than one block with larger warp tiles.
+// Design: wgmma.mma_async m64n256k32 s8 x s8 -> s32 (hopper_mma.cuh), both
+// operands K-major in 128-byte-swizzled shared memory, as 8-bit wgmma
+// requires and as A and B already lie. A block computes a 128 x 256 output
+// tile on two consumer warpgroups of 64 rows each. A producer warpgroup's
+// one thread keeps a ring of 192 KB (4 stages) of 128-byte K steps (one
+// swizzle row: the A rows and the B rows of the tile) in flight by TMA,
+// through 2-d tensor maps over A and over B from column koff with K
+// columns, so that bytes past M, N or K arrive as zeros: any M, any N that
+// is a multiple of 8 and any K that is a multiple of 64. Blocks take their
+// tiles 16 row tiles at a time, down the rows first, so that the tiles in
+// flight share their operands in L2. The producer gives its registers back
+// (setmaxnreg 24), the consumers take 240: the 64 x 256 s32 accumulator is 128 of them. A
+// consumer keeps one K step's products in flight while it waits for the
+// next stage, and each of its warps gives a stage back with one arrival.
+// The epilogue stages the s32 tile in the ring's shared memory (rows
+// padded by 32 bytes, free of bank conflicts), then each thread takes 8
+// consecutive outputs of a row in each of its passes: the scales, the
+// addend and the bias in the order above with __fmul_rn / __fadd_rn (no
+// contraction into an FMA), and one 16-byte store. The epilogue is not
+// overlapped with the next tile's loads (the block is not persistent), so
+// its loads of the scales and the bias are all issued first, under the
+// staging, and no pass waits on a load from memory.
+//
+// The first version of this file (mma.sync m16n8k32 on 128 x 128 tiles,
+// cp.async, two blocks per SM) was slower at every shape of the main path
+// but two of the M = 1 rows, where reading the weight bounds the call: it
+// was level at 1 x 768 -> 3072 and 0.8 us faster at 1 x 256 -> 3072, one
+// launch per DiT step each, and slower over the M = 1 and M = 4 rows taken
+// together (PERF.md, NVIDIA H100 80GB HBM3). This kernel serves them all:
+// no second kernel is kept for 0.8 us a step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_mma.cuh"
 
 namespace {
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 128;           // bytes of K per stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int LDS = BK + 16;      // padded shared-memory row, bytes
-constexpr int CHUNKS = BK / 16;   // 16-byte chunks per row and stage
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;   // 110,592
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 struct Args {
   const int8_t* a;
@@ -102,158 +72,204 @@ struct Args {
   int m, n, k;
 };
 
-// Stage one BK-wide slab of the A and B tiles: 1024 16-byte chunks each,
-// four of each per thread; chunks past M, N or K are zero-filled.
-__device__ __forceinline__ void load_stage(const Args& p, int8_t* stage,
-                                           int m0, int n0, int k0) {
-  int8_t* sa = stage;
-  int8_t* sb = stage + BM * LDS;
-#pragma unroll
-  for (int i = 0; i < BM * CHUNKS / THREADS; ++i) {
-    int c = threadIdx.x + i * THREADS;
-    int row = c / CHUNKS, col = (c % CHUNKS) * 16;
-    bool ok = m0 + row < p.m && k0 + col < p.k;
-    const int8_t* src = ok ? p.a + (long long)(m0 + row) * p.lda + k0 + col
-                           : p.a;
-    cp_async16(sa + row * LDS + col, src, ok);
-  }
-#pragma unroll
-  for (int i = 0; i < BN * CHUNKS / THREADS; ++i) {
-    int c = threadIdx.x + i * THREADS;
-    int row = c / CHUNKS, col = (c % CHUNKS) * 16;
-    bool ok = n0 + row < p.n && k0 + col < p.k;
-    const int8_t* src = ok ? p.b + (long long)(n0 + row) * p.ldb + k0 + col
-                           : p.b;
-    cp_async16(sb + row * LDS + col, src, ok);
-  }
-}
-
 __device__ __forceinline__ float bf(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+constexpr int kRows = 128;              // output rows per block
+constexpr int BN = 256;                 // output columns per block
+constexpr int kStepBytes = 128;         // bytes of K per stage
+constexpr int kRingBytes = 196608;      // the ring: 4 x 48 KB
+constexpr int STAGES = kRingBytes / ((kRows + BN) * kStepBytes);
+constexpr int kSmemBytes =
+    kRingBytes + 2 * STAGES * static_cast<int>(sizeof(uint64_t)) +
+    kSwizzleAtomBytes;
+constexpr int kConsumers = 256;         // two consumer warpgroups
+constexpr int kGroupRows = 16;          // row tiles per group of the order
+
 template <bool ACC_ONLY>
-__global__ void __launch_bounds__(THREADS, 2) int8_gemm_kernel(Args p) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 64;   // warp's rows in the tile
-  const int wn = (warp & 3) * 32;    // warp's columns in the tile
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ktiles = (p.k + BK - 1) / BK;
+__global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b, Args p) {
+  constexpr uint32_t kABytes = kRows * kStepBytes;
+  constexpr uint32_t kStageBytes = kABytes + BN * kStepBytes;
+  // the epilogue's staging rows: BN s32 and 32 bytes of padding
+  constexpr int kPitch = BN * 4 + 32;
+  static_assert(STAGES >= 2 && 2 * 64 * kPitch <= kRingBytes, "ring");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + kSwizzleAtomBytes - 1) &
+                        ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (ring - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);
+  uint64_t* empty = full + STAGES;
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+  const int tid = threadIdx.x, wg = tid / 128;
+  // The order of the tiles: kGroupRows row tiles at a time, down the rows
+  // first, so that the blocks in flight share a few A and B tiles in L2
+  // (in launch order row by row, a wave of the main shape re-reads all of
+  // B, and A and B together overflow L2).
+  const int linear = blockIdx.y * gridDim.x + blockIdx.x;
+  const int per_group = kGroupRows * gridDim.x;
+  const int first = linear / per_group * kGroupRows;
+  const int rows = min(static_cast<int>(gridDim.y) - first, kGroupRows);
+  const int m0 = (first + linear % per_group % rows) * kRows;
+  const int n0 = linear % per_group / rows * BN;
+  const int ksteps = (p.k + kStepBytes - 1) / kStepBytes;
 
+  if (tid == 0) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(p, smem + s * STAGE_BYTES, m0, n0, s * BK);
-    cp_async_commit();
-  }
-
-  // ldmatrix row addresses: A x4 = (rows 0-7 | 8-15) x (bytes 0-15 | 16-31)
-  // -> a0..a3; B x4 = (n 0-7, bytes 0-15 | 16-31), (n 8-15, ...) -> b of
-  // two n8 tiles
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + (lane >> 4) * 8;
-  const int b_col = ((lane >> 3) & 1) * 16;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles)
-      load_stage(p, smem + (nk % STAGES) * STAGE_BYTES, m0, n0, nk * BK);
-    cp_async_commit();
-
-    const int8_t* sa = smem + (kt % STAGES) * STAGE_BYTES;
-    const int8_t* sb = sa + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], sa + (wm + mi * 16 + a_row) * LDS + kk + a_col);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldsm_x4(r, sb + (wn + nj * 16 + b_row) * LDS + kk + b_col);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_s8(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers / 32);   // one arrival per warp
     }
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: fragment rows g and g + 8, columns 2 * tig and 2 * tig + 1
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + g + half * 8;
-      if (row >= p.m) continue;
-      const float as = ACC_ONLY ? 0.f : p.a_scale[row];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + tig * 2;
-        if (col >= p.n) continue;
-        const int c0 = acc[mi][ni][half * 2], c1 = acc[mi][ni][half * 2 + 1];
-        if (ACC_ONLY) {
-          int2* o = reinterpret_cast<int2*>(static_cast<int*>(p.out) +
-                                            row * p.ldo + col);
-          *o = make_int2(c0, c1);
-          continue;
-        }
-        float v0 = __int2float_rn(c0) * as;
-        float v1 = __int2float_rn(c1) * as;
-        v0 = v0 * p.scale[col];
-        v1 = v1 * p.scale[col + 1];
-        __nv_bfloat16 r0 = __float2bfloat16_rn(v0);
-        __nv_bfloat16 r1 = __float2bfloat16_rn(v1);
-        if (p.addend) {
-          const __nv_bfloat16* d = p.addend + row * p.ldd + col;
-          r0 = __float2bfloat16_rn(bf(d[0]) + bf(r0));
-          r1 = __float2bfloat16_rn(bf(d[1]) + bf(r1));
-        }
-        if (p.bias) {
-          r0 = __float2bfloat16_rn(bf(r0) + bf(p.bias[col]));
-          r1 = __float2bfloat16_rn(bf(r1) + bf(p.bias[col + 1]));
-        }
-        __nv_bfloat162 pair;
-        pair.x = r0;
-        pair.y = r1;
-        *reinterpret_cast<__nv_bfloat162*>(
-            static_cast<__nv_bfloat16*>(p.out) + row * p.ldo + col) = pair;
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<24>();
+    // The producer: one thread keeps the ring full, up to STAGES K steps
+    // ahead of the consumers; a stage is the A box and the B box of one
+    // K step, both completing on its `full`.
+    if (tid == kConsumers) {
+#pragma unroll 1
+      for (int kt = 0; kt < ksteps; ++kt) {
+        const int st = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[st], (kt / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], kStageBytes);
+        const uint32_t sa = ring + st * kStageBytes;
+        tma_load_2d(map_a, sa, kt * kStepBytes, m0, &full[st]);
+        tma_load_2d(map_b, sa + kABytes, kt * kStepBytes, n0, &full[st]);
       }
     }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  int acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+#pragma unroll 1
+  for (int kt = 0; kt < ksteps; ++kt) {
+    const int st = kt % STAGES;
+    mbar_wait(&full[st], (kt / STAGES) & 1);
+    const uint32_t sa = ring + st * kStageBytes;
+    const uint64_t da =
+        wgmma_desc(sa + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
+    const uint64_t db = wgmma_desc(sa + kABytes, 16, kSwizzleAtomBytes);
+    wgmma_pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStepBytes / 32; ++kk)
+      wgmma_s8_n256(acc, desc_advance(da, kk * 32), desc_advance(db, kk * 32),
+                    1);
+    wgmma_commit();
+    // the previous step's products are done: its stage goes back, where
+    // a later step will refill it
+    wgmma_wait<1>();
+    wgmma_pin(acc);
+    if (kt > 0 && kt - 1 + STAGES < ksteps && tid % 32 == 0)
+      mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  wgmma_pin(acc);
+
+  // The epilogue: 8 consecutive outputs a thread, a row's threads side by
+  // side, kPasses rows apart. The scales and the bias of its columns and
+  // the scales of its rows are loaded first, all at once, so that their
+  // latency falls under the staging of the tile and no pass waits on a
+  // load from memory.
+  constexpr int kChunks = BN / 8, kRowsPerPass = 128 / kChunks;
+  constexpr int kPasses = 64 / kRowsPerPass;
+  const int c = (tid % 128) % kChunks, col = n0 + 8 * c;
+  const int r0 = (tid % 128) / kChunks, row0 = m0 + wg * 64 + r0;
+  const bool live = col < p.n;               // N % 8 == 0: all or nothing
+  float sc[8], bias[8], as[kPasses];
+  if (!ACC_ONLY && live) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sc[e] = p.scale[col + e];
+      bias[e] = p.bias ? bf(p.bias[col + e]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int row = row0 + i * kRowsPerPass;
+      as[i] = row < p.m ? p.a_scale[row] : 0.f;
+    }
+  }
+
+  // Both warpgroups have left the ring (every stage the producer filled
+  // has been read): it becomes the staging area of the s32 tile.
+  named_barrier_sync(1, kConsumers);
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  unsigned char* tile = smem + wg * 64 * kPitch;
+  {
+    const int r = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int off = (8 * j + 2 * t4) * 4;
+      *reinterpret_cast<int2*>(tile + r * kPitch + off) =
+          make_int2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<int2*>(tile + (r + 8) * kPitch + off) =
+          make_int2(acc[j][2], acc[j][3]);
+    }
+  }
+  named_barrier_sync(2 + wg, 128);
+  if (!live) return;
+#pragma unroll 4
+  for (int i = 0; i < kPasses; ++i) {
+    const int rr = r0 + i * kRowsPerPass, row = m0 + wg * 64 + rr;
+    if (row >= p.m) break;
+    const int4 lo = *reinterpret_cast<const int4*>(tile + rr * kPitch + c * 32);
+    const int4 hi =
+        *reinterpret_cast<const int4*>(tile + rr * kPitch + c * 32 + 16);
+    const long long at = static_cast<long long>(row) * p.ldo + col;
+    if (ACC_ONLY) {
+      int4* o = reinterpret_cast<int4*>(static_cast<int*>(p.out) + at);
+      o[0] = lo;
+      o[1] = hi;
+      continue;
+    }
+    const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const __nv_bfloat16* add =
+        p.addend ? p.addend + static_cast<long long>(row) * p.ldd + col
+                 : nullptr;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      __nv_bfloat16 y = __float2bfloat16_rn(
+          __fmul_rn(__fmul_rn(__int2float_rn(v[e]), as[i]), sc[e]));
+      if (add) y = __float2bfloat16_rn(__fadd_rn(bf(add[e]), bf(y)));
+      if (p.bias) y = __float2bfloat16_rn(__fadd_rn(bf(y), bias[e]));
+      const uint32_t bits = __bfloat16_as_ushort(y);
+      w[e / 2] = e % 2 ? w[e / 2] | bits << 16 : bits;
+    }
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + at) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
 template <bool ACC_ONLY>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
+  auto kernel = int8_gemm_kernel<ACC_ONLY>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        int8_gemm_kernel<ACC_ONLY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
-  int8_gemm_kernel<ACC_ONLY><<<grid, THREADS, SMEM_BYTES, stream>>>(p);
+  CUtensorMap map_a, map_b;
+  cudaError_t err =
+      make_byte_matrix_map(&map_a, p.a, p.k, p.m, p.lda, kRows);
+  if (err == cudaSuccess)
+    err = make_byte_matrix_map(&map_b, p.b, p.k, p.n, p.ldb, BN);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.n + BN - 1) / BN, (p.m + kRows - 1) / kRows);
+  kernel<<<grid, kConsumers + 128, kSmemBytes, stream>>>(map_a, map_b, p);
   return cudaGetLastError();
 }
 
@@ -268,6 +284,8 @@ extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
                              const void* bias, const void* addend,
                              long long ldd, void* out, long long ldo, int m,
                              int n, int k, int acc_only, void* stream) {
+  if (m < 1 || n < 8 || n % 8 || k < 64 || k % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args p;
   p.a = static_cast<const int8_t*>(a);
   p.lda = lda;
@@ -284,5 +302,6 @@ extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
   p.n = n;
   p.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(acc_only ? launch<true>(p, s) : launch<false>(p, s));
+  return static_cast<int>(acc_only ? launch<true>(p, s)
+                                   : launch<false>(p, s));
 }

@@ -366,7 +366,8 @@ KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      wgmma_kernels=("flash_fwd_kernel",))
 # K2, the chunked forward above MAX_KV_SEQ kv tokens
 KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
-                             ("flash_chunked",), _bind_chunked)
+                             ("flash_chunked",), _bind_chunked,
+                             wgmma_kernels=("flash_chunked_kernel",))
 # the backward library: K3 and K4
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                          ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd,
@@ -374,16 +375,23 @@ KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                                         "flash_bwd_dkv_kernel"))
 
 
+def check_rows(name, shape, strides, data_ptr, ndim=4):
+    """The layout the kernels' tile loads take: ``ndim`` dims, the last
+    contiguous, the other strides multiples of 8 elements (16 bytes of
+    bf16) and a 16-byte aligned start; raises ValueError otherwise."""
+    if len(shape) != ndim or strides[-1] != 1:
+        raise ValueError(f"flash kernel: {name} must be {ndim}-d with a "
+                         f"contiguous last dim, got {tuple(shape)} "
+                         f"strides {tuple(strides)}")
+    if any(s % 8 for s in strides[:-1]) or data_ptr % 16:
+        raise ValueError(f"flash kernel: {name} needs 16-byte aligned rows")
+
+
 def _check(name, t, ndim):
     if t.device.type != "cuda" or t.dtype != torch.bfloat16:
         raise ValueError(f"flash kernel: {name} must be a bf16 CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
-    if t.dim() != ndim or t.stride(-1) != 1:
-        raise ValueError(f"flash kernel: {name} must be {ndim}-d with a "
-                         f"contiguous last dim, got {tuple(t.shape)} "
-                         f"strides {t.stride()}")
-    if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(f"flash kernel: {name} needs 16-byte aligned rows")
+    check_rows(name, t.shape, t.stride(), t.data_ptr(), ndim)
 
 
 def _f32_table(name, t, rows, cols):
@@ -411,19 +419,34 @@ def _qk_scale(w, s, d):
                       s, d), d
 
 
+def check_shapes(q_shape, k_shape, v_shape, extra=()):
+    """The shapes every flash kernel takes -> (b, hq, hk, sq, skv, d): q
+    (B, Hq, Sq, D), k and v (B, Hk, Skv, D) with Hq a multiple of Hk, D in
+    ``HEAD_DIMS``, Sq and Skv multiples of 64 (K2's tiles overhang a last
+    64 rows; K1, K3 and K4 ask for 128 on top), and each shape in
+    ``extra`` equal to q's; raises ValueError otherwise."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        raise ValueError(f"flash kernel: unsupported shapes q "
+                         f"{tuple(q_shape)} k {tuple(k_shape)}")
+    b, hq, sq, d = q_shape
+    hk, skv = k_shape[1], k_shape[2]
+    if (tuple(k_shape) != tuple(v_shape) or k_shape[0] != b
+            or k_shape[3] != d or hk < 1 or hq % hk or d not in HEAD_DIMS
+            or sq < 64 or skv < 64 or sq % 64 or skv % 64
+            or any(tuple(e) != tuple(q_shape) for e in extra)):
+        raise ValueError(f"flash kernel: unsupported shapes q "
+                         f"{tuple(q_shape)} k {tuple(k_shape)} v "
+                         f"{tuple(v_shape)}")
+    return b, hq, hk, sq, skv, d
+
+
 def _shapes(q, k, v, extra=()):
     """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``) -> (b,
     hq, hk, sq, skv, d)."""
-    b, hq, sq, d = q.shape
-    hk, skv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _check(name, t, 4)
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or hq % hk or d not in HEAD_DIMS or sq % 64 or skv % 64
-            or any(t.shape != q.shape for _, t in extra)):
-        raise ValueError(f"flash kernel: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    return b, hq, hk, sq, skv, d
+    return check_shapes(q.shape, k.shape, v.shape,
+                        [t.shape for _, t in extra])
 
 
 def _mask_arg(kv_mask, b, skv, device):

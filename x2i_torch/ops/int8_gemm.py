@@ -19,6 +19,7 @@ sum is exact: at most 127 * 127 * 15360 < 2^31 on the DiT's widest input.
 
 ``int8_linear`` launches the kernel for a CUDA tensor (bf16 out only) and
 takes ``int8_linear_plain`` for a CPU tensor; there is no other fallback.
+The kernel is built on ``wgmma``, on 128 x 256 output tiles.
 The kernel has no backward: off ``impl="plain"`` the wrapper raises when
 autograd records and an input requires grad.
 The plain version sums in int32 on the CPU and in float64 on a card
@@ -46,7 +47,29 @@ def _bind(lib):
 
 
 GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm", ("int8_gemm",),
-                   _bind)
+                   _bind, wgmma_kernels=("int8_gemm_kernel",))
+
+
+def check_gemm_shapes(m: int, k: int, n: int, width: int, k0: int):
+    """The shapes the kernel takes: M >= 1 rows of K codes, K a multiple of
+    ``K_STEP``, N a multiple of 8, and the weight's columns [k0, k0 + K)
+    inside its ``width`` with k0 on a 16-byte boundary (the start of a TMA
+    box); raises ValueError otherwise."""
+    if (m < 1 or k < K_STEP or k % K_STEP or n < 8 or n % 8 or k0 < 0
+            or k0 % 16 or k0 + k > width):
+        raise ValueError(f"int8 GEMM kernel: unsupported shapes M {m}, K "
+                         f"{k}, N {n}, weight width {width}, k0 {k0} (K % "
+                         f"{K_STEP}, N % 8 and k0 % 16 must be 0)")
+
+
+def check_gemm_layout(x_strides, w_strides, x_ptr: int, w_ptr: int):
+    """The layout of the codes: contiguous rows of A (M, K) and of the
+    weight (N, width), each row start 16-byte aligned (a tensor map's base
+    and row stride); raises ValueError otherwise."""
+    if (x_strides[1] != 1 or w_strides[1] != 1 or x_strides[0] % 16
+            or w_strides[0] % 16 or x_ptr % 16 or w_ptr % 16):
+        raise ValueError("int8 GEMM kernel: xq and qweight need contiguous "
+                         "rows with 16-byte aligned starts and strides")
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -94,20 +117,15 @@ def _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
                          f"device, got {dev}")
     x = _rows(xq)
     m, k = x.shape
-    n, width = qweight.shape if qweight.dim() == 2 else (-1, -1)
     _check("xq", x, torch.int8, dev)
     _check("qweight", qweight, torch.int8, dev)
-    if (n < 0 or k % K_STEP or n % 8 or k0 % 16 or k0 < 0
-            or k0 + k > width or m < 1):
-        raise ValueError(f"int8 GEMM kernel: unsupported shapes xq "
-                         f"{tuple(xq.shape)}, qweight {tuple(qweight.shape)}"
-                         f", k0 {k0} (K % {K_STEP}, N % 8 and k0 % 16 "
-                         f"must be 0)")
-    if (x.stride(1) != 1 or qweight.stride(1) != 1 or x.stride(0) % 16
-            or qweight.stride(0) % 16 or x.data_ptr() % 16
-            or qweight.data_ptr() % 16):
-        raise ValueError("int8 GEMM kernel: xq and qweight need contiguous "
-                         "rows with 16-byte aligned starts and strides")
+    if qweight.dim() != 2:
+        raise ValueError(f"int8 GEMM kernel: unsupported shapes: qweight "
+                         f"{tuple(qweight.shape)} is not (N, in)")
+    n, width = qweight.shape
+    check_gemm_shapes(m, k, n, width, k0)
+    check_gemm_layout(x.stride(), qweight.stride(), x.data_ptr(),
+                      qweight.data_ptr())
     a = sc = b = d = None
     ldd = 0
     if acc_only:

@@ -6,19 +6,21 @@
 Phases, each printing one JSON line per record:
 
 1. build: compile the CUDA sources (csrc/flash_fwd.cu,
-   csrc/flash_chunked.cu, csrc/flash_bwd.cu and csrc/int8_gemm.cu, one
-   nvcc each, started together) while the Triton glue kernels (ln_mod,
-   ln_mod_quant, gelu_quant, quant_rows) compile, all from the sources in
-   this checkout; print what ptxas said of every kernel (registers,
+   csrc/flash_chunked.cu, csrc/flash_bwd.cu, csrc/int8_gemm.cu and
+   csrc/row_glue.cu, one nvcc each, started together) while the Triton
+   glue kernels (ln_mod_quant, quant_rows) compile, all from the sources
+   in this checkout; print what ptxas said of every kernel (registers,
    spills, serialized wgmma) and fail on a spill, a serialized wgmma
-   pipeline or an ignored setmaxnreg in any of the four libraries, whose
-   kernels are all built on wgmma (``cuda_lib.build_faults``);
+   pipeline, an ignored setmaxnreg or a kernel missing from the log in
+   any of the five libraries (``cuda_lib.build_faults``);
 2. kernels: hold each kernel against its plain PyTorch version at the main
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
    the same function (device time, see ``kernel_ms``), the K1 records
    with their TFLOP/s and share of the bound, K1b's with the host time
-   of one call; the attention
+   of one call; K5 and K7 with their share of the bound, K7 beside its
+   identity instance held bit for bit against the plain quantization; the
+   attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention; the int8 GEMM at the
@@ -80,6 +82,7 @@ FLASH_SRC = "x2i_torch/csrc/flash_fwd.cu"
 FLASH_CHUNKED_SRC = "x2i_torch/csrc/flash_chunked.cu"
 FLASH_BWD_SRC = "x2i_torch/csrc/flash_bwd.cu"
 GEMM_SRC = "x2i_torch/csrc/int8_gemm.cu"
+ROW_GLUE_SRC = "x2i_torch/csrc/row_glue.cu"
 GLUE_SRC = "x2i_torch/ops/fused_glue.py"
 TPU_FLASH = "x2i_tpu/ops/flash_attention.py"
 TPU_GLUE = "x2i_tpu/ops/fused_glue.py"
@@ -210,11 +213,8 @@ def phase_build():
         # meanwhile the Triton kernels compile at their first launches
         x = torch.zeros((1, 128, 3072), dtype=torch.bfloat16, device="cuda")
         e = torch.zeros((1, 3072), dtype=torch.bfloat16, device="cuda")
-        fg.ln_mod(x, e, e)
         fg.ln_mod_quant(x, e, e)
         fg.quant_rows(x)
-        fg.gelu_quant(torch.zeros((1, 128, 12288), dtype=torch.bfloat16,
-                                  device="cuda"))
         torch.cuda.synchronize()
         triton_s = time.perf_counter() - t0
         nvcc_s = [f.result()[1] for f in builds]
@@ -225,12 +225,11 @@ def phase_build():
           "triton_seconds": triton_s,
           "libraries": [lib.library_path().name for lib in libs],
           "ptxas": ptxas})
-    # the kernels built on wgmma (K1, K2, K3, K4, the int8 GEMM): a spill,
-    # a serialized pipeline or an ignored setmaxnreg leaves them far below
-    # the tensor cores' rate with no other sign
+    # every library: a spill, a serialized wgmma pipeline or an ignored
+    # setmaxnreg leaves a kernel right but several times slower with no
+    # other sign
     for lib in libs:
-        if lib.wgmma_kernels and (faults := build_faults(lib.build_log,
-                                                         lib.wgmma_kernels)):
+        if faults := build_faults(lib.build_log, lib.gated_kernels):
             raise AssertionError(f"{lib.src.name}: {faults}")
 
 
@@ -721,9 +720,14 @@ def phase_kernels(seed: int):
                    lambda t: fg.ln_mod_plain(t, shift, scale), x),
                "library_ms": kernel_ms(
                    lambda t: F.layer_norm(t, (3072,), w, shift[0], 1e-6),
-                   x)}
+                   x),
+               # a copy of x reads and writes the bytes K5 moves: the rate
+               # the card reaches on them
+               "copy_ms": kernel_ms(torch.clone, x)}
         rec["bound_ms"], rec["bound_by"] = bound(
             10.0 * x.numel(), nbytes(x, got, shift, scale), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["gb_per_s"] = nbytes(x, got, shift, scale) / rec["ms"] / 1e6
         rec["y_within_1_ulp"], rec["modulate_exact"] = y_ok, mod_ok
         emit(rec)
         if not (y_ok and mod_ok):
@@ -734,6 +738,7 @@ def phase_kernels(seed: int):
     check_training_attention(g, recs)
     check_chunked_attention(g, recs)
     check_glue(randn, rows, recs)
+    check_quant_identity(g, rows, recs)
     check_gemms(g, rows, recs)
     return recs
 
@@ -798,6 +803,8 @@ def check_glue(randn, rows, recs):
                "library_ms": None, "library": reason[name]}
         rec["bound_ms"], rec["bound_by"] = bound(
             ops[name] * x.numel(), nbytes(*inputs, q, a), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["gb_per_s"] = nbytes(*inputs, q, a) / rec["ms"] / 1e6
         emit(rec)
         flips = rec["codes_flipped"] / rec["codes"]
         ok = {"quant_rows": torch.equal(q, qp) and torch.equal(a, ap),
@@ -809,6 +816,57 @@ def check_glue(randn, rows, recs):
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rec}")
         recs.setdefault(name, []).append(rec)
+
+
+def tie_rows(g, n: int, d: int):
+    """n rows of d bf16 values (2k + 1) / 16, k in [-127, 126], each row
+    with one value of magnitude 15.875 = 127 / 8: the row scale is 2^-3
+    exactly and every quotient lands on k + 0.5, where the codes round
+    half to even."""
+    import torch
+    dev = torch.device("cuda")
+    k = torch.randint(-127, 127, (n, d), generator=g, device=dev)
+    x = (2 * k + 1).float() / 16
+    at = torch.randint(0, d, (n,), generator=g, device=dev)
+    sign = torch.randint(0, 2, (n,), generator=g, device=dev) * 2 - 1
+    x[torch.arange(n, device=dev), at] = 15.875 * sign
+    return x.to(torch.bfloat16)
+
+
+def check_quant_identity(g, rows, recs):
+    """K7's identity instance (the ring kernel at D = 12288, the generic
+    one at 3072) bit for bit against ``quant_rows_plain``, codes and
+    scales, on rows over four decades and on tie rows: the test of its
+    quantization epilogue (Markstein's correction on one reciprocal per
+    row, the rounding by adding 1.5 * 2^23). Timed beside K8, which
+    computes the same function in Triton. Off the main path: it counts no
+    launch."""
+    import torch
+    from x2i_torch.ops import fused_glue as fg
+
+    for label, x in (("rows", rows(1, 4608, 12288)),
+                     ("tie rows", tie_rows(g, 256, 12288)[None]),
+                     ("rows", rows(1, 512, 3072)),
+                     ("tie rows", tie_rows(g, 64, 3072))):
+        q, a = fg._quant_rows_cuda(x)
+        qp, ap = fg.quant_rows_plain(x)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernels", "kernel": "quant_rows[K7 identity]",
+               "case": label, "shape": list(x.shape),
+               "codes_exact": torch.equal(q, qp),
+               "scales_exact": torch.equal(a, ap),
+               "codes_differing": int((q != qp).sum()),
+               "ms": kernel_ms(fg._quant_rows_cuda, x),
+               "plain_ms": kernel_ms(fg.quant_rows_plain, x),
+               "k8_triton_ms": kernel_ms(fg.quant_rows, x)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            5.0 * x.numel(), nbytes(x, q, a), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        if not (rec["codes_exact"] and rec["scales_exact"]):
+            raise AssertionError(f"K7's identity instance is not the plain "
+                                 f"quantization bit for bit: {rec}")
+        recs.setdefault("quant_rows_identity", []).append(rec)
 
 
 # the DiT's int8 products at 1024^2: (label, M, K, N, weight width, k0,
@@ -954,8 +1012,9 @@ def build_pipeline(seed: int):
 def _cuda_libraries():
     from x2i_torch.ops.flash_attention import (KERNEL, KERNEL_BWD,
                                                KERNEL_CHUNKED)
+    from x2i_torch.ops.fused_glue import ROW_GLUE
     from x2i_torch.ops.int8_gemm import GEMM
-    return KERNEL, KERNEL_CHUNKED, KERNEL_BWD, GEMM
+    return KERNEL, KERNEL_CHUNKED, KERNEL_BWD, GEMM, ROW_GLUE
 
 
 def launch_counts():
@@ -1523,9 +1582,9 @@ def phase_serve(pipe):
 KERNEL_TABLE = (
     ("flash_fwd_rope", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "bf16", 0),
     ("flash_fwd", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "bf16", 0),
-    ("ln_mod", "triton", GLUE_SRC, f"{TPU_GLUE}:84", "bf16", 2),
+    ("ln_mod", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:84", "bf16", 2),
     ("ln_mod_quant", "triton", GLUE_SRC, f"{TPU_GLUE}:62", "w8a8", 2),
-    ("gelu_quant", "triton", GLUE_SRC, f"{TPU_GLUE}:70", "w8a8", -1),
+    ("gelu_quant", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:70", "w8a8", -1),
     ("quant_rows", "triton", GLUE_SRC, f"{TPU_GLUE}:78", "w8a8", -1),
     ("int8_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:94", "w8a8",
      GEMM_MAIN),

@@ -164,6 +164,93 @@ def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
         assert word in fault
 
 
+# the row glue library's kernels (K5 and its generic instance, K7's gelu
+# and identity instances and their generic ones), named as nvcc 12 mangles
+# them; none is built on wgmma
+_ROW_TU = "_ZN49_GLOBAL__N__5c1e07a2_11_row_glue_cu_8d2f6b41"
+ROW_GLUE_KERNELS = (
+    f"{_ROW_TU}13ln_mod_kernelENS_6LnArgsE",
+    f"{_ROW_TU}18ln_mod_rows_kernelENS_6LnArgsE",
+    *(f"{_ROW_TU}12quant_kernelILb{g}EEEvNS_9QuantArgsE" for g in (0, 1)),
+    *(f"{_ROW_TU}17quant_rows_kernelILb{g}EEEvNS_9QuantArgsE"
+      for g in (0, 1)))
+
+
+def _row_glue_log(drop=(), spill=None, no_regs=None):
+    log = HEAD
+    for name in ROW_GLUE_KERNELS:
+        if name in drop:
+            continue
+        entry = _entry(name, 72, *((40, 40) if name == spill else ()))
+        if name == no_regs:
+            entry = entry.rsplit("ptxas info", 1)[0]
+        log += entry
+    return log
+
+
+# case -> (log, the faults by a word of each)
+ROW_GLUE_CASES = {
+    "clean": (_row_glue_log(), []),
+    "K7 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[3]), ["spills"]),
+    "K5 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[0]), ["spills"]),
+    "K7 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[2:4]),
+                   ["quant_kernel"]),
+    "no register count": (_row_glue_log(no_regs=ROW_GLUE_KERNELS[0]),
+                          ["register count"]),
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_GLUE_CASES))
+def test_build_faults_of_the_row_glue_library(case):
+    """The build gate on K5's and K7's library, whose kernels are not built
+    on wgmma: a spill in any of them fails the build, as does a kernel the
+    log does not name."""
+    from x2i_torch.ops import fused_glue as tfg
+    log, want = ROW_GLUE_CASES[case]
+    faults = cuda_lib.build_faults(log, tfg.ROW_GLUE.gated_kernels)
+    assert len(faults) == len(want), faults
+    for fault, word in zip(faults, want):
+        assert word in fault
+
+
+SASS = """
+		Function : _ZN12quant_kernelILb1EEEvNS_9QuantArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.EX2 R3, R2 ;
+        /*0020*/              @!P0 MUFU.RCP R3, R2 ;
+        /*0030*/                   F2FP.BF16.F32.PACK_AB R3, R2, R1 ;
+        /*0040*/                   F2I.S32 R3, R2 ;
+        /*0050*/                   FRND R3, R2 ;
+		Function : other_kernel
+        /*0000*/                   MUFU.EX2 R3, R2 ;
+"""
+
+
+def test_sass_census_counts_the_special_function_and_conversion_ops():
+    """The script behind PERF.md's instruction counts of K7: per kernel,
+    MUFU apart, the conversions (F2I, I2F, F2F, FRND) apart, and F2FP (a
+    packing conversion, not the conversion unit's) apart, per element."""
+    from x2i_torch.tools import sass_census
+    got = sass_census.census(SASS)
+    assert got == {"_ZN12quant_kernelILb1EEEvNS_9QuantArgsE": {
+        "LDC": 1, "MUFU": 2, "F2FP": 1, "F2I": 1, "FRND": 1},
+        "other_kernel": {"MUFU": 1}}
+    rec = sass_census.classify(got["_ZN12quant_kernelILb1EEEvNS_9QuantArgsE"],
+                               2)
+    assert rec == {"instructions": 6, "MUFU": 2, "MUFU_per_element": 1.0,
+                   "conversion": 2, "conversion_per_element": 1.0,
+                   "F2FP": 1, "F2FP_per_element": 0.5}
+
+
+def test_row_glue_library_gates_every_kernel():
+    from x2i_torch.ops import fused_glue as tfg
+    assert tfg.ROW_GLUE.wgmma_kernels == ()
+    assert tfg.ROW_GLUE.gated_kernels == (
+        "ln_mod_kernel", "ln_mod_rows_kernel", "quant_kernel",
+        "quant_rows_kernel")
+    assert tfg.ROW_GLUE.src.name == "row_glue.cu" and tfg.ROW_GLUE.src.exists()
+
+
 @pytest.fixture
 def csrc_copy(tmp_path, monkeypatch):
     """A copy of ``csrc/`` and an empty build directory under tmp_path."""

@@ -1,15 +1,17 @@
 """The argument checks of the port's CUDA kernel wrappers, on the CPU: the
 shapes and layouts that the chunked flash forward K2
-(``ops/flash_attention.py``) and the int8 GEMM (``ops/int8_gemm.py``)
-take. The checks are plain functions of
+(``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``) and
+the row glue kernels K5 and K7 (``ops/fused_glue.py``) take. The checks are plain functions of
 shapes, strides and addresses, so they run here without a card; the
 kernels themselves are held against their plain versions by the ``cuda``
 tests in ``test_torch_kernels.py``.
 """
 
 import pytest
+import torch
 
 from x2i_torch.ops import flash_attention as tfa
+from x2i_torch.ops import fused_glue as tfg
 from x2i_torch.ops import int8_gemm as tgemm
 
 # (q shape, k shape), each legal for K2: Sq and Skv multiples of 64, a last
@@ -129,3 +131,56 @@ def test_gemm_layout(case):
     else:
         with pytest.raises(ValueError, match="16-byte"):
             tgemm.check_gemm_layout(*args)
+
+
+# (D, rows, (size, stride) of each dim that walks rows, row start
+# addresses) -> legal, for K5 and K7
+ROW_ARGS = {
+    "K5 main path": ((3072, 4608, [(1, 4608 * 3072), (4608, 3072),
+                                   (1, 18432)], [0, 4096, 10240]), True),
+    "K7 main path": ((12288, 4608, [(1, 4608 * 12288), (4608, 12288)], [256]),
+                     True),
+    "batch 2, chunk(6) rows": ((3072, 1024, [(2, 512 * 3072), (512, 3072),
+                                             (2, 18432)],
+                                [0, 0, 6144]), True),
+    "generic width 64": ((64, 1, [(1, 64), (1, 64)], [16]), True),
+    "one batch, odd batch stride": ((3072, 4, [(1, 3), (4, 3072)], [0]),
+                                    True),
+    "D % 8": ((3076, 8, [(1, 8 * 3076), (8, 3076)], [0]), False),
+    "D 4": ((4, 8, [(1, 32), (8, 4)], [0]), False),
+    "no rows": ((3072, 0, [(1, 0), (0, 3072)], [0]), False),
+    "row stride % 8": ((3072, 8, [(1, 8 * 3076), (8, 3076)], [0]), False),
+    "modulation batch stride % 8": ((3072, 8, [(2, 4 * 3072), (4, 3072),
+                                               (2, 3073)], [0, 0, 0]),
+                                    False),
+    "start not 16-byte aligned": ((3072, 8, [(1, 8 * 3072), (8, 3072)],
+                                   [8]), False),
+    "modulation start not aligned": ((3072, 8, [(1, 8 * 3072), (8, 3072),
+                                                (1, 18432)], [0, 2, 0]),
+                                     False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_ARGS))
+def test_row_glue_args(case):
+    args, legal = ROW_ARGS[case]
+    if legal:
+        tfg.check_row_args("ln_mod", *args)
+    else:
+        with pytest.raises(ValueError, match="ln_mod"):
+            tfg.check_row_args("ln_mod", *args)
+
+
+@pytest.mark.parametrize("kernel", ["ln_mod", "gelu_quant"])
+def test_row_glue_wrappers_refuse_a_width_not_a_multiple_of_8(kernel):
+    """The CUDA wrappers raise ValueError on D % 8 != 0 before they build
+    or launch anything (the Triton kernels they replace took any D)."""
+    x = torch.zeros((1, 4, 12), dtype=torch.bfloat16)
+    e = torch.zeros((1, 12), dtype=torch.bfloat16)
+    before = tfg.LAUNCHES[kernel]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        if kernel == "ln_mod":
+            tfg._ln_mod_cuda(x, e, e, 1e-6)
+        else:
+            tfg._gelu_quant_cuda(x)
+    assert tfg.LAUNCHES[kernel] == before

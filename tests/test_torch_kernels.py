@@ -14,7 +14,11 @@ strided and contiguous inputs; the K3 and K4 cases on the edges of theirs
 grid with and without rope); the K2 cases on the edges of its (128 q
 rows by 128 kv rows, a ring of 3 stages, a last tile of 64 rows on either
 side); the int8 GEMM's on the edges of its (128 x 256 tiles, a ring of
-128-byte K steps, few rows, koff).
+128-byte K steps, few rows, koff); K5's and K7's (``csrc/row_glue.cu``)
+on the edges of their persistent row spans (a span that crosses one or
+two batch boundaries, a ring that wraps, 1 row, 4608 rows, the generic
+instances at other widths), and K7's identity instance bit for bit, on
+rows whose quotients are all ties too.
 Tolerances: flash attention within 1e-2
 max and 1e-3 mean absolute of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body), its lse within 1e-3 in
@@ -29,7 +33,7 @@ codes within one step, at most 1% flipped, scales within one bf16 step
 (a normalized value can flip by one bf16 step, as in ln_mod); gelu_quant
 (K7) the JAX package's bar: codes within one step, at most 10% flipped,
 scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
-tanhf). The int8 GEMM: its int32 sum exact, its bf16 output within one
+tanhf); K7's identity instance bit for bit, codes and scales. The int8 GEMM: its int32 sum exact, its bf16 output within one
 bf16 step.
 """
 
@@ -543,6 +547,107 @@ def test_gelu_and_quant_rows_kernels(dev, shape):
     assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
     assert tfg.LAUNCHES["gelu_quant"] == before["gelu_quant"] + 1
     assert tfg.LAUNCHES["quant_rows"] == before["quant_rows"] + 1
+
+
+# K5 (csrc/row_glue.cu): (B, S, D). The grid holds no more blocks than fit
+# on the card (one or two an SM at D = 3072, eight of the generic
+# instance), each taking a contiguous span of rows at eight rows in
+# progress: above a few thousand rows a warp walks several rows of its
+# span, and past batch boundaries where B is large and S small.
+LN_MOD_CASES = {
+    "B 2, odd S, spans cross the batch": (2, 2305, 3072),
+    "B 300, S 7, spans cross two batches": (300, 7, 3072),
+    "B 3, odd S, one row a warp": (3, 257, 3072),
+    "1 row": (1, 1, 3072),
+    "4608 rows": (1, 4608, 3072),
+    "generic D 64, long spans": (3, 9001, 64),
+    "generic D 64, 1 row": (1, 1, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LN_MOD_CASES))
+def test_ln_mod_kernel_spans(dev, case):
+    """K5 at D = 3072 (and its generic instance) against the plain
+    version, on strided chunk(6) modulation rows: the normalized row
+    within one bf16 step, its modulate bit for bit."""
+    b, s, d = LN_MOD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    x = _rows(g, dev, b, s, d)
+    mod = _randn(g, dev, b, 6 * d)
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    zero = torch.zeros_like(shift)
+    got = tfg._ln_mod_cuda(x, shift, scale, 1e-6)
+    y = tfg._ln_mod_cuda(x, zero, zero, 1e-6)
+    y_plain = tfg.ln_mod_plain(x, zero, zero)
+    tol = 2.0 ** -7 * y_plain.float().abs() + 1e-4
+    assert bool(((y.float() - y_plain.float()).abs() <= tol).all())
+    assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
+
+
+def _tie_rows(g, dev, n, d):
+    """Rows of (2k + 1) / 16, k in [-127, 126], each with one +-15.875: the
+    scale is 2^-3 and every quotient is k + 0.5 (round half to even)."""
+    k = torch.randint(-127, 127, (n, d), generator=g, device=dev)
+    x = (2 * k + 1).float() / 16
+    at = torch.randint(0, d, (n,), generator=g, device=dev)
+    sign = torch.randint(0, 2, (n,), generator=g, device=dev) * 2 - 1
+    x[torch.arange(n, device=dev), at] = 15.875 * sign
+    return x.to(BF)
+
+
+# K7 (csrc/row_glue.cu): x's shape. D = 12288 takes the ring kernel, the
+# other widths the generic one. The grid holds no more blocks than fit on
+# the card (four an SM at D = 12288, eight of the generic instance), one
+# row in progress each: above about 1100 rows (D = 12288) a block walks
+# three rows or more and its ring of two rows wraps, past batch boundaries
+# where B > 1.
+GELU_QUANT_CASES = {
+    "1 row": (1, 1, 12288),
+    "300 rows": (1, 300, 12288),
+    "4608 rows": (1, 4608, 12288),
+    "ring wraps, batch 2": (2, 1501, 12288),
+    "ring wraps, B 700, S 3": (700, 3, 12288),
+    "generic (4, 3072)": (4, 3072),
+    "generic (1, 64)": (1, 64),
+    "generic, long spans": (3, 1201, 3072),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GELU_QUANT_CASES))
+def test_gelu_quant_kernel_rows(dev, case):
+    """K7 against its plain version at the JAX package's bar: codes within
+    one step, at most 10% flipped, scales within rtol 2e-2."""
+    shape = GELU_QUANT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _rows(g, dev, *shape, mean=0.0)
+    got = tfg._gelu_quant_cuda(x)
+    want = tfg.gelu_quant_plain(x)
+    _codes_close(got, want, 0.10)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-2, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["rows", "tie rows"])
+@pytest.mark.parametrize("case", list(GELU_QUANT_CASES))
+def test_gelu_quant_identity_instance_is_exact(dev, case, ties):
+    """K7's quantization epilogue (one reciprocal per row, Markstein's
+    correction, rounding by adding 1.5 * 2^23) in its identity instance:
+    bit for bit the plain quantization, codes and scales, on rows over
+    four decades and on rows where every quotient is a tie. It counts no
+    launch."""
+    shape = GELU_QUANT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + ties)
+    if ties:
+        x = _tie_rows(g, dev, math.prod(shape[:-1]), shape[-1]).view(shape)
+    else:
+        x = _rows(g, dev, *shape)
+    before = dict(tfg.LAUNCHES)
+    q, a = tfg._quant_rows_cuda(x)
+    q_plain, a_plain = tfg.quant_rows_plain(x)
+    assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+    assert tfg.LAUNCHES == before
 
 
 def _gemm_inputs(g, dev, m, k, n, width=None):

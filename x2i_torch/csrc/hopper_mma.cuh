@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks for the attention kernels and the int8
-// GEMM: the warpgroup matrix product wgmma.mma_async (bf16 in, f32
+// Hopper (sm_90a) building blocks for the attention kernels, the int8
+// GEMM and the row glue kernels: the warpgroup matrix product wgmma.mma_async (bf16 in, f32
 // accumulate; int8 in, s32 accumulate) with its
 // shared-memory matrix descriptors, the 128-byte swizzle those descriptors
 // name, TMA tile loads through tensor maps over strided (B, H, S, D)

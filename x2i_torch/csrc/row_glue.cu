@@ -1,0 +1,587 @@
+// The row glue kernels of the DiT for sm_90a: K5 (LayerNorm + AdaLN
+// modulate) and K7 (tanh-gelu + per-row int8 quantization), with K7's
+// identity instance (the per-row int8 quantization alone).
+//
+// Replaces, in the JAX package's x2i_tpu/ops/fused_glue.py (all launched
+// through _rows_call, :118):
+//   * K5 _ln_mod_kernel (:84-89): for a row x of D bf16 and its batch's
+//     shift and scale rows,
+//       mean = sum(x) / D, var = sum((x - mean)^2) / D       (f32)
+//       y = bf16((x - mean) * rsqrt(var + eps))
+//       out = bf16(bf16(y * bf16(1 + scale)) + shift);
+//   * K7 _gelu_quant_kernel (:70-75): g = bf16(gelu_tanh(x)), then
+//       a = max(max|g|, 1e-6) / 127                  (f32, IEEE division)
+//       codes = clip(round_half_even(g / a), -127, 127)  (int8), a (f32).
+// The rounding points are those of the plain versions beside the wrappers
+// (x2i_torch/ops/fused_glue.py): each bf16 rounding as PyTorch's bf16
+// arithmetic rounds (the f32 result, rounded to nearest even), products and
+// sums with __fmul_rn / __fadd_rn so that nothing contracts into an FMA.
+//
+// What bounds them on an H100: bytes, with K7's instructions close behind.
+// Each reads its bf16 rows once and writes them once (bf16 for K5; int8
+// and one f32 per row for K7): at 4608 rows 17 us for K5 (D = 3072) and 51
+// us for K7 (D = 12288) at 3.35 TB/s. They issue about 23 (K5) and 30 (K7)
+// instructions per element (PERF.md, from the SASS), which for K7 takes
+// about as long again on 132 SMs. So the design keeps enough row bytes in
+// flight on every SM, enough warps to hide K7's arithmetic, and few
+// operations per element on the special-function and conversion pipe (16
+// per clock per SM).
+//
+// Design, both kernels:
+//   * persistent blocks: as many as fit on the card, each walking a
+//     contiguous span of rows, so that the loads of a block's next rows are
+//     in flight while its current row is reduced;
+//   * the row lives in registers between its passes, loaded with 16-byte
+//     accesses (neighbouring threads on neighbouring 16 bytes), and leaves
+//     with 16-byte stores;
+//   * reductions are warp shuffles; K7 exchanges its warps' maxima once.
+// K5 (D = 3072): one warp per row, 12 chunks of 8 values a lane. A block of
+// eight warps stages its batch's bf16(1 + scale) and shift rows (12 KB) in
+// shared memory once, and again only where its span crosses into the next
+// batch (the modulation rows are (B, D), strided as chunk(6) gives them).
+// A register double buffer keeps the next row in flight: a warp issues
+// the next row's loads before the current row's sums. (A per-warp ring of
+// two 6 KB rows in shared memory filled by 1-d cp.async.bulk on an mbarrier
+// ran level with it, within 1.2% at every row count of the DiT on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md), and was dropped.)
+// K7 (D = 12288): two warpgroups per row, 48 values a thread (three pairs
+// of 16-byte chunks, so that each thread's 16 codes are contiguous); one
+// thread keeps a ring of two 24 KB rows in shared memory full with 1-d
+// cp.async.bulk copies on mbarriers, so row i + 1 is in flight while row i
+// is reduced and quantized, and four blocks (32 warps) fit on an SM. K7
+// issues about 30 instructions per element (PERF.md), so it needs the
+// warps more than a deeper ring: one warpgroup per row with a ring of
+// three rows (72 KB, two blocks an SM) was slower on an H100. The gelu values
+// are rounded to bf16 and kept packed in registers: the max pass
+// (max.xorsign.abs on bf16 pairs) and the quantize pass read the same
+// registers. The quotient g / a is Markstein's correction on a reciprocal
+// computed once per row,
+//   r = RN(1 / a); q0 = RN(g r); e = g - q0 a (exact, FMA); q = RN(q0 + e r),
+// which is RN(g / a) for r the correctly rounded reciprocal and no
+// underflow (the identity instance is held bit for bit against the plain
+// quantization, ties included). Then the sum with 1.5 * 2^23, whose low
+// byte is the code rounded half to even (|q| < 2^22), and __byte_perm
+// packs four codes a word. No clamp to [-127, 127] is needed: |g| <= max|g|
+// and a = RN(max|g| / 127) (or |g| < 1e-6 where the floor holds), so |g /
+// a| <= 127 (1 + 2^-24) and rounds to at most 127. Per element that leaves
+// two operations on the special-function pipe, the gelu's exp and division
+// (ex2 and rcp, approximate, flushing subnormals: their inputs are never
+// subnormal, and an output that would be is a gelu value of about 1e-38,
+// which rounds to code 0).
+// Other widths (any D that is a multiple of 8) take a generic instance of
+// each kernel that reads its row from memory once per pass.
+
+#include "hopper_mma.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// ------------------------------------------------------------- helpers
+
+// The two bf16 values of a packed word, as f32: the low half is the
+// element at the lower address.
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// Two f32 rounded to nearest even bf16, packed (lo at the lower address).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(static_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The rows of a (B, S, D) view with strides sxb and sxs (elements), the
+// last dim contiguous.
+struct Rows {
+  const bf16* x;
+  long long sxb, sxs;
+  int s;
+  __device__ __forceinline__ const bf16* row(int r) const {
+    const int b = r / s;
+    return x + b * sxb + (r - b * s) * sxs;
+  }
+};
+
+// This block's contiguous span [r0, r1) of `rows` rows.
+__device__ __forceinline__ void block_span(int rows, int& r0, int& r1) {
+  r0 = static_cast<int>(static_cast<long long>(rows) * blockIdx.x /
+                        gridDim.x);
+  r1 = static_cast<int>(static_cast<long long>(rows) * (blockIdx.x + 1) /
+                        gridDim.x);
+}
+
+// ------------------------------------------------------------------ K5
+
+struct LnArgs {
+  Rows x;
+  const bf16* shift;
+  const bf16* scale;
+  long long seb;  // the modulation rows' batch stride (elements)
+  bf16* out;      // (B * S, D), contiguous
+  int rows, d;
+  float eps;
+};
+
+constexpr int kLnD = 3072;                  // every FLUX width of the registry
+constexpr int kLnWarps = 8;                 // rows in progress per block
+constexpr int kLnChunks = kLnD / 8 / 32;    // 16-byte chunks per lane
+constexpr int kLnSmemBytes = 2 * kLnD * 2;  // bf16(1 + scale) and shift
+
+// bf16(1 + scale) of 8 packed values, as PyTorch's bf16 `1.0 + scale`.
+__device__ __forceinline__ uint4 one_plus(const uint4& sc) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = word(sc, i);
+    w[i] = pack_bf16(__fadd_rn(1.0f, lo_f(v)), __fadd_rn(1.0f, hi_f(v)));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Two outputs of K5 from a packed word of x, of bf16(1 + scale), of shift.
+__device__ __forceinline__ uint32_t ln_word(uint32_t x, uint32_t sc,
+                                            uint32_t sh, float mean,
+                                            float rstd) {
+  const uint32_t y = pack_bf16(__fmul_rn(__fsub_rn(lo_f(x), mean), rstd),
+                               __fmul_rn(__fsub_rn(hi_f(x), mean), rstd));
+  const uint32_t m = pack_bf16(__fmul_rn(lo_f(y), lo_f(sc)),
+                               __fmul_rn(hi_f(y), hi_f(sc)));
+  return pack_bf16(__fadd_rn(lo_f(m), lo_f(sh)), __fadd_rn(hi_f(m), hi_f(sh)));
+}
+
+__device__ __forceinline__ uint4 ln_chunk(const uint4& x, const uint4& sc,
+                                          const uint4& sh, float mean,
+                                          float rstd) {
+  return make_uint4(ln_word(x.x, sc.x, sh.x, mean, rstd),
+                    ln_word(x.y, sc.y, sh.y, mean, rstd),
+                    ln_word(x.z, sc.z, sh.z, mean, rstd),
+                    ln_word(x.w, sc.w, sh.w, mean, rstd));
+}
+
+__device__ __forceinline__ float chunk_sum(const uint4& v) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s += lo_f(word(v, i)) + hi_f(word(v, i));
+  return s;
+}
+
+__device__ __forceinline__ float chunk_sq(const uint4& v, float mean) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = lo_f(word(v, i)) - mean, b = hi_f(word(v, i)) - mean;
+    s = fmaf(a, a, fmaf(b, b, s));
+  }
+  return s;
+}
+
+// One row of K5 held by a warp (lane owns chunks lane + 32 c), to `out`.
+__device__ __forceinline__ void ln_row(const uint4 (&v)[kLnChunks],
+                                       const uint4* msc, const uint4* msh,
+                                       float eps, int lane, bf16* out) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) sum += chunk_sum(v[c]);
+  const float mean = warp_sum(sum) * (1.0f / kLnD);
+  float sq = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) sq += chunk_sq(v[c], mean);
+  const float rstd = rsqrtf(warp_sum(sq) * (1.0f / kLnD) + eps);
+  uint4* o = reinterpret_cast<uint4*>(out);
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) {
+    const int at = c * 32 + lane;
+    o[at] = ln_chunk(v[c], msc[at], msh[at], mean, rstd);
+  }
+}
+
+// K5 at D = 3072: a block of eight warps, one row per warp at a time.
+__global__ void __launch_bounds__(kLnWarps * 32)
+    ln_mod_kernel(const LnArgs p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint4* msc = reinterpret_cast<uint4*>(smem);  // bf16(1 + scale), D / 8
+  uint4* msh = msc + kLnD / 8;                  // shift
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  const int s = p.x.s;
+  for (int b = r0 / s; b * s < r1; ++b) {  // the span's batches
+    const int lo = max(r0, b * s), hi = min(r1, (b + 1) * s);
+    __syncthreads();  // every warp is done with the last batch's rows
+    for (int c = threadIdx.x; c < kLnD / 8; c += kLnWarps * 32) {
+      msc[c] = one_plus(ldg16(p.scale + b * p.seb + c * 8));
+      msh[c] = ldg16(p.shift + b * p.seb + c * 8);
+    }
+    __syncthreads();
+    // this warp's rows lo + warp + kLnWarps j, j < count
+    const int count = hi - lo > warp ? (hi - lo - warp + kLnWarps - 1) /
+                                           kLnWarps
+                                     : 0;
+    const int first = lo + warp;
+    uint4 v[kLnChunks], next[kLnChunks];
+    if (count > 0) {
+      const uint4* x = reinterpret_cast<const uint4*>(p.x.row(first));
+#pragma unroll
+      for (int c = 0; c < kLnChunks; ++c) next[c] = __ldg(x + c * 32 + lane);
+    }
+    for (int j = 0; j < count; ++j) {
+#pragma unroll
+      for (int c = 0; c < kLnChunks; ++c) v[c] = next[c];
+      if (j + 1 < count) {
+        const uint4* x = reinterpret_cast<const uint4*>(
+            p.x.row(first + (j + 1) * kLnWarps));
+#pragma unroll
+        for (int c = 0; c < kLnChunks; ++c) next[c] = __ldg(x + c * 32 + lane);
+      }
+      ln_row(v, msc, msh, p.eps, lane,
+             p.out + static_cast<long long>(first + j * kLnWarps) * kLnD);
+    }
+  }
+}
+
+// K5 at any D that is a multiple of 8: one warp per row, the row read from
+// memory once per pass, the modulation rows read beside it.
+__global__ void __launch_bounds__(kLnWarps * 32)
+    ln_mod_rows_kernel(const LnArgs p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = p.d / 8;
+  const float inv_d = 1.0f / p.d;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  for (int r = r0 + warp; r < r1; r += kLnWarps) {
+    const uint4* x = reinterpret_cast<const uint4*>(p.x.row(r));
+    const int b = r / p.x.s;
+    float sum = 0.0f;
+    for (int c = lane; c < chunks; c += 32) sum += chunk_sum(__ldg(x + c));
+    const float mean = warp_sum(sum) * inv_d;
+    float sq = 0.0f;
+    for (int c = lane; c < chunks; c += 32) sq += chunk_sq(__ldg(x + c), mean);
+    const float rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
+    uint4* o = reinterpret_cast<uint4*>(p.out + static_cast<long long>(r) *
+                                                    p.d);
+    for (int c = lane; c < chunks; c += 32)
+      o[c] = ln_chunk(__ldg(x + c),
+                      one_plus(ldg16(p.scale + b * p.seb + c * 8)),
+                      ldg16(p.shift + b * p.seb + c * 8), mean, rstd);
+  }
+}
+
+// ------------------------------------------------------------------ K7
+
+struct QuantArgs {
+  Rows x;
+  int8_t* q;  // (B * S, D), contiguous
+  float* a;   // (B * S)
+  int rows, d;
+};
+
+constexpr int kQD = 12288;                  // every FLUX MLP width
+constexpr int kQThreads = 256;              // two warpgroups per row
+constexpr int kQPairs = kQD / 16 / kQThreads;  // 16 values a pair
+constexpr int kQWarps = kQThreads / 32;
+constexpr int kQStages = 2;                 // ring rows per block
+constexpr int kQRowBytes = kQD * 2;
+constexpr int kQSmemBytes =
+    kQStages * kQRowBytes + kQStages * 8 + 2 * kQWarps * 4;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tanh-gelu 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715 x^3), in
+// the form x / (1 + exp(-2u)) (the same function), exp(t) as ex2(t log2 e)
+// and the division as a product with the reciprocal, both approximate; the
+// bf16 rounding after it absorbs most of their ulps.
+template <bool GELU>
+__device__ __forceinline__ float activation(float x) {
+  if constexpr (GELU) {
+    const float u = __fmul_rn(0.7978845608028654f,
+                              fmaf(0.044715f, __fmul_rn(__fmul_rn(x, x), x),
+                                   x));
+    const float e =
+        ex2_approx(__fmul_rn(__fmul_rn(-2.0f, u), 1.4426950408889634f));
+    return __fmul_rn(x, rcp_approx(__fadd_rn(1.0f, e)));
+  } else {
+    return x;
+  }
+}
+
+// The activation of a packed word, rounded to bf16, packed.
+template <bool GELU>
+__device__ __forceinline__ uint32_t act_word(uint32_t w) {
+  if constexpr (GELU)
+    return pack_bf16(activation<true>(lo_f(w)), activation<true>(hi_f(w)));
+  else
+    return w;
+}
+
+// The running max of |values| over bf16 pairs: max(|m|, |g|) per half (its
+// sign is not |.|'s: take the magnitude at the end, with row_amax).
+__device__ __forceinline__ uint32_t absmax2(uint32_t m, uint32_t g) {
+  uint32_t d;
+  asm("max.xorsign.abs.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(m), "r"(g));
+  return d;
+}
+
+__device__ __forceinline__ float row_amax(uint32_t m) {
+  return fmaxf(fabsf(lo_f(m)), fabsf(hi_f(m)));
+}
+
+// The f32 image of v / a rounded to an integer: its low byte is the int8
+// code round_half_even(v / a), in [-127, 127] for |v| <= 127 a.
+__device__ __forceinline__ uint32_t code_bits(float v, float a, float r) {
+  const float q0 = __fmul_rn(v, r);
+  const float e = fmaf(-q0, a, v);
+  return __float_as_uint(__fadd_rn(fmaf(e, r, q0), 12582912.0f));  // 1.5*2^23
+}
+
+// Four codes of two packed words, one per byte.
+__device__ __forceinline__ uint32_t code_word(uint32_t w0, uint32_t w1,
+                                              float a, float r) {
+  const uint32_t c01 = __byte_perm(code_bits(lo_f(w0), a, r),
+                                   code_bits(hi_f(w0), a, r), 0x0040);
+  const uint32_t c23 = __byte_perm(code_bits(lo_f(w1), a, r),
+                                   code_bits(hi_f(w1), a, r), 0x0040);
+  return __byte_perm(c01, c23, 0x5410);
+}
+
+// The row scale a = max(amax, 1e-6) / 127 (IEEE) and its reciprocal.
+__device__ __forceinline__ float2 row_scale(float amax) {
+  const float a = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
+  return make_float2(a, __frcp_rn(a));
+}
+
+// The block's max over its warps' `m`, through red[kQWarps] (a block
+// barrier).
+__device__ __forceinline__ float block_max(float m, float* red, int warp,
+                                           int lane) {
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kQWarps; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// K7 at D = 12288: two warpgroups per row, fed by a ring of two rows.
+template <bool GELU>
+__global__ void __launch_bounds__(kQThreads) quant_kernel(const QuantArgs p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint4* ring = reinterpret_cast<const uint4*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kQStages * kQRowBytes);
+  float* red = reinterpret_cast<float*>(full + kQStages);  // [2][kQWarps]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  const int count = r1 - r0;
+  auto fill = [&](int j) {
+    const int st = j % kQStages;
+    mbar_arrive_expect_tx(&full[st], kQRowBytes);
+    bulk_load(smem_u32(smem + st * kQRowBytes), p.x.row(r0 + j), kQRowBytes,
+              &full[st]);
+  };
+  if (t == 0) {
+#pragma unroll
+    for (int st = 0; st < kQStages; ++st) mbar_init(&full[st], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0)
+    for (int j = 0; j < min(kQStages, count); ++j) fill(j);
+  for (int j = 0; j < count; ++j) {
+    const int st = j % kQStages;
+    mbar_wait(&full[st], (j / kQStages) & 1);
+    // thread t's values: pair i is elements 16 (128 i + t) .. + 15
+    const uint4* x = ring + st * (kQD / 8);
+    uint32_t g[kQPairs][8];
+    uint32_t m = 0;
+#pragma unroll
+    for (int i = 0; i < kQPairs; ++i) {
+      const uint4 v0 = x[2 * (i * kQThreads + t)];
+      const uint4 v1 = x[2 * (i * kQThreads + t) + 1];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        g[i][w] = act_word<GELU>(word(w < 4 ? v0 : v1, w & 3));
+        m = absmax2(m, g[i][w]);
+      }
+    }
+    // the barrier also tells thread 0 that every thread is done with the
+    // stage, which it refills
+    const float amax =
+        block_max(row_amax(m), red + (j & 1) * kQWarps, warp, lane);
+    if (t == 0 && j + kQStages < count) fill(j + kQStages);
+    const float2 ar = row_scale(amax);
+    const long long row = r0 + j;
+    uint4* q = reinterpret_cast<uint4*>(p.q + row * kQD);
+#pragma unroll
+    for (int i = 0; i < kQPairs; ++i)
+      q[i * kQThreads + t] = make_uint4(
+          code_word(g[i][0], g[i][1], ar.x, ar.y),
+          code_word(g[i][2], g[i][3], ar.x, ar.y),
+          code_word(g[i][4], g[i][5], ar.x, ar.y),
+          code_word(g[i][6], g[i][7], ar.x, ar.y));
+    if (t == 0) p.a[row] = ar.x;
+  }
+}
+
+// K7 at any D that is a multiple of 8: one warpgroup per row, the row read
+// from memory once for the max and once for the codes (the activation
+// computed again, to the same bits).
+template <bool GELU>
+__global__ void __launch_bounds__(kQThreads)
+    quant_rows_kernel(const QuantArgs p) {
+  __shared__ float red[2][kQWarps];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int chunks = p.d / 8;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  for (int r = r0; r < r1; ++r) {
+    const uint4* x = reinterpret_cast<const uint4*>(p.x.row(r));
+    uint32_t m = 0;
+    for (int c = t; c < chunks; c += kQThreads) {
+      const uint4 v = __ldg(x + c);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) m = absmax2(m, act_word<GELU>(word(v, w)));
+    }
+    const float2 ar =
+        row_scale(block_max(row_amax(m), red[r & 1], warp, lane));
+    uint2* q = reinterpret_cast<uint2*>(p.q + static_cast<long long>(r) * p.d);
+    for (int c = t; c < chunks; c += kQThreads) {
+      const uint4 v = __ldg(x + c);
+      q[c] = make_uint2(
+          code_word(act_word<GELU>(v.x), act_word<GELU>(v.y), ar.x, ar.y),
+          code_word(act_word<GELU>(v.z), act_word<GELU>(v.w), ar.x, ar.y));
+    }
+    if (t == 0) p.a[r] = ar.x;
+  }
+}
+
+// ------------------------------------------------------------- launches
+
+constexpr int kMaxDevices = 64;
+
+// Launch `kernel` over p.rows rows at `per_block` rows per block, on no
+// more blocks than fit on the current device at once: its occupancy there,
+// found once per device in `capacity[kMaxDevices]` (where its dynamic
+// shared memory above 48 KB is allowed first).
+template <typename Kernel, typename Args>
+cudaError_t launch(Kernel kernel, int threads, int smem, int per_block,
+                   int* capacity, const Args& p, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (capacity[dev] == 0) {
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    capacity[dev] = sms * per_sm;
+  }
+  const int blocks =
+      std::min(capacity[dev], (p.rows + per_block - 1) / per_block);
+  kernel<<<blocks, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K5. x (B, S, D) bf16 with strides sxb, sxs (elements) and a contiguous
+// last dim; shift and scale (B, D) bf16 at batch stride seb; out (B, S, D)
+// contiguous. D = 3072 takes the fast kernel, any other D the generic one.
+// The wrapper (x2i_torch/ops/fused_glue.py) checks D % 8 == 0 and 16-byte
+// aligned row starts. Returns the cudaError_t of the launch.
+extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
+                          const void* shift, const void* scale, long long seb,
+                          void* out, int b, int s, int d, float eps,
+                          void* stream) {
+  if (b < 1 || s < 1 || d < 8 || d % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LnArgs p;
+  p.x = Rows{static_cast<const bf16*>(x), sxb, sxs, s};
+  p.shift = static_cast<const bf16*>(shift);
+  p.scale = static_cast<const bf16*>(scale);
+  p.seb = seb;
+  p.out = static_cast<bf16*>(out);
+  p.rows = b * s;
+  p.d = d;
+  p.eps = eps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int cap_fast[kMaxDevices] = {}, cap_rows[kMaxDevices] = {};
+  const cudaError_t err =
+      d == kLnD ? launch(ln_mod_kernel, kLnWarps * 32, kLnSmemBytes, kLnWarps,
+                         cap_fast, p, st)
+                : launch(ln_mod_rows_kernel, kLnWarps * 32, 0, kLnWarps,
+                         cap_rows, p, st);
+  return static_cast<int>(err);
+}
+
+// K7 (`gelu` 1) or its identity instance (`gelu` 0). x as for K5; q (B * S,
+// D) int8 and a (B * S) f32, contiguous. D = 12288 takes the ring kernel,
+// any other D that is a multiple of 8 the generic one.
+extern "C" int x2i_gelu_quant(const void* x, long long sxb, long long sxs,
+                              void* q, void* a, int b, int s, int d, int gelu,
+                              void* stream) {
+  if (b < 1 || s < 1 || d < 8 || d % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  QuantArgs p;
+  p.x = Rows{static_cast<const bf16*>(x), sxb, sxs, s};
+  p.q = static_cast<int8_t*>(q);
+  p.a = static_cast<float*>(a);
+  p.rows = b * s;
+  p.d = d;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int cap[2][2][kMaxDevices] = {};  // [gelu][fast][device]
+  const bool fast = d == kQD;
+  int* c = cap[gelu ? 1 : 0][fast ? 1 : 0];
+  cudaError_t err;
+  if (fast)
+    err = gelu ? launch(quant_kernel<true>, kQThreads, kQSmemBytes, 1, c, p,
+                        st)
+               : launch(quant_kernel<false>, kQThreads, kQSmemBytes, 1, c, p,
+                        st);
+  else
+    err = gelu ? launch(quant_rows_kernel<true>, kQThreads, 0, 1, c, p, st)
+               : launch(quant_rows_kernel<false>, kQThreads, 0, 1, c, p, st);
+  return static_cast<int>(err);
+}

@@ -9,8 +9,8 @@ by one per launch.
 
 ``ptxas_report`` reads what ``ptxas -v`` said of a build: each kernel's
 registers and spills, and whether its ``wgmma`` pipeline was serialized;
-``build_faults`` lists what in it would leave a ``wgmma`` kernel far below
-the tensor cores' rate with no other sign. ``refuse_grad`` is the guard of
+``build_faults`` lists what in it would leave a kernel right but several
+times slower with no other sign. ``refuse_grad`` is the guard of
 every kernel wrapper without a backward.
 """
 
@@ -41,16 +41,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 class CudaLibrary:
     """One source file's library (built once per process) and its launch
     counts. ``bind(lib)`` sets the ctypes signatures of its C functions.
-    ``wgmma_kernels`` names the source's kernels that are built on
-    ``wgmma``, whose build ``build_faults`` checks."""
+    The build gate (``build_faults`` on ``gated_kernels``) looks for every
+    kernel of ``wgmma_kernels`` (those built on ``wgmma``) and of
+    ``checked_kernels`` (the others) alike: the split names what each
+    kernel is built on and changes nothing the gate does."""
 
     def __init__(self, source: str, stem: str, kernels: Sequence[str],
                  bind: Callable[[ctypes.CDLL], None],
-                 wgmma_kernels: Sequence[str] = ()):
+                 wgmma_kernels: Sequence[str] = (),
+                 checked_kernels: Sequence[str] = ()):
         self.src = CSRC / source
         self.stem = stem
         self.launches = {name: 0 for name in kernels}
         self.wgmma_kernels = tuple(wgmma_kernels)
+        self.gated_kernels = self.wgmma_kernels + tuple(checked_kernels)
         self.build_log = ""
         self._bind = bind
         self._lib = None
@@ -132,14 +136,13 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
-def build_faults(build_log: str, wgmma_kernels: Sequence[str]) -> list:
-    """What in a library's ptxas log leaves its ``wgmma`` kernels right
-    but several times slower, with no other sign: spills in any kernel, a
-    serialized ``wgmma`` pipeline, an ignored ``setmaxnreg`` (its consumers
-    would keep a third of the register file and spill), and a log that
-    names no kernel of ``wgmma_kernels`` or gives a kernel no register
-    count (a report that cannot be read). -> one line per fault; none for
-    a clean build."""
+def build_faults(build_log: str, kernels: Sequence[str]) -> list:
+    """What in a library's ptxas log leaves its kernels right but several
+    times slower, with no other sign: spills in any kernel, a serialized
+    ``wgmma`` pipeline, an ignored ``setmaxnreg`` (its consumers would keep
+    a third of the register file and spill), and a log that names no
+    kernel of ``kernels`` or gives a kernel no register count (a report
+    that cannot be read). -> one line per fault; none for a clean build."""
     report = ptxas_report(build_log)
     faults = [f"{name}: {r['spill_bytes']} bytes of spills"
               for name, r in report.items() if r["spill_bytes"]]
@@ -149,7 +152,7 @@ def build_faults(build_log: str, wgmma_kernels: Sequence[str]) -> list:
                if r["registers"] is None]
     if "'setmaxnreg' ignored" in build_log:
         faults.append("ptxas ignored setmaxnreg")
-    faults += [f"the log names no kernel {kernel}" for kernel in wgmma_kernels
+    faults += [f"the log names no kernel {kernel}" for kernel in kernels
                if not any(kernel in name for name in report)]
     return faults
 

@@ -1,5 +1,6 @@
-"""Row-local glue kernels of the DiT in Triton, their plain PyTorch
-versions, and the wrappers that pick between them.
+"""Row-local glue kernels of the DiT (K5 and K7 in CUDA C++, K6 and K8 in
+Triton), their plain PyTorch versions, and the wrappers that pick between
+them.
 
 Counterparts of the TPU kernels of ``x2i_tpu/ops/fused_glue.py``, all
 launched there through ``_rows_call``:
@@ -15,9 +16,8 @@ launched there through ``_rows_call``:
 The LayerNorm has f32 row statistics (eps 1e-6, no affine) and rounds the
 normalized row to x.dtype before ``* (1 + scale) + shift``, the rounding
 point of the unfused path, whose ``layer_norm`` returns the input dtype.
-K5 and K6 share one Triton body for it, as the TPU kernels share
-``_ln_modulate``, so that their numerics cannot drift apart. The
-quantization is the w8a8 mode's dynamic one (``x2i_tpu/ops/quant.py:39-42``)::
+The quantization is the w8a8 mode's dynamic one
+(``x2i_tpu/ops/quant.py:39-42``)::
 
     a_scale = max(max|row|, 1e-6) / 127        (f32, IEEE division)
     codes   = clip(round_half_even(row / a_scale), -127, 127)  (int8)
@@ -30,17 +30,23 @@ it once (bf16, or int8 plus a scale per row) against a few operations per
 byte, so memory bandwidth does: at 4608 rows about 17 us for K5, 13 us
 for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s).
 
-Design: one Triton program per (batch, token) row, the whole row in one
-masked power-of-two block, so each byte is read once and written once,
-which is all the bound allows. Rounding to bf16 is done with integer ops
-on the f32 bits, so that the compiler can fold no f32 -> bf16 -> f32 round
-trip away; the quantization's divisions are ``div_rn`` (Triton's ``/``
-on f32 is an approximate division) and its rounding is ``rint`` (a float
--> int cast truncates). K7's gelu alone uses the approximate ``/`` and
-``exp``: the bf16 rounding after it absorbs most of their ulps, and the
-JAX package's bar for K7 (codes within one step, at most 10% flipped)
-covers the rest. Triton is imported inside the launching function: a machine
-without it can still import this module and run the plain versions.
+K5 and K7 are ``csrc/row_glue.cu`` (library ``ROW_GLUE``; the design is
+in its header): persistent blocks walking spans of rows with the next
+rows' loads in flight, a warp per 3072-wide row for K5 and two
+warpgroups per 12288-wide row for K7, other widths (multiples of 8) through a
+generic instance of each. ``check_row_args`` is what they take. K7's
+identity instance, the quantization alone, is held bit for bit against
+``quant_rows_plain`` through ``_quant_rows_cuda``; it is off the main
+path and counts no launch.
+
+K6 and K8 are one Triton program per (batch, token) row, the whole row
+in one masked power-of-two block. Rounding to bf16 is done with integer
+ops on the f32 bits, so that the compiler can fold no f32 -> bf16 -> f32
+round trip away; the quantization's divisions are ``div_rn`` (Triton's
+``/`` on f32 is an approximate division) and its rounding is ``rint`` (a
+float -> int cast truncates). Triton is imported inside the launching
+function, and the CUDA library is built at its first launch: a machine
+without either can still import this module and run the plain versions.
 
 Every wrapper takes its plain version for a CPU tensor or for
 ``impl="plain"`` (the plain route of ``FluxConfig.quant_impl``), and
@@ -51,16 +57,36 @@ autograd records and an input requires grad, on the CPU as on the card.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
 import torch
 import torch.nn.functional as F
 
-from x2i_torch.ops.cuda_lib import BUILD_DIR, refuse_grad
+from x2i_torch.ops.cuda_lib import BUILD_DIR, CudaLibrary, refuse_grad
 
+# every glue kernel's launches, K5's and K7's (CUDA) with K6's and K8's
+# (Triton)
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
             "quant_rows": 0}
+
+
+def _bind(lib):
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.x2i_ln_mod.argtypes = [p, ll, ll, p, p, ll, p, i, i, i,
+                               ctypes.c_float, p]
+    lib.x2i_ln_mod.restype = i
+    lib.x2i_gelu_quant.argtypes = [p, ll, ll, p, p, i, i, i, i, p]
+    lib.x2i_gelu_quant.restype = i
+
+
+# K5 and K7; their launches count in LAUNCHES. The build gate checks every
+# kernel of the library for spills.
+ROW_GLUE = CudaLibrary(
+    "row_glue.cu", "libx2i_row_glue", (), _bind,
+    checked_kernels=("ln_mod_kernel", "ln_mod_rows_kernel", "quant_kernel",
+                     "quant_rows_kernel"))
 
 
 def reset_launches():
@@ -139,9 +165,9 @@ def _triton_kernel():
     @triton.jit
     def ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq, dim, stride_xb,
                     stride_xs, stride_eb, eps, BLOCK_D: tl.constexpr):
-        # the shared LN + modulate body of K5 and K6: the modulated row in
-        # f32, each intermediate rounded to bf16 where the plain version
-        # rounds it in x.dtype
+        # K6's LN + modulate body: the modulated row in f32, each
+        # intermediate rounded to bf16 where the plain version rounds it in
+        # x.dtype (K5 in csrc/row_glue.cu rounds at the same points)
         x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
                                      stride_xs, BLOCK_D)
         mean = tl.sum(x, axis=0) / dim
@@ -165,17 +191,6 @@ def _triton_kernel():
         tl.store(s_ptr + row, a)
 
     @triton.jit
-    def ln_mod_kernel(x_ptr, shift_ptr, scale_ptr, out_ptr, seq, dim,
-                      stride_xb, stride_xs, stride_eb, eps,
-                      BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
-        o, cols, valid = ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq,
-                                     dim, stride_xb, stride_xs, stride_eb,
-                                     eps, BLOCK_D)
-        tl.store(out_ptr + row * dim + cols,
-                 o.to(out_ptr.dtype.element_ty), mask=valid)
-
-    @triton.jit
     def ln_mod_quant_kernel(x_ptr, shift_ptr, scale_ptr, q_ptr, s_ptr, seq,
                             dim, stride_xb, stride_xs, stride_eb, eps,
                             BLOCK_D: tl.constexpr):
@@ -186,21 +201,6 @@ def _triton_kernel():
         quantize_row(o, valid, cols, row, dim, q_ptr, s_ptr)
 
     @triton.jit
-    def gelu_quant_kernel(x_ptr, q_ptr, s_ptr, seq, dim, stride_xb,
-                          stride_xs, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
-        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
-                                     stride_xs, BLOCK_D)
-        # the tanh form 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715
-        # x^3), written as x / (1 + exp(-2u)), which is the same function:
-        # libdevice's tanhf made the kernel 1.4x slower on an H100; the
-        # approximate division and exp cost ulps that the bf16 rounding
-        # after them mostly absorbs (not div_rn: K7's bar allows a flip)
-        inner = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
-        g = round_bf16(x / (1.0 + tl.exp(-2.0 * inner)))
-        quantize_row(g, valid, cols, row, dim, q_ptr, s_ptr)
-
-    @triton.jit
     def quant_rows_kernel(x_ptr, q_ptr, s_ptr, seq, dim, stride_xb,
                           stride_xs, BLOCK_D: tl.constexpr):
         row = tl.program_id(0)
@@ -208,15 +208,12 @@ def _triton_kernel():
                                      stride_xs, BLOCK_D)
         quantize_row(x, valid, cols, row, dim, q_ptr, s_ptr)
 
-    return triton, {"ln_mod": ln_mod_kernel,
-                    "ln_mod_quant": ln_mod_quant_kernel,
-                    "gelu_quant": gelu_quant_kernel,
+    return triton, {"ln_mod_quant": ln_mod_quant_kernel,
                     "quant_rows": quant_rows_kernel}
 
 
 def _launch_config(triton, dim):
-    # 8 warps for the 3072-wide rows, 32 for gelu's 12288-wide ones (faster
-    # than 16 on an H100: fewer elements held by each thread)
+    # a warp per 512 columns of the block: 8 for the 3072-wide rows
     block = triton.next_power_of_2(dim)
     return dict(BLOCK_D=block, num_warps=max(1, min(32, block // 512)))
 
@@ -245,7 +242,7 @@ def _extras(name, x, shift, scale):
 
 
 def _run_quant(name, x, *extra, eps=None):
-    """Launch K6, K7 or K8 over (B, S, D) or (N, D) x -> (int8 codes of
+    """Launch K6 or K8 over (B, S, D) or (N, D) x -> (int8 codes of
     x's shape, f32 row scales (..., 1))."""
     shape = x.shape
     x = _rows3(name, x)
@@ -264,17 +261,75 @@ def _run_quant(name, x, *extra, eps=None):
     return q, a
 
 
+def check_row_args(name: str, d: int, rows: int, strides, ptrs):
+    """The widths and layouts that K5 and K7 take: at least one row, D a
+    multiple of 8, and every row of x (and of shift and scale) starting on
+    a 16-byte boundary: each of ``ptrs`` 16-byte aligned and each stride
+    of ``strides``, given as (size, stride in bf16 elements) of a dim,
+    a multiple of 8 where the dim's size is above 1. Raises ValueError
+    otherwise."""
+    if rows < 1 or d < 8 or d % 8:
+        raise ValueError(f"{name} kernel: unsupported shape: {rows} rows of "
+                         f"D = {d} (D must be a multiple of 8)")
+    if (any(size > 1 and stride % 8 for size, stride in strides)
+            or any(p % 16 for p in ptrs)):
+        raise ValueError(f"{name} kernel: rows must start on 16-byte "
+                         f"boundaries, got (size, stride) {list(strides)} "
+                         f"and addresses {[p % 16 for p in ptrs]} mod 16")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_launch(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
 def _ln_mod_cuda(x, shift, scale, eps):
     x = _rows3("ln_mod", x)
     shift, scale = _extras("ln_mod", x, shift, scale)
     b, s, d = x.shape
-    triton, kernels = _triton_kernel()
+    check_row_args("ln_mod", d, b * s,
+                   [(b, x.stride(0)), (s, x.stride(1)), (b, shift.stride(0))],
+                   [x.data_ptr(), shift.data_ptr(), scale.data_ptr()])
     out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
-    kernels["ln_mod"][(b * s,)](x, shift, scale, out, s, d, x.stride(0),
-                                x.stride(1), shift.stride(0), eps,
-                                **_launch_config(triton, d))
+    _check_launch("ln_mod", ROW_GLUE.lib().x2i_ln_mod(
+        x.data_ptr(), x.stride(0), x.stride(1), shift.data_ptr(),
+        scale.data_ptr(), shift.stride(0), out.data_ptr(), b, s, d, eps,
+        _stream(x)))
     LAUNCHES["ln_mod"] += 1
     return out
+
+
+def _quant_cuda(name, x, gelu: bool):
+    """Launch K7 (``gelu``) or its identity instance over (B, S, D) or
+    (N, D) x -> (int8 codes of x's shape, f32 row scales (..., 1)); counts
+    nothing."""
+    shape = x.shape
+    x = _rows3(name, x)
+    b, s, d = x.shape
+    check_row_args(name, d, b * s, [(b, x.stride(0)), (s, x.stride(1))],
+                   [x.data_ptr()])
+    q = torch.empty(shape, dtype=torch.int8, device=x.device)
+    a = torch.empty((*shape[:-1], 1), dtype=torch.float32, device=x.device)
+    _check_launch(name, ROW_GLUE.lib().x2i_gelu_quant(
+        x.data_ptr(), x.stride(0), x.stride(1), q.data_ptr(), a.data_ptr(),
+        b, s, d, int(gelu), _stream(x)))
+    return q, a
+
+
+def _gelu_quant_cuda(x):
+    out = _quant_cuda("gelu_quant", x, True)
+    LAUNCHES["gelu_quant"] += 1
+    return out
+
+
+def _quant_rows_cuda(x):
+    """K7's identity instance: the function of ``quant_rows_plain`` (and
+    of K8), off the main path, launched by the checks alone."""
+    return _quant_cuda("quant_rows (K7 identity)", x, False)
 
 
 def _plain(name, impl, *tensors):
@@ -289,7 +344,7 @@ def _plain(name, impl, *tensors):
 def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
            eps: float = 1e-6) -> torch.Tensor:
     """K5: modulate(layer_norm(x), shift, scale) in one pass, x.dtype out.
-    x (B, S, D); shift/scale (B, D). A CUDA tensor launches the Triton
+    x (B, S, D); shift/scale (B, D). A CUDA tensor launches the CUDA
     kernel (which raises on what it does not take); a CPU tensor takes
     ``ln_mod_plain``."""
     if _plain("ln_mod", "auto", x, shift, scale):
@@ -311,7 +366,7 @@ def gelu_quant(x: torch.Tensor, impl: str = "auto"):
     (B, S, D) or (N, D)."""
     if _plain("gelu_quant", impl, x):
         return gelu_quant_plain(x)
-    return _run_quant("gelu_quant", x)
+    return _gelu_quant_cuda(x)
 
 
 def quant_rows(x: torch.Tensor, impl: str = "auto"):

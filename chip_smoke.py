@@ -7,8 +7,7 @@ Phases, each printing one JSON line per record:
 
 1. build: compile the CUDA sources (csrc/flash_fwd.cu,
    csrc/flash_chunked.cu, csrc/flash_bwd.cu, csrc/int8_gemm.cu and
-   csrc/row_glue.cu, one nvcc each, started together) while the Triton
-   glue kernels (ln_mod_quant, quant_rows) compile, all from the sources
+   csrc/row_glue.cu, one nvcc each, started together) from the sources
    in this checkout; print what ptxas said of every kernel (registers,
    spills, serialized wgmma) and fail on a spill, a serialized wgmma
    pipeline, an ignored setmaxnreg or a kernel missing from the log in
@@ -18,9 +17,9 @@ Phases, each printing one JSON line per record:
    plain version and, as a yardstick, the one PyTorch call that computes
    the same function (device time, see ``kernel_ms``), the K1 records
    with their TFLOP/s and share of the bound, K1b's with the host time
-   of one call; K5 and K7 with their share of the bound, K7 beside its
-   identity instance held bit for bit against the plain quantization; the
-   attention
+   of one call; K5-K8 with their share of the bound, K8 bit for bit
+   against the plain quantization at every width of the w8a8 path and on
+   tie rows, K6 bit for bit K8 after K5; the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention; the int8 GEMM at the
@@ -83,7 +82,6 @@ FLASH_CHUNKED_SRC = "x2i_torch/csrc/flash_chunked.cu"
 FLASH_BWD_SRC = "x2i_torch/csrc/flash_bwd.cu"
 GEMM_SRC = "x2i_torch/csrc/int8_gemm.cu"
 ROW_GLUE_SRC = "x2i_torch/csrc/row_glue.cu"
-GLUE_SRC = "x2i_torch/ops/fused_glue.py"
 TPU_FLASH = "x2i_tpu/ops/flash_attention.py"
 TPU_GLUE = "x2i_tpu/ops/fused_glue.py"
 
@@ -200,8 +198,6 @@ def nbytes(*tensors) -> int:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    import torch
-    from x2i_torch.ops import fused_glue as fg
     from x2i_torch.ops.cuda_lib import build_faults, ptxas_report
 
     t0 = time.perf_counter()
@@ -210,19 +206,11 @@ def phase_build():
         builds = [pool.submit(lambda lib=lib: (lib.lib(),
                                                time.perf_counter() - t0))
                   for lib in libs]
-        # meanwhile the Triton kernels compile at their first launches
-        x = torch.zeros((1, 128, 3072), dtype=torch.bfloat16, device="cuda")
-        e = torch.zeros((1, 3072), dtype=torch.bfloat16, device="cuda")
-        fg.ln_mod_quant(x, e, e)
-        fg.quant_rows(x)
-        torch.cuda.synchronize()
-        triton_s = time.perf_counter() - t0
         nvcc_s = [f.result()[1] for f in builds]
     # per library and kernel: registers, spill bytes, serialized wgmma
     ptxas = {lib.src.name: ptxas_report(lib.build_log) for lib in libs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(zip([lib.src.name for lib in libs], nvcc_s)),
-          "triton_seconds": triton_s,
           "libraries": [lib.library_path().name for lib in libs],
           "ptxas": ptxas})
     # every library: a spill, a serialized wgmma pipeline or an ignored
@@ -737,35 +725,42 @@ def phase_kernels(seed: int):
     recs = {**flash, "ln_mod": ln}
     check_training_attention(g, recs)
     check_chunked_attention(g, recs)
-    check_glue(randn, rows, recs)
-    check_quant_identity(g, rows, recs)
+    check_glue(g, randn, rows, recs)
     check_gemms(g, rows, recs)
     return recs
 
 
-def check_glue(randn, rows, recs):
+def check_glue(g, randn, rows, recs):
     """K6, K7 and K8 at the DiT's row counts (4096 image, 512 text and
     4608 joint tokens), K6 also at batch 2, and K8 at the inputs of the
-    unfused w8a8 layers (each width compiles its own Triton variant). K8
-    bit for bit; K6 codes within one step with at most 1% flipped and
-    scales within one bf16 step (a normalized value can flip by one bf16
-    step, as in ln_mod); K7 the JAX package's bar, codes within one step,
-    at most 10% flipped, scales within rtol 2e-2 (its exp form of the tanh
-    against PyTorch's tanhf)."""
+    unfused w8a8 layers, at K7's width and on tie rows (every quotient k +
+    0.5: the test of the quantization epilogue's rounding). K8 bit for
+    bit, its counter stepping by one a call, and at 3072 beside the
+    generic kernel (``ms_by_body``); K6 codes within one step with at most
+    1% flipped and scales within one bf16 step (a normalized value can
+    flip by one bf16 step, as in ln_mod), and bit for bit K8 after K5; K7
+    the JAX package's bar, codes within one step, at most 10% flipped,
+    scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
+    tanhf)."""
     import torch
     from x2i_torch.ops import fused_glue as fg
 
     # x_embedder, context_embedder, the time and pooled embedders' in
     # layers, and the mods pass (4 rows; also the width of the embedders'
-    # out layers and norm_out); first, so that the last K8 record is the
-    # 4608-row one
-    cases = [("quant_rows", shape) for shape in (
-        (1, 4096, 64), (1, 512, 4096), (1, 256), (1, 768), (4, 3072))]
+    # out layers and norm_out)
+    cases = [("quant_rows", label, shape) for label, shape in (
+        ("x_embedder", (1, 4096, 64)), ("context_embedder", (1, 512, 4096)),
+        ("time in", (1, 256)), ("pooled in", (1, 768)),
+        ("mods pass", (4, 3072)))]
     for n_rows in (4096, 512, 4608):
-        cases.append(("quant_rows", (1, n_rows, 3072)))
-        cases.append(("gelu_quant", (1, n_rows, 12288)))
-        cases.append(("ln_mod_quant", (1, n_rows, 3072)))
-    cases.append(("ln_mod_quant", (2, 512, 3072)))
+        cases.append(("quant_rows", f"attention, {n_rows} rows",
+                      (1, n_rows, 3072)))
+        cases.append(("gelu_quant", f"{n_rows} rows", (1, n_rows, 12288)))
+        cases.append(("ln_mod_quant", f"{n_rows} rows", (1, n_rows, 3072)))
+    cases += [("ln_mod_quant", "batch 2", (2, 512, 3072)),
+              ("quant_rows", "K7's width, 4608 rows", (1, 4608, 12288)),
+              ("quant_rows", "tie rows", (1, 256, 12288)),
+              ("quant_rows", "tie rows", (64, 3072))]
     reason = {"ln_mod_quant": "no one PyTorch call computes LayerNorm + "
                               "modulate + int8 quantization",
               "gelu_quant": "no one PyTorch call computes gelu + int8 "
@@ -774,11 +769,14 @@ def check_glue(randn, rows, recs):
                             "quantization"}
     # per-element operations of the row pass (f32, outside tensor cores)
     ops = {"ln_mod_quant": 16, "gelu_quant": 16, "quant_rows": 5}
-    for name, shape in cases:
+    for name, label, shape in cases:
         # gelu's inputs are centred, as MLP pre-activations are: on a row
         # far below zero gelu is ~0 everywhere, the scale is the floor
         # 1e-6 / 127, and ulps of tanh become whole codes
-        x = rows(*shape, mean=0.0 if name == "gelu_quant" else 3.0)
+        if label == "tie rows":
+            x = tie_rows(g, math.prod(shape[:-1]), shape[-1]).view(shape)
+        else:
+            x = rows(*shape, mean=0.0 if name == "gelu_quant" else 3.0)
         if name == "ln_mod_quant":
             batch = shape[0]
             mod = randn(batch, 6 * 3072, scale=0.5)
@@ -786,18 +784,21 @@ def check_glue(randn, rows, recs):
         else:
             inputs = (x,)
         fn, plain = getattr(fg, name), getattr(fg, name + "_plain")
+        before = dict(fg.LAUNCHES)
         q, a = fn(*inputs)
+        counted = fg.LAUNCHES == dict(before, **{name: before[name] + 1})
         qp, ap = plain(*inputs)
         torch.cuda.synchronize()
         d = (q.int() - qp.int()).abs()
         scale_rel = ((a - ap).abs() / ap).max().item()
-        rec = {"phase": "kernels", "kernel": name, "shape": list(x.shape),
+        rec = {"phase": "kernels", "kernel": name, "case": label,
+               "shape": list(x.shape),
                # on the dequantized values
                "max_abs_err": (q.float() * a - qp.float() * ap).abs().max()
                .item(),
                "max_code_diff": int(d.max()), "codes_flipped": int(
                    (d != 0).sum()), "codes": d.numel(),
-               "max_scale_rel_err": scale_rel,
+               "max_scale_rel_err": scale_rel, "counted_once": counted,
                "ms": kernel_ms(fn, *inputs),
                "plain_ms": kernel_ms(plain, *inputs),
                "library_ms": None, "library": reason[name]}
@@ -805,16 +806,34 @@ def check_glue(randn, rows, recs):
             ops[name] * x.numel(), nbytes(*inputs, q, a), PEAK_F32_FLOPS)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["gb_per_s"] = nbytes(*inputs, q, a) / rec["ms"] / 1e6
-        emit(rec)
         flips = rec["codes_flipped"] / rec["codes"]
         ok = {"quant_rows": torch.equal(q, qp) and torch.equal(a, ap),
               "ln_mod_quant": (rec["max_code_diff"] <= 1 and flips <= 0.01
                                and scale_rel <= 2.0 ** -7),
               "gelu_quant": (rec["max_code_diff"] <= 1 and flips <= 0.10
-                             and scale_rel <= 2e-2)}[name]
+                             and scale_rel <= 2e-2)}[name] and counted
+        if name == "ln_mod_quant":
+            # one LayerNorm + modulate in K5 and K6: K6 is K8 after K5
+            q8, a8 = fg.quant_rows(fg.ln_mod(*inputs))
+            rec["k8_after_k5_exact"] = (torch.equal(q, q8)
+                                        and torch.equal(a, a8))
+            ok = ok and rec["k8_after_k5_exact"]
+        if name == "quant_rows" and shape[-1] == 3072 and len(shape) == 3:
+            # K8's warp body (launched) and the generic kernel at a block
+            # a row, as K7 takes it at this width: the same bits
+            generic = ("generic", 256)
+            qg, ag = fg._quant_rows_cuda(x, instance=generic)
+            rec["generic_exact"] = torch.equal(qg, qp) and torch.equal(ag,
+                                                                       ap)
+            rec["ms_by_body"] = {
+                "warp": rec["ms"],
+                "generic": kernel_ms(
+                    lambda t: fg._quant_rows_cuda(t, instance=generic), x)}
+            ok = ok and rec["generic_exact"]
+        emit(rec)
         if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{rec}")
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"or was not counted once: {rec}")
         recs.setdefault(name, []).append(rec)
 
 
@@ -831,42 +850,6 @@ def tie_rows(g, n: int, d: int):
     sign = torch.randint(0, 2, (n,), generator=g, device=dev) * 2 - 1
     x[torch.arange(n, device=dev), at] = 15.875 * sign
     return x.to(torch.bfloat16)
-
-
-def check_quant_identity(g, rows, recs):
-    """K7's identity instance (the ring kernel at D = 12288, the generic
-    one at 3072) bit for bit against ``quant_rows_plain``, codes and
-    scales, on rows over four decades and on tie rows: the test of its
-    quantization epilogue (Markstein's correction on one reciprocal per
-    row, the rounding by adding 1.5 * 2^23). Timed beside K8, which
-    computes the same function in Triton. Off the main path: it counts no
-    launch."""
-    import torch
-    from x2i_torch.ops import fused_glue as fg
-
-    for label, x in (("rows", rows(1, 4608, 12288)),
-                     ("tie rows", tie_rows(g, 256, 12288)[None]),
-                     ("rows", rows(1, 512, 3072)),
-                     ("tie rows", tie_rows(g, 64, 3072))):
-        q, a = fg._quant_rows_cuda(x)
-        qp, ap = fg.quant_rows_plain(x)
-        torch.cuda.synchronize()
-        rec = {"phase": "kernels", "kernel": "quant_rows[K7 identity]",
-               "case": label, "shape": list(x.shape),
-               "codes_exact": torch.equal(q, qp),
-               "scales_exact": torch.equal(a, ap),
-               "codes_differing": int((q != qp).sum()),
-               "ms": kernel_ms(fg._quant_rows_cuda, x),
-               "plain_ms": kernel_ms(fg.quant_rows_plain, x),
-               "k8_triton_ms": kernel_ms(fg.quant_rows, x)}
-        rec["bound_ms"], rec["bound_by"] = bound(
-            5.0 * x.numel(), nbytes(x, q, a), PEAK_F32_FLOPS)
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        emit(rec)
-        if not (rec["codes_exact"] and rec["scales_exact"]):
-            raise AssertionError(f"K7's identity instance is not the plain "
-                                 f"quantization bit for bit: {rec}")
-        recs.setdefault("quant_rows_identity", []).append(rec)
 
 
 # the DiT's int8 products at 1024^2: (label, M, K, N, weight width, k0,
@@ -1583,9 +1566,10 @@ KERNEL_TABLE = (
     ("flash_fwd_rope", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "bf16", 0),
     ("flash_fwd", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "bf16", 0),
     ("ln_mod", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:84", "bf16", 2),
-    ("ln_mod_quant", "triton", GLUE_SRC, f"{TPU_GLUE}:62", "w8a8", 2),
+    ("ln_mod_quant", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:62", "w8a8", 2),
     ("gelu_quant", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:70", "w8a8", -1),
-    ("quant_rows", "triton", GLUE_SRC, f"{TPU_GLUE}:78", "w8a8", -1),
+    ("quant_rows", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:78", "w8a8",
+     "attention, 4608 rows"),
     ("int8_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:94", "w8a8",
      GEMM_MAIN),
     ("flash_chunked", "cuda", FLASH_CHUNKED_SRC, f"{TPU_FLASH}:368",

@@ -164,15 +164,17 @@ def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
         assert word in fault
 
 
-# the row glue library's kernels (K5 and its generic instance, K7's gelu
-# and identity instances and their generic ones), named as nvcc 12 mangles
-# them; none is built on wgmma
+# the row glue library's kernels (K5, K6 and K8's warp body, K5's and K6's
+# generic instance, K7's and K8's ring kernel and their generic one),
+# named as nvcc 12 mangles them; none is built on wgmma
 _ROW_TU = "_ZN49_GLOBAL__N__5c1e07a2_11_row_glue_cu_8d2f6b41"
 ROW_GLUE_KERNELS = (
-    f"{_ROW_TU}13ln_mod_kernelENS_6LnArgsE",
-    f"{_ROW_TU}18ln_mod_rows_kernelENS_6LnArgsE",
-    *(f"{_ROW_TU}12quant_kernelILb{g}EEEvNS_9QuantArgsE" for g in (0, 1)),
-    *(f"{_ROW_TU}17quant_rows_kernelILb{g}EEEvNS_9QuantArgsE"
+    f"{_ROW_TU}13ln_mod_kernelENS_7RowArgsE",
+    f"{_ROW_TU}19ln_mod_quant_kernelENS_7RowArgsE",
+    f"{_ROW_TU}17quant_warp_kernelENS_7RowArgsE",
+    *(f"{_ROW_TU}18ln_mod_rows_kernelILb{q}EEEvNS_7RowArgsE" for q in (0, 1)),
+    *(f"{_ROW_TU}17quant_ring_kernelILb{g}EEEvNS_7RowArgsE" for g in (0, 1)),
+    *(f"{_ROW_TU}17quant_rows_kernelILb{g}EEEvNS_7RowArgsE"
       for g in (0, 1)))
 
 
@@ -191,10 +193,13 @@ def _row_glue_log(drop=(), spill=None, no_regs=None):
 # case -> (log, the faults by a word of each)
 ROW_GLUE_CASES = {
     "clean": (_row_glue_log(), []),
-    "K7 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[3]), ["spills"]),
+    "K7 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[6]), ["spills"]),
     "K5 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[0]), ["spills"]),
-    "K7 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[2:4]),
-                   ["quant_kernel"]),
+    "K6 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[1]), ["spills"]),
+    "K7 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[5:7]),
+                   ["quant_ring_kernel"]),
+    "K8 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[2]),
+                   ["quant_warp_kernel"]),
     "no register count": (_row_glue_log(no_regs=ROW_GLUE_KERNELS[0]),
                           ["register count"]),
 }
@@ -202,9 +207,9 @@ ROW_GLUE_CASES = {
 
 @pytest.mark.parametrize("case", list(ROW_GLUE_CASES))
 def test_build_faults_of_the_row_glue_library(case):
-    """The build gate on K5's and K7's library, whose kernels are not built
-    on wgmma: a spill in any of them fails the build, as does a kernel the
-    log does not name."""
+    """The build gate on the row glue library (K5-K8), whose kernels are not
+    built on wgmma: a spill in any of them fails the build, as does a
+    kernel the log does not name."""
     from x2i_torch.ops import fused_glue as tfg
     log, want = ROW_GLUE_CASES[case]
     faults = cuda_lib.build_faults(log, tfg.ROW_GLUE.gated_kernels)
@@ -246,8 +251,13 @@ def test_row_glue_library_gates_every_kernel():
     from x2i_torch.ops import fused_glue as tfg
     assert tfg.ROW_GLUE.wgmma_kernels == ()
     assert tfg.ROW_GLUE.gated_kernels == (
-        "ln_mod_kernel", "ln_mod_rows_kernel", "quant_kernel",
-        "quant_rows_kernel")
+        "ln_mod_kernel", "ln_mod_quant_kernel", "quant_warp_kernel",
+        "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel")
+    # no gated name is a part of another kernel's, so each names its own
+    for gated in tfg.ROW_GLUE.gated_kernels:
+        assert [n for n in ROW_GLUE_KERNELS
+                if gated in n] == [n for n in ROW_GLUE_KERNELS
+                                   if f"{len(gated)}{gated}" in n]
     assert tfg.ROW_GLUE.src.name == "row_glue.cu" and tfg.ROW_GLUE.src.exists()
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under x2i_torch/, and not chip_smoke.py,
-imports jax, flax or the JAX package (x2i_tpu), at any level of a module.
+imports jax, flax or the JAX package (x2i_tpu), at any level of a module;
+and, every kernel of the port being CUDA C++, none imports triton.
 Checked on the syntax tree, so imports inside functions count too."""
 
 import ast
@@ -42,3 +43,9 @@ def test_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_no_triton_import():
+    bad = {path.relative_to(ROOT).as_posix(): m for path in FILES
+           for m in _imports(path) if m.split(".")[0] == "triton"}
+    assert not bad, f"these import triton: {bad}"

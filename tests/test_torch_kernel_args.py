@@ -1,7 +1,8 @@
 """The argument checks of the port's CUDA kernel wrappers, on the CPU: the
 shapes and layouts that the chunked flash forward K2
 (``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``) and
-the row glue kernels K5 and K7 (``ops/fused_glue.py``) take. The checks are plain functions of
+the row glue kernels K5-K8 (``ops/fused_glue.py``) take, and the width ->
+instance choice of K7 and K8. The checks are plain functions of
 shapes, strides and addresses, so they run here without a card; the
 kernels themselves are held against their plain versions by the ``cuda``
 tests in ``test_torch_kernels.py``.
@@ -171,16 +172,125 @@ def test_row_glue_args(case):
             tfg.check_row_args("ln_mod", *args)
 
 
-@pytest.mark.parametrize("kernel", ["ln_mod", "gelu_quant"])
+@pytest.mark.parametrize("kernel", ["ln_mod", "ln_mod_quant", "gelu_quant",
+                                    "quant_rows"])
 def test_row_glue_wrappers_refuse_a_width_not_a_multiple_of_8(kernel):
     """The CUDA wrappers raise ValueError on D % 8 != 0 before they build
-    or launch anything (the Triton kernels they replace took any D)."""
+    or launch anything (K6's and K8's earlier Triton kernels took any
+    D)."""
     x = torch.zeros((1, 4, 12), dtype=torch.bfloat16)
     e = torch.zeros((1, 12), dtype=torch.bfloat16)
     before = tfg.LAUNCHES[kernel]
     with pytest.raises(ValueError, match="multiple of 8"):
         if kernel == "ln_mod":
             tfg._ln_mod_cuda(x, e, e, 1e-6)
-        else:
+        elif kernel == "ln_mod_quant":
+            tfg._ln_mod_quant_cuda(x, e, e, 1e-6)
+        elif kernel == "gelu_quant":
             tfg._gelu_quant_cuda(x)
+        else:
+            tfg._quant_rows_cuda(x)
     assert tfg.LAUNCHES[kernel] == before
+    assert tfg.ROW_GLUE._lib is None
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _aligned(t):
+    """t with its storage's first element on a 16-byte boundary (a CPU
+    allocation need not be): a view into a larger buffer."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    off = (-buf.data_ptr() // t.element_size()) % 8
+    return buf[off:off + t.numel()].view(t.shape)
+
+
+# case -> (x, shift, scale or None for K8) -> the error's words, or None
+# where K6 (with shift and scale) or K8 (without) take it
+def _k6_k8_cases():
+    x = _aligned(_bf16(2, 5, 64))
+    mod = _aligned(_bf16(2, 6 * 64))
+    wide = _aligned(_bf16(1, 5, 72))
+    odd = _aligned(_bf16(2, 6 * 64 + 4))
+    return {
+        "K6, chunk(6) rows": ((x, mod[:, :64], mod[:, 64:128]), None),
+        "K6, (N, D) x with (1, D) rows": ((x[0], mod[:1, :64],
+                                           mod[:1, 64:128]), None),
+        "K8, (B, S, D)": ((x,), None),
+        "K8, (N, D)": ((x[1],), None),
+        "K8, S slice of 16-byte rows": ((x[:, 1:4],), None),
+        "K8, D 12": ((_aligned(_bf16(3, 12)),), "multiple of 8"),
+        "K8, unaligned x": ((wide[:, :, 4:68],), "16-byte"),
+        "K8, row stride % 8": ((_aligned(_bf16(5, 68))[:, :64],),
+                               "16-byte"),
+        "K8, f32 x": ((torch.zeros(4, 64),), "bf16"),
+        "K8, last dim strided": ((_aligned(_bf16(64, 4)).t(),), "bf16"),
+        "K6, unaligned x": ((wide[:, :, 4:68][:1].expand(2, 5, 64),
+                             mod[:, :64], mod[:, 64:128]), "16-byte"),
+        "K6, modulation batch stride % 8": ((x, odd[:, :64],
+                                             odd[:, 64:128]), "16-byte"),
+        "K6, unaligned scale rows": ((x, mod[:, :64], mod[:, 68:132]),
+                                     "16-byte"),
+        "K6, shift of another shape": ((x, mod[:1, :64], mod[:, 64:128]),
+                                       "shift must be"),
+        "K6, f32 scale": ((x, mod[:, :64], torch.zeros(2, 64)),
+                          "scale must be"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_k6_k8_cases()))
+def test_k6_k8_row_views(case):
+    """Every check that K6 and K8 take, on CPU tensors: D % 8, x's and the
+    modulation rows' 16-byte starts and strides, (N, D) inputs. The
+    wrappers raise these before they build or launch anything, and never
+    drop to the plain version."""
+    args, error = _k6_k8_cases()[case]
+    name = "ln_mod_quant" if len(args) == 3 else "quant_rows"
+    if error is None:
+        x3, shift, scale = tfg.row_views(name, *args)
+        assert x3.dim() == 3 and x3.shape[-1] == args[0].shape[-1]
+        assert x3.data_ptr() == args[0].data_ptr()
+        if len(args) == 3:
+            assert shift.shape == scale.shape == (x3.shape[0], 64)
+    else:
+        with pytest.raises(ValueError, match=error):
+            tfg.row_views(name, *args)
+        with pytest.raises(ValueError, match=error):
+            if len(args) == 3:
+                tfg._ln_mod_quant_cuda(*args, 1e-6)
+            else:
+                tfg._quant_rows_cuda(*args)
+        assert tfg.ROW_GLUE._lib is None
+
+
+# width -> (K8's instance, K7's): the unfused w8a8 layers' inputs (64, 256,
+# 768, 3072, 4096), the MLP width 12288, and the narrowest widths
+QUANT_INSTANCES = {
+    8: (("generic", 1), ("generic", 1)),
+    24: (("generic", 4), ("generic", 4)),
+    64: (("generic", 8), ("generic", 8)),
+    256: (("generic", 32), ("generic", 32)),
+    768: (("generic", 128), ("generic", 128)),
+    3072: (("warp", 32), ("generic", 256)),
+    4096: (("generic", 256), ("generic", 256)),
+    12288: (("ring", 256), ("ring", 256)),
+}
+
+
+@pytest.mark.parametrize("d", list(QUANT_INSTANCES))
+def test_quant_instance_follows_the_width(d):
+    """K8 at 3072 is K6's warp body without the LayerNorm, at 12288 (with
+    K7) the ring kernel; other widths take the generic kernel at one
+    16-byte chunk a thread, up to a block of 256 a row: several rows a
+    warp below 256 values."""
+    k8, k7 = QUANT_INSTANCES[d]
+    assert tfg.quant_instance(d) == k8
+    assert tfg.quant_instance(d, gelu=True) == k7
+    for kind, lanes in (k8, k7):
+        assert kind in tfg.QUANT_KINDS
+        if kind == "generic":
+            # the least power of two of threads that holds the row's chunks
+            assert 256 % lanes == 0
+            assert lanes == 256 or (lanes * 8 >= d
+                                    and (lanes == 1 or lanes * 4 < d))

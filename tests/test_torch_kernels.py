@@ -17,8 +17,9 @@ side); the int8 GEMM's on the edges of its (128 x 256 tiles, a ring of
 128-byte K steps, few rows, koff); K5's and K7's (``csrc/row_glue.cu``)
 on the edges of their persistent row spans (a span that crosses one or
 two batch boundaries, a ring that wraps, 1 row, 4608 rows, the generic
-instances at other widths), and K7's identity instance bit for bit, on
-rows whose quotients are all ties too.
+instances at other widths), K6's on the same edges, and K8 bit for bit
+at every width of the w8a8 path, on rows whose quotients are all ties
+too.
 Tolerances: flash attention within 1e-2
 max and 1e-3 mean absolute of the plain version in bf16 (f32 accumulation in another order, p rounded
 to bf16 against a running max in the exact body), its lse within 1e-3 in
@@ -30,10 +31,11 @@ within one bf16 step (2^-7 relative, 1e-4 absolute) of the plain
 version's, and its modulate bit for bit. quant_rows (K8) bit for bit
 (its max, IEEE divisions and rounding leave no room); ln_mod_quant (K6)
 codes within one step, at most 1% flipped, scales within one bf16 step
-(a normalized value can flip by one bf16 step, as in ln_mod); gelu_quant
-(K7) the JAX package's bar: codes within one step, at most 10% flipped,
+(a normalized value can flip by one bf16 step, as in ln_mod), and bit
+for bit K8 after K5 (one LayerNorm + modulate in both); gelu_quant (K7)
+the JAX package's bar: codes within one step, at most 10% flipped,
 scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
-tanhf); K7's identity instance bit for bit, codes and scales. The int8 GEMM: its int32 sum exact, its bf16 output within one
+tanhf). The int8 GEMM: its int32 sum exact, its bf16 output within one
 bf16 step.
 """
 
@@ -633,10 +635,11 @@ def test_gelu_quant_kernel_rows(dev, case):
 @pytest.mark.parametrize("case", list(GELU_QUANT_CASES))
 def test_gelu_quant_identity_instance_is_exact(dev, case, ties):
     """K7's quantization epilogue (one reciprocal per row, Markstein's
-    correction, rounding by adding 1.5 * 2^23) in its identity instance:
-    bit for bit the plain quantization, codes and scales, on rows over
-    four decades and on rows where every quotient is a tie. It counts no
-    launch."""
+    correction, rounding by adding 1.5 * 2^23) without the gelu, which is
+    K8 (the ring kernel at D = 12288, the warp body at 3072, the generic
+    kernel at 64): bit for bit the plain quantization, codes and scales,
+    on rows over four decades and on rows where every quotient is a tie.
+    It counts one K8 launch."""
     shape = GELU_QUANT_CASES[case]
     g = torch.Generator(device=dev).manual_seed(sum(shape) + ties)
     if ties:
@@ -644,10 +647,104 @@ def test_gelu_quant_identity_instance_is_exact(dev, case, ties):
     else:
         x = _rows(g, dev, *shape)
     before = dict(tfg.LAUNCHES)
-    q, a = tfg._quant_rows_cuda(x)
+    q, a = tfg.quant_rows(x)
     q_plain, a_plain = tfg.quant_rows_plain(x)
     assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
-    assert tfg.LAUNCHES == before
+    assert tfg.LAUNCHES == dict(before, quant_rows=before["quant_rows"] + 1)
+
+
+# K8 (csrc/row_glue.cu) at every width of the w8a8 path: the unfused
+# layers' inputs (x_embedder 64, context_embedder 4096, the time and
+# pooled embedders 256 and 768, the mods pass and norm_out 3072), the
+# attention outputs (3072: the warp body; the double block's image and
+# text slices of one (1, 4608, 3072) tensor) and the MLP width 12288 (the
+# ring kernel); spans that cross batches, a width of 3 chunks
+QUANT_ROWS_CASES = {
+    "x_embedder (1, 4096, 64)": (1, 4096, 64),
+    "context_embedder (1, 512, 4096)": (1, 512, 4096),
+    "time in (1, 256)": (1, 256),
+    "pooled in (1, 768)": (1, 768),
+    "mods pass (4, 3072)": (4, 3072),
+    "attention (1, 4608, 3072)": (1, 4608, 3072),
+    "B 2, odd S, 3072": (2, 2305, 3072),
+    "B 300, S 7, 3072": (300, 7, 3072),
+    "1 row, 3072": (1, 1, 3072),
+    "mlp (1, 300, 12288)": (1, 300, 12288),
+    "generic D 24, B 3": (3, 1001, 24),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["rows", "tie rows"])
+@pytest.mark.parametrize("case", list(QUANT_ROWS_CASES))
+def test_quant_rows_kernel_is_exact(dev, case, ties):
+    """K8 bit for bit the plain quantization, codes and scales, with its
+    counter stepping by one per call; at D = 3072 the generic kernel (the
+    warp body's alternative) too, at a warp and at a block a row, and the
+    image and text slices of the double block's attention output."""
+    shape = QUANT_ROWS_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + 7 * ties)
+    if ties:
+        x = _tie_rows(g, dev, math.prod(shape[:-1]), shape[-1]).view(shape)
+    else:
+        x = _rows(g, dev, *shape)
+    inputs = [x]
+    if shape == (1, 4608, 3072):
+        inputs += [x[:, :512], x[:, 512:]]
+    for t in inputs:
+        before = tfg.LAUNCHES["quant_rows"]
+        q, a = tfg.quant_rows(t)
+        assert tfg.LAUNCHES["quant_rows"] == before + 1
+        q_plain, a_plain = tfg.quant_rows_plain(t)
+        assert q.shape == t.shape and a.shape == (*t.shape[:-1], 1)
+        assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+    if shape[-1] == 3072:
+        q_plain, a_plain = tfg.quant_rows_plain(x)
+        for lanes in (32, 256):
+            q, a = tfg._quant_rows_cuda(x, instance=("generic", lanes))
+            assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+
+
+# K6 (csrc/row_glue.cu): K5's cases. At D = 3072 it is K5's warp body with
+# the quantization after it, so it is bit for bit K8 after K5, codes and
+# scales; the generic instance likewise.
+LN_MOD_QUANT_CASES = {
+    "B 2, odd S, spans cross the batch": (2, 2305, 3072),
+    "B 300, S 7, spans cross two batches": (300, 7, 3072),
+    "1 row": (1, 1, 3072),
+    "4608 rows": (1, 4608, 3072),
+    "batch 2 at 512": (2, 512, 3072),
+    "generic D 64, long spans": (3, 9001, 64),
+    "generic D 768, 1 row": (1, 1, 768),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contiguous", [False, True],
+                         ids=["chunk(6) rows", "contiguous rows"])
+@pytest.mark.parametrize("case", list(LN_MOD_QUANT_CASES))
+def test_ln_mod_quant_kernel_is_k8_after_k5(dev, case, contiguous):
+    """K6 against its plain version (codes within one step, at most 1%
+    flipped, scales within one bf16 step), and bit for bit
+    ``quant_rows(ln_mod(x, shift, scale))`` on the card, one launch each,
+    on strided chunk(6) modulation rows and on contiguous ones."""
+    b, s, d = LN_MOD_QUANT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(b + s + d)
+    x = _rows(g, dev, b, s, d)
+    mod = _randn(g, dev, b, 6 * d)
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    if contiguous:
+        shift, scale = shift.contiguous(), scale.contiguous()
+    before = dict(tfg.LAUNCHES)
+    got = tfg.ln_mod_quant(x, shift, scale)
+    assert tfg.LAUNCHES == dict(before,
+                                ln_mod_quant=before["ln_mod_quant"] + 1)
+    want = tfg.ln_mod_quant_plain(x, shift, scale)
+    _codes_close(got, want, 0.01)
+    rel = (got[1] - want[1]).abs() / want[1]
+    assert rel.max().item() <= 2.0 ** -7
+    q, a = tfg.quant_rows(tfg.ln_mod(x, shift, scale))
+    assert torch.equal(got[0], q) and torch.equal(got[1], a)
 
 
 def _gemm_inputs(g, dev, m, k, n, width=None):

@@ -238,7 +238,7 @@ def test_ln_mod_plain_matches_interpret(dtype):
 
 def test_cpu_wrappers_take_the_plain_path():
     """On CPU tensors the kernel wrappers run their plain versions: no
-    build, no Triton import, no launch counted."""
+    build, no launch counted."""
     rng = np.random.default_rng(9)
     q, k, v = (t(a) for a in _qkv(rng, 1, 2, 1, 128, 64))
     mask = torch.arange(128)[None] < 100
@@ -252,4 +252,4 @@ def test_cpu_wrappers_take_the_plain_path():
                                   n(tfg.ln_mod_plain(x, e, e)))
     assert tfa.KERNEL.launches == before
     assert tfa.KERNEL._lib is None
-    assert tfg._triton_kernel.cache_info().currsize == 0
+    assert tfg.ROW_GLUE._lib is None

@@ -1,6 +1,7 @@
 // The row glue kernels of the DiT for sm_90a: K5 (LayerNorm + AdaLN
-// modulate) and K7 (tanh-gelu + per-row int8 quantization), with K7's
-// identity instance (the per-row int8 quantization alone).
+// modulate), K6 (K5's LayerNorm + modulate, then per-row int8
+// quantization), K7 (tanh-gelu + per-row int8 quantization) and K8 (the
+// per-row int8 quantization alone).
 //
 // Replaces, in the JAX package's x2i_tpu/ops/fused_glue.py (all launched
 // through _rows_call, :118):
@@ -9,41 +10,54 @@
 //       mean = sum(x) / D, var = sum((x - mean)^2) / D       (f32)
 //       y = bf16((x - mean) * rsqrt(var + eps))
 //       out = bf16(bf16(y * bf16(1 + scale)) + shift);
-//   * K7 _gelu_quant_kernel (:70-75): g = bf16(gelu_tanh(x)), then
-//       a = max(max|g|, 1e-6) / 127                  (f32, IEEE division)
-//       codes = clip(round_half_even(g / a), -127, 127)  (int8), a (f32).
+//   * K6 _ln_mod_quant_kernel (:62-67): K5's out (one definition in both
+//     packages, _ln_modulate :47-59), then _row_quantize (:38-44):
+//       a = max(max|out|, 1e-6) / 127                (f32, IEEE division)
+//       codes = clip(round_half_even(out / a), -127, 127)  (int8), a (f32);
+//   * K7 _gelu_quant_kernel (:70-75): g = bf16(gelu_tanh(x)), then the
+//     same quantization of g;
+//   * K8 _quant_kernel (:78-81): the same quantization of x.
 // The rounding points are those of the plain versions beside the wrappers
 // (x2i_torch/ops/fused_glue.py): each bf16 rounding as PyTorch's bf16
 // arithmetic rounds (the f32 result, rounded to nearest even), products and
 // sums with __fmul_rn / __fadd_rn so that nothing contracts into an FMA.
 //
-// What bounds them on an H100: bytes, with K7's instructions close behind.
-// Each reads its bf16 rows once and writes them once (bf16 for K5; int8
-// and one f32 per row for K7): at 4608 rows 17 us for K5 (D = 3072) and 51
-// us for K7 (D = 12288) at 3.35 TB/s. They issue about 23 (K5) and 30 (K7)
-// instructions per element (PERF.md, from the SASS), which for K7 takes
-// about as long again on 132 SMs. So the design keeps enough row bytes in
-// flight on every SM, enough warps to hide K7's arithmetic, and few
-// operations per element on the special-function and conversion pipe (16
-// per clock per SM).
+// What bounds them on an H100: bytes, with K6's and K7's instructions
+// close behind. Each reads its bf16 rows once and writes them once (bf16
+// for K5; int8 and one f32 per row for K6, K7, K8): at 4608 rows 17 us for
+// K5, 13 us for K6 and K8 (D = 3072) and 51 us for K7 (D = 12288) at 3.35
+// TB/s. K5 issues about 18 instructions per element, K6 31, K7 30 and K8
+// 13 (PERF.md, from the SASS), which for K6 and K7 takes about as long
+// again on 132 SMs. So the design keeps enough row bytes in flight on every
+// SM, enough warps to hide K7's arithmetic, few instructions per element,
+// and few of them on the special-function and conversion pipe (16 per
+// clock per SM).
 //
-// Design, both kernels:
+// Design, every kernel:
 //   * persistent blocks: as many as fit on the card, each walking a
 //     contiguous span of rows, so that the loads of a block's next rows are
 //     in flight while its current row is reduced;
 //   * the row lives in registers between its passes, loaded with 16-byte
 //     accesses (neighbouring threads on neighbouring 16 bytes), and leaves
-//     with 16-byte stores;
+//     with stores of 8 or 16 contiguous bytes a thread;
 //   * reductions are warp shuffles; K7 exchanges its warps' maxima once.
-// K5 (D = 3072): one warp per row, 12 chunks of 8 values a lane. A block of
-// eight warps stages its batch's bf16(1 + scale) and shift rows (12 KB) in
-// shared memory once, and again only where its span crosses into the next
-// batch (the modulation rows are (B, D), strided as chunk(6) gives them).
-// A register double buffer keeps the next row in flight: a warp issues
-// the next row's loads before the current row's sums. (A per-warp ring of
-// two 6 KB rows in shared memory filled by 1-d cp.async.bulk on an mbarrier
-// ran level with it, within 1.2% at every row count of the DiT on an NVIDIA
-// H100 80GB HBM3 at 700 W (PERF.md), and was dropped.)
+// K5, K6 and K8 at D = 3072: one body (warp_rows_body), one warp per row,
+// 12 chunks of 8 values a lane, a block of eight warps. K5 and K6 stage
+// their batch's bf16(1 + scale) and shift rows (12 KB) in shared memory
+// once, and again only where a span crosses into the next batch (the
+// modulation rows are (B, D), strided as chunk(6) gives them); K8 compiles
+// the LayerNorm and the staging out. A register double buffer keeps the
+// next row in flight: a warp issues the next row's loads before the
+// current row's sums. The LayerNorm + modulate is one function
+// (ln_modulate) for K5 and K6, which leaves the modulated row packed as
+// bf16 in the registers that held x: K6 is bit for bit K8 after K5. At
+// eight warps an SM (254 registers a thread) K6 is held by instructions
+// more than by bytes, so the modulate's bf16 products and sums are bf16x2
+// instructions, and its codes leave in 8-byte stores. (For
+// K5 a per-warp ring of two 6 KB rows in shared memory filled by 1-d
+// cp.async.bulk on an mbarrier ran level with the register double buffer,
+// within 1.2% at every row count of the DiT on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md), and was dropped.)
 // K7 (D = 12288): two warpgroups per row, 48 values a thread (three pairs
 // of 16-byte chunks, so that each thread's 16 codes are contiguous); one
 // thread keeps a ring of two 24 KB rows in shared memory full with 1-d
@@ -51,25 +65,33 @@
 // is reduced and quantized, and four blocks (32 warps) fit on an SM. K7
 // issues about 30 instructions per element (PERF.md), so it needs the
 // warps more than a deeper ring: one warpgroup per row with a ring of
-// three rows (72 KB, two blocks an SM) was slower on an H100. The gelu values
-// are rounded to bf16 and kept packed in registers: the max pass
+// three rows (72 KB, two blocks an SM) was slower on an H100. Its identity
+// instance is K8 at D = 12288.
+// The quantization epilogue, shared by K6, K7 and K8: the values are
+// rounded to bf16 and kept packed in registers, the max pass
 // (max.xorsign.abs on bf16 pairs) and the quantize pass read the same
 // registers. The quotient g / a is Markstein's correction on a reciprocal
 // computed once per row,
 //   r = RN(1 / a); q0 = RN(g r); e = g - q0 a (exact, FMA); q = RN(q0 + e r),
 // which is RN(g / a) for r the correctly rounded reciprocal and no
-// underflow (the identity instance is held bit for bit against the plain
-// quantization, ties included). Then the sum with 1.5 * 2^23, whose low
-// byte is the code rounded half to even (|q| < 2^22), and __byte_perm
-// packs four codes a word. No clamp to [-127, 127] is needed: |g| <= max|g|
-// and a = RN(max|g| / 127) (or |g| < 1e-6 where the floor holds), so |g /
-// a| <= 127 (1 + 2^-24) and rounds to at most 127. Per element that leaves
-// two operations on the special-function pipe, the gelu's exp and division
-// (ex2 and rcp, approximate, flushing subnormals: their inputs are never
-// subnormal, and an output that would be is a gelu value of about 1e-38,
-// which rounds to code 0).
-// Other widths (any D that is a multiple of 8) take a generic instance of
-// each kernel that reads its row from memory once per pass.
+// underflow (K8 is held bit for bit against the plain quantization, ties
+// included). Then the sum with 1.5 * 2^23, whose low byte is the code
+// rounded half to even (|q| < 2^22), and __byte_perm packs four codes a
+// word. No clamp to [-127, 127] is needed: |g| <= max|g| and a = RN(max|g|
+// / 127) (or |g| < 1e-6 where the floor holds), so |g / a| <= 127 (1 +
+// 2^-24) and rounds to at most 127. Per element K7 keeps two operations on
+// the special-function pipe, the gelu's exp and division (ex2 and rcp,
+// approximate, flushing subnormals: their inputs are never subnormal, and
+// an output that would be is a gelu value of about 1e-38, which rounds to
+// code 0); K6 and K8 none.
+// Other widths (any D that is a multiple of 8) take a generic instance:
+// K5 and K6 a warp per row that reads its row from memory once per pass
+// (the same two pieces, ln_chunk and the quantization epilogue), K7 and K8
+// a group of 1-256 threads per row (the wrapper's quant_instance chooses
+// it from D: 8 threads, four rows a warp, for the 64-wide rows of the
+// x_embedder's input; a block for the 4096-wide rows of the
+// context_embedder's) that reads its row once for the max and once for
+// the codes.
 
 #include "hopper_mma.cuh"
 
@@ -127,30 +149,89 @@ struct Rows {
   }
 };
 
-// This block's contiguous span [r0, r1) of `rows` rows.
-__device__ __forceinline__ void block_span(int rows, int& r0, int& r1) {
-  r0 = static_cast<int>(static_cast<long long>(rows) * blockIdx.x /
-                        gridDim.x);
-  r1 = static_cast<int>(static_cast<long long>(rows) * (blockIdx.x + 1) /
-                        gridDim.x);
-}
-
-// ------------------------------------------------------------------ K5
-
-struct LnArgs {
+// Every kernel's arguments.
+struct RowArgs {
   Rows x;
-  const bf16* shift;
+  const bf16* shift;  // K5, K6: (B, D) rows at batch stride seb
   const bf16* scale;
-  long long seb;  // the modulation rows' batch stride (elements)
-  bf16* out;      // (B * S, D), contiguous
+  long long seb;
+  void* out;  // (B * S, D), contiguous: bf16 (K5) or int8 codes
+  float* a;   // K6, K7, K8: (B * S) f32 row scales
   int rows, d;
   float eps;
+  int lanes;  // generic K7 / K8: threads per row, a power of two to 256
 };
+
+// This block's contiguous span [r0, r1) of `rows` rows (in 32-bit
+// arithmetic where the products fit: a 64-bit division is a long call,
+// in the way of a kernel over a few rows).
+__device__ __forceinline__ void block_span(int rows, int& r0, int& r1) {
+  const unsigned n = rows, b = blockIdx.x, g = gridDim.x;
+  if (static_cast<unsigned long long>(n) * g <= 0xFFFFFFFFull) {
+    r0 = static_cast<int>(n * b / g);
+    r1 = static_cast<int>(n * (b + 1) / g);
+  } else {
+    r0 = static_cast<int>(static_cast<unsigned long long>(n) * b / g);
+    r1 = static_cast<int>(static_cast<unsigned long long>(n) * (b + 1) / g);
+  }
+}
+
+// -------------------------------------------------------- quantization
+
+// The running max of |values| over bf16 pairs: max(|m|, |g|) per half (its
+// sign is not |.|'s: take the magnitude at the end, with row_amax).
+__device__ __forceinline__ uint32_t absmax2(uint32_t m, uint32_t g) {
+  uint32_t d;
+  asm("max.xorsign.abs.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(m), "r"(g));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t absmax8(uint32_t m, const uint4& v) {
+  return absmax2(absmax2(absmax2(absmax2(m, v.x), v.y), v.z), v.w);
+}
+
+__device__ __forceinline__ float row_amax(uint32_t m) {
+  return fmaxf(fabsf(lo_f(m)), fabsf(hi_f(m)));
+}
+
+// The f32 image of v / a rounded to an integer: its low byte is the int8
+// code round_half_even(v / a), in [-127, 127] for |v| <= 127 a.
+__device__ __forceinline__ uint32_t code_bits(float v, float a, float r) {
+  const float q0 = __fmul_rn(v, r);
+  const float e = fmaf(-q0, a, v);
+  return __float_as_uint(__fadd_rn(fmaf(e, r, q0), 12582912.0f));  // 1.5*2^23
+}
+
+// Four codes of two packed words, one per byte.
+__device__ __forceinline__ uint32_t code_word(uint32_t w0, uint32_t w1,
+                                              float a, float r) {
+  const uint32_t c01 = __byte_perm(code_bits(lo_f(w0), a, r),
+                                   code_bits(hi_f(w0), a, r), 0x0040);
+  const uint32_t c23 = __byte_perm(code_bits(lo_f(w1), a, r),
+                                   code_bits(hi_f(w1), a, r), 0x0040);
+  return __byte_perm(c01, c23, 0x5410);
+}
+
+// The eight codes of a 16-byte chunk.
+__device__ __forceinline__ uint2 codes8(const uint4& v, float2 ar) {
+  return make_uint2(code_word(v.x, v.y, ar.x, ar.y),
+                    code_word(v.z, v.w, ar.x, ar.y));
+}
+
+// The row scale a = max(amax, 1e-6) / 127 (IEEE) and its reciprocal.
+__device__ __forceinline__ float2 row_scale(float amax) {
+  const float a = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
+  return make_float2(a, __frcp_rn(a));
+}
+
+// ------------------------------------------- K5, K6 and K8 at D = 3072
 
 constexpr int kLnD = 3072;                  // every FLUX width of the registry
 constexpr int kLnWarps = 8;                 // rows in progress per block
 constexpr int kLnChunks = kLnD / 8 / 32;    // 16-byte chunks per lane
 constexpr int kLnSmemBytes = 2 * kLnD * 2;  // bf16(1 + scale) and shift
+
+enum RowOp { kLnMod, kLnModQuant, kQuantOnly };  // K5, K6, K8
 
 // bf16(1 + scale) of 8 packed values, as PyTorch's bf16 `1.0 + scale`.
 __device__ __forceinline__ uint4 one_plus(const uint4& sc) {
@@ -163,15 +244,30 @@ __device__ __forceinline__ uint4 one_plus(const uint4& sc) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// bf16 pairs multiplied and added with one rounding each (to nearest
+// even). These are PyTorch's bf16 `*` and `+`, which round the f32 result:
+// the f32 product of two bf16 values is exact, and so is their f32 sum
+// unless their exponents differ by more than 16, where both roundings give
+// the larger value. One instruction for two values, where unpacking to f32
+// takes seven.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // Two outputs of K5 from a packed word of x, of bf16(1 + scale), of shift.
 __device__ __forceinline__ uint32_t ln_word(uint32_t x, uint32_t sc,
                                             uint32_t sh, float mean,
                                             float rstd) {
   const uint32_t y = pack_bf16(__fmul_rn(__fsub_rn(lo_f(x), mean), rstd),
                                __fmul_rn(__fsub_rn(hi_f(x), mean), rstd));
-  const uint32_t m = pack_bf16(__fmul_rn(lo_f(y), lo_f(sc)),
-                               __fmul_rn(hi_f(y), hi_f(sc)));
-  return pack_bf16(__fadd_rn(lo_f(m), lo_f(sh)), __fadd_rn(hi_f(m), hi_f(sh)));
+  return add_bf16x2(mul_bf16x2(y, sc), sh);
 }
 
 __device__ __forceinline__ uint4 ln_chunk(const uint4& x, const uint4& sc,
@@ -200,10 +296,13 @@ __device__ __forceinline__ float chunk_sq(const uint4& v, float mean) {
   return s;
 }
 
-// One row of K5 held by a warp (lane owns chunks lane + 32 c), to `out`.
-__device__ __forceinline__ void ln_row(const uint4 (&v)[kLnChunks],
-                                       const uint4* msc, const uint4* msh,
-                                       float eps, int lane, bf16* out) {
+// The LayerNorm + modulate of K5 and K6, one definition so that their bits
+// cannot drift: a warp's row of x in v (lane owns chunks lane + 32 c)
+// becomes bf16(bf16(y * bf16(1 + scale)) + shift), packed, in place.
+__device__ __forceinline__ void ln_modulate(uint4 (&v)[kLnChunks],
+                                            const uint4* msc,
+                                            const uint4* msh, float eps,
+                                            int lane) {
   float sum = 0.0f;
 #pragma unroll
   for (int c = 0; c < kLnChunks; ++c) sum += chunk_sum(v[c]);
@@ -212,62 +311,121 @@ __device__ __forceinline__ void ln_row(const uint4 (&v)[kLnChunks],
 #pragma unroll
   for (int c = 0; c < kLnChunks; ++c) sq += chunk_sq(v[c], mean);
   const float rstd = rsqrtf(warp_sum(sq) * (1.0f / kLnD) + eps);
-  uint4* o = reinterpret_cast<uint4*>(out);
 #pragma unroll
   for (int c = 0; c < kLnChunks; ++c) {
     const int at = c * 32 + lane;
-    o[at] = ln_chunk(v[c], msc[at], msh[at], mean, rstd);
+    v[c] = ln_chunk(v[c], msc[at], msh[at], mean, rstd);
   }
 }
 
-// K5 at D = 3072: a block of eight warps, one row per warp at a time.
-__global__ void __launch_bounds__(kLnWarps * 32)
-    ln_mod_kernel(const LnArgs p) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  uint4* msc = reinterpret_cast<uint4*>(smem);  // bf16(1 + scale), D / 8
-  uint4* msh = msc + kLnD / 8;                  // shift
+// The quantization of a warp's row in v (K6, K8): its codes to q (the
+// row's D bytes), its scale to *a. A lane's chunk c is 8 codes, one
+// 8-byte store: each warp store is 256 contiguous bytes. (Lanes 2i and 2i
+// + 1 trading halves of their chunks c and c + 1 by shuffles, for 16-byte
+// stores, were slower on an H100: the shuffles cost more issue slots than
+// the stores they save.)
+__device__ __forceinline__ void quant_warp_row(const uint4 (&v)[kLnChunks],
+                                               int lane, int8_t* q,
+                                               float* a) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) m = absmax8(m, v[c]);
+  const float2 ar = row_scale(warp_max(row_amax(m)));
+  uint2* q8 = reinterpret_cast<uint2*>(q);
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) q8[c * 32 + lane] = codes8(v[c], ar);
+  if (lane == 0) *a = ar.x;
+}
+
+__device__ __forceinline__ void load_row(uint4 (&v)[kLnChunks],
+                                         const bf16* row, int lane) {
+  const uint4* x = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int c = 0; c < kLnChunks; ++c) v[c] = __ldg(x + c * 32 + lane);
+}
+
+// This warp's rows of [lo, hi): lo + warp + kLnWarps j, the next one's
+// loads in flight while the current one is reduced. msc and msh (K5, K6)
+// hold the rows' batch's bf16(1 + scale) and shift.
+template <int OP>
+__device__ __forceinline__ void warp_rows(const RowArgs& p, int lo, int hi,
+                                          const uint4* msc, const uint4* msh,
+                                          int warp, int lane) {
+  const int count =
+      hi - lo > warp ? (hi - lo - warp + kLnWarps - 1) / kLnWarps : 0;
+  const int first = lo + warp;
+  uint4 v[kLnChunks], next[kLnChunks];
+  if (count > 0) load_row(next, p.x.row(first), lane);
+  for (int j = 0; j < count; ++j) {
+#pragma unroll
+    for (int c = 0; c < kLnChunks; ++c) v[c] = next[c];
+    if (j + 1 < count) load_row(next, p.x.row(first + (j + 1) * kLnWarps),
+                                lane);
+    if constexpr (OP != kQuantOnly) ln_modulate(v, msc, msh, p.eps, lane);
+    const long long row = first + j * kLnWarps;
+    if constexpr (OP == kLnMod) {
+      uint4* o = reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) +
+                                          row * kLnD);
+#pragma unroll
+      for (int c = 0; c < kLnChunks; ++c) o[c * 32 + lane] = v[c];
+    } else {
+      quant_warp_row(v, lane, static_cast<int8_t*>(p.out) + row * kLnD,
+                     p.a + row);
+    }
+  }
+}
+
+// K5 (kLnMod), K6 (kLnModQuant) or K8 (kQuantOnly) at D = 3072: a block of
+// eight warps, one row per warp at a time, over the block's span.
+template <int OP>
+__device__ __forceinline__ void warp_rows_body(const RowArgs& p,
+                                               uint8_t* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int r0, r1;
   block_span(p.rows, r0, r1);
-  const int s = p.x.s;
-  for (int b = r0 / s; b * s < r1; ++b) {  // the span's batches
-    const int lo = max(r0, b * s), hi = min(r1, (b + 1) * s);
-    __syncthreads();  // every warp is done with the last batch's rows
-    for (int c = threadIdx.x; c < kLnD / 8; c += kLnWarps * 32) {
-      msc[c] = one_plus(ldg16(p.scale + b * p.seb + c * 8));
-      msh[c] = ldg16(p.shift + b * p.seb + c * 8);
-    }
-    __syncthreads();
-    // this warp's rows lo + warp + kLnWarps j, j < count
-    const int count = hi - lo > warp ? (hi - lo - warp + kLnWarps - 1) /
-                                           kLnWarps
-                                     : 0;
-    const int first = lo + warp;
-    uint4 v[kLnChunks], next[kLnChunks];
-    if (count > 0) {
-      const uint4* x = reinterpret_cast<const uint4*>(p.x.row(first));
-#pragma unroll
-      for (int c = 0; c < kLnChunks; ++c) next[c] = __ldg(x + c * 32 + lane);
-    }
-    for (int j = 0; j < count; ++j) {
-#pragma unroll
-      for (int c = 0; c < kLnChunks; ++c) v[c] = next[c];
-      if (j + 1 < count) {
-        const uint4* x = reinterpret_cast<const uint4*>(
-            p.x.row(first + (j + 1) * kLnWarps));
-#pragma unroll
-        for (int c = 0; c < kLnChunks; ++c) next[c] = __ldg(x + c * 32 + lane);
+  if constexpr (OP == kQuantOnly) {
+    warp_rows<OP>(p, r0, r1, nullptr, nullptr, warp, lane);
+  } else {
+    uint4* msc = reinterpret_cast<uint4*>(smem);  // bf16(1 + scale), D / 8
+    uint4* msh = msc + kLnD / 8;                  // shift
+    const int s = p.x.s;
+    for (int b = r0 / s; b * s < r1; ++b) {  // the span's batches
+      __syncthreads();  // every warp is done with the last batch's rows
+      for (int c = threadIdx.x; c < kLnD / 8; c += kLnWarps * 32) {
+        msc[c] = one_plus(ldg16(p.scale + b * p.seb + c * 8));
+        msh[c] = ldg16(p.shift + b * p.seb + c * 8);
       }
-      ln_row(v, msc, msh, p.eps, lane,
-             p.out + static_cast<long long>(first + j * kLnWarps) * kLnD);
+      __syncthreads();
+      warp_rows<OP>(p, max(r0, b * s), min(r1, (b + 1) * s), msc, msh, warp,
+                    lane);
     }
   }
 }
 
-// K5 at any D that is a multiple of 8: one warp per row, the row read from
-// memory once per pass, the modulation rows read beside it.
 __global__ void __launch_bounds__(kLnWarps * 32)
-    ln_mod_rows_kernel(const LnArgs p) {
+    ln_mod_kernel(const RowArgs p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  warp_rows_body<kLnMod>(p, smem);
+}
+
+__global__ void __launch_bounds__(kLnWarps * 32)
+    ln_mod_quant_kernel(const RowArgs p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  warp_rows_body<kLnModQuant>(p, smem);
+}
+
+__global__ void __launch_bounds__(kLnWarps * 32)
+    quant_warp_kernel(const RowArgs p) {
+  warp_rows_body<kQuantOnly>(p, nullptr);
+}
+
+// K5 (QUANT false) or K6 at any D that is a multiple of 8: one warp per
+// row, the row read from memory once per pass, the modulation rows read
+// beside it; K6 modulates twice, for the max and for the codes (the same
+// bits).
+template <bool QUANT>
+__global__ void __launch_bounds__(kLnWarps * 32)
+    ln_mod_rows_kernel(const RowArgs p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int chunks = p.d / 8;
   const float inv_d = 1.0f / p.d;
@@ -282,23 +440,28 @@ __global__ void __launch_bounds__(kLnWarps * 32)
     float sq = 0.0f;
     for (int c = lane; c < chunks; c += 32) sq += chunk_sq(__ldg(x + c), mean);
     const float rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
-    uint4* o = reinterpret_cast<uint4*>(p.out + static_cast<long long>(r) *
-                                                    p.d);
-    for (int c = lane; c < chunks; c += 32)
-      o[c] = ln_chunk(__ldg(x + c),
-                      one_plus(ldg16(p.scale + b * p.seb + c * 8)),
-                      ldg16(p.shift + b * p.seb + c * 8), mean, rstd);
+    const bf16* sc = p.scale + b * p.seb;
+    const bf16* sh = p.shift + b * p.seb;
+    auto modulated = [&](int c) {
+      return ln_chunk(__ldg(x + c), one_plus(ldg16(sc + c * 8)),
+                      ldg16(sh + c * 8), mean, rstd);
+    };
+    const long long at = static_cast<long long>(r) * p.d;
+    if constexpr (!QUANT) {
+      uint4* o = reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + at);
+      for (int c = lane; c < chunks; c += 32) o[c] = modulated(c);
+    } else {
+      uint32_t m = 0;
+      for (int c = lane; c < chunks; c += 32) m = absmax8(m, modulated(c));
+      const float2 ar = row_scale(warp_max(row_amax(m)));
+      uint2* q = reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + at);
+      for (int c = lane; c < chunks; c += 32) q[c] = codes8(modulated(c), ar);
+      if (lane == 0) p.a[r] = ar.x;
+    }
   }
 }
 
-// ------------------------------------------------------------------ K7
-
-struct QuantArgs {
-  Rows x;
-  int8_t* q;  // (B * S, D), contiguous
-  float* a;   // (B * S)
-  int rows, d;
-};
+// -------------------------------------------------------- K7 and K8
 
 constexpr int kQD = 12288;                  // every FLUX MLP width
 constexpr int kQThreads = 256;              // two warpgroups per row
@@ -348,40 +511,10 @@ __device__ __forceinline__ uint32_t act_word(uint32_t w) {
     return w;
 }
 
-// The running max of |values| over bf16 pairs: max(|m|, |g|) per half (its
-// sign is not |.|'s: take the magnitude at the end, with row_amax).
-__device__ __forceinline__ uint32_t absmax2(uint32_t m, uint32_t g) {
-  uint32_t d;
-  asm("max.xorsign.abs.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(m), "r"(g));
-  return d;
-}
-
-__device__ __forceinline__ float row_amax(uint32_t m) {
-  return fmaxf(fabsf(lo_f(m)), fabsf(hi_f(m)));
-}
-
-// The f32 image of v / a rounded to an integer: its low byte is the int8
-// code round_half_even(v / a), in [-127, 127] for |v| <= 127 a.
-__device__ __forceinline__ uint32_t code_bits(float v, float a, float r) {
-  const float q0 = __fmul_rn(v, r);
-  const float e = fmaf(-q0, a, v);
-  return __float_as_uint(__fadd_rn(fmaf(e, r, q0), 12582912.0f));  // 1.5*2^23
-}
-
-// Four codes of two packed words, one per byte.
-__device__ __forceinline__ uint32_t code_word(uint32_t w0, uint32_t w1,
-                                              float a, float r) {
-  const uint32_t c01 = __byte_perm(code_bits(lo_f(w0), a, r),
-                                   code_bits(hi_f(w0), a, r), 0x0040);
-  const uint32_t c23 = __byte_perm(code_bits(lo_f(w1), a, r),
-                                   code_bits(hi_f(w1), a, r), 0x0040);
-  return __byte_perm(c01, c23, 0x5410);
-}
-
-// The row scale a = max(amax, 1e-6) / 127 (IEEE) and its reciprocal.
-__device__ __forceinline__ float2 row_scale(float amax) {
-  const float a = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
-  return make_float2(a, __frcp_rn(a));
+template <bool GELU>
+__device__ __forceinline__ uint4 act_chunk(const uint4& v) {
+  return make_uint4(act_word<GELU>(v.x), act_word<GELU>(v.y),
+                    act_word<GELU>(v.z), act_word<GELU>(v.w));
 }
 
 // The block's max over its warps' `m`, through red[kQWarps] (a block
@@ -396,9 +529,11 @@ __device__ __forceinline__ float block_max(float m, float* red, int warp,
   return m;
 }
 
-// K7 at D = 12288: two warpgroups per row, fed by a ring of two rows.
+// K7 (GELU) and K8 at D = 12288: two warpgroups per row, fed by a ring of
+// two rows.
 template <bool GELU>
-__global__ void __launch_bounds__(kQThreads) quant_kernel(const QuantArgs p) {
+__global__ void __launch_bounds__(kQThreads)
+    quant_ring_kernel(const RowArgs p) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint4* ring = reinterpret_cast<const uint4*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kQStages * kQRowBytes);
@@ -426,16 +561,14 @@ __global__ void __launch_bounds__(kQThreads) quant_kernel(const QuantArgs p) {
     mbar_wait(&full[st], (j / kQStages) & 1);
     // thread t's values: pair i is elements 16 (128 i + t) .. + 15
     const uint4* x = ring + st * (kQD / 8);
-    uint32_t g[kQPairs][8];
+    uint4 g[kQPairs][2];
     uint32_t m = 0;
 #pragma unroll
     for (int i = 0; i < kQPairs; ++i) {
-      const uint4 v0 = x[2 * (i * kQThreads + t)];
-      const uint4 v1 = x[2 * (i * kQThreads + t) + 1];
 #pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        g[i][w] = act_word<GELU>(word(w < 4 ? v0 : v1, w & 3));
-        m = absmax2(m, g[i][w]);
+      for (int h = 0; h < 2; ++h) {
+        g[i][h] = act_chunk<GELU>(x[2 * (i * kQThreads + t) + h]);
+        m = absmax8(m, g[i][h]);
       }
     }
     // the barrier also tells thread 0 that every thread is done with the
@@ -445,47 +578,64 @@ __global__ void __launch_bounds__(kQThreads) quant_kernel(const QuantArgs p) {
     if (t == 0 && j + kQStages < count) fill(j + kQStages);
     const float2 ar = row_scale(amax);
     const long long row = r0 + j;
-    uint4* q = reinterpret_cast<uint4*>(p.q + row * kQD);
+    uint4* q = reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) +
+                                        row * kQD);
 #pragma unroll
-    for (int i = 0; i < kQPairs; ++i)
-      q[i * kQThreads + t] = make_uint4(
-          code_word(g[i][0], g[i][1], ar.x, ar.y),
-          code_word(g[i][2], g[i][3], ar.x, ar.y),
-          code_word(g[i][4], g[i][5], ar.x, ar.y),
-          code_word(g[i][6], g[i][7], ar.x, ar.y));
+    for (int i = 0; i < kQPairs; ++i) {
+      const uint2 lo = codes8(g[i][0], ar), hi = codes8(g[i][1], ar);
+      q[i * kQThreads + t] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
     if (t == 0) p.a[row] = ar.x;
   }
 }
 
-// K7 at any D that is a multiple of 8: one warpgroup per row, the row read
-// from memory once for the max and once for the codes (the activation
-// computed again, to the same bits).
+// K7 (GELU) and K8 at any D that is a multiple of 8: a group of p.lanes
+// threads per row, a power of two up to the block's 256 (one 16-byte chunk
+// a thread up to 2048 values a row: narrow rows do not idle most of a
+// warp, and wide ones are spread over the SMs), the row read from memory
+// once for the max and once for the codes (the activation computed again,
+// to the same bits). A group wider than a warp takes its max through
+// shared memory.
 template <bool GELU>
 __global__ void __launch_bounds__(kQThreads)
-    quant_rows_kernel(const QuantArgs p) {
+    quant_rows_kernel(const RowArgs p) {
   __shared__ float red[2][kQWarps];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int shift = __ffs(p.lanes) - 1;  // lanes = 2^shift
+  const int lanes = 1 << shift, groups = kQThreads >> shift;
+  const int t = threadIdx.x, group = t >> shift, li = t & (lanes - 1);
+  const int warp = t >> 5, lane = t & 31;
   const int chunks = p.d / 8;
   int r0, r1;
   block_span(p.rows, r0, r1);
-  for (int r = r0; r < r1; ++r) {
-    const uint4* x = reinterpret_cast<const uint4*>(p.x.row(r));
+  // the loop is uniform over the block: every thread reaches the shuffles
+  // and the barrier
+  for (int base = r0, it = 0; base < r1; base += groups, ++it) {
+    const int r = base + group;
+    const bool valid = r < r1;
+    const uint4* x =
+        reinterpret_cast<const uint4*>(p.x.row(valid ? r : r0));
     uint32_t m = 0;
-    for (int c = t; c < chunks; c += kQThreads) {
-      const uint4 v = __ldg(x + c);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) m = absmax2(m, act_word<GELU>(word(v, w)));
+    if (valid)
+      for (int c = li; c < chunks; c += lanes)
+        m = absmax8(m, act_chunk<GELU>(__ldg(x + c)));
+    float amax = row_amax(m);
+    for (int o = min(lanes, 32) >> 1; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+    if (lanes > 32) {
+      // red alternates between iterations: one barrier an iteration
+      float* rd = red[it & 1];
+      if (lane == 0) rd[warp] = amax;
+      __syncthreads();
+      const int w0 = (group << shift) >> 5;
+      for (int w = 0; w < lanes >> 5; ++w) amax = fmaxf(amax, rd[w0 + w]);
     }
-    const float2 ar =
-        row_scale(block_max(row_amax(m), red[r & 1], warp, lane));
-    uint2* q = reinterpret_cast<uint2*>(p.q + static_cast<long long>(r) * p.d);
-    for (int c = t; c < chunks; c += kQThreads) {
-      const uint4 v = __ldg(x + c);
-      q[c] = make_uint2(
-          code_word(act_word<GELU>(v.x), act_word<GELU>(v.y), ar.x, ar.y),
-          code_word(act_word<GELU>(v.z), act_word<GELU>(v.w), ar.x, ar.y));
-    }
-    if (t == 0) p.a[r] = ar.x;
+    if (!valid) continue;
+    const float2 ar = row_scale(amax);
+    uint2* q = reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) +
+                                        static_cast<long long>(r) * p.d);
+    for (int c = li; c < chunks; c += lanes)
+      q[c] = codes8(act_chunk<GELU>(__ldg(x + c)), ar);
+    if (li == 0) p.a[r] = ar.x;
   }
 }
 
@@ -497,9 +647,9 @@ constexpr int kMaxDevices = 64;
 // more blocks than fit on the current device at once: its occupancy there,
 // found once per device in `capacity[kMaxDevices]` (where its dynamic
 // shared memory above 48 KB is allowed first).
-template <typename Kernel, typename Args>
+template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, int per_block,
-                   int* capacity, const Args& p, cudaStream_t stream) {
+                   int* capacity, const RowArgs& p, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -524,64 +674,87 @@ cudaError_t launch(Kernel kernel, int threads, int smem, int per_block,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K5. x (B, S, D) bf16 with strides sxb, sxs (elements) and a contiguous
-// last dim; shift and scale (B, D) bf16 at batch stride seb; out (B, S, D)
-// contiguous. D = 3072 takes the fast kernel, any other D the generic one.
-// The wrapper (x2i_torch/ops/fused_glue.py) checks D % 8 == 0 and 16-byte
-// aligned row starts. Returns the cudaError_t of the launch.
-extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
-                          const void* shift, const void* scale, long long seb,
-                          void* out, int b, int s, int d, float eps,
-                          void* stream) {
-  if (b < 1 || s < 1 || d < 8 || d % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  LnArgs p;
+RowArgs row_args(const void* x, long long sxb, long long sxs, void* out,
+                 void* a, int b, int s, int d) {
+  RowArgs p = {};
   p.x = Rows{static_cast<const bf16*>(x), sxb, sxs, s};
-  p.shift = static_cast<const bf16*>(shift);
-  p.scale = static_cast<const bf16*>(scale);
-  p.seb = seb;
-  p.out = static_cast<bf16*>(out);
-  p.rows = b * s;
-  p.d = d;
-  p.eps = eps;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int cap_fast[kMaxDevices] = {}, cap_rows[kMaxDevices] = {};
-  const cudaError_t err =
-      d == kLnD ? launch(ln_mod_kernel, kLnWarps * 32, kLnSmemBytes, kLnWarps,
-                         cap_fast, p, st)
-                : launch(ln_mod_rows_kernel, kLnWarps * 32, 0, kLnWarps,
-                         cap_rows, p, st);
-  return static_cast<int>(err);
-}
-
-// K7 (`gelu` 1) or its identity instance (`gelu` 0). x as for K5; q (B * S,
-// D) int8 and a (B * S) f32, contiguous. D = 12288 takes the ring kernel,
-// any other D that is a multiple of 8 the generic one.
-extern "C" int x2i_gelu_quant(const void* x, long long sxb, long long sxs,
-                              void* q, void* a, int b, int s, int d, int gelu,
-                              void* stream) {
-  if (b < 1 || s < 1 || d < 8 || d % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  QuantArgs p;
-  p.x = Rows{static_cast<const bf16*>(x), sxb, sxs, s};
-  p.q = static_cast<int8_t*>(q);
+  p.out = out;
   p.a = static_cast<float*>(a);
   p.rows = b * s;
   p.d = d;
+  return p;
+}
+
+}  // namespace
+
+// K5 (a null) or K6. x (B, S, D) bf16 with strides sxb, sxs (elements) and
+// a contiguous last dim; shift and scale (B, D) bf16 at batch stride seb;
+// out (B, S, D) contiguous, bf16 for K5, int8 codes for K6, whose row
+// scales go to a (B * S) f32. D = 3072 takes the warp body, any other D
+// the generic kernel. The wrapper (x2i_torch/ops/fused_glue.py) checks
+// D % 8 == 0 and 16-byte aligned row starts. Returns the cudaError_t of
+// the launch.
+extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
+                          const void* shift, const void* scale, long long seb,
+                          void* out, void* a, int b, int s, int d, float eps,
+                          void* stream) {
+  if (b < 1 || s < 1 || d < 8 || d % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowArgs p = row_args(x, sxb, sxs, out, a, b, s, d);
+  p.shift = static_cast<const bf16*>(shift);
+  p.scale = static_cast<const bf16*>(scale);
+  p.seb = seb;
+  p.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int cap[2][2][kMaxDevices] = {};  // [gelu][fast][device]
-  const bool fast = d == kQD;
-  int* c = cap[gelu ? 1 : 0][fast ? 1 : 0];
+  const int threads = kLnWarps * 32;
+  static int cap[4][kMaxDevices] = {};  // [quant][generic][device]
+  const bool quant = a != nullptr, fast = d == kLnD;
+  int* c = cap[2 * quant + !fast];
   cudaError_t err;
   if (fast)
-    err = gelu ? launch(quant_kernel<true>, kQThreads, kQSmemBytes, 1, c, p,
-                        st)
-               : launch(quant_kernel<false>, kQThreads, kQSmemBytes, 1, c, p,
-                        st);
+    err = quant ? launch(ln_mod_quant_kernel, threads, kLnSmemBytes, kLnWarps,
+                         c, p, st)
+                : launch(ln_mod_kernel, threads, kLnSmemBytes, kLnWarps, c, p,
+                         st);
   else
-    err = gelu ? launch(quant_rows_kernel<true>, kQThreads, 0, 1, c, p, st)
-               : launch(quant_rows_kernel<false>, kQThreads, 0, 1, c, p, st);
+    err = quant ? launch(ln_mod_rows_kernel<true>, threads, 0, kLnWarps, c, p,
+                         st)
+                : launch(ln_mod_rows_kernel<false>, threads, 0, kLnWarps, c,
+                         p, st);
+  return static_cast<int>(err);
+}
+
+// K7 (`gelu` 1) or K8 (`gelu` 0). x as for K5; q (B * S, D) int8 and a
+// (B * S) f32, contiguous. `kind` is the instance, which the wrapper's
+// quant_instance chooses from D: 0 the generic kernel at `lanes` threads
+// per row (a power of two up to 256), 1 the warp body (K8 at D = 3072), 2
+// the ring kernel (D = 12288).
+extern "C" int x2i_quant_rows(const void* x, long long sxb, long long sxs,
+                              void* q, void* a, int b, int s, int d, int gelu,
+                              int kind, int lanes, void* stream) {
+  if (b < 1 || s < 1 || d < 8 || d % 8 ||
+      (kind == 0 &&
+       (lanes < 1 || lanes > kQThreads || (lanes & (lanes - 1)))) ||
+      (kind == 1 && (d != kLnD || gelu)) || (kind == 2 && d != kQD) ||
+      kind < 0 || kind > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowArgs p = row_args(x, sxb, sxs, q, a, b, s, d);
+  p.lanes = lanes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int cap[2][3][kMaxDevices] = {};  // [gelu][kind][device]
+  int* c = cap[gelu ? 1 : 0][kind];
+  cudaError_t err;
+  if (kind == 1)
+    err = launch(quant_warp_kernel, kLnWarps * 32, 0, kLnWarps, c, p, st);
+  else if (kind == 2)
+    err = gelu ? launch(quant_ring_kernel<true>, kQThreads, kQSmemBytes, 1,
+                        c, p, st)
+               : launch(quant_ring_kernel<false>, kQThreads, kQSmemBytes, 1,
+                        c, p, st);
+  else
+    err = gelu ? launch(quant_rows_kernel<true>, kQThreads, 0,
+                        kQThreads / lanes, c, p, st)
+               : launch(quant_rows_kernel<false>, kQThreads, 0,
+                        kQThreads / lanes, c, p, st);
   return static_cast<int>(err);
 }

@@ -1,6 +1,6 @@
-"""Row-local glue kernels of the DiT (K5 and K7 in CUDA C++, K6 and K8 in
-Triton), their plain PyTorch versions, and the wrappers that pick between
-them.
+"""Row-local glue kernels of the DiT (K5, K6, K7 and K8, CUDA C++ in
+``csrc/row_glue.cu``), their plain PyTorch versions, and the wrappers that
+pick between them.
 
 Counterparts of the TPU kernels of ``x2i_tpu/ops/fused_glue.py``, all
 launched there through ``_rows_call``:
@@ -30,23 +30,17 @@ it once (bf16, or int8 plus a scale per row) against a few operations per
 byte, so memory bandwidth does: at 4608 rows about 17 us for K5, 13 us
 for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s).
 
-K5 and K7 are ``csrc/row_glue.cu`` (library ``ROW_GLUE``; the design is
-in its header): persistent blocks walking spans of rows with the next
-rows' loads in flight, a warp per 3072-wide row for K5 and two
-warpgroups per 12288-wide row for K7, other widths (multiples of 8) through a
-generic instance of each. ``check_row_args`` is what they take. K7's
-identity instance, the quantization alone, is held bit for bit against
-``quant_rows_plain`` through ``_quant_rows_cuda``; it is off the main
-path and counts no launch.
-
-K6 and K8 are one Triton program per (batch, token) row, the whole row
-in one masked power-of-two block. Rounding to bf16 is done with integer
-ops on the f32 bits, so that the compiler can fold no f32 -> bf16 -> f32
-round trip away; the quantization's divisions are ``div_rn`` (Triton's
-``/`` on f32 is an approximate division) and its rounding is ``rint`` (a
-float -> int cast truncates). Triton is imported inside the launching
-function, and the CUDA library is built at its first launch: a machine
-without either can still import this module and run the plain versions.
+The kernels are one library (``ROW_GLUE``; the design is in its header):
+persistent blocks walking spans of rows with the next rows' loads in
+flight. At D = 3072 K5, K6 and K8 are one warp-per-row body (K6 is K5's
+LayerNorm + modulate with the quantization after it, K8 the quantization
+alone); K7 and K8 at D = 12288 are two warpgroups per row on a ring of
+two rows; other widths (multiples of 8) take a generic instance, for K7
+and K8 with the threads per row that ``quant_instance`` chooses from D.
+``row_views`` holds every check they take; a wrapper raises ValueError on
+anything else and never drops to the plain version. The library is built
+at its first launch, so a machine without nvcc can still import this
+module and run the plain versions.
 
 Every wrapper takes its plain version for a CPU tensor or for
 ``impl="plain"`` (the plain route of ``FluxConfig.quant_impl``), and
@@ -58,35 +52,36 @@ autograd records and an input requires grad, on the CPU as on the card.
 from __future__ import annotations
 
 import ctypes
-import functools
-import os
 
 import torch
 import torch.nn.functional as F
 
-from x2i_torch.ops.cuda_lib import BUILD_DIR, CudaLibrary, refuse_grad
+from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 
-# every glue kernel's launches, K5's and K7's (CUDA) with K6's and K8's
-# (Triton)
+# every glue kernel's launches
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
             "quant_rows": 0}
 
 
 def _bind(lib):
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.x2i_ln_mod.argtypes = [p, ll, ll, p, p, ll, p, i, i, i,
+    lib.x2i_ln_mod.argtypes = [p, ll, ll, p, p, ll, p, p, i, i, i,
                                ctypes.c_float, p]
     lib.x2i_ln_mod.restype = i
-    lib.x2i_gelu_quant.argtypes = [p, ll, ll, p, p, i, i, i, i, p]
-    lib.x2i_gelu_quant.restype = i
+    lib.x2i_quant_rows.argtypes = [p, ll, ll, p, p, i, i, i, i, i, i, p]
+    lib.x2i_quant_rows.restype = i
 
 
-# K5 and K7; their launches count in LAUNCHES. The build gate checks every
+# K5-K8; their launches count in LAUNCHES. The build gate checks every
 # kernel of the library for spills.
 ROW_GLUE = CudaLibrary(
     "row_glue.cu", "libx2i_row_glue", (), _bind,
-    checked_kernels=("ln_mod_kernel", "ln_mod_rows_kernel", "quant_kernel",
-                     "quant_rows_kernel"))
+    checked_kernels=("ln_mod_kernel", "ln_mod_quant_kernel",
+                     "quant_warp_kernel", "ln_mod_rows_kernel",
+                     "quant_ring_kernel", "quant_rows_kernel"))
+
+# the instances of K7 and K8 (``x2i_quant_rows``'s `kind`)
+QUANT_KINDS = {"generic": 0, "warp": 1, "ring": 2}
 
 
 def reset_launches():
@@ -131,92 +126,7 @@ def gelu_quant_plain(x: torch.Tensor):
                             .to(x.dtype))
 
 
-# ----------------------------------------------------------------- Triton
-
-@functools.cache
-def _triton_kernel():
-    # Triton's compile cache goes with the CUDA builds, inside the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-    try:
-        from triton.language.extra import libdevice
-    except ImportError:              # Triton before 3.0
-        from triton.language.extra.cuda import libdevice
-
-    @triton.jit
-    def round_bf16(v):
-        # nearest even on the bf16 grid, with integer ops on the f32 bits
-        u = v.to(tl.uint32, bitcast=True)
-        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16).to(
-            tl.float32, bitcast=True)
-
-    @triton.jit
-    def load_row(x_ptr, row, seq, dim, stride_xb, stride_xs,
-                 BLOCK_D: tl.constexpr):
-        b = row // seq
-        s = row % seq
-        cols = tl.arange(0, BLOCK_D)
-        valid = cols < dim
-        x = tl.load(x_ptr + b * stride_xb + s * stride_xs + cols,
-                    mask=valid, other=0.0).to(tl.float32)
-        return x, b, cols, valid
-
-    @triton.jit
-    def ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq, dim, stride_xb,
-                    stride_xs, stride_eb, eps, BLOCK_D: tl.constexpr):
-        # K6's LN + modulate body: the modulated row in f32, each
-        # intermediate rounded to bf16 where the plain version rounds it in
-        # x.dtype (K5 in csrc/row_glue.cu rounds at the same points)
-        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
-                                     stride_xs, BLOCK_D)
-        mean = tl.sum(x, axis=0) / dim
-        xc = tl.where(valid, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / dim
-        y = round_bf16(xc * tl.rsqrt(var + eps))
-        sc = tl.load(scale_ptr + b * stride_eb + cols, mask=valid,
-                     other=0.0).to(tl.float32)
-        sh = tl.load(shift_ptr + b * stride_eb + cols, mask=valid,
-                     other=0.0).to(tl.float32)
-        m = round_bf16(y * round_bf16(1.0 + sc))
-        return round_bf16(m + sh), cols, valid
-
-    @triton.jit
-    def quantize_row(v, valid, cols, row, dim, q_ptr, s_ptr):
-        amax = tl.max(tl.where(valid, tl.abs(v), 0.0), axis=0)
-        a = libdevice.div_rn(tl.maximum(amax, 1e-6), 127.0)
-        q = libdevice.rint(libdevice.div_rn(v, a))
-        q = tl.minimum(tl.maximum(q, -127.0), 127.0)
-        tl.store(q_ptr + row * dim + cols, q.to(tl.int8), mask=valid)
-        tl.store(s_ptr + row, a)
-
-    @triton.jit
-    def ln_mod_quant_kernel(x_ptr, shift_ptr, scale_ptr, q_ptr, s_ptr, seq,
-                            dim, stride_xb, stride_xs, stride_eb, eps,
-                            BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
-        o, cols, valid = ln_modulate(x_ptr, shift_ptr, scale_ptr, row, seq,
-                                     dim, stride_xb, stride_xs, stride_eb,
-                                     eps, BLOCK_D)
-        quantize_row(o, valid, cols, row, dim, q_ptr, s_ptr)
-
-    @triton.jit
-    def quant_rows_kernel(x_ptr, q_ptr, s_ptr, seq, dim, stride_xb,
-                          stride_xs, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0)
-        x, b, cols, valid = load_row(x_ptr, row, seq, dim, stride_xb,
-                                     stride_xs, BLOCK_D)
-        quantize_row(x, valid, cols, row, dim, q_ptr, s_ptr)
-
-    return triton, {"ln_mod_quant": ln_mod_quant_kernel,
-                    "quant_rows": quant_rows_kernel}
-
-
-def _launch_config(triton, dim):
-    # a warp per 512 columns of the block: 8 for the 3072-wide rows
-    block = triton.next_power_of_2(dim)
-    return dict(BLOCK_D=block, num_warps=max(1, min(32, block // 512)))
-
+# ------------------------------------------------------------------ CUDA
 
 def _rows3(name, x):
     """(B, S, D) or (N, D) bf16 with a contiguous last dim -> (B, S, D)."""
@@ -241,33 +151,13 @@ def _extras(name, x, shift, scale):
     return shift, scale
 
 
-def _run_quant(name, x, *extra, eps=None):
-    """Launch K6 or K8 over (B, S, D) or (N, D) x -> (int8 codes of
-    x's shape, f32 row scales (..., 1))."""
-    shape = x.shape
-    x = _rows3(name, x)
-    b, s, d = x.shape
-    triton, kernels = _triton_kernel()
-    q = torch.empty(shape, dtype=torch.int8, device=x.device)
-    a = torch.empty((*shape[:-1], 1), dtype=torch.float32, device=x.device)
-    if extra:
-        shift, scale = _extras(name, x, *extra)
-        args = (x, shift, scale, q, a, s, d, x.stride(0), x.stride(1),
-                shift.stride(0), eps)
-    else:
-        args = (x, q, a, s, d, x.stride(0), x.stride(1))
-    kernels[name][(b * s,)](*args, **_launch_config(triton, d))
-    LAUNCHES[name] += 1
-    return q, a
-
-
 def check_row_args(name: str, d: int, rows: int, strides, ptrs):
-    """The widths and layouts that K5 and K7 take: at least one row, D a
-    multiple of 8, and every row of x (and of shift and scale) starting on
-    a 16-byte boundary: each of ``ptrs`` 16-byte aligned and each stride
-    of ``strides``, given as (size, stride in bf16 elements) of a dim,
-    a multiple of 8 where the dim's size is above 1. Raises ValueError
-    otherwise."""
+    """The widths and layouts that the row glue kernels take: at least one
+    row, D a multiple of 8, and every row of x (and of shift and scale)
+    starting on a 16-byte boundary: each of ``ptrs`` 16-byte aligned and
+    each stride of ``strides``, given as (size, stride in bf16 elements)
+    of a dim, a multiple of 8 where the dim's size is above 1. Raises
+    ValueError otherwise."""
     if rows < 1 or d < 8 or d % 8:
         raise ValueError(f"{name} kernel: unsupported shape: {rows} rows of "
                          f"D = {d} (D must be a multiple of 8)")
@@ -287,49 +177,90 @@ def _check_launch(name, err):
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
-def _ln_mod_cuda(x, shift, scale, eps):
-    x = _rows3("ln_mod", x)
-    shift, scale = _extras("ln_mod", x, shift, scale)
-    b, s, d = x.shape
-    check_row_args("ln_mod", d, b * s,
-                   [(b, x.stride(0)), (s, x.stride(1)), (b, shift.stride(0))],
-                   [x.data_ptr(), shift.data_ptr(), scale.data_ptr()])
-    out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
-    _check_launch("ln_mod", ROW_GLUE.lib().x2i_ln_mod(
-        x.data_ptr(), x.stride(0), x.stride(1), shift.data_ptr(),
-        scale.data_ptr(), shift.stride(0), out.data_ptr(), b, s, d, eps,
-        _stream(x)))
-    LAUNCHES["ln_mod"] += 1
-    return out
+def quant_instance(d: int, gelu: bool = False):
+    """The instance of ``csrc/row_glue.cu`` that quantizes rows of width d
+    (K7 with ``gelu``, K8 without) and its threads per row: the ring
+    kernel at 12288 (two warpgroups a row), K6's warp body without the
+    LayerNorm for K8 at 3072, else the generic kernel at one 16-byte chunk
+    (8 values) a thread, up to a block of 256 a row (8 threads, four rows
+    a warp, at D = 64; a block at 4096). -> (kind, lanes), kind a key of
+    ``QUANT_KINDS``."""
+    if d == 12288:
+        return "ring", 256
+    if d == 3072 and not gelu:
+        return "warp", 32
+    return "generic", min(256, 1 << max(0, d // 8 - 1).bit_length())
 
 
-def _quant_cuda(name, x, gelu: bool):
-    """Launch K7 (``gelu``) or its identity instance over (B, S, D) or
-    (N, D) x -> (int8 codes of x's shape, f32 row scales (..., 1)); counts
-    nothing."""
-    shape = x.shape
+def row_views(name: str, x, shift=None, scale=None):
+    """Every check of the row glue kernels: x (B, S, D) or (N, D) bf16
+    with a contiguous last dim, shift and scale (B, D) of its dtype on its
+    device, then ``check_row_args`` (D % 8, 16-byte row starts). Raises
+    ValueError on anything else. -> (x as (B, S, D), shift, scale), the
+    modulation rows made contiguous where their strides differ."""
     x = _rows3(name, x)
     b, s, d = x.shape
-    check_row_args(name, d, b * s, [(b, x.stride(0)), (s, x.stride(1))],
-                   [x.data_ptr()])
-    q = torch.empty(shape, dtype=torch.int8, device=x.device)
-    a = torch.empty((*shape[:-1], 1), dtype=torch.float32, device=x.device)
-    _check_launch(name, ROW_GLUE.lib().x2i_gelu_quant(
+    strides, ptrs = [(b, x.stride(0)), (s, x.stride(1))], [x.data_ptr()]
+    if shift is not None:
+        shift, scale = _extras(name, x, shift, scale)
+        strides.append((b, shift.stride(0)))
+        ptrs += [shift.data_ptr(), scale.data_ptr()]
+    check_row_args(name, d, b * s, strides, ptrs)
+    return x, shift, scale
+
+
+def _quant_out(shape, device):
+    return (torch.empty(shape, dtype=torch.int8, device=device),
+            torch.empty((*shape[:-1], 1), dtype=torch.float32,
+                        device=device))
+
+
+def _launch_ln(name, x, shift, scale, eps, quant):
+    shape = x.shape
+    x, shift, scale = row_views(name, x, shift, scale)
+    b, s, d = x.shape
+    if quant:
+        out, a = _quant_out(shape, x.device)
+    else:
+        out, a = torch.empty((b, s, d), dtype=x.dtype, device=x.device), None
+    _check_launch(name, ROW_GLUE.lib().x2i_ln_mod(
+        x.data_ptr(), x.stride(0), x.stride(1), shift.data_ptr(),
+        scale.data_ptr(), shift.stride(0), out.data_ptr(),
+        None if a is None else a.data_ptr(), b, s, d, eps, _stream(x)))
+    LAUNCHES[name] += 1
+    return (out, a) if quant else out
+
+
+def _ln_mod_cuda(x, shift, scale, eps):
+    return _launch_ln("ln_mod", x, shift, scale, eps, False)
+
+
+def _ln_mod_quant_cuda(x, shift, scale, eps):
+    return _launch_ln("ln_mod_quant", x, shift, scale, eps, True)
+
+
+def _quant_cuda(name, x, gelu: bool, instance=None):
+    """Launch K7 (``gelu``) or K8 over (B, S, D) or (N, D) x -> (int8 codes
+    of x's shape, f32 row scales (..., 1)), on ``instance`` (kind, lanes)
+    or the one ``quant_instance`` chooses."""
+    shape = x.shape
+    x = row_views(name, x)[0]
+    b, s, d = x.shape
+    kind, lanes = instance or quant_instance(d, gelu)
+    q, a = _quant_out(shape, x.device)
+    _check_launch(name, ROW_GLUE.lib().x2i_quant_rows(
         x.data_ptr(), x.stride(0), x.stride(1), q.data_ptr(), a.data_ptr(),
-        b, s, d, int(gelu), _stream(x)))
+        b, s, d, int(gelu), QUANT_KINDS[kind], lanes, _stream(x)))
+    LAUNCHES[name] += 1
     return q, a
 
 
 def _gelu_quant_cuda(x):
-    out = _quant_cuda("gelu_quant", x, True)
-    LAUNCHES["gelu_quant"] += 1
-    return out
+    return _quant_cuda("gelu_quant", x, True)
 
 
-def _quant_rows_cuda(x):
-    """K7's identity instance: the function of ``quant_rows_plain`` (and
-    of K8), off the main path, launched by the checks alone."""
-    return _quant_cuda("quant_rows (K7 identity)", x, False)
+def _quant_rows_cuda(x, instance=None):
+    return _quant_cuda("quant_rows", x, False, instance)
 
 
 def _plain(name, impl, *tensors):
@@ -358,7 +289,7 @@ def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     x (B, S, D); shift/scale (B, D) -> (int8 (B, S, D), f32 (B, S, 1))."""
     if _plain("ln_mod_quant", impl, x, shift, scale):
         return ln_mod_quant_plain(x, shift, scale, eps)
-    return _run_quant("ln_mod_quant", x, shift, scale, eps=eps)
+    return _ln_mod_quant_cuda(x, shift, scale, eps)
 
 
 def gelu_quant(x: torch.Tensor, impl: str = "auto"):
@@ -374,4 +305,4 @@ def quant_rows(x: torch.Tensor, impl: str = "auto"):
     (N, D)."""
     if _plain("quant_rows", impl, x):
         return quant_rows_plain(x)
-    return _run_quant("quant_rows", x)
+    return _quant_rows_cuda(x)

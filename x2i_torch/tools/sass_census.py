@@ -3,16 +3,15 @@ conversion units, per element, from its SASS.
 
     python x2i_torch/tools/sass_census.py BINARY NAME:ELEMENTS [...]
 
-BINARY is a shared library built by nvcc or a cubin (Triton keeps one
-per kernel in its cache); each NAME:ELEMENTS names a kernel by a
-substring of its mangled name and the elements one thread of it handles
-per row. The kernels are assumed to be straight-line per row (their
+BINARY is a shared library built by nvcc or a cubin; each NAME:ELEMENTS
+names a kernel by a substring of its mangled name and the elements one
+thread of it handles per row. The kernels are assumed to be straight-line per row (their
 loops over a row unrolled), so that the static counts divided by the
 elements are the counts per element. Prints one JSON line per kernel:
 the instructions of each class (MUFU: the special-function unit; F2I,
 I2F, F2F and FRND: the conversion unit; F2FP, the packing conversion
 that runs beside the FMA units, apart), in all and per element.
-Needs ``cuobjdump`` (the CUDA toolkit's, or Triton's copy).
+Needs the CUDA toolkit's ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -31,15 +30,7 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)[.\s;]")
 
 
 def cuobjdump() -> str:
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    for path in (Path("/usr/local/cuda/bin/cuobjdump"),):
-        if path.exists():
-            return str(path)
-    import triton  # its bundled toolkit binaries
-    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
-               / "cuobjdump")
+    return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
 
 def census(sass: str) -> dict:

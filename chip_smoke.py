@@ -23,7 +23,10 @@ Phases, each printing one JSON line per record:
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention; the int8 GEMM at the
-   w8a8 DiT's twelve shapes;
+   w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve (its int32
+   sum exact, timed beside the int8 GEMM on its materialized operand and
+   the bf16 product); the w4 dequantize kernel bit for bit at the DiT's
+   weight shapes;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
@@ -50,7 +53,14 @@ Phases, each printing one JSON line per record:
    exact launch counts, and its pixels are compared with the bf16 ones; a
    2+2-block full-width w8a8 DiT holds the kernel route against the plain
    route (unfused glue, plain quantization and product, plain attention)
-   on the same int8 weights.
+   on the same int8 weights;
+7. w4a8 and w4: the bf16 DiT drawn again from the generator state it was
+   drawn from (the same weights), quantized in place to w4a8 and makes
+   the same image through K6/K7/K8 and the w4a8 GEMM; then drawn again
+   and quantized to w4, the same image through K5, the w4 dequantize
+   kernel and cuBLAS; each with exact launch counts, its pixels compared
+   with the bf16 ones, and a 2+2-block full-width DiT in the mode holding
+   the kernel route against the plain route on the same int4 weights.
 
 Then a "kernels" line, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}. Any failure raises,
@@ -80,7 +90,7 @@ PEAK_BYTES = 3.35e12
 FLASH_SRC = "x2i_torch/csrc/flash_fwd.cu"
 FLASH_CHUNKED_SRC = "x2i_torch/csrc/flash_chunked.cu"
 FLASH_BWD_SRC = "x2i_torch/csrc/flash_bwd.cu"
-GEMM_SRC = "x2i_torch/csrc/int8_gemm.cu"
+GEMM_SRC = "x2i_torch/csrc/int8_gemm.cu"   # also the int4 kernels
 ROW_GLUE_SRC = "x2i_torch/csrc/row_glue.cu"
 TPU_FLASH = "x2i_tpu/ops/flash_attention.py"
 TPU_GLUE = "x2i_tpu/ops/fused_glue.py"
@@ -727,6 +737,8 @@ def phase_kernels(seed: int):
     check_chunked_attention(g, recs)
     check_glue(g, randn, rows, recs)
     check_gemms(g, rows, recs)
+    check_w4a8_gemms(g, rows, recs)
+    check_w4_dequant(g, recs)
     return recs
 
 
@@ -939,6 +951,139 @@ def check_gemms(g, rows, recs):
         recs.setdefault("int8_gemm", []).append(rec)
 
 
+def check_w4a8_gemms(g, rows, recs):
+    """The w4a8 GEMM at the int8 GEMM's twelve shapes, on weights from
+    ``quantize_kernel_w4a8`` (x_embedder's 64 inputs in two groups of 32;
+    the single block's mlp chunk crosses in/2 = 7680): its int32 sum
+    exact, its bf16 output within one bf16 step of the plain version's.
+    No one PyTorch call computes it (``library_ms`` null); beside it, the
+    int8 GEMM on the materialized operand code x m (what the kernel loses
+    to its conversion) and the bf16 ``F.linear``. The bound counts the
+    packed weight at half a byte a code."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import fused_glue as fg
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as ig
+    from x2i_torch.ops.quant import quantize_kernel_w4a8
+
+    dev = torch.device("cuda")
+    for label, m, k, n, width, k0, with_add, with_bias in GEMM_SHAPES:
+        width = width or k
+        wf = torch.randn((n, width), generator=g, device=dev) / width ** 0.5
+        pk, ms, scale = quantize_kernel_w4a8(wf.t())
+        pw = pk.t().contiguous()
+        del wf, pk
+        xq, a = fg.quant_rows_plain(rows(m, k))
+        bias = ((torch.randn(n, generator=g, device=dev) * 0.1)
+                .to(torch.bfloat16) if with_bias else None)
+        add = (torch.randn((m, n), generator=g, device=dev)
+               .to(torch.bfloat16) if with_add else None)
+        acc_exact = torch.equal(i4.w4a8_matmul_acc(xq, pw, ms, k0),
+                                i4.w4a8_matmul_acc_plain(xq, pw, ms, k0))
+        extra = (add,) if with_add else ()
+
+        def kern(x, s, w, *d):
+            return i4.w4a8_linear(x, s, w, ms, scale, bias, k0,
+                                  d[0] if d else None)
+
+        def plain(x, s, w, *d):
+            return i4.w4a8_linear_plain(x, s, w, ms, scale, bias, k0,
+                                        d[0] if d else None)
+
+        def int8(x, s, w, *d):
+            return ig.int8_linear(x, s, w, scale, bias, 0,
+                                  d[0] if d else None)
+
+        got, want = kern(xq, a, pw, *extra), plain(xq, a, pw, *extra)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        one_step = bool((diff <= 2.0 ** -7 * want.float().abs()).all())
+        codes = i4.w4a8_codes(pw, ms)[:, k0:k0 + k].contiguous()
+        xb, wb = xq.to(torch.bfloat16), codes.to(torch.bfloat16)
+        rec = {"phase": "kernels", "kernel": "w4a8_gemm", "case": label,
+               "shape": [m, k, n], "k0": k0, "in_features": width,
+               "groups": ms.shape[0], "acc_exact": acc_exact,
+               "max_abs_err": diff.max().item(),
+               "mismatches": int((diff > 0).sum()),
+               "within_one_bf16_step": one_step,
+               "ms": kernel_ms(kern, xq, a, pw, *extra),
+               "plain_ms": kernel_ms(plain, xq, a, pw, *extra),
+               "library_ms": None,
+               "library": "none: no one PyTorch call computes it",
+               "int8_gemm_ms": kernel_ms(int8, xq, a, codes, *extra),
+               "bf16_linear_ms": kernel_ms(F.linear, xb, wb)}
+        # the packed codes of the chunk's K inputs and the multipliers of
+        # its groups
+        weight_bytes = n * k // 2 + n * (k // (width // ms.shape[0]))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            2.0 * m * n * k,
+            nbytes(xq, a, scale, bias, add, got) + weight_bytes,
+            PEAK_INT8_OPS)
+        rec["tops"] = 2.0 * m * n * k / rec["ms"] / 1e9
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["vs_int8_gemm"] = rec["ms"] / rec["int8_gemm_ms"]
+        emit(rec)
+        if not (acc_exact and one_step):
+            raise AssertionError(f"w4a8 GEMM disagrees with its plain "
+                                 f"version: {rec}")
+        recs.setdefault("w4a8_gemm", []).append(rec)
+
+
+# the w4 DiT's dense weights: (label, out, in)
+DEQUANT_SHAPES = (
+    ("single mlp_in", 12288, 3072),
+    ("single out", 3072, 15360),
+    ("single q/k/v", 3072, 3072),
+    ("double img mlp_out", 3072, 12288),
+    ("double adaLN mods", 18432, 3072),
+    ("x_embedder", 3072, 64),
+    ("proj_out", 64, 3072),
+    ("time in_layer", 3072, 256),
+)
+DEQUANT_MAIN = "single mlp_in"
+
+
+def check_w4_dequant(g, recs):
+    """The w4 dequantize kernel at the DiT's weight shapes, on weights from
+    ``quantize_kernel_w4``: bit for bit its plain version (the JAX
+    ``_dequant_w4`` chain in bf16), timed against it and against its
+    bound (bytes: the packed codes and the scales read once, the bf16
+    weight written once). No one PyTorch call computes it."""
+    import torch
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops.quant import quantize_kernel_w4
+
+    dev = torch.device("cuda")
+    for label, n, inn in DEQUANT_SHAPES:
+        wf = torch.randn((n, inn), generator=g, device=dev) / inn ** 0.5
+        pk, sc = quantize_kernel_w4(wf.t())
+        pw = pk.t().contiguous()
+        del wf, pk
+        got, want = i4.w4_dequant(pw, sc), i4.w4_dequant_plain(pw, sc)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        rec = {"phase": "kernels", "kernel": "w4_dequant", "case": label,
+               "shape": [n, inn], "groups": sc.shape[0],
+               "bit_for_bit": torch.equal(got, want),
+               "max_abs_err": diff.max().item(),
+               "ms": kernel_ms(i4.w4_dequant, pw, sc),
+               "plain_ms": kernel_ms(i4.w4_dequant_plain, pw, sc),
+               "library_ms": None,
+               "library": "none: no one PyTorch call computes it",
+               # a copy of the bf16 weight: the rate the card reaches on
+               # the bytes it writes
+               "copy_ms": kernel_ms(torch.clone, got)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            float(n * inn), nbytes(pw, sc, got), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        if not rec["bit_for_bit"]:
+            raise AssertionError(f"w4 dequantize kernel disagrees with its "
+                                 f"plain version: {rec}")
+        recs.setdefault("w4_dequant", []).append(rec)
+
+
 # ----------------------------------------------------------- text2image
 
 MODEL = "x2i-internvl2.5-1b"
@@ -949,9 +1094,10 @@ PROMPTS = ("a red fox in fresh snow", "a lighthouse at dusk",
 def build_pipeline(seed: int):
     """The full-width x2i-internvl2.5-1b text path in bf16, weights drawn
     on the card from one torch.Generator (Dense std 1/sqrt(fan_in), norm
-    scales 1, biases 0): -> (its LM, the pipeline). Prompts map to 40
-    token ids drawn from a seed derived from the text, right-padded to 512
-    with the mask."""
+    scales 1, biases 0): -> (its LM, the pipeline, the generator state
+    the DiT was drawn from, for ``draw_dit``). Prompts map to 40 token ids
+    drawn from a seed derived from the text, right-padded to 512 with the
+    mask."""
     import dataclasses
     import zlib
 
@@ -980,16 +1126,37 @@ def build_pipeline(seed: int):
 
     lm = random_init_(Qwen2LM(spec.llm, dev), gen)
     encoder_fn, encoder_batch_fn = lm_text_encoder(lm, tokenize)
-    flux_cfg = dataclasses.replace(spec.flux, fused_glue=True)
+    proj = random_init_(Proj(spec.proj, dev), gen)
+    dit_state = gen.get_state()
+    flux, after = draw_dit(dit_state)
+    gen.set_state(after)
     return lm, X2IPipeline(
         encoder_fn=encoder_fn,
-        proj=random_init_(Proj(spec.proj, dev), gen),
-        flux=random_init_(FluxTransformer2D(flux_cfg, dev), gen),
+        proj=proj,
+        flux=flux,
         vae=random_init_(AutoencoderKL(spec.vae, dev), gen),
         scheduler=FlowMatchEulerScheduler(spec.scheduler),
         gen_cfg=GenerationConfig(height=1024, width=1024,
                                  num_inference_steps=4),
-        encoder_batch_fn=encoder_batch_fn)
+        encoder_batch_fn=encoder_batch_fn), dit_state
+
+
+def draw_dit(state):
+    """The serving DiT (full width, bf16, fused glue) with weights drawn
+    from a generator in ``state`` (the same weights from the same state)
+    -> (the DiT, the generator's state after the draw)."""
+    import dataclasses
+
+    import torch
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.flux import FluxTransformer2D
+    from x2i_torch.params import random_init_
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.set_state(state)
+    cfg = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, fused_glue=True)
+    return random_init_(FluxTransformer2D(cfg, dev), gen), gen.get_state()
 
 
 def _cuda_libraries():
@@ -1018,7 +1185,8 @@ def reset_counts():
 NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_fwd_lse": 0, "flash_chunked": 0, "flash_bwd_dq": 0,
                "flash_bwd_dkv": 0, "ln_mod": 0, "ln_mod_quant": 0,
-               "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0}
+               "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0,
+               "w4a8_gemm": 0, "w4_dequant": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
@@ -1027,21 +1195,28 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     single blocks, the adaLN rows in one pass first) or, with
     ``mods_pass=False`` and the LM's count left out, of one DiT call that
     computes its mods inline. Above 8192 joint tokens the DiT's attention
-    is K2 (norm and rope outside), else K1a."""
+    is K2 (norm and rope outside), else K1a. w4 adds one dequantize
+    launch per dense call; w4a8 counts w8a8's products on its GEMM."""
     lm = 24 if mods_pass else 0           # one K1b per LM layer
     dit = "flash_chunked" if joint_tokens > 8192 else "flash_fwd_rope"
     want = dict(NO_LAUNCHES, flash_fwd=lm)
     want[dit] = (n2 + n1) * steps
-    if quantized != "w8a8":
-        # per step 4 per double block, 1 per single block, 1 for the head
-        want["ln_mod"] = (4 * n2 + n1 + 1) * steps
-        return want
     # the adaLN mod layers (2 per double block, 1 per single): once per
     # image over all steps' rows, with the time and pooled embedders' 4
     # layers run again for those rows, or inline in each call
     mods = 2 * n2 + n1
     per_step_mods = 0 if mods_pass else mods
     once = mods + 4 if mods_pass else 0
+    if quantized not in ("w8a8", "w4a8"):
+        # per step 4 per double block, 1 per single block, 1 for the head
+        want["ln_mod"] = (4 * n2 + n1 + 1) * steps
+        if quantized == "w4":
+            # per step 12 per double block, 5 per single (q, k, v, mlp_in,
+            # out), the 7 unfused layers and proj_out
+            want["w4_dequant"] = ((12 * n2 + 5 * n1 + 8 + per_step_mods)
+                                  * steps + once)
+        return want
+    gemm = "w4a8_gemm" if quantized == "w4a8" else "int8_gemm"
     want.update(
         ln_mod_quant=(4 * n2 + n1 + 1) * steps,
         gelu_quant=(2 * n2 + n1) * steps,
@@ -1051,7 +1226,7 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
         quant_rows=(2 * n2 + n1 + 7 + per_step_mods) * steps + once,
         # per step 12 per double block, 6 per single (q, k, v, mlp_in and
         # the two chunks of out), 7 unfused layers and proj_out
-        int8_gemm=(12 * n2 + 6 * n1 + 8 + per_step_mods) * steps + once)
+        **{gemm: (12 * n2 + 6 * n1 + 8 + per_step_mods) * steps + once})
     return want
 
 
@@ -1111,13 +1286,15 @@ def check_routes(seed: int, px: int = 512,
                              f"{rec}")
 
 
-def check_routes_w8a8(seed: int):
-    """The same 2 + 2-block full-width DiT, one step at 512^2, in w8a8:
-    the kernel route (fused glue with K6/K7/K8, K1a, the int8 GEMM)
-    against the plain route (unfused glue, plain quantization and
-    product, plain attention) on the same int8 weights, held to the JAX
-    package's bar for two w8a8 evaluations (tests/test_fused_glue.py):
-    correlation above 0.999 and relative L2 error below 5e-2."""
+def check_routes_quant(seed: int, mode: str = "w8a8"):
+    """The same 2 + 2-block full-width DiT, one step at 512^2, in a
+    quantized mode: the kernel route (fused glue, K1a, and in w8a8 K6/K7/K8
+    with the int8 GEMM, in w4a8 the same glue with the w4a8 GEMM, in w4 K5
+    with the dequantize kernel) against the plain route (unfused glue,
+    plain quantization and product, plain attention) on the same
+    quantized weights, held to the JAX package's bar for two w8a8
+    evaluations (tests/test_fused_glue.py): correlation above 0.999 and
+    relative L2 error below 5e-2."""
     import dataclasses
 
     import torch
@@ -1128,7 +1305,7 @@ def check_routes_w8a8(seed: int):
 
     dev = torch.device("cuda")
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
-                               num_single_layers=2, quantized="w8a8")
+                               num_single_layers=2, quantized=mode)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     kern = random_init_(FluxTransformer2D(
         dataclasses.replace(base, fused_glue=True), dev), g)
@@ -1154,8 +1331,8 @@ def check_routes_w8a8(seed: int):
     rel = ((got - want).norm() / want.norm()).item()
     corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()])
                           )[0, 1].item()
-    want_used = expected_launches("w8a8", 1, 2, 2, mods_pass=False)
-    rec = {"phase": "w8a8-reference", "blocks": [2, 2],
+    want_used = expected_launches(mode, 1, 2, 2, mods_pass=False)
+    rec = {"phase": f"{mode}-reference", "blocks": [2, 2],
            "tokens": [1024, 512], "rel_l2_err": rel, "corr": corr,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -1165,7 +1342,7 @@ def check_routes_w8a8(seed: int):
     if not (rec["finite"] and corr > 0.999 and rel < 5e-2
             and used == want_used
             and not any(used_plain.values())):
-        raise AssertionError(f"w8a8 kernel route disagrees with the plain "
+        raise AssertionError(f"{mode} kernel route disagrees with the plain "
                              f"route: {rec}")
 
 
@@ -1242,7 +1419,7 @@ def phase_text2image(seed: int):
     import torch
 
     t0 = time.perf_counter()
-    lm, pipe = build_pipeline(seed)
+    lm, pipe, dit_state = build_pipeline(seed)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     want = expected_launches(False, 4)
@@ -1253,7 +1430,7 @@ def phase_text2image(seed: int):
         raise AssertionError(f"main path missed its kernels: {counts} "
                              f"!= {want}")
     check_routes(seed)
-    return pipe, lm, counts, pixels
+    return pipe, lm, counts, pixels, dit_state
 
 
 def phase_text2image_2048(pipe, seed: int):
@@ -1525,7 +1702,40 @@ def phase_w8a8(pipe, bf16_pixels, seed: int):
     if counts != want:
         raise AssertionError(f"w8a8 main path missed its kernels: {counts} "
                              f"!= {want}")
-    check_routes_w8a8(seed)
+    check_routes_quant(seed, "w8a8")
+    return counts
+
+
+def phase_int4(pipe, bf16_pixels, seed: int, dit_state, mode: str):
+    """The bf16 DiT drawn again from its generator state (the quantized
+    one before it freed first), quantized in place to ``mode`` ("w4a8" or
+    "w4"), then the same image as the bf16 one; the 2 + 2-block route
+    check in the mode."""
+    import gc
+
+    import torch
+    from x2i_torch.ops.quant import quantize_module_
+
+    pipe.flux = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flux = quantize_module_(draw_dit(dit_state)[0], mode)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    quant_s = time.perf_counter() - t0
+    pipe.flux = flux
+    want = expected_launches(mode, 4)
+    rec, pixels, counts = run_image(pipe, seed, f"text2image-{mode}", want)
+    ref = bf16_pixels.float()
+    rec["draw_and_quantize_s"] = quant_s
+    rec["rel_l2_vs_bf16"] = ((pixels.float() - ref).norm()
+                             / ref.norm()).item()
+    emit(rec)
+    if counts != want:
+        raise AssertionError(f"{mode} main path missed its kernels: "
+                             f"{counts} != {want}")
+    check_routes_quant(seed, mode)
     return counts
 
 
@@ -1580,6 +1790,10 @@ KERNEL_TABLE = (
      0),
     ("flash_bwd_dkv", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581", "distill",
      0),
+    ("w4a8_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:281", "w4a8",
+     GEMM_MAIN),
+    ("w4_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:153", "w4",
+     DEQUANT_MAIN),
 )
 
 
@@ -1610,13 +1824,17 @@ def main(argv=None) -> int:
         emit({"kernels_only": True,
               "kind": torch.cuda.get_device_name(0)})
         return 0
-    pipe, lm, launches, bf16_pixels = phase_text2image(args.seed)
+    pipe, lm, launches, bf16_pixels, dit_state = phase_text2image(args.seed)
     phase_serve(pipe)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
     launches_w8a8 = phase_w8a8(pipe, bf16_pixels, args.seed)
-    runs = {"bf16": launches, "w8a8": launches_w8a8,
+    launches_w4a8 = phase_int4(pipe, bf16_pixels, args.seed, dit_state,
+                               "w4a8")
+    launches_w4 = phase_int4(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    runs = {"bf16": launches, "w8a8": launches_w8a8, "w4a8": launches_w4a8,
+            "w4": launches_w4,
             "distill": launches_distill, "bf16-2048": launches_2048,
             "long-prompt": launches_long}
 
@@ -1635,7 +1853,7 @@ def main(argv=None) -> int:
             "library_ms": top["library_ms"], "shape": top["shape"],
             "main_path": run})
         for extra in ("library", "tflops", "tops", "bound_share",
-                      "call_ms"):
+                      "call_ms", "int8_gemm_ms"):
             if top.get(extra) is not None:
                 table[-1][extra] = top[extra]
         # a kernel's launches on the other main paths that run it

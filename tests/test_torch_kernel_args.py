@@ -1,7 +1,8 @@
 """The argument checks of the port's CUDA kernel wrappers, on the CPU: the
 shapes and layouts that the chunked flash forward K2
-(``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``) and
-the row glue kernels K5-K8 (``ops/fused_glue.py``) take, and the width ->
+(``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``), the
+w4a8 GEMM and the w4 dequantize kernel (``ops/int4_gemm.py``) and the
+row glue kernels K5-K8 (``ops/fused_glue.py``) take, and the width ->
 instance choice of K7 and K8. The checks are plain functions of
 shapes, strides and addresses, so they run here without a card; the
 kernels themselves are held against their plain versions by the ``cuda``
@@ -13,6 +14,7 @@ import torch
 
 from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
+from x2i_torch.ops import int4_gemm as t4
 from x2i_torch.ops import int8_gemm as tgemm
 
 # (q shape, k shape), each legal for K2: Sq and Skv multiples of 64, a last
@@ -132,6 +134,64 @@ def test_gemm_layout(case):
     else:
         with pytest.raises(ValueError, match="16-byte"):
             tgemm.check_gemm_layout(*args)
+
+
+# (M, K, N, inputs, groups, k0) -> legal for the w4a8 GEMM: the twelve
+# DiT shapes' kinds and the edges of its packed steps
+W4A8_ARGS = {
+    "main shape": ((4608, 3072, 12288, 3072, 24, 0), True),
+    "attention chunk, low half only": ((4608, 3072, 3072, 15360, 120, 0),
+                                       True),
+    "mlp chunk across the half": ((4608, 12288, 3072, 15360, 120, 3072),
+                                  True),
+    "x_embedder, g 32": ((4096, 64, 3072, 64, 2, 0), True),
+    "time in_layer, one packed step": ((1, 256, 3072, 256, 2, 0), True),
+    "high half only": ((8, 128, 64, 512, 4, 256), True),
+    "groups of 48": ((8, 96, 64, 96, 2, 0), True),
+    "across the half off 128": ((8, 256, 64, 512, 4, 192), False),
+    "odd group count": ((8, 384, 64, 384, 3, 0), False),
+    "group % 16": ((8, 80, 64, 80, 10, 0), False),
+    "in/2 % 16": ((8, 40, 64, 40, 2, 0), False),
+    "K % 16": ((8, 120, 64, 256, 2, 0), False),
+    "k0 % 16": ((8, 64, 64, 256, 2, 8), False),
+    "past the inputs": ((8, 128, 64, 256, 2, 256), False),
+    "N % 8": ((8, 256, 60, 256, 2, 0), False),
+    "no rows": ((0, 256, 64, 256, 2, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(W4A8_ARGS))
+def test_w4a8_gemm_shapes(case):
+    args, legal = W4A8_ARGS[case]
+    if legal:
+        t4.check_w4a8_shapes(*args)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            t4.check_w4a8_shapes(*args)
+
+
+# (N, in/2, groups, row stride, start address) -> legal for the w4
+# dequantize kernel
+DEQUANT_ARGS = {
+    "3072 -> 12288": ((12288, 1536, 24, 1536, 0), True),
+    "x_embedder": ((3072, 32, 1, 32, 256), True),
+    "one group per row": ((8, 48, 1, 48, 0), True),
+    "in/2 % 16": ((8, 40, 1, 48, 0), False),
+    "odd group size": ((8, 48, 32, 48, 0), False),
+    "row stride % 16": ((8, 32, 1, 40, 0), False),
+    "start % 16": ((8, 32, 1, 32, 8), False),
+    "no rows": ((0, 32, 1, 32, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(DEQUANT_ARGS))
+def test_w4_dequant_args(case):
+    args, legal = DEQUANT_ARGS[case]
+    if legal:
+        t4.check_dequant_args(*args)
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            t4.check_dequant_args(*args)
 
 
 # (D, rows, (size, stride) of each dim that walks rows, row start

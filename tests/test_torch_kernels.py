@@ -36,7 +36,11 @@ for bit K8 after K5 (one LayerNorm + modulate in both); gelu_quant (K7)
 the JAX package's bar: codes within one step, at most 10% flipped,
 scales within rtol 2e-2 (its exp form of the tanh against PyTorch's
 tanhf). The int8 GEMM: its int32 sum exact, its bf16 output within one
-bf16 step.
+bf16 step. The w4a8 GEMM (``ops/int4_gemm.py``) the same, on the edges
+of its packed steps (128 packed bytes give a low and a high K step: a
+chunk in one half, a chunk across it, in/2 of 32 and of 128 bytes, rings
+that wrap, groups of 32 and 48); the w4 dequantize kernel bit for bit
+(one rounding of a product that is exact in f32).
 """
 
 import math
@@ -50,6 +54,7 @@ from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.ops import attention as tattn
 from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
+from x2i_torch.ops import int4_gemm as t4
 from x2i_torch.ops import int8_gemm as tgemm
 from x2i_torch.ops.rope import flux_rope_freqs_half
 from x2i_torch.params import random_init_
@@ -861,3 +866,112 @@ def test_quantize_kernel_on_the_card_matches_the_cpu(dev):
     q, s = quantize_kernel(w)
     q_cpu, s_cpu = quantize_kernel(w.cpu())
     assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+def _w4a8_inputs(g, dev, m, k, n, inn, groups):
+    xq, a = tfg.quant_rows_plain(_rows(g, dev, m, k))
+    pw = torch.randint(-128, 128, (n, inn // 2), generator=g, device=dev,
+                       dtype=torch.int8)
+    ms = torch.randint(1, 16, (groups, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = (torch.rand(n, generator=g, device=dev) + 0.5) / 127 / 64 / 8
+    return xq, a, pw, ms, scale, _randn(g, dev, n)
+
+
+# the w4a8 GEMM's edges: case -> (M, K, N, inputs, groups, k0). A packed
+# step of 128 bytes at column P gives the K steps of inputs P.. (low
+# nibbles) and P + in/2.. (high), through the int8 GEMM's ring of 4.
+W4A8_EDGES = {
+    "x_embedder: in/2 32, g 32": (300, 64, 512, 64, 2, 0),
+    "time in_layer: one packed step": (1, 256, 3072, 256, 2, 0),
+    "pooled in_layer: three steps": (1, 768, 640, 768, 6, 0),
+    "adaLN rows": (4, 3072, 1152, 3072, 24, 0),
+    "M 4608, ring wraps": (4608, 3072, 384, 3072, 24, 0),
+    "low half only": (130, 3072, 264, 15360, 120, 0),
+    "across the half": (129, 12288, 256, 15360, 120, 3072),
+    "high half only": (65, 256, 256, 1024, 8, 640),
+    "groups of 48": (70, 96, 64, 96, 2, 0),
+    "N 64": (200, 3072, 64, 3072, 24, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(W4A8_EDGES))
+def test_w4a8_gemm_edges(dev, case):
+    """The int32 sum (acc_only) exact and the bf16 output with the bias
+    within one bf16 step of the plain version, each launch counted."""
+    m, k, n, inn, groups, k0 = W4A8_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(m + k + n + k0)
+    xq, a, pw, ms, scale, bias = _w4a8_inputs(g, dev, m, k, n, inn, groups)
+    before = tgemm.GEMM.launches["w4a8_gemm"]
+    assert torch.equal(t4.w4a8_matmul_acc(xq, pw, ms, k0),
+                       t4.w4a8_matmul_acc_plain(xq, pw, ms, k0))
+    got = t4.w4a8_linear(xq, a, pw, ms, scale, bias=bias, k0=k0)
+    assert tgemm.GEMM.launches["w4a8_gemm"] == before + 2
+    _bf16_close(got, t4.w4a8_linear_plain(xq, a, pw, ms, scale, bias=bias,
+                                          k0=k0))
+
+
+@pytest.mark.cuda
+def test_w4a8_gemm_chunks_add_in_the_epilogue(dev):
+    """The single block's output layer in w4a8: the attention chunk (low
+    half) and the mlp chunk across the half of one 15360-wide weight, the
+    second adding the first's bf16 part and the bias."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    m, n = 200, 384
+    xa, aa, pw, ms, scale, bias = _w4a8_inputs(g, dev, m, 3072, n, 15360,
+                                               120)
+    xb, ab = tfg.quant_rows_plain(_rows(g, dev, m, 12288))
+    part = t4.w4a8_linear(xa, aa, pw, ms, scale)
+    want_part = t4.w4a8_linear_plain(xa, aa, pw, ms, scale)
+    assert torch.equal(part, want_part)
+    got = t4.w4a8_linear(xb, ab, pw, ms, scale, bias=bias, k0=3072,
+                         addend=part)
+    _bf16_close(got, t4.w4a8_linear_plain(xb, ab, pw, ms, scale, bias=bias,
+                                          k0=3072, addend=want_part))
+
+
+@pytest.mark.cuda
+def test_w4a8_gemm_refuses_what_it_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    xq, a, pw, ms, scale, _ = _w4a8_inputs(g, dev, 8, 512, 64, 512, 4)
+    with pytest.raises(ValueError, match="unsupported"):
+        t4.w4a8_linear(xq[:, :256], a, pw, ms, scale, k0=192)  # across 256
+    with pytest.raises(ValueError, match="unsupported"):
+        t4.w4a8_linear(xq, a, pw[:60], ms[:, :60], scale[:60])  # N % 8
+    with pytest.raises(ValueError, match="bf16"):
+        t4.w4a8_linear(xq, a, pw, ms, scale, out_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t4.w4a8_linear(xq, a, pw, ms, scale.requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,inn,groups", [(3072, 3072, 24), (512, 64, 1),
+                                          (96, 96, 2), (200, 15360, 120)])
+def test_w4_dequant_kernel_bit_for_bit(dev, n, inn, groups):
+    """The dequantize kernel equals its plain version bit for bit, at the
+    DiT's group of 128, one group, a group of 48 (chunks across groups)
+    and the widest input; each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(n + inn)
+    pw = torch.randint(-128, 128, (n, inn // 2), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand((groups, n), generator=g, device=dev) / 7
+    before = tgemm.GEMM.launches["w4_dequant"]
+    got = t4.w4_dequant(pw, scale)
+    assert tgemm.GEMM.launches["w4_dequant"] == before + 1
+    assert got.dtype == BF and torch.equal(got,
+                                           t4.w4_dequant_plain(pw, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["w4", "w4a8"])
+def test_int4_quantizers_on_the_card_match_the_cpu(dev, mode):
+    """The int4 quantizers give the same codes, multipliers and scales on
+    the card as on the CPU (IEEE divisions by tensors, round half to
+    even)."""
+    from x2i_torch.ops import quant as tq
+    fn = tq.quantize_kernel_w4 if mode == "w4" else tq.quantize_kernel_w4a8
+    g = torch.Generator(device=dev).manual_seed(4)
+    w = torch.randn((3072, 640), generator=g, device=dev) / 3072 ** 0.5
+    for got, want in zip(fn(w), fn(w.cpu())):
+        assert torch.equal(got.cpu(), want)

@@ -253,10 +253,10 @@ def test_quant_linear_refuses_what_it_does_not_take():
     layer = tq.QuantLinear(64, 8, mode="w8a8")
     with pytest.raises(ValueError, match="input features"):
         layer([(xq[:, :32], torch.ones((1, 1)))])
-    with pytest.raises(NotImplementedError, match="w4a8"):
-        tq.QuantLinear(64, 8, mode="w4a8")
+    with pytest.raises(NotImplementedError, match="w3"):
+        tq.QuantLinear(64, 8, mode="w3")
     with pytest.raises(NotImplementedError):
-        tcfg.tiny_flux_config(quantized="w4")
+        tcfg.tiny_flux_config(quantized="w3")
     for impl in ("fast", "kernel"):
         with pytest.raises(ValueError):
             tcfg.tiny_flux_config(quant_impl=impl)

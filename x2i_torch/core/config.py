@@ -18,14 +18,17 @@ CPU), "kernel" always calls the kernel's wrapper (on a CPU tensor that is
 the kernel's plain version, the counterpart of Pallas interpret mode),
 "plain" always takes the plain attention.
 
-``quantized`` is the JAX field (False | "w8" | "w8a8"; w4 and w4a8 are
-not ported). With ``fused_glue`` and "w8a8" the DiT's glue is the
+``quantized`` is the JAX field (False | "w8" | "w8a8" | "w4" | "w4a8").
+With ``fused_glue`` and "w8a8" or "w4a8" the DiT's glue is the
 quantizing kernels K6/K7/K8 (the JAX ``_use_fused_glue`` mode "quant"),
-otherwise ``ln_mod`` (mode "ln"). ``quant_impl`` picks the route of the
-int8 quantization and product: "auto" takes the kernels on a CUDA tensor
-and their plain versions on the CPU, "plain" always the plain versions
-(the wrappers have no CPU route of their own for a "kernel" value to
-force, as ``attention_impl`` has).
+otherwise ``ln_mod`` (mode "ln", the weight-only modes w8 and w4 among
+them). ``quant_impl`` picks the route of the quantization and the
+products (the int8 and w4a8 GEMMs, the w4 dequantize kernel): "auto"
+takes the kernels on a CUDA tensor and their plain versions on the CPU,
+"plain" always the plain versions (the wrappers have no CPU route of
+their own for a "kernel" value to force, as ``attention_impl`` has).
+``Qwen2Config`` has no ``quantized`` field yet; the JAX one takes the
+int8 modes only.
 """
 
 from __future__ import annotations
@@ -35,17 +38,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-QUANT_MODES = ("w8", "w8a8")
+QUANT_MODES = ("w8", "w8a8", "w4", "w4a8")
+# the modes whose activations are quantized per token (the "quant" glue)
+ACT_QUANT_MODES = ("w8a8", "w4a8")
 
 
 def quant_mode(quantized) -> Optional[str]:
-    """False | "w8" | "w8a8" -> None or the mode; raises on the modes not
-    ported yet (w4, w4a8)."""
+    """False | "w8" | "w8a8" | "w4" | "w4a8" -> None or the mode; raises
+    on any other value."""
     if not quantized:
         return None
     if quantized not in QUANT_MODES:
-        raise NotImplementedError(f"quantized={quantized!r}: only "
-                                  f"{QUANT_MODES} are ported")
+        raise NotImplementedError(f"quantized={quantized!r}: one of "
+                                  f"{QUANT_MODES}")
     return quantized
 
 
@@ -71,10 +76,11 @@ class FluxConfig:
     attention_impl: str = "auto"     # "auto" | "kernel" | "plain"
     fused_glue: bool = False         # glue kernels for LayerNorm+modulate
                                      # (and gelu and the activation
-                                     # quantization in w8a8) and the qk
-                                     # RMSNorm folded into the attention
-                                     # kernel (inference only)
-    quantized: Any = False           # False | "w8" | "w8a8"
+                                     # quantization in w8a8 and w4a8) and
+                                     # the qk RMSNorm folded into the
+                                     # attention kernel (inference only)
+    quantized: Any = False           # False | "w8" | "w8a8" | "w4" |
+                                     # "w4a8"
     quant_impl: str = "auto"         # "auto" | "plain"
     remat: bool = False              # True: recompute each block in the
                                      # backward (torch.utils.checkpoint,
@@ -100,7 +106,7 @@ class FluxConfig:
         """The fused glue mode: None (unfused), "ln" or "quant"."""
         if not self.fused_glue:
             return None
-        return "quant" if self.quantized == "w8a8" else "ln"
+        return "quant" if self.quantized in ACT_QUANT_MODES else "ln"
 
 
 @dataclass(frozen=True)

@@ -52,6 +52,48 @@
 // launch per DiT step each, and slower over the M = 1 and M = 4 rows taken
 // together (PERF.md, NVIDIA H100 80GB HBM3). This kernel serves them all:
 // no second kernel is kept for 0.8 us a step.
+//
+// The w4a8 GEMM (w4a8_gemm_kernel) is the same kernel with another source
+// of its B stage. It replaces the int8 products of the JAX w4a8 mode
+// (x2i_tpu/ops/quant.py::_w4a8_acc, :281-319, under w4a8_matmul and
+// w4a8_matmul_prequant; XLA fusions on the TPU). The weight is int4 codes,
+// half-split: byte j of row n of B (N, in/2) holds input j in its low
+// nibble and input j + in/2 in its high nibble, and each code is
+// multiplied by its (group, n) multiplier m in [1, 15] (mscale, int8
+// (G, N), groups of g inputs), so the int8 operand is code x m, |.| <= 105
+// and the int32 sum stays exact: 105 * 127 * 15360 < 2^31. A chunk of
+// activations covers the inputs [koff, koff + K). The K loop runs over
+// packed steps: 128 bytes of B at packed column P give the K step of
+// inputs [P, P + 128) from the low nibbles and the K step of inputs
+// [P + in/2, P + in/2 + 128) from the high nibbles, where either lies in
+// the chunk; the two A tiles at P - koff and P + in/2 - koff meet one
+// packed tile, so B's bytes from memory are halved. The producer brings
+// the packed tile by TMA into the B stage of the first of its K steps;
+// the consumers convert it there: each of their 256 threads takes one B
+// row, reads a 16-byte chunk, writes the low codes back in place and the
+// high codes into the B stage of the next K step, at the same swizzled
+// offset (the conversion keeps every byte's place, so the 128-byte
+// swizzle that TMA wrote stays right), with 4 bytes a 32-bit operation:
+// (code + 8) x m per byte in one multiply (no carry: <= 225), then 8 m
+// taken off each byte without borrows. A multiplier of 0 gives zero
+// codes, which masks the columns outside the chunk. The converted stage
+// is published to the tensor cores with fence.proxy.async and a named
+// barrier of the 256 consumer threads, after the products of the K step
+// before it were issued, so that the conversion runs while they are in
+// flight; each row's multipliers are loaded a conversion ahead. The
+// epilogue is the int8 GEMM's. What bounds it at the DiT's shapes: the
+// int8 tensor-core rate bounds the int8 GEMM, but here the conversion's
+// instructions do. On an H100 (PERF.md) it takes 1.9x the int8 GEMM's
+// time at 4608 x 3072 -> 12288; with the conversion's loop emptied it
+// takes the int8 GEMM's, so the ring and the pairing cost nothing, and
+// with the arithmetic taken out of the loop 1.3x.
+//
+// The w4 dequantize kernel (w4_dequant_kernel) replaces the unpack and
+// scale of x2i_tpu/ops/quant.py::_dequant_w4 (:153-160, over
+// _unpack_int4), XLA on the TPU: row-interleaved codes (byte j of a row
+// holds inputs 2j low and 2j + 1 high) times bf16(scale[g, n]), rounded
+// once to bf16, into the (N, in) weight that cuBLAS then multiplies. It
+// moves bytes only: a thread reads 4 packed bytes and writes 8 bf16.
 
 #include "hopper_mma.cuh"
 
@@ -70,6 +112,10 @@ struct Args {
   void* out;
   long long ldo;
   int m, n, k;
+  // w4a8 only: the multipliers (G, N), in/2, the group size and the first
+  // input of the chunk
+  const int8_t* mscale;
+  int half, group, koff;
 };
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) {
@@ -87,10 +133,47 @@ constexpr int kSmemBytes =
 constexpr int kConsumers = 256;         // two consumer warpgroups
 constexpr int kGroupRows = 16;          // row tiles per group of the order
 
-template <bool ACC_ONLY>
-__global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
-    const __grid_constant__ CUtensorMap map_a,
-    const __grid_constant__ CUtensorMap map_b, Args p) {
+// The K steps of a w4a8 chunk, in packed columns: the low nibbles of
+// [lo_s, lo_e) and the high nibbles of [hi_s, hi_e) (each empty as 0, 0),
+// walked in packed steps of 128 bytes from `first` to `last`.
+struct PackedSteps {
+  int lo_s, lo_e, hi_s, hi_e, first, last;
+
+  __device__ explicit PackedSteps(const Args& p) {
+    const int a = p.koff, b = p.koff + p.k, h = p.half;
+    lo_s = a;
+    lo_e = min(b, h);
+    hi_s = max(a, h) - h;
+    hi_e = b - h;
+    if (lo_s >= lo_e) lo_s = lo_e = 0;
+    if (hi_s >= hi_e) hi_s = hi_e = 0;
+    // across in/2 the high part starts at 0 and the low part at koff, a
+    // multiple of 128 (the wrapper checks it): no A tile starts before 0
+    first = lo_s < lo_e && (hi_s >= hi_e || lo_s < hi_s) ? lo_s : hi_s;
+    last = max(lo_e, hi_e);
+  }
+  __device__ bool lo(int P) const { return P < lo_e && P + 128 > lo_s; }
+  __device__ bool hi(int P) const { return P < hi_e && P + 128 > hi_s; }
+  __device__ int ksteps() const {
+    int n = 0;
+    for (int P = first; P < last; P += 128) n += lo(P) + hi(P);
+    return n;
+  }
+};
+
+// 4 packed low nibbles (one a byte) times m: (code + 8) m per byte in one
+// multiply (at most 225: no carry), then 8 m (below 128) taken off each
+// byte without borrows -> 4 int8 codes code x m.
+__device__ __forceinline__ uint32_t nibbles_times(uint32_t nib, uint32_t m,
+                                                  uint32_t m8) {
+  const uint32_t x = (nib ^ 0x08080808u) * m;
+  return ((x | 0x80808080u) - m8) ^ (~x & 0x80808080u);
+}
+
+template <bool ACC_ONLY, bool W4A8>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& map_a,
+                                          const CUtensorMap& map_b,
+                                          const Args& p) {
   constexpr uint32_t kABytes = kRows * kStepBytes;
   constexpr uint32_t kStageBytes = kABytes + BN * kStepBytes;
   // the epilogue's staging rows: BN s32 and 32 bytes of padding
@@ -115,7 +198,9 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
   const int rows = min(static_cast<int>(gridDim.y) - first, kGroupRows);
   const int m0 = (first + linear % per_group % rows) * kRows;
   const int n0 = linear % per_group / rows * BN;
-  const int ksteps = (p.k + kStepBytes - 1) / kStepBytes;
+  const PackedSteps steps(p);
+  const int ksteps =
+      W4A8 ? steps.ksteps() : (p.k + kStepBytes - 1) / kStepBytes;
 
   if (tid == 0) {
 #pragma unroll
@@ -127,12 +212,18 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
   }
   __syncthreads();
 
+  // w4a8: the producer walks packed steps with more state, and gives back
+  // fewer registers. setmaxnreg.inc takes only what the block's own
+  // setmaxnreg.dec gave back (168 a thread to start with): 128 x (168 -
+  // 40) = 256 x (232 - 168); a consumer asking for more waits forever.
+  constexpr int kProducerRegs = W4A8 ? 40 : 24;
+  constexpr int kConsumerRegs = W4A8 ? 232 : 240;
   if (tid >= kConsumers) {
-    setmaxnreg_dec<24>();
+    setmaxnreg_dec<kProducerRegs>();
     // The producer: one thread keeps the ring full, up to STAGES K steps
     // ahead of the consumers; a stage is the A box and the B box of one
     // K step, both completing on its `full`.
-    if (tid == kConsumers) {
+    if (tid == kConsumers && !W4A8) {
 #pragma unroll 1
       for (int kt = 0; kt < ksteps; ++kt) {
         const int st = kt % STAGES;
@@ -142,11 +233,119 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
         tma_load_2d(map_a, sa, kt * kStepBytes, m0, &full[st]);
         tma_load_2d(map_b, sa + kABytes, kt * kStepBytes, n0, &full[st]);
       }
+    } else if (tid == kConsumers) {
+      // w4a8: a packed step takes the stages of its one or two K steps;
+      // the packed tile lands in the B stage of the first, with its A
+      int kt = 0;
+#pragma unroll 1
+      for (int P = steps.first; P < steps.last; P += kStepBytes) {
+        const bool lo = steps.lo(P), hi = steps.hi(P);
+        if (!lo && !hi) continue;
+        for (int t = kt; t < kt + lo + hi; ++t)
+          if (t >= STAGES)
+            mbar_wait(&empty[t % STAGES], (t / STAGES - 1) & 1);
+        const int st = kt % STAGES;
+        const uint32_t sa = ring + st * kStageBytes;
+        mbar_arrive_expect_tx(&full[st], kStageBytes);
+        tma_load_2d(map_a, sa, lo ? P - p.koff : P + p.half - p.koff, m0,
+                    &full[st]);
+        tma_load_2d(map_b, sa + kABytes, P, n0, &full[st]);
+        if (lo && hi) {
+          const int st1 = (kt + 1) % STAGES;
+          mbar_arrive_expect_tx(&full[st1], kABytes);
+          tma_load_2d(map_a, ring + st1 * kStageBytes, P + p.half - p.koff,
+                      m0, &full[st1]);
+        }
+        kt += lo + hi;
+      }
     }
     return;
   }
 
-  setmaxnreg_inc<240>();
+  setmaxnreg_inc<kConsumerRegs>();
+  // w4a8: the next packed step to convert and its first K step
+  int conv_p = steps.first, conv_k = 0;
+  // The multipliers of thread tid's row (0 past N) for the low and the
+  // high group of a packed column, loaded a conversion ahead: pre_grp is
+  // the low group they belong to. A multiplier from memory takes longer
+  // than the conversion it feeds; loaded at each chunk, they cost a
+  // quarter of the kernel's time at the main shape.
+  const int n_row = n0 + tid;
+  const bool row_live = n_row < p.n;
+  const int gh = W4A8 ? p.half / p.group : 0;
+  auto load_m = [&](int grp, uint32_t& m_lo, uint32_t& m_hi) {
+    m_lo = row_live ? static_cast<uint8_t>(__ldg(p.mscale + grp * p.n +
+                                                 n_row))
+                    : 0u;
+    m_hi = row_live ? static_cast<uint8_t>(__ldg(p.mscale +
+                                                 (gh + grp) * p.n + n_row))
+                    : 0u;
+  };
+  int pre_grp = -1;
+  uint32_t pre_lo = 0, pre_hi = 0;
+  // Converts the packed step at conv_p, whose tile lies in the B stage of
+  // K step conv_k: thread tid takes B row tid, 16 bytes at a time, the
+  // low codes back in place, the high codes into the next K step's B
+  // stage (in place when the step has no low part).
+  auto convert = [&]() {
+    while (!steps.lo(conv_p) && !steps.hi(conv_p)) conv_p += kStepBytes;
+    const bool lo = steps.lo(conv_p), hi = steps.hi(conv_p);
+    const int st = conv_k % STAGES;
+    const int g16 = p.group / 16;
+    int grp = conv_p / p.group, rem = conv_p / 16 % g16;
+    uint32_t m_lo_g = pre_lo, m_hi_g = pre_hi;
+    if (grp != pre_grp) load_m(grp, m_lo_g, m_hi_g);
+    mbar_wait(&full[st], (conv_k / STAGES) & 1);
+    unsigned char* src = smem + st * kStageBytes + kABytes + tid * kStepBytes;
+    unsigned char* dst_hi =
+        lo ? smem + (conv_k + 1) % STAGES * kStageBytes + kABytes +
+                 tid * kStepBytes
+           : src;
+#pragma unroll
+    for (int c = 0; c < kStepBytes / 16; ++c) {
+      const int col = conv_p + 16 * c;
+      const uint32_t m_lo =
+          lo && col >= steps.lo_s && col < steps.lo_e ? m_lo_g : 0u;
+      const uint32_t m_hi =
+          hi && col >= steps.hi_s && col < steps.hi_e ? m_hi_g : 0u;
+      const uint32_t off = (c ^ (tid & 7)) * 16;   // the 128-byte swizzle
+      const uint4 w = *reinterpret_cast<const uint4*>(src + off);
+      if (lo) {
+        const uint32_t m8 = 8 * m_lo * 0x01010101u;
+        *reinterpret_cast<uint4*>(src + off) = make_uint4(
+            nibbles_times(w.x & 0x0F0F0F0Fu, m_lo, m8),
+            nibbles_times(w.y & 0x0F0F0F0Fu, m_lo, m8),
+            nibbles_times(w.z & 0x0F0F0F0Fu, m_lo, m8),
+            nibbles_times(w.w & 0x0F0F0F0Fu, m_lo, m8));
+      }
+      if (hi) {
+        const uint32_t m8 = 8 * m_hi * 0x01010101u;
+        *reinterpret_cast<uint4*>(dst_hi + off) = make_uint4(
+            nibbles_times(w.x >> 4 & 0x0F0F0F0Fu, m_hi, m8),
+            nibbles_times(w.y >> 4 & 0x0F0F0F0Fu, m_hi, m8),
+            nibbles_times(w.z >> 4 & 0x0F0F0F0Fu, m_hi, m8),
+            nibbles_times(w.w >> 4 & 0x0F0F0F0Fu, m_hi, m8));
+      }
+      // groups of 16..112 bytes change inside the step; past in/2 (the
+      // step's overhang, masked) there is no group to load
+      if (++rem == g16 && c + 1 < kStepBytes / 16) {
+        rem = 0;
+        if (++grp < gh) load_m(grp, m_lo_g, m_hi_g);
+      }
+    }
+    // the generic proxy's stores before the tensor cores' reads, then
+    // every row of the stage before any warp's products
+    fence_proxy_async();
+    named_barrier_sync(1, kConsumers);
+    conv_p += kStepBytes;
+    conv_k += lo + hi;
+    // the next step's multipliers, while this step's products run
+    if (conv_p < steps.last) {
+      pre_grp = conv_p / p.group;
+      load_m(pre_grp, pre_lo, pre_hi);
+    }
+  };
+  if constexpr (W4A8) convert();
   int acc[BN / 8][4];
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
@@ -172,6 +371,9 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
     wgmma_pin(acc);
     if (kt > 0 && kt - 1 + STAGES < ksteps && tid % 32 == 0)
       mbar_arrive(&empty[(kt - 1) % STAGES]);
+    // w4a8: the next packed step, while this K step's products run
+    if constexpr (W4A8)
+      if (kt + 1 == conv_k && conv_k < ksteps) convert();
   }
   wgmma_wait<0>();
   wgmma_pin(acc);
@@ -253,8 +455,23 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
 }
 
 template <bool ACC_ONLY>
+__global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b, Args p) {
+  gemm_body<ACC_ONLY, false>(map_a, map_b, p);
+}
+
+template <bool ACC_ONLY>
+__global__ void __launch_bounds__(kConsumers + 128, 1) w4a8_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b, Args p) {
+  gemm_body<ACC_ONLY, true>(map_a, map_b, p);
+}
+
+template <bool ACC_ONLY, bool W4A8>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  auto kernel = int8_gemm_kernel<ACC_ONLY>;
+  auto kernel =
+      W4A8 ? w4a8_gemm_kernel<ACC_ONLY> : int8_gemm_kernel<ACC_ONLY>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -265,8 +482,10 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   CUtensorMap map_a, map_b;
   cudaError_t err =
       make_byte_matrix_map(&map_a, p.a, p.k, p.m, p.lda, kRows);
+  // w4a8: the packed bytes, in/2 columns from the first
   if (err == cudaSuccess)
-    err = make_byte_matrix_map(&map_b, p.b, p.k, p.n, p.ldb, BN);
+    err = make_byte_matrix_map(&map_b, p.b, W4A8 ? p.half : p.k, p.n, p.ldb,
+                               BN);
   if (err != cudaSuccess) return err;
   dim3 grid((p.n + BN - 1) / BN, (p.m + kRows - 1) / kRows);
   kernel<<<grid, kConsumers + 128, kSmemBytes, stream>>>(map_a, map_b, p);
@@ -301,7 +520,111 @@ extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
   p.m = m;
   p.n = n;
   p.k = k;
+  p.mscale = nullptr;
+  p.half = p.group = p.koff = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(acc_only ? launch<true>(p, s)
-                                   : launch<false>(p, s));
+  return static_cast<int>(acc_only ? launch<true, false>(p, s)
+                                   : launch<false, false>(p, s));
+}
+
+// The wrapper (x2i_torch/ops/int4_gemm.py) checks types, shapes and
+// alignment: K, koff, in/2 and the group size multiples of 16, an even
+// group count, koff a multiple of 128 for a chunk across in/2; a and b
+// 16-byte aligned. Returns the cudaError_t of the launch.
+extern "C" int x2i_w4a8_gemm(const void* a, long long lda, const void* b,
+                             long long ldb, const void* mscale, int half,
+                             int group, int koff, const void* a_scale,
+                             const void* scale, const void* bias,
+                             const void* addend, long long ldd, void* out,
+                             long long ldo, int m, int n, int k,
+                             int acc_only, void* stream) {
+  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16 || half < 16 ||
+      half % 16 || group < 16 || group % 16 || half % group ||
+      (half / group) < 1 || koff < 0 || koff % 16 || koff + k > 2 * half ||
+      (koff < half && koff + k > half && koff % 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p;
+  p.a = static_cast<const int8_t*>(a);
+  p.lda = lda;
+  p.b = static_cast<const int8_t*>(b);
+  p.ldb = ldb;
+  p.a_scale = static_cast<const float*>(a_scale);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.addend = static_cast<const __nv_bfloat16*>(addend);
+  p.ldd = ldd;
+  p.out = out;
+  p.ldo = ldo;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.mscale = static_cast<const int8_t*>(mscale);
+  p.half = half;
+  p.group = group;
+  p.koff = koff;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(acc_only ? launch<true, true>(p, s)
+                                   : launch<false, true>(p, s));
+}
+
+namespace {
+
+// One thread: 4 packed bytes of a row (8 inputs) -> 8 bf16, each the code
+// times the bf16 scale of its group, rounded once (a bf16 times a code of
+// at most 4 bits is exact in f32), in one 16-byte store: a warp reads 128
+// contiguous bytes and writes 512. `group` is even, so the two inputs of
+// a byte share a group.
+__global__ void __launch_bounds__(256) w4_dequant_kernel(
+    const int8_t* __restrict__ pw, long long ldp,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int n,
+    int half, int group) {
+  const int per_row = half / 4;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(n) * per_row) return;
+  const int row = static_cast<int>(idx / per_row);
+  const int c = static_cast<int>(idx % per_row);
+  const uint32_t w =
+      __ldg(reinterpret_cast<const uint32_t*>(pw + row * ldp) + c);
+  const int first = 8 * c;
+  const bool one_group = first / group == (first + 7) / group;
+  const float s0 = __bfloat162float(
+      __float2bfloat16_rn(__ldg(scale + (first / group) * n + row)));
+  uint32_t o[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int byte = (w >> (8 * b)) & 0xFF;
+    const float s =
+        one_group ? s0
+                  : __bfloat162float(__float2bfloat16_rn(
+                        __ldg(scale + ((first + 2 * b) / group) * n + row)));
+    const float lo = static_cast<float>(((byte & 0xF) ^ 8) - 8);
+    const float hi = static_cast<float>(((byte >> 4) ^ 8) - 8);
+    o[b] = static_cast<uint32_t>(
+               __bfloat16_as_ushort(__float2bfloat16_rn(lo * s))) |
+           static_cast<uint32_t>(
+               __bfloat16_as_ushort(__float2bfloat16_rn(hi * s)))
+               << 16;
+  }
+  *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * 2 * half +
+                            first) = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+}  // namespace
+
+// pw (n, half) packed with rows ldp bytes apart (16-byte aligned), scale
+// (half * 2 / group, n) f32, out (n, 2 * half) bf16. Returns the
+// cudaError_t of the launch.
+extern "C" int x2i_w4_dequant(const void* pw, long long ldp,
+                              const void* scale, void* out, int n, int half,
+                              int group, void* stream) {
+  if (n < 1 || half < 16 || half % 16 || group < 2 || group % 2 ||
+      (2 * half) % group || ldp % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(n) * (half / 4);
+  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
+  w4_dequant_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(pw), ldp, static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), n, half, group);
+  return static_cast<int>(cudaGetLastError());
 }

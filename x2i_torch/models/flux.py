@@ -6,10 +6,12 @@ The JAX blocks run under ``nn.scan`` with stacked parameters; here they are
 ``nn.ModuleList``s, one module per layer (``x2i_torch.params`` unstacks the
 JAX tree). The FLUX MLPs use the tanh form of gelu (flax ``nn.gelu``).
 Every dense layer is ``make_linear(cfg.quantized)``: ``nn.Linear``, or a
-``QuantLinear`` in w8 or w8a8. In the w8a8 "quant" glue mode the inputs
-of the attention and MLP projections come pre-quantized from the glue
-kernels K6/K7/K8 (``ops/fused_glue.py``), and the single block's output
-layer takes ``[attn, mlp]`` as two chunks, never their concatenation.
+``QuantLinear`` in w8, w8a8, w4 or w4a8. In the "quant" glue mode (w8a8
+and w4a8) the inputs of the attention and MLP projections come
+pre-quantized from the glue kernels K6/K7/K8 (``ops/fused_glue.py``) to
+the int8 or the w4a8 GEMM, and the single block's output layer takes
+``[attn, mlp]`` as two chunks, never their concatenation (in w4a8 the
+two chunks are K-slices of one half-split int4 weight).
 
 For attention distillation the model also returns each block's attention
 output (the double blocks' after their out layers, the single blocks'

@@ -1,0 +1,271 @@
+"""The int4 weights' kernels: the w4a8 GEMM and the w4 dequantize kernel
+(both in ``csrc/int8_gemm.cu``, counted in ``int8_gemm.GEMM.launches``),
+their plain PyTorch versions, and the wrappers that pick between them.
+
+Both packings keep two int4 codes a byte, low nibble first, and a weight
+row K-contiguous, the ``nn.Linear`` (out, in) orientation: ``pweight``
+int8 (N, in/2) is the transpose of the JAX ``pkernel`` (in/2, N). They
+differ in which inputs share a byte, so each has its own unpack:
+
+* w4a8 (``x2i_tpu/ops/quant.py::quantize_kernel_w4a8``), half-split: byte
+  j of a row holds input j low and input j + in/2 high. Each code is
+  multiplied by its (group, out) multiplier m in [1, 15] (``mscale`` int8
+  (G, N), the JAX layout), so the int8 operand is code x m, |.| <= 105.
+  The GEMM (counterpart of ``_w4a8_acc`` under ``w4a8_matmul`` and
+  ``w4a8_matmul_prequant``, XLA fusions on the TPU) computes over the
+  weight's inputs [k0, k0 + K)::
+
+      acc = xq @ codes[:, k0:k0 + K].T                        (int32, exact)
+      out = ((f32(acc) * a_scale) * scale).to(out_dtype)
+
+  then the addend and the bias as the int8 GEMM does
+  (``int8_gemm.py``). |code x m| <= 105, so 105 * 127 * 15360 < 2^31.
+* w4 (``quantize_kernel_w4``), row-interleaved: byte j holds input 2j
+  low and 2j + 1 high; the weight is ``bf16(code) * bf16(scale[g, n])``
+  (``scale`` f32 (G, N)), rounded once, the JAX ``_dequant_w4`` in bf16.
+  The dequantize kernel writes that (N, in) weight for ``F.linear``.
+
+A nibble is sign-extended as ``((b & 0xF) ^ 8) - 8``. ``w4a8_linear`` and
+``w4_dequant`` launch their kernels for CUDA tensors and take the plain
+versions for CPU tensors; there is no other fallback. Neither has a
+backward: off ``impl="plain"`` the wrappers raise when autograd records
+and an input requires grad.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from x2i_torch.ops.cuda_lib import refuse_grad
+from x2i_torch.ops.int8_gemm import (GEMM, check_gemm_layout,
+                                     int8_matmul_acc_plain, _check, _rows)
+
+W4A8_K_STEP = 16       # K, k0, in/2 and the group size: multiples of it
+                       # (a 16-byte chunk of packed codes is one group)
+W4A8_SPAN_ALIGN = 128  # k0 of a chunk that crosses in/2 (one packed step)
+
+
+def nibbles(packed: torch.Tensor):
+    """int8 bytes -> (low, high) int8 codes in [-8, 7], sign-extended."""
+    return ((packed & 0x0F) ^ 8) - 8, (((packed >> 4) & 0x0F) ^ 8) - 8
+
+
+def w4a8_codes(pweight: torch.Tensor, mscale: torch.Tensor) -> torch.Tensor:
+    """Half-split packed (..., N, in/2) and multipliers (..., G, N) ->
+    the int8 operand (..., N, in), code x m."""
+    lo, hi = nibbles(pweight)
+    codes = torch.cat([lo, hi], dim=-1)
+    n, inn = codes.shape[-2:]
+    groups = mscale.shape[-2]
+    m = mscale.transpose(-1, -2)[..., :, :, None]            # (.., N, G, 1)
+    return (codes.reshape(*codes.shape[:-1], groups, inn // groups)
+            * m).reshape(codes.shape)
+
+
+def w4_codes(pweight: torch.Tensor) -> torch.Tensor:
+    """Row-interleaved packed (..., N, in/2) -> int8 codes (..., N, in):
+    input 2j is byte j's low nibble, 2j + 1 its high nibble."""
+    lo, hi = nibbles(pweight)
+    return torch.stack([lo, hi], dim=-1).flatten(-2)
+
+
+def w4_dequant_plain(pweight: torch.Tensor, scale: torch.Tensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """(N, in/2) packed, (G, N) f32 scales -> the (N, in) weight in dtype:
+    the code and the scale cast to dtype, then one product in dtype."""
+    codes = w4_codes(pweight).to(dtype)
+    n, inn = codes.shape[-2:]
+    groups = scale.shape[-2]
+    s = scale.to(dtype).transpose(-1, -2)[..., :, :, None]
+    return (codes.reshape(*codes.shape[:-1], groups, inn // groups)
+            * s).reshape(codes.shape)
+
+
+def check_w4a8_shapes(m: int, k: int, n: int, inn: int, groups: int,
+                      k0: int):
+    """The shapes the w4a8 kernel takes: M >= 1 rows of K codes, N a
+    multiple of 8, the weight's inputs [k0, k0 + K) inside its ``inn``;
+    K, k0, in/2 and the group size in/groups multiples of
+    ``W4A8_K_STEP``, an even group count; a chunk that crosses in/2
+    starts on a ``W4A8_SPAN_ALIGN`` boundary. Raises ValueError
+    otherwise."""
+    half = inn // 2
+    g = inn // groups if groups else 0
+    step = W4A8_K_STEP
+    if (m < 1 or n < 8 or n % 8 or inn % 2 or half % step or groups < 2
+            or groups % 2 or inn % groups or g % step or k < step
+            or k % step or k0 < 0 or k0 % step or k0 + k > inn
+            or (k0 < half < k0 + k and k0 % W4A8_SPAN_ALIGN)):
+        raise ValueError(
+            f"w4a8 GEMM kernel: unsupported shapes M {m}, K {k}, N {n}, "
+            f"inputs {inn} in {groups} groups, k0 {k0} (N % 8, K, k0, in/2 "
+            f"and the group size % {step}, an even group count, and k0 % "
+            f"{W4A8_SPAN_ALIGN} for a chunk across in/2 must hold)")
+
+
+def w4a8_matmul_acc_plain(xq: torch.Tensor, pweight: torch.Tensor,
+                          mscale: torch.Tensor, k0: int = 0) -> torch.Tensor:
+    """The exact int32 accumulator (..., N) of xq against the operand's
+    inputs [k0, k0 + K): int32 on the CPU, float64 on a card."""
+    return int8_matmul_acc_plain(xq, w4a8_codes(pweight, mscale), k0)
+
+
+def w4a8_linear_plain(xq: torch.Tensor, a_scale: torch.Tensor,
+                      pweight: torch.Tensor, mscale: torch.Tensor,
+                      scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      k0: int = 0, addend: Optional[torch.Tensor] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernel's function step by step in PyTorch."""
+    acc = w4a8_matmul_acc_plain(xq, pweight, mscale, k0)
+    out = (acc.float() * a_scale.float() * scale.float()).to(out_dtype)
+    if addend is not None:
+        out = addend.to(out_dtype) + out
+    if bias is not None:
+        out = out + bias.to(out_dtype)
+    return out
+
+
+def _launch_w4a8(xq, a_scale, pweight, mscale, scale, bias, k0, addend,
+                 out_dtype, acc_only):
+    dev = xq.device
+    if dev.type != "cuda":
+        raise ValueError(f"w4a8 GEMM kernel: tensors must be on a CUDA "
+                         f"device, got {dev}")
+    x = _rows(xq)
+    m, k = x.shape
+    _check("xq", x, torch.int8, dev)
+    _check("pweight", pweight, torch.int8, dev)
+    _check("mscale", mscale, torch.int8, dev)
+    if pweight.dim() != 2 or mscale.dim() != 2 \
+            or mscale.shape[1] != pweight.shape[0]:
+        raise ValueError(f"w4a8 GEMM kernel: unsupported shapes: pweight "
+                         f"{tuple(pweight.shape)} is not (N, in/2) or mscale "
+                         f"{tuple(mscale.shape)} not (G, N)")
+    n, half = pweight.shape
+    groups = mscale.shape[0]
+    check_w4a8_shapes(m, k, n, 2 * half, groups, k0)
+    check_gemm_layout(x.stride(), pweight.stride(), x.data_ptr(),
+                      pweight.data_ptr())
+    if not mscale.is_contiguous():
+        raise ValueError("w4a8 GEMM kernel: mscale must be contiguous")
+    a = sc = b = d = None
+    ldd = 0
+    if acc_only:
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    else:
+        if out_dtype != torch.bfloat16:
+            raise ValueError(f"w4a8 GEMM kernel: bf16 output only, got "
+                             f"{out_dtype}")
+        a, sc = a_scale.reshape(-1), scale
+        _check("a_scale", a, torch.float32, dev)
+        _check("scale", sc, torch.float32, dev)
+        if a.shape != (m,) or sc.shape != (n,) or a.stride(0) != 1 \
+                or sc.stride(0) != 1:
+            raise ValueError(f"w4a8 GEMM kernel: a_scale must hold {m} and "
+                             f"scale {n} contiguous f32 values, got "
+                             f"{tuple(a_scale.shape)}, {tuple(scale.shape)}")
+        if bias is not None:
+            b = bias
+            _check("bias", b, torch.bfloat16, dev)
+            if b.shape != (n,) or b.stride(0) != 1:
+                raise ValueError(f"w4a8 GEMM kernel: bias must be ({n},)")
+        if addend is not None:
+            d = _rows(addend)
+            _check("addend", d, torch.bfloat16, dev)
+            if d.shape != (m, n) or d.stride(1) != 1 or d.stride(0) % 2:
+                raise ValueError(f"w4a8 GEMM kernel: addend must be "
+                                 f"({m}, {n}) with contiguous rows")
+            ldd = d.stride(0)
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = GEMM.lib().x2i_w4a8_gemm(
+        x.data_ptr(), x.stride(0), pweight.data_ptr(), pweight.stride(0),
+        mscale.data_ptr(), half, 2 * half // groups, k0, ptr(a), ptr(sc),
+        ptr(b), ptr(d), ldd, out.data_ptr(), n, m, n, k, int(acc_only),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w4a8 GEMM launch failed: cudaError_t {err}")
+    GEMM.launches["w4a8_gemm"] += 1
+    return out.reshape(*xq.shape[:-1], n)
+
+
+def w4a8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
+                pweight: torch.Tensor, mscale: torch.Tensor,
+                scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                k0: int = 0, addend: Optional[torch.Tensor] = None,
+                out_dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
+    """The w4a8 product of pre-quantized activations (see the module
+    docstring). A CUDA tensor launches the kernel, which raises on what it
+    does not take; a CPU tensor, or ``impl="plain"``, takes
+    ``w4a8_linear_plain``."""
+    if impl != "plain":
+        refuse_grad("the w4a8 GEMM", a_scale, scale, bias, addend)
+    if impl == "plain" or xq.device.type == "cpu":
+        return w4a8_linear_plain(xq, a_scale, pweight, mscale, scale, bias,
+                                 k0, addend, out_dtype)
+    return _launch_w4a8(xq, a_scale, pweight, mscale, scale, bias, k0,
+                        addend, out_dtype, acc_only=False)
+
+
+def w4a8_matmul_acc(xq: torch.Tensor, pweight: torch.Tensor,
+                    mscale: torch.Tensor, k0: int = 0) -> torch.Tensor:
+    """The int32 accumulator alone: the kernel for a CUDA tensor, the
+    plain version for a CPU one. Not on the main path; the checks hold
+    the kernel's sum exact with it."""
+    if xq.device.type == "cpu":
+        return w4a8_matmul_acc_plain(xq, pweight, mscale, k0)
+    return _launch_w4a8(xq, None, pweight, mscale, None, None, k0, None,
+                        None, acc_only=True)
+
+
+def check_dequant_args(n: int, half: int, groups: int, row_stride: int,
+                       ptr: int):
+    """What the dequantize kernel takes: N >= 1 rows of in/2 packed bytes,
+    in/2 a multiple of 16, groups dividing in, contiguous 16-byte aligned
+    rows (one 16-byte load a thread). Raises ValueError otherwise."""
+    inn = 2 * half
+    if (n < 1 or half < 16 or half % 16 or groups < 1 or inn % groups
+            or (inn // groups) % 2 or row_stride % 16 or ptr % 16):
+        raise ValueError(
+            f"w4 dequantize kernel: unsupported shapes or layout: {n} rows "
+            f"of {half} bytes, {groups} groups, row stride {row_stride} "
+            f"(in/2 % 16, an even group size and 16-byte aligned rows must "
+            f"hold)")
+
+
+def w4_dequant(pweight: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
+    """The (N, in) weight of w4 codes (N, in/2) and scales (G, N): the
+    kernel for a CUDA tensor (bf16 only), ``w4_dequant_plain`` for a CPU
+    one or with ``impl="plain"``."""
+    if impl != "plain":
+        refuse_grad("the w4 dequantize kernel", scale)
+    if impl == "plain" or pweight.device.type == "cpu":
+        return w4_dequant_plain(pweight, scale, dtype)
+    dev = pweight.device
+    _check("pweight", pweight, torch.int8, dev)
+    _check("scale", scale, torch.float32, dev)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"w4 dequantize kernel: bf16 output only, got "
+                         f"{dtype}")
+    if pweight.dim() != 2 or scale.dim() != 2 \
+            or scale.shape[1] != pweight.shape[0] or pweight.stride(1) != 1 \
+            or not scale.is_contiguous():
+        raise ValueError(f"w4 dequantize kernel: pweight "
+                         f"{tuple(pweight.shape)} must be (N, in/2) with "
+                         f"contiguous rows and scale {tuple(scale.shape)} a "
+                         f"contiguous (G, N)")
+    n, half = pweight.shape
+    check_dequant_args(n, half, scale.shape[0], pweight.stride(0),
+                       pweight.data_ptr())
+    out = torch.empty((n, 2 * half), dtype=dtype, device=dev)
+    err = GEMM.lib().x2i_w4_dequant(
+        pweight.data_ptr(), pweight.stride(0), scale.data_ptr(),
+        out.data_ptr(), n, half, 2 * half // scale.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w4 dequantize launch failed: cudaError_t {err}")
+    GEMM.launches["w4_dequant"] += 1
+    return out

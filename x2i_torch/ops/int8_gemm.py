@@ -43,11 +43,19 @@ def _bind(lib):
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.x2i_int8_gemm.argtypes = [p, ll, p, ll, ll, p, p, p, p, ll, p, ll,
                                   i, i, i, i, p]
-    lib.x2i_int8_gemm.restype = ctypes.c_int
+    lib.x2i_w4a8_gemm.argtypes = [p, ll, p, ll, p, i, i, i, p, p, p, p, ll,
+                                  p, ll, i, i, i, i, p]
+    lib.x2i_w4_dequant.argtypes = [p, ll, p, p, i, i, i, p]
+    for fn in (lib.x2i_int8_gemm, lib.x2i_w4a8_gemm, lib.x2i_w4_dequant):
+        fn.restype = ctypes.c_int
 
 
-GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm", ("int8_gemm",),
-                   _bind, wgmma_kernels=("int8_gemm_kernel",))
+# the library also holds the int4 weights' kernels (ops/int4_gemm.py): the
+# w4a8 GEMM is this GEMM with another source of its B stage
+GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm",
+                   ("int8_gemm", "w4a8_gemm", "w4_dequant"), _bind,
+                   wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel"),
+                   checked_kernels=("w4_dequant_kernel",))
 
 
 def check_gemm_shapes(m: int, k: int, n: int, width: int, k0: int):

@@ -1,33 +1,50 @@
-"""int8 weight quantization of the DiT's dense layers: the counterpart of
-the int8 half of ``x2i_tpu/ops/quant.py`` (forward only; the w4 and w4a8
-modes and the straight-through backward are not ported yet).
+"""Weight quantization of the DiT's dense layers: the counterpart of
+``x2i_tpu/ops/quant.py`` (forward only; the straight-through backward is
+not ported yet).
 
-Two modes:
+Four modes:
 
 * ``"w8"``: int8 weights with per-output-channel f32 scales, dequantized
   to the activation dtype for a plain product (a memory saving only);
 * ``"w8a8"``: the activations are quantized per token as well, and the
   product runs int8 x int8 -> int32 through the int8 GEMM
-  (``x2i_torch/ops/int8_gemm.py``), rescaled by row scale x channel scale.
+  (``x2i_torch/ops/int8_gemm.py``), rescaled by row scale x channel scale;
+* ``"w4"``: int4 codes, two a byte, row-interleaved, with f32 (group, out)
+  scales and an AWQ ``pre_scale`` per input; the w4 dequantize kernel
+  (``ops/int4_gemm.py``) writes the layer's bf16 weight before each plain
+  product (the JAX ``w4_matmul`` is an XLA dot too);
+* ``"w4a8"``: int4 codes, half-split, whose (group, out) scales factor
+  into int8 multipliers m in [1, 15] and an f32 per-output scale; the
+  activations are quantized per token as in w8a8, and the w4a8 GEMM
+  (``ops/int4_gemm.py``) unpacks code x m into the int8 GEMM's operand.
 
-``QuantLinear`` stores ``qweight`` int8 (out, in), the ``nn.Linear``
-orientation, so that both GEMM operands are K-contiguous; ``scale`` f32
-(out,); ``bias`` in the layer's dtype. The JAX ``QuantDense`` stores
-``qkernel`` (in, out); the bridge (``x2i_torch/params.py``) transposes.
-``quantize_kernel`` takes the JAX layout (..., in, out), as the JAX
-function does, and gives the same codes and scales bit for bit.
+``QuantLinear`` stores its weights in the ``nn.Linear`` (out, in)
+orientation, so that a weight row is K-contiguous: ``qweight`` int8 (out,
+in) and ``scale`` f32 (out,) in w8/w8a8; ``pweight`` int8 (out, in/2) in
+w4/w4a8, the transpose of the JAX ``pkernel``, with ``mscale`` int8 (G,
+out) and ``scale`` f32 (out,) in w4a8, ``scale`` f32 (G, out) and
+``pre_scale`` f32 (in,) in w4 (the JAX layouts); ``bias`` in the layer's
+dtype. The bridge (``x2i_torch/params.py``) transposes. The quantizers
+take the JAX layout (..., in, out), as the JAX functions do, and give the
+same codes, multipliers and scales bit for bit; so do the JAX-layout
+unpacks ``_unpack_int4``, ``_dequant_w4`` and ``_w4a8_weight_int8``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from x2i_torch.core.config import quant_mode
+from x2i_torch.core.config import ACT_QUANT_MODES, quant_mode
 from x2i_torch.ops.fused_glue import quant_rows, quant_rows_plain
+from x2i_torch.ops.int4_gemm import (nibbles, w4_codes, w4_dequant,
+                                     w4_dequant_plain, w4a8_codes,
+                                     w4a8_linear, w4a8_linear_plain)
 from x2i_torch.ops.int8_gemm import int8_linear, int8_linear_plain
 
 
@@ -45,6 +62,157 @@ def quantize_kernel(kernel: torch.Tensor):
     q = torch.round(k / scale).clamp(-127.0, 127.0).to(torch.int8)
     return q, scale.squeeze(-2)
 
+
+def _ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as an IEEE quotient in x's dtype (see quantize_kernel)."""
+    return x / x.new_full((), d)
+
+
+# ------------------------------------------------------------ int4 codes
+
+# the int4 modes' group size: the JAX ``QuantDense.group`` and
+# ``quantize_tree`` default, the one their callers use
+INT4_GROUP = 128
+
+def _w4_group(in_features: int, group: int) -> int:
+    """w4 group size: ``group`` when it divides the input dim, else the
+    whole input dim (per-channel scales)."""
+    return group if group and in_features % group == 0 else in_features
+
+
+def _w4a8_group(in_features: int, group: int) -> int:
+    """w4a8 group size: like ``_w4_group``, but the group count must be
+    even (whole groups in each half), so an odd count halves the group
+    (a 64-wide input gets 32)."""
+    g = _w4_group(in_features, group)
+    if (in_features // g) % 2:
+        g //= 2
+    return g
+
+
+def _pack(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int8 codes -> one int8 byte each pair, ``lo`` in the low nibble."""
+    b = (lo.to(torch.int16) & 0x0F) | ((hi.to(torch.int16) & 0x0F) << 4)
+    return b.to(torch.uint8).view(torch.int8)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7], (..., in, out) -> row-interleaved packed
+    int8 (..., in/2, out): row 2i in the low nibble, 2i + 1 in the high."""
+    return _pack(q[..., 0::2, :], q[..., 1::2, :])
+
+
+def quantize_kernel_w4(kernel: torch.Tensor, group: int = INT4_GROUP):
+    """Symmetric int4 with per-(input-group, out-channel) scales, the JAX
+    ``quantize_kernel_w4``: kernel (..., in, out) -> (pkernel int8 (...,
+    in/2, out), scale f32 (..., in/g, out)); codes clip to [-7, 7]."""
+    k = kernel.float()
+    inn, out = k.shape[-2:]
+    if inn % 2:
+        raise ValueError("w4 needs an even input dim")
+    g = _w4_group(inn, group)
+    kg = k.reshape(*k.shape[:-2], inn // g, g, out)
+    scale = _ieee_div(kg.abs().amax(-2, keepdim=True), 7.0).clamp_min(1e-12)
+    q = torch.round(kg / scale).clamp(-7.0, 7.0).to(torch.int8)
+    return pack_int4(q.reshape(k.shape)), scale.squeeze(-2)
+
+
+def quantize_kernel_w4a8(kernel: torch.Tensor, group: int = INT4_GROUP):
+    """The JAX ``quantize_kernel_w4a8``: float (..., in, out) -> (pkernel
+    int8 (..., in/2, out) half-split, mscale int8 (..., G, out) in
+    [1, 15], scale f32 (..., out)). The group scales amax / 7 snap to m x
+    s with s = max / 15, and the codes round against the snapped scale.
+    Packed row r holds input r low and input r + in/2 high."""
+    k = kernel.float()
+    inn, out = k.shape[-2:]
+    if inn % 2:
+        raise ValueError("w4a8 needs an even input dim")
+    g = _w4a8_group(inn, group)
+    kg = k.reshape(*k.shape[:-2], inn // g, g, out)
+    gscale = _ieee_div(kg.abs().amax(-2).clamp_min(1e-8), 7.0)  # (.., G, out)
+    s = _ieee_div(gscale.amax(-2), 15.0)                        # (.., out)
+    m = torch.round(gscale / s[..., None, :]).clamp(1.0, 15.0)
+    real = m * s[..., None, :]
+    q = torch.round(kg / real[..., :, None, :]).clamp(-7.0, 7.0) \
+        .to(torch.int8).reshape(k.shape)
+    half = inn // 2
+    return (_pack(q[..., :half, :], q[..., half:, :]), m.to(torch.int8),
+            s)
+
+
+def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Row-interleaved packed (..., in/2, out) -> int8 codes (..., in,
+    out) in [-8, 7]: row 2i the low nibble, 2i + 1 the high nibble."""
+    return w4_codes(packed.transpose(-1, -2)).transpose(-1, -2)
+
+
+def _dequant_w4(pkernel: torch.Tensor, scale: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """packed (..., in/2, out) + f32 scale (..., G, out) -> dtype (...,
+    in, out): the scale cast to dtype before it multiplies."""
+    return w4_dequant_plain(pkernel.transpose(-1, -2), scale,
+                            dtype).transpose(-1, -2)
+
+
+def _w4a8_codes(pkernel: torch.Tensor):
+    """Half-split packed (..., in/2, out) -> (lo, hi) int8 codes of the
+    inputs [0, in/2) and [in/2, in)."""
+    return nibbles(pkernel)
+
+
+def _w4a8_scaled(codes: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
+    """codes (..., rows, out) times the multipliers ms (..., Gp, out) of
+    their groups -> int8, |.| <= 105."""
+    rows, out = codes.shape[-2:]
+    gp = ms.shape[-2]
+    c = codes.reshape(*codes.shape[:-2], gp, rows // gp, out)
+    return (c * ms[..., :, None, :]).reshape(codes.shape)
+
+
+def _w4a8_weight_int8(pkernel: torch.Tensor,
+                      mscale: torch.Tensor) -> torch.Tensor:
+    """packed (..., in/2, out) + m (..., G, out) -> the int8 operand (...,
+    in, out), code x m (the materialized form the JAX backward uses)."""
+    return w4a8_codes(pkernel.transpose(-1, -2), mscale).transpose(-1, -2)
+
+
+def quantize_kernel_w4_awq(kernel: torch.Tensor, act_amax: torch.Tensor,
+                           group: int = INT4_GROUP, n_grid: int = 20,
+                           cal_x: Optional[torch.Tensor] = None,
+                           rng: Optional[np.random.Generator] = None):
+    """Activation-aware int4 (AWQ), the JAX ``quantize_kernel_w4_awq``:
+    input channel i is scaled by s_i = (act_amax_i / mean)^alpha before
+    quantizing, with alpha on an ``n_grid`` grid over [0, 1] chosen by
+    the mean squared output error on calibration activations ``cal_x``
+    (by default 256 Laplace rows with the observed spread, drawn from
+    ``rng``, numpy's default_rng(0) as in JAX). kernel (in, out), act_amax
+    (in,) -> (pkernel, scale, pre_scale = 1 / s), the JAX layouts; the
+    error sums in f32, in another order than numpy's."""
+    k = kernel.float()
+    if k.dim() != 2:
+        raise ValueError("awq search is per-kernel; loop stacked layers")
+    inn = k.shape[0]
+    amax = np.maximum(np.asarray(act_amax, np.float64).reshape(inn), 1e-8)
+    if cal_x is None:
+        rng = rng or np.random.default_rng(0)
+        cal_x = torch.from_numpy((rng.laplace(size=(256, inn))
+                                  * (amax / 4.0)).astype(np.float32))
+    cal_x = cal_x.float().to(k.device)
+    ref = cal_x @ k
+    best = (np.inf, None)
+    ratio = amax / amax.mean()
+    for alpha in np.linspace(0.0, 1.0, n_grid):
+        s = torch.from_numpy(np.clip(ratio ** alpha, 1e-4, 1e4)
+                             .astype(np.float32)).to(k.device)
+        pk, sc = quantize_kernel_w4(k * s[:, None], group)
+        out = (cal_x / s) @ _dequant_w4(pk, sc, torch.float32)
+        err = float(((out - ref) ** 2).mean())
+        if err < best[0]:
+            best = (err, (pk, sc, 1.0 / s))
+    return best[1]
+
+
+# -------------------------------------------------------------- products
 
 def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
@@ -72,20 +240,52 @@ def w8_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return F.linear(x, w)
 
 
+def w4_matmul(x: torch.Tensor, pweight: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """Plain weight-only int4 product: x (..., in) against the weight
+    dequantized to x.dtype (pweight (out, in/2), scale (G, out))."""
+    return F.linear(x, w4_dequant_plain(pweight, scale, x.dtype))
+
+
+def w4a8_matmul(x: torch.Tensor, pweight: torch.Tensor, mscale: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """Plain w4a8 product with dynamic per-token activation scales: x
+    (..., in) float, pweight (out, in/2), mscale (G, out), scale (out,) ->
+    (..., out) in x.dtype."""
+    xq, a_scale = quant_rows_plain(x)
+    return w4a8_linear_plain(xq, a_scale, pweight, mscale, scale,
+                             out_dtype=x.dtype)
+
+
+def w4a8_matmul_prequant(xq: torch.Tensor, a_scale: torch.Tensor,
+                         pweight: torch.Tensor, mscale: torch.Tensor,
+                         scale: torch.Tensor, row0: int = 0,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain w4a8 product over already-quantized activations that are the
+    weight's inputs [row0, row0 + K); f32 out unless out_dtype is given."""
+    return w4a8_linear_plain(xq, a_scale, pweight, mscale, scale, k0=row0,
+                             out_dtype=out_dtype or torch.float32)
+
+
 class QuantLinear(nn.Module):
-    """``nn.Linear`` with int8 weights, the counterpart of ``QuantDense``
-    (int8 modes). ``forward`` takes
+    """``nn.Linear`` with quantized weights, the counterpart of
+    ``QuantDense``. ``forward`` takes
 
     * a tensor (..., in): quantized per token by ``quant_rows`` (K8) in
-      w8a8, or multiplied by the dequantized weight in w8;
-    * an ``(xq, a_scale)`` pair from a glue kernel (w8a8 only);
+      w8a8 and w4a8 (after a cast to the layer's dtype in w4a8, as in
+      JAX), or multiplied by the dequantized weight in w8 and w4 (w4
+      first multiplies it by ``pre_scale`` in its own dtype);
+    * an ``(xq, a_scale)`` pair from a glue kernel (w8a8 and w4a8);
     * a list of such pairs, chunks along the input features: each is a
       K-slice of the one weight, and the chunks' bf16 parts are summed in
-      order, so that a concatenation of the inputs is never built.
+      order, so that a concatenation of the inputs is never built (in
+      w4a8 each chunk starts and ends on a group boundary).
 
     ``impl`` is ``FluxConfig.quant_impl``: "plain" takes the plain
     quantization and product on any device; otherwise a CUDA tensor
-    launches the kernels. The weights are buffers (and the bias a
+    launches the kernels. The int4 modes' groups are ``INT4_GROUP`` inputs
+    (halved in w4a8 to make their count even). The weights are buffers
+    (and the bias a
     parameter without gradient): the layer is frozen."""
 
     def __init__(self, in_features: int, out_features: int,
@@ -95,21 +295,64 @@ class QuantLinear(nn.Module):
         self.in_features, self.out_features = in_features, out_features
         self.mode = quant_mode(mode)
         self.dtype, self.impl = dtype, impl
-        self.register_buffer("qweight", torch.zeros(
-            (out_features, in_features), dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(
-            out_features, dtype=torch.float32, device=device))
+        i8, f32 = torch.int8, torch.float32
+
+        def buf(name, shape, dtype, fill):
+            self.register_buffer(name, torch.full(shape, fill, dtype=dtype,
+                                                  device=device))
+
+        if self.mode in ("w4", "w4a8"):
+            if in_features % 2:
+                raise ValueError(f"{self.mode} needs an even input dim")
+            buf("pweight", (out_features, in_features // 2), i8, 0)
+        if self.mode == "w4a8":
+            groups = in_features // _w4a8_group(in_features, INT4_GROUP)
+            buf("mscale", (groups, out_features), i8, 1)
+            buf("scale", (out_features,), f32, 1.0)
+        elif self.mode == "w4":
+            groups = in_features // _w4_group(in_features, INT4_GROUP)
+            buf("scale", (groups, out_features), f32, 1.0)
+            buf("pre_scale", (in_features,), f32, 1.0)
+        else:
+            buf("qweight", (out_features, in_features), i8, 0)
+            buf("scale", (out_features,), f32, 1.0)
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
                                               device=device),
                                   requires_grad=False) if bias else None)
 
     @torch.no_grad()
     def set_weight_(self, weight: torch.Tensor) -> "QuantLinear":
-        """Quantize a float (out, in) weight into this layer."""
-        q, s = quantize_kernel(weight.t())
-        self.qweight.copy_(q.t())
-        self.scale.copy_(s)
+        """Quantize a float (out, in) weight into this layer (w4: with no
+        AWQ equalization, ``pre_scale`` ones, as the JAX
+        ``quantize_tree``)."""
+        if self.mode == "w4a8":
+            pk, m, s = quantize_kernel_w4a8(weight.t(), INT4_GROUP)
+            self.pweight.copy_(pk.t())
+            self.mscale.copy_(m)
+            self.scale.copy_(s)
+        elif self.mode == "w4":
+            pk, s = quantize_kernel_w4(weight.t(), INT4_GROUP)
+            self.pweight.copy_(pk.t())
+            self.scale.copy_(s)
+            self.pre_scale.fill_(1.0)
+        else:
+            q, s = quantize_kernel(weight.t())
+            self.qweight.copy_(q.t())
+            self.scale.copy_(s)
         return self
+
+    @torch.no_grad()
+    def dequantized_weight(self) -> torch.Tensor:
+        """The f32 (out, in) weight this layer multiplies by, exactly (the
+        rounding happened at quantization), with w4's ``pre_scale`` folded
+        in: the JAX ``dequantize_tree`` of its leaves, transposed."""
+        if self.mode == "w4a8":
+            return (w4a8_codes(self.pweight, self.mscale).float()
+                    * self.scale[:, None])
+        if self.mode == "w4":
+            return (w4_dequant_plain(self.pweight, self.scale, torch.float32)
+                    * self.pre_scale[None, :])
+        return self.qweight.float() * self.scale[:, None]
 
     @classmethod
     @torch.no_grad()
@@ -123,12 +366,26 @@ class QuantLinear(nn.Module):
             q.bias.copy_(linear.bias)
         return q
 
+    def _bias(self, y):
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
     def forward(self, x):
         if isinstance(x, (tuple, list)):
             return self._prequant(x if isinstance(x, list) else [x])
         if self.mode == "w8":
-            y = w8_matmul(x.to(self.dtype), self.qweight, self.scale)
-            return y if self.bias is None else y + self.bias
+            return self._bias(w8_matmul(x.to(self.dtype), self.qweight,
+                                        self.scale))
+        if self.mode == "w4":
+            xs = (x * self.pre_scale.to(x.dtype)).to(self.dtype)
+            w = w4_dequant(self.pweight, self.scale, xs.dtype, self.impl)
+            return self._bias(F.linear(xs, w))
+        if self.mode == "w4a8":
+            # quantized after the cast to the layer's dtype, the bias in
+            # the GEMM's epilogue, as the JAX layer rounds
+            xq, a_scale = quant_rows(x.to(self.dtype), self.impl)
+            return w4a8_linear(xq, a_scale, self.pweight, self.mscale,
+                               self.scale, bias=self.bias,
+                               out_dtype=self.dtype, impl=self.impl)
         # the product rounds to x.dtype, then to the layer's dtype, as the
         # JAX layer does; the bias rides the GEMM's epilogue when the two
         # dtypes agree (always in the DiT)
@@ -137,32 +394,39 @@ class QuantLinear(nn.Module):
         y = int8_linear(xq, a_scale, self.qweight, self.scale,
                         bias=self.bias if same else None,
                         out_dtype=x.dtype, impl=self.impl)
-        if not same:
-            y = y.to(self.dtype)
-            if self.bias is not None:
-                y = y + self.bias
-        return y
+        return y if same else self._bias(y.to(self.dtype))
 
     def _prequant(self, chunks):
-        if self.mode != "w8a8":
-            raise ValueError("pre-quantized input requires mode w8a8")
+        if self.mode not in ACT_QUANT_MODES:
+            raise ValueError("pre-quantized input requires mode w8a8 or "
+                             "w4a8")
         widths = [xq.shape[-1] for xq, _ in chunks]
         if sum(widths) != self.in_features:
             raise ValueError(f"chunks of widths {widths} do not make "
                              f"{self.in_features} input features")
+        w4a8 = self.mode == "w4a8"
+        g = self.in_features // self.mscale.shape[0] if w4a8 else 1
         y, off = None, 0
         for i, (xq, a_scale) in enumerate(chunks):
-            last = i == len(chunks) - 1
-            y = int8_linear(xq, a_scale, self.qweight, self.scale,
-                            bias=self.bias if last else None, k0=off,
-                            addend=y, out_dtype=self.dtype, impl=self.impl)
+            if w4a8 and (off % g or widths[i] % g):
+                raise ValueError("w4a8 chunk not group-aligned")
+            bias = self.bias if i == len(chunks) - 1 else None
+            if w4a8:
+                y = w4a8_linear(xq, a_scale, self.pweight, self.mscale,
+                                self.scale, bias=bias, k0=off, addend=y,
+                                out_dtype=self.dtype, impl=self.impl)
+            else:
+                y = int8_linear(xq, a_scale, self.qweight, self.scale,
+                                bias=bias, k0=off, addend=y,
+                                out_dtype=self.dtype, impl=self.impl)
             off += widths[i]
         return y
 
 
 def make_linear(quantized, dtype, impl: str = "auto"):
     """Linear factory with one signature, ``(d_in, d_out, bias=True,
-    device=None)``: ``nn.Linear``, or ``QuantLinear`` in an int8 mode."""
+    device=None)``: ``nn.Linear``, or ``QuantLinear`` in a quantized
+    mode."""
     mode = quant_mode(quantized)
     if mode:
         return lambda d_in, d_out, bias=True, device=None: QuantLinear(
@@ -171,33 +435,61 @@ def make_linear(quantized, dtype, impl: str = "auto"):
         d_in, d_out, bias=bias, device=device, dtype=dtype)
 
 
+def _swap_linears(module: nn.Module, quantized, swap):
+    """Replace every child of ``module`` that ``swap(child, impl)`` maps
+    to a new layer (None: recurse into it), one at a time, holding no
+    reference to a replaced layer beyond its own swap. Every submodule
+    config with a ``quantized`` field (``FluxConfig``) is set to
+    ``quantized``, and each layer gets the ``quant_impl`` of the nearest
+    such config above it ("auto" where there is none)."""
+
+    def walk(parent, impl):
+        cfg = getattr(parent, "cfg", None)
+        if dataclasses.is_dataclass(cfg) and hasattr(cfg, "quantized"):
+            parent.cfg = dataclasses.replace(cfg, quantized=quantized)
+            impl = cfg.quant_impl
+        for name in [n for n, _ in parent.named_children()]:
+            new = swap(getattr(parent, name), impl)
+            if new is None:
+                walk(getattr(parent, name), impl)
+            else:
+                setattr(parent, name, new)
+
+    walk(module, "auto")
+    return module
+
+
 @torch.no_grad()
 def quantize_module_(module: nn.Module, mode: str = "w8a8") -> nn.Module:
     """Swap every ``nn.Linear`` below ``module`` for a ``QuantLinear`` in
     place (the counterpart of ``quantize_tree``), one layer at a time on
     the layer's own device, so that a full DiT is quantized on the card
     with only one layer's float temporaries beside it; each float weight
-    is freed as its layer is swapped. Every submodule config with a
-    ``quantized`` field (``FluxConfig``) is set to ``mode``, so that the
-    model then runs as if it had been built in that mode, and each new
-    layer takes the ``quant_impl`` of the nearest such config above it
-    ("auto" where there is none)."""
+    is freed as its layer is swapped. The model then runs as if it had
+    been built in that mode (see ``_swap_linears``)."""
     mode = quant_mode(mode)
+    return _swap_linears(module, mode, lambda child, impl: (
+        QuantLinear.from_linear(child, mode, impl)
+        if isinstance(child, nn.Linear) else None))
 
-    def swap(parent, impl):
-        cfg = getattr(parent, "cfg", None)
-        if dataclasses.is_dataclass(cfg) and hasattr(cfg, "quantized"):
-            parent.cfg = dataclasses.replace(cfg, quantized=mode)
-            impl = cfg.quant_impl
-        # names, not children: hold no reference to a float layer beyond
-        # its own swap
-        for name in [n for n, _ in parent.named_children()]:
-            child = getattr(parent, name)
-            if isinstance(child, nn.Linear):
-                setattr(parent, name,
-                        QuantLinear.from_linear(child, mode, impl))
-            else:
-                swap(child, impl)
 
-    swap(module, "auto")
-    return module
+@torch.no_grad()
+def dequantize_module_(module: nn.Module) -> nn.Module:
+    """Swap every ``QuantLinear`` below ``module`` back for an
+    ``nn.Linear`` of its dtype holding its exact dequantized weight (w4's
+    ``pre_scale`` folded in), the counterpart of ``dequantize_tree``: the
+    float model on the weights the quantized one uses. Configs with a
+    ``quantized`` field are set to False."""
+
+    def swap(child, impl):
+        if not isinstance(child, QuantLinear):
+            return None
+        lin = nn.Linear(child.in_features, child.out_features,
+                        bias=child.bias is not None, dtype=child.dtype,
+                        device=child.scale.device)
+        lin.weight.copy_(child.dequantized_weight())
+        if child.bias is not None:
+            lin.bias.copy_(child.bias)
+        return lin
+
+    return _swap_linears(module, False, swap)

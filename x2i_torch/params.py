@@ -10,6 +10,10 @@ arrays and copies every leaf into the matching PyTorch parameter:
 * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
 * ``QuantDense`` ``qkernel`` (in, out) int8, ``scale`` (out,) f32 and
   ``bias`` -> ``QuantLinear`` ``qweight`` (out, in), ``scale``, ``bias``;
+  in w4a8 ``pkernel`` (in/2, out) -> ``pweight`` (out, in/2), ``mscale``
+  (G, out), ``scale`` (out,) and ``bias``; in w4 ``pkernel``, ``scale``
+  (G, out), ``pre_scale`` (in,) and ``bias`` (the leaves of
+  ``quantize_tree(params, mode)``);
 * ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
 * Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
 * every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``)
@@ -32,6 +36,13 @@ from torch import nn
 from x2i_torch.ops.quant import QuantLinear
 
 Tree = Mapping[str, Any]
+# a QuantDense's leaves by mode: the codes' leaf and the QuantLinear
+# buffer it goes to transposed, (.., out) -> (out, ..); the leaves copied
+# as they are (the bias apart)
+_QUANT_LEAVES = {"w8": ("qkernel", "qweight", ("scale",)),
+                 "w8a8": ("qkernel", "qweight", ("scale",)),
+                 "w4": ("pkernel", "pweight", ("scale", "pre_scale")),
+                 "w4a8": ("pkernel", "pweight", ("scale", "mscale"))}
 # parameters that random_init_ draws from a normal law, with its std
 RANDOM_TABLES = {"rel_bias": 1.0, "position_embedding": 0.02}
 
@@ -92,12 +103,14 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
                 raise ValueError(f"{name}: {lead} stacked layers for "
                                  f"{len(child)} modules")
         elif isinstance(child, QuantLinear):
-            _copy(child.qweight, np.swapaxes(val["qkernel"], -1, -2),
-                  name + ".qkernel", filled)
-            _copy(child.scale, val["scale"], name + ".scale", filled)
+            leaf, buf, rest = _QUANT_LEAVES[child.mode]
+            _only(val, {leaf, "bias", *rest}, name)
+            _copy(getattr(child, buf), np.swapaxes(val[leaf], -1, -2),
+                  f"{name}.{leaf}", filled)
+            for r in rest:
+                _copy(getattr(child, r), val[r], f"{name}.{r}", filled)
             if "bias" in val:
                 _copy(child.bias, val["bias"], name + ".bias", filled)
-            _only(val, {"qkernel", "scale", "bias"}, name)
         elif isinstance(child, nn.Linear):
             if "kernel" not in val:
                 raise KeyError(f"{name}: leaves {sorted(val)} for a float "
@@ -165,7 +178,7 @@ def random_init_(module: nn.Module, generator: torch.Generator
             if isinstance(mod, QuantLinear):
                 # a float weight drawn the same way, then quantized
                 w = torch.empty((mod.out_features, mod.in_features),
-                                device=mod.qweight.device)
+                                device=mod.scale.device)
                 mod.set_weight_(w.normal_(
                     0.0, 1.0 / math.sqrt(mod.in_features),
                     generator=generator))

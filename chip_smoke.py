@@ -26,7 +26,17 @@ Phases, each printing one JSON line per record:
    w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve (its int32
    sum exact, timed beside the int8 GEMM on its materialized operand and
    the bf16 product); the w4 dequantize kernel bit for bit at the DiT's
-   weight shapes;
+   weight shapes; K1b also at the registry's larger LMs (16 q on 2 kv
+   heads and 28 on 4, D = 128, 40 and 400 valid keys) and K2 at the 7B
+   LMs' 32k prefill (28 on 4 heads x 128);
+2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
+   at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
+   blocks in two shards, the whole VAE; an InternVL directory with the
+   Qwen2.5-0.5B LM; the proj's .bin), written to a temporary directory
+   and loaded by ``build_pipeline_from_checkpoints`` onto the card, with
+   its time, rate, host and card peak memory; loaded on the CPU too, and
+   the two copies held equal bit for bit; one 1024^2 image with exact
+   launch counts, and the same image after a load in the default w8;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
@@ -60,7 +70,13 @@ Phases, each printing one JSON line per record:
    and quantized to w4, the same image through K5, the w4 dequantize
    kernel and cuBLAS; each with exact launch counts, its pixels compared
    with the bf16 ones, and a 2+2-block full-width DiT in the mode holding
-   the kernel route against the plain route on the same int4 weights.
+   the kernel route against the plain route on the same int4 weights;
+   then w8 the same way (K5 and the plain dequantizing product);
+8. registry: the five other MODEL_REGISTRY entries at full width and
+   depth (LMs of 36 x 2048 and 28 x 3584, the FLUX.1-dev entry in 28
+   steps with guidance and dynamic shifting), one 1024^2 image each
+   through the family's template and positions, with exact launch
+   counts.
 
 Then a "kernels" line, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}. Any failure raises,
@@ -607,6 +623,16 @@ def check_chunked_attention(g, records):
                         kv_mask=mask, causal=True)
     del q, k, v, mask
     torch.cuda.empty_cache()
+    # the 7B LMs' 32k prefill: 28 q heads on 4 kv heads x 128 (group 7)
+    s, hq, hk, d = 32768, 28, 4, 128
+    q, k, v = randn(1, s, hq, d), randn(1, s, hk, d), randn(1, s, hk, d)
+    mask = torch.arange(s, device=dev)[None] < 30000
+    check_flash_chunked("LM 32k 7B, kv mask, causal, D 128",
+                        *(t.transpose(1, 2) for t in (q, k, v)), records,
+                        masked_sdpa(q, k, v, mask, hq // hk), 512,
+                        kv_mask=mask, causal=True)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
     q, k, v = randn(2, 640, 6, 128), randn(2, 1152, 2, 128), \
         randn(2, 1152, 2, 128)
     mask = torch.arange(1152, device=dev)[None] < torch.tensor(
@@ -690,6 +716,24 @@ def phase_kernels(seed: int):
                (qc, kr, vr))
         check_flash(f"flash_fwd[{label}]", q, k, v, recs, library=lib,
                     host_time=True, kv_mask=mask, causal=True)
+    # K1b at the registry's larger LMs, D = 128: 16 q on 2 kv heads (the
+    # 3B and 4B, group 8) and 28 on 4 (the 7B LMs, group 7), with 40 and
+    # 400 valid keys
+    for hq, hk in ((16, 2), (28, 4)):
+        q, k, v = randn(1, s, hq, 128), randn(1, s, hk, 128), \
+            randn(1, s, hk, 128)
+        qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (kc, vc))
+        for valid in (40, 400):
+            mask = torch.arange(s, device=dev)[None] < valid
+            causal_mask = (torch.ones((s, s), dtype=torch.bool,
+                                      device=dev).tril() & mask[:, None, :])
+            lib = ((lambda *t, m=causal_mask[:, None]:
+                    F.scaled_dot_product_attention(*t, attn_mask=m)),
+                   (qc, kr, vr))
+            check_flash(f"flash_fwd[{hq}/{hk} heads x 128, {valid} valid "
+                        f"keys]", q, k, v, recs, library=lib,
+                        host_time=True, kv_mask=mask, causal=True)
     # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
     # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
     for rows_n in (4096, 512, 4608, 16384, 16896):
@@ -1190,14 +1234,16 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
-                      mods_pass: bool = True, joint_tokens: int = 4608):
+                      mods_pass: bool = True, joint_tokens: int = 4608,
+                      lm_layers: int = 24):
     """Kernel launches of one image (``steps`` DiT steps, n2 double and n1
-    single blocks, the adaLN rows in one pass first) or, with
-    ``mods_pass=False`` and the LM's count left out, of one DiT call that
-    computes its mods inline. Above 8192 joint tokens the DiT's attention
-    is K2 (norm and rope outside), else K1a. w4 adds one dequantize
-    launch per dense call; w4a8 counts w8a8's products on its GEMM."""
-    lm = 24 if mods_pass else 0           # one K1b per LM layer
+    single blocks, the adaLN rows in one pass first, an LM of
+    ``lm_layers``) or, with ``mods_pass=False`` and the LM's count left
+    out, of one DiT call that computes its mods inline. Above 8192 joint
+    tokens the DiT's attention is K2 (norm and rope outside), else K1a.
+    w4 adds one dequantize launch per dense call; w4a8 counts w8a8's
+    products on its GEMM; w8's products are plain (no kernel)."""
+    lm = lm_layers if mods_pass else 0    # one K1b per LM layer
     dit = "flash_chunked" if joint_tokens > 8192 else "flash_fwd_rope"
     want = dict(NO_LAUNCHES, flash_fwd=lm)
     want[dit] = (n2 + n1) * steps
@@ -1346,16 +1392,17 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
                              f"route: {rec}")
 
 
-def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024):
-    """One warm-up image, then the main path: one px^2 4-step image with
-    every launch count set to 0 just before and read just after; then the
-    layer times and the pre-postprocess pixels of the same image. Above
-    ``vae_tile_px`` the decode timed is the tiled one, as on the path."""
+def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
+              steps: int = 4, model: str = MODEL):
+    """One warm-up image, then the main path: one px^2 image of ``steps``
+    steps with every launch count set to 0 just before and read just
+    after; then the layer times and the pre-postprocess pixels of the same
+    image. Above ``vae_tile_px`` the decode timed is the tiled one, as on
+    the path."""
     import torch
     from x2i_torch.diffusion.sampling import prepare_latent_image_ids
 
-    steps = 4
-    size = dict(height=px, width=px)
+    size = dict(height=px, width=px, num_steps=steps)
     t0 = time.perf_counter()
     pipe.text2image(PROMPTS[0], seed=seed, **size)       # warm-up
     warm_s = time.perf_counter() - t0
@@ -1377,15 +1424,18 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024):
         noise = torch.randn((1, (px // 16) ** 2, 64), generator=g,
                             device=dev, dtype=dt)
         pixels = pipe._generate(noise, emb, pooled, px, px, steps)
-        sig = pipe.scheduler.inference_sigmas(steps, device=dev)
+        sig = pipe.scheduler.inference_sigmas(
+            steps, image_seq_len=(px // 16) ** 2, device=dev)
         img_ids = prepare_latent_image_ids(px // 8, px // 8, dev)
         txt_ids = torch.zeros((emb.shape[1], 3), device=dev)
+        guide = (torch.full((1,), pipe.gen_cfg.guidance_scale, device=dev)
+                 if pipe.flux.cfg.guidance_embeds else None)
         mods = pipe.flux(noise, emb, pooled, sig[:-1], img_ids, txt_ids,
-                         mods_only=True)
+                         guidance=guide, mods_only=True)
         step_mods = {k: v[0] for k, v in mods.items()}
         dit_ms = call_ms(lambda: pipe.flux(noise, emb, pooled,
                                            sig[:1].expand(1), img_ids,
-                                           txt_ids,
+                                           txt_ids, guidance=guide,
                                            precomputed_mods=step_mods),
                          iters=3)
         lat = torch.randn((1, px // 8, px // 8, 16), generator=g,
@@ -1397,7 +1447,7 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024):
     std = pixels.float().std().item()
     dit_bytes = sum(t.numel() * t.element_size() for t in
                     (*pipe.flux.parameters(), *pipe.flux.buffers()))
-    rec = {"phase": label, "model": MODEL, "px": px, "steps": steps,
+    rec = {"phase": label, "model": model, "px": px, "steps": steps,
            "quantized": pipe.flux.cfg.quantized,
            "image_shape": list(img.shape), "image_dtype": str(img.dtype),
            "pixels_finite": finite, "pixels_std": std,
@@ -1706,11 +1756,11 @@ def phase_w8a8(pipe, bf16_pixels, seed: int):
     return counts
 
 
-def phase_int4(pipe, bf16_pixels, seed: int, dit_state, mode: str):
+def phase_quant(pipe, bf16_pixels, seed: int, dit_state, mode: str):
     """The bf16 DiT drawn again from its generator state (the quantized
-    one before it freed first), quantized in place to ``mode`` ("w4a8" or
-    "w4"), then the same image as the bf16 one; the 2 + 2-block route
-    check in the mode."""
+    one before it freed first), quantized in place to ``mode`` ("w4a8",
+    "w4" or "w8"), then the same image as the bf16 one; the 2 + 2-block
+    route check in the mode."""
     import gc
 
     import torch
@@ -1769,6 +1819,514 @@ def phase_serve(pipe):
         raise AssertionError(f"serving answered wrongly: {rec}")
 
 
+# --------------------------------------------------------- checkpoints
+
+# each family's special tokens, ids from 256 on in this order (the
+# fixture tokenizers of tests/ckpt_fixtures.py have the same)
+FAMILY_SPECIALS = {
+    "qwenvl": ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+               "<|vision_start|>", "<|vision_end|>", "<|image_pad|>",
+               "<|video_pad|>"),
+    "internvl": ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<img>",
+                 "</img>", "<IMG_CONTEXT>"),
+    "minicpm": ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<image>",
+                "</image>", "<audio>", "</audio>", "<unk>"),
+}
+
+
+def family_of(model: str) -> str:
+    return next(f for f in FAMILY_SPECIALS if f in model)
+
+
+def _byte_ids():
+    """Byte -> id in the byte-level BPE vocabulary's order (GPT-2's
+    ``bytes_to_unicode``: the printable bytes first, then the others)."""
+    first = [*range(33, 127), *range(161, 173), *range(174, 256)]
+    order = first + [b for b in range(256) if b not in first]
+    return {b: i for i, b in enumerate(order)}
+
+
+class ByteTokenizer:
+    """The tokenizer this script hands the encoders (the machine with the
+    card has no ``transformers``): each UTF-8 byte is one id (a byte-level
+    BPE without merges), the family's special tokens follow at 256 on,
+    ``apply_chat_template`` renders ChatML, and a call pads each text on
+    the right to ``max_length`` with ``<|endoftext|>``: the ids of the HF
+    tokenizers of the test fixtures (tests/ckpt_fixtures.py), which
+    tests/test_torch_checkpoint_dirs.py holds it to."""
+
+    def __init__(self, family: str):
+        import re
+        self.byte_id = _byte_ids()
+        self.special = {t: 256 + i
+                        for i, t in enumerate(FAMILY_SPECIALS[family])}
+        self._split = re.compile("(" + "|".join(
+            re.escape(t) for t in self.special) + ")")
+        self.pad_token_id = self.special["<|endoftext|>"]
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        return self.special[token]
+
+    def encode(self, text: str):
+        ids = []
+        for part in self._split.split(text):
+            ids.extend([self.special[part]] if part in self.special
+                       else [self.byte_id[b] for b in part.encode()])
+        return ids
+
+    @staticmethod
+    def apply_chat_template(messages, tokenize=False,
+                            add_generation_prompt=True):
+        assert not tokenize
+        out = ""
+        for m in messages:
+            content = m["content"]
+            if not isinstance(content, str):
+                content = "".join(
+                    {"image": "<|vision_start|><|image_pad|><|vision_end|>",
+                     "video": "<|vision_start|><|video_pad|><|vision_end|>"
+                     }.get(item["type"], item.get("text", ""))
+                    for item in content)
+            out += f"<|im_start|>{m['role']}\n{content}<|im_end|>\n"
+        return out + ("<|im_start|>assistant\n" if add_generation_prompt
+                      else "")
+
+    def __call__(self, texts, padding="max_length", max_length=512,
+                 truncation=True):
+        assert padding == "max_length" and truncation
+        single = isinstance(texts, str)
+        rows = [self.encode(t)[:max_length]
+                for t in ([texts] if single else texts)]
+        ids = [r + [self.pad_token_id] * (max_length - len(r)) for r in rows]
+        mask = [[1] * len(r) + [0] * (max_length - len(r)) for r in rows]
+        if single:
+            return {"input_ids": ids[0], "attention_mask": mask[0]}
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+# safetensors' names of the torch dtypes this script writes
+ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32"}
+
+
+def write_safetensors(path: str, entries):
+    """Write a safetensors file from ``entries`` [(name, shape, torch
+    dtype, make)], ``make()`` giving the tensor: the header first (from
+    the shapes), then each tensor's bytes in turn, so that the host holds
+    one tensor at a time. -> bytes written."""
+    import torch
+    header, off = {}, 0
+    for name, shape, dtype, _ in entries:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        header[name] = {"dtype": ST_DTYPES[str(dtype)], "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for name, shape, dtype, make in entries:
+            t = make().to(dtype).contiguous().cpu()
+            assert tuple(t.shape) == tuple(shape), name
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+    return 8 + len(head) + off
+
+
+def _drawn(g, shape, name):
+    """A checkpoint tensor drawn on the card: matrices and convolutions at
+    std 1/sqrt(fan_in), embeddings at std 1, biases at 0.02, norm and
+    channel scales 1 + N(0, 0.05^2)."""
+    import torch
+
+    def make():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if "embed_tokens" in name or "embedding" in name:
+            return x
+        if len(shape) >= 2 and "cha_scale" not in name:
+            return x / math.sqrt(math.prod(shape[1:]))
+        if name.endswith("bias"):
+            return 0.02 * x
+        return 1.0 + 0.05 * x
+    return make
+
+
+def _entries(module_cls, cfg, plan, g, prefix=""):
+    """(name, shape, bf16, make) of every checkpoint key of ``plan``, the
+    shapes those of the port module it fills (torch layouts are the
+    checkpoint's): the checkpoint side of the port's own converter, whose
+    key names the CPU tests hold against the JAX converters."""
+    import torch
+    meta = module_cls(cfg, device="meta")
+    shapes = {**{n: p.shape for n, p in meta.named_parameters()},
+              **{n: b.shape for n, b in meta.named_buffers()}}
+    return [(prefix + key, tuple(shapes[dst]), torch.bfloat16,
+             _drawn(g, tuple(shapes[dst]), key))
+            for key, (dst, _) in plan.items()]
+
+
+def _vae_encoder_entries(cfg, g):
+    """The FLUX VAE encoder's keys (diffusers names and shapes), which the
+    port does not read."""
+    import torch
+    ch, e = cfg.block_out_channels, []
+
+    def add(name, *shape):
+        e.append((f"encoder.{name}", shape, torch.bfloat16,
+                  _drawn(g, shape, name)))
+
+    def conv(name, cout, cin, k):
+        add(f"{name}.weight", cout, cin, k, k)
+        add(f"{name}.bias", cout)
+
+    def norm(name, c):
+        add(f"{name}.weight", c)
+        add(f"{name}.bias", c)
+
+    def resnet(name, cin, cout):
+        norm(f"{name}.norm1", cin)
+        conv(f"{name}.conv1", cout, cin, 3)
+        norm(f"{name}.norm2", cout)
+        conv(f"{name}.conv2", cout, cout, 3)
+        if cin != cout:
+            conv(f"{name}.conv_shortcut", cout, cin, 1)
+
+    conv("conv_in", ch[0], 3, 3)
+    cin = ch[0]
+    for i, c in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"down_blocks.{i}.resnets.{j}", cin, c)
+            cin = c
+        if i < len(ch) - 1:
+            conv(f"down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    for j in (0, 1):
+        resnet(f"mid_block.resnets.{j}", ch[-1], ch[-1])
+    a = "mid_block.attentions.0"
+    norm(f"{a}.group_norm", ch[-1])
+    for n in ("to_q", "to_k", "to_v", "to_out.0"):
+        add(f"{a}.{n}.weight", ch[-1], ch[-1])
+        add(f"{a}.{n}.bias", ch[-1])
+    norm("conv_norm_out", ch[-1])
+    conv("conv_out", 2 * cfg.latent_channels, ch[-1], 3)
+    return e
+
+
+CKPT_MODEL = "x2i-internvl2.5-1b"
+CKPT_BLOCKS = (1, 2)                      # double, single
+
+
+def write_checkpoint_dirs(root: str, seed: int):
+    """A released-layout checkpoint set of x2i-internvl2.5-1b at full width,
+    the DiT cut to 1 double + 2 single blocks, weights drawn on the card:
+    a diffusers FLUX directory (the transformer in two shards, the whole
+    VAE, the scheduler's config), an InternVL directory (the Qwen2.5-0.5B
+    LM under ``language_model.``, a few ViT and mlp1 tensors off the text
+    path, config.json with ``llm_config``) and the proj's .bin with DDP
+    ``module.`` prefixes. -> (flux, mllm, proj paths, bytes written)."""
+    import dataclasses
+    import os
+
+    import torch
+    from x2i_torch.convert.torch_models import (flux_plan, proj_plan,
+                                                qwen2_plan, vae_plan)
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.flux import FluxTransformer2D
+    from x2i_torch.models.proj import Proj
+    from x2i_torch.models.qwen2 import Qwen2LM
+    from x2i_torch.models.vae import AutoencoderKL
+
+    spec = MODEL_REGISTRY[CKPT_MODEL]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    flux_cfg = dataclasses.replace(spec.flux, num_layers=CKPT_BLOCKS[0],
+                                   num_single_layers=CKPT_BLOCKS[1])
+    flux, mllm = os.path.join(root, "flux"), os.path.join(root, "internvl")
+    for d in ("transformer", "vae", "scheduler"):
+        os.makedirs(os.path.join(flux, d))
+    os.makedirs(mllm)
+    written = 0
+    dit = _entries(FluxTransformer2D, flux_cfg, flux_plan(flux_cfg), g)
+    half = len(dit) // 2
+    for i, part in enumerate((dit[:half], dit[half:])):
+        written += write_safetensors(os.path.join(
+            flux, "transformer",
+            f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"),
+            part)
+    c = flux_cfg
+    _write_json(os.path.join(flux, "transformer", "config.json"), {
+        "_class_name": "FluxTransformer2DModel", "patch_size": c.patch_size,
+        "in_channels": c.in_channels, "num_layers": c.num_layers,
+        "num_single_layers": c.num_single_layers,
+        "attention_head_dim": c.attention_head_dim,
+        "num_attention_heads": c.num_attention_heads,
+        "joint_attention_dim": c.joint_attention_dim,
+        "pooled_projection_dim": c.pooled_projection_dim,
+        "guidance_embeds": c.guidance_embeds,
+        "axes_dims_rope": list(c.axes_dims_rope)})
+    v = spec.vae
+    written += write_safetensors(
+        os.path.join(flux, "vae", "diffusion_pytorch_model.safetensors"),
+        _vae_encoder_entries(v, g)
+        + _entries(AutoencoderKL, v, vae_plan(v), g))
+    _write_json(os.path.join(flux, "vae", "config.json"), {
+        "_class_name": "AutoencoderKL", "in_channels": 3,
+        "out_channels": v.out_channels, "latent_channels": v.latent_channels,
+        "block_out_channels": list(v.block_out_channels),
+        "layers_per_block": v.layers_per_block,
+        "norm_num_groups": v.norm_num_groups,
+        "scaling_factor": v.scaling_factor, "shift_factor": v.shift_factor,
+        "mid_block_add_attention": v.use_mid_attention})
+    _write_json(os.path.join(flux, "scheduler", "scheduler_config.json"), {
+        "_class_name": "FlowMatchEulerDiscreteScheduler",
+        "num_train_timesteps": 1000, "shift": 1.0,
+        "use_dynamic_shifting": False})
+    llm = spec.llm
+    lm_keys = _entries(Qwen2LM, llm, qwen2_plan(llm, "model."), g,
+                       "language_model.")
+    off_path = [(k, s, torch.bfloat16, _drawn(g, s, k)) for k, s in (
+        ("vision_model.embeddings.class_embedding", (1, 1, 1024)),
+        ("vision_model.encoder.layers.0.attn.qkv.weight", (3072, 1024)),
+        ("mlp1.0.weight", (4096,)), ("mlp1.1.weight", (896, 4096)))]
+    written += write_safetensors(os.path.join(mllm, "model.safetensors"),
+                                 off_path + lm_keys)
+    _write_json(os.path.join(mllm, "config.json"), {
+        "model_type": "internvl_chat", "downsample_ratio": 0.5,
+        "llm_config": {"architectures": ["Qwen2ForCausalLM"],
+                       "vocab_size": llm.vocab_size,
+                       "hidden_size": llm.hidden_size,
+                       "intermediate_size": llm.intermediate_size,
+                       "num_hidden_layers": llm.num_hidden_layers,
+                       "num_attention_heads": llm.num_attention_heads,
+                       "num_key_value_heads": llm.num_key_value_heads,
+                       "rope_theta": llm.rope_theta,
+                       "rms_norm_eps": llm.rms_norm_eps,
+                       "max_position_embeddings":
+                           llm.max_position_embeddings,
+                       "tie_word_embeddings": True},
+        "vision_config": {"hidden_size": 1024, "num_hidden_layers": 24}})
+    proj = os.path.join(root, "diffusion_pytorch_model.bin")
+    sd = {"module." + name: make().to(dtype).cpu()
+          for name, _, dtype, make in _entries(
+              Proj, spec.proj, proj_plan(spec.proj), g)}
+    torch.save(sd, proj)
+    written += os.path.getsize(proj)
+    return flux, mllm, proj, written
+
+
+def _write_json(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _host_peak_bytes() -> int:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _host_rss_bytes() -> int:
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def phase_checkpoint(seed: int):
+    """Checkpoints into the port, first of the model phases (the host's
+    peak memory is then the load's own): write the released-layout set of
+    ``write_checkpoint_dirs`` to a temporary directory; load it with
+    ``build_pipeline_from_checkpoints`` onto the card (bf16), time it and
+    read the host's and the card's peak memory; load it again on the CPU
+    (loading only) and hold every parameter and buffer of the card's copy
+    to it bit for bit (the CPU route is the one the CPU tests hold against
+    JAX); make one 1024^2 4-step image with exact launch counts (fused
+    glue, as served); load it again in the default w8 and make the same
+    image, held to the bf16 image by the route bar of the quantized checks
+    (correlation above 0.999, relative L2 below 5e-2)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from x2i_torch.convert.load import build_pipeline_from_checkpoints
+
+    root = tempfile.mkdtemp(prefix="x2i_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        flux, mllm, proj, written = write_checkpoint_dirs(root, seed)
+        write_s = time.perf_counter() - t0
+        tok = ByteTokenizer("internvl")
+        args = (CKPT_MODEL, flux, mllm, proj)
+        gc.collect()
+        rss0, peak0 = _host_rss_bytes(), _host_peak_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        dev0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = build_pipeline_from_checkpoints(*args, tokenizer=tok,
+                                               quantized=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak1 = _host_peak_bytes()
+        rep = pipe.load_report
+        read = sum(r["bytes"] for r in rep.values())
+        rec = {"phase": "checkpoint-load", "model": CKPT_MODEL,
+               "blocks": list(CKPT_BLOCKS), "bytes_written": written,
+               "write_s": write_s, "load_s": load_s, "bytes_read": read,
+               "gb_per_s": read / load_s / 1e9,
+               "tensors": {k: r["tensors"] for k, r in rep.items()},
+               "unread": {k: len(r["unread"]) for k, r in rep.items()},
+               # peak1 - rss0 bounds the load's own growth from above (an
+               # earlier peak above rss0 counts in it too)
+               "host_rss_before": rss0, "host_peak_before": peak0,
+               "host_peak_after": peak1, "host_growth_bound": peak1 - rss0,
+               "device_peak": torch.cuda.max_memory_allocated() - dev0}
+        t0 = time.perf_counter()
+        ref = build_pipeline_from_checkpoints(*args, tokenizer=tok,
+                                              quantized=False, device="cpu")
+        rec["cpu_load_s"] = time.perf_counter() - t0
+        mismatched, compared = [], 0
+        for name in ("flux", "vae", "proj"):
+            card = getattr(pipe, name).state_dict()
+            for k, v in getattr(ref, name).state_dict().items():
+                compared += 1
+                if not torch.equal(card[k].cpu(), v):
+                    mismatched.append(f"{name}.{k}")
+        card = pipe.encoder_fn.ctx["lm"].state_dict()
+        for k, v in ref.encoder_fn.ctx["lm"].state_dict().items():
+            compared += 1
+            if not torch.equal(card[k].cpu(), v):
+                mismatched.append(f"lm.{k}")
+        del ref
+        gc.collect()
+        rec.update(tensors_compared=compared, mismatched=mismatched)
+        emit(rec)
+        unread = {k: r["unread"] for k, r in rep.items()}
+        if (mismatched or unread["flux"] or unread["proj"]
+                or not unread["vae"]
+                or not all(k.startswith("encoder.") for k in unread["vae"])
+                or [k.split(".")[0] for k in unread["lm"]]
+                != ["mlp1", "mlp1", "vision_model", "vision_model"]
+                or rec["host_growth_bound"] > written / 4):
+            raise AssertionError(f"the checkpoint load is wrong: {rec}")
+
+        pipe.flux.replace_config(fused_glue=True)
+        n2, n1 = CKPT_BLOCKS
+        want = expected_launches(False, 4, n2, n1)
+        img_rec, bf16_pixels, counts = run_image(
+            pipe, seed, "checkpoint-image", want, model=CKPT_MODEL)
+        emit(img_rec)
+        if counts != want:
+            raise AssertionError(f"the loaded pipeline missed its kernels: "
+                                 f"{counts} != {want}")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe = build_pipeline_from_checkpoints(*args, tokenizer=tok)
+        torch.cuda.synchronize()
+        w8_load_s = time.perf_counter() - t0
+        pipe.flux.replace_config(fused_glue=True)
+        want = expected_launches("w8", 4, n2, n1)
+        w8_rec, pixels, counts = run_image(pipe, seed, "checkpoint-image-w8",
+                                           want, model=CKPT_MODEL)
+        got, ref_px = pixels.float().flatten(), bf16_pixels.float().flatten()
+        w8_rec.update(
+            load_s=w8_load_s,
+            rel_l2_vs_bf16=((got - ref_px).norm() / ref_px.norm()).item(),
+            corr_vs_bf16=torch.corrcoef(torch.stack([got, ref_px]))[0, 1]
+            .item())
+        emit(w8_rec)
+        if not (counts == want and pipe.flux.cfg.quantized == "w8"
+                and w8_rec["corr_vs_bf16"] > 0.999
+                and w8_rec["rel_l2_vs_bf16"] < 5e-2):
+            raise AssertionError(f"the w8 load's image is wrong: {w8_rec}")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"checkpoint": img_rec["launches"],
+                "checkpoint-w8": w8_rec["launches"]}
+    finally:
+        shutil.rmtree(root)
+
+
+# ------------------------------------------------------------ registry
+
+REGISTRY_STEPS = {"x2i-minicpm-o-2.6-dev": 28}    # the others 4
+
+
+def phase_registry(pipe, seed: int, dit_state):
+    """The five other MODEL_REGISTRY entries at full width and depth, one
+    1024^2 image each through its family's template, tokenizer
+    (``ByteTokenizer``) and positions, weights drawn on the card: the
+    FLUX.1-schnell entries share one DiT, drawn again from ``dit_state``
+    (the bf16 serving DiT's weights), and swap their LM and proj, the last
+    LM freed before the next is drawn; x2i-minicpm-o-2.6-dev draws its
+    FLUX.1-dev DiT (guidance embedder) after the schnell one is freed, and
+    makes its image in its published 28 steps with guidance 3.5 and
+    dynamic shifting. The VAE is the pipeline's. Exact launch counts: one
+    K1b per LM layer, K1a 57 and K5 115 per DiT step."""
+    import dataclasses
+    import gc
+    import zlib
+
+    import torch
+    from x2i_torch.convert.load import text_encoder
+    from x2i_torch.core.config import MODEL_REGISTRY, GenerationConfig
+    from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+    from x2i_torch.models.flux import FluxTransformer2D
+    from x2i_torch.models.proj import Proj
+    from x2i_torch.models.qwen2 import Qwen2LM
+    from x2i_torch.params import random_init_
+    from x2i_torch.pipeline import X2IPipeline
+
+    dev = torch.device("cuda")
+    pipe.flux = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    flux = draw_dit(dit_state)[0]
+    counts = {}
+    for name, spec in MODEL_REGISTRY.items():
+        if name == MODEL:
+            continue
+        steps = REGISTRY_STEPS.get(name, 4)
+        if spec.flux.guidance_embeds:
+            flux = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            g = torch.Generator(device=dev).manual_seed(seed + 1)
+            flux = random_init_(FluxTransformer2D(dataclasses.replace(
+                spec.flux, fused_glue=True), dev), g)
+        g = torch.Generator(device=dev).manual_seed(
+            seed + zlib.crc32(name.encode()))
+        t0 = time.perf_counter()
+        lm = random_init_(Qwen2LM(spec.llm, dev), g)
+        proj = random_init_(Proj(spec.proj, dev), g)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        encoder_fn = text_encoder(name, lm, ByteTokenizer(family_of(name)))
+        entry = X2IPipeline(
+            encoder_fn=encoder_fn, proj=proj, flux=flux, vae=pipe.vae,
+            scheduler=FlowMatchEulerScheduler(spec.scheduler),
+            gen_cfg=GenerationConfig(height=1024, width=1024,
+                                     num_inference_steps=steps),
+            encoder_batch_fn=encoder_fn.batch)
+        want = expected_launches(False, steps,
+                                 lm_layers=spec.llm.num_hidden_layers)
+        rec, _, got = run_image(entry, seed, f"registry[{name}]", want,
+                                steps=steps, model=name)
+        rec.update(lm_draw_s=draw_s, lm_layers=spec.llm.num_hidden_layers,
+                   lm_heads=[spec.llm.num_attention_heads,
+                             spec.llm.num_key_value_heads],
+                   lm_weight_bytes=sum(p.numel() * p.element_size()
+                                       for p in lm.parameters()),
+                   guidance_embeds=spec.flux.guidance_embeds,
+                   dynamic_shifting=spec.scheduler.use_dynamic_shifting)
+        emit(rec)
+        if got != want:
+            raise AssertionError(f"{name} missed its kernels: {got} != "
+                                 f"{want}")
+        counts[f"registry[{name}]"] = got
+        del entry, encoder_fn, lm, proj
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
 # whose launches it reports -- one image, one 32k-token encode, or one
 # timed distillation step --, the record whose times it reports)
@@ -1824,19 +2382,23 @@ def main(argv=None) -> int:
         emit({"kernels_only": True,
               "kind": torch.cuda.get_device_name(0)})
         return 0
+    launches_ckpt = phase_checkpoint(args.seed)
     pipe, lm, launches, bf16_pixels, dit_state = phase_text2image(args.seed)
     phase_serve(pipe)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
     launches_w8a8 = phase_w8a8(pipe, bf16_pixels, args.seed)
-    launches_w4a8 = phase_int4(pipe, bf16_pixels, args.seed, dit_state,
-                               "w4a8")
-    launches_w4 = phase_int4(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    launches_w4a8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
+                                "w4a8")
+    launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
+    launches_registry = phase_registry(pipe, args.seed, dit_state)
     runs = {"bf16": launches, "w8a8": launches_w8a8, "w4a8": launches_w4a8,
-            "w4": launches_w4,
+            "w4": launches_w4, "w8": launches_w8,
             "distill": launches_distill, "bf16-2048": launches_2048,
-            "long-prompt": launches_long}
+            "long-prompt": launches_long, **launches_ckpt,
+            **launches_registry}
 
     table = []
     for name, route, source, replaces, run, main in KERNEL_TABLE:

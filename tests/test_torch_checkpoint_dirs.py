@@ -1,0 +1,382 @@
+"""The port's checkpoint loader end to end against the JAX package's, on
+fixture directories in the released layouts (bf16, as released
+checkpoints are): the same directory and the same tokenizer through
+``x2i_torch.convert.load.build_pipeline_from_checkpoints`` (on the CPU)
+and ``x2i_tpu.convert.load.build_pipeline_from_checkpoints``.
+
+qwenvl uses ``tests/ckpt_fixtures.py``'s directory; internvl and minicpm
+write their own here (a ``transformers`` Qwen2 under the family's prefix
+beside the other modules' keys), since the fixture builders of those
+families need the reference's sources. minicpm is held against the JAX
+pieces its text path consists of (the template through the same chat
+template, ``qwen2_params_from_hf`` on the ``llm.``-stripped keys, the JAX
+``Qwen2LM``): JAX's own minicpm encoder needs the reference's modules.
+
+Bars (bf16 on both sides): hidden-state stacks within 1e-2 of their
+largest magnitude at the worst element (measured 4.4e-3 to 4.7e-3, about
+one bf16 step), uint8 images within 16 levels at the worst pixel and 1
+level on average (measured 5 to 9 and 0.48 to 0.55 in bf16, w8 and w8a8:
+the two DiTs round at other points over two steps)."""
+
+import glob
+import inspect
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from safetensors.torch import load_file, save_file
+
+from ckpt_fixtures import (VOCAB_SIZE, build_family_checkpoints,
+                           build_flux_dir, build_proj_bin,
+                           write_tokenizer_dir)
+from x2i_tpu.convert import torch_models as jtm
+from x2i_tpu.convert.hf_config import minicpmo_config_from_dir
+from x2i_tpu.convert.load import \
+    build_pipeline_from_checkpoints as jax_build
+from x2i_tpu.core import config as jcfg
+from x2i_tpu.models.qwen2 import Qwen2LM as JQwen2
+from x2i_tpu.models.templates import (internvl2_5_prompt,
+                                      minicpm_omni_content,
+                                      task_instruction)
+from x2i_torch.convert.load import build_pipeline_from_checkpoints
+from x2i_torch.models.flux import FluxTransformer2D
+from x2i_torch.models.proj import Proj
+from x2i_torch.models.qwen2 import Qwen2LM
+from x2i_torch.models.vae import AutoencoderKL, postprocess
+from x2i_torch.ops.quant import QuantLinear
+from x2i_torch.params import load_flax
+
+PX, STEPS = 64, 2
+PROMPTS = ("a lighthouse at dusk", "a bowl of ramen")
+STACK_BAR, IMG_MAX, IMG_MEAN = 1e-2, 16, 1.0
+LLM_KW = dict(vocab_size=VOCAB_SIZE, hidden_size=32, intermediate_size=64,
+              num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=2, head_dim=8, rope_theta=1e6,
+              rms_norm_eps=1e-6, max_position_embeddings=32768)
+
+
+def _to_bf16(root: str):
+    """Every float tensor of the directory's safetensors and proj .bin
+    rounded to bf16, in place."""
+    for f in glob.glob(os.path.join(root, "**", "*.safetensors"),
+                       recursive=True):
+        sd = load_file(f)
+        save_file({k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                   for k, v in sd.items()}, f)
+    for f in glob.glob(os.path.join(root, "*.bin")):
+        sd = torch.load(f, weights_only=True)
+        torch.save({k: v.to(torch.bfloat16) for k, v in sd.items()}, f)
+
+
+def _hf_lm(tied: bool, seed: int):
+    from transformers import Qwen2Config as HFCfg
+    from transformers import Qwen2ForCausalLM
+    torch.manual_seed(seed)
+    lm = Qwen2ForCausalLM(HFCfg(**LLM_KW, tie_word_embeddings=tied))
+    return {k: v for k, v in lm.state_dict().items()
+            if not (tied and k == "lm_head.weight")}
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g) * 0.1
+
+
+def build_internvl_text_dir(root: str, seed: int = 0) -> str:
+    """An InternVLChatModel directory: a transformers Qwen2 under
+    ``language_model.``, random tensors for every key of the InternViT and
+    mlp1 that the JAX ``internvl_params_from_hf`` reads, the config.json
+    ``internvl_config_from_dir`` reads, and the family's tokenizer."""
+    path = os.path.join(root, "internvl")
+    os.makedirs(path, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    c, p, size, layers = 32, 7, 28, 2
+    sd = {"language_model." + k: v for k, v in _hf_lm(True, seed).items()}
+    v = "vision_model."
+    sd.update({
+        v + "embeddings.class_embedding": _randn(g, 1, 1, c),
+        v + "embeddings.position_embedding": _randn(
+            g, 1, (size // p) ** 2 + 1, c),
+        v + "embeddings.patch_embedding.weight": _randn(g, c, 3, p, p),
+        v + "embeddings.patch_embedding.bias": _randn(g, c)})
+    for i in range(layers):
+        lp = f"{v}encoder.layers.{i}."
+        for name, shape in (("norm1", (c,)), ("norm2", (c,)),
+                            ("attn.qkv", (3 * c, c)), ("attn.proj", (c, c)),
+                            ("mlp.fc1", (2 * c, c)), ("mlp.fc2", (c, 2 * c))):
+            sd[lp + name + ".weight"] = _randn(g, *shape)
+            sd[lp + name + ".bias"] = _randn(g, shape[0])
+        sd[lp + "ls1"], sd[lp + "ls2"] = _randn(g, c), _randn(g, c)
+    for name, shape in (("mlp1.0", (4 * c,)), ("mlp1.1", (32, 4 * c)),
+                        ("mlp1.3", (32, 32))):
+        sd[name + ".weight"], sd[name + ".bias"] = (_randn(g, *shape),
+                                                    _randn(g, shape[0]))
+    save_file({k: t.to(torch.bfloat16).contiguous() for k, t in sd.items()},
+              os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "internvl_chat",
+                   "llm_config": {"architectures": ["Qwen2ForCausalLM"],
+                                  **LLM_KW, "tie_word_embeddings": True},
+                   "vision_config": dict(
+                       patch_size=p, image_size=size, hidden_size=c,
+                       qkv_bias=True, num_attention_heads=4,
+                       intermediate_size=2 * c, qk_normalization=False,
+                       num_hidden_layers=layers, norm_type="layer_norm"),
+                   "downsample_ratio": 0.5, "ps_version": "v2",
+                   "force_image_size": size, "template": "internvl2_5"}, f)
+    write_tokenizer_dir(path, "internvl")
+    return path
+
+
+def build_minicpm_text_dir(root: str, seed: int = 0) -> str:
+    """A MiniCPM-o directory: an untied transformers Qwen2 under ``llm.``
+    beside tensors of the modules off the text path, a flat config.json
+    and the family's tokenizer."""
+    path = os.path.join(root, "minicpm")
+    os.makedirs(path, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    sd = {"llm." + k: v for k, v in _hf_lm(False, seed).items()}
+    for k in ("vpm.embeddings.patch_embedding.weight", "resampler.query",
+              "apm.layers.0.fc1.weight", "audio_projection_layer.linear1"
+              ".weight", "tts.emb_text.weight"):
+        sd[k] = _randn(g, 4, 4)
+    save_file({k: t.to(torch.bfloat16).contiguous() for k, t in sd.items()},
+              os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "minicpmo", **LLM_KW,
+                   "tie_word_embeddings": False, "query_num": 4}, f)
+    write_tokenizer_dir(path, "minicpm")
+    return path
+
+
+def _tokenizer(path, family):
+    from transformers import AutoTokenizer
+    return AutoTokenizer.from_pretrained(
+        path, **({"use_fast": False} if family == "internvl" else {}))
+
+
+@pytest.fixture(scope="module")
+def dirs(tmp_path_factory):
+    """family -> (model, flux, mllm, proj), bf16, built once."""
+    out = {}
+    root = str(tmp_path_factory.mktemp("torch_ckpt_qwenvl"))
+    flux, mllm, proj, model = build_family_checkpoints(root, "qwenvl")
+    _to_bf16(root)
+    out["qwenvl"] = (model, flux, mllm, proj)
+    for family, build, model in (
+            ("internvl", build_internvl_text_dir, "x2i-internvl2.5-1b"),
+            ("minicpm", build_minicpm_text_dir, "x2i-minicpm-o-2.6")):
+        root = str(tmp_path_factory.mktemp(f"torch_ckpt_{family}"))
+        flux = build_flux_dir(root)
+        proj = build_proj_bin(root, in_channels=3, input_dim=32)
+        _to_bf16(root)
+        out[family] = (model, flux, build(root), proj)
+    return out
+
+
+@pytest.fixture(scope="module")
+def pipes(dirs):
+    """(family, quantized) -> (port pipeline, JAX pipeline or None)."""
+    cache = {}
+
+    def get(family, quantized=False):
+        key = (family, quantized)
+        if key not in cache:
+            model, flux, mllm, proj = dirs[family]
+            kw = dict(num_steps=STEPS, height=PX, width=PX,
+                      quantized=quantized)
+            # qwenvl loads its tokenizer through transformers itself
+            tok = None if family == "qwenvl" else _tokenizer(mllm, family)
+            port = build_pipeline_from_checkpoints(
+                model, flux, mllm, proj, device="cpu", tokenizer=tok, **kw)
+            ref = (None if family == "minicpm"
+                   else jax_build(model, flux, mllm, proj, **kw))
+            cache[key] = (port, ref)
+        return cache[key]
+
+    return get
+
+
+def _jax_enc_params(ref):
+    return inspect.getclosurevars(ref.encoder_fn).nonlocals["enc_params"]
+
+
+def _port_ids(port, inputs):
+    """The token ids and mask the port's LM sees for ``inputs``."""
+    seen = []
+    hook = port.encoder_fn.ctx["lm"].register_forward_pre_hook(
+        lambda mod, args, kw: seen.append((args[0], kw["attention_mask"])),
+        with_kwargs=True)
+    try:
+        port.encoder_fn(inputs)
+    finally:
+        hook.remove()
+    return seen[0][0].numpy(), seen[0][1].numpy()
+
+
+def _jax_ids(family, ref, inputs):
+    if family == "qwenvl":
+        ids, mask, *_ = inspect.getclosurevars(
+            ref.encoder_fn).nonlocals["_prep"](inputs)
+        return ids, mask
+    tok = inspect.getclosurevars(ref.encoder_fn).nonlocals["tokenizer"]
+    enc = tok(internvl2_5_prompt(task_instruction("text2image",
+                                                  inputs["prompt"])),
+              padding="max_length", max_length=512, truncation=True)
+    return np.asarray([enc["input_ids"]]), np.asarray([enc["attention_mask"]])
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl"])
+def test_loaded_weights_equal_the_jax_loaders(pipes, family):
+    """Every port parameter equals the JAX loader's, carried across by the
+    bridge, bit for bit: FLUX, the VAE's decoder, the proj and the LM."""
+    port, ref = pipes(family)
+    trees = [(port.flux, FluxTransformer2D(port.flux.cfg), ref.flux_params),
+             (port.proj, Proj(port.proj.cfg), ref.proj_params)]
+    enc = _jax_enc_params(ref)
+    lm = port.encoder_fn.ctx["lm"]
+    trees.append((lm, Qwen2LM(lm.cfg), enc["language_model"]))
+    for got, empty, tree in trees:
+        want = load_flax(empty, tree).state_dict()
+        for k, v in got.state_dict().items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+    want = AutoencoderKL(port.vae.cfg)
+    load_flax(want.decoder, ref.vae_params["params"]["decoder"])
+    for k, v in port.vae.state_dict().items():
+        assert torch.equal(v, want.state_dict()[k]), k
+    rep = port.load_report
+    assert rep["flux"]["unread"] == [] and rep["proj"]["unread"] == []
+    assert rep["vae"]["unread"] and all(
+        k.startswith("encoder.") for k in rep["vae"]["unread"])
+    off = ("model.visual.", "lm_head.") if family == "qwenvl" else (
+        "vision_model.", "mlp1.")
+    assert rep["lm"]["unread"] and all(k.startswith(off)
+                                       for k in rep["lm"]["unread"])
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl"])
+def test_token_ids_and_hidden_states_match_jax(pipes, family):
+    port, ref = pipes(family)
+    inputs = {"prompt": PROMPTS[0], "task": "text2image"}
+    ids, mask = _port_ids(port, inputs)
+    want_ids, want_mask = _jax_ids(family, ref, inputs)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(mask.astype(int), want_mask.astype(int))
+    assert 0 < mask.sum() < 512
+    got = port.encoder_fn(inputs).float().numpy()
+    want = np.asarray(ref.encoder_fn(inputs), np.float32)
+    assert got.shape == want.shape == (1, 3, 512, port.proj.cfg.input_dim)
+    assert np.abs(got - want).max() <= STACK_BAR * np.abs(want).max()
+
+
+@pytest.mark.parametrize("quantized", [False, True, "w8a8"],
+                         ids=["bf16", "w8", "w8a8"])
+@pytest.mark.parametrize("family", ["qwenvl", "internvl"])
+def test_image_matches_jax(pipes, family, quantized):
+    """The same prompt and noise through both loaded pipelines, in bf16,
+    in the loader's default w8 and in w8a8."""
+    port, ref = pipes(family, quantized)
+    mode = "w8" if quantized is True else quantized
+    assert port.flux.cfg.quantized == (mode or False)
+    assert any(isinstance(m, QuantLinear) for m in port.flux.modules()) \
+        == bool(mode)
+    noise = np.random.default_rng(3).standard_normal(
+        (1, (PX // 16) ** 2, port.flux.cfg.in_channels)).astype(np.float32)
+    pooled, embeds = port.encode({"prompt": PROMPTS[1]})
+    got = postprocess(port._generate(
+        torch.from_numpy(noise).to(torch.bfloat16), embeds, pooled, PX, PX,
+        STEPS)).numpy().astype(int)
+    jpooled, jembeds = ref.encode({"prompt": PROMPTS[1]})
+    want = np.asarray(ref._generate_jit(
+        ref.flux_params, ref.vae_params, jembeds, jpooled,
+        jnp.asarray(noise, jnp.bfloat16), None, PX, PX, STEPS)).astype(int)
+    assert got.shape == want.shape == (1, PX, PX, 3)
+    assert np.unique(got).size > 1
+    diff = np.abs(got - want)
+    assert diff.max() <= IMG_MAX and diff.mean() <= IMG_MEAN, (
+        diff.max(), diff.mean())
+
+
+def test_minicpm_text_path_matches_the_jax_pieces(pipes, dirs):
+    """The omni content through the same chat template, the JAX
+    converter on the ``llm.``-stripped keys, the JAX Qwen2 LM on the JAX
+    config reader's LM config."""
+    port, _ = pipes("minicpm")
+    _, _, mllm, _ = dirs["minicpm"]
+    tok = _tokenizer(mllm, "minicpm")
+    text = tok.apply_chat_template(
+        [{"role": "user", "content": minicpm_omni_content(PROMPTS[0])}],
+        tokenize=False, add_generation_prompt=True)
+    enc = tok(text, padding="max_length", max_length=512, truncation=True)
+    ids, mask = _port_ids(port, {"prompt": PROMPTS[0]})
+    np.testing.assert_array_equal(ids, [enc["input_ids"]])
+    sd = load_file(os.path.join(mllm, "model.safetensors"))
+    llm_sd = {k.removeprefix("llm."): v for k, v in sd.items()
+              if k.startswith("llm.")}
+    cfg = minicpmo_config_from_dir(
+        mllm, jcfg.MODEL_REGISTRY["x2i-minicpm-o-2.6"]["mllm"]).llm
+    want, _ = JQwen2(cfg).apply(
+        {"params": jtm.qwen2_params_from_hf(llm_sd, cfg)},
+        jnp.asarray([enc["input_ids"]]),
+        jnp.asarray([enc["attention_mask"]], bool))
+    want = np.asarray(want, np.float32)
+    got = port.encoder_fn({"prompt": PROMPTS[0]}).float().numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= STACK_BAR * np.abs(want).max()
+    lm = port.encoder_fn.ctx["lm"]
+    assert not lm.cfg.tie_word_embeddings and torch.equal(
+        lm.lm_head.weight, sd["llm.lm_head.weight"])
+    unread = port.load_report["lm"]["unread"]
+    assert unread == sorted(k for k in sd if not k.startswith("llm."))
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
+def test_batched_encode_equals_serial(pipes, family):
+    port, _ = pipes(family)
+    reqs = [{"prompt": p, "task": "text2image"} for p in PROMPTS]
+    batched = port.encoder_fn.batch(reqs)
+    serial = torch.cat([port.encoder_fn(r) for r in reqs])
+    assert batched.shape[0] == 2
+    torch.testing.assert_close(batched, serial, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
+def test_media_and_use_answer_are_refused(pipes, family):
+    port, _ = pipes(family)
+    for media in ({"images": ["a.png"]}, {"video": [1, 2]},
+                  {"audio": np.zeros(16)}):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            port.encode({"prompt": "x", **media})
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        port.encode({"prompt": "x", "use_answer": True})
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
+def test_chip_smoke_tokenizer_gives_the_fixture_tokenizers_ids(tmp_path,
+                                                               family):
+    """chip_smoke.py's byte-level tokenizer (the card's machine has no
+    transformers) renders the chat template and gives the ids and masks
+    of the fixture's HF tokenizer, on every family's prompt."""
+    import chip_smoke
+    write_tokenizer_dir(str(tmp_path), family)
+    hf = _tokenizer(str(tmp_path), family)
+    ours = chip_smoke.ByteTokenizer(family)
+    msgs = [[{"role": "user", "content": minicpm_omni_content(p)}]
+            for p in PROMPTS] + [
+        [{"role": "user", "content": [{"type": "image"},
+                                      {"type": "text", "text": p}]}]
+        for p in ("żółw, 海龟", PROMPTS[0])]
+    texts = [internvl2_5_prompt(task_instruction("text2image", p))
+             for p in PROMPTS]
+    for m in msgs:
+        text = hf.apply_chat_template(m, tokenize=False,
+                                      add_generation_prompt=True)
+        assert ours.apply_chat_template(
+            m, tokenize=False, add_generation_prompt=True) == text
+        texts.append(text)
+    texts.append("x" * 600)                         # truncated at 512
+    kw = dict(padding="max_length", max_length=512, truncation=True)
+    assert ours(texts, **kw) == dict(hf(texts, **kw))
+    assert ours(texts[0], **kw) == dict(hf(texts[0], **kw))

@@ -1,6 +1,10 @@
 """The port stands alone: nothing under x2i_torch/, and not chip_smoke.py,
 imports jax, flax or the JAX package (x2i_tpu), at any level of a module;
-and, every kernel of the port being CUDA C++, none imports triton.
+and, every kernel of the port being CUDA C++, none imports triton. The
+machine with the card has no safetensors and no transformers: the port
+reads safetensors itself and imports neither package when a module is
+imported; the one import of transformers is the tokenizer loader's, inside
+``build_pipeline_from_checkpoints``, for a caller who passes no tokenizer.
 Checked on the syntax tree, so imports inside functions count too."""
 
 import ast
@@ -13,8 +17,13 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "x2i_tpu")
 FILES = sorted((ROOT / "x2i_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def _imports(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imports(path: Path, top_level_only: bool = False):
+    """The modules ``path`` imports; with ``top_level_only`` those it
+    imports when it is imported (not inside a function's body)."""
+    tree = ast.parse(path.read_text(), str(path))
+    nodes = ast.walk(tree) if not top_level_only else _outside_functions(
+        tree)
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -24,6 +33,14 @@ def _imports(path: Path):
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant)):
             yield node.args[0].value
+
+
+def _outside_functions(node):
+    yield node
+    for child in ast.iter_child_nodes(node):
+        if not isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+            yield from _outside_functions(child)
 
 
 def test_the_port_has_modules_to_check():
@@ -49,3 +66,19 @@ def test_no_triton_import():
     bad = {path.relative_to(ROOT).as_posix(): m for path in FILES
            for m in _imports(path) if m.split(".")[0] == "triton"}
     assert not bad, f"these import triton: {bad}"
+
+
+@pytest.mark.parametrize("package", ["safetensors", "transformers"])
+def test_no_module_level_import_of_packages_the_card_lacks(package):
+    bad = {path.relative_to(ROOT).as_posix(): m for path in FILES
+           for m in _imports(path, top_level_only=True)
+           if m.split(".")[0] == package}
+    assert not bad, f"these import {package} when imported: {bad}"
+
+
+def test_the_only_lazy_transformers_import_is_the_tokenizer_loaders():
+    users = {path.relative_to(ROOT).as_posix() for path in FILES
+             for m in _imports(path) if m.split(".")[0] == "transformers"}
+    assert users <= {"x2i_torch/convert/load.py"}
+    assert not any(m.split(".")[0] == "safetensors"
+                   for path in FILES for m in _imports(path))

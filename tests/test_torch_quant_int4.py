@@ -436,3 +436,111 @@ def test_cpu_int4_wrappers_take_the_plain_path():
     assert tgemm.GEMM.launches["w4a8_gemm"] == 0
     assert tgemm.GEMM.launches["w4_dequant"] == 0
     assert tgemm.GEMM._lib is None
+
+
+# ------------------------------------------------- groups other than 128
+
+# group 64 (the (192, 16) shape: three groups of 64, an odd count that
+# w4a8 halves to six of 32), and a group of 48 beside it
+GROUP_SHAPES = [(64, (192, 16)), (64, (256, 8)), (64, (2, 128, 8)),
+                (48, (96, 12))]
+
+
+@pytest.mark.parametrize("group,shape", GROUP_SHAPES)
+@pytest.mark.parametrize("mode", ["w4", "w4a8"])
+def test_int4_quantizers_bit_identical_at_other_groups(mode, group, shape):
+    k = kernel_of(np.random.default_rng(group + sum(shape)), shape)
+    jfn = jq.quantize_kernel_w4 if mode == "w4" else jq.quantize_kernel_w4a8
+    tfn = tq.quantize_kernel_w4 if mode == "w4" else tq.quantize_kernel_w4a8
+    want = jfn(k, group)
+    got = tfn(torch.from_numpy(k), group)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    if mode == "w4a8" and shape == (192, 16):
+        assert got[1].shape == (6, 16)                 # halved to 32
+
+
+def _quant_dense_at(group):
+    """The JAX QuantDense with another default group, for the JAX models
+    that build their layers through ``make_dense`` (no group argument)."""
+    return type(f"QuantDense{group}", (jq.QuantDense,),
+                {"__annotations__": {"group": int}, "group": group})
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["w4", "w4a8"])
+def test_quant_linear_at_group_64_matches_quant_dense(mode, dtype):
+    """QuantLinear(group=64), quantize_module_(group=64) and the bridge of
+    a ``quantize_tree(group=64)`` leaf against QuantDense(group=64), at a
+    width where w4a8 halves the group (192 = 3 x 64 -> 6 x 32)."""
+    rng = np.random.default_rng(20)
+    jdt, tdt = DTYPES[dtype]
+    w = bf16_grid(rng.standard_normal((192, 40)) / np.sqrt(192))
+    leaves = jq.quantize_tree({"d": {"kernel": w}}, mode, group=64)["d"]
+    leaves["bias"] = bf16_grid(rng.standard_normal(40) * 0.1)
+    dense = jq.QuantDense(40, dtype=jdt, param_dtype=jdt, mode=mode,
+                          group=64)
+    bridged = tq.QuantLinear(192, 40, mode=mode, dtype=tdt)   # group 128
+    load_flax(torch.nn.ModuleDict({"d": bridged}), {"d": leaves})
+    assert bridged.group == (32 if mode == "w4a8" else 64)
+    lin = torch.nn.Linear(192, 40, dtype=tdt)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w.T))
+        lin.bias.copy_(torch.from_numpy(leaves["bias"]))
+    swapped = tq.quantize_module_(torch.nn.ModuleDict({"d": lin}), mode,
+                                  group=64)["d"]
+    direct = tq.QuantLinear.from_linear(lin, mode, group=64)
+    for layer in (swapped, direct):
+        assert layer.group == bridged.group
+        for k, v in [*bridged.named_buffers(), ("bias", bridged.bias)]:
+            assert torch.equal(getattr(layer, k), v), k
+    x = bf16_grid(rows(rng, 2, 7, 192))
+    want = n(dense.apply({"params": leaves}, jnp.asarray(x, jdt)))
+    got = n(bridged(t(x, tdt)))
+    if mode == "w4a8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        tol = 2.0 ** -7 if dtype == "bf16" else 2e-5
+        np.testing.assert_allclose(got, want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+
+
+def test_set_groups_refuses_groups_that_do_not_split():
+    with pytest.raises(ValueError, match="groups"):
+        tq.QuantLinear(192, 8, mode="w4a8").set_groups_(3)
+    with pytest.raises(ValueError, match="groups"):
+        tq.QuantLinear(192, 8, mode="w4").set_groups_(5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("mode", ["w4", "w4a8"])
+def test_int4_flux_at_group_64_matches_jax(monkeypatch, mode, fused):
+    """A JAX tree quantized by ``quantize_tree(..., group=64)`` loads into
+    the port (the tiny FLUX's 64-wide context embedder is one group, which
+    w4a8 halves to two of 32; the 128-wide layers take two groups) and the
+    two compute the same tiny FLUX, on the bars of the group-128 test. JAX's
+    FLUX builds QuantDense at its default group, which the test sets to
+    64."""
+    monkeypatch.setattr(jq, "QuantDense", _quant_dense_at(64))
+    jc = jcfg.tiny_flux_config(quantized=mode, fused_glue=fused)
+    tc = tcfg.tiny_flux_config(quantized=mode, fused_glue=fused)
+    tree = jq.quantize_tree(flux_tree(7), mode, group=64)
+    x = _flux_inputs(np.random.default_rng(7), jc, 16, 8)
+    args = [x[k] for k in ARGS]
+    with pltpu.force_tpu_interpret_mode():
+        want = n(jax.jit(jflux.FluxTransformer2D(jc).apply)(
+            tree, *(jnp.asarray(a) for a in args)))
+    model = load_flax(FluxTransformer2D(tc), tree)
+    ce = model.context_embedder
+    assert ce.group == (32 if mode == "w4a8" else 64)
+    assert model.single_blocks[0].q.group == 64
+    with torch.inference_mode():
+        got = n(model(*(t(a) for a in args)))
+    assert np.isfinite(got).all() and got.std() > 0
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    if mode == "w4":
+        assert rel <= 1e-3, rel
+    else:
+        corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+        assert corr > 0.999 and rel < 5e-2, (corr, rel)

@@ -1,0 +1,160 @@
+"""Model configs read from checkpoint directories, the counterpart of the
+parts of ``x2i_tpu/convert/hf_config.py`` that the text path reads.
+
+The released checkpoints carry their architecture in their own config
+files: the diffusers ``transformer/config.json``, ``vae/config.json`` and
+``scheduler/scheduler_config.json`` of a FLUX directory, and the HF
+``config.json`` of an MLLM directory (``llm_config`` for InternVL, a
+``text_config`` or flat text fields for Qwen2.5-VL, flat fields for
+MiniCPM-o). Each reader returns None when its file is absent, and the
+registry entry is then the fallback. The proj checkpoint is a bare state
+dict: ``proj_config_from_sd`` reads its architecture from the shapes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import replace
+from typing import Any, Dict, Mapping, Optional
+
+from x2i_torch.core.config import (FluxConfig, ProjConfig, Qwen2Config,
+                                   SchedulerConfig, VAEConfig)
+from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
+
+
+def _read_json(path: str) -> Optional[Dict[str, Any]]:
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _fields(d: Mapping[str, Any], names) -> Dict[str, Any]:
+    """The config fields ``names`` that ``d`` sets, as replace()
+    arguments (lists as tuples)."""
+    return {n: tuple(d[n]) if isinstance(d[n], list) else d[n]
+            for n in names if n in d}
+
+
+def flux_config_from_dir(flux_path: str,
+                         base: Optional[FluxConfig] = None
+                         ) -> Optional[FluxConfig]:
+    """diffusers FluxTransformer2DModel ``transformer/config.json``."""
+    d = _read_json(os.path.join(flux_path, "transformer", "config.json"))
+    if d is None:
+        return None
+    return replace(base or FluxConfig(), **_fields(d, (
+        "patch_size", "in_channels", "num_layers", "num_single_layers",
+        "attention_head_dim", "num_attention_heads", "joint_attention_dim",
+        "pooled_projection_dim", "guidance_embeds", "axes_dims_rope")))
+
+
+def vae_config_from_dir(flux_path: str) -> Optional[VAEConfig]:
+    """diffusers AutoencoderKL ``vae/config.json`` (the decoder's fields:
+    the port has no encoder)."""
+    d = _read_json(os.path.join(flux_path, "vae", "config.json"))
+    if d is None:
+        return None
+    base = VAEConfig()
+    return replace(base, **_fields(d, (
+        "out_channels", "latent_channels", "block_out_channels",
+        "layers_per_block", "norm_num_groups", "scaling_factor")),
+        shift_factor=d.get("shift_factor", base.shift_factor) or 0.0,
+        use_mid_attention=d.get("mid_block_add_attention",
+                                base.use_mid_attention))
+
+
+def scheduler_config_from_dir(flux_path: str
+                              ) -> Optional[SchedulerConfig]:
+    """diffusers FlowMatchEulerDiscreteScheduler
+    ``scheduler/scheduler_config.json``."""
+    d = _read_json(os.path.join(flux_path, "scheduler",
+                                "scheduler_config.json"))
+    if d is None:
+        return None
+    base = SchedulerConfig()
+    return replace(base, **_fields(d, (
+        "num_train_timesteps", "shift", "use_dynamic_shifting",
+        "base_shift", "max_shift", "base_image_seq_len",
+        "max_image_seq_len")))
+
+
+def _qwen2_from_dict(d: Mapping[str, Any],
+                     base: Optional[Qwen2Config] = None) -> Qwen2Config:
+    base = base or Qwen2Config()
+    heads = d.get("num_attention_heads", base.num_attention_heads)
+    hidden = d.get("hidden_size", base.hidden_size)
+    return replace(base, **_fields(d, (
+        "vocab_size", "intermediate_size", "num_hidden_layers",
+        "num_key_value_heads", "max_position_embeddings", "rope_theta",
+        "rms_norm_eps", "tie_word_embeddings")),
+        hidden_size=hidden, num_attention_heads=heads,
+        head_dim=d.get("head_dim") or hidden // heads)
+
+
+def qwenvl_config_from_dir(mllm_path: str, base_llm: Qwen2Config
+                           ) -> Optional[Qwen2_5_VLConfig]:
+    """HF Qwen2.5-VL ``config.json`` -> the text route's config: the LM
+    from the flat text fields (the released Instruct layout) or from
+    ``text_config`` (newer transformers), ``mrope_section`` from
+    ``rope_scaling``, and the vision token ids."""
+    d = _read_json(os.path.join(mllm_path, "config.json"))
+    if d is None:
+        return None
+    text = d.get("text_config", d)
+    rope_scaling = text.get("rope_scaling") or d.get("rope_scaling") or {}
+    full = Qwen2_5_VLConfig(llm=_qwen2_from_dict(text, base_llm))
+    return replace(
+        full,
+        mrope_section=tuple(rope_scaling.get("mrope_section",
+                                             full.mrope_section)),
+        **_fields(d, ("image_token_id", "video_token_id",
+                            "vision_start_token_id")))
+
+
+def internvl_llm_config_from_dir(mllm_path: str, base_llm: Qwen2Config
+                                 ) -> Optional[Qwen2Config]:
+    """HF InternVLChatModel ``config.json``: its ``llm_config`` (the LM
+    part of the JAX ``internvl_config_from_dir``)."""
+    d = _read_json(os.path.join(mllm_path, "config.json"))
+    if d is None:
+        return None
+    return _qwen2_from_dict(d.get("llm_config") or {}, base_llm)
+
+
+def minicpmo_llm_config_from_dir(mllm_path: str, base_llm: Qwen2Config
+                                 ) -> Optional[Qwen2Config]:
+    """HF MiniCPM-o ``config.json``: its flat Qwen2 fields (the LM part
+    of the JAX ``minicpmo_config_from_dir``)."""
+    d = _read_json(os.path.join(mllm_path, "config.json"))
+    if d is None:
+        return None
+    return _qwen2_from_dict(d, base_llm)
+
+
+def proj_config_from_sd(sd: Mapping[str, Any],
+                        base: Optional[ProjConfig] = None) -> ProjConfig:
+    """The proj's architecture from its state dict's shapes ('module.'
+    prefixes stripped): ``cha_scale`` (1, C, 1, 1) -> use_scale and C;
+    ``conv.weight`` (1, C, k, k) -> use_cnn, C and k; the LayerNorm's
+    width, the projector's and the pooled head's; ``t5stack.*`` ->
+    use_t5."""
+    base = base or ProjConfig()
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    use_scale = "cha_scale" in sd
+    use_cnn = "conv.weight" in sd
+    in_channels, kernel = base.in_channels, base.kernel_size
+    if use_scale:
+        in_channels = int(sd["cha_scale"].shape[1])
+    elif use_cnn:
+        in_channels = int(sd["conv.weight"].shape[1])
+        kernel = int(sd["conv.weight"].shape[2])
+    return replace(
+        base,
+        in_channels=in_channels, kernel_size=kernel,
+        input_dim=int(sd["mlp.layernorm.weight"].shape[0]),
+        output_dim1=int(sd["mlp.projector.0.weight"].shape[0]),
+        output_dim0=int(sd["mlp.fc.1.weight"].shape[0]),
+        use_t5=any(k.startswith("t5stack.") for k in sd),
+        use_scale=use_scale, use_cnn=use_cnn)

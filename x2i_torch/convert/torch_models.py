@@ -1,0 +1,259 @@
+"""diffusers / HF / reference state dicts into the port's modules, the
+counterpart of ``x2i_tpu/convert/torch_models.py`` and of the VAE
+converter of ``x2i_tpu/convert/load.py``.
+
+The JAX converters build param trees: every tensor to float32 numpy, the
+layers stacked for ``nn.scan``, the Linear weights transposed. The port's
+modules have torch's own layouts (``nn.Linear`` (out, in), ``nn.Conv2d``
+OIHW, one module per layer), so a converter here is a *plan*: for each key
+of the checkpoint, the parameter or buffer of the port module that takes
+it, and the row permutation it needs on the way, if any. ``fill_module``
+then copies the checkpoint into the module where it lies, one tensor at a
+time, in the module's dtype (a bf16 file is copied as it is): no
+float32 copy of the checkpoint and no stacking on the host.
+
+The accounting is strict: the plan names every parameter and buffer of
+the module exactly once, every key of the plan must be in the
+checkpoint, and a key outside the plan must be one the text path does not
+read (``off_path``: a vision tower, the TTS modules, a tied head), which
+the returned report names. Anything else raises.
+
+FLUX's q/k projections (weights and biases) and its qk-norm scales leave
+in the half-rope layout (``x2i_torch/ops/rope.py::half_layout_perm`` over
+the channels of each head), as the JAX converter's
+``permute_params_to_half_rope`` leaves them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+from torch import nn
+
+from x2i_torch.core.config import (FluxConfig, ProjConfig, Qwen2Config,
+                                   VAEConfig)
+from x2i_torch.ops.rope import half_layout_perm
+
+# checkpoint key -> (the module's parameter or buffer name, a transform
+# applied on the module's device, or None)
+Plan = Dict[str, Tuple[str, Optional[Callable[[torch.Tensor],
+                                               torch.Tensor]]]]
+
+
+def _rows(index: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+    return lambda t: t.index_select(0, index.to(t.device))
+
+
+def flux_plan(cfg: FluxConfig) -> Plan:
+    """diffusers FluxTransformer2DModel -> ``FluxTransformer2D``.
+
+    Double blocks ``transformer_blocks.{i}.``: norm1.linear -> img_mod,
+    norm1_context.linear -> txt_mod, attn.to_{q,k,v} -> img_{q,k,v},
+    attn.add_{q,k,v}_proj -> txt_{q,k,v}, attn.norm_{q,k} ->
+    img_{q,k}_norm, attn.norm_added_{q,k} -> txt_{q,k}_norm,
+    attn.to_out.0 -> img_attn_out, attn.to_add_out -> txt_attn_out,
+    ff.net.0.proj / ff.net.2 -> img_mlp_in / img_mlp_out, ff_context.* ->
+    txt_mlp_*. Single blocks ``single_transformer_blocks.{i}.``:
+    norm.linear -> mod, attn.to_{q,k,v} -> {q,k,v}, attn.norm_{q,k} ->
+    {q,k}_norm, proj_mlp -> mlp_in, proj_out -> out. Top level:
+    x_embedder, context_embedder and proj_out keep their names,
+    norm_out.linear -> norm_out (diffusers' (scale, shift) chunk order is
+    the model's), time_text_embed.{timestep,text,guidance}_embedder.
+    linear_{1,2} -> {time,pooled,guidance}_embedder.{in,out}_layer."""
+    d = cfg.attention_head_dim
+    perm = torch.from_numpy(half_layout_perm(d))
+    full = torch.cat([h * d + perm for h in range(cfg.num_attention_heads)])
+    plan: Plan = {}
+
+    def lin(src, dst, rows=None):
+        for leaf in ("weight", "bias"):
+            plan[f"{src}.{leaf}"] = (f"{dst}.{leaf}", rows)
+
+    def norm(src, dst):
+        plan[f"{src}.weight"] = (f"{dst}.scale", _rows(perm))
+
+    for i in range(cfg.num_layers):
+        s, t = f"transformer_blocks.{i}.", f"double_blocks.{i}."
+        lin(s + "norm1.linear", t + "img_mod")
+        lin(s + "norm1_context.linear", t + "txt_mod")
+        for n in ("q", "k", "v"):
+            qk = _rows(full) if n != "v" else None
+            lin(f"{s}attn.to_{n}", f"{t}img_{n}", qk)
+            lin(f"{s}attn.add_{n}_proj", f"{t}txt_{n}", qk)
+        for n in ("q", "k"):
+            norm(f"{s}attn.norm_{n}", f"{t}img_{n}_norm")
+            norm(f"{s}attn.norm_added_{n}", f"{t}txt_{n}_norm")
+        lin(s + "attn.to_out.0", t + "img_attn_out")
+        lin(s + "attn.to_add_out", t + "txt_attn_out")
+        lin(s + "ff.net.0.proj", t + "img_mlp_in")
+        lin(s + "ff.net.2", t + "img_mlp_out")
+        lin(s + "ff_context.net.0.proj", t + "txt_mlp_in")
+        lin(s + "ff_context.net.2", t + "txt_mlp_out")
+    for i in range(cfg.num_single_layers):
+        s, t = f"single_transformer_blocks.{i}.", f"single_blocks.{i}."
+        lin(s + "norm.linear", t + "mod")
+        for n in ("q", "k", "v"):
+            lin(f"{s}attn.to_{n}", f"{t}{n}",
+                _rows(full) if n != "v" else None)
+        for n in ("q", "k"):
+            norm(f"{s}attn.norm_{n}", f"{t}{n}_norm")
+        lin(s + "proj_mlp", t + "mlp_in")
+        lin(s + "proj_out", t + "out")
+    for n in ("x_embedder", "context_embedder", "proj_out"):
+        lin(n, n)
+    lin("norm_out.linear", "norm_out")
+    embedders = [("timestep", "time"), ("text", "pooled")]
+    if cfg.guidance_embeds:
+        embedders.append(("guidance", "guidance"))
+    for src, dst in embedders:
+        lin(f"time_text_embed.{src}_embedder.linear_1",
+            f"{dst}_embedder.in_layer")
+        lin(f"time_text_embed.{src}_embedder.linear_2",
+            f"{dst}_embedder.out_layer")
+    return plan
+
+
+def vae_plan(cfg: VAEConfig) -> Plan:
+    """diffusers AutoencoderKL's decoder -> ``AutoencoderKL`` (the port
+    has no encoder: ``encoder.*`` is off the path). up_blocks.{i}.
+    resnets.{j} -> up_{i}_block_{j}, up_blocks.{i}.upsamplers.0.conv ->
+    up_{i}_upsample, mid_block.resnets.{0,1} -> mid_block_{1,2},
+    mid_block.attentions.0 -> mid_attn (to_out.0 -> to_out), GroupNorm
+    weight -> scale."""
+    plan: Plan = {}
+
+    def same(src, dst, gn=False):          # a conv or Linear, or a GroupNorm
+        plan[f"decoder.{src}.weight"] = (
+            f"decoder.{dst}.{'scale' if gn else 'weight'}", None)
+        plan[f"decoder.{src}.bias"] = (f"decoder.{dst}.bias", None)
+
+    def resnet(src, dst, cin, cout):
+        for n in ("norm1", "conv1", "norm2", "conv2"):
+            same(f"{src}.{n}", f"{dst}.{n}", gn=n.startswith("norm"))
+        if cin != cout:
+            same(f"{src}.conv_shortcut", f"{dst}.conv_shortcut")
+
+    ch = cfg.block_out_channels
+    same("conv_in", "conv_in")
+    resnet("mid_block.resnets.0", "mid_block_1", ch[-1], ch[-1])
+    resnet("mid_block.resnets.1", "mid_block_2", ch[-1], ch[-1])
+    if cfg.use_mid_attention:
+        a = "mid_block.attentions.0"
+        same(f"{a}.group_norm", "mid_attn.group_norm", gn=True)
+        for n in ("to_q", "to_k", "to_v"):
+            same(f"{a}.{n}", f"mid_attn.{n}")
+        same(f"{a}.to_out.0", "mid_attn.to_out")
+    cin = ch[-1]
+    for i, c in enumerate(reversed(ch)):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"up_blocks.{i}.resnets.{j}", f"up_{i}_block_{j}", cin, c)
+            cin = c
+        if i < len(ch) - 1:
+            same(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample")
+    same("conv_norm_out", "conv_norm_out", gn=True)
+    same("conv_out", "conv_out")
+    return plan
+
+
+def vae_off_path(key: str) -> bool:
+    return key.startswith("encoder.")
+
+
+def qwen2_plan(cfg: Qwen2Config, body: str = "model.",
+               head: str = "lm_head.weight") -> Plan:
+    """HF Qwen2ForCausalLM -> ``Qwen2LM``, its decoder under ``body``
+    (``model.`` in a Qwen2 checkpoint; ``language_model.model.`` in
+    InternVL, ``model.language_model.`` or ``model.`` in Qwen2.5-VL,
+    ``llm.model.`` in MiniCPM-o) and an untied head at ``head``.
+    input_layernorm / post_attention_layernorm -> input_norm /
+    post_attn_norm, norm -> final_norm, self_attn.* and mlp.* keep their
+    names."""
+    plan: Plan = {f"{body}embed_tokens.weight": ("embed_tokens.weight", None),
+                  f"{body}norm.weight": ("final_norm.scale", None)}
+    for i in range(cfg.num_hidden_layers):
+        s, t = f"{body}layers.{i}.", f"layers.{i}."
+        plan[s + "input_layernorm.weight"] = (t + "input_norm.scale", None)
+        plan[s + "post_attention_layernorm.weight"] = (
+            t + "post_attn_norm.scale", None)
+        for n in ("q", "k", "v", "o"):
+            leaves = ("weight", "bias") if n != "o" and cfg.attention_bias \
+                else ("weight",)
+            for leaf in leaves:
+                plan[f"{s}self_attn.{n}_proj.{leaf}"] = (
+                    f"{t}{n}_proj.{leaf}", None)
+        for n in ("gate", "up", "down"):
+            plan[f"{s}mlp.{n}_proj.weight"] = (f"{t}{n}_proj.weight", None)
+    if not cfg.tie_word_embeddings:
+        plan[head] = ("lm_head.weight", None)
+    return plan
+
+
+def proj_plan(cfg: ProjConfig) -> Plan:
+    """The reference proj (utils/proj.py's state dict, 'module.' prefixes
+    stripped) -> ``Proj``, in each of its three forms: a channel scale
+    (``cha_scale``), a conv (``conv``) or neither (a mean)."""
+    plan: Plan = {}
+    if cfg.use_scale:
+        plan["cha_scale"] = ("cha_scale", None)
+    elif cfg.use_cnn:
+        plan["conv.weight"] = ("conv.weight", None)
+        plan["conv.bias"] = ("conv.bias", None)
+    plan.update({"mlp.layernorm.weight": ("ln_scale", None),
+                 "mlp.layernorm.bias": ("ln_bias", None),
+                 "mlp.projector.0.weight": ("proj_in.weight", None),
+                 "mlp.projector.2.weight": ("proj_out.weight", None),
+                 "mlp.fc.1.weight": ("pooled_out.weight", None),
+                 "mlp.fc.1.bias": ("pooled_out.bias", None)})
+    return plan
+
+
+@torch.no_grad()
+def fill_module(module: nn.Module,
+                tensors: Iterable[Tuple[str, torch.Tensor]], plan: Plan,
+                off_path: Callable[[str], bool] = lambda key: False
+                ) -> Dict[str, object]:
+    """Copy the checkpoint ``tensors`` ((key, tensor) pairs, read lazily)
+    into ``module`` by ``plan``, tensor by tensor, on the module's device
+    and in its dtype. -> a report: {"tensors": keys read, "bytes": their
+    size in the checkpoint, "unread": the keys off the path, sorted}.
+    Raises when the plan misses a parameter or buffer of the module or
+    names one twice, when a key of the plan is absent, when a key is
+    neither in the plan nor off the path, and on a shape mismatch."""
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    named: Dict[str, int] = {}
+    for name, _ in plan.values():
+        named[name] = named.get(name, 0) + 1
+    unfilled = sorted(set(targets) - set(named))
+    wrong = sorted(n for n, c in named.items()
+                   if n not in targets or c != 1)
+    if unfilled or wrong:
+        raise KeyError(f"{type(module).__name__}: the plan leaves "
+                       f"{unfilled[:8]} unfilled and names {wrong[:8]} "
+                       f"not once")
+    seen, unread, size = set(), [], 0
+    for key, t in tensors:
+        if key not in plan:
+            if not off_path(key):
+                raise KeyError(f"{key}: not a tensor of "
+                               f"{type(module).__name__}")
+            unread.append(key)
+            continue
+        if key in seen:
+            raise KeyError(f"{key}: given twice")
+        name, fn = plan[key]
+        dst = targets[name]
+        size += t.numel() * t.element_size()
+        if fn is not None:
+            t = fn(t.to(dst.device))
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} does not fit "
+                             f"{name} {tuple(dst.shape)}")
+        dst.copy_(t)
+        seen.add(key)
+    missing = sorted(set(plan) - seen)
+    if missing:
+        raise KeyError(f"{type(module).__name__}: the checkpoint lacks "
+                       f"{len(missing)} keys: {missing[:8]}")
+    return {"tensors": len(seen), "bytes": size, "unread": sorted(unread)}

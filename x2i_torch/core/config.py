@@ -29,6 +29,11 @@ takes the kernels on a CUDA tensor and their plain versions on the CPU,
 their own for a "kernel" value to force, as ``attention_impl`` has).
 ``Qwen2Config`` has no ``quantized`` field yet; the JAX one takes the
 int8 modes only.
+
+``MODEL_REGISTRY`` and ``PROJ_REGISTRY`` hold the JAX package's six
+models and five projs, field for field; a ``ModelSpec`` carries the text
+path's parts only (the JAX entry's InternVL vision config comes with the
+vision tower).
 """
 
 from __future__ import annotations
@@ -122,6 +127,9 @@ class ProjConfig:
     norm_eps: float = 1e-6
     use_scale: bool = False
     use_cnn: bool = True
+    num_layers: int = 2               # the T5 refiner's depth, heads and
+    num_heads: int = 12               # head size (the JAX fields; the
+    head_dim: int = 64                # refiner is not ported)
     use_t5: bool = False              # T5-style refiner stack (not ported:
                                       # Proj raises; off in shipped configs)
     dtype: Any = torch.bfloat16
@@ -154,9 +162,10 @@ class Qwen2Config:
     num_attention_heads: int = 14
     num_key_value_heads: int = 2
     head_dim: int = 64
+    max_position_embeddings: int = 32768
     rope_theta: float = 1000000.0
     rms_norm_eps: float = 1e-6
-    tie_word_embeddings: bool = True
+    tie_word_embeddings: bool = True  # False: a separate lm_head
     attention_bias: bool = True
     dtype: Any = torch.bfloat16
     attention_impl: str = "auto"
@@ -170,6 +179,7 @@ class Qwen2Config:
 class SchedulerConfig:
     """Flow-match Euler discrete scheduler (diffusers semantics)."""
 
+    num_train_timesteps: int = 1000
     shift: float = 1.0               # 1.0 schnell, 3.0 dev
     use_dynamic_shifting: bool = False
     base_shift: float = 0.5
@@ -253,9 +263,48 @@ class CLIPTextConfig:
     dtype: Any = torch.bfloat16
 
 
+def _qwen2_5_vl_3b_llm() -> Qwen2Config:
+    return Qwen2Config(
+        vocab_size=151936, hidden_size=2048, intermediate_size=11008,
+        num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=2,
+        head_dim=128, rope_theta=1000000.0)
+
+
+def _qwen2_5_vl_7b_llm() -> Qwen2Config:
+    return Qwen2Config(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        head_dim=128, rope_theta=1000000.0)
+
+
+def _internvl_4b_llm() -> Qwen2Config:
+    # Qwen2.5-3B-Instruct inside InternVL2.5-4B: 36 layers -> 37 states
+    return Qwen2Config(
+        vocab_size=151674, hidden_size=2048, intermediate_size=11008,
+        num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=2,
+        head_dim=128, rope_theta=1000000.0)
+
+
+def _minicpm_llm() -> Qwen2Config:
+    # Qwen2-7B inside MiniCPM-o-2.6: 28 layers -> 29 states
+    return Qwen2Config(
+        vocab_size=151700, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        head_dim=128, rope_theta=1000000.0)
+
+
+# internvl1b mixes the layers by a channel scale, the others by a conv
 PROJ_REGISTRY: Dict[str, ProjConfig] = {
-    "internvl1b": ProjConfig(in_channels=25, input_dim=896, use_scale=True,
-                             use_cnn=False),
+    "internvl1b": ProjConfig(in_channels=25, input_dim=896, num_heads=12,
+                             head_dim=64, use_scale=True, use_cnn=False),
+    "internvl4b": ProjConfig(in_channels=37, input_dim=2048, num_heads=16,
+                             head_dim=128),
+    "qwen3b": ProjConfig(in_channels=37, input_dim=2048, num_heads=28,
+                         head_dim=128),
+    "qwen7b": ProjConfig(in_channels=29, input_dim=3584, num_heads=28,
+                         head_dim=128),
+    "minicpm": ProjConfig(in_channels=29, input_dim=3584, num_heads=28,
+                          head_dim=128),
 }
 
 
@@ -270,15 +319,27 @@ class ModelSpec:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
 
 
-MODEL_REGISTRY: Dict[str, ModelSpec] = {
-    # InternVL2.5-1B's LM (Qwen2.5-0.5B) + FLUX.1-schnell; the text path
-    # runs the LM only (the ViT is not on it).
-    "x2i-internvl2.5-1b": ModelSpec(
-        llm=Qwen2Config(),
-        proj=PROJ_REGISTRY["internvl1b"],
+def _schnell(llm: Qwen2Config, proj: str) -> ModelSpec:
+    """An entry on FLUX.1-schnell: 4 steps, no guidance embedder, shift 1."""
+    return ModelSpec(
+        llm=llm, proj=PROJ_REGISTRY[proj],
         flux=FluxConfig(guidance_embeds=False),
-        vae=VAEConfig(),
-        scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False)),
+        scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False))
+
+
+# The encoder family is in the name (internvl, qwenvl, minicpm), as the
+# checkpoint loader reads it.
+MODEL_REGISTRY: Dict[str, ModelSpec] = {
+    "x2i-internvl2.5-1b": _schnell(Qwen2Config(), "internvl1b"),
+    "x2i-internvl2.5-4b": _schnell(_internvl_4b_llm(), "internvl4b"),
+    "x2i-qwenvl2.5-3b": _schnell(_qwen2_5_vl_3b_llm(), "qwen3b"),
+    "x2i-qwenvl2.5-7b": _schnell(_qwen2_5_vl_7b_llm(), "qwen7b"),
+    "x2i-minicpm-o-2.6": _schnell(_minicpm_llm(), "minicpm"),
+    # FLUX.1-dev: 28 steps, the guidance embedder, dynamic shifting
+    "x2i-minicpm-o-2.6-dev": ModelSpec(
+        llm=_minicpm_llm(), proj=PROJ_REGISTRY["minicpm"],
+        flux=FluxConfig(guidance_embeds=True),
+        scheduler=SchedulerConfig(shift=3.0, use_dynamic_shifting=True)),
 }
 
 

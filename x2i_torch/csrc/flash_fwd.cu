@@ -70,9 +70,9 @@
 //     on tiles that reach above the diagonal or carry a kv mask; o is
 //     rescaled (just before the next p v is queued, when the previous one
 //     has left it) only when a row maximum of the warp moved;
-//   * a grid of fewer 128-row blocks than the card has SMs (the LM
-//     prefill: 56) takes the one-warpgroup instance of the same kernel,
-//     64 q rows per block.
+//   * a grid whose 64-row blocks still fit in one wave on the card (the
+//     LM prefill at 14 or 16 heads: 56 or 64 128-row blocks) takes the
+//     one-warpgroup instance of the same kernel, 64 q rows per block.
 // Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
 // contiguous and the other strides multiples of 8 elements.
 
@@ -543,9 +543,11 @@ extern "C" int x2i_flash_fwd(
   const int body = !exact ? kPipelined
                    : (mask != nullptr || causal) ? kExactMasked
                                                  : kExactBody;
-  // fewer 128-row blocks than SMs: 64-row blocks fill more of the card
+  // 64-row blocks fill more of the card where twice as many of them
+  // still fit in one wave (the 28-head LM's 112 128-row blocks stay one
+  // wave; as 224 64-row blocks they took two)
   const bool small_grid =
-      static_cast<long long>(sq / 128) * hq * batch < sms;
+      2 * static_cast<long long>(sq / 128) * hq * batch <= sms;
   // K and V as the producer reads them: K from the scratch under rope
   Maps m;
   err = make_tile_map(&m.k, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,

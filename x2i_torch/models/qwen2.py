@@ -3,14 +3,17 @@ the counterpart of ``x2i_tpu/models/qwen2.py`` (decode and the KV cache
 are not ported yet). ``encode_premixed`` is the long-prompt prefill that
 sums the proj's channel mix layer by layer.
 
-Biases sit on q/k/v but not on o; the embeddings are tied (no separate
-head); positions are ``cumsum(mask) - 1`` clipped at 0, and the rotation is
-applied before the attention kernel, which sees plain q/k.
+Biases sit on q/k/v but not on o; the head is the tied embedding table,
+or with ``tie_word_embeddings=False`` a separate ``lm_head`` (``logits``).
+Positions are ``cumsum(mask) - 1`` clipped at 0 unless the caller passes
+``position_ids`` or ready ``rope=(cos, sin)`` tables (Qwen2.5-VL's
+M-RoPE); the rotation is applied before the attention kernel, which sees
+plain q/k.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,12 +78,10 @@ class Qwen2Block(nn.Module):
 
 
 class Qwen2LM(nn.Module):
-    """Embedding + blocks + final norm."""
+    """Embedding + blocks + final norm (+ an untied head for ``logits``)."""
 
     def __init__(self, cfg: Qwen2Config, device=None):
         super().__init__()
-        if not cfg.tie_word_embeddings:
-            raise NotImplementedError("an untied LM head is not ported yet")
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          device=device, dtype=cfg.dtype)
@@ -88,14 +89,28 @@ class Qwen2LM(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   cfg.dtype, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False, device=device,
+                                     dtype=cfg.dtype)
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
 
-    def _prefill_inputs(self, input_ids, attention_mask, inputs_embeds):
-        """-> (embeddings, bool mask, cos, sin): positions are
-        ``cumsum(mask) - 1`` clipped at 0, their f32 tables as
-        ``rope_freqs_half`` builds them."""
+    def logits(self, hidden):
+        """Final norm, then the head: (B, S, H) -> (B, S, vocab)."""
+        return self.logits_from_normed(self.final_norm(hidden))
+
+    def logits_from_normed(self, normed):
+        if self.cfg.tie_word_embeddings:
+            return F.linear(normed, self.embed_tokens.weight)
+        return self.lm_head(normed)
+
+    def _prefill_inputs(self, input_ids, attention_mask, inputs_embeds,
+                        position_ids, rope):
+        """-> (embeddings, bool mask, cos, sin): the given rope tables, or
+        f32 tables of ``position_ids`` as ``rope_freqs_half`` builds them,
+        by default ``cumsum(mask) - 1`` clipped at 0."""
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
@@ -104,20 +119,30 @@ class Qwen2LM(nn.Module):
             attention_mask = torch.ones((b, s), dtype=torch.bool,
                                         device=inputs_embeds.device)
         attention_mask = attention_mask.bool()
-        positions = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
-        cos, sin = rope_freqs_half(positions, cfg.head_dim, cfg.rope_theta)
+        if rope is not None:
+            cos, sin = rope
+        else:
+            if position_ids is None:
+                position_ids = (attention_mask.long().cumsum(-1) - 1
+                                ).clamp_min(0)
+            cos, sin = rope_freqs_half(position_ids, cfg.head_dim,
+                                       cfg.rope_theta)
         return inputs_embeds, attention_mask, cos, sin
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                inputs_embeds: Optional[torch.Tensor] = None):
-        """Prefill exporting all hidden states.
+                inputs_embeds: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Prefill exporting all hidden states. ``position_ids`` (B, S)
+        or ready ``rope`` tables (cos, sin), each (B, S, head_dim) f32 in
+        the half layout, replace the default positions.
 
         Returns (all_hidden (B, L+1, S, H): embeddings, blocks 1..L-1,
         then the final-normed last block -- HF's hidden_states order --,
         last_hidden (B, S, H) final-normed)."""
         inputs_embeds, attention_mask, cos, sin = self._prefill_inputs(
-            input_ids, attention_mask, inputs_embeds)
+            input_ids, attention_mask, inputs_embeds, position_ids, rope)
         states = [inputs_embeds]
         hidden = inputs_embeds
         for blk in self.layers:
@@ -129,7 +154,10 @@ class Qwen2LM(nn.Module):
 
     def encode_premixed(self, input_ids, mix_weights, mix_fn,
                         attention_mask: Optional[torch.Tensor] = None,
-                        inputs_embeds: Optional[torch.Tensor] = None):
+                        inputs_embeds: Optional[torch.Tensor] = None,
+                        position_ids: Optional[torch.Tensor] = None,
+                        rope: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None):
         """Prefill with the proj's channel mix summed while the layers
         run: ``Proj.mix`` of the hidden-state stack (plus the conv bias)
         without ever building the (B, L+1, S, H) stack; the extra memory
@@ -140,7 +168,7 @@ class Qwen2LM(nn.Module):
         Returns (mixed (B, S, H) f32, last_hidden (B, S, H) final-normed).
         """
         hidden, attention_mask, cos, sin = self._prefill_inputs(
-            input_ids, attention_mask, inputs_embeds)
+            input_ids, attention_mask, inputs_embeds, position_ids, rope)
         acc = mix_fn(hidden, mix_weights["embed"])
         for blk, w in zip(self.layers, mix_weights["layers"]):
             hidden = blk(hidden, cos, sin, attention_mask)

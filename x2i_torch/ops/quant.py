@@ -70,8 +70,8 @@ def _ieee_div(x: torch.Tensor, d: float) -> torch.Tensor:
 
 # ------------------------------------------------------------ int4 codes
 
-# the int4 modes' group size: the JAX ``QuantDense.group`` and
-# ``quantize_tree`` default, the one their callers use
+# the int4 modes' default group size: the JAX ``QuantDense.group`` and
+# ``quantize_tree`` default
 INT4_GROUP = 128
 
 def _w4_group(in_features: int, group: int) -> int:
@@ -283,18 +283,19 @@ class QuantLinear(nn.Module):
 
     ``impl`` is ``FluxConfig.quant_impl``: "plain" takes the plain
     quantization and product on any device; otherwise a CUDA tensor
-    launches the kernels. The int4 modes' groups are ``INT4_GROUP`` inputs
-    (halved in w4a8 to make their count even). The weights are buffers
-    (and the bias a
-    parameter without gradient): the layer is frozen."""
+    launches the kernels. The int4 modes' groups are ``group`` inputs (the
+    JAX ``QuantDense.group``; the whole input where it does not divide it,
+    and halved in w4a8 to make their count even). The weights are buffers
+    (and the bias a parameter without gradient): the layer is frozen."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, mode: str = "w8a8",
-                 dtype=torch.bfloat16, device=None, impl: str = "auto"):
+                 dtype=torch.bfloat16, device=None, impl: str = "auto",
+                 group: int = INT4_GROUP):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.mode = quant_mode(mode)
-        self.dtype, self.impl = dtype, impl
+        self.dtype, self.impl, self.group = dtype, impl, group
         i8, f32 = torch.int8, torch.float32
 
         def buf(name, shape, dtype, fill):
@@ -305,14 +306,9 @@ class QuantLinear(nn.Module):
             if in_features % 2:
                 raise ValueError(f"{self.mode} needs an even input dim")
             buf("pweight", (out_features, in_features // 2), i8, 0)
-        if self.mode == "w4a8":
-            groups = in_features // _w4a8_group(in_features, INT4_GROUP)
-            buf("mscale", (groups, out_features), i8, 1)
-            buf("scale", (out_features,), f32, 1.0)
-        elif self.mode == "w4":
-            groups = in_features // _w4_group(in_features, INT4_GROUP)
-            buf("scale", (groups, out_features), f32, 1.0)
-            buf("pre_scale", (in_features,), f32, 1.0)
+            self.set_groups_(in_features // (
+                _w4a8_group if self.mode == "w4a8" else _w4_group)(
+                    in_features, group))
         else:
             buf("qweight", (out_features, in_features), i8, 0)
             buf("scale", (out_features,), f32, 1.0)
@@ -320,18 +316,41 @@ class QuantLinear(nn.Module):
                                               device=device),
                                   requires_grad=False) if bias else None)
 
+    def set_groups_(self, groups: int) -> "QuantLinear":
+        """(Re)make the int4 scale buffers for ``groups`` groups of
+        in / groups inputs (an even count in w4a8, as its kernel and the
+        half-split packing need): the bridge sizes them from a tree's own
+        leaves. The new buffers hold the identity scales."""
+        inn, out = self.in_features, self.out_features
+        if inn % groups or (self.mode == "w4a8" and groups % 2):
+            raise ValueError(f"{self.mode}: {groups} groups do not split "
+                             f"{inn} inputs")
+        dev, f32 = self.pweight.device, torch.float32
+        self.group = inn // groups
+        if self.mode == "w4a8":
+            self.register_buffer("mscale", torch.ones(
+                (groups, out), dtype=torch.int8, device=dev))
+            self.register_buffer("scale", torch.ones(out, dtype=f32,
+                                                     device=dev))
+        else:
+            self.register_buffer("scale", torch.ones((groups, out),
+                                                     dtype=f32, device=dev))
+            self.register_buffer("pre_scale", torch.ones(inn, dtype=f32,
+                                                         device=dev))
+        return self
+
     @torch.no_grad()
     def set_weight_(self, weight: torch.Tensor) -> "QuantLinear":
         """Quantize a float (out, in) weight into this layer (w4: with no
         AWQ equalization, ``pre_scale`` ones, as the JAX
         ``quantize_tree``)."""
         if self.mode == "w4a8":
-            pk, m, s = quantize_kernel_w4a8(weight.t(), INT4_GROUP)
+            pk, m, s = quantize_kernel_w4a8(weight.t(), self.group)
             self.pweight.copy_(pk.t())
             self.mscale.copy_(m)
             self.scale.copy_(s)
         elif self.mode == "w4":
-            pk, s = quantize_kernel_w4(weight.t(), INT4_GROUP)
+            pk, s = quantize_kernel_w4(weight.t(), self.group)
             self.pweight.copy_(pk.t())
             self.scale.copy_(s)
             self.pre_scale.fill_(1.0)
@@ -356,11 +375,12 @@ class QuantLinear(nn.Module):
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, linear: nn.Linear, mode: str,
-                    impl: str = "auto") -> "QuantLinear":
+    def from_linear(cls, linear: nn.Linear, mode: str, impl: str = "auto",
+                    group: int = INT4_GROUP) -> "QuantLinear":
         w = linear.weight
         q = cls(linear.in_features, linear.out_features,
-                linear.bias is not None, mode, w.dtype, w.device, impl)
+                linear.bias is not None, mode, w.dtype, w.device, impl,
+                group)
         q.set_weight_(w)
         if linear.bias is not None:
             q.bias.copy_(linear.bias)
@@ -460,16 +480,18 @@ def _swap_linears(module: nn.Module, quantized, swap):
 
 
 @torch.no_grad()
-def quantize_module_(module: nn.Module, mode: str = "w8a8") -> nn.Module:
+def quantize_module_(module: nn.Module, mode: str = "w8a8",
+                     group: int = INT4_GROUP) -> nn.Module:
     """Swap every ``nn.Linear`` below ``module`` for a ``QuantLinear`` in
-    place (the counterpart of ``quantize_tree``), one layer at a time on
-    the layer's own device, so that a full DiT is quantized on the card
-    with only one layer's float temporaries beside it; each float weight
-    is freed as its layer is swapped. The model then runs as if it had
-    been built in that mode (see ``_swap_linears``)."""
+    place (the counterpart of ``quantize_tree``, ``group`` its int4 group
+    size), one layer at a time on the layer's own device, so that a full
+    DiT is quantized on the card with only one layer's float temporaries
+    beside it; each float weight is freed as its layer is swapped. The
+    model then runs as if it had been built in that mode (see
+    ``_swap_linears``)."""
     mode = quant_mode(mode)
     return _swap_linears(module, mode, lambda child, impl: (
-        QuantLinear.from_linear(child, mode, impl)
+        QuantLinear.from_linear(child, mode, impl, group)
         if isinstance(child, nn.Linear) else None))
 
 

@@ -13,7 +13,8 @@ arrays and copies every leaf into the matching PyTorch parameter:
   in w4a8 ``pkernel`` (in/2, out) -> ``pweight`` (out, in/2), ``mscale``
   (G, out), ``scale`` (out,) and ``bias``; in w4 ``pkernel``, ``scale``
   (G, out), ``pre_scale`` (in,) and ``bias`` (the leaves of
-  ``quantize_tree(params, mode)``);
+  ``quantize_tree(params, mode, group)``: the layer takes the G groups of
+  its leaves, whatever group it was built with);
 * ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
 * Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
 * every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``)
@@ -105,6 +106,13 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
         elif isinstance(child, QuantLinear):
             leaf, buf, rest = _QUANT_LEAVES[child.mode]
             _only(val, {leaf, "bias", *rest}, name)
+            if child.mode in ("w4", "w4a8"):
+                # the int4 group comes with the tree (``quantize_tree``'s
+                # ``group``): its scales' group axis
+                groups = np.shape(val["mscale" if child.mode == "w4a8"
+                                      else "scale"])[-2]
+                if groups != child.in_features // child.group:
+                    child.set_groups_(groups)
             _copy(getattr(child, buf), np.swapaxes(val[leaf], -1, -2),
                   f"{name}.{leaf}", filled)
             for r in rest:

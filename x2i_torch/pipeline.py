@@ -47,25 +47,39 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple]):
+def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
+                    forward: Optional[Callable] = None):
     """-> (encoder_fn, encoder_batch_fn) over a Qwen2 LM.
 
     tokenize(text) -> (ids (S,) ints, mask (S,) bools); every prompt of a
-    batch must give the same S. Text requests only: image, video, audio
-    and use_answer inputs belong to encoders not ported yet."""
+    batch must give the same S. forward(ids, mask), numpy (B, S), -> the
+    hidden-state stack; by default the LM at its default positions. Text
+    requests only: images, video and audio belong to the encoders of
+    ROADMAP.md Queue A item 4, ``use_answer`` to the decode side of item 3,
+    and both raise."""
+    dev = lm.embed_tokens.weight.device
+
+    def plain(ids, mask):
+        return lm(torch.as_tensor(ids, device=dev),
+                  attention_mask=torch.as_tensor(mask, device=dev))[0]
+
+    forward = forward or plain
+
     def encoder_batch_fn(requests: Sequence[Dict[str, Any]]):
         for r in requests:
-            if any(r.get(k) for k in ("images", "video", "audio",
-                                      "use_answer")):
+            if (r.get("images") or r.get("video") is not None
+                    or r.get("audio") is not None):
                 raise NotImplementedError(
-                    "only text prompts are ported to x2i_torch so far")
+                    "image, video and audio inputs come with the vision and "
+                    "audio encoders (ROADMAP.md Queue A item 4); the port "
+                    "encodes text")
+            if r.get("use_answer"):
+                raise NotImplementedError(
+                    "use_answer decodes an answer: the LM's decode side "
+                    "comes with ROADMAP.md Queue A item 3")
         ids, mask = zip(*(tokenize(r.get("prompt") or "") for r in requests))
-        dev = lm.embed_tokens.weight.device
         with torch.inference_mode():
-            states, _ = lm(torch.as_tensor(np.stack(ids), device=dev),
-                           attention_mask=torch.as_tensor(np.stack(mask),
-                                                          device=dev))
-        return states
+            return forward(np.stack(ids), np.stack(mask).astype(bool))
 
     def encoder_fn(inputs: Dict[str, Any]):
         return encoder_batch_fn([inputs])
@@ -77,7 +91,8 @@ def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple]):
 class X2IPipeline:
     """encoder_fn(inputs: dict) -> (B, C, S, H) LM hidden-state stack;
     encoder_batch_fn(list of dicts) -> the same for a batch, in one
-    prefill; the other stages are modules on one device."""
+    prefill; the other stages are modules on one device. ``load_report``
+    is what a checkpoint loader read (``x2i_torch.convert.load``)."""
 
     encoder_fn: Callable[[Dict[str, Any]], torch.Tensor]
     proj: Proj
@@ -86,6 +101,7 @@ class X2IPipeline:
     scheduler: FlowMatchEulerScheduler
     gen_cfg: GenerationConfig = GenerationConfig()
     encoder_batch_fn: Optional[Callable] = None
+    load_report: Optional[Dict[str, Any]] = None
 
     @property
     def device(self) -> torch.device:

@@ -28,7 +28,9 @@ Phases, each printing one JSON line per record:
    the bf16 product); the w4 dequantize kernel bit for bit at the DiT's
    weight shapes; K1b also at the registry's larger LMs (16 q on 2 kv
    heads and 28 on 4, D = 128, 40 and 400 valid keys) and K2 at the 7B
-   LMs' 32k prefill (28 on 4 heads x 128);
+   LMs' 32k prefill (28 on 4 heads x 128); the int8 GEMM at the int8 7B
+   LM's products at one decode row and at the 512-token prefill, and K8
+   at its decode rows (3584 and 18944 wide);
 2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
    at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
    blocks in two shards, the whole VAE; an InternVL directory with the
@@ -76,7 +78,23 @@ Phases, each printing one JSON line per record:
    depth (LMs of 36 x 2048 and 28 x 3584, the FLUX.1-dev entry in 28
    steps with guidance and dynamic shifting), one 1024^2 image each
    through the family's template and positions, with exact launch
-   counts.
+   counts; on the x2i-qwenvl2.5-7b entry, before its LM is freed:
+8a. answer: use_answer reasoning2image on that LM (bf16): the 512-token
+   prompt's cached prefill, 128 greedy steps, a 640-token conditioning,
+   one 1024^2 image with exact launch counts (no K1b: the cache takes the
+   plain attention); the decode's ms per token beside its bound, the
+   host's enqueue time of a step against its device time (the step
+   replayed from a CUDA graph),
+   and the decode held against the cache-less forward (K1b) over the same
+   tokens;
+8b. chat: a two-turn MultiTurnSession (32 tokens and an image a turn) and
+   a StreamingSession (three chunks, then 64 tokens, held against the
+   cache-less forward) on the same LM;
+8c. answer-w8a8: the same LM quantized in place to w8a8 and the same
+   request through the int8 GEMM and K8 at one row and at 512 rows, exact
+   launch counts, its decode's cost and bound and its conditioning's
+   distance from the bf16 one; a 2-layer full-width int8 LM holds its
+   kernel route against the plain route.
 
 Then a "kernels" line, the card's name and power limit from nvidia-smi,
 and as the last line {"ok": true, "device": {...}}. Any failure raises,
@@ -816,7 +834,10 @@ def check_glue(g, randn, rows, recs):
     cases += [("ln_mod_quant", "batch 2", (2, 512, 3072)),
               ("quant_rows", "K7's width, 4608 rows", (1, 4608, 12288)),
               ("quant_rows", "tie rows", (1, 256, 12288)),
-              ("quant_rows", "tie rows", (64, 3072))]
+              ("quant_rows", "tie rows", (64, 3072)),
+              # the int8 7B LM's decode row: its width and its MLP's
+              ("quant_rows", "7B decode row", (1, 1, 3584)),
+              ("quant_rows", "7B decode MLP row", (1, 1, 18944))]
     reason = {"ln_mod_quant": "no one PyTorch call computes LayerNorm + "
                               "modulate + int8 quantization",
               "gelu_quant": "no one PyTorch call computes gelu + int8 "
@@ -926,13 +947,23 @@ GEMM_SHAPES = (
     ("pooled in_layer", 1, 768, 3072, None, 0, False, True),
 )
 GEMM_MAIN = "single mlp_in"
+# the int8 7B LM's products (q/k/v/o, gate/up, down; Qwen2.5-VL-7B: 3584
+# wide, 4 kv heads x 128, MLP 18944) at one decode row and at the
+# 512-token prefill
+LM_GEMM_SHAPES = tuple(
+    (f"7B {stage} {name}", m, k, n, None, 0, False, bias)
+    for stage, m in (("decode", 1), ("prefill", 512))
+    for name, k, n, bias in (("q/o", 3584, 3584, True),
+                             ("k/v", 3584, 512, True),
+                             ("gate/up", 3584, 18944, False),
+                             ("down", 18944, 3584, False)))
 
 
 def check_gemms(g, rows, recs):
-    """The int8 GEMM at the main path's shapes: its int32 sum exact, its
-    bf16 output within one bf16 step of the plain version's. Yardsticks:
-    ``torch._int_mm`` (the int32 product alone; it refuses small M) and
-    the bf16 ``F.linear`` of the same shape."""
+    """The int8 GEMM at the main path's shapes and the int8 7B LM's: its
+    int32 sum exact, its bf16 output within one bf16 step of the plain
+    version's. Yardsticks: ``torch._int_mm`` (the int32 product alone; it
+    refuses M <= 16) and the bf16 ``F.linear`` of the same shape."""
     import torch
     import torch.nn.functional as F
     from x2i_torch.ops import fused_glue as fg
@@ -940,7 +971,8 @@ def check_gemms(g, rows, recs):
     from x2i_torch.ops.quant import quantize_kernel
 
     dev = torch.device("cuda")
-    for label, m, k, n, width, k0, with_add, with_bias in GEMM_SHAPES:
+    for label, m, k, n, width, k0, with_add, with_bias in (GEMM_SHAPES
+                                                          + LM_GEMM_SHAPES):
         width = width or k
         wf = torch.randn((n, width), generator=g, device=dev) / width ** 0.5
         q, scale = quantize_kernel(wf.t())
@@ -1012,7 +1044,8 @@ def check_w4a8_gemms(g, rows, recs):
     from x2i_torch.ops.quant import quantize_kernel_w4a8
 
     dev = torch.device("cuda")
-    for label, m, k, n, width, k0, with_add, with_bias in GEMM_SHAPES:
+    for label, m, k, n, width, k0, with_add, with_bias in (GEMM_SHAPES
+                                                          + LM_GEMM_SHAPES):
         width = width or k
         wf = torch.randn((n, width), generator=g, device=dev) / width ** 0.5
         pk, ms, scale = quantize_kernel_w4a8(wf.t())
@@ -1850,10 +1883,14 @@ class ByteTokenizer:
     """The tokenizer this script hands the encoders (the machine with the
     card has no ``transformers``): each UTF-8 byte is one id (a byte-level
     BPE without merges), the family's special tokens follow at 256 on,
-    ``apply_chat_template`` renders ChatML, and a call pads each text on
-    the right to ``max_length`` with ``<|endoftext|>``: the ids of the HF
-    tokenizers of the test fixtures (tests/ckpt_fixtures.py), which
-    tests/test_torch_checkpoint_dirs.py holds it to."""
+    ``apply_chat_template`` renders ChatML (a history's assistant turns
+    too), a call pads each text on the right to ``max_length`` with
+    ``<|endoftext|>``, and ``decode`` maps ids back to text: the ids and
+    texts of the HF tokenizers of the test fixtures
+    (tests/ckpt_fixtures.py), which tests/test_torch_checkpoint_dirs.py
+    holds it to. ``eos_token_id`` is Qwen2.5-VL's released
+    ``<|im_end|>`` id 151645 for qwenvl (the JAX encoder's default, in
+    the 7B LM's vocabulary), the family's own ``<|im_end|>`` otherwise."""
 
     def __init__(self, family: str):
         import re
@@ -1863,9 +1900,28 @@ class ByteTokenizer:
         self._split = re.compile("(" + "|".join(
             re.escape(t) for t in self.special) + ")")
         self.pad_token_id = self.special["<|endoftext|>"]
+        self.eos_token_id = (151645 if family == "qwenvl"
+                             else self.special["<|im_end|>"])
+        self._byte = {i: b for b, i in self.byte_id.items()}
+        self._token = {i: t for t, i in self.special.items()}
 
     def convert_tokens_to_ids(self, token: str) -> int:
         return self.special[token]
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        """Text of ``ids``: byte runs decoded as UTF-8 (errors replaced),
+        special tokens as their text unless skipped; ids outside the
+        vocabulary (a random LM's answer) give nothing."""
+        out, run = [], bytearray()
+        for i in (int(i) for i in ids):
+            if i in self._byte:
+                run.append(self._byte[i])
+                continue
+            out.append(run.decode(errors="replace"))
+            run = bytearray()
+            if i in self._token and not skip_special_tokens:
+                out.append(self._token[i])
+        return "".join(out) + run.decode(errors="replace")
 
     def encode(self, text: str):
         ids = []
@@ -2249,7 +2305,7 @@ def phase_checkpoint(seed: int):
 REGISTRY_STEPS = {"x2i-minicpm-o-2.6-dev": 28}    # the others 4
 
 
-def phase_registry(pipe, seed: int, dit_state):
+def phase_registry(pipe, seed: int, dit_state, card: str):
     """The five other MODEL_REGISTRY entries at full width and depth, one
     1024^2 image each through its family's template, tokenizer
     (``ByteTokenizer``) and positions, weights drawn on the card: the
@@ -2259,7 +2315,10 @@ def phase_registry(pipe, seed: int, dit_state):
     FLUX.1-dev DiT (guidance embedder) after the schnell one is freed, and
     makes its image in its published 28 steps with guidance 3.5 and
     dynamic shifting. The VAE is the pipeline's. Exact launch counts: one
-    K1b per LM layer, K1a 57 and K5 115 per DiT step."""
+    K1b per LM layer, K1a 57 and K5 115 per DiT step. On the
+    x2i-qwenvl2.5-7b entry, before its LM is freed, the decode phases
+    run: ``answer``, ``chat``, then ``answer-w8a8``, which quantizes that
+    LM in place."""
     import dataclasses
     import gc
     import zlib
@@ -2321,10 +2380,469 @@ def phase_registry(pipe, seed: int, dit_state):
             raise AssertionError(f"{name} missed its kernels: {got} != "
                                  f"{want}")
         counts[f"registry[{name}]"] = got
+        if name == ANSWER_MODEL:
+            counts["answer"], bf16_cond = phase_answer(entry, lm, seed, card)
+            counts["chat"] = phase_chat(entry, lm, seed, card)
+            counts["answer-w8a8"] = phase_answer_w8a8(entry, lm, seed, card,
+                                                      bf16_cond)
+            del bf16_cond
         del entry, encoder_fn, lm, proj
         gc.collect()
         torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------------- the LM's decode
+
+ANSWER_MODEL = "x2i-qwenvl2.5-7b"
+ANSWER_TOKENS = 128            # the reference's use_answer budget
+CHAT_TOKENS = 32               # a multi-turn answer
+STREAM_TOKENS = 64             # a streamed reply
+# the decode against the cache-less forward (K1b in each layer) over the
+# same tokens: the largest and the mean absolute difference of the
+# hidden-state stacks, relative to the forward's largest and mean
+# magnitude, and the mean one of the first block's output alone. Measured
+# on the 7B (random bf16 weights, 28 layers; PERF.md): 0.031 / 0.013 /
+# 0.0022 at the answer, 0.025 / 0.014 at the prompt, 0.033 / 0.018 for a
+# streamed reply (final layer only). The two attentions round p at other
+# points and the difference grows layer by layer; an answer decoded at
+# positions one off gives 0.089 / 0.040 / 0.024
+# (x2i_torch/tools/decode_spread.py).
+ANSWER_REL_MAX, ANSWER_REL_MEAN, ANSWER_REL_LAYER1 = 6e-2, 3e-2, 8e-3
+
+
+def _answer_request(lm, prompt: str):
+    """What the qwenvl text encoder hands the LM for ``prompt``: ids and
+    mask (1, 512), 3-D positions (3, 1, 512) and their M-RoPE tables, on
+    the LM's device."""
+    import numpy as np
+    import torch
+    from x2i_torch.data.qwen_vision import get_rope_index
+    from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, mrope_tables
+    from x2i_torch.models.templates import qwen_chat_messages
+
+    tok = ByteTokenizer("qwenvl")
+    enc = tok(tok.apply_chat_template(qwen_chat_messages("text2image",
+                                                         prompt)))
+    ids = np.asarray([enc["input_ids"]], np.int64)
+    mask = np.asarray([enc["attention_mask"]], np.int64)
+    dev = lm.embed_tokens.weight.device
+    pos3d = torch.as_tensor(get_rope_index(ids, attention_mask=mask)[0],
+                            device=dev)
+    sec = Qwen2_5_VLConfig().mrope_section
+    return (torch.as_tensor(ids, device=dev),
+            torch.as_tensor(mask, device=dev).bool(), pos3d,
+            mrope_tables(pos3d, lm.cfg.head_dim, lm.cfg.rope_theta, sec))
+
+
+def _mrope_continued(lm, pos3d, steps: int):
+    """M-RoPE tables of the prompt's 3-D positions followed by ``steps``
+    answer positions from max(pos3d) + 1, one position on all streams."""
+    import torch
+    from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, mrope_tables
+    ans = (pos3d.amax(dim=(0, 2))[:, None] + 1
+           + torch.arange(steps, device=pos3d.device))
+    full = torch.cat([pos3d, ans[None].expand(3, -1, -1)], dim=2)
+    return mrope_tables(full, lm.cfg.head_dim, lm.cfg.rope_theta,
+                        Qwen2_5_VLConfig().mrope_section)
+
+
+def _stack_errors(got, want):
+    """-> (max |got - want| / max |want|, mean |got - want| / mean |want|)
+    over two hidden-state stacks."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return (d.max() / w.max()).item(), (d.mean() / w.mean()).item()
+
+
+def _layer_errors(got, want):
+    """mean |got - want| / mean |want| of each channel of two (B, L+1, S,
+    H) stacks: how the difference grows through the layers."""
+    d = (got.float() - want.float()).abs().mean(dim=(0, 2, 3))
+    return (d / want.float().abs().mean(dim=(0, 2, 3))).tolist()
+
+
+def _within_answer_bars(stack_err, layer_err=None) -> bool:
+    return (stack_err[0] <= ANSWER_REL_MAX and stack_err[1] <= ANSWER_REL_MEAN
+            and (layer_err is None or layer_err[1] <= ANSWER_REL_LAYER1))
+
+
+def _weight_bytes(module) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (*module.parameters(), *module.buffers()))
+
+
+def decode_timing(lm, ids, mask, pos3d, rope):
+    """The decode's time by the host clock: ms per token over
+    ANSWER_TOKENS steps (the greedy loop of ANSWER_TOKENS steps less the
+    same loop of 1, each synchronized) and ``prefill_cached``'s ms
+    (``call_ms``), beside the bound: the bytes a step must read (the LM's
+    weights, the tied head's table among them, and the cache slots up to
+    the step, on average over the steps) over the card's memory rate. ->
+    (record, the timed loop's (prefill stack, step stack, tokens):
+    ``encode_with_answer``'s decode of the request)."""
+    import torch
+    from x2i_torch.models.decoding import greedy_decode_with_hiddens
+
+    s0 = ids.shape[1]
+    with torch.inference_mode():
+        emb = lm.embed(ids)
+
+    def greedy(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_decode_with_hiddens(
+            lm, emb, mask, steps, -1, prefill_rope=rope,
+            step_pos0=pos3d.amax(dim=(0, 2)) + 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out[:3]
+
+    greedy(1)
+    (full_ms, decoded), (one_ms, _) = greedy(ANSWER_TOKENS), greedy(1)
+    with torch.inference_mode():
+        prefill_ms = call_ms(lambda: lm.prefill_cached(
+            emb, mask, lm.init_cache(1, s0 + ANSWER_TOKENS), rope), iters=3)
+    cfg = lm.cfg
+    slot_bytes = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
+                  * cfg.head_dim * 2)
+    step_bytes = _weight_bytes(lm) + slot_bytes * (s0 + ANSWER_TOKENS / 2)
+    rec = {"decode_ms_per_token": (full_ms - one_ms) / (ANSWER_TOKENS - 1),
+           "greedy_ms": full_ms, "greedy_1_step_ms": one_ms,
+           "prefill_cached_ms": prefill_ms,
+           "decode_bound_ms": step_bytes / PEAK_BYTES * 1e3,
+           "decode_bound_bytes": step_bytes}
+    rec["decode_bound_share"] = (rec["decode_bound_ms"]
+                                 / rec["decode_ms_per_token"])
+    return rec, decoded
+
+
+def step_times(lm, ids, mask, rope):
+    """One mid-answer decode step's host enqueue time (from an idle card
+    until the call returns; median of 5) against its device time: the
+    same step captured once in a CUDA graph and replayed, back to back
+    between two events (median of 5 groups of 10), so that the host
+    feeds the card no gaps. The larger of the two sets the pace."""
+    import torch
+
+    s0 = ids.shape[1]
+    with torch.inference_mode():
+        cache = lm.init_cache(1, s0 + ANSWER_TOKENS)
+        lm.prefill_cached(lm.embed(ids), mask, cache, rope)
+        idx = s0 + ANSWER_TOKENS // 2
+        slots = torch.arange(s0 + ANSWER_TOKENS, device=ids.device)[None]
+        kv = (slots <= idx) & torch.nn.functional.pad(
+            mask, (0, ANSWER_TOKENS), value=True)
+        token = ids[:, :1]
+        pos = torch.full((1, 1), idx, device=ids.device)
+
+        def step():
+            return lm.decode_step(lm.embed(token), cache, idx, kv,
+                                  pos)[1].argmax(-1)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph.replay()
+        torch.cuda.synchronize()
+        device = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                graph.replay()
+            end.record()
+            end.synchronize()
+            device.append(start.elapsed_time(end) / 10)
+        del graph
+    rec = {"step_enqueue_ms": statistics.median(enqueue),
+           "step_device_ms": statistics.median(device)}
+    rec["step_pace"] = ("host" if rec["step_enqueue_ms"]
+                        > rec["step_device_ms"] else "device")
+    return rec
+
+
+def check_answer(lm, ids, mask, pos3d, decoded):
+    """The decode against the cache-less forward (K1b in every layer) over
+    the prompt and the decoded answer, mask [prompt mask, ones], under
+    the same M-RoPE positions: the decode's step stack against the
+    forward's stack at the answer positions, ``prefill_cached``'s stack
+    against it at the valid prompt positions, each within ANSWER_REL_MAX
+    and ANSWER_REL_MEAN, and its first block within ANSWER_REL_LAYER1.
+    decoded: ``decode_timing``'s (prefill stack, step stack, tokens)."""
+    import torch
+
+    prefill, steps, tokens = decoded
+    with torch.inference_mode():
+        full_mask = torch.nn.functional.pad(mask, (0, ANSWER_TOKENS),
+                                            value=True)
+        before = launch_counts()
+        want, _ = lm(torch.cat([ids, tokens], 1), attention_mask=full_mask,
+                     rope=_mrope_continued(lm, pos3d, ANSWER_TOKENS))
+        torch.cuda.synchronize()
+        k1b = launch_counts()["flash_fwd"] - before["flash_fwd"]
+    s0, valid = ids.shape[1], mask[0]
+    pairs = {"answer": (steps, want[:, :, s0:]),
+             "prompt": (prefill[:, :, :s0][:, :, valid],
+                        want[:, :, :s0][:, :, valid])}
+    rec = {"forward_k1b_launches": k1b,
+           "distinct_answer_tokens": int(tokens.unique().numel()),
+           "bars_rel_max_mean_layer1": [ANSWER_REL_MAX, ANSWER_REL_MEAN,
+                                        ANSWER_REL_LAYER1]}
+    ok = k1b == lm.cfg.num_hidden_layers
+    for name, (got, ref) in pairs.items():
+        rec[f"{name}_vs_forward"] = _stack_errors(got, ref)
+        rec[f"{name}_rel_mean_by_layer"] = _layer_errors(got, ref)
+        ok = ok and _within_answer_bars(rec[f"{name}_vs_forward"],
+                                        rec[f"{name}_rel_mean_by_layer"])
+    return rec, ok
+
+
+def _answer_image(entry, lm, seed: int, label: str, want: dict, card: str):
+    """The use_answer request on ``entry``: its decode's time
+    (``decode_timing``), whose decode gives the conditioning (the proj of
+    the prompt's and the answer's stacks, as ``encode_with_answer``
+    computes it) and warms the DiT at its 640 tokens; then the counted
+    image through ``text2image(use_answer=True)``, launch counts set to 0
+    just before and read just after; then ``step_times``. -> (record,
+    whether it passed, the conditioning (pooled, prompt_embeds), the
+    request's ids, mask and 3-D positions, the decode's stacks and
+    tokens)."""
+    import torch
+    from x2i_torch.models.decoding import concat_answer_hiddens
+
+    ids, mask, pos3d, rope = _answer_request(lm, PROMPTS[0])
+    timing, decoded = decode_timing(lm, ids, mask, pos3d, rope)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cond = entry.proj(concat_answer_hiddens(*decoded[:2]))
+    entry.generate(*cond, seed=seed)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = entry.text2image(PROMPTS[0], seed=seed, use_answer=True)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = step_times(lm, ids, mask, rope)
+    rec = {"phase": label, "model": ANSWER_MODEL, "card": card, "px": 1024,
+           "steps": 4, "use_answer": True, "answer_tokens": ANSWER_TOKENS,
+           "image_shape": list(img.shape), "image_std": float(img.std()),
+           "s_per_image": sec, "warmup_dit_s": warm_s,
+           "conditioning_tokens": cond[1].shape[1],
+           "joint_tokens": cond[1].shape[1] + (1024 // 16) ** 2,
+           "max_memory_allocated": peak, "lm_weight_bytes":
+           _weight_bytes(lm), "launches": counts, "launches_expected": want,
+           **timing, **prof}
+    ok = (tuple(img.shape) == (1, 1024, 1024, 3) and img.std() > 0
+          and rec["conditioning_tokens"] == 512 + ANSWER_TOKENS
+          and counts == want)
+    return rec, ok, cond, (ids, mask, pos3d), decoded
+
+
+def phase_answer(entry, lm, seed: int, card: str):
+    """use_answer reasoning2image on the full-width, full-depth
+    Qwen2.5-VL-7B LM (bf16, random weights) and the schnell DiT: the
+    512-token prompt's ``prefill_cached`` (the plain attention over the
+    cache: no K1b), 128 greedy steps, a conditioning of 640 tokens, one
+    1024^2 image with exact launch counts (K1a 57 and K5 115 a DiT step);
+    its decode cost (``decode_timing``, ``step_times``) and the decode
+    held against the cache-less forward (``check_answer``). -> (counts,
+    conditioning)."""
+    want = expected_launches(False, 4, lm_layers=0)
+    rec, ok, cond, request, decoded = _answer_image(entry, lm, seed,
+                                                    "answer", want, card)
+    check, check_ok = check_answer(lm, *request, decoded)
+    rec.update(check)
+    emit(rec)
+    if not (ok and check_ok):
+        raise AssertionError(f"the use_answer path failed: {rec}")
+    return rec["launches"], cond
+
+
+def check_lm_routes_quant(seed: int):
+    """The w8a8 7B LM cut to 2 layers at full width: its 512-token
+    ``prefill_cached`` (400 valid) and a decode step through the int8 GEMM
+    and K8 against the plain route (``quant_impl="plain"``, plain
+    attention) on the same int8 weights, to ``check_routes_quant``'s bar
+    (correlation above 0.999, relative L2 below 5e-2); 14 launches of
+    each kernel per call on the kernel route, none on the plain one."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.qwen2 import Qwen2LM
+    from x2i_torch.ops.quant import quantize_module_
+    from x2i_torch.params import random_init_
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(MODEL_REGISTRY[ANSWER_MODEL].llm,
+                              num_hidden_layers=2)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    kern = quantize_module_(random_init_(Qwen2LM(cfg, dev), g), "w8a8")
+    plain = Qwen2LM(dataclasses.replace(kern.cfg, quant_impl="plain",
+                                        attention_impl="plain"), dev)
+    plain.load_state_dict(kern.state_dict())
+    emb = torch.randn((1, 512, cfg.hidden_size), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    tok = torch.randn((1, 1, cfg.hidden_size), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    mask = torch.arange(512, device=dev)[None] < 400
+    kv = F.pad(mask, (0, 128))
+    kv[:, 512] = True
+    pos = torch.full((1, 1), 400, device=dev)
+    outs, used = [], []
+    for lm in (kern, plain):
+        reset_counts()
+        cache = lm.init_cache(1, 640)
+        pre = lm.prefill_cached(emb, mask, cache)[0]
+        step = lm.decode_step(tok, cache, 512, kv, pos)[0]
+        outs.append((pre[:, :, :400].float(), step.float()))
+        used.append(launch_counts())
+    rec = {"phase": "answer-w8a8-reference", "layers": 2, "tokens": 512,
+           "kernel_launches": used[0],
+           "plain_route_launches": used[1]}
+    ok = used[0] == dict(NO_LAUNCHES, int8_gemm=28, quant_rows=28) \
+        and not any(used[1].values())
+    for name, got, want in zip(("prefill", "decode step"), *outs):
+        rel = ((got - want).norm() / want.norm()).item()
+        corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()])
+                              )[0, 1].item()
+        rec[name] = {"rel_l2_err": rel, "corr": corr,
+                     "max_abs_err": (got - want).abs().max().item()}
+        ok = ok and bool(torch.isfinite(got).all()) and corr > 0.999 \
+            and rel < 5e-2
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the int8 LM's kernel route disagrees with "
+                             f"its plain route: {rec}")
+
+
+def phase_answer_w8a8(entry, lm, seed: int, card: str, bf16_cond):
+    """The same LM quantized in place to w8a8 (``quantize_module_``: its 7
+    dense layers a block; the tied head stays the bf16 table) and the same
+    use_answer request: exact launch counts, the int8 GEMM and K8 once
+    per dense layer per LM call (the prefill and 128 steps), its decode
+    cost and bound, and the distance of its conditioning from the bf16
+    one (an argmax can flip, so it is no bar); then the 2-layer route
+    check."""
+    from x2i_torch.ops.quant import quantize_module_
+
+    quantize_module_(lm, "w8a8")
+    calls = 7 * lm.cfg.num_hidden_layers * (1 + ANSWER_TOKENS)
+    want = dict(expected_launches(False, 4, lm_layers=0), int8_gemm=calls,
+                quant_rows=calls)
+    rec, ok, cond, _, _ = _answer_image(entry, lm, seed, "answer-w8a8",
+                                        want, card)
+    rec["conditioning_rel_l2_from_bf16"] = [
+        ((a.float() - b.float()).norm() / b.float().norm()).item()
+        for a, b in zip(cond, bf16_cond)]
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the w8a8 use_answer path failed: {rec}")
+    check_lm_routes_quant(seed)
+    return rec["launches"]
+
+
+def phase_chat(entry, lm, seed: int, card: str):
+    """The two chat sessions on the bf16 7B LM. A ``MultiTurnSession`` of
+    two turns through the byte tokenizer's chat template with the
+    history, CHAT_TOKENS greedy tokens a turn and a 1024^2 image a turn
+    (the 544-token conditioning takes K1a on the padded sequence), with
+    exact launch counts over the two turns; a ``StreamingSession``
+    (``make_qwen2_session``): a system chunk, two user chunks and the
+    assistant prompt prefilled at their cache offsets, then STREAM_TOKENS
+    generated, whose final-layer states are held against the cache-less
+    forward (K1b) over the same tokens to the answer's bars. ms per token
+    of each."""
+    import torch
+    from x2i_torch.multiturn import MultiTurnSession, chat_tokenize
+    from x2i_torch.streaming import make_qwen2_session
+
+    tok = ByteTokenizer("qwenvl")
+    detok = lambda ids: tok.decode(ids, skip_special_tokens=True)  # noqa
+    image_s = []
+
+    def image(pooled, embeds, seed):
+        t0 = time.perf_counter()
+        img = entry.generate(pooled, embeds, seed=seed)
+        image_s.append(time.perf_counter() - t0)
+        return img
+
+    session = MultiTurnSession(lm, chat_tokenize(tok), detok, entry.proj,
+                               image, tok.eos_token_id,
+                               max_new_tokens=CHAT_TOKENS, seed=seed)
+    reset_counts()
+    turns = []
+    for msg in (PROMPTS[0], "now the same scene at night"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answer, img = session.turn(msg)
+        turns.append({"s": time.perf_counter() - t0, "image_s": image_s[-1],
+                      "answer_chars": len(answer),
+                      "image_ok": tuple(img.shape) == (1, 1024, 1024, 3)
+                      and float(img.std()) > 0})
+    counts = launch_counts()
+    want = {k: 2 * v for k, v in expected_launches(False, 4,
+                                                   lm_layers=0).items()}
+    for t in turns:
+        t["ms_per_token"] = (t["s"] - t["image_s"]) * 1e3 / CHAT_TOKENS
+
+    stream = make_qwen2_session(lm, tok.encode, detok, max_len=512,
+                                terminators=[tok.eos_token_id])
+    consumed = [
+        stream.prefill("chat", "system", "<|im_start|>system\nYou are a "
+                       "helpful assistant.<|im_end|>\n"),
+        stream.prefill("chat", "user", PROMPTS[1]),
+        stream.prefill("chat", "user", ", drawn as a woodcut"),
+        stream.prefill("chat", "generate",
+                       "<|im_end|>\n<|im_start|>assistant\n")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ids, hidden = stream.generate(STREAM_TOKENS, assistant_prompt="")
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    prompt = tok.encode("".join(consumed))
+    n = len(prompt) + len(ids)
+    pad = -n % 128
+    dev = hidden.device
+    with torch.inference_mode():
+        before = launch_counts()["flash_fwd"]
+        want_states, _ = lm(
+            torch.tensor([prompt + ids + [0] * pad], device=dev),
+            attention_mask=torch.arange(n + pad, device=dev)[None] < n)
+        k1b = launch_counts()["flash_fwd"] - before
+    err = _stack_errors(hidden, want_states[:, -1, len(prompt):n])
+    rec = {"phase": "chat", "model": ANSWER_MODEL, "card": card,
+           "multiturn": {"turns": turns, "tokens_a_turn": CHAT_TOKENS,
+                         "history": len(session.history),
+                         "launches": counts, "launches_expected": want},
+           "streaming": {"chunks": len(consumed), "prompt_tokens":
+                         len(prompt), "generated": len(ids),
+                         "ms_per_token": gen_ms / max(len(ids), 1),
+                         "vs_forward_rel_max_mean": err,
+                         "forward_k1b_launches": k1b}}
+    emit(rec)
+    if not (all(t["image_ok"] for t in turns) and counts == want
+            and len(session.history) == 2 and len(ids) == STREAM_TOKENS
+            and k1b == lm.cfg.num_hidden_layers
+            and _within_answer_bars(err)):
+        raise AssertionError(f"the chat sessions failed: {rec}")
+    return counts
+
 
 
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
@@ -2393,7 +2911,7 @@ def main(argv=None) -> int:
                                 "w4a8")
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
-    launches_registry = phase_registry(pipe, args.seed, dit_state)
+    launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
     runs = {"bf16": launches, "w8a8": launches_w8a8, "w4a8": launches_w4a8,
             "w4": launches_w4, "w8": launches_w8,
             "distill": launches_distill, "bf16-2048": launches_2048,

@@ -343,14 +343,36 @@ def test_batched_encode_equals_serial(pipes, family):
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
-def test_media_and_use_answer_are_refused(pipes, family):
+def test_media_are_refused(pipes, family):
     port, _ = pipes(family)
     for media in ({"images": ["a.png"]}, {"video": [1, 2]},
                   {"audio": np.zeros(16)}):
         with pytest.raises(NotImplementedError, match="Queue A item 4"):
             port.encode({"prompt": "x", **media})
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        port.encode({"prompt": "x", "use_answer": True})
+
+
+@pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
+def test_use_answer_matches_jax_or_is_refused(pipes, family):
+    """qwenvl: the prompt's stack and a 128-token answer's, equal to the
+    JAX loader's within the stack bar (the tokenizer's EOS in both);
+    internvl and minicpm have no answer mode and raise ValueError, as
+    the JAX loader does."""
+    port, ref = pipes(family)
+    req = {"prompt": PROMPTS[0], "task": "text2image", "use_answer": True}
+    if family != "qwenvl":
+        with pytest.raises(ValueError, match="Qwen2.5-VL feature"):
+            port.encode(req)
+        if ref is not None:
+            with pytest.raises(ValueError, match="Qwen2.5-VL feature"):
+                ref.encode(req)
+        return
+    got = port.encoder_fn(req).float().numpy()
+    want = np.asarray(ref.encoder_fn(req), np.float32)
+    assert got.shape == want.shape == (1, 3, 512 + 128,
+                                       port.proj.cfg.input_dim)
+    assert np.abs(got - want).max() <= STACK_BAR * np.abs(want).max()
+    tok = port.encoder_fn.ctx["tokenizer"]
+    assert port.encoder_fn.ctx["eos_token_id"] == tok.eos_token_id
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
@@ -376,7 +398,54 @@ def test_chip_smoke_tokenizer_gives_the_fixture_tokenizers_ids(tmp_path,
         assert ours.apply_chat_template(
             m, tokenize=False, add_generation_prompt=True) == text
         texts.append(text)
+    # a two-turn history: the assistant's turns rendered as the HF
+    # template renders them
+    history = [{"role": "user", "content": "a red fox"},
+               {"role": "assistant", "content": "Żółw śpi. 海龟"},
+               {"role": "user", "content": "now in snow"}]
+    for gen in (True, False):
+        text = hf.apply_chat_template(history, tokenize=False,
+                                      add_generation_prompt=gen)
+        assert ours.apply_chat_template(
+            history, tokenize=False, add_generation_prompt=gen) == text
+        texts.append(text)
     texts.append("x" * 600)                         # truncated at 512
     kw = dict(padding="max_length", max_length=512, truncation=True)
     assert ours(texts, **kw) == dict(hf(texts, **kw))
     assert ours(texts[0], **kw) == dict(hf(texts[0], **kw))
+    # decode round trips, special tokens kept or skipped (against the
+    # fast tokenizer: the slow one keeps added tokens that are not in its
+    # special-token list, as the fixture's ChatML markers are not)
+    fast = _tokenizer(str(tmp_path), "qwenvl")
+    for text in texts[-3:-1]:
+        ids = ours.encode(text)
+        for skip in (False, True):
+            assert ours.decode(ids, skip_special_tokens=skip) == \
+                fast.decode(ids, skip_special_tokens=skip)
+        assert ours.decode(ids) == text
+    assert ours.decode([ours.byte_id[0xE6], 151000]) == "\ufffd"
+    assert ours.eos_token_id == (151645 if family == "qwenvl"
+                                 else hf.eos_token_id)
+
+
+def test_session_from_checkpoints_matches_jax(dirs):
+    """A two-turn chat session over the qwenvl fixture directory: the
+    port's ``build_session_from_checkpoints`` (the tokenizer passed in)
+    and the JAX one give the same answers and history; each turn's image
+    is (1, PX, PX, 3)."""
+    from x2i_torch.multiturn import build_session_from_checkpoints
+    from x2i_tpu.multiturn import build_session_from_checkpoints as jsess
+    model, flux, mllm, proj = dirs["qwenvl"]
+    kw = dict(num_steps=STEPS, height=PX, width=PX, max_new_tokens=6,
+              quantized=False)
+    port = build_session_from_checkpoints(
+        model, flux, mllm, proj, device="cpu",
+        tokenizer=_tokenizer(mllm, "qwenvl"), **kw)
+    ref = jsess(model, flux, mllm, proj, **kw)
+    assert port.eos_token_id == ref.eos_token_id
+    for msg in PROMPTS:
+        answer, image = port.turn(msg)
+        assert answer == ref.turn(msg)[0]
+        assert image.shape == (1, PX, PX, 3)
+    assert [(h.user, h.assistant) for h in port.history] == [
+        (h.user, h.assistant) for h in ref.history]

@@ -676,6 +676,9 @@ QUANT_ROWS_CASES = {
     "1 row, 3072": (1, 1, 3072),
     "mlp (1, 300, 12288)": (1, 300, 12288),
     "generic D 24, B 3": (3, 1001, 24),
+    # the int8 7B LM's decode rows: its width and its MLP's
+    "decode row, 3584": (1, 1, 3584),
+    "decode row, 18944": (1, 1, 18944),
 }
 
 
@@ -838,6 +841,64 @@ def test_int8_gemm_tiling_edges(dev, case):
     assert tgemm.GEMM.launches["int8_gemm"] == before + 2
     _bf16_close(got, tgemm.int8_linear_plain(xq, a, w, scale, bias=bias,
                                              k0=k0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("k,n", [(3584, 3584), (3584, 512), (3584, 18944),
+                                 (18944, 3584)])
+def test_int8_gemm_lm_shapes(dev, m, k, n):
+    """The int8 7B LM's products (q and o, k and v, gate and up, down) at
+    one decode row and at the 512-row prefill."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq, a, w, scale, bias = _gemm_inputs(g, dev, m, k, n)
+    assert torch.equal(tgemm.int8_matmul_acc(xq, w),
+                       tgemm.int8_matmul_acc_plain(xq, w))
+    got = tgemm.int8_linear(xq, a, w, scale, bias=bias)
+    _bf16_close(got, tgemm.int8_linear_plain(xq, a, w, scale, bias=bias))
+
+
+@pytest.mark.cuda
+def test_int8_lm_decode_step_kernel_route(dev):
+    """A tiny w8a8 LM's prefill and decode steps through the int8 GEMM and
+    K8 (7 of each a layer a call) against the plain route on the same
+    int8 weights, to the two-w8a8-evaluations bar (correlation above
+    0.999, relative L2 below 5e-2)."""
+    import dataclasses
+
+    from x2i_torch.core.config import tiny_qwen2_config
+    from x2i_torch.models.qwen2 import Qwen2LM
+    from x2i_torch.ops.quant import quantize_module_
+
+    cfg = tiny_qwen2_config(dtype=BF)
+    kern = random_init_(Qwen2LM(cfg, dev), torch.Generator(
+        device=dev).manual_seed(0))
+    quantize_module_(kern, "w8a8")
+    plain = Qwen2LM(dataclasses.replace(kern.cfg, quant_impl="plain"), dev)
+    plain.load_state_dict(kern.state_dict())
+    g = torch.Generator(device=dev).manual_seed(1)
+    emb, tok = _randn(g, dev, 2, 24, 64), _randn(g, dev, 2, 1, 64)
+    mask = torch.arange(24, device=dev)[None] < torch.tensor(
+        [[24], [17]], device=dev)
+    kv = torch.nn.functional.pad(mask, (0, 8))
+    kv[:, 24] = True
+    pos = mask.sum(-1, keepdim=True)
+    outs = []
+    for lm in (kern, plain):
+        before = (tgemm.GEMM.launches["int8_gemm"],
+                  tfg.LAUNCHES["quant_rows"])
+        cache = lm.init_cache(2, 32)
+        pre = lm.prefill_cached(emb, mask, cache)[0]
+        step = lm.decode_step(tok, cache, 24, kv, pos)[0]
+        outs.append((pre.float(), step.float(), cache[0].float()))
+        used = (tgemm.GEMM.launches["int8_gemm"] - before[0],
+                tfg.LAUNCHES["quant_rows"] - before[1])
+        assert used == ((28, 28) if lm is kern else (0, 0))
+    for got, want in zip(*outs):
+        rel = ((got - want).norm() / want.norm()).item()
+        corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()])
+                              )[0, 1].item()
+        assert corr > 0.999 and rel < 5e-2, (corr, rel)
 
 
 @pytest.mark.cuda

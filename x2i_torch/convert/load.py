@@ -53,7 +53,8 @@ from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
-from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, encode_text
+from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig, encode_text,
+                                         encode_with_answer)
 from x2i_torch.models.templates import (internvl2_5_prompt,
                                         minicpm_omni_content,
                                         qwen_chat_messages,
@@ -68,6 +69,7 @@ DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
           "U8": torch.uint8, "I16": torch.int16, "I32": torch.int32,
           "I64": torch.int64, "BOOL": torch.bool}
 SEQ = 512                     # the text path's padded prompt length
+ANSWER_TOKENS = 128           # use_answer's decode budget (the reference's)
 
 
 def read_header(path: str) -> Tuple[int, Dict[str, Dict[str, Any]]]:
@@ -173,9 +175,9 @@ def text_encoder(model: str, lm: Qwen2LM, tokenizer,
                  vl_cfg: Optional[Qwen2_5_VLConfig] = None):
     """The text encoder of ``model``'s family over ``lm``: encoder_fn
     (inputs) -> the hidden-state stack, with ``.batch`` (one 512-token
-    prefill for a list of requests) and ``.ctx`` (the LM and the
-    tokenizer, for callers that drive the LM). Every prompt is padded to
-    512 tokens on the tokenizer's own padding side.
+    prefill for a list of requests) and ``.ctx`` (the LM, the tokenizer
+    and the EOS id, for callers that drive the LM). Every prompt is
+    padded to 512 tokens on the tokenizer's own padding side.
 
     * InternVL2.5: the task instruction in the internvl2_5 template, the
       LM on its embeddings (the ViT fills no position of a text prompt);
@@ -184,7 +186,12 @@ def text_encoder(model: str, lm: Qwen2LM, tokenizer,
       at 1), the LM under their M-RoPE tables (``vl_cfg``'s sections, by
       default the released ones);
     * MiniCPM-o: the omni content (the raw prompt) as one user turn of
-      the chat template, the LM at its plain positions."""
+      the chat template, the LM at its plain positions.
+
+    ``use_answer`` (reasoning2image) is Qwen2.5-VL's: a greedy answer of
+    128 tokens after the prompt, ending at the tokenizer's EOS (151645
+    where it has none), and the stack of prompt and answer; the other two
+    families raise ValueError, as in JAX."""
     if "internvl" in model:
         def text(prompt):
             return internvl2_5_prompt(task_instruction("text2image", prompt))
@@ -207,21 +214,37 @@ def text_encoder(model: str, lm: Qwen2LM, tokenizer,
         return (np.asarray(enc["input_ids"], np.int64),
                 np.asarray(enc["attention_mask"], bool))
 
-    forward = None
+    eos = tokenizer.eos_token_id or 151645
+    forward = answer = None
     if "qwenvl" in model:
         cfg = vl_cfg or Qwen2_5_VLConfig(llm=lm.cfg)
         dev = lm.embed_tokens.weight.device
 
-        def forward(ids, mask):
+        def inputs(ids, mask):
             pos3d, _ = get_rope_index(ids,
                                       attention_mask=mask.astype(np.int64))
-            return encode_text(lm, cfg, torch.as_tensor(ids, device=dev),
-                               torch.as_tensor(mask, device=dev),
-                               torch.as_tensor(pos3d, device=dev))
+            return (torch.as_tensor(ids, device=dev),
+                    torch.as_tensor(mask, device=dev),
+                    torch.as_tensor(pos3d, device=dev))
 
-    encoder_fn, batch_fn = lm_text_encoder(lm, tokenize, forward)
+        def forward(ids, mask):
+            return encode_text(lm, cfg, *inputs(ids, mask))
+
+        def answer(ids, mask):
+            return encode_with_answer(lm, cfg, *inputs(ids, mask),
+                                      max_new_tokens=ANSWER_TOKENS,
+                                      eos_token_id=eos)[0]
+    else:
+        family = "internvl" if "internvl" in model else "minicpm"
+
+        def answer(ids, mask):
+            raise ValueError(f"use_answer is a Qwen2.5-VL feature; the "
+                             f"{family} family has no answer-conditioned "
+                             f"mode")
+
+    encoder_fn, batch_fn = lm_text_encoder(lm, tokenize, forward, answer)
     encoder_fn.batch = batch_fn
-    encoder_fn.ctx = {"lm": lm, "tokenizer": tokenizer}
+    encoder_fn.ctx = {"lm": lm, "tokenizer": tokenizer, "eos_token_id": eos}
     return encoder_fn
 
 

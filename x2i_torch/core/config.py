@@ -27,8 +27,10 @@ products (the int8 and w4a8 GEMMs, the w4 dequantize kernel): "auto"
 takes the kernels on a CUDA tensor and their plain versions on the CPU,
 "plain" always the plain versions (the wrappers have no CPU route of
 their own for a "kernel" value to force, as ``attention_impl`` has).
-``Qwen2Config`` has no ``quantized`` field yet; the JAX one takes the
-int8 modes only.
+``Qwen2Config`` has the same two fields: its dense layers (the untied
+``lm_head`` among them) become ``QuantLinear``; the embedding table, the
+norms and a tied head stay in ``dtype``. ``quantize_module_`` reads
+``quant_impl`` from every config that has ``quantized``.
 
 ``MODEL_REGISTRY`` and ``PROJ_REGISTRY`` hold the JAX package's six
 models and five projs, field for field; a ``ModelSpec`` carries the text
@@ -169,6 +171,13 @@ class Qwen2Config:
     attention_bias: bool = True
     dtype: Any = torch.bfloat16
     attention_impl: str = "auto"
+    quantized: Any = False           # False | a mode of QUANT_MODES
+    quant_impl: str = "auto"         # "auto" | "plain"
+
+    def __post_init__(self):
+        quant_mode(self.quantized)
+        if self.quant_impl not in ("auto", "plain"):
+            raise ValueError(f"quant_impl={self.quant_impl!r}")
 
     @property
     def num_layers_with_embedding(self) -> int:

@@ -31,7 +31,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None,
               implementation: str = "auto",
               rope=None, qk_norm=None,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None,
+              causal_offset: int = 0) -> torch.Tensor:
     """Multi-head (optionally grouped-query) attention.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hk, D); kv_mask: optional (B, Skv)
@@ -41,7 +42,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or per-row (S, D) scales, applied before the rope. bias: optional
     additive logits bias broadcast to (B, H, Sq, Skv) (T5's relative
     position bias); it takes the plain route, as it forces the XLA path in
-    JAX.
+    JAX. causal_offset: the absolute position of query row 0 (a prefill
+    chunk against a KV cache); anything but 0 takes the plain route, as
+    it takes the XLA path in JAX.
 
     Returns (B, Sq, Hq, D) in q.dtype."""
     b, sq, hq, d = q.shape
@@ -49,8 +52,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
 
-    kernel_ok = bias is None and (implementation == "kernel" or (
-        implementation == "auto" and q.device.type != "cpu"))
+    kernel_ok = bias is None and causal_offset == 0 and (
+        implementation == "kernel" or (
+            implementation == "auto" and q.device.type != "cpu"))
     use_kernel = kernel_ok and fa.supported((b, hq, sq, d), skv)
     pad_q, pad_kv = (-sq) % 128, (-skv) % 128
     pad_path = (not use_kernel and kernel_ok and not causal
@@ -91,5 +95,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale=scale, rope=rope, qk_norm=qk_norm)
     else:
         out = fa.xla_attention(qt, kt, vt, kv_mask=kv_mask, causal=causal,
-                               scale=scale, bias=bias)
+                               scale=scale, bias=bias,
+                               causal_offset=causal_offset)
     return out.transpose(1, 2)

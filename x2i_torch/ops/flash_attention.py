@@ -116,12 +116,14 @@ def rope_bhsd(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return _rotate(x.float(), cos, sin).to(x.dtype)
 
 
-def _mask_scores(s, kv_mask, causal):
+def _mask_scores(s, kv_mask, causal, causal_offset=0):
+    """Masked scores: keys off ``kv_mask`` and, with ``causal``, keys
+    after query row r's diagonal at column ``causal_offset + r``."""
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask[:, None, None, :], NEG_INF)
     if causal:
         sq, skv = s.shape[-2:]
-        rows = torch.arange(sq, device=s.device)[:, None]
+        rows = causal_offset + torch.arange(sq, device=s.device)[:, None]
         cols = torch.arange(skv, device=s.device)[None, :]
         s = s.masked_fill(cols > rows, NEG_INF)
     return s
@@ -305,11 +307,13 @@ def flash_backward_plain(q, k, v, kv_mask, o, lse, do, causal=False,
 
 
 def xla_attention(q, k, v, kv_mask=None, causal=False, scale=None,
-                  bias=None) -> torch.Tensor:
+                  bias=None, causal_offset=0) -> torch.Tensor:
     """Plain f32 softmax attention over (B, H, S, D), the counterpart of
     the JAX ``xla_attention`` (the route for shapes no kernel takes).
     bias: optional additive f32 logits bias broadcast to (B, H, Sq, Skv)
-    (T5's relative position bias)."""
+    (T5's relative position bias). causal_offset: the absolute position
+    of query row 0 (a prefill chunk against a KV cache): under ``causal``
+    row r sees the keys up to column causal_offset + r."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     group = q.shape[1] // k.shape[1]
@@ -318,7 +322,7 @@ def xla_attention(q, k, v, kv_mask=None, causal=False, scale=None,
     s = (q.float() @ kf.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
-    s = _mask_scores(s, kv_mask, causal)
+    s = _mask_scores(s, kv_mask, causal, causal_offset)
     return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
 
 

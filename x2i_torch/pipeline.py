@@ -25,6 +25,8 @@ from x2i_torch.diffusion.sampling import (denoise_flux,
                                           prepare_latent_image_ids,
                                           unpack_latents)
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from x2i_torch.models.decoding import (concat_answer_hiddens,
+                                       greedy_decode_with_hiddens)
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
@@ -48,15 +50,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
-                    forward: Optional[Callable] = None):
+                    forward: Optional[Callable] = None,
+                    answer: Optional[Callable] = None):
     """-> (encoder_fn, encoder_batch_fn) over a Qwen2 LM.
 
     tokenize(text) -> (ids (S,) ints, mask (S,) bools); every prompt of a
     batch must give the same S. forward(ids, mask), numpy (B, S), -> the
-    hidden-state stack; by default the LM at its default positions. Text
-    requests only: images, video and audio belong to the encoders of
-    ROADMAP.md Queue A item 4, ``use_answer`` to the decode side of item 3,
-    and both raise."""
+    hidden-state stack; by default the LM at its default positions.
+    answer(ids, mask), numpy (1, S), -> the ``use_answer`` stack of one
+    request (the prompt's hidden states, then a decoded answer's); None:
+    a ``use_answer`` request raises ValueError. A batch that holds a
+    ``use_answer`` request is encoded request by request, as in JAX (the
+    answer changes the stack's length). Text requests only: images,
+    video and audio belong to the encoders of ROADMAP.md Queue A item 4
+    and raise."""
     dev = lm.embed_tokens.weight.device
 
     def plain(ids, mask):
@@ -73,13 +80,18 @@ def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
                     "image, video and audio inputs come with the vision and "
                     "audio encoders (ROADMAP.md Queue A item 4); the port "
                     "encodes text")
-            if r.get("use_answer"):
-                raise NotImplementedError(
-                    "use_answer decodes an answer: the LM's decode side "
-                    "comes with ROADMAP.md Queue A item 3")
+        if any(r.get("use_answer") for r in requests):
+            if answer is None:
+                raise ValueError("use_answer: this encoder has no "
+                                 "answer-conditioned mode")
+            if len(requests) > 1:
+                return torch.cat([encoder_batch_fn([r]) for r in requests])
         ids, mask = zip(*(tokenize(r.get("prompt") or "") for r in requests))
+        ids, mask = np.stack(ids), np.stack(mask).astype(bool)
         with torch.inference_mode():
-            return forward(np.stack(ids), np.stack(mask).astype(bool))
+            if requests[0].get("use_answer"):
+                return answer(ids, mask)
+            return forward(ids, mask)
 
     def encoder_fn(inputs: Dict[str, Any]):
         return encoder_batch_fn([inputs])
@@ -172,8 +184,11 @@ class X2IPipeline:
         return postprocess(pixels).cpu().numpy()
 
     def run_task(self, task: str, prompt: Optional[str] = None,
-                 **gen_kwargs) -> np.ndarray:
-        pooled, prompt_embeds = self.encode({"prompt": prompt, "task": task})
+                 use_answer: bool = False, **gen_kwargs) -> np.ndarray:
+        """``use_answer``: condition on the prompt and a decoded answer
+        (reasoning2image), where the encoder has that mode."""
+        pooled, prompt_embeds = self.encode({"prompt": prompt, "task": task,
+                                             "use_answer": use_answer})
         return self.generate(pooled, prompt_embeds, **gen_kwargs)
 
     def text2image(self, prompt: str, **kw) -> np.ndarray:
@@ -208,7 +223,9 @@ def build_random_pipeline(scale: str = "tiny", seed: int = 0,
     """Random-weight tiny pipeline for smoke runs without checkpoints,
     mirroring the JAX ``build_random_pipeline("tiny")``: a tiny Qwen2 over
     per-character token ids (crc32, stable across processes), padded to 32
-    tokens and all attended, as the JAX tiny encoder does."""
+    tokens and all attended, as the JAX tiny encoder does; ``use_answer``
+    decodes 8 tokens (EOS id 1). ``pipe._random_ctx`` holds the LM, its
+    config and the tokenizer, for ``multiturn.build_random_session``."""
     if scale != "tiny":
         raise NotImplementedError("full-scale weights need checkpoints")
     dev = resolve_device(device)
@@ -230,8 +247,17 @@ def build_random_pipeline(scale: str = "tiny", seed: int = 0,
         return ids, np.ones(seq, bool)
 
     lm = random_init_(Qwen2LM(lm_cfg, dev), gen)
-    encoder_fn, encoder_batch_fn = lm_text_encoder(lm, tokenize)
-    return X2IPipeline(
+
+    def answer(ids, mask):
+        ids, mask = torch.as_tensor(ids, device=dev), torch.as_tensor(
+            mask, device=dev)
+        prefill, steps, _, _ = greedy_decode_with_hiddens(
+            lm, lm.embed(ids), mask, max_new_tokens=8, eos_token_id=1)
+        return concat_answer_hiddens(prefill, steps)
+
+    encoder_fn, encoder_batch_fn = lm_text_encoder(lm, tokenize,
+                                                   answer=answer)
+    pipe = X2IPipeline(
         encoder_fn=encoder_fn,
         proj=random_init_(Proj(proj_cfg, dev), gen),
         flux=random_init_(FluxTransformer2D(flux_cfg, dev), gen),
@@ -241,3 +267,6 @@ def build_random_pipeline(scale: str = "tiny", seed: int = 0,
         gen_cfg=gen_cfg or GenerationConfig(height=64, width=64,
                                             num_inference_steps=4),
         encoder_batch_fn=encoder_batch_fn)
+    # not a dataclass field: checkpoint pipelines have no such handle
+    pipe._random_ctx = {"lm": lm, "lm_cfg": lm_cfg, "tokenize": tokenize}
+    return pipe

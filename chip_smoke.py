@@ -30,21 +30,34 @@ Phases, each printing one JSON line per record:
    heads and 28 on 4, D = 128, 40 and 400 valid keys) and K2 at the 7B
    LMs' 32k prefill (28 on 4 heads x 128); the int8 GEMM at the int8 7B
    LM's products at one decode row and at the 512-token prefill, and K8
-   at its decode rows (3584 and 18944 wide);
+   at its decode rows (3584 and 18944 wide); K1b at InternViT-300M's
+   shape (16 heads x 64, 1025 tokens padded to 1152, 127 masked keys,
+   non-causal), SDPA on the same padded, masked tensors beside it;
 2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
    at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
-   blocks in two shards, the whole VAE; an InternVL directory with the
-   Qwen2.5-0.5B LM; the proj's .bin), written to a temporary directory
-   and loaded by ``build_pipeline_from_checkpoints`` onto the card, with
-   its time, rate, host and card peak memory; loaded on the CPU too, and
-   the two copies held equal bit for bit; one 1024^2 image with exact
-   launch counts, and the same image after a load in the default w8;
+   blocks in two shards, the whole VAE; an InternVL directory with
+   InternViT-300M, mlp1 and the Qwen2.5-0.5B LM; the proj's .bin),
+   written to a temporary directory and loaded by
+   ``build_pipeline_from_checkpoints`` onto the card, with its time,
+   rate, host and card peak memory; loaded on the CPU too, and the two
+   copies held equal bit for bit (nothing of the directory unread); one
+   1024^2 imagetext2image with exact launch counts, and the same image
+   after a load in the default w8;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
    2+2-block full-width DiT holds the kernel route against the plain one;
 4. serve: a BatchingServer over the same pipeline answers 3 concurrent
    requests at 512x512;
+4i. image: InternViT-300M and mlp1 drawn on the card beside the same
+   LM, proj, DiT and VAE: one image2image and one imagetext2image at
+   1024^2 (one 448 tile, 256 <IMG_CONTEXT> tokens) with exact launch
+   counts (K1b 24 in the ViT and 24 in the LM, K1a 228, K5 460), the
+   ViT's ms, the host half's ms and route (PIL, or the host half's
+   arrays drawn from the seed where PIL is missing); the encoder's stack
+   on the kernel route against the plain attention; two image requests
+   through the batch path (one ViT call) against two serial encodes,
+   then one run_batch of both;
 4a. text2image-2048: the same pipeline makes a 2048x2048 image (16,896
    joint tokens: every DiT attention is K2, norm and rope outside it; the
    VAE decodes 6 x 6 tiles), with exact launch counts; a 2+2-block
@@ -78,7 +91,11 @@ Phases, each printing one JSON line per record:
    depth (LMs of 36 x 2048 and 28 x 3584, the FLUX.1-dev entry in 28
    steps with guidance and dynamic shifting), one 1024^2 image each
    through the family's template and positions, with exact launch
-   counts; on the x2i-qwenvl2.5-7b entry, before its LM is freed:
+   counts; then, on their vision towers drawn on the card, the
+   x2i-internvl2.5-4b entry's imagetext2image, each Qwen2.5-VL entry's
+   image2image (its tower takes the plain route: no launch), and the
+   7B's video2image (eight 128^2 frames) and a use_answer image after an
+   image input; on the x2i-qwenvl2.5-7b entry, before its LM is freed:
 8a. answer: use_answer reasoning2image on that LM (bf16): the 512-token
    prompt's cached prefill, 128 greedy steps, a 640-token conditioning,
    one 1024^2 image with exact launch counts (no K1b: the cache takes the
@@ -310,12 +327,14 @@ def rate(rec, flops):
 
 
 def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
-                library=None, host_time=False, **kw):
+                library=None, host_time=False, valid_rows=None, **kw):
     """q (B, S, H, D) etc. are passed as (B, H, S, D) views, as the
     dispatcher passes them on the main path. `library` is (fn, inputs),
     the one PyTorch call timed as a yardstick. `host_time` adds
     ``call_ms``, one call as its caller sees it, host path included: a
-    launch-bound kernel's row is then told from a slow kernel's."""
+    launch-bound kernel's row is then told from a slow kernel's.
+    `valid_rows`: the q rows the caller keeps (the pad route slices off
+    the others), which the bound counts; by default all."""
     import torch
     from x2i_torch.ops import flash_attention as fa
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -331,14 +350,15 @@ def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
     lib_ms = kernel_ms(library[0], *library[1]) if library else None
     mask = kw.get("kv_mask")
     tables = _tables(kw)
-    bms, by = bound(4.0 * _pairs(qt, kt, kw) * qt.shape[-1],
-                    nbytes(qt, kt, vt, got, mask, *tables))
+    flops = 4.0 * _pairs(qt, kt, kw) * qt.shape[-1] * (
+        (valid_rows or qt.shape[2]) / qt.shape[2])
+    bms, by = bound(flops, nbytes(qt, kt, vt, got, mask, *tables))
     rec = {"phase": "kernels", "kernel": name, "shape": list(qt.shape),
            "kv_shape": list(kt.shape), "max_abs_err": err_max,
            "mean_abs_err": err_mean, "finite": finite, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
            "bound_by": by}
-    rate(rec, 4.0 * _pairs(qt, kt, kw) * qt.shape[-1])
+    rate(rec, flops)
     if host_time:
         rec["call_ms"] = call_ms(
             lambda: fa.flash_attention(qt, kt, vt, **kw), iters=50)
@@ -752,6 +772,7 @@ def phase_kernels(seed: int):
             check_flash(f"flash_fwd[{hq}/{hk} heads x 128, {valid} valid "
                         f"keys]", q, k, v, recs, library=lib,
                         host_time=True, kv_mask=mask, causal=True)
+    check_vit_attention(randn, recs)
     # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
     # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
     for rows_n in (4096, 512, 4608, 16384, 16896):
@@ -802,6 +823,30 @@ def phase_kernels(seed: int):
     check_w4a8_gemms(g, rows, recs)
     check_w4_dequant(g, recs)
     return recs
+
+
+VIT_TOKENS = 1025                  # a 448 tile's CLS and 32 x 32 patches
+VIT_CASE = "ViT: 16 heads x 64, 1025 of 1152 keys, non-causal"
+
+
+def check_vit_attention(randn, recs):
+    """K1 at InternViT-300M's shape, one 448 tile: 16 heads x 64, 1025
+    tokens padded to 1152 with 127 masked keys, non-causal, no rope, as
+    the dispatcher's pad route hands it to the exact body (the padded q
+    rows are sliced off after it; the bound counts the 1025 kept). SDPA
+    on the same padded, masked tensors is the library's time."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = 1152
+    q, k, v = (randn(1, pad, 16, 64) for _ in range(3))
+    mask = torch.arange(pad, device=q.device)[None] < VIT_TOKENS
+    qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = ((lambda *t, m=mask[:, None, None, :]:
+            F.scaled_dot_product_attention(*t, attn_mask=m)), (qc, kc, vc))
+    check_flash(f"flash_fwd[{VIT_CASE}]", q, k, v, recs, library=lib,
+                host_time=True, valid_rows=VIT_TOKENS, kv_mask=mask)
+    recs[-1]["case"] = VIT_CASE
 
 
 def check_glue(g, randn, rows, recs):
@@ -1426,23 +1471,27 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
 
 
 def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
-              steps: int = 4, model: str = MODEL):
+              steps: int = 4, model: str = MODEL, request=None):
     """One warm-up image, then the main path: one px^2 image of ``steps``
     steps with every launch count set to 0 just before and read just
     after; then the layer times and the pre-postprocess pixels of the same
     image. Above ``vae_tile_px`` the decode timed is the tiled one, as on
-    the path."""
+    the path. ``request``: the ``run_task`` request (task, prompt, images,
+    video), by default text2image of the first prompt; the encoder's
+    time (``lm_prefill_ms``) is then the whole encoder's, host half and
+    vision tower included."""
     import torch
     from x2i_torch.diffusion.sampling import prepare_latent_image_ids
 
+    req = request or {"task": "text2image", "prompt": PROMPTS[0]}
     size = dict(height=px, width=px, num_steps=steps)
     t0 = time.perf_counter()
-    pipe.text2image(PROMPTS[0], seed=seed, **size)       # warm-up
+    pipe.run_task(**req, seed=seed, **size)               # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    img = pipe.text2image(PROMPTS[0], seed=seed, **size)  # the main path
+    img = pipe.run_task(**req, seed=seed, **size)         # the main path
     sec = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1450,9 +1499,8 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
     # per-layer times and the pre-postprocess pixels, after the counts
     dev, dt = pipe.device, torch.bfloat16
     with torch.inference_mode():
-        pooled, emb = pipe.encode({"prompt": PROMPTS[0]})
-        prefill_ms = call_ms(lambda: pipe.encoder_fn({"prompt": PROMPTS[0]}),
-                             iters=5)
+        pooled, emb = pipe.encode(req)
+        prefill_ms = call_ms(lambda: pipe.encoder_fn(req), iters=5)
         g = torch.Generator(device=dev).manual_seed(seed)
         noise = torch.randn((1, (px // 16) ** 2, 64), generator=g,
                             device=dev, dtype=dt)
@@ -1481,7 +1529,7 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
     dit_bytes = sum(t.numel() * t.element_size() for t in
                     (*pipe.flux.parameters(), *pipe.flux.buffers()))
     rec = {"phase": label, "model": model, "px": px, "steps": steps,
-           "quantized": pipe.flux.cfg.quantized,
+           "task": req["task"], "quantized": pipe.flux.cfg.quantized,
            "image_shape": list(img.shape), "image_dtype": str(img.dtype),
            "pixels_finite": finite, "pixels_std": std,
            "s_per_image": sec, "warmup_s": warm_s,
@@ -1852,6 +1900,257 @@ def phase_serve(pipe):
         raise AssertionError(f"serving answered wrongly: {rec}")
 
 
+# ------------------------------------------------------------- images
+
+IMAGE_PX = 128            # X2I resizes every input image to 128^2 first
+VIDEO_FRAMES = 8
+# the image path's encoder on the kernel route against the same encoder
+# on the plain attention (ViT and LM), and the batch path's stacks
+# against the serial encodes: max and mean |difference| relative to the
+# reference's max and mean magnitude (_stack_errors); the ViT's features
+# alone the same way. The kernel and the plain attention round p at other
+# points, and the difference grows through 24 ViT and 24 LM layers, as
+# the decode's does (ANSWER_REL_*).
+IMAGE_REL_MAX, IMAGE_REL_MEAN = 6e-2, 3e-2
+
+
+def media(family: str, seed: int, n: int, frames: int = 0):
+    """n request images (or, with ``frames``, one video of that many
+    frames) drawn from the seed at X2I's 128^2, and the route of the host
+    half: PIL images where PIL is installed ("PIL": the encoder resizes,
+    tiles and normalizes them), else the host half's output drawn from
+    the seed at its exact shapes and dtypes ("arrays": InternVL's
+    (1, 448, 448, 3) float32 tiles, Qwen2.5-VL's (flat patches,
+    grid_thw) pairs)."""
+    import numpy as np
+    rng = np.random.default_rng([seed, n, frames])
+    count = frames or n
+    pixels = [rng.integers(0, 256, (IMAGE_PX, IMAGE_PX, 3), np.uint8)
+              for _ in range(count)]
+    try:
+        from PIL import Image
+    except ImportError:
+        if family == "internvl":
+            return [rng.standard_normal((1, 448, 448, 3)).astype(np.float32)
+                    for _ in range(n)], "arrays"
+        # 112^2 (smart_resize of 128^2): 8 x 8 patches of 3 x 2 x 14^2
+        t = max(1, -(-frames // 2))
+        pairs = [(rng.standard_normal((t * 64, 1176)).astype(np.float32),
+                  (t, 8, 8)) for _ in range(1 if frames else n)]
+        return (pairs[0] if frames else pairs), "arrays"
+    out = [Image.fromarray(a) for a in pixels]
+    return out, "PIL"
+
+
+def draw_internvl(name: str, lm, seed: int, tok):
+    """The InternVL2.5 encoder of registry entry ``name`` over ``lm``: its
+    InternViT-300M and mlp1 drawn on the card, ``<IMG_CONTEXT>`` the
+    tokenizer's."""
+    import dataclasses
+    import zlib
+
+    import torch
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.internvl import InternVLEncoder
+    from x2i_torch.params import random_init_
+
+    cfg = dataclasses.replace(
+        MODEL_REGISTRY[name].internvl,
+        img_context_token_id=tok.convert_tokens_to_ids("<IMG_CONTEXT>"))
+    dev = lm.embed_tokens.weight.device
+    g = torch.Generator(device=dev).manual_seed(
+        seed + zlib.crc32(f"{name} vision".encode()))
+    enc = InternVLEncoder(cfg, dev, language_model=lm)
+    for part in (enc.vision_model, enc.mlp1_norm, enc.mlp1_fc1,
+                 enc.mlp1_fc2):
+        random_init_(part, g)
+    return enc
+
+
+def draw_qwen_tower(name: str, lm, seed: int, tok):
+    """-> (the Qwen2.5-VL config of entry ``name`` with the tokenizer's
+    vision token ids, its vision tower drawn on the card at the LM's
+    width)."""
+    import zlib
+
+    import torch
+    from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig,
+                                             QwenVisionConfig,
+                                             QwenVisionTransformer)
+    from x2i_torch.params import random_init_
+
+    ids = tok.convert_tokens_to_ids
+    cfg = Qwen2_5_VLConfig(
+        vision=QwenVisionConfig(out_hidden_size=lm.cfg.hidden_size),
+        llm=lm.cfg, image_token_id=ids("<|image_pad|>"),
+        video_token_id=ids("<|video_pad|>"),
+        vision_start_token_id=ids("<|vision_start|>"))
+    dev = lm.embed_tokens.weight.device
+    g = torch.Generator(device=dev).manual_seed(
+        seed + zlib.crc32(f"{name} vision".encode()))
+    return cfg, random_init_(QwenVisionTransformer(cfg.vision, dev), g)
+
+
+def set_attention_impl(module, impl: str):
+    """Every block under ``module`` (ViT, LM) on attention ``impl``."""
+    import dataclasses
+    for m in module.modules():
+        cfg = getattr(m, "cfg", None)
+        if cfg is not None and hasattr(cfg, "attention_impl"):
+            m.cfg = dataclasses.replace(cfg, attention_impl=impl)
+
+
+def image_launches(quantized=False, lm_layers: int = 24,
+                   vit_layers: int = 24, steps: int = 4, n2: int = 19,
+                   n1: int = 38):
+    """One image of an InternVL request with images: the text image's
+    counts and one K1b (exact body) per ViT layer."""
+    want = expected_launches(quantized, steps, n2, n1, lm_layers=lm_layers)
+    want["flash_fwd"] += vit_layers
+    return want
+
+
+def _vit_ms(vision, images):
+    """The host half's time for the request's images (PIL resize, tiles)
+    and the card's for their ViT + mlp1 (``call_ms`` of
+    ``extract_feature``)."""
+    import numpy as np
+    import torch
+    from x2i_torch.data.vision import image_tiles
+    t0 = time.perf_counter()
+    tiles = np.concatenate([image_tiles(im) for im in images])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    px = torch.as_tensor(tiles, device="cuda")
+    with torch.inference_mode():
+        vit_ms = call_ms(lambda: vision.extract_feature(px), iters=10)
+    return {"host_half_ms": host_ms, "vit_ms": vit_ms,
+            "tiles": int(tiles.shape[0])}
+
+
+def check_image_routes(vision, encoder_fn, request, images):
+    """The encoder's stack for ``request`` on the kernel route (K1 in every
+    ViT and LM layer) against the same encoder on the plain attention,
+    and the ViT's features alone the same way; the plain route launches
+    no kernel."""
+    import numpy as np
+    import torch
+    from x2i_torch.data.vision import image_tiles
+
+    px = torch.as_tensor(np.concatenate([image_tiles(im) for im in images]),
+                         device="cuda")
+    with torch.inference_mode():
+        got, feats = encoder_fn(request), vision.extract_feature(px)
+        set_attention_impl(vision, "plain")
+        try:
+            reset_counts()
+            want, want_feats = (encoder_fn(request),
+                                vision.extract_feature(px))
+            plain = launch_counts()
+        finally:
+            set_attention_impl(vision, "auto")
+    rec = {"stack_err": _stack_errors(got, want),
+           "layer_err": _layer_errors(got, want),
+           "vit_feature_err": _stack_errors(feats, want_feats),
+           "plain_route_launches": sum(plain.values())}
+    ok = (all(e[0] <= IMAGE_REL_MAX and e[1] <= IMAGE_REL_MEAN
+              for e in (rec["stack_err"], rec["vit_feature_err"]))
+          and rec["plain_route_launches"] == 0
+          and bool(torch.isfinite(got).all()))
+    return rec, ok
+
+
+def check_image_batch(pipe, vision, seed: int, images, route: str):
+    """Two image requests through the batch path: one ViT call for both
+    (counted by a hook), their stacks against the two serial encodes, and
+    one ``run_batch`` of two 1024^2 images with exact launch counts (the
+    ViT, the LM and the DiT at batch 2 launch as at batch 1)."""
+    import torch
+    reqs = [{"task": "image2image", "images": images[:1]},
+            {"task": "imagetext2image", "prompt": PROMPTS[2],
+             "images": images[1:]}]
+    calls = []
+    hook = vision.vision_model.register_forward_hook(
+        lambda *a: calls.append(1))
+    try:
+        with torch.inference_mode():
+            batched = pipe.encoder_fn.batch(reqs)
+            batch_calls = len(calls)
+            serial = torch.cat([pipe.encoder_fn(r) for r in reqs])
+    finally:
+        hook.remove()
+    reset_counts()
+    t0 = time.perf_counter()
+    imgs = pipe.run_batch(reqs, seed=seed)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    want = image_launches()
+    rec = {"phase": "image-batch", "model": MODEL, "requests": len(reqs),
+           "host_half": route, "vit_calls": batch_calls,
+           "stack_err_vs_serial": _stack_errors(batched, serial),
+           "image_shapes": list(imgs.shape), "seconds": sec,
+           "launches": counts, "launches_expected": want}
+    emit(rec)
+    if not (batch_calls == 1 and counts == want
+            and tuple(imgs.shape) == (2, 1024, 1024, 3)
+            and all(float(i.std()) > 0 for i in imgs)
+            and rec["stack_err_vs_serial"][0] <= IMAGE_REL_MAX
+            and rec["stack_err_vs_serial"][1] <= IMAGE_REL_MEAN):
+        raise AssertionError(f"the image batch path failed: {rec}")
+
+
+def phase_image(pipe, lm, seed: int, card: str):
+    """The image path of x2i-internvl2.5-1b at full width on the serving
+    pipeline's LM, proj, DiT and VAE: InternViT-300M and mlp1 drawn on
+    the card, the family's template through ``ByteTokenizer``; one
+    image2image and one imagetext2image at 1024^2 (one 448 tile an image,
+    256 ``<IMG_CONTEXT>`` tokens) with exact launch counts (K1b 24 in the
+    ViT and 24 in the LM, K1a 228, K5 460), s/image, the ViT's ms and the
+    peak memory; the encoder's stack on the kernel route against the
+    plain attention (``check_image_routes``); two image requests through
+    the batch path (``check_image_batch``). -> the launch counts of the
+    image2image image."""
+    import gc
+
+    import torch
+    from x2i_torch.convert.load import mllm_encoder
+    from x2i_torch.pipeline import X2IPipeline
+
+    tok = ByteTokenizer("internvl")
+    t0 = time.perf_counter()
+    vision = draw_internvl(MODEL, lm, seed, tok)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    encoder_fn = mllm_encoder(MODEL, lm, tok, vision.cfg, vision)
+    entry = X2IPipeline(encoder_fn=encoder_fn, proj=pipe.proj,
+                        flux=pipe.flux, vae=pipe.vae,
+                        scheduler=pipe.scheduler, gen_cfg=pipe.gen_cfg,
+                        encoder_batch_fn=encoder_fn.batch)
+    images, route = media("internvl", seed, 2)
+    want = image_launches()
+    out = None
+    for task, req in (("image2image", {"images": images[:1]}),
+                      ("imagetext2image", {"prompt": PROMPTS[1],
+                                           "images": images[1:]})):
+        request = {"task": task, **req}
+        rec, _, got = run_image(entry, seed, f"image[{task}]", want,
+                                request=request)
+        rec.update(host_half=route, vit_draw_s=draw_s,
+                   vit_weight_bytes=_weight_bytes(vision.vision_model),
+                   card=card, **_vit_ms(vision, req["images"]))
+        routes, routes_ok = check_image_routes(vision, encoder_fn, request,
+                                               req["images"])
+        rec.update(routes)
+        emit(rec)
+        if got != want or not routes_ok:
+            raise AssertionError(f"the image path failed: {rec}")
+        out = out or got
+    check_image_batch(entry, vision, seed, images, route)
+    del entry, encoder_fn, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------- checkpoints
 
 # each family's special tokens, ids from 256 on in this order (the
@@ -1989,13 +2288,14 @@ def write_safetensors(path: str, entries):
 
 def _drawn(g, shape, name):
     """A checkpoint tensor drawn on the card: matrices and convolutions at
-    std 1/sqrt(fan_in), embeddings at std 1, biases at 0.02, norm and
-    channel scales 1 + N(0, 0.05^2)."""
+    std 1/sqrt(fan_in), embeddings (the token table, InternViT's CLS and
+    position table) at std 1, biases at 0.02, norm, channel and residual
+    scales 1 + N(0, 0.05^2)."""
     import torch
 
     def make():
         x = torch.randn(shape, generator=g, device="cuda")
-        if "embed_tokens" in name or "embedding" in name:
+        if "embed_tokens" in name or name.endswith("embedding"):
             return x
         if len(shape) >= 2 and "cha_scale" not in name:
             return x / math.sqrt(math.prod(shape[1:]))
@@ -2073,20 +2373,21 @@ def write_checkpoint_dirs(root: str, seed: int):
     """A released-layout checkpoint set of x2i-internvl2.5-1b at full width,
     the DiT cut to 1 double + 2 single blocks, weights drawn on the card:
     a diffusers FLUX directory (the transformer in two shards, the whole
-    VAE, the scheduler's config), an InternVL directory (the Qwen2.5-0.5B
-    LM under ``language_model.``, a few ViT and mlp1 tensors off the text
-    path, config.json with ``llm_config``) and the proj's .bin with DDP
-    ``module.`` prefixes. -> (flux, mllm, proj paths, bytes written)."""
+    VAE, the scheduler's config), an InternVL directory (InternViT-300M
+    under ``vision_model.``, mlp1, the Qwen2.5-0.5B LM under
+    ``language_model.``, config.json with ``llm_config`` and
+    ``vision_config``) and the proj's .bin with DDP ``module.`` prefixes.
+    -> (flux, mllm, proj paths, bytes written)."""
     import dataclasses
     import os
 
     import torch
-    from x2i_torch.convert.torch_models import (flux_plan, proj_plan,
-                                                qwen2_plan, vae_plan)
+    from x2i_torch.convert.torch_models import (flux_plan, internvl_plan,
+                                                proj_plan, vae_plan)
     from x2i_torch.core.config import MODEL_REGISTRY
     from x2i_torch.models.flux import FluxTransformer2D
+    from x2i_torch.models.internvl import InternVLEncoder
     from x2i_torch.models.proj import Proj
-    from x2i_torch.models.qwen2 import Qwen2LM
     from x2i_torch.models.vae import AutoencoderKL
 
     spec = MODEL_REGISTRY[CKPT_MODEL]
@@ -2133,17 +2434,14 @@ def write_checkpoint_dirs(root: str, seed: int):
         "_class_name": "FlowMatchEulerDiscreteScheduler",
         "num_train_timesteps": 1000, "shift": 1.0,
         "use_dynamic_shifting": False})
-    llm = spec.llm
-    lm_keys = _entries(Qwen2LM, llm, qwen2_plan(llm, "model."), g,
-                       "language_model.")
-    off_path = [(k, s, torch.bfloat16, _drawn(g, s, k)) for k, s in (
-        ("vision_model.embeddings.class_embedding", (1, 1, 1024)),
-        ("vision_model.encoder.layers.0.attn.qkv.weight", (3072, 1024)),
-        ("mlp1.0.weight", (4096,)), ("mlp1.1.weight", (896, 4096)))]
-    written += write_safetensors(os.path.join(mllm, "model.safetensors"),
-                                 off_path + lm_keys)
+    llm, vit = spec.llm, spec.internvl.vision
+    written += write_safetensors(
+        os.path.join(mllm, "model.safetensors"),
+        _entries(InternVLEncoder, spec.internvl,
+                 internvl_plan(spec.internvl), g))
     _write_json(os.path.join(mllm, "config.json"), {
         "model_type": "internvl_chat", "downsample_ratio": 0.5,
+        "ps_version": "v2", "force_image_size": vit.image_size,
         "llm_config": {"architectures": ["Qwen2ForCausalLM"],
                        "vocab_size": llm.vocab_size,
                        "hidden_size": llm.hidden_size,
@@ -2156,7 +2454,15 @@ def write_checkpoint_dirs(root: str, seed: int):
                        "max_position_embeddings":
                            llm.max_position_embeddings,
                        "tie_word_embeddings": True},
-        "vision_config": {"hidden_size": 1024, "num_hidden_layers": 24}})
+        "vision_config": {
+            "hidden_size": vit.hidden_size,
+            "intermediate_size": vit.intermediate_size,
+            "num_hidden_layers": vit.num_hidden_layers,
+            "num_attention_heads": vit.num_attention_heads,
+            "image_size": vit.image_size, "patch_size": vit.patch_size,
+            "qkv_bias": vit.qkv_bias,
+            "qk_normalization": vit.qk_normalization,
+            "norm_type": "layer_norm"}})
     proj = os.path.join(root, "diffusion_pytorch_model.bin")
     sd = {"module." + name: make().to(dtype).cpu()
           for name, _, dtype, make in _entries(
@@ -2190,10 +2496,12 @@ def phase_checkpoint(seed: int):
     read the host's and the card's peak memory; load it again on the CPU
     (loading only) and hold every parameter and buffer of the card's copy
     to it bit for bit (the CPU route is the one the CPU tests hold against
-    JAX); make one 1024^2 4-step image with exact launch counts (fused
-    glue, as served); load it again in the default w8 and make the same
-    image, held to the bf16 image by the route bar of the quantized checks
-    (correlation above 0.999, relative L2 below 5e-2)."""
+    JAX), the whole InternVL encoder among them (InternViT, mlp1, LM:
+    nothing of the directory unread); make one 1024^2 4-step
+    imagetext2image with exact launch counts (fused glue, as served; K1b
+    in the 24 ViT and 24 LM layers); load it again in the default w8 and
+    make the same image, held to the bf16 image by the route bar of the
+    quantized checks (correlation above 0.999, relative L2 below 5e-2)."""
     import gc
     import shutil
     import tempfile
@@ -2242,11 +2550,12 @@ def phase_checkpoint(seed: int):
                 compared += 1
                 if not torch.equal(card[k].cpu(), v):
                     mismatched.append(f"{name}.{k}")
-        card = pipe.encoder_fn.ctx["lm"].state_dict()
-        for k, v in ref.encoder_fn.ctx["lm"].state_dict().items():
+        # the whole encoder: InternViT, mlp1 and the LM
+        card = pipe.encoder_fn.ctx["vision"].state_dict()
+        for k, v in ref.encoder_fn.ctx["vision"].state_dict().items():
             compared += 1
             if not torch.equal(card[k].cpu(), v):
-                mismatched.append(f"lm.{k}")
+                mismatched.append(f"mllm.{k}")
         del ref
         gc.collect()
         rec.update(tensors_compared=compared, mismatched=mismatched)
@@ -2255,16 +2564,20 @@ def phase_checkpoint(seed: int):
         if (mismatched or unread["flux"] or unread["proj"]
                 or not unread["vae"]
                 or not all(k.startswith("encoder.") for k in unread["vae"])
-                or [k.split(".")[0] for k in unread["lm"]]
-                != ["mlp1", "mlp1", "vision_model", "vision_model"]
+                or unread["mllm"]
                 or rec["host_growth_bound"] > written / 4):
             raise AssertionError(f"the checkpoint load is wrong: {rec}")
 
         pipe.flux.replace_config(fused_glue=True)
         n2, n1 = CKPT_BLOCKS
-        want = expected_launches(False, 4, n2, n1)
+        want = image_launches(n2=n2, n1=n1)
+        images, route = media("internvl", seed, 1)
+        request = {"task": "imagetext2image", "prompt": PROMPTS[1],
+                   "images": images}
         img_rec, bf16_pixels, counts = run_image(
-            pipe, seed, "checkpoint-image", want, model=CKPT_MODEL)
+            pipe, seed, "checkpoint-image", want, model=CKPT_MODEL,
+            request=request)
+        img_rec["host_half"] = route
         emit(img_rec)
         if counts != want:
             raise AssertionError(f"the loaded pipeline missed its kernels: "
@@ -2277,9 +2590,10 @@ def phase_checkpoint(seed: int):
         torch.cuda.synchronize()
         w8_load_s = time.perf_counter() - t0
         pipe.flux.replace_config(fused_glue=True)
-        want = expected_launches("w8", 4, n2, n1)
+        want = image_launches("w8", n2=n2, n1=n1)
         w8_rec, pixels, counts = run_image(pipe, seed, "checkpoint-image-w8",
-                                           want, model=CKPT_MODEL)
+                                           want, model=CKPT_MODEL,
+                                           request=request)
         got, ref_px = pixels.float().flatten(), bf16_pixels.float().flatten()
         w8_rec.update(
             load_s=w8_load_s,
@@ -2324,7 +2638,7 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
     import zlib
 
     import torch
-    from x2i_torch.convert.load import text_encoder
+    from x2i_torch.convert.load import mllm_encoder
     from x2i_torch.core.config import MODEL_REGISTRY, GenerationConfig
     from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
     from x2i_torch.models.flux import FluxTransformer2D
@@ -2357,7 +2671,15 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
         proj = random_init_(Proj(spec.proj, dev), g)
         torch.cuda.synchronize()
         draw_s = time.perf_counter() - t0
-        encoder_fn = text_encoder(name, lm, ByteTokenizer(family_of(name)))
+        family = family_of(name)
+        tok = ByteTokenizer(family)
+        vl_cfg = vision = None
+        if family == "internvl":
+            vision = draw_internvl(name, lm, seed, tok)
+            vl_cfg = vision.cfg
+        elif family == "qwenvl":
+            vl_cfg, vision = draw_qwen_tower(name, lm, seed, tok)
+        encoder_fn = mllm_encoder(name, lm, tok, vl_cfg, vision)
         entry = X2IPipeline(
             encoder_fn=encoder_fn, proj=proj, flux=flux, vae=pipe.vae,
             scheduler=FlowMatchEulerScheduler(spec.scheduler),
@@ -2380,15 +2702,92 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
             raise AssertionError(f"{name} missed its kernels: {got} != "
                                  f"{want}")
         counts[f"registry[{name}]"] = got
+        counts.update(registry_media(name, entry, vl_cfg, vision, seed,
+                                     card))
         if name == ANSWER_MODEL:
             counts["answer"], bf16_cond = phase_answer(entry, lm, seed, card)
             counts["chat"] = phase_chat(entry, lm, seed, card)
             counts["answer-w8a8"] = phase_answer_w8a8(entry, lm, seed, card,
                                                       bf16_cond)
             del bf16_cond
-        del entry, encoder_fn, lm, proj
+        del entry, encoder_fn, lm, proj, vision
         gc.collect()
         torch.cuda.empty_cache()
+    return counts
+
+
+def _tower_ms(cfg, visual, images=None, video=None):
+    """The host half's time for a Qwen2.5-VL request's media (resize,
+    patches, window permutation) and the card's for the tower
+    (``call_ms`` of ``encode_vision``), with the tower's patch count."""
+    import torch
+    from x2i_torch.data.qwen_vision import prepare_vision_inputs
+    from x2i_torch.models.qwen2_5_vl import encode_vision, vision_tensors
+    v = cfg.vision
+    t0 = time.perf_counter()
+    vin = prepare_vision_inputs(
+        images, [video] if video is not None else None,
+        patch_size=v.patch_size, merge_size=v.spatial_merge_size,
+        temporal_patch_size=v.temporal_patch_size,
+        window_size=v.window_size)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    vt = vision_tensors(vin, "cuda")
+    with torch.inference_mode():
+        tower_ms = call_ms(lambda: encode_vision(visual, vt), iters=10)
+    return {"host_half_ms": host_ms, "tower_ms": tower_ms,
+            "tower_patches": int(vt["patches"].shape[0])}
+
+
+def registry_media(name: str, entry, vl_cfg, vision, seed: int, card: str):
+    """The registry entry's images with media, each with exact launch
+    counts set to 0 just before and read just after: x2i-internvl2.5-4b
+    one imagetext2image (K1b in its 24 ViT and 36 LM layers); each
+    Qwen2.5-VL entry one image2image (its tower takes the plain route: no
+    launch), and x2i-qwenvl2.5-7b also one video2image of eight 128^2
+    frames and one use_answer image after an image input (the decode's
+    cache takes the plain attention: no K1b). -> their launch counts."""
+    from x2i_torch.core.config import MODEL_REGISTRY
+
+    family = family_of(name)
+    layers = MODEL_REGISTRY[name].llm.num_hidden_layers
+    plain = expected_launches(False, 4, lm_layers=layers)
+    runs = []
+    if family == "internvl":
+        images, route = media(family, seed, 1)
+        runs.append(("imagetext2image", {"prompt": PROMPTS[1],
+                                         "images": images},
+                     image_launches(lm_layers=layers)))
+    elif family == "qwenvl":
+        images, route = media(family, seed, 1)
+        runs.append(("image2image", {"images": images}, plain))
+        if name == ANSWER_MODEL:
+            video, _ = media(family, seed, 0, frames=VIDEO_FRAMES)
+            runs.append(("video2image", {"video": video}, plain))
+            runs.append(("imagetext2image", {
+                "prompt": PROMPTS[1], "images": images, "use_answer": True},
+                expected_launches(False, 4, lm_layers=0)))
+    counts = {}
+    for task, req, want in runs:
+        label = f"registry[{name}] {task}" + (
+            " use_answer" if req.get("use_answer") else "")
+        reset_counts()
+        t0 = time.perf_counter()
+        img = entry.run_task(task, **req, seed=seed)
+        sec = time.perf_counter() - t0
+        got = launch_counts()
+        rec = {"phase": label, "model": name, "task": task,
+               "use_answer": bool(req.get("use_answer")),
+               "host_half": route, "card": card, "s_per_image": sec,
+               "image_shape": list(img.shape), "image_std": float(img.std()),
+               "launches": got, "launches_expected": want}
+        rec.update(_vit_ms(vision, req["images"]) if family == "internvl"
+                   else _tower_ms(vl_cfg, vision, req.get("images"),
+                                  req.get("video")))
+        emit(rec)
+        if not (got == want and tuple(img.shape) == (1, 1024, 1024, 3)
+                and img.std() > 0):
+            raise AssertionError(f"{label} failed: {rec}")
+        counts[label] = got
     return counts
 
 
@@ -2903,6 +3302,7 @@ def main(argv=None) -> int:
     launches_ckpt = phase_checkpoint(args.seed)
     pipe, lm, launches, bf16_pixels, dit_state = phase_text2image(args.seed)
     phase_serve(pipe)
+    launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
@@ -2912,7 +3312,8 @@ def main(argv=None) -> int:
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
-    runs = {"bf16": launches, "w8a8": launches_w8a8, "w4a8": launches_w4a8,
+    runs = {"bf16": launches, "image": launches_image,
+            "w8a8": launches_w8a8, "w4a8": launches_w4a8,
             "w4": launches_w4, "w8": launches_w8,
             "distill": launches_distill, "bf16-2048": launches_2048,
             "long-prompt": launches_long, **launches_ckpt,
@@ -2936,6 +3337,13 @@ def main(argv=None) -> int:
                       "call_ms", "int8_gemm_ms"):
             if top.get(extra) is not None:
                 table[-1][extra] = top[extra]
+        # the kernel's other shapes on the main paths (K1b at the ViT's)
+        cases = [{k: r.get(k) for k in (
+            "case", "shape", "kv_shape", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "tflops", "bound_share",
+            "call_ms")} for r in rows if r.get("case")]
+        if cases:
+            table[-1]["cases"] = cases
         # a kernel's launches on the other main paths that run it
         others = {r: runs[r][name] for r in runs
                   if r != run and runs[r][name]}

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from safetensors.torch import load_file, save_file
 
 from ckpt_fixtures import (VOCAB_SIZE, build_family_checkpoints,
@@ -43,8 +44,10 @@ from x2i_tpu.models.templates import (internvl2_5_prompt,
                                       task_instruction)
 from x2i_torch.convert.load import build_pipeline_from_checkpoints
 from x2i_torch.models.flux import FluxTransformer2D
+from x2i_torch.models.internvl import InternVLEncoder
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
+from x2i_torch.models.qwen2_5_vl import QwenVisionTransformer
 from x2i_torch.models.vae import AutoencoderKL, postprocess
 from x2i_torch.ops.quant import QuantLinear
 from x2i_torch.params import load_flax
@@ -231,13 +234,21 @@ def _jax_ids(family, ref, inputs):
 @pytest.mark.parametrize("family", ["qwenvl", "internvl"])
 def test_loaded_weights_equal_the_jax_loaders(pipes, family):
     """Every port parameter equals the JAX loader's, carried across by the
-    bridge, bit for bit: FLUX, the VAE's decoder, the proj and the LM."""
+    bridge, bit for bit: FLUX, the VAE's decoder, the proj and the whole
+    encoder (the vision tower and the LM); the MLLM directory is read
+    whole, the VAE's encoder left unread."""
     port, ref = pipes(family)
     trees = [(port.flux, FluxTransformer2D(port.flux.cfg), ref.flux_params),
              (port.proj, Proj(port.proj.cfg), ref.proj_params)]
     enc = _jax_enc_params(ref)
-    lm = port.encoder_fn.ctx["lm"]
-    trees.append((lm, Qwen2LM(lm.cfg), enc["language_model"]))
+    lm, vision = (port.encoder_fn.ctx[k] for k in ("lm", "vision"))
+    if family == "internvl":
+        trees.append((vision, InternVLEncoder(vision.cfg), enc))
+        assert vision.language_model is lm
+    else:
+        trees.append((lm, Qwen2LM(lm.cfg), enc["language_model"]))
+        trees.append((vision, QwenVisionTransformer(vision.cfg),
+                      enc["visual"]))
     for got, empty, tree in trees:
         want = load_flax(empty, tree).state_dict()
         for k, v in got.state_dict().items():
@@ -250,10 +261,7 @@ def test_loaded_weights_equal_the_jax_loaders(pipes, family):
     assert rep["flux"]["unread"] == [] and rep["proj"]["unread"] == []
     assert rep["vae"]["unread"] and all(
         k.startswith("encoder.") for k in rep["vae"]["unread"])
-    off = ("model.visual.", "lm_head.") if family == "qwenvl" else (
-        "vision_model.", "mlp1.")
-    assert rep["lm"]["unread"] and all(k.startswith(off)
-                                       for k in rep["lm"]["unread"])
+    assert rep["mllm"]["unread"] == []
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl"])
@@ -328,7 +336,7 @@ def test_minicpm_text_path_matches_the_jax_pieces(pipes, dirs):
     lm = port.encoder_fn.ctx["lm"]
     assert not lm.cfg.tie_word_embeddings and torch.equal(
         lm.lm_head.weight, sd["llm.lm_head.weight"])
-    unread = port.load_report["lm"]["unread"]
+    unread = port.load_report["mllm"]["unread"]
     assert unread == sorted(k for k in sd if not k.startswith("llm."))
 
 
@@ -344,11 +352,27 @@ def test_batched_encode_equals_serial(pipes, family):
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
 def test_media_are_refused(pipes, family):
+    """MiniCPM-o's images, video and audio raise, naming the ROADMAP item
+    that brings its encoders. The two families with a vision tower take
+    images (tests/test_torch_tasks.py holds them against JAX) and, as in
+    JAX, ignore audio (and InternVL video): the stack is the text
+    request's."""
     port, _ = pipes(family)
-    for media in ({"images": ["a.png"]}, {"video": [1, 2]},
-                  {"audio": np.zeros(16)}):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            port.encode({"prompt": "x", **media})
+    image = np.random.default_rng(0).integers(0, 256, (32, 32, 3), np.uint8)
+    media = ({"images": [Image.fromarray(image)]}, {"video": [1, 2]},
+             {"audio": np.zeros(16)})
+    if family == "minicpm":
+        for m in media:
+            with pytest.raises(NotImplementedError, match="Queue A item 4.3"):
+                port.encode({"prompt": "x", **m})
+        return
+    text = port.encoder_fn({"prompt": "x"})
+    assert port.encoder_fn({"prompt": "x", **media[0]}).shape[:2] == \
+        text.shape[:2]
+    ignored = media[2:] if family == "qwenvl" else media[1:]
+    for m in ignored:
+        torch.testing.assert_close(port.encoder_fn({"prompt": "x", **m}),
+                                   text, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])

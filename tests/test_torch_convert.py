@@ -207,7 +207,8 @@ def _hf_qwen2(tied: bool, seed: int):
     return sd
 
 
-# (model, HF layout prefix of the LM's keys, of its head, an off-path key)
+# (model, HF layout prefix of the LM's keys, of its head, a key of the
+# family's other modules)
 LAYOUTS = {
     "internvl": ("x2i-internvl2.5-1b", "language_model.model.",
                  "language_model.lm_head.weight", "vision_model.x"),
@@ -225,7 +226,10 @@ LAYOUTS = {
 def test_qwen2_plan_matches_jax_converter(tmp_path, layout, tied):
     """Each family's key layout, as the JAX loaders strip it, through
     ``qwen2_params_from_hf``: the same LM bit for bit. A tied checkpoint's
-    head and the family's other modules stay unread and named."""
+    head stays unread and named; so do MiniCPM-o's other modules, while
+    the vision keys of the two families with a tower are read (by the
+    encoder's plan, tests/test_torch_internvl.py and
+    test_torch_qwen_vision.py), so the LM's alone refuses them."""
     model, body, head, other = LAYOUTS[layout]
     sd = _hf_qwen2(tied, 5)
     hf = {(head if k == "lm_head.weight" else body
@@ -237,14 +241,24 @@ def test_qwen2_plan_matches_jax_converter(tmp_path, layout, tied):
     tc = tcfg.Qwen2Config(**LLM_KW, tie_word_embeddings=tied)
     b, h, off_path = tload._lm_layout(model, str(tmp_path), tc)
     assert (b, h) == (body, head)
+    assert off_path(other) == (layout == "minicpm")
     ported = Qwen2LM(tc)
-    rep = ttm.fill_module(ported, tload.load_safetensors_dir(str(tmp_path)),
-                          ttm.qwen2_plan(tc, body, head), off_path)
-    assert rep["unread"] == sorted([other] + ([head] if tied else []))
+    keys = ([] if off_path(other) else [other])
+    tensors = [(k, v) for k, v in tload.load_safetensors_dir(str(tmp_path))
+               if k not in keys]
+    rep = ttm.fill_module(ported, tensors, ttm.qwen2_plan(tc, body, head),
+                          off_path)
+    assert rep["unread"] == sorted(
+        ([] if keys else [other]) + ([head] if tied else []))
     jc = jcfg.Qwen2Config(**LLM_KW, tie_word_embeddings=tied)
     bridged = load_flax(Qwen2LM(tc), jtm.qwen2_params_from_hf(sd, jc))
     assert_same_params(ported, bridged)
     assert hasattr(ported, "lm_head") != tied
+    if keys:
+        with pytest.raises(KeyError, match="not a tensor"):
+            ttm.fill_module(Qwen2LM(tc),
+                            tload.load_safetensors_dir(str(tmp_path)),
+                            ttm.qwen2_plan(tc, body, head), off_path)
 
 
 def test_fill_module_refuses_what_does_not_fit():
@@ -440,8 +454,12 @@ def test_get_rope_index_text_matches_jax():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got_d, want_d)
     assert (got[:, 0, 17:] == 1).all() and (got[:, 1, :9] == 1).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        get_rope_index(ids, image_grid_thw=np.array([[1, 4, 4]]))
+    # an image grid with no image in the prompt leaves text positions
+    # (tests/test_torch_vision_data.py holds prompts with media)
+    grid = np.array([[1, 4, 4]])
+    for a, b in zip(get_rope_index(ids, grid, attention_mask=mask),
+                    jget_rope_index(ids, grid, attention_mask=mask)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("section", [(16, 24, 24), (1, 2, 3)])

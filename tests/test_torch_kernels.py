@@ -453,6 +453,50 @@ def test_dispatcher_pad_path_on_the_kernel(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tiles,s", [(1, 1025), (2, 1025), (3, 129)],
+                         ids=["1 tile", "2 tiles", "129 tokens"])
+def test_vit_pad_route_on_the_kernel(dev, tiles, s):
+    """InternViT's attention: 16 heads x 64, non-causal, no rope and no
+    mask, at 1025 tokens (a 448 tile's CLS and 32 x 32 patches) padded to
+    1152 with 127 masked keys, a batch of tiles, and at 129 (one valid
+    key in the last tile): one launch of K1's exact body, the padded q
+    rows sliced off."""
+    g = torch.Generator(device=dev).manual_seed(s + tiles)
+    q, k, v = (_randn(g, dev, tiles, s, 16, 64) for _ in range(3))
+    before = dict(tfa.KERNEL.launches)
+    got = tattn.attention(q, k, v)
+    assert tfa.KERNEL.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert got.shape == q.shape
+    _close(got, tattn.attention(q, k, v, implementation="plain"))
+
+
+@pytest.mark.cuda
+def test_internvit_kernel_route_on_the_card(dev):
+    """A 2-block InternViT at head_dim 64 (17 tokens padded to 128) in
+    bf16: one K1 launch per block, and the stack within the bf16 bar of
+    the plain attention's (relative L2 at most 2e-2)."""
+    import dataclasses
+
+    from x2i_torch.core.config import InternViTConfig
+    from x2i_torch.models.internvl import InternViT
+    cfg = InternViTConfig(hidden_size=128, intermediate_size=256,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          image_size=28, patch_size=7)
+    g = torch.Generator(device=dev).manual_seed(3)
+    vit = random_init_(InternViT(cfg, dev), g)
+    plain = InternViT(dataclasses.replace(cfg, attention_impl="plain"), dev)
+    plain.load_state_dict(vit.state_dict())
+    px = torch.randn((2, 28, 28, 3), generator=g, device=dev)
+    before = tfa.KERNEL.launches["flash_fwd"]
+    with torch.inference_mode():
+        got = vit(px).float()
+        assert tfa.KERNEL.launches["flash_fwd"] == before + 2
+        want = plain(px).float()
+    assert bool(torch.isfinite(got).all())
+    assert ((got - want).norm() / want.norm()).item() <= 2e-2
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 2, 128, 64), device=dev)
     with pytest.raises(ValueError, match="bf16"):

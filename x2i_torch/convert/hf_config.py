@@ -1,11 +1,13 @@
-"""Model configs read from checkpoint directories, the counterpart of the
-parts of ``x2i_tpu/convert/hf_config.py`` that the text path reads.
+"""Model configs read from checkpoint directories, the counterpart of
+``x2i_tpu/convert/hf_config.py`` (MiniCPM-o's LM part only: its encoders
+are not ported).
 
 The released checkpoints carry their architecture in their own config
 files: the diffusers ``transformer/config.json``, ``vae/config.json`` and
 ``scheduler/scheduler_config.json`` of a FLUX directory, and the HF
-``config.json`` of an MLLM directory (``llm_config`` for InternVL, a
-``text_config`` or flat text fields for Qwen2.5-VL, flat fields for
+``config.json`` of an MLLM directory (``llm_config``, ``vision_config``
+and ``downsample_ratio`` for InternVL, a ``text_config`` or flat text
+fields and a ``vision_config`` for Qwen2.5-VL, flat fields for
 MiniCPM-o). Each reader returns None when its file is absent, and the
 registry entry is then the fallback. The proj checkpoint is a bare state
 dict: ``proj_config_from_sd`` reads its architecture from the shapes.
@@ -18,9 +20,9 @@ import os
 from dataclasses import replace
 from typing import Any, Dict, Mapping, Optional
 
-from x2i_torch.core.config import (FluxConfig, ProjConfig, Qwen2Config,
-                                   SchedulerConfig, VAEConfig)
-from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
+from x2i_torch.core.config import (FluxConfig, InternVLConfig, ProjConfig,
+                                   Qwen2Config, SchedulerConfig, VAEConfig)
+from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, QwenVisionConfig
 
 
 def _read_json(path: str) -> Optional[Dict[str, Any]]:
@@ -95,16 +97,26 @@ def _qwen2_from_dict(d: Mapping[str, Any],
 
 def qwenvl_config_from_dir(mllm_path: str, base_llm: Qwen2Config
                            ) -> Optional[Qwen2_5_VLConfig]:
-    """HF Qwen2.5-VL ``config.json`` -> the text route's config: the LM
-    from the flat text fields (the released Instruct layout) or from
-    ``text_config`` (newer transformers), ``mrope_section`` from
+    """HF Qwen2.5-VL ``config.json``: the LM from the flat text fields
+    (the released Instruct layout) or from ``text_config`` (newer
+    transformers), the tower from ``vision_config`` (its output at the
+    LM's width where the file does not say), ``mrope_section`` from
     ``rope_scaling``, and the vision token ids."""
     d = _read_json(os.path.join(mllm_path, "config.json"))
     if d is None:
         return None
     text = d.get("text_config", d)
+    llm = _qwen2_from_dict(text, base_llm)
+    v = d.get("vision_config") or {}
+    vision = replace(QwenVisionConfig(out_hidden_size=llm.hidden_size),
+                     **_fields(v, (
+                         "depth", "hidden_size", "intermediate_size",
+                         "num_heads", "in_channels", "patch_size",
+                         "spatial_merge_size", "temporal_patch_size",
+                         "window_size", "out_hidden_size",
+                         "fullatt_block_indexes")))
     rope_scaling = text.get("rope_scaling") or d.get("rope_scaling") or {}
-    full = Qwen2_5_VLConfig(llm=_qwen2_from_dict(text, base_llm))
+    full = Qwen2_5_VLConfig(vision=vision, llm=llm)
     return replace(
         full,
         mrope_section=tuple(rope_scaling.get("mrope_section",
@@ -121,6 +133,35 @@ def internvl_llm_config_from_dir(mllm_path: str, base_llm: Qwen2Config
     if d is None:
         return None
     return _qwen2_from_dict(d.get("llm_config") or {}, base_llm)
+
+
+def internvl_config_from_dir(mllm_path: str, base: InternVLConfig
+                             ) -> Optional[InternVLConfig]:
+    """HF InternVLChatModel ``config.json``: ``llm_config``,
+    ``vision_config`` (``force_image_size`` over its ``image_size``,
+    ``norm_type``), ``downsample_ratio`` and ``ps_version``, and the
+    tokens per tile they give."""
+    d = _read_json(os.path.join(mllm_path, "config.json"))
+    if d is None:
+        return None
+    llm = _qwen2_from_dict(d.get("llm_config") or {}, base.llm)
+    v = d.get("vision_config") or {}
+    vb = base.vision
+    vision = replace(
+        vb, **_fields(v, ("hidden_size", "intermediate_size",
+                          "num_hidden_layers", "num_attention_heads",
+                          "patch_size", "qkv_bias", "qk_normalization")),
+        image_size=d.get("force_image_size",
+                         v.get("image_size", vb.image_size)),
+        use_rms_norm=(v.get("norm_type", "rms_norm" if vb.use_rms_norm
+                            else "layer_norm") == "rms_norm"))
+    downsample = d.get("downsample_ratio", base.downsample_ratio)
+    num_image_token = int((vision.image_size // vision.patch_size) ** 2
+                          * downsample ** 2)
+    return replace(base, llm=llm, vision=vision,
+                   downsample_ratio=downsample,
+                   ps_version=d.get("ps_version", base.ps_version),
+                   num_image_token=num_image_token)
 
 
 def minicpmo_llm_config_from_dir(mllm_path: str, base_llm: Qwen2Config

@@ -1,6 +1,7 @@
 """Checkpoints into the port: safetensors and torch files -> an assembled
-``X2IPipeline``, the counterpart of ``x2i_tpu/convert/load.py`` on the
-text path.
+``X2IPipeline``, the counterpart of ``x2i_tpu/convert/load.py``: the
+InternVL2.5 and Qwen2.5-VL encoders with their vision towers, MiniCPM-o's
+LM alone (its encoders are ROADMAP.md Queue A item 4.3).
 
 The artifacts are those the reference reads: a diffusers FLUX directory
 (``transformer/*.safetensors``, one file or ``-0000k-of-0000n`` shards,
@@ -31,44 +32,57 @@ import os
 import struct
 import sys
 import warnings
+from dataclasses import replace
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from torch import nn
+
 from x2i_torch.convert.hf_config import (flux_config_from_dir,
-                                         internvl_llm_config_from_dir,
+                                         internvl_config_from_dir,
                                          minicpmo_llm_config_from_dir,
                                          proj_config_from_sd,
                                          qwenvl_config_from_dir,
                                          scheduler_config_from_dir,
                                          vae_config_from_dir)
 from x2i_torch.convert.torch_models import (fill_module, flux_plan,
-                                            proj_plan, qwen2_plan,
+                                            internvl_plan, proj_plan,
+                                            qwen2_5_vl_plan, qwen2_plan,
                                             vae_off_path, vae_plan)
 from x2i_torch.core.config import (MODEL_REGISTRY, GenerationConfig,
-                                   quant_mode)
-from x2i_torch.data.qwen_vision import get_rope_index
+                                   InternVLConfig, quant_mode)
+from x2i_torch.data.qwen_vision import (concat_vision_inputs,
+                                        get_rope_index,
+                                        prepare_vision_inputs)
+from x2i_torch.data.vision import image_tiles
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
 from x2i_torch.models.flux import FluxTransformer2D
+from x2i_torch.models.internvl import InternVLEncoder
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
-from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig, encode_text,
-                                         encode_with_answer)
-from x2i_torch.models.templates import (internvl2_5_prompt,
+from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig,
+                                         Qwen2_5_VLEncoder,
+                                         QwenVisionConfig, encode_text,
+                                         encode_with_answer,
+                                         vision_tensors)
+from x2i_torch.models.templates import (IMAGE_PREFIX, expand_image_tokens,
+                                        internvl2_5_prompt,
                                         minicpm_omni_content,
                                         qwen_chat_messages,
                                         task_instruction)
 from x2i_torch.models.vae import AutoencoderKL
 from x2i_torch.ops.quant import quantize_module_
-from x2i_torch.pipeline import X2IPipeline, lm_text_encoder, resolve_device
+from x2i_torch.pipeline import (X2IPipeline, lm_encoder, lm_text_encoder,
+                                resolve_device)
 
 # the safetensors dtypes the reader takes
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
           "F32": torch.float32, "F64": torch.float64, "I8": torch.int8,
           "U8": torch.uint8, "I16": torch.int16, "I32": torch.int32,
           "I64": torch.int64, "BOOL": torch.bool}
-SEQ = 512                     # the text path's padded prompt length
+SEQ = 512                     # the padded prompt length
 ANSWER_TOKENS = 128           # use_answer's decode budget (the reference's)
 
 
@@ -171,81 +185,185 @@ def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
 
 # ------------------------------------------------------------ encoders
 
-def text_encoder(model: str, lm: Qwen2LM, tokenizer,
-                 vl_cfg: Optional[Qwen2_5_VLConfig] = None):
-    """The text encoder of ``model``'s family over ``lm``: encoder_fn
-    (inputs) -> the hidden-state stack, with ``.batch`` (one 512-token
-    prefill for a list of requests) and ``.ctx`` (the LM, the tokenizer
-    and the EOS id, for callers that drive the LM). Every prompt is
-    padded to 512 tokens on the tokenizer's own padding side.
+def mllm_encoder(model: str, lm: Qwen2LM, tokenizer, vl_cfg=None,
+                 vision: Optional[nn.Module] = None):
+    """The encoder of ``model``'s family over ``lm``: encoder_fn (inputs)
+    -> the hidden-state stack, with ``.batch`` (one 512-token prefill,
+    and one vision call, for a list of requests) and ``.ctx`` (the LM,
+    ``vision``, the tokenizer and the EOS id, for callers that drive the
+    LM or time the tower). Every prompt is padded to 512 tokens on the
+    tokenizer's own padding side.
 
-    * InternVL2.5: the task instruction in the internvl2_5 template, the
-      LM on its embeddings (the ViT fills no position of a text prompt);
-    * Qwen2.5-VL: the chat messages through the tokenizer's chat
-      template, 3-D positions from ``get_rope_index`` (padded positions
-      at 1), the LM under their M-RoPE tables (``vl_cfg``'s sections, by
-      default the released ones);
+    * InternVL2.5 (``vl_cfg`` an ``InternVLConfig``, by default the
+      registry's; ``vision`` the ``InternVLEncoder`` over ``lm``): the
+      task instruction in the internvl2_5 template, after ``<image>`` and
+      a newline when there are images, whose tiles (``data/vision.py``, one 448
+      tile each at X2I's 128^2) expand it to ``num_image_token``
+      ``<IMG_CONTEXT>`` tokens a tile; the ViT's features fill them.
+      ``video`` and ``audio`` are ignored, as in JAX;
+    * Qwen2.5-VL (``vl_cfg`` a ``Qwen2_5_VLConfig``; ``vision`` the
+      ``QwenVisionTransformer``): the chat messages through the
+      tokenizer's chat template, each ``<|image_pad|>`` and
+      ``<|video_pad|>`` expanded to its medium's merged-token count
+      (``data/qwen_vision.py``: images and video frames at 128^2), 3-D
+      positions from ``get_rope_index`` (padded positions at 1), the
+      tower's features at the pad positions, the LM under the M-RoPE
+      tables; ``audio`` is ignored, as in JAX;
     * MiniCPM-o: the omni content (the raw prompt) as one user turn of
-      the chat template, the LM at its plain positions.
+      the chat template, the LM at its plain positions; images, video and
+      audio raise NotImplementedError (ROADMAP.md Queue A item 4.3).
+
+    Images are PIL images, or the host half's output: an InternVL
+    image's (T, 448, 448, 3) float32 tiles, a Qwen2.5-VL image's or
+    video's pair (flat patches, grid_thw). Without ``vision`` a request
+    with media raises ValueError.
 
     ``use_answer`` (reasoning2image) is Qwen2.5-VL's: a greedy answer of
-    128 tokens after the prompt, ending at the tokenizer's EOS (151645
-    where it has none), and the stack of prompt and answer; the other two
-    families raise ValueError, as in JAX."""
-    if "internvl" in model:
-        def text(prompt):
-            return internvl2_5_prompt(task_instruction("text2image", prompt))
-    elif "qwenvl" in model:
-        def text(prompt):
-            return tokenizer.apply_chat_template(
-                qwen_chat_messages("text2image", prompt), tokenize=False,
-                add_generation_prompt=True)
-    elif "minicpm" in model:
-        def text(prompt):
-            return tokenizer.apply_chat_template(
-                [{"role": "user", "content": minicpm_omni_content(prompt)}],
-                tokenize=False, add_generation_prompt=True)
-    else:
+    128 tokens after the prompt (its media included), ending at the
+    tokenizer's EOS (151645 where it has none), and the stack of prompt
+    and answer; the other two families raise ValueError, as in JAX."""
+    if not any(f in model for f in ("internvl", "qwenvl", "minicpm")):
         raise ValueError(f"unknown model family for {model}")
+    dev = lm.embed_tokens.weight.device
+    eos = tokenizer.eos_token_id or 151645
 
-    def tokenize(prompt):
-        enc = tokenizer(text(prompt), padding="max_length", max_length=SEQ,
+    def tokenize(text):
+        enc = tokenizer(text, padding="max_length", max_length=SEQ,
                         truncation=True)
         return (np.asarray(enc["input_ids"], np.int64),
                 np.asarray(enc["attention_mask"], bool))
 
-    eos = tokenizer.eos_token_id or 151645
-    forward = answer = None
-    if "qwenvl" in model:
-        cfg = vl_cfg or Qwen2_5_VLConfig(llm=lm.cfg)
-        dev = lm.embed_tokens.weight.device
+    def no_vision():
+        raise ValueError(f"{model}: this encoder was built without its "
+                         f"vision tower; it takes no images or video")
 
-        def inputs(ids, mask):
-            pos3d, _ = get_rope_index(ids,
-                                      attention_mask=mask.astype(np.int64))
-            return (torch.as_tensor(ids, device=dev),
-                    torch.as_tensor(mask, device=dev),
-                    torch.as_tensor(pos3d, device=dev))
-
-        def forward(ids, mask):
-            return encode_text(lm, cfg, *inputs(ids, mask))
-
-        def answer(ids, mask):
-            return encode_with_answer(lm, cfg, *inputs(ids, mask),
-                                      max_new_tokens=ANSWER_TOKENS,
-                                      eos_token_id=eos)[0]
-    else:
+    def no_answer(*_):
         family = "internvl" if "internvl" in model else "minicpm"
+        raise ValueError(f"use_answer is a Qwen2.5-VL feature; the "
+                         f"{family} family has no answer-conditioned mode")
 
-        def answer(ids, mask):
-            raise ValueError(f"use_answer is a Qwen2.5-VL feature; the "
-                             f"{family} family has no answer-conditioned "
-                             f"mode")
+    if "internvl" in model:
+        encoder_fn, batch_fn = _internvl(lm, tokenize, vl_cfg, vision, dev,
+                                         no_vision, no_answer)
+    elif "qwenvl" in model:
+        encoder_fn, batch_fn = _qwenvl(lm, tokenizer, tokenize, vl_cfg,
+                                       vision, dev, eos, no_vision)
+    else:
+        def text(prompt):
+            return tokenizer.apply_chat_template(
+                [{"role": "user", "content": minicpm_omni_content(prompt)}],
+                tokenize=False, add_generation_prompt=True)
 
-    encoder_fn, batch_fn = lm_text_encoder(lm, tokenize, forward, answer)
+        encoder_fn, batch_fn = lm_text_encoder(
+            lm, lambda prompt: tokenize(text(prompt)), answer=no_answer)
     encoder_fn.batch = batch_fn
-    encoder_fn.ctx = {"lm": lm, "tokenizer": tokenizer, "eos_token_id": eos}
+    encoder_fn.ctx = {"lm": lm, "vision": vision, "tokenizer": tokenizer,
+                      "eos_token_id": eos}
     return encoder_fn
+
+
+def _internvl(lm, tokenize, cfg, vision, dev, no_vision, answer):
+    """The InternVL2.5 family's host and device halves (``mllm_encoder``)."""
+    cfg = cfg or InternVLConfig(llm=lm.cfg)
+    ctx, per_tile = cfg.img_context_token_id, cfg.num_image_token
+
+    def prepare(r):
+        images = r.get("images") or []
+        question = task_instruction(r.get("task", "text2image"),
+                                    r.get("prompt"), num_images=len(images))
+        tiles = None
+        if images:
+            if vision is None:
+                no_vision()
+            tiles = np.concatenate([image_tiles(im, cfg.vision.image_size)
+                                    for im in images], axis=0)
+            question = IMAGE_PREFIX + question
+        query = internvl2_5_prompt(question)
+        if tiles is not None:
+            query = expand_image_tokens(query, [tiles.shape[0]], per_tile)
+        ids, mask = tokenize(query)
+        want = 0 if tiles is None else tiles.shape[0] * per_tile
+        return ids, mask, tiles, int((ids == ctx).sum()) == want
+
+    def forward(ids, mask, extras):
+        ids = torch.as_tensor(ids, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        tiles = [t for t in extras if t is not None]
+        if not tiles:
+            return lm(ids, attention_mask=mask)[0]
+        px = torch.as_tensor(np.concatenate(tiles, axis=0), device=dev)
+        return vision(ids, mask, px)
+
+    return lm_encoder(prepare, forward, answer)
+
+
+def _qwenvl(lm, tokenizer, tokenize, cfg, visual, dev, eos, no_vision):
+    """The Qwen2.5-VL family's host and device halves (``mllm_encoder``)."""
+    cfg = cfg or Qwen2_5_VLConfig(
+        vision=QwenVisionConfig(out_hidden_size=lm.cfg.hidden_size),
+        llm=lm.cfg)
+    v = cfg.vision
+    merge_tokens = v.spatial_merge_size ** 2
+
+    def prepare(r):
+        images = r.get("images") or []
+        video = r.get("video")
+        text = tokenizer.apply_chat_template(
+            qwen_chat_messages(r.get("task", "text2image"), r.get("prompt"),
+                               num_images=len(images),
+                               has_video=video is not None),
+            tokenize=False, add_generation_prompt=True)
+        vin = None
+        if images or video is not None:
+            if visual is None:
+                no_vision()
+            vin = prepare_vision_inputs(
+                images or None, [video] if video is not None else None,
+                patch_size=v.patch_size, merge_size=v.spatial_merge_size,
+                temporal_patch_size=v.temporal_patch_size,
+                window_size=v.window_size)
+            # each pad token becomes its medium's merged-token count, the
+            # video's keeping <|video_pad|> (get_rope_index and the fill
+            # tell images from video by it)
+            for pad, grids in (("<|image_pad|>", vin["image_grid_thw"]),
+                               ("<|video_pad|>", vin["video_grid_thw"])):
+                for grid in np.asarray(grids).reshape(-1, 3):
+                    n = int(np.prod(grid)) // merge_tokens
+                    text = text.replace(pad, "<|placeholder|>" * n, 1)
+                text = text.replace("<|placeholder|>", pad)
+        ids, mask = tokenize(text)
+        pos3d, _ = get_rope_index(
+            ids[None], image_grid_thw=(vin or {}).get("image_grid_thw"),
+            video_grid_thw=(vin or {}).get("video_grid_thw"),
+            attention_mask=mask[None].astype(np.int64),
+            spatial_merge_size=v.spatial_merge_size,
+            image_token_id=cfg.image_token_id,
+            video_token_id=cfg.video_token_id,
+            vision_start_token_id=cfg.vision_start_token_id)
+        pads = int(((ids == cfg.image_token_id)
+                    | (ids == cfg.video_token_id)).sum())
+        want = 0 if vin is None else len(vin["reverse_index"])
+        return ids, mask, (pos3d[:, 0], vin), pads == want
+
+    def inputs(ids, mask, extras):
+        return (torch.as_tensor(ids, device=dev),
+                torch.as_tensor(mask, device=dev),
+                torch.as_tensor(np.stack([e[0] for e in extras], axis=1),
+                                device=dev),
+                vision_tensors(concat_vision_inputs([e[1] for e in extras]),
+                               dev))
+
+    def forward(ids, mask, extras):
+        ids, mask, pos3d, vin = inputs(ids, mask, extras)
+        return encode_text(lm, cfg, ids, mask, pos3d, visual, vin)
+
+    def answer(ids, mask, extra):
+        ids, mask, pos3d, vin = inputs(ids, mask, [extra])
+        return encode_with_answer(lm, cfg, ids, mask, pos3d, vin,
+                                  max_new_tokens=ANSWER_TOKENS,
+                                  eos_token_id=eos, visual=visual)[0]
+
+    return lm_encoder(prepare, forward, answer)
 
 
 # ------------------------------------------------------------ pipeline
@@ -257,26 +375,25 @@ def _build(cls, cfg, device):
 
 
 def _lm_layout(model: str, mllm_path: str, llm_cfg):
-    """-> (the LM's body prefix, its head key, whether a key is off the
-    text path) in the family's checkpoint layout."""
+    """-> (the LM's body prefix, its head key, whether a key is one the
+    port does not read) in the family's checkpoint layout. The InternVL
+    and Qwen2.5-VL directories are read whole (their plans take the
+    vision tower too), a tied head apart; of MiniCPM-o's, the LM alone."""
     tied = llm_cfg.tie_word_embeddings
     if "internvl" in model:
-        body, head, lm = ("language_model.model.",
-                          "language_model.lm_head.weight", "language_model.")
+        body, head = "language_model.model.", "language_model.lm_head.weight"
     elif "minicpm" in model:
-        body, head, lm = "llm.model.", "llm.lm_head.weight", "llm."
+        body, head = "llm.model.", "llm.lm_head.weight"
+        return body, head, lambda k: (not k.startswith("llm.")
+                                      or (tied and k == head))
     else:
         # Qwen2.5-VL: model.language_model.* beside model.visual.* (newer
         # transformers), or model.* beside visual.*
         new = any(k.startswith("model.visual.")
                   for k in safetensors_keys(mllm_path))
-        vis = "model.visual." if new else "visual."
         body = "model.language_model." if new else "model."
         head = "lm_head.weight"
-        return body, head, lambda k: (k.startswith(vis)
-                                      or (tied and k == head))
-    return body, head, lambda k: (not k.startswith(lm)
-                                  or (tied and k == head))
+    return body, head, lambda k: tied and k == head
 
 
 def build_pipeline_from_checkpoints(model: str, flux_path: str,
@@ -285,19 +402,24 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
                                     width: int = 1024, seed: int = 0,
                                     quantized=True, device=None,
                                     tokenizer=None) -> X2IPipeline:
-    """A text->image ``X2IPipeline`` from checkpoint directories, for a
-    registry model of any of the three families (the family is in the
-    name: internvl, qwenvl, minicpm).
+    """An ``X2IPipeline`` from checkpoint directories, for a registry
+    model of any of the three families (the family is in the name:
+    internvl, qwenvl, minicpm): the InternVL2.5 and Qwen2.5-VL encoders
+    whole (vision tower and LM, read in one pass over the directory),
+    MiniCPM-o's LM alone.
 
     The architecture follows each directory's own config files, the
     registry entry where a file is absent. ``quantized``: True is "w8",
     as in JAX, or a mode of ``QUANT_MODES``, or False; the DiT is loaded
     in its dtype, then quantized in place. ``device``: the card unless
     the caller names another ("cpu" in the tests). ``tokenizer``: an HF
-    tokenizer (a callable with ``apply_chat_template``); None loads the
-    one in ``mllm_path`` through ``transformers``. The pipeline's
-    ``load_report`` gives, per module, the tensors and bytes read and
-    the keys off the text path left unread."""
+    tokenizer (a callable with ``apply_chat_template`` and
+    ``convert_tokens_to_ids``); None loads the one in ``mllm_path``
+    through ``transformers``. InternVL's ``<IMG_CONTEXT>`` id is the
+    tokenizer's, as the JAX loader takes it. The pipeline's
+    ``load_report`` gives, per module (flux, vae, proj, mllm), the
+    tensors and bytes read and the keys the port does not read: the
+    VAE's encoder, a tied head, MiniCPM-o's encoders and TTS modules."""
     dev = resolve_device(device)
     spec = MODEL_REGISTRY[model]
     mode = quant_mode("w8" if quantized is True else quantized)
@@ -324,26 +446,44 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     report["proj"] = fill_module(proj, proj_sd.items(), proj_plan(proj_cfg))
     del proj_sd
 
-    vl_cfg = None
-    if "qwenvl" in model:
-        vl_cfg = (qwenvl_config_from_dir(mllm_path, spec.llm)
-                  or Qwen2_5_VLConfig(llm=spec.llm))
-        llm_cfg = vl_cfg.llm
-    else:
-        read = (internvl_llm_config_from_dir if "internvl" in model
-                else minicpmo_llm_config_from_dir)
-        llm_cfg = read(mllm_path, spec.llm) or spec.llm
-    body, head, off_path = _lm_layout(model, mllm_path, llm_cfg)
-    lm = _build(Qwen2LM, llm_cfg, dev)
-    report["lm"] = fill_module(lm, load_safetensors_dir(mllm_path),
-                               qwen2_plan(llm_cfg, body, head), off_path)
-
     if tokenizer is None:
         from transformers import AutoTokenizer
         tokenizer = AutoTokenizer.from_pretrained(
             mllm_path, trust_remote_code=True,
             **({"use_fast": False} if "internvl" in model else {}))
-    encoder_fn = text_encoder(model, lm, tokenizer, vl_cfg)
+    tensors = load_safetensors_dir(mllm_path)
+    if "internvl" in model:
+        vl_cfg = (internvl_config_from_dir(mllm_path, spec.internvl)
+                  or spec.internvl)
+        ctx_id = tokenizer.convert_tokens_to_ids("<IMG_CONTEXT>")
+        if ctx_id is not None and ctx_id >= 0:
+            vl_cfg = replace(vl_cfg, img_context_token_id=ctx_id)
+        *_, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
+        vision = _build(InternVLEncoder, vl_cfg, dev)
+        report["mllm"] = fill_module(vision, tensors, internvl_plan(vl_cfg),
+                                     off_path)
+        lm = vision.language_model
+    elif "qwenvl" in model:
+        vl_cfg = (qwenvl_config_from_dir(mllm_path, spec.llm)
+                  or Qwen2_5_VLConfig(vision=QwenVisionConfig(
+                      out_hidden_size=spec.llm.hidden_size), llm=spec.llm))
+        body, head, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
+        vis = "model.visual." if body == "model.language_model." else \
+            "visual."
+        enc = _build(Qwen2_5_VLEncoder, vl_cfg, dev)
+        report["mllm"] = fill_module(
+            enc, tensors, qwen2_5_vl_plan(vl_cfg, vis, body, head), off_path)
+        lm, vision = enc.language_model, enc.visual
+    else:
+        vl_cfg = vision = None
+        llm_cfg = minicpmo_llm_config_from_dir(mllm_path, spec.llm) \
+            or spec.llm
+        body, head, off_path = _lm_layout(model, mllm_path, llm_cfg)
+        lm = _build(Qwen2LM, llm_cfg, dev)
+        report["mllm"] = fill_module(lm, tensors,
+                                     qwen2_plan(llm_cfg, body, head),
+                                     off_path)
+    encoder_fn = mllm_encoder(model, lm, tokenizer, vl_cfg, vision)
 
     return X2IPipeline(
         encoder_fn=encoder_fn, proj=proj, flux=flux, vae=vae,

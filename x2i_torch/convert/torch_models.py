@@ -14,9 +14,11 @@ float32 copy of the checkpoint and no stacking on the host.
 
 The accounting is strict: the plan names every parameter and buffer of
 the module exactly once, every key of the plan must be in the
-checkpoint, and a key outside the plan must be one the text path does not
-read (``off_path``: a vision tower, the TTS modules, a tied head), which
-the returned report names. Anything else raises.
+checkpoint, and a key outside the plan must be one the port does not
+read (``off_path``: MiniCPM-o's encoders and TTS modules, a tied head, the
+VAE's encoder), which the returned report names. Anything else raises.
+The InternVL2.5 and Qwen2.5-VL plans fill the whole encoder, the vision
+tower and the LM, in one pass over the directory.
 
 FLUX's q/k projections (weights and biases) and its qk-norm scales leave
 in the half-rope layout (``x2i_torch/ops/rope.py::half_layout_perm`` over
@@ -31,8 +33,9 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from x2i_torch.core.config import (FluxConfig, ProjConfig, Qwen2Config,
-                                   VAEConfig)
+from x2i_torch.core.config import (FluxConfig, InternVLConfig, ProjConfig,
+                                   Qwen2Config, VAEConfig)
+from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
 from x2i_torch.ops.rope import half_layout_perm
 
 # checkpoint key -> (the module's parameter or buffer name, a transform
@@ -186,6 +189,90 @@ def qwen2_plan(cfg: Qwen2Config, body: str = "model.",
             plan[f"{s}mlp.{n}_proj.weight"] = (f"{t}{n}_proj.weight", None)
     if not cfg.tie_word_embeddings:
         plan[head] = ("lm_head.weight", None)
+    return plan
+
+
+def _prefixed(plan: Plan, prefix: str) -> Plan:
+    """The plan of a submodule, its destinations under ``prefix``."""
+    return {k: (prefix + name, fn) for k, (name, fn) in plan.items()}
+
+
+def internvl_plan(cfg: InternVLConfig) -> Plan:
+    """HF InternVLChatModel -> ``InternVLEncoder``: vision_model.
+    embeddings.{class_embedding, position_embedding, patch_embedding} keep
+    their names (the conv in torch's layout), vision_model.encoder.
+    layers.{i}.* -> vision_model.block.{i}.* (norm weights -> scale,
+    attn.qkv / attn.proj -> qkv / proj, mlp.fc1 / fc2 -> fc1 / fc2,
+    attn.{q,k}_norm.weight -> {q,k}_norm_scale, ls1, ls2); mlp1.{0,1,3}
+    -> mlp1_norm, mlp1_fc1, mlp1_fc2; the LM under
+    ``language_model.model.`` (an untied head at
+    ``language_model.lm_head.weight``) -> language_model."""
+    v = cfg.vision
+    plan: Plan = {}
+
+    def same(src, dst, bias=True, norm=False):
+        plan[f"{src}.weight"] = (f"{dst}.{'scale' if norm else 'weight'}",
+                                 None)
+        if bias:
+            plan[f"{src}.bias"] = (f"{dst}.bias", None)
+
+    e = "vision_model.embeddings."
+    for n in ("class_embedding", "position_embedding"):
+        plan[e + n] = (f"vision_model.{n}", None)
+    same(e + "patch_embedding", "vision_model.patch_embedding")
+    for i in range(v.num_hidden_layers):
+        s, t = f"vision_model.encoder.layers.{i}.", f"vision_model.block.{i}."
+        same(s + "norm1", t + "norm1", norm=True)
+        same(s + "norm2", t + "norm2", norm=True)
+        same(s + "attn.qkv", t + "qkv", bias=v.qkv_bias)
+        same(s + "attn.proj", t + "proj")
+        same(s + "mlp.fc1", t + "fc1")
+        same(s + "mlp.fc2", t + "fc2")
+        for n in ("ls1", "ls2"):
+            plan[s + n] = (t + n, None)
+        if v.qk_normalization:
+            for n in ("q", "k"):
+                plan[f"{s}attn.{n}_norm.weight"] = (f"{t}{n}_norm_scale",
+                                                    None)
+    same("mlp1.0", "mlp1_norm", norm=True)
+    same("mlp1.1", "mlp1_fc1")
+    same("mlp1.3", "mlp1_fc2")
+    plan.update(_prefixed(qwen2_plan(cfg.llm, "language_model.model.",
+                                     "language_model.lm_head.weight"),
+                          "language_model."))
+    return plan
+
+
+def qwen2_5_vl_plan(cfg: Qwen2_5_VLConfig, vis: str = "visual.",
+                    body: str = "model.", head: str = "lm_head.weight"
+                    ) -> Plan:
+    """HF Qwen2.5-VL -> ``Qwen2_5_VLEncoder``: the tower under ``vis``
+    (``visual.`` or ``model.visual.``) -> visual: patch_embed.proj.weight
+    (E, C, tps, ps, ps) -> patch_embed.weight flattened to (E, C * tps *
+    ps^2), blocks.{i}.* -> block.{i}.* (norm weights -> scale, attn.qkv /
+    attn.proj -> qkv / proj, mlp.{gate,up,down}_proj keep their names),
+    merger.ln_q -> ln_q, merger.mlp.{0,2} -> merger_fc{1,2}; the LM under
+    ``body`` -> language_model."""
+    v = cfg.vision
+    plan: Plan = {f"{vis}patch_embed.proj.weight": (
+        "visual.patch_embed.weight", lambda t: t.reshape(t.shape[0], -1))}
+    for i in range(v.depth):
+        s, t = f"{vis}blocks.{i}.", f"visual.block.{i}."
+        for n in ("norm1", "norm2"):
+            plan[f"{s}{n}.weight"] = (f"{t}{n}.scale", None)
+        for src, dst in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                         ("mlp.gate_proj", "gate_proj"),
+                         ("mlp.up_proj", "up_proj"),
+                         ("mlp.down_proj", "down_proj")):
+            for leaf in ("weight", "bias"):
+                plan[f"{s}{src}.{leaf}"] = (f"{t}{dst}.{leaf}", None)
+    plan[f"{vis}merger.ln_q.weight"] = ("visual.ln_q.scale", None)
+    for src, dst in (("0", "merger_fc1"), ("2", "merger_fc2")):
+        for leaf in ("weight", "bias"):
+            plan[f"{vis}merger.mlp.{src}.{leaf}"] = (f"visual.{dst}.{leaf}",
+                                                     None)
+    plan.update(_prefixed(qwen2_plan(cfg.llm, body, head),
+                          "language_model."))
     return plan
 
 

@@ -33,9 +33,12 @@ norms and a tied head stay in ``dtype``. ``quantize_module_`` reads
 ``quant_impl`` from every config that has ``quantized``.
 
 ``MODEL_REGISTRY`` and ``PROJ_REGISTRY`` hold the JAX package's six
-models and five projs, field for field; a ``ModelSpec`` carries the text
-path's parts only (the JAX entry's InternVL vision config comes with the
-vision tower).
+models and five projs, field for field. A ``ModelSpec`` carries the LM
+as ``llm`` and, for the two InternVL2.5 entries, the JAX entry's whole
+``InternVLConfig`` (InternViT, pixel shuffle, ``<IMG_CONTEXT>``) as
+``internvl``, whose ``llm`` is the same LM. The Qwen2.5-VL entries carry
+no vision config, as in JAX: the loader takes the released tower's
+(``models/qwen2_5_vl.py::QwenVisionConfig``) at the LM's width.
 """
 
 from __future__ import annotations
@@ -185,6 +188,44 @@ class Qwen2Config:
 
 
 @dataclass(frozen=True)
+class InternViTConfig:
+    """InternViT-300M-448px: 24 LayerNorm blocks of width 1024, 16 heads
+    of 64, MLP 4096, 14-pixel patches of 448-pixel tiles, learnable
+    residual scales ls1/ls2. ``use_rms_norm`` is the JAX field; the
+    blocks are LayerNorm blocks either way, as in JAX."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 448
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = True
+    qk_normalization: bool = False
+    use_rms_norm: bool = False
+    initializer_factor: float = 0.1  # the initial ls1/ls2
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"
+
+
+@dataclass(frozen=True)
+class InternVLConfig:
+    """The InternVL2.5 chat model as the encoder: InternViT, the
+    pixel-shuffle mlp1 and the Qwen2 LM, ``num_image_token``
+    ``<IMG_CONTEXT>`` tokens per tile ((448/14)^2 * 0.5^2)."""
+
+    vision: InternViTConfig = field(default_factory=InternViTConfig)
+    llm: Qwen2Config = field(default_factory=Qwen2Config)
+    downsample_ratio: float = 0.5
+    ps_version: str = "v2"
+    img_context_token_id: int = 151667
+    num_image_token: int = 256
+    template: str = "internvl2_5"
+    dtype: Any = torch.bfloat16
+
+
+@dataclass(frozen=True)
 class SchedulerConfig:
     """Flow-match Euler discrete scheduler (diffusers semantics)."""
 
@@ -319,28 +360,32 @@ PROJ_REGISTRY: Dict[str, ProjConfig] = {
 
 @dataclass(frozen=True)
 class ModelSpec:
-    """One registry entry: the text path's LM, proj, DiT and scheduler."""
+    """One registry entry: the LM, proj, DiT and scheduler, and for the
+    InternVL2.5 entries the encoder's config (its ``llm`` is ``llm``)."""
 
     llm: Qwen2Config = field(default_factory=Qwen2Config)
     proj: ProjConfig = field(default_factory=ProjConfig)
     flux: FluxConfig = field(default_factory=FluxConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    internvl: Optional[InternVLConfig] = None
 
 
-def _schnell(llm: Qwen2Config, proj: str) -> ModelSpec:
+def _schnell(llm: Qwen2Config, proj: str,
+             internvl: bool = False) -> ModelSpec:
     """An entry on FLUX.1-schnell: 4 steps, no guidance embedder, shift 1."""
     return ModelSpec(
         llm=llm, proj=PROJ_REGISTRY[proj],
         flux=FluxConfig(guidance_embeds=False),
-        scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False))
+        scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False),
+        internvl=InternVLConfig(llm=llm) if internvl else None)
 
 
 # The encoder family is in the name (internvl, qwenvl, minicpm), as the
 # checkpoint loader reads it.
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
-    "x2i-internvl2.5-1b": _schnell(Qwen2Config(), "internvl1b"),
-    "x2i-internvl2.5-4b": _schnell(_internvl_4b_llm(), "internvl4b"),
+    "x2i-internvl2.5-1b": _schnell(Qwen2Config(), "internvl1b", True),
+    "x2i-internvl2.5-4b": _schnell(_internvl_4b_llm(), "internvl4b", True),
     "x2i-qwenvl2.5-3b": _schnell(_qwen2_5_vl_3b_llm(), "qwen3b"),
     "x2i-qwenvl2.5-7b": _schnell(_qwen2_5_vl_7b_llm(), "qwen7b"),
     "x2i-minicpm-o-2.6": _schnell(_minicpm_llm(), "minicpm"),

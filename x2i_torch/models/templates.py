@@ -1,11 +1,18 @@
-"""Chat templates and prompt builders of the text path, the counterpart of
-the text parts of ``x2i_tpu/models/templates.py`` (its strings character
-for character): the InternVL2.5 prompt with its system message and task
-instruction, the Qwen2.5-VL message list and the MiniCPM-o content."""
+"""Chat templates and prompt builders, the counterpart of
+``x2i_tpu/models/templates.py`` (its strings character for character):
+the InternVL2.5 prompt with its system message and task instruction, its
+image placeholders (``<image>`` expanded to ``<img>``, one
+``<IMG_CONTEXT>`` per ViT feature, ``</img>``), the Qwen2.5-VL message
+list and the MiniCPM-o content."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+IMG_START, IMG_END, IMG_CONTEXT = "<img>", "</img>", "<IMG_CONTEXT>"
+# what the InternVL encoder puts before the question of a request with
+# images; expand_image_tokens replaces its "<image>"
+IMAGE_PREFIX = "<image>\n"
 
 INTERNVL_SYSTEM = ("你是书生·万象，英文名是InternVL，是由上海人工智能实验室、清华大学及"
                    "多家合作单位联合开发的多模态大语言模型。")
@@ -25,6 +32,18 @@ def internvl2_5_prompt(question: str,
     ret += "<|im_start|>user\n" + question + sep
     ret += "<|im_start|>assistant\n"
     return ret
+
+
+def expand_image_tokens(query: str, num_patches_list: Sequence[int],
+                        tokens_per_patch: int = 256) -> str:
+    """Replace each '<image>' with <img><IMG_CONTEXT>*256*patches</img>
+    (inference_internvl.py:122-124)."""
+    for num_patches in num_patches_list:
+        image_tokens = (IMG_START
+                        + IMG_CONTEXT * tokens_per_patch * num_patches
+                        + IMG_END)
+        query = query.replace("<image>", image_tokens, 1)
+    return query
 
 
 def task_instruction(task: str, prompt: Optional[str] = None,

@@ -1,5 +1,9 @@
-"""X2I text->image pipeline: LM hidden states -> proj -> FLUX -> VAE, the
-counterpart of ``x2i_tpu/pipeline.py`` on the text path.
+"""X2I pipeline: MLLM hidden states -> proj -> FLUX -> VAE, the
+counterpart of ``x2i_tpu/pipeline.py``: text2image, image2image,
+imagetext2image, video2image and x2image, and the batched ``run_batch``
+(audio2image waits for MiniCPM-o's encoders). ``lm_encoder`` joins a
+family's host half (templates, tokens, image tiles or patches) and device
+half (vision tower and LM) into the encoder functions the pipeline calls.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they raise.
@@ -49,54 +53,78 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
-                    forward: Optional[Callable] = None,
-                    answer: Optional[Callable] = None):
-    """-> (encoder_fn, encoder_batch_fn) over a Qwen2 LM.
+def lm_encoder(prepare: Callable, forward: Callable,
+               answer: Optional[Callable] = None):
+    """-> (encoder_fn, encoder_batch_fn) from a family's host half
+    (``prepare``) and device half (``forward``, ``answer``).
 
-    tokenize(text) -> (ids (S,) ints, mask (S,) bools); every prompt of a
-    batch must give the same S. forward(ids, mask), numpy (B, S), -> the
-    hidden-state stack; by default the LM at its default positions.
-    answer(ids, mask), numpy (1, S), -> the ``use_answer`` stack of one
-    request (the prompt's hidden states, then a decoded answer's); None:
-    a ``use_answer`` request raises ValueError. A batch that holds a
-    ``use_answer`` request is encoded request by request, as in JAX (the
-    answer changes the stack's length). Text requests only: images,
-    video and audio belong to the encoders of ROADMAP.md Queue A item 4
-    and raise."""
-    dev = lm.embed_tokens.weight.device
+    prepare(request) -> (ids (S,) ints, mask (S,) bools, extra, whole):
+    the host half of one request. ``extra`` is what the device half needs
+    of it besides the tokens (its media as tiles or patch arrays, its
+    positions), ``whole`` whether the prompt kept every media placeholder
+    (False when the token budget cut some); every request of a batch
+    gives the same S. forward(ids (B, S), mask (B, S), extras) -> the
+    hidden-state stack: the device half, the batch's media in one vision
+    call. answer(ids (1, S), mask (1, S), extra) -> the ``use_answer``
+    stack of one request (the prompt's hidden states, then a decoded
+    answer's); None: a ``use_answer`` request raises ValueError.
 
-    def plain(ids, mask):
-        return lm(torch.as_tensor(ids, device=dev),
-                  attention_mask=torch.as_tensor(mask, device=dev))[0]
-
-    forward = forward or plain
+    A batch is encoded request by request, as in JAX, when it holds a
+    ``use_answer`` request (the answer changes the stack's length) or a
+    request that lost placeholders (the features fill the placeholders of
+    the whole batch in order, so a cut row would shift every later
+    row's)."""
 
     def encoder_batch_fn(requests: Sequence[Dict[str, Any]]):
-        for r in requests:
-            if (r.get("images") or r.get("video") is not None
-                    or r.get("audio") is not None):
-                raise NotImplementedError(
-                    "image, video and audio inputs come with the vision and "
-                    "audio encoders (ROADMAP.md Queue A item 4); the port "
-                    "encodes text")
-        if any(r.get("use_answer") for r in requests):
-            if answer is None:
-                raise ValueError("use_answer: this encoder has no "
-                                 "answer-conditioned mode")
-            if len(requests) > 1:
-                return torch.cat([encoder_batch_fn([r]) for r in requests])
-        ids, mask = zip(*(tokenize(r.get("prompt") or "") for r in requests))
-        ids, mask = np.stack(ids), np.stack(mask).astype(bool)
+        if any(r.get("use_answer") for r in requests) and answer is None:
+            raise ValueError("use_answer: this encoder has no "
+                             "answer-conditioned mode")
+        preps = [prepare(r) for r in requests]
+        if len(requests) > 1 and (
+                any(r.get("use_answer") for r in requests)
+                or not all(p[3] for p in preps)):
+            return torch.cat([encoder_batch_fn([r]) for r in requests])
+        ids = np.stack([p[0] for p in preps])
+        mask = np.stack([p[1] for p in preps]).astype(bool)
+        extras = [p[2] for p in preps]
         with torch.inference_mode():
             if requests[0].get("use_answer"):
-                return answer(ids, mask)
-            return forward(ids, mask)
+                return answer(ids, mask, extras[0])
+            return forward(ids, mask, extras)
 
     def encoder_fn(inputs: Dict[str, Any]):
         return encoder_batch_fn([inputs])
 
     return encoder_fn, encoder_batch_fn
+
+
+# what a text-only encoder says of a request with media
+MEDIA_REFUSED = ("this encoder takes text only: the port's image and video "
+                 "encoders are the InternVL2.5 and Qwen2.5-VL families'; "
+                 "the MiniCPM-o family's image, video and audio encoders "
+                 "are ROADMAP.md Queue A item 4.3")
+
+
+def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
+                    answer: Optional[Callable] = None):
+    """``lm_encoder`` for text: tokenize(text) -> (ids (S,), mask (S,)),
+    the LM at its default positions; answer(ids, mask) as
+    ``lm_encoder``'s. A request with images, video or audio raises
+    NotImplementedError."""
+    dev = lm.embed_tokens.weight.device
+
+    def prepare(r):
+        if (r.get("images") or r.get("video") is not None
+                or r.get("audio") is not None):
+            raise NotImplementedError(MEDIA_REFUSED)
+        return (*tokenize(r.get("prompt") or ""), None, True)
+
+    def forward(ids, mask, extras):
+        return lm(torch.as_tensor(ids, device=dev),
+                  attention_mask=torch.as_tensor(mask, device=dev))[0]
+
+    return lm_encoder(prepare, forward, None if answer is None else (
+        lambda ids, mask, extra: answer(ids, mask)))
 
 
 @dataclasses.dataclass
@@ -184,19 +212,42 @@ class X2IPipeline:
         return postprocess(pixels).cpu().numpy()
 
     def run_task(self, task: str, prompt: Optional[str] = None,
+                 images: Optional[Sequence] = None,
+                 video: Optional[Any] = None, audio: Optional[Any] = None,
                  use_answer: bool = False, **gen_kwargs) -> np.ndarray:
-        """``use_answer``: condition on the prompt and a decoded answer
-        (reasoning2image), where the encoder has that mode."""
-        pooled, prompt_embeds = self.encode({"prompt": prompt, "task": task,
-                                             "use_answer": use_answer})
+        """One request of ``task`` through the encoder, then one image.
+        images: PIL images (or their host half's output, see the
+        family's encoder); video: frames (``data/video.py``); audio: a
+        waveform, which no ported encoder takes. ``use_answer``: condition
+        on the prompt and a decoded answer (reasoning2image), where the
+        encoder has that mode."""
+        inputs = {"prompt": prompt, "images": images, "video": video,
+                  "audio": audio, "task": task, "use_answer": use_answer}
+        pooled, prompt_embeds = self.encode(inputs)
         return self.generate(pooled, prompt_embeds, **gen_kwargs)
 
     def text2image(self, prompt: str, **kw) -> np.ndarray:
         return self.run_task("text2image", prompt=prompt, **kw)
 
+    def image2image(self, images, **kw) -> np.ndarray:
+        return self.run_task("image2image", images=images, **kw)
+
+    def imagetext2image(self, prompt: str, images, **kw) -> np.ndarray:
+        return self.run_task("imagetext2image", prompt=prompt,
+                             images=images, **kw)
+
+    def video2image(self, video, **kw) -> np.ndarray:
+        return self.run_task("video2image", video=video, **kw)
+
+    def x2image(self, prompt=None, images=None, audio=None,
+                **kw) -> np.ndarray:
+        return self.run_task("x2image", prompt=prompt, images=images,
+                             audio=audio, **kw)
+
     def run_batch(self, requests, **gen_kwargs) -> np.ndarray:
-        """One batched LM prefill and one batched denoise for a request
-        list (the serving engine's call)."""
+        """One batched encode (one vision call and one LM prefill where
+        the encoder batches) and one batched denoise for a list of
+        ``run_task``-style request dicts (the serving engine's call)."""
         pooled, embeds = self.encode_batch(requests)
         return self.generate(pooled, embeds, **gen_kwargs)
 

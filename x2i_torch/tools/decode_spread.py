@@ -40,7 +40,7 @@ def build_entry(seed: int):
     import torch
 
     import chip_smoke as cs
-    from x2i_torch.convert.load import text_encoder
+    from x2i_torch.convert.load import mllm_encoder
     from x2i_torch.core.config import MODEL_REGISTRY, GenerationConfig
     from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
     from x2i_torch.models.proj import Proj
@@ -59,7 +59,7 @@ def build_entry(seed: int):
         seed + zlib.crc32(name.encode()))
     lm = random_init_(Qwen2LM(spec.llm, dev), g)
     proj = random_init_(Proj(spec.proj, dev), g)
-    enc = text_encoder(name, lm, cs.ByteTokenizer("qwenvl"))
+    enc = mllm_encoder(name, lm, cs.ByteTokenizer("qwenvl"))
     return X2IPipeline(
         encoder_fn=enc, proj=proj, flux=flux, vae=vae,
         scheduler=FlowMatchEulerScheduler(spec.scheduler),

@@ -32,7 +32,9 @@ Phases, each printing one JSON line per record:
    LM's products at one decode row and at the 512-token prefill, and K8
    at its decode rows (3584 and 18944 wide); K1b at InternViT-300M's
    shape (16 heads x 64, 1025 tokens padded to 1152, 127 masked keys,
-   non-causal), SDPA on the same padded, masked tensors beside it;
+   non-causal) and at MiniCPM-o's resampler's (28 heads x 128, 64 query
+   rows padded to 128, one slice of 1024 patches and a batch of slices of
+   1024 and 600), SDPA on the same padded, masked tensors beside each;
 2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
    at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
    blocks in two shards, the whole VAE; an InternVL directory with
@@ -42,7 +44,13 @@ Phases, each printing one JSON line per record:
    rate, host and card peak memory; loaded on the CPU too, and the two
    copies held equal bit for bit (nothing of the directory unread); one
    1024^2 imagetext2image with exact launch counts, and the same image
-   after a load in the default w8;
+   after a load in the default w8; then a MiniCPM-o-2.6 directory
+   (SigLIP-so400m with its 27 blocks, the resampler, Whisper-medium and
+   the audio projector at full width, the Qwen2-7B LM cut to 2 layers,
+   a TTS tensor) beside the same cut DiT, loaded onto the card and the
+   CPU and held equal bit for bit, unread only what JAX leaves unread,
+   and its x2image (prompt, image, 5 s of audio) with exact launch
+   counts;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
@@ -95,7 +103,13 @@ Phases, each printing one JSON line per record:
    x2i-internvl2.5-4b entry's imagetext2image, each Qwen2.5-VL entry's
    image2image (its tower takes the plain route: no launch), and the
    7B's video2image (eight 128^2 frames) and a use_answer image after an
-   image input; on the x2i-qwenvl2.5-7b entry, before its LM is freed:
+   image input; x2i-minicpm-o-2.6's image2image, audio2image (5 s of
+   audio), x2image and video2image (4 frames) on SigLIP, the resampler,
+   Whisper and the projector drawn on the card (K1b 29 / 28 / 29 / 29:
+   the LM's 28 and the resampler's one call), its stack on the kernel
+   route held against the plain attention, and a batch of an image and
+   an audio request (one SigLIP and one Whisper call, the stacks against
+   the serial ones); on the x2i-qwenvl2.5-7b entry, before its LM is freed:
 8a. answer: use_answer reasoning2image on that LM (bf16): the 512-token
    prompt's cached prefill, 128 greedy steps, a 640-token conditioning,
    one 1024^2 image with exact launch counts (no K1b: the cache takes the
@@ -319,6 +333,21 @@ def _tables(kw):
     return tables
 
 
+def _flash_bytes(qt, kt, vt, out, kw, valid_rows=None) -> int:
+    """The bytes one attention call must move: the q and output rows the
+    caller keeps (`valid_rows` of each (batch, head), by default all),
+    the k and v rows the mask keeps, the mask and the tables."""
+    b, _, sq, _ = qt.shape
+    keep = (valid_rows or sq) / sq
+    mask = kw.get("kv_mask")
+    keys = (kt.shape[0] * kt.shape[2] if mask is None
+            else int(mask.sum()))
+    kv_row = kt.shape[1] * (kt.shape[-1] * kt.element_size()
+                            + vt.shape[-1] * vt.element_size())
+    return int(keep * nbytes(qt, out)) + keys * kv_row + nbytes(
+        mask, *_tables(kw))
+
+
 def rate(rec, flops):
     """Adds the achieved TFLOP/s and the share of the bound to a record
     that has its time and its bound."""
@@ -334,7 +363,9 @@ def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
     ``call_ms``, one call as its caller sees it, host path included: a
     launch-bound kernel's row is then told from a slow kernel's.
     `valid_rows`: the q rows the caller keeps (the pad route slices off
-    the others), which the bound counts; by default all."""
+    the others), which the bound counts; by default all. The bound's
+    bytes count those rows of q and the output and the k and v rows the
+    mask keeps."""
     import torch
     from x2i_torch.ops import flash_attention as fa
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -348,11 +379,9 @@ def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
     plain_ms = kernel_ms(lambda *t: fa.flash_attention_plain(*t, **kw),
                          qt, kt, vt)
     lib_ms = kernel_ms(library[0], *library[1]) if library else None
-    mask = kw.get("kv_mask")
-    tables = _tables(kw)
     flops = 4.0 * _pairs(qt, kt, kw) * qt.shape[-1] * (
         (valid_rows or qt.shape[2]) / qt.shape[2])
-    bms, by = bound(flops, nbytes(qt, kt, vt, got, mask, *tables))
+    bms, by = bound(flops, _flash_bytes(qt, kt, vt, got, kw, valid_rows))
     rec = {"phase": "kernels", "kernel": name, "shape": list(qt.shape),
            "kv_shape": list(kt.shape), "max_abs_err": err_max,
            "mean_abs_err": err_mean, "finite": finite, "ms": ms,
@@ -773,6 +802,7 @@ def phase_kernels(seed: int):
                         f"keys]", q, k, v, recs, library=lib,
                         host_time=True, kv_mask=mask, causal=True)
     check_vit_attention(randn, recs)
+    check_resampler_attention(randn, recs)
     # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
     # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
     for rows_n in (4096, 512, 4608, 16384, 16896):
@@ -847,6 +877,47 @@ def check_vit_attention(randn, recs):
     check_flash(f"flash_fwd[{VIT_CASE}]", q, k, v, recs, library=lib,
                 host_time=True, valid_rows=VIT_TOKENS, kv_mask=mask)
     recs[-1]["case"] = VIT_CASE
+
+
+# MiniCPM-o's resampler: the patch counts of the slices of one batch
+RESAMPLER_SLICES = ((1024,), (1024, 600))
+
+
+def check_resampler_attention(randn, recs):
+    """K1 at MiniCPM-o's resampler: 64 queries (28 heads x 128, the same
+    rows for every slice) padded to 128 rows, on each slice's patches
+    with the patch mask, non-causal, no rope, as the dispatcher's pad
+    route hands them to the exact body: one 448^2 slice (1024 patches, no
+    key padding) and a batch of two slices of 1024 and 600 patches (the
+    second's 424 masked keys inside its kv tiles). The bound counts the 64
+    kept rows and the keys the mask keeps; the library's time is SDPA on
+    the 64 query rows with the patch mask (``library_padded_ms``: SDPA on
+    the pad route's 128 rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    for lengths in RESAMPLER_SLICES:
+        n, skv = len(lengths), max(lengths)
+        q = torch.zeros((n, 128, 28, 128), dtype=torch.bfloat16,
+                        device="cuda")
+        q[:, :64] = randn(1, 64, 28, 128)
+        k, v = randn(n, skv, 28, 128), randn(n, skv, 28, 128)
+        mask = (torch.arange(skv, device="cuda")[None]
+                < torch.tensor(lengths, device="cuda")[:, None])
+        qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa(*t, m=mask[:, None, None, :]):
+            return F.scaled_dot_product_attention(*t, attn_mask=m)
+        case = (f"resampler: 28 heads x 128, 64 of 128 q rows, "
+                f"{' + '.join(map(str, lengths))} of {n} x {skv} keys, "
+                f"non-causal")
+        check_flash(f"flash_fwd[{case}]", q, k, v, recs,
+                    library=(sdpa, (qc[:, :, :64].contiguous(), kc, vc)),
+                    host_time=True, valid_rows=64, kv_mask=mask)
+        recs[-1]["case"] = case
+        recs[-1]["library_padded_ms"] = kernel_ms(sdpa, qc, kc, vc)
+        emit({"phase": "kernels", "case": case,
+              "library_padded_ms": recs[-1]["library_padded_ms"]})
 
 
 def check_glue(g, randn, rows, recs):
@@ -1921,7 +1992,8 @@ def media(family: str, seed: int, n: int, frames: int = 0):
     tiles and normalizes them), else the host half's output drawn from
     the seed at its exact shapes and dtypes ("arrays": InternVL's
     (1, 448, 448, 3) float32 tiles, Qwen2.5-VL's (flat patches,
-    grid_thw) pairs)."""
+    grid_thw) pairs, MiniCPM-o's (patches, (32, 32)) pairs of one 448^2
+    slice an image or frame)."""
     import numpy as np
     rng = np.random.default_rng([seed, n, frames])
     count = frames or n
@@ -1930,6 +2002,9 @@ def media(family: str, seed: int, n: int, frames: int = 0):
     try:
         from PIL import Image
     except ImportError:
+        if family == "minicpm":
+            return [(rng.standard_normal((1024, 588)).astype(np.float32),
+                     (32, 32)) for _ in range(count)], "arrays"
         if family == "internvl":
             return [rng.standard_normal((1, 448, 448, 3)).astype(np.float32)
                     for _ in range(n)], "arrays"
@@ -1989,6 +2064,27 @@ def draw_qwen_tower(name: str, lm, seed: int, tok):
     g = torch.Generator(device=dev).manual_seed(
         seed + zlib.crc32(f"{name} vision".encode()))
     return cfg, random_init_(QwenVisionTransformer(cfg.vision, dev), g)
+
+
+def draw_minicpmo(name: str, lm, seed: int):
+    """MiniCPM-o's encoder of registry entry ``name`` over ``lm``:
+    SigLIP-so400m (26 blocks), the resampler, the Whisper-medium encoder
+    and the audio projector drawn on the card."""
+    import zlib
+
+    import torch
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.minicpmo import MiniCPMOEncoder
+    from x2i_torch.params import random_init_
+
+    dev = lm.embed_tokens.weight.device
+    g = torch.Generator(device=dev).manual_seed(
+        seed + zlib.crc32(f"{name} vision".encode()))
+    enc = MiniCPMOEncoder(MODEL_REGISTRY[name].minicpmo, dev,
+                          language_model=lm)
+    for part in (enc.vpm, enc.resampler, enc.apm, enc.audio_projector):
+        random_init_(part, g)
+    return enc
 
 
 def set_attention_impl(module, impl: str):
@@ -2305,18 +2401,27 @@ def _drawn(g, shape, name):
     return make
 
 
-def _entries(module_cls, cfg, plan, g, prefix=""):
+def _entries(module_cls, cfg, plan, g, prefix="", released=None):
     """(name, shape, bf16, make) of every checkpoint key of ``plan``, the
     shapes those of the port module it fills (torch layouts are the
     checkpoint's): the checkpoint side of the port's own converter, whose
-    key names the CPU tests hold against the JAX converters."""
+    key names the CPU tests hold against the JAX converters. A key that
+    fills several parameters (a packed projection) stacks their rows;
+    ``released``: {key: shape} where the checkpoint's shape is not the
+    module's (a patch convolution the module keeps flattened)."""
     import torch
     meta = module_cls(cfg, device="meta")
     shapes = {**{n: p.shape for n, p in meta.named_parameters()},
               **{n: b.shape for n, b in meta.named_buffers()}}
-    return [(prefix + key, tuple(shapes[dst]), torch.bfloat16,
-             _drawn(g, tuple(shapes[dst]), key))
-            for key, (dst, _) in plan.items()]
+    out = []
+    for key, dst in plan.items():
+        dsts = dst if isinstance(dst, list) else [dst]
+        first = tuple(shapes[dsts[0][0]])
+        shape = (released or {}).get(
+            key, (len(dsts) * first[0], *first[1:]))
+        out.append((prefix + key, shape, torch.bfloat16,
+                    _drawn(g, shape, key)))
+    return out
 
 
 def _vae_encoder_entries(cfg, g):
@@ -2472,6 +2577,152 @@ def write_checkpoint_dirs(root: str, seed: int):
     return flux, mllm, proj, written
 
 
+CKPT_MINICPM_LAYERS = 2                    # the LM's depth in the fixture
+
+
+def write_minicpm_dir(root: str, seed: int):
+    """A MiniCPM-o-2.6 directory in the released layout, weights drawn on
+    the card: SigLIP-so400m (all 27 blocks, as released; MiniCPM runs 26),
+    the resampler (its in-projection packed), the Whisper-medium encoder
+    (with the stored position table it does not read) and the audio
+    projector at full width, the Qwen2-7B LM cut to 2 full-width layers,
+    one ``tts.`` tensor; the flat config.json with ``vision_config``,
+    ``audio_config`` and ``query_num``; and a proj .bin over the cut LM's
+    3 hidden states. -> (mllm path, proj path, the cut config, bytes
+    written)."""
+    import dataclasses
+    import os
+
+    import torch
+    from x2i_torch.convert.torch_models import minicpmo_plan, proj_plan
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.models.minicpmo import MiniCPMOEncoder
+    from x2i_torch.models.proj import Proj
+
+    spec = MODEL_REGISTRY[MINICPM_MODEL]
+    cfg = dataclasses.replace(spec.minicpmo, llm=dataclasses.replace(
+        spec.llm, num_hidden_layers=CKPT_MINICPM_LAYERS))
+    v, a, llm = cfg.vision, cfg.audio, cfg.llm
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    path = os.path.join(root, "minicpm")
+    os.makedirs(path)
+    patch = "vpm.embeddings.patch_embedding.weight"
+    entries = _entries(MiniCPMOEncoder, cfg, minicpmo_plan(cfg), g,
+                       released={patch: (v.hidden_size, 3, v.patch_size,
+                                         v.patch_size)})
+    last = v.effective_layers
+    entries += [(k.replace(".0.", f".{last}.", 1), shape, dt,
+                 _drawn(g, shape, k)) for k, shape, dt, _ in entries
+                if k.startswith("vpm.encoder.layers.0.")]
+    entries += [("apm.embed_positions.weight",
+                 (a.max_source_positions, a.d_model), torch.bfloat16,
+                 _drawn(g, (a.max_source_positions, a.d_model), "pos")),
+                ("tts.emb_text.weight", (4, 768), torch.bfloat16,
+                 _drawn(g, (4, 768), "tts"))]
+    written = write_safetensors(os.path.join(path, "model.safetensors"),
+                                entries)
+    _write_json(os.path.join(path, "config.json"), {
+        "model_type": "minicpmo", "vocab_size": llm.vocab_size,
+        "hidden_size": llm.hidden_size,
+        "intermediate_size": llm.intermediate_size,
+        "num_hidden_layers": llm.num_hidden_layers,
+        "num_attention_heads": llm.num_attention_heads,
+        "num_key_value_heads": llm.num_key_value_heads,
+        "rope_theta": llm.rope_theta, "rms_norm_eps": llm.rms_norm_eps,
+        "tie_word_embeddings": llm.tie_word_embeddings,
+        "query_num": cfg.query_num, "audio_pool_step": cfg.audio_pool_step,
+        "vision_config": {f: getattr(v, f) for f in (
+            "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "image_size", "patch_size")},
+        "audio_config": {f: getattr(a, f) for f in (
+            "num_mel_bins", "d_model", "encoder_layers",
+            "encoder_attention_heads", "encoder_ffn_dim",
+            "max_source_positions")}})
+    proj_cfg = dataclasses.replace(spec.proj,
+                                   in_channels=CKPT_MINICPM_LAYERS + 1)
+    proj = os.path.join(root, "minicpm_proj.bin")
+    torch.save({"module." + name: make().to(dtype).cpu()
+                for name, _, dtype, make in _entries(
+                    Proj, proj_cfg, proj_plan(proj_cfg), g)}, proj)
+    return path, proj, cfg, written + os.path.getsize(proj)
+
+
+def checkpoint_minicpm(root: str, flux: str, seed: int):
+    """MiniCPM-o's checkpoint into the port: ``write_minicpm_dir``'s
+    directory loaded by ``build_pipeline_from_checkpoints`` onto the card
+    (bf16) beside the phase's cut DiT, and onto the CPU; every tensor of
+    the card's encoder (SigLIP, the resampler, Whisper, the projector,
+    the LM) and proj bit for bit the CPU copy; unread only the ``tts.``
+    tensor, SigLIP's 27th block and Whisper's stored position table; one
+    1024^2 x2image (prompt, image, 5 s of audio) with exact launch counts
+    (K1b: 2 LM layers and the resampler). -> its launch counts."""
+    import gc
+
+    import torch
+    from x2i_torch.convert.load import build_pipeline_from_checkpoints
+
+    t0 = time.perf_counter()
+    mllm, proj, cfg, written = write_minicpm_dir(root, seed)
+    write_s = time.perf_counter() - t0
+    tok = ByteTokenizer("minicpm")
+    args = (MINICPM_MODEL, flux, mllm, proj)
+    t0 = time.perf_counter()
+    pipe = build_pipeline_from_checkpoints(*args, tokenizer=tok,
+                                           quantized=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ref = build_pipeline_from_checkpoints(*args, tokenizer=tok,
+                                          quantized=False, device="cpu")
+    mismatched, compared = [], 0
+    pairs = [(pipe.encoder_fn.ctx["vision"], ref.encoder_fn.ctx["vision"],
+              "mllm"), (pipe.proj, ref.proj, "proj")]
+    for card_mod, cpu_mod, name in pairs:
+        card = card_mod.state_dict()
+        for k, val in cpu_mod.state_dict().items():
+            compared += 1
+            if not torch.equal(card[k].cpu(), val):
+                mismatched.append(f"{name}.{k}")
+    del ref
+    gc.collect()
+    unread = pipe.load_report["mllm"]["unread"]
+    last = cfg.vision.effective_layers
+    want_unread = sorted(
+        ["tts.emb_text.weight", "apm.embed_positions.weight"]
+        + [k for k in unread if k.startswith(f"vpm.encoder.layers.{last}.")])
+    rec = {"phase": "checkpoint-minicpm-load", "model": MINICPM_MODEL,
+           "lm_layers": CKPT_MINICPM_LAYERS,
+           "cut": "LM cut to 2 of 28 full-width layers; encoders whole",
+           "bytes_written": written, "write_s": write_s, "load_s": load_s,
+           "bytes_read": pipe.load_report["mllm"]["bytes"],
+           "tensors_compared": compared, "mismatched": mismatched,
+           "unread": unread}
+    emit(rec)
+    if (mismatched or unread != want_unread
+            or sum(k.startswith("vpm.") for k in unread) != 16):
+        raise AssertionError(f"the MiniCPM-o checkpoint load is wrong: "
+                             f"{rec}")
+    pipe.flux.replace_config(fused_glue=True)
+    n2, n1 = CKPT_BLOCKS
+    want = expected_launches(False, 4, n2=n2, n1=n1,
+                             lm_layers=CKPT_MINICPM_LAYERS)
+    want["flash_fwd"] += 1                              # the resampler
+    images, route = media("minicpm", seed, 1)
+    request = {"task": "x2image", "prompt": PROMPTS[1], "images": images,
+               "audio": clip(seed, AUDIO_SECONDS)}
+    img_rec, _, counts = run_image(pipe, seed, "checkpoint-minicpm-image",
+                                   want, model=MINICPM_MODEL,
+                                   request=request)
+    img_rec["host_half"] = route
+    emit(img_rec)
+    if counts != want:
+        raise AssertionError(f"the loaded MiniCPM-o pipeline missed its "
+                             f"kernels: {counts} != {want}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _write_json(path, obj):
     with open(path, "w") as f:
         json.dump(obj, f)
@@ -2609,7 +2860,8 @@ def phase_checkpoint(seed: int):
         gc.collect()
         torch.cuda.empty_cache()
         return {"checkpoint": img_rec["launches"],
-                "checkpoint-w8": w8_rec["launches"]}
+                "checkpoint-w8": w8_rec["launches"],
+                "checkpoint-minicpm": checkpoint_minicpm(root, flux, seed)}
     finally:
         shutil.rmtree(root)
 
@@ -2622,7 +2874,8 @@ REGISTRY_STEPS = {"x2i-minicpm-o-2.6-dev": 28}    # the others 4
 def phase_registry(pipe, seed: int, dit_state, card: str):
     """The five other MODEL_REGISTRY entries at full width and depth, one
     1024^2 image each through its family's template, tokenizer
-    (``ByteTokenizer``) and positions, weights drawn on the card: the
+    (``ByteTokenizer``) and positions, weights drawn on the card (and
+    the media images of ``registry_media``): the
     FLUX.1-schnell entries share one DiT, drawn again from ``dit_state``
     (the bf16 serving DiT's weights), and swap their LM and proj, the last
     LM freed before the next is drawn; x2i-minicpm-o-2.6-dev draws its
@@ -2679,6 +2932,9 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
             vl_cfg = vision.cfg
         elif family == "qwenvl":
             vl_cfg, vision = draw_qwen_tower(name, lm, seed, tok)
+        elif name == MINICPM_MODEL:       # the -dev entry: its text alone
+            vision = draw_minicpmo(name, lm, seed)
+            vl_cfg = vision.cfg
         encoder_fn = mllm_encoder(name, lm, tok, vl_cfg, vision)
         entry = X2IPipeline(
             encoder_fn=encoder_fn, proj=proj, flux=flux, vae=pipe.vae,
@@ -2745,10 +3001,14 @@ def registry_media(name: str, entry, vl_cfg, vision, seed: int, card: str):
     Qwen2.5-VL entry one image2image (its tower takes the plain route: no
     launch), and x2i-qwenvl2.5-7b also one video2image of eight 128^2
     frames and one use_answer image after an image input (the decode's
-    cache takes the plain attention: no K1b). -> their launch counts."""
+    cache takes the plain attention: no K1b); x2i-minicpm-o-2.6 the
+    images of ``minicpm_media``. -> their launch counts."""
     from x2i_torch.core.config import MODEL_REGISTRY
 
     family = family_of(name)
+    if family == "minicpm":
+        return (minicpm_media(name, entry, vl_cfg, vision, seed, card)
+                if vision is not None else {})
     layers = MODEL_REGISTRY[name].llm.num_hidden_layers
     plain = expected_launches(False, 4, lm_layers=layers)
     runs = []
@@ -2788,6 +3048,229 @@ def registry_media(name: str, entry, vl_cfg, vision, seed: int, card: str):
                 and img.std() > 0):
             raise AssertionError(f"{label} failed: {rec}")
         counts[label] = got
+    return counts
+
+
+MINICPM_MODEL = "x2i-minicpm-o-2.6"
+MINICPM_FRAMES = 4             # a video of 4 frames: 4 slices, 256 tokens
+AUDIO_SECONDS = 5.0            # 500 mel frames, 125 tokens in 5 spans
+
+
+def clip(seed: int, seconds: float):
+    """A 16 kHz waveform drawn from the seed."""
+    import numpy as np
+    rng = np.random.default_rng([seed, int(seconds * 1000)])
+    return (0.1 * rng.standard_normal(int(16000 * seconds))).astype(
+        np.float32)
+
+
+def _minicpm_inputs(cfg, images=None, audio=None):
+    """The host half of MiniCPM-o's towers, timed: the slices' arrays
+    (PIL resize and patches, or the arrays as given) and the audio's
+    log-mel chunks, as the encoder builds them; -> (vision tensors or
+    None, audio tensors or None, {host ms, slices, patches, mel and conv
+    frames})."""
+    from x2i_torch.data.minicpm_vision import (chunk_audio_mels,
+                                               prepare_minicpm_vision)
+    from x2i_torch.models.minicpmo import audio_tensors, slice_tensors
+    side = cfg.vision.num_patches_per_side
+    vt = at = None
+    rec = {}
+    if images:
+        t0 = time.perf_counter()
+        vin = prepare_minicpm_vision(images, cfg.llm.hidden_size,
+                                     num_patches_per_side=side,
+                                     max_size=side)
+        rec["vision_host_ms"] = (time.perf_counter() - t0) * 1e3
+        vt = slice_tensors(vin, "cuda")
+        rec.update(slices=int(vin["num_slices"]),
+                   patches=int(vin["patch_mask"].sum()))
+    if audio is not None:
+        t0 = time.perf_counter()
+        mels, lens = chunk_audio_mels(audio)
+        rec["audio_host_ms"] = (time.perf_counter() - t0) * 1e3
+        at = audio_tensors(mels, lens, "cuda")
+        rec.update(mel_frames=int(lens.sum()),
+                   conv_frames=int(at["frame_mask"].shape[1]))
+    return vt, at, rec
+
+
+def _minicpm_ms(cfg, vision, images=None, audio=None):
+    """The host half's ms and the card's for SigLIP + resampler
+    (``vpm_ms``) and for Whisper + projector (``apm_ms``), ``call_ms`` of
+    ``encode_images`` and ``encode_audio``."""
+    import torch
+    vt, at, rec = _minicpm_inputs(cfg, images, audio)
+    with torch.inference_mode():
+        if vt is not None:
+            rec["vpm_ms"] = call_ms(lambda: vision.encode_images(vt))
+        if at is not None:
+            rec["apm_ms"] = call_ms(lambda: vision.encode_audio(at))
+    return rec
+
+
+def check_minicpm_routes(cfg, vision, encoder_fn, request):
+    """MiniCPM-o's stack for ``request`` (images and audio) on the kernel
+    route (K1b in the resampler and the LM) against the same encoder on
+    the plain attention, and the resampler's features alone the same
+    way (SigLIP and Whisper take the plain attention on both); the plain
+    route launches no kernel."""
+    import torch
+    vt, _, _ = _minicpm_inputs(cfg, request.get("images"))
+    with torch.inference_mode():
+        got, feats = encoder_fn(request), vision.encode_images(vt)
+        set_attention_impl(vision, "plain")
+        try:
+            reset_counts()
+            want, want_feats = encoder_fn(request), vision.encode_images(vt)
+            plain = launch_counts()
+        finally:
+            set_attention_impl(vision, "auto")
+    rec = {"stack_err": _stack_errors(got, want),
+           "layer_err": _layer_errors(got, want),
+           "resampler_feature_err": _stack_errors(feats, want_feats),
+           "plain_route_launches": sum(plain.values())}
+    ok = (all(e[0] <= IMAGE_REL_MAX and e[1] <= IMAGE_REL_MEAN
+              for e in (rec["stack_err"], rec["resampler_feature_err"]))
+          and rec["plain_route_launches"] == 0
+          and bool(torch.isfinite(got).all()))
+    return rec, ok
+
+
+def check_minicpm_batch(entry, vision, seed: int, images, audio, want):
+    """An image request and an audio request through the batch path: one
+    SigLIP call and one Whisper call for both (counted by hooks), their
+    stacks bit for bit the two serial encodes (as measured on the card;
+    the distance recorded), and one ``run_batch`` of two 1024^2 images
+    with exact launch counts."""
+    import torch
+    reqs = [{"task": "image2image", "images": images},
+            {"task": "audio2image", "audio": audio}]
+    vpm, apm = [], []
+    hooks = [vision.vpm.register_forward_hook(lambda *a: vpm.append(1)),
+             vision.apm.register_forward_hook(lambda *a: apm.append(1))]
+    try:
+        with torch.inference_mode():
+            batched = entry.encoder_fn.batch(reqs)
+            calls = (len(vpm), len(apm))
+            serial = torch.cat([entry.encoder_fn(r) for r in reqs])
+    finally:
+        for h in hooks:
+            h.remove()
+    reset_counts()
+    t0 = time.perf_counter()
+    imgs = entry.run_batch(reqs, seed=seed)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    rec = {"phase": "registry-minicpm-batch", "model": MINICPM_MODEL,
+           "requests": len(reqs), "vpm_apm_calls": list(calls),
+           "stack_err_vs_serial": _stack_errors(batched, serial),
+           "bit_equal_to_serial": bool(torch.equal(batched, serial)),
+           "image_shapes": list(imgs.shape), "seconds": sec,
+           "launches": counts, "launches_expected": want}
+    emit(rec)
+    if not (calls == (1, 1) and counts == want
+            and tuple(imgs.shape) == (2, 1024, 1024, 3)
+            and all(float(i.std()) > 0 for i in imgs)
+            and rec["bit_equal_to_serial"]):
+        raise AssertionError(f"the MiniCPM-o batch path failed: {rec}")
+    return counts
+
+
+def plain_attention_ms(cfg, seed: int, card: str):
+    """The two attentions of MiniCPM-o's towers that take the plain route
+    (no TPU kernel is owed: JAX takes XLA for both), timed on the card
+    per layer (``kernel_ms``), with SDPA on the same inputs: SigLIP's
+    (1, 1024, 16, 72) under the patch mask (D = 72, which no kernel
+    takes) and Whisper's (1, 250, 16, 64) under the frames' mask and the
+    1 s chunk bias (a bias takes the plain route)."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.data.minicpm_vision import chunk_bias
+    from x2i_torch.models.minicpmo import CHUNK_FRAMES
+    from x2i_torch.ops.attention import attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rec = {"phase": "registry-minicpm-plain-attention", "card": card}
+    v, a = cfg.vision, cfg.audio
+    for label, s, h, d, layers in (
+            ("siglip", 1024, v.num_attention_heads,
+             v.hidden_size // v.num_attention_heads, v.effective_layers),
+            ("whisper", 250, a.encoder_attention_heads,
+             a.d_model // a.encoder_attention_heads, a.encoder_layers)):
+        q, k, val = (torch.randn((1, s, h, d), generator=g, device="cuda"
+                                 ).to(torch.bfloat16) for _ in range(3))
+        mask = torch.ones((1, s), dtype=torch.bool, device="cuda")
+        bias = (torch.as_tensor(chunk_bias(s, CHUNK_FRAMES), device="cuda")
+                if label == "whisper" else None)
+        allowed = mask[:, None, None, :] & (
+            True if bias is None else bias == 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, val))
+        rec[f"{label}_shape"] = [1, s, h, d]
+        rec[f"{label}_plain_ms"] = kernel_ms(
+            lambda *t: attention(*t, kv_mask=mask, bias=bias), q, k, val)
+        rec[f"{label}_sdpa_ms"] = kernel_ms(
+            lambda *t: F.scaled_dot_product_attention(*t, attn_mask=allowed),
+            qt, kt, vt)
+        rec[f"{label}_layers"] = layers
+    emit(rec)
+    return rec
+
+
+def minicpm_media(name: str, entry, cfg, vision, seed: int, card: str):
+    """x2i-minicpm-o-2.6's media images on its encoder drawn on the card,
+    each at 1024^2 with exact launch counts set to 0 just before and read
+    just after: image2image (one 128^2 image: one 448^2 slice, 1024
+    patches, 64 tokens), audio2image (5 s drawn from the seed: 500 mel
+    frames, 250 conv frames, 125 tokens in five spans of 25), x2image
+    (prompt, image and audio) and video2image (4 frames, 256 tokens).
+    K1b: one per LM layer and one for the resampler's call where there
+    are slices (SigLIP's 72-wide heads and Whisper's chunk bias take the
+    plain attention). With each: vpm_ms, apm_ms, the host half's ms,
+    s/image; on the x2image request the kernel route against the plain
+    attention (``check_minicpm_routes``); then the batch path
+    (``check_minicpm_batch``) and the towers' plain attentions
+    (``plain_attention_ms``). -> their launch counts."""
+    from x2i_torch.core.config import MODEL_REGISTRY
+
+    layers = MODEL_REGISTRY[name].llm.num_hidden_layers
+    plain = expected_launches(False, 4, lm_layers=layers)
+    slices = dict(plain, flash_fwd=plain["flash_fwd"] + 1)
+    images, route = media("minicpm", seed, 1)
+    video, _ = media("minicpm", seed, 0, frames=MINICPM_FRAMES)
+    audio = clip(seed, AUDIO_SECONDS)
+    runs = (("image2image", {"images": images}, slices),
+            ("audio2image", {"audio": audio}, plain),
+            ("x2image", {"prompt": PROMPTS[1], "images": images,
+                         "audio": audio}, slices),
+            ("video2image", {"video": video}, slices))
+    counts = {}
+    for task, req, want in runs:
+        label = f"registry[{name}] {task}"
+        reset_counts()
+        t0 = time.perf_counter()
+        img = entry.run_task(task, **req, seed=seed)
+        sec = time.perf_counter() - t0
+        got = launch_counts()
+        rec = {"phase": label, "model": name, "task": task,
+               "host_half": route, "card": card, "s_per_image": sec,
+               "image_shape": list(img.shape), "image_std": float(img.std()),
+               "launches": got, "launches_expected": want,
+               **_minicpm_ms(cfg, vision, req.get("images")
+                             or req.get("video"), req.get("audio"))}
+        ok = True
+        if task == "x2image":
+            routes, ok = check_minicpm_routes(cfg, vision, entry.encoder_fn,
+                                              {"task": task, **req})
+            rec.update(routes)
+        emit(rec)
+        if not (ok and got == want and tuple(img.shape) == (1, 1024, 1024, 3)
+                and img.std() > 0):
+            raise AssertionError(f"{label} failed: {rec}")
+        counts[label] = got
+    counts[f"registry[{name}] batch"] = check_minicpm_batch(
+        entry, vision, seed, images, audio, slices)
+    plain_attention_ms(cfg, seed, card)
     return counts
 
 
@@ -3341,7 +3824,8 @@ def main(argv=None) -> int:
         cases = [{k: r.get(k) for k in (
             "case", "shape", "kv_shape", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "tflops", "bound_share",
-            "call_ms")} for r in rows if r.get("case")]
+            "call_ms")} | {k: r[k] for k in ("library_padded_ms",) if k in r}
+            for r in rows if r.get("case")]
         if cases:
             table[-1]["cases"] = cases
         # a kernel's launches on the other main paths that run it

@@ -7,10 +7,12 @@ and ``x2i_tpu.convert.load.build_pipeline_from_checkpoints``.
 qwenvl uses ``tests/ckpt_fixtures.py``'s directory; internvl and minicpm
 write their own here (a ``transformers`` Qwen2 under the family's prefix
 beside the other modules' keys), since the fixture builders of those
-families need the reference's sources. minicpm is held against the JAX
-pieces its text path consists of (the template through the same chat
-template, ``qwen2_params_from_hf`` on the ``llm.``-stripped keys, the JAX
-``Qwen2LM``): JAX's own minicpm encoder needs the reference's modules.
+families need the reference's sources. minicpm's directory holds every
+module of MiniCPM-o's encoder (SigLIP, the resampler, Whisper and its
+projector), so both loaders build the whole encoder from it; its text
+path is also held against the JAX pieces it consists of (the template
+through the same chat template, ``qwen2_params_from_hf`` on the
+``llm.``-stripped keys, the JAX ``Qwen2LM``).
 
 Bars (bf16 on both sides): hidden-state stacks within 1e-2 of their
 largest magnitude at the worst element (measured 4.4e-3 to 4.7e-3, about
@@ -43,8 +45,11 @@ from x2i_tpu.models.templates import (internvl2_5_prompt,
                                       minicpm_omni_content,
                                       task_instruction)
 from x2i_torch.convert.load import build_pipeline_from_checkpoints
+from x2i_torch.convert.torch_models import minicpmo_plan
+from x2i_torch.core import config as tcfg
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.internvl import InternVLEncoder
+from x2i_torch.models.minicpmo import MiniCPMOEncoder
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
 from x2i_torch.models.qwen2_5_vl import QwenVisionTransformer
@@ -133,23 +138,77 @@ def build_internvl_text_dir(root: str, seed: int = 0) -> str:
     return path
 
 
-def build_minicpm_text_dir(root: str, seed: int = 0) -> str:
-    """A MiniCPM-o directory: an untied transformers Qwen2 under ``llm.``
-    beside tensors of the modules off the text path, a flat config.json
-    and the family's tokenizer."""
+MINICPM_VISION = dict(hidden_size=16, intermediate_size=32,
+                      num_hidden_layers=3, num_attention_heads=2,
+                      image_size=112, patch_size=14)
+MINICPM_AUDIO = dict(num_mel_bins=80, d_model=16, encoder_layers=2,
+                     encoder_attention_heads=4, encoder_ffn_dim=32,
+                     max_source_positions=1500)
+MINICPM_QUERIES, MINICPM_SCALE = 4, 56         # 56^2 slices: 4 x 4 patches
+
+
+def minicpm_cfg(dtype=torch.float32, **vision):
+    """The port's config of ``build_minicpm_dir``'s directory; ``vision``
+    overrides SigLIP's fields."""
+    return tcfg.MiniCPMOConfig(
+        vision=tcfg.SiglipVisionConfig(dtype=dtype,
+                                       **{**MINICPM_VISION, **vision}),
+        audio=tcfg.WhisperConfig(dtype=dtype, **MINICPM_AUDIO),
+        llm=tcfg.Qwen2Config(**LLM_KW, tie_word_embeddings=False,
+                             dtype=dtype),
+        query_num=MINICPM_QUERIES, resampler_heads=1)
+
+
+def minicpm_encoder_sd(cfg, g):
+    """The encoders' keys of a MiniCPM-o checkpoint in their released
+    shapes (SigLIP's patch conv 4-D, the resampler's packed in-projection),
+    every key the port's plan reads, and those JAX leaves unread: the
+    SigLIP block MiniCPM drops, Whisper's stored position table and a TTS
+    tensor."""
+    shapes = {k: tuple(p.shape) for k, p in
+              MiniCPMOEncoder(cfg, device="meta").named_parameters()}
+    ps, sd = cfg.vision.patch_size, {}
+    for key, dests in minicpmo_plan(cfg).items():
+        if key.startswith("llm."):
+            continue
+        dests = dests if isinstance(dests, list) else [dests]
+        shape = shapes[dests[0][0]]
+        shape = (len(dests) * shape[0], *shape[1:])
+        if key.endswith("patch_embedding.weight"):
+            shape = (shape[0], 3, ps, ps)
+        sd[key] = _randn(g, *shape)
+    last = cfg.vision.effective_layers
+    for k in [k for k in sd if k.startswith("vpm.encoder.layers.0.")]:
+        sd[k.replace(".0.", f".{last}.", 1)] = _randn(g, *sd[k].shape)
+    sd["apm.embed_positions.weight"] = _randn(
+        g, cfg.audio.max_source_positions, cfg.audio.d_model)
+    sd["tts.emb_text.weight"] = _randn(g, 4, 4)
+    return sd
+
+
+def build_minicpm_dir(root: str, seed: int = 0) -> str:
+    """A MiniCPM-o-2.6 directory in the released layout: an untied
+    transformers Qwen2 under ``llm.``, SigLIP (3 blocks, of which 2 run),
+    the resampler, Whisper and the audio projector (``minicpm_encoder_sd``),
+    a TTS tensor, the flat config.json with ``vision_config``,
+    ``audio_config`` and ``query_num``, a preprocessor_config.json with the
+    slices' scale, and the family's tokenizer."""
     path = os.path.join(root, "minicpm")
     os.makedirs(path, exist_ok=True)
     g = torch.Generator().manual_seed(seed)
     sd = {"llm." + k: v for k, v in _hf_lm(False, seed).items()}
-    for k in ("vpm.embeddings.patch_embedding.weight", "resampler.query",
-              "apm.layers.0.fc1.weight", "audio_projection_layer.linear1"
-              ".weight", "tts.emb_text.weight"):
-        sd[k] = _randn(g, 4, 4)
+    sd.update(minicpm_encoder_sd(minicpm_cfg(), g))
     save_file({k: t.to(torch.bfloat16).contiguous() for k, t in sd.items()},
               os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({"model_type": "minicpmo", **LLM_KW,
-                   "tie_word_embeddings": False, "query_num": 4}, f)
+                   "tie_word_embeddings": False,
+                   "query_num": MINICPM_QUERIES,
+                   "vision_config": MINICPM_VISION,
+                   "audio_config": MINICPM_AUDIO}, f)
+    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
+        json.dump({"slice_config": {"max_slice_nums": 9,
+                                    "scale_resolution": MINICPM_SCALE}}, f)
     write_tokenizer_dir(path, "minicpm")
     return path
 
@@ -170,7 +229,7 @@ def dirs(tmp_path_factory):
     out["qwenvl"] = (model, flux, mllm, proj)
     for family, build, model in (
             ("internvl", build_internvl_text_dir, "x2i-internvl2.5-1b"),
-            ("minicpm", build_minicpm_text_dir, "x2i-minicpm-o-2.6")):
+            ("minicpm", build_minicpm_dir, "x2i-minicpm-o-2.6")):
         root = str(tmp_path_factory.mktemp(f"torch_ckpt_{family}"))
         flux = build_flux_dir(root)
         proj = build_proj_bin(root, in_channels=3, input_dim=32)
@@ -181,7 +240,7 @@ def dirs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def pipes(dirs):
-    """(family, quantized) -> (port pipeline, JAX pipeline or None)."""
+    """(family, quantized) -> (port pipeline, JAX pipeline)."""
     cache = {}
 
     def get(family, quantized=False):
@@ -194,8 +253,7 @@ def pipes(dirs):
             tok = None if family == "qwenvl" else _tokenizer(mllm, family)
             port = build_pipeline_from_checkpoints(
                 model, flux, mllm, proj, device="cpu", tokenizer=tok, **kw)
-            ref = (None if family == "minicpm"
-                   else jax_build(model, flux, mllm, proj, **kw))
+            ref = jax_build(model, flux, mllm, proj, **kw)
             cache[key] = (port, ref)
         return cache[key]
 
@@ -203,14 +261,20 @@ def pipes(dirs):
 
 
 def _jax_enc_params(ref):
-    return inspect.getclosurevars(ref.encoder_fn).nonlocals["enc_params"]
+    """The JAX loader's encoder tree (minicpm's lies in ``_assemble``)."""
+    free = inspect.getclosurevars(ref.encoder_fn).nonlocals
+    if "_assemble" in free:
+        free = inspect.getclosurevars(free["_assemble"]).nonlocals
+    return free["enc_params"]
 
 
-def _port_ids(port, inputs):
-    """The token ids and mask the port's LM sees for ``inputs``."""
+def _port_ids(port, inputs, key="lm"):
+    """The token ids and mask the port's LM (``key`` "vision": MiniCPM-o's
+    encoder, which embeds them) sees for ``inputs``."""
     seen = []
-    hook = port.encoder_fn.ctx["lm"].register_forward_pre_hook(
-        lambda mod, args, kw: seen.append((args[0], kw["attention_mask"])),
+    hook = port.encoder_fn.ctx[key].register_forward_pre_hook(
+        lambda mod, args, kw: seen.append(
+            (args[0], kw.get("attention_mask", args[1:2] and args[1]))),
         with_kwargs=True)
     try:
         port.encoder_fn(inputs)
@@ -231,12 +295,14 @@ def _jax_ids(family, ref, inputs):
     return np.asarray([enc["input_ids"]]), np.asarray([enc["attention_mask"]])
 
 
-@pytest.mark.parametrize("family", ["qwenvl", "internvl"])
-def test_loaded_weights_equal_the_jax_loaders(pipes, family):
+@pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
+def test_loaded_weights_equal_the_jax_loaders(pipes, dirs, family):
     """Every port parameter equals the JAX loader's, carried across by the
     bridge, bit for bit: FLUX, the VAE's decoder, the proj and the whole
-    encoder (the vision tower and the LM); the MLLM directory is read
-    whole, the VAE's encoder left unread."""
+    encoder (the vision tower, MiniCPM-o's audio encoder and projector,
+    and the LM); the MLLM directory is read whole (MiniCPM-o's less the
+    keys JAX leaves unread: its TTS tensor, its dropped SigLIP block and
+    Whisper's stored position table), the VAE's encoder left unread."""
     port, ref = pipes(family)
     trees = [(port.flux, FluxTransformer2D(port.flux.cfg), ref.flux_params),
              (port.proj, Proj(port.proj.cfg), ref.proj_params)]
@@ -245,6 +311,9 @@ def test_loaded_weights_equal_the_jax_loaders(pipes, family):
     if family == "internvl":
         trees.append((vision, InternVLEncoder(vision.cfg), enc))
         assert vision.language_model is lm
+    elif family == "minicpm":
+        trees.append((vision, MiniCPMOEncoder(vision.cfg), enc))
+        assert vision.llm is lm
     else:
         trees.append((lm, Qwen2LM(lm.cfg), enc["language_model"]))
         trees.append((vision, QwenVisionTransformer(vision.cfg),
@@ -261,7 +330,18 @@ def test_loaded_weights_equal_the_jax_loaders(pipes, family):
     assert rep["flux"]["unread"] == [] and rep["proj"]["unread"] == []
     assert rep["vae"]["unread"] and all(
         k.startswith("encoder.") for k in rep["vae"]["unread"])
-    assert rep["mllm"]["unread"] == []
+    assert rep["mllm"]["unread"] == (
+        _minicpm_unread(dirs["minicpm"][2]) if family == "minicpm" else [])
+
+
+def _minicpm_unread(mllm):
+    """The keys of the minicpm fixture that JAX leaves unread: the TTS
+    tensor, the SigLIP block MiniCPM drops, Whisper's position table."""
+    last = MINICPM_VISION["num_hidden_layers"] - 1
+    return sorted(k for k in load_file(os.path.join(
+        mllm, "model.safetensors")) if k.startswith(
+            ("tts.", f"vpm.encoder.layers.{last}.",
+             "apm.embed_positions.")))
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl"])
@@ -318,7 +398,7 @@ def test_minicpm_text_path_matches_the_jax_pieces(pipes, dirs):
         [{"role": "user", "content": minicpm_omni_content(PROMPTS[0])}],
         tokenize=False, add_generation_prompt=True)
     enc = tok(text, padding="max_length", max_length=512, truncation=True)
-    ids, mask = _port_ids(port, {"prompt": PROMPTS[0]})
+    ids, mask = _port_ids(port, {"prompt": PROMPTS[0]}, "vision")
     np.testing.assert_array_equal(ids, [enc["input_ids"]])
     sd = load_file(os.path.join(mllm, "model.safetensors"))
     llm_sd = {k.removeprefix("llm."): v for k, v in sd.items()
@@ -336,8 +416,7 @@ def test_minicpm_text_path_matches_the_jax_pieces(pipes, dirs):
     lm = port.encoder_fn.ctx["lm"]
     assert not lm.cfg.tie_word_embeddings and torch.equal(
         lm.lm_head.weight, sd["llm.lm_head.weight"])
-    unread = port.load_report["mllm"]["unread"]
-    assert unread == sorted(k for k in sd if not k.startswith("llm."))
+    assert port.load_report["mllm"]["unread"] == _minicpm_unread(mllm)
 
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
@@ -352,20 +431,30 @@ def test_batched_encode_equals_serial(pipes, family):
 
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
 def test_media_are_refused(pipes, family):
-    """MiniCPM-o's images, video and audio raise, naming the ROADMAP item
-    that brings its encoders. The two families with a vision tower take
-    images (tests/test_torch_tasks.py holds them against JAX) and, as in
-    JAX, ignore audio (and InternVL video): the stack is the text
-    request's."""
-    port, _ = pipes(family)
+    """No family refuses the media its JAX loader takes: MiniCPM-o takes
+    images, video frames and audio, each request's stack the JAX loader's
+    (tests/test_torch_tasks.py holds the tasks' images); the two families
+    with a vision tower take images (tests/test_torch_tasks.py holds them
+    against JAX) and, as in JAX, ignore audio (and InternVL video): the
+    stack is the text request's."""
+    port, ref = pipes(family)
     image = np.random.default_rng(0).integers(0, 256, (32, 32, 3), np.uint8)
+    frames = [Image.fromarray(np.roll(image, i, axis=0)) for i in range(2)]
+    wave = (np.random.default_rng(1).standard_normal(24000) * 0.1).astype(
+        np.float32)
+    if family == "minicpm":
+        text = port.encoder_fn({"prompt": "x"})
+        for m in ({"images": [Image.fromarray(image)]}, {"video": frames},
+                  {"audio": wave}):
+            got = port.encoder_fn({"prompt": "x", **m}).float().numpy()
+            want = np.asarray(ref.encoder_fn({"prompt": "x", **m}),
+                              np.float32)
+            assert got.shape == want.shape == tuple(text.shape)
+            assert np.abs(got - want).max() <= STACK_BAR * np.abs(want).max()
+            assert not np.array_equal(got, text.float().numpy())
+        return
     media = ({"images": [Image.fromarray(image)]}, {"video": [1, 2]},
              {"audio": np.zeros(16)})
-    if family == "minicpm":
-        for m in media:
-            with pytest.raises(NotImplementedError, match="Queue A item 4.3"):
-                port.encode({"prompt": "x", **m})
-        return
     text = port.encoder_fn({"prompt": "x"})
     assert port.encoder_fn({"prompt": "x", **media[0]}).shape[:2] == \
         text.shape[:2]
@@ -386,9 +475,8 @@ def test_use_answer_matches_jax_or_is_refused(pipes, family):
     if family != "qwenvl":
         with pytest.raises(ValueError, match="Qwen2.5-VL feature"):
             port.encode(req)
-        if ref is not None:
-            with pytest.raises(ValueError, match="Qwen2.5-VL feature"):
-                ref.encode(req)
+        with pytest.raises(ValueError, match="Qwen2.5-VL feature"):
+            ref.encode(req)
         return
     got = port.encoder_fn(req).float().numpy()
     want = np.asarray(ref.encoder_fn(req), np.float32)

@@ -217,7 +217,7 @@ LAYOUTS = {
     "qwenvl-old": ("x2i-qwenvl2.5-7b", "model.", "lm_head.weight",
                    "visual.x"),
     "minicpm": ("x2i-minicpm-o-2.6", "llm.model.", "llm.lm_head.weight",
-                "resampler.x"),
+                "tts.x"),
 }
 
 
@@ -226,7 +226,7 @@ LAYOUTS = {
 def test_qwen2_plan_matches_jax_converter(tmp_path, layout, tied):
     """Each family's key layout, as the JAX loaders strip it, through
     ``qwen2_params_from_hf``: the same LM bit for bit. A tied checkpoint's
-    head stays unread and named; so do MiniCPM-o's other modules, while
+    head stays unread and named; so do MiniCPM-o's TTS modules, while
     the vision keys of the two families with a tower are read (by the
     encoder's plan, tests/test_torch_internvl.py and
     test_torch_qwen_vision.py), so the LM's alone refuses them."""
@@ -405,8 +405,8 @@ def test_internvl_and_minicpmo_readers_match_jax(tmp_path):
         str(iv), tcfg.MODEL_REGISTRY["x2i-internvl2.5-4b"].llm)
     assert _common(got, jhf.internvl_config_from_dir(str(iv), jbase).llm)
     assert got.head_dim == 8                 # hidden / heads when null
-    got = thf.minicpmo_llm_config_from_dir(
-        str(mc), tcfg.MODEL_REGISTRY["x2i-minicpm-o-2.6"].llm)
+    got = thf.minicpmo_config_from_dir(
+        str(mc), tcfg.MODEL_REGISTRY["x2i-minicpm-o-2.6"].llm).llm
     want = jhf.minicpmo_config_from_dir(
         str(mc), jcfg.MODEL_REGISTRY["x2i-minicpm-o-2.6"]["mllm"]).llm
     assert _common(got, want) and not got.tie_word_embeddings

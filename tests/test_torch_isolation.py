@@ -54,7 +54,10 @@ def test_the_port_has_modules_to_check():
             "x2i_torch/ops/kd.py", "x2i_torch/models/t5.py",
             "x2i_torch/models/clip.py", "x2i_torch/train/distill.py",
             "x2i_torch/train/single_chip.py", "x2i_torch/train/harness.py",
-            "x2i_torch/train/runner.py", "chip_smoke.py"} <= names
+            "x2i_torch/train/runner.py", "x2i_torch/models/siglip.py",
+            "x2i_torch/models/resampler.py", "x2i_torch/models/whisper_enc.py",
+            "x2i_torch/models/minicpmo.py",
+            "x2i_torch/data/minicpm_vision.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

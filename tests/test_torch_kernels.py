@@ -9,7 +9,8 @@ Without a CUDA device each test skips itself: a CUDA kernel has no CPU
 mode. The K1 cases sit on the edges of its tiling (128-row q tiles on two
 warpgroups, or 64-row ones where the grid is small; 128-row kv tiles): one
 and two kv tiles, 4608 and 8192 tokens, Sq != Skv, GQA groups 1, 3 and 7,
-strided and contiguous inputs; the K3 and K4 cases on the edges of theirs
+strided and contiguous inputs, MiniCPM-o's resampler (64 queries padded
+to 128 rows on a batch of slices with masked keys); the K3 and K4 cases on the edges of theirs
 (one 128-row tile, a ring of 64-row tiles that wraps, K4's split over the
 grid with and without rope); the K2 cases on the edges of its (128 q
 rows by 128 kv rows, a ring of 3 stages, a last tile of 64 rows on either
@@ -468,6 +469,46 @@ def test_vit_pad_route_on_the_kernel(dev, tiles, s):
     assert tfa.KERNEL.launches["flash_fwd"] == before["flash_fwd"] + 1
     assert got.shape == q.shape
     _close(got, tattn.attention(q, k, v, implementation="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(1024,), (1024, 600), (600, 7)],
+                         ids=["one slice", "1024 and 600 patches",
+                              "600 and 7 patches"])
+def test_resampler_pad_route_on_the_kernel(dev, lengths):
+    """MiniCPM-o's resampler attention: 64 queries (28 heads x 128, the
+    same rows for every slice, as the resampler expands them) on each
+    slice's patches, non-causal, the patch mask on the keys: the pad
+    route gives q 128 rows and the keys a multiple of 128, masked keys
+    inside a kv tile where a slice is shorter than the batch's longest;
+    one launch of K1's exact body, the padded q rows sliced off. Slices
+    of 600 patches and more within the K1 bars of the plain version.
+    Every slice, a 7-patch one included (its outputs average few values
+    and are several times larger, so that K1's absolute bar is below one
+    bf16 step of them), within twice the plain version's distance from
+    an f32 reference, plus 1e-3 at the worst element and 1e-4 on
+    average."""
+    g = torch.Generator(device=dev).manual_seed(sum(lengths))
+    n, skv = len(lengths), max(lengths)
+    q = _randn(g, dev, 1, 64, 28, 128).expand(n, 64, 28, 128)
+    k, v = (_randn(g, dev, n, skv, 28, 128) for _ in range(2))
+    mask = (torch.arange(skv, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None])
+    before = dict(tfa.KERNEL.launches)
+    got = tattn.attention(q, k, v, kv_mask=mask)
+    assert tfa.KERNEL.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert got.shape == q.shape
+    want = tattn.attention(q, k, v, kv_mask=mask, implementation="plain")
+    long = torch.tensor(lengths, device=dev) >= 600
+    _close(got[long], want[long])
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = (qt @ kt.transpose(-1, -2) / 128 ** 0.5).masked_fill(
+        ~mask[:, None, None, :], float("-inf"))
+    ref = (s.softmax(-1) @ vt).transpose(1, 2)
+    for i in range(n):
+        err, base = ((t[i].float() - ref[i]).abs() for t in (got, want))
+        assert err.max() <= 2 * base.max() + 1e-3
+        assert err.mean() <= 2 * base.mean() + 1e-4
 
 
 @pytest.mark.cuda

@@ -4,10 +4,13 @@ the same bf16 fixture directories, the same PIL images (drawn from numpy
 seeds) and the same noise. InternVL2.5: ``image2image``,
 ``imagetext2image`` and ``x2image`` (several 28-pixel tiles an image at
 the fixture's ViT size); Qwen2.5-VL (``tests/ckpt_fixtures.py``'s
-directory): the same and ``video2image``; a mixed ``run_batch`` (text,
-image and video requests) through the one-vision-call batch path, and
-the guard that sends a batch whose image tokens the 512-token budget cut
-to the serial path, in both packages.
+directory): the same and ``video2image``; MiniCPM-o (SigLIP at 56^2
+slices, the resampler, Whisper): the same, ``audio2image`` and an
+``x2image`` with images and audio; a mixed ``run_batch`` (text, image,
+video and, for MiniCPM-o, audio requests) through the one-vision-call
+(and one-Whisper-call) batch path, and the guard that sends a batch whose
+image or audio tokens the 512-token budget cut to the serial path, in
+both packages.
 
 Bars (bf16 on both sides): hidden-state stacks within 2e-2 of their
 largest magnitude at the worst element and 1e-3 of it on average: the
@@ -30,7 +33,7 @@ from ckpt_fixtures import build_flux_dir, build_proj_bin, build_qwenvl_dir
 from test_torch_checkpoint_dirs import (IMG_MAX, IMG_MEAN, PX, STEPS,
                                         _to_bf16, _tokenizer,
                                         build_internvl_text_dir,
-                                        build_minicpm_text_dir)
+                                        build_minicpm_dir)
 from x2i_tpu.convert.load import \
     build_pipeline_from_checkpoints as jax_build
 from x2i_torch.convert.load import build_pipeline_from_checkpoints
@@ -39,7 +42,7 @@ from x2i_torch.models.vae import postprocess
 MODELS = {"internvl": "x2i-internvl2.5-1b", "qwenvl": "x2i-qwenvl2.5-7b",
           "minicpm": "x2i-minicpm-o-2.6"}
 BUILDERS = {"internvl": build_internvl_text_dir, "qwenvl": build_qwenvl_dir,
-            "minicpm": build_minicpm_text_dir}
+            "minicpm": build_minicpm_dir}
 PROJ_DIM = {"internvl": 32, "qwenvl": 48, "minicpm": 32}
 STACK_MAX, STACK_MEAN = 2e-2, 1e-3
 
@@ -55,8 +58,7 @@ def frames(seed, n=4):
 
 @pytest.fixture(scope="module")
 def pipes(tmp_path_factory):
-    """family -> (port pipeline, JAX pipeline or None), bf16, built once
-    (the JAX loader's minicpm encoder needs the reference's modules)."""
+    """family -> (port pipeline, JAX pipeline), bf16, built once."""
     out = {}
     for family, model in MODELS.items():
         root = str(tmp_path_factory.mktemp(f"tasks_{family}"))
@@ -69,9 +71,7 @@ def pipes(tmp_path_factory):
         port = build_pipeline_from_checkpoints(
             model, flux, mllm, proj, device="cpu",
             tokenizer=_tokenizer(mllm, family), **kw)
-        ref = (None if family == "minicpm"
-               else jax_build(model, flux, mllm, proj, **kw))
-        out[family] = (port, ref)
+        out[family] = (port, jax_build(model, flux, mllm, proj, **kw))
     return out
 
 
@@ -108,15 +108,32 @@ TASKS = {
     "x2image": dict(prompt="two of them", images=[pil(3), pil(4, 60, 90)]),
     "video2image": dict(video=frames(5)),
 }
+
+def wave(seed, seconds):
+    """A 16 kHz clip drawn from a seed."""
+    rng = np.random.default_rng(seed)
+    return (0.1 * rng.standard_normal(int(16000 * seconds))).astype(
+        np.float32)
+
+
+# MiniCPM-o's requests: a clip of 2.5 s (62 tokens in spans of 25, 25, 12),
+# and one of 31 s (two mel chunks, 775 tokens: the prompt is cut at 512)
+MINICPM_TASKS = {
+    **TASKS,
+    "audio2image": dict(audio=wave(6, 2.5)),
+    "x2image": dict(prompt="two of them", images=[pil(3), pil(4, 60, 90)],
+                    audio=wave(7, 2.5)),
+}
 CASES = [("internvl", t) for t in TASKS if t != "video2image"] + [
-    ("qwenvl", t) for t in TASKS]
+    ("qwenvl", t) for t in TASKS] + [("minicpm", t) for t in MINICPM_TASKS]
 
 
 @pytest.mark.parametrize("family,task", CASES)
 def test_task_matches_jax(pipes, family, task):
     """The stack and the image of one request of the task."""
     port, ref = pipes[family]
-    inputs = {"task": task, "prompt": None, **TASKS[task]}
+    inputs = {"task": task, "prompt": None,
+              **(MINICPM_TASKS if family == "minicpm" else TASKS)[task]}
     _stack_close(port.encoder_fn(inputs), ref.encoder_fn(inputs))
     _pixels_close(port, ref, inputs)
 
@@ -129,6 +146,10 @@ def test_task_entry_points_make_images(pipes):
                 port.video2image(frames(8, 2), **kw),
                 port.x2image("a cat", [pil(9)], **kw)):
         assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
+    port, _ = pipes["minicpm"]
+    for img in (port.audio2image(wave(8, 1.0), **kw),
+                port.x2image("a cat", [pil(9)], wave(9, 1.0), **kw)):
+        assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
 
 
 def _batch(family):
@@ -136,14 +157,20 @@ def _batch(family):
             {"task": "image2image", "images": [pil(10)]},
             {"task": "imagetext2image", "prompt": "in winter",
              "images": [pil(11), pil(12, 48, 64)]}]
-    if family == "qwenvl":
+    if family in ("qwenvl", "minicpm"):
         reqs.append({"task": "video2image", "video": frames(13, 3)})
+    if family == "minicpm":
+        reqs += [{"task": "audio2image", "audio": wave(14, 1.7)},
+                 {"task": "x2image", "prompt": "and this",
+                  "images": [pil(15)], "audio": wave(16, 3.2)}]
     return reqs
 
 
 def _tower(port, family):
     vision = port.encoder_fn.ctx["vision"]
-    return vision.vision_model if family == "internvl" else vision
+    if family == "internvl":
+        return vision.vision_model
+    return vision.vpm if family == "minicpm" else vision
 
 
 def _counted(module):
@@ -153,25 +180,36 @@ def _counted(module):
     return calls
 
 
-@pytest.mark.parametrize("family", ["internvl", "qwenvl"])
+@pytest.mark.parametrize("family", ["internvl", "qwenvl", "minicpm"])
 def test_mixed_batch_matches_jax_and_serial(pipes, family):
     """One vision call for the whole batch (the JAX batch path's
-    concatenation), the stacks of JAX's batch path, and the port's
-    serial encodes bit for bit; then ``run_batch`` makes one image per
-    request."""
+    concatenation), and for MiniCPM-o one Whisper call for the mel chunks
+    of all its audio requests, the stacks of JAX's batch path, and the
+    port's serial encodes bit for bit; then ``run_batch`` makes one image
+    per request. MiniCPM-o's batch pads every mel chunk to the batch's
+    longest, and the reference's frame mask (conv-frame indices against
+    mel lengths, which JAX keeps) lets a shorter clip's frames attend that
+    padding, so its batch is not its serial encodes in JAX either: held to
+    them at the stack bars (measured 4.4e-3 / 1.4e-5)."""
     port, ref = pipes[family]
     reqs = _batch(family)
     calls = _counted(_tower(port, family))
+    audio_calls = (_counted(port.encoder_fn.ctx["vision"].apm)
+                   if family == "minicpm" else [])
     batched = port.encoder_fn.batch(reqs)
     assert len(calls) == 1
+    assert len(audio_calls) == (family == "minicpm")
     _stack_close(batched, ref.encoder_fn.batch(reqs))
     serial = torch.cat([port.encoder_fn(r) for r in reqs])
-    torch.testing.assert_close(batched, serial, rtol=0, atol=0)
+    if family == "minicpm":
+        _stack_close(batched, serial.float().numpy())
+    else:
+        torch.testing.assert_close(batched, serial, rtol=0, atol=0)
     images = port.run_batch(reqs, height=PX, width=PX, num_steps=STEPS)
     assert images.shape == (len(reqs), PX, PX, 3)
 
 
-@pytest.mark.parametrize("family", ["internvl", "qwenvl"])
+@pytest.mark.parametrize("family", ["internvl", "qwenvl", "minicpm"])
 def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
     """A request whose image tokens run past 512 tokens: both packages'
     batch paths fall back to encoding request by request (a cut row would
@@ -179,13 +217,18 @@ def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
     9 tiles, 576 <IMG_CONTEXT> tokens in one span, cut at 512.
     Qwen2.5-VL: 6 tokens, two images of 256 and 246 pad tokens and their
     start and end tokens fill the 512 exactly, and the third image is cut
-    whole (a span cut in its middle has no 3-D positions, in JAX too)."""
+    whole (a span cut in its middle has no 3-D positions, in JAX too).
+    MiniCPM-o: an image and 31 s of audio (two mel chunks, 775 audio
+    tokens in 31 spans), cut at 512."""
     port, ref = pipes[family]
     many = ([pil(20 + i) for i in range(16)] if family == "internvl"
             else [pil(20, 128, 128), pil(21, 328, 48), pil(22)])
     reqs = [{"task": "imagetext2image", "prompt": "all of them",
              "images": many},
             {"task": "image2image", "images": [pil(40)]}]
+    if family == "minicpm":
+        reqs[0] = {"task": "x2image", "prompt": "all of it",
+                   "images": [pil(20)], "audio": wave(41, 31.0)}
     calls = _counted(_tower(port, family))
     batched = port.encoder_fn.batch(reqs)
     assert len(calls) == 2                  # one vision call per request
@@ -195,8 +238,13 @@ def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
 
 
 def test_minicpm_media_name_the_roadmap_item(pipes):
+    """The MiniCPM-o media that the port refused before its encoders were
+    ported (ROADMAP.md Queue A item 4.3, done) are taken: an image, video
+    frames and audio each give a stack of the text request's shape that
+    is not the text request's."""
     port, _ = pipes["minicpm"]
+    text = port.encoder_fn({"prompt": "x"})
     for media in ({"images": [pil(50)]}, {"video": frames(51, 2)},
-                  {"audio": np.zeros(16000, np.float32)}):
-        with pytest.raises(NotImplementedError, match="Queue A item 4.3"):
-            port.encode({"prompt": "x", **media})
+                  {"audio": wave(52, 1.0)}):
+        got = port.encoder_fn({"prompt": "x", **media})
+        assert got.shape == text.shape and not torch.equal(got, text)

@@ -1,15 +1,16 @@
 """Model configs read from checkpoint directories, the counterpart of
-``x2i_tpu/convert/hf_config.py`` (MiniCPM-o's LM part only: its encoders
-are not ported).
+``x2i_tpu/convert/hf_config.py``, with the slice scale of MiniCPM-o's
+``preprocessor_config.json`` that the JAX loader reads.
 
 The released checkpoints carry their architecture in their own config
 files: the diffusers ``transformer/config.json``, ``vae/config.json`` and
 ``scheduler/scheduler_config.json`` of a FLUX directory, and the HF
 ``config.json`` of an MLLM directory (``llm_config``, ``vision_config``
 and ``downsample_ratio`` for InternVL, a ``text_config`` or flat text
-fields and a ``vision_config`` for Qwen2.5-VL, flat fields for
-MiniCPM-o). Each reader returns None when its file is absent, and the
-registry entry is then the fallback. The proj checkpoint is a bare state
+fields and a ``vision_config`` for Qwen2.5-VL, flat LM fields beside a
+``vision_config``, an ``audio_config`` and ``query_num`` for MiniCPM-o).
+Each reader returns None when its file is absent, and the registry entry
+is then the fallback. The proj checkpoint is a bare state
 dict: ``proj_config_from_sd`` reads its architecture from the shapes.
 """
 
@@ -20,8 +21,10 @@ import os
 from dataclasses import replace
 from typing import Any, Dict, Mapping, Optional
 
-from x2i_torch.core.config import (FluxConfig, InternVLConfig, ProjConfig,
-                                   Qwen2Config, SchedulerConfig, VAEConfig)
+from x2i_torch.core.config import (FluxConfig, InternVLConfig,
+                                   MiniCPMOConfig, ProjConfig, Qwen2Config,
+                                   SchedulerConfig, SiglipVisionConfig,
+                                   VAEConfig, WhisperConfig)
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, QwenVisionConfig
 
 
@@ -164,14 +167,39 @@ def internvl_config_from_dir(mllm_path: str, base: InternVLConfig
                    num_image_token=num_image_token)
 
 
-def minicpmo_llm_config_from_dir(mllm_path: str, base_llm: Qwen2Config
-                                 ) -> Optional[Qwen2Config]:
-    """HF MiniCPM-o ``config.json``: its flat Qwen2 fields (the LM part
-    of the JAX ``minicpmo_config_from_dir``)."""
+def minicpmo_config_from_dir(mllm_path: str, base_llm: Qwen2Config
+                             ) -> Optional[MiniCPMOConfig]:
+    """HF MiniCPM-o ``config.json``: the flat Qwen2 fields, SigLIP's from
+    ``vision_config``, Whisper's from ``audio_config``, ``query_num`` and
+    ``audio_pool_step``; the resampler's heads are the LM's width // 128
+    (the reference's rule)."""
     d = _read_json(os.path.join(mllm_path, "config.json"))
     if d is None:
         return None
-    return _qwen2_from_dict(d, base_llm)
+    llm = _qwen2_from_dict(d, base_llm)
+    vision = replace(SiglipVisionConfig(), **_fields(
+        d.get("vision_config") or {}, (
+            "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "image_size", "patch_size")))
+    audio = replace(WhisperConfig(), **_fields(
+        d.get("audio_config") or {}, (
+            "num_mel_bins", "d_model", "encoder_layers",
+            "encoder_attention_heads", "encoder_ffn_dim",
+            "max_source_positions")))
+    return MiniCPMOConfig(vision=vision, audio=audio, llm=llm,
+                          query_num=d.get("query_num", 64),
+                          audio_pool_step=d.get("audio_pool_step", 2),
+                          resampler_heads=max(1, llm.hidden_size // 128))
+
+
+def minicpm_scale_resolution(mllm_path: str) -> int:
+    """The slices' scale of a MiniCPM-o directory: its
+    ``preprocessor_config.json``'s ``slice_config.scale_resolution`` (or
+    a top-level ``scale_resolution``), 448 without the file."""
+    d = _read_json(os.path.join(mllm_path, "preprocessor_config.json"))
+    if d is None:
+        return 448
+    return (d.get("slice_config") or d).get("scale_resolution", 448)
 
 
 def proj_config_from_sd(sd: Mapping[str, Any],

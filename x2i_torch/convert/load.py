@@ -1,7 +1,8 @@
 """Checkpoints into the port: safetensors and torch files -> an assembled
 ``X2IPipeline``, the counterpart of ``x2i_tpu/convert/load.py``: the
-InternVL2.5 and Qwen2.5-VL encoders with their vision towers, MiniCPM-o's
-LM alone (its encoders are ROADMAP.md Queue A item 4.3).
+InternVL2.5 and Qwen2.5-VL encoders with their vision towers, and
+MiniCPM-o's omni encoder (SigLIP, the resampler, Whisper and its
+projector).
 
 The artifacts are those the reference reads: a diffusers FLUX directory
 (``transformer/*.safetensors``, one file or ``-0000k-of-0000n`` shards,
@@ -42,17 +43,23 @@ from torch import nn
 
 from x2i_torch.convert.hf_config import (flux_config_from_dir,
                                          internvl_config_from_dir,
-                                         minicpmo_llm_config_from_dir,
+                                         minicpm_scale_resolution,
+                                         minicpmo_config_from_dir,
                                          proj_config_from_sd,
                                          qwenvl_config_from_dir,
                                          scheduler_config_from_dir,
                                          vae_config_from_dir)
 from x2i_torch.convert.torch_models import (fill_module, flux_plan,
-                                            internvl_plan, proj_plan,
-                                            qwen2_5_vl_plan, qwen2_plan,
-                                            vae_off_path, vae_plan)
+                                            internvl_plan, minicpmo_off_path,
+                                            minicpmo_plan, proj_plan,
+                                            qwen2_5_vl_plan, vae_off_path,
+                                            vae_plan)
 from x2i_torch.core.config import (MODEL_REGISTRY, GenerationConfig,
-                                   InternVLConfig, quant_mode)
+                                   InternVLConfig, MiniCPMOConfig,
+                                   quant_mode)
+from x2i_torch.data.minicpm_vision import (audio_placeholder_spans,
+                                           bounds_to_map, chunk_audio_mels,
+                                           prepare_minicpm_vision)
 from x2i_torch.data.qwen_vision import (concat_vision_inputs,
                                         get_rope_index,
                                         prepare_vision_inputs)
@@ -60,6 +67,8 @@ from x2i_torch.data.vision import image_tiles
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.internvl import InternVLEncoder
+from x2i_torch.models.minicpmo import (MiniCPMOEncoder, audio_tensors,
+                                       slice_tensors)
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
 from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig,
@@ -74,8 +83,7 @@ from x2i_torch.models.templates import (IMAGE_PREFIX, expand_image_tokens,
                                         task_instruction)
 from x2i_torch.models.vae import AutoencoderKL
 from x2i_torch.ops.quant import quantize_module_
-from x2i_torch.pipeline import (X2IPipeline, lm_encoder, lm_text_encoder,
-                                resolve_device)
+from x2i_torch.pipeline import X2IPipeline, lm_encoder, resolve_device
 
 # the safetensors dtypes the reader takes
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
@@ -186,7 +194,8 @@ def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
 # ------------------------------------------------------------ encoders
 
 def mllm_encoder(model: str, lm: Qwen2LM, tokenizer, vl_cfg=None,
-                 vision: Optional[nn.Module] = None):
+                 vision: Optional[nn.Module] = None,
+                 scale_resolution: int = 448):
     """The encoder of ``model``'s family over ``lm``: encoder_fn (inputs)
     -> the hidden-state stack, with ``.batch`` (one 512-token prefill,
     and one vision call, for a list of requests) and ``.ctx`` (the LM,
@@ -209,14 +218,23 @@ def mllm_encoder(model: str, lm: Qwen2LM, tokenizer, vl_cfg=None,
       positions from ``get_rope_index`` (padded positions at 1), the
       tower's features at the pad positions, the LM under the M-RoPE
       tables; ``audio`` is ignored, as in JAX;
-    * MiniCPM-o: the omni content (the raw prompt) as one user turn of
-      the chat template, the LM at its plain positions; images, video and
-      audio raise NotImplementedError (ROADMAP.md Queue A item 4.3).
+    * MiniCPM-o (``vl_cfg`` a ``MiniCPMOConfig``, by default one over
+      ``lm``'s config; ``vision`` the ``MiniCPMOEncoder`` over ``lm``):
+      the omni content (a placeholder per image and video frame, one for
+      the audio, the raw prompt) as one user turn of the chat template,
+      each image's placeholder expanded to ``query_num`` ``<unk>`` and
+      the audio's to one ``<audio>...</audio>`` run of ``<unk>`` a second
+      (``chunk_input``); one slice an image at ``scale_resolution``
+      (the directory's ``preprocessor_config.json``), the audio's log-mel
+      in 30 s chunks; the ``<unk>`` runs give the scatter maps, images
+      first, then audio. One SigLIP + resampler call for every slice of
+      the batch and one Whisper call for every mel chunk.
 
     Images are PIL images, or the host half's output: an InternVL
     image's (T, 448, 448, 3) float32 tiles, a Qwen2.5-VL image's or
-    video's pair (flat patches, grid_thw). Without ``vision`` a request
-    with media raises ValueError.
+    video's pair (flat patches, grid_thw), a MiniCPM-o image's pair
+    (patches, (h, w)). Audio is a 16 kHz float waveform. Without
+    ``vision`` a request with media raises ValueError.
 
     ``use_answer`` (reasoning2image) is Qwen2.5-VL's: a greedy answer of
     128 tokens after the prompt (its media included), ending at the
@@ -235,7 +253,8 @@ def mllm_encoder(model: str, lm: Qwen2LM, tokenizer, vl_cfg=None,
 
     def no_vision():
         raise ValueError(f"{model}: this encoder was built without its "
-                         f"vision tower; it takes no images or video")
+                         f"media towers; it takes no images, video or "
+                         f"audio")
 
     def no_answer(*_):
         family = "internvl" if "internvl" in model else "minicpm"
@@ -249,13 +268,9 @@ def mllm_encoder(model: str, lm: Qwen2LM, tokenizer, vl_cfg=None,
         encoder_fn, batch_fn = _qwenvl(lm, tokenizer, tokenize, vl_cfg,
                                        vision, dev, eos, no_vision)
     else:
-        def text(prompt):
-            return tokenizer.apply_chat_template(
-                [{"role": "user", "content": minicpm_omni_content(prompt)}],
-                tokenize=False, add_generation_prompt=True)
-
-        encoder_fn, batch_fn = lm_text_encoder(
-            lm, lambda prompt: tokenize(text(prompt)), answer=no_answer)
+        encoder_fn, batch_fn = _minicpm(lm, tokenizer, tokenize, vl_cfg,
+                                        vision, dev, no_vision, no_answer,
+                                        scale_resolution)
     encoder_fn.batch = batch_fn
     encoder_fn.ctx = {"lm": lm, "vision": vision, "tokenizer": tokenizer,
                       "eos_token_id": eos}
@@ -366,6 +381,112 @@ def _qwenvl(lm, tokenizer, tokenize, cfg, visual, dev, eos, no_vision):
     return lm_encoder(prepare, forward, answer)
 
 
+def _unk_runs(ids: np.ndarray, unk: int) -> List[Tuple[int, int]]:
+    """The (start, end) of each run of ``unk`` in ``ids``, in order; a run
+    still open at the end of ``ids`` is not one (JAX's scan)."""
+    spans, start = [], None
+    for i, t in enumerate(ids.tolist()):
+        if t == unk and start is None:
+            start = i
+        elif t != unk and start is not None:
+            spans.append((start, i))
+            start = None
+    return spans
+
+
+def _minicpm(lm, tokenizer, tokenize, cfg, encoder, dev, no_vision, answer,
+             scale_resolution):
+    """MiniCPM-o's host and device halves (``mllm_encoder``): JAX's
+    ``_prep`` and ``_assemble``."""
+    cfg = cfg or MiniCPMOConfig(llm=lm.cfg)
+    unk = tokenizer.convert_tokens_to_ids("<unk>")
+    v = cfg.vision
+
+    def prepare(r):
+        images = list(r.get("images") or [])
+        if r.get("video") is not None:
+            images.extend(r["video"])            # the frames, as images
+        audio = r.get("audio")
+        if (images or audio is not None) and encoder is None:
+            no_vision()
+        content = minicpm_omni_content(
+            r.get("prompt"), num_images=len(images),
+            num_audios=0 if audio is None else 1)
+        aud_spans = ([] if audio is None
+                     else audio_placeholder_spans(len(audio)))
+        text = tokenizer.apply_chat_template(
+            [{"role": "user", "content": content}], tokenize=False,
+            add_generation_prompt=True)
+        text = text.replace("(<image>./</image>)",
+                            "<image>" + "<unk>" * cfg.query_num + "</image>")
+        text = text.replace("(<audio>./</audio>)", "".join(
+            "<audio>" + "<unk>" * n + "</audio>" for n in aud_spans))
+        ids, mask = tokenize(text)
+        spans = _unk_runs(ids, unk)
+        mels = lens = None
+        if audio is not None:
+            mels, lens = chunk_audio_mels(np.asarray(audio))
+        # a placeholder the 512-token budget cut would shift the rows of
+        # every later request of a batch
+        whole = (sum(e - s for s, e in spans)
+                 == len(images) * cfg.query_num + sum(aud_spans))
+        return ids, mask, {"images": images, "n_img": len(images),
+                           "spans": spans, "mels": mels,
+                           "mel_lens": lens}, whole
+
+    def audio_inputs(preps, seq):
+        """All requests' mel chunks padded to one Whisper batch, its frame
+        mask and chunk bias, and the audio map over the batch's rows."""
+        parts = [p for p in preps if p["mels"] is not None]
+        t_max = max(p["mels"].shape[2] for p in parts)
+        mels = np.zeros((sum(p["mels"].shape[0] for p in parts),
+                         parts[0]["mels"].shape[1], t_max), np.float32)
+        row = 0
+        for p in parts:
+            mels[row:row + p["mels"].shape[0], :, :p["mels"].shape[2]] = \
+                p["mels"]
+            row += p["mels"].shape[0]
+        lens = np.concatenate([p["mel_lens"] for p in parts])
+        conv_lens = (lens - 1) // 2 + 1
+        pooled = ((t_max - 1) // 2 + 1) // 2
+        rows, base = [], 0
+        for p in parts:
+            n = p["mels"].shape[0]
+            r = np.concatenate([(base + k) * pooled + np.arange((c - 2) // 2
+                                                                + 1)
+                                for k, c in enumerate(
+                                    conv_lens[base:base + n])])
+            rows.append(r[:sum(e - s for s, e in p["spans"][p["n_img"]:])])
+            base += n
+        audio_map = bounds_to_map([p["spans"][p["n_img"]:] for p in preps],
+                                  seq, rows=np.concatenate(rows))
+        return (audio_tensors(mels, lens, dev),
+                torch.as_tensor(audio_map, device=dev))
+
+    def forward(ids, mask, extras):
+        ids = torch.as_tensor(ids, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        if encoder is None:
+            return lm(ids, attention_mask=mask)[0]
+        seq = ids.shape[1]
+        vision = prepare_minicpm_vision(
+            [im for p in extras for im in p["images"]],
+            cfg.llm.hidden_size, max_slice_nums=1, patch_size=v.patch_size,
+            num_patches_per_side=v.num_patches_per_side,
+            max_size=v.num_patches_per_side,
+            scale_resolution=scale_resolution)
+        vdict = img_map = adict = audio_map = None
+        if vision is not None:
+            vdict = slice_tensors(vision, dev)
+            img_map = torch.as_tensor(bounds_to_map(
+                [p["spans"][:p["n_img"]] for p in extras], seq), device=dev)
+        if any(p["mels"] is not None for p in extras):
+            adict, audio_map = audio_inputs(extras, seq)
+        return encoder(ids, mask, vdict, adict, img_map, audio_map)
+
+    return lm_encoder(prepare, forward, answer)
+
+
 # ------------------------------------------------------------ pipeline
 
 def _build(cls, cfg, device):
@@ -376,16 +497,17 @@ def _build(cls, cfg, device):
 
 def _lm_layout(model: str, mllm_path: str, llm_cfg):
     """-> (the LM's body prefix, its head key, whether a key is one the
-    port does not read) in the family's checkpoint layout. The InternVL
-    and Qwen2.5-VL directories are read whole (their plans take the
-    vision tower too), a tied head apart; of MiniCPM-o's, the LM alone."""
+    port does not read) in the family's checkpoint layout. The
+    directories are read whole (their plans take the vision tower, and
+    MiniCPM-o's the audio encoder, too), a tied head apart; of
+    MiniCPM-o's also what ``minicpmo_off_path`` names for the registry's
+    encoders over ``llm_cfg``."""
     tied = llm_cfg.tie_word_embeddings
     if "internvl" in model:
         body, head = "language_model.model.", "language_model.lm_head.weight"
     elif "minicpm" in model:
-        body, head = "llm.model.", "llm.lm_head.weight"
-        return body, head, lambda k: (not k.startswith("llm.")
-                                      or (tied and k == head))
+        return "llm.model.", "llm.lm_head.weight", minicpmo_off_path(
+            MiniCPMOConfig(llm=llm_cfg))
     else:
         # Qwen2.5-VL: model.language_model.* beside model.visual.* (newer
         # transformers), or model.* beside visual.*
@@ -404,9 +526,9 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
                                     tokenizer=None) -> X2IPipeline:
     """An ``X2IPipeline`` from checkpoint directories, for a registry
     model of any of the three families (the family is in the name:
-    internvl, qwenvl, minicpm): the InternVL2.5 and Qwen2.5-VL encoders
-    whole (vision tower and LM, read in one pass over the directory),
-    MiniCPM-o's LM alone.
+    internvl, qwenvl, minicpm), the encoder whole (its vision tower, for
+    MiniCPM-o also its audio encoder and projector, and its LM, read in
+    one pass over the directory).
 
     The architecture follows each directory's own config files, the
     registry entry where a file is absent. ``quantized``: True is "w8",
@@ -419,7 +541,8 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     tokenizer's, as the JAX loader takes it. The pipeline's
     ``load_report`` gives, per module (flux, vae, proj, mllm), the
     tensors and bytes read and the keys the port does not read: the
-    VAE's encoder, a tied head, MiniCPM-o's encoders and TTS modules."""
+    VAE's encoder, a tied head, MiniCPM-o's TTS modules, its dropped
+    SigLIP block and Whisper's stored position table."""
     dev = resolve_device(device)
     spec = MODEL_REGISTRY[model]
     mode = quant_mode("w8" if quantized is True else quantized)
@@ -452,6 +575,7 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
             mllm_path, trust_remote_code=True,
             **({"use_fast": False} if "internvl" in model else {}))
     tensors = load_safetensors_dir(mllm_path)
+    scale = {}                       # MiniCPM-o's slices' side
     if "internvl" in model:
         vl_cfg = (internvl_config_from_dir(mllm_path, spec.internvl)
                   or spec.internvl)
@@ -475,15 +599,15 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
             enc, tensors, qwen2_5_vl_plan(vl_cfg, vis, body, head), off_path)
         lm, vision = enc.language_model, enc.visual
     else:
-        vl_cfg = vision = None
-        llm_cfg = minicpmo_llm_config_from_dir(mllm_path, spec.llm) \
-            or spec.llm
-        body, head, off_path = _lm_layout(model, mllm_path, llm_cfg)
-        lm = _build(Qwen2LM, llm_cfg, dev)
-        report["mllm"] = fill_module(lm, tensors,
-                                     qwen2_plan(llm_cfg, body, head),
-                                     off_path)
-    encoder_fn = mllm_encoder(model, lm, tokenizer, vl_cfg, vision)
+        vl_cfg = (minicpmo_config_from_dir(mllm_path, spec.llm)
+                  or spec.minicpmo)
+        vision = _build(MiniCPMOEncoder, vl_cfg, dev)
+        report["mllm"] = fill_module(vision, tensors, minicpmo_plan(vl_cfg),
+                                     minicpmo_off_path(vl_cfg))
+        lm = vision.llm
+        scale = {"scale_resolution": minicpm_scale_resolution(mllm_path)}
+    encoder_fn = mllm_encoder(model, lm, tokenizer, vl_cfg, vision,
+                              **scale)
 
     return X2IPipeline(
         encoder_fn=encoder_fn, proj=proj, flux=flux, vae=vae,

@@ -7,7 +7,9 @@ layers stacked for ``nn.scan``, the Linear weights transposed. The port's
 modules have torch's own layouts (``nn.Linear`` (out, in), ``nn.Conv2d``
 OIHW, one module per layer), so a converter here is a *plan*: for each key
 of the checkpoint, the parameter or buffer of the port module that takes
-it, and the row permutation it needs on the way, if any. ``fill_module``
+it, and the row permutation it needs on the way, if any (a key may fill
+several: MiniCPM-o's packed in-projection is split into q, k and v
+rows). ``fill_module``
 then copies the checkpoint into the module where it lies, one tensor at a
 time, in the module's dtype (a bf16 file is copied as it is): no
 float32 copy of the checkpoint and no stacking on the host.
@@ -15,10 +17,11 @@ float32 copy of the checkpoint and no stacking on the host.
 The accounting is strict: the plan names every parameter and buffer of
 the module exactly once, every key of the plan must be in the
 checkpoint, and a key outside the plan must be one the port does not
-read (``off_path``: MiniCPM-o's encoders and TTS modules, a tied head, the
-VAE's encoder), which the returned report names. Anything else raises.
-The InternVL2.5 and Qwen2.5-VL plans fill the whole encoder, the vision
-tower and the LM, in one pass over the directory.
+read (``off_path``: MiniCPM-o's TTS modules, the SigLIP block MiniCPM
+drops and Whisper's stored position table, a tied head, the VAE's
+encoder), which the returned report names. Anything else raises. The
+InternVL2.5, Qwen2.5-VL and MiniCPM-o plans fill the whole encoder, the
+vision (and audio) towers and the LM, in one pass over the directory.
 
 FLUX's q/k projections (weights and biases) and its qk-norm scales leave
 in the half-rope layout (``x2i_torch/ops/rope.py::half_layout_perm`` over
@@ -28,20 +31,23 @@ the channels of each head), as the JAX converter's
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from x2i_torch.core.config import (FluxConfig, InternVLConfig, ProjConfig,
-                                   Qwen2Config, VAEConfig)
+from x2i_torch.core.config import (FluxConfig, InternVLConfig,
+                                   MiniCPMOConfig, ProjConfig, Qwen2Config,
+                                   VAEConfig)
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
 from x2i_torch.ops.rope import half_layout_perm
 
 # checkpoint key -> (the module's parameter or buffer name, a transform
-# applied on the module's device, or None)
-Plan = Dict[str, Tuple[str, Optional[Callable[[torch.Tensor],
-                                               torch.Tensor]]]]
+# applied on the module's device, or None), or a list of such pairs for a
+# key that fills several
+Target = Tuple[str, Optional[Callable[[torch.Tensor], torch.Tensor]]]
+Plan = Dict[str, Union[Target, List[Target]]]
 
 
 def _rows(index: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -276,6 +282,103 @@ def qwen2_5_vl_plan(cfg: Qwen2_5_VLConfig, vis: str = "visual.",
     return plan
 
 
+def _split(i: int, n: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The i-th of n equal row blocks."""
+    return lambda t: t.chunk(n, dim=0)[i]
+
+
+def minicpmo_plan(cfg: MiniCPMOConfig) -> Plan:
+    """HF MiniCPM-o-2.6 -> ``MiniCPMOEncoder``. ``vpm.``: embeddings.
+    patch_embedding.weight (d, 3, ps, ps) -> vpm.patch_embedding.weight
+    flattened in (c, py, px) order, embeddings.position_embedding ->
+    position_embedding, encoder.layers.{i}.* -> block.{i}.* for the
+    ``effective_layers`` used (layer_norm1/2 -> ln1/ln2, self_attn.
+    {q,k,v}_proj / out_proj -> q, k, v / o, mlp.fc1/fc2 -> fc1/fc2),
+    post_layernorm. ``resampler.``: query and proj as stored, kv_proj
+    (where SigLIP's width is not the LM's), ln_{q,kv,post}, attn.
+    in_proj_weight / _bias split in three row blocks -> in_proj_{q,k,v},
+    attn.out_proj -> out_proj. ``apm.``: conv1 / conv2 in torch's
+    layout, layers.{i}.* -> block.{i}.* (self_attn_layer_norm /
+    final_layer_norm -> attn_ln / ffn_ln, self_attn.{q,k,v}_proj /
+    out_proj -> q, k (no bias), v / o, fc1, fc2), layer_norm -> final_ln.
+    audio_projection_layer.linear1/2 -> audio_projector.linear1/2; the LM
+    under ``llm.model.`` (an untied head at ``llm.lm_head.weight``) ->
+    llm. Norm weights -> scale."""
+    plan: Plan = {}
+
+    def same(src, dst, bias=True, norm=False):
+        plan[f"{src}.weight"] = (f"{dst}.{'scale' if norm else 'weight'}",
+                                 None)
+        if bias:
+            plan[f"{src}.bias"] = (f"{dst}.bias", None)
+
+    e = "vpm.embeddings."
+    plan[e + "patch_embedding.weight"] = (
+        "vpm.patch_embedding.weight", lambda t: t.reshape(t.shape[0], -1))
+    plan[e + "patch_embedding.bias"] = ("vpm.patch_embedding.bias", None)
+    plan[e + "position_embedding.weight"] = (
+        "vpm.position_embedding.weight", None)
+    for i in range(cfg.vision.effective_layers):
+        s, t = f"vpm.encoder.layers.{i}.", f"vpm.block.{i}."
+        same(s + "layer_norm1", t + "ln1", norm=True)
+        same(s + "layer_norm2", t + "ln2", norm=True)
+        for n in ("q", "k", "v"):
+            same(f"{s}self_attn.{n}_proj", t + n)
+        same(s + "self_attn.out_proj", t + "o")
+        same(s + "mlp.fc1", t + "fc1")
+        same(s + "mlp.fc2", t + "fc2")
+    same("vpm.post_layernorm", "vpm.post_layernorm", norm=True)
+
+    r = "resampler."
+    for n in ("query", "proj"):
+        plan[r + n] = (r + n, None)
+    if cfg.vision.hidden_size != cfg.llm.hidden_size:
+        same(r + "kv_proj", r + "kv_proj", bias=False)
+    for n in ("ln_q", "ln_kv", "ln_post"):
+        same(r + n, r + n, norm=True)
+    for leaf in ("weight", "bias"):
+        plan[f"{r}attn.in_proj_{leaf}"] = [
+            (f"{r}in_proj_{n}.{leaf}", _split(i, 3))
+            for i, n in enumerate("qkv")]
+    same(r + "attn.out_proj", r + "out_proj")
+
+    same("apm.conv1", "apm.conv1")
+    same("apm.conv2", "apm.conv2")
+    for i in range(cfg.audio.encoder_layers):
+        s, t = f"apm.layers.{i}.", f"apm.block.{i}."
+        same(s + "self_attn_layer_norm", t + "attn_ln", norm=True)
+        same(s + "final_layer_norm", t + "ffn_ln", norm=True)
+        for n in ("q", "k", "v"):
+            same(f"{s}self_attn.{n}_proj", t + n, bias=n != "k")
+        same(s + "self_attn.out_proj", t + "o")
+        same(s + "fc1", t + "fc1")
+        same(s + "fc2", t + "fc2")
+    same("apm.layer_norm", "apm.final_ln", norm=True)
+    for n in ("linear1", "linear2"):
+        same(f"audio_projection_layer.{n}", f"audio_projector.{n}")
+    plan.update(_prefixed(qwen2_plan(cfg.llm, "llm.model.",
+                                     "llm.lm_head.weight"), "llm."))
+    return plan
+
+
+def minicpmo_off_path(cfg: MiniCPMOConfig) -> Callable[[str], bool]:
+    """The keys of a MiniCPM-o directory that the port does not read, as
+    JAX reads none of them: the TTS modules (``tts.``), SigLIP's blocks
+    past ``effective_layers`` (MiniCPM drops the last), Whisper's stored
+    position table (the encoder makes its sinusoids) and a tied head."""
+    used = cfg.vision.effective_layers
+    layer = re.compile(r"vpm\.encoder\.layers\.(\d+)\.")
+
+    def off(key: str) -> bool:
+        m = layer.match(key)
+        return (key.startswith("tts.")
+                or key == "apm.embed_positions.weight"
+                or bool(m and int(m.group(1)) >= used)
+                or (cfg.llm.tie_word_embeddings
+                    and key == "llm.lm_head.weight"))
+    return off
+
+
 def proj_plan(cfg: ProjConfig) -> Plan:
     """The reference proj (utils/proj.py's state dict, 'module.' prefixes
     stripped) -> ``Proj``, in each of its three forms: a channel scale
@@ -309,9 +412,11 @@ def fill_module(module: nn.Module,
     neither in the plan nor off the path, and on a shape mismatch."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
+    plan = {k: v if isinstance(v, list) else [v] for k, v in plan.items()}
     named: Dict[str, int] = {}
-    for name, _ in plan.values():
-        named[name] = named.get(name, 0) + 1
+    for dests in plan.values():
+        for name, _ in dests:
+            named[name] = named.get(name, 0) + 1
     unfilled = sorted(set(targets) - set(named))
     wrong = sorted(n for n, c in named.items()
                    if n not in targets or c != 1)
@@ -329,15 +434,14 @@ def fill_module(module: nn.Module,
             continue
         if key in seen:
             raise KeyError(f"{key}: given twice")
-        name, fn = plan[key]
-        dst = targets[name]
         size += t.numel() * t.element_size()
-        if fn is not None:
-            t = fn(t.to(dst.device))
-        if tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"{key}: shape {tuple(t.shape)} does not fit "
-                             f"{name} {tuple(dst.shape)}")
-        dst.copy_(t)
+        for name, fn in plan[key]:
+            dst = targets[name]
+            part = t if fn is None else fn(t.to(dst.device))
+            if tuple(part.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {tuple(part.shape)} does "
+                                 f"not fit {name} {tuple(dst.shape)}")
+            dst.copy_(part)
         seen.add(key)
     missing = sorted(set(plan) - seen)
     if missing:

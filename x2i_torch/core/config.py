@@ -36,7 +36,9 @@ norms and a tied head stay in ``dtype``. ``quantize_module_`` reads
 models and five projs, field for field. A ``ModelSpec`` carries the LM
 as ``llm`` and, for the two InternVL2.5 entries, the JAX entry's whole
 ``InternVLConfig`` (InternViT, pixel shuffle, ``<IMG_CONTEXT>``) as
-``internvl``, whose ``llm`` is the same LM. The Qwen2.5-VL entries carry
+``internvl``, and for the two MiniCPM-o entries the whole
+``MiniCPMOConfig`` (SigLIP, the resampler, Whisper) as ``minicpmo``,
+whose ``llm`` is the same LM. The Qwen2.5-VL entries carry
 no vision config, as in JAX: the loader takes the released tower's
 (``models/qwen2_5_vl.py::QwenVisionConfig``) at the LM's width.
 """
@@ -226,6 +228,87 @@ class InternVLConfig:
 
 
 @dataclass(frozen=True)
+class SiglipVisionConfig:
+    """SigLIP-so400m with NaViT variable resolution (MiniCPM-o's ``vpm``):
+    27 pre-LN blocks of width 1152, 16 heads of 72, 14-pixel patches over
+    a 70 x 70 position table; MiniCPM drops the last block
+    (``drop_last_layer``), so 26 run."""
+
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_channels: int = 3
+    image_size: int = 980
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+    drop_last_layer: bool = True
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"
+
+    @property
+    def num_patches_per_side(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def effective_layers(self) -> int:
+        return self.num_hidden_layers - (1 if self.drop_last_layer else 0)
+
+
+@dataclass(frozen=True)
+class WhisperConfig:
+    """The Whisper-medium encoder (MiniCPM-o's ``apm``): 24 pre-LN blocks
+    of width 1024, 16 heads of 64, 80 mel bins, 1500 positions."""
+
+    num_mel_bins: int = 80
+    d_model: int = 1024
+    encoder_layers: int = 24
+    encoder_attention_heads: int = 16
+    encoder_ffn_dim: int = 4096
+    max_source_positions: int = 1500
+    layer_norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"
+
+
+@dataclass(frozen=True)
+class ResamplerConfig:
+    """The perceiver resampler: ``num_queries`` learned queries of the
+    LM's width cross-attend the ViT's patches (``kv_dim`` wide)."""
+
+    num_queries: int = 64
+    embed_dim: int = 3584            # the LM's width (MiniCPM: Qwen2-7B)
+    num_heads: int = 28
+    kv_dim: int = 1152               # SigLIP's width
+    layer_norm_eps: float = 1e-6
+    max_size: int = 70
+    dtype: Any = torch.bfloat16
+    attention_impl: str = "auto"
+
+
+@dataclass(frozen=True)
+class MiniCPMOConfig:
+    """MiniCPM-o-2.6's omni encoder: SigLIP, the resampler (``query_num``
+    queries a slice, ``resampler_heads`` heads), Whisper with its
+    projector (average pool of ``audio_pool_step``) and the Qwen2 LM."""
+
+    vision: SiglipVisionConfig = field(default_factory=SiglipVisionConfig)
+    audio: WhisperConfig = field(default_factory=WhisperConfig)
+    llm: Qwen2Config = field(default_factory=lambda: _minicpm_llm())
+    query_num: int = 64
+    audio_pool_step: int = 2
+    resampler_heads: int = 28
+
+    def resampler_config(self) -> ResamplerConfig:
+        return ResamplerConfig(num_queries=self.query_num,
+                               embed_dim=self.llm.hidden_size,
+                               num_heads=self.resampler_heads,
+                               kv_dim=self.vision.hidden_size,
+                               dtype=self.llm.dtype,
+                               attention_impl=self.llm.attention_impl)
+
+
+@dataclass(frozen=True)
 class SchedulerConfig:
     """Flow-match Euler discrete scheduler (diffusers semantics)."""
 
@@ -361,7 +444,8 @@ PROJ_REGISTRY: Dict[str, ProjConfig] = {
 @dataclass(frozen=True)
 class ModelSpec:
     """One registry entry: the LM, proj, DiT and scheduler, and for the
-    InternVL2.5 entries the encoder's config (its ``llm`` is ``llm``)."""
+    InternVL2.5 and MiniCPM-o entries the encoder's config (its ``llm``
+    is ``llm``)."""
 
     llm: Qwen2Config = field(default_factory=Qwen2Config)
     proj: ProjConfig = field(default_factory=ProjConfig)
@@ -369,6 +453,7 @@ class ModelSpec:
     vae: VAEConfig = field(default_factory=VAEConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     internvl: Optional[InternVLConfig] = None
+    minicpmo: Optional[MiniCPMOConfig] = None
 
 
 def _schnell(llm: Qwen2Config, proj: str,
@@ -378,7 +463,8 @@ def _schnell(llm: Qwen2Config, proj: str,
         llm=llm, proj=PROJ_REGISTRY[proj],
         flux=FluxConfig(guidance_embeds=False),
         scheduler=SchedulerConfig(shift=1.0, use_dynamic_shifting=False),
-        internvl=InternVLConfig(llm=llm) if internvl else None)
+        internvl=InternVLConfig(llm=llm) if internvl else None,
+        minicpmo=MiniCPMOConfig(llm=llm) if proj == "minicpm" else None)
 
 
 # The encoder family is in the name (internvl, qwenvl, minicpm), as the
@@ -393,7 +479,8 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "x2i-minicpm-o-2.6-dev": ModelSpec(
         llm=_minicpm_llm(), proj=PROJ_REGISTRY["minicpm"],
         flux=FluxConfig(guidance_embeds=True),
-        scheduler=SchedulerConfig(shift=3.0, use_dynamic_shifting=True)),
+        scheduler=SchedulerConfig(shift=3.0, use_dynamic_shifting=True),
+        minicpmo=MiniCPMOConfig(llm=_minicpm_llm())),
 }
 
 

@@ -16,9 +16,11 @@ arrays and copies every leaf into the matching PyTorch parameter:
   ``quantize_tree(params, mode, group)``: the layer takes the G groups of
   its leaves, whatever group it was built with);
 * ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
-* Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW;
-* every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``)
-  -> the parameter of the same name.
+* Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW, and a 1-D Conv's
+  (k, in, out) -> ``nn.Conv1d.weight`` (out, in, k);
+* every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``,
+  the resampler's raw ``query`` and ``proj`` matrices) -> the parameter
+  of the same name, as it is.
 
 The FLUX q/k channels stay in the half-RoPE permutation the tree already
 carries. Every parameter and buffer must be filled exactly once and every
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from x2i_torch.models.resampler import Resampler
 from x2i_torch.ops.quant import QuantLinear
 
 Tree = Mapping[str, Any]
@@ -129,8 +132,10 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
             if "bias" in val:
                 _copy(child.bias, val["bias"], name + ".bias", filled)
             _only(val, {"kernel", "bias"}, name)
-        elif isinstance(child, nn.Conv2d):
-            _copy(child.weight, np.transpose(val["kernel"], (3, 2, 0, 1)),
+        elif isinstance(child, (nn.Conv1d, nn.Conv2d)):
+            axes = ((2, 1, 0) if isinstance(child, nn.Conv1d)
+                    else (3, 2, 0, 1))
+            _copy(child.weight, np.transpose(val["kernel"], axes),
                   name + ".kernel", filled)
             _copy(child.bias, val["bias"], name + ".bias", filled)
             _only(val, {"kernel", "bias"}, name)
@@ -175,12 +180,13 @@ def load_flax(module: nn.Module, tree: Tree) -> nn.Module:
 
 def random_init_(module: nn.Module, generator: torch.Generator
                  ) -> nn.Module:
-    """Random weights in place: Linear and Conv2d weights normal with std
-    1/sqrt(fan_in) (a QuantLinear quantizes such a weight), embeddings
+    """Random weights in place: Linear and convolution weights normal with
+    std 1/sqrt(fan_in) (a QuantLinear quantizes such a weight), embeddings
     normal with std 1, as T5's relative position bias table; CLIP's
-    position embeddings normal with std 0.02 (the JAX initializers of the
-    two); biases 0, every other parameter (norm scales, the proj's channel
-    scale) 1 -- except norm biases, 0."""
+    position embeddings and the resampler's queries normal with std 0.02
+    (the JAX initializers of the first two), the resampler's raw ``proj``
+    matrix with std 1/sqrt(fan_in); biases 0, every other parameter (norm
+    scales, the proj's channel scale) 1 -- except norm biases, 0."""
     with torch.no_grad():
         for mod in module.modules():
             if isinstance(mod, QuantLinear):
@@ -192,7 +198,7 @@ def random_init_(module: nn.Module, generator: torch.Generator
                     generator=generator))
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+            elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                    generator=generator)
@@ -200,6 +206,11 @@ def random_init_(module: nn.Module, generator: torch.Generator
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(mod, Resampler):
+                # its raw tables: the queries, and ``proj`` (x @ proj)
+                mod.query.normal_(0.0, 0.02, generator=generator)
+                mod.proj.normal_(0.0, 1.0 / math.sqrt(mod.proj.shape[0]),
+                                 generator=generator)
             else:
                 for name, p in mod.named_parameters(recurse=False):
                     if name in RANDOM_TABLES:

@@ -1,9 +1,9 @@
 """X2I pipeline: MLLM hidden states -> proj -> FLUX -> VAE, the
 counterpart of ``x2i_tpu/pipeline.py``: text2image, image2image,
-imagetext2image, video2image and x2image, and the batched ``run_batch``
-(audio2image waits for MiniCPM-o's encoders). ``lm_encoder`` joins a
-family's host half (templates, tokens, image tiles or patches) and device
-half (vision tower and LM) into the encoder functions the pipeline calls.
+imagetext2image, video2image, audio2image and x2image, and the batched
+``run_batch``. ``lm_encoder`` joins a family's host half (templates,
+tokens, image tiles or patches, log-mel chunks) and device half (vision
+and audio towers and LM) into the encoder functions the pipeline calls.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"`` they raise.
@@ -99,10 +99,10 @@ def lm_encoder(prepare: Callable, forward: Callable,
 
 
 # what a text-only encoder says of a request with media
-MEDIA_REFUSED = ("this encoder takes text only: the port's image and video "
-                 "encoders are the InternVL2.5 and Qwen2.5-VL families'; "
-                 "the MiniCPM-o family's image, video and audio encoders "
-                 "are ROADMAP.md Queue A item 4.3")
+MEDIA_REFUSED = ("this encoder takes text only: the port's media encoders "
+                 "are those of the checkpoint families (images and video "
+                 "for InternVL2.5 and Qwen2.5-VL, and audio for "
+                 "MiniCPM-o), through convert/load.py")
 
 
 def lm_text_encoder(lm: Qwen2LM, tokenize: Callable[[str], Tuple],
@@ -218,7 +218,8 @@ class X2IPipeline:
         """One request of ``task`` through the encoder, then one image.
         images: PIL images (or their host half's output, see the
         family's encoder); video: frames (``data/video.py``); audio: a
-        waveform, which no ported encoder takes. ``use_answer``: condition
+        16 kHz float waveform, which MiniCPM-o's encoder takes (the other
+        families ignore it, as in JAX). ``use_answer``: condition
         on the prompt and a decoded answer (reasoning2image), where the
         encoder has that mode."""
         inputs = {"prompt": prompt, "images": images, "video": video,
@@ -238,6 +239,9 @@ class X2IPipeline:
 
     def video2image(self, video, **kw) -> np.ndarray:
         return self.run_task("video2image", video=video, **kw)
+
+    def audio2image(self, audio, **kw) -> np.ndarray:
+        return self.run_task("audio2image", audio=audio, **kw)
 
     def x2image(self, prompt=None, images=None, audio=None,
                 **kw) -> np.ndarray:

@@ -42,7 +42,9 @@ Phases, each printing one JSON line per record:
    written to a temporary directory and loaded by
    ``build_pipeline_from_checkpoints`` onto the card, with its time,
    rate, host and card peak memory; loaded on the CPU too, and the two
-   copies held equal bit for bit (nothing of the directory unread); one
+   copies held equal bit for bit (nothing of the directory unread, the
+   VAE's encoder among it), the VAE's encode on the card against the CPU
+   copy's (``check_vae_encode``); one
    1024^2 imagetext2image with exact launch counts, and the same image
    after a load in the default w8; then a MiniCPM-o-2.6 directory
    (SigLIP-so400m with its 27 blocks, the resampler, Whisper-medium and
@@ -81,12 +83,28 @@ Phases, each printing one JSON line per record:
    teacher then student, with exact launch counts per step; a 2+2-block
    full-width DiT holds the conditioning gradient of the kernel route
    (K1 with the lse, K3, K4) against the plain attention's;
+5a. lightcontrol: LightControl's 19 ControlNeXt branches (ControlNeXtConfig
+   at its defaults, drawn on the card) attached to the same bf16
+   pipeline; a 1024^2 text2image with a 1024^2 guidance image, its launch
+   counts the text image's (the bank's convolutions and GroupNorms are
+   cuDNN and PyTorch's), the bank's device time a step beside its bound;
+   with the bank's out convs zeroed the image is bit for bit the one
+   without controls; a 2+2-block route check with the bank's controls;
+5b. lightcontrol-train: the phase-2 step at full width and depth on the
+   same DiT (the trainer's config, set back after), VAE, LM and proj,
+   InternViT drawn again for an imagetext2image conditioning: one warm-up
+   and three timed steps, each split into the VAE encode, the
+   conditioning, the bank and the DiT, and the optimizer; exact launch
+   counts per step, the bank moved, the DiT bit for bit unchanged; a
+   2+2-block full-width DiT holds the controls' gradient of the kernel
+   route (K1c, K1 with the lse, K3, K4) against the plain attention's;
 6. w8a8: the same DiT quantized in place (``quantize_module_``) makes the
    same image through the quantizing glue kernels and the int8 GEMM, with
    exact launch counts, and its pixels are compared with the bf16 ones; a
    2+2-block full-width w8a8 DiT holds the kernel route against the plain
    route (unfused glue, plain quantization and product, plain attention)
-   on the same int8 weights;
+   on the same int8 weights; then the same image with the bank
+   (``lightcontrol-w8a8``), with the same counts;
 7. w4a8 and w4: the bf16 DiT drawn again from the generator state it was
    drawn from (the same weights), quantized in place to w4a8 and makes
    the same image through K6/K7/K8 and the w4a8 GEMM; then drawn again
@@ -1426,7 +1444,7 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
 
 
 def check_routes(seed: int, px: int = 512,
-                 label: str = "text2image-reference"):
+                 label: str = "text2image-reference", bank=None):
     """Agreement with a reference on a small input: a full-width DiT cut to
     2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
     text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
@@ -1434,7 +1452,9 @@ def check_routes(seed: int, px: int = 512,
     the plain route (unfused glue, plain attention) on the same bf16
     weights. The two round at different points (the plain route keeps p
     in f32; K1 rounds q/k once after norm, rope and scale), so they agree
-    to bf16 accuracy, not bit for bit: relative L2 error at most 2e-2."""
+    to bf16 accuracy, not bit for bit: relative L2 error at most 2e-2.
+    ``bank``: LightControl's branches on a px^2 guidance image drawn from
+    the seed give both routes the same controls (its first two rows)."""
     import dataclasses
 
     import torch
@@ -1462,13 +1482,18 @@ def check_routes(seed: int, px: int = 512,
             torch.full((1,), 0.75, device=dev),
             prepare_latent_image_ids(px // 8, px // 8, dev),
             torch.zeros((512, 3), device=dev))
+    kw = {}
+    if bank is not None:
+        guide = torch.rand((1, px, px, 3), generator=g, device=dev) * 2 - 1
+        with torch.inference_mode():
+            kw["controls"] = bank(guide, args[3] * 1000.0)[:2]
     before = launch_counts()
     with torch.inference_mode():
-        got = kern(*args).float()
+        got = kern(*args, **kw).float()
         used = {k: v - before[k] for k, v in launch_counts().items()}
-        want = plain(*args).float()
+        want = plain(*args, **kw).float()
     rel = ((got - want).norm() / want.norm()).item()
-    rec = {"phase": label, "blocks": [2, 2],
+    rec = {"phase": label, "blocks": [2, 2], "controls": bank is not None,
            "tokens": [s_img, 512], "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -1542,7 +1567,8 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
 
 
 def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
-              steps: int = 4, model: str = MODEL, request=None):
+              steps: int = 4, model: str = MODEL, request=None,
+              control_pixels=None):
     """One warm-up image, then the main path: one px^2 image of ``steps``
     steps with every launch count set to 0 just before and read just
     after; then the layer times and the pre-postprocess pixels of the same
@@ -1550,12 +1576,16 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
     the path. ``request``: the ``run_task`` request (task, prompt, images,
     video), by default text2image of the first prompt; the encoder's
     time (``lm_prefill_ms``) is then the whole encoder's, host half and
-    vision tower included."""
+    vision tower included. ``control_pixels``: LightControl's guidance
+    image, for a pipeline ``with_controls`` (``dit_step_ms`` stays the
+    DiT's alone)."""
     import torch
     from x2i_torch.diffusion.sampling import prepare_latent_image_ids
 
     req = request or {"task": "text2image", "prompt": PROMPTS[0]}
     size = dict(height=px, width=px, num_steps=steps)
+    if control_pixels is not None:
+        size["control_pixels"] = control_pixels
     t0 = time.perf_counter()
     pipe.run_task(**req, seed=seed, **size)               # warm-up
     warm_s = time.perf_counter() - t0
@@ -1575,7 +1605,8 @@ def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
         g = torch.Generator(device=dev).manual_seed(seed)
         noise = torch.randn((1, (px // 16) ** 2, 64), generator=g,
                             device=dev, dtype=dt)
-        pixels = pipe._generate(noise, emb, pooled, px, px, steps)
+        pixels = pipe._generate(noise, emb, pooled, px, px, steps,
+                                control_pixels)
         sig = pipe.scheduler.inference_sigmas(
             steps, image_seq_len=(px // 16) ** 2, device=dev)
         img_ids = prepare_latent_image_ids(px // 8, px // 8, dev)
@@ -1883,9 +1914,341 @@ def check_distill_routes(seed: int):
                              f"plain route: {rec}")
 
 
-def phase_w8a8(pipe, bf16_pixels, seed: int):
+# ----------------------------------------------------------- LightControl
+
+def draw_bank(seed: int):
+    """LightControl's bank at ``ControlNeXtConfig()`` (19 branches of 128 /
+    256 channels, 3072 out, bf16), drawn on the card from the seed: ->
+    (its config, the bank)."""
+    import torch
+    from x2i_torch.core.config import ControlNeXtConfig, LightControlConfig
+    from x2i_torch.models.controlnext import ControlBank
+    from x2i_torch.params import random_init_
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    cfg = ControlNeXtConfig()
+    return cfg, random_init_(ControlBank(cfg, LightControlConfig(
+        ).num_controls, torch.device("cuda")), g)
+
+
+def control_image(seed: int, px: int = 1024):
+    """A guidance image: uint8 (1, px, px, 3) drawn on the card from the
+    seed, through ``preprocess`` to [-1, 1]."""
+    import torch
+    from x2i_torch.models.vae import preprocess
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    return preprocess(torch.randint(0, 256, (1, px, px, 3), generator=g,
+                                    device="cuda", dtype=torch.uint8))
+
+
+def branch_flops(branch, pixels, timestep) -> int:
+    """The operations (2 x multiply-adds) of one branch's convolutions and
+    Linears on these inputs, from their output shapes on one call."""
+    import torch
+    from torch import nn
+    flops = []
+
+    def count(mod, _, out):
+        per_out = (mod.weight[0].numel() if isinstance(mod, nn.Conv2d)
+                   else mod.in_features)
+        flops.append(2 * per_out * out.numel())
+
+    hooks = [m.register_forward_hook(count) for m in branch.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.inference_mode():
+            branch(pixels, timestep)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flops)
+
+
+def control_timing(bank, pixels, timestep) -> dict:
+    """The bank's cost at one denoise step: ``control_ms`` = 19 x one
+    branch's device time (``kernel_ms``: the bank's some 2,500 launches a
+    call overflow the launch queue that ``kernel_ms`` fills), the bank's
+    call with its host path (``call_ms``), and the bound: each branch's
+    operations at the bf16 peak, or the bytes of its pixels, weights and
+    tokens, whichever is larger."""
+    import torch
+    br, n = bank.branches[0], len(bank.branches)
+    with torch.inference_mode():
+        branch_ms = kernel_ms(lambda p, t: br(p, t), pixels, timestep,
+                              iters=5)
+        bank_call_ms = call_ms(lambda: bank(pixels, timestep), iters=3)
+        out = br(pixels, timestep)
+    flops = branch_flops(br, pixels, timestep)
+    moved = nbytes(pixels, out, *br.parameters())
+    b_ms, basis = bound(flops, moved)
+    return {"control_ms": n * branch_ms, "branch_ms": branch_ms,
+            "control_call_ms": bank_call_ms, "control_bound_ms": n * b_ms,
+            "control_bound_by": basis, "branch_flops": flops,
+            "bank_weight_bytes": _weight_bytes(bank)}
+
+
+def phase_lightcontrol(pipe, bf16_pixels, seed: int, card: str):
+    """LightControl serving on the bf16 pipeline: the bank (``draw_bank``)
+    attached with ``with_controls``, a 1024^2 guidance image
+    (``control_image``); one 4-step text2image with ``control_pixels``
+    after one warm-up, launch counts exact and those of the text image
+    (the bank's convolutions and GroupNorms are cuDNN and PyTorch's: no
+    kernel of this repo), s/image, peak memory and the bank's time
+    (``control_timing``); its pixels against the text image's (they
+    differ); with every branch's out conv zeroed, the image bit for bit
+    the pipeline's without controls; the 2 + 2-block route check with the
+    bank's controls. -> (launches, (config, bank, guidance image))."""
+    import numpy as np
+    import torch
+
+    cfg, bank = draw_bank(seed)
+    cpipe = pipe.with_controls(cfg, bank)
+    guide = control_image(seed)
+    want = expected_launches(False, 4)
+    rec, pixels, counts = run_image(cpipe, seed, "lightcontrol", want,
+                                    control_pixels=guide)
+    sig0 = pipe.scheduler.inference_sigmas(4, image_seq_len=4096,
+                                           device=guide.device)[:1]
+    rec.update(control_timing(bank, guide, sig0 * 1000.0), card=card)
+    ref = bf16_pixels.float()
+    rec["rel_l2_vs_no_controls"] = ((pixels.float() - ref).norm()
+                                    / ref.norm()).item()
+
+    req = {"task": "text2image", "prompt": PROMPTS[0], "seed": seed,
+           "height": 1024, "width": 1024, "num_steps": 4}
+    saved = [(br.out_conv.weight.clone(), br.out_conv.bias.clone())
+             for br in bank.branches]
+    with torch.no_grad():
+        for br in bank.branches:
+            br.out_conv.weight.zero_()
+            br.out_conv.bias.zero_()
+    zero_img = cpipe.run_task(**req, control_pixels=guide)
+    with torch.no_grad():
+        for br, (w, b) in zip(bank.branches, saved):
+            br.out_conv.weight.copy_(w)
+            br.out_conv.bias.copy_(b)
+    del saved
+    plain_img = pipe.run_task(**req)
+    rec["zero_bank_equals_no_controls"] = bool(np.array_equal(zero_img,
+                                                              plain_img))
+    emit(rec)
+    if (counts != want or not rec["zero_bank_equals_no_controls"]
+            or not rec["rel_l2_vs_no_controls"] > 0):
+        raise AssertionError(f"the controlled image is wrong: {rec} "
+                             f"(launches expected {want})")
+    check_routes(seed + 4, label="lightcontrol-reference", bank=bank)
+    return counts, (cfg, bank, guide)
+
+
+# per phase-2 step: the frozen DiT's forward and its recompute under remat
+# (K1 with the lse) and its backward (K3, K4) in every block but the first
+# double block, whose attention no gradient reaches (the first control is
+# added after it), so that it runs the forward-only no-rope body once
+# (K1c); the imagetext2image conditioning (K1b in the 24 ViT and the 24
+# LM layers); the bank and the VAE encoder launch no kernel of this repo;
+# no glue kernel, no GEMM
+LIGHTCONTROL_LAUNCHES = dict(NO_LAUNCHES, flash_fwd_pipe=1,
+                             flash_fwd_lse=112, flash_bwd_dq=56,
+                             flash_bwd_dkv=56, flash_fwd=48)
+
+
+def timed(fn, sections: dict, key: str):
+    """``fn`` timed into ``sections[key]`` (seconds, the card synchronized
+    before and after)."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sections[key] = sections.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+def param_checksum(module):
+    """Per parameter and buffer, the sum of its bytes (int64): a change of
+    any value changes its sum but by chance."""
+    import torch
+    return [t.detach().contiguous().view(torch.uint8).sum(
+        dtype=torch.int64).item()
+        for t in (*module.parameters(), *module.buffers())]
+
+
+def phase_lightcontrol_train(pipe, lm, seed: int, card: str):
+    """The phase-2 LightControl step at full width and depth, batch 1,
+    bf16, on the pipeline's DiT, VAE, LM and proj (the DiT set to the
+    trainer's config, ``TRAIN_DIT``, and set back after), InternViT drawn
+    again for the conditioning: an imagetext2image request (an
+    instruction and a condition image). LightControlConfig defaults
+    (the bank under "scan") except gradient_accumulation_steps=1; the
+    target a 1024^2 image drawn from the seed through the sampled VAE
+    encode (4096 image tokens). One warm-up and three timed steps, every
+    launch count set to 0 just before each step and read just after,
+    each step split into the VAE encode, the conditioning, the optimizer
+    and the rest (the bank and the DiT, forward and backward). Checks:
+    loss and grad norm finite, grad norm > 0, the bank changed by every
+    step, the DiT's parameters bit for bit those before the steps (a
+    checksum), the launch counts exact; then the 2 + 2-block gradient
+    route check (``check_lightcontrol_routes``)."""
+    import gc
+
+    import torch
+    from x2i_torch.convert.load import mllm_encoder
+    from x2i_torch.core.config import LightControlConfig
+    from x2i_torch.pipeline import X2IPipeline
+    from x2i_torch.train.harness import build_random_lightcontrol
+    from x2i_torch.train.lightcontrol import make_lightcontrol_step
+    from x2i_torch.train.runner import step_noise
+
+    t0 = time.perf_counter()
+    tok = ByteTokenizer("internvl")
+    vision = draw_internvl(MODEL, lm, seed, tok)
+    entry = X2IPipeline(
+        encoder_fn=mllm_encoder(MODEL, lm, tok, vision.cfg, vision),
+        proj=pipe.proj, flux=pipe.flux, vae=pipe.vae,
+        scheduler=pipe.scheduler, gen_cfg=pipe.gen_cfg)
+    images, route = media("internvl", seed, 1)
+    request = {"task": "imagetext2image", "prompt": "make the sky stormy",
+               "images": images}
+    _, state, batch, parts = build_random_lightcontrol(
+        "full", seed, pipe=entry, request=request,
+        ccfg=LightControlConfig(gradient_accumulation_steps=1))
+    sections = {}
+    opt = parts["optimizer"]
+    opt.update = timed(opt.update, sections, "optimizer_s")
+    step = make_lightcontrol_step(
+        parts["flux"], timed(parts["vae_encode"], sections, "vae_encode_s"),
+        timed(parts["conditioning_fn"], sections, "conditioning_s"),
+        parts["flux_cfg"], parts["ccfg"], parts["sched_cfg"], opt)
+    checksum = param_checksum(pipe.flux)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    steps = []
+    for i in range(4):
+        before = [p.detach().clone() for p in state.bank.parameters()]
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        sections.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, step_noise(seed, i))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_s = time.perf_counter() - t0
+        counts = launch_counts()
+        moved = sum(int((p.detach() != b).sum()) for p, b in
+                    zip(state.bank.parameters(), before))
+        rec = {"phase": "lightcontrol-train", "step": i + 1,
+               "warmup": i == 0, "step_s": step_s, **sections,
+               "bank_dit_fwd_bwd_s": step_s - sum(sections.values()),
+               "loss": loss, "grad_norm": gnorm,
+               "bank_values_moved": moved, "launches": counts}
+        emit(rec)
+        steps.append(rec)
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+                and moved > 0 and counts == LIGHTCONTROL_LAUNCHES):
+            raise AssertionError(
+                f"LightControl step {i + 1} is wrong: {rec} (launches "
+                f"expected {LIGHTCONTROL_LAUNCHES})")
+    timed_steps = steps[1:]
+    keys = ("step_s", "vae_encode_s", "conditioning_s", "bank_dit_fwd_bwd_s",
+            "optimizer_s")
+    summary = {"phase": "lightcontrol-train-summary", "model": MODEL,
+               "px": 1024, "tokens": [4096, 512], "batch": 1,
+               "bank_impl": parts["ccfg"].control_bank_impl,
+               "host_half": route, "build_s": build_s,
+               **{k: statistics.mean(r[k] for r in timed_steps)
+                  for k in keys},
+               "steps_s": [r["step_s"] for r in timed_steps],
+               "bank_values": sum(p.numel() for p in
+                                  state.bank.parameters()),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "dit_unchanged": param_checksum(pipe.flux) == checksum,
+               "launches_per_step": LIGHTCONTROL_LAUNCHES, "card": card}
+    emit(summary)
+    if not summary["dit_unchanged"]:
+        raise AssertionError(f"the frozen DiT changed: {summary}")
+    del state, parts, batch, step, opt, entry, vision
+    pipe.flux.replace_config(remat=False, rope_in_kernel=True,
+                             fused_glue=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_lightcontrol_routes(seed)
+    return steps[-1]["launches"], summary
+
+
+def check_lightcontrol_routes(seed: int):
+    """The controls' gradient of a flow-matching MSE on a full-width DiT
+    cut to 2 double + 2 single blocks, at the training point (4096 image +
+    512 text tokens), the trainer's config, through the kernel route (K1c
+    in the first double block, K1 with the lse, K3 and K4 after it) and
+    through the plain attention on the same bf16 weights, controls and
+    target: bf16 accuracy, as ``check_distill_routes`` holds it:
+    correlation above 0.99, relative L2 error below 5e-2."""
+    import dataclasses
+
+    import torch
+    from x2i_torch.core.config import MODEL_REGISTRY
+    from x2i_torch.diffusion.sampling import prepare_latent_image_ids
+    from x2i_torch.models.flux import FluxTransformer2D
+    from x2i_torch.params import random_init_
+    from x2i_torch.train.harness import TRAIN_DIT
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
+                               num_single_layers=2, **TRAIN_DIT)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    kern = random_init_(FluxTransformer2D(base, dev), g).requires_grad_(False)
+    plain = FluxTransformer2D(dataclasses.replace(
+        base, attention_impl="plain"), dev).requires_grad_(False)
+    plain.load_state_dict(kern.state_dict())
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    args = (rnd(1, 4096, 64), rnd(1, 512, 4096), rnd(1, 768),
+            torch.full((1,), 0.6, device=dev),
+            prepare_latent_image_ids(128, 128, dev),
+            torch.zeros((512, 3), device=dev))
+    controls, target = 0.1 * rnd(2, 1, 4096, 3072), rnd(1, 4096, 64).float()
+
+    def grads(model):
+        c = controls.clone().requires_grad_()
+        pred = model(*args, controls=c)
+        (pred.float() - target).square().mean().backward()
+        return c.grad.float().flatten()
+
+    reset_counts()
+    got = grads(kern)
+    used = launch_counts()
+    reset_counts()
+    want = grads(plain)
+    used_plain = launch_counts()
+    rel = ((got - want).norm() / want.norm()).item()
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    want_used = dict(NO_LAUNCHES, flash_fwd_pipe=1, flash_fwd_lse=6,
+                     flash_bwd_dq=3, flash_bwd_dkv=3)
+    rec = {"phase": "lightcontrol-train-reference", "blocks": [2, 2],
+           "tokens": [4096, 512], "grad_rel_l2_err": rel, "grad_corr": corr,
+           "grad_norm": want.norm().item(),
+           "finite": bool(torch.isfinite(got).all()),
+           "kernel_launches": used, "kernel_launches_expected": want_used,
+           "plain_route_launches": used_plain}
+    emit(rec)
+    if not (rec["finite"] and corr > 0.99 and rel < 5e-2
+            and used == want_used and not any(used_plain.values())):
+        raise AssertionError(f"the LightControl gradient's kernel route "
+                             f"disagrees with the plain route: {rec}")
+
+
+def phase_w8a8(pipe, bf16_pixels, seed: int, control):
     """The bf16 DiT quantized in place to w8a8 (its bf16 weights freed
-    layer by layer; LM, proj and VAE stay bf16), then the same image."""
+    layer by layer; LM, proj and VAE stay bf16), then the same image; then
+    the same image with LightControl's ``control`` = (config, bank,
+    guidance image) of ``phase_lightcontrol``, with the same counts.
+    -> (the launches of each)."""
     import torch
     from x2i_torch.ops.quant import quantize_module_
 
@@ -1905,7 +2268,17 @@ def phase_w8a8(pipe, bf16_pixels, seed: int):
         raise AssertionError(f"w8a8 main path missed its kernels: {counts} "
                              f"!= {want}")
     check_routes_quant(seed, "w8a8")
-    return counts
+    cfg, bank, guide = control
+    crec, cpixels, ccounts = run_image(pipe.with_controls(cfg, bank), seed,
+                                       "lightcontrol-w8a8", want,
+                                       control_pixels=guide)
+    crec["rel_l2_vs_no_controls"] = ((cpixels.float() - pixels.float()).norm()
+                                     / pixels.float().norm()).item()
+    emit(crec)
+    if ccounts != want or not crec["rel_l2_vs_no_controls"] > 0:
+        raise AssertionError(f"the w8a8 controlled image is wrong: {crec} "
+                             f"(launches expected {want})")
+    return counts, ccounts
 
 
 def phase_quant(pipe, bf16_pixels, seed: int, dit_state, mode: str):
@@ -2424,52 +2797,6 @@ def _entries(module_cls, cfg, plan, g, prefix="", released=None):
     return out
 
 
-def _vae_encoder_entries(cfg, g):
-    """The FLUX VAE encoder's keys (diffusers names and shapes), which the
-    port does not read."""
-    import torch
-    ch, e = cfg.block_out_channels, []
-
-    def add(name, *shape):
-        e.append((f"encoder.{name}", shape, torch.bfloat16,
-                  _drawn(g, shape, name)))
-
-    def conv(name, cout, cin, k):
-        add(f"{name}.weight", cout, cin, k, k)
-        add(f"{name}.bias", cout)
-
-    def norm(name, c):
-        add(f"{name}.weight", c)
-        add(f"{name}.bias", c)
-
-    def resnet(name, cin, cout):
-        norm(f"{name}.norm1", cin)
-        conv(f"{name}.conv1", cout, cin, 3)
-        norm(f"{name}.norm2", cout)
-        conv(f"{name}.conv2", cout, cout, 3)
-        if cin != cout:
-            conv(f"{name}.conv_shortcut", cout, cin, 1)
-
-    conv("conv_in", ch[0], 3, 3)
-    cin = ch[0]
-    for i, c in enumerate(ch):
-        for j in range(cfg.layers_per_block):
-            resnet(f"down_blocks.{i}.resnets.{j}", cin, c)
-            cin = c
-        if i < len(ch) - 1:
-            conv(f"down_blocks.{i}.downsamplers.0.conv", c, c, 3)
-    for j in (0, 1):
-        resnet(f"mid_block.resnets.{j}", ch[-1], ch[-1])
-    a = "mid_block.attentions.0"
-    norm(f"{a}.group_norm", ch[-1])
-    for n in ("to_q", "to_k", "to_v", "to_out.0"):
-        add(f"{a}.{n}.weight", ch[-1], ch[-1])
-        add(f"{a}.{n}.bias", ch[-1])
-    norm("conv_norm_out", ch[-1])
-    conv("conv_out", 2 * cfg.latent_channels, ch[-1], 3)
-    return e
-
-
 CKPT_MODEL = "x2i-internvl2.5-1b"
 CKPT_BLOCKS = (1, 2)                      # double, single
 
@@ -2525,8 +2852,7 @@ def write_checkpoint_dirs(root: str, seed: int):
     v = spec.vae
     written += write_safetensors(
         os.path.join(flux, "vae", "diffusion_pytorch_model.safetensors"),
-        _vae_encoder_entries(v, g)
-        + _entries(AutoencoderKL, v, vae_plan(v), g))
+        _entries(AutoencoderKL, v, vae_plan(v), g))
     _write_json(os.path.join(flux, "vae", "config.json"), {
         "_class_name": "AutoencoderKL", "in_channels": 3,
         "out_channels": v.out_channels, "latent_channels": v.latent_channels,
@@ -2739,6 +3065,49 @@ def _host_rss_bytes() -> int:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
+VAE_ENCODE_PX = 128             # the CPU's bf16 encoder at 1024^2 takes minutes
+
+
+def check_vae_encode(card_vae, cpu_vae, seed: int):
+    """The loaded VAE's encode on the card against the CPU copy's, both
+    bf16, on a VAE_ENCODE_PX^2 image drawn from the seed: the mode, and a
+    sample on one noise drawn on the CPU. cuDNN and the CPU's convolutions
+    sum in other orders, so both are held to an f32 encode of the same
+    weights on the CPU: the card's relative L2 distance from it at most
+    twice the CPU bf16 copy's, and its correlation with the CPU copy's
+    above 0.999."""
+    import dataclasses
+
+    import torch
+    from x2i_torch.models.vae import AutoencoderKL
+
+    exact = AutoencoderKL(dataclasses.replace(cpu_vae.cfg,
+                                              dtype=torch.float32))
+    exact.load_state_dict(cpu_vae.state_dict())
+    g = torch.Generator().manual_seed(seed)
+    px = torch.rand((1, VAE_ENCODE_PX, VAE_ENCODE_PX, 3), generator=g) * 2 - 1
+    side = VAE_ENCODE_PX // 8
+    eps = torch.randn((1, side, side, card_vae.cfg.latent_channels),
+                      generator=g)
+    out = {}
+    with torch.inference_mode():
+        for name, e in (("mode", None), ("sample", eps)):
+            got = card_vae.encode(px.cuda(), e).float().cpu().flatten()
+            want = cpu_vae.encode(px, e).float().flatten()
+            ref = exact.encode(px, e).flatten()
+            out[name] = {
+                "rel_l2_vs_f32": ((got - ref).norm() / ref.norm()).item(),
+                "cpu_bf16_rel_l2_vs_f32": ((want - ref).norm()
+                                           / ref.norm()).item(),
+                "rel_l2_vs_cpu": ((got - want).norm() / want.norm()).item(),
+                "corr_vs_cpu": torch.corrcoef(torch.stack([got, want]))[0, 1]
+                .item(), "finite": bool(torch.isfinite(got).all())}
+    out["ok"] = all(r["finite"] and r["corr_vs_cpu"] > 0.999
+                    and r["rel_l2_vs_f32"] <= 2 * r["cpu_bf16_rel_l2_vs_f32"]
+                    for r in out.values())
+    return out
+
+
 def phase_checkpoint(seed: int):
     """Checkpoints into the port, first of the model phases (the host's
     peak memory is then the load's own): write the released-layout set of
@@ -2747,8 +3116,9 @@ def phase_checkpoint(seed: int):
     read the host's and the card's peak memory; load it again on the CPU
     (loading only) and hold every parameter and buffer of the card's copy
     to it bit for bit (the CPU route is the one the CPU tests hold against
-    JAX), the whole InternVL encoder among them (InternViT, mlp1, LM:
-    nothing of the directory unread); make one 1024^2 4-step
+    JAX), the whole InternVL encoder and the VAE's encoder among them
+    (nothing of the directory unread), and the VAE's encode on the card
+    against the CPU copy's (``check_vae_encode``); make one 1024^2 4-step
     imagetext2image with exact launch counts (fused glue, as served; K1b
     in the 24 ViT and 24 LM layers); load it again in the default w8 and
     make the same image, held to the bf16 image by the route bar of the
@@ -2807,16 +3177,15 @@ def phase_checkpoint(seed: int):
             compared += 1
             if not torch.equal(card[k].cpu(), v):
                 mismatched.append(f"mllm.{k}")
+        rec.update(tensors_compared=compared, mismatched=mismatched,
+                   vae_encode=check_vae_encode(pipe.vae, ref.vae, seed))
         del ref
         gc.collect()
-        rec.update(tensors_compared=compared, mismatched=mismatched)
         emit(rec)
         unread = {k: r["unread"] for k, r in rep.items()}
-        if (mismatched or unread["flux"] or unread["proj"]
-                or not unread["vae"]
-                or not all(k.startswith("encoder.") for k in unread["vae"])
-                or unread["mllm"]
-                or rec["host_growth_bound"] > written / 4):
+        if (mismatched or any(unread.values())
+                or rec["host_growth_bound"] > written / 4
+                or not rec["vae_encode"]["ok"]):
             raise AssertionError(f"the checkpoint load is wrong: {rec}")
 
         pipe.flux.replace_config(fused_glue=True)
@@ -3789,7 +4158,12 @@ def main(argv=None) -> int:
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
-    launches_w8a8 = phase_w8a8(pipe, bf16_pixels, args.seed)
+    launches_lc, control = phase_lightcontrol(pipe, bf16_pixels, args.seed,
+                                              smi)
+    launches_lc_train, _ = phase_lightcontrol_train(pipe, lm, args.seed, smi)
+    launches_w8a8, launches_lc_w8a8 = phase_w8a8(pipe, bf16_pixels,
+                                                 args.seed, control)
+    del control
     launches_w4a8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
                                 "w4a8")
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
@@ -3799,6 +4173,9 @@ def main(argv=None) -> int:
             "w8a8": launches_w8a8, "w4a8": launches_w4a8,
             "w4": launches_w4, "w8": launches_w8,
             "distill": launches_distill, "bf16-2048": launches_2048,
+            "lightcontrol": launches_lc,
+            "lightcontrol-w8a8": launches_lc_w8a8,
+            "lightcontrol-train": launches_lc_train,
             "long-prompt": launches_long, **launches_ckpt,
             **launches_registry}
 

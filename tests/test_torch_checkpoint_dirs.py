@@ -298,11 +298,12 @@ def _jax_ids(family, ref, inputs):
 @pytest.mark.parametrize("family", ["qwenvl", "internvl", "minicpm"])
 def test_loaded_weights_equal_the_jax_loaders(pipes, dirs, family):
     """Every port parameter equals the JAX loader's, carried across by the
-    bridge, bit for bit: FLUX, the VAE's decoder, the proj and the whole
-    encoder (the vision tower, MiniCPM-o's audio encoder and projector,
-    and the LM); the MLLM directory is read whole (MiniCPM-o's less the
-    keys JAX leaves unread: its TTS tensor, its dropped SigLIP block and
-    Whisper's stored position table), the VAE's encoder left unread."""
+    bridge, bit for bit: FLUX, the VAE (encoder and decoder), the proj
+    and the whole encoder (the vision tower, MiniCPM-o's audio encoder
+    and projector, and the LM); the directories are read whole (the MLLM
+    directory of MiniCPM-o less the keys JAX leaves unread: its TTS
+    tensor, its dropped SigLIP block and Whisper's stored position
+    table)."""
     port, ref = pipes(family)
     trees = [(port.flux, FluxTransformer2D(port.flux.cfg), ref.flux_params),
              (port.proj, Proj(port.proj.cfg), ref.proj_params)]
@@ -322,16 +323,50 @@ def test_loaded_weights_equal_the_jax_loaders(pipes, dirs, family):
         want = load_flax(empty, tree).state_dict()
         for k, v in got.state_dict().items():
             assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
-    want = AutoencoderKL(port.vae.cfg)
-    load_flax(want.decoder, ref.vae_params["params"]["decoder"])
+    want = load_flax(AutoencoderKL(port.vae.cfg), ref.vae_params
+                     ).state_dict()
+    assert any(k.startswith("encoder.") for k in want)
     for k, v in port.vae.state_dict().items():
-        assert torch.equal(v, want.state_dict()[k]), k
+        assert torch.equal(v, want[k]), k
     rep = port.load_report
     assert rep["flux"]["unread"] == [] and rep["proj"]["unread"] == []
-    assert rep["vae"]["unread"] and all(
-        k.startswith("encoder.") for k in rep["vae"]["unread"])
+    assert rep["vae"]["unread"] == []
     assert rep["mllm"]["unread"] == (
         _minicpm_unread(dirs["minicpm"][2]) if family == "minicpm" else [])
+
+
+def test_vae_encode_matches_jax(pipes):
+    """The loaded VAE's encode (the mode, and a sample on JAX's noise) on
+    the fixture against the JAX loader's, both in bf16. The two round at
+    other points, so the bar is JAX's own bf16 rounding: the port's
+    distance from JAX's bf16 encode, at the worst element and on average,
+    at most twice that of JAX's bf16 encode from its f32 encode of the
+    same weights."""
+    import dataclasses
+
+    import jax
+    port, ref = pipes("qwenvl")
+    f32 = type(ref.vae)(dataclasses.replace(
+        ref.vae.cfg, dtype=jnp.float32, param_dtype=jnp.float32))
+    f32_params = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
+                                        ref.vae_params)
+    rng = np.random.default_rng(3)
+    pixels = jnp.asarray(rng.uniform(-1, 1, (1, PX, PX, 3)), jnp.float32)
+    key = jax.random.key(2)
+    for rng_key in (None, key):
+        want, exact = (np.asarray(vae.apply(params, pixels, rng_key,
+                                            method=vae.encode), np.float32)
+                       for vae, params in ((ref.vae, ref.vae_params),
+                                           (f32, f32_params)))
+        eps = (None if rng_key is None else torch.as_tensor(np.asarray(
+            jax.random.normal(key, want.shape, jnp.float32))))
+        with torch.no_grad():
+            got = port.vae.encode(torch.as_tensor(np.asarray(pixels)),
+                                  eps=eps).float().numpy()
+        assert got.shape == want.shape == (1, PX // 8, PX // 8, 4)
+        err, own = np.abs(got - want), np.abs(want - exact)
+        assert err.max() <= 2 * own.max() and err.mean() <= 2 * own.mean(), (
+            err.max(), own.max(), err.mean(), own.mean())
 
 
 def _minicpm_unread(mllm):

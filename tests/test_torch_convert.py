@@ -188,12 +188,18 @@ def test_vae_plan_matches_jax_converter(tmp_path):
     tc = tcfg.VAEConfig(**VAE_KW)
     ported = AutoencoderKL(tc)
     rep = ttm.fill_module(ported, tload.read_safetensors(path),
-                          ttm.vae_plan(tc), ttm.vae_off_path)
-    assert rep["unread"] == sorted(k for k in sd if k.startswith("encoder."))
+                          ttm.vae_plan(tc))
+    assert rep["unread"] == [] and rep["tensors"] == len(sd)
     tree = vae_params_from_diffusers(sd, jcfg.VAEConfig(**VAE_KW))
-    bridged = AutoencoderKL(tc)
-    load_flax(bridged.decoder, tree["decoder"])
+    bridged = load_flax(AutoencoderKL(tc), tree)
     assert_same_params(ported, bridged)
+    assert any(k.startswith("encoder.") for k in ported.state_dict())
+    # every key is read: one outside the plan raises
+    path = save(dict(sd, **{"quant_conv.weight": torch.ones(8, 8, 1, 1)}),
+                str(tmp_path / "x.safetensors"))
+    with pytest.raises(KeyError, match="quant_conv.weight"):
+        ttm.fill_module(AutoencoderKL(tc), tload.read_safetensors(path),
+                        ttm.vae_plan(tc))
 
 
 def _hf_qwen2(tied: bool, seed: int):

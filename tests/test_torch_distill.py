@@ -292,3 +292,43 @@ def test_split_step_equals_colocated_and_the_loop_runs(jax_trainer):
     out = loop.run(5)
     assert seen == [2, 3, 4] and out["timing"]["steps"] == 2
     assert np.isfinite(out["loss"]) and loop.state.step == 5
+
+
+@pytest.mark.parametrize("accumulate", [1, 2, 3])
+def test_optimizer_accumulation_matches_optax(accumulate):
+    """DistillOptimizer against the JAX ``make_optimizer`` (optax's
+    MultiSteps over its chain when accumulating) over six mini-steps of
+    random gradients, one above the clip norm: the parameters after each
+    mini-step (moved only on every ``accumulate``-th, from the second
+    update on: the schedule's first learning rate is 0) and the count of
+    updates."""
+    dcfg = tcfg.DistillConfig(gradient_accumulation_steps=accumulate,
+                              lr_warmup_steps=1, max_train_steps=10,
+                              learning_rate=1e-2)
+    jopt = jdistill.make_optimizer(jcfg.DistillConfig(
+        gradient_accumulation_steps=accumulate, lr_warmup_steps=1,
+        max_train_steps=10, learning_rate=1e-2))
+    rng = np.random.default_rng(accumulate)
+    shapes = ((3, 5), (7,), (2, 2, 2))
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jparams = [jnp.asarray(p) for p in params]
+    jstate = jopt.init(jparams)
+    opt = tdistill.make_optimizer(dcfg)
+    tparams = [torch.tensor(p) for p in params]
+    state = opt.init(tparams)
+    jupdate = jax.jit(jopt.update)
+    for i in range(6):
+        scale = 3.0 if i == 1 else 0.1
+        grads = [scale * rng.standard_normal(s).astype(np.float32)
+                 for s in shapes]
+        updates, jstate = jupdate([jnp.asarray(g) for g in grads], jstate,
+                                  jparams)
+        jparams = [p + u for p, u in zip(jparams, updates)]
+        before = [p.clone() for p in tparams]
+        state = opt.update(tparams, [torch.tensor(g) for g in grads], state)
+        for got, want in zip(tparams, jparams):
+            np.testing.assert_allclose(n(got), n(want), atol=1e-6,
+                                       rtol=1e-6)
+        moved = any(not torch.equal(a, b) for a, b in zip(tparams, before))
+        assert moved == (i > accumulate - 1 and (i + 1) % accumulate == 0)
+    assert state.count == 6 // accumulate

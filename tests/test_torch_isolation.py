@@ -57,7 +57,11 @@ def test_the_port_has_modules_to_check():
             "x2i_torch/train/runner.py", "x2i_torch/models/siglip.py",
             "x2i_torch/models/resampler.py", "x2i_torch/models/whisper_enc.py",
             "x2i_torch/models/minicpmo.py",
-            "x2i_torch/data/minicpm_vision.py", "chip_smoke.py"} <= names
+            "x2i_torch/data/minicpm_vision.py",
+            "x2i_torch/models/controlnext.py",
+            "x2i_torch/train/lightcontrol.py", "x2i_torch/train/optim.py",
+            "x2i_torch/models/vae.py", "x2i_torch/convert/load.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -56,14 +56,13 @@ def flux_config_from_dir(flux_path: str,
 
 
 def vae_config_from_dir(flux_path: str) -> Optional[VAEConfig]:
-    """diffusers AutoencoderKL ``vae/config.json`` (the decoder's fields:
-    the port has no encoder)."""
+    """diffusers AutoencoderKL ``vae/config.json``."""
     d = _read_json(os.path.join(flux_path, "vae", "config.json"))
     if d is None:
         return None
     base = VAEConfig()
     return replace(base, **_fields(d, (
-        "out_channels", "latent_channels", "block_out_channels",
+        "in_channels", "out_channels", "latent_channels", "block_out_channels",
         "layers_per_block", "norm_num_groups", "scaling_factor")),
         shift_factor=d.get("shift_factor", base.shift_factor) or 0.0,
         use_mid_attention=d.get("mid_block_add_attention",

@@ -2,7 +2,7 @@
 ``X2IPipeline``, the counterpart of ``x2i_tpu/convert/load.py``: the
 InternVL2.5 and Qwen2.5-VL encoders with their vision towers, and
 MiniCPM-o's omni encoder (SigLIP, the resampler, Whisper and its
-projector).
+projector); and LightControl's ControlNeXt bank (``load_control_bank``).
 
 The artifacts are those the reference reads: a diffusers FLUX directory
 (``transformer/*.safetensors``, one file or ``-0000k-of-0000n`` shards,
@@ -49,14 +49,14 @@ from x2i_torch.convert.hf_config import (flux_config_from_dir,
                                          qwenvl_config_from_dir,
                                          scheduler_config_from_dir,
                                          vae_config_from_dir)
-from x2i_torch.convert.torch_models import (fill_module, flux_plan,
-                                            internvl_plan, minicpmo_off_path,
+from x2i_torch.convert.torch_models import (controlnext_plan, fill_module,
+                                            flux_plan, internvl_plan,
+                                            minicpmo_off_path,
                                             minicpmo_plan, proj_plan,
-                                            qwen2_5_vl_plan, vae_off_path,
-                                            vae_plan)
-from x2i_torch.core.config import (MODEL_REGISTRY, GenerationConfig,
-                                   InternVLConfig, MiniCPMOConfig,
-                                   quant_mode)
+                                            qwen2_5_vl_plan, vae_plan)
+from x2i_torch.core.config import (MODEL_REGISTRY, ControlNeXtConfig,
+                                   GenerationConfig, InternVLConfig,
+                                   MiniCPMOConfig, quant_mode)
 from x2i_torch.data.minicpm_vision import (audio_placeholder_spans,
                                            bounds_to_map, chunk_audio_mels,
                                            prepare_minicpm_vision)
@@ -65,6 +65,7 @@ from x2i_torch.data.qwen_vision import (concat_vision_inputs,
                                         prepare_vision_inputs)
 from x2i_torch.data.vision import image_tiles
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.internvl import InternVLEncoder
 from x2i_torch.models.minicpmo import (MiniCPMOEncoder, audio_tensors,
@@ -189,6 +190,29 @@ def safetensors_keys(path: str) -> List[str]:
 
 def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_control_bank(path: str, cfg: Optional[ControlNeXtConfig] = None,
+                      device=None, num_controls: int = 19) -> ControlBank:
+    """LightControl's trained branches -> a ``ControlBank`` on ``device``
+    (CUDA unless named), for ``X2IPipeline.with_controls``. ``path``: the
+    reference's bank state dict (``{i}.time_embedding.linear_1.weight``
+    ...) as a safetensors file, a directory of them, or a torch ``.bin``
+    (read with ``weights_only=True``). Raises on a key the plan does not
+    read and on a parameter no key fills (``fill_module``); the bank's
+    load report is ``bank.load_report``."""
+    cfg = cfg or ControlNeXtConfig()
+    dev = resolve_device(device)
+    if os.path.isdir(path):
+        tensors = load_safetensors_dir(path)
+    elif path.endswith(".safetensors"):
+        tensors = read_safetensors(path)
+    else:
+        tensors = load_torch_bin(path).items()
+    bank = ControlBank(cfg, num_controls, device="meta").to_empty(device=dev)
+    bank.load_report = fill_module(bank, tensors,
+                                   controlnext_plan(cfg, num_controls))
+    return bank
 
 
 # ------------------------------------------------------------ encoders
@@ -541,7 +565,7 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     tokenizer's, as the JAX loader takes it. The pipeline's
     ``load_report`` gives, per module (flux, vae, proj, mllm), the
     tensors and bytes read and the keys the port does not read: the
-    VAE's encoder, a tied head, MiniCPM-o's TTS modules, its dropped
+    tied head, MiniCPM-o's TTS modules, its dropped
     SigLIP block and Whisper's stored position table."""
     dev = resolve_device(device)
     spec = MODEL_REGISTRY[model]
@@ -559,7 +583,7 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     vae = _build(AutoencoderKL, vae_cfg, dev)
     report["vae"] = fill_module(
         vae, load_safetensors_dir(os.path.join(flux_path, "vae")),
-        vae_plan(vae_cfg), vae_off_path)
+        vae_plan(vae_cfg))
     sched_cfg = scheduler_config_from_dir(flux_path) or spec.scheduler
 
     proj_sd = {k.removeprefix("module."): v

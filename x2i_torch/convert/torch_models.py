@@ -18,8 +18,8 @@ The accounting is strict: the plan names every parameter and buffer of
 the module exactly once, every key of the plan must be in the
 checkpoint, and a key outside the plan must be one the port does not
 read (``off_path``: MiniCPM-o's TTS modules, the SigLIP block MiniCPM
-drops and Whisper's stored position table, a tied head, the VAE's
-encoder), which the returned report names. Anything else raises. The
+drops and Whisper's stored position table, a tied head), which the
+returned report names. Anything else raises. The
 InternVL2.5, Qwen2.5-VL and MiniCPM-o plans fill the whole encoder, the
 vision (and audio) towers and the LM, in one pass over the directory.
 
@@ -37,9 +37,9 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from x2i_torch.core.config import (FluxConfig, InternVLConfig,
-                                   MiniCPMOConfig, ProjConfig, Qwen2Config,
-                                   VAEConfig)
+from x2i_torch.core.config import (ControlNeXtConfig, FluxConfig,
+                                   InternVLConfig, MiniCPMOConfig,
+                                   ProjConfig, Qwen2Config, VAEConfig)
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
 from x2i_torch.ops.rope import half_layout_perm
 
@@ -124,35 +124,53 @@ def flux_plan(cfg: FluxConfig) -> Plan:
 
 
 def vae_plan(cfg: VAEConfig) -> Plan:
-    """diffusers AutoencoderKL's decoder -> ``AutoencoderKL`` (the port
-    has no encoder: ``encoder.*`` is off the path). up_blocks.{i}.
-    resnets.{j} -> up_{i}_block_{j}, up_blocks.{i}.upsamplers.0.conv ->
-    up_{i}_upsample, mid_block.resnets.{0,1} -> mid_block_{1,2},
-    mid_block.attentions.0 -> mid_attn (to_out.0 -> to_out), GroupNorm
-    weight -> scale."""
+    """diffusers AutoencoderKL -> ``AutoencoderKL``, encoder and decoder.
+    Encoder: down_blocks.{i}.resnets.{j} -> down_{i}_block_{j},
+    down_blocks.{i}.downsamplers.0.conv -> down_{i}_downsample. Decoder:
+    up_blocks.{i}.resnets.{j} -> up_{i}_block_{j}, up_blocks.{i}.
+    upsamplers.0.conv -> up_{i}_upsample. Both: mid_block.resnets.{0,1} ->
+    mid_block_{1,2}, mid_block.attentions.0 -> mid_attn (to_out.0 ->
+    to_out), GroupNorm weight -> scale; conv_in, conv_norm_out and
+    conv_out keep their names."""
     plan: Plan = {}
-
-    def same(src, dst, gn=False):          # a conv or Linear, or a GroupNorm
-        plan[f"decoder.{src}.weight"] = (
-            f"decoder.{dst}.{'scale' if gn else 'weight'}", None)
-        plan[f"decoder.{src}.bias"] = (f"decoder.{dst}.bias", None)
-
-    def resnet(src, dst, cin, cout):
-        for n in ("norm1", "conv1", "norm2", "conv2"):
-            same(f"{src}.{n}", f"{dst}.{n}", gn=n.startswith("norm"))
-        if cin != cout:
-            same(f"{src}.conv_shortcut", f"{dst}.conv_shortcut")
-
     ch = cfg.block_out_channels
-    same("conv_in", "conv_in")
-    resnet("mid_block.resnets.0", "mid_block_1", ch[-1], ch[-1])
-    resnet("mid_block.resnets.1", "mid_block_2", ch[-1], ch[-1])
-    if cfg.use_mid_attention:
-        a = "mid_block.attentions.0"
-        same(f"{a}.group_norm", "mid_attn.group_norm", gn=True)
-        for n in ("to_q", "to_k", "to_v"):
-            same(f"{a}.{n}", f"mid_attn.{n}")
-        same(f"{a}.to_out.0", "mid_attn.to_out")
+
+    def half(part):
+        def same(src, dst, gn=False):    # a conv or Linear, or a GroupNorm
+            plan[f"{part}.{src}.weight"] = (
+                f"{part}.{dst}.{'scale' if gn else 'weight'}", None)
+            plan[f"{part}.{src}.bias"] = (f"{part}.{dst}.bias", None)
+
+        def resnet(src, dst, cin, cout):
+            for n in ("norm1", "conv1", "norm2", "conv2"):
+                same(f"{src}.{n}", f"{dst}.{n}", gn=n.startswith("norm"))
+            if cin != cout:
+                same(f"{src}.conv_shortcut", f"{dst}.conv_shortcut")
+
+        same("conv_in", "conv_in")
+        resnet("mid_block.resnets.0", "mid_block_1", ch[-1], ch[-1])
+        resnet("mid_block.resnets.1", "mid_block_2", ch[-1], ch[-1])
+        if cfg.use_mid_attention:
+            a = "mid_block.attentions.0"
+            same(f"{a}.group_norm", "mid_attn.group_norm", gn=True)
+            for n in ("to_q", "to_k", "to_v"):
+                same(f"{a}.{n}", f"mid_attn.{n}")
+            same(f"{a}.to_out.0", "mid_attn.to_out")
+        same("conv_norm_out", "conv_norm_out", gn=True)
+        same("conv_out", "conv_out")
+        return same, resnet
+
+    same, resnet = half("encoder")
+    cin = ch[0]
+    for i, c in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"down_blocks.{i}.resnets.{j}", f"down_{i}_block_{j}",
+                   cin, c)
+            cin = c
+        if i < len(ch) - 1:
+            same(f"down_blocks.{i}.downsamplers.0.conv",
+                 f"down_{i}_downsample")
+    same, resnet = half("decoder")
     cin = ch[-1]
     for i, c in enumerate(reversed(ch)):
         for j in range(cfg.layers_per_block + 1):
@@ -160,13 +178,46 @@ def vae_plan(cfg: VAEConfig) -> Plan:
             cin = c
         if i < len(ch) - 1:
             same(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample")
-    same("conv_norm_out", "conv_norm_out", gn=True)
-    same("conv_out", "conv_out")
     return plan
 
 
-def vae_off_path(key: str) -> bool:
-    return key.startswith("encoder.")
+def controlnext_plan(cfg: ControlNeXtConfig, num_controls: int) -> Plan:
+    """The reference's bank, ``nn.ModuleList([ControlNeXtModel] * n)``
+    (what its trainer saves), -> ``ControlBank``: branch ``{i}.`` ->
+    branches.{i}., time_embedding.linear_{1,2} -> time_linear{1,2},
+    embedding.{0,3,6} / {1,4,7} -> stem{0,1,2} / stem_norm{0,1,2},
+    down_res.{j}.* -> res_{j}.* (norm1, conv1, time_emb_proj, norm2,
+    conv2, conv_shortcut), down_sample.{j}.conv -> down_{j},
+    mid_convs.0.{0,2,3,4} -> mid0, mid_norm0, mid1, mid_norm1,
+    mid_convs.1 -> out_conv; GroupNorm weight -> scale. The counterpart
+    of JAX's ``controlnext_bank_params_from_reference``."""
+    plan: Plan = {}
+    for i in range(num_controls):
+        def same(src, dst, gn=False):
+            plan[f"{i}.{src}.weight"] = (
+                f"branches.{i}.{dst}.{'scale' if gn else 'weight'}", None)
+            plan[f"{i}.{src}.bias"] = (f"branches.{i}.{dst}.bias", None)
+
+        same("time_embedding.linear_1", "time_linear1")
+        same("time_embedding.linear_2", "time_linear2")
+        for k in range(3):
+            same(f"embedding.{3 * k}", f"stem{k}")
+            same(f"embedding.{3 * k + 1}", f"stem_norm{k}", gn=True)
+        cin = 128
+        for j, cout in enumerate(cfg.out_channels):
+            for n in ("norm1", "conv1", "time_emb_proj", "norm2", "conv2"):
+                same(f"down_res.{j}.{n}", f"res_{j}.{n}",
+                     gn=n.startswith("norm"))
+            if cin != cout:
+                same(f"down_res.{j}.conv_shortcut",
+                     f"res_{j}.conv_shortcut")
+            same(f"down_sample.{j}.conv", f"down_{j}")
+            cin = cout
+        for src, dst in (("0.0", "mid0"), ("0.2", "mid_norm0"),
+                         ("0.3", "mid1"), ("0.4", "mid_norm1"),
+                         ("1", "out_conv")):
+            same(f"mid_convs.{src}", dst, gn="norm" in dst)
+    return plan
 
 
 def qwen2_plan(cfg: Qwen2Config, body: str = "model.",

@@ -2,10 +2,10 @@
 
 Own copies of the dataclasses of ``x2i_tpu/core/config.py`` (and of the
 T5 and CLIP configs of ``x2i_tpu/models/t5.py`` and ``clip.py``) that the
-text->image serving path and the phase-1 distillation trainer read, with
-torch dtypes. Only the fields these paths use are here: no ring or
-sharding fields, no ``single_scan_chunks`` and no ``remat="stack"`` (XLA
-scan memory devices, not ported).
+serving paths and the two trainers (phase-1 distillation, phase-2
+LightControl) read, with torch dtypes. Only the fields these paths use
+are here: no ring or sharding fields, no ``single_scan_chunks`` and no
+``remat="stack"`` (XLA scan memory devices, not ported).
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -146,6 +146,7 @@ class ProjConfig:
 class VAEConfig:
     """FLUX AutoencoderKL (diffusers config of black-forest-labs/FLUX.1-*)."""
 
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 16
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
@@ -336,8 +337,8 @@ class GenerationConfig:
 @dataclass(frozen=True)
 class DistillConfig:
     """Phase-1 attention-distillation operating point (the JAX
-    ``DistillConfig``). ``use_8bit_adam`` and ``gradient_accumulation_steps
-    > 1`` are not ported: the optimizer raises on them."""
+    ``DistillConfig``). ``use_8bit_adam`` is not ported: the optimizer
+    raises on it."""
 
     learning_rate: float = 1e-4
     lr_scheduler: str = "cosine"
@@ -362,6 +363,37 @@ class DistillConfig:
     checkpoints_total_limit: Optional[int] = 5
     seed: int = 2024
     remat: bool = True
+
+
+@dataclass(frozen=True)
+class LightControlConfig:
+    """Phase-2 ControlNeXt finetune (the JAX ``LightControlConfig``).
+    ``control_bank_impl``: "scan" runs the branches one after another,
+    each under ``torch.utils.checkpoint`` when gradients are taken (the
+    peak holds one branch's activations); "vmap" runs the same loop
+    without it. ``use_8bit_adam`` is not ported: the optimizer raises on
+    it."""
+
+    learning_rate: float = 1e-5
+    gradient_accumulation_steps: int = 8
+    max_grad_norm: float = 1.0
+    num_controls: int = 19           # one ControlNeXt per double block
+    control_bank_impl: str = "scan"
+    use_8bit_adam: bool = False
+    logit_mean: float = 0.0          # the timestep's logit-normal density
+    logit_std: float = 1.0
+
+
+@dataclass(frozen=True)
+class ControlNeXtConfig:
+    """One ControlNeXt branch (the JAX ``ControlNeXtConfig``)."""
+
+    in_channels: Tuple[int, ...] = (128, 128)
+    out_channels: Tuple[int, ...] = (128, 256)
+    groups: Tuple[int, ...] = (4, 8)
+    time_embed_dim: int = 256
+    final_out_channels: int = 3072
+    dtype: Any = torch.bfloat16
 
 
 @dataclass(frozen=True)

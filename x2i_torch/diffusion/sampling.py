@@ -70,13 +70,20 @@ def denoise(model_fn: Callable[..., torch.Tensor], latents: torch.Tensor,
 
 def denoise_flux(model, noise, prompt_embeds, pooled_embeds, sigmas,
                  img_ids, txt_ids, guidance_scale: Optional[float] = None,
-                 precompute_mods: bool = True) -> torch.Tensor:
+                 precompute_mods: bool = True,
+                 control_fn: Optional[Callable] = None,
+                 control_pixels: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """denoise() over a FluxTransformer2D, with every step's adaLN
     modulations computed in one pass first (each modulation weight read
-    once per image instead of once per step)."""
+    once per image instead of once per step). With ``control_fn``
+    (LightControl), every step's DiT call takes
+    ``controls=control_fn(control_pixels, t * 1000)``."""
     def model_fn(lat, pr, po, t, iid, tid, g, mods=None):
+        controls = (None if control_fn is None
+                    else control_fn(control_pixels, t * 1000.0))
         return model(lat, pr, po, t, iid, tid, guidance=g,
-                     precomputed_mods=mods)
+                     precomputed_mods=mods, controls=controls)
 
     mods = None
     if precompute_mods:

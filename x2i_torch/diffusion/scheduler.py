@@ -1,6 +1,10 @@
 """Flow-matching Euler discrete scheduler (diffusers
 FlowMatchEulerDiscreteScheduler semantics), the counterpart of
-``x2i_tpu/diffusion/scheduler.py``. Sigmas are float32."""
+``x2i_tpu/diffusion/scheduler.py``, with the training samplers: the
+noising ``add_noise``, the timestep density and the loss weighting.
+Sigmas are float32. The samplers take their random draws as an argument
+or draw them from a ``torch.Generator``: ``jax.random`` and torch draw
+different numbers, so a caller that wants JAX's passes them in."""
 
 from __future__ import annotations
 
@@ -54,3 +58,46 @@ class FlowMatchEulerScheduler:
         """One Euler step of the rectified-flow ODE (f32 update)."""
         out = sample.float() + (sigma_next - sigma) * model_output.float()
         return out.to(sample.dtype)
+
+    @staticmethod
+    def add_noise(x0: torch.Tensor, noise: torch.Tensor,
+                  sigma: torch.Tensor) -> torch.Tensor:
+        """Flow-matching noising x_t = (1 - sigma) x0 + sigma z in f32, in
+        x0's dtype; sigma (B,) broadcast over x0's trailing axes."""
+        sigma = sigma.reshape(sigma.shape + (1,) * (x0.ndim - sigma.ndim))
+        return ((1.0 - sigma) * x0.float()
+                + sigma * noise.float()).to(x0.dtype)
+
+
+def compute_density_for_timestep_sampling(
+        batch_size: int, scheme: str = "logit_normal",
+        logit_mean: float = 0.0, logit_std: float = 1.0,
+        mode_scale: float = 1.29, draws: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None) -> torch.Tensor:
+    """u in [0, 1] (B,) f32 (diffusers' training util): "logit_normal"
+    takes standard normals, the other schemes uniforms on [0, 1), as
+    ``draws`` (B,) or drawn from ``generator`` on ``device``."""
+    if draws is None:
+        draw = torch.randn if scheme == "logit_normal" else torch.rand
+        draws = draw((batch_size,), generator=generator, device=device,
+                     dtype=torch.float32)
+    draws = draws.float()
+    if scheme == "logit_normal":
+        return torch.sigmoid(logit_mean + logit_std * draws)
+    if scheme == "mode":
+        u = draws
+        return 1.0 - u - mode_scale * (torch.cos(math.pi * u / 2) ** 2
+                                       - 1 + u)
+    return draws
+
+
+def loss_weighting(scheme: str, sigmas: torch.Tensor) -> torch.Tensor:
+    """diffusers' compute_loss_weighting_for_sd3: "sigma_sqrt",
+    "cosmap", otherwise ones."""
+    if scheme == "sigma_sqrt":
+        return sigmas ** -2.0
+    if scheme == "cosmap":
+        bot = 1.0 - 2.0 * sigmas + 2.0 * sigmas ** 2
+        return 2.0 / (math.pi * bot)
+    return torch.ones_like(sigmas)

@@ -22,6 +22,10 @@ or turned inside each block into its KD term against a teacher's stack
 backward. ``cfg.remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``); ``cfg.rope_in_kernel=False`` rotates q and k
 before the attention call instead of inside the kernel.
+
+LightControl's ControlNeXt residuals (``controls``, one row per double
+block) are added to each double block's image stream at its end, on every
+glue route, with precomputed mods and under the per-block checkpoint.
 """
 
 from __future__ import annotations
@@ -170,10 +174,13 @@ class FluxDoubleBlock(nn.Module):
         return self.img_mod(t), self.txt_mod(t)
 
     def forward(self, hidden, encoder, temb, rope, mods=None, glue=None,
-                kd_target=None, kd_tau=3.0, kd_quantize=False):
+                kd_target=None, kd_tau=3.0, kd_quantize=False,
+                control=None):
         """-> (hidden, encoder, aux): aux is (img_attn, txt_attn) after
         the out layers, their KD terms against kd_target = (teacher img,
-        teacher txt), or int8 pairs with kd_quantize."""
+        teacher txt), or int8 pairs with kd_quantize. ``control`` (B,
+        S_img, dim), a LightControl branch's tokens, is added to the image
+        stream at the block's end."""
         cfg = self.cfg
         heads, hd = cfg.num_attention_heads, cfg.attention_head_dim
         mod, cmod = self.mods(temb) if mods is None else mods
@@ -226,6 +233,8 @@ class FluxDoubleBlock(nn.Module):
         cff_in = _norm_modulate(cfg, glue, encoder, c_shift_mlp, c_scale_mlp)
         cff = _mlp_out(cfg, glue, self.txt_mlp_out, self.txt_mlp_in(cff_in))
         encoder = encoder + c_gate_mlp[:, None, :] * cff
+        if control is not None:
+            hidden = hidden + control.to(hidden.dtype)
         return hidden, encoder, _block_aux((img_attn, txt_attn), kd_target,
                                            kd_tau, kd_quantize)
 
@@ -341,6 +350,7 @@ class FluxTransformer2D(nn.Module):
                 guidance: Optional[torch.Tensor] = None,
                 precomputed_mods: Optional[dict] = None,
                 mods_only: bool = False,
+                controls: Optional[torch.Tensor] = None,
                 return_attn_outputs: bool = False,
                 quantize_attn_outputs: bool = False,
                 kd_targets: Optional[dict] = None,
@@ -357,7 +367,9 @@ class FluxTransformer2D(nn.Module):
         pairs with ``quantize_attn_outputs``. With ``kd_targets`` (a
         teacher's stacks in ``aux_layout``, dense or int8 pairs) it returns
         (velocity, KD loss summed over the blocks), each block's term
-        computed inside the block."""
+        computed inside the block. ``controls`` (num_layers, B, S_img,
+        dim): LightControl's residuals, row i added to double block i's
+        image stream (``models/controlnext.py``)."""
         cfg = self.cfg
         if mods_only:
             batch, n_t = pooled_projections.shape[0], timestep.shape[0]
@@ -410,7 +422,8 @@ class FluxTransformer2D(nn.Module):
                                         m["double_txt"][i]),
                 glue=glue, kd_tau=kd_temperature, kd_quantize=kd_quantize,
                 kd_target=None if kd is None else (
-                    layer(kd["double_img"], i), layer(kd["double_txt"], i)))
+                    layer(kd["double_img"], i), layer(kd["double_txt"], i)),
+                control=None if controls is None else controls[i])
             aux["double_img"].append(a_img)
             aux["double_txt"].append(a_txt)
         joint = torch.cat([encoder, hidden], dim=1)

@@ -1,16 +1,17 @@
-"""FLUX AutoencoderKL decoder, the counterpart of the decode half of
-``x2i_tpu/models/vae.py``: ``decode`` and, for images whose decoder
-activations are too large to hold at once, ``decode_tiled`` (``encode`` is
-not ported yet).
+"""FLUX AutoencoderKL, the counterpart of ``x2i_tpu/models/vae.py``:
+``encode`` (the phase-2 trainer's target latents: the mode, or a sample
+with the caller's noise), ``decode`` and, for images whose decoder
+activations are too large to hold at once, ``decode_tiled``.
 
-Layout: the public ``AutoencoderKL.decode`` takes NHWC latents and returns
-NHWC pixels, as the JAX package does; inside, the convolutions run NCHW,
-PyTorch's layout, with one transpose at each end.
+Layout: the public ``AutoencoderKL`` methods take and return NHWC tensors,
+as the JAX package does; inside, the convolutions run NCHW, PyTorch's
+layout, with one transpose at each end.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,11 +22,13 @@ from x2i_torch.core.config import VAEConfig
 
 class GroupNorm(nn.Module):
     """flax GroupNorm numerics: f32 statistics with the fast variance
-    E[x^2] - E[x]^2 clipped at 0, scale and bias in f32, eps 1e-6."""
+    E[x^2] - E[x]^2 clipped at 0, scale and bias in f32; ``eps`` 1e-6 as
+    the VAE's and diffusers' ResnetBlock2D's, 1e-5 as flax's default."""
 
-    def __init__(self, groups: int, channels: int, dtype, device=None):
+    def __init__(self, groups: int, channels: int, dtype, device=None,
+                 eps: float = 1e-6):
         super().__init__()
-        self.groups = groups
+        self.groups, self.eps = groups, eps
         self.scale = nn.Parameter(torch.ones(channels, dtype=dtype,
                                              device=device))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=dtype,
@@ -37,7 +40,7 @@ class GroupNorm(nn.Module):
         mean = xf.mean(dim=(2, 3, 4), keepdim=True)
         var = (xf.square().mean(dim=(2, 3, 4), keepdim=True)
                - mean.square()).clamp_min(0.0)
-        y = (xf - mean) * torch.rsqrt(var + 1e-6)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y.view(b, c, h, w) * self.scale.float()[:, None, None] \
             + self.bias.float()[:, None, None]
         return y.to(x.dtype)
@@ -93,6 +96,49 @@ class MidAttention(nn.Module):
         return x + o.transpose(1, 2).reshape(b, c, h, w)
 
 
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        ch, g, dt = cfg.block_out_channels, cfg.norm_num_groups, cfg.dtype
+        self.cfg = cfg
+        self.conv_in = _conv(cfg.in_channels, ch[0], 3, dt, device)
+        cin = ch[0]
+        for i, c in enumerate(ch):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_block_{j}",
+                                ResnetBlock(cin, c, g, dt, device))
+                cin = c
+            if i < len(ch) - 1:
+                self.add_module(f"down_{i}_downsample", nn.Conv2d(
+                    c, c, 3, stride=2, device=device, dtype=dt))
+        self.mid_block_1 = ResnetBlock(ch[-1], ch[-1], g, dt, device)
+        if cfg.use_mid_attention:
+            self.mid_attn = MidAttention(ch[-1], g, dt, device)
+        self.mid_block_2 = ResnetBlock(ch[-1], ch[-1], g, dt, device)
+        self.conv_norm_out = GroupNorm(g, ch[-1], dt, device)
+        self.conv_out = _conv(ch[-1], 2 * cfg.latent_channels, 3, dt,
+                              device)
+
+    def forward(self, x):
+        """pixels (B, 3, H, W) -> moments (B, 2 * latent, H/8, W/8)."""
+        cfg = self.cfg
+        x = self.conv_in(x)
+        n = len(cfg.block_out_channels)
+        for i in range(n):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_block_{j}")(x)
+            if i < n - 1:
+                # diffusers' Downsample2D: pad 1 after H and W only, then a
+                # stride-2 conv without padding
+                x = getattr(self, f"down_{i}_downsample")(
+                    F.pad(x, (0, 1, 0, 1)))
+        x = self.mid_block_1(x)
+        if cfg.use_mid_attention:
+            x = self.mid_attn(x)
+        x = self.mid_block_2(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
@@ -133,12 +179,32 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode with the FLUX latent scale/shift convention."""
+    """Encode and decode with the FLUX latent scale/shift convention."""
 
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg, device)
         self.decoder = Decoder(cfg, device)
+
+    def encode_moments(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC pixels (B, H, W, 3) -> NHWC moments (B, H/8, W/8, 2 * C)
+        (mean, then log-variance)."""
+        x = pixels.to(self.cfg.dtype).permute(0, 3, 1, 2)
+        return self.encoder(x).permute(0, 2, 3, 1)
+
+    def encode(self, pixels: torch.Tensor,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NHWC pixels in [-1, 1] -> scaled NHWC latents (B, h, w, C): the
+        mode without ``eps``; with ``eps`` (B, h, w, C), the caller's
+        standard-normal draw, a sample: the log-variance clipped to
+        [-30, 20], the std in f32, ``mean + std * eps``."""
+        mean, logvar = self.encode_moments(pixels).chunk(2, dim=-1)
+        if eps is not None:
+            std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
+            mean = mean + (std * eps.to(std.device, torch.float32)
+                           ).to(mean.dtype)
+        return (mean - self.cfg.shift_factor) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled NHWC latents (B, h, w, C) -> NHWC pixels in [-1, 1].
@@ -214,3 +280,11 @@ def postprocess(pixels: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float -> uint8."""
     x = (pixels.float() / 2 + 0.5).clamp(0.0, 1.0)
     return torch.round(x * 255.0).to(torch.uint8)
+
+
+def preprocess(images: torch.Tensor) -> torch.Tensor:
+    """uint8 (B, H, W, 3) -> [-1, 1] f32. The divisor is a tensor on the
+    images' device: a CUDA division by a Python number multiplies by its
+    reciprocal, which is not JAX's IEEE division."""
+    x = images.float()
+    return x / torch.full((), 127.5, device=x.device) - 1.0

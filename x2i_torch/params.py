@@ -22,6 +22,9 @@ arrays and copies every leaf into the matching PyTorch parameter:
   the resampler's raw ``query`` and ``proj`` matrices) -> the parameter
   of the same name, as it is.
 
+A vmapped tree (LightControl's ControlNeXt bank) fills one module of an
+``nn.ModuleList`` per index of its leading axis (``load_flax_bank``).
+
 The FLUX q/k channels stay in the half-RoPE permutation the tree already
 carries. Every parameter and buffer must be filled exactly once and every
 leaf used, or the bridge raises.
@@ -176,6 +179,14 @@ def load_flax(module: nn.Module, tree: Tree) -> nn.Module:
         raise KeyError(f"parameters or buffers the flax tree did not fill: "
                        f"{missing}")
     return module
+
+
+def load_flax_bank(bank: nn.Module, tree: Tree) -> nn.Module:
+    """Fill a ``ControlBank`` from JAX's stacked bank (``init_control_bank``
+    's vmapped tree: a leading (num_controls,) axis on every leaf; branch
+    i takes slice i of each). Raises as ``load_flax`` does, and when the
+    leading axis is not the bank's branch count."""
+    return load_flax(bank, {"branches": _params(tree)})
 
 
 def random_init_(module: nn.Module, generator: torch.Generator

@@ -1,7 +1,8 @@
 """X2I pipeline: MLLM hidden states -> proj -> FLUX -> VAE, the
 counterpart of ``x2i_tpu/pipeline.py``: text2image, image2image,
-imagetext2image, video2image, audio2image and x2image, and the batched
-``run_batch``. ``lm_encoder`` joins a family's host half (templates,
+imagetext2image, video2image, audio2image and x2image, the batched
+``run_batch``, and LightControl's ControlNeXt branches in the denoise
+(``with_controls``, ``generate(control_pixels=)``). ``lm_encoder`` joins a family's host half (templates,
 tokens, image tiles or patches, log-mel chunks) and device half (vision
 and audio towers and LM) into the encoder functions the pipeline calls.
 
@@ -22,13 +23,14 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from x2i_torch.core.config import (GenerationConfig, ProjConfig,
-                                   SchedulerConfig, VAEConfig,
+from x2i_torch.core.config import (ControlNeXtConfig, GenerationConfig,
+                                   ProjConfig, SchedulerConfig, VAEConfig,
                                    tiny_flux_config, tiny_qwen2_config)
 from x2i_torch.diffusion.sampling import (denoise_flux,
                                           prepare_latent_image_ids,
                                           unpack_latents)
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.models.decoding import (concat_answer_hiddens,
                                        greedy_decode_with_hiddens)
 from x2i_torch.models.flux import FluxTransformer2D
@@ -142,6 +144,9 @@ class X2IPipeline:
     gen_cfg: GenerationConfig = GenerationConfig()
     encoder_batch_fn: Optional[Callable] = None
     load_report: Optional[Dict[str, Any]] = None
+    # LightControl's branches (set by with_controls)
+    control_bank: Optional[ControlBank] = None
+    control_cfg: Optional[ControlNeXtConfig] = None
 
     @property
     def device(self) -> torch.device:
@@ -164,14 +169,25 @@ class X2IPipeline:
             states = torch.cat([self.encoder_fn(r) for r in requests])
         return self.proj(states)
 
+    def with_controls(self, control_cfg: ControlNeXtConfig,
+                      bank: ControlBank) -> "X2IPipeline":
+        """A pipeline that also serves LightControl's ControlNeXt branches
+        (instruction editing): ``generate(..., control_pixels=)`` adds
+        their residuals to the double blocks at every step."""
+        return dataclasses.replace(self, control_bank=bank,
+                                   control_cfg=control_cfg)
+
     @torch.inference_mode()
     def _generate(self, noise: torch.Tensor, prompt_embeds: torch.Tensor,
                   pooled: torch.Tensor, height: int, width: int,
-                  num_steps: int) -> torch.Tensor:
+                  num_steps: int,
+                  control_pixels: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """Packed noise (B, S_img, 64) -> pixels (B, H, W, 3) in [-1, 1]
         before postprocess: all steps' adaLN modulations, the Euler
-        denoise, unpack, VAE decode (tiled above ``gen_cfg.vae_tile_px``,
-        as in the JAX pipeline)."""
+        denoise (the control bank on ``control_pixels`` at every step),
+        unpack, VAE decode (tiled above ``gen_cfg.vae_tile_px``, as in the
+        JAX pipeline)."""
         dev, dt = self.device, self.flux.cfg.dtype
         img_ids = prepare_latent_image_ids(2 * (height // 16),
                                            2 * (width // 16), dev)
@@ -181,9 +197,13 @@ class X2IPipeline:
             num_steps, image_seq_len=noise.shape[1], device=dev)
         gscale = (self.gen_cfg.guidance_scale
                   if self.flux.cfg.guidance_embeds else None)
-        lat = denoise_flux(self.flux, noise.to(dev), prompt_embeds.to(dev, dt),
-                           pooled.to(dev, dt), sigmas, img_ids, txt_ids,
-                           guidance_scale=gscale)
+        lat = denoise_flux(
+            self.flux, noise.to(dev), prompt_embeds.to(dev, dt),
+            pooled.to(dev, dt), sigmas, img_ids, txt_ids,
+            guidance_scale=gscale,
+            control_fn=None if control_pixels is None else self.control_bank,
+            control_pixels=(None if control_pixels is None
+                            else control_pixels.to(dev)))
         lat = unpack_latents(lat, height, width).permute(0, 2, 3, 1)
         tile_px = self.gen_cfg.vae_tile_px
         if tile_px and max(height, width) > tile_px:
@@ -192,12 +212,18 @@ class X2IPipeline:
 
     def generate(self, pooled: torch.Tensor, prompt_embeds: torch.Tensor,
                  height: Optional[int] = None, width: Optional[int] = None,
-                 num_steps: Optional[int] = None, seed: Optional[int] = None
+                 num_steps: Optional[int] = None, seed: Optional[int] = None,
+                 control_pixels: Optional[torch.Tensor] = None
                  ) -> np.ndarray:
         """-> uint8 images (B, H, W, 3). The noise is drawn in bf16,
         whatever the DiT's dtype, as the JAX pipeline draws it, from a
         torch.Generator on the pipeline's device seeded with ``seed``; the
-        latents keep that dtype through the Euler steps."""
+        latents keep that dtype through the Euler steps.
+        control_pixels: (B, H, W, 3) guidance image in [-1, 1] for the
+        ControlNeXt branches (needs ``with_controls``)."""
+        if control_pixels is not None and self.control_bank is None:
+            raise ValueError("control_pixels given but no ControlNeXt bank "
+                             "attached; call with_controls() first")
         g = self.gen_cfg
         height, width = height or g.height, width or g.width
         num_steps = num_steps or g.num_inference_steps
@@ -208,7 +234,7 @@ class X2IPipeline:
                              self.flux.cfg.in_channels), generator=gen,
                             device=self.device, dtype=torch.bfloat16)
         pixels = self._generate(noise, prompt_embeds, pooled, height, width,
-                                num_steps)
+                                num_steps, control_pixels)
         return postprocess(pixels).cpu().numpy()
 
     def run_task(self, task: str, prompt: Optional[str] = None,
@@ -221,7 +247,8 @@ class X2IPipeline:
         16 kHz float waveform, which MiniCPM-o's encoder takes (the other
         families ignore it, as in JAX). ``use_answer``: condition
         on the prompt and a decoded answer (reasoning2image), where the
-        encoder has that mode."""
+        encoder has that mode. ``gen_kwargs`` go to ``generate``
+        (``control_pixels`` among them)."""
         inputs = {"prompt": prompt, "images": images, "video": video,
                   "audio": audio, "task": task, "use_answer": use_answer}
         pooled, prompt_embeds = self.encode(inputs)

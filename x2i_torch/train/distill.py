@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -32,6 +32,7 @@ from x2i_torch.core.config import DistillConfig, FluxConfig
 from x2i_torch.diffusion.sampling import (pack_latents,
                                           prepare_latent_image_ids)
 from x2i_torch.ops.kd import kl_term
+from x2i_torch.train.optim import AdamW, OptState, global_norm
 
 KD_KEYS = ("double_img", "double_txt", "single")
 
@@ -54,45 +55,27 @@ def kd_loss(teacher_aux: Dict, student_aux: Dict, tau: float = 3.0,
 
 
 @dataclasses.dataclass
-class OptState:
-    count: int
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
-
-
-@dataclasses.dataclass
 class TrainState:
     proj: nn.Module                # the only trainable module
     opt_state: OptState
     step: int = 0
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in f32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
-
-
-class DistillOptimizer:
-    """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...))``
-    as the JAX ``make_optimizer`` chains it, step by step:
-
-    * the gradients are scaled by ``max_norm / norm`` when ``norm >=
-      max_norm`` (no ``+1e-6``, unlike ``clip_grad_norm_``);
-    * Adam moments in the parameters' dtype, bias-corrected, ``eps``
-      outside the square root;
-    * decoupled weight decay on every parameter;
-    * the learning rate ``warmup_cosine_decay_schedule(0 -> peak, warmup,
-      decay_steps=max_train_steps, end 0)`` read at the count before the
-      update, so the first update has learning rate 0;
-    * ``p + update`` rounded to the parameter's dtype.
-    """
+class DistillOptimizer(AdamW):
+    """The JAX ``make_optimizer``: ``train/optim.py``'s chain with the
+    config's betas, epsilon and weight decay, the accumulation over
+    ``gradient_accumulation_steps`` mini-steps, and the learning rate
+    ``warmup_cosine_decay_schedule(0 -> peak, warmup,
+    decay_steps=max_train_steps, end 0)`` read at the count before the
+    update, so the first update has learning rate 0."""
 
     def __init__(self, dcfg: DistillConfig):
         if dcfg.use_8bit_adam:
             raise NotImplementedError("8-bit AdamW is not ported yet")
-        if dcfg.gradient_accumulation_steps > 1:
-            raise NotImplementedError("gradient accumulation is not ported "
-                                      "yet")
+        super().__init__(dcfg.learning_rate, dcfg.max_grad_norm,
+                         dcfg.adam_beta1, dcfg.adam_beta2,
+                         dcfg.adam_epsilon, dcfg.adam_weight_decay,
+                         dcfg.gradient_accumulation_steps)
         self.dcfg = dcfg
 
     def learning_rate(self, count: int) -> float:
@@ -103,33 +86,6 @@ class DistillOptimizer:
         decay = d.max_train_steps - warmup
         t = min(count - warmup, decay)
         return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
-
-    def init(self, params) -> OptState:
-        return OptState(0, [torch.zeros_like(p) for p in params],
-                        [torch.zeros_like(p) for p in params])
-
-    @torch.no_grad()
-    def update(self, params, grads, state: OptState) -> OptState:
-        """Apply one update to ``params`` in place; returns the new
-        state."""
-        d = self.dcfg
-        norm = global_norm(grads)
-        if not bool(norm < d.max_grad_norm):
-            grads = [g / norm.to(g.dtype) * d.max_grad_norm for g in grads]
-        count = state.count + 1
-        bc1, bc2 = 1.0 - d.adam_beta1 ** count, 1.0 - d.adam_beta2 ** count
-        lr = self.learning_rate(state.count)
-        mus, nus = [], []
-        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
-            g = g.to(p.dtype)
-            mu = (1.0 - d.adam_beta1) * g + d.adam_beta1 * mu
-            nu = (1.0 - d.adam_beta2) * g.square() + d.adam_beta2 * nu
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + d.adam_epsilon)
-            u = u + d.adam_weight_decay * p
-            p.copy_((p + (-lr) * u).to(p.dtype))
-            mus.append(mu)
-            nus.append(nu)
-        return OptState(count, mus, nus)
 
 
 def make_optimizer(dcfg: DistillConfig) -> DistillOptimizer:

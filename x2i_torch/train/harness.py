@@ -1,6 +1,7 @@
-"""Distillation harnesses: the tiny end-to-end trainer (the counterpart of
-``build_tiny_distill`` in ``x2i_tpu/train/harness.py``) and the
-full-width one with random weights drawn on the card.
+"""Trainer harnesses: the tiny end-to-end trainers (the counterparts of
+``build_tiny_distill`` and ``build_tiny_lightcontrol`` in
+``x2i_tpu/train/harness.py``) and the full-width ones with random weights
+drawn on the card.
 
 ``build_tiny_distill`` has the JAX harness's configs, batch and fixed
 T5-widening projection (the same numpy draws from the same seed); its
@@ -13,6 +14,12 @@ outside the kernel, no fused glue, as the JAX ``assemble_distill`` sets
 it), T5-XXL's encoder and CLIP-L's text tower. It can take an LM and a DiT
 that already exist (a serving pipeline's), so that no second copy of the
 12B weights is made.
+
+``build_tiny_lightcontrol`` has the JAX harness's phase-2 configs and
+batch (a /8 VAE, so that the bank's tokens are the packed latents');
+``build_random_lightcontrol("full", ...)`` builds the phase-2 trainer on a
+serving pipeline's DiT, VAE and encoder with the 19-branch bank at its
+reference widths drawn on the card.
 """
 
 from __future__ import annotations
@@ -24,18 +31,25 @@ import numpy as np
 import torch
 
 from x2i_torch.core.config import (MODEL_REGISTRY, CLIPTextConfig,
-                                   DistillConfig, ProjConfig, T5Config,
+                                   ControlNeXtConfig, DistillConfig,
+                                   LightControlConfig, ProjConfig,
+                                   SchedulerConfig, T5Config, VAEConfig,
                                    tiny_flux_config, tiny_qwen2_config)
 from x2i_torch.models.clip import CLIPTextEncoder
+from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.proj import Proj
 from x2i_torch.models.qwen2 import Qwen2LM
 from x2i_torch.models.t5 import T5Encoder
-from x2i_torch.params import load_flax, random_init_
+from x2i_torch.models.vae import AutoencoderKL
+from x2i_torch.params import load_flax, load_flax_bank, random_init_
 from x2i_torch.pipeline import resolve_device
 from x2i_torch.train.distill import (init_state, make_distill_step,
                                      make_optimizer, make_student_step,
                                      make_teacher_step)
+from x2i_torch.train.lightcontrol import (init_state as init_control_state,
+                                          make_lightcontrol_optimizer,
+                                          make_lightcontrol_step)
 from x2i_torch.train.single_chip import single_chip_distill
 
 # the full-width run's prompts: this many real tokens, right-padded
@@ -192,3 +206,122 @@ def build_random_distill(scale: str = "full", seed: int = 0, device=None,
     step, state, parts = _wire(flux, lm, t5, clip, proj, None, flux.cfg,
                                dcfg, split=True, slim_handoff=True)
     return step, state, batch, parts
+
+
+# the trainer's DiT: remat on, rope outside the kernel, no fused glue (the
+# glue kernels and K1's rope variant have no backward)
+TRAIN_DIT = dict(remat=True, rope_in_kernel=False, fused_glue=False)
+
+
+def _wire_lightcontrol(flux, vae_encode, conditioning_fn, bank, flux_cfg,
+                       ccfg, sched_cfg, frozen):
+    for m in frozen:
+        m.requires_grad_(False)
+    optimizer = make_lightcontrol_optimizer(ccfg)
+    state = init_control_state(bank, optimizer)
+    step = make_lightcontrol_step(flux, vae_encode, conditioning_fn,
+                                  flux_cfg, ccfg, sched_cfg, optimizer)
+    parts = {"flux": flux, "bank": bank, "optimizer": optimizer,
+             "vae_encode": vae_encode, "conditioning_fn": conditioning_fn,
+             "flux_cfg": flux_cfg, "ccfg": ccfg, "sched_cfg": sched_cfg}
+    return step, state, parts
+
+
+def build_tiny_lightcontrol(batch_size: int = 8,
+                            trees: Optional[Dict[str, Any]] = None,
+                            seed: int = 0, device=None, **ccfg_changes):
+    """-> (step, state, batch, parts): the JAX harness's tiny phase-2
+    trainer (a 2 + 4-block FLUX with 16 input channels and guidance, a /8
+    VAE of 8 channels and 4 latents, 2 tiny branches, 32^2 pixels: 4
+    tokens; learning rate 1e-3, no accumulation, shift 3), its batch the
+    same numpy draws. trees: optional flax param trees (numpy leaves)
+    {"flux", "vae", "bank"}, else weights from a torch.Generator seeded
+    with ``seed``. ccfg_changes replace fields of the LightControlConfig
+    (e.g. gradient_accumulation_steps)."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    flux_cfg = tiny_flux_config(guidance_embeds=True, in_channels=16)
+    vae_cfg = VAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                        latent_channels=4, norm_num_groups=4, dtype=f32)
+    ctrl_cfg = ControlNeXtConfig(in_channels=(8, 8), out_channels=(8, 16),
+                                 groups=(2, 2), time_embed_dim=16,
+                                 final_out_channels=flux_cfg.inner_dim,
+                                 dtype=f32)
+    ccfg = dataclasses.replace(LightControlConfig(
+        gradient_accumulation_steps=1, learning_rate=1e-3), **ccfg_changes)
+
+    px, b, s = 32, batch_size, 8
+    rng = np.random.default_rng(0)
+    batch = {"style_pixels": rng.standard_normal((b, px, px, 3)),
+             "prompt": rng.standard_normal((b, s,
+                                            flux_cfg.joint_attention_dim)),
+             "pooled": rng.standard_normal((b,
+                                            flux_cfg.pooled_projection_dim))}
+    batch = {k: torch.as_tensor(v.astype(np.float32), device=dev)
+             for k, v in batch.items()}
+    flux = FluxTransformer2D(flux_cfg, dev)
+    vae = AutoencoderKL(vae_cfg, dev)
+    bank = ControlBank(ctrl_cfg, flux_cfg.num_layers, dev)
+    if trees is not None:
+        load_flax(flux, trees["flux"])
+        load_flax(vae, trees["vae"])
+        load_flax_bank(bank, trees["bank"])
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for mod in (flux, vae, bank):
+            random_init_(mod, gen)
+
+    def conditioning_fn(bt):
+        return bt["pooled"], bt["prompt"]
+
+    step, state, parts = _wire_lightcontrol(
+        flux, vae.encode, conditioning_fn, bank, flux_cfg, ccfg,
+        SchedulerConfig(shift=3.0), (flux, vae))
+    parts["vae"] = vae
+    return step, state, batch, parts
+
+
+def build_random_lightcontrol(scale: str = "full", seed: int = 0,
+                              pipe=None, request=None, device=None,
+                              ccfg: Optional[LightControlConfig] = None,
+                              px: int = 1024):
+    """The full-width x2i-internvl2.5-1b phase-2 trainer in bf16, batch 1,
+    on ``pipe``'s DiT, VAE, encoder and proj (frozen in place; the DiT set
+    to the trainer's config, ``TRAIN_DIT``: a caller that serves with it
+    afterwards sets its own fields back): -> (step, state, batch, parts).
+
+    The bank is ``ControlNeXtConfig()`` x 19 (128 / 256 channels, out
+    the DiT's width: 3072), in the DiT's dtype, drawn on the card from a torch.Generator seeded with ``seed``
+    (conv and Linear std 1/sqrt(fan_in), norm scales 1, biases 0); the
+    target image (1, px, px, 3) uniform in [-1, 1) from the same
+    generator. The conditioning is ``pipe.encode(request)`` (by default a
+    text2image instruction), copied out of inference mode. ``ccfg``:
+    LightControlConfig() by default."""
+    if scale != "full":
+        raise NotImplementedError(f"scale={scale!r}: 'full' only (the tiny "
+                                  f"trainer is build_tiny_lightcontrol)")
+    if pipe is None:
+        raise ValueError("build_random_lightcontrol needs a pipeline (its "
+                         "DiT, VAE and encoder)")
+    dev = resolve_device(device)
+    ccfg = ccfg or LightControlConfig()
+    spec = MODEL_REGISTRY["x2i-internvl2.5-1b"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flux = pipe.flux.replace_config(**TRAIN_DIT)
+    bank_cfg = ControlNeXtConfig(final_out_channels=flux.cfg.inner_dim,
+                                 dtype=flux.cfg.dtype)
+    bank = random_init_(ControlBank(bank_cfg, ccfg.num_controls, dev), gen)
+    pixels = torch.rand((1, px, px, 3), generator=gen, device=dev) * 2 - 1
+    request = request or {"task": "text2image",
+                          "prompt": "make the sky stormy"}
+
+    def conditioning_fn(bt):
+        return tuple(t.clone() for t in pipe.encode(bt["request"]))
+
+    frozen = [flux, pipe.vae, pipe.proj]
+    frozen += [m for m in getattr(pipe.encoder_fn, "ctx", {}).values()
+               if isinstance(m, torch.nn.Module)]
+    step, state, parts = _wire_lightcontrol(
+        flux, pipe.vae.encode, conditioning_fn, bank, flux.cfg, ccfg,
+        spec.scheduler, frozen)
+    return step, state, {"style_pixels": pixels, "request": request}, parts

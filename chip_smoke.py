@@ -139,6 +139,14 @@ Phases, each printing one JSON line per record:
 8b. chat: a two-turn MultiTurnSession (32 tokens and an image a turn) and
    a StreamingSession (three chunks, then 64 tokens, held against the
    cache-less forward) on the same LM;
+8t. tts: MiniCPM-o's speech half at full width (the 20-layer ChatTTS GPT,
+   the DVAE and the Vocos vocoder in f32, drawn from the seed) speaks a
+   sentence through ``TTSPipeline.speak`` (256 audio tokens), conditioned
+   on the streamed reply's last hidden state; ms per audio token, a step's
+   host enqueue against its device time, the stages' ms, the real-time
+   factor, the speech's share of a streamed turn, and the card against a
+   CPU float32 run of the same weights and codes (logits, the
+   teacher-forced cache, the waveform);
 8c. answer-w8a8: the same LM quantized in place to w8a8 and the same
    request through the int8 GEMM and K8 at one row and at 512 rows, exact
    launch counts, its decode's cost and bound and its conditioning's
@@ -3253,8 +3261,8 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
     dynamic shifting. The VAE is the pipeline's. Exact launch counts: one
     K1b per LM layer, K1a 57 and K5 115 per DiT step. On the
     x2i-qwenvl2.5-7b entry, before its LM is freed, the decode phases
-    run: ``answer``, ``chat``, then ``answer-w8a8``, which quantizes that
-    LM in place."""
+    run: ``answer``, ``chat``, ``tts`` (conditioned on the chat's streamed
+    reply), then ``answer-w8a8``, which quantizes that LM in place."""
     import dataclasses
     import gc
     import zlib
@@ -3331,7 +3339,9 @@ def phase_registry(pipe, seed: int, dit_state, card: str):
                                      card))
         if name == ANSWER_MODEL:
             counts["answer"], bf16_cond = phase_answer(entry, lm, seed, card)
-            counts["chat"] = phase_chat(entry, lm, seed, card)
+            counts["chat"], spk, stream_s = phase_chat(entry, lm, seed,
+                                                       card)
+            counts["tts"] = phase_tts(spk, stream_s, seed, card)
             counts["answer-w8a8"] = phase_answer_w8a8(entry, lm, seed, card,
                                                       bf16_cond)
             del bf16_cond
@@ -3767,29 +3777,16 @@ def decode_timing(lm, ids, mask, pos3d, rope):
     return rec, decoded
 
 
-def step_times(lm, ids, mask, rope):
-    """One mid-answer decode step's host enqueue time (from an idle card
-    until the call returns; median of 5) against its device time: the
-    same step captured once in a CUDA graph and replayed, back to back
-    between two events (median of 5 groups of 10), so that the host
-    feeds the card no gaps. The larger of the two sets the pace."""
+def graph_step_times(step):
+    """A decode step's host enqueue time (from an idle card until
+    ``step()`` returns; median of 5) against its device time: the same
+    step captured once in a CUDA graph and replayed, back to back between
+    two events (median of 5 groups of 10), so that the host feeds the card
+    no gaps. The larger of the two sets the pace. ``step`` runs under
+    ``torch.inference_mode`` and may not synchronize."""
     import torch
 
-    s0 = ids.shape[1]
     with torch.inference_mode():
-        cache = lm.init_cache(1, s0 + ANSWER_TOKENS)
-        lm.prefill_cached(lm.embed(ids), mask, cache, rope)
-        idx = s0 + ANSWER_TOKENS // 2
-        slots = torch.arange(s0 + ANSWER_TOKENS, device=ids.device)[None]
-        kv = (slots <= idx) & torch.nn.functional.pad(
-            mask, (0, ANSWER_TOKENS), value=True)
-        token = ids[:, :1]
-        pos = torch.full((1, 1), idx, device=ids.device)
-
-        def step():
-            return lm.decode_step(lm.embed(token), cache, idx, kv,
-                                  pos)[1].argmax(-1)
-
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -3823,6 +3820,29 @@ def step_times(lm, ids, mask, rope):
     rec["step_pace"] = ("host" if rec["step_enqueue_ms"]
                         > rec["step_device_ms"] else "device")
     return rec
+
+
+def step_times(lm, ids, mask, rope):
+    """``graph_step_times`` of one mid-answer decode step of the LM (its
+    embedding, the cached step and the argmax of the logits)."""
+    import torch
+
+    s0 = ids.shape[1]
+    with torch.inference_mode():
+        cache = lm.init_cache(1, s0 + ANSWER_TOKENS)
+        lm.prefill_cached(lm.embed(ids), mask, cache, rope)
+        idx = s0 + ANSWER_TOKENS // 2
+        slots = torch.arange(s0 + ANSWER_TOKENS, device=ids.device)[None]
+        kv = (slots <= idx) & torch.nn.functional.pad(
+            mask, (0, ANSWER_TOKENS), value=True)
+        token = ids[:, :1]
+        pos = torch.full((1, 1), idx, device=ids.device)
+
+    def step():
+        return lm.decode_step(lm.embed(token), cache, idx, kv,
+                              pos)[1].argmax(-1)
+
+    return graph_step_times(step)
 
 
 def check_answer(lm, ids, mask, pos3d, decoded):
@@ -4019,7 +4039,8 @@ def phase_chat(entry, lm, seed: int, card: str):
     assistant prompt prefilled at their cache offsets, then STREAM_TOKENS
     generated, whose final-layer states are held against the cache-less
     forward (K1b) over the same tokens to the answer's bars. ms per token
-    of each."""
+    of each. -> (counts, the streamed reply's last final-layer state (1,
+    1, H): the TTS conditioning, the streamed generation's seconds)."""
     import torch
     from x2i_torch.multiturn import MultiTurnSession, chat_tokenize
     from x2i_torch.streaming import make_qwen2_session
@@ -4092,9 +4113,230 @@ def phase_chat(entry, lm, seed: int, card: str):
             and k1b == lm.cfg.num_hidden_layers
             and _within_answer_bars(err)):
         raise AssertionError(f"the chat sessions failed: {rec}")
+    return counts, hidden[:, -1:].clone(), gen_ms / 1e3
+
+
+
+# ------------------------------------------------------------- the speech
+
+TTS_TOKENS = 256               # speak's default budget of audio tokens
+TTS_TEXT = ("A lighthouse at dusk, drawn as a woodcut: 3 boats, 12 gulls "
+            "and 1 keeper on the rocks below.")
+TTS_RATE = 24000               # the vocoder's samples a second
+# the card against a CPU float32 run of the same weights and codes: the
+# largest absolute difference relative to the CPU's largest magnitude
+# (TF32 off on both). Measured on an H100 (PERF.md): 1.2e-6 for the first
+# step's logits (9.2e-7 filtered), 2.4e-6 for the teacher-forced cache,
+# 9.9e-7 for the step after it, 4.4e-6 for the waveform
+TTS_LOGITS_REL, TTS_CACHE_REL, TTS_WAV_REL = 2e-5, 3e-5, 5e-5
+
+
+def _rel_max(got, want) -> float:
+    want = want.float()
+    return ((got.float().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def draw_tts(seed: int, device):
+    """MiniCPM-o's speech modules at full width, drawn from the seed:
+    ``ConditionalChatTTS`` (ChatTTSConfig(): 20 layers of 768, 626 audio
+    tokens in 4 codebooks, f32), the DVAE and ``VocosVocoder()``."""
+    import torch
+    from x2i_torch.models.chattts import (DVAE, ChatTTSConfig,
+                                          ConditionalChatTTS, VocosVocoder)
+    from x2i_torch.params import random_init_
+    g = torch.Generator(device=device).manual_seed(seed + 16)
+    return (random_init_(ConditionalChatTTS(ChatTTSConfig(), device), g),
+            random_init_(DVAE(device=device), g),
+            random_init_(VocosVocoder(device=device), g))
+
+
+def tts_cpu_check(tts, dvae, voc, input_ids, text_mask, spk, codes, wav):
+    """The card's speech path against the same weights in float32 on the
+    CPU: the first audio step's raw and filtered logits after the text
+    prefill, a teacher-forced ``prefill_audio`` of the card's codes (the
+    cache slots it writes) and the step after it, and the DVAE and
+    vocoder's waveform of the same codes. -> record."""
+    import torch
+    from x2i_torch.models.chattts import (DVAE, ConditionalChatTTS,
+                                          VocosVocoder)
+    cfg = tts.cfg
+    cpu = [ConditionalChatTTS(cfg), DVAE(), VocosVocoder()]
+    for mod, src in zip(cpu, (tts, dvae, voc)):
+        mod.load_state_dict(src.state_dict())
+    ctts, cdvae, cvoc = cpu
+    cond, n = cfg.condition_length, codes.shape[1]
+    pos = torch.arange(input_ids.shape[1])[None]
+    out, logits, filtered, caches = {}, {}, {}, {}
+    for name, mod in (("card", tts), ("cpu", ctts)):
+        dev = mod.device
+        with torch.inference_mode():
+            cache = mod.prefill_text(input_ids.to(dev), pos.to(dev),
+                                     mod.init_cache(cond + n + 1),
+                                     spk.to(dev))
+            bos = mod.emb_text(torch.full((1, 1), cfg.audio_bos_token_id,
+                                          device=dev))
+            raw, _ = mod.decode_step(bos, cache, cond - 1, text_mask.to(dev))
+            filtered[name] = mod.filter_logits(
+                raw, torch.zeros((cfg.num_vq, 1), dtype=torch.int64,
+                                 device=dev),
+                torch.zeros(1, device=dev), 0, 10, 1.0)
+            logits[name] = raw
+            cache = mod.prefill_audio(codes.to(dev), cache, cond - 1,
+                                      text_mask.to(dev))
+            caches[name] = [c[:, :, cond - 1:cond + n] for c in cache]
+            nxt, _ = mod.decode_step(mod.embed_code(codes[:, -1:].to(dev)),
+                                     cache, cond + n, text_mask.to(dev))
+            out[name] = nxt
+    keep = torch.isfinite(filtered["card"].cpu())
+    with torch.inference_mode():
+        cpu_wav = cvoc(cdvae.decode(codes.cpu()))
+    return {
+        "first_logits_rel_max": _rel_max(logits["card"], logits["cpu"]),
+        "filtered_kept_equal": bool(torch.equal(
+            keep, torch.isfinite(filtered["cpu"]))),
+        "filtered_rel_max": _rel_max(filtered["card"].cpu()[keep],
+                                     filtered["cpu"][keep]),
+        "prefill_audio_cache_rel_max": max(
+            _rel_max(a, b) for a, b in zip(caches["card"], caches["cpu"])),
+        "after_audio_logits_rel_max": _rel_max(out["card"], out["cpu"]),
+        "wav_rel_max": _rel_max(wav, cpu_wav)}
+
+
+def phase_tts(spk, stream_s: float, seed: int, card: str):
+    """MiniCPM-o's speech half at full width on the card (``draw_tts``),
+    conditioned on the chat phase's streamed reply (its last final-layer
+    state of the 7B LM, (1, 1, 3584)): ``TTSPipeline.speak`` of TTS_TEXT
+    through ``ByteTokenizer`` ids with TTS_TOKENS audio tokens and a
+    ``torch.Generator``, launch counts set to 0 just before and read just
+    after (none: the GPT's cached attention is the plain one, the codec
+    and vocoder are cuDNN's and cuBLAS's). Then its costs: ms per audio
+    token (``generate`` of TTS_TOKENS steps with eos masked throughout,
+    less the same of 1 step), a step's host enqueue against its device
+    time (``graph_step_times``), the bound of a step (the GPT's weights
+    and the cache slots read, over the memory rate), ``prefill_text``'s,
+    the DVAE decode's and the vocoder's ms (``call_ms``), the real-time
+    factor (seconds of audio a second of ``speak``, after one warm-up
+    ``speak`` of the same request), the peak memory over the phase's
+    start and the speech's share of a streamed turn (the chat's streamed
+    reply plus ``speak``); and the card against the CPU
+    (``tts_cpu_check``).
+    -> counts."""
+    import torch
+    from x2i_torch.pipeline import resolve_device
+    from x2i_torch.streaming import TTSPipeline
+
+    dev = resolve_device()                  # TF32 off
+    before = torch.cuda.memory_allocated()
+    tts, dvae, voc = draw_tts(seed, dev)
+    cfg = tts.cfg
+    tok = ByteTokenizer("minicpm")
+    pipe = TTSPipeline(tts, dvae, voc, tok.encode)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    pipe.speak(TTS_TEXT, spk, gen(), max_audio_tokens=TTS_TOKENS)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    wav, codes, n = pipe.speak(TTS_TEXT, spk, gen(),
+                               max_audio_tokens=TTS_TOKENS)
+    torch.cuda.synchronize()
+    speak_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    from x2i_torch.data.tts_text import replace_numbers_with_text
+    ids = tok.encode(replace_numbers_with_text(TTS_TEXT))
+    reserved = cfg.streaming_text_reserved_len
+    input_ids = torch.tensor([[pipe.bos_token_id, cfg.spk_emb_token_id]
+                              + ids + [0] * (reserved - len(ids))],
+                             device=dev)
+    text_mask = torch.arange(reserved, device=dev) < len(ids)
+    pos = torch.arange(input_ids.shape[1], device=dev)[None]
+    cond = cfg.condition_length
+
+    def prefilled(extra):
+        return tts.prefill_text(input_ids, pos, tts.init_cache(cond + extra),
+                                spk)
+
+    def generate(steps):
+        cache = prefilled(TTS_TOKENS)
+        buf = torch.zeros((1, steps, cfg.num_vq), dtype=torch.int64,
+                          device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, got, _ = tts.generate(buf, cache, cond - 1, text_mask, gen(),
+                                    steps, min_new_tokens=steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, got
+
+    generate(1)
+    (full_ms, full_n), (one_ms, _) = generate(TTS_TOKENS), generate(1)
+    with torch.inference_mode():
+        prefill_ms = call_ms(lambda: prefilled(TTS_TOKENS), iters=3)
+        mel = dvae.decode(codes)
+        dvae_ms = call_ms(lambda: dvae.decode(codes), iters=3)
+        voc_ms = call_ms(lambda: voc(mel), iters=3)
+        cache = prefilled(TTS_TOKENS)
+        idx = cond + TTS_TOKENS // 2
+        last = codes[:, -1:]
+        gumbel = torch.empty((cfg.num_vq, cfg.num_audio_tokens),
+                             device=dev).exponential_().log_().neg_()
+        window = torch.zeros((cfg.num_vq, 1), dtype=torch.int64,
+                             device=dev)
+        valid = torch.zeros(1, device=dev)
+
+    def step():
+        logits, _ = tts.decode_step(tts.embed_code(last), cache, idx,
+                                    text_mask)
+        return (tts.filter_logits(logits, window, valid, idx, 10, 1.0)
+                + gumbel).argmax(-1)
+
+    prof = graph_step_times(step)
+    slot = 2 * cfg.num_hidden_layers * cfg.hidden_size * 4
+    step_bytes = _weight_bytes(tts) + slot * (cond + TTS_TOKENS / 2)
+    check = tts_cpu_check(tts, dvae, voc, input_ids, text_mask, spk, codes,
+                          wav)
+    samples = wav.shape[1]
+    rec = {"phase": "tts", "card": card, "layers": cfg.num_hidden_layers,
+           "hidden": cfg.hidden_size, "dtype": str(cfg.dtype),
+           "weight_bytes": {"gpt": _weight_bytes(tts),
+                            "dvae": _weight_bytes(dvae),
+                            "vocoder": _weight_bytes(voc)},
+           "spk_hidden": list(spk.shape), "text_tokens": len(ids),
+           "audio_tokens": n, "audio_tokens_max": TTS_TOKENS,
+           "codes_shape": list(codes.shape), "samples": samples,
+           "audio_s": samples / TTS_RATE, "speak_s": speak_s,
+           "real_time_factor": samples / TTS_RATE / speak_s,
+           "ms_per_audio_token": (full_ms - one_ms) / (TTS_TOKENS - 1),
+           "generate_ms": full_ms, "generate_1_step_ms": one_ms,
+           "generate_tokens": full_n, "prefill_text_ms": prefill_ms,
+           "dvae_decode_ms": dvae_ms, "vocoder_ms": voc_ms,
+           "step_bound_ms": step_bytes / PEAK_BYTES * 1e3,
+           "step_bound_bytes": step_bytes, **prof,
+           "max_memory_allocated": peak,
+           "peak_over_phase_start": peak - before, "stream_reply_s": stream_s,
+           "speech_share_of_turn": speak_s / (stream_s + speak_s),
+           "launches": counts, "vs_cpu": check,
+           "bars": {"logits": TTS_LOGITS_REL, "cache": TTS_CACHE_REL,
+                    "wav": TTS_WAV_REL}}
+    emit(rec)
+    finite = bool(torch.isfinite(wav).all())
+    if not (finite and 1 <= n <= TTS_TOKENS and full_n == TTS_TOKENS
+            and tuple(codes.shape) == (1, n, cfg.num_vq)
+            and samples == (2 * n - 1) * voc.hop_length
+            and counts == NO_LAUNCHES
+            and check["filtered_kept_equal"]
+            and max(check["first_logits_rel_max"],
+                    check["filtered_rel_max"],
+                    check["after_audio_logits_rel_max"]) <= TTS_LOGITS_REL
+            and check["prefill_audio_cache_rel_max"] <= TTS_CACHE_REL
+            and check["wav_rel_max"] <= TTS_WAV_REL):
+        raise AssertionError(f"the speech phase failed: {rec}")
+    del tts, dvae, voc, pipe, cache
     return counts
-
-
 
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
 # whose launches it reports -- one image, one 32k-token encode, or one

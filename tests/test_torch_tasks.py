@@ -21,7 +21,12 @@ the difference grows to 3 steps of the final-normed layer (measured:
 0.9% and 1.3% of the largest magnitude at the worst element, 2.3e-4 on
 average, for one and for two Qwen2.5-VL images). uint8 images within 16
 levels at the worst pixel and 1 level on average, as the text path's;
-the port's batch equal to its serial encodes bit for bit on the CPU."""
+the port's batch equal to its serial encodes bit for bit on the CPU.
+
+This file holds InternVL2.5's cases and the helpers; Qwen2.5-VL's are in
+test_torch_tasks_qwenvl.py and MiniCPM-o's in test_torch_tasks_minicpm.py,
+each file building only its family's pipelines, so that the test
+runner's workers take the three files at once."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,23 +61,24 @@ def frames(seed, n=4):
     return [pil(seed + i, 64, 48) for i in range(n)]
 
 
+def build_pipes(tmp_path_factory, family):
+    """{family: (port pipeline, JAX pipeline)}, bf16, for one family."""
+    model = MODELS[family]
+    root = str(tmp_path_factory.mktemp(f"tasks_{family}"))
+    flux = build_flux_dir(root)
+    mllm = BUILDERS[family](root)
+    proj = build_proj_bin(root, in_channels=3, input_dim=PROJ_DIM[family])
+    _to_bf16(root)
+    kw = dict(num_steps=STEPS, height=PX, width=PX, quantized=False)
+    port = build_pipeline_from_checkpoints(
+        model, flux, mllm, proj, device="cpu",
+        tokenizer=_tokenizer(mllm, family), **kw)
+    return {family: (port, jax_build(model, flux, mllm, proj, **kw))}
+
+
 @pytest.fixture(scope="module")
 def pipes(tmp_path_factory):
-    """family -> (port pipeline, JAX pipeline), bf16, built once."""
-    out = {}
-    for family, model in MODELS.items():
-        root = str(tmp_path_factory.mktemp(f"tasks_{family}"))
-        flux = build_flux_dir(root)
-        mllm = BUILDERS[family](root)
-        proj = build_proj_bin(root, in_channels=3,
-                              input_dim=PROJ_DIM[family])
-        _to_bf16(root)
-        kw = dict(num_steps=STEPS, height=PX, width=PX, quantized=False)
-        port = build_pipeline_from_checkpoints(
-            model, flux, mllm, proj, device="cpu",
-            tokenizer=_tokenizer(mllm, family), **kw)
-        out[family] = (port, jax_build(model, flux, mllm, proj, **kw))
-    return out
+    return build_pipes(tmp_path_factory, "internvl")
 
 
 def _stack_close(got, want):
@@ -128,28 +134,17 @@ CASES = [("internvl", t) for t in TASKS if t != "video2image"] + [
     ("qwenvl", t) for t in TASKS] + [("minicpm", t) for t in MINICPM_TASKS]
 
 
-@pytest.mark.parametrize("family,task", CASES)
-def test_task_matches_jax(pipes, family, task):
+def cases(family):
+    return [c for c in CASES if c[0] == family]
+
+
+def task_matches_jax(pipes, family, task):
     """The stack and the image of one request of the task."""
     port, ref = pipes[family]
     inputs = {"task": task, "prompt": None,
               **(MINICPM_TASKS if family == "minicpm" else TASKS)[task]}
     _stack_close(port.encoder_fn(inputs), ref.encoder_fn(inputs))
     _pixels_close(port, ref, inputs)
-
-
-def test_task_entry_points_make_images(pipes):
-    port, _ = pipes["qwenvl"]
-    kw = dict(height=PX, width=PX, num_steps=STEPS)
-    for img in (port.image2image([pil(6)], **kw),
-                port.imagetext2image("a cat", [pil(7)], **kw),
-                port.video2image(frames(8, 2), **kw),
-                port.x2image("a cat", [pil(9)], **kw)):
-        assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
-    port, _ = pipes["minicpm"]
-    for img in (port.audio2image(wave(8, 1.0), **kw),
-                port.x2image("a cat", [pil(9)], wave(9, 1.0), **kw)):
-        assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
 
 
 def _batch(family):
@@ -180,8 +175,7 @@ def _counted(module):
     return calls
 
 
-@pytest.mark.parametrize("family", ["internvl", "qwenvl", "minicpm"])
-def test_mixed_batch_matches_jax_and_serial(pipes, family):
+def mixed_batch_matches_jax_and_serial(pipes, family):
     """One vision call for the whole batch (the JAX batch path's
     concatenation), and for MiniCPM-o one Whisper call for the mel chunks
     of all its audio requests, the stacks of JAX's batch path, and the
@@ -209,8 +203,7 @@ def test_mixed_batch_matches_jax_and_serial(pipes, family):
     assert images.shape == (len(reqs), PX, PX, 3)
 
 
-@pytest.mark.parametrize("family", ["internvl", "qwenvl", "minicpm"])
-def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
+def cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
     """A request whose image tokens run past 512 tokens: both packages'
     batch paths fall back to encoding request by request (a cut row would
     shift every later row's features), and agree. InternVL: 16 images of
@@ -237,14 +230,18 @@ def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
     _stack_close(batched, ref.encoder_fn.batch(reqs))
 
 
-def test_minicpm_media_name_the_roadmap_item(pipes):
-    """The MiniCPM-o media that the port refused before its encoders were
-    ported (ROADMAP.md Queue A item 4.3, done) are taken: an image, video
-    frames and audio each give a stack of the text request's shape that
-    is not the text request's."""
-    port, _ = pipes["minicpm"]
-    text = port.encoder_fn({"prompt": "x"})
-    for media in ({"images": [pil(50)]}, {"video": frames(51, 2)},
-                  {"audio": wave(52, 1.0)}):
-        got = port.encoder_fn({"prompt": "x", **media})
-        assert got.shape == text.shape and not torch.equal(got, text)
+# ------------------------------------------------------------ InternVL2.5
+
+@pytest.mark.parametrize("family,task", cases("internvl"))
+def test_task_matches_jax(pipes, family, task):
+    task_matches_jax(pipes, family, task)
+
+
+@pytest.mark.parametrize("family", ["internvl"])
+def test_mixed_batch_matches_jax_and_serial(pipes, family):
+    mixed_batch_matches_jax_and_serial(pipes, family)
+
+
+@pytest.mark.parametrize("family", ["internvl"])
+def test_cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family):
+    cut_image_tokens_send_the_batch_to_the_serial_path(pipes, family)

@@ -2,7 +2,8 @@
 ``X2IPipeline``, the counterpart of ``x2i_tpu/convert/load.py``: the
 InternVL2.5 and Qwen2.5-VL encoders with their vision towers, and
 MiniCPM-o's omni encoder (SigLIP, the resampler, Whisper and its
-projector); and LightControl's ControlNeXt bank (``load_control_bank``).
+projector) and its speech modules (``load_tts``); and LightControl's
+ControlNeXt bank (``load_control_bank``).
 
 The artifacts are those the reference reads: a diffusers FLUX directory
 (``transformer/*.safetensors``, one file or ``-0000k-of-0000n`` shards,
@@ -49,9 +50,11 @@ from x2i_torch.convert.hf_config import (flux_config_from_dir,
                                          qwenvl_config_from_dir,
                                          scheduler_config_from_dir,
                                          vae_config_from_dir)
-from x2i_torch.convert.torch_models import (controlnext_plan, fill_module,
-                                            flux_plan, internvl_plan,
-                                            minicpmo_off_path,
+from x2i_torch.convert.torch_models import (chattts_off_path,
+                                            chattts_plan, controlnext_plan,
+                                            dvae_plan, dvae_quantizer_in,
+                                            fill_module, flux_plan,
+                                            internvl_plan, minicpmo_off_path,
                                             minicpmo_plan, proj_plan,
                                             qwen2_5_vl_plan, vae_plan)
 from x2i_torch.core.config import (MODEL_REGISTRY, ControlNeXtConfig,
@@ -65,6 +68,7 @@ from x2i_torch.data.qwen_vision import (concat_vision_inputs,
                                         prepare_vision_inputs)
 from x2i_torch.data.vision import image_tiles
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
+from x2i_torch.models.chattts import DVAE, ChatTTSConfig, ConditionalChatTTS
 from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.internvl import InternVLEncoder
@@ -213,6 +217,38 @@ def load_control_bank(path: str, cfg: Optional[ControlNeXtConfig] = None,
     bank.load_report = fill_module(bank, tensors,
                                    controlnext_plan(cfg, num_controls))
     return bank
+
+
+def load_tts(path: str, cfg: Optional[ChatTTSConfig] = None, device=None
+             ) -> Tuple[ConditionalChatTTS, DVAE]:
+    """MiniCPM-o's speech modules from its checkpoint directory (the
+    MLLM's, whose encoder load leaves them unread): the ``tts.`` keys into
+    a ``ConditionalChatTTS`` of ``cfg`` (``ChatTTSConfig()`` by default)
+    and the ``tts.dvae.`` keys into a ``DVAE`` (without its quantizer
+    where the directory has no ``vq_layer``), on ``device`` (CUDA unless
+    named), in the config's dtype. Raises on a ``tts.`` key neither plan
+    reads, ``chattts_off_path`` apart, and on a parameter no key fills;
+    each module's report is its ``load_report``. The vocoder is not in
+    the directory (JAX has no converter for it)."""
+    cfg = cfg or ChatTTSConfig()
+    dev = resolve_device(device)
+    keys = safetensors_keys(path)
+
+    def tensors(speech):
+        return ((k, t) for k, t in load_safetensors_dir(path) if speech(k))
+
+    tts = ConditionalChatTTS(cfg, device="meta").to_empty(device=dev)
+    tts.load_report = fill_module(
+        tts, tensors(lambda k: k.startswith("tts.")
+                     and not k.startswith("tts.dvae.")),
+        chattts_plan(cfg, keys), chattts_off_path())
+    quantizer = dvae_quantizer_in(keys)
+    dvae = DVAE(cfg.dtype, device="meta", quantizer=quantizer).to_empty(
+        device=dev)
+    dvae.load_report = fill_module(
+        dvae, tensors(lambda k: k.startswith("tts.dvae.")),
+        dvae_plan(quantizer))
+    return tts, dvae
 
 
 # ------------------------------------------------------------ encoders

@@ -21,7 +21,9 @@ read (``off_path``: MiniCPM-o's TTS modules, the SigLIP block MiniCPM
 drops and Whisper's stored position table, a tied head), which the
 returned report names. Anything else raises. The
 InternVL2.5, Qwen2.5-VL and MiniCPM-o plans fill the whole encoder, the
-vision (and audio) towers and the LM, in one pass over the directory.
+vision (and audio) towers and the LM, in one pass over the directory;
+MiniCPM-o's speech modules have their own plans (``chattts_plan``,
+``dvae_plan``), which read its ``tts.`` keys strictly.
 
 FLUX's q/k projections (weights and biases) and its qk-norm scales leave
 in the half-rope layout (``x2i_torch/ops/rope.py::half_layout_perm`` over
@@ -40,6 +42,7 @@ from torch import nn
 from x2i_torch.core.config import (ControlNeXtConfig, FluxConfig,
                                    InternVLConfig, MiniCPMOConfig,
                                    ProjConfig, Qwen2Config, VAEConfig)
+from x2i_torch.models.chattts import ChatTTSConfig
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
 from x2i_torch.ops.rope import half_layout_perm
 
@@ -428,6 +431,92 @@ def minicpmo_off_path(cfg: MiniCPMOConfig) -> Callable[[str], bool]:
                 or (cfg.llm.tie_word_embeddings
                     and key == "llm.lm_head.weight"))
     return off
+
+
+def chattts_plan(cfg: ChatTTSConfig, keys: Iterable[str],
+                 prefix: str = "tts.") -> Plan:
+    """MiniCPM-o's ConditionalChatTTS (its ``tts.`` keys, the DVAE's
+    apart) -> ``ConditionalChatTTS``: model.layers.{i}.* ->
+    blocks.{i}.* (as ``qwen2_plan``), model.norm -> norm, emb_text and
+    emb_code.{i} -> emb_code_{i}, the weight-normed head_code.{i} in
+    either of torch's layouts (parametrizations.weight.original0 / 1 or
+    weight_g / weight_v, whichever ``keys`` hold) -> head_g_{i} (flat) /
+    head_v_{i}, projector.linear{1,2} (``use_mlp``) or projector. The
+    counterpart of JAX's ``chattts_params_from_reference``."""
+    keys = set(keys)
+    plan: Plan = {}
+    for key, (name, fn) in qwen2_plan(cfg.backbone,
+                                      prefix + "model.").items():
+        if name == "final_norm.scale":
+            plan[key] = ("norm.scale", fn)
+        elif name.startswith("layers."):
+            plan[key] = ("blocks." + name.removeprefix("layers."), fn)
+    plan[prefix + "emb_text.weight"] = ("emb_text.weight", None)
+    flat = lambda t: t.reshape(-1)          # noqa: E731  (out, 1) -> (out,)
+    for i in range(cfg.num_vq):
+        plan[f"{prefix}emb_code.{i}.weight"] = (f"emb_code_{i}.weight", None)
+        head = f"{prefix}head_code.{i}."
+        g, v = (("parametrizations.weight.original0",
+                 "parametrizations.weight.original1")
+                if head + "parametrizations.weight.original0" in keys
+                else ("weight_g", "weight_v"))
+        plan[head + g] = (f"head_g_{i}", flat)
+        plan[head + v] = (f"head_v_{i}", None)
+    names = ([f"linear{j}.{leaf}" for j in (1, 2)
+              for leaf in ("weight", "bias")] if cfg.use_mlp else ["weight"])
+    for n in names:
+        plan[f"{prefix}projector.{n}"] = (f"projector.{n}", None)
+    return plan
+
+
+def chattts_off_path(prefix: str = "tts.") -> Callable[[str], bool]:
+    """The ``tts.`` key the port does not read, as JAX does not: the
+    Llama's own token table (``model.embed_tokens``), where a checkpoint
+    keeps it; the GPT is given embeddings."""
+    return lambda key: key == prefix + "model.embed_tokens.weight"
+
+
+def dvae_quantizer_in(keys: Iterable[str], prefix: str = "tts.dvae.") -> bool:
+    """Whether a checkpoint holds the DVAE's FSQ projections; JAX's
+    converter skips them where ``vq_layer`` was stripped."""
+    return prefix + "vq_layer.quantizer.rvqs.0.project_in.weight" in set(keys)
+
+
+def dvae_plan(quantizer: bool = True, prefix: str = "tts.dvae.") -> Plan:
+    """The reference's DVAE -> ``DVAE`` (``quantizer``: with its FSQ
+    projections): coef (1, 100, 1) -> coef (100,), downsample_conv.{0,2}
+    -> down0 / down1, encoder. and decoder.: conv_in.{0,2} -> conv_in0 /
+    conv_in1, conv_out, decoder_block.{i}.* -> block_{i}.* (norm weight ->
+    scale), out_conv, vq_layer.quantizer.rvqs.{g}.project_{in,out} ->
+    vq.project_{in,out}_{g}. The counterpart of JAX's
+    ``dvae_params_from_reference``."""
+    plan: Plan = {prefix + "coef": ("coef", lambda t: t.reshape(-1))}
+
+    def same(src, dst, bias=True):
+        plan[f"{prefix}{src}.weight"] = (f"{dst}.weight", None)
+        if bias:
+            plan[f"{prefix}{src}.bias"] = (f"{dst}.bias", None)
+
+    same("downsample_conv.0", "down0")
+    same("downsample_conv.2", "down1")
+    same("out_conv", "out_conv", bias=False)
+    for part in ("encoder", "decoder"):
+        same(f"{part}.conv_in.0", f"{part}.conv_in0")
+        same(f"{part}.conv_in.2", f"{part}.conv_in1")
+        same(f"{part}.conv_out", f"{part}.conv_out", bias=False)
+        for i in range(12):
+            s, t = f"{part}.decoder_block.{i}.", f"{part}.block_{i}."
+            for n in ("dwconv", "pwconv1", "pwconv2"):
+                same(s + n, t + n)
+            plan[f"{prefix}{s}norm.weight"] = (t + "norm.scale", None)
+            plan[f"{prefix}{s}norm.bias"] = (t + "norm.bias", None)
+            plan[f"{prefix}{s}coef"] = (t + "coef", None)
+    if quantizer:
+        for g in (0, 1):
+            for n in ("in", "out"):
+                same(f"vq_layer.quantizer.rvqs.{g}.project_{n}",
+                     f"vq.project_{n}_{g}")
+    return plan
 
 
 def proj_plan(cfg: ProjConfig) -> Plan:

@@ -6,7 +6,8 @@ arrays and copies every leaf into the matching PyTorch parameter:
 
 * scan-stacked layers (a leading L axis: FLUX ``double_blocks`` and
   ``single_blocks``, or ``single_blocks_{i}`` chunks, and Qwen2
-  ``layers/block``) fill one module of an ``nn.ModuleList`` per index;
+  ``layers/block``, ChatTTS's ``blocks/block``) fill one module of an
+  ``nn.ModuleList`` per index;
 * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
 * ``QuantDense`` ``qkernel`` (in, out) int8, ``scale`` (out,) f32 and
   ``bias`` -> ``QuantLinear`` ``qweight`` (out, in), ``scale``, ``bias``;
@@ -17,7 +18,10 @@ arrays and copies every leaf into the matching PyTorch parameter:
   its leaves, whatever group it was built with);
 * ``nn.Embed`` ``embedding`` -> ``nn.Embedding.weight``;
 * Conv ``kernel`` HWIO -> ``nn.Conv2d.weight`` OIHW, and a 1-D Conv's
-  (k, in, out) -> ``nn.Conv1d.weight`` (out, in, k);
+  (k, in/groups, out) -> ``nn.Conv1d.weight`` (out, in/groups, k);
+* a raw (in, out) matrix whose name starts with one of the module's
+  ``flax_transposed`` prefixes (ChatTTS's weight-normed heads
+  ``head_v_i``) -> the parameter in torch's (out, in);
 * every other leaf (norm ``scale``/``bias``, ``cha_scale``, ``ln_scale``,
   the resampler's raw ``query`` and ``proj`` matrices) -> the parameter
   of the same name, as it is.
@@ -140,14 +144,18 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
                     else (3, 2, 0, 1))
             _copy(child.weight, np.transpose(val["kernel"], axes),
                   name + ".kernel", filled)
-            _copy(child.bias, val["bias"], name + ".bias", filled)
-            _only(val, {"kernel", "bias"}, name)
+            if child.bias is not None:
+                _copy(child.bias, val["bias"], name + ".bias", filled)
+            _only(val, {"kernel", "bias"} if child.bias is not None
+                  else {"kernel"}, name)
         elif isinstance(child, nn.Embedding):
             _copy(child.weight, val["embedding"], name + ".embedding",
                   filled)
             _only(val, {"embedding"}, name)
         elif isinstance(child, nn.Module):
             _load(child, val, name + ".", filled)
+        elif key.startswith(getattr(module, "flax_transposed", ())):
+            _copy(child, np.swapaxes(val, -1, -2), name, filled)
         else:
             _copy(child, val, name, filled)
 
@@ -196,7 +204,8 @@ def random_init_(module: nn.Module, generator: torch.Generator
     normal with std 1, as T5's relative position bias table; CLIP's
     position embeddings and the resampler's queries normal with std 0.02
     (the JAX initializers of the first two), the resampler's raw ``proj``
-    matrix with std 1/sqrt(fan_in); biases 0, every other parameter (norm
+    matrix and ChatTTS's weight-normed heads ``head_v_i`` with std
+    1/sqrt(fan_in); biases 0, every other parameter (norm
     scales, the proj's channel scale) 1 -- except norm biases, 0."""
     with torch.no_grad():
         for mod in module.modules():
@@ -226,6 +235,9 @@ def random_init_(module: nn.Module, generator: torch.Generator
                 for name, p in mod.named_parameters(recurse=False):
                     if name in RANDOM_TABLES:
                         p.normal_(0.0, RANDOM_TABLES[name],
+                                  generator=generator)
+                    elif name.startswith("head_v_"):   # ChatTTS's heads
+                        p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]),
                                   generator=generator)
                     else:
                         p.fill_(0.0 if name.endswith("bias") else 1.0)

@@ -6,8 +6,9 @@ appends each message chunk to a fixed-size KV cache at a tracked offset
 token from the cache until a terminator.
 
 The session writes the LM's cache in place (``models/qwen2.py``). The
-speech half (``TTSPipeline``: ChatTTS codes, DVAE, vocoder) is not ported
-(ROADMAP.md Queue A item 5).
+speech half, ``TTSPipeline``, speaks a reply: ChatTTS audio codes
+conditioned on the LM's last hidden state, the DVAE's mel, the vocoder's
+waveform (``models/chattts.py``).
 """
 
 from __future__ import annotations
@@ -163,3 +164,60 @@ def make_qwen2_session(model, tokenize: Callable, detokenize: Callable,
            "decode_step": model.decode_step, "init_cache": model.init_cache,
            "device": model.embed_tokens.weight.device}
     return StreamingSession(llm, tokenize, detokenize, max_len, terminators)
+
+
+class TTSPipeline:
+    """Text- and speaker-conditioned speech: ChatTTS codes -> DVAE mel ->
+    vocoder waveform (the reference's omni speech path), the counterpart
+    of JAX's ``TTSPipeline`` over modules that hold their weights.
+
+    tts: a ``ConditionalChatTTS``; dvae: a ``DVAE``; vocoder: a
+    ``VocosVocoder``; tts_tokenize: the TTS side's text tokenizer, str ->
+    list[int] (the reference runs a ChatTTS tokenizer over the reply)."""
+
+    def __init__(self, tts, dvae, vocoder, tts_tokenize: Callable,
+                 bos_token_id: int = 21134):
+        self.tts = tts
+        self.dvae = dvae
+        self.vocoder = vocoder
+        self.tts_tokenize = tts_tokenize
+        self.bos_token_id = bos_token_id
+
+    @torch.inference_mode()
+    def speak(self, text: str, spk_hidden, draws,
+              max_audio_tokens: int = 256, temperature: float = 1.0,
+              normalize_numbers: bool = True):
+        """-> (waveform (1, samples), audio codes (1, n, num_vq), n).
+
+        spk_hidden: (1, 1, llm_dim), the LM's last final-layer state;
+        draws: the (max_audio_tokens, num_vq, num_audio_tokens) Gumbel
+        draws of ``ConditionalChatTTS.generate``, or a ``torch.Generator``.
+        normalize_numbers: spell digits out per language before
+        tokenizing (the reference's streaming TTS does)."""
+        tts = self.tts
+        cfg, dev = tts.cfg, tts.device
+        if normalize_numbers:
+            from x2i_torch.data.tts_text import replace_numbers_with_text
+            text = replace_numbers_with_text(text)
+        reserved = cfg.streaming_text_reserved_len
+        ids = self.tts_tokenize(text)[:reserved]
+        prefix = [self.bos_token_id] + [cfg.spk_emb_token_id] * (
+            cfg.num_spk_embs * int(cfg.use_speaker_embedding))
+        input_ids = torch.tensor(
+            [prefix + ids + [0] * (reserved - len(ids))], device=dev)
+        positions = torch.arange(input_ids.shape[1], device=dev)[None]
+
+        cache = tts.init_cache(cfg.condition_length + max_audio_tokens)
+        cache = tts.prefill_text(input_ids, positions, cache, spk_hidden)
+        text_mask = torch.arange(reserved, device=dev) < len(ids)
+        buf = torch.zeros((1, max_audio_tokens, cfg.num_vq),
+                          dtype=torch.int64, device=dev)
+        codes, _, n, _ = tts.generate(buf, cache, cfg.condition_length - 1,
+                                      text_mask, draws, max_audio_tokens,
+                                      temperature=temperature)
+        # the generated codes alone: the zero tail would decode to
+        # trailing noise
+        n = max(n, 1)
+        codes = codes[:, :n]
+        wav = self.vocoder(self.dvae.decode(codes))
+        return wav, codes, n

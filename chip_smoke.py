@@ -35,6 +35,10 @@ Phases, each printing one JSON line per record:
    non-causal) and at MiniCPM-o's resampler's (28 heads x 128, 64 query
    rows padded to 128, one slice of 1024 patches and a batch of slices of
    1024 and 600), SDPA on the same padded, masked tensors beside each;
+   the straight-through backward's int8 and w4a8 dequantize kernels bit
+   for bit at the DiT's weight shapes; one QuantLinear's
+   straight-through dx on the card in each of w8a8, w8, w4 and w4a8
+   against the same layer's on the CPU;
 2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
    at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
    blocks in two shards, the whole VAE; an InternVL directory with
@@ -98,7 +102,19 @@ Phases, each printing one JSON line per record:
    counts per step, the bank moved, the DiT bit for bit unchanged; a
    2+2-block full-width DiT holds the controls' gradient of the kernel
    route (K1c, K1 with the lse, K3, K4) against the plain attention's;
-6. w8a8: the same DiT quantized in place (``quantize_module_``) makes the
+5c. train-resume: the same DiT quantized in place to w8a8
+   (``quantize_module_``) and trained at JAX's single-chip phase-1
+   operating point (inline KD, int8 teacher stacks, 8-bit AdamW) through
+   ``TrainLoop`` with checkpoints every 2 steps: run A 4 steps unbroken
+   (exact launch counts per step: the int8 GEMM and K8 forward, the int8
+   dequantize kernel's straight-through backward), run B 2 steps, then a
+   new loop that resumes at step 2 and runs to 4, its proj and 8-bit
+   state bit for bit run A's; the 2+2-block w8a8 gradient route check;
+   the phase-2 step with 8-bit AdamW on the w8a8 DiT
+   (``lightcontrol-train-w8a8``: its optimizer's s); the training command
+   line (``python -m x2i_torch.train.cli``) on the card: ``distill``
+   for 4 steps, again to 6 resuming at 4, and ``lightcontrol``;
+6. w8a8: the same w8a8 DiT (set back to its serving config) makes the
    same image through the quantizing glue kernels and the int8 GEMM, with
    exact launch counts, and its pixels are compared with the bf16 ones; a
    2+2-block full-width w8a8 DiT holds the kernel route against the plain
@@ -112,7 +128,10 @@ Phases, each printing one JSON line per record:
    kernel and cuBLAS; each with exact launch counts, its pixels compared
    with the bf16 ones, and a 2+2-block full-width DiT in the mode holding
    the kernel route against the plain route on the same int4 weights;
-   then w8 the same way (K5 and the plain dequantizing product);
+   then w8 the same way (K5 and the plain dequantizing product); after
+   the w4a8 image, a phase-2 step with 8-bit AdamW on the w4a8 DiT
+   (``lightcontrol-train-w4a8``: the w4a8 GEMM and K8 forward, the w4a8
+   dequantize kernel's straight-through backward, exact counts);
 8. registry: the five other MODEL_REGISTRY entries at full width and
    depth (LMs of 36 x 2048 and 28 x 3584, the FLUX.1-dev entry in 28
    steps with guidance and dynamic shifting), one 1024^2 image each
@@ -878,6 +897,8 @@ def phase_kernels(seed: int):
     check_gemms(g, rows, recs)
     check_w4a8_gemms(g, rows, recs)
     check_w4_dequant(g, recs)
+    check_grad_dequant(g, recs)
+    check_straight_through(g)
     return recs
 
 
@@ -1303,6 +1324,115 @@ def check_w4_dequant(g, recs):
         recs.setdefault("w4_dequant", []).append(rec)
 
 
+def check_grad_dequant(g, recs):
+    """The straight-through backward's dequantize kernels (int8: w8 and
+    w8a8; w4a8) at the DiT's weight shapes, 3072 -> 12288 and 12288 ->
+    3072 among them, on weights from ``quantize_kernel`` and
+    ``quantize_kernel_w4a8``: bit for bit their plain versions (the JAX
+    backward's dequantize in bf16), timed against them and against their
+    bound (bytes: the codes, multipliers and scales read once, the bf16
+    weight written once), a ``torch.clone`` of the weight beside them (the
+    rate the card reaches on the bytes it writes). No one PyTorch call
+    computes either."""
+    import torch
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as i8
+    from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4a8
+
+    dev = torch.device("cuda")
+    for label, n, inn in DEQUANT_SHAPES:
+        wf = torch.randn((n, inn), generator=g, device=dev) / inn ** 0.5
+        q, s8 = quantize_kernel(wf.t())
+        qw = q.t().contiguous()
+        pk, m, s4 = quantize_kernel_w4a8(wf.t())
+        pw = pk.t().contiguous()
+        del wf, q, pk
+        # (name, kernel, plain version, inputs, operations: the int8
+        # code times the scale; the int4 code times m times the scale)
+        for name, fn, plain, args, ops in (
+                ("int8_dequant", i8.int8_dequant, i8.int8_dequant_plain,
+                 (qw, s8), n * inn),
+                ("w4a8_dequant", i4.w4a8_dequant, i4.w4a8_dequant_plain,
+                 (pw, m, s4), 2 * n * inn)):
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernels", "kernel": name, "case": label,
+                   "shape": [n, inn], "bit_for_bit": torch.equal(got, want),
+                   "max_abs_err": (got.float() - want.float()).abs().max()
+                   .item(),
+                   "ms": kernel_ms(fn, *args),
+                   "plain_ms": kernel_ms(plain, *args),
+                   "library_ms": None,
+                   "library": "none: no one PyTorch call computes it",
+                   "copy_ms": kernel_ms(torch.clone, got)}
+            rec["bound_ms"], rec["bound_by"] = bound(
+                float(ops), nbytes(*args, got), PEAK_F32_FLOPS)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            if not rec["bit_for_bit"]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rec}")
+            recs.setdefault(name, []).append(rec)
+
+
+# one QuantLinear's straight-through dx: rows, in, out (the single
+# block's mlp_in at 64 tokens)
+STE_SHAPE = (64, 3072, 12288)
+# the launches of its forward and backward on the card, per mode
+STE_LAUNCHES = {
+    "w8a8": dict(quant_rows=1, int8_gemm=1, int8_dequant=1),
+    "w8": dict(int8_dequant=1),
+    "w4": dict(w4_dequant=2),
+    "w4a8": dict(quant_rows=1, w4a8_gemm=1, w4a8_dequant=1)}
+
+
+def check_straight_through(g):
+    """One bf16 ``QuantLinear`` per mode (``STE_SHAPE``) on the card: the
+    forward and the straight-through backward of ``dy`` through the
+    kernels (the counts exact), its dx against the same layer's on the
+    CPU (the plain quantization, product, dequantize and matmul): the
+    same bf16 weight and dy, f32 sums in cuBLAS's order and the CPU's, so
+    within one bf16 step at the largest magnitude (2^-7 of max |dx|)."""
+    import copy
+
+    import torch
+    from torch import nn
+    from x2i_torch.ops.quant import QuantLinear
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows_n, inn, out = STE_SHAPE
+    lin = nn.Linear(inn, out, dtype=bf, device=dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((out, inn), generator=g, device=dev)
+                         / inn ** 0.5)
+    x = torch.randn((rows_n, inn), generator=g, device=dev).to(bf)
+    dy = torch.randn((rows_n, out), generator=g, device=dev).to(bf)
+    for mode, launched in STE_LAUNCHES.items():
+        want_used = dict(NO_LAUNCHES, **launched)
+        layer = QuantLinear.from_linear(lin, mode)
+        cpu_layer = copy.deepcopy(layer).cpu()
+        xg = x.clone().requires_grad_()
+        reset_counts()
+        layer(xg).backward(dy)
+        torch.cuda.synchronize()
+        used = launch_counts()
+        xc = x.cpu().requires_grad_()
+        cpu_layer(xc).backward(dy.cpu())
+        got, want = xg.grad.float().cpu(), xc.grad.float()
+        rec = {"phase": "kernels", "check": "straight-through dx",
+               "mode": mode, "shape": list(STE_SHAPE),
+               "max_abs_err": (got - want).abs().max().item(),
+               "bar": 2.0 ** -7 * want.abs().max().item(),
+               "rel_l2_err": ((got - want).norm() / want.norm()).item(),
+               "finite": bool(torch.isfinite(got).all()),
+               "launches": used, "launches_expected": want_used}
+        emit(rec)
+        if not (rec["finite"] and rec["max_abs_err"] <= rec["bar"]
+                and used == want_used):
+            raise AssertionError(f"the {mode} straight-through dx on the "
+                                 f"card disagrees with the CPU's: {rec}")
+
+
 # ----------------------------------------------------------- text2image
 
 MODEL = "x2i-internvl2.5-1b"
@@ -1405,7 +1535,8 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_fwd_lse": 0, "flash_chunked": 0, "flash_bwd_dq": 0,
                "flash_bwd_dkv": 0, "ln_mod": 0, "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0,
-               "w4a8_gemm": 0, "w4_dequant": 0}
+               "w4a8_gemm": 0, "w4_dequant": 0, "int8_dequant": 0,
+               "w4a8_dequant": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
@@ -1787,6 +1918,41 @@ DISTILL_LAUNCHES = dict(NO_LAUNCHES, flash_fwd_pipe=57, flash_fwd_lse=114,
                         flash_bwd_dq=57, flash_bwd_dkv=57, flash_fwd=24)
 
 
+def quantized_step_launches(n2: int, n1: int, mode: str = "w8a8"):
+    """The launches of a quantized DiT's kernels (K8, the GEMM and the
+    dequantize kernel of ``mode``) in one training step over n2 double and
+    n1 single blocks, remat on, the glue unfused: -> (the student's
+    forward and backward under the KD loss, the same after the teacher's
+    forward, a phase-2 step under the velocity's MSE), each {name: count}.
+
+    Every dense layer quantizes its rows (K8) and runs the GEMM once per
+    forward: 14 in a double block, 6 in a single, 8 outside the blocks
+    (x, context, time in/out, pooled in/out, norm_out, proj_out); under
+    remat each block runs again in the backward. The backward dequantizes
+    the weight of each layer whose input needs a gradient and whose
+    output reaches the loss: under the KD loss every block's layers but
+    the last single block's mlp_in and out (they reach only the
+    velocity), and context, pooled in and out (the latents and the
+    timestep need none; norm_out and proj_out reach only the velocity).
+    In phase 2 the gradient starts at the first double block's control:
+    that block runs once and dequantizes nothing; the second dequantizes
+    its image q, k, v, both attention outs and both MLPs (9: its text
+    q, k, v read no control yet), the others their 12 layers but the two
+    adaLN rows (temb needs no gradient), each single block its 5 but the
+    adaLN rows, and proj_out."""
+    gemm = "w4a8_gemm" if mode == "w4a8" else "int8_gemm"
+    deq = "w4a8_dequant" if mode == "w4a8" else "int8_dequant"
+    blocks = 14 * n2 + 6 * n1
+
+    def counts(fwd, bwd):
+        return {"quant_rows": fwd, gemm: fwd, deq: bwd}
+
+    return (counts(8 + 2 * blocks, blocks + 1),
+            counts(blocks + 8 + 8 + 2 * blocks, blocks + 1),
+            counts(8 + 14 + 2 * (blocks - 14),
+                   9 + 12 * (n2 - 2) + 5 * n1 + 1))
+
+
 def phase_distill(pipe, lm, seed: int, card: str):
     """Phase-1 distillation at full width and depth, batch 1, bf16, on the
     pipeline's DiT and LM weights (the DiT set to the trainer's config:
@@ -1854,14 +2020,18 @@ def phase_distill(pipe, lm, seed: int, card: str):
     return steps[-1]["launches"], summary
 
 
-def check_distill_routes(seed: int):
+def check_distill_routes(seed: int, mode=False):
     """The conditioning gradient of the KD loss on a full-width DiT cut to
     2 double + 2 single blocks, at the training point (4096 image + 512
     text tokens, sigma 1), the trainer's config, through the kernel route
     (K1 with the lse, K3, K4) and through the plain attention on the same
     bf16 weights and teacher stacks. The two round at other points (the
     plain route keeps p and ds in f32), so they agree to bf16 accuracy:
-    correlation above 0.99, relative L2 error below 5e-2."""
+    correlation above 0.99, relative L2 error below 5e-2. With ``mode``
+    "w8a8" the DiT is quantized (drawn weights quantized), the kernel
+    route adds K8, the int8 GEMM forward and the int8 dequantize kernel's
+    straight-through backward, the plain route their plain versions
+    (``quant_impl="plain"``), on the same int8 weights."""
     import dataclasses
 
     import torch
@@ -1873,11 +2043,12 @@ def check_distill_routes(seed: int):
     dev = torch.device("cuda")
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
                                num_single_layers=2, remat=True,
-                               rope_in_kernel=False)
+                               rope_in_kernel=False, quantized=mode)
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     kern = random_init_(FluxTransformer2D(base, dev), g).requires_grad_(False)
     plain = FluxTransformer2D(dataclasses.replace(
-        base, attention_impl="plain"), dev).requires_grad_(False)
+        base, attention_impl="plain", quant_impl="plain"),
+        dev).requires_grad_(False)
     plain.load_state_dict(kern.state_dict())
 
     def rnd(*shape):
@@ -1909,7 +2080,10 @@ def check_distill_routes(seed: int):
     corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
     want_used = dict(NO_LAUNCHES, flash_fwd_lse=8, flash_bwd_dq=4,
                      flash_bwd_dkv=4)
-    rec = {"phase": "distill-reference", "blocks": [2, 2],
+    if mode:
+        want_used.update(quantized_step_launches(2, 2)[0])
+    rec = {"phase": f"distill-{mode}-reference" if mode
+           else "distill-reference", "blocks": [2, 2],
            "tokens": [4096, 512], "grad_rel_l2_err": rel, "grad_corr": corr,
            "grad_norm": want.norm().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -2251,20 +2425,361 @@ def check_lightcontrol_routes(seed: int):
                              f"disagrees with the plain route: {rec}")
 
 
-def phase_w8a8(pipe, bf16_pixels, seed: int, control):
-    """The bf16 DiT quantized in place to w8a8 (its bf16 weights freed
-    layer by layer; LM, proj and VAE stay bf16), then the same image; then
-    the same image with LightControl's ``control`` = (config, bank,
-    guidance image) of ``phase_lightcontrol``, with the same counts.
-    -> (the launches of each)."""
+# ------------------------------------------------------------ train-resume
+
+# JAX's single-chip phase-1 operating point (x2i_tpu/train/single_chip.py):
+# a w8a8 DiT, inline KD, int8 KD stacks, 8-bit AdamW; per step the flash
+# kernels of the bf16 step and the quantized DiT's (see
+# quantized_step_launches)
+TRAIN_RESUME_LAUNCHES = dict(DISTILL_LAUNCHES,
+                             **quantized_step_launches(19, 38)[1])
+# a phase-2 step on a quantized DiT with a text2image conditioning (K1b in
+# the LM's 24 layers only)
+LIGHTCONTROL_W8A8_LAUNCHES = dict(LIGHTCONTROL_LAUNCHES, flash_fwd=24,
+                                  **quantized_step_launches(19, 38)[2])
+LIGHTCONTROL_W4A8_LAUNCHES = dict(
+    LIGHTCONTROL_LAUNCHES, flash_fwd=24,
+    **quantized_step_launches(19, 38, "w4a8")[2])
+RESUME_STEPS, RESUME_AT = 4, 2
+
+
+def _repeat(batch):
+    while True:
+        yield batch
+
+
+def _tree_bytes_equal(a, b) -> bool:
+    """Two ``checkpointing.to_tree`` trees equal bit for bit (tensors
+    compared as bytes, so that -0 and 0, or two NaNs, are told apart)."""
     import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.uint8),
+                                b.contiguous().view(torch.uint8)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_bytes_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_tree_bytes_equal, a, b))
+    return a == b
+
+
+def _tree_max_diff(a, b) -> float:
+    """The largest absolute difference between two trees' float tensors."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (a.float() - b.float()).abs().max().item() if a.numel() \
+            else 0.0
+    if isinstance(a, dict):
+        return max([_tree_max_diff(a[k], b[k]) for k in a] or [0.0])
+    if isinstance(a, list):
+        return max([_tree_max_diff(x, y) for x, y in zip(a, b)] or [0.0])
+    return 0.0 if a == b else math.inf
+
+
+def phase_train_resume(pipe, lm, seed: int, card: str):
+    """Training runs that resume, at JAX's single-chip phase-1 operating
+    point: the pipeline's DiT quantized in place to w8a8
+    (``quantize_module_``, as the w8a8 image then uses it) in the
+    trainer's config, the same LM, T5-XXL and CLIP-L drawn on the card,
+    ``DistillConfig(inline_kd, kd_stacks_int8, use_8bit_adam,
+    lr_warmup_steps=1)``, batch 1, 128 x 128 latents, each step teacher
+    then student through ``TrainLoop`` with checkpoints every 2 steps in
+    a temporary directory. Run A: 4 steps unbroken, every launch count
+    set to 0 just before each step and read just after (exact), s/step
+    (steps 2-4), the teacher's and the student's s, peak memory after the
+    first step. Run B: from the same initial state 2 steps, then a new
+    TrainLoop on its directory, which must log the resume at step 2, to
+    step 4: the proj and the 8-bit optimizer state bit for bit run A's
+    (if they were not, a second unbroken run A' would set the bar: B no
+    further from A than A' is). Then the w8a8 gradient route check, the
+    phase-2 step with 8-bit AdamW on the same w8a8 DiT
+    (``phase_lightcontrol_quant``) and the training command line
+    (``check_train_cli``). -> (run A's last launches, the quantize s, the
+    phase-2 launches)."""
+    import gc
+    import logging
+    import os
+    import tempfile
+
+    import torch
+    from x2i_torch.core.checkpointing import fill, to_tree
+    from x2i_torch.core.config import DistillConfig
     from x2i_torch.ops.quant import quantize_module_
+    from x2i_torch.train.harness import build_random_distill
+    from x2i_torch.train.optim8bit import state_bytes
+    from x2i_torch.train.runner import TrainLoop
 
     t0 = time.perf_counter()
     quantize_module_(pipe.flux, "w8a8")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    quant_s = time.perf_counter() - t0
+    quantize_s = time.perf_counter() - t0
+    dcfg = DistillConfig(inline_kd=True, kd_stacks_int8=True,
+                         use_8bit_adam=True, lr_warmup_steps=1)
+    t0 = time.perf_counter()
+    (teacher_fn, student_fn), state, batch, parts = build_random_distill(
+        "full", seed, flux=pipe.flux, lm=lm, dcfg=dcfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sections = {}
+    teacher = timed(teacher_fn, sections, "teacher_s")
+    student = timed(student_fn, sections, "student_s")
+
+    def step_fn(st, b, noise):
+        return student(st, b, teacher(b, noise), noise)
+
+    run = {"name": "A"}
+    steps = []
+
+    def on_metrics(step, metrics):
+        counts = launch_counts()
+        rec = {"phase": "train-resume", "run": run["name"], "step": step + 1,
+               **sections, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": parts["optimizer"].learning_rate(step),
+               "launches": counts}
+        emit(rec)
+        steps.append(rec)
+        if run["name"] == "A" and step == 0:
+            torch.cuda.reset_peak_memory_stats()
+        sections.clear()
+        reset_counts()
+        if not (math.isfinite(rec["loss"]) and rec["grad_norm"] > 0
+                and math.isfinite(rec["grad_norm"])
+                and counts == TRAIN_RESUME_LAUNCHES):
+            raise AssertionError(f"w8a8 training step {step + 1} is wrong: "
+                                 f"{rec} (launches expected "
+                                 f"{TRAIN_RESUME_LAUNCHES})")
+
+    said = []
+    grab = logging.Handler()
+    grab.emit = lambda r: said.append(r.getMessage())
+    logger = logging.getLogger("x2i_torch.train")
+    logger.addHandler(grab)
+    logger.setLevel(logging.INFO)
+    init = to_tree(state)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def loop(name, directory):
+                run["name"] = name
+                sections.clear()
+                reset_counts()
+                return TrainLoop(step_fn, fill(state, init), _repeat(batch),
+                                 seed=seed, on_metrics=on_metrics,
+                                 checkpoint_dir=os.path.join(tmp, directory),
+                                 checkpointing_steps=RESUME_AT)
+
+            a = loop("A", "A")
+            out_a = a.run(RESUME_STEPS)
+            peak = torch.cuda.max_memory_allocated()
+            tree_a = to_tree(a.state)
+            opt_bytes = state_bytes(a.state.opt_state)
+            ckpt_bytes = sum(
+                os.path.getsize(os.path.join(tmp, "A", str(RESUME_STEPS), f))
+                for f in os.listdir(os.path.join(tmp, "A",
+                                                 str(RESUME_STEPS))))
+            del a
+            loop("B", "B").run(RESUME_AT)
+            said.clear()
+            b = loop("B", "B")
+            resumed_at = b.state.step
+            b.run(RESUME_STEPS)
+            tree_b = to_tree(b.state)
+            del b
+            bit_for_bit = _tree_bytes_equal(tree_a, tree_b)
+            bar = None
+            if not bit_for_bit:
+                a2 = loop("A'", "A2")
+                a2.run(RESUME_STEPS)
+                bar = _tree_max_diff(to_tree(a2.state), tree_a)
+                del a2
+    finally:
+        logger.removeHandler(grab)
+    timed_a = [r for r in steps if r["run"] == "A"][1:]
+    n_params = sum(p.numel() for p in state.proj.parameters())
+    summary = {"phase": "train-resume-summary", "model": MODEL,
+               "quantized": "w8a8", "inline_kd": True,
+               "kd_stacks_int8": True, "use_8bit_adam": True,
+               "latents": [128, 128], "tokens": [4096, 512], "batch": 1,
+               "quantize_s": quantize_s, "build_s": build_s,
+               "s_per_step": out_a["timing"]["mean_s"],
+               "steps_s": [r["teacher_s"] + r["student_s"]
+                           for r in timed_a],
+               "teacher_s": statistics.mean(r["teacher_s"] for r in timed_a),
+               "student_s": statistics.mean(r["student_s"] for r in timed_a),
+               "max_memory_allocated": peak,
+               "launches_per_step": TRAIN_RESUME_LAUNCHES,
+               "proj_values": n_params, "opt_state_bytes": opt_bytes,
+               "opt_state_bytes_two_f32_moments": 8 * n_params,
+               "checkpoint_bytes": ckpt_bytes,
+               "resumed_at_step": resumed_at,
+               "resume_logged": f"resumed from step {RESUME_AT}" in said,
+               "resume_bit_for_bit": bit_for_bit,
+               "resume_max_abs_diff": (0.0 if bit_for_bit else
+                                       _tree_max_diff(tree_a, tree_b)),
+               "unbroken_rerun_max_abs_diff": bar, "card": card}
+    emit(summary)
+    if not (resumed_at == RESUME_AT and summary["resume_logged"]
+            and (bit_for_bit or summary["resume_max_abs_diff"] <= bar)):
+        raise AssertionError(f"the resumed run is not the unbroken one: "
+                             f"{summary}")
+    launches = [r for r in steps if r["run"] == "A"][-1]["launches"]
+    del state, parts, batch, teacher_fn, student_fn, teacher, student
+    del tree_a, tree_b, init
+    pipe.flux.replace_config(remat=False, rope_in_kernel=True,
+                             fused_glue=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_distill_routes(seed, "w8a8")
+    lc_launches = phase_lightcontrol_quant(
+        pipe, seed, card, "lightcontrol-train-w8a8",
+        LIGHTCONTROL_W8A8_LAUNCHES, steps=3)
+    check_train_cli()
+    return launches, quantize_s, lc_launches
+
+
+def phase_lightcontrol_quant(pipe, seed: int, card: str, label: str,
+                             want: dict, steps: int):
+    """The phase-2 step at full width on the pipeline's quantized DiT (the
+    trainer's config, set back after), VAE, LM and proj, with 8-bit AdamW
+    (``LightControlConfig(use_8bit_adam=True)``, no accumulation), the
+    19-branch bank drawn on the card and a text2image conditioning: one
+    warm-up and ``steps - 1`` timed steps, every launch count set to 0 just
+    before each step and read just after (exact: ``want``), each split
+    into the VAE encode, the conditioning, the optimizer and the rest.
+    Checks: loss and grad norm finite, grad norm > 0, the bank moved by
+    every step. -> the last step's launches."""
+    import gc
+
+    import torch
+    from x2i_torch.core.config import LightControlConfig
+    from x2i_torch.train.harness import build_random_lightcontrol
+    from x2i_torch.train.lightcontrol import make_lightcontrol_step
+    from x2i_torch.train.optim8bit import state_bytes
+    from x2i_torch.train.runner import step_noise
+
+    t0 = time.perf_counter()
+    _, state, batch, parts = build_random_lightcontrol(
+        "full", seed, pipe=pipe, ccfg=LightControlConfig(
+            gradient_accumulation_steps=1, use_8bit_adam=True))
+    sections = {}
+    opt = parts["optimizer"]
+    opt.update = timed(opt.update, sections, "optimizer_s")
+    step = make_lightcontrol_step(
+        parts["flux"], timed(parts["vae_encode"], sections, "vae_encode_s"),
+        timed(parts["conditioning_fn"], sections, "conditioning_s"),
+        parts["flux_cfg"], parts["ccfg"], parts["sched_cfg"], opt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    recs = []
+    for i in range(steps):
+        before = [p.detach().clone() for p in state.bank.parameters()]
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        sections.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, step_noise(seed, i))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_s = time.perf_counter() - t0
+        counts = launch_counts()
+        moved = sum(int((p.detach() != b).sum()) for p, b in
+                    zip(state.bank.parameters(), before))
+        rec = {"phase": label, "step": i + 1, "warmup": i == 0,
+               "step_s": step_s, **sections,
+               "bank_dit_fwd_bwd_s": step_s - sum(sections.values()),
+               "loss": loss, "grad_norm": gnorm,
+               "bank_values_moved": moved, "launches": counts}
+        emit(rec)
+        recs.append(rec)
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+                and moved > 0 and counts == want):
+            raise AssertionError(f"{label} step {i + 1} is wrong: {rec} "
+                                 f"(launches expected {want})")
+    timed_steps = recs[1:]
+    keys = ("step_s", "vae_encode_s", "conditioning_s", "bank_dit_fwd_bwd_s",
+            "optimizer_s")
+    bank_values = sum(p.numel() for p in state.bank.parameters())
+    emit({"phase": f"{label}-summary", "model": MODEL, "px": 1024,
+          "quantized": parts["flux_cfg"].quantized, "use_8bit_adam": True,
+          "batch": 1, "build_s": build_s,
+          **{k: statistics.mean(r[k] for r in timed_steps) for k in keys},
+          "steps_s": [r["step_s"] for r in timed_steps],
+          "bank_values": bank_values,
+          "opt_state_bytes": state_bytes(state.opt_state),
+          "opt_state_bytes_bf16_moments": 4 * bank_values,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_step": want, "card": card})
+    del state, parts, batch, step, opt
+    pipe.flux.replace_config(remat=False, rope_in_kernel=True,
+                             fused_glue=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs[-1]["launches"]
+
+
+def check_train_cli():
+    """``python -m x2i_torch.train.cli`` on the card (its default device)
+    in subprocesses, as a user starts a run: ``distill --tiny --synthetic``
+    for 4 steps with checkpoints every 2, then again to 6 steps on the
+    same output directory, which must resume from step 4; the
+    ``lightcontrol --tiny`` subcommand for 2 steps beside the first. Each
+    must exit 0 and leave its last step's directory."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def start(*args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "x2i_torch.train.cli", *args], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out_d, out_lc = os.path.join(tmp, "distill"), os.path.join(
+                tmp, "lc")
+            distill = ("distill", "--tiny", "--synthetic",
+                       "--checkpointing_steps", "2", "--output_dir", out_d)
+            procs.append(start("lightcontrol", "--tiny", "--max_train_steps",
+                               "2", "--output_dir", out_lc))
+            procs.append(start(*distill, "--max_train_steps", "4"))
+            first = procs[-1].communicate(timeout=300)
+            procs.append(start(*distill, "--max_train_steps", "6"))
+            second = procs[-1].communicate(timeout=300)
+            lc = procs[0].communicate(timeout=300)
+            rec = {"phase": "train-cli", "seconds": time.perf_counter() - t0,
+                   "exit_codes": [p.returncode for p in procs],
+                   "distill_steps": sorted(os.listdir(out_d)),
+                   "lightcontrol_steps": sorted(os.listdir(out_lc)),
+                   "resumed_from_step_4": "resumed from step 4" in second[1],
+                   "final": [o[0].strip().splitlines()[-1:]
+                             for o in (first, second, lc)]}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit(rec)
+    if not (rec["exit_codes"] == [0, 0, 0] and rec["resumed_from_step_4"]
+            and "6" in rec["distill_steps"]
+            and "2" in rec["lightcontrol_steps"]):
+        raise AssertionError(f"the training command line failed: {rec}\n"
+                             f"{first[1][-2000:]}\n{second[1][-2000:]}\n"
+                             f"{lc[1][-2000:]}")
+
+
+def phase_w8a8(pipe, bf16_pixels, seed: int, control, quant_s: float):
+    """The DiT quantized in place to w8a8 by ``phase_train_resume`` (its
+    bf16 weights freed layer by layer in ``quant_s``; LM, proj and VAE
+    stay bf16) makes the same image; then the same image with
+    LightControl's ``control`` = (config, bank, guidance image) of
+    ``phase_lightcontrol``, with the same counts. -> (the launches of
+    each)."""
     want = expected_launches("w8a8", 4)
     rec, pixels, counts = run_image(pipe, seed, "text2image-w8a8", want)
     ref = bf16_pixels.float()
@@ -4340,7 +4855,7 @@ def phase_tts(spk, stream_s: float, seed: int, card: str):
 
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
 # whose launches it reports -- one image, one 32k-token encode, or one
-# timed distillation step --, the record whose times it reports)
+# timed training step --, the record whose times it reports)
 KERNEL_TABLE = (
     ("flash_fwd_rope", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "bf16", 0),
     ("flash_fwd", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "bf16", 0),
@@ -4363,6 +4878,10 @@ KERNEL_TABLE = (
      GEMM_MAIN),
     ("w4_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:153", "w4",
      DEQUANT_MAIN),
+    ("int8_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:77",
+     "train-resume", DEQUANT_MAIN),
+    ("w4a8_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:359",
+     "lightcontrol-train-w4a8", DEQUANT_MAIN),
 )
 
 
@@ -4403,11 +4922,17 @@ def main(argv=None) -> int:
     launches_lc, control = phase_lightcontrol(pipe, bf16_pixels, args.seed,
                                               smi)
     launches_lc_train, _ = phase_lightcontrol_train(pipe, lm, args.seed, smi)
+    launches_resume, quantize_s, launches_lc_train_w8a8 = phase_train_resume(
+        pipe, lm, args.seed, smi)
     launches_w8a8, launches_lc_w8a8 = phase_w8a8(pipe, bf16_pixels,
-                                                 args.seed, control)
+                                                 args.seed, control,
+                                                 quantize_s)
     del control
     launches_w4a8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
                                 "w4a8")
+    launches_lc_train_w4a8 = phase_lightcontrol_quant(
+        pipe, args.seed, smi, "lightcontrol-train-w4a8",
+        LIGHTCONTROL_W4A8_LAUNCHES, steps=2)
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
@@ -4418,6 +4943,9 @@ def main(argv=None) -> int:
             "lightcontrol": launches_lc,
             "lightcontrol-w8a8": launches_lc_w8a8,
             "lightcontrol-train": launches_lc_train,
+            "train-resume": launches_resume,
+            "lightcontrol-train-w8a8": launches_lc_train_w8a8,
+            "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "long-prompt": launches_long, **launches_ckpt,
             **launches_registry}
 

@@ -108,13 +108,16 @@ def test_flash_libraries_gate_their_wgmma_kernels():
 
 def test_gemm_library_gates_its_wgmma_kernel():
     """The int8 GEMM and the w4a8 GEMM are built on wgmma; the w4
-    dequantize kernel beside them is gated too."""
+    dequantize kernel and the straight-through backward's int8 and w4a8
+    dequantize kernels beside them are gated too."""
     from x2i_torch.ops import int8_gemm as tgemm
     assert tgemm.GEMM.wgmma_kernels == ("int8_gemm_kernel",
                                         "w4a8_gemm_kernel")
     assert tgemm.GEMM.gated_kernels == ("int8_gemm_kernel",
                                         "w4a8_gemm_kernel",
-                                        "w4_dequant_kernel")
+                                        "w4_dequant_kernel",
+                                        "int8_dequant_kernel",
+                                        "w4a8_dequant_kernel")
 
 
 # the instances of K2 (D, masked) and of the int8 GEMM (acc_only), named

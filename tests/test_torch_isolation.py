@@ -1,5 +1,6 @@
 """The port stands alone: nothing under x2i_torch/, and not chip_smoke.py,
-imports jax, flax or the JAX package (x2i_tpu), at any level of a module;
+imports jax, flax, optax, orbax or the JAX package (x2i_tpu), at any level
+of a module;
 and, every kernel of the port being CUDA C++, none imports triton. The
 machine with the card has no safetensors and no transformers: the port
 reads safetensors itself and imports neither package when a module is
@@ -16,7 +17,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "x2i_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "x2i_tpu")
 FILES = sorted((ROOT / "x2i_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -61,6 +62,8 @@ def test_the_port_has_modules_to_check():
             "x2i_torch/models/controlnext.py",
             "x2i_torch/train/lightcontrol.py", "x2i_torch/train/optim.py",
             "x2i_torch/models/vae.py", "x2i_torch/convert/load.py",
+            "x2i_torch/core/checkpointing.py", "x2i_torch/core/profiling.py",
+            "x2i_torch/train/optim8bit.py", "x2i_torch/train/cli.py",
             "chip_smoke.py"} <= names
 
 

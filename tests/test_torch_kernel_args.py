@@ -1,7 +1,8 @@
 """The argument checks of the port's CUDA kernel wrappers, on the CPU: the
 shapes and layouts that the chunked flash forward K2
 (``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``), the
-w4a8 GEMM and the w4 dequantize kernel (``ops/int4_gemm.py``) and the
+w4a8 GEMM and the w4 dequantize kernel (``ops/int4_gemm.py``), the
+straight-through backward's int8 and w4a8 dequantize kernels and the
 row glue kernels K5-K8 (``ops/fused_glue.py``) take, and the width ->
 instance choice of K7 and K8. The checks are plain functions of
 shapes, strides and addresses, so they run here without a card; the
@@ -192,6 +193,30 @@ def test_w4_dequant_args(case):
     else:
         with pytest.raises(ValueError, match="unsupported"):
             t4.check_dequant_args(*args)
+
+
+# (N, bytes a row, row stride, start address) -> legal for the
+# straight-through backward's dequantize kernels (int8: in bytes a row;
+# w4a8: in/2)
+GRAD_DEQUANT_ARGS = {
+    "3072 -> 12288": ((12288, 3072, 3072, 0), True),
+    "12288 -> 3072": ((3072, 12288, 12288, 0), True),
+    "x_embedder, w4a8": ((3072, 32, 32, 64), True),
+    "width % 8": ((8, 36, 48, 0), False),
+    "row stride % 8": ((8, 32, 36, 0), False),
+    "start % 8": ((8, 32, 32, 4), False),
+    "no rows": ((0, 32, 32, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAD_DEQUANT_ARGS))
+def test_grad_dequant_args(case):
+    args, legal = GRAD_DEQUANT_ARGS[case]
+    if legal:
+        tgemm.check_dequant_rows(*args, "int8 dequantize kernel")
+    else:
+        with pytest.raises(ValueError, match="unsupported"):
+            tgemm.check_dequant_rows(*args, "int8 dequantize kernel")
 
 
 # (D, rows, (size, stride) of each dim that walks rows, row start

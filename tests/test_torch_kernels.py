@@ -41,7 +41,10 @@ bf16 step. The w4a8 GEMM (``ops/int4_gemm.py``) the same, on the edges
 of its packed steps (128 packed bytes give a low and a high K step: a
 chunk in one half, a chunk across it, in/2 of 32 and of 128 bytes, rings
 that wrap, groups of 32 and 48); the w4 dequantize kernel bit for bit
-(one rounding of a product that is exact in f32).
+(one rounding of a product that is exact in f32), and so the
+straight-through backward's int8 and w4a8 dequantize kernels; a
+QuantLinear's straight-through dx in each mode within one bf16 step of
+the largest value of the CPU's (f32 sums in cuBLAS's order).
 """
 
 import math
@@ -1107,6 +1110,77 @@ def test_w4_dequant_kernel_bit_for_bit(dev, n, inn, groups):
     assert tgemm.GEMM.launches["w4_dequant"] == before + 1
     assert got.dtype == BF and torch.equal(got,
                                            t4.w4_dequant_plain(pw, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,inn,groups", [(3072, 3072, 24), (12288, 3072, 24),
+                                          (3072, 12288, 96), (3072, 64, 2),
+                                          (96, 96, 8), (200, 15360, 120)])
+def test_grad_dequant_kernels_bit_for_bit(dev, n, inn, groups):
+    """The straight-through backward's dequantize kernels equal their
+    plain versions bit for bit: int8 codes and w4a8 (half-split codes, a
+    multiplier per group: the DiT's group of 128, x_embedder's 32, a group
+    of 12 whose 8-input chunks cross groups); each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(n + inn)
+    q = torch.randint(-127, 128, (n, inn), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device=dev) / 100
+    before = tgemm.GEMM.launches["int8_dequant"]
+    got = tgemm.int8_dequant(q, scale)
+    assert tgemm.GEMM.launches["int8_dequant"] == before + 1
+    assert got.dtype == BF and torch.equal(
+        got, tgemm.int8_dequant_plain(q, scale))
+    pw = torch.randint(-128, 128, (n, inn // 2), generator=g, device=dev,
+                       dtype=torch.int8)
+    m = torch.randint(1, 16, (groups, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    before = tgemm.GEMM.launches["w4a8_dequant"]
+    got = t4.w4a8_dequant(pw, m, scale)
+    assert tgemm.GEMM.launches["w4a8_dequant"] == before + 1
+    assert got.dtype == BF and torch.equal(
+        got, t4.w4a8_dequant_plain(pw, m, scale))
+
+
+@pytest.mark.cuda
+def test_grad_dequant_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros((8, 36), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        tgemm.int8_dequant(q, torch.ones(8, device=dev))
+    with pytest.raises(ValueError, match="bf16"):
+        tgemm.int8_dequant(q[:, :32], torch.ones(8, device=dev),
+                           torch.float32)
+    pw = torch.zeros((8, 48), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="groups"):
+        t4.w4a8_dequant(pw, torch.ones((5, 8), dtype=torch.int8,
+                                       device=dev), torch.ones(8, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["w8a8", "w8", "w4", "w4a8"])
+def test_straight_through_dx_on_the_card(dev, mode):
+    """A bf16 QuantLinear's dx through the kernels (the GEMM and K8
+    forward, the dequantize kernel backward) against the same layer on
+    the CPU: the same bf16 weight and dy, f32 sums in another order, so
+    within one bf16 step of the largest value."""
+    import copy
+
+    from x2i_torch.ops.quant import QuantLinear
+    g = torch.Generator(device=dev).manual_seed(3)
+    lin = torch.nn.Linear(512, 256, dtype=BF, device=dev)
+    layer = QuantLinear.from_linear(lin, mode)
+    cpu_layer = copy.deepcopy(layer).cpu()
+    x = _randn(g, dev, 2, 40, 512)
+    dy = _randn(g, dev, 2, 40, 256)
+    key = {"w4": "w4_dequant", "w4a8": "w4a8_dequant"}.get(mode,
+                                                           "int8_dequant")
+    before = tgemm.GEMM.launches[key]
+    xg = x.clone().requires_grad_()
+    layer(xg).backward(dy)
+    assert tgemm.GEMM.launches[key] == before + (2 if mode == "w4" else 1)
+    xc = x.cpu().requires_grad_()
+    cpu_layer(xc).backward(dy.cpu())
+    got, want = xg.grad.float().cpu(), xc.grad.float()
+    assert (got - want).abs().max() <= 2.0 ** -7 * want.abs().max()
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.params import load_flax_bank
 from x2i_torch.pipeline import build_random_pipeline
 from x2i_torch.train import harness as tharness
+from x2i_torch.train.optim8bit import AdamW8bit
 
 
 @pytest.fixture(scope="module")
@@ -138,8 +139,10 @@ def test_tiny_batch_is_the_jax_harness_batch():
 
 def test_step_takes_a_seed_and_refuses_what_is_not_ported():
     """An int seeds the step's draws on the device (the same int, the same
-    step); 8-bit AdamW raises; a glue kernel reached under autograd
-    raises instead of giving way to the plain glue."""
+    step); 8-bit AdamW builds, with f8 moments (train/optim8bit.py, its
+    step in tests/test_torch_optim8bit.py and test_torch_runner.py); a
+    glue kernel reached under autograd raises instead of giving way to the
+    plain glue."""
     outs = []
     for _ in range(2):
         step, state, batch, _ = tharness.build_tiny_lightcontrol(
@@ -149,9 +152,10 @@ def test_step_takes_a_seed_and_refuses_what_is_not_ported():
                                         for p in state.bank.parameters()]))
     assert np.isfinite(outs[0][0]) and outs[0][0] == outs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
-    with pytest.raises(NotImplementedError, match="8-bit"):
-        tharness.build_tiny_lightcontrol(batch_size=1, device="cpu",
-                                         use_8bit_adam=True)
+    _, state8, _, parts8 = tharness.build_tiny_lightcontrol(
+        batch_size=1, device="cpu", use_8bit_adam=True)
+    assert isinstance(parts8["optimizer"], AdamW8bit)
+    assert state8.opt_state.mu[0].dtype == torch.float8_e4m3fn
     step, state, batch, parts = tharness.build_tiny_lightcontrol(
         batch_size=1, device="cpu")
     parts["flux"].replace_config(fused_glue=True)

@@ -337,8 +337,7 @@ class GenerationConfig:
 @dataclass(frozen=True)
 class DistillConfig:
     """Phase-1 attention-distillation operating point (the JAX
-    ``DistillConfig``). ``use_8bit_adam`` is not ported: the optimizer
-    raises on it."""
+    ``DistillConfig``)."""
 
     learning_rate: float = 1e-4
     lr_scheduler: str = "cosine"
@@ -371,17 +370,24 @@ class LightControlConfig:
     ``control_bank_impl``: "scan" runs the branches one after another,
     each under ``torch.utils.checkpoint`` when gradients are taken (the
     peak holds one branch's activations); "vmap" runs the same loop
-    without it. ``use_8bit_adam`` is not ported: the optimizer raises on
-    it."""
+    without it. ``max_train_steps``, ``train_batch_size``,
+    ``weighting_scheme``, ``checkpointing_steps`` and ``seed`` are the
+    JAX config's run settings: no step reads them, as in JAX (the
+    command line takes its own flags)."""
 
     learning_rate: float = 1e-5
+    max_train_steps: int = 2_000_000
+    train_batch_size: int = 1
     gradient_accumulation_steps: int = 8
     max_grad_norm: float = 1.0
     num_controls: int = 19           # one ControlNeXt per double block
     control_bank_impl: str = "scan"
-    use_8bit_adam: bool = False
+    use_8bit_adam: bool = False      # train/optim8bit.py's moments
     logit_mean: float = 0.0          # the timestep's logit-normal density
     logit_std: float = 1.0
+    weighting_scheme: str = "logit_normal"
+    checkpointing_steps: int = 1000
+    seed: int = 42
 
 
 @dataclass(frozen=True)

@@ -94,6 +94,23 @@
 // holds inputs 2j low and 2j + 1 high) times bf16(scale[g, n]), rounded
 // once to bf16, into the (N, in) weight that cuBLAS then multiplies. It
 // moves bytes only: a thread reads 4 packed bytes and writes 8 bf16.
+//
+// The two dequantize kernels of the straight-through backward
+// (int8_dequant_kernel, w4a8_dequant_kernel) replace the dequantize of
+// x2i_tpu/ops/quant.py's custom_vjp backwards, XLA on the TPU:
+// _w8a8_bwd's (:77, shared by w8_matmul) qk.astype(x_dtype) *
+// scale.astype(x_dtype), and _w4a8_bwd's (:359)
+// _w4a8_weight_int8(pk, mscale).astype(x_dtype) * scale.astype(x_dtype).
+// Each writes the (N, in) bf16 weight that cuBLAS then multiplies the
+// output gradient by: dx = dy @ W. int8: code (N, in) times
+// bf16(scale[n]); w4a8: the half-split int4 code times its (group, n)
+// multiplier m (|code x m| <= 105, an exact integer) times bf16(scale[n]).
+// Both factors are exact in bf16 and their product is exact in f32 (8 + 8
+// significant bits), so one rounding to bf16 gives the bf16 product of
+// PyTorch and of XLA bit for bit. Like w4_dequant_kernel they move bytes
+// only (1 or 1/2 byte in, 2 out per weight): a thread reads 8 bytes of a
+// row and writes 8 bf16 per 16-byte store, one store for int8, two for
+// w4a8 (the low codes at the inputs j.. and the high ones at in/2 + j..).
 
 #include "hopper_mma.cuh"
 
@@ -625,6 +642,127 @@ extern "C" int x2i_w4_dequant(const void* pw, long long ldp,
   const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
   w4_dequant_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(pw), ldp, static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), n, half, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+             << 16;
+}
+
+// byte i (0..7) of the two words, as an unsigned value
+__device__ __forceinline__ int byte_of(const uint2& w, int i) {
+  return static_cast<int>(((i < 4 ? w.x : w.y) >> (8 * (i % 4))) & 0xFF);
+}
+
+// One thread: 8 int8 codes of a row -> 8 bf16, each code times the bf16
+// scale of the row, rounded once, in one 16-byte store.
+__global__ void __launch_bounds__(256) int8_dequant_kernel(
+    const int8_t* __restrict__ q, long long ldq,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int n,
+    int k) {
+  const int per_row = k / 8;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(n) * per_row) return;
+  const int row = static_cast<int>(idx / per_row);
+  const int c = static_cast<int>(idx % per_row);
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(q + row * ldq) + c);
+  const float s = __bfloat162float(__float2bfloat16_rn(__ldg(scale + row)));
+  uint32_t o[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    // a byte sign-extended: (byte ^ 0x80) - 0x80
+    const float lo = static_cast<float>((byte_of(w, 2 * b) ^ 0x80) - 0x80);
+    const float hi =
+        static_cast<float>((byte_of(w, 2 * b + 1) ^ 0x80) - 0x80);
+    o[b] = bf16_pair(__fmul_rn(lo, s), __fmul_rn(hi, s));
+  }
+  *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * k + 8 * c) =
+      make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// One thread: 8 packed bytes of a row (packed columns j..j+7) -> the 8
+// bf16 of the inputs j.. (low nibbles) and of the inputs in/2 + j.. (high
+// nibbles), each code times its multiplier m[group, row] times the bf16
+// scale of the row, rounded once, in two 16-byte stores.
+__global__ void __launch_bounds__(256) w4a8_dequant_kernel(
+    const int8_t* __restrict__ pw, long long ldp,
+    const int8_t* __restrict__ mscale, const float* __restrict__ scale,
+    __nv_bfloat16* __restrict__ out, int n, int half, int group) {
+  const int per_row = half / 8;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(n) * per_row) return;
+  const int row = static_cast<int>(idx / per_row);
+  const int c = static_cast<int>(idx % per_row);
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(pw + row * ldp) + c);
+  const float s = __bfloat162float(__float2bfloat16_rn(__ldg(scale + row)));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int in0 = 8 * c + h * half;
+    const bool one_group = in0 / group == (in0 + 7) / group;
+    const int m0 = __ldg(mscale + static_cast<long long>(in0 / group) * n +
+                         row);
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int b = byte_of(w, i);
+      const int code = (((h ? b >> 4 : b) & 0xF) ^ 8) - 8;
+      const int m =
+          one_group ? m0
+                    : __ldg(mscale +
+                            static_cast<long long>((in0 + i) / group) * n +
+                            row);
+      v[i] = __fmul_rn(static_cast<float>(code * m), s);
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * 2 * half +
+                              in0) =
+        make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                   bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+  }
+}
+
+unsigned blocks_of(long long threads) {
+  return static_cast<unsigned>((threads + 255) / 256);
+}
+
+}  // namespace
+
+// q (n, k) int8 with rows ldq bytes apart, scale (n,) f32, out (n, k) bf16;
+// k, ldq and q's address multiples of 8. Returns the cudaError_t of the
+// launch.
+extern "C" int x2i_int8_dequant(const void* q, long long ldq,
+                                const void* scale, void* out, int n, int k,
+                                void* stream) {
+  if (n < 1 || k < 8 || k % 8 || ldq % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int8_dequant_kernel<<<blocks_of(static_cast<long long>(n) * (k / 8)), 256,
+                        0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), ldq, static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pw (n, half) half-split packed with rows ldp bytes apart, mscale
+// (2 * half / group, n) int8, scale (n,) f32, out (n, 2 * half) bf16;
+// half, ldp and pw's address multiples of 8. Returns the cudaError_t of
+// the launch.
+extern "C" int x2i_w4a8_dequant(const void* pw, long long ldp,
+                                const void* mscale, const void* scale,
+                                void* out, int n, int half, int group,
+                                void* stream) {
+  if (n < 1 || half < 8 || half % 8 || ldp % 8 || group < 1 ||
+      (2 * half) % group)
+    return static_cast<int>(cudaErrorInvalidValue);
+  w4a8_dequant_kernel<<<blocks_of(static_cast<long long>(n) * (half / 8)),
+                        256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(pw), ldp,
+      static_cast<const int8_t*>(mscale), static_cast<const float*>(scale),
       static_cast<__nv_bfloat16*>(out), n, half, group);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,12 @@ differ in which inputs share a byte, so each has its own unpack:
   (``scale`` f32 (G, N)), rounded once, the JAX ``_dequant_w4`` in bf16.
   The dequantize kernel writes that (N, in) weight for ``F.linear``.
 
+The w4a8 dequantize kernel of the straight-through backward
+(``ops/quant.py``) writes the (N, in) weight ``bf16(code x m) *
+bf16(scale[n])``, rounded once, the JAX ``_w4a8_bwd``'s
+(``x2i_tpu/ops/quant.py:359``); the w4 backward takes the w4 dequantize
+kernel as it is.
+
 A nibble is sign-extended as ``((b & 0xF) ^ 8) - 8``. ``w4a8_linear`` and
 ``w4_dequant`` launch their kernels for CUDA tensors and take the plain
 versions for CPU tensors; there is no other fallback. Neither has a
@@ -39,7 +45,8 @@ from typing import Optional
 import torch
 
 from x2i_torch.ops.cuda_lib import refuse_grad
-from x2i_torch.ops.int8_gemm import (GEMM, check_gemm_layout,
+from x2i_torch.ops.int8_gemm import (GEMM, check_dequant_rows,
+                                     check_gemm_layout,
                                      int8_matmul_acc_plain, _check, _rows)
 
 W4A8_K_STEP = 16       # K, k0, in/2 and the group size: multiples of it
@@ -268,4 +275,59 @@ def w4_dequant(pweight: torch.Tensor, scale: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"w4 dequantize launch failed: cudaError_t {err}")
     GEMM.launches["w4_dequant"] += 1
+    return out
+
+
+def w4a8_dequant_plain(pweight: torch.Tensor, mscale: torch.Tensor,
+                       scale: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """(N, in/2) half-split packed, (G, N) multipliers, (N,) f32 scales ->
+    the (N, in) weight in dtype: code x m cast to dtype times the scale
+    cast to dtype, one product in dtype (the JAX ``_w4a8_bwd``'s)."""
+    return w4a8_codes(pweight, mscale).to(dtype) * scale.to(dtype)[:, None]
+
+
+def w4a8_dequant(pweight: torch.Tensor, mscale: torch.Tensor,
+                 scale: torch.Tensor, dtype=torch.bfloat16,
+                 impl: str = "auto") -> torch.Tensor:
+    """The (N, in) weight of w4a8 codes (N, in/2), multipliers (G, N) and
+    scales (N,): the kernel for a CUDA tensor (bf16 only),
+    ``w4a8_dequant_plain`` for a CPU one or with ``impl="plain"``. The
+    kernel counts in ``GEMM.launches["w4a8_dequant"]``."""
+    if impl != "plain":
+        refuse_grad("the w4a8 dequantize kernel", scale)
+    if impl == "plain" or pweight.device.type == "cpu":
+        return w4a8_dequant_plain(pweight, mscale, scale, dtype)
+    dev = pweight.device
+    _check("pweight", pweight, torch.int8, dev)
+    _check("mscale", mscale, torch.int8, dev)
+    _check("scale", scale, torch.float32, dev)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"w4a8 dequantize kernel: bf16 output only, got "
+                         f"{dtype}")
+    if pweight.dim() != 2 or pweight.stride(1) != 1 or mscale.dim() != 2 \
+            or mscale.shape[1] != pweight.shape[0] \
+            or not mscale.is_contiguous() \
+            or scale.shape != (pweight.shape[0],) or scale.stride(0) != 1:
+        raise ValueError(f"w4a8 dequantize kernel: pweight "
+                         f"{tuple(pweight.shape)} must be (N, in/2) with "
+                         f"contiguous rows, mscale {tuple(mscale.shape)} a "
+                         f"contiguous (G, N) and scale {tuple(scale.shape)} "
+                         f"a contiguous (N,)")
+    n, half = pweight.shape
+    groups = mscale.shape[0]
+    check_dequant_rows(n, half, pweight.stride(0), pweight.data_ptr(),
+                       "w4a8 dequantize kernel")
+    if (2 * half) % groups:
+        raise ValueError(f"w4a8 dequantize kernel: unsupported shapes: "
+                         f"{groups} groups do not split {2 * half} inputs")
+    out = torch.empty((n, 2 * half), dtype=dtype, device=dev)
+    err = GEMM.lib().x2i_w4a8_dequant(
+        pweight.data_ptr(), pweight.stride(0), mscale.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), n, half, 2 * half // groups,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w4a8 dequantize launch failed: cudaError_t "
+                           f"{err}")
+    GEMM.launches["w4a8_dequant"] += 1
     return out

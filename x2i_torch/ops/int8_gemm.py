@@ -24,6 +24,12 @@ The kernel has no backward: off ``impl="plain"`` the wrapper raises when
 autograd records and an input requires grad.
 The plain version sums in int32 on the CPU and in float64 on a card
 (cuBLAS has no int32 product; float64 is exact below 2^53).
+
+The same source holds the int8 dequantize kernel of the straight-through
+backward (``ops/quant.py``), the counterpart of the dequantize in the JAX
+``_w8a8_bwd`` (``x2i_tpu/ops/quant.py:77``): ``int8_dequant`` writes the
+(N, in) weight ``bf16(code) * bf16(scale[n])``, rounded once, that the
+output gradient is multiplied by.
 """
 
 from __future__ import annotations
@@ -46,16 +52,23 @@ def _bind(lib):
     lib.x2i_w4a8_gemm.argtypes = [p, ll, p, ll, p, i, i, i, p, p, p, p, ll,
                                   p, ll, i, i, i, i, p]
     lib.x2i_w4_dequant.argtypes = [p, ll, p, p, i, i, i, p]
-    for fn in (lib.x2i_int8_gemm, lib.x2i_w4a8_gemm, lib.x2i_w4_dequant):
+    lib.x2i_int8_dequant.argtypes = [p, ll, p, p, i, i, p]
+    lib.x2i_w4a8_dequant.argtypes = [p, ll, p, p, p, i, i, i, p]
+    for fn in (lib.x2i_int8_gemm, lib.x2i_w4a8_gemm, lib.x2i_w4_dequant,
+               lib.x2i_int8_dequant, lib.x2i_w4a8_dequant):
         fn.restype = ctypes.c_int
 
 
 # the library also holds the int4 weights' kernels (ops/int4_gemm.py): the
-# w4a8 GEMM is this GEMM with another source of its B stage
+# w4a8 GEMM is this GEMM with another source of its B stage; and the
+# dequantize kernels of the straight-through backward
 GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm",
-                   ("int8_gemm", "w4a8_gemm", "w4_dequant"), _bind,
+                   ("int8_gemm", "w4a8_gemm", "w4_dequant", "int8_dequant",
+                    "w4a8_dequant"), _bind,
                    wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel"),
-                   checked_kernels=("w4_dequant_kernel",))
+                   checked_kernels=("w4_dequant_kernel",
+                                    "int8_dequant_kernel",
+                                    "w4a8_dequant_kernel"))
 
 
 def check_gemm_shapes(m: int, k: int, n: int, width: int, k0: int):
@@ -203,3 +216,58 @@ def int8_matmul_acc(xq: torch.Tensor, qweight: torch.Tensor,
         return int8_matmul_acc_plain(xq, qweight, k0)
     return _launch(xq, None, qweight, None, None, k0, None, None,
                    acc_only=True)
+
+
+def int8_dequant_plain(qweight: torch.Tensor, scale: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """(N, in) int8 codes, (N,) f32 scales -> the (N, in) weight in dtype:
+    the code and the scale cast to dtype, then one product in dtype (the
+    JAX ``_w8a8_bwd``'s ``qk.astype(x_dtype) * scale.astype(x_dtype)``)."""
+    return qweight.to(dtype) * scale.to(dtype)[:, None]
+
+
+def check_dequant_rows(n: int, width: int, row_stride: int, ptr: int,
+                       kernel: str):
+    """What the dequantize kernels read: N >= 1 rows of ``width`` bytes,
+    a multiple of 8, contiguous, each row start 8-byte aligned (one 8-byte
+    load a thread). Raises ValueError otherwise."""
+    if n < 1 or width < 8 or width % 8 or row_stride % 8 or ptr % 8:
+        raise ValueError(
+            f"{kernel}: unsupported shapes or layout: {n} rows of {width} "
+            f"bytes, row stride {row_stride} (width, row stride and start "
+            f"% 8 must be 0)")
+
+
+def int8_dequant(qweight: torch.Tensor, scale: torch.Tensor,
+                 dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
+    """The (N, in) weight of int8 codes (N, in) and scales (N,): the
+    kernel for a CUDA tensor (bf16 only), ``int8_dequant_plain`` for a CPU
+    one or with ``impl="plain"``."""
+    if impl != "plain":
+        refuse_grad("the int8 dequantize kernel", scale)
+    if impl == "plain" or qweight.device.type == "cpu":
+        return int8_dequant_plain(qweight, scale, dtype)
+    dev = qweight.device
+    _check("qweight", qweight, torch.int8, dev)
+    _check("scale", scale, torch.float32, dev)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"int8 dequantize kernel: bf16 output only, got "
+                         f"{dtype}")
+    if qweight.dim() != 2 or qweight.stride(1) != 1 \
+            or scale.shape != (qweight.shape[0],) or scale.stride(0) != 1:
+        raise ValueError(f"int8 dequantize kernel: qweight "
+                         f"{tuple(qweight.shape)} must be (N, in) with "
+                         f"contiguous rows and scale {tuple(scale.shape)} a "
+                         f"contiguous (N,)")
+    n, k = qweight.shape
+    check_dequant_rows(n, k, qweight.stride(0), qweight.data_ptr(),
+                       "int8 dequantize kernel")
+    out = torch.empty((n, k), dtype=dtype, device=dev)
+    err = GEMM.lib().x2i_int8_dequant(
+        qweight.data_ptr(), qweight.stride(0), scale.data_ptr(),
+        out.data_ptr(), n, k, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 dequantize launch failed: cudaError_t "
+                           f"{err}")
+    GEMM.launches["int8_dequant"] += 1
+    return out

@@ -1,6 +1,5 @@
 """Weight quantization of the DiT's dense layers: the counterpart of
-``x2i_tpu/ops/quant.py`` (forward only; the straight-through backward is
-not ported yet).
+``x2i_tpu/ops/quant.py``.
 
 Four modes:
 
@@ -28,6 +27,19 @@ dtype. The bridge (``x2i_torch/params.py``) transposes. The quantizers
 take the JAX layout (..., in, out), as the JAX functions do, and give the
 same codes, multipliers and scales bit for bit; so do the JAX-layout
 unpacks ``_unpack_int4``, ``_dequant_w4`` and ``_w4a8_weight_int8``.
+
+Training through a frozen quantized layer takes the JAX package's
+straight-through backward (the ``custom_vjp``s of ``w8a8_matmul``,
+``w8_matmul``, ``w4_matmul`` and ``w4a8_matmul``, ``_w8a8_bwd``,
+``_w4_bwd`` and ``_w4a8_bwd``): ``StraightThrough`` runs the layer's
+forward under no grad, keeps only its codes and scales, and gives ``dx =
+dy @ W``, W the weight dequantized in x's dtype (the int8 and w4a8
+dequantize kernels of ``ops/int8_gemm.py`` and ``ops/int4_gemm.py``, the
+w4 one, or their plain versions), summed in f32 and rounded to x's dtype;
+the activation rounding is ignored, and the codes, scales, multipliers,
+``pre_scale`` and the bias get no gradient.
+The pre-quantized chunk input stays inference-only, as the JAX
+``*_prequant`` products are.
 """
 
 from __future__ import annotations
@@ -44,8 +56,10 @@ from x2i_torch.core.config import ACT_QUANT_MODES, quant_mode
 from x2i_torch.ops.fused_glue import quant_rows, quant_rows_plain
 from x2i_torch.ops.int4_gemm import (nibbles, w4_codes, w4_dequant,
                                      w4_dequant_plain, w4a8_codes,
-                                     w4a8_linear, w4a8_linear_plain)
-from x2i_torch.ops.int8_gemm import int8_linear, int8_linear_plain
+                                     w4a8_dequant, w4a8_linear,
+                                     w4a8_linear_plain)
+from x2i_torch.ops.int8_gemm import (int8_dequant, int8_linear,
+                                     int8_linear_plain)
 
 
 def quantize_kernel(kernel: torch.Tensor):
@@ -267,6 +281,32 @@ def w4a8_matmul_prequant(xq: torch.Tensor, a_scale: torch.Tensor,
                              out_dtype=out_dtype or torch.float32)
 
 
+class StraightThrough(torch.autograd.Function):
+    """A frozen ``QuantLinear``'s product with the JAX straight-through
+    backward: ``apply(x, layer)`` is ``layer._product(x)``, computed under
+    no grad (the kernels' ``refuse_grad`` does not fire), saving only the
+    layer's codes and scales; the backward gives ``dx = dy @ W`` with W
+    dequantized in x's dtype, summed in f32 (cuBLAS on the card) and
+    rounded to x's dtype, and no gradient for anything but x. The weights
+    are (out, in), so ``dy @ W`` contracts the out dimension with no
+    transpose, as the JAX backward's direct contraction does."""
+
+    @staticmethod
+    def forward(ctx, x, layer):
+        ctx.mode, ctx.impl, ctx.x_dtype = layer.mode, layer.impl, x.dtype
+        ctx.save_for_backward(*layer.codes())
+        return layer._product(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the dequantize kernels for CUDA tensors, their plain versions
+        # for CPU ones or on the "plain" route
+        dequant = {"w8": int8_dequant, "w8a8": int8_dequant,
+                   "w4": w4_dequant, "w4a8": w4a8_dequant}[ctx.mode]
+        w = dequant(*ctx.saved_tensors, ctx.x_dtype, ctx.impl)
+        return torch.matmul(dy.to(ctx.x_dtype), w), None
+
+
 class QuantLinear(nn.Module):
     """``nn.Linear`` with quantized weights, the counterpart of
     ``QuantDense``. ``forward`` takes
@@ -281,12 +321,15 @@ class QuantLinear(nn.Module):
       order, so that a concatenation of the inputs is never built (in
       w4a8 each chunk starts and ends on a group boundary).
 
-    ``impl`` is ``FluxConfig.quant_impl``: "plain" takes the plain
-    quantization and product on any device; otherwise a CUDA tensor
-    launches the kernels. The int4 modes' groups are ``group`` inputs (the
-    JAX ``QuantDense.group``; the whole input where it does not divide it,
-    and halved in w4a8 to make their count even). The weights are buffers
-    (and the bias a parameter without gradient): the layer is frozen."""
+    Where autograd records and the input requires grad, the product is
+    ``StraightThrough``'s (the pre-quantized forms raise there: they are
+    inference-only). ``impl`` is ``FluxConfig.quant_impl``: "plain" takes
+    the plain quantization, product and backward on any device; otherwise
+    a CUDA tensor launches the kernels. The int4 modes' groups are
+    ``group`` inputs (the JAX ``QuantDense.group``; the whole input where
+    it does not divide it, and halved in w4a8 to make their count even).
+    The weights are buffers (and the bias a parameter without gradient):
+    the layer is frozen."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, mode: str = "w8a8",
@@ -389,37 +432,67 @@ class QuantLinear(nn.Module):
     def _bias(self, y):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
+    def codes(self):
+        """The codes and scales the product reads (w8/w8a8: qweight,
+        scale; w4: pweight, scale; w4a8: pweight, mscale, scale)."""
+        if self.mode == "w4a8":
+            return self.pweight, self.mscale, self.scale
+        if self.mode == "w4":
+            return self.pweight, self.scale
+        return self.qweight, self.scale
+
     def forward(self, x):
         if isinstance(x, (tuple, list)):
             return self._prequant(x if isinstance(x, list) else [x])
-        if self.mode == "w8":
-            return self._bias(w8_matmul(x.to(self.dtype), self.qweight,
-                                        self.scale))
+        # the JAX layer's casts around its custom_vjp: w8a8 quantizes x in
+        # its own dtype; the others cast it to the layer's first (w4 after
+        # the AWQ pre-scale in x's dtype)
         if self.mode == "w4":
-            xs = (x * self.pre_scale.to(x.dtype)).to(self.dtype)
-            w = w4_dequant(self.pweight, self.scale, xs.dtype, self.impl)
-            return self._bias(F.linear(xs, w))
+            x = (x * self.pre_scale.to(x.dtype)).to(self.dtype)
+        elif self.mode != "w8a8":
+            x = x.to(self.dtype)
+        if torch.is_grad_enabled() and x.requires_grad:
+            y = StraightThrough.apply(x, self)
+        else:
+            y = self._product(x)
+        # w8a8's product rounds to x.dtype, then to the layer's dtype, as
+        # the JAX layer does; the bias rides the GEMM's epilogue when the
+        # two dtypes agree (always in the DiT)
+        if self.mode == "w8a8" and x.dtype != self.dtype:
+            return self._bias(y.to(self.dtype))
+        return y
+
+    def _product(self, x):
+        """The forward of a tensor input, after the casts of ``forward``."""
+        if self.mode == "w8":
+            return self._bias(w8_matmul(x, self.qweight, self.scale))
+        if self.mode == "w4":
+            w = w4_dequant(self.pweight, self.scale, x.dtype, self.impl)
+            return self._bias(F.linear(x, w))
         if self.mode == "w4a8":
-            # quantized after the cast to the layer's dtype, the bias in
-            # the GEMM's epilogue, as the JAX layer rounds
-            xq, a_scale = quant_rows(x.to(self.dtype), self.impl)
+            # quantized in the layer's dtype, the bias in the GEMM's
+            # epilogue, as the JAX layer rounds
+            xq, a_scale = quant_rows(x, self.impl)
             return w4a8_linear(xq, a_scale, self.pweight, self.mscale,
                                self.scale, bias=self.bias,
                                out_dtype=self.dtype, impl=self.impl)
-        # the product rounds to x.dtype, then to the layer's dtype, as the
-        # JAX layer does; the bias rides the GEMM's epilogue when the two
-        # dtypes agree (always in the DiT)
         same = x.dtype == self.dtype
         xq, a_scale = quant_rows(x, self.impl)
-        y = int8_linear(xq, a_scale, self.qweight, self.scale,
-                        bias=self.bias if same else None,
-                        out_dtype=x.dtype, impl=self.impl)
-        return y if same else self._bias(y.to(self.dtype))
+        return int8_linear(xq, a_scale, self.qweight, self.scale,
+                           bias=self.bias if same else None,
+                           out_dtype=x.dtype, impl=self.impl)
 
     def _prequant(self, chunks):
         if self.mode not in ACT_QUANT_MODES:
             raise ValueError("pre-quantized input requires mode w8a8 or "
                              "w4a8")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for chunk in chunks for t in chunk):
+            raise RuntimeError(
+                "QuantLinear: a pre-quantized (xq, a_scale) input is "
+                "inference-only and has no backward; train on the unfused "
+                "route (FluxConfig.fused_glue=False), whose tensor inputs "
+                "take the straight-through backward")
         widths = [xq.shape[-1] for xq, _ in chunks]
         if sum(widths) != self.in_features:
             raise ValueError(f"chunks of widths {widths} do not make "

@@ -46,13 +46,14 @@ def resolve_device(device=None) -> torch.device:
     (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if device is not None:
-        return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "x2i_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 def lm_encoder(prepare: Callable, forward: Callable,

@@ -33,6 +33,7 @@ from x2i_torch.diffusion.sampling import (pack_latents,
                                           prepare_latent_image_ids)
 from x2i_torch.ops.kd import kl_term
 from x2i_torch.train.optim import AdamW, OptState, global_norm
+from x2i_torch.train.optim8bit import Moments8bit
 
 KD_KEYS = ("double_img", "double_txt", "single")
 
@@ -70,8 +71,6 @@ class DistillOptimizer(AdamW):
     update, so the first update has learning rate 0."""
 
     def __init__(self, dcfg: DistillConfig):
-        if dcfg.use_8bit_adam:
-            raise NotImplementedError("8-bit AdamW is not ported yet")
         super().__init__(dcfg.learning_rate, dcfg.max_grad_norm,
                          dcfg.adam_beta1, dcfg.adam_beta2,
                          dcfg.adam_epsilon, dcfg.adam_weight_decay,
@@ -88,8 +87,15 @@ class DistillOptimizer(AdamW):
         return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
 
 
+class DistillOptimizer8bit(Moments8bit, DistillOptimizer):
+    """``DistillOptimizer`` with ``train/optim8bit.py``'s 8-bit moments:
+    the JAX ``make_optimizer`` with ``use_8bit_adam`` (``adamw8bit`` on
+    the same schedule, betas, epsilon and weight decay)."""
+
+
 def make_optimizer(dcfg: DistillConfig) -> DistillOptimizer:
-    return DistillOptimizer(dcfg)
+    return (DistillOptimizer8bit if dcfg.use_8bit_adam
+            else DistillOptimizer)(dcfg)
 
 
 def init_state(proj: nn.Module, optimizer: DistillOptimizer) -> TrainState:

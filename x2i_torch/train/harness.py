@@ -95,14 +95,16 @@ def _wire(flux, lm, t5, clip, proj, widen, flux_cfg, dcfg, split=False,
 
 
 def build_tiny_distill(batch_size: int = 8, remat: bool = False,
-                       split: bool = False, slim_handoff: bool = False,
+                       split: bool = False, use_8bit_adam: bool = False,
+                       slim_handoff: bool = False,
                        trees: Optional[Dict[str, Any]] = None, seed: int = 0,
                        device=None, **distill_changes):
     """-> (step, state, batch, parts). ``step`` is step_fn(state, batch,
     noise), or with split=True the pair (teacher_fn, student_fn) of the
     disaggregated topology (slim_handoff: the teacher hands over only the
-    KD stacks). trees: optional flax param trees (numpy leaves) {"flux",
-    "lm", "t5", "clip", "proj"}; without them the weights are drawn from a
+    KD stacks); ``use_8bit_adam`` takes ``train/optim8bit.py``'s moments.
+    trees: optional flax param trees (numpy leaves) {"flux", "lm", "t5",
+    "clip", "proj"}; without them the weights are drawn from a
     torch.Generator seeded with ``seed``. distill_changes replace fields of
     the tiny DistillConfig (e.g. inline_kd, kd_stacks_int8)."""
     dev = resolve_device(device)
@@ -121,7 +123,8 @@ def build_tiny_distill(batch_size: int = 8, remat: bool = False,
                           output_dim1=flux_cfg.joint_attention_dim, dtype=f32)
     dcfg = DistillConfig(latent_height=8, latent_width=8, text_seq_len=12,
                          lr_warmup_steps=1, max_train_steps=100,
-                         learning_rate=1e-3, **distill_changes)
+                         learning_rate=1e-3, use_8bit_adam=use_8bit_adam,
+                         **distill_changes)
 
     b, s = batch_size, dcfg.text_seq_len
     rng = np.random.default_rng(0)
@@ -233,11 +236,13 @@ def build_tiny_lightcontrol(batch_size: int = 8,
     """-> (step, state, batch, parts): the JAX harness's tiny phase-2
     trainer (a 2 + 4-block FLUX with 16 input channels and guidance, a /8
     VAE of 8 channels and 4 latents, 2 tiny branches, 32^2 pixels: 4
-    tokens; learning rate 1e-3, no accumulation, shift 3), its batch the
-    same numpy draws. trees: optional flax param trees (numpy leaves)
-    {"flux", "vae", "bank"}, else weights from a torch.Generator seeded
-    with ``seed``. ccfg_changes replace fields of the LightControlConfig
-    (e.g. gradient_accumulation_steps)."""
+    tokens; learning rate 1e-3, no accumulation, shift 3), also the model
+    JAX's command line builds; its batch numpy's draws from
+    ``default_rng(seed)`` (with seed 0 the JAX harness's, with the
+    command line's seed its). trees: optional flax param trees (numpy
+    leaves) {"flux", "vae", "bank"}, else weights from a torch.Generator
+    seeded with ``seed``. ccfg_changes replace fields of the
+    LightControlConfig (e.g. gradient_accumulation_steps)."""
     dev = resolve_device(device)
     f32 = torch.float32
     flux_cfg = tiny_flux_config(guidance_embeds=True, in_channels=16)
@@ -251,7 +256,7 @@ def build_tiny_lightcontrol(batch_size: int = 8,
         gradient_accumulation_steps=1, learning_rate=1e-3), **ccfg_changes)
 
     px, b, s = 32, batch_size, 8
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     batch = {"style_pixels": rng.standard_normal((b, px, px, 3)),
              "prompt": rng.standard_normal((b, s,
                                             flux_cfg.joint_attention_dim)),

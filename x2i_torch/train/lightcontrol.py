@@ -9,7 +9,8 @@ training sigma table, the noisy latents ``(1 - sigma) x0 + sigma z``, the
 frozen conditioning under ``no_grad``, the bank on the target pixels at
 ``sigma * 1000``, the frozen DiT with ``controls=``, the loss as the mean
 over the batch of each sample's mean of ``(pred - (z - x0))^2``, and the
-gradient of the bank's parameters alone into ``train/optim.py``'s AdamW.
+gradient of the bank's parameters alone into ``train/optim.py``'s AdamW
+(``train/optim8bit.py``'s with ``use_8bit_adam``).
 
 PyTorch runs eagerly: the frozen modules are bound when the step is made,
 ``ControlTrainState`` holds the bank itself, updated in place. A step's
@@ -38,6 +39,7 @@ from x2i_torch.diffusion.scheduler import (FlowMatchEulerScheduler,
                                            compute_density_for_timestep_sampling)
 from x2i_torch.models.controlnext import ControlBank, apply_control_bank
 from x2i_torch.train.optim import AdamW, OptState, global_norm
+from x2i_torch.train.optim8bit import AdamW8bit
 
 Draws = Union[int, Dict[str, torch.Tensor]]
 
@@ -51,12 +53,12 @@ class ControlTrainState:
 
 def make_lightcontrol_optimizer(ccfg: LightControlConfig) -> AdamW:
     """clip_by_global_norm(max_grad_norm) + AdamW at the constant
-    learning rate and optax's defaults, accumulated over
-    ``gradient_accumulation_steps`` mini-steps."""
-    if ccfg.use_8bit_adam:
-        raise NotImplementedError("8-bit AdamW is not ported yet")
-    return AdamW(ccfg.learning_rate, ccfg.max_grad_norm,
-                 accumulate=ccfg.gradient_accumulation_steps)
+    learning rate and optax's defaults (with ``use_8bit_adam`` JAX's
+    ``adamw8bit(learning_rate)``: its weight decay is 1e-2, not 1e-4),
+    accumulated over ``gradient_accumulation_steps`` mini-steps."""
+    return (AdamW8bit if ccfg.use_8bit_adam else AdamW)(
+        ccfg.learning_rate, ccfg.max_grad_norm,
+        accumulate=ccfg.gradient_accumulation_steps)
 
 
 def init_state(bank: ControlBank, optimizer: AdamW) -> ControlTrainState:

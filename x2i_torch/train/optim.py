@@ -16,6 +16,10 @@ weight_decay))``, wrapped in ``optax.MultiSteps(k)`` when k > 1.
   mini-steps before it); the k-th hands the mean to the chain above, the
   others leave the parameters and the inner state (count, moments) as
   they were.
+
+``train/optim8bit.py``'s 8-bit variant shares the clip, the accumulation
+and ``learning_rate(count)``, and keeps its moments otherwise
+(``init_moments`` and ``adam``).
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ import torch
 @dataclasses.dataclass
 class OptState:
     count: int                     # the updates applied so far
-    mu: List[torch.Tensor]
+    mu: List[torch.Tensor]         # 8-bit: f8 codes (blocks, 128)
     nu: List[torch.Tensor]
     mini_step: int = 0             # mini-steps since the last update
     acc: Optional[List[torch.Tensor]] = None   # their gradients' mean
+    mu_scale: Optional[List[torch.Tensor]] = None  # 8-bit: f32 (blocks, 1)
+    nu_scale: Optional[List[torch.Tensor]] = None
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -57,10 +63,14 @@ class AdamW:
         return self.lr
 
     def init(self, params) -> OptState:
-        def zeros():
-            return [torch.zeros_like(p) for p in params]
-        return OptState(0, zeros(), zeros(),
-                        acc=zeros() if self.accumulate > 1 else None)
+        return OptState(0, **self.init_moments(params),
+                        acc=([torch.zeros_like(p) for p in params]
+                             if self.accumulate > 1 else None))
+
+    def init_moments(self, params) -> dict:
+        """The OptState fields of the moments before the first update."""
+        return {"mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
     def update(self, params, grads, state: OptState) -> OptState:
@@ -83,8 +93,17 @@ class AdamW:
             grads = [g / norm.to(g.dtype) * self.max_grad_norm
                      for g in grads]
         count = state.count + 1
+        moments = self.adam(params, grads, state, count,
+                            self.learning_rate(state.count))
+        return dataclasses.replace(state, count=count, mini_step=0, acc=acc,
+                                   **moments)
+
+    def adam(self, params, grads, state: OptState, count: int,
+             lr: float) -> dict:
+        """optax's adamw: updates ``params`` in place with the clipped
+        ``grads`` (the ``count``-th update, at learning rate ``lr``);
+        returns the new moments' OptState fields."""
         bc1, bc2 = 1.0 - self.b1 ** count, 1.0 - self.b2 ** count
-        lr = self.learning_rate(state.count)
         mus, nus = [], []
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             g = g.to(p.dtype)
@@ -95,4 +114,4 @@ class AdamW:
             p.copy_((p + (-lr) * u).to(p.dtype))
             mus.append(mu)
             nus.append(nu)
-        return OptState(count, mus, nus, 0, acc)
+        return {"mu": mus, "nu": nus}

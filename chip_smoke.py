@@ -32,13 +32,15 @@ Phases, each printing one JSON line per record:
    LM's products at one decode row and at the 512-token prefill, and K8
    at its decode rows (3584 and 18944 wide); K1b at InternViT-300M's
    shape (16 heads x 64, 1025 tokens padded to 1152, 127 masked keys,
-   non-causal) and at MiniCPM-o's resampler's (28 heads x 128, 64 query
-   rows padded to 128, one slice of 1024 patches and a batch of slices of
-   1024 and 600), SDPA on the same padded, masked tensors beside each;
-   the straight-through backward's int8 and w4a8 dequantize kernels bit
-   for bit at the DiT's weight shapes; one QuantLinear's
-   straight-through dx on the card in each of w8a8, w8, w4 and w4a8
-   against the same layer's on the CPU;
+   non-causal), at the CLIP ViT-L/14's (4 images, 16 heads x 64, 257
+   tokens padded to 384; also K1's f32 instance there, f32 in and out,
+   within the bf16 bars of the f32 plain version) and at MiniCPM-o's
+   resampler's (28 heads x 128, 64 query rows padded to 128, one slice
+   of 1024 patches and a batch of slices of 1024 and 600), SDPA on the
+   same padded, masked tensors beside each; the straight-through
+   backward's int8 and w4a8 dequantize kernels bit for bit at the DiT's
+   weight shapes; one QuantLinear's straight-through dx on the card in
+   each of w8a8, w8, w4 and w4a8 against the same layer's on the CPU;
 2a. checkpoint: a released-layout checkpoint set of x2i-internvl2.5-1b
    at full width (diffusers FLUX, its DiT cut to 1 double + 2 single
    blocks in two shards, the whole VAE; an InternVL directory with
@@ -56,7 +58,11 @@ Phases, each printing one JSON line per record:
    a TTS tensor) beside the same cut DiT, loaded onto the card and the
    CPU and held equal bit for bit, unread only what JAX leaves unread,
    and its x2image (prompt, image, 5 s of audio) with exact launch
-   counts;
+   counts; then assemble: ``assemble_distill`` on the card from the
+   x2i-internvl2.5-1b set with a T5-XXL encoder directory at full width
+   cut to 2 blocks and a whole CLIP-L text directory (every tensor read
+   bit for bit the one written, nothing unread), 2 ``TrainLoop`` steps
+   from caption shards with the launch counts derived for the cut DiT;
 3. text2image: the full-width random-weight x2i-internvl2.5-1b pipeline
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
@@ -87,6 +93,22 @@ Phases, each printing one JSON line per record:
    teacher then student, with exact launch counts per step; a 2+2-block
    full-width DiT holds the conditioning gradient of the kernel route
    (K1 with the lse, K3, K4) against the plain attention's;
+5d. data-train: the same trainer fed from two caption-only tar shards
+   (no PIL on the card's machine): one warm-up and six steps through
+   ``DistillDataModule.train_loader`` (the native tar reader, which must
+   load; ``PrefetchLoader`` with the side-stream copy, each batch on the
+   card bit for bit its numpy batch; the consumer's wait and the loader
+   thread's ms a batch), two from a ``RemoteFetchLoader`` whose worker
+   is a spawned child on 127.0.0.1, and its rate on 16 samples; exact
+   launch counts; the steps inside ``frozen_heap``, as ``TrainLoop.run``
+   takes them, with each step's garbage-collection seconds;
+5e. eval: 2 prompts x 2 seeds at 512^2 through ``seed_matched_protocol``
+   on the bf16 pipeline, resized on the card, scored by a CLIP ViT-L/14
+   and CLIP-L text tower drawn from the seed, in bf16 (K1b 24 times a
+   call, the pad route) and f32 (K1's f32 instance 24 times a call, the
+   same route): features within cosine 0.99, CLIP-T within 0.3 points,
+   the Frechet distance of the two seeds' features; ``image_features``
+   ms;
 5a. lightcontrol: LightControl's 19 ControlNeXt branches (ControlNeXtConfig
    at its defaults, drawn on the card) attached to the same bf16
    pipeline; a 1024^2 text2image with a 1024^2 guidance image, its launch
@@ -183,6 +205,7 @@ the kernels alone after an edit, run the tests marked ``cuda``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -847,6 +870,8 @@ def phase_kernels(seed: int):
                         f"keys]", q, k, v, recs, library=lib,
                         host_time=True, kv_mask=mask, causal=True)
     check_vit_attention(randn, recs)
+    check_clip_attention(randn, recs)
+    check_clip_attention_f32(g, flash.setdefault("flash_fwd_f32", []))
     check_resampler_attention(randn, recs)
     # K5: ln_mod at the three row counts of the 1024^2 DiT, then at the
     # 2048^2 DiT's (image and joint tokens; its text rows are the same 512)
@@ -924,6 +949,56 @@ def check_vit_attention(randn, recs):
     check_flash(f"flash_fwd[{VIT_CASE}]", q, k, v, recs, library=lib,
                 host_time=True, valid_rows=VIT_TOKENS, kv_mask=mask)
     recs[-1]["case"] = VIT_CASE
+
+
+CLIP_TOKENS = 257                  # CLIP ViT-L/14's CLS and 16 x 16 patches
+CLIP_IMAGES = 4                    # the eval phase's batch
+CLIP_CASE = "CLIP ViT-L/14: 16 heads x 64, 257 of 384 keys, non-causal"
+
+
+def check_clip_attention(randn, recs):
+    """K1 at the CLIP vision tower's shape in bf16, the eval phase's batch
+    of 4 images: 16 heads x 64, 257 tokens padded to 384 with 127 masked
+    keys, non-causal, no rope, as the dispatcher's pad route hands it to
+    the exact body (the bound counts the 257 kept q rows). SDPA on the
+    same padded, masked tensors is the library's time."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = 384
+    q, k, v = (randn(CLIP_IMAGES, pad, 16, 64) for _ in range(3))
+    mask = (torch.arange(pad, device=q.device)[None] < CLIP_TOKENS).expand(
+        CLIP_IMAGES, pad).contiguous()
+    qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = ((lambda *t, m=mask[:, None, None, :]:
+            F.scaled_dot_product_attention(*t, attn_mask=m)), (qc, kc, vc))
+    check_flash(f"flash_fwd[{CLIP_CASE}]", q, k, v, recs, library=lib,
+                host_time=True, valid_rows=CLIP_TOKENS, kv_mask=mask)
+    recs[-1]["case"] = CLIP_CASE
+
+
+def check_clip_attention_f32(g, recs):
+    """K1's f32 instance at the same CLIP shape, as the f32 scorer's pad
+    route hands it over: f32 q, k, v (rounded to bf16 on the card, so the
+    bars are the bf16 instances': 1e-2 max, 1e-3 mean absolute of the
+    plain version's f32 attention) and an f32 output. SDPA in f32 on the
+    same padded, masked tensors is the library's time. The bound's bytes
+    are the f32 tensors'; its operations are the bf16 products the tensor
+    cores run."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = 384
+    q, k, v = (torch.randn((CLIP_IMAGES, pad, 16, 64), generator=g,
+                           device="cuda") for _ in range(3))
+    mask = (torch.arange(pad, device=q.device)[None] < CLIP_TOKENS).expand(
+        CLIP_IMAGES, pad).contiguous()
+    qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = ((lambda *t, m=mask[:, None, None, :]:
+            F.scaled_dot_product_attention(*t, attn_mask=m)), (qc, kc, vc))
+    check_flash(f"flash_fwd_f32[{CLIP_CASE}]", q, k, v, recs, library=lib,
+                host_time=True, valid_rows=CLIP_TOKENS, kv_mask=mask)
+    recs[-1]["case"] = CLIP_CASE
 
 
 # MiniCPM-o's resampler: the patch counts of the slices of one batch
@@ -1532,8 +1607,9 @@ def reset_counts():
 
 
 NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
-               "flash_fwd_lse": 0, "flash_chunked": 0, "flash_bwd_dq": 0,
-               "flash_bwd_dkv": 0, "ln_mod": 0, "ln_mod_quant": 0,
+               "flash_fwd_lse": 0, "flash_fwd_f32": 0, "flash_chunked": 0,
+               "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_mod": 0,
+               "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0,
                "w4a8_gemm": 0, "w4_dequant": 0, "int8_dequant": 0,
                "w4a8_dequant": 0}
@@ -1911,11 +1987,22 @@ def phase_long_prompt(pipe, lm, seed: int):
     return counts
 
 
-# per training step: the teacher's DiT forward (K1c, rope outside), the
-# student's forward and its recompute under remat (K1 with the lse), its
-# backward (K3, K4), the LM's prefill (K1b); no glue kernel, no GEMM
-DISTILL_LAUNCHES = dict(NO_LAUNCHES, flash_fwd_pipe=57, flash_fwd_lse=114,
-                        flash_bwd_dq=57, flash_bwd_dkv=57, flash_fwd=24)
+def distill_step_launches(n2: int, n1: int, lm_layers: int = 24) -> dict:
+    """The flash kernels' launches in one phase-1 training step over a DiT
+    of n2 double and n1 single blocks (each one joint attention), remat
+    on, rope outside the kernel, and an LM of ``lm_layers``: the teacher's
+    forward under no grad (K1c, the pipelined body: no mask, at least two
+    kv chunks), the student's forward and its recompute under remat (K1
+    with the lse), its backward (K3, K4), the LM's masked causal prefill
+    (K1b); T5 (its bias) and CLIP (77 causal tokens) attend on the plain
+    route; no glue kernel, no GEMM."""
+    blocks = n2 + n1
+    return dict(NO_LAUNCHES, flash_fwd_pipe=blocks, flash_fwd_lse=2 * blocks,
+                flash_bwd_dq=blocks, flash_bwd_dkv=blocks,
+                flash_fwd=lm_layers)
+
+
+DISTILL_LAUNCHES = distill_step_launches(19, 38)
 
 
 def quantized_step_launches(n2: int, n1: int, mode: str = "w8a8"):
@@ -1978,13 +2065,14 @@ def phase_distill(pipe, lm, seed: int, card: str):
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
         noise = step_noise(seed, i)
-        t0 = time.perf_counter()
-        teacher_out = teacher_fn(batch, noise)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, metrics = student_fn(state, batch, teacher_out, noise)
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        t2 = time.perf_counter()
+        with StepClock() as clock:
+            t0 = time.perf_counter()
+            teacher_out = teacher_fn(batch, noise)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = student_fn(state, batch, teacher_out, noise)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            t2 = time.perf_counter()
         del teacher_out
         counts = launch_counts()
         change = max((p.detach().float() - b.float()).abs().max().item()
@@ -1992,6 +2080,7 @@ def phase_distill(pipe, lm, seed: int, card: str):
         rec = {"phase": "distill", "step": i + 1, "warmup": i == 0,
                "teacher_s": t1 - t0, "student_s": t2 - t1,
                "step_s": t2 - t0, "loss": loss, "grad_norm": gnorm,
+               "gc_s": clock.gc_s, "alloc_retries": clock.alloc_retries,
                "lr": parts["optimizer"].learning_rate(i),
                "proj_max_abs_change": change, "launches": counts}
         emit(rec)
@@ -2097,6 +2186,581 @@ def check_distill_routes(seed: int, mode=False):
 
 
 # ----------------------------------------------------------- LightControl
+
+# ------------------------------------------------------------ data, eval
+
+SHARDS, SHARD_SAMPLES = 2, 32
+DATA_STEPS = 6                   # timed steps after one warm-up
+REMOTE_STEPS = 2
+LOADER_TIMEOUT_S = 60.0
+
+
+def write_caption_shards(root: str, seed: int) -> str:
+    """The phase-1 corpus's layout: SHARDS webdataset tar shards of
+    SHARD_SAMPLES samples, each a json with caption_en / caption_zh and a
+    txt, captions drawn from the seed; no image member (the card's machine
+    has no PIL, and phase 1 trains on captions). -> the brace URL."""
+    import io
+    import os
+    import random
+    import tarfile
+
+    rng = random.Random(seed)
+    words = ("red fox snow lighthouse dusk harbour boats gulls old map "
+             "compass rose glass tower rain street lamp night market").split()
+    for j in range(SHARDS):
+        with tarfile.open(os.path.join(root, f"cap-{j:02d}.tar"), "w") as tf:
+            for i in range(SHARD_SAMPLES):
+                cap = " ".join(rng.choice(words)
+                               for _ in range(rng.randint(4, 24)))
+                key = f"{j:02d}{i:04d}"
+                for ext, data in (
+                        ("json", json.dumps({"caption_en": cap,
+                                             "caption_zh": "图: " + cap},
+                                            ensure_ascii=False).encode()),
+                        ("txt", cap.encode())):
+                    info = tarfile.TarInfo(f"{key}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return os.path.join(root, "cap-{00..%02d}.tar" % (SHARDS - 1))
+
+
+def teacher_tokenizers(family: str = "internvl"):
+    """(MLLM, T5, CLIP) tokenizers of the phase-1 batches on the card."""
+    return (ByteTokenizer(family), EndTokenizer(end=1, pad=0),
+            EndTokenizer(end=49407, pad=49407))
+
+
+def distill_datamodule(urls: str, seed: int):
+    """The phase-1 datamodule over the caption shards at the trainer's
+    shapes (MLLM and T5 ids 512, CLIP's 77), InternVL's template."""
+    from x2i_torch.data.datamodule import (DistillDataConfig,
+                                           DistillDataModule,
+                                           family_chat_template, hf_tokenize)
+    mllm, t5, clip_tok = teacher_tokenizers()
+    return DistillDataModule(
+        DistillDataConfig(urls=urls, batch_size=1, seed=seed),
+        mllm_tokenize=hf_tokenize(mllm, 512),
+        t5_tokenize=hf_tokenize(t5, 512),
+        clip_tokenize=hf_tokenize(clip_tok, 77, with_mask=False),
+        chat_template=family_chat_template(MODEL, mllm))
+
+
+class KeptCopy:
+    """A StreamCopy that keeps each numpy batch it copies, in order, so
+    that the batch on the card can be held to it."""
+
+    def __init__(self, copy):
+        self.copy, self.host = copy, []
+
+    def __call__(self, batch):
+        self.host.append(batch)
+        return self.copy(batch)
+
+    def take(self, item):
+        return self.copy.take(item)
+
+
+def _same_on_card(batch, host) -> bool:
+    import torch
+    return batch.keys() == host.keys() and all(
+        torch.equal(batch[k].cpu(), torch.from_numpy(host[k]))
+        for k in host)
+
+
+def _fetch_worker_main(port: int, urls: str, seed: int):
+    """The remote fetch worker (a spawned process, no CUDA): index
+    (shard path, sample position) -> that sample decoded and
+    preprocessed into numpy."""
+    from x2i_torch.data.remote import run_worker
+    from x2i_torch.data.webdataset import decode_sample, tar_samples
+    dm = distill_datamodule(urls, seed)
+    shards = {}
+
+    def fetch(index):
+        path, i = index
+        if path not in shards:
+            shards[path] = list(tar_samples(iter([path])))
+        return dm.preproc(decode_sample(shards[path][i]))
+
+    run_worker("127.0.0.1", port, fetch, num_threads=2)
+
+
+class StepClock:
+    """What may stall a step besides its own work, measured while active:
+    the seconds the interpreter spends in garbage collection (``gc_s``:
+    a loader thread's objects can trigger a full collection inside the
+    step) and the caching allocator's retries of a failed cudaMalloc
+    after freeing its cache (``alloc_retries``: each synchronizes)."""
+
+    def __enter__(self):
+        import gc
+
+        import torch
+        self.gc_s, self._t = 0.0, None
+        self._retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        gc.callbacks.append(self._gc)
+        return self
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.gc_s += time.perf_counter() - self._t
+            self._t = None
+
+    def __exit__(self, *exc):
+        import gc
+
+        import torch
+        gc.callbacks.remove(self._gc)
+        self.alloc_retries = torch.cuda.memory_stats().get(
+            "num_alloc_retries", 0) - self._retries
+
+
+def _timed_step(teacher_fn, student_fn, state, batch, noise):
+    import torch
+    reset_counts()
+    with StepClock() as clock:
+        t0 = time.perf_counter()
+        teacher_out = teacher_fn(batch, noise)
+        state, metrics = student_fn(state, batch, teacher_out, noise)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    return state, {"step_s": step_s, "loss": loss, "grad_norm": gnorm,
+                   "gc_s": clock.gc_s, "alloc_retries": clock.alloc_retries,
+                   "launches": launch_counts()}
+
+
+def phase_data_train(pipe, lm, seed: int, card: str):
+    """Phase-1 distillation at full width and depth fed from tar shards:
+    write 2 caption shards of 32 samples; build the trainer on the
+    pipeline's DiT and LM (``build_random_distill``, its own batch
+    unused), feed it from ``DistillDataModule.train_loader`` through
+    ``PrefetchLoader`` (timeout 60 s) with the side-stream copy to the card
+    (``StreamCopy``), tokenized by the script's byte-level tokenizers;
+    one warm-up and six timed steps, then two steps from a
+    ``RemoteFetchLoader`` whose ``FetchWorker`` runs in a spawned child
+    process on 127.0.0.1 and does the preprocessing, and an epoch of 16
+    samples through it for its rate. Per step: step_s, the consumer's wait
+    on the loader (loader_wait_s), the loader thread's host ms for the
+    batch, the launch counts. Checks: the counts DISTILL_LAUNCHES, loss and
+    grad_norm finite, grad_norm > 0, the proj changed by every step after
+    the warm-up, each batch on the card bit for bit its numpy batch, the
+    native tar reader loaded (no wait passes the timeout: a pipeline whose
+    every sample fails resamples forever, and the phase fails then). The
+    steps run inside ``frozen_heap``, after the trainer's build, as in
+    ``TrainLoop.run``: without it a full garbage collection walked the
+    trainer inside one step in three."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import torch
+    from x2i_torch.data import native_tar
+    from x2i_torch.data.loader import StreamCopy, stack_collate
+    from x2i_torch.data.remote import FetchService, RemoteFetchLoader
+    from x2i_torch.train.harness import build_random_distill
+    from x2i_torch.train.runner import frozen_heap, step_noise
+
+    root = tempfile.mkdtemp(prefix="x2i_shards_")
+    worker = None
+    heap = contextlib.ExitStack()
+    try:
+        t0 = time.perf_counter()
+        urls = write_caption_shards(root, seed)
+        write_s = time.perf_counter() - t0
+        (teacher_fn, student_fn), state, _, _ = build_random_distill(
+            "full", seed, flux=pipe.flux, lm=lm)
+        heap.enter_context(frozen_heap())
+        dm = distill_datamodule(urls, seed)
+        copy = KeptCopy(StreamCopy("cuda"))
+        loader = dm.train_loader(copy, timeout=LOADER_TIMEOUT_S)
+        it = iter(loader)
+        steps = []
+        for i in range(1 + DATA_STEPS):
+            before = [p.detach().clone() for p in state.proj.parameters()]
+            t0 = time.perf_counter()
+            batch = next(it)
+            wait = time.perf_counter() - t0
+            state, rec = _timed_step(teacher_fn, student_fn, state, batch,
+                                     step_noise(seed, i))
+            change = max((p.detach().float() - b.float()).abs().max().item()
+                         for p, b in zip(state.proj.parameters(), before))
+            rec = {"phase": "data-train", "step": i + 1, "warmup": i == 0,
+                   "loader": "prefetch", **rec, "loader_wait_s": wait,
+                   "loader_host_ms": 1e3 * loader.host_s[i],
+                   "batch_on_card_equal": _same_on_card(batch,
+                                                        copy.host[i]),
+                   "proj_max_abs_change": change}
+            emit(rec)
+            steps.append(rec)
+            if not (rec["launches"] == DISTILL_LAUNCHES
+                    and math.isfinite(rec["loss"])
+                    and math.isfinite(rec["grad_norm"])
+                    and rec["grad_norm"] > 0 and (i == 0 or change > 0)
+                    and rec["batch_on_card_equal"]):
+                raise AssertionError(f"data-fed step {i + 1} is wrong: "
+                                     f"{rec} (launches expected "
+                                     f"{DISTILL_LAUNCHES})")
+        del it, loader
+
+        with FetchService() as svc:
+            worker = mp.get_context("spawn").Process(
+                target=_fetch_worker_main, args=(svc.address[1], urls, seed),
+                daemon=True)
+            worker.start()
+            paths = [f"{root}/cap-{j:02d}.tar" for j in range(SHARDS)]
+            index = [(paths[i % SHARDS], i) for i in range(REMOTE_STEPS)]
+            remote = iter(RemoteFetchLoader(index, svc,
+                                            timeout=LOADER_TIMEOUT_S))
+            for i in range(REMOTE_STEPS):
+                t0 = time.perf_counter()
+                sample = next(remote)
+                wait = time.perf_counter() - t0
+                host = stack_collate([sample])
+                batch = copy.take(copy.copy(host))
+                state, rec = _timed_step(teacher_fn, student_fn, state,
+                                         batch, step_noise(seed, 10 + i))
+                rec = {"phase": "data-train", "step": i + 1,
+                       "loader": "remote", **rec, "loader_wait_s": wait,
+                       "batch_on_card_equal": _same_on_card(batch, host)}
+                emit(rec)
+                steps.append(rec)
+                if not (rec["launches"] == DISTILL_LAUNCHES
+                        and math.isfinite(rec["loss"])
+                        and rec["grad_norm"] > 0
+                        and rec["batch_on_card_equal"]):
+                    raise AssertionError(f"remote-fed step {i + 1} is "
+                                         f"wrong: {rec}")
+            if next(remote, None) is not None:
+                raise AssertionError("the remote loader outran its sampler")
+            epoch = [(paths[i % SHARDS], i % SHARD_SAMPLES)
+                     for i in range(16)]
+            t0 = time.perf_counter()
+            got = list(RemoteFetchLoader(epoch, svc,
+                                         timeout=LOADER_TIMEOUT_S))
+            remote_s = time.perf_counter() - t0
+            svc.stop()
+            worker.join(timeout=30)
+        timed = [r for r in steps if r["loader"] == "prefetch"][1:]
+        summary = {
+            "phase": "data-train-summary", "model": MODEL,
+            "shards": SHARDS, "samples_per_shard": SHARD_SAMPLES,
+            "write_s": write_s,
+            "native_tar_loaded": native_tar.TAR_INDEX.loaded(),
+            "s_per_step": statistics.mean(r["step_s"] for r in timed),
+            "steps_s": [r["step_s"] for r in timed],
+            "gc_s": [r["gc_s"] for r in timed],
+            "loader_wait_s": [r["loader_wait_s"] for r in timed],
+            "loader_host_ms": [r["loader_host_ms"] for r in timed],
+            "remote_samples": len(got), "remote_epoch_s": remote_s,
+            "remote_samples_per_s": len(got) / remote_s,
+            "worker_exitcode": worker.exitcode,
+            "loader_timeout_s": LOADER_TIMEOUT_S, "card": card}
+        emit(summary)
+        if not (summary["native_tar_loaded"] and len(got) == 16
+                and worker.exitcode == 0):
+            raise AssertionError(f"the data layer is wrong: {summary}")
+        return steps[DATA_STEPS]["launches"], summary
+    finally:
+        heap.close()
+        if worker is not None and worker.is_alive():
+            worker.terminate()
+            worker.join(timeout=10)
+        shutil.rmtree(root)
+        pipe.flux.replace_config(remat=False, rope_in_kernel=True,
+                                 fused_glue=True)
+        torch.cuda.empty_cache()
+
+
+T5_CKPT_BLOCKS = 2                 # T5-XXL's encoder cut to 2 of 24 blocks
+
+
+def write_teacher_dirs(root: str, seed: int):
+    """A T5-XXL encoder directory at full width cut to T5_CKPT_BLOCKS
+    blocks (HF T5EncoderModel names, config.json) and a whole CLIP-L text
+    directory (CLIPTextModel names), weights drawn on the card in bf16.
+    -> (t5 path, clip path, bytes written)."""
+    import dataclasses
+    import os
+
+    import torch
+    from x2i_torch.convert.torch_models import clip_text_plan, t5_plan
+    from x2i_torch.core.config import CLIPTextConfig, T5Config
+    from x2i_torch.models.clip import CLIPTextEncoder
+    from x2i_torch.models.t5 import T5Encoder
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    t5_cfg = dataclasses.replace(T5Config(), num_layers=T5_CKPT_BLOCKS)
+    clip_cfg = CLIPTextConfig()
+    t5, clip_dir = os.path.join(root, "t5"), os.path.join(root, "clip")
+    os.makedirs(t5)
+    os.makedirs(clip_dir)
+    written = write_safetensors(os.path.join(t5, "model.safetensors"),
+                                _entries(T5Encoder, t5_cfg,
+                                         t5_plan(t5_cfg), g))
+    c = t5_cfg
+    _write_json(os.path.join(t5, "config.json"), {
+        "architectures": ["T5EncoderModel"], "model_type": "t5",
+        "vocab_size": c.vocab_size, "d_model": c.d_model, "d_kv": c.d_kv,
+        "d_ff": c.d_ff, "num_layers": c.num_layers, "num_heads": c.num_heads,
+        "relative_attention_num_buckets": c.relative_attention_num_buckets,
+        "relative_attention_max_distance":
+            c.relative_attention_max_distance,
+        "layer_norm_epsilon": c.layer_norm_eps,
+        "feed_forward_proj": "gated-gelu"})
+    written += write_safetensors(
+        os.path.join(clip_dir, "model.safetensors"),
+        _entries(CLIPTextEncoder, clip_cfg, clip_text_plan(clip_cfg), g))
+    c = clip_cfg
+    _write_json(os.path.join(clip_dir, "config.json"), {
+        "architectures": ["CLIPTextModel"], "model_type": "clip_text_model",
+        "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+        "intermediate_size": c.intermediate_size,
+        "num_hidden_layers": c.num_hidden_layers,
+        "num_attention_heads": c.num_attention_heads,
+        "max_position_embeddings": c.max_position_embeddings,
+        "eos_token_id": c.eos_token_id, "hidden_act": "quick_gelu"})
+    return t5, clip_dir, written
+
+
+def _mismatches(module, files, plan) -> list:
+    """The plan's destinations in ``module`` that are not bit for bit the
+    checkpoint tensors of ``files`` ((key, tensor) pairs) they come from,
+    compared on the module's device."""
+    import torch
+    targets = {**dict(module.named_parameters()),
+               **dict(module.named_buffers())}
+    bad = []
+    for key, t in files:
+        dests = plan[key] if isinstance(plan[key], list) else [plan[key]]
+        for name, fn in dests:
+            dst = targets[name]
+            src = t.to(dst.device)
+            if fn is not None:
+                src = fn(src)
+            if not torch.equal(src.to(dst.dtype), dst):
+                bad.append(name)
+    return bad
+
+
+def phase_assemble(root: str, flux: str, mllm: str, proj: str, seed: int,
+                   card: str):
+    """``assemble_distill`` on the card from the checkpoint phase's
+    directories (the DiT cut to CKPT_BLOCKS, InternViT + Qwen2.5-0.5B, the
+    proj's .bin) with a T5-XXL encoder directory cut to 2 blocks and a
+    whole CLIP-L text directory (``write_teacher_dirs``), the script's
+    tokenizers, the caption shards; then 2 ``TrainLoop`` steps from the
+    assembled loader. Checks: every tensor read bit for bit the one
+    written (each module's plan against its files), nothing unread, the
+    tensors read those written; loss finite; per step the launch counts
+    ``distill_step_launches`` derives for the cut DiT. Records the load's
+    time and bytes."""
+    import gc
+    import os
+
+    import torch
+    from x2i_torch.convert.load import load_safetensors_dir, load_torch_bin
+    from x2i_torch.convert.torch_models import (clip_text_plan, flux_plan,
+                                                internvl_plan, proj_plan,
+                                                t5_plan)
+    from x2i_torch.core.config import DistillConfig
+    from x2i_torch.train.assemble import assemble_distill
+    from x2i_torch.train.runner import TrainLoop
+
+    t0 = time.perf_counter()
+    t5, clip_dir, written = write_teacher_dirs(root, seed)
+    os.makedirs(os.path.join(root, "shards"))
+    urls = write_caption_shards(os.path.join(root, "shards"), seed)
+    write_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn, state, parts, train_loader = assemble_distill(
+        CKPT_MODEL, flux, mllm, t5, clip_dir, urls,
+        dcfg=DistillConfig(lr_warmup_steps=1), proj_ckpt=proj,
+        tokenizers=teacher_tokenizers())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rep = parts["load_report"]
+    read = sum(r["bytes"] for r in rep.values())
+    checks = {
+        "flux": (parts["flux"], load_safetensors_dir(
+            os.path.join(flux, "transformer")), flux_plan(parts["flux"].cfg)),
+        "mllm": (parts["encoder"], load_safetensors_dir(mllm),
+                 internvl_plan(parts["vl_cfg"])),
+        "t5": (parts["t5"], load_safetensors_dir(t5),
+               t5_plan(parts["t5"].cfg)),
+        "clip": (parts["clip"], load_safetensors_dir(clip_dir),
+                 clip_text_plan(parts["clip"].cfg)),
+        "proj": (parts["proj"], ((k.removeprefix("module."), v) for k, v in
+                                 load_torch_bin(proj).items()),
+                 proj_plan(parts["proj"].cfg))}
+    mismatched = {k: _mismatches(*v) for k, v in checks.items()}
+    rec = {"phase": "assemble-load", "model": CKPT_MODEL,
+           "dit_blocks": list(CKPT_BLOCKS), "t5_blocks": T5_CKPT_BLOCKS,
+           "teacher_bytes_written": written, "write_s": write_s,
+           "load_s": load_s, "bytes_read": read,
+           "gb_per_s": read / load_s / 1e9,
+           "tensors": {k: r["tensors"] for k, r in rep.items()},
+           "unread": {k: r["unread"] for k, r in rep.items()},
+           "mismatched": {k: v[:4] for k, v in mismatched.items() if v},
+           "device_peak": torch.cuda.max_memory_allocated(), "card": card}
+    emit(rec)
+    if any(mismatched.values()) or any(r["unread"] for r in rep.values()):
+        raise AssertionError(f"the assembled load is wrong: {rec}")
+
+    want = distill_step_launches(*CKPT_BLOCKS)
+    seen = []
+
+    def on_metrics(step, metrics):
+        seen.append({"step": step, "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "launches": launch_counts()})
+        reset_counts()
+
+    loader = train_loader(timeout=LOADER_TIMEOUT_S)
+    loop = TrainLoop(step_fn, state, loader, log_every=1, seed=seed,
+                     on_metrics=on_metrics)
+    reset_counts()
+    out = loop.run(2)
+    rec = {"phase": "assemble-train", "steps": seen,
+           "timing": out["timing"], "launches_expected": want,
+           "loader_wait_s": loader.wait_s[:2], "card": card}
+    emit(rec)
+    if not (len(seen) == 2 and all(math.isfinite(r["loss"])
+                                   and r["launches"] == want
+                                   for r in seen)):
+        raise AssertionError(f"the assembled trainer is wrong: {rec}")
+    del step_fn, state, parts, loop, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen[-1]["launches"]
+
+
+EVAL_PX = 512
+EVAL_SEEDS = 2
+
+
+def clip_scorers(seed: int):
+    """CLIP ViT-L/14 and CLIP-L's text tower with their projections, drawn
+    on the card in f32 from the seed, and the same weights in bf16: ->
+    (f32 scorer, bf16 scorer)."""
+    import numpy as np
+    import torch
+    from x2i_torch.core.config import CLIPTextConfig, CLIPVisionConfig
+    from x2i_torch.data.datamodule import hf_tokenize
+    from x2i_torch.evalmetrics import scorer_from_model
+    from x2i_torch.models.clip import CLIPModel
+    from x2i_torch.params import random_init_
+
+    tok = hf_tokenize(teacher_tokenizers()[2], 77, with_mask=False)
+
+    def tokenize(text):
+        return np.asarray(tok(text), np.int32)
+
+    models = {}
+    for dt in (torch.float32, torch.bfloat16):
+        models[dt] = CLIPModel(CLIPTextConfig(dtype=dt),
+                               CLIPVisionConfig(dtype=dt), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    random_init_(models[torch.float32], g)
+    models[torch.bfloat16].load_state_dict(
+        models[torch.float32].state_dict())
+    return tuple(scorer_from_model(models[dt], tokenize)
+                 for dt in (torch.float32, torch.bfloat16))
+
+
+def clip_pixels(images):
+    """The host half's stand-in on the card (no PIL there): uint8 (B, H, W,
+    3) -> CLIP-normalized (B, 224, 224, 3) f32 through a bicubic
+    antialiased resize."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.evalmetrics import CLIP_MEAN, CLIP_STD
+    x = torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2).float()
+    x = F.interpolate(x / 255.0, size=(224, 224), mode="bicubic",
+                      antialias=True, align_corners=False)
+    mean, std = (torch.as_tensor(a, device="cuda")[:, None, None]
+                 for a in (CLIP_MEAN, CLIP_STD))
+    return ((x - mean) / std).permute(0, 2, 3, 1).contiguous()
+
+
+def phase_eval(pipe, seed: int, card: str):
+    """The CLIP-T / CLIP-FID protocol on the card: CLIP ViT-L/14 (24 x
+    1024, 16 heads, 224^2) and CLIP-L's text tower drawn from the seed;
+    2 prompts x 2 seeds at 512^2 through ``seed_matched_protocol`` on the
+    bf16 pipeline; the images resized on the card (``clip_pixels``);
+    ``clip_t`` in bf16 and in f32. Checks: a bf16 ``image_features`` call
+    launches K1b (the pad route) exactly 24 times and an f32 one K1's f32
+    instance 24 times (the same route), and nothing else; each image's
+    bf16 features within cosine 0.99 of its f32 ones and the bf16 scores
+    within 0.3 CLIP-T points of the f32 ones (the bf16 - f32 gap measured
+    0.097 with the f32 attention on the plain route; random weights keep
+    every score within about 1.3 of 0, so a bar of 2 could not fail);
+    the Fréchet distance of the two seeds' feature sets finite and >= 0,
+    and 0 within 1e-6 for a set against itself. Records
+    ``image_features`` ms a batch in both types: the caller's view
+    (``call_ms``), and the host's enqueue against the card's time, the
+    call replayed from a CUDA graph (``graph_step_times``: a call's some
+    800 launches overflow the launch queue that ``kernel_ms`` fills)."""
+    import numpy as np
+    import torch
+    from x2i_torch.evalmetrics import frechet_distance, seed_matched_protocol
+
+    prompts = PROMPTS[:2]
+    seeds = [seed + i for i in range(EVAL_SEEDS)]
+    t0 = time.perf_counter()
+    images = seed_matched_protocol(
+        lambda p, s: pipe.text2image(p, seed=s, height=EVAL_PX,
+                                     width=EVAL_PX), prompts, seeds)
+    gen_s = time.perf_counter() - t0
+    texts = [p for p in prompts for _ in seeds]
+    px = clip_pixels(images)
+    f32, bf16 = clip_scorers(seed)
+    feats, counts, ms, graph, scores = {}, {}, {}, {}, {}
+    for name, scorer in (("bf16", bf16), ("f32", f32)):
+        scorer.image_features(px)                     # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        feats[name] = scorer.image_features(px)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        scores[name] = scorer.clip_t(px, texts)
+        ms[name] = call_ms(lambda s=scorer: s.image_features(px), iters=5)
+        graph[name] = graph_step_times(
+            lambda s=scorer: s.image_features(px))
+    cos = (feats["bf16"] * feats["f32"]).sum(-1).cpu().numpy()
+    by_seed = [feats["f32"][i::EVAL_SEEDS].double().cpu().numpy()
+               for i in range(EVAL_SEEDS)]
+    fid = frechet_distance(*by_seed)
+    fid_self = frechet_distance(by_seed[0], by_seed[0].copy())
+    kernel = {"bf16": "flash_fwd", "f32": "flash_fwd_f32"}
+    k1b = {n: c[kernel[n]] for n, c in counts.items()}
+    others = {n: sum(v for k, v in c.items() if k != kernel[n])
+              for n, c in counts.items()}
+    rec = {"phase": "eval", "images": list(images.shape),
+           "prompts": len(prompts), "seeds": seeds, "generate_s": gen_s,
+           "clip_t_bf16": scores["bf16"].tolist(),
+           "clip_t_f32": scores["f32"].tolist(),
+           "clip_t_max_abs_diff": float(np.abs(scores["bf16"]
+                                               - scores["f32"]).max()),
+           "feature_cosine_bf16_f32": cos.tolist(),
+           "frechet_seed0_seed1": fid, "frechet_self": fid_self,
+           "k1_launches": k1b, "other_launches": others,
+           "image_features_ms": ms, "image_features_graph": graph,
+           "batch": int(px.shape[0]), "card": card}
+    emit(rec)
+    if not (k1b == {"bf16": 24, "f32": 24} and others == {"bf16": 0,
+                                                          "f32": 0}
+            and cos.min() >= 0.99 and rec["clip_t_max_abs_diff"] <= 0.3
+            and math.isfinite(fid) and fid >= 0 and abs(fid_self) <= 1e-6
+            and images.dtype == np.uint8
+            and images.shape == (4, EVAL_PX, EVAL_PX, 3)):
+        raise AssertionError(f"the eval phase is wrong: {rec}")
+    return {k: counts["bf16"][k] + counts["f32"][k] for k in counts["bf16"]}
+
 
 def draw_bank(seed: int):
     """LightControl's bank at ``ControlNeXtConfig()`` (19 branches of 128 /
@@ -3251,6 +3915,31 @@ class ByteTokenizer:
         return {"input_ids": ids, "attention_mask": mask}
 
 
+class EndTokenizer(ByteTokenizer):
+    """The teachers' tokenizers of this script (the machine with the card
+    has no ``transformers``): the text's byte ids, cut to leave room for
+    ``end`` and followed by it, padded on the right with ``pad`` to
+    ``max_length``; the mask marks the text and ``end``. CLIP's layout
+    (``end`` = ``pad`` = its <|endoftext|>, 77 ids: the pooled row is the
+    end token's) and T5's (``</s>`` = 1 after the text, ``<pad>`` = 0)."""
+
+    def __init__(self, end: int, pad: int):
+        super().__init__("qwenvl")
+        self.end, self.pad = end, pad
+
+    def __call__(self, texts, padding="max_length", max_length=77,
+                 truncation=True):
+        assert padding == "max_length" and truncation
+        single = isinstance(texts, str)
+        rows = [self.encode(t)[:max_length - 1] + [self.end]
+                for t in ([texts] if single else texts)]
+        ids = [r + [self.pad] * (max_length - len(r)) for r in rows]
+        mask = [[1] * len(r) + [0] * (max_length - len(r)) for r in rows]
+        if single:
+            return {"input_ids": ids[0], "attention_mask": mask[0]}
+        return {"input_ids": ids, "attention_mask": mask}
+
+
 # safetensors' names of the torch dtypes this script writes
 ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32"}
 
@@ -3631,7 +4320,7 @@ def check_vae_encode(card_vae, cpu_vae, seed: int):
     return out
 
 
-def phase_checkpoint(seed: int):
+def phase_checkpoint(seed: int, smi: str):
     """Checkpoints into the port, first of the model phases (the host's
     peak memory is then the load's own): write the released-layout set of
     ``write_checkpoint_dirs`` to a temporary directory; load it with
@@ -3753,7 +4442,9 @@ def phase_checkpoint(seed: int):
         torch.cuda.empty_cache()
         return {"checkpoint": img_rec["launches"],
                 "checkpoint-w8": w8_rec["launches"],
-                "checkpoint-minicpm": checkpoint_minicpm(root, flux, seed)}
+                "checkpoint-minicpm": checkpoint_minicpm(root, flux, seed),
+                "assemble": phase_assemble(root, flux, mllm, proj, seed,
+                                           smi)}
     finally:
         shutil.rmtree(root)
 
@@ -4859,6 +5550,7 @@ def phase_tts(spk, stream_s: float, seed: int, card: str):
 KERNEL_TABLE = (
     ("flash_fwd_rope", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "bf16", 0),
     ("flash_fwd", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "bf16", 0),
+    ("flash_fwd_f32", "cuda", FLASH_SRC, f"{TPU_FLASH}:199", "eval", 0),
     ("ln_mod", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:84", "bf16", 2),
     ("ln_mod_quant", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:62", "w8a8", 2),
     ("gelu_quant", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:70", "w8a8", -1),
@@ -4912,13 +5604,15 @@ def main(argv=None) -> int:
         emit({"kernels_only": True,
               "kind": torch.cuda.get_device_name(0)})
         return 0
-    launches_ckpt = phase_checkpoint(args.seed)
+    launches_ckpt = phase_checkpoint(args.seed, smi)
     pipe, lm, launches, bf16_pixels, dit_state = phase_text2image(args.seed)
     phase_serve(pipe)
     launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
     launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
+    launches_data, _ = phase_data_train(pipe, lm, args.seed, smi)
+    launches_eval = phase_eval(pipe, args.seed, smi)
     launches_lc, control = phase_lightcontrol(pipe, bf16_pixels, args.seed,
                                               smi)
     launches_lc_train, _ = phase_lightcontrol_train(pipe, lm, args.seed, smi)
@@ -4940,6 +5634,7 @@ def main(argv=None) -> int:
             "w8a8": launches_w8a8, "w4a8": launches_w4a8,
             "w4": launches_w4, "w8": launches_w8,
             "distill": launches_distill, "bf16-2048": launches_2048,
+            "data-train": launches_data, "eval": launches_eval,
             "lightcontrol": launches_lc,
             "lightcontrol-w8a8": launches_lc_w8a8,
             "lightcontrol-train": launches_lc_train,
@@ -4977,7 +5672,7 @@ def main(argv=None) -> int:
             table[-1]["cases"] = cases
         # a kernel's launches on the other main paths that run it
         others = {r: runs[r][name] for r in runs
-                  if r != run and runs[r][name]}
+                  if r != run and runs[r].get(name)}
         if others:
             table[-1]["launches_on_other_paths"] = others
     emit({"kernels": table})

@@ -44,7 +44,11 @@ that wrap, groups of 32 and 48); the w4 dequantize kernel bit for bit
 (one rounding of a product that is exact in f32), and so the
 straight-through backward's int8 and w4a8 dequantize kernels; a
 QuantLinear's straight-through dx in each mode within one bf16 step of
-the largest value of the CPU's (f32 sums in cuBLAS's order).
+the largest value of the CPU's (f32 sums in cuBLAS's order). K1's f32
+instance (f32 q, k, v rounded to bf16 on the card, o in f32) within the
+bf16 bars of the f32 plain version, on the routes "auto" gives it. The data
+loader's side-stream copy (``StreamCopy``): each batch on the card bit
+for bit its numpy batch, read at once by a busy consumer stream.
 """
 
 import math
@@ -512,6 +516,45 @@ def test_resampler_pad_route_on_the_kernel(dev, lengths):
         err, base = ((t[i].float() - ref[i]).abs() for t in (got, want))
         assert err.max() <= 2 * base.max() + 1e-3
         assert err.mean() <= 2 * base.mean() + 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["CLIP 257 tokens", "512 pipelined",
+                                  "256 causal GQA", "200 rope + qk norm"])
+def test_f32_instance_on_the_card(dev, case):
+    """K1's f32 instance through the dispatcher under "auto", f32 in and
+    out: the CLIP tower's 257 tokens on the pad route (127 masked keys,
+    the exact body), 512 tokens with no mask (the pipelined body), 256
+    causal tokens on 8 q / 2 kv heads x 128, and 200 tokens with rope and
+    per-row qk norm (applied first, in f32): one launch each, within the
+    bf16 bars of the f32 plain version (q, k, v and p are rounded to bf16
+    on the card). Under autograd the same call takes the plain route."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    s, hq, hk, d = {"CLIP 257 tokens": (257, 16, 16, 64),
+                    "512 pipelined": (512, 4, 4, 64),
+                    "256 causal GQA": (256, 8, 2, 128),
+                    "200 rope + qk norm": (200, 2, 2, 64)}[case]
+    q = torch.randn((2, s, hq, d), generator=g, device=dev)
+    k, v = (torch.randn((2, s, hk, d), generator=g, device=dev)
+            for _ in range(2))
+    kw = {"causal": case.startswith("256")}
+    if case.startswith("200"):
+        ids = torch.cat([torch.zeros((s - 64, 3), device=dev),
+                         prepare_latent_image_ids(16, 16, dev)])
+        w = 1 + 0.1 * torch.randn((s, d), generator=g, device=dev)
+        kw.update(rope=flux_rope_freqs_half(ids, (16, 24, 24)),
+                  qk_norm=(w, w, 1e-6))
+    before = dict(tfa.KERNEL.launches)
+    with torch.no_grad():
+        got = tattn.attention(q, k, v, **kw)
+    assert tfa.KERNEL.launches == dict(
+        before, flash_fwd_f32=before["flash_fwd_f32"] + 1)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _close(got, tattn.attention(q, k, v, implementation="plain", **kw))
+    leaf = q.clone().requires_grad_()
+    tattn.attention(leaf, k, v, **kw).sum().backward()
+    assert tfa.KERNEL.launches["flash_fwd_f32"] == (
+        before["flash_fwd_f32"] + 1)
 
 
 @pytest.mark.cuda
@@ -1195,3 +1238,31 @@ def test_int4_quantizers_on_the_card_match_the_cpu(dev, mode):
     w = torch.randn((3072, 640), generator=g, device=dev) / 3072 ** 0.5
     for got, want in zip(fn(w), fn(w.cpu())):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_stream_copy_batches_on_the_card_equal_their_numpy_batches(dev):
+    """``StreamCopy`` through ``PrefetchLoader``: each batch copied on the
+    side stream and taken by a consumer whose stream is busy (a sleep
+    kernel queued ahead, then work that reads the batch at once) is bit
+    for bit its numpy batch; the copies are pinned and asynchronous."""
+    import numpy as np
+
+    from x2i_torch.data.loader import PrefetchLoader, StreamCopy
+
+    rng = np.random.default_rng(0)
+    batches = [{"ids": rng.integers(0, 1 << 20, (4, 4096), dtype=np.int32),
+                "mask": rng.random((4, 4096)) < 0.5,
+                "x": rng.standard_normal((4, 8192)).astype(np.float32)}
+               for _ in range(12)]
+    copy = StreamCopy(dev)
+    for got, want in zip(PrefetchLoader(batches, device_put=copy),
+                         batches):
+        torch.cuda._sleep(1 << 20)
+        # read at once on the consumer's stream: exact for the integers
+        sums = {k: got[k].long().sum() for k in ("ids", "mask")}
+        for k in want:
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), torch.from_numpy(want[k]))
+        for k, total in sums.items():
+            assert total.item() == int(want[k].astype(np.int64).sum())

@@ -3,15 +3,18 @@
 ``preprocessor_config.json`` that the JAX loader reads.
 
 The released checkpoints carry their architecture in their own config
-files: the diffusers ``transformer/config.json``, ``vae/config.json`` and
-``scheduler/scheduler_config.json`` of a FLUX directory, and the HF
+files: the diffusers ``transformer/config.json``, ``vae/config.json``
+and ``scheduler/scheduler_config.json`` of a FLUX directory, and the HF
 ``config.json`` of an MLLM directory (``llm_config``, ``vision_config``
 and ``downsample_ratio`` for InternVL, a ``text_config`` or flat text
 fields and a ``vision_config`` for Qwen2.5-VL, flat LM fields beside a
 ``vision_config``, an ``audio_config`` and ``query_num`` for MiniCPM-o).
-Each reader returns None when its file is absent, and the registry entry
-is then the fallback. The proj checkpoint is a bare state
-dict: ``proj_config_from_sd`` reads its architecture from the shapes.
+Each of these readers returns None when its file is absent, and the
+registry entry is then the fallback. The teachers' and the scorer's
+readers (``t5_config_from_dir``, ``clip_configs_from_dir``) return the
+defaults (T5-XXL, CLIP-L) for a directory without a ``config.json``. The
+proj checkpoint is a bare state dict: ``proj_config_from_sd`` reads its
+architecture from the shapes.
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import replace
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
-from x2i_torch.core.config import (FluxConfig, InternVLConfig,
+from x2i_torch.core.config import (CLIPTextConfig, CLIPVisionConfig,
+                                   FluxConfig, InternVLConfig,
                                    MiniCPMOConfig, ProjConfig, Qwen2Config,
                                    SchedulerConfig, SiglipVisionConfig,
-                                   VAEConfig, WhisperConfig)
+                                   T5Config, VAEConfig, WhisperConfig)
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig, QwenVisionConfig
 
 
@@ -199,6 +203,53 @@ def minicpm_scale_resolution(mllm_path: str) -> int:
     if d is None:
         return 448
     return (d.get("slice_config") or d).get("scale_resolution", 448)
+
+
+def t5_config_from_dir(t5_path: str) -> T5Config:
+    """HF T5EncoderModel ``config.json`` (``layer_norm_epsilon`` ->
+    layer_norm_eps); ``T5Config()`` (T5-XXL) without one."""
+    d = _read_json(os.path.join(t5_path, "config.json")) or {}
+    fields = _fields(d, (
+        "vocab_size", "d_model", "d_kv", "d_ff", "num_layers", "num_heads",
+        "relative_attention_num_buckets",
+        "relative_attention_max_distance"))
+    if "layer_norm_epsilon" in d:
+        fields["layer_norm_eps"] = d["layer_norm_epsilon"]
+    return replace(T5Config(), **fields)
+
+
+# HF's legacy CLIP text configs (openai/clip-vit-*) say eos_token_id 2;
+# transformers then pools at the largest id, the end token (vocab - 1)
+_LEGACY_EOS = 2
+
+
+def clip_configs_from_dir(clip_path: str, dtype=None
+                          ) -> Tuple[CLIPTextConfig, CLIPVisionConfig]:
+    """(text, vision) configs of an HF CLIP directory: a ``CLIPModel``'s
+    ``config.json`` (``text_config``, ``vision_config``,
+    ``projection_dim``) or a ``CLIPTextModel``'s flat one; the fields JAX's
+    ``build_clip_scorer`` reads, each default where absent (CLIP-L's, as
+    without a file). The legacy ``eos_token_id`` 2 becomes the vocabulary's
+    last id, where transformers pools. ``dtype``: both towers' (the
+    configs' default, bf16, when None)."""
+    d = _read_json(os.path.join(clip_path, "config.json")) or {}
+    tc = d.get("text_config") or (
+        d if d.get("model_type") == "clip_text_model" else {})
+    vc = d.get("vision_config") or {}
+    text = replace(CLIPTextConfig(), **_fields(tc, (
+        "vocab_size", "hidden_size", "intermediate_size",
+        "num_hidden_layers", "num_attention_heads",
+        "max_position_embeddings", "eos_token_id")))
+    if text.eos_token_id == _LEGACY_EOS:
+        text = replace(text, eos_token_id=text.vocab_size - 1)
+    vision = replace(CLIPVisionConfig(), **_fields(vc, (
+        "hidden_size", "intermediate_size", "num_hidden_layers",
+        "num_attention_heads", "image_size", "patch_size")),
+        **_fields(d, ("projection_dim",)))
+    if dtype is not None:
+        text, vision = replace(text, dtype=dtype), replace(vision,
+                                                           dtype=dtype)
+    return text, vision
 
 
 def proj_config_from_sd(sd: Mapping[str, Any],

@@ -22,7 +22,10 @@ view into its module on the card and move on; the mapping goes with the
 view, so the host maps no more than a tensor of a checkpoint at a time.
 
 The tokenizer is an argument: the machine with the card has no
-``transformers``, which is imported only when the caller passes none.
+``transformers``, which is imported only when the caller passes none, and
+then only by ``load_tokenizer``, the one loader of every tokenizer of the
+port (the MLLM's here, the teachers' in ``train/assemble.py``, the CLIP
+scorer's in ``evalmetrics.py``).
 """
 
 from __future__ import annotations
@@ -42,24 +45,29 @@ import torch
 
 from torch import nn
 
-from x2i_torch.convert.hf_config import (flux_config_from_dir,
+from x2i_torch.convert.hf_config import (clip_configs_from_dir,
+                                         flux_config_from_dir,
                                          internvl_config_from_dir,
                                          minicpm_scale_resolution,
                                          minicpmo_config_from_dir,
                                          proj_config_from_sd,
                                          qwenvl_config_from_dir,
                                          scheduler_config_from_dir,
+                                         t5_config_from_dir,
                                          vae_config_from_dir)
 from x2i_torch.convert.torch_models import (chattts_off_path,
-                                            chattts_plan, controlnext_plan,
+                                            chattts_plan, clip_off_path,
+                                            clip_plan, clip_text_plan,
+                                            controlnext_plan,
                                             dvae_plan, dvae_quantizer_in,
                                             fill_module, flux_plan,
                                             internvl_plan, minicpmo_off_path,
                                             minicpmo_plan, proj_plan,
-                                            qwen2_5_vl_plan, vae_plan)
+                                            qwen2_5_vl_plan, t5_off_path,
+                                            t5_plan, vae_plan)
 from x2i_torch.core.config import (MODEL_REGISTRY, ControlNeXtConfig,
                                    GenerationConfig, InternVLConfig,
-                                   MiniCPMOConfig, quant_mode)
+                                   MiniCPMOConfig, quant_mode, with_dtype)
 from x2i_torch.data.minicpm_vision import (audio_placeholder_spans,
                                            bounds_to_map, chunk_audio_mels,
                                            prepare_minicpm_vision)
@@ -69,6 +77,7 @@ from x2i_torch.data.qwen_vision import (concat_vision_inputs,
 from x2i_torch.data.vision import image_tiles
 from x2i_torch.diffusion.scheduler import FlowMatchEulerScheduler
 from x2i_torch.models.chattts import DVAE, ChatTTSConfig, ConditionalChatTTS
+from x2i_torch.models.clip import CLIPModel, CLIPTextEncoder
 from x2i_torch.models.controlnext import ControlBank
 from x2i_torch.models.flux import FluxTransformer2D
 from x2i_torch.models.internvl import InternVLEncoder
@@ -81,6 +90,7 @@ from x2i_torch.models.qwen2_5_vl import (Qwen2_5_VLConfig,
                                          QwenVisionConfig, encode_text,
                                          encode_with_answer,
                                          vision_tensors)
+from x2i_torch.models.t5 import T5Encoder
 from x2i_torch.models.templates import (IMAGE_PREFIX, expand_image_tokens,
                                         internvl2_5_prompt,
                                         minicpm_omni_content,
@@ -578,6 +588,107 @@ def _lm_layout(model: str, mllm_path: str, llm_cfg):
     return body, head, lambda k: tied and k == head
 
 
+def load_tokenizer(path: str, cls: str = "AutoTokenizer", **kwargs):
+    """``transformers.<cls>.from_pretrained(path, **kwargs)``: the one
+    place the port imports ``transformers``, for a caller who passes no
+    tokenizer (the machine with the card has none)."""
+    import transformers
+    return getattr(transformers, cls).from_pretrained(path, **kwargs)
+
+
+def mllm_tokenizer(model: str, mllm_path: str):
+    """The MLLM directory's own tokenizer, as JAX loads it (the slow one
+    for InternVL)."""
+    return load_tokenizer(
+        mllm_path, trust_remote_code=True,
+        **({"use_fast": False} if "internvl" in model else {}))
+
+
+def load_mllm(model: str, mllm_path: str, tokenizer, device,
+              dtype: Optional[torch.dtype] = None):
+    """The family's whole encoder from an HF MLLM directory, in one pass
+    over it: -> (its config, the module (``InternVLEncoder``,
+    ``Qwen2_5_VLEncoder`` or ``MiniCPMOEncoder``), the load report). The
+    architecture follows the directory's config.json, the registry entry
+    where it is absent; InternVL's ``<IMG_CONTEXT>`` id is the
+    tokenizer's. ``dtype``: every part's (the configs' when None)."""
+    dev = resolve_device(device)
+    spec = MODEL_REGISTRY[model]
+    tensors = load_safetensors_dir(mllm_path)
+
+    def typed(cfg):
+        return cfg if dtype is None else with_dtype(cfg, dtype)
+
+    if "internvl" in model:
+        vl_cfg = typed(internvl_config_from_dir(mllm_path, spec.internvl)
+                       or spec.internvl)
+        ctx_id = tokenizer.convert_tokens_to_ids("<IMG_CONTEXT>")
+        if ctx_id is not None and ctx_id >= 0:
+            vl_cfg = replace(vl_cfg, img_context_token_id=ctx_id)
+        *_, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
+        enc = _build(InternVLEncoder, vl_cfg, dev)
+        return vl_cfg, enc, fill_module(enc, tensors, internvl_plan(vl_cfg),
+                                        off_path)
+    if "qwenvl" in model:
+        vl_cfg = typed(qwenvl_config_from_dir(mllm_path, spec.llm)
+                       or Qwen2_5_VLConfig(vision=QwenVisionConfig(
+                           out_hidden_size=spec.llm.hidden_size),
+                           llm=spec.llm))
+        body, head, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
+        vis = "model.visual." if body == "model.language_model." else \
+            "visual."
+        enc = _build(Qwen2_5_VLEncoder, vl_cfg, dev)
+        return vl_cfg, enc, fill_module(
+            enc, tensors, qwen2_5_vl_plan(vl_cfg, vis, body, head), off_path)
+    vl_cfg = typed(minicpmo_config_from_dir(mllm_path, spec.llm)
+                   or spec.minicpmo)
+    enc = _build(MiniCPMOEncoder, vl_cfg, dev)
+    return vl_cfg, enc, fill_module(enc, tensors, minicpmo_plan(vl_cfg),
+                                    minicpmo_off_path(vl_cfg))
+
+
+def _weights(path: str):
+    """A directory's safetensors, or its ``pytorch_model.bin`` when it has
+    none (JAX's ``build_clip_scorer`` reads either)."""
+    if safetensors_files(path):
+        return load_safetensors_dir(path)
+    return load_torch_bin(os.path.join(path, "pytorch_model.bin")).items()
+
+
+def load_t5(t5_path: str, device=None, dtype=torch.bfloat16):
+    """An HF T5EncoderModel directory (T5-XXL's encoder) -> (``T5Encoder``
+    in ``dtype`` on the device, the load report), its architecture from
+    the directory's config.json (``T5Config()`` without one). Unread: the
+    keys of ``t5_off_path``."""
+    cfg = replace(t5_config_from_dir(t5_path), dtype=dtype)
+    t5 = _build(T5Encoder, cfg, resolve_device(device))
+    return t5, fill_module(t5, _weights(t5_path), t5_plan(cfg), t5_off_path)
+
+
+def load_clip_text(clip_path: str, device=None, dtype=torch.bfloat16):
+    """An HF CLIP directory (a whole CLIPModel or a CLIPTextModel) -> (its
+    text tower, ``CLIPTextEncoder`` in ``dtype`` on the device, the load
+    report); unread: the vision tower, the projections, ``logit_scale``
+    and the stored ``position_ids``."""
+    text_cfg, _ = clip_configs_from_dir(clip_path, dtype)
+    clip = _build(CLIPTextEncoder, text_cfg, resolve_device(device))
+    return clip, fill_module(clip, _weights(clip_path),
+                             clip_text_plan(text_cfg),
+                             clip_off_path(text_only=True))
+
+
+def load_clip(clip_path: str, device=None, dtype=torch.float32):
+    """An HF CLIPModel directory -> (``CLIPModel``: both towers and the
+    projections, in ``dtype`` on the device, the load report); unread:
+    ``logit_scale`` and the stored ``position_ids``."""
+    text_cfg, vision_cfg = clip_configs_from_dir(clip_path, dtype)
+    model = CLIPModel(text_cfg, vision_cfg, device="meta").to_empty(
+        device=resolve_device(device))
+    return model, fill_module(model, _weights(clip_path),
+                              clip_plan(text_cfg, vision_cfg),
+                              clip_off_path(text_only=False))
+
+
 def build_pipeline_from_checkpoints(model: str, flux_path: str,
                                     mllm_path: str, proj_path: str,
                                     num_steps: int = 4, height: int = 1024,
@@ -630,41 +741,15 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     del proj_sd
 
     if tokenizer is None:
-        from transformers import AutoTokenizer
-        tokenizer = AutoTokenizer.from_pretrained(
-            mllm_path, trust_remote_code=True,
-            **({"use_fast": False} if "internvl" in model else {}))
-    tensors = load_safetensors_dir(mllm_path)
+        tokenizer = mllm_tokenizer(model, mllm_path)
+    vl_cfg, enc, report["mllm"] = load_mllm(model, mllm_path, tokenizer, dev)
     scale = {}                       # MiniCPM-o's slices' side
     if "internvl" in model:
-        vl_cfg = (internvl_config_from_dir(mllm_path, spec.internvl)
-                  or spec.internvl)
-        ctx_id = tokenizer.convert_tokens_to_ids("<IMG_CONTEXT>")
-        if ctx_id is not None and ctx_id >= 0:
-            vl_cfg = replace(vl_cfg, img_context_token_id=ctx_id)
-        *_, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
-        vision = _build(InternVLEncoder, vl_cfg, dev)
-        report["mllm"] = fill_module(vision, tensors, internvl_plan(vl_cfg),
-                                     off_path)
-        lm = vision.language_model
+        lm, vision = enc.language_model, enc
     elif "qwenvl" in model:
-        vl_cfg = (qwenvl_config_from_dir(mllm_path, spec.llm)
-                  or Qwen2_5_VLConfig(vision=QwenVisionConfig(
-                      out_hidden_size=spec.llm.hidden_size), llm=spec.llm))
-        body, head, off_path = _lm_layout(model, mllm_path, vl_cfg.llm)
-        vis = "model.visual." if body == "model.language_model." else \
-            "visual."
-        enc = _build(Qwen2_5_VLEncoder, vl_cfg, dev)
-        report["mllm"] = fill_module(
-            enc, tensors, qwen2_5_vl_plan(vl_cfg, vis, body, head), off_path)
         lm, vision = enc.language_model, enc.visual
     else:
-        vl_cfg = (minicpmo_config_from_dir(mllm_path, spec.llm)
-                  or spec.minicpmo)
-        vision = _build(MiniCPMOEncoder, vl_cfg, dev)
-        report["mllm"] = fill_module(vision, tensors, minicpmo_plan(vl_cfg),
-                                     minicpmo_off_path(vl_cfg))
-        lm = vision.llm
+        lm, vision = enc.llm, enc
         scale = {"scale_resolution": minicpm_scale_resolution(mllm_path)}
     encoder_fn = mllm_encoder(model, lm, tokenizer, vl_cfg, vision,
                               **scale)

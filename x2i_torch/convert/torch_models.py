@@ -39,9 +39,11 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from x2i_torch.core.config import (ControlNeXtConfig, FluxConfig,
+from x2i_torch.core.config import (CLIPTextConfig, CLIPVisionConfig,
+                                   ControlNeXtConfig, FluxConfig,
                                    InternVLConfig, MiniCPMOConfig,
-                                   ProjConfig, Qwen2Config, VAEConfig)
+                                   ProjConfig, Qwen2Config, T5Config,
+                                   VAEConfig)
 from x2i_torch.models.chattts import ChatTTSConfig
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
 from x2i_torch.ops.rope import half_layout_perm
@@ -517,6 +519,120 @@ def dvae_plan(quantizer: bool = True, prefix: str = "tts.dvae.") -> Plan:
                 same(f"vq_layer.quantizer.rvqs.{g}.project_{n}",
                      f"vq.project_{n}_{g}")
     return plan
+
+
+def t5_plan(cfg: T5Config) -> Plan:
+    """HF T5EncoderModel -> ``T5Encoder``: shared.weight -> shared,
+    encoder.block.{i}.layer.0 (layer_norm, SelfAttention.{q,k,v,o}) ->
+    encoder.block.{i}.{attn_norm, q, k, v, o}, layer.1 (layer_norm,
+    DenseReluDense.{wi_0,wi_1,wo}) -> {ff_norm, wi_0, wi_1, wo}, block 0's
+    relative_attention_bias -> encoder.rel_bias (shared by every layer),
+    final_layer_norm -> encoder.final_norm."""
+    plan: Plan = {"shared.weight": ("shared.weight", None),
+                  "encoder.final_layer_norm.weight": (
+                      "encoder.final_norm.scale", None),
+                  "encoder.block.0.layer.0.SelfAttention."
+                  "relative_attention_bias.weight": ("encoder.rel_bias",
+                                                     None)}
+    for i in range(cfg.num_layers):
+        s, t = f"encoder.block.{i}.layer.", f"encoder.block.{i}."
+        plan[s + "0.layer_norm.weight"] = (t + "attn_norm.scale", None)
+        plan[s + "1.layer_norm.weight"] = (t + "ff_norm.scale", None)
+        for n in ("q", "k", "v", "o"):
+            plan[f"{s}0.SelfAttention.{n}.weight"] = (f"{t}{n}.weight", None)
+        for n in ("wi_0", "wi_1", "wo"):
+            plan[f"{s}1.DenseReluDense.{n}.weight"] = (f"{t}{n}.weight",
+                                                       None)
+    return plan
+
+
+_T5_OFF = re.compile(r"encoder\.embed_tokens\.weight|encoder\.block\.[1-9]"
+                     r"\d*\.layer\.0\.SelfAttention\."
+                     r"relative_attention_bias\.weight")
+
+
+def t5_off_path(key: str) -> bool:
+    """The T5 keys the port does not read, as JAX does not: the encoder's
+    tied copy of ``shared.weight``, and a relative bias table of a block
+    after the first (the port, like JAX, shares block 0's)."""
+    return bool(_T5_OFF.fullmatch(key))
+
+
+def _clip_block(plan: Plan, src: str, dst: str, cfg) -> None:
+    """The CLIP encoder layers of either tower (HF layout under ``src``)
+    -> ``CLIPBlock``s under ``dst``."""
+    for i in range(cfg.num_hidden_layers):
+        s, t = f"{src}encoder.layers.{i}.", f"{dst}block.{i}."
+        for a, b in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            plan[f"{s}{a}.weight"] = (f"{t}{b}.scale", None)
+            plan[f"{s}{a}.bias"] = (f"{t}{b}.bias", None)
+        for a, b in (("self_attn.q_proj", "q"), ("self_attn.k_proj", "k"),
+                     ("self_attn.v_proj", "v"), ("self_attn.out_proj", "o"),
+                     ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            for leaf in ("weight", "bias"):
+                plan[f"{s}{a}.{leaf}"] = (f"{t}{b}.{leaf}", None)
+
+
+def clip_text_plan(cfg: CLIPTextConfig, src: str = "text_model.",
+                   dst: str = "") -> Plan:
+    """HF CLIPTextModel (under ``src``) -> ``CLIPTextEncoder`` (under
+    ``dst``): embeddings.{token,position}_embedding -> token_embedding,
+    position_embedding; encoder.layers.{i}.{layer_norm1, layer_norm2,
+    self_attn.{q,k,v,out}_proj, mlp.fc1, mlp.fc2} -> block.{i}.{ln1, ln2,
+    q, k, v, o, fc1, fc2}; final_layer_norm -> final_ln."""
+    plan: Plan = {
+        f"{src}embeddings.token_embedding.weight": (
+            f"{dst}token_embedding.weight", None),
+        f"{src}embeddings.position_embedding.weight": (
+            f"{dst}position_embedding", None),
+        f"{src}final_layer_norm.weight": (f"{dst}final_ln.scale", None),
+        f"{src}final_layer_norm.bias": (f"{dst}final_ln.bias", None)}
+    _clip_block(plan, src, dst, cfg)
+    return plan
+
+
+def clip_vision_plan(cfg: CLIPVisionConfig, src: str = "vision_model.",
+                     dst: str = "") -> Plan:
+    """HF CLIPVisionModel (under ``src``) -> ``CLIPVisionEncoder`` (under
+    ``dst``): embeddings.{class_embedding, patch_embedding (no bias),
+    position_embedding} keep their names, pre_layrnorm (HF's spelling) ->
+    pre_layernorm, the layers as the text tower's, post_layernorm."""
+    e = f"{src}embeddings."
+    plan: Plan = {
+        e + "class_embedding": (f"{dst}class_embedding", None),
+        e + "patch_embedding.weight": (f"{dst}patch_embedding.weight", None),
+        e + "position_embedding.weight": (f"{dst}position_embedding", None)}
+    for a, b in (("pre_layrnorm", "pre_layernorm"),
+                 ("post_layernorm", "post_layernorm")):
+        plan[f"{src}{a}.weight"] = (f"{dst}{b}.scale", None)
+        plan[f"{src}{a}.bias"] = (f"{dst}{b}.bias", None)
+    _clip_block(plan, src, dst, cfg)
+    return plan
+
+
+def clip_plan(text_cfg: CLIPTextConfig, vision_cfg: CLIPVisionConfig
+              ) -> Plan:
+    """HF CLIPModel -> ``CLIPModel``: both towers and the projections
+    (text_projection.weight, visual_projection.weight), read in one pass
+    by the scorer."""
+    plan = clip_text_plan(text_cfg, dst="text_model.")
+    plan.update(clip_vision_plan(vision_cfg, dst="vision_model."))
+    for n in ("text_projection", "visual_projection"):
+        plan[f"{n}.weight"] = (f"{n}.weight", None)
+    return plan
+
+
+def clip_off_path(text_only: bool) -> Callable[[str], bool]:
+    """The CLIP keys the port does not read: ``logit_scale`` and the
+    stored ``position_ids``; with ``text_only`` (the teacher's text tower
+    read from a whole CLIPModel directory) also the vision tower and both
+    projections."""
+    off = ("vision_model.", "visual_projection.", "text_projection.")
+
+    def off_path(key: str) -> bool:
+        return (key == "logit_scale" or key.endswith(".position_ids")
+                or (text_only and key.startswith(off)))
+    return off_path
 
 
 def proj_plan(cfg: ProjConfig) -> Plan:

@@ -2,10 +2,11 @@
 
 Own copies of the dataclasses of ``x2i_tpu/core/config.py`` (and of the
 T5 and CLIP configs of ``x2i_tpu/models/t5.py`` and ``clip.py``) that the
-serving paths and the two trainers (phase-1 distillation, phase-2
-LightControl) read, with torch dtypes. Only the fields these paths use
-are here: no ring or sharding fields, no ``single_scan_chunks`` and no
-``remat="stack"`` (XLA scan memory devices, not ported).
+serving paths, the two trainers (phase-1 distillation, phase-2
+LightControl) and the CLIP scorer read, with torch dtypes. Only the
+fields these paths use are here: no ring or sharding fields, no
+``single_scan_chunks`` and no ``remat="stack"`` (XLA scan memory
+devices, not ported).
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -45,7 +46,7 @@ no vision config, as in JAX: the loader takes the released tower's
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, is_dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -53,6 +54,16 @@ import torch
 QUANT_MODES = ("w8", "w8a8", "w4", "w4a8")
 # the modes whose activations are quantized per token (the "quant" glue)
 ACT_QUANT_MODES = ("w8a8", "w4a8")
+
+
+def with_dtype(cfg, dtype):
+    """``cfg`` with ``dtype`` in its own ``dtype`` field and in those of
+    the configs it nests (an encoder's vision and LM configs)."""
+    changes = {f.name: (dtype if f.name == "dtype" else
+                        with_dtype(getattr(cfg, f.name), dtype))
+               for f in fields(cfg)
+               if f.name == "dtype" or is_dataclass(getattr(cfg, f.name))}
+    return replace(cfg, **changes)
 
 
 def quant_mode(quantized) -> Optional[str]:
@@ -431,6 +442,22 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 49407
+    dtype: Any = torch.bfloat16
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT (defaults: openai/clip-vit-large-patch14's vision tower, the
+    CLIP-T / CLIP-FID scorer's)."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 768
     dtype: Any = torch.bfloat16
 
 

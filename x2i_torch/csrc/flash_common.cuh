@@ -173,4 +173,19 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
   }
 }
 
+// The same rows in f32: the output of the f32 instance (flash_fwd.cu).
+template <int D>
+__device__ __forceinline__ void store_rows(float* base, long long row_stride,
+                                           const float (*acc)[4], int row_a,
+                                           int row_b, int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + t4 * 2;
+    *reinterpret_cast<float2*>(base + row_a * row_stride + col) =
+        make_float2(acc[dn][0], acc[dn][1]);
+    *reinterpret_cast<float2*>(base + row_b * row_stride + col) =
+        make_float2(acc[dn][2], acc[dn][3]);
+  }
+}
+
 }  // namespace

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 accumulate.
+// Flash-attention forward for Hopper (sm_90a), bf16 in (or f32, rounded to
+// bf16 on entry), f32 accumulate.
 //
 // Replaces the TPU kernel x2i_tpu/ops/flash_attention.py::_flash_kernel
 // (launched by _flash_forward), both of its forward bodies:
@@ -75,6 +76,18 @@
 //     one-warpgroup instance of the same kernel, 64 q rows per block.
 // Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
 // contiguous and the other strides multiples of 8 elements.
+//
+// The f32 instance (x2i_flash_fwd_f32). The TPU kernel takes f32 q, k, v as
+// they come (the CLIP scorer evaluates in f32) and writes o in f32. The
+// tensor cores here take bf16, so a first kernel rounds q, k and v once per
+// launch into a contiguous bf16 scratch buffer (round_rows_kernel, four
+// channels a thread), the bodies above run on it unchanged and the epilogue
+// writes the f32 accumulator rows, divided by l, as they are. The products'
+// operands are therefore the bf16 values of q, k, v and p, with f32
+// scores, softmax and sums: the bf16 bodies' precision, not the TPU's f32
+// products. No rope, qk norm or lse inside: the wrapper applies the norm
+// and the rotation first in f32, and the f32 training forward (with the
+// lse) and backward are not built. Always 128 q rows a block.
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
@@ -95,7 +108,7 @@ struct Args {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  bf16* o;
+  void* o;                       // bf16, or f32 in the f32 instance
   float* lse;                    // (B, Hq, Sq) contiguous, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
@@ -119,7 +132,7 @@ constexpr int smem_bytes() {
          kSwizzleAtomBytes;
 }
 
-template <int D, int WGS, bool ROPE, int BODY>
+template <int D, int WGS, bool ROPE, int BODY, typename OutT>
 __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, Args a) {
@@ -416,18 +429,53 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     o[dn][2] /= l1;
     o[dn][3] /= l1;
   }
-  store_rows<D>(a.o + b * a.o_sb + h * a.o_sh, a.o_ss, o, row_a, row_b, t4);
+  store_rows<D>(static_cast<OutT*>(a.o) + b * a.o_sb + h * a.o_sh, a.o_ss, o,
+                row_a, row_b, t4);
+}
+
+// x (B, H, S, D) f32 strided -> contiguous bf16, rounded to nearest: four
+// channels a thread, one 16-byte load and one 8-byte store.
+template <int D>
+__global__ void __launch_bounds__(256) round_rows_kernel(
+    const float* __restrict__ x, bf16* __restrict__ out, long long x_sb,
+    long long x_sh, long long x_ss, int heads, int seq, long long quads) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  const long long row = i / (D / 4);
+  const int c = static_cast<int>(i % (D / 4)) * 4;
+  const int s = static_cast<int>(row % seq);
+  const long long bh = row / seq;
+  const int h = static_cast<int>(bh % heads);
+  const long long b = bh / heads;
+  const float4 v =
+      *reinterpret_cast<const float4*>(x + b * x_sb + h * x_sh + s * x_ss + c);
+  uint2 packed;
+  packed.x = pack_bf16(v.x, v.y);
+  packed.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(out + row * D + c) = packed;
+}
+
+template <int D>
+cudaError_t launch_round_rows(const float* x, bf16* out, long long x_sb,
+                              long long x_sh, long long x_ss, int batch,
+                              int heads, int seq, cudaStream_t stream) {
+  const long long quads = static_cast<long long>(batch) * heads * seq * D / 4;
+  const long long blocks = (quads + 255) / 256;
+  round_rows_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      x, out, x_sb, x_sh, x_ss, heads, seq, quads);
+  return cudaGetLastError();
 }
 
 struct Maps {
   TileMap k, v;
 };
 
-template <int D, int WGS, bool ROPE, int BODY>
+template <int D, int WGS, bool ROPE, int BODY, typename OutT = bf16>
 cudaError_t launch_main(const Maps& m, const Args& a, int batch, int hq,
                         int sq, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D, WGS>();
-  auto kernel = flash_fwd_kernel<D, WGS, ROPE, BODY>;
+  auto kernel = flash_fwd_kernel<D, WGS, ROPE, BODY, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -436,14 +484,17 @@ cudaError_t launch_main(const Maps& m, const Args& a, int batch, int hq,
   return cudaGetLastError();
 }
 
-template <int D, int WGS, bool ROPE>
+template <int D, int WGS, bool ROPE, typename OutT = bf16>
 cudaError_t launch_body(const Maps& m, const Args& a, int batch, int hq,
                         int sq, int body, cudaStream_t stream) {
   if (body == kPipelined)
-    return launch_main<D, WGS, ROPE, kPipelined>(m, a, batch, hq, sq, stream);
+    return launch_main<D, WGS, ROPE, kPipelined, OutT>(m, a, batch, hq, sq,
+                                                       stream);
   if (body == kExactBody)
-    return launch_main<D, WGS, ROPE, kExactBody>(m, a, batch, hq, sq, stream);
-  return launch_main<D, WGS, ROPE, kExactMasked>(m, a, batch, hq, sq, stream);
+    return launch_main<D, WGS, ROPE, kExactBody, OutT>(m, a, batch, hq, sq,
+                                                       stream);
+  return launch_main<D, WGS, ROPE, kExactMasked, OutT>(m, a, batch, hq, sq,
+                                                       stream);
 }
 
 template <int D>
@@ -473,6 +524,54 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+// The shapes every instance takes.
+bool bad_shapes(int hq, int hk, int sq, int skv, int d) {
+  return (d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 128 ||
+         skv % kTileKV || hk <= 0 || hq % hk;
+}
+
+// The arguments of a launch without rope, norm or lse: q, k, v at the
+// (b, h, s) strides st[0..8], o at st[9..11].
+Args plain_args(const bf16* q, const bf16* k, const bf16* v, void* o,
+                const long long* st, const unsigned char* mask,
+                long long mask_sb, int hq, int hk, int sq, int skv,
+                int causal, float scale_log2e) {
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.q_sb = st[0]; a.q_sh = st[1]; a.q_ss = st[2];
+  a.k_sb = st[3]; a.k_sh = st[4]; a.k_ss = st[5];
+  a.v_sb = st[6]; a.v_sh = st[7]; a.v_ss = st[8];
+  a.o_sb = st[9]; a.o_sh = st[10]; a.o_ss = st[11];
+  a.mask = mask;
+  a.mask_sb = mask_sb;
+  a.group = hq / hk;
+  a.sq = sq;
+  a.skv = skv;
+  a.causal = causal;
+  a.scale_log2e = scale_log2e;
+  a.eps = 1e-6f;
+  return a;
+}
+
+int body_of(int exact, const unsigned char* mask, int causal) {
+  return !exact ? kPipelined
+         : (mask != nullptr || causal) ? kExactMasked
+                                       : kExactBody;
+}
+
+// K and V as the producer reads them.
+cudaError_t make_maps(Maps* m, const Args& a, int batch, int hk, int skv,
+                      int d) {
+  cudaError_t err = make_tile_map(&m->k, a.k, a.k_sb, a.k_sh, a.k_ss, batch,
+                                  hk, skv, d, kTileKV);
+  if (err != cudaSuccess) return err;
+  return make_tile_map(&m->v, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
+                       kTileKV);
+}
+
 }  // namespace
 
 // q, k, v, o: (B, H, S, D) bf16 with the strides in `st` (elements):
@@ -490,36 +589,22 @@ extern "C" int x2i_flash_fwd(
     long long kw_rs, const unsigned char* mask, long long mask_sb, int batch,
     int hq, int hk, int sq, int skv, int d, int causal, int exact,
     float scale_log2e, float eps, void* stream_ptr) {
-  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 128 ||
-      skv % kTileKV || hk <= 0 || hq % hk ||
+  if (bad_shapes(hq, hk, sq, skv, d) ||
       (cos != nullptr && (k_scratch == nullptr || sq != skv)) ||
       (lse != nullptr && !exact) ||
       (!exact && (mask != nullptr || causal)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool rope = cos != nullptr;
-  Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<bf16*>(o);
+  Args a = plain_args(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v), o, st, mask, mask_sb, hq,
+                      hk, sq, skv, causal, scale_log2e);
   a.lse = lse;
-  a.q_sb = st[0]; a.q_sh = st[1]; a.q_ss = st[2];
-  a.k_sb = st[3]; a.k_sh = st[4]; a.k_ss = st[5];
-  a.v_sb = st[6]; a.v_sh = st[7]; a.v_ss = st[8];
-  a.o_sb = st[9]; a.o_sh = st[10]; a.o_ss = st[11];
   a.cos = cos;
   a.sin = sin;
   a.tab_rs = tab_rs;
   a.qw = qw;
   a.qw_rs = qw_rs;
-  a.mask = mask;
-  a.mask_sb = mask_sb;
-  a.group = hq / hk;
-  a.sq = sq;
-  a.skv = skv;
-  a.causal = causal;
-  a.scale_log2e = scale_log2e;
   a.eps = eps;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
@@ -540,9 +625,7 @@ extern "C" int x2i_flash_fwd(
     a.k_sh = static_cast<long long>(skv) * d;
     a.k_sb = a.k_sh * hk;
   }
-  const int body = !exact ? kPipelined
-                   : (mask != nullptr || causal) ? kExactMasked
-                                                 : kExactBody;
+  const int body = body_of(exact, mask, causal);
   // 64-row blocks fill more of the card where twice as many of them
   // still fit in one wave (the 28-head LM's 112 128-row blocks stay one
   // wave; as 224 64-row blocks they took two)
@@ -550,15 +633,53 @@ extern "C" int x2i_flash_fwd(
       2 * static_cast<long long>(sq / 128) * hq * batch <= sms;
   // K and V as the producer reads them: K from the scratch under rope
   Maps m;
-  err = make_tile_map(&m.k, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
-                      kTileKV);
-  if (err == cudaSuccess)
-    err = make_tile_map(&m.v, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
-                        kTileKV);
+  err = make_maps(&m, a, batch, hk, skv, d);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = d == 64 ? launch<64>(m, a, batch, hq, sq, rope, body, small_grid,
                              stream)
                 : launch<128>(m, a, batch, hq, sq, rope, body, small_grid,
                               stream);
+  return static_cast<int>(err);
+}
+
+// The f32 instance: q, k, v, o (B, H, S, D) f32 with the strides in `st`,
+// as above. scratch: (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k and v
+// in that order, each contiguous. mask, causal and exact as above; no rope,
+// qk norm or lse.
+extern "C" int x2i_flash_fwd_f32(
+    const float* q, const float* k, const float* v, float* o, void* scratch,
+    const long long* st, const unsigned char* mask, long long mask_sb,
+    int batch, int hq, int hk, int sq, int skv, int d, int causal, int exact,
+    float scale_log2e, void* stream_ptr) {
+  if (bad_shapes(hq, hk, sq, skv, d) || scratch == nullptr ||
+      (!exact && (mask != nullptr || causal)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  bf16* rq = static_cast<bf16*>(scratch);
+  bf16* rk = rq + static_cast<long long>(batch) * hq * sq * d;
+  bf16* rv = rk + static_cast<long long>(batch) * hk * skv * d;
+  auto* round_rows =
+      d == 64 ? &launch_round_rows<64> : &launch_round_rows<128>;
+  cudaError_t err =
+      round_rows(q, rq, st[0], st[1], st[2], batch, hq, sq, stream);
+  if (err == cudaSuccess)
+    err = round_rows(k, rk, st[3], st[4], st[5], batch, hk, skv, stream);
+  if (err == cudaSuccess)
+    err = round_rows(v, rv, st[6], st[7], st[8], batch, hk, skv, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long qs = static_cast<long long>(sq) * d;
+  const long long ks = static_cast<long long>(skv) * d;
+  const long long rst[12] = {qs * hq, qs, d, ks * hk, ks, d, ks * hk, ks, d,
+                             st[9], st[10], st[11]};
+  Args a = plain_args(rq, rk, rv, o, rst, mask, mask_sb, hq, hk, sq, skv,
+                      causal, scale_log2e);
+  const int body = body_of(exact, mask, causal);
+  Maps m;
+  err = make_maps(&m, a, batch, hk, skv, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = d == 64 ? launch_body<64, 2, false, float>(m, a, batch, hq, sq, body,
+                                                  stream)
+                : launch_body<128, 2, false, float>(m, a, batch, hq, sq, body,
+                                                   stream);
   return static_cast<int>(err);
 }

@@ -1,15 +1,16 @@
 """Attention dispatcher, the counterpart of ``x2i_tpu/ops/attention.py``.
 
-Tensors are (batch, seq, heads, head_dim) at this boundary. The dispatcher
-picks the flash kernel by the JAX package's static rule (a kernel off the
-CPU when ``supported``; with ``implementation="kernel"`` always), pads odd
-lengths to a multiple of 128 with masked keys, and applies the qk RMSNorm
-and the rope here whenever the kernel route does not take them (above
-``MAX_KV_SEQ`` kv tokens ``flash_attention`` applies both itself, ahead of
-the chunked kernel, also on the padded tensors of the pad route). Every
-route is differentiable (the kernel route through the flash kernels'
-autograd ``Function``), except the kernel route with qk_norm, which is
-forward-only as in JAX.
+Tensors are (batch, seq, heads, head_dim) at this boundary. The
+dispatcher picks the flash kernel by the JAX package's static rule (a
+kernel off the CPU when ``supported``; with ``implementation="kernel"``
+always), under "auto" for the inputs the CUDA kernels take (``route``);
+it pads odd lengths to a multiple of 128 with masked keys, and applies
+the qk RMSNorm and the rope here whenever the kernel route does not take
+them (above ``MAX_KV_SEQ`` kv tokens ``flash_attention`` applies both
+itself, ahead of the chunked kernel, also on the padded tensors of the
+pad route). Every route is differentiable (the kernel route through the
+flash kernels' autograd ``Function``), except the kernel route with
+qk_norm, which is forward-only as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +24,37 @@ import torch.nn.functional as F
 from x2i_torch.ops import flash_attention as fa
 from x2i_torch.ops.norms import rms_norm
 from x2i_torch.ops.rope import apply_rope_half
+
+
+def route(q: torch.Tensor, k: torch.Tensor, causal: bool = False,
+          implementation: str = "auto", bias=None,
+          causal_offset: int = 0, recording: bool = False) -> str:
+    """The dispatcher's static choice for q (B, Sq, Hq, D) against k (B,
+    Skv, Hk, D): "kernel" (the flash kernel at these shapes), "pad" (the
+    kernel on q, k and v padded to multiples of 128 with masked keys) or
+    "plain". A bias or a causal offset takes the plain route (JAX's XLA
+    path). "kernel" always takes a kernel route. "auto" takes one off the
+    CPU where a CUDA kernel takes the inputs: bf16, and f32 for a forward
+    (``recording`` False: autograd does not record) of at most
+    ``MAX_KV_SEQ`` kv tokens, which K1's f32 instance serves. JAX's Pallas
+    kernels take every dtype; here f32 under autograd or above
+    ``MAX_KV_SEQ``, and any other dtype, take the plain route. Reads only
+    shapes, dtype and device: meta tensors do."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    f32_fwd = (q.dtype == torch.float32 and not recording
+               and skv + (-skv) % 128 <= fa.MAX_KV_SEQ)
+    kernel_ok = bias is None and causal_offset == 0 and (
+        implementation == "kernel" or (
+            implementation == "auto" and q.device.type != "cpu"
+            and (q.dtype == torch.bfloat16 or f32_fwd)))
+    if not kernel_ok:
+        return "plain"
+    if fa.supported((b, hq, sq, d), skv):
+        return "kernel"
+    if not causal and d in fa.HEAD_DIMS and (sq % 128 or skv % 128):
+        return "pad"
+    return "plain"
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,13 +84,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
 
-    kernel_ok = bias is None and causal_offset == 0 and (
-        implementation == "kernel" or (
-            implementation == "auto" and q.device.type != "cpu"))
-    use_kernel = kernel_ok and fa.supported((b, hq, sq, d), skv)
+    recording = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (q, k, v, *(qk_norm or ())[:2]))
+    which = route(q, k, causal, implementation, bias, causal_offset,
+                  recording)
+    use_kernel, pad_path = which == "kernel", which == "pad"
     pad_q, pad_kv = (-sq) % 128, (-skv) % 128
-    pad_path = (not use_kernel and kernel_ok and not causal
-                and d in fa.HEAD_DIMS and bool(pad_q or pad_kv))
 
     kernel_rope = (rope is not None and (use_kernel or pad_path)
                    and sq == skv and not causal)

@@ -32,6 +32,14 @@ and ``p`` is cast to the input dtype before the PV product. The backward
 kernels round as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` do (see
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``).
 
+K1 also has an f32 instance, for modules that run in f32 on the card (the
+CLIP scorer evaluates in f32, as in JAX): q, k and v are rounded to bf16
+on the card and go through the body they would take in bf16, and o is
+written in f32. Its results are the bf16 bodies' up to the rounding of o,
+not the plain version's f32 products. It is forward-only, and applies no
+norm or rotation inside (the wrapper applies both first, in f32); the
+lse, K2, K3 and K4 take bf16 alone.
+
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
 ``apply_rope_half`` reads them.
@@ -335,6 +343,9 @@ def _bind(lib):
         p, p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
         i, i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_fwd.restype = ctypes.c_int
+    lib.x2i_flash_fwd_f32.argtypes = [
+        p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, f, p]
+    lib.x2i_flash_fwd_f32.restype = ctypes.c_int
 
 
 def _bind_chunked(lib):
@@ -363,11 +374,13 @@ def _bind_bwd(lib):
 # the exact body without rope or lse (K1b, LM prefill), ``flash_fwd_pipe``
 # for the pipelined body without rope (K1c, the DiT with rope outside, as
 # the distillation teacher runs it), ``flash_fwd_lse`` for every forward
-# that writes the lse (the exact body, with or without rope)
+# that writes the lse (the exact body, with or without rope),
+# ``flash_fwd_f32`` for every forward on f32 inputs (any body, no lse)
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
-                      "flash_fwd_lse"), _bind,
-                     wgmma_kernels=("flash_fwd_kernel",))
+                      "flash_fwd_lse", "flash_fwd_f32"), _bind,
+                     wgmma_kernels=("flash_fwd_kernel",),
+                     checked_kernels=("round_rows_kernel",))
 # K2, the chunked forward above MAX_KV_SEQ kv tokens
 KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
                              ("flash_chunked",), _bind_chunked,
@@ -391,10 +404,10 @@ def check_rows(name, shape, strides, data_ptr, ndim=4):
         raise ValueError(f"flash kernel: {name} needs 16-byte aligned rows")
 
 
-def _check(name, t, ndim):
-    if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-        raise ValueError(f"flash kernel: {name} must be a bf16 CUDA tensor, "
-                         f"got {t.dtype} on {t.device}")
+def _check(name, t, ndim, dtype=torch.bfloat16):
+    if t.device.type != "cuda" or t.dtype != dtype:
+        raise ValueError(f"flash kernel: {name} must be a {dtype} CUDA "
+                         f"tensor, got {t.dtype} on {t.device}")
     check_rows(name, t.shape, t.stride(), t.data_ptr(), ndim)
 
 
@@ -444,11 +457,11 @@ def check_shapes(q_shape, k_shape, v_shape, extra=()):
     return b, hq, hk, sq, skv, d
 
 
-def _shapes(q, k, v, extra=()):
-    """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``) -> (b,
-    hq, hk, sq, skv, d)."""
+def _shapes(q, k, v, extra=(), dtype=torch.bfloat16):
+    """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``), all of
+    ``dtype`` -> (b, hq, hk, sq, skv, d)."""
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
-        _check(name, t, 4)
+        _check(name, t, 4, dtype)
     return check_shapes(q.shape, k.shape, v.shape,
                         [t.shape for _, t in extra])
 
@@ -490,8 +503,47 @@ def _out_bhsd(b, h, s, d, like):
                        device=like.device).transpose(1, 2)
 
 
+def _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm):
+    """K1's f32 instance: q, k, v rounded to bf16 on the card, the body
+    the bf16 inputs would take, o written in f32. The qk norm and the
+    rotation, which it does not take inside, are applied first in f32, as
+    the plain version computes them."""
+    if rope is not None:
+        qw, kw, eps = qk_norm if qk_norm is not None else (None, None, 1e-6)
+        q = _rotate(_norm_rows(q, qw, eps), *rope)
+        k = _rotate(_norm_rows(k, kw, eps), *rope)
+    elif qk_norm is not None:
+        raise ValueError("flash kernel: qk_norm rides the rope path")
+    b, hq, hk, sq, skv, d = _shapes(q, k, v, dtype=torch.float32)
+    if sq % 128 or skv % 128:
+        raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
+                         f"Skv in multiples of 128, got {sq} and {skv}")
+    mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
+    out = _out_bhsd(b, hq, sq, d, q)
+    scratch = torch.empty((b * (hq * sq + 2 * hk * skv) * d,),
+                          dtype=torch.bfloat16, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    err = KERNEL.lib().x2i_flash_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), strides, _ptr(mask), mask_sb, b, hq, hk, sq,
+        skv, d, int(causal), int(is_exact(kv_mask, causal, skv)),
+        scale * LOG2_E, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
+    KERNEL.launches["flash_fwd_f32"] += 1
+    return out
+
+
 def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
                 return_lse=False):
+    if q.dtype == torch.float32:
+        if return_lse:
+            raise ValueError("flash kernel: the f32 instance is forward-only "
+                             "(no lse): f32 training attention takes the "
+                             "plain route")
+        return _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope,
+                               qk_norm)
     b, hq, hk, sq, skv, d = _shapes(q, k, v)
     if sq % 128 or skv % 128:
         raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "

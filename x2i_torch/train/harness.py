@@ -56,11 +56,13 @@ from x2i_torch.train.single_chip import single_chip_distill
 REAL_TOKENS = 40
 
 
-def _wire(flux, lm, t5, clip, proj, widen, flux_cfg, dcfg, split=False,
-          slim_handoff=False):
+def wire_distill(flux, lm, t5, clip, proj, widen, flux_cfg, dcfg,
+                 split=False, slim_handoff=False, student_states_fn=None):
     """The trainer around the five modules: -> (step, state, parts); the
     split step is the (teacher_fn, student_fn) pair, the slim one that of
-    ``single_chip_distill``."""
+    ``single_chip_distill``. ``student_states_fn(batch)``: the MLLM's
+    hidden-state stack (by default ``lm``'s text prefill; ``lm`` is then
+    any frozen module, e.g. a whole encoder)."""
     for frozen in (flux, lm, t5, clip):
         frozen.requires_grad_(False)
 
@@ -71,9 +73,11 @@ def _wire(flux, lm, t5, clip, proj, widen, flux_cfg, dcfg, split=False,
         _, pooled = clip(b["clip_ids"])
         return seq, pooled
 
-    def student_states_fn(b):
+    def lm_states(b):
         states, _ = lm(b["mllm_ids"], attention_mask=b["mllm_mask"])
         return states
+
+    student_states_fn = student_states_fn or lm_states
 
     optimizer = make_optimizer(dcfg)
     state = init_state(proj, optimizer)
@@ -150,9 +154,9 @@ def build_tiny_distill(batch_size: int = 8, remat: bool = False,
             load_flax(mod, trees[name])
         else:
             random_init_(mod, gen)
-    step, state, parts = _wire(mods["flux"], mods["lm"], mods["t5"],
-                               mods["clip"], mods["proj"], widen, flux_cfg,
-                               dcfg, split=split, slim_handoff=slim_handoff)
+    step, state, parts = wire_distill(
+        mods["flux"], mods["lm"], mods["t5"], mods["clip"], mods["proj"],
+        widen, flux_cfg, dcfg, split=split, slim_handoff=slim_handoff)
     return step, state, batch, parts
 
 
@@ -206,8 +210,9 @@ def build_random_distill(scale: str = "full", seed: int = 0, device=None,
         "mllm_mask": mask,
     }
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    step, state, parts = _wire(flux, lm, t5, clip, proj, None, flux.cfg,
-                               dcfg, split=True, slim_handoff=True)
+    step, state, parts = wire_distill(flux, lm, t5, clip, proj, None,
+                                      flux.cfg, dcfg, split=True,
+                                      slim_handoff=True)
     return step, state, batch, parts
 
 

@@ -12,6 +12,8 @@ other noise than an unbroken one.)
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -21,6 +23,23 @@ from x2i_torch.core.checkpointing import CheckpointManager
 from x2i_torch.core.profiling import StepTimer, trace
 
 log = logging.getLogger("x2i_torch.train")
+
+
+@contextlib.contextmanager
+def frozen_heap():
+    """Inside the block, the objects that exist on entry (the modules,
+    their parameters, the optimizer state) are kept out of the
+    collector's generations (``gc.freeze``), and on exit they are given
+    back. A full collection that a data loader's objects trigger inside a
+    step then walks only what was made since; at full width, walking the
+    whole trainer took 0.25 s in one data-fed step in three on an H100.
+    Garbage is collected first, so that none is held for the block."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
 
 
 def step_noise(seed: int, step: int) -> int:
@@ -38,7 +57,9 @@ class TrainLoop:
     latest step directory there (the state filled in place, its tensors
     on their devices), saves every ``checkpointing_steps`` steps and at
     the end of ``run``, and keeps the newest ``max_to_keep``. The steps in
-    ``trace_steps`` (none by default) are traced into ``trace_dir``."""
+    ``trace_steps`` (none by default) are traced into ``trace_dir``.
+    ``run`` keeps the objects that exist when it starts out of the
+    garbage collector's walks (``frozen_heap``)."""
 
     def __init__(self, step_fn: Callable, state, batches: Iterable,
                  log_every: int = 50, seed: int = 0,
@@ -66,6 +87,10 @@ class TrainLoop:
                 log.info("resumed from step %s", self.state.step)
 
     def run(self, max_steps: int) -> Dict[str, Any]:
+        with frozen_heap():
+            return self._run(max_steps)
+
+    def _run(self, max_steps: int) -> Dict[str, Any]:
         timer = StepTimer(warmup=1)
         last: Dict[str, Any] = {}
         it = iter(self.batches)

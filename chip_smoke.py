@@ -93,6 +93,23 @@ Phases, each printing one JSON line per record:
    teacher then student, with exact launch counts per step; a 2+2-block
    full-width DiT holds the conditioning gradient of the kernel route
    (K1 with the lse, K3, K4) against the plain attention's;
+5p. parallel: the parallel layer in its one-process form (one process
+   holds every member of an axis; the process form is
+   tests/test_torch_parallel_ranks.py: gloo on the CPU, NCCL on a
+   machine with four cards). On the distillation
+   trainer, before it is freed: two steps through ``TrainLoop`` on
+   ``make_mesh()`` (the 1 x 1 x 1 mesh over NCCL) bit for bit two without
+   a mesh, and the disaggregated pools on cuda:0 (the first loss against
+   the colocated step's within rtol 1e-4, then three steps from
+   ``train_stream``). Then ring-kernels: the ring of 4 at (1, 24, 4608,
+   128) against K1 with the lse and K3/K4 on the whole sequence, and at
+   2048^2 rings of 4 (K1 with the lse) and 2 (K2 with the lse) against K2,
+   exact launch counts, each ring's time beside the whole kernel's;
+   ring-image: a 2048^2 image under ``ring_sequence`` on a ring of 4
+   (3648 K1-lse launches) against a ring of one; pipeline-forward: the
+   DiT at 1024^2, batch 2, through ``flux_pipeline_forward`` on 4 stages
+   against the plain forward; mesh serving: ``with_mesh`` generate at
+   512^2, batch 2, bit for bit the plain one;
 5d. data-train: the same trainer fed from two caption-only tar shards
    (no PIL on the card's machine): one warm-up and six steps through
    ``DistillDataModule.train_loader`` (the native tar reader, which must
@@ -2040,7 +2057,7 @@ def quantized_step_launches(n2: int, n1: int, mode: str = "w8a8"):
                    9 + 12 * (n2 - 2) + 5 * n1 + 1))
 
 
-def phase_distill(pipe, lm, seed: int, card: str):
+def phase_distill(pipe, lm, seed: int, card: str, after=None):
     """Phase-1 distillation at full width and depth, batch 1, bf16, on the
     pipeline's DiT and LM weights (the DiT set to the trainer's config:
     remat on, rope outside the kernel, no fused glue; set back after).
@@ -2048,7 +2065,8 @@ def phase_distill(pipe, lm, seed: int, card: str):
     learning rate is 0) and three timed steps, each teacher then student,
     every launch count set to 0 just before each step and read just after.
     Checks: loss and grad_norm finite, grad_norm > 0, the proj changed by
-    every timed step, the launch counts exact."""
+    every timed step, the launch counts exact. ``after(teacher_fn,
+    student_fn, state, batch)`` runs on the trainer before it is freed."""
     import torch
     from x2i_torch.train.harness import build_random_distill
     from x2i_torch.train.runner import step_noise
@@ -2101,6 +2119,8 @@ def phase_distill(pipe, lm, seed: int, card: str):
                "launches_per_step": DISTILL_LAUNCHES,
                "remat": pipe.flux.cfg.remat, "card": card}
     emit(summary)
+    if after is not None:
+        state = after(teacher_fn, student_fn, state, batch)
     del state, parts, batch, teacher_fn, student_fn
     pipe.flux.replace_config(remat=False, rope_in_kernel=True,
                              fused_glue=True)
@@ -5544,6 +5564,437 @@ def phase_tts(spk, stream_s: float, seed: int, card: str):
     del tts, dvae, voc, pipe, cache
     return counts
 
+# ------------------------------------------------------------- parallel
+# The parallel layer on one card, in its one-process form: one process
+# holds every member of an axis (``parallel/axis.py::LocalAxis``).
+
+RING = 4                       # members of the ring and stages of the pipe
+RING_HEADS, RING_D = 24, 128
+# bars set from the card's measurement (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700 W), a few times what it gave: the ring against the whole
+# kernels, both bf16 with f32 accumulators. o: 9.8e-4 max and 4.5e-5 mean
+# absolute error; lse 3.8e-6 (log2 units); dq, dk, dv 5.3e-3 max and
+# 1.7e-4 mean of the largest |gradient|; the 2048^2 ring image 8.3e-3
+# relative L2 (mean 0.72 levels) from the ring of one's; the pipelined
+# forward bit for bit the plain one
+RING_O_MAX, RING_O_MEAN = 4e-3, 2e-4
+RING_LSE_MAX = 5e-5
+RING_GRAD_REL_MAX, RING_GRAD_REL_MEAN = 1.5e-2, 1e-3
+RING_IMAGE_REL_L2 = 2.5e-2
+PIPE_REL_L2 = 1e-3
+
+
+def ring_launches(n: int, kv_tokens: int, backward: bool = False) -> dict:
+    """One ring attention's launches: n^2 pair forwards (K1 with the lse,
+    or K2 with the lse above 8192 kv tokens a shard) and, backward, n^2
+    K3 and K4."""
+    fwd = "flash_chunked" if kv_tokens > 8192 else "flash_fwd_lse"
+    want = dict(NO_LAUNCHES, **{fwd: n * n})
+    if backward:
+        want.update(flash_bwd_dq=n * n, flash_bwd_dkv=n * n)
+    return want
+
+
+def _ring_record(label, ring, s, **fields):
+    return {"phase": "parallel", "check": "ring-kernels", "case": label,
+            "ring": ring, "shape": [1, RING_HEADS, s, RING_D],
+            "shard": s // ring, **fields}
+
+
+def check_ring_kernels(g, recs):
+    """``ring-kernels``: the ring of ``ops/ring_attention.py`` on the
+    card's kernels against the whole sequence's. (1, 24, 4608, 128) over a
+    ring of 4 (1152-token shards): o and lse against K1 with the lse on
+    the whole sequence, dq, dk, dv (the reverse ring, K3 and K4 a pair)
+    against K3 and K4 on it; at 2048^2 (16,896 tokens), forward only, a
+    ring of 4 (4224-token shards, K1 with the lse) and a ring of 2 (8448,
+    K2 with the lse) against K2 with the lse on the whole sequence. Each
+    ring's launches are counted; its time (``kernel_ms``) stands beside
+    the whole kernel's, the ring's plain pair functions', SDPA's, and the
+    whole sequence's bound (the ring does the same work in n^2 launches
+    and the merges). -> {run label: launches}."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+    from x2i_torch.ops import ring_attention as ra
+    from x2i_torch.parallel.axis import LocalAxis
+
+    dev = torch.device("cuda")
+
+    def randn(s):
+        return torch.randn((1, s, RING_HEADS, RING_D), generator=g,
+                           device=dev, dtype=torch.bfloat16)
+
+    runs = {}
+    s = 512 + (1024 // 16) ** 2
+    axis = LocalAxis(RING, "tensor")
+    q, k, v, do = (randn(s) for _ in range(4))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    o_w, lse_w = fa.flash_forward_lse(qt, kt, vt)
+    grads_w = fa.flash_backward(qt, kt, vt, None, o_w, lse_w, dot)
+    reset_counts()
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    o_r = ra.ring_attention(*ins, axis)
+    grads_r = torch.autograd.grad(o_r, ins, do)
+    torch.cuda.synchronize()
+    runs["ring-4608"] = counts = launch_counts()
+    _, lse_r = ra.ring_forward_lse(qt, kt, vt, axis)
+    diff = (o_r.float() - o_w.transpose(1, 2).float()).abs()
+    errs = [_rel_errors(a, b.transpose(1, 2))
+            for a, b in zip(grads_r, grads_w)]
+    lib_in = [x.contiguous() for x in (qt, kt, vt, dot)]
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c)
+
+    def sdpa_fb(a, b, c, d):
+        args = [t.detach().requires_grad_() for t in (a, b, c)]
+        return torch.autograd.grad(sdpa(*args), args, d)
+
+    flops = 4.0 * s * s * RING_D * RING_HEADS
+    fwd = _ring_record(
+        "DiT 1024^2, ring of 4, forward", RING, s,
+        kernel="flash_fwd_lse", max_abs_err=diff.max().item(),
+        mean_abs_err=diff.mean().item(),
+        lse_max_abs_err=(lse_r - lse_w).abs().max().item(),
+        ms=kernel_ms(lambda *t: ra.ring_forward_lse(*t, axis), qt, kt, vt),
+        whole_ms=kernel_ms(fa.flash_forward_lse, qt, kt, vt),
+        plain_ms=kernel_ms(lambda *t: ra.ring_forward_lse(
+            *t, axis, implementation="plain"), qt, kt, vt),
+        library_ms=kernel_ms(sdpa, *lib_in[:3]),
+        library="SDPA forward on the whole sequence (no lse output)")
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        flops, nbytes(qt, kt, vt, o_w, lse_w))
+    rate(fwd, flops)
+    res = (o_w, lse_w, dot)
+
+    def ring_bwd(*t):
+        return ra.ring_grads(*t, axis)
+
+    bwd = _ring_record(
+        "DiT 1024^2, ring of 4, backward", RING, s,
+        kernel="flash_bwd_dq+flash_bwd_dkv",
+        max_abs_err=max((a.float() - b.transpose(1, 2).float()).abs().max()
+                        .item() for a, b in zip(grads_r, grads_w)),
+        max_rel_err=max(e[0] for e in errs),
+        mean_rel_err=max(e[1] for e in errs),
+        ms=kernel_ms(ring_bwd, qt, kt, vt, *res),
+        whole_ms=kernel_ms(lambda a, b, c, o, l, d: fa.flash_backward(
+            a, b, c, None, o, l, d), qt, kt, vt, *res),
+        plain_ms=kernel_ms(lambda *t: ra.ring_grads(
+            *t, axis, implementation="plain"), qt, kt, vt, *res),
+        library_ms=kernel_ms(sdpa_fb, *lib_in) - kernel_ms(sdpa,
+                                                           *lib_in[:3]),
+        library="SDPA backward: forward + backward by autograd minus the "
+                "forward")
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        14.0 * s * s * RING_D * RING_HEADS,
+        nbytes(qt, kt, vt, dot, o_w, lse_w, lse_w, *grads_w))
+    rate(bwd, 14.0 * s * s * RING_D * RING_HEADS)
+    fwd["launches"] = bwd["launches"] = counts
+    for rec in (fwd, bwd):
+        emit(rec)
+    want = ring_launches(RING, s // RING, backward=True)
+    if not (counts == want and fwd["max_abs_err"] <= RING_O_MAX
+            and fwd["mean_abs_err"] <= RING_O_MEAN
+            and fwd["lse_max_abs_err"] <= RING_LSE_MAX
+            and bwd["max_rel_err"] <= RING_GRAD_REL_MAX
+            and bwd["mean_rel_err"] <= RING_GRAD_REL_MEAN
+            and all(bool(torch.isfinite(t).all()) for t in (o_r, *grads_r))):
+        raise AssertionError(f"ring-kernels at {s} tokens: {fwd} {bwd} "
+                             f"(launches expected {want})")
+    recs.setdefault("flash_fwd_lse", []).append(dict(fwd, case=fwd["case"]))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        recs.setdefault(name, []).append(dict(bwd, case=bwd["case"]))
+    del q, k, v, do, qt, kt, vt, dot, o_w, lse_w, grads_w, o_r, grads_r
+    del ins, lib_in, res
+    torch.cuda.empty_cache()
+
+    s = 512 + (2048 // 16) ** 2
+    q, k, v = (randn(s).transpose(1, 2) for _ in range(3))
+    o_w, lse_w = fa.flash_forward_chunked(q, k, v, return_lse=True)
+    lib_in = [x.contiguous() for x in (q, k, v)]
+    flops = 4.0 * s * s * RING_D * RING_HEADS
+    whole_ms = kernel_ms(lambda *t: fa.flash_forward_chunked(
+        *t, return_lse=True), q, k, v)
+    library_ms = kernel_ms(sdpa, *lib_in)
+    for ring in (RING, 2):
+        axis = LocalAxis(ring, "tensor")
+        reset_counts()
+        o_r, lse_r = ra.ring_forward_lse(q, k, v, axis)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs[f"ring-2048-{ring}"] = counts
+        diff = (o_r.float() - o_w.float()).abs()
+        kernel = "flash_chunked" if s // ring > 8192 else "flash_fwd_lse"
+        rec = _ring_record(
+            f"DiT 2048^2, ring of {ring}, forward", ring, s, kernel=kernel,
+            max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+            lse_max_abs_err=(lse_r - lse_w).abs().max().item(),
+            ms=kernel_ms(lambda *t: ra.ring_forward_lse(*t, axis), q, k, v),
+            whole_ms=whole_ms, whole="K2 with the lse on the whole sequence",
+            # the plain pair functions' f32 scores at 2048^2 would take
+            # 3.4 GB a pair (ring of 4), 13.7 GB (ring of 2): timed at 1024^2
+            plain_ms=None, library_ms=library_ms,
+            library="SDPA forward on the whole sequence (no lse output)",
+            launches=counts)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            flops, nbytes(q, k, v, o_w, lse_w))
+        rate(rec, flops)
+        emit(rec)
+        want = ring_launches(ring, s // ring)
+        if not (counts == want and rec["max_abs_err"] <= RING_O_MAX
+                and rec["mean_abs_err"] <= RING_O_MEAN
+                and rec["lse_max_abs_err"] <= RING_LSE_MAX
+                and bool(torch.isfinite(o_r).all())):
+            raise AssertionError(f"ring-kernels at {s} tokens: {rec} "
+                                 f"(launches expected {want})")
+        recs.setdefault(kernel, []).append(dict(rec))
+        del o_r, lse_r, diff
+    del q, k, v, o_w, lse_w, lib_in
+    torch.cuda.empty_cache()
+    return runs
+
+
+def ring_image(pipe, seed: int, card: str):
+    """``ring-image``: a 2048^2, 4-step bf16 image with ``ring_sequence``
+    over a ring of 4 (every attention 16 pairs of 4224 tokens, K1 with the
+    lse), against the same pipeline with a ring of one member (the whole
+    attention, K2) from the same seed and noise. Both take the unfused
+    glue and the norm and rope outside the kernel, so that the attention's
+    decomposition is the only difference. The DiT's serving config is set
+    back after. -> {label: launches}."""
+    import numpy as np
+    import torch
+    from x2i_torch.parallel.axis import LocalAxis
+
+    px, steps = 2048, 4
+    flux = pipe.flux
+    req = {"task": "text2image", "prompt": PROMPTS[0]}
+    size = dict(height=px, width=px, num_steps=steps)
+    out, runs = {}, {}
+    flux.replace_config(ring_sequence=True)
+    try:
+        for ring in (RING, 1):
+            flux.set_ring_axis(LocalAxis(ring, "tensor"))
+            reset_counts()
+            t0 = time.perf_counter()
+            out[ring] = pipe.run_task(**req, seed=seed, **size)
+            out[f"s{ring}"] = time.perf_counter() - t0
+            runs[ring] = launch_counts()
+    finally:
+        flux.set_ring_axis(None)
+        flux.replace_config(ring_sequence=False)
+    a, b = (x.astype(np.float32) for x in (out[RING], out[1]))
+    levels = np.abs(a - b)
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    blocks = flux.cfg.num_layers + flux.cfg.num_single_layers
+    want = {RING: dict(NO_LAUNCHES, flash_fwd=24,
+                       flash_fwd_lse=blocks * RING * RING * steps),
+            1: dict(NO_LAUNCHES, flash_fwd=24,
+                    flash_chunked=blocks * steps)}
+    rec = {"phase": "parallel", "check": "ring-image", "px": px,
+           "steps": steps, "ring": RING, "s_per_image_ring": out[f"s{RING}"],
+           "s_per_image_ring_of_one": out["s1"],
+           "first_call": "each image is its route's first (no warm-up)",
+           "image_shape": list(out[RING].shape),
+           "max_level_diff": float(levels.max()),
+           "mean_level_diff": float(levels.mean()), "rel_l2": rel,
+           "launches": runs[RING], "launches_ring_of_one": runs[1],
+           "card": card}
+    emit(rec)
+    if (runs[RING] != want[RING] or runs[1] != want[1]
+            or out[RING].shape != (1, px, px, 3) or rel > RING_IMAGE_REL_L2
+            or float(a.std()) == 0.0):
+        raise AssertionError(f"ring-image is wrong: {rec} (launches "
+                             f"expected {want})")
+    return {"ring-image": runs[RING], "ring-image-1": runs[1]}
+
+
+def pipeline_forward(pipe, seed: int, card: str):
+    """``pipeline-forward``: one full-width DiT forward at 1024^2, batch 2,
+    through ``flux_pipeline_forward`` on 4 local stages (19 double blocks
+    padded to 20, 38 single to 40; one sample a microbatch), against the
+    plain forward on the same inputs, with the serving config (K1a, K5).
+    -> {label: launches}."""
+    import torch
+    from x2i_torch.diffusion.sampling import prepare_latent_image_ids
+    from x2i_torch.models.flux import flux_pipeline_forward
+    from x2i_torch.parallel.axis import LocalAxis
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    px, b = 1024, 2
+    s_img = (px // 16) ** 2
+    args = (rnd(b, s_img, 64), rnd(b, 512, 4096), rnd(b, 768),
+            torch.full((b,), 0.75, device=dev),
+            prepare_latent_image_ids(px // 8, px // 8, dev),
+            torch.zeros((512, 3), device=dev))
+    axis = LocalAxis(RING, "stage")
+    with torch.inference_mode():
+        reset_counts()
+        got = flux_pipeline_forward(pipe.flux, *args, axis=axis)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        reset_counts()
+        want = pipe.flux(*args)
+        torch.cuda.synchronize()
+        plain_counts = launch_counts()
+        pipe_ms = call_ms(lambda: flux_pipeline_forward(pipe.flux, *args,
+                                                        axis=axis), iters=3)
+        plain_ms = call_ms(lambda: pipe.flux(*args), iters=3)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    n2, n1 = pipe.flux.cfg.num_layers, pipe.flux.cfg.num_single_layers
+    expect = dict(NO_LAUNCHES, flash_fwd_rope=(n2 + n1) * b,
+                  ln_mod=(4 * n2 + n1) * b + 1)
+    rec = {"phase": "parallel", "check": "pipeline-forward", "px": px,
+           "batch": b, "stages": RING,
+           "padded_layers": [-(-n2 // RING) * RING, -(-n1 // RING) * RING],
+           "pipeline_ms": pipe_ms, "plain_ms": plain_ms, "rel_l2": rel,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "finite": bool(torch.isfinite(got).all()), "launches": counts,
+           "launches_plain": plain_counts, "card": card}
+    emit(rec)
+    if not (rec["finite"] and rel <= PIPE_REL_L2 and counts == expect):
+        raise AssertionError(f"pipeline-forward is wrong: {rec} (launches "
+                             f"expected {expect})")
+    return {"pipeline-forward": counts}
+
+
+def mesh_serving(pipe, seed: int):
+    """``mesh`` (serving): ``make_mesh()`` without torchrun's environment
+    is the 1 x 1 x 1 mesh over NCCL; ``with_mesh`` generate at 512^2,
+    batch 2, equals the plain generate bit for bit. The group is
+    destroyed after."""
+    import numpy as np
+    import torch.distributed as dist
+    from x2i_torch.core.mesh import make_mesh
+
+    mesh = make_mesh()
+    try:
+        reqs = [{"prompt": p} for p in PROMPTS[:2]]
+        size = dict(height=512, width=512, num_steps=4, seed=seed)
+        want = pipe.run_batch(reqs, **size)
+        got = pipe.with_mesh(mesh).run_batch(reqs, **size)
+        rec = {"phase": "parallel", "check": "mesh-serving",
+               "backend": dist.get_backend(),
+               "mesh": list(mesh.mesh.shape),
+               "axes": list(mesh.mesh_dim_names),
+               "image_shape": list(got.shape),
+               "bit_equal": bool(np.array_equal(got, want))}
+    finally:
+        dist.destroy_process_group()
+    emit(rec)
+    if not (rec["bit_equal"] and rec["mesh"] == [1, 1, 1]
+            and rec["backend"] == "nccl" and rec["image_shape"][0] == 2):
+        raise AssertionError(f"mesh serving is wrong: {rec}")
+
+
+def parallel_training(teacher_fn, student_fn, state, batch, seed: int,
+                      card: str):
+    """The parallel phase's training checks on the distillation phase's
+    full-width trainer (its split step): ``mesh`` -- two steps through
+    ``TrainLoop(mesh=make_mesh())`` (the 1 x 1 x 1 mesh over NCCL) equal
+    two without a mesh, bit for bit (the proj and the optimizer state);
+    ``disaggregated`` -- the one-process pools with both on cuda:0: the
+    first step's loss against the colocated step's from the same draws
+    (rtol 1e-4, JAX's bar), then three steps through ``train_stream``
+    (the teacher in the loader's thread). The state is set back to where
+    it was before each run."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+    from x2i_torch.core.checkpointing import fill, to_tree
+    from x2i_torch.core.mesh import make_mesh
+    from x2i_torch.parallel.disaggregated import DisaggregatedDistill
+    from x2i_torch.train.runner import TrainLoop, step_noise
+
+    def step_fn(s, b, noise):
+        return student_fn(s, b, teacher_fn(b, noise), noise)
+
+    start = to_tree(state)
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    try:
+        runs = []
+        for m in (mesh, None):
+            state = fill(state, start)
+            TrainLoop(step_fn, state, itertools.repeat(batch), seed=seed,
+                      mesh=m, log_every=1).run(state.step + 2)
+            runs.append(to_tree(state))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    rec = {"phase": "parallel", "check": "mesh-train", "backend": backend,
+           "steps": 2, "bit_equal": _tree_bytes_equal(*runs),
+           "max_abs_diff": _tree_max_diff(*runs),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not rec["bit_equal"]:
+        raise AssertionError(f"TrainLoop(mesh=) differs from TrainLoop: "
+                             f"{rec}")
+
+    t0 = time.perf_counter()
+    state = fill(state, start)
+    noise = step_noise(seed, 100)
+    _, colocated = step_fn(state, batch, noise)
+    colocated = float(colocated["loss"])
+    state = fill(state, start)
+    dd = DisaggregatedDistill(teacher_fn, student_fn, None, None, state,
+                              n_infer_devices=1,
+                              devices=["cuda:0", "cuda:0"])
+    first = float(dd.step(dd.train_batch(batch), dd.teacher_step(batch,
+                                                                 noise),
+                          noise)["loss"])
+    stream, step_s = [], []
+    t1 = time.perf_counter()
+    for i, (tb, tout) in enumerate(dd.train_stream(
+            itertools.repeat(batch, 3), (step_noise(seed, 101 + j)
+                                         for j in itertools.count()))):
+        stream.append(float(dd.step(tb, tout, step_noise(seed, 101 + i))
+                            ["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+    rec = {"phase": "parallel", "check": "disaggregated",
+           "pools": [dd.infer.size, dd.train.size],
+           "devices": [str(d) for d in dd.infer.devices + dd.train.devices],
+           "colocated_loss": colocated, "first_loss": first,
+           "rel_diff": abs(first - colocated) / abs(colocated),
+           "stream_losses": stream, "stream_step_s": step_s,
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(rec)
+    state = fill(dd.state, start)
+    if not (rec["rel_diff"] <= 1e-4 and len(stream) == 3
+            and all(math.isfinite(x) for x in stream)):
+        raise AssertionError(f"the disaggregated pools are wrong: {rec}")
+    return state
+
+
+def phase_parallel(pipe, seed: int, card: str, t_train: float):
+    """The parallel phase's checks after the training ones
+    (``parallel_training``, ``t_train`` s): ring-kernels, ring-image,
+    pipeline-forward and mesh serving; then the phase's summary with its
+    seconds. -> (kernel records, {run label: launches})."""
+    import torch
+    t0 = time.perf_counter()
+    recs = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 190)
+    runs = check_ring_kernels(g, recs)
+    runs.update(ring_image(pipe, seed, card))
+    runs.update(pipeline_forward(pipe, seed, card))
+    mesh_serving(pipe, seed)
+    emit({"phase": "parallel-summary", "seconds": time.perf_counter() - t0
+          + t_train, "training_s": t_train, "card": card})
+    return recs, runs
+
+
 # the kernels line: (name, route, source, TPU kernel it replaces, main path
 # whose launches it reports -- one image, one 32k-token encode, or one
 # timed training step --, the record whose times it reports)
@@ -5610,7 +6061,20 @@ def main(argv=None) -> int:
     launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
-    launches_distill, _ = phase_distill(pipe, lm, args.seed, smi)
+    train_s = []
+
+    def parallel_train(*trainer):
+        t0 = time.perf_counter()
+        state = parallel_training(*trainer, args.seed, smi)
+        train_s.append(time.perf_counter() - t0)
+        return state
+
+    launches_distill, _ = phase_distill(pipe, lm, args.seed, smi,
+                                        after=parallel_train)
+    par_recs, launches_parallel = phase_parallel(pipe, args.seed, smi,
+                                                 train_s[0])
+    for name, rows in par_recs.items():
+        recs.setdefault(name, []).extend(rows)
     launches_data, _ = phase_data_train(pipe, lm, args.seed, smi)
     launches_eval = phase_eval(pipe, args.seed, smi)
     launches_lc, control = phase_lightcontrol(pipe, bf16_pixels, args.seed,
@@ -5642,7 +6106,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w8a8": launches_lc_train_w8a8,
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "long-prompt": launches_long, **launches_ckpt,
-            **launches_registry}
+            **launches_registry, **launches_parallel}
 
     table = []
     for name, route, source, replaces, run, main in KERNEL_TABLE:

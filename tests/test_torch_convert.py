@@ -326,8 +326,8 @@ def test_proj_plan_matches_jax_converter(tmp_path, form):
 # separate parameter dtype, the decode side's quantized LM, the VAE
 # encoder's input channels, the prompt length of the generation config
 JAX_ONLY = {"param_dtype", "use_pallas_attention", "shard_activations",
-            "shard_sequence", "ring_sequence", "single_scan_chunks",
-            "rope_layout", "quantized", "in_channels"}
+            "shard_sequence", "single_scan_chunks", "rope_layout",
+            "quantized", "in_channels"}
 
 
 def _common(t, j) -> bool:
@@ -371,6 +371,12 @@ def test_flux_vae_scheduler_readers_match_jax(tmp_path):
     jspec = jcfg.MODEL_REGISTRY["x2i-internvl2.5-1b"]
     assert _common(thf.flux_config_from_dir(root, spec.flux),
                    jhf.flux_config_from_dir(root, jspec["flux"]))
+    # the reader carries the base's ring_sequence, as JAX's does
+    ring = dataclasses.replace(spec.flux, ring_sequence=True)
+    assert _common(thf.flux_config_from_dir(root, ring),
+                   jhf.flux_config_from_dir(root, dataclasses.replace(
+                       jspec["flux"], ring_sequence=True)))
+    assert thf.flux_config_from_dir(root, ring).ring_sequence
     vae = thf.vae_config_from_dir(root)
     assert _common(vae, jhf.vae_config_from_dir(root))
     assert vae.shift_factor == 0.0 and not vae.use_mid_attention

@@ -3,10 +3,13 @@
 Own copies of the dataclasses of ``x2i_tpu/core/config.py`` (and of the
 T5 and CLIP configs of ``x2i_tpu/models/t5.py`` and ``clip.py``) that the
 serving paths, the two trainers (phase-1 distillation, phase-2
-LightControl) and the CLIP scorer read, with torch dtypes. Only the
-fields these paths use are here: no ring or sharding fields, no
-``single_scan_chunks`` and no ``remat="stack"`` (XLA scan memory
-devices, not ported).
+LightControl), the CLIP scorer and the parallel layer read, with torch
+dtypes. Only the fields these paths use are here: ``MeshConfig`` and
+``FluxConfig.ring_sequence`` (ring attention over the model's tensor
+axis, ``ops/ring_attention.py``), but not ``shard_activations`` or
+``shard_sequence`` (XLA placement constraints, which need DTensor plans
+here), no ``single_scan_chunks`` and no ``remat="stack"`` (XLA scan
+memory devices, not ported).
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -111,6 +114,10 @@ class FluxConfig:
     rope_in_kernel: bool = True      # rotate q/k inside the attention
                                      # kernel; False rotates them before
                                      # (the trainer's setting)
+    ring_sequence: bool = False      # ring attention over the model's
+                                     # tensor axis (``ring_axis``): the
+                                     # qk norm and the rope outside the
+                                     # kernels, the glue unfused
 
     def __post_init__(self):
         quant_mode(self.quantized)
@@ -126,10 +133,25 @@ class FluxConfig:
 
     @property
     def glue(self):
-        """The fused glue mode: None (unfused), "ln" or "quant"."""
-        if not self.fused_glue:
+        """The fused glue mode: None (unfused: also under
+        ``ring_sequence``, as JAX's ``_use_fused_glue``), "ln" or
+        "quant"."""
+        if not self.fused_glue or self.ring_sequence:
             return None
         return "quant" if self.quantized in ACT_QUANT_MODES else "ln"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh's axes (``core/mesh.py``): data (the batch), fsdp
+    (parameter and optimizer-state shards, ZeRO's) and tensor (heads, or
+    the ring's sequence shards). -1 takes the devices the other axes
+    leave."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    axis_names: Tuple[str, ...] = ("data", "fsdp", "tensor")
 
 
 @dataclass(frozen=True)

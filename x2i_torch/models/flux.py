@@ -31,6 +31,7 @@ glue route, with precomputed mods and under the per-block checkpoint.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -46,7 +47,9 @@ from x2i_torch.ops.fused_glue import (gelu_quant, ln_mod, ln_mod_quant,
 from x2i_torch.ops.kd import kl_term, quantize_kd_tensor
 from x2i_torch.ops.norms import layer_norm, rms_norm
 from x2i_torch.ops.quant import make_linear
+from x2i_torch.ops.ring_attention import ring_attention
 from x2i_torch.ops.rope import apply_rope_half, flux_rope_freqs_half
+from x2i_torch.parallel.pipeline import pipeline_apply
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -118,10 +121,23 @@ def _attn_out(cfg, glue, layer, attn):
     return layer(attn)
 
 
-def _roped_attention(cfg, q, k, v, rope, qk_norm):
+def _roped_attention(cfg, q, k, v, rope, qk_norm, ring_axis=None):
     """Joint attention of (B, S, H, D) q/k/v with the rope tables inside
     the kernel, or applied here first when ``cfg.rope_in_kernel`` is off
-    (the qk norm is then never folded: see ``_fold_qk``)."""
+    (the qk norm is then never folded: see ``_fold_qk``). Under
+    ``cfg.ring_sequence`` the qk norm and the rope are applied here and the
+    attention goes around the ring of ``ring_axis`` (JAX's ``_ring`` over
+    the mesh's tensor axis); a ring of one member (or none) is the
+    ordinary attention."""
+    if cfg.ring_sequence:
+        if qk_norm is not None:
+            qw, kw, eps = qk_norm
+            q, k = rms_norm(q, qw, eps), rms_norm(k, kw, eps)
+        q, k = apply_rope_half(q, *rope), apply_rope_half(k, *rope)
+        if ring_axis is None or ring_axis.size == 1:
+            return attention(q, k, v, implementation=cfg.attention_impl)
+        return ring_attention(q, k, v, ring_axis,
+                              implementation=cfg.attention_impl)
     if not cfg.rope_in_kernel:
         q, k = apply_rope_half(q, *rope), apply_rope_half(k, *rope)
         rope = None
@@ -150,8 +166,17 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _run_block(cfg, blk, *args, **kw):
+    """One block, recomputed in the backward under ``cfg.remat``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(blk, *args, use_reentrant=False, **kw)
+    return blk(*args, **kw)
+
+
 class FluxDoubleBlock(nn.Module):
     """Dual-stream MMDiT block: joint attention over cat(txt, img)."""
+
+    ring_axis = None                 # the ring under cfg.ring_sequence
 
     def __init__(self, cfg: FluxConfig, device=None):
         super().__init__()
@@ -218,7 +243,7 @@ class FluxDoubleBlock(nn.Module):
         # joint attention: text tokens first, then image tokens
         attn = _roped_attention(cfg, torch.cat([cq, q], 1),
                                 torch.cat([ck, k], 1), torch.cat([cv, v], 1),
-                                rope, qk_norm)
+                                rope, qk_norm, self.ring_axis)
         attn = attn.reshape(b, s_txt + s_img, heads * hd)
         txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
 
@@ -242,6 +267,8 @@ class FluxDoubleBlock(nn.Module):
 class FluxSingleBlock(nn.Module):
     """Single-stream block: parallel attention + MLP with one fused output
     projection over cat(attn, mlp)."""
+
+    ring_axis = None                 # the ring under cfg.ring_sequence
 
     def __init__(self, cfg: FluxConfig, device=None):
         super().__init__()
@@ -278,8 +305,8 @@ class FluxSingleBlock(nn.Module):
         else:
             q, k = self.q_norm(q), self.k_norm(k)
         v = self.v(x).view(b, s, heads, hd)
-        attn = _roped_attention(cfg, q, k, v, rope, qk_norm).reshape(
-            b, s, heads * hd)
+        attn = _roped_attention(cfg, q, k, v, rope, qk_norm,
+                                self.ring_axis).reshape(b, s, heads * hd)
         if glue == "quant":
             # two pre-quantized chunks, K-slices of the one output weight
             impl = cfg.quant_impl
@@ -321,6 +348,15 @@ class FluxTransformer2D(nn.Module):
         self.proj_out = _linear(cfg, dim, cfg.patch_size ** 2
                                 * cfg.in_channels, device)
 
+    def set_ring_axis(self, axis) -> "FluxTransformer2D":
+        """The ring of ``cfg.ring_sequence`` (a ``parallel/axis.py`` axis,
+        e.g. a mesh's tensor axis, or None), set on every block; returns
+        the model."""
+        for mod in self.modules():
+            if isinstance(mod, (FluxDoubleBlock, FluxSingleBlock)):
+                mod.ring_axis = axis
+        return self
+
     def replace_config(self, **changes) -> "FluxTransformer2D":
         """Set fields of the config of this model and of every block in
         place (e.g. a trainer's ``remat``, ``rope_in_kernel`` and
@@ -330,6 +366,25 @@ class FluxTransformer2D(nn.Module):
             if isinstance(getattr(mod, "cfg", None), FluxConfig):
                 mod.cfg = self.cfg
         return self
+
+    def _embed(self, hidden_states, encoder_hidden_states, pooled, timestep,
+               img_ids, txt_ids, guidance):
+        """-> (hidden, encoder, temb, rope): the embedders' outputs and the
+        rope tables of the joint sequence (text first)."""
+        cfg = self.cfg
+        hidden = self.x_embedder(hidden_states.to(cfg.dtype))
+        encoder = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
+        temb = self._temb(timestep, pooled, guidance)
+        rope = flux_rope_freqs_half(torch.cat([txt_ids, img_ids]),
+                                    cfg.axes_dims_rope)
+        return hidden, encoder, temb, rope
+
+    def _head(self, hidden, temb, glue):
+        """AdaLayerNormContinuous (diffusers chunks SCALE first, then
+        shift) and the output projection."""
+        scale, shift = self.norm_out(F.silu(temb)).chunk(2, dim=-1)
+        return self.proj_out(_norm_modulate(self.cfg, glue, hidden, shift,
+                                            scale))
 
     def _temb(self, timestep, pooled, guidance):
         cfg = self.cfg
@@ -402,16 +457,11 @@ class FluxTransformer2D(nn.Module):
                 return tuple(t.select(axis, i) for t in stack)
             return stack.select(axis, i)
 
-        def run(blk, *args, **kw):
-            if cfg.remat and torch.is_grad_enabled():
-                return checkpoint(blk, *args, use_reentrant=False, **kw)
-            return blk(*args, **kw)
+        run = functools.partial(_run_block, cfg)
 
-        hidden = self.x_embedder(hidden_states.to(cfg.dtype))
-        encoder = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
-        temb = self._temb(timestep, pooled_projections, guidance)
-        rope = flux_rope_freqs_half(torch.cat([txt_ids, img_ids]),
-                                    cfg.axes_dims_rope)
+        hidden, encoder, temb, rope = self._embed(
+            hidden_states, encoder_hidden_states, pooled_projections,
+            timestep, img_ids, txt_ids, guidance)
 
         m, kd = precomputed_mods, kd_targets
         aux = {"double_img": [], "double_txt": [], "single": []}
@@ -435,11 +485,7 @@ class FluxTransformer2D(nn.Module):
                                kd["single"], i))
             aux["single"].append(a)
         hidden = joint[:, encoder.shape[1]:]
-
-        # AdaLayerNormContinuous: diffusers chunks SCALE first, then shift
-        scale, shift = self.norm_out(F.silu(temb)).chunk(2, dim=-1)
-        output = self.proj_out(_norm_modulate(cfg, glue, hidden, shift,
-                                              scale))
+        output = self._head(hidden, temb, glue)
         if kd_targets is not None:
             kl = sum(torch.stack(aux[key]).sum()
                      for key in ("double_img", "double_txt", "single"))
@@ -451,3 +497,58 @@ class FluxTransformer2D(nn.Module):
                 return torch.stack(ys, axis)
             return output, {key: stack(ys) for key, ys in aux.items()}
         return output
+
+
+def _pad_layers(layers, n_stages: int) -> list:
+    """``layers`` padded with identity layers (None) to a multiple of
+    ``n_stages`` (JAX's ``_pad_layer_stack``: 19 doubles over 4 stages
+    become 20)."""
+    return list(layers) + [None] * (-len(layers) % n_stages)
+
+
+def flux_pipeline_forward(model: FluxTransformer2D, hidden_states,
+                          encoder_hidden_states, pooled_projections,
+                          timestep, img_ids, txt_ids, *, axis,
+                          guidance=None):
+    """The DiT's forward with its block stacks pipelined over the stages of
+    ``axis`` (GPipe, ``parallel/pipeline.py``), the counterpart of JAX's
+    ``flux_pipeline_forward``. The embedders and the head run replicated;
+    the double and the single stack each go through ``pipeline_apply``,
+    one sample a microbatch, a stack that does not divide the stages
+    padded with identity layers. The serving path (no controls, no KD
+    outputs): the velocity equals ``model(...)`` to float precision."""
+    cfg = model.cfg
+    glue = cfg.glue
+    hidden, encoder, temb, rope = model._embed(
+        hidden_states, encoder_hidden_states, pooled_projections, timestep,
+        img_ids, txt_ids, guidance)
+    s_txt = encoder.shape[1]
+
+    def micro(x):
+        return [x[i:i + 1] for i in range(x.shape[0])]
+
+    def double_stage(chunk, act):
+        h, e, tb = act
+        for blk in chunk:
+            if blk is not None:
+                h, e, _ = _run_block(cfg, blk, h, e, tb, rope, glue=glue)
+        return h, e, tb
+
+    def single_stage(chunk, act):
+        x, tb = act
+        for blk in chunk:
+            if blk is not None:
+                x, _ = _run_block(cfg, blk, x, tb, rope, glue=glue)
+        return x, tb
+
+    outs = pipeline_apply(double_stage,
+                          _pad_layers(model.double_blocks, axis.size),
+                          list(zip(micro(hidden), micro(encoder),
+                                   micro(temb))), axis)
+    outs = pipeline_apply(single_stage,
+                          _pad_layers(model.single_blocks, axis.size),
+                          [(torch.cat([e, h], 1), tb) for h, e, tb in outs],
+                          axis)
+    hidden = torch.cat([x for x, _ in outs])[:, s_txt:]
+    temb = torch.cat([tb for _, tb in outs])
+    return model._head(hidden, temb, glue)

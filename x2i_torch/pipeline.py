@@ -148,6 +148,8 @@ class X2IPipeline:
     # LightControl's branches (set by with_controls)
     control_bank: Optional[ControlBank] = None
     control_cfg: Optional[ControlNeXtConfig] = None
+    # data-parallel serving (set by with_mesh): the mesh's data axis
+    data_axis: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -177,6 +179,28 @@ class X2IPipeline:
         their residuals to the double blocks at every step."""
         return dataclasses.replace(self, control_bank=bank,
                                    control_cfg=control_cfg)
+
+    def with_mesh(self, mesh) -> "X2IPipeline":
+        """Data-parallel serving over ``mesh`` (``core/mesh.py``), one
+        process a rank: the DiT's, the VAE's and the bank's parameters are
+        replicated (rank 0's broadcast to every rank, as JAX places them
+        replicated; the encoder and the proj run whole on every rank) and
+        ``generate`` splits each batch over the data axis, every rank
+        drawing the whole batch's noise from the one seed and keeping its
+        share, and returns the whole batch on every rank, as JAX returns
+        the global array. Batches must be multiples of the data axis's
+        size. Under ``ring_sequence`` the DiT's ring is the mesh's tensor
+        axis (set on the shared DiT)."""
+        from x2i_torch.core.mesh import mesh_axis
+        if torch.distributed.get_world_size() > 1:
+            for mod in (self.flux, self.vae, self.control_bank):
+                for t in ([] if mod is None else
+                          [*mod.parameters(), *mod.buffers()]):
+                    torch.distributed.broadcast(t.data, 0)
+        data = mesh_axis(mesh, "data")
+        if self.flux.cfg.ring_sequence:
+            self.flux.set_ring_axis(mesh_axis(mesh, "tensor"))
+        return dataclasses.replace(self, data_axis=data)
 
     @torch.inference_mode()
     def _generate(self, noise: torch.Tensor, prompt_embeds: torch.Tensor,
@@ -234,9 +258,24 @@ class X2IPipeline:
         noise = torch.randn((prompt_embeds.shape[0], s_img,
                              self.flux.cfg.in_channels), generator=gen,
                             device=self.device, dtype=torch.bfloat16)
-        pixels = self._generate(noise, prompt_embeds, pooled, height, width,
-                                num_steps, control_pixels)
-        return postprocess(pixels).cpu().numpy()
+        data = self.data_axis
+        if data is None or data.size == 1:
+            pixels = self._generate(noise, prompt_embeds, pooled, height,
+                                    width, num_steps, control_pixels)
+            return postprocess(pixels).cpu().numpy()
+        if noise.shape[0] % data.size:
+            raise ValueError(f"serving batch {noise.shape[0]} must be a "
+                             f"multiple of the mesh data axis ({data.size})")
+        from x2i_torch.core.mesh import take_share
+
+        def mine(x):
+            return None if x is None else take_share(x, data.rank, data.size)
+
+        pixels = self._generate(mine(noise), mine(prompt_embeds),
+                                mine(pooled), height, width, num_steps,
+                                mine(control_pixels))
+        images = postprocess(pixels)
+        return data.gather([images], 0).cpu().numpy()
 
     def run_task(self, task: str, prompt: Optional[str] = None,
                  images: Optional[Sequence] = None,

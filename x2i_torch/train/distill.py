@@ -16,7 +16,11 @@ holds the proj module itself, updated in place. ``jax.random`` keys become
 ``noise``: an int seeds a ``torch.Generator`` on the latents' device, or a
 tensor of packed latents (B, S_img, C*4) is used as it is, which is how
 the tests feed both packages the same latents (the two generators draw
-different numbers).
+different numbers). A ``StepShard`` (``core/mesh.py``) is one data rank's
+share of a data-parallel step: the whole batch's latents are drawn from
+its seed and the rank keeps its share, and the student's gradients are
+averaged over the data ranks before the optimizer (what XLA inserts for
+JAX), exact for the KD loss, a sum of per-block ``batchmean`` KL terms.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from torch import nn
 
 from x2i_torch.core.config import DistillConfig, FluxConfig
+from x2i_torch.core.mesh import StepShard
 from x2i_torch.diffusion.sampling import (pack_latents,
                                           prepare_latent_image_ids)
 from x2i_torch.ops.kd import kl_term
@@ -107,13 +112,19 @@ def make_latents(noise, batch_size: int, flux_cfg: FluxConfig,
                  dcfg: DistillConfig, device) -> torch.Tensor:
     """The step's packed noise latents (B, S_img, C*4) in the DiT's dtype:
     ``noise`` as given if it is a tensor, else drawn in f32 from a
-    ``torch.Generator`` on ``device`` seeded with the int ``noise``."""
+    ``torch.Generator`` on ``device`` seeded with the int ``noise`` (with
+    a ``StepShard``: the share of the whole batch's draw)."""
     if isinstance(noise, torch.Tensor):
         return noise.to(device, flux_cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(int(noise))
-    lat = torch.randn((batch_size, flux_cfg.in_channels // 4,
+    share = noise if isinstance(noise, StepShard) else None
+    seed = int(noise) if share is None else share.seed
+    whole = batch_size * (1 if share is None else share.count)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lat = torch.randn((whole, flux_cfg.in_channels // 4,
                        dcfg.latent_height, dcfg.latent_width),
                       generator=gen, device=device, dtype=torch.float32)
+    if share is not None:
+        lat = share.take(lat)
     return pack_latents(lat).to(flux_cfg.dtype)
 
 
@@ -213,6 +224,8 @@ def make_student_step(flux: nn.Module, optimizer: DistillOptimizer,
                 loss = kd_loss(teacher_aux, student_aux, dcfg.kd_temperature,
                                layout="scan")
             grads = torch.autograd.grad(loss, params)
+        if isinstance(noise, StepShard):
+            grads = noise.mean(grads)
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
         state.opt_state = optimizer.update(params, grads, state.opt_state)
         state.step += 1

@@ -19,7 +19,12 @@ on the device, or a dict of tensors gives them as they are, which is how
 the tests feed JAX's draws to the port (``jax.random`` and torch draw
 different numbers): "density" (B,) the normals of the timestep density,
 "noise" (B, C, h, w) the latent noise, "vae" (B, h, w, C) the VAE's
-sampling noise (unused when the batch carries ``latents``).
+sampling noise (unused when the batch carries ``latents``). A
+``StepShard`` (``core/mesh.py``) is one data rank's share of a
+data-parallel step: each draw is made for the whole batch from its seed,
+in the one-process order, and the rank keeps its share; the gradients are
+averaged over the data ranks before the optimizer, exact for this loss (a
+mean over the batch).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 
 from x2i_torch.core.config import (FluxConfig, LightControlConfig,
                                    SchedulerConfig)
+from x2i_torch.core.mesh import StepShard
 from x2i_torch.diffusion.sampling import (pack_latents,
                                           prepare_latent_image_ids,
                                           unpack_latents)
@@ -41,7 +47,7 @@ from x2i_torch.models.controlnext import ControlBank, apply_control_bank
 from x2i_torch.train.optim import AdamW, OptState, global_norm
 from x2i_torch.train.optim8bit import AdamW8bit
 
-Draws = Union[int, Dict[str, torch.Tensor]]
+Draws = Union[int, StepShard, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -93,15 +99,22 @@ def make_lightcontrol_step(flux: nn.Module,
     def step_fn(state: ControlTrainState, batch, draws: Draws):
         pixels = batch["style_pixels"].to(device)
         bsz, px_h, px_w = pixels.shape[:3]
-        gen = None
+        gen, share = None, None
+        if isinstance(draws, StepShard):
+            share, draws = draws, draws.seed
         if not isinstance(draws, dict):
             gen = torch.Generator(device=device).manual_seed(int(draws))
+        count = 1 if share is None else share.count
+
+        def mine(whole):
+            return whole if share is None else share.take(whole)
 
         def draw(name, shape):
             if gen is None:
                 return draws[name].to(device, torch.float32)
-            return torch.randn(shape, generator=gen, device=device,
-                               dtype=torch.float32)
+            return mine(torch.randn((shape[0] * count, *shape[1:]),
+                                    generator=gen, device=device,
+                                    dtype=torch.float32))
 
         with torch.no_grad():
             if vae_encode is None:
@@ -113,10 +126,10 @@ def make_lightcontrol_step(flux: nn.Module,
             latents = latents.permute(0, 3, 1, 2)          # NCHW
             h, w = latents.shape[2:]
             noise = draw("noise", tuple(latents.shape))
-            u = compute_density_for_timestep_sampling(
-                bsz, "logit_normal", ccfg.logit_mean, ccfg.logit_std,
+            u = mine(compute_density_for_timestep_sampling(
+                bsz * count, "logit_normal", ccfg.logit_mean, ccfg.logit_std,
                 draws=None if gen is not None else draws["density"],
-                generator=gen, device=device)
+                generator=gen, device=device))
             idx = (u.to(device) * n_train).to(torch.int32).clamp(
                 0, n_train - 1)
             sigmas = sigma_table[idx.long()]
@@ -141,6 +154,8 @@ def make_lightcontrol_step(flux: nn.Module,
             pred = unpack_latents(pred, h * 8, w * 8).float()
             loss = (pred - target).square().reshape(bsz, -1).mean(1).mean()
             grads = torch.autograd.grad(loss, params)
+        if share is not None:
+            grads = share.mean(grads)
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
         state.opt_state = optimizer.update(params, grads, state.opt_state)
         state.step += 1

@@ -58,7 +58,19 @@ Phases, each printing one JSON line per record:
    a TTS tensor) beside the same cut DiT, loaded onto the card and the
    CPU and held equal bit for bit, unread only what JAX leaves unread,
    and its x2image (prompt, image, 5 s of audio) with exact launch
-   counts; then assemble: ``assemble_distill`` on the card from the
+   counts; then cli (``phase_cli``): the port's entry points in this
+   process, ``convert.load.mllm_tokenizer`` giving ``ByteTokenizer`` (the
+   one seam): ``python -m x2i_torch.cli`` text2image at 1024^2 (a prompt
+   of ``prompts.TEXT2IMAGE_MULTILINGUAL``) in w8 and w8a8 with exact
+   launch counts, the w8 PNG's bytes those of the same writer over
+   ``run_task``'s image, audio2image on the MiniCPM-o set from a 5 s WAV,
+   ``multiturn`` (two turns of 8 answer tokens, then ``stop``);
+   ``python -m x2i_torch.convert.cli`` flux --quantize w8a8, vae, mllm
+   and proj, each saved state bit for bit the loader's module; the
+   ComfyUI nodes (``MLLMLoader``, ``ProjLoader`` on an npz of the
+   pipeline's proj, ``MLLMEncode``), the conditioning bit for bit
+   ``pipe.encode`` with 24 K1b launches; then assemble:
+   ``assemble_distill`` on the card from the
    x2i-internvl2.5-1b set with a T5-XXL encoder directory at full width
    cut to 2 blocks and a whole CLIP-L text directory (every tensor read
    bit for bit the one written, nothing unread), 2 ``TrainLoop`` steps
@@ -67,6 +79,19 @@ Phases, each printing one JSON line per record:
    (Qwen2.5-0.5B LM, internvl1b proj, FLUX.1-schnell DiT, FLUX VAE, bf16)
    makes a 1024x1024 image in 4 steps; launch counts prove the route; a
    2+2-block full-width DiT holds the kernel route against the plain one;
+3i. interleaved: the same DiT's q/k channels and qk-norm scales permuted
+   in place back to the checkpoints' interleaved rope layout
+   (``set_rope_layout_``): the same image with the qk norm and the
+   rotation before a no-rope kernel (K1c 228, K1a 0, K5 460), within 2e-2
+   relative L2 of the half layout's pixels; permuted back bit for bit; a
+   2+2-block interleaved DiT holds its kernel route against the plain
+   one;
+3p. proj-variants: at the internvl1b proj's widths over the LM's
+   512-token stack, ``Proj(use_t5=True)`` (2 T5 layers, plain attention
+   under the relative bias: no launch) makes the 1024^2 image with the
+   text image's counts; ``TransformerProj`` in f32 (3 launches of K1's
+   f32 instance a call) against its plain route; ``LegacyProj`` "proj3"
+   in f32, timed;
 4. serve: a BatchingServer over the same pipeline answers 3 concurrent
    requests at 512x512;
 4i. image: InternViT-300M and mlp1 drawn on the card beside the same
@@ -1634,16 +1659,18 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
                       mods_pass: bool = True, joint_tokens: int = 4608,
-                      lm_layers: int = 24):
+                      lm_layers: int = 24, rope_layout: str = "half"):
     """Kernel launches of one image (``steps`` DiT steps, n2 double and n1
     single blocks, the adaLN rows in one pass first, an LM of
     ``lm_layers``) or, with ``mods_pass=False`` and the LM's count left
     out, of one DiT call that computes its mods inline. Above 8192 joint
-    tokens the DiT's attention is K2 (norm and rope outside), else K1a.
+    tokens the DiT's attention is K2 (norm and rope outside), else K1a, or
+    in the interleaved rope layout K1c (norm and rope outside).
     w4 adds one dequantize launch per dense call; w4a8 counts w8a8's
     products on its GEMM; w8's products are plain (no kernel)."""
     lm = lm_layers if mods_pass else 0    # one K1b per LM layer
-    dit = "flash_chunked" if joint_tokens > 8192 else "flash_fwd_rope"
+    dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
+           if rope_layout == "interleaved" else "flash_fwd_rope")
     want = dict(NO_LAUNCHES, flash_fwd=lm)
     want[dit] = (n2 + n1) * steps
     # the adaLN mod layers (2 per double block, 1 per single): once per
@@ -1676,7 +1703,8 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
 
 
 def check_routes(seed: int, px: int = 512,
-                 label: str = "text2image-reference", bank=None):
+                 label: str = "text2image-reference", bank=None,
+                 rope_layout: str = "half"):
     """Agreement with a reference on a small input: a full-width DiT cut to
     2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
     text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
@@ -1686,7 +1714,9 @@ def check_routes(seed: int, px: int = 512,
     in f32; K1 rounds q/k once after norm, rope and scale), so they agree
     to bf16 accuracy, not bit for bit: relative L2 error at most 2e-2.
     ``bank``: LightControl's branches on a px^2 guidance image drawn from
-    the seed give both routes the same controls (its first two rows)."""
+    the seed give both routes the same controls (its first two rows).
+    ``rope_layout="interleaved"``: both in that layout (the kernel route
+    K1c, the qk norm and the rotation outside it)."""
     import dataclasses
 
     import torch
@@ -1697,7 +1727,7 @@ def check_routes(seed: int, px: int = 512,
 
     dev = torch.device("cuda")
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
-                               num_single_layers=2)
+                               num_single_layers=2, rope_layout=rope_layout)
     g = torch.Generator(device=dev).manual_seed(seed)
     kern = random_init_(FluxTransformer2D(
         dataclasses.replace(base, fused_glue=True), dev), g)
@@ -1726,13 +1756,15 @@ def check_routes(seed: int, px: int = 512,
         want = plain(*args, **kw).float()
     rel = ((got - want).norm() / want.norm()).item()
     rec = {"phase": label, "blocks": [2, 2], "controls": bank is not None,
-           "tokens": [s_img, 512], "rel_l2_err": rel,
+           "rope_layout": rope_layout, "tokens": [s_img, 512],
+           "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
            "kernel_launches": used}
     emit(rec)
     want_used = expected_launches(False, 1, 2, 2, mods_pass=False,
-                                  joint_tokens=s_img + 512)
+                                  joint_tokens=s_img + 512,
+                                  rope_layout=rope_layout)
     if not (rec["finite"] and rel <= 2e-2 and used == want_used):
         raise AssertionError(f"kernel route disagrees with the plain route: "
                              f"{rec}")
@@ -1896,6 +1928,143 @@ def phase_text2image(seed: int):
                              f"!= {want}")
     check_routes(seed)
     return pipe, lm, counts, pixels, dit_state
+
+
+def phase_interleaved(pipe, bf16_pixels, seed: int, card: str):
+    """The interleaved rope layout on phase 3's full-depth bf16 DiT with
+    its fused glue: its q/k channels and qk-norm scales permuted back in
+    place to the checkpoints' interleaved order (``set_rope_layout_``),
+    the same 1024^2 image with exact launch counts (K1c 228: the qk norm
+    and the rotation before a kernel without rope; K1a 0; K5 460), its
+    pixels within 2e-2 relative L2 of the half layout's and its levels'
+    max and mean difference; permuted back, every moved tensor bit for bit
+    as before; then a 2 + 2-block full-width interleaved DiT holds its
+    kernel route against its plain route. -> the image's launch counts."""
+    import torch
+    from x2i_torch.models.flux import QK_LINEARS, QK_NORMS, set_rope_layout_
+    from x2i_torch.models.vae import postprocess
+
+    flux = pipe.flux
+    names = set(QK_LINEARS) | set(QK_NORMS)
+    before = {k: v.clone() for k, v in flux.state_dict().items()
+              if k.split(".")[-2] in names}
+    set_rope_layout_(flux, "interleaved")
+    want = expected_launches(False, 4, rope_layout="interleaved")
+    try:
+        rec, pixels, counts = run_image(pipe, seed, "interleaved", want)
+    finally:
+        set_rope_layout_(flux, "half")
+    state = flux.state_dict()
+    moved = [k for k, v in before.items() if not torch.equal(state[k], v)]
+    got, ref = pixels.float(), bf16_pixels.float()
+    levels = (postprocess(pixels).int() - postprocess(bf16_pixels).int()
+              ).abs().float()
+    rec.update(card=card, rel_l2_vs_half=((got - ref).norm() / ref.norm())
+               .item(), level_diff_max=levels.max().item(),
+               level_diff_mean=levels.mean().item(),
+               qk_tensors_permuted=len(before), restored=not moved)
+    emit(rec)
+    del before, state
+    if not (counts == want and rec["rel_l2_vs_half"] <= 2e-2 and not moved
+            and flux.cfg.rope_layout == "half"):
+        raise AssertionError(f"the interleaved image is wrong: {rec}")
+    check_routes(seed, label="interleaved-reference",
+                 rope_layout="interleaved")
+    return counts
+
+
+TPROJ = dict(d_model=896, n_heads=14, out_dim1=768, out_dim2=4096,
+             num_layers=3, ffn_dim=2048)   # Transformer_proj at 0.5B widths
+TPROJ_REL_L2 = 1e-2          # K1's f32 instance rounds q, k, v to bf16
+
+
+def phase_proj_variants(pipe, seed: int, card: str):
+    """The proj's variants at the internvl1b proj's widths over the 0.5B
+    LM's 512-token stack (C = 25, H = 896): ``Proj(use_t5=True)`` with 2
+    T5 layers of 12 x 64 heads (its attention takes the relative position
+    bias, so the plain route: it launches nothing) makes one 1024^2 image
+    with the text image's exact counts; ``TransformerProj`` (TPROJ) in
+    f32, its attention K1's f32 instance 3 times a call, its outputs
+    within TPROJ_REL_L2 relative L2 of its plain route's; ``LegacyProj``
+    "proj3" in f32, timed. -> the launch counts of the image and of one
+    ``TransformerProj`` call."""
+    import dataclasses
+
+    import torch
+    from x2i_torch.models.proj import Proj
+    from x2i_torch.models.proj_variants import (LegacyProj,
+                                                LegacyProjConfig,
+                                                TransformerProj)
+    from x2i_torch.params import random_init_
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    cfg = dataclasses.replace(pipe.proj.cfg, use_t5=True, num_layers=2,
+                              num_heads=12, head_dim=64)
+    refined = random_init_(Proj(cfg, dev), g)
+    with torch.inference_mode():
+        stack = pipe.encoder_fn({"task": "text2image", "prompt": PROMPTS[0]})
+        reset_counts()
+        refined(stack)
+        alone = launch_counts()
+        refiner_ms = call_ms(lambda: refined(stack), iters=5)
+    want = expected_launches(False, 4)
+    rec, pixels, counts = run_image(dataclasses.replace(pipe, proj=refined),
+                                    seed, "proj-t5", want)
+    rec.update(card=card, refiner_ms=refiner_ms, stack=list(stack.shape),
+               refiner_launches=sum(alone.values()))
+    emit(rec)
+    if counts != want or any(alone.values()):
+        raise AssertionError(f"the refined proj's image is wrong: {rec}")
+    del refined
+
+    x = stack[:, -1].float()                        # (1, 512, 896)
+    kern = random_init_(TransformerProj(**TPROJ, device=dev), g)
+    plain = TransformerProj(**TPROJ, device=dev, attention_impl="plain")
+    plain.load_state_dict(kern.state_dict())
+    with torch.inference_mode():
+        reset_counts()
+        got = kern(x)
+        tp_counts = launch_counts()
+        want_out = plain(x)
+        plain_counts = launch_counts()
+        kern_ms = call_ms(lambda: kern(x))
+        plain_ms = call_ms(lambda: plain(x))
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(got, want_out)]
+    want_tp = dict(NO_LAUNCHES, flash_fwd_f32=TPROJ["num_layers"])
+    rec = {"phase": "proj-transformer-f32", "card": card, **TPROJ,
+           "tokens": x.shape[1], "ms": kern_ms, "plain_ms": plain_ms,
+           "rel_l2_pooled_seq": rel, "launches": tp_counts,
+           "launches_expected": want_tp,
+           "finite": all(bool(torch.isfinite(t).all()) for t in got)}
+    emit(rec)
+    if not (tp_counts == want_tp and plain_counts == tp_counts
+            and max(rel) <= TPROJ_REL_L2 and rec["finite"]):
+        raise AssertionError(f"TransformerProj's route is wrong: {rec}")
+    del kern, plain
+
+    lcfg = LegacyProjConfig(in_channels=cfg.in_channels,
+                            input_dim=cfg.input_dim, output_dim0=768,
+                            output_dim1=4096, num_heads=12, head_dim=64)
+    legacy = random_init_(LegacyProj(lcfg, "proj3", device=dev), g)
+    xs = stack.float()
+    with torch.inference_mode():
+        reset_counts()
+        pooled, seq = legacy(xs)
+        used = launch_counts()
+        ms = call_ms(lambda: legacy(xs), iters=3)
+    rec = {"phase": "proj-legacy-proj3-f32", "card": card,
+           "t5_layers": lcfg.num_layers, "stack": list(xs.shape), "ms": ms,
+           "shapes": [list(pooled.shape), list(seq.shape)],
+           "finite": bool(torch.isfinite(seq).all()),
+           "launches": sum(used.values())}
+    emit(rec)
+    if not (rec["finite"] and rec["shapes"] == [[1, 768], [1, 512, 4096]]
+            and not any(used.values())):
+        raise AssertionError(f"LegacyProj proj3 is wrong: {rec}")
+    del legacy, xs, stack
+    _free()
+    return {"proj-t5": counts, "transformer-proj": tp_counts}
 
 
 def phase_text2image_2048(pipe, seed: int):
@@ -4213,7 +4382,8 @@ def checkpoint_minicpm(root: str, flux: str, seed: int):
     the LM) and proj bit for bit the CPU copy; unread only the ``tts.``
     tensor, SigLIP's 27th block and Whisper's stored position table; one
     1024^2 x2image (prompt, image, 5 s of audio) with exact launch counts
-    (K1b: 2 LM layers and the resampler). -> its launch counts."""
+    (K1b: 2 LM layers and the resampler). -> (its launch counts, the
+    MiniCPM-o directory, its proj's .bin)."""
     import gc
 
     import torch
@@ -4259,7 +4429,6 @@ def checkpoint_minicpm(root: str, flux: str, seed: int):
             or sum(k.startswith("vpm.") for k in unread) != 16):
         raise AssertionError(f"the MiniCPM-o checkpoint load is wrong: "
                              f"{rec}")
-    pipe.flux.replace_config(fused_glue=True)
     n2, n1 = CKPT_BLOCKS
     want = expected_launches(False, 4, n2=n2, n1=n1,
                              lm_layers=CKPT_MINICPM_LAYERS)
@@ -4278,7 +4447,7 @@ def checkpoint_minicpm(root: str, flux: str, seed: int):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, mllm, proj
 
 
 def _write_json(path, obj):
@@ -4420,7 +4589,6 @@ def phase_checkpoint(seed: int, smi: str):
                 or not rec["vae_encode"]["ok"]):
             raise AssertionError(f"the checkpoint load is wrong: {rec}")
 
-        pipe.flux.replace_config(fused_glue=True)
         n2, n1 = CKPT_BLOCKS
         want = image_launches(n2=n2, n1=n1)
         images, route = media("internvl", seed, 1)
@@ -4441,7 +4609,6 @@ def phase_checkpoint(seed: int, smi: str):
         pipe = build_pipeline_from_checkpoints(*args, tokenizer=tok)
         torch.cuda.synchronize()
         w8_load_s = time.perf_counter() - t0
-        pipe.flux.replace_config(fused_glue=True)
         want = image_launches("w8", n2=n2, n1=n1)
         w8_rec, pixels, counts = run_image(pipe, seed, "checkpoint-image-w8",
                                            want, model=CKPT_MODEL,
@@ -4460,13 +4627,250 @@ def phase_checkpoint(seed: int, smi: str):
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
-        return {"checkpoint": img_rec["launches"],
-                "checkpoint-w8": w8_rec["launches"],
-                "checkpoint-minicpm": checkpoint_minicpm(root, flux, seed),
-                "assemble": phase_assemble(root, flux, mllm, proj, seed,
-                                           smi)}
+        runs = {"checkpoint": img_rec["launches"],
+                "checkpoint-w8": w8_rec["launches"]}
+        runs["checkpoint-minicpm"], mc_mllm, mc_proj = checkpoint_minicpm(
+            root, flux, seed)
+        runs.update(phase_cli(root, flux, mllm, proj, mc_mllm, mc_proj,
+                              seed, smi))
+        runs["assemble"] = phase_assemble(root, flux, mllm, proj, seed, smi)
+        return runs
     finally:
         shutil.rmtree(root)
+
+
+# ------------------------------------------------------- entry points
+
+CLI_LANGUAGE = "DE"            # the text2image bank's prompt of the phase
+CLI_TOKENS = 8                 # answer tokens a chat turn
+
+
+@contextlib.contextmanager
+def byte_tokenizers():
+    """The command-line phase's one seam: ``convert.load.mllm_tokenizer``
+    (which imports transformers, absent on the card's machine) gives the
+    ``ByteTokenizer`` of the model's family while the block runs."""
+    from x2i_torch.convert import load as L
+    real = L.mllm_tokenizer
+    L.mllm_tokenizer = lambda model, path: ByteTokenizer(family_of(model))
+    try:
+        yield
+    finally:
+        L.mllm_tokenizer = real
+
+
+def write_wav(path: str, seed: int):
+    """``clip(seed, AUDIO_SECONDS)`` as 16-bit mono PCM at 16 kHz, through
+    the stdlib ``wave``."""
+    import wave
+
+    import numpy as np
+    pcm = np.clip(np.round(clip(seed, AUDIO_SECONDS) * 32767), -32768,
+                  32767)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.astype(np.int16).tobytes())
+
+
+def run_cli(argv, module: str = "cli"):
+    """``x2i_torch.cli.main(argv)`` (or ``convert.cli``'s) in this
+    process, every count set to 0 just before it -> (its exit code, its
+    seconds, the launch counts just after)."""
+    import importlib
+
+    import torch
+    main = importlib.import_module(f"x2i_torch.{module}").main
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0, launch_counts()
+
+
+def _free():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _states_equal(state, module) -> list:
+    """The keys of ``state`` (CPU tensors) that are not bit for bit
+    ``module``'s state dict entry, and those either side lacks."""
+    import torch
+    want = module.state_dict()
+    bad = sorted(set(state) ^ set(want))
+    return bad + [k for k in state if k in want and not (
+        state[k].dtype == want[k].dtype
+        and torch.equal(state[k], want[k].cpu()))]
+
+
+def phase_cli(root: str, flux: str, mllm: str, proj: str, mc_mllm: str,
+              mc_proj: str, seed: int, card: str):
+    """The port's entry points, on the checkpoint phase's full-width
+    x2i-internvl2.5-1b set (DiT cut to CKPT_BLOCKS) and its MiniCPM-o set,
+    each in this process with ``byte_tokenizers`` as the one seam:
+
+    * ``python -m x2i_torch.cli`` text2image at 1024^2 of the text2image
+      bank's CLI_LANGUAGE prompt in the default w8 and in ``--quantize
+      w8a8``, exact launch counts for the cut DiT with its fused glue; the
+      w8 PNG's bytes equal those of ``png_bytes`` over the image that
+      ``build_pipeline_from_checkpoints(...).run_task`` makes in this
+      process at the same seed;
+    * audio2image on the MiniCPM-o set from a 5 s 16 kHz WAV written by
+      ``wave``;
+    * ``multiturn``: two turns, then ``stop``, fed to ``input``:
+      CLI_TOKENS answer tokens and one PNG a turn;
+    * ``python -m x2i_torch.convert.cli`` flux ``--quantize w8a8``, vae,
+      mllm and proj: each ``load_native`` state bit for bit the module
+      ``build_pipeline_from_checkpoints(quantized="w8a8")`` builds, each
+      conversion's seconds;
+    * the ComfyUI nodes: ``MLLMLoader``, ``ProjLoader`` on the npz that
+      ``save_proj_checkpoint`` writes from that pipeline's proj, and
+      ``MLLMEncode``: the conditioning bit for bit ``pipe.encode``, with
+      24 K1b launches.
+
+    -> the launch counts of the runs, by name."""
+    import builtins
+    import os
+
+    import numpy as np
+    import torch
+    from x2i_torch.cli import png_bytes
+    from x2i_torch.convert.cli import load_native
+    from x2i_torch.convert.load import build_pipeline_from_checkpoints
+    from x2i_torch.integrations import comfyui
+    from x2i_torch.prompts import TEXT2IMAGE_MULTILINGUAL
+
+    n2, n1 = CKPT_BLOCKS
+    prompt = TEXT2IMAGE_MULTILINGUAL[CLI_LANGUAGE]
+    paths = (CKPT_MODEL, flux, mllm, proj)
+    ckpt = ["--model", CKPT_MODEL, "--flux_path", flux, "--mllm_path", mllm,
+            "--proj_path", proj, "--seed", str(seed)]
+    out = os.path.join(root, "cli")
+    os.makedirs(out)
+    runs, recs, failed = {}, [], []
+
+    def check(name, ok, rec):
+        rec["ok"] = bool(ok)
+        recs.append(rec)
+        emit(rec)
+        if not ok:
+            failed.append(name)
+
+    with byte_tokenizers():
+        for mode in ("w8", "w8a8"):
+            png = os.path.join(out, f"t2i-{mode}.png")
+            rc, sec, counts = run_cli(["--task", "text2image", "--prompt",
+                                       prompt, "--quantize", mode,
+                                       "--output", png, *ckpt])
+            want = expected_launches(mode, 4, n2=n2, n1=n1)
+            runs[f"cli-{mode}"] = counts
+            check(f"cli-{mode}", rc == 0 and counts == want, {
+                "phase": f"cli-text2image-{mode}", "rc": rc, "seconds": sec,
+                "png_bytes": os.path.getsize(png), "launches": counts,
+                "launches_expected": want, "card": card})
+        pipe = build_pipeline_from_checkpoints(
+            *paths, seed=seed, tokenizer=ByteTokenizer("internvl"))
+        img = pipe.run_task("text2image", prompt=prompt, seed=seed)
+        with open(os.path.join(out, "t2i-w8.png"), "rb") as f:
+            same = f.read() == png_bytes(img[0])
+        check("cli-png", same and img.shape == (1, 1024, 1024, 3), {
+            "phase": "cli-png", "png_equals_run_task": same,
+            "image_std": float(img.std())})
+        del pipe, img
+        _free()
+
+        wav, png = os.path.join(out, "a.wav"), os.path.join(out, "a2i.png")
+        write_wav(wav, seed)
+        rc, sec, counts = run_cli([
+            "--task", "audio2image", "--audio", wav, "--output", png,
+            "--model", MINICPM_MODEL, "--flux_path", flux, "--mllm_path",
+            mc_mllm, "--proj_path", mc_proj, "--seed", str(seed)])
+        want = expected_launches("w8", 4, n2=n2, n1=n1,
+                                 lm_layers=CKPT_MINICPM_LAYERS)
+        runs["cli-audio2image"] = counts
+        check("cli-audio2image", rc == 0 and counts == want, {
+            "phase": "cli-audio2image", "rc": rc, "seconds": sec,
+            "audio_s": AUDIO_SECONDS, "launches": counts,
+            "launches_expected": want})
+        _free()
+
+        lines = iter([PROMPTS[0], "now the same scene at night", "stop"])
+        real_input = builtins.input
+        builtins.input = lambda _="": next(lines)
+        prefix = os.path.join(out, "mt_")
+        try:
+            rc, sec, counts = run_cli(["multiturn", *ckpt, "--max_new_tokens",
+                                       str(CLI_TOKENS), "--output_prefix",
+                                       prefix])
+        finally:
+            builtins.input = real_input
+        want = {k: 2 * v for k, v in expected_launches(
+            "w8", 4, n2=n2, n1=n1, lm_layers=0).items()}
+        pngs = sorted(f for f in os.listdir(out) if f.startswith("mt_"))
+        runs["cli-multiturn"] = counts
+        check("cli-multiturn", rc == 0 and counts == want
+              and pngs == ["mt_1.png", "mt_2.png"], {
+                  "phase": "cli-multiturn", "rc": rc, "seconds": sec,
+                  "turns": 2, "tokens_a_turn": CLI_TOKENS, "pngs": pngs,
+                  "launches": counts, "launches_expected": want})
+        _free()
+
+        conversions = (("flux", flux, ["--quantize", "w8a8"]),
+                       ("vae", flux, []), ("mllm", mllm, []),
+                       ("proj", proj, []))
+        native = {}
+        for kind, src, extra in conversions:
+            dst = os.path.join(out, f"native-{kind}")
+            rc, sec, _ = run_cli([kind, "--src", src, "--dst", dst,
+                                  "--model", CKPT_MODEL, *extra],
+                                 "convert.cli")
+            native[kind] = (rc, sec, dst)
+        pipe = build_pipeline_from_checkpoints(
+            *paths, quantized="w8a8", tokenizer=ByteTokenizer("internvl"))
+        modules = {"flux": pipe.flux, "vae": pipe.vae,
+                   "mllm": pipe.encoder_fn.ctx["vision"], "proj": pipe.proj}
+        for kind, (rc, sec, dst) in native.items():
+            state = load_native(dst)
+            bad = _states_equal(state, modules[kind])
+            check(f"convert-{kind}", rc == 0 and not bad, {
+                "phase": f"cli-convert-{kind}", "rc": rc, "seconds": sec,
+                "tensors": len(state), "bytes": sum(
+                    t.numel() * t.element_size() for t in state.values()),
+                "mismatched": bad[:8]})
+            del state
+
+        npz = os.path.join(out, "proj.npz")
+        comfyui.save_proj_checkpoint(
+            npz, comfyui.proj_config_dict(pipe.proj.cfg), pipe.proj)
+        t0 = time.perf_counter()
+        (encoder,) = comfyui.MLLMLoader().load("internvl2.5", mllm)
+        (node_proj,) = comfyui.ProjLoader().load(npz)
+        load_s = time.perf_counter() - t0
+        reset_counts()
+        ((embeds, extras),), = comfyui.MLLMEncode().encode(encoder, node_proj,
+                                                          prompt)
+        counts = launch_counts()
+        pooled, want_embeds = pipe.encode({"task": "text2image",
+                                           "prompt": prompt})
+        same = (torch.equal(embeds, want_embeds)
+                and torch.equal(extras["pooled_output"], pooled))
+        want = dict(NO_LAUNCHES, flash_fwd=24)
+        runs["comfyui"] = counts
+        check("comfyui", same and counts == want, {
+            "phase": "cli-comfyui", "load_s": load_s,
+            "conditioning_equal": same, "shape": list(embeds.shape),
+            "launches": counts, "launches_expected": want})
+        del pipe, encoder, node_proj, embeds, extras
+        _free()
+    if failed:
+        raise AssertionError(f"the entry points failed: {failed}")
+    return runs
 
 
 # ------------------------------------------------------------ registry
@@ -6057,6 +6461,8 @@ def main(argv=None) -> int:
         return 0
     launches_ckpt = phase_checkpoint(args.seed, smi)
     pipe, lm, launches, bf16_pixels, dit_state = phase_text2image(args.seed)
+    launches_inter = phase_interleaved(pipe, bf16_pixels, args.seed, smi)
+    launches_proj = phase_proj_variants(pipe, args.seed, smi)
     phase_serve(pipe)
     launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048 = phase_text2image_2048(pipe, args.seed)
@@ -6105,7 +6511,8 @@ def main(argv=None) -> int:
             "train-resume": launches_resume,
             "lightcontrol-train-w8a8": launches_lc_train_w8a8,
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
-            "long-prompt": launches_long, **launches_ckpt,
+            "long-prompt": launches_long, "interleaved": launches_inter,
+            **launches_proj, **launches_ckpt,
             **launches_registry, **launches_parallel}
 
     table = []

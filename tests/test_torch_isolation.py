@@ -64,7 +64,21 @@ def test_the_port_has_modules_to_check():
             "x2i_torch/models/vae.py", "x2i_torch/convert/load.py",
             "x2i_torch/core/checkpointing.py", "x2i_torch/core/profiling.py",
             "x2i_torch/train/optim8bit.py", "x2i_torch/train/cli.py",
+            "x2i_torch/cli.py", "x2i_torch/convert/cli.py",
+            "x2i_torch/prompts.py", "x2i_torch/models/proj_variants.py",
+            "x2i_torch/integrations/__init__.py",
+            "x2i_torch/integrations/comfyui.py",
+            "x2i_torch/integrations/comfyui_plugin/__init__.py",
             "chip_smoke.py"} <= names
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """Each .py file of x2i_tpu/ has one of the same path under
+    x2i_torch/ (read as file names only: nothing of JAX is imported)."""
+    def tree(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix()
+                for p in (ROOT / pkg).rglob("*.py")}
+    assert not tree("x2i_tpu") - tree("x2i_torch")
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -159,8 +159,9 @@ def test_streaming_mix_spec_refuses_what_is_not_linear_per_channel():
     refiner = types.SimpleNamespace(cfg=dataclasses.replace(tc, use_t5=True))
     with pytest.raises(ValueError, match="t5"):
         streaming_mix_spec(refiner, 2)
-    with pytest.raises(NotImplementedError):
-        Proj(refiner.cfg)
+    # the refiner is ported; the streamed mix still refuses it
+    with pytest.raises(ValueError, match="t5"):
+        streaming_mix_spec(Proj(refiner.cfg), 2)
 
 
 # ------------------------------- the tiny pipeline above both thresholds

@@ -61,7 +61,8 @@ from x2i_torch.convert.torch_models import (chattts_off_path,
                                             controlnext_plan,
                                             dvae_plan, dvae_quantizer_in,
                                             fill_module, flux_plan,
-                                            internvl_plan, minicpmo_off_path,
+                                            internlm2_plan, internvl_plan,
+                                            minicpmo_off_path,
                                             minicpmo_plan, proj_plan,
                                             qwen2_5_vl_plan, t5_off_path,
                                             t5_plan, vae_plan)
@@ -647,6 +648,30 @@ def load_mllm(model: str, mllm_path: str, tokenizer, device,
                                     minicpmo_off_path(vl_cfg))
 
 
+def load_mllm_encoder(model: str, mllm_path: str, tokenizer, device=None):
+    """``load_mllm``, then its ``mllm_encoder`` over the family's LM and
+    vision module: -> (encoder_fn, the load report)."""
+    vl_cfg, enc, report = load_mllm(model, mllm_path, tokenizer, device)
+    scale = {}                       # MiniCPM-o's slices' side
+    if "internvl" in model:
+        lm, vision = enc.language_model, enc
+    elif "qwenvl" in model:
+        lm, vision = enc.language_model, enc.visual
+    else:
+        lm, vision = enc.llm, enc
+        scale = {"scale_resolution": minicpm_scale_resolution(mllm_path)}
+    return mllm_encoder(model, lm, tokenizer, vl_cfg, vision,
+                        **scale), report
+
+
+def internlm2_params_from_hf(tensors, cfg, device=None):
+    """An InternLM2 checkpoint's (key, tensor) pairs -> (``Qwen2LM`` over
+    ``cfg`` on the device, filled by ``internlm2_plan``, the load
+    report): the counterpart of JAX's ``internlm2_params_from_hf``."""
+    lm = _build(Qwen2LM, cfg, resolve_device(device))
+    return lm, fill_module(lm, tensors, internlm2_plan(cfg))
+
+
 def _weights(path: str):
     """A directory's safetensors, or its ``pytorch_model.bin`` when it has
     none (JAX's ``build_clip_scorer`` reads either)."""
@@ -709,18 +734,22 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
     tokenizer (a callable with ``apply_chat_template`` and
     ``convert_tokens_to_ids``); None loads the one in ``mllm_path``
     through ``transformers``. InternVL's ``<IMG_CONTEXT>`` id is the
-    tokenizer's, as the JAX loader takes it. The pipeline's
-    ``load_report`` gives, per module (flux, vae, proj, mllm), the
-    tensors and bytes read and the keys the port does not read: the
-    tied head, MiniCPM-o's TTS modules, its dropped
-    SigLIP block and Whisper's stored position table."""
+    tokenizer's, as the JAX loader takes it. On the card the DiT serves
+    through the glue kernels (``FluxConfig.fused_glue``, as every serving
+    path of the port does); on the CPU, where they would run as their
+    plain versions, its glue stays unfused, as in JAX's loader. The
+    pipeline's ``load_report`` gives, per module (flux, vae, proj, mllm),
+    the tensors and bytes read and the keys the port does not read: the
+    tied head, MiniCPM-o's TTS modules, its dropped SigLIP block and
+    Whisper's stored position table."""
     dev = resolve_device(device)
     spec = MODEL_REGISTRY[model]
     mode = quant_mode("w8" if quantized is True else quantized)
     report: Dict[str, Any] = {}
 
     flux_cfg = flux_config_from_dir(flux_path, base=spec.flux) or spec.flux
-    flux = _build(FluxTransformer2D, flux_cfg, dev)
+    flux = _build(FluxTransformer2D,
+                  replace(flux_cfg, fused_glue=dev.type == "cuda"), dev)
     report["flux"] = fill_module(
         flux, load_safetensors_dir(os.path.join(flux_path, "transformer")),
         flux_plan(flux_cfg))
@@ -737,22 +766,14 @@ def build_pipeline_from_checkpoints(model: str, flux_path: str,
                for k, v in load_torch_bin(proj_path).items()}
     proj_cfg = proj_config_from_sd(proj_sd, base=spec.proj)
     proj = _build(Proj, proj_cfg, dev)
-    report["proj"] = fill_module(proj, proj_sd.items(), proj_plan(proj_cfg))
+    report["proj"] = fill_module(proj, proj_sd.items(),
+                                 proj_plan(proj_cfg, proj_sd))
     del proj_sd
 
     if tokenizer is None:
         tokenizer = mllm_tokenizer(model, mllm_path)
-    vl_cfg, enc, report["mllm"] = load_mllm(model, mllm_path, tokenizer, dev)
-    scale = {}                       # MiniCPM-o's slices' side
-    if "internvl" in model:
-        lm, vision = enc.language_model, enc
-    elif "qwenvl" in model:
-        lm, vision = enc.language_model, enc.visual
-    else:
-        lm, vision = enc.llm, enc
-        scale = {"scale_resolution": minicpm_scale_resolution(mllm_path)}
-    encoder_fn = mllm_encoder(model, lm, tokenizer, vl_cfg, vision,
-                              **scale)
+    encoder_fn, report["mllm"] = load_mllm_encoder(model, mllm_path,
+                                                   tokenizer, dev)
 
     return X2IPipeline(
         encoder_fn=encoder_fn, proj=proj, flux=flux, vae=vae,

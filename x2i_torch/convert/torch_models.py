@@ -28,7 +28,8 @@ MiniCPM-o's speech modules have their own plans (``chattts_plan``,
 FLUX's q/k projections (weights and biases) and its qk-norm scales leave
 in the half-rope layout (``x2i_torch/ops/rope.py::half_layout_perm`` over
 the channels of each head), as the JAX converter's
-``permute_params_to_half_rope`` leaves them.
+``permute_params_to_half_rope`` leaves them; a config with
+``rope_layout="interleaved"`` takes them as stored.
 """
 
 from __future__ import annotations
@@ -74,18 +75,22 @@ def flux_plan(cfg: FluxConfig) -> Plan:
     x_embedder, context_embedder and proj_out keep their names,
     norm_out.linear -> norm_out (diffusers' (scale, shift) chunk order is
     the model's), time_text_embed.{timestep,text,guidance}_embedder.
-    linear_{1,2} -> {time,pooled,guidance}_embedder.{in,out}_layer."""
+    linear_{1,2} -> {time,pooled,guidance}_embedder.{in,out}_layer. The
+    q/k rows and qk-norm scales are permuted into the half layout only
+    for ``cfg.rope_layout == "half"``."""
     d = cfg.attention_head_dim
     perm = torch.from_numpy(half_layout_perm(d))
     full = torch.cat([h * d + perm for h in range(cfg.num_attention_heads)])
+    half = cfg.rope_layout == "half"
     plan: Plan = {}
 
     def lin(src, dst, rows=None):
         for leaf in ("weight", "bias"):
-            plan[f"{src}.{leaf}"] = (f"{dst}.{leaf}", rows)
+            plan[f"{src}.{leaf}"] = (f"{dst}.{leaf}", rows if half else None)
 
     def norm(src, dst):
-        plan[f"{src}.weight"] = (f"{dst}.scale", _rows(perm))
+        plan[f"{src}.weight"] = (f"{dst}.scale", _rows(perm) if half
+                                 else None)
 
     for i in range(cfg.num_layers):
         s, t = f"transformer_blocks.{i}.", f"double_blocks.{i}."
@@ -249,6 +254,44 @@ def qwen2_plan(cfg: Qwen2Config, body: str = "model.",
                     f"{t}{n}_proj.{leaf}", None)
         for n in ("gate", "up", "down"):
             plan[f"{s}mlp.{n}_proj.weight"] = (f"{t}{n}_proj.weight", None)
+    if not cfg.tie_word_embeddings:
+        plan[head] = ("lm_head.weight", None)
+    return plan
+
+
+def internlm2_plan(cfg: Qwen2Config, body: str = "model.",
+                  head: str = "output.weight") -> Plan:
+    """An InternLM2 checkpoint (InternVL2.5-2B/8B-class LMs) ->
+    ``Qwen2LM``, the counterpart of JAX's ``internlm2_params_from_hf``.
+    InternLM2 packs q, k and v into one ``attention.wqkv`` whose rows are
+    grouped (h_kv, g + 2, d): per kv head, its g query heads, then its key,
+    then its value; they are split here into q_proj, k_proj and v_proj
+    (the query heads in the order kv_head * g + j, the GQA map h -> h //
+    g). tok_embeddings -> embed_tokens, attention_norm / ffn_norm ->
+    input_norm / post_attn_norm, attention.wo -> o_proj, feed_forward.w1 /
+    w3 / w2 -> gate_proj / up_proj / down_proj, norm -> final_norm, an
+    untied ``output`` -> lm_head. The config has no attention bias."""
+    if cfg.attention_bias:
+        raise ValueError("InternLM2 has no q/k/v bias: attention_bias=False")
+    h, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                cfg.head_dim)
+    g = h // hk
+    group = torch.arange(hk * (g + 2) * d).view(hk, g + 2, d)
+    rows = {"q": group[:, :g].reshape(-1), "k": group[:, g].reshape(-1),
+            "v": group[:, g + 1].reshape(-1)}
+    plan: Plan = {f"{body}tok_embeddings.weight": ("embed_tokens.weight",
+                                                   None),
+                  f"{body}norm.weight": ("final_norm.scale", None)}
+    for i in range(cfg.num_hidden_layers):
+        s, t = f"{body}layers.{i}.", f"layers.{i}."
+        plan[s + "attention_norm.weight"] = (t + "input_norm.scale", None)
+        plan[s + "ffn_norm.weight"] = (t + "post_attn_norm.scale", None)
+        plan[s + "attention.wqkv.weight"] = [
+            (f"{t}{n}_proj.weight", _rows(rows[n])) for n in ("q", "k", "v")]
+        plan[s + "attention.wo.weight"] = (t + "o_proj.weight", None)
+        for src, dst in (("w1", "gate"), ("w3", "up"), ("w2", "down")):
+            plan[f"{s}feed_forward.{src}.weight"] = (f"{t}{dst}_proj.weight",
+                                                     None)
     if not cfg.tie_word_embeddings:
         plan[head] = ("lm_head.weight", None)
     return plan
@@ -635,10 +678,19 @@ def clip_off_path(text_only: bool) -> Callable[[str], bool]:
     return off_path
 
 
-def proj_plan(cfg: ProjConfig) -> Plan:
+def proj_plan(cfg: ProjConfig, keys: Iterable[str] = ()) -> Plan:
     """The reference proj (utils/proj.py's state dict, 'module.' prefixes
     stripped) -> ``Proj``, in each of its three forms: a channel scale
-    (``cha_scale``), a conv (``conv``) or neither (a mean)."""
+    (``cha_scale``), a conv (``conv``) or neither (a mean). A proj with the
+    T5 refiner (``cfg.use_t5``, from ``t5stack.`` keys among ``keys``)
+    has no plan: JAX's ``proj_params_from_reference`` reads no
+    ``t5stack.`` key either, and the refiner's layout in such a file is
+    not guessed. Raises ValueError naming those keys."""
+    if cfg.use_t5:
+        t5 = sorted(k for k in keys if k.startswith("t5stack."))
+        raise ValueError(f"proj: no converter for the T5 refiner's "
+                         f"{len(t5)} keys ({t5[:4]}...): JAX's "
+                         f"proj_params_from_reference reads none of them")
     plan: Plan = {}
     if cfg.use_scale:
         plan["cha_scale"] = ("cha_scale", None)

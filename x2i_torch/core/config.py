@@ -118,9 +118,20 @@ class FluxConfig:
                                      # tensor axis (``ring_axis``): the
                                      # qk norm and the rope outside the
                                      # kernels, the glue unfused
+    rope_layout: str = "half"        # "half": q/k channels permuted per
+                                     # head (``ops/rope.py::
+                                     # half_layout_perm``, as the
+                                     # converters leave them), the rotation
+                                     # and the qk norm inside the kernel;
+                                     # "interleaved": diffusers' pairs as
+                                     # stored, the qk norm and the rotation
+                                     # before a kernel without rope
 
     def __post_init__(self):
         quant_mode(self.quantized)
+        if self.rope_layout not in ("half", "interleaved"):
+            raise ValueError(f"rope_layout={self.rope_layout!r}: 'half' or "
+                             f"'interleaved'")
         if self.quant_impl not in ("auto", "plain"):
             raise ValueError(f"quant_impl={self.quant_impl!r}")
         if self.remat not in (False, True):
@@ -168,10 +179,10 @@ class ProjConfig:
     use_scale: bool = False
     use_cnn: bool = True
     num_layers: int = 2               # the T5 refiner's depth, heads and
-    num_heads: int = 12               # head size (the JAX fields; the
-    head_dim: int = 64                # refiner is not ported)
-    use_t5: bool = False              # T5-style refiner stack (not ported:
-                                      # Proj raises; off in shipped configs)
+    num_heads: int = 12               # head size
+    head_dim: int = 64
+    use_t5: bool = False              # T5-style refiner stack over each
+                                      # channel (off in shipped configs)
     dtype: Any = torch.bfloat16
 
 

@@ -1,6 +1,10 @@
 """FLUX-class rectified-flow DiT, the counterpart of
 ``x2i_tpu/models/flux.py``: 19 double-stream blocks, 38 single-stream
-blocks, AdaLN-Zero modulation, 3-axis RoPE in the half layout.
+blocks, AdaLN-Zero modulation, 3-axis RoPE in the half layout (or, with
+``cfg.rope_layout="interleaved"``, in the checkpoints' own pair layout:
+the qk RMSNorm and the rotation then run before an attention kernel
+without rope; ``set_rope_layout_`` permutes a model's q/k channels between
+the two in place).
 
 The JAX blocks run under ``nn.scan`` with stacked parameters; here they are
 ``nn.ModuleList``s, one module per layer (``x2i_torch.params`` unstacks the
@@ -48,7 +52,9 @@ from x2i_torch.ops.kd import kl_term, quantize_kd_tensor
 from x2i_torch.ops.norms import layer_norm, rms_norm
 from x2i_torch.ops.quant import make_linear
 from x2i_torch.ops.ring_attention import ring_attention
-from x2i_torch.ops.rope import apply_rope_half, flux_rope_freqs_half
+from x2i_torch.ops.rope import (apply_rope_half, apply_rope_interleaved,
+                                flux_rope_freqs, flux_rope_freqs_half,
+                                half_layout_perm)
 from x2i_torch.parallel.pipeline import pipeline_apply
 
 
@@ -121,20 +127,30 @@ def _attn_out(cfg, glue, layer, attn):
     return layer(attn)
 
 
+def _rotate(cfg, x, rope):
+    """x (B, S, H, D) rotated by the rope tables in ``cfg.rope_layout``."""
+    if cfg.rope_layout == "interleaved":
+        cos, sin = rope
+        return apply_rope_interleaved(x, cos[:, None, :], sin[:, None, :])
+    return apply_rope_half(x, *rope)
+
+
 def _roped_attention(cfg, q, k, v, rope, qk_norm, ring_axis=None):
     """Joint attention of (B, S, H, D) q/k/v with the rope tables inside
     the kernel, or applied here first when ``cfg.rope_in_kernel`` is off
-    (the qk norm is then never folded: see ``_fold_qk``). Under
-    ``cfg.ring_sequence`` the qk norm and the rope are applied here and the
-    attention goes around the ring of ``ring_axis`` (JAX's ``_ring`` over
-    the mesh's tensor axis); a ring of one member (or none) is the
-    ordinary attention."""
-    if cfg.ring_sequence:
+    (the qk norm is then never folded: see ``_fold_qk``). In the
+    interleaved layout, and under ``cfg.ring_sequence``, the qk norm and
+    the rope are applied here and the attention takes no rope; under
+    ``ring_sequence`` it goes around the ring of ``ring_axis`` (JAX's
+    ``_ring`` over the mesh's tensor axis), where a ring of one member (or
+    none) is the ordinary attention."""
+    if cfg.ring_sequence or cfg.rope_layout == "interleaved":
         if qk_norm is not None:
             qw, kw, eps = qk_norm
             q, k = rms_norm(q, qw, eps), rms_norm(k, kw, eps)
-        q, k = apply_rope_half(q, *rope), apply_rope_half(k, *rope)
-        if ring_axis is None or ring_axis.size == 1:
+        q, k = _rotate(cfg, q, rope), _rotate(cfg, k, rope)
+        if (not cfg.ring_sequence or ring_axis is None
+                or ring_axis.size == 1):
             return attention(q, k, v, implementation=cfg.attention_impl)
         return ring_attention(q, k, v, ring_axis,
                               implementation=cfg.attention_impl)
@@ -147,8 +163,10 @@ def _roped_attention(cfg, q, k, v, rope, qk_norm, ring_axis=None):
 
 def _fold_qk(cfg, glue) -> bool:
     """Whether the qk RMSNorm runs inside the attention kernel: in every
-    fused glue mode, with the rope in the kernel."""
-    return glue is not None and cfg.rope_in_kernel
+    fused glue mode, with the half-layout rope in the kernel (JAX's
+    ``_roped_attention`` applies it outside otherwise)."""
+    return (glue is not None and cfg.rope_in_kernel
+            and cfg.rope_layout == "half")
 
 
 def _block_aux(attns, kd_target, kd_tau, kd_quantize):
@@ -375,8 +393,9 @@ class FluxTransformer2D(nn.Module):
         hidden = self.x_embedder(hidden_states.to(cfg.dtype))
         encoder = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
         temb = self._temb(timestep, pooled, guidance)
-        rope = flux_rope_freqs_half(torch.cat([txt_ids, img_ids]),
-                                    cfg.axes_dims_rope)
+        freqs = (flux_rope_freqs if cfg.rope_layout == "interleaved"
+                 else flux_rope_freqs_half)
+        rope = freqs(torch.cat([txt_ids, img_ids]), cfg.axes_dims_rope)
         return hidden, encoder, temb, rope
 
     def _head(self, hidden, temb, glue):
@@ -497,6 +516,58 @@ class FluxTransformer2D(nn.Module):
                 return torch.stack(ys, axis)
             return output, {key: stack(ys) for key, ys in aux.items()}
         return output
+
+
+# the q/k projections and qk-norm scales of each block, whose channels the
+# rope layouts order differently
+QK_LINEARS = ("q", "k", "img_q", "img_k", "txt_q", "txt_k")
+QK_NORMS = ("q_norm", "k_norm", "img_q_norm", "img_k_norm", "txt_q_norm",
+            "txt_k_norm")
+
+
+@torch.no_grad()
+def set_rope_layout_(model: FluxTransformer2D,
+                     layout: str) -> FluxTransformer2D:
+    """Permute ``model``'s q/k channels in place from its
+    ``cfg.rope_layout`` into ``layout`` ("half" or "interleaved") and set
+    the layout in its config; returns the model. The counterpart of JAX's
+    ``permute_params_to_half_rope`` (from interleaved to half), and its
+    inverse: the output channels of every q and k projection, within each
+    head (a ``QuantLinear``'s codes, its per-channel scales and its bias;
+    nn.Linear's weight rows and bias), and the qk-norm scales, by
+    ``ops/rope.py::half_layout_perm``. Attention outputs are the same in
+    exact arithmetic: the q.k scores do not see a permutation shared by q
+    and k, and v and the outputs keep their order. Going there and back
+    leaves every tensor bit for bit as it was."""
+    cfg = model.cfg
+    if layout not in ("half", "interleaved"):
+        raise ValueError(f"rope layout {layout!r}")
+    if layout == cfg.rope_layout:
+        return model
+    d = cfg.attention_head_dim
+    perm = torch.from_numpy(half_layout_perm(d))
+    if layout == "interleaved":
+        perm = torch.argsort(perm)
+    full = torch.cat([h * d + perm for h in range(cfg.num_attention_heads)])
+
+    def take(t, index, dim):
+        t.copy_(t.index_select(dim, index.to(t.device)))
+
+    for blk in [*model.double_blocks, *model.single_blocks]:
+        for name in QK_LINEARS:
+            lin = getattr(blk, name, None)
+            if lin is None:
+                continue
+            for leaf, dim in (("weight", 0), ("qweight", 0), ("pweight", 0),
+                              ("bias", 0), ("scale", -1), ("mscale", -1)):
+                t = getattr(lin, leaf, None)
+                if isinstance(t, torch.Tensor):
+                    take(t, full, dim)
+        for name in QK_NORMS:
+            norm = getattr(blk, name, None)
+            if norm is not None:
+                take(norm.scale, perm, 0)
+    return model.replace_config(rope_layout=layout)
 
 
 def _pad_layers(layers, n_stages: int) -> list:

@@ -1,12 +1,15 @@
 """Alignment network ("proj", Proj7Exp + MLP3), the counterpart of
-``x2i_tpu/models/proj.py`` without the T5 refiner (off in every shipped
-config).
+``x2i_tpu/models/proj.py``.
 
 The input is the stacked MLLM hidden states (B, C = layers + 1, S, H);
 channels are mixed by a learned per-layer scale, a 5x5 Conv2d(C -> 1), or
 a mean; then an MLP makes the sequence embeds (B, S, 4096) and the pooled
-embeds (B, 768). The proj uses the exact erf form of gelu (torch
-``nn.GELU``'s default), unlike the DiT's tanh form.
+embeds (B, 768). With ``use_t5`` (off in every shipped config) a T5
+encoder stack (``models/t5.py``) refines each channel first, over
+(B * C, S, H); its attention takes a relative position bias, so it runs
+the plain attention, as the bias sends JAX's to XLA. The proj uses the
+exact erf form of gelu (torch ``nn.GELU``'s default), unlike the DiT's
+tanh form.
 
 For long prompts ``streaming_mix_spec`` splits ``Proj.mix`` into one linear
 contribution per channel, which ``Qwen2LM.encode_premixed`` sums while the
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from x2i_torch.core.config import ProjConfig
+from x2i_torch.core.config import ProjConfig, T5Config
+from x2i_torch.models.t5 import T5EncoderStack
 from x2i_torch.ops.norms import layer_norm
 
 
@@ -31,7 +35,11 @@ class Proj(nn.Module):
         self.cfg = cfg
         dt = cfg.dtype
         if cfg.use_t5:
-            raise NotImplementedError("the proj's T5 refiner is not ported")
+            self.t5stack = T5EncoderStack(T5Config(
+                d_model=cfg.input_dim, d_ff=cfg.input_dim * 4,
+                d_kv=cfg.head_dim, num_heads=cfg.num_heads,
+                num_layers=cfg.num_layers, layer_norm_eps=cfg.norm_eps,
+                vocab_size=0, dtype=dt), device)
         if cfg.use_scale:
             self.cha_scale = nn.Parameter(torch.ones(
                 (1, cfg.in_channels, 1, 1), dtype=dt, device=device))
@@ -57,9 +65,13 @@ class Proj(nn.Module):
         return self.mlp(self.mix(x))
 
     def mix(self, x: torch.Tensor) -> torch.Tensor:
-        """Channel mixing (B, C, S, H) -> (B, S, H)."""
+        """Channel mixing (B, C, S, H) -> (B, S, H), after the T5
+        refiner over each channel with ``use_t5``."""
         cfg = self.cfg
         x = x.to(cfg.dtype)
+        if cfg.use_t5:
+            b, c, s, h = x.shape
+            x = self.t5stack(x.reshape(b * c, s, h)).reshape(b, c, s, h)
         if cfg.use_scale:
             return (self.cha_scale * x).mean(dim=1)
         if cfg.use_cnn:

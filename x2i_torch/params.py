@@ -29,9 +29,10 @@ arrays and copies every leaf into the matching PyTorch parameter:
 A vmapped tree (LightControl's ControlNeXt bank) fills one module of an
 ``nn.ModuleList`` per index of its leading axis (``load_flax_bank``).
 
-The FLUX q/k channels stay in the half-RoPE permutation the tree already
-carries. Every parameter and buffer must be filled exactly once and every
-leaf used, or the bridge raises.
+The FLUX q/k channels stay in the layout the tree carries: the half-RoPE
+permutation of JAX's converter, or the stored order of a tree for
+``rope_layout="interleaved"``. Every parameter and buffer must be filled
+exactly once and every leaf used, or the bridge raises.
 """
 
 from __future__ import annotations
@@ -187,6 +188,42 @@ def load_flax(module: nn.Module, tree: Tree) -> nn.Module:
         raise KeyError(f"parameters or buffers the flax tree did not fill: "
                        f"{missing}")
     return module
+
+
+def to_flax(module: nn.Module) -> Dict[str, Any]:
+    """The flax param tree of a float module of parameters, Linear and
+    Conv2d layers and ``nn.ModuleList``s (stacked into a leading axis),
+    float32 numpy leaves: the inverse of ``load_flax`` for such modules
+    (a proj, its T5 refiner). Other layers raise."""
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    def tree(mod):
+        out: Dict[str, Any] = {name: leaf(p) for name, p in
+                               mod.named_parameters(recurse=False)}
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                out[name] = _stack([tree(c) for c in child])
+            elif isinstance(child, (nn.Linear, nn.Conv2d)):
+                w = leaf(child.weight)
+                out[name] = {"kernel": w.T if w.ndim == 2
+                             else w.transpose(2, 3, 1, 0)}
+                if child.bias is not None:
+                    out[name]["bias"] = leaf(child.bias)
+            elif isinstance(child, (QuantLinear, nn.Conv1d, nn.Embedding)):
+                raise NotImplementedError(f"{name}: no flax tree for "
+                                          f"{type(child).__name__}")
+            else:
+                out[name] = tree(child)
+        return out
+
+    return tree(module)
+
+
+def _stack(subs):
+    if isinstance(subs[0], Mapping):
+        return {k: _stack([s[k] for s in subs]) for k in subs[0]}
+    return np.stack(subs)
 
 
 def load_flax_bank(bank: nn.Module, tree: Tree) -> nn.Module:

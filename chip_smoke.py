@@ -23,10 +23,15 @@ Phases, each printing one JSON line per record:
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention; the int8 GEMM at the
-   w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve (its int32
-   sum exact, timed beside the int8 GEMM on its materialized operand and
-   the bf16 product); the w4 dequantize kernel bit for bit at the DiT's
-   weight shapes; K1b also at the registry's larger LMs (16 q on 2 kv
+   w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve, the LM's and
+   two more chunks (its int32 sum exact and its output bit for bit, timed
+   beside the int8 GEMM on its materialized operand and the bf16 product);
+   the w4 dequantize kernel bit for bit at the DiT's weight shapes; the
+   dequantizing GEMM of w4 (groups of 128 and 64) and w8 at the DiT's
+   weights, one and four rows, with and without bias: its converted weight
+   bit for bit the dequantize kernels', its output within two bf16
+   roundings of the plain version's, timed beside cuBLAS on the
+   materialized weight; K1b also at the registry's larger LMs (16 q on 2 kv
    heads and 28 on 4, D = 128, 40 and 400 valid keys) and K2 at the 7B
    LMs' 32k prefill (28 on 4 heads x 128); the int8 GEMM at the int8 7B
    LM's products at one decode row and at the 512-token prefill, and K8
@@ -188,14 +193,16 @@ Phases, each printing one JSON line per record:
 7. w4a8 and w4: the bf16 DiT drawn again from the generator state it was
    drawn from (the same weights), quantized in place to w4a8 and makes
    the same image through K6/K7/K8 and the w4a8 GEMM; then drawn again
-   and quantized to w4, the same image through K5, the w4 dequantize
-   kernel and cuBLAS; each with exact launch counts, its pixels compared
-   with the bf16 ones, and a 2+2-block full-width DiT in the mode holding
-   the kernel route against the plain route on the same int4 weights;
-   then w8 the same way (K5 and the plain dequantizing product); after
-   the w4a8 image, a phase-2 step with 8-bit AdamW on the w4a8 DiT
+   and quantized to w4, the same image through K5 and the dequantizing
+   GEMM; each with exact launch counts, its pixels compared with the bf16
+   ones, and a 2+2-block full-width DiT in the mode holding the kernel
+   route against the plain route on the same int4 weights; then w8 the
+   same way (K5 and the dequantizing GEMM); after the w4a8 and the w4
+   images, a phase-2 step with 8-bit AdamW on that DiT
    (``lightcontrol-train-w4a8``: the w4a8 GEMM and K8 forward, the w4a8
-   dequantize kernel's straight-through backward, exact counts);
+   dequantize kernel's straight-through backward;
+   ``lightcontrol-train-w4``: the dequantizing GEMM forward, the w4
+   dequantize kernel's backward; exact counts);
 8. registry: the five other MODEL_REGISTRY entries at full width and
    depth (LMs of 36 x 2048 and 28 x 3584, the FLUX.1-dev entry in 28
    steps with guidance and dynamic shifting), one 1024^2 image each
@@ -964,6 +971,7 @@ def phase_kernels(seed: int):
     check_gemms(g, rows, recs)
     check_w4a8_gemms(g, rows, recs)
     check_w4_dequant(g, recs)
+    check_dequant_gemms(g, rows, recs)
     check_grad_dequant(g, recs)
     check_straight_through(g)
     return recs
@@ -1307,15 +1315,27 @@ def check_gemms(g, rows, recs):
         recs.setdefault("int8_gemm", []).append(rec)
 
 
+# chunks of the single block's 15360-wide out weight (in/2 = 7680) beside
+# the DiT's two: one in the high half, and one that starts in the low half
+# and ends in the high one off the DiT's split
+W4A8_CHUNKS = (
+    ("single out, a chunk in the high half", 4608, 3072, 3072, 15360, 9216,
+     True, True),
+    ("single out, a chunk across the half", 4608, 4096, 3072, 15360, 5632,
+     True, False))
+
+
 def check_w4a8_gemms(g, rows, recs):
-    """The w4a8 GEMM at the int8 GEMM's twelve shapes, on weights from
-    ``quantize_kernel_w4a8`` (x_embedder's 64 inputs in two groups of 32;
-    the single block's mlp chunk crosses in/2 = 7680): its int32 sum
-    exact, its bf16 output within one bf16 step of the plain version's.
-    No one PyTorch call computes it (``library_ms`` null); beside it, the
-    int8 GEMM on the materialized operand code x m (what the kernel loses
-    to its conversion) and the bf16 ``F.linear``. The bound counts the
-    packed weight at half a byte a code."""
+    """The w4a8 GEMM at the int8 GEMM's twelve shapes and the LM's, and at
+    the chunks of ``W4A8_CHUNKS``, on weights from ``quantize_kernel_w4a8``
+    (x_embedder's 64 inputs in two groups of 32; the single block's mlp
+    chunk crosses in/2 = 7680): its int32 sum exact and its bf16 output,
+    addend and bias included, bit for bit the plain version's (the
+    epilogue's rounding points are the plain version's). No one PyTorch
+    call computes it (``library_ms`` null); beside it, the int8 GEMM on the
+    materialized operand code x m (what the kernel loses to its
+    conversion) and the bf16 ``F.linear``. The bound counts the packed
+    weight at half a byte a code."""
     import torch
     import torch.nn.functional as F
     from x2i_torch.ops import fused_glue as fg
@@ -1324,8 +1344,8 @@ def check_w4a8_gemms(g, rows, recs):
     from x2i_torch.ops.quant import quantize_kernel_w4a8
 
     dev = torch.device("cuda")
-    for label, m, k, n, width, k0, with_add, with_bias in (GEMM_SHAPES
-                                                          + LM_GEMM_SHAPES):
+    for label, m, k, n, width, k0, with_add, with_bias in (
+            GEMM_SHAPES + LM_GEMM_SHAPES + W4A8_CHUNKS):
         width = width or k
         wf = torch.randn((n, width), generator=g, device=dev) / width ** 0.5
         pk, ms, scale = quantize_kernel_w4a8(wf.t())
@@ -1355,7 +1375,6 @@ def check_w4a8_gemms(g, rows, recs):
         got, want = kern(xq, a, pw, *extra), plain(xq, a, pw, *extra)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
-        one_step = bool((diff <= 2.0 ** -7 * want.float().abs()).all())
         codes = i4.w4a8_codes(pw, ms)[:, k0:k0 + k].contiguous()
         xb, wb = xq.to(torch.bfloat16), codes.to(torch.bfloat16)
         rec = {"phase": "kernels", "kernel": "w4a8_gemm", "case": label,
@@ -1363,7 +1382,7 @@ def check_w4a8_gemms(g, rows, recs):
                "groups": ms.shape[0], "acc_exact": acc_exact,
                "max_abs_err": diff.max().item(),
                "mismatches": int((diff > 0).sum()),
-               "within_one_bf16_step": one_step,
+               "bit_for_bit": torch.equal(got, want),
                "ms": kernel_ms(kern, xq, a, pw, *extra),
                "plain_ms": kernel_ms(plain, xq, a, pw, *extra),
                "library_ms": None,
@@ -1381,7 +1400,7 @@ def check_w4a8_gemms(g, rows, recs):
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["vs_int8_gemm"] = rec["ms"] / rec["int8_gemm_ms"]
         emit(rec)
-        if not (acc_exact and one_step):
+        if not (acc_exact and rec["bit_for_bit"]):
             raise AssertionError(f"w4a8 GEMM disagrees with its plain "
                                  f"version: {rec}")
         recs.setdefault("w4a8_gemm", []).append(rec)
@@ -1441,6 +1460,111 @@ def check_w4_dequant(g, recs):
         recs.setdefault("w4_dequant", []).append(rec)
 
 
+# the dequantizing GEMM's products: the w4 / w8 DiT's dense weights of
+# ``DEQUANT_SHAPES`` at the rows that multiply them at 1024^2, and the main
+# weight at one row and at the 4 adaLN rows
+DEQUANT_GEMM_ROWS = {"single mlp_in": 4608, "single out": 4608,
+                     "single q/k/v": 4608, "double img mlp_out": 4096,
+                     "double adaLN mods": 4, "x_embedder": 4096,
+                     "proj_out": 4096, "time in_layer": 1}
+DEQUANT_GEMM_SHAPES = tuple(
+    (label, DEQUANT_GEMM_ROWS[label], inn, n)
+    for label, n, inn in DEQUANT_SHAPES) + (
+    ("single mlp_in, 1 row", 1, 3072, 12288),
+    ("single mlp_in, 4 rows", 4, 3072, 12288))
+DEQUANT_GEMM_MAIN = "single mlp_in"
+# (mode, w4 group) of the checked weights; the first is the main path's
+DEQUANT_GEMM_MODES = (("w4", 128), ("w4", 64), ("w8", None))
+
+
+def check_dequant_gemms(g, rows, recs):
+    """The dequantizing GEMM of the w4 and w8 modes at
+    ``DEQUANT_GEMM_SHAPES`` (groups of 128 and 64 in w4), with the bias of
+    the DiT's layers and, at the main weight, without it: its converted
+    weight, dumped by the kernel, bit for bit the dequantize kernel's
+    (``w4_dequant`` / ``int8_dequant``); its output within the bar of the
+    plain version (f32 sums in another order, then two bf16 roundings, of
+    the product and of the sum with the bias): |got - want| <= 2^-7
+    (|want| + |product|) + 2^-12 max |product|, product the plain output
+    without the bias. No one PyTorch call computes it from the codes
+    (``library_ms`` null); beside it ``F.linear`` on the materialized bf16
+    weight (``linear_ms``) and the dequantize kernel followed by it
+    (``dequant_linear_ms``, the route the w4 mode took before). The bound
+    counts the codes (a byte, or half a byte, a weight) and the scales."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as ig
+    from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4
+
+    dev = torch.device("cuda")
+    for mode, group in DEQUANT_GEMM_MODES:
+        for label, m, inn, n in DEQUANT_GEMM_SHAPES:
+            wf = torch.randn((n, inn), generator=g, device=dev) / inn ** 0.5
+            if mode == "w8":
+                q, scale = quantize_kernel(wf.t())
+                codes, dequant = q.t().contiguous(), ig.int8_dequant
+            else:
+                pk, scale = quantize_kernel_w4(wf.t(), group)
+                codes, dequant = pk.t().contiguous(), i4.w4_dequant
+            del wf
+            x = rows(m, inn)
+            main = label == DEQUANT_GEMM_MAIN and group != 64
+            for bias in ((torch.randn(n, generator=g, device=dev) * 0.1)
+                         .to(torch.bfloat16),) + ((None,) if main else ()):
+                weight = dequant(codes, scale)
+                dumped = i4.dequant_gemm_weight(x, codes, scale, mode)
+                got = i4.dequant_linear(x, codes, scale, bias, mode)
+                want = i4.dequant_linear_plain(x, codes, scale, bias, mode)
+                prod = i4.dequant_linear_plain(x, codes, scale, None, mode)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                bar = (2.0 ** -7 * (want.float().abs() + prod.float().abs())
+                       + 2.0 ** -12 * prod.float().abs().max())
+                rec = {"phase": "kernels", "kernel": "dequant_gemm",
+                       "case": label + ("" if bias is not None
+                                        else ", no bias"),
+                       "mode": mode, "groups": scale.shape[0]
+                       if mode == "w4" else 1, "shape": [m, inn, n],
+                       "weight_bit_for_bit": torch.equal(dumped, weight),
+                       "max_abs_err": diff.max().item(),
+                       "rel_l2_err": ((got.float() - want.float()).norm()
+                                      / want.float().norm()).item(),
+                       "within_bar": bool((diff <= bar).all())}
+                if main:
+                    rec.update({
+                        "ms": kernel_ms(lambda t: i4.dequant_linear(
+                            t, codes, scale, bias, mode), x),
+                        "plain_ms": kernel_ms(lambda t: i4.dequant_linear_plain(
+                            t, codes, scale, bias, mode), x),
+                        "library_ms": None,
+                        "library": "none: no one PyTorch call computes it",
+                        "linear_ms": kernel_ms(
+                            lambda t: F.linear(t, weight, bias), x),
+                        "dequant_linear_ms": kernel_ms(
+                            lambda t: F.linear(t, dequant(codes, scale),
+                                               bias), x)})
+                    rec["bound_ms"], rec["bound_by"] = bound(
+                        2.0 * m * n * inn,
+                        nbytes(x, codes, scale, bias, got))
+                    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+                    rec["tflops"] = 2.0 * m * n * inn / rec["ms"] / 1e9
+                elif m <= 4:
+                    # a few rows: reading the codes bounds it
+                    rec["ms"] = kernel_ms(lambda t: i4.dequant_linear(
+                        t, codes, scale, bias, mode), x)
+                    rec["linear_ms"] = kernel_ms(
+                        lambda t: F.linear(t, weight, bias), x)
+                    rec["bound_ms"], rec["bound_by"] = bound(
+                        2.0 * m * n * inn,
+                        nbytes(x, codes, scale, bias, got))
+                emit(rec)
+                if not (rec["weight_bit_for_bit"] and rec["within_bar"]):
+                    raise AssertionError(f"the dequantizing GEMM disagrees "
+                                         f"with its plain version: {rec}")
+                recs.setdefault("dequant_gemm", []).append(rec)
+
+
 def check_grad_dequant(g, recs):
     """The straight-through backward's dequantize kernels (int8: w8 and
     w8a8; w4a8) at the DiT's weight shapes, 3072 -> 12288 and 12288 ->
@@ -1498,8 +1622,8 @@ STE_SHAPE = (64, 3072, 12288)
 # the launches of its forward and backward on the card, per mode
 STE_LAUNCHES = {
     "w8a8": dict(quant_rows=1, int8_gemm=1, int8_dequant=1),
-    "w8": dict(int8_dequant=1),
-    "w4": dict(w4_dequant=2),
+    "w8": dict(dequant_gemm=1, int8_dequant=1),
+    "w4": dict(dequant_gemm=1, w4_dequant=1),
     "w4a8": dict(quant_rows=1, w4a8_gemm=1, w4a8_dequant=1)}
 
 
@@ -1653,8 +1777,8 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_mod": 0,
                "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0,
-               "w4a8_gemm": 0, "w4_dequant": 0, "int8_dequant": 0,
-               "w4a8_dequant": 0}
+               "w4a8_gemm": 0, "dequant_gemm": 0, "w4_dequant": 0,
+               "int8_dequant": 0, "w4a8_dequant": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
@@ -1666,8 +1790,8 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     out, of one DiT call that computes its mods inline. Above 8192 joint
     tokens the DiT's attention is K2 (norm and rope outside), else K1a, or
     in the interleaved rope layout K1c (norm and rope outside).
-    w4 adds one dequantize launch per dense call; w4a8 counts w8a8's
-    products on its GEMM; w8's products are plain (no kernel)."""
+    w4 and w8 launch the dequantizing GEMM once per dense call; w4a8
+    counts w8a8's products on its GEMM."""
     lm = lm_layers if mods_pass else 0    # one K1b per LM layer
     dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
            if rope_layout == "interleaved" else "flash_fwd_rope")
@@ -1682,11 +1806,11 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     if quantized not in ("w8a8", "w4a8"):
         # per step 4 per double block, 1 per single block, 1 for the head
         want["ln_mod"] = (4 * n2 + n1 + 1) * steps
-        if quantized == "w4":
+        if quantized in ("w4", "w8"):
             # per step 12 per double block, 5 per single (q, k, v, mlp_in,
             # out), the 7 unfused layers and proj_out
-            want["w4_dequant"] = ((12 * n2 + 5 * n1 + 8 + per_step_mods)
-                                  * steps + once)
+            want["dequant_gemm"] = ((12 * n2 + 5 * n1 + 8 + per_step_mods)
+                                    * steps + once)
         return want
     gemm = "w4a8_gemm" if quantized == "w4a8" else "int8_gemm"
     want.update(
@@ -2193,7 +2317,8 @@ DISTILL_LAUNCHES = distill_step_launches(19, 38)
 
 def quantized_step_launches(n2: int, n1: int, mode: str = "w8a8"):
     """The launches of a quantized DiT's kernels (K8, the GEMM and the
-    dequantize kernel of ``mode``) in one training step over n2 double and
+    dequantize kernel of ``mode``; w4: the dequantizing GEMM and the w4
+    dequantize kernel) in one training step over n2 double and
     n1 single blocks, remat on, the glue unfused: -> (the student's
     forward and backward under the KD loss, the same after the teacher's
     forward, a phase-2 step under the velocity's MSE), each {name: count}.
@@ -2213,12 +2338,15 @@ def quantized_step_launches(n2: int, n1: int, mode: str = "w8a8"):
     q, k, v read no control yet), the others their 12 layers but the two
     adaLN rows (temb needs no gradient), each single block its 5 but the
     adaLN rows, and proj_out."""
-    gemm = "w4a8_gemm" if mode == "w4a8" else "int8_gemm"
-    deq = "w4a8_dequant" if mode == "w4a8" else "int8_dequant"
+    gemm, deq = {"w8a8": ("int8_gemm", "int8_dequant"),
+                 "w4a8": ("w4a8_gemm", "w4a8_dequant"),
+                 "w4": ("dequant_gemm", "w4_dequant")}[mode]
     blocks = 14 * n2 + 6 * n1
 
     def counts(fwd, bwd):
-        return {"quant_rows": fwd, gemm: fwd, deq: bwd}
+        # w4 quantizes no activations: its GEMM dequantizes the weight
+        rows = {} if mode == "w4" else {"quant_rows": fwd}
+        return {**rows, gemm: fwd, deq: bwd}
 
     return (counts(8 + 2 * blocks, blocks + 1),
             counts(blocks + 8 + 8 + 2 * blocks, blocks + 1),
@@ -3293,6 +3421,9 @@ LIGHTCONTROL_W8A8_LAUNCHES = dict(LIGHTCONTROL_LAUNCHES, flash_fwd=24,
 LIGHTCONTROL_W4A8_LAUNCHES = dict(
     LIGHTCONTROL_LAUNCHES, flash_fwd=24,
     **quantized_step_launches(19, 38, "w4a8")[2])
+LIGHTCONTROL_W4_LAUNCHES = dict(
+    LIGHTCONTROL_LAUNCHES, flash_fwd=24,
+    **quantized_step_launches(19, 38, "w4")[2])
 RESUME_STEPS, RESUME_AT = 4, 2
 
 
@@ -6423,8 +6554,10 @@ KERNEL_TABLE = (
      0),
     ("w4a8_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:281", "w4a8",
      GEMM_MAIN),
-    ("w4_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:153", "w4",
-     DEQUANT_MAIN),
+    ("dequant_gemm", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:163", "w4",
+     DEQUANT_GEMM_MAIN),
+    ("w4_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:153",
+     "lightcontrol-train-w4", DEQUANT_MAIN),
     ("int8_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:77",
      "train-resume", DEQUANT_MAIN),
     ("w4a8_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:359",
@@ -6498,6 +6631,9 @@ def main(argv=None) -> int:
         pipe, args.seed, smi, "lightcontrol-train-w4a8",
         LIGHTCONTROL_W4A8_LAUNCHES, steps=2)
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    launches_lc_train_w4 = phase_lightcontrol_quant(
+        pipe, args.seed, smi, "lightcontrol-train-w4",
+        LIGHTCONTROL_W4_LAUNCHES, steps=2)
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
     runs = {"bf16": launches, "image": launches_image,
@@ -6511,6 +6647,7 @@ def main(argv=None) -> int:
             "train-resume": launches_resume,
             "lightcontrol-train-w8a8": launches_lc_train_w8a8,
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
+            "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
             **launches_proj, **launches_ckpt,
             **launches_registry, **launches_parallel}
@@ -6530,7 +6667,8 @@ def main(argv=None) -> int:
             "library_ms": top["library_ms"], "shape": top["shape"],
             "main_path": run})
         for extra in ("library", "tflops", "tops", "bound_share",
-                      "call_ms", "int8_gemm_ms"):
+                      "call_ms", "int8_gemm_ms", "linear_ms",
+                      "dequant_linear_ms"):
             if top.get(extra) is not None:
                 table[-1][extra] = top[extra]
         # the kernel's other shapes on the main paths (K1b at the ViT's)

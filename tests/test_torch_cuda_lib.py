@@ -107,14 +107,17 @@ def test_flash_libraries_gate_their_wgmma_kernels():
 
 
 def test_gemm_library_gates_its_wgmma_kernel():
-    """The int8 GEMM and the w4a8 GEMM are built on wgmma; the w4
-    dequantize kernel and the straight-through backward's int8 and w4a8
-    dequantize kernels beside them are gated too."""
+    """The int8 GEMM, the w4a8 GEMM and the dequantizing GEMM of w4 and w8
+    are built on wgmma; the w4 dequantize kernel and the straight-through
+    backward's int8 and w4a8 dequantize kernels beside them are gated
+    too."""
     from x2i_torch.ops import int8_gemm as tgemm
     assert tgemm.GEMM.wgmma_kernels == ("int8_gemm_kernel",
-                                        "w4a8_gemm_kernel")
+                                        "w4a8_gemm_kernel",
+                                        "dequant_gemm_kernel")
     assert tgemm.GEMM.gated_kernels == ("int8_gemm_kernel",
                                         "w4a8_gemm_kernel",
+                                        "dequant_gemm_kernel",
                                         "w4_dequant_kernel",
                                         "int8_dequant_kernel",
                                         "w4a8_dequant_kernel")
@@ -134,9 +137,15 @@ GEMM_KERNELS = tuple(
 W4A8_KERNELS = tuple(
     f"{_GEMM_TU}16w4a8_gemm_kernelILb{a}EEEv14CUtensorMap_stS1_NS_4ArgsE"
     for a in (0, 1))
+# the dequantizing GEMM's instances (w4, w8) in the same library
+DEQUANT_GEMM_KERNELS = tuple(
+    f"{_GEMM_TU}19dequant_gemm_kernelILi{m}EEEv14CUtensorMap_stS1_NS_4ArgsE"
+    for m in (1, 2))
 LIBRARY_KERNELS = {"flash_chunked": (CHUNKED, "flash_chunked_kernel"),
                    "int8_gemm": (GEMM_KERNELS, "int8_gemm_kernel"),
-                   "w4a8_gemm": (W4A8_KERNELS, "w4a8_gemm_kernel")}
+                   "w4a8_gemm": (W4A8_KERNELS, "w4a8_gemm_kernel"),
+                   "dequant_gemm": (DEQUANT_GEMM_KERNELS,
+                                    "dequant_gemm_kernel")}
 
 
 def _library_log(names, spill=None, serialized=None):
@@ -167,9 +176,10 @@ LIBRARY_CASES = {
 @pytest.mark.parametrize("case", list(LIBRARY_CASES))
 @pytest.mark.parametrize("library", list(LIBRARY_KERNELS))
 def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
-    """The build gate on K2's, the int8 GEMM's and the w4a8 GEMM's wgmma
-    instances: a clean log passes, and each fault that leaves them right
-    but slow is named, as for K1, K3 and K4."""
+    """The build gate on K2's, the int8 GEMM's, the w4a8 GEMM's and the
+    dequantizing GEMM's wgmma instances: a clean log passes, and each
+    fault that leaves them right but slow is named, as for K1, K3 and
+    K4."""
     names, gate = LIBRARY_KERNELS[library]
     make, want = LIBRARY_CASES[case]
     faults = cuda_lib.build_faults(make(names), (gate,))

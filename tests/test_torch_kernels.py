@@ -42,7 +42,9 @@ of its packed steps (128 packed bytes give a low and a high K step: a
 chunk in one half, a chunk across it, in/2 of 32 and of 128 bytes, rings
 that wrap, groups of 32 and 48); the w4 dequantize kernel bit for bit
 (one rounding of a product that is exact in f32), and so the
-straight-through backward's int8 and w4a8 dequantize kernels; a
+straight-through backward's int8 and w4a8 dequantize kernels; the
+dequantizing GEMM's converted weight bit for bit the dequantize kernels',
+its output within two bf16 roundings of the plain version's; a
 QuantLinear's straight-through dx in each mode within one bf16 step of
 the largest value of the CPU's (f32 sums in cuBLAS's order). K1's f32
 instance (f32 q, k, v rounded to bf16 on the card, o in f32) within the
@@ -585,9 +587,10 @@ def test_internvit_kernel_route_on_the_card(dev):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
-    q = torch.zeros((1, 2, 128, 64), device=dev)
-    with pytest.raises(ValueError, match="bf16"):
-        tfa.flash_attention(q, q, q)                 # float32
+    # bf16 and, forward only, f32 (its own instance); no other dtype
+    q = torch.zeros((1, 2, 128, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 96, 64), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(q, q, q)                 # 96 % 64 != 0
@@ -1155,6 +1158,69 @@ def test_w4_dequant_kernel_bit_for_bit(dev, n, inn, groups):
                                            t4.w4_dequant_plain(pw, scale))
 
 
+# (M, K, N, w4 group size or None for w8): a lone weight tile and the
+# partner of an odd tile count, one row and 257 (a second token tile), a
+# ring of raw tiles that wraps, groups of 16 (a group a wgmma step)
+DEQUANT_GEMM_CASES = [(1, 64, 8, None), (257, 1024, 136, None),
+                      (300, 3072, 384, 128), (4, 512, 264, 16),
+                      (129, 1536, 256, 64), (64, 15360, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", DEQUANT_GEMM_CASES)
+def test_dequant_gemm_against_its_plain_version(dev, m, k, n, group):
+    """The dequantizing GEMM: its converted weight (the dump mode) bit for
+    bit the dequantize kernel's, its output within two bf16 steps of the
+    product's and the output's magnitudes of the plain version's (f32 sums
+    in another order, then two roundings: the product's and the bias
+    add's); each launch counted."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    if group is None:
+        mode = "w8"
+        codes = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                              dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) / 100
+        weight = tgemm.int8_dequant(codes, scale)
+    else:
+        mode = "w4"
+        codes = torch.randint(-128, 128, (n, k // 2), generator=g,
+                              device=dev, dtype=torch.int8)
+        scale = torch.rand((k // group, n), generator=g, device=dev) / 7
+        weight = t4.w4_dequant(codes, scale)
+    x = _randn(g, dev, m, k)
+    bias = _randn(g, dev, n) * 0.1
+    assert torch.equal(t4.dequant_gemm_weight(x, codes, scale, mode),
+                       weight)
+    before = tgemm.GEMM.launches["dequant_gemm"]
+    got = t4.dequant_linear(x, codes, scale, bias, mode)
+    assert tgemm.GEMM.launches["dequant_gemm"] == before + 1
+    want = t4.dequant_linear_plain(x, codes, scale, bias, mode)
+    prod = t4.dequant_linear_plain(x, codes, scale, None, mode)
+    diff = (got.float() - want.float()).abs()
+    bar = (2.0 ** -7 * (want.float().abs() + prod.float().abs())
+           + 2.0 ** -12 * prod.float().abs().max())
+    assert got.dtype == BF and got.shape == (m, n)
+    assert bool((diff <= bar).all())
+
+
+@pytest.mark.cuda
+def test_dequant_gemm_refusals(dev):
+    """What the kernel does not take raises before a launch: K off a
+    multiple of 64, w4 groups of 8, f32 input."""
+    q = torch.zeros((64, 96), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        t4.dequant_linear(torch.zeros((4, 96), dtype=BF, device=dev), q,
+                          torch.ones(64, device=dev))
+    p4 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="unsupported"):
+        t4.dequant_linear(torch.zeros((4, 128), dtype=BF, device=dev), p4,
+                          torch.ones((16, 64), device=dev), mode="w4")
+    with pytest.raises(ValueError, match="bfloat16"):
+        t4.dequant_linear(torch.zeros((4, 128), device=dev),
+                          torch.zeros((64, 128), dtype=torch.int8,
+                                      device=dev), torch.ones(64, device=dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,inn,groups", [(3072, 3072, 24), (12288, 3072, 24),
                                           (3072, 12288, 96), (3072, 64, 2),
@@ -1201,8 +1267,9 @@ def test_grad_dequant_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["w8a8", "w8", "w4", "w4a8"])
 def test_straight_through_dx_on_the_card(dev, mode):
-    """A bf16 QuantLinear's dx through the kernels (the GEMM and K8
-    forward, the dequantize kernel backward) against the same layer on
+    """A bf16 QuantLinear's dx through the kernels (the product kernel,
+    and K8 in w8a8 and w4a8, forward; the dequantize kernel backward),
+    each launched once, against the same layer on
     the CPU: the same bf16 weight and dy, f32 sums in another order, so
     within one bf16 step of the largest value."""
     import copy
@@ -1214,12 +1281,16 @@ def test_straight_through_dx_on_the_card(dev, mode):
     cpu_layer = copy.deepcopy(layer).cpu()
     x = _randn(g, dev, 2, 40, 512)
     dy = _randn(g, dev, 2, 40, 256)
-    key = {"w4": "w4_dequant", "w4a8": "w4a8_dequant"}.get(mode,
-                                                           "int8_dequant")
-    before = tgemm.GEMM.launches[key]
+    # the forward's product kernel and the backward's dequantize kernel,
+    # once each
+    keys = {"w8a8": ("int8_gemm", "int8_dequant"),
+            "w8": ("dequant_gemm", "int8_dequant"),
+            "w4": ("dequant_gemm", "w4_dequant"),
+            "w4a8": ("w4a8_gemm", "w4a8_dequant")}[mode]
+    before = [tgemm.GEMM.launches[k] for k in keys]
     xg = x.clone().requires_grad_()
     layer(xg).backward(dy)
-    assert tgemm.GEMM.launches[key] == before + (2 if mode == "w4" else 1)
+    assert [tgemm.GEMM.launches[k] for k in keys] == [b + 1 for b in before]
     xc = x.cpu().requires_grad_()
     cpu_layer(xc).backward(dy.cpu())
     got, want = xg.grad.float().cpu(), xc.grad.float()

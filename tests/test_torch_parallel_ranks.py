@@ -19,7 +19,8 @@ with fewer than four):
   checkpoint directory that every rank shares, a new loop on every rank
   resuming from the main process's last step;
 * ``with_mesh`` serving over data 4 against the one-process ``generate``,
-  at JAX's bar (max 8 levels, mean below 1);
+  at JAX's bar (max 8 levels, mean below 1); and of a w4 DiT whose AWQ
+  pre-scale only rank 0 holds: every rank multiplies by it after;
 * the pools over processes (1 infer + 3 train): the first step's loss
   equal to the colocated step's at rtol 1e-4, then two steps from
   ``train_stream``.
@@ -237,6 +238,38 @@ def check_serving(rank, dev, root):
             "mean": float(d.mean()), "raised": raised}
 
 
+def check_awq_serving(rank, dev, root):
+    """A w4 DiT whose first layer holds an AWQ pre-scale on rank 0 only
+    (the other ranks built theirs with ones): after ``with_mesh`` every
+    rank holds rank 0's pre-scale, knows it is not ones, and multiplies
+    by it; the layers of ones still skip."""
+    from x2i_torch.core.config import MeshConfig
+    from x2i_torch.core.mesh import make_mesh
+    from x2i_torch.ops.int4_gemm import dequant_linear_plain
+    from x2i_torch.ops.quant import QuantLinear, quantize_module_
+    from x2i_torch.pipeline import build_random_pipeline
+    pipe = build_random_pipeline("tiny", seed=0, device=dev)
+    quantize_module_(pipe.flux, "w4")
+    layers = [m for m in pipe.flux.modules() if isinstance(m, QuantLinear)]
+    awq = layers[0]
+    want_scale = torch.linspace(0.5, 2.0, awq.in_features)
+    if rank == 0:
+        with torch.no_grad():
+            awq.pre_scale.copy_(want_scale)
+        awq.note_pre_scale_()
+    pipe.with_mesh(make_mesh(MeshConfig(data=-1), device_type=dev.type))
+    x = torch.randn((3, awq.in_features),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    want = dequant_linear_plain((x * want_scale.to(dev)).to(awq.dtype),
+                                awq.pweight, awq.scale, awq.bias, "w4")
+    with torch.no_grad():
+        got = awq(x)
+    return {"pre_scale": torch.equal(awq.pre_scale.cpu(), want_scale),
+            "awq_flag": awq.pre_scale_ones,
+            "others_skip": all(m.pre_scale_ones for m in layers[1:]),
+            "awq_product": torch.equal(got, want)}
+
+
 def check_pools(rank, dev, root):
     from x2i_torch.parallel.disaggregated import DisaggregatedDistill
     from x2i_torch.train.harness import build_tiny_distill
@@ -261,7 +294,7 @@ def check_pools(rank, dev, root):
 CHECKS = {"placements": check_placements, "ring": check_ring,
           "pipeline": check_pipeline, "train_loop": check_train_loop,
           "checkpoints": check_checkpoints, "serving": check_serving,
-          "pools": check_pools}
+          "awq_serving": check_awq_serving, "pools": check_pools}
 
 
 def _rank_main(rank, backend, init_file, out_dir):
@@ -382,6 +415,13 @@ def test_data_parallel_serving(ranks):
     for _, got in _each(ranks, "serving"):
         assert got["shape"] == [WORLD, 64, 64, 3] and got["raised"]
         assert got["max"] <= 8 and got["mean"] < 1.0, got
+
+
+def test_data_parallel_serving_keeps_rank_0s_awq_pre_scale(ranks):
+    for _, got in _each(ranks, "awq_serving"):
+        assert got == {"pre_scale": True, "awq_flag": False,
+                       "others_skip": True, "awq_product": True,
+                       "seconds": got["seconds"]}, got
 
 
 def test_process_pools(ranks):

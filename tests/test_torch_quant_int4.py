@@ -23,6 +23,8 @@ Tolerances, each with its reason:
   this seed (the int8 test's w8a8 measures 1.3e-3 at seed 6).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,30 @@ from x2i_torch.params import load_flax, random_init_
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 ARGS = ("lat", "txt", "pooled", "t", "img_ids", "txt_ids")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The tiny models' small ops on one thread: with the test run's
+    workers on every core, torch's thread pool made them several times
+    slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree(seed):
+    """The tiny FLUX's random tree, built once a module (read only)."""
+    return flux_tree(seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _quantized(seed, mode, group=128):
+    """JAX's ``quantize_tree`` of ``_tree(seed)``, once a module (read
+    only: eager JAX compiles each of its ops apart)."""
+    return jq.quantize_tree(_tree(seed), mode, group=group)
 
 
 def t(a, dtype=torch.float32):
@@ -307,10 +333,11 @@ def test_awq_picks_the_same_alpha_and_codes():
 
 # ------------------------------------------------------ bridge and trees
 
+@functools.lru_cache(maxsize=None)
 def _int4_tree(seed, mode, chunks=1, bf16=False):
-    tree = flux_tree(seed)
-    if bf16:
-        tree = jax.tree_util.tree_map(bf16_grid, tree)
+    if not bf16:
+        return chunk_single_scan_params(_quantized(seed, mode), chunks)
+    tree = jax.tree_util.tree_map(bf16_grid, _tree(seed))
     return chunk_single_scan_params(jq.quantize_tree(tree, mode), chunks)
 
 
@@ -322,7 +349,7 @@ def test_bridge_takes_int4_leaves(mode, chunks):
     tree of the other int4 mode is refused by its leaves."""
     model = load_flax(FluxTransformer2D(
         tcfg.tiny_flux_config(quantized=mode)), _int4_tree(0, mode, chunks))
-    flat = jq.quantize_tree(flux_tree(0), mode)["params"]
+    flat = _quantized(0, mode)["params"]
     extra = "mscale" if mode == "w4a8" else "pre_scale"
     for i, blk in enumerate(model.single_blocks):
         leaf = flat["single_blocks"]["out"]
@@ -345,12 +372,12 @@ def test_quantize_module_equals_quantize_tree_int4(mode):
     """Both orders give the same pweight / mscale / scale: the port's
     quantize_module_ on float weights, and JAX's quantize_tree on the same
     weights followed by the bridge; and the same outputs."""
-    tree = flux_tree(4)
+    tree = _tree(4)
     model = load_flax(FluxTransformer2D(
         tcfg.tiny_flux_config(fused_glue=True)), tree)
     tq.quantize_module_(model, mode)
     ref = load_flax(FluxTransformer2D(tcfg.tiny_flux_config(
-        fused_glue=True, quantized=mode)), jq.quantize_tree(tree, mode))
+        fused_glue=True, quantized=mode)), _quantized(4, mode))
     assert model.cfg.quantized == mode
     assert model.cfg.glue == ("quant" if mode == "w4a8" else "ln")
     got, want = dict(model.named_buffers()), dict(ref.named_buffers())
@@ -367,7 +394,7 @@ def test_quantize_module_equals_quantize_tree_int4(mode):
 def test_dequantize_module_matches_dequantize_tree(mode):
     """dequantize_module_ gives the float Linear weights of JAX's
     dequantize_tree (w4 with a pre_scale folded in), bit for bit."""
-    tree = jq.quantize_tree(flux_tree(6), mode)
+    tree = jq.quantize_tree(_tree(6), mode)
     if mode == "w4":
         rng = np.random.default_rng(6)
         ps = tree["params"]["single_blocks"]["mlp_in"]["pre_scale"]
@@ -525,7 +552,7 @@ def test_int4_flux_at_group_64_matches_jax(monkeypatch, mode, fused):
     monkeypatch.setattr(jq, "QuantDense", _quant_dense_at(64))
     jc = jcfg.tiny_flux_config(quantized=mode, fused_glue=fused)
     tc = tcfg.tiny_flux_config(quantized=mode, fused_glue=fused)
-    tree = jq.quantize_tree(flux_tree(7), mode, group=64)
+    tree = _quantized(7, mode, 64)
     x = _flux_inputs(np.random.default_rng(7), jc, 16, 8)
     args = [x[k] for k in ARGS]
     with pltpu.force_tpu_interpret_mode():

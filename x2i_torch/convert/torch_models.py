@@ -47,6 +47,7 @@ from x2i_torch.core.config import (CLIPTextConfig, CLIPVisionConfig,
                                    VAEConfig)
 from x2i_torch.models.chattts import ChatTTSConfig
 from x2i_torch.models.qwen2_5_vl import Qwen2_5_VLConfig
+from x2i_torch.ops.quant import note_pre_scales_
 from x2i_torch.ops.rope import half_layout_perm
 
 # checkpoint key -> (the module's parameter or buffer name, a transform
@@ -755,4 +756,5 @@ def fill_module(module: nn.Module,
     if missing:
         raise KeyError(f"{type(module).__name__}: the checkpoint lacks "
                        f"{len(missing)} keys: {missing[:8]}")
+    note_pre_scales_(module)      # w4 pre_scales copied past the hooks
     return {"tensors": len(seen), "bytes": size, "unread": sorted(unread)}

@@ -1,4 +1,6 @@
-// int8 x int8 -> int32 GEMM with the w8a8 epilogue, for sm_90a.
+// int8 x int8 -> int32 GEMM with the w8a8 epilogue, the w4a8 GEMM, the
+// weight-only modes' dequantizing bf16 GEMM and the dequantize kernels,
+// for sm_90a.
 //
 // Replaces the int8 products of the JAX package's w8a8 mode
 // (x2i_tpu/ops/quant.py: the dot_general of w8a8_matmul at :43 and of
@@ -86,7 +88,50 @@
 // instructions do. On an H100 (PERF.md) it takes 1.9x the int8 GEMM's
 // time at 4608 x 3072 -> 12288; with the conversion's loop emptied it
 // takes the int8 GEMM's, so the ring and the pairing cost nothing, and
-// with the arithmetic taken out of the loop 1.3x.
+// with the arithmetic taken out of the loop 1.3x. Two redesigns were built
+// and timed against it and are not kept (x2i_torch/tools/w4a8_variants.cu,
+// timed by x2i_torch/tools/gemm_variants.py; PERF.md): a converter
+// warpgroup that issues no wgmma (one warpgroup of 56 registers converts
+// too slowly), and the same with an unsigned
+// B operand (code + 8) x m and an exact correction of the sums in the
+// epilogue (its M N K / g multiply-adds on the CUDA cores cost more than
+// the arithmetic they save).
+//
+// The dequantizing GEMM (dequant_gemm_kernel) is the weight-only modes'
+// product, the counterpart of x2i_tpu/ops/quant.py::w8_matmul (:102-111)
+// and w4_matmul (:163-169, over _dequant_w4), whose XLA fusions
+// dequantize the weight into the dot's operand: out = bf16(x @ W^T), then
+// bf16(out + bias), with x (M, K) bf16 and W (N, K) from the layer's own
+// buffers: w8 int8 codes (N, K) with per-row scales, w4 packed codes
+// (N, K/2), row-interleaved, with (K / g, N) group scales. Each weight is
+// bf16_rn(f32(code) * f32(bf16(scale))), the weight the dequantize
+// kernels write, bit for bit (the scale is in the operand, never in the
+// epilogue, as JAX rounds). What bounds it on an H100: at the DiT's shapes
+// the bf16 tensor-core rate (989 TFLOP/s), and at M = 1..4 reading the
+// codes. Design: a block computes the transposed tile out^T of 128 weight
+// rows by 256 tokens with wgmma m64n256k16, the weight as the register A
+// operand of each of the two consumer warpgroups (64 rows each) and x as
+// the 128-byte-swizzled B operand. A producer thread keeps a ring of five
+// x tiles (256 tokens x 64 inputs) and a ring of three raw code tiles
+// (128 rows x 128 bytes: two K steps of w8, four of w4) in flight by TMA.
+// Each consumer thread converts its own A fragments (rows g and g + 8 of
+// its warp's 16; inputs 2 t4, 2 t4 + 1 and 2 t4 + 8, 2 t4 + 9 of each
+// block of 16) straight from the raw tile into registers, for the next
+// K step while the current one's products run: w8 by one byte permute and
+// one fma a code (code + 128 in the mantissa of f32 32768 + u, minus
+// 32896 s, exact) and one f32 -> bf16x2 rounding a pair; w4 by one byte
+// permute and one lop3 a pair (bf16 128 + u, u = nibble ^ 8), one bf16x2
+// fma (- 136, exact) and one bf16x2 multiply by the scale, rounded once.
+// With the weight on the side of 128 rows, a block converts half the
+// weight rows per product that a B-stage conversion (256 rows) would, and
+// the converted weight never goes through shared memory. The epilogue
+// stages the f32 tile transposed (token rows of 128 outputs) in the x ring
+// and stores 8 consecutive outputs a thread. A dump mode writes the
+// converted weight (N, K) instead of the product, which the checks hold
+// bit for bit against the dequantize kernels. Trial builds on the card
+// that converted into B stages in shared memory on a warpgroup of their
+// own (as the w4a8 GEMM's lever a), or shared the x tiles between the two
+// blocks of a cluster by TMA multicast, were slower.
 //
 // The w4 dequantize kernel (w4_dequant_kernel) replaces the unpack and
 // scale of x2i_tpu/ops/quant.py::_dequant_w4 (:153-160, over
@@ -133,6 +178,9 @@ struct Args {
   // input of the chunk
   const int8_t* mscale;
   int half, group, koff;
+  // the dequantizing GEMM: 1 writes the converted weight (N, K) instead of
+  // the product
+  int dump;
 };
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) {
@@ -582,6 +630,429 @@ extern "C" int x2i_w4a8_gemm(const void* a, long long lda, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(acc_only ? launch<true, true>(p, s)
                                    : launch<false, true>(p, s));
+}
+
+namespace {
+
+// ------------------------------------------------- the dequantizing GEMM
+
+// A block computes the transposed tile out^T of 128 weight rows (outputs,
+// two consumer warpgroups of 64) by 256 tokens: the weight is the register
+// A operand of wgmma m64n256k16 (bf16, f32 sums), converted by the
+// consumers themselves from raw code tiles, and x the shared B operand.
+constexpr int kDqRows = 128;            // weight rows (outputs) per block
+constexpr int kDqTokens = 256;          // tokens per block
+constexpr int kDqXStages = 5;           // x tiles: 256 tokens x 64 inputs
+constexpr int kDqRawStages = 3;         // raw tiles: 128 rows x 128 bytes
+constexpr uint32_t kDqXBytes = kDqTokens * kStepBytes;
+constexpr uint32_t kDqRawBytes = kDqRows * kStepBytes;
+constexpr int kDqRawOffset = kDqXStages * kDqXBytes;
+constexpr int kDqRingBytes = kDqRawOffset + kDqRawStages * kDqRawBytes;
+constexpr int kDqSmemBytes =
+    kDqRingBytes + 2 * (kDqXStages + kDqRawStages) *
+                       static_cast<int>(sizeof(uint64_t)) +
+    kSwizzleAtomBytes;
+// the epilogue stages the tile transposed, a token's 128 f32 outputs a
+// row: 16 bytes of padding make the transposing writes free of bank
+// conflicts
+constexpr int kDqPitch = kDqRows * 4 + 16;
+static_assert(kDqTokens * kDqPitch <= kDqRawOffset, "epilogue staging");
+static_assert(kDqSmemBytes <= 232448, "shared memory");
+
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Two f32 -> bf16x2 (lo in the low half), each rounded to nearest even.
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// w8: two int8 codes (the low 16 bits of `pair`) -> bf16x2 code x s. A
+// code's byte u = code + 128 lands in the mantissa of f32 32768 + u (one
+// byte permute); one fma with c = -32896 s (exact: 9 + 8 significant bits)
+// gives code x s exactly, and the conversion rounds it once, as the int8
+// dequantize kernel does.
+__device__ __forceinline__ uint32_t w8_pair(uint32_t pair, float s, float c) {
+  const uint32_t x = pair ^ 0x8080u;
+  return bf16x2_of(
+      fmaf(__uint_as_float(__byte_perm(x, 0x47000000u, 0x7504)), s, c),
+      fmaf(__uint_as_float(__byte_perm(x, 0x47000000u, 0x7514)), s, c));
+}
+
+// w4: byte `i` of the packed word w (inputs 2j low, 2j + 1 high) -> bf16x2
+// code x s, s2 the bf16 scale in both halves. The two nibbles n, brought
+// to bits 0-3 and 16-19 by one byte permute, go as u = n ^ 8 into the
+// mantissas of bf16 128 + u by one lop3 ((t & mask) ^ 8s | exponents);
+// 128 + u - 136 = code exactly, and the product by s is rounded once:
+// bf16_rn(f32(code) * f32(s)), as the w4 dequantize kernel writes it.
+__device__ __forceinline__ uint32_t w4_pair(uint32_t w, int i, uint32_t s2) {
+  const uint32_t t = __byte_perm(w, w >> 4, i | (4 + i) << 8);
+  uint32_t h;
+  // bits of the mask 0x000F000F: t ^ 0x00080008; the others 0x43004300
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n"
+      : "=r"(h)
+      : "r"(t), "r"(0x000F000Fu), "r"(0x43084308u));
+  return bf16x2_mul(bf16x2_fma(h, 0x3F803F80u, 0xC308C308u), s2);
+}
+
+template <bool W4>
+__global__ void __launch_bounds__(kConsumers + 128, 1) dequant_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_b, Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + kSwizzleAtomBytes - 1) &
+                        ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (ring - raw);
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(smem + kDqRingBytes);
+  uint64_t* x_empty = x_full + kDqXStages;
+  uint64_t* raw_full = x_empty + kDqXStages;
+  uint64_t* raw_empty = raw_full + kDqRawStages;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  // the tile: kGroupRows token tiles at a time, down the tokens first, so
+  // that the blocks in flight share a few x and weight tiles in L2
+  const int linear = blockIdx.y * gridDim.x + blockIdx.x;
+  const int per_group = kGroupRows * gridDim.x;
+  const int first = linear / per_group * kGroupRows;
+  const int rows = min(static_cast<int>(gridDim.y) - first, kGroupRows);
+  const int m0 = (first + linear % per_group % rows) * kDqTokens;
+  const int n0 = linear % per_group / rows * kDqRows;
+  // K steps of 64 inputs; a raw tile is 128 bytes of each weight row: two
+  // K steps of w8, four of w4
+  constexpr int kPer = W4 ? 4 : 2;
+  const int ksteps = p.k / 64;
+  const int nraw = (ksteps + kPer - 1) / kPer;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kDqXStages; ++i) {
+      mbar_init(&x_full[i], 1);
+      mbar_init(&x_empty[i], kConsumers / 32);
+    }
+#pragma unroll
+    for (int i = 0; i < kDqRawStages; ++i) {
+      mbar_init(&raw_full[i], 1);
+      mbar_init(&raw_empty[i], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<24>();
+    // The producer: one thread keeps the x ring full, and the raw ring a
+    // raw tile ahead of the K step the x tiles have reached (the consumers
+    // convert a K step ahead of their products).
+    if (tid == kConsumers) {
+      int r_next = 0;
+#pragma unroll 1
+      for (int t = 0; t < ksteps; ++t) {
+        while (r_next < nraw && r_next <= t / kPer + 1) {
+          const int i = r_next % kDqRawStages;
+          if (r_next >= kDqRawStages)
+            mbar_wait(&raw_empty[i], (r_next / kDqRawStages - 1) & 1);
+          mbar_arrive_expect_tx(&raw_full[i], kDqRawBytes);
+          tma_load_2d(map_b, ring + kDqRawOffset + i * kDqRawBytes,
+                      r_next * kStepBytes, n0, &raw_full[i]);
+          ++r_next;
+        }
+        const int st = t % kDqXStages;
+        if (t >= kDqXStages)
+          mbar_wait(&x_empty[st], (t / kDqXStages - 1) & 1);
+        mbar_arrive_expect_tx(&x_full[st], kDqXBytes);
+        tma_load_2d(map_x, ring + st * kDqXBytes, t * kStepBytes, m0,
+                    &x_full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the thread's weight rows in the tile (the A fragment's rows g, g + 8)
+  const int ra = wg * 64 + warp * 16 + g, rb = ra + 8;
+  const int na = n0 + ra, nb = n0 + rb;
+  // the rows' scales: w8 one a row for the tile; w4 one a group, carried
+  // in sa2 / sb2 for group sg and loaded ahead for the next K step's first
+  float sa = 0.f, sb = 0.f;
+  uint32_t sa2 = 0u, sb2 = 0u, pa = 0u, pb = 0u;
+  int sg = -1, pg = -1;
+  auto bf16_scale = [](float s) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(s)));
+  };
+  auto load_scale = [&](int grp, int n) {
+    return n < p.n ? __ldg(p.scale + static_cast<long long>(grp) * p.n + n)
+                   : 0.f;
+  };
+  if (!W4) {
+    sa = __uint_as_float(bf16_scale(load_scale(0, na)) << 16);
+    sb = __uint_as_float(bf16_scale(load_scale(0, nb)) << 16);
+  }
+
+  // K step t's A fragments into a[k16 block][4]: rows ra, rb at inputs
+  // (2 t4, 2 t4 + 1) and (2 t4 + 8, 2 t4 + 9) of each block of 16, read
+  // from the raw tile at the 128-byte swizzle's places (TMA wrote it with
+  // it). The raw tile goes back after its last K step is converted.
+  auto convert = [&](int t, uint32_t(&a)[4][4]) {
+    const int r = t / kPer, part = t % kPer, rs = r % kDqRawStages;
+    if (part == 0) mbar_wait(&raw_full[rs], (r / kDqRawStages) & 1);
+    const unsigned char* tile = smem + kDqRawOffset + rs * kDqRawBytes;
+    const unsigned char* row_a = tile + ra * kStepBytes;
+    const unsigned char* row_b = tile + rb * kStepBytes;
+    const int swa = ra & 7, swb = rb & 7;
+    if constexpr (W4) {
+      // the next K step's first group, loaded while this one converts
+      if (t + 1 < ksteps) {
+        const int ng = 64 * (t + 1) / p.group;
+        if (ng != pg && ng != sg) {
+          pg = ng;
+          pa = __float_as_uint(load_scale(ng, na));
+          pb = __float_as_uint(load_scale(ng, nb));
+        }
+      }
+      // the groups of the K step's blocks of 16: one division a K step
+      int grp = 64 * t / p.group, bound = (grp + 1) * p.group;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (64 * t + 16 * b >= bound) {
+          ++grp;
+          bound += p.group;
+        }
+        if (grp != sg) {
+          const bool ahead = grp == pg;
+          const uint32_t ba =
+              bf16_scale(ahead ? __uint_as_float(pa) : load_scale(grp, na));
+          const uint32_t bb =
+              bf16_scale(ahead ? __uint_as_float(pb) : load_scale(grp, nb));
+          sa2 = ba | ba << 16;
+          sb2 = bb | bb << 16;
+          sg = grp;
+        }
+        // 8 packed bytes of a block: chunk 2 part + b / 2, half b % 2
+        const int c = 2 * part + (b >> 1), off = 8 * (b & 1);
+        const uint2 va = *reinterpret_cast<const uint2*>(
+            row_a + ((c ^ swa) * 16) + off);
+        const uint2 vb = *reinterpret_cast<const uint2*>(
+            row_b + ((c ^ swb) * 16) + off);
+        a[b][0] = w4_pair(va.x, t4, sa2);
+        a[b][1] = w4_pair(vb.x, t4, sb2);
+        a[b][2] = w4_pair(va.y, t4, sa2);
+        a[b][3] = w4_pair(vb.y, t4, sb2);
+      }
+    } else {
+      const float ca = __fmul_rn(-32896.f, sa), cb = __fmul_rn(-32896.f, sb);
+      const int sh = 16 * (t4 & 1), word = 4 * (t4 >> 1);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        // 16 codes of a block: chunk 4 part + b; the thread's pairs are
+        // bytes 2 t4 (word t4 / 2) and 2 t4 + 8 (word 2 + t4 / 2)
+        const int c = 4 * part + b;
+        const unsigned char* qa = row_a + ((c ^ swa) * 16) + word;
+        const unsigned char* qb = row_b + ((c ^ swb) * 16) + word;
+        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa) >> sh;
+        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8) >> sh;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qb) >> sh;
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qb + 8) >> sh;
+        a[b][0] = w8_pair(a0, sa, ca);
+        a[b][1] = w8_pair(b0, sb, cb);
+        a[b][2] = w8_pair(a1, sa, ca);
+        a[b][3] = w8_pair(b1, sb, cb);
+      }
+    }
+    if (part == kPer - 1 || t + 1 == ksteps) {
+      __syncwarp();
+      if (lane == 0 && r + kDqRawStages < nraw) mbar_arrive(&raw_empty[rs]);
+    }
+  };
+  // x tile t goes back, where a later K step refills it
+  auto release_x = [&](int t) {
+    if (lane == 0 && t + kDqXStages < ksteps)
+      mbar_arrive(&x_empty[t % kDqXStages]);
+  };
+
+  uint32_t fa[4][4], fb[4][4];
+  if (p.dump) {
+    // the converted weight (N, K) instead of the product
+#pragma unroll 1
+    for (int t = 0; t < ksteps; ++t) {
+      mbar_wait(&x_full[t % kDqXStages], (t / kDqXStages) & 1);
+      convert(t, fa);
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int col = 64 * t + 16 * b + 2 * t4;
+        if (na < p.n) {
+          *reinterpret_cast<uint32_t*>(out + na * p.ldo + col) = fa[b][0];
+          *reinterpret_cast<uint32_t*>(out + na * p.ldo + col + 8) = fa[b][2];
+        }
+        if (nb < p.n) {
+          *reinterpret_cast<uint32_t*>(out + nb * p.ldo + col) = fa[b][1];
+          *reinterpret_cast<uint32_t*>(out + nb * p.ldo + col + 8) = fa[b][3];
+        }
+      }
+      __syncwarp();
+      release_x(t);
+    }
+    return;
+  }
+
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // K step t on the fragments in cur: its products queued, the previous
+  // step's awaited (its x tile goes back, its fragments in nxt are free),
+  // then the next step's fragments converted into nxt while these run
+  auto step = [&](int t, uint32_t(&cur)[4][4], uint32_t(&nxt)[4][4]) {
+    mbar_wait(&x_full[t % kDqXStages], (t / kDqXStages) & 1);
+    const uint64_t db =
+        wgmma_desc(ring + (t % kDqXStages) * kDqXBytes, 16, kSwizzleAtomBytes);
+    wgmma_pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_bf16_n256(acc, cur[kk], desc_advance(db, kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_pin(acc);
+    wgmma_pin_a(nxt);
+    if (t > 0) release_x(t - 1);
+    if (t + 1 < ksteps) convert(t + 1, nxt);
+  };
+  convert(0, fa);
+#pragma unroll 1
+  for (int t = 0; t < ksteps; t += 2) {
+    step(t, fa, fb);
+    if (t + 1 < ksteps) step(t + 1, fb, fa);
+  }
+  wgmma_wait<0>();
+  wgmma_pin(acc);
+  wgmma_pin_a(fa);
+  wgmma_pin_a(fb);
+
+  // The epilogue: the tile staged transposed (token rows of 128 outputs) in
+  // the x ring, then 8 consecutive outputs of a token a thread: bf16, the
+  // bias added in bf16, one 16-byte store.
+  named_barrier_sync(1, kConsumers);
+  {
+    const int col = wg * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int tok = 8 * j + 2 * t4;
+      float* r0 = reinterpret_cast<float*>(smem + tok * kDqPitch) + col;
+      float* r1 = reinterpret_cast<float*>(smem + (tok + 1) * kDqPitch) + col;
+      r0[0] = acc[j][0];
+      r1[0] = acc[j][1];
+      r0[8] = acc[j][2];
+      r1[8] = acc[j][3];
+    }
+  }
+  named_barrier_sync(1, kConsumers);
+  constexpr int kChunks = kDqRows / 8, kTokPerPass = kConsumers / kChunks;
+  const int c = tid % kChunks, n = n0 + 8 * c;
+  // N % 8 == 0: a thread's outputs are all or none past N
+  const int tok_end = n < p.n ? min(kDqTokens, p.m - m0) : 0;
+  float bias[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    bias[e] = p.bias && n < p.n ? bf(p.bias[n + e]) : 0.f;
+#pragma unroll 4
+  for (int tok = tid / kChunks; tok < tok_end; tok += kTokPerPass) {
+    const int m = m0 + tok;
+    const float4 lo = *reinterpret_cast<const float4*>(
+        smem + tok * kDqPitch + 32 * c);
+    const float4 hi = *reinterpret_cast<const float4*>(
+        smem + tok * kDqPitch + 32 * c + 16);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      __nv_bfloat16 y = __float2bfloat16_rn(v[e]);
+      if (p.bias) y = __float2bfloat16_rn(__fadd_rn(bf(y), bias[e]));
+      const uint32_t bits = __bfloat16_as_ushort(y);
+      w[e / 2] = e % 2 ? w[e / 2] | bits << 16 : bits;
+    }
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) +
+                              static_cast<long long>(m) * p.ldo + n) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <bool W4>
+cudaError_t launch_dequant(const Args& p, cudaStream_t stream) {
+  auto kernel = dequant_gemm_kernel<W4>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  // x: bf16, 2 bytes an input; the codes: K bytes a row (w8), K / 2 (w4)
+  CUtensorMap map_x, map_b;
+  cudaError_t err = make_byte_matrix_map(&map_x, p.a, 2LL * p.k, p.m,
+                                         2LL * p.lda, kDqTokens);
+  if (err == cudaSuccess)
+    err = make_byte_matrix_map(&map_b, p.b, W4 ? p.k / 2 : p.k, p.n, p.ldb,
+                               kDqRows);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.n + kDqRows - 1) / kDqRows,
+            p.dump ? 1 : (p.m + kDqTokens - 1) / kDqTokens);
+  kernel<<<grid, kConsumers + 128, kDqSmemBytes, stream>>>(map_x, map_b, p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The dequantizing GEMM: x (m, k) bf16 with rows ldx elements apart times
+// the weight of `codes` (w4: packed (n, k/2), row-interleaved; w8: int8
+// (n, k); rows ldc bytes apart) and `scale` f32 (w4: (k / group, n); w8:
+// (n,)), plus the bf16 bias (n,) if given, into out (m, n) bf16 (ldo
+// elements a row); with dump, the converted weight into out (n, k) instead.
+// The wrapper (x2i_torch/ops/int4_gemm.py) checks types, shapes and
+// alignment: N % 8, K % 64 (w4: the group size % 16), 16-byte aligned
+// starts and strides of x and the codes. Returns the cudaError_t of the
+// launch.
+extern "C" int x2i_dequant_gemm(const void* x, long long ldx,
+                                const void* codes, long long ldc,
+                                const void* scale, int group,
+                                const void* bias, void* out, long long ldo,
+                                int m, int n, int k, int w4, int dump,
+                                void* stream) {
+  if (m < 1 || n < 8 || n % 8 || k < 64 || k % 64 ||
+      (w4 && (group < 16 || group % 16 || k % group)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p{};
+  p.a = static_cast<const int8_t*>(x);
+  p.lda = ldx;
+  p.b = static_cast<const int8_t*>(codes);
+  p.ldb = ldc;
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.out = out;
+  p.ldo = ldo;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.group = w4 ? group : k;
+  p.dump = dump;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(w4 ? launch_dequant<true>(p, s)
+                             : launch_dequant<false>(p, s));
 }
 
 namespace {

@@ -1,6 +1,7 @@
-"""The int4 weights' kernels: the w4a8 GEMM and the w4 dequantize kernel
-(both in ``csrc/int8_gemm.cu``, counted in ``int8_gemm.GEMM.launches``),
-their plain PyTorch versions, and the wrappers that pick between them.
+"""The int4 weights' kernels (the w4a8 GEMM and the w4 dequantize kernel)
+and the dequantizing GEMM of the weight-only modes w4 and w8, all in
+``csrc/int8_gemm.cu`` and counted in ``int8_gemm.GEMM.launches``; their
+plain PyTorch versions, and the wrappers that pick between them.
 
 Both packings keep two int4 codes a byte, low nibble first, and a weight
 row K-contiguous, the ``nn.Linear`` (out, in) orientation: ``pweight``
@@ -23,7 +24,21 @@ differ in which inputs share a byte, so each has its own unpack:
 * w4 (``quantize_kernel_w4``), row-interleaved: byte j holds input 2j
   low and 2j + 1 high; the weight is ``bf16(code) * bf16(scale[g, n])``
   (``scale`` f32 (G, N)), rounded once, the JAX ``_dequant_w4`` in bf16.
-  The dequantize kernel writes that (N, in) weight for ``F.linear``.
+  The dequantize kernel writes that (N, in) weight for the
+  straight-through backward's dx; the forward takes the dequantizing
+  GEMM.
+
+The dequantizing GEMM (counterpart of the JAX ``w8_matmul`` and
+``w4_matmul``, ``x2i_tpu/ops/quant.py:102-111`` and ``:163-169``, whose
+XLA fusions dequantize into the dot's operand) computes ``y = x @ W.T``
+(+ bias) for bf16 x (M, K), W dequantized from the layer's own buffers:
+w8 ``qweight`` int8 (N, K) with ``scale`` f32 (N,), or w4 ``pweight``
+(N, K/2) row-interleaved with ``scale`` f32 (G, N). Each weight is
+``bf16_rn(f32(code) * f32(bf16(scale)))``, the weight the dequantize
+kernels write (the scale in the weight, never in the epilogue); the sums
+are f32 and the output bf16, rounded once, then the bias added in bf16.
+``dequant_gemm_weight`` has the kernel write the converted weight (N, K)
+instead of the product, for the checks.
 
 The w4a8 dequantize kernel of the straight-through backward
 (``ops/quant.py``) writes the (N, in) weight ``bf16(code x m) *
@@ -31,11 +46,11 @@ bf16(scale[n])``, rounded once, the JAX ``_w4a8_bwd``'s
 (``x2i_tpu/ops/quant.py:359``); the w4 backward takes the w4 dequantize
 kernel as it is.
 
-A nibble is sign-extended as ``((b & 0xF) ^ 8) - 8``. ``w4a8_linear`` and
-``w4_dequant`` launch their kernels for CUDA tensors and take the plain
-versions for CPU tensors; there is no other fallback. Neither has a
-backward: off ``impl="plain"`` the wrappers raise when autograd records
-and an input requires grad.
+A nibble is sign-extended as ``((b & 0xF) ^ 8) - 8``. ``w4a8_linear``,
+``dequant_linear`` and ``w4_dequant`` launch their kernels for CUDA
+tensors and take the plain versions for CPU tensors; there is no other
+fallback. None has a backward: off ``impl="plain"`` the wrappers raise
+when autograd records and an input requires grad.
 """
 
 from __future__ import annotations
@@ -44,9 +59,11 @@ from typing import Optional
 
 import torch
 
+import torch.nn.functional as F
+
 from x2i_torch.ops.cuda_lib import refuse_grad
 from x2i_torch.ops.int8_gemm import (GEMM, check_dequant_rows,
-                                     check_gemm_layout,
+                                     check_gemm_layout, int8_dequant_plain,
                                      int8_matmul_acc_plain, _check, _rows)
 
 W4A8_K_STEP = 16       # K, k0, in/2 and the group size: multiples of it
@@ -331,3 +348,124 @@ def w4a8_dequant(pweight: torch.Tensor, mscale: torch.Tensor,
                            f"{err}")
     GEMM.launches["w4a8_dequant"] += 1
     return out
+
+
+DEQUANT_K_STEP = 64    # K of the dequantizing GEMM: a multiple of it
+
+
+def dequant_weight_plain(codes: torch.Tensor, scale: torch.Tensor,
+                         mode: str, dtype=torch.bfloat16) -> torch.Tensor:
+    """The (N, K) weight of a w8 (``qweight``, per-row ``scale``) or w4
+    (``pweight``, (G, N) ``scale``) layer in dtype: the code and the scale
+    cast to dtype, one product in dtype."""
+    if mode == "w8":
+        return int8_dequant_plain(codes, scale, dtype)
+    return w4_dequant_plain(codes, scale, dtype)
+
+
+def dequant_linear_plain(x: torch.Tensor, codes: torch.Tensor,
+                         scale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         mode: str = "w8") -> torch.Tensor:
+    """The dequantizing GEMM's function in PyTorch: ``F.linear`` on the
+    weight dequantized in x's dtype, then the bias added in x's dtype (the
+    JAX ``w8_matmul`` / ``w4_matmul`` and ``QuantDense``'s bias)."""
+    y = F.linear(x, dequant_weight_plain(codes, scale, mode, x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def check_dequant_gemm_shapes(m: int, k: int, n: int, mode: str,
+                              groups: int):
+    """The shapes the dequantizing GEMM takes: M >= 1 rows, K a multiple of
+    ``DEQUANT_K_STEP``, N a multiple of 8; in w4 a group size K / groups
+    that is a whole multiple of 16 (a block of 16 inputs, one ``wgmma``
+    step, has one scale). Raises ValueError otherwise."""
+    g = k // groups if groups else 0
+    if (mode not in ("w8", "w4") or m < 1 or k < DEQUANT_K_STEP
+            or k % DEQUANT_K_STEP or n < 8 or n % 8
+            or (mode == "w4" and (groups < 1 or k % groups or g % 16))):
+        raise ValueError(
+            f"dequantizing GEMM kernel: unsupported shapes M {m}, K {k}, N "
+            f"{n} in mode {mode!r} with {groups} scale groups (K % "
+            f"{DEQUANT_K_STEP}, N % 8 and, in w4, a group size % 16 must "
+            f"be 0)")
+
+
+def check_dequant_gemm_layout(x_strides, codes_strides, x_ptr: int,
+                              codes_ptr: int):
+    """Contiguous rows of x (bf16) and of the codes, each row start 16-byte
+    aligned (a tensor map's base and row stride). Raises ValueError
+    otherwise."""
+    if (x_strides[1] != 1 or codes_strides[1] != 1 or (2 * x_strides[0]) % 16
+            or codes_strides[0] % 16 or x_ptr % 16 or codes_ptr % 16):
+        raise ValueError("dequantizing GEMM kernel: x and the codes need "
+                         "contiguous rows with 16-byte aligned starts and "
+                         "strides")
+
+
+def _launch_dequant(x, codes, scale, bias, mode, dump):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"dequantizing GEMM kernel: tensors must be on a "
+                         f"CUDA device, got {dev}")
+    xr = _rows(x)
+    m, k = xr.shape
+    _check("x", xr, torch.bfloat16, dev)
+    _check("codes", codes, torch.int8, dev)
+    _check("scale", scale, torch.float32, dev)
+    n = codes.shape[0] if codes.dim() == 2 else -1
+    width = (2 if mode == "w4" else 1) * codes.shape[-1]
+    want_scale = (n,) if mode == "w8" else (scale.shape[0], n)
+    if codes.dim() != 2 or width != k or tuple(scale.shape) != want_scale \
+            or not scale.is_contiguous():
+        raise ValueError(f"dequantizing GEMM kernel: x {tuple(x.shape)}, "
+                         f"codes {tuple(codes.shape)} and scale "
+                         f"{tuple(scale.shape)} are not (M, K), the {mode} "
+                         f"codes of K inputs and a contiguous "
+                         f"{'(N,)' if mode == 'w8' else '(G, N)'} scale")
+    groups = scale.shape[0] if mode == "w4" else 1
+    check_dequant_gemm_shapes(m, k, n, mode, groups)
+    check_dequant_gemm_layout(xr.stride(), codes.stride(), xr.data_ptr(),
+                              codes.data_ptr())
+    if bias is not None:
+        _check("bias", bias, torch.bfloat16, dev)
+        if bias.shape != (n,) or bias.stride(0) != 1:
+            raise ValueError(f"dequantizing GEMM kernel: bias must be ({n},)")
+    out = torch.empty((n, k) if dump else (m, n), dtype=torch.bfloat16,
+                      device=dev)
+    err = GEMM.lib().x2i_dequant_gemm(
+        xr.data_ptr(), xr.stride(0), codes.data_ptr(), codes.stride(0),
+        scale.data_ptr(), k // groups, None if bias is None
+        else bias.data_ptr(), out.data_ptr(), out.stride(0), m, n, k,
+        int(mode == "w4"), int(dump), torch.cuda.current_stream(dev)
+        .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dequantizing GEMM launch failed: cudaError_t "
+                           f"{err}")
+    GEMM.launches["dequant_gemm"] += 1
+    return out if dump else out.reshape(*x.shape[:-1], n)
+
+
+def dequant_linear(x: torch.Tensor, codes: torch.Tensor,
+                   scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   mode: str = "w8", impl: str = "auto") -> torch.Tensor:
+    """The weight-only product of a w8 or w4 layer (see the module
+    docstring): a CUDA tensor launches the dequantizing GEMM (bf16 only),
+    which raises on what it does not take; a CPU tensor, or
+    ``impl="plain"``, takes ``dequant_linear_plain``."""
+    if impl != "plain":
+        refuse_grad("the dequantizing GEMM", x, scale, bias)
+    if impl == "plain" or x.device.type == "cpu":
+        return dequant_linear_plain(x, codes, scale, bias, mode)
+    return _launch_dequant(x, codes, scale, bias, mode, dump=False)
+
+
+def dequant_gemm_weight(x: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor, mode: str) -> torch.Tensor:
+    """The (N, K) bf16 weight as the dequantizing GEMM's converter writes
+    it into its B stages, dumped by the kernel (x only gives the launch
+    its A operand): the checks hold it bit for bit against the dequantize
+    kernels. A CPU tensor takes ``dequant_weight_plain`` in x's dtype."""
+    if x.device.type == "cpu":
+        return dequant_weight_plain(codes, scale, mode, x.dtype)
+    return _launch_dequant(x, codes, scale, None, mode, dump=True)

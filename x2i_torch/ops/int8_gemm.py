@@ -54,18 +54,24 @@ def _bind(lib):
     lib.x2i_w4_dequant.argtypes = [p, ll, p, p, i, i, i, p]
     lib.x2i_int8_dequant.argtypes = [p, ll, p, p, i, i, p]
     lib.x2i_w4a8_dequant.argtypes = [p, ll, p, p, p, i, i, i, p]
+    lib.x2i_dequant_gemm.argtypes = [p, ll, p, ll, p, i, p, p, ll, i, i, i,
+                                     i, i, p]
     for fn in (lib.x2i_int8_gemm, lib.x2i_w4a8_gemm, lib.x2i_w4_dequant,
-               lib.x2i_int8_dequant, lib.x2i_w4a8_dequant):
+               lib.x2i_int8_dequant, lib.x2i_w4a8_dequant,
+               lib.x2i_dequant_gemm):
         fn.restype = ctypes.c_int
 
 
-# the library also holds the int4 weights' kernels (ops/int4_gemm.py): the
-# w4a8 GEMM is this GEMM with another source of its B stage; and the
-# dequantize kernels of the straight-through backward
+# the library also holds the int4 weights' kernels and the dequantizing
+# GEMM of the weight-only modes (ops/int4_gemm.py): the w4a8 GEMM is this
+# GEMM with a B stage converted from packed int4 codes, the dequantizing
+# GEMM a bf16 GEMM whose weight the consumers convert in registers; and
+# the dequantize kernels of the straight-through backward
 GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm",
-                   ("int8_gemm", "w4a8_gemm", "w4_dequant", "int8_dequant",
-                    "w4a8_dequant"), _bind,
-                   wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel"),
+                   ("int8_gemm", "w4a8_gemm", "dequant_gemm", "w4_dequant",
+                    "int8_dequant", "w4a8_dequant"), _bind,
+                   wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel",
+                                  "dequant_gemm_kernel"),
                    checked_kernels=("w4_dequant_kernel",
                                     "int8_dequant_kernel",
                                     "w4a8_dequant_kernel"))

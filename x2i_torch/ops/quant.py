@@ -4,14 +4,19 @@
 Four modes:
 
 * ``"w8"``: int8 weights with per-output-channel f32 scales, dequantized
-  to the activation dtype for a plain product (a memory saving only);
+  to the activation dtype inside the product: the dequantizing GEMM
+  (``ops/int4_gemm.py::dequant_linear``) converts each weight tile as it
+  feeds the tensor cores, as the JAX ``w8_matmul``'s XLA fusion does in
+  the dot;
 * ``"w8a8"``: the activations are quantized per token as well, and the
   product runs int8 x int8 -> int32 through the int8 GEMM
   (``x2i_torch/ops/int8_gemm.py``), rescaled by row scale x channel scale;
 * ``"w4"``: int4 codes, two a byte, row-interleaved, with f32 (group, out)
-  scales and an AWQ ``pre_scale`` per input; the w4 dequantize kernel
-  (``ops/int4_gemm.py``) writes the layer's bf16 weight before each plain
-  product (the JAX ``w4_matmul`` is an XLA dot too);
+  scales and an AWQ ``pre_scale`` per input; the same dequantizing GEMM
+  converts them (the JAX ``w4_matmul`` dequantizes into its dot too). A
+  layer knows whether its ``pre_scale`` is all ones (``pre_scale_ones``,
+  set where the layer is built, quantized or loaded) and then skips the
+  multiply, which is exact;
 * ``"w4a8"``: int4 codes, half-split, whose (group, out) scales factor
   into int8 multipliers m in [1, 15] and an f32 per-output scale; the
   activations are quantized per token as in w8a8, and the w4a8 GEMM
@@ -49,12 +54,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from x2i_torch.core.config import ACT_QUANT_MODES, quant_mode
 from x2i_torch.ops.fused_glue import quant_rows, quant_rows_plain
-from x2i_torch.ops.int4_gemm import (nibbles, w4_codes, w4_dequant,
+from x2i_torch.ops.int4_gemm import (dequant_linear, dequant_linear_plain,
+                                     nibbles, w4_codes, w4_dequant,
                                      w4_dequant_plain, w4a8_codes,
                                      w4a8_dequant, w4a8_linear,
                                      w4a8_linear_plain)
@@ -250,15 +255,14 @@ def w8_matmul(x: torch.Tensor, qweight: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """Weight-only int8: the scale is cast to x.dtype before it multiplies
     the codes (as in the JAX ``w8_matmul``), then a plain product."""
-    w = qweight.to(x.dtype) * scale.to(x.dtype)[:, None]
-    return F.linear(x, w)
+    return dequant_linear_plain(x, qweight, scale, mode="w8")
 
 
 def w4_matmul(x: torch.Tensor, pweight: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """Plain weight-only int4 product: x (..., in) against the weight
     dequantized to x.dtype (pweight (out, in/2), scale (G, out))."""
-    return F.linear(x, w4_dequant_plain(pweight, scale, x.dtype))
+    return dequant_linear_plain(x, pweight, scale, mode="w4")
 
 
 def w4a8_matmul(x: torch.Tensor, pweight: torch.Tensor, mscale: torch.Tensor,
@@ -307,14 +311,20 @@ class StraightThrough(torch.autograd.Function):
         return torch.matmul(dy.to(ctx.x_dtype), w), None
 
 
+def _note_pre_scale(layer, incompatible_keys):
+    """``QuantLinear``'s load hook: its ``pre_scale`` was just loaded."""
+    layer.note_pre_scale_()
+
+
 class QuantLinear(nn.Module):
     """``nn.Linear`` with quantized weights, the counterpart of
     ``QuantDense``. ``forward`` takes
 
     * a tensor (..., in): quantized per token by ``quant_rows`` (K8) in
       w8a8 and w4a8 (after a cast to the layer's dtype in w4a8, as in
-      JAX), or multiplied by the dequantized weight in w8 and w4 (w4
-      first multiplies it by ``pre_scale`` in its own dtype);
+      JAX), or multiplied by the dequantized weight in w8 and w4 through
+      the dequantizing GEMM (w4 first multiplies it by ``pre_scale`` in
+      its own dtype, unless ``pre_scale_ones``);
     * an ``(xq, a_scale)`` pair from a glue kernel (w8a8 and w4a8);
     * a list of such pairs, chunks along the input features: each is a
       K-slice of the one weight, and the chunks' bf16 parts are summed in
@@ -329,7 +339,11 @@ class QuantLinear(nn.Module):
     ``group`` inputs (the JAX ``QuantDense.group``; the whole input where
     it does not divide it, and halved in w4a8 to make their count even).
     The weights are buffers (and the bias a parameter without gradient):
-    the layer is frozen."""
+    the layer is frozen. ``pre_scale_ones`` (w4) says that ``pre_scale``
+    is all ones: true where the buffer is made or filled with ones
+    (``set_groups_``, ``set_weight_``), found once from the values where
+    they are loaded (``load_state_dict``, the bridge), never in
+    ``forward``."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, mode: str = "w8a8",
@@ -358,6 +372,7 @@ class QuantLinear(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
                                               device=device),
                                   requires_grad=False) if bias else None)
+        self.register_load_state_dict_post_hook(_note_pre_scale)
 
     def set_groups_(self, groups: int) -> "QuantLinear":
         """(Re)make the int4 scale buffers for ``groups`` groups of
@@ -380,6 +395,18 @@ class QuantLinear(nn.Module):
                                                      dtype=f32, device=dev))
             self.register_buffer("pre_scale", torch.ones(inn, dtype=f32,
                                                          device=dev))
+            self.pre_scale_ones = True
+        return self
+
+    @torch.no_grad()
+    def note_pre_scale_(self) -> "QuantLinear":
+        """Find from its values whether w4's ``pre_scale`` is all ones
+        (one reading, where the layer is loaded: never in ``forward``).
+        Whatever writes ``pre_scale`` in place calls it after: the load
+        hook, the bridge, and through ``note_pre_scales_`` a converter's
+        plan and a broadcast from another rank."""
+        if self.mode == "w4":
+            self.pre_scale_ones = bool((self.pre_scale == 1).all())
         return self
 
     @torch.no_grad()
@@ -397,6 +424,7 @@ class QuantLinear(nn.Module):
             self.pweight.copy_(pk.t())
             self.scale.copy_(s)
             self.pre_scale.fill_(1.0)
+            self.pre_scale_ones = True
         else:
             q, s = quantize_kernel(weight.t())
             self.qweight.copy_(q.t())
@@ -447,7 +475,7 @@ class QuantLinear(nn.Module):
         # the JAX layer's casts around its custom_vjp: w8a8 quantizes x in
         # its own dtype; the others cast it to the layer's first (w4 after
         # the AWQ pre-scale in x's dtype)
-        if self.mode == "w4":
+        if self.mode == "w4" and not self.pre_scale_ones:
             x = (x * self.pre_scale.to(x.dtype)).to(self.dtype)
         elif self.mode != "w8a8":
             x = x.to(self.dtype)
@@ -464,11 +492,9 @@ class QuantLinear(nn.Module):
 
     def _product(self, x):
         """The forward of a tensor input, after the casts of ``forward``."""
-        if self.mode == "w8":
-            return self._bias(w8_matmul(x, self.qweight, self.scale))
-        if self.mode == "w4":
-            w = w4_dequant(self.pweight, self.scale, x.dtype, self.impl)
-            return self._bias(F.linear(x, w))
+        if self.mode in ("w8", "w4"):
+            return dequant_linear(x, *self.codes(), bias=self.bias,
+                                  mode=self.mode, impl=self.impl)
         if self.mode == "w4a8":
             # quantized in the layer's dtype, the bias in the GEMM's
             # epilogue, as the JAX layer rounds
@@ -553,6 +579,15 @@ def _swap_linears(module: nn.Module, quantized, swap):
 
 
 @torch.no_grad()
+def note_pre_scales_(module: nn.Module) -> nn.Module:
+    """``note_pre_scale_`` on every ``QuantLinear`` below ``module``, after
+    a writer that fills its buffers in place past the layers' hooks."""
+    for child in module.modules():
+        if isinstance(child, QuantLinear):
+            child.note_pre_scale_()
+    return module
+
+
 def quantize_module_(module: nn.Module, mode: str = "w8a8",
                      group: int = INT4_GROUP) -> nn.Module:
     """Swap every ``nn.Linear`` below ``module`` for a ``QuantLinear`` in

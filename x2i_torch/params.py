@@ -128,6 +128,7 @@ def _load(module: nn.Module, tree: Tree, prefix: str, filled: set):
                   f"{name}.{leaf}", filled)
             for r in rest:
                 _copy(getattr(child, r), val[r], f"{name}.{r}", filled)
+            child.note_pre_scale_()
             if "bias" in val:
                 _copy(child.bias, val["bias"], name + ".bias", filled)
         elif isinstance(child, nn.Linear):

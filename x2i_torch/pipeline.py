@@ -192,11 +192,15 @@ class X2IPipeline:
         size. Under ``ring_sequence`` the DiT's ring is the mesh's tensor
         axis (set on the shared DiT)."""
         from x2i_torch.core.mesh import mesh_axis
+        from x2i_torch.ops.quant import note_pre_scales_
         if torch.distributed.get_world_size() > 1:
             for mod in (self.flux, self.vae, self.control_bank):
                 for t in ([] if mod is None else
                           [*mod.parameters(), *mod.buffers()]):
                     torch.distributed.broadcast(t.data, 0)
+                # w4 layers read rank 0's pre_scale from here on
+                if mod is not None:
+                    note_pre_scales_(mod)
         data = mesh_axis(mesh, "data")
         if self.flux.cfg.ring_sequence:
             self.flux.set_ring_axis(mesh_axis(mesh, "tensor"))

@@ -1477,7 +1477,9 @@ DEQUANT_GEMM_MAIN = "single mlp_in"
 DEQUANT_GEMM_MODES = (("w4", 128), ("w4", 64), ("w8", None))
 
 
-def check_dequant_gemms(g, rows, recs):
+def check_dequant_gemms(g, rows, recs, shapes=DEQUANT_GEMM_SHAPES,
+                        modes=DEQUANT_GEMM_MODES,
+                        timed=(DEQUANT_GEMM_MAIN,), biased: bool = True):
     """The dequantizing GEMM of the w4 and w8 modes at
     ``DEQUANT_GEMM_SHAPES`` (groups of 128 and 64 in w4), with the bias of
     the DiT's layers and, at the main weight, without it: its converted
@@ -1490,7 +1492,10 @@ def check_dequant_gemms(g, rows, recs):
     (``library_ms`` null); beside it ``F.linear`` on the materialized bf16
     weight (``linear_ms``) and the dequantize kernel followed by it
     (``dequant_linear_ms``, the route the w4 mode took before). The bound
-    counts the codes (a byte, or half a byte, a weight) and the scales."""
+    counts the codes (a byte, or half a byte, a weight) and the scales.
+    ``shapes``, ``modes``: other products (the tensor-parallel members');
+    ``timed``: the labels whose time is taken; ``biased=False``: only
+    products without a bias (a row-split layer's parts)."""
     import torch
     import torch.nn.functional as F
     from x2i_torch.ops import int4_gemm as i4
@@ -1498,8 +1503,8 @@ def check_dequant_gemms(g, rows, recs):
     from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4
 
     dev = torch.device("cuda")
-    for mode, group in DEQUANT_GEMM_MODES:
-        for label, m, inn, n in DEQUANT_GEMM_SHAPES:
+    for mode, group in modes:
+        for label, m, inn, n in shapes:
             wf = torch.randn((n, inn), generator=g, device=dev) / inn ** 0.5
             if mode == "w8":
                 q, scale = quantize_kernel(wf.t())
@@ -1509,9 +1514,11 @@ def check_dequant_gemms(g, rows, recs):
                 codes, dequant = pk.t().contiguous(), i4.w4_dequant
             del wf
             x = rows(m, inn)
-            main = label == DEQUANT_GEMM_MAIN and group != 64
-            for bias in ((torch.randn(n, generator=g, device=dev) * 0.1)
-                         .to(torch.bfloat16),) + ((None,) if main else ()):
+            main = label in timed and group != 64
+            biases = (((torch.randn(n, generator=g, device=dev) * 0.1)
+                       .to(torch.bfloat16),) if biased else ()) + (
+                (None,) if main or not biased else ())
+            for bias in biases:
                 weight = dequant(codes, scale)
                 dumped = i4.dequant_gemm_weight(x, codes, scale, mode)
                 got = i4.dequant_linear(x, codes, scale, bias, mode)
@@ -6512,11 +6519,221 @@ def parallel_training(teacher_fn, student_fn, state, batch, seed: int,
     return state
 
 
+# ------------------------------------------------------ tensor parallel
+# The DiT under shard_activations / shard_sequence over a tensor axis of
+# TP members held by one process (``LocalAxis``), against the flags over
+# an axis of one member (the unsharded blocks, the glue unfused as under
+# the flags) from the same seed and noise. The bar is the ring image's.
+
+TP = 4
+TP_IMAGE_REL_L2 = RING_IMAGE_REL_L2
+TP_FLAGS = {"tp": dict(shard_activations=True),
+            "sp": dict(shard_sequence=True),
+            "tp+sp": dict(shard_activations=True, shard_sequence=True)}
+
+
+def tensor_launches(flags: str, members: int, px: int = 1024,
+                    quantized=False, steps: int = 4, n2: int = 19,
+                    n1: int = 38) -> dict:
+    """One image's launches with ``flags`` over ``members`` (the glue
+    unfused: no K5): each member's attention a block a step (K2 above 8192
+    joint tokens, K1c for a member's query rows under ``shard_sequence``
+    alone: the rope outside the kernel, else K1a), the LM's 24 K1b; in
+    w8 each member's products of the blocks' layers, the embedders', the
+    head's and the adaLN pass's once."""
+    joint = 512 + (px // 16) ** 2
+    attn = ("flash_chunked" if joint > 8192 else "flash_fwd_pipe"
+            if flags == "sp" and members > 1 else "flash_fwd_rope")
+    want = dict(NO_LAUNCHES, flash_fwd=24)
+    want[attn] = (n2 + n1) * steps * members
+    if quantized == "w8":
+        want["dequant_gemm"] = ((members * (12 * n2 + 5 * n1) + 8) * steps
+                                + 2 * n2 + n1 + 4)
+    return want
+
+
+def member_param_bytes(flux) -> tuple:
+    """(member 0's DiT parameter and buffer bytes, the whole DiT's) under
+    ``shard_activations`` in the one-process form: the whole model less
+    the split layers, plus member 0's blocks of them."""
+    def size(mod):
+        return sum(t.numel() * t.element_size()
+                   for t in [*mod.parameters(), *mod.buffers()])
+
+    whole = size(flux)
+    member = whole
+    for blk in [*flux.double_blocks, *flux.single_blocks]:
+        for name, layer in blk.members[0].items():
+            member += size(layer) - size(getattr(blk, name))
+    return member, whole
+
+
+def tensor_image(pipe, seed: int, card: str, label: str, flags: str,
+                 px: int = 1024, warm: bool = True):
+    """``label``: one px^2, 4-step image with ``flags`` over
+    ``LocalAxis(TP, "tensor")`` against the same flags over one member,
+    from the same seed and noise (with ``warm`` each route's image after
+    one warm-up image, else its first); exact launch counts of both; the
+    s/image of both; under ``shard_activations`` member 0's DiT bytes
+    against the whole DiT's. The DiT's config and axis are set back
+    after. -> {label: launches}."""
+    import numpy as np
+    import torch
+    from x2i_torch.parallel.axis import LocalAxis
+
+    flux, steps = pipe.flux, 4
+    req = {"task": "text2image", "prompt": PROMPTS[0]}
+    size = dict(height=px, width=px, num_steps=steps)
+    quantized = flux.cfg.quantized
+    out, runs, sec = {}, {}, {}
+    bytes_ = None
+    flux.replace_config(**TP_FLAGS[flags])
+    try:
+        for members in (TP, 1):
+            flux.set_tensor_axis(LocalAxis(members, "tensor"))
+            if members > 1 and flux.cfg.shard_activations:
+                bytes_ = member_param_bytes(flux)
+            if warm:
+                pipe.run_task(**req, seed=seed, **size)
+            reset_counts()
+            t0 = time.perf_counter()
+            out[members] = pipe.run_task(**req, seed=seed, **size)
+            sec[members] = time.perf_counter() - t0
+            runs[members] = launch_counts()
+    finally:
+        flux.set_tensor_axis(None)
+        flux.replace_config(shard_activations=False, shard_sequence=False)
+    a, b = (x.astype(np.float32) for x in (out[TP], out[1]))
+    levels = np.abs(a - b)
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    want = {m: tensor_launches(flags, m, px, quantized) for m in (TP, 1)}
+    heads = flux.cfg.num_attention_heads
+    rec = {"phase": "parallel", "check": label, "flags": TP_FLAGS[flags],
+           "px": px, "steps": steps, "quantized": quantized,
+           "members": TP, "s_per_image": sec[TP],
+           "s_per_image_one_member": sec[1],
+           "first_call": None if warm else "each image is its route's "
+                                           "first (no warm-up)",
+           "member_attention": {
+               "heads": heads // TP if flags != "sp" else heads,
+               "query_rows": (512 + (px // 16) ** 2) // (
+                   TP if flags == "sp" else 1)},
+           "image_shape": list(out[TP].shape),
+           "max_level_diff": float(levels.max()),
+           "mean_level_diff": float(levels.mean()), "rel_l2": rel,
+           "rel_l2_bar": TP_IMAGE_REL_L2,
+           "launches": runs[TP], "launches_one_member": runs[1],
+           "card": card}
+    if bytes_ is not None:
+        rec["member_dit_bytes"], rec["whole_dit_bytes"] = bytes_
+    emit(rec)
+    if (runs[TP] != want[TP] or runs[1] != want[1]
+            or out[TP].shape != (1, px, px, 3) or rel > TP_IMAGE_REL_L2
+            or float(a.std()) == 0.0):
+        raise AssertionError(f"{label} is wrong: {rec} (launches expected "
+                             f"{want})")
+    return {label: runs[TP], f"{label}-1": runs[1]}
+
+
+# the w8 products of a member of TP at 1024^2 (label, rows, in, out): the
+# column-split q/k/v and mlp_in, the row-split attn_out, mlp_out and the
+# single block's out, whose parts take no bias
+TP_GEMM_SHAPES = (
+    ("member q/k/v", 4608, 3072, 3072 // TP),
+    ("member single mlp_in", 4608, 3072, 12288 // TP),
+    ("member double img attn_out", 4096, 3072 // TP, 3072),
+    ("member double img mlp_out", 4096, 12288 // TP, 3072),
+    ("member single out", 4608, (3072 + 12288) // TP, 3072))
+
+
+def check_tensor_kernels(g, recs):
+    """``tensor-kernels``: the kernels at a member's shapes, against their
+    plain versions (``check_flash``, ``check_dequant_gemms``): K1a on 6 of
+    24 heads at 4608 tokens with the rope (the qk norm outside under the
+    flags), K1c on a member's 1152 query rows against the 4608 gathered
+    keys, K2 on 6 heads at 16,896 tokens; the w8 dequantizing GEMM at the
+    member's widths, the row-split parts without their bias."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(*t)
+
+    def check(name, case, q, k, v, **kw):
+        rows = []
+        lib = (sdpa, [t.transpose(1, 2).contiguous() for t in (q, k, v)])
+        check_flash(name, q, k, v, rows, library=lib, **kw)
+        for r in rows:
+            r.update(case=case, phase="parallel", check="tensor-kernels")
+            recs.setdefault(name, []).append(r)
+
+    heads = RING_HEADS // TP
+    s = 512 + (1024 // 16) ** 2
+    rope = _rope_tables(512, 128, (16, 56, 56), dev)
+    check("flash_fwd_rope", "member of 4: 6 heads, rope, norm outside",
+          randn(1, s, heads, RING_D), randn(1, s, heads, RING_D),
+          randn(1, s, heads, RING_D), rope=rope)
+    check("flash_fwd_pipe", "member of 4: 1152 query rows of 4608 keys",
+          randn(1, s // TP, RING_HEADS, RING_D),
+          randn(1, s, RING_HEADS, RING_D), randn(1, s, RING_HEADS, RING_D))
+    s = 512 + (2048 // 16) ** 2
+    q, k, v = (randn(1, s, heads, RING_D) for _ in range(3))
+    lib = (sdpa, [t.transpose(1, 2).contiguous() for t in (q, k, v)])
+    chunked = {}
+    check_flash_chunked("member of 4: 6 heads at 16,896 tokens",
+                        *(t.transpose(1, 2) for t in (q, k, v)), chunked,
+                        lib, 2048)
+    for r in chunked["flash_chunked"]:
+        r.update(case=r["kernel"], phase="parallel", check="tensor-kernels")
+        recs.setdefault("flash_chunked", []).append(r)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+
+    def rows(*shape):
+        lead = (*shape[:-1], 1)
+        sigma = 10.0 ** torch.empty(lead, device=dev).uniform_(
+            -2.0, 2.0, generator=g)
+        mu = sigma * 3.0 * torch.randn(lead, generator=g, device=dev)
+        return (torch.randn(shape, generator=g, device=dev) * sigma + mu
+                ).to(torch.bfloat16)
+
+    gemm = []
+    check_dequant_gemms(g, rows, {"dequant_gemm": gemm},
+                        shapes=TP_GEMM_SHAPES, modes=(("w8", None),),
+                        timed=("member single out",), biased=False)
+    for r in gemm:
+        r.update(phase="parallel", check="tensor-kernels")
+        recs.setdefault("dequant_gemm", []).append(r)
+
+
+def phase_tensor(pipe, seed: int, card: str, recs: dict) -> dict:
+    """The tensor-parallel group: tensor-kernels, then on the bf16 serving
+    DiT tp-image, sp-image and tp+sp-image at 1024^2 and tp-2048 (its
+    images each its route's first). -> {run label: launches}."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 220)
+    check_tensor_kernels(g, recs)
+    runs = {}
+    for flags in TP_FLAGS:
+        runs.update(tensor_image(pipe, seed, card, f"{flags}-image", flags))
+    runs.update(tensor_image(pipe, seed, card, "tp-2048", "tp", px=2048,
+                             warm=False))
+    torch.cuda.empty_cache()
+    return runs
+
+
 def phase_parallel(pipe, seed: int, card: str, t_train: float):
     """The parallel phase's checks after the training ones
     (``parallel_training``, ``t_train`` s): ring-kernels, ring-image,
-    pipeline-forward and mesh serving; then the phase's summary with its
-    seconds. -> (kernel records, {run label: launches})."""
+    pipeline-forward, mesh serving and the tensor-parallel group; then
+    the phase's summary with its seconds. -> (kernel records, {run label:
+    launches})."""
     import torch
     t0 = time.perf_counter()
     recs = {}
@@ -6525,8 +6742,11 @@ def phase_parallel(pipe, seed: int, card: str, t_train: float):
     runs.update(ring_image(pipe, seed, card))
     runs.update(pipeline_forward(pipe, seed, card))
     mesh_serving(pipe, seed)
+    t1 = time.perf_counter()
+    runs.update(phase_tensor(pipe, seed, card, recs))
     emit({"phase": "parallel-summary", "seconds": time.perf_counter() - t0
-          + t_train, "training_s": t_train, "card": card})
+          + t_train, "training_s": t_train,
+          "tensor_s": time.perf_counter() - t1, "card": card})
     return recs, runs
 
 
@@ -6635,6 +6855,7 @@ def main(argv=None) -> int:
         pipe, args.seed, smi, "lightcontrol-train-w4",
         LIGHTCONTROL_W4_LAUNCHES, steps=2)
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
+    launches_tp_w8 = tensor_image(pipe, args.seed, smi, "tp-w8", "tp")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
     runs = {"bf16": launches, "image": launches_image,
             "w8a8": launches_w8a8, "w4a8": launches_w4a8,
@@ -6649,7 +6870,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
-            **launches_proj, **launches_ckpt,
+            **launches_proj, **launches_ckpt, **launches_tp_w8,
             **launches_registry, **launches_parallel}
 
     table = []

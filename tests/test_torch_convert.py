@@ -325,9 +325,8 @@ def test_proj_plan_matches_jax_converter(tmp_path, form):
 # devices, the Pallas switch (``attention_impl`` in the port), the
 # separate parameter dtype, the decode side's quantized LM, the VAE
 # encoder's input channels, the prompt length of the generation config
-JAX_ONLY = {"param_dtype", "use_pallas_attention", "shard_activations",
-            "shard_sequence", "single_scan_chunks", "rope_layout",
-            "quantized", "in_channels"}
+JAX_ONLY = {"param_dtype", "use_pallas_attention", "single_scan_chunks",
+            "rope_layout", "quantized", "in_channels"}
 
 
 def _common(t, j) -> bool:

@@ -23,7 +23,12 @@ with fewer than four):
   pre-scale only rank 0 holds: every rank multiplies by it after;
 * the pools over processes (1 infer + 3 train): the first step's loss
   equal to the colocated step's at rtol 1e-4, then two steps from
-  ``train_stream``.
+  ``train_stream``;
+* the tiny FLUX under ``shard_activations``, ``shard_sequence`` and both
+  over the 4 ranks' tensor axis equal bit for bit to the one-process
+  form's forward, each rank holding ``shard_state``'s shard, refusing
+  autograd; and ``with_mesh`` serving a (data 1, tensor 4) mesh under
+  both flags equal bit for bit to the one-process form's images.
 
 The store is a file under the test's temporary directory (no fixed port:
 several workers run at once), every group has a 60 s timeout and the
@@ -291,10 +296,63 @@ def check_pools(rank, dev, root):
     return out
 
 
+TP_FLAGS = {"tp": dict(shard_activations=True),
+            "sp": dict(shard_sequence=True),
+            "tp+sp": dict(shard_activations=True, shard_sequence=True)}
+
+
+def check_tensor_parallel(rank, dev, root):
+    from x2i_torch.core.config import MeshConfig
+    from x2i_torch.core.mesh import make_mesh
+    from x2i_torch.parallel.axis import GroupAxis, LocalAxis
+    from x2i_torch.parallel.tensor import shard_state
+    from x2i_torch.pipeline import build_random_pipeline
+    out = {}
+    for label, flags in TP_FLAGS.items():
+        model, args = _tiny_flux(dev)
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+        model.replace_config(**flags)
+        local, _ = _tiny_flux(dev)
+        local.replace_config(**flags).set_tensor_axis(LocalAxis(WORLD))
+        model.set_tensor_axis(GroupAxis(dist.group.WORLD, "tensor"))
+        with torch.no_grad():
+            equal = torch.equal(model(*args), local(*args))
+        state = model.state_dict()
+        mine = shard_state(whole, model.cfg, rank, WORLD) \
+            if flags.get("shard_activations") else whole
+        try:
+            model(*args)
+            refused = False
+        except RuntimeError:
+            refused = True
+        out[label] = {"equal": equal, "refused_grad": refused,
+                      "shard": all(torch.equal(state[k], mine[k])
+                                   for k in mine)}
+    pipes = [build_random_pipeline("tiny", seed=0, device=dev)
+             for _ in range(2)]
+    for pipe in pipes:
+        pipe.flux.replace_config(**TP_FLAGS["tp+sp"])
+    served = pipes[0].with_mesh(make_mesh(MeshConfig(data=1, tensor=WORLD),
+                                          device_type=dev.type))
+    pipes[1].flux.set_tensor_axis(LocalAxis(WORLD))
+    rng = np.random.default_rng(0)
+    cfg = pipes[1].flux.cfg
+    embeds = torch.as_tensor(rng.standard_normal(
+        (2, 16, cfg.joint_attention_dim)), dtype=torch.float32, device=dev)
+    pooled = torch.as_tensor(rng.standard_normal(
+        (2, cfg.pooled_projection_dim)), dtype=torch.float32, device=dev)
+    got = served.generate(pooled, embeds, seed=5)
+    out["with_mesh_equal"] = bool(np.array_equal(
+        got, pipes[1].generate(pooled, embeds, seed=5)))
+    out["with_mesh_shard"] = list(served.flux.tensor_shard)
+    return out
+
+
 CHECKS = {"placements": check_placements, "ring": check_ring,
           "pipeline": check_pipeline, "train_loop": check_train_loop,
           "checkpoints": check_checkpoints, "serving": check_serving,
-          "awq_serving": check_awq_serving, "pools": check_pools}
+          "awq_serving": check_awq_serving, "pools": check_pools,
+          "tensor_parallel": check_tensor_parallel}
 
 
 def _rank_main(rank, backend, init_file, out_dir):
@@ -434,3 +492,11 @@ def test_process_pools(ranks):
             assert np.isfinite(got["stream_losses"]).all()
         else:
             assert got["stream_losses"] == []
+
+
+def test_process_tensor_parallel_equals_one_process(ranks):
+    for r, got in _each(ranks, "tensor_parallel"):
+        for label in TP_FLAGS:
+            assert got[label] == {"equal": True, "refused_grad": True,
+                                  "shard": True}, (label, got[label])
+        assert got["with_mesh_equal"] and got["with_mesh_shard"] == [r, 4]

@@ -4,12 +4,14 @@ Own copies of the dataclasses of ``x2i_tpu/core/config.py`` (and of the
 T5 and CLIP configs of ``x2i_tpu/models/t5.py`` and ``clip.py``) that the
 serving paths, the two trainers (phase-1 distillation, phase-2
 LightControl), the CLIP scorer and the parallel layer read, with torch
-dtypes. Only the fields these paths use are here: ``MeshConfig`` and
+dtypes. Only the fields these paths use are here: ``MeshConfig``,
 ``FluxConfig.ring_sequence`` (ring attention over the model's tensor
-axis, ``ops/ring_attention.py``), but not ``shard_activations`` or
-``shard_sequence`` (XLA placement constraints, which need DTensor plans
-here), no ``single_scan_chunks`` and no ``remat="stack"`` (XLA scan
-memory devices, not ported).
+axis, ``ops/ring_attention.py``) and ``FluxConfig.shard_activations`` /
+``shard_sequence`` (JAX's XLA placement constraints: here the DiT's heads
+and FFN, or its residual streams' tokens, split over the model's tensor
+axis with the axis's own collectives, ``parallel/tensor.py`` and
+``FluxTransformer2D.set_tensor_axis``), but no ``single_scan_chunks`` and
+no ``remat="stack"`` (XLA scan memory devices, not ported).
 
 ``dtype`` is both the parameter storage type and the compute type (the
 JAX package keeps them as two fields; every shipped config sets them
@@ -118,6 +120,14 @@ class FluxConfig:
                                      # tensor axis (``ring_axis``): the
                                      # qk norm and the rope outside the
                                      # kernels, the glue unfused
+    shard_activations: bool = False  # tensor-parallel: each member of
+                                     # the model's tensor axis runs its
+                                     # block of heads and of the FFN, the
+                                     # row-split outputs summed over it
+    shard_sequence: bool = False     # sequence-parallel: the residual
+                                     # streams' tokens split over the
+                                     # tensor axis between blocks, K and V
+                                     # gathered for the joint attention
     rope_layout: str = "half"        # "half": q/k channels permuted per
                                      # head (``ops/rope.py::
                                      # half_layout_perm``, as the
@@ -143,11 +153,17 @@ class FluxConfig:
         return self.num_attention_heads * self.attention_head_dim
 
     @property
+    def sharded(self) -> bool:
+        """Whether a block's work is split over the tensor axis
+        (``shard_activations`` or ``shard_sequence``)."""
+        return self.shard_activations or self.shard_sequence
+
+    @property
     def glue(self):
         """The fused glue mode: None (unfused: also under
-        ``ring_sequence``, as JAX's ``_use_fused_glue``), "ln" or
-        "quant"."""
-        if not self.fused_glue or self.ring_sequence:
+        ``ring_sequence``, ``shard_activations`` or ``shard_sequence``, as
+        JAX's ``_use_fused_glue``), "ln" or "quant"."""
+        if not self.fused_glue or self.sharded or self.ring_sequence:
             return None
         return "quant" if self.quantized in ACT_QUANT_MODES else "ln"
 

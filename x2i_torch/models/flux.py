@@ -30,6 +30,18 @@ before the attention call instead of inside the kernel.
 LightControl's ControlNeXt residuals (``controls``, one row per double
 block) are added to each double block's image stream at its end, on every
 glue route, with precomputed mods and under the per-block checkpoint.
+
+Under ``cfg.shard_activations`` and ``cfg.shard_sequence`` (JAX's
+tensor- and sequence-parallel constraints) the blocks split their work
+over the model's tensor axis (``set_tensor_axis``; the mesh's tensor axis
+in ``X2IPipeline.with_mesh``), the glue unfused: each member runs its
+block of heads and of the FFN (``parallel/tensor.py``), the row-split
+layers' parts summed over the axis before their bias and gate; and/or
+each member holds its block of the residual streams' tokens, the qk norm
+and the rope on its rows, K and V gathered into joint order for its query
+rows. Under both, the streams are gathered before the column-split
+products and the row-split outputs reduce-scattered after. A tensor axis
+of one member (or none, flags off) is the unsharded route.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from x2i_torch.ops.rope import (apply_rope_half, apply_rope_interleaved,
                                 flux_rope_freqs, flux_rope_freqs_half,
                                 half_layout_perm)
 from x2i_torch.parallel.pipeline import pipeline_apply
+from x2i_torch.parallel.tensor import (check_split, member_layers,
+                                       partial_product, shard_module_)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -191,7 +205,67 @@ def _run_block(cfg, blk, *args, **kw):
     return blk(*args, **kw)
 
 
-class FluxDoubleBlock(nn.Module):
+class _TensorParallel:
+    """What both blocks share under ``shard_activations`` /
+    ``shard_sequence``: the tensor axis, each held member's split layers
+    (``members``: by local name, or None where the block's own layers are
+    the member's, as in a rank's shard), and the sums over the axis."""
+
+    tensor_axis = None               # the axis of the sharded flags
+    members = None
+    member_sources = None            # the whole layers the members cut
+
+    def layer(self, i: int, name: str) -> nn.Module:
+        """Held member i's part of layer ``name`` (split or whole)."""
+        parts = self.members[i] if self.members else None
+        return getattr(self, name) if parts is None or name not in parts \
+            else parts[name]
+
+    def check_members(self):
+        if self.cfg.shard_activations and not self.members:
+            raise RuntimeError("shard_activations was set after "
+                               "set_tensor_axis: call it again")
+        for name, src in (self.member_sources or {}).items():
+            if getattr(self, name) is not src:
+                raise RuntimeError(
+                    f"layer {name} changed after set_tensor_axis (e.g. "
+                    f"quantized): call set_tensor_axis again")
+
+    def reduce(self, parts, name: str):
+        """The members' parts of row-split layer ``name``'s output summed
+        over the axis (each member's token block of the sum under
+        ``shard_sequence``), then its bias."""
+        axis = self.tensor_axis
+        if self.cfg.shard_sequence:
+            ys = axis.psum_scatter(parts, 1)
+        else:
+            ys = axis.psum(parts)
+        bias = getattr(self, name).bias
+        if bias is None:
+            return ys
+        bias = bias.to(parts[0].dtype)
+        return [y + bias for y in ys] if isinstance(ys, list) else ys + bias
+
+    def each(self, fn, *xs):
+        """``fn`` on each held member's rows under ``shard_sequence``, else
+        on the whole (replicated) tensors."""
+        if self.cfg.shard_sequence:
+            return [fn(*a) for a in zip(*xs)]
+        return fn(*xs)
+
+    def whole(self, xs):
+        """The replicated input of a column-split product: the members'
+        rows gathered under ``shard_sequence``."""
+        return self.tensor_axis.gather(xs, 1) if self.cfg.shard_sequence \
+            else xs
+
+
+def _heads(x, hd):
+    b, s, w = x.shape
+    return x.view(b, s, w // hd, hd)
+
+
+class FluxDoubleBlock(_TensorParallel, nn.Module):
     """Dual-stream MMDiT block: joint attention over cat(txt, img)."""
 
     ring_axis = None                 # the ring under cfg.ring_sequence
@@ -281,8 +355,112 @@ class FluxDoubleBlock(nn.Module):
         return hidden, encoder, _block_aux((img_attn, txt_attn), kd_target,
                                            kd_tau, kd_quantize)
 
+    def sharded(self, hidden, encoder, temb, rope, mods=None,
+                member_rope=None):
+        """The block over ``tensor_axis`` (the glue unfused): ``hidden``
+        and ``encoder`` are each held member's token blocks (a list) under
+        ``shard_sequence``, else the whole streams; ``member_rope`` there
+        each held member's (text rows', image rows') rope tables. ->
+        (hidden, encoder) in the same form."""
+        cfg = self.cfg
+        self.check_members()
+        mod, cmod = self.mods(temb) if mods is None else mods
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
+        (c_shift_msa, c_scale_msa, c_gate_msa,
+         c_shift_mlp, c_scale_mlp, c_gate_mlp) = cmod.chunk(6, dim=-1)
 
-class FluxSingleBlock(nn.Module):
+        def norm(shift, scale):
+            return lambda x: _modulate(layer_norm(x), shift, scale)
+
+        img_in = self.each(norm(shift_msa, scale_msa), hidden)
+        txt_in = self.each(norm(c_shift_msa, c_scale_msa), encoder)
+        if cfg.shard_activations:
+            img_attn, txt_attn = self._head_attention(
+                self.whole(img_in), self.whole(txt_in), rope)
+        else:
+            img_attn, txt_attn = self._row_attention(img_in, txt_in,
+                                                     member_rope)
+
+        def add(gate):
+            return lambda x, y: x + gate[:, None, :] * y
+
+        hidden = self.each(add(gate_msa), hidden, img_attn)
+        ff = self._ffn("img", self.each(norm(shift_mlp, scale_mlp), hidden))
+        hidden = self.each(add(gate_mlp), hidden, ff)
+        encoder = self.each(add(c_gate_msa), encoder, txt_attn)
+        cff = self._ffn("txt", self.each(norm(c_shift_mlp, c_scale_mlp),
+                                         encoder))
+        encoder = self.each(add(c_gate_mlp), encoder, cff)
+        return hidden, encoder
+
+    def _head_attention(self, img_in, txt_in, rope):
+        """Each held member's heads over the whole joint sequence: its
+        parts of the out layers, summed over the axis."""
+        cfg, hd = self.cfg, self.cfg.attention_head_dim
+        s_txt = txt_in.shape[1]
+        img_parts, txt_parts = [], []
+        for i in range(len(self.tensor_axis.members)):
+            lyr = functools.partial(self.layer, i)
+            q = self.img_q_norm(_heads(lyr("img_q")(img_in), hd))
+            k = self.img_k_norm(_heads(lyr("img_k")(img_in), hd))
+            v = _heads(lyr("img_v")(img_in), hd)
+            cq = self.txt_q_norm(_heads(lyr("txt_q")(txt_in), hd))
+            ck = self.txt_k_norm(_heads(lyr("txt_k")(txt_in), hd))
+            cv = _heads(lyr("txt_v")(txt_in), hd)
+            attn = _roped_attention(cfg, torch.cat([cq, q], 1),
+                                    torch.cat([ck, k], 1),
+                                    torch.cat([cv, v], 1), rope, None)
+            attn = attn.flatten(2)
+            txt_parts.append(partial_product(lyr("txt_attn_out"),
+                                             attn[:, :s_txt]))
+            img_parts.append(partial_product(lyr("img_attn_out"),
+                                             attn[:, s_txt:]))
+        return (self.reduce(img_parts, "img_attn_out"),
+                self.reduce(txt_parts, "txt_attn_out"))
+
+    def _row_attention(self, img_in, txt_in, member_rope):
+        """Each held member's query rows (its text rows, then its image
+        rows) against K and V gathered into joint order (all text, then
+        all image); the qk norm and the rope on the member's rows."""
+        cfg, hd, axis = self.cfg, self.cfg.attention_head_dim, \
+            self.tensor_axis
+        qs, kt, ki, vt, vi = [], [], [], [], []
+        for x, c, (rt, ri) in zip(img_in, txt_in, member_rope):
+            q = _rotate(cfg, self.img_q_norm(_heads(self.img_q(x), hd)), ri)
+            cq = _rotate(cfg, self.txt_q_norm(_heads(self.txt_q(c), hd)), rt)
+            qs.append(torch.cat([cq, q], 1))
+            kt.append(_rotate(cfg, self.txt_k_norm(_heads(self.txt_k(c), hd)),
+                              rt))
+            ki.append(_rotate(cfg, self.img_k_norm(_heads(self.img_k(x), hd)),
+                              ri))
+            vt.append(_heads(self.txt_v(c), hd))
+            vi.append(_heads(self.img_v(x), hd))
+        k = torch.cat([axis.gather(kt, 1), axis.gather(ki, 1)], 1)
+        v = torch.cat([axis.gather(vt, 1), axis.gather(vi, 1)], 1)
+        img_attn, txt_attn = [], []
+        for q, c in zip(qs, txt_in):
+            attn = attention(q, k, v, implementation=cfg.attention_impl)
+            attn = attn.flatten(2)
+            txt_attn.append(self.txt_attn_out(attn[:, :c.shape[1]]))
+            img_attn.append(self.img_attn_out(attn[:, c.shape[1]:]))
+        return img_attn, txt_attn
+
+    def _ffn(self, stream: str, x):
+        """The stream's MLP on the normed input ``x``: each member's FFN
+        block, summed over the axis, or the whole MLP on each member's
+        rows."""
+        if not self.cfg.shard_activations:
+            return [getattr(self, f"{stream}_mlp_out")(
+                _gelu(getattr(self, f"{stream}_mlp_in")(t))) for t in x]
+        x = self.whole(x)
+        parts = [partial_product(self.layer(i, f"{stream}_mlp_out"),
+                                 _gelu(self.layer(i, f"{stream}_mlp_in")(x)))
+                 for i in range(len(self.tensor_axis.members))]
+        return self.reduce(parts, f"{stream}_mlp_out")
+
+
+class FluxSingleBlock(_TensorParallel, nn.Module):
     """Single-stream block: parallel attention + MLP with one fused output
     projection over cat(attn, mlp)."""
 
@@ -337,6 +515,44 @@ class FluxSingleBlock(nn.Module):
         kd = None if kd_target is None else (kd_target,)
         return hidden, _block_aux((attn,), kd, kd_tau, kd_quantize)[0]
 
+    def sharded(self, hidden, temb, rope, mods=None, member_rope=None):
+        """The block over ``tensor_axis`` (the glue unfused), as
+        ``FluxDoubleBlock.sharded`` on the joint stream: its members'
+        token blocks under ``shard_sequence`` (``member_rope`` their rope
+        rows), else the whole stream. -> hidden in the same form."""
+        cfg, hd = self.cfg, self.cfg.attention_head_dim
+        self.check_members()
+        mod = self.mods(temb) if mods is None else mods
+        shift, scale, gate = mod.chunk(3, dim=-1)
+        x = self.each(lambda t: _modulate(layer_norm(t), shift, scale),
+                      hidden)
+        if cfg.shard_activations:
+            x = self.whole(x)
+            parts = []
+            for i in range(len(self.tensor_axis.members)):
+                lyr = functools.partial(self.layer, i)
+                q = self.q_norm(_heads(lyr("q")(x), hd))
+                k = self.k_norm(_heads(lyr("k")(x), hd))
+                v = _heads(lyr("v")(x), hd)
+                attn = _roped_attention(cfg, q, k, v, rope, None).flatten(2)
+                mlp = _gelu(lyr("mlp_in")(x))
+                parts.append(partial_product(lyr("out"),
+                                             torch.cat([attn, mlp], -1)))
+            out = self.reduce(parts, "out")
+        else:
+            qs, ks, vs = [], [], []
+            for t, r in zip(x, member_rope):
+                qs.append(_rotate(cfg, self.q_norm(_heads(self.q(t), hd)), r))
+                ks.append(_rotate(cfg, self.k_norm(_heads(self.k(t), hd)), r))
+                vs.append(_heads(self.v(t), hd))
+            axis = self.tensor_axis
+            k, v = axis.gather(ks, 1), axis.gather(vs, 1)
+            out = [self.out(torch.cat([
+                attention(q, k, v, implementation=cfg.attention_impl)
+                .flatten(2), _gelu(self.mlp_in(t))], -1))
+                for q, t in zip(qs, x)]
+        return self.each(lambda h, o: h + gate[:, None, :] * o, hidden, out)
+
 
 class FluxTransformer2D(nn.Module):
     """Top-level DiT. ``mods_only=True`` returns every step's adaLN rows
@@ -374,6 +590,72 @@ class FluxTransformer2D(nn.Module):
             if isinstance(mod, (FluxDoubleBlock, FluxSingleBlock)):
                 mod.ring_axis = axis
         return self
+
+    tensor_axis = None               # the axis of the sharded flags
+    tensor_shard = None              # (member, size) of a rank's shard
+
+    def set_tensor_axis(self, axis) -> "FluxTransformer2D":
+        """The tensor axis of ``cfg.shard_activations`` and
+        ``cfg.shard_sequence`` (a ``parallel/axis.py`` axis, e.g. a mesh's
+        tensor axis, or None), set on every block; returns the model. Set
+        it after the weights and the flags are final. Under
+        ``shard_activations`` a process that holds one member of several
+        (the process form) keeps only its member's shard of the split
+        layers (``parallel/tensor.py::shard_module_``, in place, once);
+        the one-process form cuts every member's from the whole layers
+        (views where a block is contiguous). An axis of one member takes
+        the unsharded route."""
+        cfg = self.cfg
+        split = axis is not None and axis.size > 1 and cfg.shard_activations
+        local = split and len(axis.members) > 1
+        if axis is not None and getattr(axis, "devices", None) is not None:
+            raise NotImplementedError("the sharded DiT runs a LocalAxis on "
+                                      "one device (devices=None)")
+        if split:
+            check_split(cfg, axis.size)
+            if local and self.tensor_shard is not None:
+                raise ValueError(f"the model holds member "
+                                 f"{self.tensor_shard[0]}'s shard: the "
+                                 f"one-process form needs the whole model")
+            if not local and self.tensor_shard is None:
+                shard_module_(self, axis.members[0], axis.size)
+            elif not local and self.tensor_shard != (axis.members[0],
+                                                      axis.size):
+                raise ValueError(f"the model holds member "
+                                 f"{self.tensor_shard[0]} of "
+                                 f"{self.tensor_shard[1]}, the axis asks "
+                                 f"for {axis.members[0]} of {axis.size}")
+        for blk in [*self.double_blocks, *self.single_blocks]:
+            blk.tensor_axis = axis
+            blk.members = ([member_layers(blk, cfg, m, axis.size)
+                            for m in axis.members] if local
+                           else [None] if split else None)
+            blk.member_sources = ({n: getattr(blk, n)
+                                   for n in blk.members[0]} if local
+                                  else None)
+        self.tensor_axis = axis
+        return self
+
+    def _sharded_axis(self):
+        """The tensor axis when the blocks split their work over it, else
+        None (flags off, or an axis of one member); raises where the flags
+        cannot run."""
+        cfg, axis = self.cfg, self.tensor_axis
+        if not cfg.sharded:
+            if self.tensor_shard is not None:
+                raise RuntimeError("the model holds a member's shard: "
+                                   "shard_activations must stay set")
+            return None
+        if cfg.ring_sequence:
+            raise NotImplementedError(
+                "ring_sequence together with shard_activations or "
+                "shard_sequence is not ported")
+        if axis is None:
+            raise ValueError(
+                "shard_activations / shard_sequence need a tensor axis: "
+                "set_tensor_axis(LocalAxis(n, 'tensor')) on one card, or "
+                "X2IPipeline.with_mesh")
+        return axis if axis.size > 1 else None
 
     def replace_config(self, **changes) -> "FluxTransformer2D":
         """Set fields of the config of this model and of every block in
@@ -465,6 +747,17 @@ class FluxTransformer2D(nn.Module):
 
         if aux_layout not in ("reference", "scan"):
             raise ValueError(f"aux_layout={aux_layout!r}")
+        tensor_axis = self._sharded_axis()
+        if tensor_axis is not None:
+            if (controls is not None or return_attn_outputs
+                    or kd_targets is not None):
+                raise NotImplementedError(
+                    "under shard_activations / shard_sequence the DiT "
+                    "serves only: no controls, KD stacks or KD targets")
+            return self._forward_sharded(
+                tensor_axis, hidden_states, encoder_hidden_states,
+                pooled_projections, timestep, img_ids, txt_ids, guidance,
+                precomputed_mods)
         # the fused glue has no backward: KD (training) paths take the
         # plain glue, as JAX's _use_fused_glue does
         glue = None if kd_targets is not None else cfg.glue
@@ -517,6 +810,67 @@ class FluxTransformer2D(nn.Module):
             return output, {key: stack(ys) for key, ys in aux.items()}
         return output
 
+    def _forward_sharded(self, axis, hidden_states, encoder_hidden_states,
+                         pooled_projections, timestep, img_ids, txt_ids,
+                         guidance, precomputed_mods):
+        """``forward``'s velocity with the blocks over ``axis``: the
+        embedders and the head run whole on every member; under
+        ``shard_sequence`` the streams are split into the members' token
+        blocks after the embedders (text and image apart for the double
+        blocks, the joint stream for the single ones) and gathered before
+        the head."""
+        cfg = self.cfg
+        inputs = (hidden_states, encoder_hidden_states, pooled_projections,
+                  timestep, guidance)
+        if torch.is_grad_enabled():
+            weights = any(p.requires_grad for p in self.parameters())
+            if len(axis.members) == 1 and (weights or any(
+                    t is not None and t.requires_grad for t in inputs)):
+                raise RuntimeError(
+                    "the sharded DiT over the process form of the tensor "
+                    "axis has no backward (its collectives do not "
+                    "differentiate); the one-process form does")
+            if cfg.shard_activations and weights:
+                raise NotImplementedError(
+                    "training the DiT's weights under shard_activations is "
+                    "not ported (the members' layers are cut from them): "
+                    "freeze them (requires_grad_(False))")
+        hidden, encoder, temb, rope = self._embed(
+            hidden_states, encoder_hidden_states, pooled_projections,
+            timestep, img_ids, txt_ids, guidance)
+        s_txt, s_img = encoder.shape[1], hidden.shape[1]
+        dbl_rope = sgl_rope = None
+        if cfg.shard_sequence:
+            hidden = axis.split(hidden, 1, "image tokens")
+            encoder = axis.split(encoder, 1, "text tokens")
+            st, si = s_txt // axis.size, s_img // axis.size
+
+            def rows(start, n):
+                return tuple(t.narrow(0, start, n) for t in rope)
+
+            dbl_rope = [(rows(m * st, st), rows(s_txt + m * si, si))
+                        for m in axis.members]
+            sgl_rope = [rows(m * (st + si), st + si) for m in axis.members]
+        m = precomputed_mods
+        run = functools.partial(_run_block, cfg)
+        for i, blk in enumerate(self.double_blocks):
+            hidden, encoder = run(
+                blk.sharded, hidden, encoder, temb, rope,
+                None if m is None else (m["double_img"][i],
+                                        m["double_txt"][i]), dbl_rope)
+        if cfg.shard_sequence:
+            joint = axis.split(torch.cat([axis.gather(encoder, 1),
+                                          axis.gather(hidden, 1)], 1), 1,
+                               "joint tokens")
+        else:
+            joint = torch.cat([encoder, hidden], 1)
+        for i, blk in enumerate(self.single_blocks):
+            joint = run(blk.sharded, joint, temb, rope,
+                        None if m is None else m["single"][i], sgl_rope)
+        if cfg.shard_sequence:
+            joint = axis.gather(joint, 1)
+        return self._head(joint[:, s_txt:], temb, None)
+
 
 # the q/k projections and qk-norm scales of each block, whose channels the
 # rope layouts order differently
@@ -542,6 +896,8 @@ def set_rope_layout_(model: FluxTransformer2D,
     cfg = model.cfg
     if layout not in ("half", "interleaved"):
         raise ValueError(f"rope layout {layout!r}")
+    if model.tensor_shard is not None:
+        raise ValueError("set the rope layout before a model is sharded")
     if layout == cfg.rope_layout:
         return model
     d = cfg.attention_head_dim
@@ -589,6 +945,10 @@ def flux_pipeline_forward(model: FluxTransformer2D, hidden_states,
     padded with identity layers. The serving path (no controls, no KD
     outputs): the velocity equals ``model(...)`` to float precision."""
     cfg = model.cfg
+    if cfg.sharded:
+        raise NotImplementedError("the pipelined forward under "
+                                  "shard_activations / shard_sequence is "
+                                  "not ported")
     glue = cfg.glue
     hidden, encoder, temb, rope = model._embed(
         hidden_states, encoder_hidden_states, pooled_projections, timestep,

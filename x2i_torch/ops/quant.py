@@ -45,6 +45,14 @@ the activation rounding is ignored, and the codes, scales, multipliers,
 ``pre_scale`` and the bias get no gradient.
 The pre-quantized chunk input stays inference-only, as the JAX
 ``*_prequant`` products are.
+
+A w8 layer splits for tensor parallelism (``QuantLinear.sliced``): a
+block of its output channels takes their code rows, scales and bias; a
+block of its input features takes the code columns and keeps the scale
+and the bias whole, its product one part of a sum (``forward(x,
+with_bias=False)``), the bias added once after. w8a8 and w4a8 do not
+split: a row-split layer's activation scale must be the absmax of the
+whole row, across members; nor does w4 (its groups and AWQ pre-scale).
 """
 
 from __future__ import annotations
@@ -296,10 +304,10 @@ class StraightThrough(torch.autograd.Function):
     transpose, as the JAX backward's direct contraction does."""
 
     @staticmethod
-    def forward(ctx, x, layer):
+    def forward(ctx, x, layer, with_bias=True):
         ctx.mode, ctx.impl, ctx.x_dtype = layer.mode, layer.impl, x.dtype
         ctx.save_for_backward(*layer.codes())
-        return layer._product(x)
+        return layer._product(x, with_bias)
 
     @staticmethod
     def backward(ctx, dy):
@@ -308,7 +316,7 @@ class StraightThrough(torch.autograd.Function):
         dequant = {"w8": int8_dequant, "w8a8": int8_dequant,
                    "w4": w4_dequant, "w4a8": w4a8_dequant}[ctx.mode]
         w = dequant(*ctx.saved_tensors, ctx.x_dtype, ctx.impl)
-        return torch.matmul(dy.to(ctx.x_dtype), w), None
+        return torch.matmul(dy.to(ctx.x_dtype), w), None, None
 
 
 def _note_pre_scale(layer, incompatible_keys):
@@ -457,6 +465,42 @@ class QuantLinear(nn.Module):
             q.bias.copy_(linear.bias)
         return q
 
+    @torch.no_grad()
+    def sliced(self, side: str, ranges, copy: bool = True) -> "QuantLinear":
+        """A w8 layer of a block of this one: ``side`` "out" takes the
+        output channels in ``ranges`` (a list of (start, stop)), their
+        code rows, scales and bias; "in" the input features in
+        ``ranges``, their code columns in order, with the scale and the
+        bias whole (the block's product is a part of a sum: ``forward(x,
+        with_bias=False)``, the bias added once after it). ``copy``: new
+        storage for every tensor (else views where a range is one
+        contiguous block). Raises NotImplementedError in any other mode."""
+        if self.mode != "w8":
+            raise NotImplementedError(
+                f"a {self.mode} QuantLinear does not split for tensor "
+                f"parallelism: "
+                + ("its activation scale needs the whole row's absmax, a "
+                   "max over the members" if self.mode in ACT_QUANT_MODES
+                   else "its groups and AWQ pre-scale")
+                + "; only w8 and unquantized layers split")
+        dim = {"out": 0, "in": 1}[side]
+        codes = take_ranges(self.qweight, dim, ranges, copy)
+        scale, bias = self.scale, self.bias
+        if side == "out":
+            scale = take_ranges(scale, 0, ranges, copy)
+            bias = None if bias is None else take_ranges(bias, 0, ranges,
+                                                         copy)
+        elif copy:
+            scale = scale.clone()
+            bias = None if bias is None else bias.clone()
+        out, inn = codes.shape
+        layer = QuantLinear(inn, out, bias is not None, "w8", self.dtype,
+                            "meta", self.impl, self.group)
+        layer.qweight, layer.scale = codes, scale
+        if bias is not None:
+            layer.bias = nn.Parameter(bias, requires_grad=False)
+        return layer
+
     def _bias(self, y):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
@@ -469,8 +513,12 @@ class QuantLinear(nn.Module):
             return self.pweight, self.scale
         return self.qweight, self.scale
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
+        """``with_bias=False`` leaves the bias out (a part of a sum whose
+        bias is added once after it; tensor inputs)."""
         if isinstance(x, (tuple, list)):
+            if not with_bias:
+                raise ValueError("with_bias=False takes a tensor input")
             return self._prequant(x if isinstance(x, list) else [x])
         # the JAX layer's casts around its custom_vjp: w8a8 quantizes x in
         # its own dtype; the others cast it to the layer's first (w4 after
@@ -480,32 +528,34 @@ class QuantLinear(nn.Module):
         elif self.mode != "w8a8":
             x = x.to(self.dtype)
         if torch.is_grad_enabled() and x.requires_grad:
-            y = StraightThrough.apply(x, self)
+            y = StraightThrough.apply(x, self, with_bias)
         else:
-            y = self._product(x)
+            y = self._product(x, with_bias)
         # w8a8's product rounds to x.dtype, then to the layer's dtype, as
         # the JAX layer does; the bias rides the GEMM's epilogue when the
         # two dtypes agree (always in the DiT)
         if self.mode == "w8a8" and x.dtype != self.dtype:
-            return self._bias(y.to(self.dtype))
+            y = y.to(self.dtype)
+            return self._bias(y) if with_bias else y
         return y
 
-    def _product(self, x):
+    def _product(self, x, with_bias: bool = True):
         """The forward of a tensor input, after the casts of ``forward``."""
+        bias = self.bias if with_bias else None
         if self.mode in ("w8", "w4"):
-            return dequant_linear(x, *self.codes(), bias=self.bias,
+            return dequant_linear(x, *self.codes(), bias=bias,
                                   mode=self.mode, impl=self.impl)
         if self.mode == "w4a8":
             # quantized in the layer's dtype, the bias in the GEMM's
             # epilogue, as the JAX layer rounds
             xq, a_scale = quant_rows(x, self.impl)
             return w4a8_linear(xq, a_scale, self.pweight, self.mscale,
-                               self.scale, bias=self.bias,
+                               self.scale, bias=bias,
                                out_dtype=self.dtype, impl=self.impl)
         same = x.dtype == self.dtype
         xq, a_scale = quant_rows(x, self.impl)
         return int8_linear(xq, a_scale, self.qweight, self.scale,
-                           bias=self.bias if same else None,
+                           bias=bias if same else None,
                            out_dtype=x.dtype, impl=self.impl)
 
     def _prequant(self, chunks):
@@ -540,6 +590,17 @@ class QuantLinear(nn.Module):
                                 out_dtype=self.dtype, impl=self.impl)
             off += widths[i]
         return y
+
+
+def take_ranges(t: torch.Tensor, dim: int, ranges,
+                copy: bool = True) -> torch.Tensor:
+    """The blocks [start, stop) of ``ranges`` of ``t`` along ``dim``,
+    concatenated in order: new storage with ``copy``, else a view where
+    that is one contiguous block (and a contiguous copy where not)."""
+    parts = [t.narrow(dim, a, b - a) for a, b in ranges]
+    if len(parts) > 1:
+        return torch.cat(parts, dim)
+    return parts[0].clone() if copy else parts[0].contiguous()
 
 
 def make_linear(quantized, dtype, impl: str = "auto"):

@@ -23,6 +23,16 @@ None where a member has nothing). The results do not depend on the form:
 the same operations run on each member in the same order, and a transfer
 is exact.
 
+The tensor-parallel collectives (``split``, ``gather``, ``psum``,
+``psum_scatter``) take and give one tensor a member (lists aligned with
+``members``) or one replicated tensor. ``psum`` and ``psum_scatter`` add
+the members' parts in member order in f32, in both forms (the process
+form gathers the parts first, where an ``all_reduce`` would add them in
+NCCL's order), so that the two forms agree bit for bit. Every rank calls
+them in the same order: NCCL pairs messages by order. In the process form
+they are not differentiable and refuse a tensor that requires grad; the
+one-process form's are ordinary tensor operations.
+
 Under autograd the process form's transfers are ``autograd.Function``s:
 a hop sends forward and receives the gradient backward, ``enter`` marks a
 replicated input whose gradient is summed over the axis, and ``broadcast``
@@ -68,6 +78,29 @@ class Axis:
 
     def sends(self, member: int, senders, wrap: bool) -> bool:
         return bool(senders(member)) and (wrap or member < self.size - 1)
+
+    def share(self, n: int, what: str) -> int:
+        """A member's share of ``n`` ``what``; raises ValueError naming
+        the count where the size does not divide it."""
+        if n % self.size:
+            raise ValueError(f"{n} {what} do not split over the "
+                             f"{self.size} members of axis {self.name!r}")
+        return n // self.size
+
+    def split(self, x: torch.Tensor, dim: int,
+              what: str = "tokens") -> List[torch.Tensor]:
+        """Each held member's share of a replicated ``x`` along ``dim``
+        (member m the m-th of ``size`` equal blocks)."""
+        step = self.share(x.shape[dim], what)
+        return [x.narrow(dim, m * step, step) for m in self.members]
+
+
+def _sum_f32(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The parts added in their order in f32, in the first part's dtype."""
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = acc + p.float()
+    return acc.to(parts[0].dtype)
 
 
 class LocalAxis(Axis):
@@ -122,6 +155,26 @@ class LocalAxis(Axis):
         order, on the first member's device."""
         dev = tensors[0].device
         return torch.cat([t.to(dev) for t in tensors], dim)
+
+    def psum(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The members' parts summed (in member order, in f32), on the
+        first member's device."""
+        dev = parts[0].device
+        return _sum_f32([t.to(dev) for t in parts])
+
+    def psum_scatter(self, parts: List[torch.Tensor], dim: int,
+                     what: str = "tokens") -> List[torch.Tensor]:
+        """Each member's share along ``dim`` of the members' parts summed
+        (``psum``, then ``split``)."""
+        return self.split(self.psum(parts), dim, what)
+
+    def split(self, x: torch.Tensor, dim: int,
+              what: str = "tokens") -> List[torch.Tensor]:
+        """``Axis.split``, each share on its member's device."""
+        shares = super().split(x, dim, what)
+        if self.devices is None:
+            return shares
+        return [t.to(d) for t, d in zip(shares, self.devices)]
 
 
 class GroupAxis(Axis):
@@ -224,6 +277,30 @@ class GroupAxis(Axis):
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim)
 
+    def psum(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """This rank's part summed with the other members' (gathered, then
+        added in member order in f32: ``LocalAxis.psum``'s bits)."""
+        t = _refuse_grad(self, "psum", parts[0])
+        if self.size == 1:
+            return t
+        gathered = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(gathered, t.contiguous(), group=self.group)
+        return _sum_f32(gathered)
+
+    def psum_scatter(self, parts: List[torch.Tensor], dim: int,
+                     what: str = "tokens") -> List[torch.Tensor]:
+        """This rank's share along ``dim`` of the members' parts summed:
+        each rank sends member m its m-th block (``all_to_all``) and adds
+        the blocks it receives in member order in f32."""
+        t = _refuse_grad(self, "psum_scatter", parts[0])
+        if self.size == 1:
+            return [t]
+        step = self.share(t.shape[dim], what)
+        blocks = [b.contiguous() for b in t.split(step, dim)]
+        got = [torch.empty_like(b) for b in blocks]
+        dist.all_to_all(got, blocks, group=self.group)
+        return [_sum_f32(got)]
+
     def sum(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each tensor summed over the group (new tensors)."""
         out = [t.detach().clone() for t in tensors]
@@ -231,6 +308,15 @@ class GroupAxis(Axis):
             for t in out:
                 dist.all_reduce(t, group=self.group)
         return out
+
+
+def _refuse_grad(axis: GroupAxis, name: str, t: torch.Tensor):
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(
+            f"{name} over the process form of axis {axis.name!r} has no "
+            f"backward: its gradient would be silently wrong; the "
+            f"one-process form (LocalAxis) differentiates")
+    return t
 
 
 def _broadcast(axis: GroupAxis, src: int, value) -> tuple:

@@ -190,7 +190,11 @@ class X2IPipeline:
         share, and returns the whole batch on every rank, as JAX returns
         the global array. Batches must be multiples of the data axis's
         size. Under ``ring_sequence`` the DiT's ring is the mesh's tensor
-        axis (set on the shared DiT)."""
+        axis (set on the shared DiT), and under ``shard_activations`` or
+        ``shard_sequence`` its tensor axis: there each rank keeps only its
+        member's shard of the split layers, cut after rank 0's broadcast
+        (``FluxTransformer2D.set_tensor_axis``); the encoder, the proj and
+        the VAE stay whole on every rank."""
         from x2i_torch.core.mesh import mesh_axis
         from x2i_torch.ops.quant import note_pre_scales_
         if torch.distributed.get_world_size() > 1:
@@ -204,6 +208,8 @@ class X2IPipeline:
         data = mesh_axis(mesh, "data")
         if self.flux.cfg.ring_sequence:
             self.flux.set_ring_axis(mesh_axis(mesh, "tensor"))
+        if self.flux.cfg.sharded:
+            self.flux.set_tensor_axis(mesh_axis(mesh, "tensor"))
         return dataclasses.replace(self, data_axis=data)
 
     @torch.inference_mode()

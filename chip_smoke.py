@@ -1783,9 +1783,10 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_fwd_lse": 0, "flash_fwd_f32": 0, "flash_chunked": 0,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_mod": 0,
                "ln_mod_quant": 0,
-               "gelu_quant": 0, "quant_rows": 0, "int8_gemm": 0,
-               "w4a8_gemm": 0, "dequant_gemm": 0, "w4_dequant": 0,
-               "int8_dequant": 0, "w4a8_dequant": 0}
+               "gelu_quant": 0, "quant_rows": 0, "row_absmax": 0,
+               "quant_rows_at": 0, "int8_gemm": 0, "int8_gemm_acc": 0,
+               "w4a8_gemm": 0, "w4a8_gemm_acc": 0, "dequant_gemm": 0,
+               "w4_dequant": 0, "int8_dequant": 0, "w4a8_dequant": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
@@ -6539,16 +6540,40 @@ def tensor_launches(flags: str, members: int, px: int = 1024,
     unfused: no K5): each member's attention a block a step (K2 above 8192
     joint tokens, K1c for a member's query rows under ``shard_sequence``
     alone: the rope outside the kernel, else K1a), the LM's 24 K1b; in
-    w8 each member's products of the blocks' layers, the embedders', the
-    head's and the adaLN pass's once."""
+    w8 and w4 each member's products of the blocks' layers, the
+    embedders', the head's and the adaLN pass's once (the dequantizing
+    GEMM). In w8a8 and w4a8 under ``shard_activations``: K8 once a step
+    for each replicated input of the column-split layers (4 a double
+    block, 1 a single) and for the 8 unsplit layers, each member's scaled
+    GEMM for its column-split layers (8 a double block, 4 a single) and
+    for each row-split layer (4 a double block, 1 a single) its row
+    absmax, its codes at the row's scale and its int32-out GEMM; the
+    adaLN pass's K8 and GEMM once. Over one member the unsharded
+    blocks quantize every dense layer's input (K8 and the GEMM each)."""
     joint = 512 + (px // 16) ** 2
     attn = ("flash_chunked" if joint > 8192 else "flash_fwd_pipe"
             if flags == "sp" and members > 1 else "flash_fwd_rope")
     want = dict(NO_LAUNCHES, flash_fwd=24)
     want[attn] = (n2 + n1) * steps * members
-    if quantized == "w8":
+    once = 2 * n2 + n1 + 4
+    if quantized in ("w8", "w4"):
         want["dequant_gemm"] = ((members * (12 * n2 + 5 * n1) + 8) * steps
-                                + 2 * n2 + n1 + 4)
+                                + once)
+    elif quantized in ("w8a8", "w4a8"):
+        gemm = "w4a8_gemm" if quantized == "w4a8" else "int8_gemm"
+        if members == 1:
+            per_step = 12 * n2 + 5 * n1 + 8
+            want.update({"quant_rows": per_step * steps + once,
+                         gemm: per_step * steps + once})
+        else:
+            if "tp" not in flags:
+                raise ValueError(f"no quantized counts for {flags!r}")
+            rows = (4 * n2 + n1) * members * steps
+            want.update({
+                "quant_rows": (4 * n2 + n1 + 8) * steps + once,
+                gemm: ((8 * n2 + 4 * n1) * members + 8) * steps + once,
+                f"{gemm}_acc": rows, "row_absmax": rows,
+                "quant_rows_at": rows})
     return want
 
 
@@ -6569,14 +6594,15 @@ def member_param_bytes(flux) -> tuple:
 
 
 def tensor_image(pipe, seed: int, card: str, label: str, flags: str,
-                 px: int = 1024, warm: bool = True):
+                 px: int = 1024, warm: bool = True, control_pixels=None):
     """``label``: one px^2, 4-step image with ``flags`` over
     ``LocalAxis(TP, "tensor")`` against the same flags over one member,
     from the same seed and noise (with ``warm`` each route's image after
     one warm-up image, else its first); exact launch counts of both; the
     s/image of both; under ``shard_activations`` member 0's DiT bytes
-    against the whole DiT's. The DiT's config and axis are set back
-    after. -> {label: launches}."""
+    against the whole DiT's. ``control_pixels``: LightControl's guidance
+    image, for a pipeline ``with_controls``. The DiT's config and axis are
+    set back after. -> {label: launches}."""
     import numpy as np
     import torch
     from x2i_torch.parallel.axis import LocalAxis
@@ -6584,6 +6610,8 @@ def tensor_image(pipe, seed: int, card: str, label: str, flags: str,
     flux, steps = pipe.flux, 4
     req = {"task": "text2image", "prompt": PROMPTS[0]}
     size = dict(height=px, width=px, num_steps=steps)
+    if control_pixels is not None:
+        size["control_pixels"] = control_pixels
     quantized = flux.cfg.quantized
     out, runs, sec = {}, {}, {}
     bytes_ = None
@@ -6619,6 +6647,7 @@ def tensor_image(pipe, seed: int, card: str, label: str, flags: str,
                "query_rows": (512 + (px // 16) ** 2) // (
                    TP if flags == "sp" else 1)},
            "image_shape": list(out[TP].shape),
+           "bit_for_bit": bool(np.array_equal(out[TP], out[1])),
            "max_level_diff": float(levels.max()),
            "mean_level_diff": float(levels.mean()), "rel_l2": rel,
            "rel_l2_bar": TP_IMAGE_REL_L2,
@@ -6644,6 +6673,195 @@ TP_GEMM_SHAPES = (
     ("member double img attn_out", 4096, 3072 // TP, 3072),
     ("member double img mlp_out", 4096, 12288 // TP, 3072),
     ("member single out", 4608, (3072 + 12288) // TP, 3072))
+# the row-split products' text rows besides (w8a8, w4a8: int32 out)
+TP_ROW_GEMMS = TP_GEMM_SHAPES[2:] + (
+    ("member double txt attn_out", 512, 3072 // TP, 3072),
+    ("member double txt mlp_out", 512, 12288 // TP, 3072))
+TP_ACC_MAIN = "member double img mlp_out"
+# a member's row-split inputs at 1024^2 that K8's halves read (label,
+# shape): attention outputs of its 6 heads (image, text and joint rows),
+# its FFN block, and the single block's attention + FFN features
+TP_ROW_SHAPES = (
+    ("member attention, 4608 rows", (1, 4608, 3072 // TP)),
+    ("member attention, 4096 rows", (1, 4096, 3072 // TP)),
+    ("member attention, 512 rows", (1, 512, 3072 // TP)),
+    ("member double img mlp_out, 4096 rows", (1, 4096, 12288 // TP)),
+    ("member double txt mlp_out, 512 rows", (1, 512, 12288 // TP)),
+    ("member single out, 4608 rows", (1, 4608, (3072 + 12288) // TP)),
+    ("tie rows", (1, 256, 3072 // TP)),
+    ("tie rows", (64, 12288 // TP)))
+TP_ROW_MAIN = "member double img mlp_out, 4096 rows"
+
+
+def check_row_halves(g, rows, recs):
+    """K8's halves at a member's row-split widths (``TP_ROW_SHAPES``): the
+    whole row is TP members' blocks, each member's ``row_absmax`` and its
+    ``quant_rows_at`` at the members' maximum bit for bit their plain
+    versions, each counted once a call, and the members' codes and scale
+    together bit for bit whole-row K8 (``quant_rows``); on tie rows too
+    (every quotient k + 0.5). Timed at each shape: the absmax against
+    ``torch.linalg.vector_norm(ord=inf)`` (``torch.amax`` of |x| in one
+    call), the quantization with no one PyTorch call beside it."""
+    import torch
+    from x2i_torch.ops import fused_glue as fg
+
+    for label, shape in TP_ROW_SHAPES:
+        whole_shape = (*shape[:-1], shape[-1] * TP)
+        if label == "tie rows":
+            whole = tie_rows(g, math.prod(shape[:-1]), whole_shape[-1]) \
+                .view(whole_shape)
+        else:
+            whole = rows(*whole_shape)
+        parts = [t.contiguous() for t in whole.split(shape[-1], -1)]
+        before = dict(fg.LAUNCHES)
+        amaxes = [fg.row_absmax(x) for x in parts]
+        amax = amaxes[0]
+        for a in amaxes[1:]:
+            amax = torch.maximum(amax, a)
+        quants = [fg.quant_rows_at(x, amax) for x in parts]
+        counted = fg.LAUNCHES == dict(
+            before, row_absmax=before["row_absmax"] + TP,
+            quant_rows_at=before["quant_rows_at"] + TP)
+        q_whole, a_whole = fg.quant_rows(whole)
+        plain_amax = [fg.row_absmax_plain(x) for x in parts]
+        plain_q = [fg.quant_rows_at_plain(x, amax) for x in parts]
+        torch.cuda.synchronize()
+        ok_amax = all(torch.equal(a, b) for a, b in zip(amaxes, plain_amax))
+        ok_q = all(torch.equal(q, qp) and torch.equal(a, ap)
+                   for (q, a), (qp, ap) in zip(quants, plain_q))
+        ok_whole = (torch.equal(torch.cat([q for q, _ in quants], -1),
+                                q_whole)
+                    and all(torch.equal(a, a_whole) for _, a in quants))
+        x = parts[0]
+        q0, a0 = quants[0]
+        for name in ("row_absmax", "quant_rows_at"):
+            if name == "row_absmax":
+                fn, plain = fg.row_absmax, fg.row_absmax_plain
+                inputs, outs = (x,), (amaxes[0],)
+                lib = (lambda t: torch.linalg.vector_norm(
+                    t, float("inf"), -1, keepdim=True, dtype=torch.float32))
+                ops = 2
+                err = (amaxes[0] - plain_amax[0]).abs().max().item()
+            else:
+                fn, plain = fg.quant_rows_at, fg.quant_rows_at_plain
+                inputs, outs = (x, amax), (q0, a0)
+                lib = None
+                ops = 5
+                err = (q0.float() * a0 - plain_q[0][0].float()
+                       * plain_q[0][1]).abs().max().item()
+            rec = {"phase": "parallel", "check": "tensor-kernels",
+                   "kernel": name, "case": label, "shape": list(shape),
+                   "members": TP, "max_abs_err": err,
+                   "bit_for_bit": ok_amax if name == "row_absmax" else ok_q,
+                   "whole_row_k8_bits": ok_whole, "counted_once": counted,
+                   "ms": kernel_ms(fn, *inputs),
+                   "plain_ms": kernel_ms(plain, *inputs),
+                   "library_ms": None if lib is None else kernel_ms(lib, x),
+                   "library": ("torch.linalg.vector_norm(ord=inf), f32 out"
+                               if lib else "none: no one PyTorch call "
+                               "computes a per-row int8 quantization at a "
+                               "given absmax")}
+            rec["bound_ms"], rec["bound_by"] = bound(
+                ops * x.numel(), nbytes(*inputs, *outs), PEAK_F32_FLOPS)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            recs.setdefault(name, []).append(rec)
+        if not (ok_amax and ok_q and ok_whole and counted):
+            raise AssertionError(f"K8's halves disagree at {label} "
+                                 f"{shape}: absmax {ok_amax}, codes "
+                                 f"{ok_q}, whole row {ok_whole}, counted "
+                                 f"{counted}")
+
+
+def check_acc_gemms(g, rows, recs):
+    """The int8 and w4a8 GEMMs' int32-out instances at a member's
+    row-split products (``TP_ROW_GEMMS``; w4a8 on a weight quantized at
+    the member's own width, groups of 128, as a member's shard is packed):
+    exact against their plain versions, each counted once a call, timed
+    beside the scaled instance of the same product (``scaled_ms``) and, for
+    int8, ``torch._int_mm`` (the same int32 product). At the column-split
+    shapes the scaled instances against their plain versions (int8 within
+    one bf16 step, w4a8 bit for bit)."""
+    import torch
+    from x2i_torch.ops import fused_glue as fg
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as ig
+    from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4a8
+
+    dev = torch.device("cuda")
+    columns = [s for s in TP_GEMM_SHAPES if s not in TP_ROW_GEMMS]
+    for mode in ("int8", "w4a8"):
+        for label, m, k, n in TP_ROW_GEMMS + tuple(columns):
+            wf = torch.randn((n, k), generator=g, device=dev) / k ** 0.5
+            if mode == "int8":
+                q, scale = quantize_kernel(wf.t())
+                w = (q.t().contiguous(),)
+                acc_fn, acc_plain = ig.int8_matmul_acc, ig.int8_matmul_acc_plain
+                lin, lin_plain = ig.int8_linear, ig.int8_linear_plain
+            else:
+                pk, ms, scale = quantize_kernel_w4a8(wf.t())
+                w = (pk.t().contiguous(), ms)
+                acc_fn, acc_plain = i4.w4a8_matmul_acc, \
+                    i4.w4a8_matmul_acc_plain
+                lin, lin_plain = i4.w4a8_linear, i4.w4a8_linear_plain
+            del wf
+            xq, a = fg.quant_rows_plain(rows(m, k))
+
+            def scaled(x, s, *ws):
+                return lin(x, s, *ws, scale)
+
+            def scaled_plain(x, s, *ws):
+                return lin_plain(x, s, *ws, scale)
+
+            got, want = scaled(xq, a, *w), scaled_plain(xq, a, *w)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            scaled_ok = (torch.equal(got, want) if mode == "w4a8" else
+                         bool((diff <= 2.0 ** -7 * want.float().abs()).all()))
+            name = f"{mode}_gemm"
+            rec = {"phase": "parallel", "check": "tensor-kernels",
+                   "case": label, "shape": [m, k, n],
+                   "scaled_within_bar": scaled_ok,
+                   "scaled_max_abs_err": diff.max().item()}
+            if (label, m, k, n) in TP_ROW_GEMMS:
+                before = dict(ig.GEMM.launches)
+                acc = acc_fn(xq, *w)
+                counted = ig.GEMM.launches == dict(
+                    before, **{f"{name}_acc": before[f"{name}_acc"] + 1})
+                exact = torch.equal(acc, acc_plain(xq, *w))
+                rec.update(kernel=f"{name}_acc", acc_exact=exact,
+                           counted_once=counted, max_abs_err=0.0 if exact
+                           else float("inf"),
+                           ms=kernel_ms(acc_fn, xq, *w),
+                           plain_ms=kernel_ms(acc_plain, xq, *w),
+                           scaled_ms=kernel_ms(scaled, xq, a, *w))
+                if mode == "int8":
+                    rec.update(library_ms=kernel_ms(
+                        torch._int_mm, xq, w[0].t()),
+                        library="torch._int_mm")
+                else:
+                    rec.update(library_ms=None, library="none: no one "
+                               "PyTorch call computes it from the codes")
+                out_bytes = m * n * 4
+                ok = exact and counted and scaled_ok
+            else:
+                rec.update(kernel=name, max_abs_err=diff.max().item(),
+                           ms=kernel_ms(scaled, xq, a, *w),
+                           plain_ms=kernel_ms(scaled_plain, xq, a, *w),
+                           library_ms=None, library="see the main shapes")
+                out_bytes = nbytes(got, a, scale)
+                ok = scaled_ok
+            weight_bytes = (n * k if mode == "int8" else
+                            n * k // 2 + w[1].numel())
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2.0 * m * n * k, nbytes(xq) + weight_bytes + out_bytes,
+                PEAK_INT8_OPS)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            recs.setdefault(rec["kernel"], []).append(rec)
+            if not ok:
+                raise AssertionError(f"{rec['kernel']} disagrees with its "
+                                     f"plain version: {rec}")
 
 
 def check_tensor_kernels(g, recs):
@@ -6651,8 +6869,10 @@ def check_tensor_kernels(g, recs):
     plain versions (``check_flash``, ``check_dequant_gemms``): K1a on 6 of
     24 heads at 4608 tokens with the rope (the qk norm outside under the
     flags), K1c on a member's 1152 query rows against the 4608 gathered
-    keys, K2 on 6 heads at 16,896 tokens; the w8 dequantizing GEMM at the
-    member's widths, the row-split parts without their bias."""
+    keys, K2 on 6 heads at 16,896 tokens; the w8 and w4 dequantizing GEMM
+    at the member's widths, the row-split parts without their bias; K8's
+    halves (``check_row_halves``) and the int32-out GEMMs with the scaled
+    ones at the member's products (``check_acc_gemms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -6705,11 +6925,14 @@ def check_tensor_kernels(g, recs):
 
     gemm = []
     check_dequant_gemms(g, rows, {"dequant_gemm": gemm},
-                        shapes=TP_GEMM_SHAPES, modes=(("w8", None),),
+                        shapes=TP_GEMM_SHAPES,
+                        modes=(("w8", None), ("w4", 128)),
                         timed=("member single out",), biased=False)
     for r in gemm:
         r.update(phase="parallel", check="tensor-kernels")
         recs.setdefault("dequant_gemm", []).append(r)
+    check_row_halves(g, rows, recs)
+    check_acc_gemms(g, rows, recs)
 
 
 def phase_tensor(pipe, seed: int, card: str, recs: dict) -> dict:
@@ -6782,6 +7005,14 @@ KERNEL_TABLE = (
      "train-resume", DEQUANT_MAIN),
     ("w4a8_dequant", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:359",
      "lightcontrol-train-w4a8", DEQUANT_MAIN),
+    ("row_absmax", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:78", "tp-w8a8",
+     TP_ROW_MAIN),
+    ("quant_rows_at", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:78", "tp-w8a8",
+     TP_ROW_MAIN),
+    ("int8_gemm_acc", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:43",
+     "tp-w8a8", TP_ACC_MAIN),
+    ("w4a8_gemm_acc", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:281",
+     "tp-w4a8", TP_ACC_MAIN),
 )
 
 
@@ -6838,6 +7069,10 @@ def main(argv=None) -> int:
     launches_eval = phase_eval(pipe, args.seed, smi)
     launches_lc, control = phase_lightcontrol(pipe, bf16_pixels, args.seed,
                                               smi)
+    # the controlled image under both flags over the tensor axis
+    launches_tp_lc = tensor_image(pipe.with_controls(*control[:2]),
+                                  args.seed, smi, "tp+sp-control", "tp+sp",
+                                  control_pixels=control[2])
     launches_lc_train, _ = phase_lightcontrol_train(pipe, lm, args.seed, smi)
     launches_resume, quantize_s, launches_lc_train_w8a8 = phase_train_resume(
         pipe, lm, args.seed, smi)
@@ -6845,12 +7080,17 @@ def main(argv=None) -> int:
                                                  args.seed, control,
                                                  quantize_s)
     del control
+    launches_tp_quant = tensor_image(pipe, args.seed, smi, "tp-w8a8", "tp")
     launches_w4a8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
                                 "w4a8")
+    launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4a8",
+                                          "tp"))
     launches_lc_train_w4a8 = phase_lightcontrol_quant(
         pipe, args.seed, smi, "lightcontrol-train-w4a8",
         LIGHTCONTROL_W4A8_LAUNCHES, steps=2)
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4",
+                                          "tp"))
     launches_lc_train_w4 = phase_lightcontrol_quant(
         pipe, args.seed, smi, "lightcontrol-train-w4",
         LIGHTCONTROL_W4_LAUNCHES, steps=2)
@@ -6871,6 +7111,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
             **launches_proj, **launches_ckpt, **launches_tp_w8,
+            **launches_tp_quant, **launches_tp_lc,
             **launches_registry, **launches_parallel}
 
     table = []

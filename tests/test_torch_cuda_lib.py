@@ -189,8 +189,9 @@ def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
 
 
 # the row glue library's kernels (K5, K6 and K8's warp body, K5's and K6's
-# generic instance, K7's and K8's ring kernel and their generic one),
-# named as nvcc 12 mangles them; none is built on wgmma
+# generic instance, K7's and K8's ring kernel and their generic one, then
+# K8's halves: the row absmax and the codes at a given absmax, warp body
+# and generic), named as nvcc 12 mangles them; none is built on wgmma
 _ROW_TU = "_ZN49_GLOBAL__N__5c1e07a2_11_row_glue_cu_8d2f6b41"
 ROW_GLUE_KERNELS = (
     f"{_ROW_TU}13ln_mod_kernelENS_7RowArgsE",
@@ -198,8 +199,12 @@ ROW_GLUE_KERNELS = (
     f"{_ROW_TU}17quant_warp_kernelENS_7RowArgsE",
     *(f"{_ROW_TU}18ln_mod_rows_kernelILb{q}EEEvNS_7RowArgsE" for q in (0, 1)),
     *(f"{_ROW_TU}17quant_ring_kernelILb{g}EEEvNS_7RowArgsE" for g in (0, 1)),
-    *(f"{_ROW_TU}17quant_rows_kernelILb{g}EEEvNS_7RowArgsE"
-      for g in (0, 1)))
+    *(f"{_ROW_TU}17quant_rows_kernelILb{g}ELi2EEEvNS_7RowArgsE"
+      for g in (0, 1)),
+    f"{_ROW_TU}20row_amax_warp_kernelENS_7RowArgsE",
+    f"{_ROW_TU}20quant_at_warp_kernelENS_7RowArgsE",
+    *(f"{_ROW_TU}17quant_rows_kernelILb0ELi{op}EEEvNS_7RowArgsE"
+      for op in (3, 4)))
 
 
 def _row_glue_log(drop=(), spill=None, no_regs=None):
@@ -224,6 +229,9 @@ ROW_GLUE_CASES = {
                    ["quant_ring_kernel"]),
     "K8 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[2]),
                    ["quant_warp_kernel"]),
+    "K8's halves missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[9:11]),
+                            ["row_amax_warp_kernel",
+                             "quant_at_warp_kernel"]),
     "no register count": (_row_glue_log(no_regs=ROW_GLUE_KERNELS[0]),
                           ["register count"]),
 }
@@ -276,7 +284,8 @@ def test_row_glue_library_gates_every_kernel():
     assert tfg.ROW_GLUE.wgmma_kernels == ()
     assert tfg.ROW_GLUE.gated_kernels == (
         "ln_mod_kernel", "ln_mod_quant_kernel", "quant_warp_kernel",
-        "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel")
+        "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel",
+        "row_amax_warp_kernel", "quant_at_warp_kernel")
     # no gated name is a part of another kernel's, so each names its own
     for gated in tfg.ROW_GLUE.gated_kernels:
         assert [n for n in ROW_GLUE_KERNELS

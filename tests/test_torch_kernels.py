@@ -792,6 +792,82 @@ def test_gelu_quant_identity_instance_is_exact(dev, case, ties):
     assert tfg.LAUNCHES == dict(before, quant_rows=before["quant_rows"] + 1)
 
 
+# K8's halves at a member's row-split widths of the sharded DiT (4
+# members: 768, 3072, 3840), on a whole row of 4 members' blocks; the
+# image and text rows of the double block's attention output; a width of
+# 3 chunks, spans across batches
+ROW_HALVES_CASES = {
+    "attention (1, 4608, 768)": (1, 4608, 768),
+    "mlp_out (1, 4096, 3072)": (1, 4096, 3072),
+    "single out (1, 4608, 3840)": (1, 4608, 3840),
+    "generic D 24, B 3": (3, 1001, 24),
+    "B 300, S 7, 3072": (300, 7, 3072),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["rows", "tie rows"])
+@pytest.mark.parametrize("case", list(ROW_HALVES_CASES))
+def test_row_absmax_and_quant_rows_at_are_exact(dev, case, ties):
+    """K8's halves on each of 4 members' blocks of a row: ``row_absmax``
+    and ``quant_rows_at`` at the members' maximum bit for bit their plain
+    versions, each counted once a call, and the members' codes and scales
+    together bit for bit whole-row K8's; a non-contiguous block (a view of
+    the whole row) too."""
+    shape = ROW_HALVES_CASES[case]
+    whole_shape = (*shape[:-1], 4 * shape[-1])
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + 11 * ties)
+    if ties:
+        whole = _tie_rows(g, dev, math.prod(shape[:-1]),
+                          whole_shape[-1]).view(whole_shape)
+    else:
+        whole = _rows(g, dev, *whole_shape)
+    views = list(whole.split(shape[-1], -1))
+    parts = [t.contiguous() for t in views]
+    before = dict(tfg.LAUNCHES)
+    amaxes = [tfg.row_absmax(x) for x in parts]
+    assert tfg.LAUNCHES == dict(before, row_absmax=before["row_absmax"] + 4)
+    for a, x in zip(amaxes, parts):
+        assert torch.equal(a, tfg.row_absmax_plain(x))
+    amax = torch.stack(amaxes).amax(0)
+    q_whole, a_whole = tfg.quant_rows(whole)
+    codes = []
+    for x, view in zip(parts, views):
+        q, a = tfg.quant_rows_at(x, amax)
+        qp, ap = tfg.quant_rows_at_plain(x, amax)
+        assert torch.equal(q, qp) and torch.equal(a, ap)
+        assert torch.equal(a, a_whole)
+        qv, _ = tfg.quant_rows_at(view, amax)
+        assert torch.equal(qv, q)
+        codes.append(q)
+    assert torch.equal(torch.cat(codes, -1), q_whole)
+    assert torch.equal(tfg.row_absmax(views[1]), amaxes[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (512, 3072, 3072),
+                                   (4608, 3840, 3072), (5, 64, 64)])
+def test_acc_gemms_on_member_products(dev, m, k, n):
+    """The int8 and w4a8 GEMMs' int32-out instances at a member's
+    row-split products (w4a8 on a weight quantized at the member's own
+    width, as its shard is packed) exact, each counted under its own
+    name."""
+    from x2i_torch.ops.quant import quantize_kernel_w4a8
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    xq, _, w, _, _ = _gemm_inputs(g, dev, m, k, n)
+    before = dict(tgemm.GEMM.launches)
+    assert torch.equal(tgemm.int8_matmul_acc(xq, w),
+                       tgemm.int8_matmul_acc_plain(xq, w))
+    wf = torch.randn((n, k), generator=g, device=dev) / k ** 0.5
+    pk, ms, _ = quantize_kernel_w4a8(wf.t(), 32 if k == 64 else 128)
+    pw = pk.t().contiguous()
+    assert torch.equal(t4.w4a8_matmul_acc(xq, pw, ms),
+                       t4.w4a8_matmul_acc_plain(xq, pw, ms))
+    assert tgemm.GEMM.launches == dict(
+        before, int8_gemm_acc=before["int8_gemm_acc"] + 1,
+        w4a8_gemm_acc=before["w4a8_gemm_acc"] + 1)
+
+
 # K8 (csrc/row_glue.cu) at every width of the w8a8 path: the unfused
 # layers' inputs (x_embedder 64, context_embedder 4096, the time and
 # pooled embedders 256 and 768, the mods pass and norm_out 3072), the
@@ -968,11 +1044,13 @@ def test_int8_gemm_tiling_edges(dev, case):
     m, k, n, width, k0 = GEMM_EDGES[case]
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     xq, a, w, scale, bias = _gemm_inputs(g, dev, m, k, n, width)
-    before = tgemm.GEMM.launches["int8_gemm"]
+    before = dict(tgemm.GEMM.launches)
     assert torch.equal(tgemm.int8_matmul_acc(xq, w, k0),
                        tgemm.int8_matmul_acc_plain(xq, w, k0))
     got = tgemm.int8_linear(xq, a, w, scale, bias=bias, k0=k0)
-    assert tgemm.GEMM.launches["int8_gemm"] == before + 2
+    assert tgemm.GEMM.launches == dict(
+        before, int8_gemm=before["int8_gemm"] + 1,
+        int8_gemm_acc=before["int8_gemm_acc"] + 1)
     _bf16_close(got, tgemm.int8_linear_plain(xq, a, w, scale, bias=bias,
                                              k0=k0))
 
@@ -1098,11 +1176,13 @@ def test_w4a8_gemm_edges(dev, case):
     m, k, n, inn, groups, k0 = W4A8_EDGES[case]
     g = torch.Generator(device=dev).manual_seed(m + k + n + k0)
     xq, a, pw, ms, scale, bias = _w4a8_inputs(g, dev, m, k, n, inn, groups)
-    before = tgemm.GEMM.launches["w4a8_gemm"]
+    before = dict(tgemm.GEMM.launches)
     assert torch.equal(t4.w4a8_matmul_acc(xq, pw, ms, k0),
                        t4.w4a8_matmul_acc_plain(xq, pw, ms, k0))
     got = t4.w4a8_linear(xq, a, pw, ms, scale, bias=bias, k0=k0)
-    assert tgemm.GEMM.launches["w4a8_gemm"] == before + 2
+    assert tgemm.GEMM.launches == dict(
+        before, w4a8_gemm=before["w4a8_gemm"] + 1,
+        w4a8_gemm_acc=before["w4a8_gemm_acc"] + 1)
     _bf16_close(got, t4.w4a8_linear_plain(xq, a, pw, ms, scale, bias=bias,
                                           k0=k0))
 

@@ -28,7 +28,11 @@ with fewer than four):
   over the 4 ranks' tensor axis equal bit for bit to the one-process
   form's forward, each rank holding ``shard_state``'s shard, refusing
   autograd; and ``with_mesh`` serving a (data 1, tensor 4) mesh under
-  both flags equal bit for bit to the one-process form's images.
+  both flags equal bit for bit to the one-process form's images;
+* the tiny FLUX in w8a8 and w4a8 (quantized at group 16) under both flags,
+  and in f32 with LightControl's controls under both flags, over the 4
+  ranks equal bit for bit to the one-process form, each rank holding only
+  ``shard_state``'s shard (w4a8's codes packed again over its inputs).
 
 The store is a file under the test's temporary directory (no fixed port:
 several workers run at once), every group has a 60 s timeout and the
@@ -348,11 +352,48 @@ def check_tensor_parallel(rank, dev, root):
     return out
 
 
+def check_tensor_quant(rank, dev, root):
+    from x2i_torch.ops.quant import quantize_module_
+    from x2i_torch.parallel.axis import GroupAxis, LocalAxis
+    from x2i_torch.parallel.tensor import shard_state
+    out = {}
+    g = torch.Generator().manual_seed(7)
+    for label in ("w8a8", "w4a8", "controls"):
+        model, args = _tiny_flux(dev)
+        local, _ = _tiny_flux(dev)
+        kw = {}
+        if label == "controls":
+            cfg = model.cfg
+            kw["controls"] = (torch.randn(cfg.num_layers, args[0].shape[0],
+                                          args[0].shape[1], cfg.inner_dim,
+                                          generator=g) * 0.5).to(dev)
+        else:
+            # f32: the plain quantization and products (also over NCCL,
+            # where the kernels take bf16 only)
+            for m in (model, local):
+                quantize_module_(m.replace_config(quant_impl="plain"),
+                                 label, group=16)
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+        for m in (model, local):
+            m.replace_config(**TP_FLAGS["tp+sp"])
+        local.set_tensor_axis(LocalAxis(WORLD))
+        model.set_tensor_axis(GroupAxis(dist.group.WORLD, "tensor"))
+        with torch.no_grad():
+            equal = torch.equal(model(*args, **kw), local(*args, **kw))
+        state = model.state_dict()
+        mine = shard_state(whole, model.cfg, rank, WORLD)
+        out[label] = {"equal": equal,
+                      "shard": state.keys() == mine.keys() and all(
+                          torch.equal(state[k], mine[k]) for k in mine)}
+    return out
+
+
 CHECKS = {"placements": check_placements, "ring": check_ring,
           "pipeline": check_pipeline, "train_loop": check_train_loop,
           "checkpoints": check_checkpoints, "serving": check_serving,
           "awq_serving": check_awq_serving, "pools": check_pools,
-          "tensor_parallel": check_tensor_parallel}
+          "tensor_parallel": check_tensor_parallel,
+          "tensor_quant": check_tensor_quant}
 
 
 def _rank_main(rank, backend, init_file, out_dir):
@@ -500,3 +541,13 @@ def test_process_tensor_parallel_equals_one_process(ranks):
             assert got[label] == {"equal": True, "refused_grad": True,
                                   "shard": True}, (label, got[label])
         assert got["with_mesh_equal"] and got["with_mesh_shard"] == [r, 4]
+
+
+@pytest.mark.parametrize("label", ["w8a8", "w4a8", "controls"])
+def test_process_tensor_parallel_quantized_and_controlled(ranks, label):
+    """w8a8 and w4a8 under both flags (int32 sums by ``all_reduce`` /
+    ``reduce_scatter``, the row absmax by ``all_reduce(MAX)``) and a
+    controlled forward: bit for bit the one-process form, each rank
+    holding only its shard."""
+    for r, got in _each(ranks, "tensor_quant"):
+        assert got[label] == {"equal": True, "shard": True}, (r, got)

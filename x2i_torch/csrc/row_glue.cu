@@ -16,7 +16,14 @@
 //       codes = clip(round_half_even(out / a), -127, 127)  (int8), a (f32);
 //   * K7 _gelu_quant_kernel (:70-75): g = bf16(gelu_tanh(x)), then the
 //     same quantization of g;
-//   * K8 _quant_kernel (:78-81): the same quantization of x.
+//   * K8 _quant_kernel (:78-81): the same quantization of x;
+//   * K8's two halves, for a row split over the members of a tensor axis
+//     (the row-split layers under shard_activations, where XLA quantizes
+//     the whole row of JAX's w8a8_matmul, x2i_tpu/ops/quant.py:39-42, over
+//     sharded features): the row absmax alone, max|x| (f32), and the
+//     quantization at a given absmax (the members' maximum), the same
+//     a = max(amax, 1e-6) / 127 and codes, so that the members' codes are
+//     the whole row's K8 codes.
 // The rounding points are those of the plain versions beside the wrappers
 // (x2i_torch/ops/fused_glue.py): each bf16 rounding as PyTorch's bf16
 // arithmetic rounds (the f32 result, rounded to nearest even), products and
@@ -156,7 +163,8 @@ struct RowArgs {
   const bf16* scale;
   long long seb;
   void* out;  // (B * S, D), contiguous: bf16 (K5) or int8 codes
-  float* a;   // K6, K7, K8: (B * S) f32 row scales
+  float* a;   // K6, K7, K8: (B * S) f32 row scales (the absmax alone: it)
+  const float* amax;  // K8 at a given absmax: (B * S) f32
   int rows, d;
   float eps;
   int lanes;  // generic K7 / K8: threads per row, a power of two to 256
@@ -231,7 +239,8 @@ constexpr int kLnWarps = 8;                 // rows in progress per block
 constexpr int kLnChunks = kLnD / 8 / 32;    // 16-byte chunks per lane
 constexpr int kLnSmemBytes = 2 * kLnD * 2;  // bf16(1 + scale) and shift
 
-enum RowOp { kLnMod, kLnModQuant, kQuantOnly };  // K5, K6, K8
+// K5, K6, K8, and K8's halves: the row absmax, the codes at a given one
+enum RowOp { kLnMod, kLnModQuant, kQuantOnly, kAmaxOnly, kQuantAt };
 
 // bf16(1 + scale) of 8 packed values, as PyTorch's bf16 `1.0 + scale`.
 __device__ __forceinline__ uint4 one_plus(const uint4& sc) {
@@ -323,14 +332,26 @@ __device__ __forceinline__ void ln_modulate(uint4 (&v)[kLnChunks],
 // 8-byte store: each warp store is 256 contiguous bytes. (Lanes 2i and 2i
 // + 1 trading halves of their chunks c and c + 1 by shuffles, for 16-byte
 // stores, were slower on an H100: the shuffles cost more issue slots than
-// the stores they save.)
+// the stores they save.) kAmaxOnly writes the row's absmax to *a and no
+// codes; kQuantAt takes the absmax from *amax instead of the row.
+template <int OP>
 __device__ __forceinline__ void quant_warp_row(const uint4 (&v)[kLnChunks],
-                                               int lane, int8_t* q,
-                                               float* a) {
-  uint32_t m = 0;
+                                               int lane, int8_t* q, float* a,
+                                               const float* amax) {
+  float2 ar;
+  if constexpr (OP == kQuantAt) {
+    ar = row_scale(*amax);
+  } else {
+    uint32_t m = 0;
 #pragma unroll
-  for (int c = 0; c < kLnChunks; ++c) m = absmax8(m, v[c]);
-  const float2 ar = row_scale(warp_max(row_amax(m)));
+    for (int c = 0; c < kLnChunks; ++c) m = absmax8(m, v[c]);
+    const float mx = warp_max(row_amax(m));
+    if constexpr (OP == kAmaxOnly) {
+      if (lane == 0) *a = mx;
+      return;
+    }
+    ar = row_scale(mx);
+  }
   uint2* q8 = reinterpret_cast<uint2*>(q);
 #pragma unroll
   for (int c = 0; c < kLnChunks; ++c) q8[c * 32 + lane] = codes8(v[c], ar);
@@ -361,7 +382,8 @@ __device__ __forceinline__ void warp_rows(const RowArgs& p, int lo, int hi,
     for (int c = 0; c < kLnChunks; ++c) v[c] = next[c];
     if (j + 1 < count) load_row(next, p.x.row(first + (j + 1) * kLnWarps),
                                 lane);
-    if constexpr (OP != kQuantOnly) ln_modulate(v, msc, msh, p.eps, lane);
+    if constexpr (OP == kLnMod || OP == kLnModQuant)
+      ln_modulate(v, msc, msh, p.eps, lane);
     const long long row = first + j * kLnWarps;
     if constexpr (OP == kLnMod) {
       uint4* o = reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) +
@@ -369,21 +391,22 @@ __device__ __forceinline__ void warp_rows(const RowArgs& p, int lo, int hi,
 #pragma unroll
       for (int c = 0; c < kLnChunks; ++c) o[c * 32 + lane] = v[c];
     } else {
-      quant_warp_row(v, lane, static_cast<int8_t*>(p.out) + row * kLnD,
-                     p.a + row);
+      quant_warp_row<OP>(v, lane, static_cast<int8_t*>(p.out) + row * kLnD,
+                         p.a + row, p.amax ? p.amax + row : nullptr);
     }
   }
 }
 
-// K5 (kLnMod), K6 (kLnModQuant) or K8 (kQuantOnly) at D = 3072: a block of
-// eight warps, one row per warp at a time, over the block's span.
+// K5 (kLnMod), K6 (kLnModQuant) or K8 (kQuantOnly, and its halves) at
+// D = 3072: a block of eight warps, one row per warp at a time, over the
+// block's span.
 template <int OP>
 __device__ __forceinline__ void warp_rows_body(const RowArgs& p,
                                                uint8_t* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int r0, r1;
   block_span(p.rows, r0, r1);
-  if constexpr (OP == kQuantOnly) {
+  if constexpr (OP != kLnMod && OP != kLnModQuant) {
     warp_rows<OP>(p, r0, r1, nullptr, nullptr, warp, lane);
   } else {
     uint4* msc = reinterpret_cast<uint4*>(smem);  // bf16(1 + scale), D / 8
@@ -417,6 +440,16 @@ __global__ void __launch_bounds__(kLnWarps * 32)
 __global__ void __launch_bounds__(kLnWarps * 32)
     quant_warp_kernel(const RowArgs p) {
   warp_rows_body<kQuantOnly>(p, nullptr);
+}
+
+__global__ void __launch_bounds__(kLnWarps * 32)
+    row_amax_warp_kernel(const RowArgs p) {
+  warp_rows_body<kAmaxOnly>(p, nullptr);
+}
+
+__global__ void __launch_bounds__(kLnWarps * 32)
+    quant_at_warp_kernel(const RowArgs p) {
+  warp_rows_body<kQuantAt>(p, nullptr);
 }
 
 // K5 (QUANT false) or K6 at any D that is a multiple of 8: one warp per
@@ -595,8 +628,9 @@ __global__ void __launch_bounds__(kQThreads)
 // warp, and wide ones are spread over the SMs), the row read from memory
 // once for the max and once for the codes (the activation computed again,
 // to the same bits). A group wider than a warp takes its max through
-// shared memory.
-template <bool GELU>
+// shared memory. K8's halves (OP, no GELU): kAmaxOnly writes the max and
+// no codes, kQuantAt reads it (the max pass left out).
+template <bool GELU, int OP>
 __global__ void __launch_bounds__(kQThreads)
     quant_rows_kernel(const RowArgs p) {
   __shared__ float red[2][kQWarps];
@@ -614,22 +648,31 @@ __global__ void __launch_bounds__(kQThreads)
     const bool valid = r < r1;
     const uint4* x =
         reinterpret_cast<const uint4*>(p.x.row(valid ? r : r0));
-    uint32_t m = 0;
-    if (valid)
-      for (int c = li; c < chunks; c += lanes)
-        m = absmax8(m, act_chunk<GELU>(__ldg(x + c)));
-    float amax = row_amax(m);
-    for (int o = min(lanes, 32) >> 1; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
-    if (lanes > 32) {
-      // red alternates between iterations: one barrier an iteration
-      float* rd = red[it & 1];
-      if (lane == 0) rd[warp] = amax;
-      __syncthreads();
-      const int w0 = (group << shift) >> 5;
-      for (int w = 0; w < lanes >> 5; ++w) amax = fmaxf(amax, rd[w0 + w]);
+    float amax = 0.0f;
+    if constexpr (OP == kQuantAt) {
+      if (valid) amax = p.amax[r];
+    } else {
+      uint32_t m = 0;
+      if (valid)
+        for (int c = li; c < chunks; c += lanes)
+          m = absmax8(m, act_chunk<GELU>(__ldg(x + c)));
+      amax = row_amax(m);
+      for (int o = min(lanes, 32) >> 1; o > 0; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, o));
+      if (lanes > 32) {
+        // red alternates between iterations: one barrier an iteration
+        float* rd = red[it & 1];
+        if (lane == 0) rd[warp] = amax;
+        __syncthreads();
+        const int w0 = (group << shift) >> 5;
+        for (int w = 0; w < lanes >> 5; ++w) amax = fmaxf(amax, rd[w0 + w]);
+      }
     }
     if (!valid) continue;
+    if constexpr (OP == kAmaxOnly) {
+      if (li == 0) p.a[r] = amax;
+      continue;
+    }
     const float2 ar = row_scale(amax);
     uint2* q = reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) +
                                         static_cast<long long>(r) * p.d);
@@ -728,23 +771,39 @@ extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
 // (B * S) f32, contiguous. `kind` is the instance, which the wrapper's
 // quant_instance chooses from D: 0 the generic kernel at `lanes` threads
 // per row (a power of two up to 256), 1 the warp body (K8 at D = 3072), 2
-// the ring kernel (D = 12288).
+// the ring kernel (D = 12288). `op` (K8 only, kinds 0 and 1): 0 the codes
+// and scales, 1 the row absmax alone into a (q unused), 2 the codes and
+// scales at the given absmax `amax` (B * S) f32.
 extern "C" int x2i_quant_rows(const void* x, long long sxb, long long sxs,
                               void* q, void* a, int b, int s, int d, int gelu,
-                              int kind, int lanes, void* stream) {
+                              int kind, int lanes, int op, const void* amax,
+                              void* stream) {
   if (b < 1 || s < 1 || d < 8 || d % 8 ||
       (kind == 0 &&
        (lanes < 1 || lanes > kQThreads || (lanes & (lanes - 1)))) ||
       (kind == 1 && (d != kLnD || gelu)) || (kind == 2 && d != kQD) ||
-      kind < 0 || kind > 2)
+      kind < 0 || kind > 2 || op < 0 || op > 2 ||
+      (op != 0 && (gelu || kind == 2)) || (op == 2) != (amax != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   RowArgs p = row_args(x, sxb, sxs, q, a, b, s, d);
   p.lanes = lanes;
+  p.amax = static_cast<const float*>(amax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static int cap[2][3][kMaxDevices] = {};  // [gelu][kind][device]
-  int* c = cap[gelu ? 1 : 0][kind];
+  static int op_cap[2][2][kMaxDevices] = {};  // [op - 1][kind][device]
+  int* c = op ? op_cap[op - 1][kind] : cap[gelu ? 1 : 0][kind];
   cudaError_t err;
-  if (kind == 1)
+  if (op == 1)
+    err = kind == 1 ? launch(row_amax_warp_kernel, kLnWarps * 32, 0,
+                             kLnWarps, c, p, st)
+                    : launch(quant_rows_kernel<false, kAmaxOnly>, kQThreads,
+                             0, kQThreads / lanes, c, p, st);
+  else if (op == 2)
+    err = kind == 1 ? launch(quant_at_warp_kernel, kLnWarps * 32, 0,
+                             kLnWarps, c, p, st)
+                    : launch(quant_rows_kernel<false, kQuantAt>, kQThreads,
+                             0, kQThreads / lanes, c, p, st);
+  else if (kind == 1)
     err = launch(quant_warp_kernel, kLnWarps * 32, 0, kLnWarps, c, p, st);
   else if (kind == 2)
     err = gelu ? launch(quant_ring_kernel<true>, kQThreads, kQSmemBytes, 1,
@@ -752,9 +811,9 @@ extern "C" int x2i_quant_rows(const void* x, long long sxb, long long sxs,
                : launch(quant_ring_kernel<false>, kQThreads, kQSmemBytes, 1,
                         c, p, st);
   else
-    err = gelu ? launch(quant_rows_kernel<true>, kQThreads, 0,
+    err = gelu ? launch(quant_rows_kernel<true, kQuantOnly>, kQThreads, 0,
                         kQThreads / lanes, c, p, st)
-               : launch(quant_rows_kernel<false>, kQThreads, 0,
+               : launch(quant_rows_kernel<false, kQuantOnly>, kQThreads, 0,
                         kQThreads / lanes, c, p, st);
   return static_cast<int>(err);
 }

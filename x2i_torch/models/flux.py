@@ -40,8 +40,15 @@ layers' parts summed over the axis before their bias and gate; and/or
 each member holds its block of the residual streams' tokens, the qk norm
 and the rope on its rows, K and V gathered into joint order for its query
 rows. Under both, the streams are gathered before the column-split
-products and the row-split outputs reduce-scattered after. A tensor axis
-of one member (or none, flags off) is the unsharded route.
+products and the row-split outputs reduce-scattered after. In every
+quantized mode: in w8a8 and w4a8 a column-split layer's replicated input
+is quantized once (K8) for every member and every layer that reads it,
+and a row-split layer's parts are int32 accumulators at the whole row's
+activation scale (``parallel/tensor.py::row_product``), so that the
+sharded forward is the unsharded one bit for bit. LightControl's controls
+are added to the image stream after each double block (each member's
+token block of them under ``shard_sequence``). A tensor axis of one
+member (or none, flags off) is the unsharded route.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from x2i_torch.core.config import FluxConfig
+from x2i_torch.core.config import ACT_QUANT_MODES, FluxConfig, quant_mode
 from x2i_torch.ops.attention import attention
 from x2i_torch.ops.fused_glue import (gelu_quant, ln_mod, ln_mod_quant,
                                       quant_rows)
@@ -69,7 +76,7 @@ from x2i_torch.ops.rope import (apply_rope_half, apply_rope_interleaved,
                                 half_layout_perm)
 from x2i_torch.parallel.pipeline import pipeline_apply
 from x2i_torch.parallel.tensor import (check_split, member_layers,
-                                       partial_product, shard_module_)
+                                       row_product, shard_module_)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -231,20 +238,33 @@ class _TensorParallel:
                     f"layer {name} changed after set_tensor_axis (e.g. "
                     f"quantized): call set_tensor_axis again")
 
-    def reduce(self, parts, name: str):
-        """The members' parts of row-split layer ``name``'s output summed
-        over the axis (each member's token block of the sum under
-        ``shard_sequence``), then its bias."""
-        axis = self.tensor_axis
-        if self.cfg.shard_sequence:
-            ys = axis.psum_scatter(parts, 1)
-        else:
-            ys = axis.psum(parts)
+    def row_out(self, name: str, xs):
+        """Row-split layer ``name`` on each held member's input features
+        ``xs`` (a list): the members' parts summed over the axis (each
+        member's token block of the sum under ``shard_sequence``;
+        ``parallel/tensor.py::row_product``), then its bias."""
+        ys = row_product(self.tensor_axis,
+                         [self.layer(i, name) for i in range(len(xs))], xs,
+                         scatter=self.cfg.shard_sequence)
         bias = getattr(self, name).bias
         if bias is None:
             return ys
-        bias = bias.to(parts[0].dtype)
-        return [y + bias for y in ys] if isinstance(ys, list) else ys + bias
+        if isinstance(ys, list):
+            return [y + bias.to(y.dtype) for y in ys]
+        return ys + bias.to(ys.dtype)
+
+    def column_in(self, x):
+        """The replicated input of the held members' column-split layers:
+        in w8a8 and w4a8 its codes and row scales (K8), made once for
+        every member and every layer that reads it, as the layers would
+        each make them (w4a8 after the cast to the layer's dtype); else
+        x."""
+        mode = quant_mode(self.cfg.quantized)
+        if mode not in ACT_QUANT_MODES:
+            return x
+        if mode == "w4a8":
+            x = x.to(self.cfg.dtype)
+        return quant_rows(x, impl=self.cfg.quant_impl)
 
     def each(self, fn, *xs):
         """``fn`` on each held member's rows under ``shard_sequence``, else
@@ -356,12 +376,14 @@ class FluxDoubleBlock(_TensorParallel, nn.Module):
                                            kd_tau, kd_quantize)
 
     def sharded(self, hidden, encoder, temb, rope, mods=None,
-                member_rope=None):
+                member_rope=None, control=None):
         """The block over ``tensor_axis`` (the glue unfused): ``hidden``
         and ``encoder`` are each held member's token blocks (a list) under
         ``shard_sequence``, else the whole streams; ``member_rope`` there
-        each held member's (text rows', image rows') rope tables. ->
-        (hidden, encoder) in the same form."""
+        each held member's (text rows', image rows') rope tables;
+        ``control`` LightControl's residual for the image stream in the
+        same form, added at the block's end. -> (hidden, encoder) in the
+        same form."""
         cfg = self.cfg
         self.check_members()
         mod, cmod = self.mods(temb) if mods is None else mods
@@ -392,6 +414,9 @@ class FluxDoubleBlock(_TensorParallel, nn.Module):
         cff = self._ffn("txt", self.each(norm(c_shift_mlp, c_scale_mlp),
                                          encoder))
         encoder = self.each(add(c_gate_mlp), encoder, cff)
+        if control is not None:
+            hidden = self.each(lambda h, c: h + c.to(h.dtype), hidden,
+                               control)
         return hidden, encoder
 
     def _head_attention(self, img_in, txt_in, rope):
@@ -399,7 +424,8 @@ class FluxDoubleBlock(_TensorParallel, nn.Module):
         parts of the out layers, summed over the axis."""
         cfg, hd = self.cfg, self.cfg.attention_head_dim
         s_txt = txt_in.shape[1]
-        img_parts, txt_parts = [], []
+        img_in, txt_in = self.column_in(img_in), self.column_in(txt_in)
+        img_xs, txt_xs = [], []
         for i in range(len(self.tensor_axis.members)):
             lyr = functools.partial(self.layer, i)
             q = self.img_q_norm(_heads(lyr("img_q")(img_in), hd))
@@ -412,12 +438,10 @@ class FluxDoubleBlock(_TensorParallel, nn.Module):
                                     torch.cat([ck, k], 1),
                                     torch.cat([cv, v], 1), rope, None)
             attn = attn.flatten(2)
-            txt_parts.append(partial_product(lyr("txt_attn_out"),
-                                             attn[:, :s_txt]))
-            img_parts.append(partial_product(lyr("img_attn_out"),
-                                             attn[:, s_txt:]))
-        return (self.reduce(img_parts, "img_attn_out"),
-                self.reduce(txt_parts, "txt_attn_out"))
+            txt_xs.append(attn[:, :s_txt])
+            img_xs.append(attn[:, s_txt:])
+        return (self.row_out("img_attn_out", img_xs),
+                self.row_out("txt_attn_out", txt_xs))
 
     def _row_attention(self, img_in, txt_in, member_rope):
         """Each held member's query rows (its text rows, then its image
@@ -453,11 +477,10 @@ class FluxDoubleBlock(_TensorParallel, nn.Module):
         if not self.cfg.shard_activations:
             return [getattr(self, f"{stream}_mlp_out")(
                 _gelu(getattr(self, f"{stream}_mlp_in")(t))) for t in x]
-        x = self.whole(x)
-        parts = [partial_product(self.layer(i, f"{stream}_mlp_out"),
-                                 _gelu(self.layer(i, f"{stream}_mlp_in")(x)))
-                 for i in range(len(self.tensor_axis.members))]
-        return self.reduce(parts, f"{stream}_mlp_out")
+        x = self.column_in(self.whole(x))
+        return self.row_out(f"{stream}_mlp_out", [
+            _gelu(self.layer(i, f"{stream}_mlp_in")(x))
+            for i in range(len(self.tensor_axis.members))])
 
 
 class FluxSingleBlock(_TensorParallel, nn.Module):
@@ -527,8 +550,8 @@ class FluxSingleBlock(_TensorParallel, nn.Module):
         x = self.each(lambda t: _modulate(layer_norm(t), shift, scale),
                       hidden)
         if cfg.shard_activations:
-            x = self.whole(x)
-            parts = []
+            x = self.column_in(self.whole(x))
+            xs = []
             for i in range(len(self.tensor_axis.members)):
                 lyr = functools.partial(self.layer, i)
                 q = self.q_norm(_heads(lyr("q")(x), hd))
@@ -536,9 +559,8 @@ class FluxSingleBlock(_TensorParallel, nn.Module):
                 v = _heads(lyr("v")(x), hd)
                 attn = _roped_attention(cfg, q, k, v, rope, None).flatten(2)
                 mlp = _gelu(lyr("mlp_in")(x))
-                parts.append(partial_product(lyr("out"),
-                                             torch.cat([attn, mlp], -1)))
-            out = self.reduce(parts, "out")
+                xs.append(torch.cat([attn, mlp], -1))
+            out = self.row_out("out", xs)
         else:
             qs, ks, vs = [], [], []
             for t, r in zip(x, member_rope):
@@ -612,7 +634,7 @@ class FluxTransformer2D(nn.Module):
             raise NotImplementedError("the sharded DiT runs a LocalAxis on "
                                       "one device (devices=None)")
         if split:
-            check_split(cfg, axis.size)
+            check_split(cfg, axis.size, self)
             if local and self.tensor_shard is not None:
                 raise ValueError(f"the model holds member "
                                  f"{self.tensor_shard[0]}'s shard: the "
@@ -749,15 +771,16 @@ class FluxTransformer2D(nn.Module):
             raise ValueError(f"aux_layout={aux_layout!r}")
         tensor_axis = self._sharded_axis()
         if tensor_axis is not None:
-            if (controls is not None or return_attn_outputs
-                    or kd_targets is not None):
+            if return_attn_outputs or kd_targets is not None:
                 raise NotImplementedError(
-                    "under shard_activations / shard_sequence the DiT "
-                    "serves only: no controls, KD stacks or KD targets")
+                    "KD stacks and KD targets under shard_activations / "
+                    "shard_sequence are not ported (the training half of "
+                    "the flags): the sharded DiT serves, with or without "
+                    "controls")
             return self._forward_sharded(
                 tensor_axis, hidden_states, encoder_hidden_states,
                 pooled_projections, timestep, img_ids, txt_ids, guidance,
-                precomputed_mods)
+                precomputed_mods, controls)
         # the fused glue has no backward: KD (training) paths take the
         # plain glue, as JAX's _use_fused_glue does
         glue = None if kd_targets is not None else cfg.glue
@@ -812,16 +835,16 @@ class FluxTransformer2D(nn.Module):
 
     def _forward_sharded(self, axis, hidden_states, encoder_hidden_states,
                          pooled_projections, timestep, img_ids, txt_ids,
-                         guidance, precomputed_mods):
+                         guidance, precomputed_mods, controls=None):
         """``forward``'s velocity with the blocks over ``axis``: the
         embedders and the head run whole on every member; under
         ``shard_sequence`` the streams are split into the members' token
         blocks after the embedders (text and image apart for the double
-        blocks, the joint stream for the single ones) and gathered before
-        the head."""
+        blocks, the joint stream for the single ones; each control row
+        as the image stream) and gathered before the head."""
         cfg = self.cfg
         inputs = (hidden_states, encoder_hidden_states, pooled_projections,
-                  timestep, guidance)
+                  timestep, guidance, controls)
         if torch.is_grad_enabled():
             weights = any(p.requires_grad for p in self.parameters())
             if len(axis.members) == 1 and (weights or any(
@@ -835,6 +858,15 @@ class FluxTransformer2D(nn.Module):
                     "training the DiT's weights under shard_activations is "
                     "not ported (the members' layers are cut from them): "
                     "freeze them (requires_grad_(False))")
+            if (cfg.shard_activations
+                    and quant_mode(cfg.quantized) in ACT_QUANT_MODES
+                    and any(t is not None and t.requires_grad
+                            for t in inputs)):
+                raise NotImplementedError(
+                    f"the backward of a {cfg.quantized} DiT under "
+                    f"shard_activations is not ported (its row-split "
+                    f"layers' int32 sums have no straight-through "
+                    f"backward): serve it under torch.no_grad()")
         hidden, encoder, temb, rope = self._embed(
             hidden_states, encoder_hidden_states, pooled_projections,
             timestep, img_ids, txt_ids, guidance)
@@ -854,10 +886,14 @@ class FluxTransformer2D(nn.Module):
         m = precomputed_mods
         run = functools.partial(_run_block, cfg)
         for i, blk in enumerate(self.double_blocks):
+            control = None if controls is None else controls[i]
+            if control is not None and cfg.shard_sequence:
+                control = axis.split(control, 1, "image tokens")
             hidden, encoder = run(
                 blk.sharded, hidden, encoder, temb, rope,
                 None if m is None else (m["double_img"][i],
-                                        m["double_txt"][i]), dbl_rope)
+                                        m["double_txt"][i]), dbl_rope,
+                control)
         if cfg.shard_sequence:
             joint = axis.split(torch.cat([axis.gather(encoder, 1),
                                           axis.gather(hidden, 1)], 1), 1,

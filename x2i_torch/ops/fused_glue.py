@@ -11,7 +11,13 @@ launched there through ``_rows_call``:
   int8 quantization;
 * K7 ``gelu_quant`` (``_gelu_quant_kernel``): tanh-gelu rounded to x.dtype,
   then per-row int8 quantization;
-* K8 ``quant_rows`` (``_quant_kernel``): per-row int8 quantization.
+* K8 ``quant_rows`` (``_quant_kernel``): per-row int8 quantization;
+  and its two halves for a row split over the members of a tensor axis
+  (the row-split layers of the sharded DiT, ``parallel/tensor.py``, where
+  XLA quantizes JAX's whole row over sharded features): ``row_absmax``,
+  the row's max|x| (f32), and ``quant_rows_at``, the quantization at a
+  given absmax (the members' ``pmax``). At the whole row's absmax a
+  member's codes and scale are the whole row's K8 bits.
 
 The LayerNorm has f32 row statistics (eps 1e-6, no affine) and rounds the
 normalized row to x.dtype before ``* (1 + scale) + shift``, the rounding
@@ -60,7 +66,7 @@ from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 
 # every glue kernel's launches
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
-            "quant_rows": 0}
+            "quant_rows": 0, "row_absmax": 0, "quant_rows_at": 0}
 
 
 def _bind(lib):
@@ -68,7 +74,8 @@ def _bind(lib):
     lib.x2i_ln_mod.argtypes = [p, ll, ll, p, p, ll, p, p, i, i, i,
                                ctypes.c_float, p]
     lib.x2i_ln_mod.restype = i
-    lib.x2i_quant_rows.argtypes = [p, ll, ll, p, p, i, i, i, i, i, i, p]
+    lib.x2i_quant_rows.argtypes = [p, ll, ll, p, p, i, i, i, i, i, i, i, p,
+                                   p]
     lib.x2i_quant_rows.restype = i
 
 
@@ -78,10 +85,14 @@ ROW_GLUE = CudaLibrary(
     "row_glue.cu", "libx2i_row_glue", (), _bind,
     checked_kernels=("ln_mod_kernel", "ln_mod_quant_kernel",
                      "quant_warp_kernel", "ln_mod_rows_kernel",
-                     "quant_ring_kernel", "quant_rows_kernel"))
+                     "quant_ring_kernel", "quant_rows_kernel",
+                     "row_amax_warp_kernel", "quant_at_warp_kernel"))
 
 # the instances of K7 and K8 (``x2i_quant_rows``'s `kind`)
 QUANT_KINDS = {"generic": 0, "warp": 1, "ring": 2}
+# what K8 computes (``x2i_quant_rows``'s `op`): the codes and scales, the
+# row absmax alone, the codes and scales at a given absmax
+QUANT_OPS = {"quant_rows": 0, "row_absmax": 1, "quant_rows_at": 2}
 
 
 def reset_launches():
@@ -105,13 +116,25 @@ def quant_rows_plain(x: torch.Tensor):
     """Per-row int8 quantization of (..., D) -> (int8 (..., D), f32
     (..., 1)), bit for bit the dynamic quantization of the JAX
     ``w8a8_matmul``."""
-    xf = x.float()
-    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    return quant_rows_at_plain(x, row_absmax_plain(x))
+
+
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """max|x| of each row of (..., D) -> f32 (..., 1)."""
+    return x.float().abs().amax(-1, keepdim=True)
+
+
+def quant_rows_at_plain(x: torch.Tensor, amax: torch.Tensor):
+    """``quant_rows_plain`` at the given row absmax ``amax`` (..., 1) f32
+    (a whole row's, where x holds a block of its features): a_scale =
+    max(amax, 1e-6) / 127, then the codes of x."""
+    amax = amax.float().clamp_min(1e-6)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not the IEEE quotient (the
     # divisor is filled on the device: a copy from the host would block)
     a_scale = amax / amax.new_full((), 127.0)
-    q = torch.round(xf / a_scale).clamp(-127.0, 127.0).to(torch.int8)
+    q = torch.round(x.float() / a_scale).clamp(-127.0, 127.0) \
+        .to(torch.int8)
     return q, a_scale
 
 
@@ -177,15 +200,16 @@ def _check_launch(name, err):
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
-def quant_instance(d: int, gelu: bool = False):
+def quant_instance(d: int, gelu: bool = False, op: str = "quant_rows"):
     """The instance of ``csrc/row_glue.cu`` that quantizes rows of width d
-    (K7 with ``gelu``, K8 without) and its threads per row: the ring
-    kernel at 12288 (two warpgroups a row), K6's warp body without the
-    LayerNorm for K8 at 3072, else the generic kernel at one 16-byte chunk
-    (8 values) a thread, up to a block of 256 a row (8 threads, four rows
-    a warp, at D = 64; a block at 4096). -> (kind, lanes), kind a key of
+    (K7 with ``gelu``, K8 without; ``op`` K8 or one of its halves, a key of
+    ``QUANT_OPS``) and its threads per row: the ring kernel at 12288 (two
+    warpgroups a row; K8 alone), K6's warp body without the LayerNorm for
+    K8 at 3072, else the generic kernel at one 16-byte chunk (8 values) a
+    thread, up to a block of 256 a row (8 threads, four rows a warp, at
+    D = 64; a block at 4096). -> (kind, lanes), kind a key of
     ``QUANT_KINDS``."""
-    if d == 12288:
+    if d == 12288 and op == "quant_rows":
         return "ring", 256
     if d == 3072 and not gelu:
         return "warp", 32
@@ -239,20 +263,45 @@ def _ln_mod_quant_cuda(x, shift, scale, eps):
     return _launch_ln("ln_mod_quant", x, shift, scale, eps, True)
 
 
-def _quant_cuda(name, x, gelu: bool, instance=None):
-    """Launch K7 (``gelu``) or K8 over (B, S, D) or (N, D) x -> (int8 codes
-    of x's shape, f32 row scales (..., 1)), on ``instance`` (kind, lanes)
-    or the one ``quant_instance`` chooses."""
+def check_amax(amax, shape, device):
+    """The given absmax of ``quant_rows_at``: f32, one contiguous value a
+    row of x (shape ``shape``), on x's device. Raises ValueError
+    otherwise."""
+    if (amax.dtype != torch.float32 or amax.device != device
+            or tuple(amax.shape) != (*shape[:-1], 1)
+            or not amax.is_contiguous()):
+        raise ValueError(f"quant_rows_at kernel: amax must be a contiguous "
+                         f"f32 {(*shape[:-1], 1)} on {device}, got "
+                         f"{amax.dtype} {tuple(amax.shape)} on "
+                         f"{amax.device}")
+
+
+def _quant_cuda(name, x, gelu: bool, instance=None, amax=None):
+    """Launch K7 (``gelu``), K8 or one of K8's halves (``name`` a key of
+    ``QUANT_OPS``; ``amax`` the given absmax of "quant_rows_at") over
+    (B, S, D) or (N, D) x -> (int8 codes of x's shape, f32 row scales
+    (..., 1)), or the f32 row absmax (..., 1) alone for "row_absmax", on
+    ``instance`` (kind, lanes) or the one ``quant_instance`` chooses."""
     shape = x.shape
     x = row_views(name, x)[0]
     b, s, d = x.shape
-    kind, lanes = instance or quant_instance(d, gelu)
-    q, a = _quant_out(shape, x.device)
+    op = "quant_rows" if gelu else name
+    kind, lanes = instance or quant_instance(d, gelu, op)
+    if name == "row_absmax":
+        q = None
+        a = torch.empty((*shape[:-1], 1), dtype=torch.float32,
+                        device=x.device)
+    else:
+        q, a = _quant_out(shape, x.device)
+    if amax is not None:
+        check_amax(amax, shape, x.device)
     _check_launch(name, ROW_GLUE.lib().x2i_quant_rows(
-        x.data_ptr(), x.stride(0), x.stride(1), q.data_ptr(), a.data_ptr(),
-        b, s, d, int(gelu), QUANT_KINDS[kind], lanes, _stream(x)))
+        x.data_ptr(), x.stride(0), x.stride(1),
+        None if q is None else q.data_ptr(), a.data_ptr(), b, s, d,
+        int(gelu), QUANT_KINDS[kind], lanes, QUANT_OPS[op],
+        None if amax is None else amax.data_ptr(), _stream(x)))
     LAUNCHES[name] += 1
-    return q, a
+    return a if q is None else (q, a)
 
 
 def _gelu_quant_cuda(x):
@@ -306,3 +355,20 @@ def quant_rows(x: torch.Tensor, impl: str = "auto"):
     if _plain("quant_rows", impl, x):
         return quant_rows_plain(x)
     return _quant_rows_cuda(x)
+
+
+def row_absmax(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """K8's first half: the f32 absmax (..., 1) of each row of x, (B, S,
+    D) or (N, D)."""
+    if _plain("row_absmax", impl, x):
+        return row_absmax_plain(x)
+    return _quant_cuda("row_absmax", x, False)
+
+
+def quant_rows_at(x: torch.Tensor, amax: torch.Tensor, impl: str = "auto"):
+    """K8's second half: x's codes and scales at the given row absmax
+    ``amax`` (..., 1) f32 (the whole row's, where x is a block of its
+    features), in one pass."""
+    if _plain("quant_rows_at", impl, x):
+        return quant_rows_at_plain(x, amax)
+    return _quant_cuda("quant_rows_at", x, False, amax=amax)

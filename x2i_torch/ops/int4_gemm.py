@@ -211,7 +211,7 @@ def _launch_w4a8(xq, a_scale, pweight, mscale, scale, bias, k0, addend,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w4a8 GEMM launch failed: cudaError_t {err}")
-    GEMM.launches["w4a8_gemm"] += 1
+    GEMM.launches["w4a8_gemm_acc" if acc_only else "w4a8_gemm"] += 1
     return out.reshape(*xq.shape[:-1], n)
 
 
@@ -234,11 +234,13 @@ def w4a8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
 
 
 def w4a8_matmul_acc(xq: torch.Tensor, pweight: torch.Tensor,
-                    mscale: torch.Tensor, k0: int = 0) -> torch.Tensor:
-    """The int32 accumulator alone: the kernel for a CUDA tensor, the
-    plain version for a CPU one. Not on the main path; the checks hold
-    the kernel's sum exact with it."""
-    if xq.device.type == "cpu":
+                    mscale: torch.Tensor, k0: int = 0,
+                    impl: str = "auto") -> torch.Tensor:
+    """The int32 accumulator alone: the kernel's int32-out instance for a
+    CUDA tensor (counted in ``GEMM.launches["w4a8_gemm_acc"]``), the
+    plain version for a CPU one or with ``impl="plain"``. A member's
+    product of a row-split w4a8 layer of the sharded DiT."""
+    if impl == "plain" or xq.device.type == "cpu":
         return w4a8_matmul_acc_plain(xq, pweight, mscale, k0)
     return _launch_w4a8(xq, None, pweight, mscale, None, None, k0, None,
                         None, acc_only=True)

@@ -69,7 +69,8 @@ def _bind(lib):
 # the dequantize kernels of the straight-through backward
 GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm",
                    ("int8_gemm", "w4a8_gemm", "dequant_gemm", "w4_dequant",
-                    "int8_dequant", "w4a8_dequant"), _bind,
+                    "int8_dequant", "w4a8_dequant", "int8_gemm_acc",
+                    "w4a8_gemm_acc"), _bind,
                    wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel",
                                   "dequant_gemm_kernel"),
                    checked_kernels=("w4_dequant_kernel",
@@ -190,7 +191,7 @@ def _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
         int(acc_only), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 GEMM launch failed: cudaError_t {err}")
-    GEMM.launches["int8_gemm"] += 1
+    GEMM.launches["int8_gemm_acc" if acc_only else "int8_gemm"] += 1
     return out.reshape(*xq.shape[:-1], n)
 
 
@@ -214,11 +215,14 @@ def int8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
 
 
 def int8_matmul_acc(xq: torch.Tensor, qweight: torch.Tensor,
-                    k0: int = 0) -> torch.Tensor:
+                    k0: int = 0, impl: str = "auto") -> torch.Tensor:
     """The int32 accumulator alone (the function of ``torch._int_mm``):
-    the kernel for a CUDA tensor, the plain version for a CPU one. Not on
-    the main path; the checks hold the kernel's sum exact with it."""
-    if xq.device.type == "cpu":
+    the kernel's int32-out instance for a CUDA tensor (counted in
+    ``GEMM.launches["int8_gemm_acc"]``), the plain version for a CPU one
+    or with ``impl="plain"``. A member's product of a row-split w8a8
+    layer of the sharded DiT (``parallel/tensor.py``), whose accumulators
+    the tensor axis sums before the scales."""
+    if impl == "plain" or xq.device.type == "cpu":
         return int8_matmul_acc_plain(xq, qweight, k0)
     return _launch(xq, None, qweight, None, None, k0, None, None,
                    acc_only=True)

@@ -46,13 +46,20 @@ the activation rounding is ignored, and the codes, scales, multipliers,
 The pre-quantized chunk input stays inference-only, as the JAX
 ``*_prequant`` products are.
 
-A w8 layer splits for tensor parallelism (``QuantLinear.sliced``): a
+Every mode splits for tensor parallelism (``QuantLinear.sliced``): a
 block of its output channels takes their code rows, scales and bias; a
-block of its input features takes the code columns and keeps the scale
-and the bias whole, its product one part of a sum (``forward(x,
-with_bias=False)``), the bias added once after. w8a8 and w4a8 do not
-split: a row-split layer's activation scale must be the absmax of the
-whole row, across members; nor does w4 (its groups and AWQ pre-scale).
+block of its input features takes the codes of those inputs and keeps
+the per-output scale and the bias whole, its product one part of a sum,
+the bias added once after. w4's group scales and AWQ ``pre_scale``
+follow the inputs; w4a8's multipliers follow its groups, and its codes are
+packed half-split again over the block's own inputs (a block of input
+features is not a block of half-split bytes). A block of inputs is whole
+groups, an even count of them in w4a8. The parts are floating products
+in w8 and w4 (``forward(x, with_bias=False)``); in w8a8 and w4a8 the
+activation scale is the whole row's (the tensor axis's max of the
+members' row absmaxes), so a part is the int32 accumulator of the
+member's codes at that scale (``acc``), summed over the axis before the
+scales are applied once (``rescale``): the sum of the whole layer's.
 """
 
 from __future__ import annotations
@@ -70,9 +77,9 @@ from x2i_torch.ops.int4_gemm import (dequant_linear, dequant_linear_plain,
                                      nibbles, w4_codes, w4_dequant,
                                      w4_dequant_plain, w4a8_codes,
                                      w4a8_dequant, w4a8_linear,
-                                     w4a8_linear_plain)
+                                     w4a8_linear_plain, w4a8_matmul_acc)
 from x2i_torch.ops.int8_gemm import (int8_dequant, int8_linear,
-                                     int8_linear_plain)
+                                     int8_linear_plain, int8_matmul_acc)
 
 
 def quantize_kernel(kernel: torch.Tensor):
@@ -465,41 +472,96 @@ class QuantLinear(nn.Module):
             q.bias.copy_(linear.bias)
         return q
 
+    def check_inputs(self, ranges, name: str = "layer") -> None:
+        """Raises ValueError, naming ``name`` and the group, where the
+        input features ``ranges`` are not a block this layer splits into
+        (``check_group_ranges``)."""
+        if self.mode in ("w4", "w4a8"):
+            check_group_ranges(self.mode, self.group, ranges, name)
+
     @torch.no_grad()
     def sliced(self, side: str, ranges, copy: bool = True) -> "QuantLinear":
-        """A w8 layer of a block of this one: ``side`` "out" takes the
-        output channels in ``ranges`` (a list of (start, stop)), their
-        code rows, scales and bias; "in" the input features in
-        ``ranges``, their code columns in order, with the scale and the
-        bias whole (the block's product is a part of a sum: ``forward(x,
-        with_bias=False)``, the bias added once after it). ``copy``: new
-        storage for every tensor (else views where a range is one
-        contiguous block). Raises NotImplementedError in any other mode."""
-        if self.mode != "w8":
-            raise NotImplementedError(
-                f"a {self.mode} QuantLinear does not split for tensor "
-                f"parallelism: "
-                + ("its activation scale needs the whole row's absmax, a "
-                   "max over the members" if self.mode in ACT_QUANT_MODES
-                   else "its groups and AWQ pre-scale")
-                + "; only w8 and unquantized layers split")
+        """A layer of a block of this one: ``side`` "out" takes the output
+        channels in ``ranges`` (a list of (start, stop)), their codes,
+        scales and bias; "in" the input features in ``ranges`` in order,
+        with the per-output scale and the bias whole (the block's product
+        is a part of a sum, the bias added once after it): w4's group
+        scales and ``pre_scale`` follow the inputs, w4a8's multipliers its
+        groups, and its codes are packed half-split again over the block's
+        inputs (new storage). ``copy``: new storage for every tensor (else
+        views where a range is one contiguous block). Raises ValueError
+        where a block of inputs is not whole groups (``check_inputs``)."""
         dim = {"out": 0, "in": 1}[side]
-        codes = take_ranges(self.qweight, dim, ranges, copy)
-        scale, bias = self.scale, self.bias
-        if side == "out":
-            scale = take_ranges(scale, 0, ranges, copy)
-            bias = None if bias is None else take_ranges(bias, 0, ranges,
-                                                         copy)
-        elif copy:
-            scale = scale.clone()
-            bias = None if bias is None else bias.clone()
-        out, inn = codes.shape
-        layer = QuantLinear(inn, out, bias is not None, "w8", self.dtype,
+        mode = self.mode
+        if side == "in":
+            self.check_inputs(ranges)
+        groups = None
+        if mode in ("w8", "w8a8"):
+            codes = {"qweight": take_ranges(self.qweight, dim, ranges, copy)}
+        elif side == "out":
+            codes = {"pweight": take_ranges(self.pweight, 0, ranges, copy)}
+        elif mode == "w4":
+            # row-interleaved: inputs 2j, 2j + 1 are byte j
+            codes = {"pweight": take_ranges(self.pweight, 1, [
+                (a // 2, b // 2) for a, b in ranges], copy)}
+        else:
+            codes = {"pweight": take_inputs_w4a8(self.pweight, ranges)}
+        if side == "in" and mode in ("w4", "w4a8"):
+            g = self.group
+            groups = [(a // g, b // g) for a, b in ranges]
+        vectors = {}
+        for leaf in ("scale", "mscale", "pre_scale"):
+            t = getattr(self, leaf, None)
+            if t is None:
+                continue
+            if t.dim() == 2:                              # (G, out)
+                vectors[leaf] = (take_ranges(t, 1, ranges, copy)
+                                 if side == "out" else
+                                 take_ranges(t, 0, groups, copy))
+            elif leaf == "pre_scale" and side == "in":    # (in,)
+                vectors[leaf] = take_ranges(t, 0, ranges, copy)
+            elif leaf != "pre_scale" and side == "out":   # (out,)
+                vectors[leaf] = take_ranges(t, 0, ranges, copy)
+            else:
+                vectors[leaf] = t.clone() if copy else t
+        bias = self.bias
+        if bias is not None:
+            bias = (take_ranges(bias, 0, ranges, copy) if side == "out"
+                    else bias.clone() if copy else bias)
+        width = sum(b - a for a, b in ranges)
+        inn, out = ((width, self.out_features) if side == "in"
+                    else (self.in_features, width))
+        layer = QuantLinear(inn, out, bias is not None, mode, self.dtype,
                             "meta", self.impl, self.group)
-        layer.qweight, layer.scale = codes, scale
+        for leaf, t in {**codes, **vectors}.items():
+            setattr(layer, leaf, t)
+        layer.group = self.group
+        if mode == "w4":
+            layer.pre_scale_ones = self.pre_scale_ones
         if bias is not None:
             layer.bias = nn.Parameter(bias, requires_grad=False)
         return layer
+
+    def acc(self, xq: torch.Tensor) -> torch.Tensor:
+        """w8a8 / w4a8: the int32 accumulator of activation codes ``xq``
+        (..., in) against the weight's codes (code x m in w4a8), with no
+        scale and no bias: the int8 or w4a8 GEMM's int32-out instance for
+        a CUDA tensor, its plain version for a CPU one."""
+        if self.mode == "w4a8":
+            return w4a8_matmul_acc(xq, self.pweight, self.mscale,
+                                   impl=self.impl)
+        if self.mode != "w8a8":
+            raise ValueError(f"a {self.mode} layer has no int32 product")
+        return int8_matmul_acc(xq, self.qweight, impl=self.impl)
+
+    def rescale(self, acc: torch.Tensor, a_scale: torch.Tensor,
+                dtype) -> torch.Tensor:
+        """The output of an int32 accumulator (a sum of members' ``acc``)
+        and its rows' activation scales: ``f32(acc) * a_scale * scale``
+        rounded to ``dtype`` (x's), then to the layer's dtype, the
+        product's rounding points, with no bias."""
+        y = (acc.float() * a_scale * self.scale).to(dtype)
+        return y.to(self.dtype)
 
     def _bias(self, y):
         return y if self.bias is None else y + self.bias.to(self.dtype)
@@ -590,6 +652,30 @@ class QuantLinear(nn.Module):
                                 out_dtype=self.dtype, impl=self.impl)
             off += widths[i]
         return y
+
+
+def check_group_ranges(mode: str, group: int, ranges, name: str) -> None:
+    """Raises ValueError, naming ``name`` and the group, where the input
+    features ``ranges`` of a w4 or w4a8 weight are not whole groups of
+    ``group`` (an even count in w4a8, as its half-split packing and its
+    GEMM need)."""
+    count = sum(b - a for a, b in ranges) // group
+    if any(a % group or b % group for a, b in ranges) or (
+            mode == "w4a8" and count % 2):
+        raise ValueError(
+            f"{name}: its inputs {list(ranges)} are not "
+            + ("an even count of whole groups" if mode == "w4a8"
+               else "whole groups")
+            + f" of {group} ({mode}); quantize with a smaller group")
+
+
+def take_inputs_w4a8(pweight: torch.Tensor, ranges) -> torch.Tensor:
+    """The w4a8 codes (N, in/2), half-split, of the inputs in ``ranges``
+    in order, packed half-split again over them (new storage)."""
+    lo, hi = nibbles(pweight)
+    mine = take_ranges(torch.cat([lo, hi], 1), 1, ranges)
+    half = mine.shape[1] // 2
+    return _pack(mine[:, :half], mine[:, half:])
 
 
 def take_ranges(t: torch.Tensor, dim: int, ranges,

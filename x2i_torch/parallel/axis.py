@@ -24,14 +24,18 @@ the same operations run on each member in the same order, and a transfer
 is exact.
 
 The tensor-parallel collectives (``split``, ``gather``, ``psum``,
-``psum_scatter``) take and give one tensor a member (lists aligned with
-``members``) or one replicated tensor. ``psum`` and ``psum_scatter`` add
-the members' parts in member order in f32, in both forms (the process
-form gathers the parts first, where an ``all_reduce`` would add them in
-NCCL's order), so that the two forms agree bit for bit. Every rank calls
-them in the same order: NCCL pairs messages by order. In the process form
-they are not differentiable and refuse a tensor that requires grad; the
-one-process form's are ordinary tensor operations.
+``psum_scatter``, ``pmax``) take and give one tensor a member (lists
+aligned with ``members``) or one replicated tensor. ``psum`` and
+``psum_scatter`` add floating parts in member order in f32, in both forms
+(the process form gathers the parts first, where an ``all_reduce`` would
+add them in NCCL's order), so that the two forms agree bit for bit;
+integer parts (the int32 accumulators of the quantized products) they add
+exactly in their own dtype, which any order gives, so the process form
+takes ``all_reduce`` / ``reduce_scatter`` for them. ``pmax`` is the
+elementwise max, exact in any order (``all_reduce(MAX)``). Every rank
+calls them in the same order: NCCL pairs messages by order. In the
+process form they are not differentiable and refuse a tensor that
+requires grad; the one-process form's are ordinary tensor operations.
 
 Under autograd the process form's transfers are ``autograd.Function``s:
 a hop sends forward and receives the gradient backward, ``enter`` marks a
@@ -96,11 +100,24 @@ class Axis:
 
 
 def _sum_f32(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The parts added in their order in f32, in the first part's dtype."""
+    """The parts added in their order in f32, in the first part's dtype;
+    integer parts added exactly in their dtype."""
+    if not parts[0].is_floating_point():
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p.float()
     return acc.to(parts[0].dtype)
+
+
+def _max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = torch.maximum(acc, p)
+    return acc
 
 
 class LocalAxis(Axis):
@@ -157,10 +174,16 @@ class LocalAxis(Axis):
         return torch.cat([t.to(dev) for t in tensors], dim)
 
     def psum(self, parts: List[torch.Tensor]) -> torch.Tensor:
-        """The members' parts summed (in member order, in f32), on the
-        first member's device."""
+        """The members' parts summed (in member order, in f32; integer
+        parts exactly), on the first member's device."""
         dev = parts[0].device
         return _sum_f32([t.to(dev) for t in parts])
+
+    def pmax(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The members' tensors' elementwise max, on the first member's
+        device."""
+        dev = parts[0].device
+        return _max([t.to(dev) for t in parts])
 
     def psum_scatter(self, parts: List[torch.Tensor], dim: int,
                      what: str = "tokens") -> List[torch.Tensor]:
@@ -279,10 +302,15 @@ class GroupAxis(Axis):
 
     def psum(self, parts: List[torch.Tensor]) -> torch.Tensor:
         """This rank's part summed with the other members' (gathered, then
-        added in member order in f32: ``LocalAxis.psum``'s bits)."""
+        added in member order in f32: ``LocalAxis.psum``'s bits; integer
+        parts by ``all_reduce``, exact)."""
         t = _refuse_grad(self, "psum", parts[0])
         if self.size == 1:
             return t
+        if not t.is_floating_point():
+            out = t.contiguous().clone()
+            dist.all_reduce(out, group=self.group)
+            return out
         gathered = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(gathered, t.contiguous(), group=self.group)
         return _sum_f32(gathered)
@@ -291,15 +319,29 @@ class GroupAxis(Axis):
                      what: str = "tokens") -> List[torch.Tensor]:
         """This rank's share along ``dim`` of the members' parts summed:
         each rank sends member m its m-th block (``all_to_all``) and adds
-        the blocks it receives in member order in f32."""
+        the blocks it receives in member order in f32 (integer parts by
+        ``reduce_scatter``, exact)."""
         t = _refuse_grad(self, "psum_scatter", parts[0])
         if self.size == 1:
             return [t]
         step = self.share(t.shape[dim], what)
         blocks = [b.contiguous() for b in t.split(step, dim)]
+        if not t.is_floating_point():
+            out = torch.empty_like(blocks[0])
+            dist.reduce_scatter(out, blocks, group=self.group)
+            return [out]
         got = [torch.empty_like(b) for b in blocks]
         dist.all_to_all(got, blocks, group=self.group)
         return [_sum_f32(got)]
+
+    def pmax(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """This rank's tensor's elementwise max with the other members'
+        (``all_reduce(MAX)``: exact in any order)."""
+        t = _refuse_grad(self, "pmax", parts[0])
+        out = t.contiguous().clone()
+        if self.size > 1:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
 
     def sum(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each tensor summed over the group (new tensors)."""

@@ -22,7 +22,11 @@ Phases, each printing one JSON line per record:
    tie rows, K6 bit for bit K8 after K5; the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
-   shapes, also against the plain f32 attention; the int8 GEMM at the
+   shapes, also against the plain f32 attention; the f32 instances of K1
+   with the lse, K3 and K4 at the f32 phase-2 step's shape and of K2 at
+   the f32 2048^2 DiT's, each against its f32 plain version beside the
+   bf16 instance on the same inputs rounded to bf16 (no farther from it
+   in relative L2), timed beside SDPA in f32; the int8 GEMM at the
    w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve, the LM's and
    two more chunks (its int32 sum exact and its output bit for bit, timed
    beside the int8 GEMM on its materialized operand and the bf16 product);
@@ -117,6 +121,16 @@ Phases, each printing one JSON line per record:
    ``Qwen2LM.encode_premixed`` and ``Proj.mlp`` on the same LM and proj
    (24 K2 launches, no K1); the streamed encode held against the stack
    route at 8,448 tokens;
+4c. f32: the same DiT cast in place to f32, its glue unfused: f32-2048,
+   one 2048^2 4-step text2image (warmed up by one f32 DiT step) with
+   exact launch counts (K2's f32 instance 228, the LM's K1b 24), no plain
+   attention in the DiT, its peak memory and its distance from the bf16
+   2048^2 image; lightcontrol-train-f32, the phase-2 step on it (the bank
+   in f32, 32-bit AdamW, one warm-up and one timed step: K1's f32 forward
+   1, its lse instance 112, K3's 56, K4's 56 a step; the bank moved, the
+   DiT unchanged); the DiT cast back to bf16, bit for bit the one before;
+   the 2+2-block route checks in f32 (the image's at 1536^2, the phase-2
+   gradient's);
 5. distill: the full-width phase-1 distillation trainer on the same bf16
    DiT and LM (no second copy), with T5-XXL's encoder and CLIP-L's text
    tower drawn on the card: one warm-up step and three timed steps, each
@@ -827,6 +841,141 @@ def check_chunked_attention(g, records):
                         causal=True)
 
 
+def _distance(got, want):
+    """(max abs error, relative L2 error) of got against want, in f32."""
+    d = got.float() - want.float()
+    return d.abs().max().item(), (d.norm() / want.float().norm()).item()
+
+
+def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
+                       library, library_name, flops):
+    """One f32 instance against its f32 plain version: ``fn(*f32_in,
+    *rest)`` (the f32 instance: f32 q, k, v (and do) rounded to bf16 on the
+    card), the same call on the inputs rounded to bf16 (the bf16 instance)
+    and ``plain(*f32_in, *rest)`` in f32; ``rest`` (the lse and delta) is
+    f32 in all three. The bar: for every output, the f32 instance's
+    relative L2 distance from the plain version is no larger than the bf16
+    instance's (both round the same operands to bf16; the bf16 one rounds
+    its outputs too). Reported beside it: whether the f32 outputs rounded
+    to bf16 are the bf16 instance's bit for bit (the same body on the same
+    rounded operands). Times: the f32 instance, the plain version and
+    ``library``, (fn, inputs) or a time in ms; the bound's bytes are the
+    f32 inputs' and outputs', its operations the bf16 products the tensor
+    cores run (989 TFLOP/s)."""
+    import torch
+
+    def outs(x):
+        return list(x) if isinstance(x, (tuple, list)) else [x]
+
+    bf16_in = [t.to(torch.bfloat16) for t in f32_in]
+    got, got16 = outs(fn(*f32_in, *rest)), outs(fn(*bf16_in, *rest))
+    want = outs(plain(*f32_in, *rest))
+    torch.cuda.synchronize()
+    d32 = [_distance(a, w) for a, w in zip(got, want)]
+    d16 = [_distance(a, w) for a, w in zip(got16, want)]
+    same = all(torch.equal(a.to(b.dtype), b) for a, b in zip(got, got16))
+    lib_ms = (library if isinstance(library, float) or library is None
+              else kernel_ms(library[0], *library[1]))
+    rec = {"phase": "kernels", "kernel": f"{name}[{label}]",
+           "shape": list(f32_in[0].shape), "kv_shape": list(f32_in[1].shape),
+           "dtype": "float32",
+           "max_abs_err": max(e[0] for e in d32),
+           "rel_l2_err": [e[1] for e in d32],
+           "bf16_instance_max_abs_err": max(e[0] for e in d16),
+           "bf16_instance_rel_l2_err": [e[1] for e in d16],
+           "rounded_equals_bf16_instance": same,
+           "finite": all(bool(torch.isfinite(t).all()) for t in got),
+           "out_dtypes": [str(t.dtype) for t in got],
+           "ms": kernel_ms(lambda *t: fn(*t, *rest), *f32_in),
+           "plain_ms": kernel_ms(lambda *t: plain(*t, *rest), *f32_in),
+           "library_ms": lib_ms, "library": library_name, "flop": flops}
+    rec["bound_ms"], rec["bound_by"] = bound(
+        flops, nbytes(*f32_in, *rest, *got))
+    rate(rec, flops)
+    emit(rec)
+    records.setdefault(name, []).append(rec)
+    if not (rec["finite"] and all(t.dtype == torch.float32 for t in got)
+            and all(a[1] <= b[1] for a, b in zip(d32, d16))):
+        raise AssertionError(f"{name}[{label}]: the f32 instance is farther "
+                             f"from its plain version than the bf16 "
+                             f"instance: {rec}")
+
+
+def check_f32_attention(g, records):
+    """The f32 instances at their paths' shapes, each against its f32 plain
+    version beside the bf16 instance (``check_f32_instance``): K1 with the
+    lse, K3 and K4 at the f32 phase-2 step's (1, 24, 4608, 128), no mask,
+    rope outside (K3 and K4 on the plain forward's residuals); K2 with and
+    without the lse at the f32 2048^2 DiT's (1, 24, 16896, 128). The
+    tensors are (B, H, S, D) views of (B, S, H, D) storage, as the
+    dispatcher passes them. SDPA in f32 on contiguous copies is the
+    library's time (for K3 and K4 its forward + backward less its
+    forward)."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).transpose(1, 2)
+
+    def sdpa_times(q, k, v, do):
+        ins = [t.contiguous() for t in (q, k, v, do)]
+
+        def fwd(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v)
+
+        def fwd_bwd(q, k, v, do):
+            args = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fwd(*args), args, do)
+
+        f_ms = kernel_ms(fwd, *ins[:3])
+        return f_ms, kernel_ms(fwd_bwd, *ins) - f_ms
+
+    q, k, v, do = (randn(1, 4608, 24, 128) for _ in range(4))
+    pairs, d = 4608 * 4608 * 24, 128
+    fwd_ms, bwd_ms = sdpa_times(q, k, v, do)
+    check_f32_instance(
+        "flash_fwd_lse_f32", "phase-2 f32, rope outside",
+        fa.flash_forward_lse,
+        functools.partial(fa.flash_attention_plain, return_lse=True),
+        [q, k, v], [], records, fwd_ms, "SDPA forward, f32 (no lse output)",
+        4.0 * pairs * d)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, return_lse=True)
+    res = [lse_p, fa._delta(o_p, do)]
+    del o_p
+    for name, fn, plain, flops in (
+            ("flash_bwd_dq_f32", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 6.0),
+            ("flash_bwd_dkv_f32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
+             8.0)):
+        check_f32_instance(
+            name, "phase-2 f32, rope outside", fn, plain, [q, k, v, do],
+            res, records, bwd_ms, "SDPA backward, f32: forward + backward "
+            "by autograd minus the forward (both kernels' work)",
+            flops * pairs * d)
+    del q, k, v, do, res
+    torch.cuda.empty_cache()
+    s = 512 + (2048 // 16) ** 2
+    q, k, v = (randn(1, s, 24, 128) for _ in range(3))
+    lib = (lambda *t: F.scaled_dot_product_attention(*t),
+           [t.contiguous() for t in (q, k, v)])
+    # the plain version with 4096 x 4096 tiles: a few launches a call
+    plain = functools.partial(fa.flash_forward_chunked_plain, block_q=4096,
+                              block_k=4096)
+    for with_lse in (False, True):
+        check_f32_instance(
+            "flash_chunked_f32", f"DiT 2048^2 f32{', lse' if with_lse else ''}",
+            functools.partial(fa.flash_forward_chunked, return_lse=with_lse),
+            functools.partial(plain, return_lse=with_lse), [q, k, v], [],
+            records, lib, "SDPA forward, f32, contiguous (B, H, S, D)",
+            4.0 * s * s * 24 * 128)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(seed: int):
     import torch
     import torch.nn.functional as F
@@ -967,6 +1116,7 @@ def phase_kernels(seed: int):
     recs = {**flash, "ln_mod": ln}
     check_training_attention(g, recs)
     check_chunked_attention(g, recs)
+    check_f32_attention(g, recs)
     check_glue(g, randn, rows, recs)
     check_gemms(g, rows, recs)
     check_w4a8_gemms(g, rows, recs)
@@ -1780,8 +1930,10 @@ def reset_counts():
 
 
 NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
-               "flash_fwd_lse": 0, "flash_fwd_f32": 0, "flash_chunked": 0,
-               "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_mod": 0,
+               "flash_fwd_lse": 0, "flash_fwd_f32": 0,
+               "flash_fwd_lse_f32": 0, "flash_chunked": 0,
+               "flash_chunked_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+               "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0, "ln_mod": 0,
                "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "row_absmax": 0,
                "quant_rows_at": 0, "int8_gemm": 0, "int8_gemm_acc": 0,
@@ -1791,7 +1943,8 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
                       mods_pass: bool = True, joint_tokens: int = 4608,
-                      lm_layers: int = 24, rope_layout: str = "half"):
+                      lm_layers: int = 24, rope_layout: str = "half",
+                      dtype: str = "bf16"):
     """Kernel launches of one image (``steps`` DiT steps, n2 double and n1
     single blocks, the adaLN rows in one pass first, an LM of
     ``lm_layers``) or, with ``mods_pass=False`` and the LM's count left
@@ -1799,11 +1952,18 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     tokens the DiT's attention is K2 (norm and rope outside), else K1a, or
     in the interleaved rope layout K1c (norm and rope outside).
     w4 and w8 launch the dequantizing GEMM once per dense call; w4a8
-    counts w8a8's products on its GEMM."""
+    counts w8a8's products on its GEMM. ``dtype="f32"``: an f32 DiT (the
+    LM stays bf16), which serves with the glue unfused (no K5) and its
+    attention in the f32 instances: K2's above 8192 joint tokens, else
+    K1's."""
     lm = lm_layers if mods_pass else 0    # one K1b per LM layer
+    want = dict(NO_LAUNCHES, flash_fwd=lm)
+    if dtype == "f32":
+        dit = "flash_chunked_f32" if joint_tokens > 8192 else "flash_fwd_f32"
+        want[dit] = (n2 + n1) * steps
+        return want
     dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
            if rope_layout == "interleaved" else "flash_fwd_rope")
-    want = dict(NO_LAUNCHES, flash_fwd=lm)
     want[dit] = (n2 + n1) * steps
     # the adaLN mod layers (2 per double block, 1 per single): once per
     # image over all steps' rows, with the time and pooled embedders' 4
@@ -1836,7 +1996,7 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
 
 def check_routes(seed: int, px: int = 512,
                  label: str = "text2image-reference", bank=None,
-                 rope_layout: str = "half"):
+                 rope_layout: str = "half", dtype: str = "bf16"):
     """Agreement with a reference on a small input: a full-width DiT cut to
     2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
     text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
@@ -1848,7 +2008,11 @@ def check_routes(seed: int, px: int = 512,
     ``bank``: LightControl's branches on a px^2 guidance image drawn from
     the seed give both routes the same controls (its first two rows).
     ``rope_layout="interleaved"``: both in that layout (the kernel route
-    K1c, the qk norm and the rotation outside it)."""
+    K1c, the qk norm and the rotation outside it). ``dtype="f32"``: both
+    DiTs in f32 with the glue unfused (the f32 DiT's serving config), the
+    kernel route the f32 instances (K1's, or above 8192 tokens K2's), held
+    to the same bar: the f32 instances round their operands to bf16 where
+    the bf16 kernels do, and everything else is f32."""
     import dataclasses
 
     import torch
@@ -1858,11 +2022,13 @@ def check_routes(seed: int, px: int = 512,
     from x2i_torch.params import random_init_
 
     dev = torch.device("cuda")
+    f32 = dtype == "f32"
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
-                               num_single_layers=2, rope_layout=rope_layout)
+                               num_single_layers=2, rope_layout=rope_layout,
+                               **({"dtype": torch.float32} if f32 else {}))
     g = torch.Generator(device=dev).manual_seed(seed)
     kern = random_init_(FluxTransformer2D(
-        dataclasses.replace(base, fused_glue=True), dev), g)
+        dataclasses.replace(base, fused_glue=not f32), dev), g)
     plain = FluxTransformer2D(dataclasses.replace(base,
                                                   attention_impl="plain"), dev)
     plain.load_state_dict(kern.state_dict())
@@ -1888,15 +2054,15 @@ def check_routes(seed: int, px: int = 512,
         want = plain(*args, **kw).float()
     rel = ((got - want).norm() / want.norm()).item()
     rec = {"phase": label, "blocks": [2, 2], "controls": bank is not None,
-           "rope_layout": rope_layout, "tokens": [s_img, 512],
-           "rel_l2_err": rel,
+           "rope_layout": rope_layout, "dtype": dtype,
+           "tokens": [s_img, 512], "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
            "kernel_launches": used}
     emit(rec)
     want_used = expected_launches(False, 1, 2, 2, mods_pass=False,
                                   joint_tokens=s_img + 512,
-                                  rope_layout=rope_layout)
+                                  rope_layout=rope_layout, dtype=dtype)
     if not (rec["finite"] and rel <= 2e-2 and used == want_used):
         raise AssertionError(f"kernel route disagrees with the plain route: "
                              f"{rec}")
@@ -2204,16 +2370,176 @@ def phase_text2image_2048(pipe, seed: int):
     512 text tokens, so every DiT attention is K2 with the qk norm and the
     rope applied outside it, the LM's 512-token prefill stays K1b, and the
     VAE decodes 6 x 6 tiles of 64 latents. Then the 2+2-block route check
-    above 8192 tokens."""
+    above 8192 tokens. -> (the launch counts, the image's pixels before
+    postprocess)."""
     px = 2048
     want = expected_launches(False, 4, joint_tokens=512 + (px // 16) ** 2)
-    rec, _, counts = run_image(pipe, seed, "text2image-2048", want, px)
+    rec, pixels, counts = run_image(pipe, seed, "text2image-2048", want, px)
     emit(rec)
     if counts != want or not rec["vae_decode_tiled"]:
         raise AssertionError(f"the 2048^2 path missed its kernels: {counts} "
                              f"!= {want}")
     check_routes(seed + 3, 1536, "text2image-2048-reference")
+    return counts, pixels
+
+
+# the phase-2 step on the f32 DiT with a text2image conditioning (K1b in
+# the LM's 24 layers): per step K1's f32 forward in the first double block
+# (its attention does not depend on the controls), then in the 56 blocks
+# after it K1's f32 instance with the lse in the forward and again in the
+# remat recompute, K3's and K4's once
+LIGHTCONTROL_F32_LAUNCHES = dict(NO_LAUNCHES, flash_fwd=24, flash_fwd_f32=1,
+                                 flash_fwd_lse_f32=112, flash_bwd_dq_f32=56,
+                                 flash_bwd_dkv_f32=56)
+F32_PX = 2048
+
+
+def set_dit_dtype(flux, dtype):
+    """The DiT's parameters cast to ``dtype`` in place, one tensor at a
+    time (never a second whole DiT: 23.8 GB in bf16, 47.6 in f32), and its
+    config's dtype set. bf16 -> f32 -> bf16 is exact."""
+    import torch
+    moved = 0
+    for p in flux.parameters():
+        p.data = p.data.to(dtype)
+        moved += p.numel()
+        if moved > 1 << 29:
+            # the cached blocks of the narrower tensors cannot hold the
+            # wider ones: hand them back as the cast goes
+            torch.cuda.empty_cache()
+            moved = 0
+    flux.replace_config(dtype=dtype)
+
+
+@contextlib.contextmanager
+def plain_attention_calls(shapes: list):
+    """Within it every call of the plain attention records its q shape
+    (B, H, S, D) in ``shapes``."""
+    from x2i_torch.ops import flash_attention as fa
+    plain = fa.xla_attention
+
+    def counted(q, *args, **kw):
+        shapes.append(tuple(q.shape))
+        return plain(q, *args, **kw)
+
+    fa.xla_attention = counted
+    try:
+        yield shapes
+    finally:
+        fa.xla_attention = plain
+
+
+def f32_image(pipe, bf16_pixels, seed: int, card: str):
+    """One 2048^2, 4-step text2image on the f32 DiT, its glue unfused (the
+    f32 DiT's serving config, JAX's default): one f32 DiT step at 2048^2
+    first as its warm-up (timed), then the image with every launch count
+    set to 0 just before and read just after (exact: K2's f32 instance 228
+    times, the LM's K1b 24, nothing else), the plain attention's calls
+    recorded (none at the DiT's 24 x 128 heads: the VAE's one-head
+    attention at D = 512 takes it by design), the card's peak memory
+    against its size, and the image's relative L2 distance from the bf16
+    image's (both postprocessed to uint8 levels). -> the launch counts."""
+    import torch
+    from x2i_torch.diffusion.sampling import prepare_latent_image_ids
+    from x2i_torch.models.vae import postprocess
+
+    px, dev = F32_PX, pipe.device
+    s_img = (px // 16) ** 2
+    want = expected_launches(False, 4, joint_tokens=512 + s_img,
+                             dtype="f32")
+    with torch.inference_mode():
+        pooled, emb = pipe.encode({"task": "text2image",
+                                   "prompt": PROMPTS[0]})
+        g = torch.Generator(device=dev).manual_seed(seed)
+        noise = torch.randn((1, s_img, 64), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+        args = (noise, emb, pooled, torch.full((1,), 1.0, device=dev),
+                prepare_latent_image_ids(px // 8, px // 8, dev),
+                torch.zeros((emb.shape[1], 3), device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = pipe.flux(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        step_finite = bool(torch.isfinite(step).all())
+        del step
+    torch.cuda.reset_peak_memory_stats()
+    shapes = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with plain_attention_calls(shapes):
+        img = pipe.text2image(PROMPTS[0], seed=seed, height=px, width=px,
+                              num_steps=4)
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    ref = postprocess(bf16_pixels).float()
+    got = torch.from_numpy(img).to(ref.device).float()
+    dit_plain = [sh for sh in shapes if sh[1] == 24 and sh[-1] == 128]
+    rec = {"phase": "f32-2048", "model": MODEL, "px": px, "steps": 4,
+           "dtype": "float32", "fused_glue": pipe.flux.cfg.fused_glue,
+           "joint_tokens": 512 + s_img, "warmup_dit_step_s": step_s,
+           "warmup_step_finite": step_finite, "s_per_image": sec,
+           "image_shape": list(img.shape), "image_dtype": str(img.dtype),
+           "pixels_std": float(img.std()),
+           "max_memory_allocated": peak, "device_memory": total,
+           "rel_l2_vs_bf16_image": ((got - ref).norm() / ref.norm()).item(),
+           "plain_attention_calls": len(shapes),
+           "plain_attention_shapes": sorted(set(shapes)),
+           "dit_plain_attention_calls": len(dit_plain),
+           "dit_weight_bytes": sum(t.numel() * t.element_size()
+                                   for t in pipe.flux.parameters()),
+           "launches": counts, "launches_expected": want, "card": card}
+    emit(rec)
+    if not (counts == want and not dit_plain and peak < total
+            and step_finite and tuple(img.shape) == (1, px, px, 3)
+            and str(img.dtype) == "uint8" and float(img.std()) > 0):
+        raise AssertionError(f"the f32 2048^2 image is wrong: {rec}")
     return counts
+
+
+def phase_f32(pipe, bf16_2048, seed: int, card: str):
+    """The f32 FLUX DiT on the card: the pipeline's bf16 DiT cast in place
+    to f32 (``set_dit_dtype``), its glue unfused, then the 2048^2 f32 image
+    (``f32_image``: K2's f32 instance) and the phase-2 step on it
+    (``lightcontrol-train-f32``: K1's f32 instance with the lse, K3's and
+    K4's; 32-bit AdamW on the f32 bank, one warm-up and one timed step);
+    then the DiT cast back to bf16 in its serving config and held bit for
+    bit the one before (a checksum), and the 2 + 2-block route checks in
+    f32: the image's above 8192 tokens (1536^2) and the phase-2 gradient's.
+    -> {run label: launches}."""
+    import torch
+
+    t0 = time.perf_counter()
+    flux = pipe.flux
+    checksum = param_checksum(flux)
+    serving = {k: getattr(flux.cfg, k) for k in ("fused_glue", "remat",
+                                                   "rope_in_kernel")}
+    set_dit_dtype(flux, torch.float32)
+    flux.replace_config(fused_glue=False)
+    _free()
+    cast_s = time.perf_counter() - t0
+    try:
+        runs = {"f32-2048": f32_image(pipe, bf16_2048, seed, card)}
+        runs["lightcontrol-train-f32"] = phase_lightcontrol_steps(
+            pipe, seed, card, "lightcontrol-train-f32",
+            LIGHTCONTROL_F32_LAUNCHES, steps=2, use_8bit_adam=False)
+    finally:
+        set_dit_dtype(flux, torch.bfloat16)
+        flux.replace_config(**serving)
+        _free()
+    restored = param_checksum(flux) == checksum
+    emit({"phase": "f32-summary", "cast_s": cast_s,
+          "seconds": time.perf_counter() - t0, "bf16_restored": restored,
+          "card": card})
+    if not restored:
+        raise AssertionError("the bf16 DiT is not bit for bit the one "
+                             "before the f32 phases")
+    check_routes(seed + 3, 1536, "text2image-2048-f32-reference",
+                 dtype="f32")
+    check_lightcontrol_routes(seed, dtype="f32")
+    return runs
 
 
 def phase_long_prompt(pipe, lm, seed: int):
@@ -3349,14 +3675,18 @@ def phase_lightcontrol_train(pipe, lm, seed: int, card: str):
     return steps[-1]["launches"], summary
 
 
-def check_lightcontrol_routes(seed: int):
+def check_lightcontrol_routes(seed: int, dtype: str = "bf16"):
     """The controls' gradient of a flow-matching MSE on a full-width DiT
     cut to 2 double + 2 single blocks, at the training point (4096 image +
     512 text tokens), the trainer's config, through the kernel route (K1c
     in the first double block, K1 with the lse, K3 and K4 after it) and
     through the plain attention on the same bf16 weights, controls and
     target: bf16 accuracy, as ``check_distill_routes`` holds it:
-    correlation above 0.99, relative L2 error below 5e-2."""
+    correlation above 0.99, relative L2 error below 5e-2. ``dtype="f32"``:
+    the DiT, the controls and the target in f32, the kernel route the f32
+    instances (K1's forward in the first double block, K1 with the lse, K3
+    and K4 after it), held to the same bar (their operands are rounded to
+    bf16 where the bf16 kernels round them)."""
     import dataclasses
 
     import torch
@@ -3367,8 +3697,10 @@ def check_lightcontrol_routes(seed: int):
     from x2i_torch.train.harness import TRAIN_DIT
 
     dev = torch.device("cuda")
+    f32 = dtype == "f32"
+    dt = torch.float32 if f32 else torch.bfloat16
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
-                               num_single_layers=2, **TRAIN_DIT)
+                               num_single_layers=2, dtype=dt, **TRAIN_DIT)
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     kern = random_init_(FluxTransformer2D(base, dev), g).requires_grad_(False)
     plain = FluxTransformer2D(dataclasses.replace(
@@ -3383,7 +3715,8 @@ def check_lightcontrol_routes(seed: int):
             torch.full((1,), 0.6, device=dev),
             prepare_latent_image_ids(128, 128, dev),
             torch.zeros((512, 3), device=dev))
-    controls, target = 0.1 * rnd(2, 1, 4096, 3072), rnd(1, 4096, 64).float()
+    controls, target = (0.1 * rnd(2, 1, 4096, 3072)).to(dt), rnd(
+        1, 4096, 64).float()
 
     def grads(model):
         c = controls.clone().requires_grad_()
@@ -3399,9 +3732,13 @@ def check_lightcontrol_routes(seed: int):
     used_plain = launch_counts()
     rel = ((got - want).norm() / want.norm()).item()
     corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
-    want_used = dict(NO_LAUNCHES, flash_fwd_pipe=1, flash_fwd_lse=6,
-                     flash_bwd_dq=3, flash_bwd_dkv=3)
-    rec = {"phase": "lightcontrol-train-reference", "blocks": [2, 2],
+    sfx = "_f32" if f32 else ""
+    want_used = dict(NO_LAUNCHES, **{
+        "flash_fwd_f32" if f32 else "flash_fwd_pipe": 1,
+        f"flash_fwd_lse{sfx}": 6, f"flash_bwd_dq{sfx}": 3,
+        f"flash_bwd_dkv{sfx}": 3})
+    rec = {"phase": "lightcontrol-train-reference" + ("-f32" if f32 else ""),
+           "blocks": [2, 2], "dtype": dtype,
            "tokens": [4096, 512], "grad_rel_l2_err": rel, "grad_corr": corr,
            "grad_norm": want.norm().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -3487,7 +3824,7 @@ def phase_train_resume(pipe, lm, seed: int, card: str):
     (if they were not, a second unbroken run A' would set the bar: B no
     further from A than A' is). Then the w8a8 gradient route check, the
     phase-2 step with 8-bit AdamW on the same w8a8 DiT
-    (``phase_lightcontrol_quant``) and the training command line
+    (``phase_lightcontrol_steps``) and the training command line
     (``check_train_cli``). -> (run A's last launches, the quantize s, the
     phase-2 launches)."""
     import gc
@@ -3625,24 +3962,26 @@ def phase_train_resume(pipe, lm, seed: int, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     check_distill_routes(seed, "w8a8")
-    lc_launches = phase_lightcontrol_quant(
+    lc_launches = phase_lightcontrol_steps(
         pipe, seed, card, "lightcontrol-train-w8a8",
-        LIGHTCONTROL_W8A8_LAUNCHES, steps=3)
+        LIGHTCONTROL_W8A8_LAUNCHES, steps=3, use_8bit_adam=True)
     check_train_cli()
     return launches, quantize_s, lc_launches
 
 
-def phase_lightcontrol_quant(pipe, seed: int, card: str, label: str,
-                             want: dict, steps: int):
-    """The phase-2 step at full width on the pipeline's quantized DiT (the
-    trainer's config, set back after), VAE, LM and proj, with 8-bit AdamW
-    (``LightControlConfig(use_8bit_adam=True)``, no accumulation), the
-    19-branch bank drawn on the card and a text2image conditioning: one
-    warm-up and ``steps - 1`` timed steps, every launch count set to 0 just
-    before each step and read just after (exact: ``want``), each split
-    into the VAE encode, the conditioning, the optimizer and the rest.
-    Checks: loss and grad norm finite, grad norm > 0, the bank moved by
-    every step. -> the last step's launches."""
+def phase_lightcontrol_steps(pipe, seed: int, card: str, label: str,
+                             want: dict, steps: int, use_8bit_adam: bool):
+    """The phase-2 step at full width on the pipeline's DiT as it stands
+    (quantized, or in f32; the trainer's config, set back after), VAE, LM
+    and proj, with AdamW in 8 bits or 32 (``LightControlConfig(
+    use_8bit_adam)``, no accumulation), the 19-branch bank drawn on the
+    card in the DiT's dtype and a text2image conditioning: one warm-up and
+    ``steps - 1`` timed steps, every launch count set to 0 just before each
+    step and read just after (exact: ``want``), each split into the VAE
+    encode, the conditioning, the optimizer and the rest. Checks: loss and
+    grad norm finite, grad norm > 0, the bank moved by every step, the
+    DiT's parameters bit for bit those before the steps (a checksum). ->
+    the last step's launches."""
     import gc
 
     import torch
@@ -3653,9 +3992,10 @@ def phase_lightcontrol_quant(pipe, seed: int, card: str, label: str,
     from x2i_torch.train.runner import step_noise
 
     t0 = time.perf_counter()
+    checksum = param_checksum(pipe.flux)
     _, state, batch, parts = build_random_lightcontrol(
         "full", seed, pipe=pipe, ccfg=LightControlConfig(
-            gradient_accumulation_steps=1, use_8bit_adam=True))
+            gradient_accumulation_steps=1, use_8bit_adam=use_8bit_adam))
     sections = {}
     opt = parts["optimizer"]
     opt.update = timed(opt.update, sections, "optimizer_s")
@@ -3694,16 +4034,22 @@ def phase_lightcontrol_quant(pipe, seed: int, card: str, label: str,
     keys = ("step_s", "vae_encode_s", "conditioning_s", "bank_dit_fwd_bwd_s",
             "optimizer_s")
     bank_values = sum(p.numel() for p in state.bank.parameters())
-    emit({"phase": f"{label}-summary", "model": MODEL, "px": 1024,
-          "quantized": parts["flux_cfg"].quantized, "use_8bit_adam": True,
-          "batch": 1, "build_s": build_s,
-          **{k: statistics.mean(r[k] for r in timed_steps) for k in keys},
-          "steps_s": [r["step_s"] for r in timed_steps],
-          "bank_values": bank_values,
-          "opt_state_bytes": state_bytes(state.opt_state),
-          "opt_state_bytes_bf16_moments": 4 * bank_values,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches_per_step": want, "card": card})
+    summary = {
+        "phase": f"{label}-summary", "model": MODEL, "px": 1024,
+        "quantized": parts["flux_cfg"].quantized,
+        "dtype": str(parts["flux_cfg"].dtype),
+        "use_8bit_adam": use_8bit_adam, "batch": 1, "build_s": build_s,
+        **{k: statistics.mean(r[k] for r in timed_steps) for k in keys},
+        "steps_s": [r["step_s"] for r in timed_steps],
+        "bank_values": bank_values,
+        "opt_state_bytes": state_bytes(state.opt_state),
+        "opt_state_bytes_bf16_moments": 4 * bank_values,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "dit_unchanged": param_checksum(pipe.flux) == checksum,
+        "launches_per_step": want, "card": card}
+    emit(summary)
+    if not summary["dit_unchanged"]:
+        raise AssertionError(f"the frozen DiT changed: {summary}")
     del state, parts, batch, step, opt
     pipe.flux.replace_config(remat=False, rope_in_kernel=True,
                              fused_glue=True)
@@ -7013,6 +7359,14 @@ KERNEL_TABLE = (
      "tp-w8a8", TP_ACC_MAIN),
     ("w4a8_gemm_acc", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:281",
      "tp-w4a8", TP_ACC_MAIN),
+    ("flash_fwd_lse_f32", "cuda", FLASH_SRC, f"{TPU_FLASH}:220",
+     "lightcontrol-train-f32", 0),
+    ("flash_chunked_f32", "cuda", FLASH_CHUNKED_SRC, f"{TPU_FLASH}:368",
+     "f32-2048", 0),
+    ("flash_bwd_dq_f32", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:526",
+     "lightcontrol-train-f32", 0),
+    ("flash_bwd_dkv_f32", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581",
+     "lightcontrol-train-f32", 0),
 )
 
 
@@ -7049,8 +7403,10 @@ def main(argv=None) -> int:
     launches_proj = phase_proj_variants(pipe, args.seed, smi)
     phase_serve(pipe)
     launches_image = phase_image(pipe, lm, args.seed, smi)
-    launches_2048 = phase_text2image_2048(pipe, args.seed)
+    launches_2048, pixels_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
+    launches_f32 = phase_f32(pipe, pixels_2048, args.seed, smi)
+    del pixels_2048
     train_s = []
 
     def parallel_train(*trainer):
@@ -7085,15 +7441,15 @@ def main(argv=None) -> int:
                                 "w4a8")
     launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4a8",
                                           "tp"))
-    launches_lc_train_w4a8 = phase_lightcontrol_quant(
+    launches_lc_train_w4a8 = phase_lightcontrol_steps(
         pipe, args.seed, smi, "lightcontrol-train-w4a8",
-        LIGHTCONTROL_W4A8_LAUNCHES, steps=2)
+        LIGHTCONTROL_W4A8_LAUNCHES, steps=2, use_8bit_adam=True)
     launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
     launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4",
                                           "tp"))
-    launches_lc_train_w4 = phase_lightcontrol_quant(
+    launches_lc_train_w4 = phase_lightcontrol_steps(
         pipe, args.seed, smi, "lightcontrol-train-w4",
-        LIGHTCONTROL_W4_LAUNCHES, steps=2)
+        LIGHTCONTROL_W4_LAUNCHES, steps=2, use_8bit_adam=True)
     launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
     launches_tp_w8 = tensor_image(pipe, args.seed, smi, "tp-w8", "tp")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
@@ -7110,6 +7466,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
+            **launches_f32,
             **launches_proj, **launches_ckpt, **launches_tp_w8,
             **launches_tp_quant, **launches_tp_lc,
             **launches_registry, **launches_parallel}

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_decode import TOL, _lm, n
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu import multiturn as jmt
 from x2i_tpu import streaming as jst
 from x2i_torch import multiturn as tmt

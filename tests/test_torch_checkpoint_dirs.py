@@ -38,6 +38,7 @@ from safetensors.torch import load_file, save_file
 from ckpt_fixtures import (VOCAB_SIZE, build_family_checkpoints,
                            build_flux_dir, build_proj_bin,
                            write_tokenizer_dir)
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu.convert import torch_models as jtm
 from x2i_tpu.convert.hf_config import minicpmo_config_from_dir
 from x2i_tpu.convert.load import \

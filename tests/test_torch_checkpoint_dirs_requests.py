@@ -10,6 +10,7 @@ from PIL import Image
 
 from test_torch_checkpoint_dirs import (PROMPTS, PX, STACK_BAR, STEPS,
                                         _tokenizer, build_dirs, pipe_cache)
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

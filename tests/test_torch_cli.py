@@ -21,6 +21,7 @@ import torch
 
 from ckpt_fixtures import FLUX_KW, build_family_checkpoints
 from test_torch_checkpoint_dirs import IMG_MAX, IMG_MEAN, _to_bf16
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu import cli as jcli
 from x2i_torch import cli
 from x2i_torch.convert import load as tload
@@ -97,6 +98,27 @@ def test_main_matches_the_jax_command_line(qwenvl, tmp_path, monkeypatch,
     diff = np.abs(got - want)
     assert diff.max() <= IMG_MAX and diff.mean() <= IMG_MEAN, (
         diff.max(), diff.mean())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def built_once():
+    """Each set of ``build_pipeline_from_checkpoints`` arguments builds its
+    pipeline once a module: the ``cli.main`` calls after the first with
+    the same directories, mode and sizes take the same pipeline, as one
+    process serving several commands would. The ``spy`` below wraps this
+    seam. -> the cache."""
+    cache, real = {}, tload.build_pipeline_from_checkpoints
+
+    def build(*args, **kw):
+        key = (args, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = real(*args, **kw)
+        return cache[key]
+
+    patch = pytest.MonkeyPatch()
+    patch.setattr(tload, "build_pipeline_from_checkpoints", build)
+    yield cache
+    patch.undo()
 
 
 @pytest.fixture

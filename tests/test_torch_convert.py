@@ -18,6 +18,7 @@ import torch
 from safetensors.torch import load_file, save_file
 
 from torch_mirrors import MirrorAutoencoderKL, MirrorFluxTransformer2D
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu.convert import hf_config as jhf
 from x2i_tpu.convert import torch_models as jtm
 from x2i_tpu.convert.load import vae_params_from_diffusers

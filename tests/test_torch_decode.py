@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_params import qwen2_tree, random_tree
+from test_torch_params import one_thread, qwen2_tree, random_tree
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.models import decoding as jdec
 from x2i_tpu.models import qwen2_5_vl as jvl

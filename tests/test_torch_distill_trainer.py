@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_distill import TOL, n
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion import sampling as jsamp
 from x2i_tpu.train import distill as jdistill

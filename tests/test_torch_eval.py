@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_params import one_thread  # noqa: F401 (autouse)
+
 from x2i_tpu import evalmetrics as jeval
 from x2i_tpu.convert.torch_models import (clip_params_from_hf,
                                           clip_vision_params_from_hf)
@@ -193,10 +195,10 @@ def test_dispatcher_routes_the_kernels_dtypes_under_auto(dtype, tokens,
     """Off the CPU (meta tensors here) "auto" takes a kernel route where a
     CUDA kernel takes the inputs: the CLIP tower's 257 tokens pad to 384
     in bf16 and in f32 (K1's f32 instance), as JAX pads them in every
-    dtype; f32 under autograd (no f32 lse, K3 or K4) and f32 above
-    MAX_KV_SEQ kv tokens (no f32 K2) take the plain route, as does f16.
-    "kernel" keeps its route in any dtype, and the CPU takes the plain
-    route under "auto"."""
+    dtype; above MAX_KV_SEQ kv tokens bf16 and f32 pad to K2 (its f32
+    instance), and the route does not depend on autograd (f32 has its lse,
+    K3 and K4 instances); f16 takes the plain route. "kernel" keeps its
+    route in any dtype, and the CPU takes the plain route under "auto"."""
     q = torch.empty((4, tokens, 16, 64), dtype=dtype, device="meta")
     assert route(q, q) == want
     assert route(q, q, implementation="kernel") == (
@@ -204,9 +206,7 @@ def test_dispatcher_routes_the_kernels_dtypes_under_auto(dtype, tokens,
     assert route(torch.empty(q.shape, dtype=dtype), q) == "plain"
     assert route(q, q, causal=True) == (
         "plain" if tokens % 128 else want)
-    assert route(q, q, recording=True) == (
-        "plain" if dtype == torch.float32 else want)
     long_k = torch.empty((4, MAX_KV_SEQ + 1, 16, 64), dtype=dtype,
                          device="meta")
     assert route(q, long_k) == (
-        "pad" if dtype == torch.bfloat16 else "plain")
+        "plain" if dtype == torch.float16 else "pad")

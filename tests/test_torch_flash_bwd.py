@@ -17,6 +17,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from test_torch_params import one_thread  # noqa: F401 (autouse)
+
 from x2i_tpu.ops import flash_attention as jfa
 from x2i_torch.core import config as tcfg
 from x2i_torch.models import flux as tflux

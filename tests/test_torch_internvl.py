@@ -24,7 +24,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.convert.hf_config import internvl_config_from_dir as jread
 from x2i_tpu.convert.load import internvl_params_from_hf
 from x2i_tpu.core import config as jcfg

@@ -48,7 +48,11 @@ its output within two bf16 roundings of the plain version's; a
 QuantLinear's straight-through dx in each mode within one bf16 step of
 the largest value of the CPU's (f32 sums in cuBLAS's order). K1's f32
 instance (f32 q, k, v rounded to bf16 on the card, o in f32) within the
-bf16 bars of the f32 plain version, on the routes "auto" gives it. The data
+bf16 bars of the f32 plain version, on the routes "auto" gives it; the f32
+instances of K1 with the lse, K2, K3 and K4 no farther in relative L2 from
+their f32 plain versions than the bf16 instances on the same inputs
+rounded to bf16, their outputs rounded to bf16 bit for bit the bf16
+instances'. The data
 loader's side-stream copy (``StreamCopy``): each batch on the card bit
 for bit its numpy batch, read at once by a busy consumer stream.
 """
@@ -530,7 +534,8 @@ def test_f32_instance_on_the_card(dev, case):
     causal tokens on 8 q / 2 kv heads x 128, and 200 tokens with rope and
     per-row qk norm (applied first, in f32): one launch each, within the
     bf16 bars of the f32 plain version (q, k, v and p are rounded to bf16
-    on the card). Under autograd the same call takes the plain route."""
+    on the card). Under autograd the same call takes K1's f32 instance
+    with the lse, then K3's and K4's (the rope rotated outside)."""
     g = torch.Generator(device=dev).manual_seed(len(case))
     s, hq, hk, d = {"CLIP 257 tokens": (257, 16, 16, 64),
                     "512 pipelined": (512, 4, 4, 64),
@@ -553,10 +558,128 @@ def test_f32_instance_on_the_card(dev, case):
         before, flash_fwd_f32=before["flash_fwd_f32"] + 1)
     assert got.dtype == torch.float32 and got.shape == q.shape
     _close(got, tattn.attention(q, k, v, implementation="plain", **kw))
+    before = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
     leaf = q.clone().requires_grad_()
+    if "qk norm" in case:
+        # the qk norm inside the kernel is forward-only, as in JAX
+        with pytest.raises(RuntimeError, match="has no backward"):
+            tattn.attention(leaf, k, v, **kw)
+        return
     tattn.attention(leaf, k, v, **kw).sum().backward()
-    assert tfa.KERNEL.launches["flash_fwd_f32"] == (
-        before["flash_fwd_f32"] + 1)
+    after = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]
+            } == {"flash_fwd_lse_f32": 1, "flash_bwd_dq_f32": 1,
+                  "flash_bwd_dkv_f32": 1}
+    assert leaf.grad.dtype == torch.float32
+    assert bool(torch.isfinite(leaf.grad).all())
+
+
+def _no_farther(got32, got16, want):
+    """The f32 instance's outputs against the f32 plain version's, no
+    farther in relative L2 than the bf16 instance's on the same inputs
+    rounded to bf16; the f32 outputs rounded to bf16 are the bf16
+    instance's bit for bit (the same body on the same rounded operands)."""
+    for a, b, w in zip(got32, got16, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        assert torch.equal(a.to(b.dtype), b)
+        wf = w.float()
+        assert (a - wf).norm() <= (b.float() - wf).norm()
+
+
+# case -> (Sq, Skv, q heads, kv heads, kv mask, causal, batch)
+F32_CASES = {
+    "plain": (256, 256, 3, 3, False, False, 2),
+    "mask-causal-gqa": (256, 256, 6, 2, True, True, 2),
+    "one-tile": (128, 128, 2, 2, False, False, 1),
+    # K4 splits its stages over the grid (few 128-row kv blocks)
+    "split-mask-causal-gqa7": (512, 512, 14, 2, True, True, 1),
+    "wide": (640, 640, 36, 12, False, False, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_f32_lse_and_backward_instances(dev, d, case):
+    """K1's f32 instance with the lse and K3's and K4's f32 instances (f32
+    q, k, v and do rounded to bf16 on the card, f32 outputs), against their
+    f32 plain versions beside the bf16 instances on the rounded inputs
+    (``_no_farther``), K3 and K4 on the plain forward's residuals; one
+    launch of each, on (B, S, H, D)-strided views."""
+    sq, skv, hq, hk, masked, causal, b = F32_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11 * d + sq)
+
+    def f32(*shape):
+        return torch.randn(shape, generator=g, device=dev).transpose(1, 2)
+
+    q, do = f32(b, sq, hq, d), f32(b, sq, hq, d)
+    k, v = f32(b, skv, hk, d), f32(b, skv, hk, d)
+    kw = {}
+    if masked:
+        kw["kv_mask"] = torch.arange(skv, device=dev)[None] < torch.tensor(
+            [[skv - 56], [37]][:b], device=dev)
+    if causal:
+        kw["causal"] = True
+    r16 = [x.to(BF) for x in (q, k, v, do)]
+    before = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    got = tfa.flash_forward_lse(q, k, v, **kw)
+    after = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
+    want = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _no_farther(got, tfa.flash_forward_lse(*r16[:3], **kw), want)
+    res = (do, want[1], tfa._delta(want[0], do))
+    res16 = (r16[3], *res[1:])
+    for fn, plain in ((tfa.flash_bwd_dq, tfa.flash_bwd_dq_plain),
+                      (tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_plain)):
+        got = fn(q, k, v, *res, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        got16 = fn(*r16[:3], *res16, **kw)
+        got16 = got16 if isinstance(got16, tuple) else (got16,)
+        want_g = plain(q, k, v, *res, **kw)
+        _no_farther(got, got16, want_g if isinstance(want_g, tuple)
+                    else (want_g,))
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]
+            } == {"flash_fwd_lse_f32": 1}
+    assert tfa.KERNEL_BWD.launches["flash_bwd_dq_f32"] == before[
+        "flash_bwd_dq_f32"] + 1
+    assert tfa.KERNEL_BWD.launches["flash_bwd_dkv_f32"] == before[
+        "flash_bwd_dkv_f32"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["plain", "mask-causal-gqa", "sq>skv",
+                                  "last tiles of 64"])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_f32_chunked_instance(dev, d, case, with_lse):
+    """K2's f32 instance against its f32 plain version, beside the bf16
+    instance on the rounded inputs (``_no_farther``, on the rows that have
+    a valid key): no mask, kv mask + causal + GQA 6/2, Sq > Skv, a last q
+    and kv tile of 64 rows; one launch, (B, S, H, D)-strided views."""
+    sq, skv = {"sq>skv": (640, 384), "last tiles of 64": (320, 576)}.get(
+        case, (640, 640))
+    hq, hk = (6, 2) if "gqa" in case else (3, 3)
+    g = torch.Generator(device=dev).manual_seed(5 * d + sq)
+    q = torch.randn((2, sq, hq, d), generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn((2, skv, hk, d), generator=g,
+                        device=dev).transpose(1, 2) for _ in range(2))
+    kw, rows = {}, torch.ones((2, 1, sq), dtype=torch.bool, device=dev)
+    if case != "plain":
+        valid = torch.arange(skv, device=dev)[None] < torch.tensor(
+            [[skv - 50], [skv // 3]], device=dev)
+        kw.update(kv_mask=valid, causal=True)
+        rows = _valid_rows(valid, True, sq)[:, None, :]
+    before = tfa.KERNEL_CHUNKED.launches["flash_chunked_f32"]
+    got = tfa.flash_forward_chunked(q, k, v, return_lse=with_lse, **kw)
+    assert tfa.KERNEL_CHUNKED.launches["flash_chunked_f32"] == before + 1
+    got16 = tfa.flash_forward_chunked(*(x.to(BF) for x in (q, k, v)),
+                                      return_lse=with_lse, **kw)
+    want = tfa.flash_forward_chunked_plain(q, k, v, return_lse=with_lse,
+                                           **kw)
+    if not with_lse:
+        got, got16, want = (got,), (got16,), (want,)
+    keep = [rows[..., None], rows]
+    _no_farther(*([x * m for x, m in zip(o, keep)]
+                  for o in (got, got16, want)))
 
 
 @pytest.mark.cuda
@@ -587,10 +710,18 @@ def test_internvit_kernel_route_on_the_card(dev):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
-    # bf16 and, forward only, f32 (its own instance); no other dtype
+    # bf16 and f32 (its own instances); no other dtype, no mix of the two
     q = torch.zeros((1, 2, 128, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         tfa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 128, 64), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention(q, q.to(BF), q)
+    # the f32 instances with the lse take no rope inside
+    rope = (torch.ones((128, 64), device=dev), torch.zeros((128, 64),
+                                                           device=dev))
+    with pytest.raises(ValueError, match="no rope"):
+        tfa.flash_forward_lse(q, q, q, rope=rope)
     q = torch.zeros((1, 2, 96, 64), device=dev, dtype=BF)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention(q, q, q)                 # 96 % 64 != 0

@@ -30,7 +30,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from safetensors.torch import save_file
 
-from test_torch_params import flux_tree, random_tree
+from test_torch_params import flux_tree, one_thread, random_tree
 from x2i_tpu.convert.load import controlnext_bank_params_from_reference
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion import scheduler as jsched

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from test_torch_lightcontrol import TOL, bank_tree, ctrl_cfgs, n, t
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.models.flux import FluxTransformer2D as JFlux
 from x2i_tpu.models.vae import AutoencoderKL as JVAE

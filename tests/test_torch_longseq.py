@@ -21,7 +21,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from test_torch_params import qwen2_tree, random_tree, vae_cfgs
+from test_torch_params import one_thread, qwen2_tree, random_tree, vae_cfgs
 from x2i_tpu import pipeline as jpipe
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion.sampling import prepare_latent_image_ids

@@ -28,7 +28,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from PIL import Image
 
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.data import minicpm_vision as jmv
 from x2i_tpu.models import minicpmo as jmo

@@ -13,8 +13,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from test_torch_params import (flux_tree, proj_cfgs, qwen2_tree, random_tree,
-                               vae_cfgs)
+from test_torch_params import (flux_tree, one_thread, proj_cfgs, qwen2_tree,
+                               random_tree, vae_cfgs)
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion import sampling as jsamp
 from x2i_tpu.diffusion.scheduler import FlowMatchEulerScheduler as JSched

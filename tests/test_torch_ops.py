@@ -15,6 +15,8 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from test_torch_params import one_thread  # noqa: F401 (autouse)
+
 from x2i_tpu.diffusion.sampling import prepare_latent_image_ids
 from x2i_tpu.ops import flash_attention as jfa
 from x2i_tpu.ops import fused_glue as jfg

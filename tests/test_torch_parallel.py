@@ -21,7 +21,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from test_torch_params import flux_tree
+from test_torch_params import flux_tree, one_thread
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.core import mesh as jmesh
 from x2i_tpu.diffusion import sampling as jsamp

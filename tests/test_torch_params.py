@@ -26,6 +26,18 @@ from x2i_torch.models.vae import Decoder
 from x2i_torch.params import load_flax, random_init_
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch's ops on one thread in the modules that import this fixture:
+    under the test run's workers, one on every core, each worker's thread
+    pool on every core made the small ops of the tiny models several
+    times slower (the thread pools' spinning waits)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def random_tree(init, *args, seed=0):
     """A flax param tree of ``init``'s structure (traced, never run) with
     numpy values: Dense/Conv kernels at std 1/sqrt(fan_in), biases 0.1,

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion.sampling import (denoise_flux, prepare_latent_image_ids,
                                         unpack_latents)

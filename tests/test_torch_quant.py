@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from test_torch_models import _flux_inputs
-from test_torch_params import flux_tree
+from test_torch_params import flux_tree, one_thread
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.models import flux as jflux
 from x2i_tpu.models.flux import chunk_single_scan_params

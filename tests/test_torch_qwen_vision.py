@@ -22,7 +22,7 @@ from PIL import Image
 from safetensors.torch import load_file
 
 from ckpt_fixtures import build_qwenvl_dir
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.convert.hf_config import qwenvl_config_from_dir as jreader
 from x2i_tpu.convert.load import qwen2_5_vl_params_from_hf
 from x2i_tpu.core import config as jcfg

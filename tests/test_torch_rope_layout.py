@@ -20,7 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 from test_torch_convert import (FLUX_KW, LLM_KW, assert_same_params,
                                 bf16_sd, save)
 from test_torch_models import _flux_inputs, n, t
-from test_torch_params import flux_tree
+from test_torch_params import flux_tree, one_thread
 from torch_mirrors import MirrorFluxTransformer2D
 from x2i_tpu.convert import torch_models as jtm
 from x2i_tpu.core import config as jcfg

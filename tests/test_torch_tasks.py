@@ -39,6 +39,7 @@ from test_torch_checkpoint_dirs import (IMG_MAX, IMG_MEAN, PX, STEPS,
                                         _to_bf16, _tokenizer,
                                         build_internvl_text_dir,
                                         build_minicpm_dir)
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 from x2i_tpu.convert.load import \
     build_pipeline_from_checkpoints as jax_build
 from x2i_torch.convert.load import build_pipeline_from_checkpoints

@@ -9,6 +9,7 @@ import torch
 
 import test_torch_tasks as tt
 from test_torch_tasks import PX, STEPS, frames, pil, wave
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

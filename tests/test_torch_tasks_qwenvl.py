@@ -7,6 +7,7 @@ import pytest
 
 import test_torch_tasks as tt
 from test_torch_tasks import PX, STEPS, frames, pil
+from test_torch_params import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

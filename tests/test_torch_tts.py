@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_params import random_tree
+from test_torch_params import one_thread, random_tree
 from x2i_tpu.convert.torch_models import (chattts_params_from_reference,
                                           dvae_params_from_reference)
 from x2i_tpu.models import chattts as J

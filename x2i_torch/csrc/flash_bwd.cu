@@ -75,6 +75,21 @@
 // Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
 // contiguous and the other strides multiples of 8 elements, lse and delta
 // 16-byte aligned.
+//
+// The f32 instances (x2i_flash_bwd_dq_f32, x2i_flash_bwd_dkv_f32), which the
+// TPU kernels' f32 inputs take (an f32 DiT's phase-2 training step), follow
+// K1's f32 design (flash_fwd.cu): q, k, v and do rounded once per launch
+// into a contiguous bf16 scratch buffer (round_rows_kernel,
+// flash_common.cuh), the bodies above on it unchanged, lse and delta read in
+// f32 as always, and dq, dk and dv written in f32 from the f32
+// accumulators (K4's split sums its f32 partials and writes f32). The
+// products' operands are the bf16 values of q, k, v, do, p and ds, as in the
+// bf16 kernels, with f32 scores and sums; the TPU's f32 kernels round
+// nothing. No rope inside: in f32 the TPU kernels' rounding of the rotated
+// q and k is the identity, so the wrapper rotates outside and autograd
+// carries the rotation's transpose, which is JAX's f32 function.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
@@ -94,9 +109,9 @@ struct BwdArgs {
   const bf16* dout;             // (B, Hq, Sq, D)
   const float* lse;             // (B, Hq, Sq) contiguous
   const float* delta;           // (B, Hq, Sq) contiguous
-  bf16* dq;                     // (B, Hq, Sq, D)
-  bf16* dk;                     // (B, Hk, Skv, D)
-  bf16* dv;
+  void* dq;                     // (B, Hq, Sq, D), bf16 or f32 (OutT)
+  void* dk;                     // (B, Hk, Skv, D), bf16 or f32 (OutT)
+  void* dv;
   float* partial;               // K4 split: (2, splits, B, Hk, Skv, D) f32
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss;
@@ -203,7 +218,7 @@ __device__ __forceinline__ void tma_stage(const TileMap& m0,
 
 // ------------------------------------------------------------------- K3
 
-template <int D, bool ROPE, bool MASKED>
+template <int D, bool ROPE, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, BwdArgs a) {
@@ -369,8 +384,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   wgmma_pin_a(ds);
 
   if (ROPE) counter_rotate<D>(dq, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
-  store_rows<D>(a.dq + b * a.dq_sb + h * a.dq_sh, a.dq_ss, dq, row_a, row_b,
-                t4);
+  store_rows<D>(static_cast<OutT*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss,
+                dq, row_a, row_b, t4);
 }
 
 // ------------------------------------------------------------------- K4
@@ -407,10 +422,10 @@ __device__ __forceinline__ int3 read_ctaid() {
 }
 
 // K4's epilogue: dk and dv of the thread's rows, counter-rotated and
-// rounded, or as f32 partial sums of a split, (2, splits, B, Hk, Skv, D).
-// It derives its rows and pointers from the indices read anew: at D = 128
-// the main loop has no register to spare for them.
-template <int D, bool ROPE>
+// written as OutT (bf16: rounded), or as f32 partial sums of a split, (2,
+// splits, B, Hk, Skv, D). It derives its rows and pointers from the indices
+// read anew: at D = 128 the main loop has no register to spare for them.
+template <int D, bool ROPE, typename OutT>
 __device__ __forceinline__ void store_dkv(float (&dk)[D / 8][4],
                                           float (&dv)[D / 8][4],
                                           const BwdArgs& a) {
@@ -433,14 +448,14 @@ __device__ __forceinline__ void store_dkv(float (&dk)[D / 8][4],
     return;
   }
   // dv first: its registers are free while dk is counter-rotated
-  store_rows<D>(a.dv + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, dv, row_a, row_b,
-                t4);
+  store_rows<D>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh,
+                a.dv_ss, dv, row_a, row_b, t4);
   if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
-  store_rows<D>(a.dk + b * a.dk_sb + hk * a.dk_sh, a.dk_ss, dk, row_a, row_b,
-                t4);
+  store_rows<D>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh,
+                a.dk_ss, dk, row_a, row_b, t4);
 }
 
-template <int D, bool ROPE, bool MASKED>
+template <int D, bool ROPE, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ TileMap map_q,
     const __grid_constant__ TileMap map_do, BwdArgs a) {
@@ -628,12 +643,19 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
   wgmma_pin_a(pa);
   wgmma_pin_a(da);
 
-  store_dkv<D, ROPE>(dk, dv, a);
+  store_dkv<D, ROPE, OutT>(dk, dv, a);
 }
 
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+
 // K4's splits summed in split order, dk counter-rotated with rope, both
-// rounded to bf16: one thread per row and column pair (j, j + D/2).
-template <int D>
+// written as OutT (bf16: rounded): one thread per row and column pair (j,
+// j + D/2).
+template <int D, typename OutT>
 __global__ void __launch_bounds__(256) dkv_reduce_kernel(BwdArgs a, int hk,
                                                          long long rows) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -659,12 +681,14 @@ __global__ void __launch_bounds__(256) dkv_reduce_kernel(BwdArgs a, int hk,
     k1 = g1 * c + k2 * sn;
     k2 = k2 * c - g1 * sn;
   }
-  bf16* dk = a.dk + b * a.dk_sb + h * a.dk_sh + s * a.dk_ss;
-  bf16* dv = a.dv + b * a.dv_sb + h * a.dv_sh + s * a.dv_ss;
-  dk[j] = __float2bfloat16_rn(k1);
-  dk[j + D / 2] = __float2bfloat16_rn(k2);
-  dv[j] = __float2bfloat16_rn(v1);
-  dv[j + D / 2] = __float2bfloat16_rn(v2);
+  OutT* dk = static_cast<OutT*>(a.dk) + b * a.dk_sb + h * a.dk_sh +
+             s * a.dk_ss;
+  OutT* dv = static_cast<OutT*>(a.dv) + b * a.dv_sb + h * a.dv_sh +
+             s * a.dv_ss;
+  put(dk + j, k1);
+  put(dk + j + D / 2, k2);
+  put(dv + j, v1);
+  put(dv + j + D / 2, v2);
 }
 
 // ------------------------------------------------------------- launches
@@ -681,26 +705,34 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int smem,
 }
 
 // K3 (dq) or K4 (dk, dv) in the instance that the rope and the masks ask
-// for.
-template <int D, bool DQ>
-cudaError_t launch(const TileMap& m0, const TileMap& m1, const BwdArgs& a,
-                   dim3 grid, cudaStream_t stream) {
-  const bool rope = a.cos != nullptr;
+// for. The f32 outputs (OutT float) have no rope instance.
+template <int D, bool DQ, bool ROPE, typename OutT>
+cudaError_t launch_masked(const TileMap& m0, const TileMap& m1,
+                          const BwdArgs& a, dim3 grid, cudaStream_t stream) {
   const bool masked = a.mask != nullptr || a.causal;
   if constexpr (DQ) {
-    const int smem = smem_bytes<D>(0);
-    auto k = rope ? (masked ? &flash_bwd_dq_kernel<D, true, true>
-                            : &flash_bwd_dq_kernel<D, true, false>)
-                  : (masked ? &flash_bwd_dq_kernel<D, false, true>
-                            : &flash_bwd_dq_kernel<D, false, false>);
-    return launch_kernel(k, grid, smem, m0, m1, a, stream);
+    auto k = masked ? &flash_bwd_dq_kernel<D, ROPE, true, OutT>
+                    : &flash_bwd_dq_kernel<D, ROPE, false, OutT>;
+    return launch_kernel(k, grid, smem_bytes<D>(0), m0, m1, a, stream);
+  } else {
+    auto k = masked ? &flash_bwd_dkv_kernel<D, ROPE, true, OutT>
+                    : &flash_bwd_dkv_kernel<D, ROPE, false, OutT>;
+    return launch_kernel(k, grid, smem_bytes<D>(2 * kRows * 4), m0, m1, a,
+                         stream);
   }
-  const int smem = smem_bytes<D>(2 * kRows * 4);
-  auto k = rope ? (masked ? &flash_bwd_dkv_kernel<D, true, true>
-                          : &flash_bwd_dkv_kernel<D, true, false>)
-                : (masked ? &flash_bwd_dkv_kernel<D, false, true>
-                          : &flash_bwd_dkv_kernel<D, false, false>);
-  return launch_kernel(k, grid, smem, m0, m1, a, stream);
+}
+
+template <int D, bool DQ, typename OutT>
+cudaError_t launch(const TileMap& m0, const TileMap& m1, const BwdArgs& a,
+                   dim3 grid, cudaStream_t stream) {
+  if constexpr (std::is_same<OutT, float>::value) {
+    if (a.cos != nullptr) return cudaErrorInvalidValue;
+    return launch_masked<D, DQ, false, OutT>(m0, m1, a, grid, stream);
+  } else {
+    return a.cos != nullptr
+               ? launch_masked<D, DQ, true, OutT>(m0, m1, a, grid, stream)
+               : launch_masked<D, DQ, false, OutT>(m0, m1, a, grid, stream);
+  }
 }
 
 // Fill the arguments both entry points share; false on shapes the kernels
@@ -766,9 +798,104 @@ cudaError_t rotate_into(const bf16*& x, long long& sb, long long& sh,
   return err;
 }
 
+// K3 on the arguments in `a` (q, k, v, do bf16), dq (OutT) at the (b, h, s)
+// strides so[0..2].
+template <typename OutT>
+cudaError_t run_dq(BwdArgs& a, void* dq, const long long* so,
+                   void* k_scratch, int batch, int hq, int hk, int sq,
+                   int skv, int d, cudaStream_t stream) {
+  a.dq = dq;
+  a.dq_sb = so[0]; a.dq_sh = so[1]; a.dq_ss = so[2];
+  cudaError_t err = cudaSuccess;
+  if (a.cos != nullptr)
+    // K rotated once per launch, no scale (K3 folds it into the q tile)
+    err = rotate_into(a.k, a.k_sb, a.k_sh, a.k_ss, k_scratch, batch, hk, skv,
+                      d, a, stream);
+  TileMap mk, mv;
+  if (err == cudaSuccess)
+    err = make_tile_map(&mk, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
+                        kRows);
+  if (err == cudaSuccess)
+    err = make_tile_map(&mv, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
+                        kRows);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sq / kBlockRows, hq, batch);
+  return d == 64 ? launch<64, true, OutT>(mk, mv, a, grid, stream)
+                 : launch<128, true, OutT>(mk, mv, a, grid, stream);
+}
+
+// K4 on the arguments in `a`, dk and dv (OutT) at the (b, h, s) strides
+// so[0..2] and so[3..5]; `splits` as x2i_flash_bwd_dkv takes it.
+template <typename OutT>
+cudaError_t run_dkv(BwdArgs& a, void* dk, void* dv, const long long* so,
+                    void* q_scratch, float* partial, int splits, int batch,
+                    int hq, int hk, int sq, int skv, int d,
+                    cudaStream_t stream) {
+  const int stages = a.per_split;
+  a.splits = splits;
+  a.per_split = (stages + splits - 1) / splits;
+  if ((splits - 1) * a.per_split >= stages)        // an empty split
+    return cudaErrorInvalidValue;
+  a.partial = splits > 1 ? partial : nullptr;
+  a.dk = dk;
+  a.dv = dv;
+  a.dk_sb = so[0]; a.dk_sh = so[1]; a.dk_ss = so[2];
+  a.dv_sb = so[3]; a.dv_sh = so[4]; a.dv_ss = so[5];
+  cudaError_t err = cudaSuccess;
+  if (a.cos != nullptr)
+    // Q rotated once per launch, no scale (K4 scales the f32 scores)
+    err = rotate_into(a.q, a.q_sb, a.q_sh, a.q_ss, q_scratch, batch, hq, sq,
+                      d, a, stream);
+  TileMap mq, mdo;
+  if (err == cudaSuccess)
+    err = make_tile_map(&mq, a.q, a.q_sb, a.q_sh, a.q_ss, batch, hq, sq, d,
+                        kRows);
+  if (err == cudaSuccess)
+    err = make_tile_map(&mdo, a.dout, a.do_sb, a.do_sh, a.do_ss, batch, hq,
+                        sq, d, kRows);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(skv / kBlockRows, hk, batch * splits);
+  err = d == 64 ? launch<64, false, OutT>(mq, mdo, a, grid, stream)
+                : launch<128, false, OutT>(mq, mdo, a, grid, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long rows = static_cast<long long>(batch) * hk * skv;
+  const unsigned blocks = static_cast<unsigned>((rows * (d / 2) + 255) / 256);
+  if (d == 64)
+    dkv_reduce_kernel<64, OutT><<<blocks, 256, 0, stream>>>(a, hk, rows);
+  else
+    dkv_reduce_kernel<128, OutT><<<blocks, 256, 0, stream>>>(a, hk, rows);
+  return cudaGetLastError();
+}
+
+// The f32 instances' inputs: q, k, v and do (f32, at the strides st[0..11])
+// rounded into `scratch` (bf16, q, k, v, do in that order, each
+// contiguous); rst[0..11] gets the buffer's strides and r[0..3] its four
+// parts.
+cudaError_t round_inputs(const float* q, const float* k, const float* v,
+                         const float* dout, void* scratch,
+                         const long long* st, long long* rst, bf16** r,
+                         int batch, int hq, int hk, int sq, int skv, int d,
+                         cudaStream_t stream) {
+  const long long nq = static_cast<long long>(batch) * hq * sq * d;
+  const long long nk = static_cast<long long>(batch) * hk * skv * d;
+  r[0] = static_cast<bf16*>(scratch);
+  r[1] = r[0] + nq;
+  r[2] = r[1] + nk;
+  r[3] = r[2] + nk;
+  for (int i = 0; i < 12; ++i) rst[i] = st[i];
+  const float* src[4] = {q, k, v, dout};
+  const int heads[4] = {hq, hk, hk, hq}, seq[4] = {sq, skv, skv, sq};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = round_into(src[i], r[i], rst + 3 * i, batch,
+                                       heads[i], seq[i], d, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Shared arguments of both entry points. q, do: (B, Hq, Sq, D) bf16; k, v:
+// Shared arguments of the entry points. q, do: (B, Hq, Sq, D) bf16; k, v:
 // (B, Hk, Skv, D) bf16, with the strides in `st` (elements): q, k, v, do,
 // then the outputs', each (b, h, s); last dims contiguous. lse, delta:
 // (B, Hq, Sq) f32 contiguous, 16-byte aligned. cos/sin: (S, >= D/2) f32
@@ -789,26 +916,9 @@ extern "C" int x2i_flash_bwd_dq(
                  mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
       (cos != nullptr && k_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  a.dq = static_cast<bf16*>(dq);
-  a.dq_sb = st[12]; a.dq_sh = st[13]; a.dq_ss = st[14];
-  cudaError_t err = cudaSuccess;
-  if (cos != nullptr)
-    // K rotated once per launch, no scale (K3 folds it into the q tile)
-    err = rotate_into(a.k, a.k_sb, a.k_sh, a.k_ss, k_scratch, batch, hk, skv,
-                      d, a, stream);
-  TileMap mk, mv;
-  if (err == cudaSuccess)
-    err = make_tile_map(&mk, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
-                        kRows);
-  if (err == cudaSuccess)
-    err = make_tile_map(&mv, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
-                        kRows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(sq / kBlockRows, hq, batch);
-  return static_cast<int>(d == 64 ? launch<64, true>(mk, mv, a, grid, stream)
-                                  : launch<128, true>(mk, mv, a, grid,
-                                                      stream));
+  return static_cast<int>(run_dq<bf16>(
+      a, dq, st + 12, k_scratch, batch, hq, hk, sq, skv, d,
+      static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // K4: dk, dv (B, Hk, Skv, D) bf16 at st[12..14] and st[15..17]. With rope,
@@ -829,39 +939,63 @@ extern "C" int x2i_flash_bwd_dkv(
       (cos != nullptr && q_scratch == nullptr) || splits < 1 ||
       (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = a.per_split;
-  a.splits = splits;
-  a.per_split = (stages + splits - 1) / splits;
-  if ((splits - 1) * a.per_split >= stages)        // an empty split
+  return static_cast<int>(run_dkv<bf16>(
+      a, dk, dv, st + 12, q_scratch, partial, splits, batch, hq, hk, sq, skv,
+      d, static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// The f32 instances: q, k, v, do f32 at the strides in `st` as above
+// (multiples of 4 elements, 16-byte aligned starts), the outputs f32 at
+// st[12..]; no rope. scratch: (2*B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded
+// q, k, v and do in that order, each contiguous. lse, delta, mask, splits
+// and partial as above.
+
+// K3 in f32: dq (B, Hq, Sq, D) f32 at st[12..14].
+extern "C" int x2i_flash_bwd_dq_f32(
+    const float* q, const float* k, const float* v, const float* dout,
+    const float* lse, const float* delta, float* dq, void* scratch,
+    const long long* st, const unsigned char* mask, long long mask_sb,
+    int batch, int hq, int hk, int sq, int skv, int d, int causal,
+    float scale, float scale_log2e, void* stream_ptr) {
+  BwdArgs a;
+  if (!fill_args(a, q, k, v, dout, lse, delta, st, nullptr, nullptr, 0, mask,
+                 mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
+      scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.partial = splits > 1 ? partial : nullptr;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.dk_sb = st[12]; a.dk_sh = st[13]; a.dk_ss = st[14];
-  a.dv_sb = st[15]; a.dv_sh = st[16]; a.dv_ss = st[17];
-  cudaError_t err = cudaSuccess;
-  if (cos != nullptr)
-    // Q rotated once per launch, no scale (K4 scales the f32 scores)
-    err = rotate_into(a.q, a.q_sb, a.q_sh, a.q_ss, q_scratch, batch, hq, sq,
-                      d, a, stream);
-  TileMap mq, mdo;
-  if (err == cudaSuccess)
-    err = make_tile_map(&mq, a.q, a.q_sb, a.q_sh, a.q_ss, batch, hq, sq, d,
-                        kRows);
-  if (err == cudaSuccess)
-    err = make_tile_map(&mdo, a.dout, a.do_sb, a.do_sh, a.do_ss, batch, hq,
-                        sq, d, kRows);
+  long long rst[12];
+  bf16* r[4];
+  cudaError_t err = round_inputs(q, k, v, dout, scratch, st, rst, r, batch,
+                                 hq, hk, sq, skv, d, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(skv / kBlockRows, hk, batch * splits);
-  err = d == 64 ? launch<64, false>(mq, mdo, a, grid, stream)
-                : launch<128, false>(mq, mdo, a, grid, stream);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(batch) * hk * skv;
-  const unsigned blocks = static_cast<unsigned>((rows * (d / 2) + 255) / 256);
-  if (d == 64)
-    dkv_reduce_kernel<64><<<blocks, 256, 0, stream>>>(a, hk, rows);
-  else
-    dkv_reduce_kernel<128><<<blocks, 256, 0, stream>>>(a, hk, rows);
-  return static_cast<int>(cudaGetLastError());
+  fill_args(a, r[0], r[1], r[2], r[3], lse, delta, rst, nullptr, nullptr, 0,
+            mask, mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e);
+  return static_cast<int>(run_dq<float>(a, dq, st + 12, nullptr, batch, hq,
+                                        hk, sq, skv, d, stream));
+}
+
+// K4 in f32: dk, dv (B, Hk, Skv, D) f32 at st[12..14] and st[15..17].
+extern "C" int x2i_flash_bwd_dkv_f32(
+    const float* q, const float* k, const float* v, const float* dout,
+    const float* lse, const float* delta, float* dk, float* dv,
+    void* scratch, float* partial, int splits, const long long* st,
+    const unsigned char* mask, long long mask_sb, int batch, int hq, int hk,
+    int sq, int skv, int d, int causal, float scale, float scale_log2e,
+    void* stream_ptr) {
+  BwdArgs a;
+  if (!fill_args(a, q, k, v, dout, lse, delta, st, nullptr, nullptr, 0, mask,
+                 mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
+      scratch == nullptr || splits < 1 || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  long long rst[12];
+  bf16* r[4];
+  cudaError_t err = round_inputs(q, k, v, dout, scratch, st, rst, r, batch,
+                                 hq, hk, sq, skv, d, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fill_args(a, r[0], r[1], r[2], r[3], lse, delta, rst, nullptr, nullptr, 0,
+            mask, mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e);
+  return static_cast<int>(run_dkv<float>(a, dk, dv, st + 12, nullptr,
+                                         partial, splits, batch, hq, hk, sq,
+                                         skv, d, stream));
 }

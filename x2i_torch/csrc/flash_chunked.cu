@@ -72,6 +72,16 @@
 // Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last dim
 // contiguous, the other strides multiples of 8 elements and 16-byte
 // aligned bases; every offset is 64-bit.
+//
+// The f32 instance (x2i_flash_chunked_f32), which the TPU kernel's f32
+// inputs take (an f32 DiT above 8192 tokens: the 2048^2 image), is K1's f32
+// design (flash_fwd.cu): q, k and v rounded once per launch into a
+// contiguous bf16 scratch buffer (round_rows_kernel, flash_common.cuh), the
+// body above on it unchanged, o written in f32 from the accumulators and
+// the lse in f32 as before. At the 2048^2 point the scratch is 311 MB and
+// the rounding pass reads 622 MB and writes 311 MB once, about 0.3 ms
+// against the body's 3.5 ms bound. The norm and the rope stay outside, as
+// on every K2 route.
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
@@ -84,7 +94,7 @@ constexpr int kStages = 3;       // (K tile, V tile) stages in the ring
 constexpr int kConsumers = 256;  // two consumer warpgroups
 
 struct Args {
-  bf16* o;
+  void* o;                       // bf16, or f32 in the f32 instance
   float* lse;                    // (B, Hq, Sq) contiguous, or null
   long long o_sb, o_sh, o_ss;
   const unsigned char* mask;     // (B, Skv) bytes, or null
@@ -102,7 +112,7 @@ constexpr int smem_bytes() {
          kSwizzleAtomBytes;
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     const __grid_constant__ TileMap map_q,
     const __grid_constant__ TileMap map_k,
@@ -372,18 +382,19 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     o[dn][2] /= l1;
     o[dn][3] /= l1;
   }
-  store_rows<D>(a.o + b * a.o_sb + h * a.o_sh, a.o_ss, o, row_a, row_b, t4);
+  store_rows<D>(static_cast<OutT*>(a.o) + b * a.o_sb + h * a.o_sh, a.o_ss, o,
+                row_a, row_b, t4);
 }
 
 struct Maps {
   TileMap q, k, v;
 };
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, typename OutT>
 cudaError_t launch(const Maps& m, const Args& a, int batch, int hq,
                    cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
-  auto kernel = flash_chunked_kernel<D, MASKED>;
+  auto kernel = flash_chunked_kernel<D, MASKED, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -392,24 +403,21 @@ cudaError_t launch(const Maps& m, const Args& a, int batch, int hq,
   return cudaGetLastError();
 }
 
-}  // namespace
+bool bad_shapes(int batch, int hq, int hk, int sq, int skv, int d) {
+  return (d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 64 ||
+         skv % 64 || hk <= 0 || hq % hk || batch <= 0 || batch > 65535 ||
+         hq > 65535;
+}
 
-// q, o: (B, Hq, Sq, D), k, v: (B, Hk, Skv, D) bf16 with the strides in
-// `st` (elements): q (b, h, s), k (b, h, s), v (b, h, s), o (b, h, s); the
-// last dim is contiguous. lse: (B, Hq, Sq) f32 contiguous, or null. mask:
-// (B, Skv) bytes at mask_sb, or null. Returns the cudaError_t of the
-// launch.
-extern "C" int x2i_flash_chunked(
-    const void* q, const void* k, const void* v, void* o, float* lse,
-    const long long* st, const unsigned char* mask, long long mask_sb,
-    int batch, int hq, int hk, int sq, int skv, int d, int causal,
-    float scale_log2e, void* stream_ptr) {
-  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 64 || skv % 64 ||
-      hk <= 0 || hq % hk || batch <= 0 || batch > 65535 || hq > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// One launch on bf16 q, k, v at the strides st[0..8], o (OutT) at
+// st[9..11].
+template <typename OutT>
+cudaError_t run(const void* q, const void* k, const void* v, void* o,
+                float* lse, const long long* st, const unsigned char* mask,
+                long long mask_sb, int batch, int hq, int hk, int sq, int skv,
+                int d, int causal, float scale_log2e, cudaStream_t stream) {
   Args a;
-  a.o = static_cast<bf16*>(o);
+  a.o = o;
   a.lse = lse;
   a.o_sb = st[9]; a.o_sh = st[10]; a.o_ss = st[11];
   a.mask = mask;
@@ -428,13 +436,58 @@ extern "C" int x2i_flash_chunked(
   if (err == cudaSuccess)
     err = make_tile_map(&m.v, v, st[6], st[7], st[8], batch, hk, skv, d,
                         kTileKV);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   const bool masked = mask != nullptr || causal != 0;
   if (d == 64)
-    err = masked ? launch<64, true>(m, a, batch, hq, stream)
-                 : launch<64, false>(m, a, batch, hq, stream);
-  else
-    err = masked ? launch<128, true>(m, a, batch, hq, stream)
-                 : launch<128, false>(m, a, batch, hq, stream);
-  return static_cast<int>(err);
+    return masked ? launch<64, true, OutT>(m, a, batch, hq, stream)
+                  : launch<64, false, OutT>(m, a, batch, hq, stream);
+  return masked ? launch<128, true, OutT>(m, a, batch, hq, stream)
+                : launch<128, false, OutT>(m, a, batch, hq, stream);
+}
+
+}  // namespace
+
+// q, o: (B, Hq, Sq, D), k, v: (B, Hk, Skv, D) bf16 with the strides in
+// `st` (elements): q (b, h, s), k (b, h, s), v (b, h, s), o (b, h, s); the
+// last dim is contiguous. lse: (B, Hq, Sq) f32 contiguous, or null. mask:
+// (B, Skv) bytes at mask_sb, or null. Returns the cudaError_t of the
+// launch.
+extern "C" int x2i_flash_chunked(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    const long long* st, const unsigned char* mask, long long mask_sb,
+    int batch, int hq, int hk, int sq, int skv, int d, int causal,
+    float scale_log2e, void* stream_ptr) {
+  if (bad_shapes(batch, hq, hk, sq, skv, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run<bf16>(q, k, v, o, lse, st, mask, mask_sb, batch,
+                                    hq, hk, sq, skv, d, causal, scale_log2e,
+                                    static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// The f32 instance: q, k, v, o f32 at the strides in `st` as above
+// (multiples of 4 elements, 16-byte aligned starts); the lse as above.
+// scratch: (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k and v in that
+// order, each contiguous.
+extern "C" int x2i_flash_chunked_f32(
+    const float* q, const float* k, const float* v, float* o, float* lse,
+    void* scratch, const long long* st, const unsigned char* mask,
+    long long mask_sb, int batch, int hq, int hk, int sq, int skv, int d,
+    int causal, float scale_log2e, void* stream_ptr) {
+  if (bad_shapes(batch, hq, hk, sq, skv, d) || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  bf16* rq = static_cast<bf16*>(scratch);
+  bf16* rk = rq + static_cast<long long>(batch) * hq * sq * d;
+  bf16* rv = rk + static_cast<long long>(batch) * hk * skv * d;
+  long long rst[12];
+  for (int i = 0; i < 12; ++i) rst[i] = st[i];
+  cudaError_t err = round_into(q, rq, rst, batch, hq, sq, d, stream);
+  if (err == cudaSuccess)
+    err = round_into(k, rk, rst + 3, batch, hk, skv, d, stream);
+  if (err == cudaSuccess)
+    err = round_into(v, rv, rst + 6, batch, hk, skv, d, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run<float>(rq, rk, rv, o, lse, rst, mask, mask_sb,
+                                     batch, hq, hk, sq, skv, d, causal,
+                                     scale_log2e, stream));
 }

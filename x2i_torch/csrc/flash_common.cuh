@@ -3,7 +3,8 @@
 // bf16 rounding of accumulator fragments into the A operand of the next
 // product and their stores, and the row-wise qk RMSNorm + half-layout
 // rotation with its once-per-launch pass over a whole (B, H, S, D) tensor
-// into a contiguous bf16 scratch buffer.
+// into a contiguous bf16 scratch buffer, and the f32 instances' pass that
+// rounds f32 (B, H, S, D) inputs into such a buffer.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col, which a warp's 16 rows of
 // a wgmma accumulator and register A operand share (lane = 4 g + t4):
@@ -173,7 +174,7 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
   }
 }
 
-// The same rows in f32: the output of the f32 instance (flash_fwd.cu).
+// The same rows in f32: the outputs of the f32 instances.
 template <int D>
 __device__ __forceinline__ void store_rows(float* base, long long row_stride,
                                            const float (*acc)[4], int row_a,
@@ -186,6 +187,59 @@ __device__ __forceinline__ void store_rows(float* base, long long row_stride,
     *reinterpret_cast<float2*>(base + row_b * row_stride + col) =
         make_float2(acc[dn][2], acc[dn][3]);
   }
+}
+
+// The f32 instances' first pass: x (B, H, S, D) f32 strided -> contiguous
+// bf16, rounded to nearest, once per launch: four channels a thread, one
+// 16-byte load and one 8-byte store. The strides are multiples of 4
+// elements and x starts on 16 bytes.
+template <int D>
+__global__ void __launch_bounds__(256) round_rows_kernel(
+    const float* __restrict__ x, bf16* __restrict__ out, long long x_sb,
+    long long x_sh, long long x_ss, int heads, int seq, long long quads) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  const long long row = i / (D / 4);
+  const int c = static_cast<int>(i % (D / 4)) * 4;
+  const int s = static_cast<int>(row % seq);
+  const long long bh = row / seq;
+  const int h = static_cast<int>(bh % heads);
+  const long long b = bh / heads;
+  const float4 v =
+      *reinterpret_cast<const float4*>(x + b * x_sb + h * x_sh + s * x_ss + c);
+  uint2 packed;
+  packed.x = pack_bf16(v.x, v.y);
+  packed.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(out + row * D + c) = packed;
+}
+
+template <int D>
+cudaError_t launch_round_rows(const float* x, bf16* out, long long x_sb,
+                              long long x_sh, long long x_ss, int batch,
+                              int heads, int seq, cudaStream_t stream) {
+  const long long quads = static_cast<long long>(batch) * heads * seq * D / 4;
+  const long long blocks = (quads + 255) / 256;
+  round_rows_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      x, out, x_sb, x_sh, x_ss, heads, seq, quads);
+  return cudaGetLastError();
+}
+
+// x (B, H, S, D) f32 at the (b, h, s) strides st[0..2] -> rounded into the
+// contiguous bf16 buffer out, whose strides then replace st[0..2]. D is 64
+// or 128.
+inline cudaError_t round_into(const float* x, bf16* out, long long* st,
+                              int batch, int heads, int seq, int d,
+                              cudaStream_t stream) {
+  const cudaError_t err =
+      d == 64 ? launch_round_rows<64>(x, out, st[0], st[1], st[2], batch,
+                                      heads, seq, stream)
+              : launch_round_rows<128>(x, out, st[0], st[1], st[2], batch,
+                                       heads, seq, stream);
+  st[2] = d;
+  st[1] = static_cast<long long>(seq) * d;
+  st[0] = st[1] * heads;
+  return err;
 }
 
 }  // namespace

@@ -78,16 +78,22 @@
 // contiguous and the other strides multiples of 8 elements.
 //
 // The f32 instance (x2i_flash_fwd_f32). The TPU kernel takes f32 q, k, v as
-// they come (the CLIP scorer evaluates in f32) and writes o in f32. The
-// tensor cores here take bf16, so a first kernel rounds q, k and v once per
-// launch into a contiguous bf16 scratch buffer (round_rows_kernel, four
-// channels a thread), the bodies above run on it unchanged and the epilogue
-// writes the f32 accumulator rows, divided by l, as they are. The products'
-// operands are therefore the bf16 values of q, k, v and p, with f32
-// scores, softmax and sums: the bf16 bodies' precision, not the TPU's f32
-// products. No rope, qk norm or lse inside: the wrapper applies the norm
-// and the rotation first in f32, and the f32 training forward (with the
-// lse) and backward are not built. Always 128 q rows a block.
+// they come (the CLIP scorer evaluates in f32, an f32 DiT trains in f32)
+// and writes o, and with return_lse the lse, in f32. The tensor cores here
+// take bf16, so a first kernel rounds q, k and v once per launch into a
+// contiguous bf16 scratch buffer (round_rows_kernel, flash_common.cuh), the
+// bodies above run on it unchanged and the epilogue writes the f32
+// accumulator rows, divided by l, as they are; the exact body writes the
+// f32 lse as it does for bf16. The products' operands are therefore the
+// bf16 values of q, k, v and p, with f32 scores, softmax and sums: the
+// bf16 bodies' precision, not the TPU's f32 products (a tf32 instance,
+// wgmma k8 on f32 operands, would come closer at half the bf16 rate and
+// twice the shared memory per tile; the bf16 rounding keeps one body for
+// both dtypes). No rope or qk norm inside: in f32 the TPU kernel's rounding
+// of the rotated q and k to the input dtype is the identity, so the wrapper
+// rotates (and normalizes) first in f32, with autograd carrying the
+// rotation's transpose when it records, which is JAX's f32 function. Always
+// 128 q rows a block.
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
@@ -433,40 +439,6 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
                 row_a, row_b, t4);
 }
 
-// x (B, H, S, D) f32 strided -> contiguous bf16, rounded to nearest: four
-// channels a thread, one 16-byte load and one 8-byte store.
-template <int D>
-__global__ void __launch_bounds__(256) round_rows_kernel(
-    const float* __restrict__ x, bf16* __restrict__ out, long long x_sb,
-    long long x_sh, long long x_ss, int heads, int seq, long long quads) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= quads) return;
-  const long long row = i / (D / 4);
-  const int c = static_cast<int>(i % (D / 4)) * 4;
-  const int s = static_cast<int>(row % seq);
-  const long long bh = row / seq;
-  const int h = static_cast<int>(bh % heads);
-  const long long b = bh / heads;
-  const float4 v =
-      *reinterpret_cast<const float4*>(x + b * x_sb + h * x_sh + s * x_ss + c);
-  uint2 packed;
-  packed.x = pack_bf16(v.x, v.y);
-  packed.y = pack_bf16(v.z, v.w);
-  *reinterpret_cast<uint2*>(out + row * D + c) = packed;
-}
-
-template <int D>
-cudaError_t launch_round_rows(const float* x, bf16* out, long long x_sb,
-                              long long x_sh, long long x_ss, int batch,
-                              int heads, int seq, cudaStream_t stream) {
-  const long long quads = static_cast<long long>(batch) * heads * seq * D / 4;
-  const long long blocks = (quads + 255) / 256;
-  round_rows_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      x, out, x_sb, x_sh, x_ss, heads, seq, quads);
-  return cudaGetLastError();
-}
-
 struct Maps {
   TileMap k, v;
 };
@@ -643,36 +615,33 @@ extern "C" int x2i_flash_fwd(
 }
 
 // The f32 instance: q, k, v, o (B, H, S, D) f32 with the strides in `st`,
-// as above. scratch: (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k and v
-// in that order, each contiguous. mask, causal and exact as above; no rope,
-// qk norm or lse.
+// as above (multiples of 4 elements, 16-byte aligned starts). lse: (B, Hq,
+// Sq) f32 contiguous, or null; it needs the exact body. scratch:
+// (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k and v in that order, each
+// contiguous. mask, causal and exact as above; no rope or qk norm.
 extern "C" int x2i_flash_fwd_f32(
-    const float* q, const float* k, const float* v, float* o, void* scratch,
-    const long long* st, const unsigned char* mask, long long mask_sb,
-    int batch, int hq, int hk, int sq, int skv, int d, int causal, int exact,
-    float scale_log2e, void* stream_ptr) {
+    const float* q, const float* k, const float* v, float* o, float* lse,
+    void* scratch, const long long* st, const unsigned char* mask,
+    long long mask_sb, int batch, int hq, int hk, int sq, int skv, int d,
+    int causal, int exact, float scale_log2e, void* stream_ptr) {
   if (bad_shapes(hq, hk, sq, skv, d) || scratch == nullptr ||
-      (!exact && (mask != nullptr || causal)))
+      (lse != nullptr && !exact) || (!exact && (mask != nullptr || causal)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   bf16* rq = static_cast<bf16*>(scratch);
   bf16* rk = rq + static_cast<long long>(batch) * hq * sq * d;
   bf16* rv = rk + static_cast<long long>(batch) * hk * skv * d;
-  auto* round_rows =
-      d == 64 ? &launch_round_rows<64> : &launch_round_rows<128>;
-  cudaError_t err =
-      round_rows(q, rq, st[0], st[1], st[2], batch, hq, sq, stream);
+  long long rst[12];
+  for (int i = 0; i < 12; ++i) rst[i] = st[i];
+  cudaError_t err = round_into(q, rq, rst, batch, hq, sq, d, stream);
   if (err == cudaSuccess)
-    err = round_rows(k, rk, st[3], st[4], st[5], batch, hk, skv, stream);
+    err = round_into(k, rk, rst + 3, batch, hk, skv, d, stream);
   if (err == cudaSuccess)
-    err = round_rows(v, rv, st[6], st[7], st[8], batch, hk, skv, stream);
+    err = round_into(v, rv, rst + 6, batch, hk, skv, d, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long qs = static_cast<long long>(sq) * d;
-  const long long ks = static_cast<long long>(skv) * d;
-  const long long rst[12] = {qs * hq, qs, d, ks * hk, ks, d, ks * hk, ks, d,
-                             st[9], st[10], st[11]};
   Args a = plain_args(rq, rk, rv, o, rst, mask, mask_sb, hq, hk, sq, skv,
                       causal, scale_log2e);
+  a.lse = lse;
   const int body = body_of(exact, mask, causal);
   Maps m;
   err = make_maps(&m, a, batch, hk, skv, d);

@@ -28,26 +28,23 @@ from x2i_torch.ops.rope import apply_rope_half
 
 def route(q: torch.Tensor, k: torch.Tensor, causal: bool = False,
           implementation: str = "auto", bias=None,
-          causal_offset: int = 0, recording: bool = False) -> str:
+          causal_offset: int = 0) -> str:
     """The dispatcher's static choice for q (B, Sq, Hq, D) against k (B,
     Skv, Hk, D): "kernel" (the flash kernel at these shapes), "pad" (the
     kernel on q, k and v padded to multiples of 128 with masked keys) or
     "plain". A bias or a causal offset takes the plain route (JAX's XLA
     path). "kernel" always takes a kernel route. "auto" takes one off the
-    CPU where a CUDA kernel takes the inputs: bf16, and f32 for a forward
-    (``recording`` False: autograd does not record) of at most
-    ``MAX_KV_SEQ`` kv tokens, which K1's f32 instance serves. JAX's Pallas
-    kernels take every dtype; here f32 under autograd or above
-    ``MAX_KV_SEQ``, and any other dtype, take the plain route. Reads only
-    shapes, dtype and device: meta tensors do."""
+    CPU for the dtypes the CUDA kernels have instances of, bf16 and f32,
+    forward and backward at every length (K1 and its lse, K2 above
+    ``MAX_KV_SEQ``, K3 and K4), as JAX's Pallas kernels take every dtype;
+    any other dtype takes the plain route. Reads only shapes, dtype and
+    device: meta tensors do."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
-    f32_fwd = (q.dtype == torch.float32 and not recording
-               and skv + (-skv) % 128 <= fa.MAX_KV_SEQ)
     kernel_ok = bias is None and causal_offset == 0 and (
         implementation == "kernel" or (
             implementation == "auto" and q.device.type != "cpu"
-            and (q.dtype == torch.bfloat16 or f32_fwd)))
+            and q.dtype in fa.KERNEL_DTYPES))
     if not kernel_ok:
         return "plain"
     if fa.supported((b, hq, sq, d), skv):
@@ -84,11 +81,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
 
-    recording = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (q, k, v, *(qk_norm or ())[:2]))
-    which = route(q, k, causal, implementation, bias, causal_offset,
-                  recording)
+    which = route(q, k, causal, implementation, bias, causal_offset)
     use_kernel, pad_path = which == "kernel", which == "pad"
     pad_q, pad_kv = (-sq) % 128, (-skv) % 128
 

@@ -32,13 +32,19 @@ and ``p`` is cast to the input dtype before the PV product. The backward
 kernels round as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` do (see
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain``).
 
-K1 also has an f32 instance, for modules that run in f32 on the card (the
-CLIP scorer evaluates in f32, as in JAX): q, k and v are rounded to bf16
-on the card and go through the body they would take in bf16, and o is
-written in f32. Its results are the bf16 bodies' up to the rounding of o,
-not the plain version's f32 products. It is forward-only, and applies no
-norm or rotation inside (the wrapper applies both first, in f32); the
-lse, K2, K3 and K4 take bf16 alone.
+K1 (with and without the lse), K2, K3 and K4 also have f32 instances, for
+modules that run in f32 on the card (the CLIP scorer evaluates in f32, an
+f32 DiT serves and trains in f32, as in JAX): q, k, v (and do) are
+rounded to bf16 on the card and go through the body they would take in
+bf16, and o, the lse, dq, dk and dv are written in f32 from the f32
+accumulators. Their results are the bf16 bodies' up to the rounding of
+the outputs, not the plain versions' f32 products. No f32 instance
+applies a norm or a rotation inside: the forward wrapper applies both
+first, in f32, and a call that autograd records rotates outside
+(``flash_attention``), its transpose carried by autograd; in f32 the TPU
+kernels' rounding of the rotated q and k to the input dtype is the
+identity, so that is JAX's f32 function. Every other dtype takes the
+plain attention (``attention.route``).
 
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
@@ -344,7 +350,7 @@ def _bind(lib):
         i, i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_fwd.restype = ctypes.c_int
     lib.x2i_flash_fwd_f32.argtypes = [
-        p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, f, p]
+        p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, f, p]
     lib.x2i_flash_fwd_f32.restype = ctypes.c_int
 
 
@@ -353,7 +359,10 @@ def _bind_chunked(lib):
                    ctypes.c_float)
     lib.x2i_flash_chunked.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, p]
+    lib.x2i_flash_chunked_f32.argtypes = [
+        p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, p]
     lib.x2i_flash_chunked.restype = ctypes.c_int
+    lib.x2i_flash_chunked_f32.restype = ctypes.c_int
 
 
 def _bind_bwd(lib):
@@ -365,8 +374,14 @@ def _bind_bwd(lib):
     lib.x2i_flash_bwd_dkv.argtypes = [
         p, p, p, p, p, p, p, p, p, p, i, p, p, p, ll, p, ll,
         i, i, i, i, i, i, i, f, f, p]
-    lib.x2i_flash_bwd_dq.restype = ctypes.c_int
-    lib.x2i_flash_bwd_dkv.restype = ctypes.c_int
+    lib.x2i_flash_bwd_dq_f32.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_bwd_dkv_f32.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, i, p, p, ll,
+        i, i, i, i, i, i, i, f, f, p]
+    for name in ("x2i_flash_bwd_dq", "x2i_flash_bwd_dkv",
+                 "x2i_flash_bwd_dq_f32", "x2i_flash_bwd_dkv_f32"):
+        getattr(lib, name).restype = ctypes.c_int
 
 
 # the compiled forward library and its launch counts: ``flash_fwd_rope``
@@ -375,40 +390,68 @@ def _bind_bwd(lib):
 # for the pipelined body without rope (K1c, the DiT with rope outside, as
 # the distillation teacher runs it), ``flash_fwd_lse`` for every forward
 # that writes the lse (the exact body, with or without rope),
-# ``flash_fwd_f32`` for every forward on f32 inputs (any body, no lse)
+# ``flash_fwd_f32`` for every forward on f32 inputs without the lse (any
+# body), ``flash_fwd_lse_f32`` for every one with it
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
-                      "flash_fwd_lse", "flash_fwd_f32"), _bind,
-                     wgmma_kernels=("flash_fwd_kernel",),
+                      "flash_fwd_lse", "flash_fwd_f32", "flash_fwd_lse_f32"),
+                     _bind, wgmma_kernels=("flash_fwd_kernel",),
                      checked_kernels=("round_rows_kernel",))
-# K2, the chunked forward above MAX_KV_SEQ kv tokens
+# K2, the chunked forward above MAX_KV_SEQ kv tokens, and its f32 instance
 KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
-                             ("flash_chunked",), _bind_chunked,
-                             wgmma_kernels=("flash_chunked_kernel",))
-# the backward library: K3 and K4
+                             ("flash_chunked", "flash_chunked_f32"),
+                             _bind_chunked,
+                             wgmma_kernels=("flash_chunked_kernel",),
+                             checked_kernels=("round_rows_kernel",))
+# the backward library: K3 and K4, and their f32 instances
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
-                         ("flash_bwd_dq", "flash_bwd_dkv"), _bind_bwd,
+                         ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+                          "flash_bwd_dkv_f32"), _bind_bwd,
                          wgmma_kernels=("flash_bwd_dq_kernel",
-                                        "flash_bwd_dkv_kernel"))
+                                        "flash_bwd_dkv_kernel"),
+                         checked_kernels=("round_rows_kernel",))
 
 
-def check_rows(name, shape, strides, data_ptr, ndim=4):
-    """The layout the kernels' tile loads take: ``ndim`` dims, the last
-    contiguous, the other strides multiples of 8 elements (16 bytes of
-    bf16) and a 16-byte aligned start; raises ValueError otherwise."""
+def check_rows(name, shape, strides, data_ptr, ndim=4, itemsize=2):
+    """The layout the kernels' row loads take: ``ndim`` dims, the last
+    contiguous, the other strides multiples of 16 bytes (8 elements of
+    bf16, 4 of f32: the f32 instances round rows four channels at a time)
+    and a 16-byte aligned start; raises ValueError otherwise."""
     if len(shape) != ndim or strides[-1] != 1:
         raise ValueError(f"flash kernel: {name} must be {ndim}-d with a "
                          f"contiguous last dim, got {tuple(shape)} "
                          f"strides {tuple(strides)}")
-    if any(s % 8 for s in strides[:-1]) or data_ptr % 16:
+    if any(s * itemsize % 16 for s in strides[:-1]) or data_ptr % 16:
         raise ValueError(f"flash kernel: {name} needs 16-byte aligned rows")
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def instance_dtype(*dtypes) -> torch.dtype:
+    """The kernels' instance that inputs of these dtypes take: bf16 or f32,
+    all alike; raises ValueError otherwise."""
+    if dtypes[0] not in KERNEL_DTYPES or any(d != dtypes[0] for d in dtypes):
+        raise ValueError(f"flash kernel: inputs must be all torch.bfloat16 "
+                         f"or all torch.float32, got {list(dtypes)}")
+    return dtypes[0]
+
+
+def f32_scratch_numel(q_shape, k_shape, with_do: bool = False) -> int:
+    """bf16 elements of an f32 instance's scratch buffer: q, k and v (and
+    with ``with_do``, the backward's, do after them) rounded to bf16, each
+    contiguous."""
+    b, hq, sq, d = q_shape
+    hk, skv = k_shape[1], k_shape[2]
+    return b * d * ((2 if with_do else 1) * hq * sq + 2 * hk * skv)
 
 
 def _check(name, t, ndim, dtype=torch.bfloat16):
     if t.device.type != "cuda" or t.dtype != dtype:
         raise ValueError(f"flash kernel: {name} must be a {dtype} CUDA "
                          f"tensor, got {t.dtype} on {t.device}")
-    check_rows(name, t.shape, t.stride(), t.data_ptr(), ndim)
+    check_rows(name, t.shape, t.stride(), t.data_ptr(), ndim,
+               t.element_size())
 
 
 def _f32_table(name, t, rows, cols):
@@ -457,10 +500,12 @@ def check_shapes(q_shape, k_shape, v_shape, extra=()):
     return b, hq, hk, sq, skv, d
 
 
-def _shapes(q, k, v, extra=(), dtype=torch.bfloat16):
-    """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``), all of
-    ``dtype`` -> (b, hq, hk, sq, skv, d)."""
-    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+def _shapes(q, k, v, extra=()):
+    """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``), all
+    bf16 or all f32 -> (b, hq, hk, sq, skv, d)."""
+    tensors = (("q", q), ("k", k), ("v", v), *extra)
+    dtype = instance_dtype(*(t.dtype for _, t in tensors))
+    for name, t in tensors:
         _check(name, t, 4, dtype)
     return check_shapes(q.shape, k.shape, v.shape,
                         [t.shape for _, t in extra])
@@ -503,47 +548,63 @@ def _out_bhsd(b, h, s, d, like):
                        device=like.device).transpose(1, 2)
 
 
-def _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm):
+def _no_rope_f32(what, rope):
+    if rope is not None:
+        raise ValueError(f"flash kernel: {what} in f32 takes no rope inside: "
+                         f"rotate q and k first (flash_attention does when "
+                         f"autograd records)")
+
+
+def _scratch(q, k, with_do=False):
+    return torch.empty((f32_scratch_numel(q.shape, k.shape, with_do),),
+                       dtype=torch.bfloat16, device=q.device)
+
+
+def _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
+                    return_lse=False):
     """K1's f32 instance: q, k, v rounded to bf16 on the card, the body
-    the bf16 inputs would take, o written in f32. The qk norm and the
-    rotation, which it does not take inside, are applied first in f32, as
-    the plain version computes them."""
+    the bf16 inputs would take, o (and the lse) written in f32. Without
+    the lse the qk norm and the rotation, which it does not take inside,
+    are applied first in f32, as the plain version computes them; with it
+    (the forward of ``_FlashAttention``) rope is refused, as the backward
+    instances take none."""
+    if return_lse:
+        _no_rope_f32("K1 with the lse", rope)
     if rope is not None:
         qw, kw, eps = qk_norm if qk_norm is not None else (None, None, 1e-6)
         q = _rotate(_norm_rows(q, qw, eps), *rope)
         k = _rotate(_norm_rows(k, kw, eps), *rope)
     elif qk_norm is not None:
         raise ValueError("flash kernel: qk_norm rides the rope path")
-    b, hq, hk, sq, skv, d = _shapes(q, k, v, dtype=torch.float32)
+    b, hq, hk, sq, skv, d = _shapes(q, k, v)
     if sq % 128 or skv % 128:
         raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
                          f"Skv in multiples of 128, got {sq} and {skv}")
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     out = _out_bhsd(b, hq, sq, d, q)
-    scratch = torch.empty((b * (hq * sq + 2 * hk * skv) * d,),
-                          dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    scratch = _scratch(q, k)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     err = KERNEL.lib().x2i_flash_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), strides, _ptr(mask), mask_sb, b, hq, hk, sq,
-        skv, d, int(causal), int(is_exact(kv_mask, causal, skv)),
-        scale * LOG2_E, _stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        scratch.data_ptr(), strides, _ptr(mask), mask_sb, b, hq, hk,
+        sq, skv, d, int(causal),
+        int(return_lse or is_exact(kv_mask, causal, skv)), scale * LOG2_E,
+        _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
-    KERNEL.launches["flash_fwd_f32"] += 1
-    return out
+    name = "flash_fwd_lse_f32" if return_lse else "flash_fwd_f32"
+    KERNEL.launches[name] += 1
+    return (out, lse) if return_lse else out
 
 
 def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
                 return_lse=False):
     if q.dtype == torch.float32:
-        if return_lse:
-            raise ValueError("flash kernel: the f32 instance is forward-only "
-                             "(no lse): f32 training attention takes the "
-                             "plain route")
         return _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope,
-                               qk_norm)
+                               qk_norm, return_lse)
     b, hq, hk, sq, skv, d = _shapes(q, k, v)
     if sq % 128 or skv % 128:
         raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
@@ -585,21 +646,29 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
 
 
 def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
+    """K2, or its f32 instance on f32 inputs (rounded to bf16 on the card
+    into a scratch buffer, o and the lse written in f32)."""
     b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    f32 = q.dtype == torch.float32
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     out = _out_bhsd(b, hq, sq, d, q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    err = KERNEL_CHUNKED.lib().x2i_flash_chunked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        strides, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal),
-        scale * LOG2_E, _stream(q))
+    lib = KERNEL_CHUNKED.lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(lse))
+    rest = (strides, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal),
+            scale * LOG2_E, _stream(q))
+    scratch = _scratch(q, k) if f32 else None
+    err = (lib.x2i_flash_chunked_f32(*ptrs, scratch.data_ptr(), *rest)
+           if f32 else lib.x2i_flash_chunked(*ptrs, *rest))
     if err != 0:
         raise RuntimeError(f"chunked flash kernel launch failed: "
                            f"cudaError_t {err}")
-    KERNEL_CHUNKED.launches["flash_chunked"] += 1
+    KERNEL_CHUNKED.launches["flash_chunked_f32" if f32 else
+                            "flash_chunked"] += 1
     return (out, lse) if return_lse else out
 
 
@@ -619,23 +688,34 @@ def _bwd_args(q, k, v, do, lse, delta, kv_mask, rope):
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
+    """K3, or its f32 instance on f32 inputs (q, k, v and do rounded to
+    bf16 on the card into a scratch buffer, dq written in f32; no rope)."""
     (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs) = \
         _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
+    f32 = q.dtype == torch.float32
     dq = _out_bhsd(b, hq, sq, d, q)
-    scratch = (torch.empty((b, hk, skv, d), dtype=k.dtype, device=k.device)
-               if rope is not None else None)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dq.stride()[:3])
-    err = KERNEL_BWD.lib().x2i_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(scratch),
-        strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(mask), mask_sb, b, hq,
-        hk, sq, skv, d, int(causal), scale, scale * LOG2_E, _stream(q))
+    lib = KERNEL_BWD.lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    tail = (_ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal), scale,
+            scale * LOG2_E, _stream(q))
+    if f32:
+        _no_rope_f32("K3", rope)
+        scratch = _scratch(q, k, with_do=True)
+        err = lib.x2i_flash_bwd_dq_f32(*ptrs, scratch.data_ptr(), strides,
+                                       *tail)
+    else:
+        scratch = (torch.empty((b, hk, skv, d), dtype=k.dtype,
+                               device=k.device) if rope is not None else None)
+        err = lib.x2i_flash_bwd_dq(*ptrs, _ptr(scratch), strides, _ptr(cos),
+                                   _ptr(sin), tab_rs, *tail)
     if err != 0:
         raise RuntimeError(f"flash dq kernel launch failed: cudaError_t "
                            f"{err}")
-    KERNEL_BWD.launches["flash_bwd_dq"] += 1
+    KERNEL_BWD.launches["flash_bwd_dq_f32" if f32 else "flash_bwd_dq"] += 1
     return dq
 
 
@@ -655,11 +735,13 @@ def _sm_count(device) -> int:
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
+    """K4, or its f32 instance on f32 inputs (q, k, v and do rounded to
+    bf16 on the card into a scratch buffer, dk and dv written in f32; no
+    rope)."""
     (b, hq, hk, sq, skv, d), (mask, mask_sb), (cos, sin, tab_rs) = \
         _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
+    f32 = q.dtype == torch.float32
     dk, dv = _out_bhsd(b, hk, skv, d, k), _out_bhsd(b, hk, skv, d, v)
-    scratch = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-               if rope is not None else None)
     splits = dkv_splits(skv // 128 * hk * b, hq // hk * sq // 64,
                         _sm_count(q.device))
     # a split's f32 partial dk and dv, summed in split order by the library
@@ -668,16 +750,26 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3])
-    err = KERNEL_BWD.lib().x2i_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(scratch), _ptr(partial), splits, strides, _ptr(cos), _ptr(sin),
-        tab_rs, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal),
-        scale, scale * LOG2_E, _stream(q))
+    lib = KERNEL_BWD.lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tail = (_ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal), scale,
+            scale * LOG2_E, _stream(q))
+    if f32:
+        _no_rope_f32("K4", rope)
+        scratch = _scratch(q, k, with_do=True)
+        err = lib.x2i_flash_bwd_dkv_f32(*ptrs, scratch.data_ptr(),
+                                        _ptr(partial), splits, strides, *tail)
+    else:
+        scratch = (torch.empty((b, hq, sq, d), dtype=q.dtype,
+                               device=q.device) if rope is not None else None)
+        err = lib.x2i_flash_bwd_dkv(*ptrs, _ptr(scratch), _ptr(partial),
+                                    splits, strides, _ptr(cos), _ptr(sin),
+                                    tab_rs, *tail)
     if err != 0:
         raise RuntimeError(f"flash dk/dv kernel launch failed: cudaError_t "
                            f"{err}")
-    KERNEL_BWD.launches["flash_bwd_dkv"] += 1
+    KERNEL_BWD.launches["flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv"] += 1
     return dk, dv
 
 
@@ -746,10 +838,11 @@ def flash_backward(q, k, v, kv_mask, o, lse, do, causal=False, scale=None,
 class _FlashAttention(torch.autograd.Function):
     """K1 with the lse forward, K3/K4 backward: the JAX ``_flash``
     ``custom_vjp`` with the branches of its ``_flash_bwd``. Rope tables
-    given here are applied inside the kernels (Skv <= ROPE_MAX_KV);
-    ``flash_attention`` rotates outside above that, and autograd carries
-    the rotation's transpose. Above MAX_KV_SEQ the forward is K2 with the
-    lse and the backward recomputes through the plain attention."""
+    given here are applied inside the kernels (bf16, Skv <= ROPE_MAX_KV);
+    ``flash_attention`` rotates outside above that and for f32, and
+    autograd carries the rotation's transpose. Above MAX_KV_SEQ the
+    forward is K2 with the lse and the backward recomputes through the
+    plain attention. f32 inputs take each kernel's f32 instance."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, cos, sin, causal, scale):
@@ -804,7 +897,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``rms_norm``, rounded to the input dtype), then the rotation
     (``rope_bhsd``, rounded again), both outside the kernels and both
     differentiable, as JAX's ``flash_attention`` and ``_fwd_impl`` order
-    them.
+    them. f32 under autograd rotates outside at every length (the f32
+    instances take no rope; in f32 the rounding is the identity, so this
+    is JAX's function), with qk_norm forward-only below ``ROPE_MAX_KV`` as
+    before.
 
     Without autograd recording, a CUDA tensor launches the forward kernel
     (which raises on what it does not take) and a CPU tensor takes the
@@ -817,17 +913,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t is not None and t.requires_grad for t in (q, k, v, *norm_scales))
     # the routes that rotate outside the kernels normalize outside too
     rope_outside = chunked or (recording and k.shape[2] > ROPE_MAX_KV)
+    if recording and qk_norm is not None and not rope_outside:
+        refuse_grad("the flash kernel with qk_norm", q, k, v, *norm_scales)
     if rope_outside and qk_norm is not None:
         if rope is None:
             raise ValueError("flash kernel: qk_norm rides the rope path")
         qw, kw, eps = qk_norm
         q, k, qk_norm = rms_norm(q, qw, eps), rms_norm(k, kw, eps), None
-    if rope is not None and rope_outside:
+    # f32 under autograd rotates outside at every length: the f32
+    # instances take no rope, and the plain versions on the CPU follow
+    if rope is not None and (rope_outside or (
+            recording and q.dtype == torch.float32)):
         q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None
     if recording:
-        if qk_norm is not None:
-            refuse_grad("the flash kernel with qk_norm", q, k, v,
-                        *norm_scales)
         cos, sin = (None, None) if rope is None else rope
         return _FlashAttention.apply(q, k, v, kv_mask, cos, sin, causal,
                                      scale)

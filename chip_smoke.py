@@ -26,7 +26,14 @@ Phases, each printing one JSON line per record:
    with the lse, K3 and K4 at the f32 phase-2 step's shape and of K2 at
    the f32 2048^2 DiT's, each against its f32 plain version beside the
    bf16 instance on the same inputs rounded to bf16 (no farther from it
-   in relative L2), timed beside SDPA in f32; the int8 GEMM at the
+   in relative L2), timed beside SDPA in f32; head dim 256 (the 12 x 256
+   DiT's shapes): K1a at (1, 12, 4608, 256), K1's masked body with the
+   rope on the 960^2 pad route (4112 of 4224 keys) and K2 at (1, 12,
+   16896, 256), beside SDPA at D = 256; the f32 DiT's fused glue: K1's
+   f32 rope-and-norm instance at (1, 24, 4608, 128) (its o rounded to
+   bf16 against the bf16 K1a's on the rounded inputs) beside SDPA in f32,
+   and K5's f32 instance at the DiT's three row counts beside
+   F.layer_norm in f32; the int8 GEMM at the
    w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve, the LM's and
    two more chunks (its int32 sum exact and its output bit for bit, timed
    beside the int8 GEMM on its materialized operand and the bf16 product);
@@ -121,16 +128,25 @@ Phases, each printing one JSON line per record:
    ``Qwen2LM.encode_premixed`` and ``Proj.mlp`` on the same LM and proj
    (24 K2 launches, no K1); the streamed encode held against the stack
    route at 8,448 tokens;
-4c. f32: the same DiT cast in place to f32, its glue unfused: f32-2048,
+4c. d256: a 12 heads x 256 DiT (FLUX's width and depth, heads regrouped)
+   on the same DiT's linear weights (new qk-norm scales only): 1024^2
+   (K1a at D = 256, 228), 2048^2 (K2 at D = 256, 228) and 960^2 (4112
+   tokens, the pad route: K1's masked body with the rope at D = 256, 228)
+   images through ``X2IPipeline.text2image`` with exact launch counts,
+   each with a 2+2-block route check at D = 256;
+4d. f32: the same DiT cast in place to f32, its glue unfused: f32-2048,
    one 2048^2 4-step text2image (warmed up by one f32 DiT step) with
    exact launch counts (K2's f32 instance 228, the LM's K1b 24), no plain
    attention in the DiT, its peak memory and its distance from the bf16
    2048^2 image; lightcontrol-train-f32, the phase-2 step on it (the bank
    in f32, 32-bit AdamW, one warm-up and one timed step: K1's f32 forward
    1, its lse instance 112, K3's 56, K4's 56 a step; the bank moved, the
-   DiT unchanged); the DiT cast back to bf16, bit for bit the one before;
-   the 2+2-block route checks in f32 (the image's at 1536^2, the phase-2
-   gradient's);
+   DiT unchanged); f32-fused: a 1024^2 f32 image unfused, then with
+   ``fused_glue=True`` (K1's f32 rope-and-norm instance 228 in both, K5's
+   f32 instance 460 in the fused one), the two within 2e-2 relative L2;
+   the DiT cast back to bf16, bit for bit the one before; the 2+2-block
+   route checks in f32 (the image's at 1536^2, the fused glue's at 512^2,
+   the phase-2 gradient's);
 5. distill: the full-width phase-1 distillation trainer on the same bf16
    DiT and LM (no second copy), with T5-XXL's encoder and CLIP-L's text
    tower drawn on the card: one warm-up step and three timed steps, each
@@ -698,13 +714,16 @@ K2_REL_MAX, K2_REL_MEAN = 2e-2, 1e-2
 
 
 def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
-                        kv_mask=None, causal=False):
-    """K2 at one shape, with and without the lse: against its plain
-    version (256 x 512 tiles with the block skip against the kernel's 128 x
-    128: o within 1e-2 max and 1e-3 mean absolute error in bf16 and within
-    ``K2_REL_MAX`` / ``K2_REL_MEAN`` relative to |o|, the lse within 1e-3
-    in log2 units) and o against the plain f32 attention, block of q rows
-    by block (the same bars). Every row of these cases has a valid key.
+                        kv_mask=None, causal=False, name="flash_chunked",
+                        with_lse=True):
+    """K2 at one shape, with and without the lse (``with_lse``; at
+    D = 256 without: the lse instance is not built for it): against its
+    plain version (256 x 512 tiles with the block skip against the
+    kernel's 128 x 128: o within 1e-2 max and 1e-3 mean absolute error in
+    bf16 and within ``K2_REL_MAX`` / ``K2_REL_MEAN`` relative to |o|, the
+    lse within 1e-3 in log2 units) and o against the plain f32 attention,
+    block of q rows by block (the same bars). Every row of these cases has
+    a valid key.
     q, k, v are (B, H, S, D) views of (B, S, H, D) tensors, as the
     dispatcher passes them; `library` is (fn, inputs). The bound
     counts the (query, key) pairs the data needs: valid keys at or below
@@ -713,7 +732,8 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
     from x2i_torch.ops import flash_attention as fa
     kw = dict(kv_mask=kv_mask, causal=causal)
     o = fa.flash_forward_chunked(q, k, v, **kw)
-    o_l, lse = fa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+    o_l, lse = (fa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+                if with_lse else (o, None))
     o_p, lse_p = fa.flash_forward_chunked_plain(q, k, v, return_lse=True,
                                                 **kw)
     torch.cuda.synchronize()
@@ -730,7 +750,7 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
         ref_abs_sum += ref.abs().sum().item()
         del d, ref
     pairs = _pairs(q, k, kw)
-    rec = {"phase": "kernels", "kernel": f"flash_chunked[{label}]",
+    rec = {"phase": "kernels", "kernel": f"{name}[{label}]",
            "shape": list(q.shape), "kv_shape": list(k.shape),
            "causal": causal,
            "valid_keys": None if kv_mask is None else int(kv_mask.sum()),
@@ -738,18 +758,19 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
            "mean_abs_err": diff.mean().item(),
            "rel_max_err": diff.max().item() / o_p_abs.max().item(),
            "rel_mean_err": diff.mean().item() / o_p_abs.mean().item(),
-           "lse_max_abs_err": (lse - lse_p).abs().max().item(),
+           "lse_max_abs_err": ((lse - lse_p).abs().max().item()
+                               if with_lse else None),
            "lse_output_same_o": torch.equal(o, o_l),
            "max_abs_err_vs_f32_attention": ref_max,
            "mean_abs_err_vs_f32_attention": ref_sum / o.numel(),
            "rel_max_err_vs_f32_attention": ref_max / ref_abs_max,
            "rel_mean_err_vs_f32_attention": ref_sum / ref_abs_sum,
-           "finite": bool(torch.isfinite(o).all()
-                          and torch.isfinite(lse).all()),
+           "finite": bool(torch.isfinite(o).all() and (
+               not with_lse or torch.isfinite(lse).all())),
            "ms": kernel_ms(lambda *t: fa.flash_forward_chunked(*t, **kw),
                            q, k, v),
-           "ms_with_lse": kernel_ms(lambda *t: fa.flash_forward_chunked(
-               *t, return_lse=True, **kw), q, k, v),
+           "ms_with_lse": (kernel_ms(lambda *t: fa.flash_forward_chunked(
+               *t, return_lse=True, **kw), q, k, v) if with_lse else None),
            # the plain version is thousands of launches per call, more
            # than the launch queue holds behind ``kernel_ms``'s sleep
            # kernel: it is timed call by call, with 4096 x 4096 tiles so
@@ -769,15 +790,16 @@ def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
     emit(rec)
     if not (rec["finite"] and rec["lse_output_same_o"]
             and rec["max_abs_err"] <= 1e-2 and rec["mean_abs_err"] <= 1e-3
-            and rec["lse_max_abs_err"] <= 1e-3 and ref_max <= 1e-2
+            and (not with_lse or rec["lse_max_abs_err"] <= 1e-3)
+            and ref_max <= 1e-2
             and rec["mean_abs_err_vs_f32_attention"] <= 1e-3
             and rec["rel_max_err"] <= K2_REL_MAX
             and rec["rel_mean_err"] <= K2_REL_MEAN
             and rec["rel_max_err_vs_f32_attention"] <= K2_REL_MAX
             and rec["rel_mean_err_vs_f32_attention"] <= K2_REL_MEAN):
-        raise AssertionError(f"flash_chunked[{label}] disagrees with its "
-                             f"plain version: {rec}")
-    records.setdefault("flash_chunked", []).append(rec)
+        raise AssertionError(f"{name}[{label}] disagrees with its plain "
+                             f"version: {rec}")
+    records.setdefault(name, []).append(rec)
 
 
 def check_chunked_attention(g, records):
@@ -976,6 +998,151 @@ def check_f32_attention(g, records):
     torch.cuda.empty_cache()
 
 
+# the 12 x 256 FLUX DiT (FLUX's width and depth, its heads regrouped: the
+# JAX FluxConfig with these three fields set)
+D256 = dict(attention_head_dim=256, num_attention_heads=12,
+            axes_dims_rope=(32, 112, 112))
+D256_PAD_TOKENS = 512 + (960 // 16) ** 2      # 4112: the pad route
+
+
+def check_d256_attention(g, rows, records):
+    """K1 and K2 at head dim 256 at the 12 x 256 DiT's shapes, bf16: K1a at
+    1024^2 (1, 12, 4608, 256) with per-row qk scales (text and image rows),
+    the rope and the qk norm inside; K1b masked with the rope at 960^2,
+    4112 tokens padded to 4224 with 112 masked keys (the pad route, the
+    bound counting the 4112 kept rows); K2 at 2048^2 (1, 12, 16896, 256),
+    no lse. Each against its plain version (``check_flash``'s and
+    ``check_flash_chunked``'s bars); SDPA at D = 256 on contiguous inputs
+    (no norm, no rope; the masked case with its bool mask) is the
+    library's time."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    s_txt, heads, d = 512, D256["num_attention_heads"], 256
+    recs = records.setdefault("flash_fwd_rope_d256", [])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    for px in (1024, 960):
+        s = s_txt + (px // 16) ** 2
+        pad = -(-s // 128) * 128
+        cos, sin = _rope_tables(s_txt, px // 8, D256["axes_dims_rope"], dev)
+        q, k = rows(1, pad, heads, d), rows(1, pad, heads, d)
+        v = randn(1, pad, heads, d)
+        w = [1.0 + 0.1 * torch.randn((2, d), generator=g, device=dev)
+             for _ in range(2)]
+        per_row = [torch.cat([x[0].expand(s_txt, d),
+                              x[1].expand(pad - s_txt, d)]) for x in w]
+        qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if pad == s:
+            lib = (lambda *t: F.scaled_dot_product_attention(*t),
+                   (qc, kc, vc))
+            check_flash("flash_fwd_rope_d256[DiT 1024^2, per-row qk "
+                        "scales]", q, k, v, recs, library=lib,
+                        rope=(cos, sin), qk_norm=(*per_row, 1e-6))
+            continue
+        mask = torch.arange(pad, device=dev)[None] < s
+        tables = tuple(F.pad(t, (0, 0, 0, pad - s)) for t in (cos, sin))
+        case = (f"DiT 960^2, the pad route: {s} of {pad} keys, per-row qk "
+                f"scales")
+        lib = ((lambda *t, m=mask[:, None, None, :]:
+                F.scaled_dot_product_attention(*t, attn_mask=m)),
+               (qc, kc, vc))
+        check_flash(f"flash_fwd_rope_d256[{case}]", q, k, v, recs,
+                    library=lib, valid_rows=s, kv_mask=mask, rope=tables,
+                    qk_norm=(*per_row, 1e-6))
+        recs[-1]["case"] = case
+    del q, k, v, qc, kc, vc, lib
+    torch.cuda.empty_cache()
+    s = s_txt + (2048 // 16) ** 2
+    q, k, v = (randn(1, s, heads, d) for _ in range(3))
+    lib = (lambda *t: F.scaled_dot_product_attention(*t),
+           [t.transpose(1, 2).contiguous() for t in (q, k, v)])
+    check_flash_chunked("DiT 2048^2, D 256",
+                        *(t.transpose(1, 2) for t in (q, k, v)), records,
+                        lib, 1024, name="flash_chunked_d256", with_lse=False)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+
+
+def check_f32_glue(g, records):
+    """The f32 DiT's fused glue at its 1024^2 shapes: K1's f32 rope-and-norm
+    instance at (1, 24, 4608, 128) f32 with per-row qk scales, against its
+    f32 plain version beside the bf16 K1a on the same inputs rounded to
+    bf16 (``check_f32_instance``: no farther in relative L2; its o rounded
+    to bf16 is expected to be the bf16 K1a's bit for bit, and is reported),
+    SDPA in f32 (no norm, no rope) the library's time; K5 on f32 rows at
+    the DiT's three row counts (4096 image, 512 text, 4608 joint) x 3072,
+    rows whose scale spans four decades, against its plain version within
+    1e-5 relative and absolute (f32 row statistics summed in another
+    order), ``F.layer_norm`` in f32 the library's time."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+    from x2i_torch.ops import fused_glue as fg
+
+    dev = torch.device("cuda")
+    s_txt, grid, heads, d = 512, 128, 24, 128
+    s = s_txt + (grid // 2) ** 2
+
+    def f32(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    cos, sin = _rope_tables(s_txt, grid, (16, 56, 56), dev)
+    q, k, v = (f32(1, s, heads, d).transpose(1, 2) for _ in range(3))
+    w = [1.0 + 0.1 * f32(2, d) for _ in range(2)]
+    per_row = tuple(torch.cat([x[0].expand(s_txt, d),
+                               x[1].expand(s - s_txt, d)]) for x in w)
+    kw = dict(rope=(cos, sin), qk_norm=(*per_row, 1e-6))
+    lib = (lambda *t: F.scaled_dot_product_attention(*t),
+           [t.contiguous() for t in (q, k, v)])
+    check_f32_instance(
+        "flash_fwd_rope_f32", "DiT 1024^2 f32, per-row qk scales",
+        functools.partial(fa.flash_attention, **kw),
+        functools.partial(fa.flash_attention_plain, **kw), [q, k, v], [],
+        records, lib, "SDPA forward, f32, contiguous (no norm, no rope)",
+        4.0 * s * s * heads * d)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    recs = records.setdefault("ln_mod_f32", [])
+    for rows_n in (4096, 512, 4608):
+        lead = (1, rows_n, 1)
+        sigma = 10.0 ** torch.empty(lead, device=dev).uniform_(
+            -2.0, 2.0, generator=g)
+        x = f32(1, rows_n, 3072) * sigma + 3.0 * sigma * f32(*lead)
+        shift, scale = 0.5 * f32(1, 3072), 0.5 * f32(1, 3072)
+        got = fg.ln_mod(x, shift, scale)
+        want = fg.ln_mod_plain(x, shift, scale)
+        diff = (got - want).abs()
+        ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+        rec = {"phase": "kernels", "kernel": "ln_mod_f32",
+               "shape": list(x.shape), "dtype": "float32",
+               "max_abs_err": diff.max().item(),
+               "mean_abs_err": diff.mean().item(), "within_1e-5": ok,
+               "ms": kernel_ms(lambda t: fg.ln_mod(t, shift, scale), x),
+               "plain_ms": kernel_ms(
+                   lambda t: fg.ln_mod_plain(t, shift, scale), x),
+               "library_ms": kernel_ms(
+                   lambda t: F.layer_norm(t, (3072,), 1.0 + scale[0],
+                                          shift[0], 1e-6), x),
+               "library": "F.layer_norm, f32, weight 1 + scale, bias shift",
+               "copy_ms": kernel_ms(torch.clone, x)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            10.0 * x.numel(), nbytes(x, got, shift, scale), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["gb_per_s"] = nbytes(x, got, shift, scale) / rec["ms"] / 1e6
+        emit(rec)
+        if not (ok and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"ln_mod_f32 disagrees with its plain "
+                                 f"version: {rec}")
+        recs.append(rec)
+
+
 def phase_kernels(seed: int):
     import torch
     import torch.nn.functional as F
@@ -1117,6 +1284,8 @@ def phase_kernels(seed: int):
     check_training_attention(g, recs)
     check_chunked_attention(g, recs)
     check_f32_attention(g, recs)
+    check_d256_attention(g, rows, recs)
+    check_f32_glue(g, recs)
     check_glue(g, randn, rows, recs)
     check_gemms(g, rows, recs)
     check_w4a8_gemms(g, rows, recs)
@@ -1933,8 +2102,12 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_fwd_lse": 0, "flash_fwd_f32": 0,
                "flash_fwd_lse_f32": 0, "flash_chunked": 0,
                "flash_chunked_f32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-               "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0, "ln_mod": 0,
-               "ln_mod_quant": 0,
+               "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0,
+               "flash_fwd_rope_f32": 0, "flash_fwd_rope_d256": 0,
+               "flash_fwd_d256": 0, "flash_fwd_pipe_d256": 0,
+               "flash_fwd_f32_d256": 0, "flash_fwd_rope_f32_d256": 0,
+               "flash_chunked_d256": 0, "flash_chunked_f32_d256": 0,
+               "ln_mod": 0, "ln_mod_f32": 0, "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "row_absmax": 0,
                "quant_rows_at": 0, "int8_gemm": 0, "int8_gemm_acc": 0,
                "w4a8_gemm": 0, "w4a8_gemm_acc": 0, "dequant_gemm": 0,
@@ -1944,7 +2117,8 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
                       mods_pass: bool = True, joint_tokens: int = 4608,
                       lm_layers: int = 24, rope_layout: str = "half",
-                      dtype: str = "bf16"):
+                      dtype: str = "bf16", head_dim: int = 128,
+                      f32_fused: bool = False):
     """Kernel launches of one image (``steps`` DiT steps, n2 double and n1
     single blocks, the adaLN rows in one pass first, an LM of
     ``lm_layers``) or, with ``mods_pass=False`` and the LM's count left
@@ -1953,18 +2127,25 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     in the interleaved rope layout K1c (norm and rope outside).
     w4 and w8 launch the dequantizing GEMM once per dense call; w4a8
     counts w8a8's products on its GEMM. ``dtype="f32"``: an f32 DiT (the
-    LM stays bf16), which serves with the glue unfused (no K5) and its
-    attention in the f32 instances: K2's above 8192 joint tokens, else
-    K1's."""
+    LM stays bf16), its attention in the f32 instances (K2's above 8192
+    joint tokens, else K1's rope-and-norm instance), its glue unfused (no
+    K5) or with ``f32_fused`` K5's f32 instance. ``head_dim=256``: the
+    12 x 256 DiT, whose attention counts under its ``_d256`` names (on
+    the pad route too: K1's rope variant, the masked body)."""
     lm = lm_layers if mods_pass else 0    # one K1b per LM layer
     want = dict(NO_LAUNCHES, flash_fwd=lm)
+    d256 = "_d256" if head_dim == 256 else ""
     if dtype == "f32":
-        dit = "flash_chunked_f32" if joint_tokens > 8192 else "flash_fwd_f32"
-        want[dit] = (n2 + n1) * steps
+        dit = ("flash_chunked_f32" if joint_tokens > 8192 else
+               "flash_fwd_f32" if rope_layout == "interleaved" else
+               "flash_fwd_rope_f32")
+        want[dit + d256] = (n2 + n1) * steps
+        if f32_fused:
+            want["ln_mod_f32"] = (4 * n2 + n1 + 1) * steps
         return want
     dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
            if rope_layout == "interleaved" else "flash_fwd_rope")
-    want[dit] = (n2 + n1) * steps
+    want[dit + d256] = (n2 + n1) * steps
     # the adaLN mod layers (2 per double block, 1 per single): once per
     # image over all steps' rows, with the time and pooled embedders' 4
     # layers run again for those rows, or inline in each call
@@ -1996,7 +2177,8 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
 
 def check_routes(seed: int, px: int = 512,
                  label: str = "text2image-reference", bank=None,
-                 rope_layout: str = "half", dtype: str = "bf16"):
+                 rope_layout: str = "half", dtype: str = "bf16",
+                 head_dim: int = 128, f32_fused: bool = False):
     """Agreement with a reference on a small input: a full-width DiT cut to
     2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
     text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
@@ -2012,7 +2194,11 @@ def check_routes(seed: int, px: int = 512,
     DiTs in f32 with the glue unfused (the f32 DiT's serving config), the
     kernel route the f32 instances (K1's, or above 8192 tokens K2's), held
     to the same bar: the f32 instances round their operands to bf16 where
-    the bf16 kernels do, and everything else is f32."""
+    the bf16 kernels do, and everything else is f32; with ``f32_fused``
+    the f32 kernel DiT's glue fused (K5's f32 instance, the qk norm inside
+    K1's rope-and-norm instance). ``head_dim=256``: both DiTs 12 heads x
+    256 (``D256``), the kernel route K1 or K2 at D = 256 (at 960^2's
+    4112 tokens or 480^2's 1412, the pad route)."""
     import dataclasses
 
     import torch
@@ -2025,10 +2211,11 @@ def check_routes(seed: int, px: int = 512,
     f32 = dtype == "f32"
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
                                num_single_layers=2, rope_layout=rope_layout,
-                               **({"dtype": torch.float32} if f32 else {}))
+                               **({"dtype": torch.float32} if f32 else {}),
+                               **(D256 if head_dim == 256 else {}))
     g = torch.Generator(device=dev).manual_seed(seed)
     kern = random_init_(FluxTransformer2D(
-        dataclasses.replace(base, fused_glue=not f32), dev), g)
+        dataclasses.replace(base, fused_glue=not f32 or f32_fused), dev), g)
     plain = FluxTransformer2D(dataclasses.replace(base,
                                                   attention_impl="plain"), dev)
     plain.load_state_dict(kern.state_dict())
@@ -2054,7 +2241,8 @@ def check_routes(seed: int, px: int = 512,
         want = plain(*args, **kw).float()
     rel = ((got - want).norm() / want.norm()).item()
     rec = {"phase": label, "blocks": [2, 2], "controls": bank is not None,
-           "rope_layout": rope_layout, "dtype": dtype,
+           "rope_layout": rope_layout, "dtype": dtype, "head_dim": head_dim,
+           "fused_glue": kern.cfg.fused_glue,
            "tokens": [s_img, 512], "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -2062,7 +2250,8 @@ def check_routes(seed: int, px: int = 512,
     emit(rec)
     want_used = expected_launches(False, 1, 2, 2, mods_pass=False,
                                   joint_tokens=s_img + 512,
-                                  rope_layout=rope_layout, dtype=dtype)
+                                  rope_layout=rope_layout, dtype=dtype,
+                                  head_dim=head_dim, f32_fused=f32_fused)
     if not (rec["finite"] and rel <= 2e-2 and used == want_used):
         raise AssertionError(f"kernel route disagrees with the plain route: "
                              f"{rec}")
@@ -2383,6 +2572,69 @@ def phase_text2image_2048(pipe, seed: int):
     return counts, pixels
 
 
+def d256_dit(flux):
+    """The 12 x 256 DiT (``D256``: FLUX's width and depth, its heads
+    regrouped) on the serving DiT's weights: every parameter of the same
+    shape is the serving DiT's own tensor (the linear layers: the same
+    3072-wide shapes), only the qk-norm scales are new (256 wide, ones, as
+    ``random_init_`` draws norm scales). No second 23.8 GB DiT: it is
+    built on the meta device and given the serving DiT's parameters."""
+    import dataclasses
+
+    import torch
+    from x2i_torch.models.flux import FluxTransformer2D
+
+    cfg = dataclasses.replace(flux.cfg, **D256)
+    model = FluxTransformer2D(cfg, torch.device("meta"))
+    served = dict(flux.named_parameters())
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        own = served[name]
+        if own.shape != p.shape:
+            own = torch.nn.Parameter(torch.ones(p.shape, dtype=p.dtype,
+                                                device=own.device),
+                                     requires_grad=False)
+        setattr(model.get_submodule(mod_name), leaf, own)
+    return model
+
+
+def phase_d256(pipe, seed: int, card: str):
+    """The 12 x 256 FLUX DiT (``d256_dit``, bf16, the serving config's
+    fused glue) through the public ``X2IPipeline.text2image`` path
+    (``run_image``: a warm-up image, then the image with the counts set to
+    0 just before and read just after): a 1024^2 image (K1a at D = 256,
+    228 launches at (1, 12, 4608, 256)), a 2048^2 image (K2 at D = 256, 228
+    at (1, 12, 16896, 256)) and a 960^2 image (4112 joint tokens: the pad
+    route, K1's masked body with the rope at D = 256, 228), each held to
+    its exact counts (K5 460, the LM's K1b 24) and followed by a 2 + 2
+    block route check at D = 256 against the plain route (``check_routes``:
+    512^2, 1536^2 above 8192 tokens, 480^2 on the pad route). -> {run
+    label: launches}."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    flux = d256_dit(pipe.flux)
+    p256 = dataclasses.replace(pipe, flux=flux)
+    runs = {}
+    for label, px, ref_px in (("d256", 1024, 512), ("d256-2048", 2048, 1536),
+                              ("d256-960", 960, 480)):
+        joint = 512 + (px // 16) ** 2
+        want = expected_launches(False, 4, joint_tokens=joint, head_dim=256)
+        rec, _, counts = run_image(p256, seed, label, want, px)
+        rec.update(head_dim=256, heads=D256["num_attention_heads"],
+                   route=("chunked" if joint > 8192 else
+                          "pad" if joint % 128 else "kernel"), card=card)
+        emit(rec)
+        if counts != want:
+            raise AssertionError(f"the {label} image missed its kernels: "
+                                 f"{counts} != {want}")
+        runs[label] = counts
+        check_routes(seed + 5, ref_px, f"{label}-reference", head_dim=256)
+    emit({"phase": "d256-summary", "seconds": time.perf_counter() - t0,
+          "card": card})
+    return runs
+
+
 # the phase-2 step on the f32 DiT with a text2image conditioning (K1b in
 # the LM's 24 layers): per step K1's f32 forward in the first double block
 # (its attention does not depend on the controls), then in the 56 blocks
@@ -2499,16 +2751,73 @@ def f32_image(pipe, bf16_pixels, seed: int, card: str):
     return counts
 
 
+F32_FUSED_PX = 1024
+
+
+def f32_fused_image(pipe, seed: int, card: str):
+    """The f32 DiT serving with ``fused_glue=True`` (JAX's "ln" glue: K5's
+    f32 instance, and the qk norm with the rope inside K1's f32
+    rope-and-norm instance): the same 1024^2, 4-step text2image first with
+    the glue unfused (the rope alone inside the same instance), then fused,
+    each with every launch count set to 0 just before and read just after
+    (exact: unfused K1's rope-and-norm instance 228, the LM's K1b 24;
+    fused also K5's f32 instance 460) and its s/image; the fused image's
+    relative L2 distance from the unfused one's (uint8 levels) at most
+    2e-2 (the two round the qk-normed q and k to bf16 at different points
+    for the tensor cores, as the interleaved layout's image does against
+    the half layout's). -> {run label: launches}."""
+    import numpy as np
+    import torch
+
+    px, flux = F32_FUSED_PX, pipe.flux
+    runs, images, secs = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for label, fused in (("f32-unfused", False), ("f32-fused", True)):
+            flux.replace_config(fused_glue=fused)
+            want = expected_launches(False, 4, dtype="f32", f32_fused=fused)
+            reset_counts()
+            t0 = time.perf_counter()
+            images[label] = pipe.text2image(PROMPTS[0], seed=seed, height=px,
+                                            width=px, num_steps=4)
+            secs[label] = time.perf_counter() - t0
+            runs[label] = launch_counts()
+            if runs[label] != want:
+                raise AssertionError(f"the {label} image missed its kernels:"
+                                     f" {runs[label]} != {want}")
+    finally:
+        flux.replace_config(fused_glue=False)
+    ref = images["f32-unfused"].astype(np.float32)
+    got = images["f32-fused"].astype(np.float32)
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    rec = {"phase": "f32-fused", "model": MODEL, "px": px, "steps": 4,
+           "dtype": "float32", "s_per_image": secs["f32-fused"],
+           "s_per_image_unfused": secs["f32-unfused"],
+           "rel_l2_vs_unfused_image": rel,
+           "image_shape": list(images["f32-fused"].shape),
+           "pixels_std": float(images["f32-fused"].std()),
+           "launches": runs["f32-fused"],
+           "launches_unfused": runs["f32-unfused"], "card": card,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    if not (rel <= 2e-2 and rec["pixels_std"] > 0
+            and tuple(images["f32-fused"].shape) == (1, px, px, 3)):
+        raise AssertionError(f"the fused f32 image is wrong: {rec}")
+    return runs
+
+
 def phase_f32(pipe, bf16_2048, seed: int, card: str):
     """The f32 FLUX DiT on the card: the pipeline's bf16 DiT cast in place
     to f32 (``set_dit_dtype``), its glue unfused, then the 2048^2 f32 image
-    (``f32_image``: K2's f32 instance) and the phase-2 step on it
+    (``f32_image``: K2's f32 instance), the 1024^2 f32 image unfused and
+    with the glue fused (``f32_fused_image``: K5's f32 instance and K1's
+    f32 rope-and-norm instance) and the phase-2 step on it
     (``lightcontrol-train-f32``: K1's f32 instance with the lse, K3's and
     K4's; 32-bit AdamW on the f32 bank, one warm-up and one timed step);
     then the DiT cast back to bf16 in its serving config and held bit for
     bit the one before (a checksum), and the 2 + 2-block route checks in
-    f32: the image's above 8192 tokens (1536^2) and the phase-2 gradient's.
-    -> {run label: launches}."""
+    f32: the image's above 8192 tokens (1536^2), the fused glue's at 512^2
+    and the phase-2 gradient's. -> {run label: launches}."""
     import torch
 
     t0 = time.perf_counter()
@@ -2522,6 +2831,7 @@ def phase_f32(pipe, bf16_2048, seed: int, card: str):
     cast_s = time.perf_counter() - t0
     try:
         runs = {"f32-2048": f32_image(pipe, bf16_2048, seed, card)}
+        runs.update(f32_fused_image(pipe, seed, card))
         runs["lightcontrol-train-f32"] = phase_lightcontrol_steps(
             pipe, seed, card, "lightcontrol-train-f32",
             LIGHTCONTROL_F32_LAUNCHES, steps=2, use_8bit_adam=False)
@@ -2538,6 +2848,8 @@ def phase_f32(pipe, bf16_2048, seed: int, card: str):
                              "before the f32 phases")
     check_routes(seed + 3, 1536, "text2image-2048-f32-reference",
                  dtype="f32")
+    check_routes(seed + 4, 512, "f32-fused-reference", dtype="f32",
+                 f32_fused=True)
     check_lightcontrol_routes(seed, dtype="f32")
     return runs
 
@@ -7367,6 +7679,12 @@ KERNEL_TABLE = (
      "lightcontrol-train-f32", 0),
     ("flash_bwd_dkv_f32", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581",
      "lightcontrol-train-f32", 0),
+    ("flash_fwd_rope_d256", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "d256", 0),
+    ("flash_chunked_d256", "cuda", FLASH_CHUNKED_SRC, f"{TPU_FLASH}:368",
+     "d256-2048", 0),
+    ("flash_fwd_rope_f32", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "f32-fused",
+     0),
+    ("ln_mod_f32", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:84", "f32-fused", 2),
 )
 
 
@@ -7405,6 +7723,7 @@ def main(argv=None) -> int:
     launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048, pixels_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
+    launches_d256 = phase_d256(pipe, args.seed, smi)
     launches_f32 = phase_f32(pipe, pixels_2048, args.seed, smi)
     del pixels_2048
     train_s = []
@@ -7466,7 +7785,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
-            **launches_f32,
+            **launches_f32, **launches_d256,
             **launches_proj, **launches_ckpt, **launches_tp_w8,
             **launches_tp_quant, **launches_tp_lc,
             **launches_registry, **launches_parallel}

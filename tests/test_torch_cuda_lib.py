@@ -99,11 +99,17 @@ def test_build_faults(case):
 
 
 def test_flash_libraries_gate_their_wgmma_kernels():
+    """Every instance, and by name the head dim 256 instances of K1 and K2
+    and K1's f32 rope-and-norm instance at D = 128 (mangled template
+    arguments <D, WGS, ROPE, BODY, float>)."""
     from x2i_torch.ops import flash_attention as tfa
-    assert tfa.KERNEL.wgmma_kernels == ("flash_fwd_kernel",)
+    assert tfa.KERNEL.wgmma_kernels == (
+        "flash_fwd_kernel", "flash_fwd_kernelILi256E",
+        "flash_fwd_kernelILi128ELi2ELb1ELi0EfE")
     assert tfa.KERNEL_BWD.wgmma_kernels == ("flash_bwd_dq_kernel",
                                             "flash_bwd_dkv_kernel")
-    assert tfa.KERNEL_CHUNKED.wgmma_kernels == ("flash_chunked_kernel",)
+    assert tfa.KERNEL_CHUNKED.wgmma_kernels == ("flash_chunked_kernel",
+                                                "flash_chunked_kernelILi256E")
 
 
 def test_gemm_library_gates_its_wgmma_kernel():
@@ -204,7 +210,8 @@ ROW_GLUE_KERNELS = (
     f"{_ROW_TU}20row_amax_warp_kernelENS_7RowArgsE",
     f"{_ROW_TU}20quant_at_warp_kernelENS_7RowArgsE",
     *(f"{_ROW_TU}17quant_rows_kernelILb0ELi{op}EEEvNS_7RowArgsE"
-      for op in (3, 4)))
+      for op in (3, 4)),
+    f"{_ROW_TU}17ln_mod_f32_kernelENS_10F32RowArgsE")
 
 
 def _row_glue_log(drop=(), spill=None, no_regs=None):
@@ -285,7 +292,7 @@ def test_row_glue_library_gates_every_kernel():
     assert tfg.ROW_GLUE.gated_kernels == (
         "ln_mod_kernel", "ln_mod_quant_kernel", "quant_warp_kernel",
         "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel",
-        "row_amax_warp_kernel", "quant_at_warp_kernel")
+        "row_amax_warp_kernel", "quant_at_warp_kernel", "ln_mod_f32_kernel")
     # no gated name is a part of another kernel's, so each names its own
     for gated in tfg.ROW_GLUE.gated_kernels:
         assert [n for n in ROW_GLUE_KERNELS

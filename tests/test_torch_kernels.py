@@ -52,7 +52,13 @@ bf16 bars of the f32 plain version, on the routes "auto" gives it; the f32
 instances of K1 with the lse, K2, K3 and K4 no farther in relative L2 from
 their f32 plain versions than the bf16 instances on the same inputs
 rounded to bf16, their outputs rounded to bf16 bit for bit the bf16
-instances'. The data
+instances'. Head dim 256: K1's bodies (64-row kv tiles in a ring of 2
+stages, both grid instances) within K1's bars, K2 within them plus one
+bf16 step of |o| (causal rows of a few keys reach |o| of 2-4), K1 and K2
+with the lse refused; K1's f32 rope-and-norm instance rounded to bf16 bit
+for bit the bf16 K1a's on the rounded inputs; K5 on f32 rows within 1e-5
+of the plain version (f32 row statistics summed in another order). The
+data
 loader's side-stream copy (``StreamCopy``): each batch on the card bit
 for bit its numpy batch, read at once by a busy consumer stream.
 """
@@ -532,10 +538,11 @@ def test_f32_instance_on_the_card(dev, case):
     out: the CLIP tower's 257 tokens on the pad route (127 masked keys,
     the exact body), 512 tokens with no mask (the pipelined body), 256
     causal tokens on 8 q / 2 kv heads x 128, and 200 tokens with rope and
-    per-row qk norm (applied first, in f32): one launch each, within the
-    bf16 bars of the f32 plain version (q, k, v and p are rounded to bf16
-    on the card). Under autograd the same call takes K1's f32 instance
-    with the lse, then K3's and K4's (the rope rotated outside)."""
+    per-row qk norm (inside: the rope-and-norm instance): one launch each,
+    within the bf16 bars of the f32 plain version (q, k, v and p are
+    rounded to bf16 on the card). Under autograd the same call takes K1's
+    f32 instance with the lse, then K3's and K4's (the rope rotated
+    outside)."""
     g = torch.Generator(device=dev).manual_seed(len(case))
     s, hq, hk, d = {"CLIP 257 tokens": (257, 16, 16, 64),
                     "512 pipelined": (512, 4, 4, 64),
@@ -551,11 +558,11 @@ def test_f32_instance_on_the_card(dev, case):
         w = 1 + 0.1 * torch.randn((s, d), generator=g, device=dev)
         kw.update(rope=flux_rope_freqs_half(ids, (16, 24, 24)),
                   qk_norm=(w, w, 1e-6))
+    name = "flash_fwd_rope_f32" if "rope" in kw else "flash_fwd_f32"
     before = dict(tfa.KERNEL.launches)
     with torch.no_grad():
         got = tattn.attention(q, k, v, **kw)
-    assert tfa.KERNEL.launches == dict(
-        before, flash_fwd_f32=before["flash_fwd_f32"] + 1)
+    assert tfa.KERNEL.launches == dict(before, **{name: before[name] + 1})
     assert got.dtype == torch.float32 and got.shape == q.shape
     _close(got, tattn.attention(q, k, v, implementation="plain", **kw))
     before = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
@@ -741,6 +748,141 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                 fn(q, k, k, q, rows, rows)
 
 
+# head dim 256 in the forward kernels: case -> (S, q heads, kv heads, what
+# the call takes). K1's kv tiles are 64 rows in a ring of 2 stages at
+# D = 256; 2 x 9 x 12 128-row blocks take the two-warpgroup instance, the
+# smaller grids the 64-row one.
+D256_CASES = {
+    "rope, per-row norm, small grid": (256, 2, 2, "rope-row"),
+    "rope, shared norm, wide grid": (1152, 12, 12, "rope-shared"),
+    "rope only, one kv tile": (128, 2, 2, "rope"),
+    "no rope, pipelined": (512, 4, 4, "plain"),
+    "mask, causal, GQA 6:2": (384, 6, 2, "mask-causal"),
+    "mask, causal, GQA 6:2, wide grid": (1152, 12, 4, "mask-causal"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(D256_CASES))
+def test_flash_d256_kernel(dev, case):
+    """K1 at head dim 256, batch 2 on (B, S, H, D)-strided views: K1a with
+    the per-row and the shared qk norm (the pipelined body; the exact one
+    at one kv tile), K1c and K1b (kv mask, causal, GQA), each against its
+    plain version within the bf16 bars, one launch of its ``_d256``
+    count; with the lse (K1's training forward) it is refused."""
+    s, hq, hk, what = D256_CASES[case]
+    d = 256
+    g = torch.Generator(device=dev).manual_seed(s + hq)
+    q = _randn(g, dev, 2, s, hq, d).transpose(1, 2)
+    k, v = (_randn(g, dev, 2, s, hk, d).transpose(1, 2) for _ in range(2))
+    kw = {}
+    if what.startswith("rope"):
+        ids = torch.cat([torch.zeros((s - 64, 3), device=dev),
+                         prepare_latent_image_ids(16, 16, dev)])
+        kw["rope"] = flux_rope_freqs_half(ids, (32, 112, 112))
+        shape = {"rope-row": (s, d), "rope-shared": (d,)}.get(what)
+        if shape is not None:
+            kw["qk_norm"] = (*(1 + 0.1 * torch.randn(shape, generator=g,
+                                                     device=dev)
+                               for _ in range(2)), 1e-6)
+    elif what == "mask-causal":
+        kw["kv_mask"] = torch.arange(s, device=dev)[None] < torch.tensor(
+            [[s - 56], [37]], device=dev)
+        kw["causal"] = True
+    name = ("flash_fwd_rope" if "rope" in kw else "flash_fwd"
+            if tfa.is_exact(kw.get("kv_mask"), kw.get("causal", False), s)
+            else "flash_fwd_pipe") + "_d256"
+    before = dict(tfa.KERNEL.launches)
+    got = tfa.flash_attention(q, k, v, **kw)
+    assert tfa.KERNEL.launches == dict(before, **{name: before[name] + 1})
+    _close(got, tfa.flash_attention_plain(q, k, v, **kw))
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.flash_forward_lse(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "mask", "causal GQA 6:2",
+                                  "last q tile of 64", "ring wraps, mask"])
+def test_flash_chunked_d256_kernel(dev, case):
+    """K2 at head dim 256 (64-row kv tiles in a ring of 2 stages, the kv
+    mask as two ballots of two keys a lane), batch 2 on strided views:
+    against its plain version and the plain f32 attention on the rows that
+    have a valid key, one launch of ``flash_chunked_d256``; with the lse
+    it is refused. The bar is ``_close``'s, with one bf16 step of |o| on
+    top at each element: under the causal mask the first rows average a
+    few keys, so |o| reaches 2-4, where a bf16 step is 2^-6 (an output
+    rounded on the other side, or p rounded to bf16 against the f32
+    attention's p, moves it by one)."""
+    d = 256
+    sq, skv, hq, hk = {"causal GQA 6:2": (640, 640, 6, 2),
+                       "last q tile of 64": (320, 640, 3, 3),
+                       "ring wraps, mask": (128, 1408, 2, 1)}.get(
+        case, (640, 640, 3, 3))
+    g = torch.Generator(device=dev).manual_seed(sq + skv)
+    q = _randn(g, dev, 2, sq, hq, d).transpose(1, 2)
+    k, v = (_randn(g, dev, 2, skv, hk, d).transpose(1, 2) for _ in range(2))
+    valid = torch.ones((2, skv), dtype=torch.bool, device=dev)
+    kw = {}
+    if "mask" in case:
+        cols = torch.arange(skv, device=dev)[None]
+        valid = (cols < torch.tensor([[skv - 40], [skv // 3]], device=dev)) \
+            & (cols >= torch.tensor([[0], [5]], device=dev))
+        kw["kv_mask"] = valid
+    if "causal" in case:
+        kw["causal"] = True
+    before = dict(tfa.KERNEL_CHUNKED.launches)
+    got = tfa.flash_forward_chunked(q, k, v, **kw)
+    assert tfa.KERNEL_CHUNKED.launches == dict(
+        before, flash_chunked_d256=before["flash_chunked_d256"] + 1)
+    rows = _valid_rows(valid, kw.get("causal", False), sq)[:, None, :, None]
+    for other in (tfa.flash_forward_chunked_plain(q, k, v, **kw),
+                  tfa.xla_attention(q, k, v, **kw)):
+        want = (other * rows).float()
+        diff = (got * rows).float() - want
+        assert bool(torch.isfinite(got).all())
+        assert bool((diff.abs() <= 1e-2 + 2.0 ** -7 * want.abs()).all())
+        assert diff.abs().mean().item() <= 1e-3
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", ["per-row norm", "shared norm", "rope only",
+                                  "pad route, mask"])
+def test_f32_rope_norm_instance(dev, d, case):
+    """K1's f32 rope-and-norm instance (f32 q, k, v, o; the rope and the
+    qk norm inside, with the bf16 K1a's rounding points on the inputs
+    rounded to bf16): o rounded to bf16 is the bf16 K1a's on the rounded
+    inputs bit for bit, and no farther from the f32 plain version in
+    relative L2; one launch of ``flash_fwd_rope_f32`` (``_d256`` at 256).
+    The pad route (200 tokens padded to 256, masked keys) takes its exact
+    body."""
+    s = 200 if case.startswith("pad") else 512
+    g = torch.Generator(device=dev).manual_seed(d + s + len(case))
+    q, k, v = (torch.randn((2, s, 2, d), generator=g, device=dev)
+               for _ in range(3))
+    axes = {64: (16, 24, 24), 128: (16, 56, 56), 256: (32, 112, 112)}[d]
+    ids = torch.cat([torch.zeros((s - 64, 3), device=dev),
+                     prepare_latent_image_ids(16, 16, dev)])
+    kw = {"rope": flux_rope_freqs_half(ids, axes)}
+    shape = {"per-row norm": (s, d), "shared norm": (d,),
+             "pad route, mask": (s, d)}.get(case)
+    if shape is not None:
+        kw["qk_norm"] = (*(1 + 0.1 * torch.randn(shape, generator=g,
+                                                 device=dev)
+                           for _ in range(2)), 1e-6)
+    name = tfa.launch_name("flash_fwd_rope_f32", d)
+    with torch.no_grad():
+        before = dict(tfa.KERNEL.launches)
+        got = tattn.attention(q, k, v, **kw)
+        assert tfa.KERNEL.launches == dict(before,
+                                           **{name: before[name] + 1})
+        got16 = tattn.attention(*(t.to(BF) for t in (q, k, v)), **kw)
+        want = tattn.attention(q, k, v, implementation="plain", **kw)
+    _no_farther([got], [got16], [want])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 300])
 def test_ln_mod_kernel(dev, rows):
@@ -764,8 +906,9 @@ def test_ln_mod_kernel(dev, rows):
     tol = 2.0 ** -7 * y_plain.float().abs() + 1e-4
     assert bool(((y.float() - y_plain.float()).abs() <= tol).all())
     assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
-    with pytest.raises(ValueError, match="bf16"):
-        tfg.ln_mod(x.float(), shift.float(), scale.float())
+    # bf16 and f32 (its own instance); no other dtype
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tfg.ln_mod(x.half(), shift.half(), scale.half())
 
 
 def _rows(g, dev, *shape, mean=3.0):
@@ -855,6 +998,40 @@ def test_ln_mod_kernel_spans(dev, case):
     tol = 2.0 ** -7 * y_plain.float().abs() + 1e-4
     assert bool(((y.float() - y_plain.float()).abs() <= tol).all())
     assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
+
+
+# K5's f32 instance: case -> (B, S, D)
+LN_MOD_F32_CASES = {
+    "4608 rows": (1, 4608, 3072),
+    "B 2, odd S, spans cross the batch": (2, 2305, 3072),
+    "1 row": (1, 1, 3072),
+    "D 64": (3, 257, 64),
+    "D 1028, a partial last chunk": (2, 33, 1028),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LN_MOD_F32_CASES))
+def test_ln_mod_f32_kernel(dev, case):
+    """K5 on f32 rows (one warp a row, the row in registers) against the
+    plain version in f32, on strided chunk(6) modulation rows and rows
+    whose scale spans four decades: within 1e-5 relative and absolute
+    (the row statistics are f32 sums in another order); one launch of
+    ``ln_mod_f32``. Above 3072 it is refused."""
+    b, s, d = LN_MOD_F32_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    x = _rows(g, dev, b, s, d).float()
+    mod = torch.randn((b, 6 * d), generator=g, device=dev) * 0.5
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    before = dict(tfg.LAUNCHES)
+    got = tfg.ln_mod(x, shift, scale)
+    assert tfg.LAUNCHES == dict(before, ln_mod_f32=before["ln_mod_f32"] + 1)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    torch.testing.assert_close(got, tfg.ln_mod_plain(x, shift, scale),
+                               rtol=1e-5, atol=1e-5)
+    wide = torch.zeros((1, 2, 3076), device=dev)
+    with pytest.raises(ValueError, match="at most 3072"):
+        tfg.ln_mod(wide, wide[:, 0], wide[:, 0])
 
 
 def _tie_rows(g, dev, n, d):

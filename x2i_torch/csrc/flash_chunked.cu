@@ -47,7 +47,7 @@
 //     memory) and o += p v with p from the score registers, rounded to
 //     bf16, and the V tile read as it lies through the transpose bit;
 //   * the producer's one thread loads the q tile and then keeps a ring of
-//     kStages = 3 (K tile, V tile) stages of 128 kv rows full by TMA,
+//     3 (K tile, V tile) stages of 128 kv rows (D = 256: below) full by TMA,
 //     through tensor maps that carry the (B, H, S, D) strides as they lie
 //     (views of (B, S, H, D) storage included); it gives its registers
 //     back (setmaxnreg 24) and the consumers take 240. At D = 128 the
@@ -69,9 +69,18 @@
 //     carries no meaning (above);
 //   * a last q tile of 64 rows is zero-filled past Sq in the same way and
 //     writes only its own rows.
-// Requires Sq and Skv to be multiples of 64, D in {64, 128}, the last dim
-// contiguous, the other strides multiples of 8 elements and 16-byte
+// Requires Sq and Skv to be multiples of 64, D in {64, 128, 256}, the last
+// dim contiguous, the other strides multiples of 8 elements and 16-byte
 // aligned bases; every offset is 64-bit.
+//
+// Head dim 256 (the 12 x 256 FLUX DiT at 2048^2), as K1 takes it
+// (flash_fwd.cu): the 3-stage ring of 128-row kv tiles would need 448 KB of
+// shared memory beside the 64 KB q tile, so the kv tile is 64 rows and the
+// ring 2 stages (q 64 KB + 2 x 64 KB); o is 128 registers a thread, s 32
+// and p 16; s = q k^T is m64n64k16 and o += p v m64n256k16 through the
+// transpose bit. A tile's kv mask is then two ballots of two keys a lane.
+// No lse at D = 256 (the backward kernels do not take it yet), and no
+// tile overhangs Skv (a multiple of 64).
 //
 // The f32 instance (x2i_flash_chunked_f32), which the TPU kernel's f32
 // inputs take (an f32 DiT above 8192 tokens: the 2048^2 image), is K1's f32
@@ -89,9 +98,14 @@
 namespace {
 
 constexpr int kTileQ = 128;      // q rows per block: two warpgroups of 64
-constexpr int kTileKV = 128;     // kv rows per tile
-constexpr int kStages = 3;       // (K tile, V tile) stages in the ring
 constexpr int kConsumers = 256;  // two consumer warpgroups
+
+// kv rows per tile and (K tile, V tile) stages in the ring, by head dim
+template <int D>
+struct Tiles {
+  static constexpr int kv = D == 256 ? 64 : 128;
+  static constexpr int stages = D == 256 ? 2 : 3;
+};
 
 struct Args {
   void* o;                       // bf16, or f32 in the f32 instance
@@ -107,8 +121,8 @@ struct Args {
 // slack that aligns the tiles to the swizzle's 1024 bytes.
 template <int D>
 constexpr int smem_bytes() {
-  return kTileQ * D * 2 + 2 * kStages * kTileKV * D * 2 +
-         (2 * kStages + 1) * static_cast<int>(sizeof(uint64_t)) +
+  return kTileQ * D * 2 + 2 * Tiles<D>::stages * Tiles<D>::kv * D * 2 +
+         (2 * Tiles<D>::stages + 1) * static_cast<int>(sizeof(uint64_t)) +
          kSwizzleAtomBytes;
 }
 
@@ -117,7 +131,8 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     const __grid_constant__ TileMap map_q,
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, Args a) {
-  constexpr int BQ = kTileQ, BK = kTileKV, NT = kConsumers;
+  constexpr int BQ = kTileQ, BK = Tiles<D>::kv, NT = kConsumers;
+  constexpr int kStages = Tiles<D>::stages;
   constexpr uint32_t kQBytes = BQ * D * 2, kTileBytes = BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -212,8 +227,8 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
-                    desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
+      wgmma_ss<BK>(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
+                   desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
     wgmma_commit();
   };
 
@@ -254,7 +269,9 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     int lim_a = a.skv - kv0, lim_b = lim_a;
     bool test = lim_a < BK;
     // ... and the kv mask's bits of this thread's even and odd columns:
-    // bit 2 jj of keep<e> is its column 8 jj + 2 t4 + e
+    // bit kBit jj of keep<e> is its column 8 jj + 2 t4 + e
+    constexpr int kKeys = BK / 32;       // keys a lane in the ballots
+    constexpr int kBit = 8 / kKeys;      // bits of keep<e> per jj
     uint32_t keep0 = ~0u, keep1 = ~0u;
     if (MASKED) {
       if (a.causal) {
@@ -264,16 +281,23 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
         test |= kv0 + BK - 1 > row_a - g;
       }
       if (mask != nullptr) {
-        // the tile's 128 keys as four ballots of the warp, four keys a
-        // lane: bit l of w[i] is key 4 l + i
-        const int c = kv0 + 4 * lane;
-        uint32_t w[4];
+        // the tile's BK keys as kKeys ballots of the warp, kKeys keys a
+        // lane: bit l of w[i] is key kKeys l + i
+        const int c = kv0 + kKeys * lane;
+        uint32_t w[kKeys], all = ~0u;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kKeys; ++i) {
           w[i] = __ballot_sync(0xffffffffu, c < a.skv && mask[c + i]);
-        test |= (w[0] & w[1] & w[2] & w[3]) != ~0u;
-        keep0 = (t4 & 1 ? w[2] : w[0]) >> (t4 >> 1);
-        keep1 = (t4 & 1 ? w[3] : w[1]) >> (t4 >> 1);
+          all &= w[i];
+        }
+        test |= all != ~0u;
+        if constexpr (kKeys == 4) {
+          keep0 = (t4 & 1 ? w[2] : w[0]) >> (t4 >> 1);
+          keep1 = (t4 & 1 ? w[3] : w[1]) >> (t4 >> 1);
+        } else {
+          keep0 = w[0] >> t4;
+          keep1 = w[1] >> t4;
+        }
       }
     }
     if (test) {
@@ -282,7 +306,7 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = jj * 8 + t4 * 2 + (e & 1);
-          const uint32_t keep = (e & 1 ? keep1 : keep0) >> (2 * jj);
+          const uint32_t keep = (e & 1 ? keep1 : keep0) >> (kBit * jj);
           if (col >= (e < 2 ? lim_a : lim_b) || !(keep & 1u))
             s[jj][e] = kNegInf;
         }
@@ -404,7 +428,7 @@ cudaError_t launch(const Maps& m, const Args& a, int batch, int hq,
 }
 
 bool bad_shapes(int batch, int hq, int hk, int sq, int skv, int d) {
-  return (d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 64 ||
+  return (d != 64 && d != 128 && d != 256) || sq <= 0 || skv <= 0 || sq % 64 ||
          skv % 64 || hk <= 0 || hq % hk || batch <= 0 || batch > 65535 ||
          hq > 65535;
 }
@@ -430,19 +454,18 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
   Maps m;
   cudaError_t err = make_tile_map(&m.q, q, st[0], st[1], st[2], batch, hq, sq,
                                   d, kTileQ);
+  const int box = d == 256 ? Tiles<256>::kv : Tiles<128>::kv;
   if (err == cudaSuccess)
-    err = make_tile_map(&m.k, k, st[3], st[4], st[5], batch, hk, skv, d,
-                        kTileKV);
+    err = make_tile_map(&m.k, k, st[3], st[4], st[5], batch, hk, skv, d, box);
   if (err == cudaSuccess)
-    err = make_tile_map(&m.v, v, st[6], st[7], st[8], batch, hk, skv, d,
-                        kTileKV);
+    err = make_tile_map(&m.v, v, st[6], st[7], st[8], batch, hk, skv, d, box);
   if (err != cudaSuccess) return err;
   const bool masked = mask != nullptr || causal != 0;
-  if (d == 64)
-    return masked ? launch<64, true, OutT>(m, a, batch, hq, stream)
-                  : launch<64, false, OutT>(m, a, batch, hq, stream);
-  return masked ? launch<128, true, OutT>(m, a, batch, hq, stream)
-                : launch<128, false, OutT>(m, a, batch, hq, stream);
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return masked ? launch<D, true, OutT>(m, a, batch, hq, stream)
+                  : launch<D, false, OutT>(m, a, batch, hq, stream);
+  });
 }
 
 }  // namespace
@@ -457,7 +480,7 @@ extern "C" int x2i_flash_chunked(
     const long long* st, const unsigned char* mask, long long mask_sb,
     int batch, int hq, int hk, int sq, int skv, int d, int causal,
     float scale_log2e, void* stream_ptr) {
-  if (bad_shapes(batch, hq, hk, sq, skv, d))
+  if (bad_shapes(batch, hq, hk, sq, skv, d) || (lse != nullptr && d == 256))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run<bf16>(q, k, v, o, lse, st, mask, mask_sb, batch,
                                     hq, hk, sq, skv, d, causal, scale_log2e,
@@ -473,7 +496,8 @@ extern "C" int x2i_flash_chunked_f32(
     void* scratch, const long long* st, const unsigned char* mask,
     long long mask_sb, int batch, int hq, int hk, int sq, int skv, int d,
     int causal, float scale_log2e, void* stream_ptr) {
-  if (bad_shapes(batch, hq, hk, sq, skv, d) || scratch == nullptr)
+  if (bad_shapes(batch, hq, hk, sq, skv, d) || scratch == nullptr ||
+      (lse != nullptr && d == 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   bf16* rq = static_cast<bf16*>(scratch);

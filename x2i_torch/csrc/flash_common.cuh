@@ -3,8 +3,9 @@
 // bf16 rounding of accumulator fragments into the A operand of the next
 // product and their stores, and the row-wise qk RMSNorm + half-layout
 // rotation with its once-per-launch pass over a whole (B, H, S, D) tensor
-// into a contiguous bf16 scratch buffer, and the f32 instances' pass that
-// rounds f32 (B, H, S, D) inputs into such a buffer.
+// (bf16, or f32 rounded to bf16 first) into a contiguous bf16 scratch
+// buffer, and the f32 instances' pass that rounds f32 (B, H, S, D) inputs
+// into such a buffer.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col, which a warp's 16 rows of
 // a wgmma accumulator and register A operand share (lane = 4 g + t4):
@@ -18,6 +19,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,23 +53,34 @@ __device__ __forceinline__ void pack_a(uint32_t* a, const float* c0,
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// A row element as the bf16 bodies read it: a bf16 value, or an f32 one
+// rounded to bf16 (to nearest), as round_rows_kernel rounds it.
+__device__ __forceinline__ float bf16_value(bf16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float bf16_value(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // One warp: optional RMSNorm (f32 row statistics, eps, per-channel scale
 // w), then the half-layout rotation with the first halves of the (cos,
 // sin) rows, then * post, rounded to bf16. Lane l holds channels
 // l + 32 t; channel j's rotation partner j +- D/2 lives in the same lane.
-// norm_rope_vals leaves the f32 values y[t] of channels l + 32 t before the
-// rounding; norm_rope_row rounds and stores them into a linear row. A
-// caller that knows w_row is given says so (NORM), which leaves the row's
-// code free of branches, so that the loads of several rows overlap.
-template <int D, bool NORM = false>
+// An f32 row (Src = float) is rounded to bf16 as it is read, so that every
+// rounding point is the bf16 row's. norm_rope_vals leaves the f32 values
+// y[t] of channels l + 32 t before the rounding; norm_rope_row rounds and
+// stores them into a linear row. A caller that knows w_row is given says
+// so (NORM), which leaves the row's code free of branches, so that the
+// loads of several rows overlap.
+template <int D, bool NORM = false, typename Src = bf16>
 __device__ __forceinline__ void norm_rope_vals(
-    const bf16* src, float* y, const float* cos_row, const float* sin_row,
+    const Src* src, float* y, const float* cos_row, const float* sin_row,
     const float* w_row, float eps, float post, int lane) {
   constexpr int T = D / 32;
   constexpr int H = T / 2;
   float x[T];
 #pragma unroll
-  for (int t = 0; t < T; ++t) x[t] = __bfloat162float(src[lane + 32 * t]);
+  for (int t = 0; t < T; ++t) x[t] = bf16_value(src[lane + 32 * t]);
   if (NORM || w_row != nullptr) {
     float ss = 0.f;
 #pragma unroll
@@ -87,22 +101,23 @@ __device__ __forceinline__ void norm_rope_vals(
   }
 }
 
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void norm_rope_row(
-    const bf16* src, bf16* dst, const float* cos_row, const float* sin_row,
+    const T* src, bf16* dst, const float* cos_row, const float* sin_row,
     const float* w_row, float eps, float post, int lane) {
   float y[D / 32];
-  norm_rope_vals<D>(src, y, cos_row, sin_row, w_row, eps, post, lane);
+  norm_rope_vals<D, false, T>(src, y, cos_row, sin_row, w_row, eps, post,
+                              lane);
 #pragma unroll
   for (int t = 0; t < D / 32; ++t)
     dst[lane + 32 * t] = __float2bfloat16_rn(y[t]);
 }
 
-// x (B, H, S, D) strided -> normalized, rotated, * post, contiguous bf16;
-// one warp per row.
-template <int D>
+// x (B, H, S, D) strided, bf16 or f32 -> normalized, rotated, * post,
+// contiguous bf16; one warp per row.
+template <int D, typename T>
 __global__ void __launch_bounds__(256) rope_rows_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ out, long long x_sb,
+    const T* __restrict__ x, bf16* __restrict__ out, long long x_sb,
     long long x_sh, long long x_ss, int heads, int seq, long long rows,
     const float* cos, const float* sin, long long tab_rs, const float* w,
     long long w_rs, float eps, float post) {
@@ -114,13 +129,13 @@ __global__ void __launch_bounds__(256) rope_rows_kernel(
   const long long bh = warp / seq;
   const int h = static_cast<int>(bh % heads);
   const long long b = bh / heads;
-  norm_rope_row<D>(x + b * x_sb + h * x_sh + s * x_ss, out + warp * D,
-                   cos + s * tab_rs, sin + s * tab_rs,
-                   w == nullptr ? nullptr : w + s * w_rs, eps, post, lane);
+  norm_rope_row<D, T>(x + b * x_sb + h * x_sh + s * x_ss, out + warp * D,
+                      cos + s * tab_rs, sin + s * tab_rs,
+                      w == nullptr ? nullptr : w + s * w_rs, eps, post, lane);
 }
 
-template <int D>
-cudaError_t launch_rope_rows(const bf16* x, bf16* out, long long x_sb,
+template <int D, typename T>
+cudaError_t launch_rope_rows(const T* x, bf16* out, long long x_sb,
                              long long x_sh, long long x_ss, int batch,
                              int heads, int seq, const float* cos,
                              const float* sin, long long tab_rs,
@@ -129,7 +144,7 @@ cudaError_t launch_rope_rows(const bf16* x, bf16* out, long long x_sb,
   const long long rows = static_cast<long long>(batch) * heads * seq;
   const int per_block = 256 / 32;
   const long long blocks = (rows + per_block - 1) / per_block;
-  rope_rows_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+  rope_rows_kernel<D, T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
       x, out, x_sb, x_sh, x_ss, heads, seq, rows, cos, sin, tab_rs, w, w_rs,
       eps, post);
   return cudaGetLastError();
@@ -225,17 +240,33 @@ cudaError_t launch_round_rows(const float* x, bf16* out, long long x_sb,
   return cudaGetLastError();
 }
 
+// f(std::integral_constant<int, D>()) for the head dim d, one of 64, 128
+// and 256 (the instances of a head-dim template): its cudaError_t, or
+// cudaErrorInvalidValue for another d.
+template <typename F>
+cudaError_t with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    case 256:
+      return f(std::integral_constant<int, 256>());
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // x (B, H, S, D) f32 at the (b, h, s) strides st[0..2] -> rounded into the
-// contiguous bf16 buffer out, whose strides then replace st[0..2]. D is 64
-// or 128.
+// contiguous bf16 buffer out, whose strides then replace st[0..2]. D is 64,
+// 128 or 256.
 inline cudaError_t round_into(const float* x, bf16* out, long long* st,
                               int batch, int heads, int seq, int d,
                               cudaStream_t stream) {
-  const cudaError_t err =
-      d == 64 ? launch_round_rows<64>(x, out, st[0], st[1], st[2], batch,
-                                      heads, seq, stream)
-              : launch_round_rows<128>(x, out, st[0], st[1], st[2], batch,
-                                       heads, seq, stream);
+  const cudaError_t err = with_head_dim(d, [&](auto dim) {
+    return launch_round_rows<decltype(dim)::value>(x, out, st[0], st[1], st[2],
+                                                   batch, heads, seq, stream);
+  });
   st[2] = d;
   st[1] = static_cast<long long>(seq) * d;
   st[0] = st[1] * heads;

@@ -48,15 +48,16 @@
 //     casts p before its PV matmul (:193, :217), and the V tile from
 //     shared memory as it lies, kv rows x D, through the descriptor's
 //     transpose bit. 128 q rows halve the L2 reads of K and V against 64;
-//   * 128-row kv tiles in a ring of kStages = 3 (K tile, V tile) stages
-//     (at D = 128: q 32 KB + 3 x 64 KB of the 227 KB), filled by TMA: one
+//   * 128-row kv tiles in a ring of 3 (K tile, V tile) stages (at D = 128:
+//     q 32 KB + 3 x 64 KB of the 227 KB; D = 256 below), filled by TMA: one
 //     thread of a producer warpgroup starts cp.async.bulk.tensor copies of
 //     128 rows x 64 columns through tensor maps that carry the (B, H, S, D)
 //     strides of K and V as they lie (views of (B, S, H, D) storage
 //     included) and write the swizzle; it runs up to three tiles ahead. A
 //     `full` mbarrier per stage counts the bytes as they land, an `empty`
 //     one the consumer threads that are done reading. The producer gives
-//     its registers back (setmaxnreg), the consumers take 232 each. The
+//     its registers back (setmaxnreg), the consumers take 232 each (240 at
+//     D = 256). The
 //     consumers spend no instruction on K and V; they load only their q
 //     tile (cp.async, or the rope variant's rows by ordinary stores);
 //   * the softmax runs under the tensor cores. A warpgroup queues the
@@ -74,8 +75,25 @@
 //   * a grid whose 64-row blocks still fit in one wave on the card (the
 //     LM prefill at 14 or 16 heads: 56 or 64 128-row blocks) takes the
 //     one-warpgroup instance of the same kernel, 64 q rows per block.
-// Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
-// contiguous and the other strides multiples of 8 elements.
+// Requires Sq and Skv to be multiples of 128, D in {64, 128, 256}, the last
+// dim contiguous and the other strides multiples of 8 elements.
+//
+// Head dim 256 (a FLUX DiT of 12 heads x 256 at FLUX's width; the TPU
+// kernel admits D = 256 as it does 64 and 128). Three things do not scale
+// from D = 128 (Tiles<D> below):
+//   * shared memory: a 128-row q tile is 64 KB and a (K, V) stage of 128
+//     rows 128 KB, so the 3-stage ring would need 448 KB of the 227. The kv
+//     tile is 64 rows and the ring 2 stages: q 64 KB + 2 x 64 KB. With two
+//     stages the copy of tile j + 1 starts only when tile j - 1 is done, so
+//     its latency is not hidden behind a third stage (a later PR's work);
+//   * registers: the o accumulator alone is 64 x 256 f32 over a warpgroup,
+//     128 registers a thread. 64-row kv tiles keep s at 32 and p at 16, so
+//     o, s and p in flight are 176 of the 240 that the consumers take
+//     (setmaxnreg 240 / producer 24, as K2 has them);
+//   * the products: s = q k^T is m64n64k16 (16 k steps over D) and
+//     o += p v is m64n256k16 with p from registers and the V tile through
+//     the transpose bit (wgmma_rs_bf16_n256<1>, hopper_mma.cuh).
+// The rope pass reads the first 128 floats of each table row.
 //
 // The f32 instance (x2i_flash_fwd_f32). The TPU kernel takes f32 q, k, v as
 // they come (the CLIP scorer evaluates in f32, an f32 DiT trains in f32)
@@ -89,19 +107,43 @@
 // bf16 bodies' precision, not the TPU's f32 products (a tf32 instance,
 // wgmma k8 on f32 operands, would come closer at half the bf16 rate and
 // twice the shared memory per tile; the bf16 rounding keeps one body for
-// both dtypes). No rope or qk norm inside: in f32 the TPU kernel's rounding
-// of the rotated q and k to the input dtype is the identity, so the wrapper
-// rotates (and normalizes) first in f32, with autograd carrying the
-// rotation's transpose when it records, which is JAX's f32 function. Always
-// 128 q rows a block.
+// both dtypes). With the lse it takes no rope or qk norm (the f32 backward
+// instances take none): a call that autograd records rotates first in f32,
+// autograd carrying the rotation's transpose, which is JAX's f32 function
+// (in f32 the TPU kernel's rounding of the rotated q and k to the input
+// dtype is the identity). Always 128 q rows a block.
+//
+// The f32 rope-and-norm instance (x2i_flash_fwd_f32 with rope tables): the
+// TPU kernel's f32 _flash_kernel with rope and qk_norm (JAX's f32 DiT at
+// up to 8192 kv tokens hands both to the kernel under its fused glue, the
+// rope alone without it). Its rounding points are the bf16 K1a's on the
+// inputs rounded to bf16: q is rounded once a launch into the scratch
+// (round_rows_kernel) and the ROPE bodies above normalize, rotate and
+// scale it on load as they do in bf16; the f32 K rows are rounded to bf16
+// as they are read, normalized, rotated and rounded again into the scratch
+// in one pass (rope_rows_kernel<D, float>); V is rounded; the epilogue
+// writes o in f32. So its o rounded to bf16 is the bf16 K1a's on the
+// rounded q, k and v, bit for bit.
 
 #include "flash_common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kTileKV = 128;   // kv rows per tile
-constexpr int kStages = 3;     // (K tile, V tile) stages in the ring
+// The tiles of head dim D (see the header): kv rows per tile, (K tile, V
+// tile) stages in the ring, and the registers a thread of the producer's
+// and of the consumers' warpgroups keep (setmaxnreg; 128 x (168 - P) >=
+// 256 x (C - 168) for two consumer warpgroups).
+template <int D>
+struct Tiles {
+  static constexpr int kv = D == 256 ? 64 : 128;
+  static constexpr int stages = D == 256 ? 2 : 3;
+  static constexpr int producer_regs = D == 256 ? 24 : 40;
+  static constexpr int consumer_regs = D == 256 ? 240 : 232;
+};
+
+// The kv rows of a tile, for the tensor maps.
+int kv_tile(int d) { return d == 256 ? Tiles<256>::kv : Tiles<128>::kv; }
 
 enum Body { kPipelined = 0, kExactBody = 1, kExactMasked = 2 };
 
@@ -133,8 +175,9 @@ struct Args {
 // slack that aligns the tiles to the swizzle's 1024 bytes.
 template <int D, int WGS>
 constexpr int smem_bytes() {
-  return 64 * WGS * D * 2 + 2 * kStages * kTileKV * D * 2 +
-         (2 * kStages + 1) * static_cast<int>(sizeof(uint64_t)) +
+  constexpr int stages = Tiles<D>::stages;
+  return 64 * WGS * D * 2 + 2 * stages * Tiles<D>::kv * D * 2 +
+         (2 * stages + 1) * static_cast<int>(sizeof(uint64_t)) +
          kSwizzleAtomBytes;
 }
 
@@ -142,7 +185,8 @@ template <int D, int WGS, bool ROPE, int BODY, typename OutT>
 __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, Args a) {
-  constexpr int BQ = 64 * WGS, NT = 128 * WGS, BK = kTileKV;
+  constexpr int BQ = 64 * WGS, NT = 128 * WGS, BK = Tiles<D>::kv;
+  constexpr int kStages = Tiles<D>::stages;
   constexpr bool EXACT = BODY != kPipelined, MASKED = BODY == kExactMasked;
   constexpr uint32_t kQBytes = BQ * D * 2, kTileBytes = BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -180,7 +224,7 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   // (One consumer warpgroup and the producer's have 255 registers a thread
   // from the start.)
   if (tid >= NT) {
-    if constexpr (WGS == 2) setmaxnreg_dec<40>();
+    if constexpr (WGS == 2) setmaxnreg_dec<Tiles<D>::producer_regs>();
     // The producer: one thread keeps the ring full, up to kStages tiles
     // ahead of the consumers. A stage is two TMA copies per 64 columns
     // (K rows and V rows of the tile), all completing on its `full`.
@@ -203,7 +247,7 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   }
 
   // The consumers bring in the q tile meanwhile.
-  if constexpr (WGS == 2) setmaxnreg_inc<232>();
+  if constexpr (WGS == 2) setmaxnreg_inc<Tiles<D>::consumer_regs>();
   const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
   if (ROPE) {
     // 16 rows per warp, four in flight: a row is a chain of dependent
@@ -267,8 +311,8 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
-                    desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
+      wgmma_ss<BK>(s, desc_advance(q_desc, kmajor_kstep<BQ>(kk)),
+                   desc_advance(k_desc, kmajor_kstep<BK>(kk)), kk != 0);
     wgmma_commit();
   };
 
@@ -498,8 +542,8 @@ cudaError_t sm_count(int* sms) {
 
 // The shapes every instance takes.
 bool bad_shapes(int hq, int hk, int sq, int skv, int d) {
-  return (d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % 128 ||
-         skv % kTileKV || hk <= 0 || hq % hk;
+  return (d != 64 && d != 128 && d != 256) || sq <= 0 || skv <= 0 ||
+         sq % 128 || skv % 128 || hk <= 0 || hq % hk;
 }
 
 // The arguments of a launch without rope, norm or lse: q, k, v at the
@@ -538,10 +582,30 @@ int body_of(int exact, const unsigned char* mask, int causal) {
 cudaError_t make_maps(Maps* m, const Args& a, int batch, int hk, int skv,
                       int d) {
   cudaError_t err = make_tile_map(&m->k, a.k, a.k_sb, a.k_sh, a.k_ss, batch,
-                                  hk, skv, d, kTileKV);
+                                  hk, skv, d, kv_tile(d));
   if (err != cudaSuccess) return err;
   return make_tile_map(&m->v, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
-                       kTileKV);
+                       kv_tile(d));
+}
+
+// K (bf16, or f32 rounded to bf16 as it is read) at the (b, h, s) strides
+// st[0..2], normalized with kw (or not) and rotated once per launch into
+// the contiguous bf16 buffer ks (no scale: it is folded into the q tile),
+// which becomes a's K.
+template <typename T>
+cudaError_t rope_k_into(const T* k, bf16* ks, const long long* st, Args* a,
+                        int batch, int hk, int skv, int d, const float* kw,
+                        long long kw_rs, cudaStream_t stream) {
+  const cudaError_t err = with_head_dim(d, [&](auto dim) {
+    return launch_rope_rows<decltype(dim)::value>(
+        k, ks, st[0], st[1], st[2], batch, hk, skv, a->cos, a->sin,
+        a->tab_rs, kw, kw_rs, a->eps, 1.f, stream);
+  });
+  a->k = ks;
+  a->k_ss = d;
+  a->k_sh = static_cast<long long>(skv) * d;
+  a->k_sb = a->k_sh * hk;
+  return err;
 }
 
 }  // namespace
@@ -584,18 +648,9 @@ extern "C" int x2i_flash_fwd(
   if (rope) {
     // K normalized and rotated once per launch (no scale: it is folded
     // into the q tile)
-    bf16* ks = static_cast<bf16*>(k_scratch);
-    err = d == 64 ? launch_rope_rows<64>(a.k, ks, st[3], st[4], st[5], batch,
-                                         hk, skv, cos, sin, tab_rs, kw, kw_rs,
-                                         eps, 1.f, stream)
-                  : launch_rope_rows<128>(a.k, ks, st[3], st[4], st[5], batch,
-                                          hk, skv, cos, sin, tab_rs, kw,
-                                          kw_rs, eps, 1.f, stream);
+    err = rope_k_into(a.k, static_cast<bf16*>(k_scratch), st + 3, &a, batch,
+                      hk, skv, d, kw, kw_rs, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    a.k = ks;
-    a.k_ss = d;
-    a.k_sh = static_cast<long long>(skv) * d;
-    a.k_sb = a.k_sh * hk;
   }
   const int body = body_of(exact, mask, causal);
   // 64-row blocks fill more of the card where twice as many of them
@@ -607,25 +662,31 @@ extern "C" int x2i_flash_fwd(
   Maps m;
   err = make_maps(&m, a, batch, hk, skv, d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = d == 64 ? launch<64>(m, a, batch, hq, sq, rope, body, small_grid,
-                             stream)
-                : launch<128>(m, a, batch, hq, sq, rope, body, small_grid,
-                              stream);
+  err = with_head_dim(d, [&](auto dim) {
+    return launch<decltype(dim)::value>(m, a, batch, hq, sq, rope, body,
+                                        small_grid, stream);
+  });
   return static_cast<int>(err);
 }
 
-// The f32 instance: q, k, v, o (B, H, S, D) f32 with the strides in `st`,
+// The f32 instances: q, k, v, o (B, H, S, D) f32 with the strides in `st`,
 // as above (multiples of 4 elements, 16-byte aligned starts). lse: (B, Hq,
-// Sq) f32 contiguous, or null; it needs the exact body. scratch:
-// (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k and v in that order, each
-// contiguous. mask, causal and exact as above; no rope or qk norm.
+// Sq) f32 contiguous, or null; it needs the exact body and takes no rope.
+// scratch: (B*Hq*Sq + 2*B*Hk*Skv)*D bf16, the rounded q, k (under rope
+// normalized and rotated) and v in that order, each contiguous. cos, sin,
+// tab_rs, qw, qw_rs, kw, kw_rs, eps, mask, causal and exact as for
+// x2i_flash_fwd: with rope tables the rope-and-norm instance.
 extern "C" int x2i_flash_fwd_f32(
     const float* q, const float* k, const float* v, float* o, float* lse,
-    void* scratch, const long long* st, const unsigned char* mask,
-    long long mask_sb, int batch, int hq, int hk, int sq, int skv, int d,
-    int causal, int exact, float scale_log2e, void* stream_ptr) {
+    void* scratch, const long long* st, const float* cos, const float* sin,
+    long long tab_rs, const float* qw, long long qw_rs, const float* kw,
+    long long kw_rs, const unsigned char* mask, long long mask_sb, int batch,
+    int hq, int hk, int sq, int skv, int d, int causal, int exact,
+    float scale_log2e, float eps, void* stream_ptr) {
+  const bool rope = cos != nullptr;
   if (bad_shapes(hq, hk, sq, skv, d) || scratch == nullptr ||
-      (lse != nullptr && !exact) || (!exact && (mask != nullptr || causal)))
+      (lse != nullptr && (!exact || rope)) ||
+      (!exact && (mask != nullptr || causal)) || (rope && sq != skv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   bf16* rq = static_cast<bf16*>(scratch);
@@ -634,7 +695,7 @@ extern "C" int x2i_flash_fwd_f32(
   long long rst[12];
   for (int i = 0; i < 12; ++i) rst[i] = st[i];
   cudaError_t err = round_into(q, rq, rst, batch, hq, sq, d, stream);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && !rope)
     err = round_into(k, rk, rst + 3, batch, hk, skv, d, stream);
   if (err == cudaSuccess)
     err = round_into(v, rv, rst + 6, batch, hk, skv, d, stream);
@@ -642,13 +703,28 @@ extern "C" int x2i_flash_fwd_f32(
   Args a = plain_args(rq, rk, rv, o, rst, mask, mask_sb, hq, hk, sq, skv,
                       causal, scale_log2e);
   a.lse = lse;
+  if (rope) {
+    a.cos = cos;
+    a.sin = sin;
+    a.tab_rs = tab_rs;
+    a.qw = qw;
+    a.qw_rs = qw_rs;
+    a.eps = eps;
+    // the f32 K rows normalized, rotated and rounded in one pass
+    err = rope_k_into(k, rk, st + 3, &a, batch, hk, skv, d, kw, kw_rs,
+                      stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int body = body_of(exact, mask, causal);
   Maps m;
   err = make_maps(&m, a, batch, hk, skv, d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = d == 64 ? launch_body<64, 2, false, float>(m, a, batch, hq, sq, body,
-                                                  stream)
-                : launch_body<128, 2, false, float>(m, a, batch, hq, sq, body,
-                                                   stream);
+  err = with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return rope ? launch_body<D, 2, true, float>(m, a, batch, hq, sq, body,
+                                                 stream)
+                : launch_body<D, 2, false, float>(m, a, batch, hq, sq, body,
+                                                  stream);
+  });
   return static_cast<int>(err);
 }

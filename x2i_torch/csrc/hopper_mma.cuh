@@ -273,17 +273,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// d (64 x N, f32) += A (registers) B (16 x N, shared, MN-major), for the
-// output widths N = 64 and 128 of a head dim.
+// d (64 x N, f32) (+)= A (64 x 16, shared, K-major) B^T (B N x 16, shared,
+// K-major), for the kv tile widths N = 64 and 128 of the attention
+// kernels' scores.
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "head dim");
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4],
+                                         uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "kv tile");
   if constexpr (N == 128) {
-    wgmma_rs_n128(d, a, desc_b);
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
   } else {
-    wgmma_rs_n64(d, a, desc_b);
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
   }
 }
 
@@ -352,7 +353,10 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[32][4],
 }
 
 // d (64 x 256, f32) += A (64 x 16 bf16 pairs in registers, the mma.sync A
-// fragment of each warp's 16 rows) B^T (B 256 x 16 bf16, shared, K-major).
+// fragment of each warp's 16 rows) B^T (B 256 x 16 bf16, shared, K-major),
+// or with TRANS_B = 1 B (16 x 256, shared, MN-major: the V tile of an
+// attention kernel at head dim 256, read through the transpose bit).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_rs_bf16_n256(float (&d)[32][4],
                                                   const uint32_t (&a)[4],
                                                   uint64_t desc_b) {
@@ -375,7 +379,7 @@ __device__ __forceinline__ void wgmma_rs_bf16_n256(float (&d)[32][4],
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       :
         "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -409,7 +413,24 @@ __device__ __forceinline__ void wgmma_rs_bf16_n256(float (&d)[32][4],
         "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// d (64 x N, f32) += A (registers) B (16 x N, shared, MN-major), for the
+// output widths N = 64, 128 and 256 of a head dim.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128 || N == 256, "head dim");
+  if constexpr (N == 256) {
+    wgmma_rs_bf16_n256<1>(d, a, desc_b);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
+  }
 }
 
 // ---------------------------------------------------------------- copies
@@ -438,16 +459,16 @@ __device__ __forceinline__ void cp_async_tile(const __nv_bfloat16* src,
                                               long long stride, uint32_t tile,
                                               int tid) {
   constexpr int kChunks = D / 8;              // 16-byte chunks per row
-  constexpr int kRowsPerPass = NT / kChunks;  // a multiple of 8
-  static_assert(kRowsPerPass % 8 == 0 && ROWS % kRowsPerPass == 0, "tile");
+  constexpr int kRowsPerPass = NT / kChunks;  // 4 (D = 256 on 128 threads)
+                                              // or a multiple of 8
+  static_assert(kRowsPerPass >= 1 && ROWS % kRowsPerPass == 0, "tile");
   const int cc = tid % kChunks, r0 = tid / kChunks;
-  const uint32_t dst = tile + (cc >> 3) * (ROWS * kSwizzleRowBytes) +
-                       swizzle128(r0, cc & 7);
-  const __nv_bfloat16* p = src + r0 * stride + cc * 8;
+  const uint32_t col = tile + (cc >> 3) * (ROWS * kSwizzleRowBytes);
 #pragma unroll
-  for (int i = 0; i < ROWS / kRowsPerPass; ++i)
-    cp_async_16(dst + i * kRowsPerPass * kSwizzleRowBytes,
-                p + i * kRowsPerPass * stride);
+  for (int i = 0; i < ROWS / kRowsPerPass; ++i) {
+    const int r = r0 + i * kRowsPerPass;
+    cp_async_16(col + swizzle128(r, cc & 7), src + r * stride + cc * 8);
+  }
 }
 
 // Wait until every cp.async this thread has started has landed.

@@ -91,6 +91,17 @@
 // approximate, flushing subnormals: their inputs are never subnormal, and
 // an output that would be is a gelu value of about 1e-38, which rounds to
 // code 0); K6 and K8 none.
+// K5 on f32 rows (ln_mod_f32_kernel: an f32 DiT's glue; JAX's _ln_mod_kernel
+// takes any float dtype): y = (x - mean) rsqrt(var + eps) in f32 (its
+// rounding to x's dtype is the identity), out = y * (1 + scale) + shift,
+// each product and sum rounded once in f32, as PyTorch's f32 `*` and `+`.
+// A 3072-wide f32 row is 96 values a lane, so K5's register double buffer
+// (192) would spill: one warp a row holds the row once (24 16-byte chunks
+// a lane), and the SM's other warps keep its row bytes in flight instead
+// of the next row. At 128 registers a thread (two blocks of eight warps an
+// SM) ptxas spilled, so a block may take up to 255 (one block an SM at
+// least). The modulation rows are read through L1 beside it. Any
+// D that is a multiple of 4 up to 3072 (every FLUX width of the registry).
 // Other widths (any D that is a multiple of 8) take a generic instance:
 // K5 and K6 a warp per row that reads its row from memory once per pass
 // (the same two pieces, ln_chunk and the quantization epilogue), K7 and K8
@@ -494,6 +505,89 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
+// ------------------------------------------------------------ K5 in f32
+
+constexpr int kLnF32Chunks = kLnD / 4 / 32;  // 16-byte chunks a lane, at most
+
+// K5's arguments on f32 rows: x (B, S, D) at strides sxb, sxs, shift and
+// scale (B, D) at batch stride seb, out (B * S, D) contiguous.
+struct F32RowArgs {
+  const float* x;
+  long long sxb, sxs;
+  int s;
+  const float* shift;
+  const float* scale;
+  long long seb;
+  float* out;
+  int rows, d;
+  float eps;
+};
+
+__device__ __forceinline__ float4 f4_at(const float* p, int i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+
+__device__ __forceinline__ float f4_sum(const float4& v) {
+  return __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+}
+
+__device__ __forceinline__ float f4_sq(const float4& v, float mean) {
+  const float a = v.x - mean, b = v.y - mean, c = v.z - mean, e = v.w - mean;
+  return fmaf(a, a, fmaf(b, b, fmaf(c, c, e * e)));
+}
+
+// y (x - mean) * rstd, then * (1 + scale) + shift, one rounding each.
+__device__ __forceinline__ float ln_f32(float x, float mean, float rstd,
+                                       float sc, float sh) {
+  const float y = __fmul_rn(__fsub_rn(x, mean), rstd);
+  return __fadd_rn(__fmul_rn(y, __fadd_rn(1.0f, sc)), sh);
+}
+
+// K5 on f32 rows: a block of eight warps, one row a warp at a time over the
+// block's span, the row in registers between its two reductions and the
+// modulate.
+__global__ void __launch_bounds__(kLnWarps * 32, 1)
+    ln_mod_f32_kernel(const F32RowArgs p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quads = p.d / 4;
+  const float inv_d = 1.0f / p.d;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  for (int r = r0 + warp; r < r1; r += kLnWarps) {
+    const int b = r / p.s;
+    const float* x = p.x + b * p.sxb + (r - b * p.s) * p.sxs;
+    float4 v[kLnF32Chunks];
+    float sum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kLnF32Chunks; ++c) {
+      const int at = c * 32 + lane;
+      v[c] = at < quads ? f4_at(x, at) : make_float4(0.f, 0.f, 0.f, 0.f);
+      sum += f4_sum(v[c]);
+    }
+    const float mean = warp_sum(sum) * inv_d;
+    float sq = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kLnF32Chunks; ++c)
+      if (c * 32 + lane < quads) sq += f4_sq(v[c], mean);
+    const float rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
+    const float* sc = p.scale + b * p.seb;
+    const float* sh = p.shift + b * p.seb;
+    float4* o = reinterpret_cast<float4*>(p.out + static_cast<long long>(r) *
+                                          p.d);
+#pragma unroll
+    for (int c = 0; c < kLnF32Chunks; ++c) {
+      const int at = c * 32 + lane;
+      if (at < quads) {
+        const float4 m = f4_at(sc, at), a = f4_at(sh, at);
+        o[at] = make_float4(ln_f32(v[c].x, mean, rstd, m.x, a.x),
+                            ln_f32(v[c].y, mean, rstd, m.y, a.y),
+                            ln_f32(v[c].z, mean, rstd, m.z, a.z),
+                            ln_f32(v[c].w, mean, rstd, m.w, a.w));
+      }
+    }
+  }
+}
+
 // -------------------------------------------------------- K7 and K8
 
 constexpr int kQD = 12288;                  // every FLUX MLP width
@@ -690,9 +784,9 @@ constexpr int kMaxDevices = 64;
 // more blocks than fit on the current device at once: its occupancy there,
 // found once per device in `capacity[kMaxDevices]` (where its dynamic
 // shared memory above 48 KB is allowed first).
-template <typename Kernel>
+template <typename Kernel, typename Args>
 cudaError_t launch(Kernel kernel, int threads, int smem, int per_block,
-                   int* capacity, const RowArgs& p, cudaStream_t stream) {
+                   int* capacity, const Args& p, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -765,6 +859,23 @@ extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
                 : launch(ln_mod_rows_kernel<false>, threads, 0, kLnWarps, c,
                          p, st);
   return static_cast<int>(err);
+}
+
+// K5 on f32 rows: x (B, S, D) f32 with strides sxb, sxs (elements) and a
+// contiguous last dim; shift and scale (B, D) f32 at batch stride seb; out
+// (B, S, D) f32 contiguous. D a multiple of 4 up to 3072; the wrapper
+// checks 16-byte aligned row starts. Returns the cudaError_t of the launch.
+extern "C" int x2i_ln_mod_f32(const float* x, long long sxb, long long sxs,
+                              const float* shift, const float* scale,
+                              long long seb, float* out, int b, int s, int d,
+                              float eps, void* stream) {
+  if (b < 1 || s < 1 || d < 4 || d % 4 || d > kLnD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32RowArgs p = {x, sxb, sxs, s, shift, scale, seb, out, b * s, d, eps};
+  static int cap[kMaxDevices] = {};
+  return static_cast<int>(launch(ln_mod_f32_kernel, kLnWarps * 32, 0,
+                                 kLnWarps, cap, p,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // K7 (`gelu` 1) or K8 (`gelu` 0). x as for K5; q (B * S, D) int8 and a

@@ -38,13 +38,21 @@ f32 DiT serves and trains in f32, as in JAX): q, k, v (and do) are
 rounded to bf16 on the card and go through the body they would take in
 bf16, and o, the lse, dq, dk and dv are written in f32 from the f32
 accumulators. Their results are the bf16 bodies' up to the rounding of
-the outputs, not the plain versions' f32 products. No f32 instance
-applies a norm or a rotation inside: the forward wrapper applies both
-first, in f32, and a call that autograd records rotates outside
-(``flash_attention``), its transpose carried by autograd; in f32 the TPU
-kernels' rounding of the rotated q and k to the input dtype is the
-identity, so that is JAX's f32 function. Every other dtype takes the
-plain attention (``attention.route``).
+the outputs, not the plain versions' f32 products. K1's f32 forward
+without the lse takes the rope and the qk norm inside, as the bf16 K1a
+does (the rope-and-norm instance: an f32 DiT serving at up to
+``MAX_KV_SEQ`` tokens), with the bf16 K1a's rounding points on the
+inputs rounded to bf16. The other f32 instances take no rope: a call that
+autograd records rotates outside (``flash_attention``), its transpose
+carried by autograd; in f32 the TPU kernels' rounding of the rotated q
+and k to the input dtype is the identity, so that is JAX's f32 function.
+Every other dtype takes the plain attention (``attention.route``).
+
+Head dims: the forward instances without the lse (K1's bodies, bf16 and
+f32, and K2) take ``HEAD_DIMS`` (64, 128 and 256, the TPU kernels'
+``supported``); the instances that autograd runs (K1 and K2 with the lse,
+K3 and K4) take ``GRAD_HEAD_DIMS`` (64 and 128), so that under autograd
+``attention.route`` takes the plain attention at D = 256.
 
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
@@ -75,7 +83,8 @@ from x2i_torch.ops.norms import rms_norm
 
 NEG_INF = -1e30
 LOG2_E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)        # the forward instances without the lse
+GRAD_HEAD_DIMS = (64, 128)        # K1 and K2 with the lse, K3, K4
 # the JAX package's limits: above MAX_KV_SEQ kv tokens the forward is the
 # chunked kernel K2 (norm and rope outside) and the backward recomputes
 # through the plain attention; above ROPE_MAX_KV the differentiable route
@@ -85,9 +94,9 @@ ROPE_MAX_KV = 6144
 
 
 def supported(q_shape, kv_seq: int) -> bool:
-    """Whether the kernel applies to these shapes: the TPU rule
-    (``supported``, S % 128 == 0) with the head sizes the CUDA kernel is
-    built for (D = 256 waits for a later kernel)."""
+    """Whether the forward kernels apply to these shapes: the TPU rule
+    (``supported``, S % 128 == 0, D in 64, 128 and 256). Under autograd
+    D = 256 takes the plain attention (``attention.route``)."""
     _, _, sq, d = q_shape
     return d in HEAD_DIMS and kv_seq % 128 == 0 and sq % 128 == 0
 
@@ -349,8 +358,7 @@ def _bind(lib):
         p, p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
         i, i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_fwd.restype = ctypes.c_int
-    lib.x2i_flash_fwd_f32.argtypes = [
-        p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, f, p]
+    lib.x2i_flash_fwd_f32.argtypes = lib.x2i_flash_fwd.argtypes
     lib.x2i_flash_fwd_f32.restype = ctypes.c_int
 
 
@@ -390,19 +398,42 @@ def _bind_bwd(lib):
 # for the pipelined body without rope (K1c, the DiT with rope outside, as
 # the distillation teacher runs it), ``flash_fwd_lse`` for every forward
 # that writes the lse (the exact body, with or without rope),
-# ``flash_fwd_f32`` for every forward on f32 inputs without the lse (any
-# body), ``flash_fwd_lse_f32`` for every one with it
+# ``flash_fwd_f32`` for every forward on f32 inputs without the lse or
+# rope (any body), ``flash_fwd_rope_f32`` for the f32 rope-and-norm
+# instance, ``flash_fwd_lse_f32`` for every f32 forward with the lse; at
+# D = 256 the forwards without the lse count apart, under these names with
+# ``_d256`` (``launch_name``)
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
-                      "flash_fwd_lse", "flash_fwd_f32", "flash_fwd_lse_f32"),
-                     _bind, wgmma_kernels=("flash_fwd_kernel",),
+                      "flash_fwd_lse", "flash_fwd_f32", "flash_fwd_lse_f32",
+                      "flash_fwd_rope_f32", "flash_fwd_rope_d256",
+                      "flash_fwd_d256", "flash_fwd_pipe_d256",
+                      "flash_fwd_f32_d256", "flash_fwd_rope_f32_d256"),
+                     _bind,
+                     # every instance, and by name the D = 256 ones and the
+                     # f32 rope-and-norm one at D = 128 (mangled: <D, WGS,
+                     # ROPE, BODY, float>)
+                     wgmma_kernels=("flash_fwd_kernel",
+                                    "flash_fwd_kernelILi256E",
+                                    "flash_fwd_kernelILi128ELi2ELb1ELi0EfE"),
                      checked_kernels=("round_rows_kernel",))
-# K2, the chunked forward above MAX_KV_SEQ kv tokens, and its f32 instance
+# K2, the chunked forward above MAX_KV_SEQ kv tokens, and its f32 instance,
+# counted apart at D = 256
 KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
-                             ("flash_chunked", "flash_chunked_f32"),
+                             ("flash_chunked", "flash_chunked_f32",
+                              "flash_chunked_d256", "flash_chunked_f32_d256"),
                              _bind_chunked,
-                             wgmma_kernels=("flash_chunked_kernel",),
+                             wgmma_kernels=("flash_chunked_kernel",
+                                            "flash_chunked_kernelILi256E"),
                              checked_kernels=("round_rows_kernel",))
+
+
+def launch_name(name: str, d: int) -> str:
+    """The launch count a forward of head dim d raises: ``name``, or at
+    D = 256 ``name`` + "_d256"."""
+    return f"{name}_d256" if d == 256 else name
+
+
 # the backward library: K3 and K4, and their f32 instances
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                          ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
@@ -479,19 +510,22 @@ def _qk_scale(w, s, d):
                       s, d), d
 
 
-def check_shapes(q_shape, k_shape, v_shape, extra=()):
-    """The shapes every flash kernel takes -> (b, hq, hk, sq, skv, d): q
+def check_shapes(q_shape, k_shape, v_shape, extra=(),
+                 head_dims=GRAD_HEAD_DIMS):
+    """The shapes a flash kernel takes -> (b, hq, hk, sq, skv, d): q
     (B, Hq, Sq, D), k and v (B, Hk, Skv, D) with Hq a multiple of Hk, D in
-    ``HEAD_DIMS``, Sq and Skv multiples of 64 (K2's tiles overhang a last
-    64 rows; K1, K3 and K4 ask for 128 on top), and each shape in
-    ``extra`` equal to q's; raises ValueError otherwise."""
+    ``head_dims`` (by default ``GRAD_HEAD_DIMS``, which every flash kernel
+    takes; the forwards without the lse take ``HEAD_DIMS``), Sq and Skv
+    multiples of 64 (K2's tiles overhang a last 64 rows; K1, K3 and K4 ask
+    for 128 on top), and each shape in ``extra`` equal to q's; raises
+    ValueError otherwise."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         raise ValueError(f"flash kernel: unsupported shapes q "
                          f"{tuple(q_shape)} k {tuple(k_shape)}")
     b, hq, sq, d = q_shape
     hk, skv = k_shape[1], k_shape[2]
     if (tuple(k_shape) != tuple(v_shape) or k_shape[0] != b
-            or k_shape[3] != d or hk < 1 or hq % hk or d not in HEAD_DIMS
+            or k_shape[3] != d or hk < 1 or hq % hk or d not in head_dims
             or sq < 64 or skv < 64 or sq % 64 or skv % 64
             or any(tuple(e) != tuple(q_shape) for e in extra)):
         raise ValueError(f"flash kernel: unsupported shapes q "
@@ -500,15 +534,19 @@ def check_shapes(q_shape, k_shape, v_shape, extra=()):
     return b, hq, hk, sq, skv, d
 
 
-def _shapes(q, k, v, extra=()):
+def _shapes(q, k, v, extra=(), head_dims=GRAD_HEAD_DIMS):
     """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``), all
-    bf16 or all f32 -> (b, hq, hk, sq, skv, d)."""
+    bf16 or all f32, D in ``head_dims`` -> (b, hq, hk, sq, skv, d)."""
     tensors = (("q", q), ("k", k), ("v", v), *extra)
     dtype = instance_dtype(*(t.dtype for _, t in tensors))
     for name, t in tensors:
         _check(name, t, 4, dtype)
     return check_shapes(q.shape, k.shape, v.shape,
-                        [t.shape for _, t in extra])
+                        [t.shape for _, t in extra], head_dims)
+
+
+def _fwd_head_dims(return_lse: bool):
+    return GRAD_HEAD_DIMS if return_lse else HEAD_DIMS
 
 
 def _mask_arg(kv_mask, b, skv, device):
@@ -560,95 +598,81 @@ def _scratch(q, k, with_do=False):
                        dtype=torch.bfloat16, device=q.device)
 
 
-def _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
-                    return_lse=False):
-    """K1's f32 instance: q, k, v rounded to bf16 on the card, the body
-    the bf16 inputs would take, o (and the lse) written in f32. Without
-    the lse the qk norm and the rotation, which it does not take inside,
-    are applied first in f32, as the plain version computes them; with it
-    (the forward of ``_FlashAttention``) rope is refused, as the backward
-    instances take none."""
-    if return_lse:
-        _no_rope_f32("K1 with the lse", rope)
-    if rope is not None:
-        qw, kw, eps = qk_norm if qk_norm is not None else (None, None, 1e-6)
-        q = _rotate(_norm_rows(q, qw, eps), *rope)
-        k = _rotate(_norm_rows(k, kw, eps), *rope)
-    elif qk_norm is not None:
+def _rope_norm_args(rope, qk_norm, sq, skv, d):
+    """-> (cos, sin, table row stride, q scale, its row stride, k scale,
+    its row stride, eps): the rope tables and the qk-norm scales as the
+    kernel takes them (nulls without)."""
+    cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
+    if qk_norm is None:
+        return cos, sin, tab_rs, None, 0, None, 0, 1e-6
+    if rope is None:
         raise ValueError("flash kernel: qk_norm rides the rope path")
-    b, hq, hk, sq, skv, d = _shapes(q, k, v)
-    if sq % 128 or skv % 128:
-        raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
-                         f"Skv in multiples of 128, got {sq} and {skv}")
-    mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
-    out = _out_bhsd(b, hq, sq, d, q)
-    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    scratch = _scratch(q, k)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    err = KERNEL.lib().x2i_flash_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        scratch.data_ptr(), strides, _ptr(mask), mask_sb, b, hq, hk,
-        sq, skv, d, int(causal),
-        int(return_lse or is_exact(kv_mask, causal, skv)), scale * LOG2_E,
-        _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
-    name = "flash_fwd_lse_f32" if return_lse else "flash_fwd_f32"
-    KERNEL.launches[name] += 1
-    return (out, lse) if return_lse else out
+    (qw, qw_rs), (kw, kw_rs) = (_qk_scale(qk_norm[0], sq, d),
+                                _qk_scale(qk_norm[1], skv, d))
+    return cos, sin, tab_rs, qw, qw_rs, kw, kw_rs, float(qk_norm[2])
 
 
 def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
                 return_lse=False):
-    if q.dtype == torch.float32:
-        return _flash_f32_cuda(q, k, v, kv_mask, causal, scale, rope,
-                               qk_norm, return_lse)
-    b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    """K1 on bf16 inputs, or its f32 instances on f32 ones (q, k, v rounded
+    to bf16 on the card, o and the lse written in f32; with rope tables
+    the rope-and-norm instance, whose rounding points are the bf16 K1a's
+    on the rounded inputs). With the lse (the forward of
+    ``_FlashAttention``) D = 256 and, in f32, rope are refused, as the
+    backward kernels take neither."""
+    f32 = q.dtype == torch.float32
+    if f32 and return_lse:
+        _no_rope_f32("K1 with the lse", rope)
+    b, hq, hk, sq, skv, d = _shapes(q, k, v,
+                                    head_dims=_fwd_head_dims(return_lse))
     if sq % 128 or skv % 128:
         raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
                          f"Skv in multiples of 128, got {sq} and {skv}")
     exact = return_lse or is_exact(kv_mask, causal, skv)
-    cos, sin, tab_rs = _rope_args(rope, sq, skv, d)
-    qw = kw = scratch = None
-    qw_rs = kw_rs = 0
-    eps = 1e-6
-    if rope is not None:
-        # rotated K, written once per launch; like every buffer here it is
-        # allocated on the launch stream, so the caching allocator reuses
-        # it only after the kernel
-        scratch = torch.empty((b, hk, skv, d), dtype=k.dtype, device=k.device)
-        if qk_norm is not None:
-            (qw, qw_rs), (kw, kw_rs) = (_qk_scale(qk_norm[0], sq, d),
-                                        _qk_scale(qk_norm[1], skv, d))
-            eps = float(qk_norm[2])
-    elif qk_norm is not None:
-        raise ValueError("flash kernel: qk_norm rides the rope path")
+    cos, sin, tab_rs, qw, qw_rs, kw, kw_rs, eps = _rope_norm_args(
+        rope, qk_norm, sq, skv, d)
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     out = _out_bhsd(b, hq, sq, d, q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    # the f32 instances' rounded q, k (under rope normalized and rotated)
+    # and v; the bf16 one's rotated K under rope. Like every buffer here it
+    # is allocated on the launch stream, so the caching allocator reuses it
+    # only after the kernel
+    if f32:
+        scratch = _scratch(q, k)
+    elif rope is not None:
+        scratch = torch.empty((b, hk, skv, d), dtype=k.dtype, device=k.device)
+    else:
+        scratch = None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    err = KERNEL.lib().x2i_flash_fwd(
+    lib = KERNEL.lib()
+    err = (lib.x2i_flash_fwd_f32 if f32 else lib.x2i_flash_fwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
         _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(qw),
         qw_rs, _ptr(kw), kw_rs, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d,
         int(causal), int(exact), scale * LOG2_E, eps, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
-    name = ("flash_fwd_lse" if return_lse else "flash_fwd_rope"
-            if rope is not None else "flash_fwd" if exact else
-            "flash_fwd_pipe")
+    if return_lse:
+        name = "flash_fwd_lse_f32" if f32 else "flash_fwd_lse"
+    elif f32:
+        name = launch_name("flash_fwd_rope_f32" if rope is not None
+                           else "flash_fwd_f32", d)
+    else:
+        name = launch_name("flash_fwd_rope" if rope is not None else
+                           "flash_fwd" if exact else "flash_fwd_pipe", d)
     KERNEL.launches[name] += 1
     return (out, lse) if return_lse else out
 
 
 def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
     """K2, or its f32 instance on f32 inputs (rounded to bf16 on the card
-    into a scratch buffer, o and the lse written in f32)."""
-    b, hq, hk, sq, skv, d = _shapes(q, k, v)
+    into a scratch buffer, o and the lse written in f32); with the lse not
+    at D = 256."""
+    b, hq, hk, sq, skv, d = _shapes(q, k, v,
+                                    head_dims=_fwd_head_dims(return_lse))
     f32 = q.dtype == torch.float32
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     out = _out_bhsd(b, hq, sq, d, q)
@@ -667,8 +691,8 @@ def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
     if err != 0:
         raise RuntimeError(f"chunked flash kernel launch failed: "
                            f"cudaError_t {err}")
-    KERNEL_CHUNKED.launches["flash_chunked_f32" if f32 else
-                            "flash_chunked"] += 1
+    KERNEL_CHUNKED.launches[launch_name(
+        "flash_chunked_f32" if f32 else "flash_chunked", d)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -898,9 +922,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``rope_bhsd``, rounded again), both outside the kernels and both
     differentiable, as JAX's ``flash_attention`` and ``_fwd_impl`` order
     them. f32 under autograd rotates outside at every length (the f32
-    instances take no rope; in f32 the rounding is the identity, so this
-    is JAX's function), with qk_norm forward-only below ``ROPE_MAX_KV`` as
-    before.
+    instances with the lse and the backward's take no rope; in f32 the
+    rounding is the identity, so this is JAX's function), with qk_norm
+    forward-only below ``ROPE_MAX_KV`` as before; f32 without autograd
+    takes both inside K1's f32 rope-and-norm instance. D = 256 takes the
+    forward kernels only: under autograd it raises on the card (K1 with the
+    lse, K3 and K4 take 64 and 128; ``attention.route`` sends such calls to
+    the plain attention).
 
     Without autograd recording, a CUDA tensor launches the forward kernel
     (which raises on what it does not take) and a CPU tensor takes the
@@ -921,7 +949,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qw, kw, eps = qk_norm
         q, k, qk_norm = rms_norm(q, qw, eps), rms_norm(k, kw, eps), None
     # f32 under autograd rotates outside at every length: the f32
-    # instances take no rope, and the plain versions on the CPU follow
+    # instances with the lse take no rope, and the plain versions on the
+    # CPU follow
     if rope is not None and (rope_outside or (
             recording and q.dtype == torch.float32)):
         q, k, rope = rope_bhsd(q, *rope), rope_bhsd(k, *rope), None

@@ -6,7 +6,8 @@ Counterparts of the TPU kernels of ``x2i_tpu/ops/fused_glue.py``, all
 launched there through ``_rows_call``:
 
 * K5 ``ln_mod`` (``_ln_mod_kernel``): ``modulate(layer_norm(x), shift,
-  scale)`` in x.dtype, the glue of the bf16 and w8 paths;
+  scale)`` in x.dtype, the glue of the bf16 and w8 paths, and on f32 rows
+  (an f32 DiT's glue, counted as ``ln_mod_f32``) in f32;
 * K6 ``ln_mod_quant`` (``_ln_mod_quant_kernel``): the same, then per-row
   int8 quantization;
 * K7 ``gelu_quant`` (``_gelu_quant_kernel``): tanh-gelu rounded to x.dtype,
@@ -34,7 +35,8 @@ pre-quantized input form of ``QuantLinear``.
 What bounds them on an H100: each reads a bf16 row block once and writes
 it once (bf16, or int8 plus a scale per row) against a few operations per
 byte, so memory bandwidth does: at 4608 rows about 17 us for K5, 13 us
-for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s).
+for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s); K5 on
+f32 rows moves twice K5's bytes, 34 us.
 
 The kernels are one library (``ROW_GLUE``; the design is in its header):
 persistent blocks walking spans of rows with the next rows' loads in
@@ -43,10 +45,12 @@ LayerNorm + modulate with the quantization after it, K8 the quantization
 alone); K7 and K8 at D = 12288 are two warpgroups per row on a ring of
 two rows; other widths (multiples of 8) take a generic instance, for K7
 and K8 with the threads per row that ``quant_instance`` chooses from D.
-``row_views`` holds every check they take; a wrapper raises ValueError on
-anything else and never drops to the plain version. The library is built
-at its first launch, so a machine without nvcc can still import this
-module and run the plain versions.
+K5's f32 instance is one warp a row holding its row once (no next row in
+flight: 96 values a lane). ``row_views`` holds every check they take (K6,
+K7 and K8 take bf16 only; K5 bf16, and f32 at D up to 3072); a wrapper
+raises ValueError on anything else and never drops to the plain version.
+The library is built at its first launch, so a machine without nvcc can
+still import this module and run the plain versions.
 
 Every wrapper takes its plain version for a CPU tensor or for
 ``impl="plain"`` (the plain route of ``FluxConfig.quant_impl``), and
@@ -66,7 +70,13 @@ from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 
 # every glue kernel's launches
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
-            "quant_rows": 0, "row_absmax": 0, "quant_rows_at": 0}
+            "quant_rows": 0, "row_absmax": 0, "quant_rows_at": 0,
+            "ln_mod_f32": 0}
+# the dtypes a kernel takes where not bf16 alone (K5 also has an f32
+# instance), and the widest f32 row of K5's (a row it holds in registers)
+ROW_DTYPES = {"ln_mod": (torch.bfloat16, torch.float32)}
+F32_MAX_D = 3072
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _bind(lib):
@@ -77,6 +87,9 @@ def _bind(lib):
     lib.x2i_quant_rows.argtypes = [p, ll, ll, p, p, i, i, i, i, i, i, i, p,
                                    p]
     lib.x2i_quant_rows.restype = i
+    lib.x2i_ln_mod_f32.argtypes = [p, ll, ll, p, p, ll, p, i, i, i,
+                                   ctypes.c_float, p]
+    lib.x2i_ln_mod_f32.restype = i
 
 
 # K5-K8; their launches count in LAUNCHES. The build gate checks every
@@ -86,7 +99,8 @@ ROW_GLUE = CudaLibrary(
     checked_kernels=("ln_mod_kernel", "ln_mod_quant_kernel",
                      "quant_warp_kernel", "ln_mod_rows_kernel",
                      "quant_ring_kernel", "quant_rows_kernel",
-                     "row_amax_warp_kernel", "quant_at_warp_kernel"))
+                     "row_amax_warp_kernel", "quant_at_warp_kernel",
+                     "ln_mod_f32_kernel"))
 
 # the instances of K7 and K8 (``x2i_quant_rows``'s `kind`)
 QUANT_KINDS = {"generic": 0, "warp": 1, "ring": 2}
@@ -152,11 +166,13 @@ def gelu_quant_plain(x: torch.Tensor):
 # ------------------------------------------------------------------ CUDA
 
 def _rows3(name, x):
-    """(B, S, D) or (N, D) bf16 with a contiguous last dim -> (B, S, D)."""
-    if (x.dtype != torch.bfloat16 or x.dim() not in (2, 3)
-            or x.stride(-1) != 1):
-        raise ValueError(f"{name} kernel: x must be (B, S, D) or (N, D) bf16 "
-                         f"with a contiguous last dim, got {x.dtype} "
+    """(B, S, D) or (N, D) in a dtype of the kernel's (``ROW_DTYPES``, by
+    default bf16) with a contiguous last dim -> (B, S, D)."""
+    dtypes = ROW_DTYPES.get(name, (torch.bfloat16,))
+    if x.dtype not in dtypes or x.dim() not in (2, 3) or x.stride(-1) != 1:
+        kinds = " or ".join(_DTYPE_NAMES[t] for t in dtypes)
+        raise ValueError(f"{name} kernel: x must be (B, S, D) or (N, D) "
+                         f"{kinds} with a contiguous last dim, got {x.dtype} "
                          f"{tuple(x.shape)} strides {x.stride()}")
     return x if x.dim() == 3 else x[None]
 
@@ -174,17 +190,22 @@ def _extras(name, x, shift, scale):
     return shift, scale
 
 
-def check_row_args(name: str, d: int, rows: int, strides, ptrs):
+def check_row_args(name: str, d: int, rows: int, strides, ptrs,
+                   itemsize: int = 2):
     """The widths and layouts that the row glue kernels take: at least one
-    row, D a multiple of 8, and every row of x (and of shift and scale)
-    starting on a 16-byte boundary: each of ``ptrs`` 16-byte aligned and
-    each stride of ``strides``, given as (size, stride in bf16 elements)
-    of a dim, a multiple of 8 where the dim's size is above 1. Raises
-    ValueError otherwise."""
-    if rows < 1 or d < 8 or d % 8:
+    row, D a multiple of the elements in 16 bytes (8 of bf16, 4 of f32;
+    on f32 rows at most ``F32_MAX_D``), and every row of x (and of shift
+    and scale) starting on a 16-byte boundary: each of ``ptrs`` 16-byte
+    aligned and each stride of ``strides``, given as (size, stride in
+    elements) of a dim, a multiple of the same where the dim's size is
+    above 1. Raises ValueError otherwise."""
+    per16 = 16 // itemsize
+    if (rows < 1 or d < per16 or d % per16
+            or (itemsize == 4 and d > F32_MAX_D)):
+        limit = f" and at most {F32_MAX_D}" if itemsize == 4 else ""
         raise ValueError(f"{name} kernel: unsupported shape: {rows} rows of "
-                         f"D = {d} (D must be a multiple of 8)")
-    if (any(size > 1 and stride % 8 for size, stride in strides)
+                         f"D = {d} (D must be a multiple of {per16}{limit})")
+    if (any(size > 1 and stride % per16 for size, stride in strides)
             or any(p % 16 for p in ptrs)):
         raise ValueError(f"{name} kernel: rows must start on 16-byte "
                          f"boundaries, got (size, stride) {list(strides)} "
@@ -218,8 +239,9 @@ def quant_instance(d: int, gelu: bool = False, op: str = "quant_rows"):
 
 def row_views(name: str, x, shift=None, scale=None):
     """Every check of the row glue kernels: x (B, S, D) or (N, D) bf16
-    with a contiguous last dim, shift and scale (B, D) of its dtype on its
-    device, then ``check_row_args`` (D % 8, 16-byte row starts). Raises
+    (for K5 also f32) with a contiguous last dim, shift and scale (B, D)
+    of its dtype on its device, then ``check_row_args`` (D % 8, or % 4 and
+    at most ``F32_MAX_D`` in f32, 16-byte row starts). Raises
     ValueError on anything else. -> (x as (B, S, D), shift, scale), the
     modulation rows made contiguous where their strides differ."""
     x = _rows3(name, x)
@@ -229,7 +251,7 @@ def row_views(name: str, x, shift=None, scale=None):
         shift, scale = _extras(name, x, shift, scale)
         strides.append((b, shift.stride(0)))
         ptrs += [shift.data_ptr(), scale.data_ptr()]
-    check_row_args(name, d, b * s, strides, ptrs)
+    check_row_args(name, d, b * s, strides, ptrs, x.element_size())
     return x, shift, scale
 
 
@@ -243,6 +265,14 @@ def _launch_ln(name, x, shift, scale, eps, quant):
     shape = x.shape
     x, shift, scale = row_views(name, x, shift, scale)
     b, s, d = x.shape
+    if x.dtype == torch.float32:
+        out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
+        _check_launch("ln_mod_f32", ROW_GLUE.lib().x2i_ln_mod_f32(
+            x.data_ptr(), x.stride(0), x.stride(1), shift.data_ptr(),
+            scale.data_ptr(), shift.stride(0), out.data_ptr(), b, s, d, eps,
+            _stream(x)))
+        LAUNCHES["ln_mod_f32"] += 1
+        return out
     if quant:
         out, a = _quant_out(shape, x.device)
     else:
@@ -324,9 +354,10 @@ def _plain(name, impl, *tensors):
 def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
            eps: float = 1e-6) -> torch.Tensor:
     """K5: modulate(layer_norm(x), shift, scale) in one pass, x.dtype out.
-    x (B, S, D); shift/scale (B, D). A CUDA tensor launches the CUDA
-    kernel (which raises on what it does not take); a CPU tensor takes
-    ``ln_mod_plain``."""
+    x (B, S, D) bf16 or f32; shift/scale (B, D) of x's dtype. A CUDA
+    tensor launches the CUDA kernel (its f32 instance on f32 rows, counted
+    as ``ln_mod_f32``; it raises on what it does not take); a CPU tensor
+    takes ``ln_mod_plain``."""
     if _plain("ln_mod", "auto", x, shift, scale):
         return ln_mod_plain(x, shift, scale, eps)
     return _ln_mod_cuda(x, shift, scale, eps)

@@ -29,7 +29,12 @@ Phases, each printing one JSON line per record:
    in relative L2), timed beside SDPA in f32; head dim 256 (the 12 x 256
    DiT's shapes): K1a at (1, 12, 4608, 256), K1's masked body with the
    rope on the 960^2 pad route (4112 of 4224 keys) and K2 at (1, 12,
-   16896, 256), beside SDPA at D = 256; the f32 DiT's fused glue: K1's
+   16896, 256), beside SDPA at D = 256; under autograd at D = 256 K1 with
+   the lse, K3 and K4 at the phase-2 shape (1, 12, 4608, 256) with the
+   rope outside and inside, on the pad route, at a ring shard (1, 12,
+   1152, 256) and in f32, and K2 with the lse (bf16 and f32) at a ring
+   of 2's pair (1, 12, 8448, 256), beside SDPA's forward and backward;
+   the f32 DiT's fused glue: K1's
    f32 rope-and-norm instance at (1, 24, 4608, 128) (its o rounded to
    bf16 against the bf16 K1a's on the rounded inputs) beside SDPA in f32,
    and K5's f32 instance at the DiT's three row counts beside
@@ -133,7 +138,13 @@ Phases, each printing one JSON line per record:
    (K1a at D = 256, 228), 2048^2 (K2 at D = 256, 228) and 960^2 (4112
    tokens, the pad route: K1's masked body with the rope at D = 256, 228)
    images through ``X2IPipeline.text2image`` with exact launch counts,
-   each with a 2+2-block route check at D = 256;
+   each with a 2+2-block route check at D = 256; d256-train: the phase-2
+   step on that DiT (bf16, 32-bit AdamW, one warm-up and two timed steps:
+   K1c 1, K1-lse 112, K3 56, K4 56 a step at D = 256, no plain attention
+   at D = 256); d256-ring: the same DiT under ``ring_sequence`` on a ring
+   of 4 at 1024^2 and 2048^2 (K1-lse 3648 an image at (1, 12, 1152, 256)
+   and (1, 12, 4224, 256)) against the unsharded d256 / d256-2048
+   images;
 4d. f32: the same DiT cast in place to f32, its glue unfused: f32-2048,
    one 2048^2 4-step text2image (warmed up by one f32 DiT step) with
    exact launch counts (K2's f32 instance 228, the LM's K1b 24), no plain
@@ -141,7 +152,9 @@ Phases, each printing one JSON line per record:
    2048^2 image; lightcontrol-train-f32, the phase-2 step on it (the bank
    in f32, 32-bit AdamW, one warm-up and one timed step: K1's f32 forward
    1, its lse instance 112, K3's 56, K4's 56 a step; the bank moved, the
-   DiT unchanged); f32-fused: a 1024^2 f32 image unfused, then with
+   DiT unchanged); lightcontrol-train-f32-d256, the same step on the
+   12 x 256 DiT in f32 (the f32 instances' counts at D = 256); f32-fused:
+   a 1024^2 f32 image unfused, then with
    ``fused_glue=True`` (K1's f32 rope-and-norm instance 228 in both, K5's
    f32 instance 460 in the fused one), the two within 2e-2 relative L2;
    the DiT cast back to bf16, bit for bit the one before; the 2+2-block
@@ -164,7 +177,10 @@ Phases, each printing one JSON line per record:
    ``train_stream``). Then ring-kernels: the ring of 4 at (1, 24, 4608,
    128) against K1 with the lse and K3/K4 on the whole sequence, and at
    2048^2 rings of 4 (K1 with the lse) and 2 (K2 with the lse) against K2,
-   exact launch counts, each ring's time beside the whole kernel's;
+   the ring of 4 at 4608 tokens in f32 (the f32 instances), and at
+   D = 256 a ring of 4 at 4608 tokens and a ring of 2 at 16,896 (K2 with
+   the lse, K3 and K4 on 8448-token pairs) forward and backward, exact
+   launch counts, each ring's time beside the whole kernel's;
    ring-image: a 2048^2 image under ``ring_sequence`` on a ring of 4
    (3648 K1-lse launches) against a ring of one; pipeline-forward: the
    DiT at 1024^2, batch 2, through ``flux_pipeline_forward`` on 4 stages
@@ -561,7 +577,8 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
     rounded to bf16 at the same points, summed in another order). q, k, v,
     do are (B, H, S, D) views of (B, S, H, D) tensors, as the dispatcher
     passes them. `library` is (forward, forward + backward, inputs):
-    SDPA's backward is timed as the difference."""
+    SDPA's backward is timed as the difference. At D = 256 the records
+    take the kernels' ``_d256`` names."""
     import torch
     from x2i_torch.ops import flash_attention as fa
     o, lse = fa.flash_forward_lse(q, k, v, **kw)
@@ -581,7 +598,7 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
     mask = kw.get("kv_mask")
     shape = {"shape": list(q.shape), "kv_shape": list(k.shape)}
     diff = (o.float() - o_p.float()).abs()
-    fwd = {"kernel": f"flash_fwd_lse[{label}]",
+    fwd = {"kernel": f"{fa.launch_name('flash_fwd_lse', d)}[{label}]",
            "max_abs_err": diff.max().item(),
            "mean_abs_err": diff.mean().item(),
            "lse_max_abs_err": (lse - lse_p).abs().max().item(),
@@ -597,13 +614,14 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
     rate(fwd, 4.0 * pairs * d)
     ok = (fwd["finite"] and fwd["max_abs_err"] <= 1e-2
           and fwd["mean_abs_err"] <= 1e-3 and fwd["lse_max_abs_err"] <= 1e-3)
-    out = [("flash_fwd_lse", fwd)]
+    out = [(fa.launch_name("flash_fwd_lse", d), fwd)]
     for name, got, want, fn, plain, flops in (
             ("flash_bwd_dq", (dq,), (dq_p,), fa.flash_bwd_dq,
              fa.flash_bwd_dq_plain, 6.0),
             ("flash_bwd_dkv", (dk, dv), (dk_p, dv_p), fa.flash_bwd_dkv,
              fa.flash_bwd_dkv_plain, 8.0)):
         errs = [_rel_errors(g_, w_) for g_, w_ in zip(got, want)]
+        name = fa.launch_name(name, d)
         rec = {"kernel": f"{name}[{label}]",
                "max_abs_err": max((g_.float() - w_.float()).abs().max()
                                   .item() for g_, w_ in zip(got, want)),
@@ -631,6 +649,24 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
                              f"disagrees with its plain version: {out}")
 
 
+def _sdpa_lib(q, k, v, do, mask=None):
+    """SDPA as ``check_flash_train``'s library: (forward, forward + backward
+    by autograd, contiguous (B, H, S, D) inputs) for (B, S, H, D) q, k, v,
+    do and an optional bool mask."""
+    import torch
+    import torch.nn.functional as F
+    ins = [t.transpose(1, 2).contiguous() for t in (q, k, v, do)]
+
+    def fwd(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def fwd_bwd(q, k, v, do):
+        args = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fwd(*args), args, do)
+
+    return fwd, fwd_bwd, ins
+
+
 def check_training_attention(g, records):
     """K1 with the lse, K3 and K4 at the distillation step's shapes: the
     FLUX training point (1, 24, 4608, 128), no mask, not causal, rope
@@ -639,7 +675,6 @@ def check_training_attention(g, records):
     teacher's forward at the FLUX point (K1c: no rope, no lse, the
     pipelined body)."""
     import torch
-    import torch.nn.functional as F
 
     dev = torch.device("cuda")
 
@@ -647,23 +682,11 @@ def check_training_attention(g, records):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
 
-    def sdpa_lib(q, k, v, do, mask=None):
-        ins = [t.transpose(1, 2).contiguous() for t in (q, k, v, do)]
-
-        def fwd(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
-        def fwd_bwd(q, k, v, do):
-            args = [t.detach().requires_grad_() for t in (q, k, v)]
-            return torch.autograd.grad(fwd(*args), args, do)
-
-        return fwd, fwd_bwd, ins
-
     s_txt, grid, heads, d = 512, 128, 24, 128
     s = s_txt + (grid // 2) ** 2
     rope = _rope_tables(s_txt, grid, (16, 56, 56), dev)
     q, k, v, do = (randn(1, s, heads, d) for _ in range(4))
-    lib = sdpa_lib(q, k, v, do)
+    lib = _sdpa_lib(q, k, v, do)
     check_flash("flash_fwd_pipe[teacher, rope outside]", q, k, v,
                 records.setdefault("flash_fwd_pipe", []),
                 library=(lib[0], lib[2][:3]))
@@ -678,7 +701,7 @@ def check_training_attention(g, records):
     causal_mask = (torch.ones((s, s), dtype=torch.bool, device=dev).tril()
                    & mask[:, None, :])[:, None]
     kr, vr = (t.repeat_interleave(hq // hk, dim=2) for t in (k, v))
-    lib = sdpa_lib(q, kr, vr, do, causal_mask)
+    lib = _sdpa_lib(q, kr, vr, do, causal_mask)
     check_flash_train("LM, kv mask, causal",
                       *[t.transpose(1, 2) for t in (q, k, v, do)], records,
                       lib, kv_mask=mask, causal=True)
@@ -716,8 +739,7 @@ K2_REL_MAX, K2_REL_MEAN = 2e-2, 1e-2
 def check_flash_chunked(label, q, k, v, records, library, rows_per_block,
                         kv_mask=None, causal=False, name="flash_chunked",
                         with_lse=True):
-    """K2 at one shape, with and without the lse (``with_lse``; at
-    D = 256 without: the lse instance is not built for it): against its
+    """K2 at one shape, with and without the lse (``with_lse``): against its
     plain version (256 x 512 tiles with the block skip against the
     kernel's 128 x 128: o within 1e-2 max and 1e-3 mean absolute error in
     bf16 and within ``K2_REL_MAX`` / ``K2_REL_MEAN`` relative to |o|, the
@@ -923,16 +945,14 @@ def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
                              f"instance: {rec}")
 
 
-def check_f32_attention(g, records):
-    """The f32 instances at their paths' shapes, each against its f32 plain
-    version beside the bf16 instance (``check_f32_instance``): K1 with the
-    lse, K3 and K4 at the f32 phase-2 step's (1, 24, 4608, 128), no mask,
-    rope outside (K3 and K4 on the plain forward's residuals); K2 with and
-    without the lse at the f32 2048^2 DiT's (1, 24, 16896, 128). The
-    tensors are (B, H, S, D) views of (B, S, H, D) storage, as the
-    dispatcher passes them. SDPA in f32 on contiguous copies is the
-    library's time (for K3 and K4 its forward + backward less its
-    forward)."""
+def check_f32_training(g, records, heads: int, d: int, label: str):
+    """K1's f32 instance with the lse, K3's and K4's at (1, heads, 4608, d)
+    f32, no mask, rope outside (the f32 phase-2 step's attention), each
+    against its f32 plain version beside the bf16 instance
+    (``check_f32_instance``), K3 and K4 on the plain forward's residuals;
+    SDPA in f32 on contiguous copies the library's time (for K3 and K4 its
+    forward + backward less its forward). At D = 256 the records take the
+    ``_d256`` names."""
     import functools
 
     import torch
@@ -957,12 +977,11 @@ def check_f32_attention(g, records):
         f_ms = kernel_ms(fwd, *ins[:3])
         return f_ms, kernel_ms(fwd_bwd, *ins) - f_ms
 
-    q, k, v, do = (randn(1, 4608, 24, 128) for _ in range(4))
-    pairs, d = 4608 * 4608 * 24, 128
+    q, k, v, do = (randn(1, 4608, heads, d) for _ in range(4))
+    pairs = 4608 * 4608 * heads
     fwd_ms, bwd_ms = sdpa_times(q, k, v, do)
     check_f32_instance(
-        "flash_fwd_lse_f32", "phase-2 f32, rope outside",
-        fa.flash_forward_lse,
+        fa.launch_name("flash_fwd_lse_f32", d), label, fa.flash_forward_lse,
         functools.partial(fa.flash_attention_plain, return_lse=True),
         [q, k, v], [], records, fwd_ms, "SDPA forward, f32 (no lse output)",
         4.0 * pairs * d)
@@ -974,12 +993,34 @@ def check_f32_attention(g, records):
             ("flash_bwd_dkv_f32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
              8.0)):
         check_f32_instance(
-            name, "phase-2 f32, rope outside", fn, plain, [q, k, v, do],
-            res, records, bwd_ms, "SDPA backward, f32: forward + backward "
-            "by autograd minus the forward (both kernels' work)",
+            fa.launch_name(name, d), label, fn, plain, [q, k, v, do], res,
+            records, bwd_ms, "SDPA backward, f32: forward + backward by "
+            "autograd minus the forward (both kernels' work)",
             flops * pairs * d)
     del q, k, v, do, res
     torch.cuda.empty_cache()
+
+
+def check_f32_attention(g, records):
+    """The f32 instances at their paths' shapes, each against its f32 plain
+    version beside the bf16 instance (``check_f32_instance``): K1 with the
+    lse, K3 and K4 at the f32 phase-2 step's (1, 24, 4608, 128), no mask,
+    rope outside (``check_f32_training``); K2 with and without the lse at
+    the f32 2048^2 DiT's (1, 24, 16896, 128). The tensors are (B, H, S, D)
+    views of (B, S, H, D) storage, as the dispatcher passes them. SDPA in
+    f32 on contiguous copies is the library's time."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).transpose(1, 2)
+
+    check_f32_training(g, records, 24, 128, "phase-2 f32, rope outside")
     s = 512 + (2048 // 16) ** 2
     q, k, v = (randn(1, s, 24, 128) for _ in range(3))
     lib = (lambda *t: F.scaled_dot_product_attention(*t),
@@ -1065,6 +1106,94 @@ def check_d256_attention(g, rows, records):
                         *(t.transpose(1, 2) for t in (q, k, v)), records,
                         lib, 1024, name="flash_chunked_d256", with_lse=False)
     del q, k, v, lib
+    torch.cuda.empty_cache()
+
+
+def check_d256_training_attention(g, records):
+    """K1 with the lse, K3 and K4 at head dim 256 (``check_flash_train``'s
+    bars: o 1e-2 max and 1e-3 mean, the lse 1e-3, the gradients 2e-2 max
+    and 2e-3 mean of the largest |gradient|): at the 12 x 256 DiT's
+    phase-2 shape (1, 12, 4608, 256) with the rope outside the kernels (the
+    trainers' ``rope_in_kernel=False``) and inside them; on the pad route at
+    960^2 (4112 of 4224 keys, the rope inside); at a ring shard (1, 12,
+    1152, 256), the small grid (K3's 108 blocks of 128 q rows; K4's 216 of
+    64 kv rows take no split); then the f32 instances at (1, 12, 4608, 256)
+    (``check_f32_training``) and K2 with the lse at a ring of 2's pair at
+    2048^2, (1, 12, 8448, 256) (``check_flash_chunked``), and its f32
+    instance there (``check_f32_instance``). SDPA at D = 256 is the
+    library's time (forward, and forward + backward less the forward)."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    s_txt, heads, d = 512, D256["num_attention_heads"], 256
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def bhsd(*t):
+        return [x.transpose(1, 2) for x in t]
+
+    def train(label, q, k, v, do, lib, **kw):
+        # each case named in the kernels line
+        check_flash_train(label, *bhsd(q, k, v, do), records, lib, **kw)
+        for name in ("flash_fwd_lse_d256", "flash_bwd_dq_d256",
+                     "flash_bwd_dkv_d256"):
+            records[name][-1]["case"] = label
+
+    s = s_txt + (1024 // 16) ** 2
+    rope = _rope_tables(s_txt, 128, D256["axes_dims_rope"], dev)
+    q, k, v, do = (randn(1, s, heads, d) for _ in range(4))
+    lib = _sdpa_lib(q, k, v, do)
+    train("12 x 256 DiT, rope outside", q, k, v, do, lib)
+    train("12 x 256 DiT, rope in the kernel", q, k, v, do, lib, rope=rope)
+    del q, k, v, do, lib
+    pad = -(-D256_PAD_TOKENS // 128) * 128
+    cos, sin = _rope_tables(s_txt, 960 // 8, D256["axes_dims_rope"], dev)
+    tables = tuple(F.pad(t, (0, 0, 0, pad - D256_PAD_TOKENS))
+                   for t in (cos, sin))
+    mask = torch.arange(pad, device=dev)[None] < D256_PAD_TOKENS
+    q, k, v, do = (randn(1, pad, heads, d) for _ in range(4))
+    train(f"12 x 256 DiT 960^2, the pad route: {D256_PAD_TOKENS} of {pad} "
+          f"keys, rope in the kernel", q, k, v, do,
+          _sdpa_lib(q, k, v, do, mask[:, None, None, :]), kv_mask=mask,
+          rope=tables)
+    del q, k, v, do
+    q, k, v, do = (randn(1, s // RING, heads, d) for _ in range(4))
+    train("12 x 256 ring shard, 1152 tokens", q, k, v, do,
+          _sdpa_lib(q, k, v, do))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    check_f32_training(g, records, heads, d, "12 x 256 phase-2 f32, rope "
+                       "outside")
+    s = (s_txt + (2048 // 16) ** 2) // 2
+    q, k, v = (randn(1, s, heads, d) for _ in range(3))
+    lib = (lambda *t: F.scaled_dot_product_attention(*t),
+           [t.transpose(1, 2).contiguous() for t in (q, k, v)])
+    label = "12 x 256 ring of 2 pair at 2048^2, lse"
+    check_flash_chunked(label, *bhsd(q, k, v), records, lib, 1024,
+                        name="flash_chunked_d256", with_lse=True)
+    records["flash_chunked_d256"][-1]["case"] = label
+    del q, k, v, lib
+    # and K2's f32 instance with the lse on the same shape
+    q, k, v = (torch.randn((1, s, heads, d), generator=g, device=dev
+                           ).transpose(1, 2) for _ in range(3))
+    check_f32_instance(
+        "flash_chunked_f32_d256", f"{label}, f32",
+        functools.partial(fa.flash_forward_chunked, return_lse=True),
+        functools.partial(fa.flash_forward_chunked_plain, block_q=4096,
+                          block_k=4096, return_lse=True),
+        [q, k, v], [], records,
+        (lambda *t: F.scaled_dot_product_attention(*t),
+         [t.contiguous() for t in (q, k, v)]),
+        "SDPA forward, f32, contiguous (B, H, S, D)",
+        4.0 * s * s * heads * d)
+    records["flash_chunked_f32_d256"][-1]["case"] = f"{label}, f32"
+    del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -1285,6 +1414,7 @@ def phase_kernels(seed: int):
     check_chunked_attention(g, recs)
     check_f32_attention(g, recs)
     check_d256_attention(g, rows, recs)
+    check_d256_training_attention(g, recs)
     check_f32_glue(g, recs)
     check_glue(g, randn, rows, recs)
     check_gemms(g, rows, recs)
@@ -2107,6 +2237,9 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "flash_fwd_d256": 0, "flash_fwd_pipe_d256": 0,
                "flash_fwd_f32_d256": 0, "flash_fwd_rope_f32_d256": 0,
                "flash_chunked_d256": 0, "flash_chunked_f32_d256": 0,
+               "flash_fwd_lse_d256": 0, "flash_fwd_lse_f32_d256": 0,
+               "flash_bwd_dq_d256": 0, "flash_bwd_dkv_d256": 0,
+               "flash_bwd_dq_f32_d256": 0, "flash_bwd_dkv_f32_d256": 0,
                "ln_mod": 0, "ln_mod_f32": 0, "ln_mod_quant": 0,
                "gelu_quant": 0, "quant_rows": 0, "row_absmax": 0,
                "quant_rows_at": 0, "int8_gemm": 0, "int8_gemm_acc": 0,
@@ -2608,19 +2741,24 @@ def phase_d256(pipe, seed: int, card: str):
     route, K1's masked body with the rope at D = 256, 228), each held to
     its exact counts (K5 460, the LM's K1b 24) and followed by a 2 + 2
     block route check at D = 256 against the plain route (``check_routes``:
-    512^2, 1536^2 above 8192 tokens, 480^2 on the pad route). -> {run
-    label: launches}."""
+    512^2, 1536^2 above 8192 tokens, 480^2 on the pad route). -> ({run
+    label: launches}, {px: the 1024^2 and 2048^2 images, uint8})."""
     import dataclasses
+
+    from x2i_torch.models.vae import postprocess
 
     t0 = time.perf_counter()
     flux = d256_dit(pipe.flux)
     p256 = dataclasses.replace(pipe, flux=flux)
-    runs = {}
+    runs, images = {}, {}
     for label, px, ref_px in (("d256", 1024, 512), ("d256-2048", 2048, 1536),
                               ("d256-960", 960, 480)):
         joint = 512 + (px // 16) ** 2
         want = expected_launches(False, 4, joint_tokens=joint, head_dim=256)
-        rec, _, counts = run_image(p256, seed, label, want, px)
+        rec, pixels, counts = run_image(p256, seed, label, want, px)
+        if px in (1024, 2048):
+            # the image run_task gave: the same seed's noise, postprocessed
+            images[px] = postprocess(pixels).cpu().numpy()
         rec.update(head_dim=256, heads=D256["num_attention_heads"],
                    route=("chunked" if joint > 8192 else
                           "pad" if joint % 128 else "kernel"), card=card)
@@ -2631,6 +2769,116 @@ def phase_d256(pipe, seed: int, card: str):
         runs[label] = counts
         check_routes(seed + 5, ref_px, f"{label}-reference", head_dim=256)
     emit({"phase": "d256-summary", "seconds": time.perf_counter() - t0,
+          "card": card})
+    return runs, images
+
+
+# the phase-2 step on the 12 x 256 DiT with a text2image conditioning (K1b
+# in the LM's 24 layers): the 24 x 128 DiT's counts (K1's pipelined body
+# once in the first double block, whose attention does not depend on the
+# controls; in the 56 blocks after it K1 with the lse in the forward and
+# again in the remat recompute, K3 and K4 once) under the ``_d256`` names,
+# and in f32 under the f32 instances'
+LIGHTCONTROL_D256_LAUNCHES = dict(
+    NO_LAUNCHES, flash_fwd=24, flash_fwd_pipe_d256=1, flash_fwd_lse_d256=112,
+    flash_bwd_dq_d256=56, flash_bwd_dkv_d256=56)
+LIGHTCONTROL_F32_D256_LAUNCHES = dict(
+    NO_LAUNCHES, flash_fwd=24, flash_fwd_f32_d256=1,
+    flash_fwd_lse_f32_d256=112, flash_bwd_dq_f32_d256=56,
+    flash_bwd_dkv_f32_d256=56)
+
+
+def phase_d256_train(pipe, seed: int, card: str, label: str = "d256-train",
+                     want=LIGHTCONTROL_D256_LAUNCHES, steps: int = 3):
+    """The phase-2 step (``phase_lightcontrol_steps``: 32-bit AdamW, 1024^2,
+    a text2image conditioning) on the 12 x 256 DiT (``d256_dit`` on the
+    pipeline's DiT as it stands, bf16 or f32): one warm-up and ``steps - 1``
+    timed steps with exact launch counts (``want``), every call of the
+    plain attention recorded (``plain_attention_calls``): none at D = 256.
+    -> {label: the last step's launches}."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    p256 = dataclasses.replace(pipe, flux=d256_dit(pipe.flux))
+    shapes = []
+    with plain_attention_calls(shapes):
+        launches = phase_lightcontrol_steps(p256, seed, card, label, want,
+                                            steps=steps, use_8bit_adam=False)
+    at_256 = [sh for sh in shapes if sh[-1] == 256]
+    emit({"phase": f"{label}-plain-attention",
+          "seconds": time.perf_counter() - t0,
+          "plain_attention_shapes": sorted(set(shapes)),
+          "plain_attention_calls_at_d256": len(at_256), "card": card})
+    if at_256:
+        raise AssertionError(f"{label}: {len(at_256)} plain attentions at "
+                             f"D = 256: {sorted(set(at_256))}")
+    return {label: launches}
+
+
+def phase_d256_ring(pipe, images: dict, seed: int, card: str):
+    """``d256-ring``: the 12 x 256 DiT (``d256_dit``) under
+    ``ring_sequence`` on a ring of 4 in the one-process form (the glue
+    unfused, the qk norm and rope outside the kernels): a 1024^2 image as
+    the warm-up, then 4-step images at 1024^2 and 2048^2 through
+    ``run_task`` with every launch count set to 0 just before and read just
+    after (each attention 16 pairs of K1 with the lse at (1, 12, 1152, 256)
+    and (1, 12, 4224, 256): 57 x 16 x 4 an image, the LM's K1b 24), each
+    held to ring-image's bar against the unsharded 12 x 256 image of
+    ``phase_d256`` (``images``: the same seed and noise on the kernel
+    route, the glue fused). -> {run label: launches}."""
+    import dataclasses
+
+    import numpy as np
+    from x2i_torch.parallel.axis import LocalAxis
+
+    t0 = time.perf_counter()
+    p256 = dataclasses.replace(pipe, flux=d256_dit(pipe.flux))
+    flux, steps = p256.flux, 4
+    req = {"task": "text2image", "prompt": PROMPTS[0]}
+    blocks = flux.cfg.num_layers + flux.cfg.num_single_layers
+    want = dict(NO_LAUNCHES, flash_fwd=24,
+                flash_fwd_lse_d256=blocks * RING * RING * steps)
+    runs = {}
+    flux.replace_config(ring_sequence=True)
+    flux.set_ring_axis(LocalAxis(RING, "tensor"))
+    try:
+        w0 = time.perf_counter()
+        p256.run_task(**req, seed=seed, height=1024, width=1024,
+                      num_steps=steps)
+        warm_s = time.perf_counter() - w0
+        for px in (1024, 2048):
+            reset_counts()
+            w0 = time.perf_counter()
+            img = p256.run_task(**req, seed=seed, height=px, width=px,
+                                num_steps=steps)
+            sec = time.perf_counter() - w0
+            counts = launch_counts()
+            a, b = img.astype(np.float32), images[px].astype(np.float32)
+            levels = np.abs(a - b)
+            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            rec = {"phase": "d256-ring", "px": px, "steps": steps,
+                   "ring": RING, "head_dim": 256,
+                   "heads": D256["num_attention_heads"],
+                   "shard_tokens": (512 + (px // 16) ** 2) // RING,
+                   "s_per_image": sec,
+                   "warmup_s": warm_s if px == 1024 else None,
+                   "first_call": px != 1024,
+                   "image_shape": list(img.shape),
+                   "max_level_diff": float(levels.max()),
+                   "mean_level_diff": float(levels.mean()), "rel_l2": rel,
+                   "against": "the unsharded 12 x 256 image (d256 / "
+                              "d256-2048)",
+                   "launches": counts, "card": card}
+            emit(rec)
+            if (counts != want or img.shape != (1, px, px, 3)
+                    or rel > RING_IMAGE_REL_L2 or float(a.std()) == 0.0):
+                raise AssertionError(f"d256-ring at {px}^2 is wrong: {rec} "
+                                     f"(launches expected {want})")
+            runs[f"d256-ring-{px}"] = counts
+    finally:
+        flux.set_ring_axis(None)
+        flux.replace_config(ring_sequence=False)
+    emit({"phase": "d256-ring-summary", "seconds": time.perf_counter() - t0,
           "card": card})
     return runs
 
@@ -2835,6 +3083,9 @@ def phase_f32(pipe, bf16_2048, seed: int, card: str):
         runs["lightcontrol-train-f32"] = phase_lightcontrol_steps(
             pipe, seed, card, "lightcontrol-train-f32",
             LIGHTCONTROL_F32_LAUNCHES, steps=2, use_8bit_adam=False)
+        runs.update(phase_d256_train(
+            pipe, seed, card, "lightcontrol-train-f32-d256",
+            LIGHTCONTROL_F32_D256_LAUNCHES, steps=2))
     finally:
         set_dit_dtype(flux, torch.bfloat16)
         flux.replace_config(**serving)
@@ -6785,60 +7036,62 @@ RING_IMAGE_REL_L2 = 2.5e-2
 PIPE_REL_L2 = 1e-3
 
 
-def ring_launches(n: int, kv_tokens: int, backward: bool = False) -> dict:
+def ring_launches(n: int, kv_tokens: int, backward: bool = False,
+                  d: int = RING_D, f32: bool = False) -> dict:
     """One ring attention's launches: n^2 pair forwards (K1 with the lse,
     or K2 with the lse above 8192 kv tokens a shard) and, backward, n^2
-    K3 and K4."""
-    fwd = "flash_chunked" if kv_tokens > 8192 else "flash_fwd_lse"
-    want = dict(NO_LAUNCHES, **{fwd: n * n})
+    K3 and K4, under the names of head dim d and the f32 instances."""
+    from x2i_torch.ops.flash_attention import launch_name
+    sfx = "_f32" if f32 else ""
+    fwd = ("flash_chunked" if kv_tokens > 8192 else "flash_fwd_lse") + sfx
+    want = dict(NO_LAUNCHES, **{launch_name(fwd, d): n * n})
     if backward:
-        want.update(flash_bwd_dq=n * n, flash_bwd_dkv=n * n)
+        want.update({launch_name(name + sfx, d): n * n
+                     for name in ("flash_bwd_dq", "flash_bwd_dkv")})
     return want
 
 
-def _ring_record(label, ring, s, **fields):
+def _ring_record(label, ring, s, heads=RING_HEADS, d=RING_D, **fields):
     return {"phase": "parallel", "check": "ring-kernels", "case": label,
-            "ring": ring, "shape": [1, RING_HEADS, s, RING_D],
-            "shard": s // ring, **fields}
+            "ring": ring, "shape": [1, heads, s, d], "shard": s // ring,
+            **fields}
 
 
-def check_ring_kernels(g, recs):
-    """``ring-kernels``: the ring of ``ops/ring_attention.py`` on the
-    card's kernels against the whole sequence's. (1, 24, 4608, 128) over a
-    ring of 4 (1152-token shards): o and lse against K1 with the lse on
-    the whole sequence, dq, dk, dv (the reverse ring, K3 and K4 a pair)
-    against K3 and K4 on it; at 2048^2 (16,896 tokens), forward only, a
-    ring of 4 (4224-token shards, K1 with the lse) and a ring of 2 (8448,
-    K2 with the lse) against K2 with the lse on the whole sequence. Each
-    ring's launches are counted; its time (``kernel_ms``) stands beside
-    the whole kernel's, the ring's plain pair functions', SDPA's, and the
-    whole sequence's bound (the ring does the same work in n^2 launches
-    and the merges). -> {run label: launches}."""
+def _ring_fwd_bwd(label, q, k, v, do, ring, recs, time_plain=True):
+    """A ring of ``ring`` members (the one-process form) over (B, S, H, D)
+    q, k, v, forward and reverse-ring backward of sum(o * do) by autograd,
+    on the card's kernels, against the whole sequence's: K1 with the lse
+    (K2 with the lse above ``MAX_KV_SEQ``) and K3 / K4. o within
+    ``RING_O_MAX`` / ``RING_O_MEAN``, the lse within ``RING_LSE_MAX``, the
+    gradients within ``RING_GRAD_REL_MAX`` / ``RING_GRAD_REL_MEAN`` of the
+    largest |gradient|, the launches exact (``ring_launches``). Each ring's
+    time (``kernel_ms``) beside the whole kernels', the plain pair
+    functions' (``time_plain``: their f32 scores fit), SDPA's and the whole
+    sequence's bound. -> the ring's launches."""
     import torch
     import torch.nn.functional as F
     from x2i_torch.ops import flash_attention as fa
     from x2i_torch.ops import ring_attention as ra
     from x2i_torch.parallel.axis import LocalAxis
 
-    dev = torch.device("cuda")
-
-    def randn(s):
-        return torch.randn((1, s, RING_HEADS, RING_D), generator=g,
-                           device=dev, dtype=torch.bfloat16)
-
-    runs = {}
-    s = 512 + (1024 // 16) ** 2
-    axis = LocalAxis(RING, "tensor")
-    q, k, v, do = (randn(s) for _ in range(4))
+    _, s, heads, d = q.shape
+    f32 = q.dtype == torch.float32
+    axis = LocalAxis(ring, "tensor")
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    o_w, lse_w = fa.flash_forward_lse(qt, kt, vt)
+    chunked = s > fa.MAX_KV_SEQ
+
+    def whole_fwd(*t):
+        return (fa.flash_forward_chunked(*t, return_lse=True) if chunked
+                else fa.flash_forward_lse(*t))
+
+    o_w, lse_w = whole_fwd(qt, kt, vt)
     grads_w = fa.flash_backward(qt, kt, vt, None, o_w, lse_w, dot)
     reset_counts()
     ins = [x.detach().requires_grad_() for x in (q, k, v)]
     o_r = ra.ring_attention(*ins, axis)
     grads_r = torch.autograd.grad(o_r, ins, do)
     torch.cuda.synchronize()
-    runs["ring-4608"] = counts = launch_counts()
+    counts = launch_counts()
     _, lse_r = ra.ring_forward_lse(qt, kt, vt, axis)
     diff = (o_r.float() - o_w.transpose(1, 2).float()).abs()
     errs = [_rel_errors(a, b.transpose(1, 2))
@@ -6848,20 +7101,26 @@ def check_ring_kernels(g, recs):
     def sdpa(a, b, c):
         return F.scaled_dot_product_attention(a, b, c)
 
-    def sdpa_fb(a, b, c, d):
+    def sdpa_fb(a, b, c, d_):
         args = [t.detach().requires_grad_() for t in (a, b, c)]
-        return torch.autograd.grad(sdpa(*args), args, d)
+        return torch.autograd.grad(sdpa(*args), args, d_)
 
-    flops = 4.0 * s * s * RING_D * RING_HEADS
+    sfx = "_f32" if f32 else ""
+    fwd_name = fa.launch_name(("flash_chunked" if s // ring > fa.MAX_KV_SEQ
+                               else "flash_fwd_lse") + sfx, d)
+    bwd_names = [fa.launch_name(n + sfx, d)
+                 for n in ("flash_bwd_dq", "flash_bwd_dkv")]
+    flops = 4.0 * s * s * d * heads
     fwd = _ring_record(
-        "DiT 1024^2, ring of 4, forward", RING, s,
-        kernel="flash_fwd_lse", max_abs_err=diff.max().item(),
+        f"{label}, ring of {ring}, forward", ring, s, heads, d,
+        kernel=fwd_name, dtype=str(q.dtype), max_abs_err=diff.max().item(),
         mean_abs_err=diff.mean().item(),
         lse_max_abs_err=(lse_r - lse_w).abs().max().item(),
         ms=kernel_ms(lambda *t: ra.ring_forward_lse(*t, axis), qt, kt, vt),
-        whole_ms=kernel_ms(fa.flash_forward_lse, qt, kt, vt),
-        plain_ms=kernel_ms(lambda *t: ra.ring_forward_lse(
-            *t, axis, implementation="plain"), qt, kt, vt),
+        whole_ms=kernel_ms(whole_fwd, qt, kt, vt),
+        plain_ms=(kernel_ms(lambda *t: ra.ring_forward_lse(
+            *t, axis, implementation="plain"), qt, kt, vt)
+            if time_plain else None),
         library_ms=kernel_ms(sdpa, *lib_in[:3]),
         library="SDPA forward on the whole sequence (no lse output)")
     fwd["bound_ms"], fwd["bound_by"] = bound(
@@ -6873,42 +7132,75 @@ def check_ring_kernels(g, recs):
         return ra.ring_grads(*t, axis)
 
     bwd = _ring_record(
-        "DiT 1024^2, ring of 4, backward", RING, s,
-        kernel="flash_bwd_dq+flash_bwd_dkv",
+        f"{label}, ring of {ring}, backward", ring, s, heads, d,
+        kernel="+".join(bwd_names), dtype=str(q.dtype),
         max_abs_err=max((a.float() - b.transpose(1, 2).float()).abs().max()
                         .item() for a, b in zip(grads_r, grads_w)),
         max_rel_err=max(e[0] for e in errs),
         mean_rel_err=max(e[1] for e in errs),
         ms=kernel_ms(ring_bwd, qt, kt, vt, *res),
-        whole_ms=kernel_ms(lambda a, b, c, o, l, d: fa.flash_backward(
-            a, b, c, None, o, l, d), qt, kt, vt, *res),
-        plain_ms=kernel_ms(lambda *t: ra.ring_grads(
-            *t, axis, implementation="plain"), qt, kt, vt, *res),
+        whole_ms=kernel_ms(lambda a, b, c, o, l, d_: fa.flash_backward(
+            a, b, c, None, o, l, d_), qt, kt, vt, *res),
+        plain_ms=(kernel_ms(lambda *t: ra.ring_grads(
+            *t, axis, implementation="plain"), qt, kt, vt, *res)
+            if time_plain else None),
         library_ms=kernel_ms(sdpa_fb, *lib_in) - kernel_ms(sdpa,
                                                            *lib_in[:3]),
         library="SDPA backward: forward + backward by autograd minus the "
                 "forward")
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        14.0 * s * s * RING_D * RING_HEADS,
+        14.0 * s * s * d * heads,
         nbytes(qt, kt, vt, dot, o_w, lse_w, lse_w, *grads_w))
-    rate(bwd, 14.0 * s * s * RING_D * RING_HEADS)
+    rate(bwd, 14.0 * s * s * d * heads)
     fwd["launches"] = bwd["launches"] = counts
     for rec in (fwd, bwd):
         emit(rec)
-    want = ring_launches(RING, s // RING, backward=True)
+    want = ring_launches(ring, s // ring, backward=True, d=d, f32=f32)
     if not (counts == want and fwd["max_abs_err"] <= RING_O_MAX
             and fwd["mean_abs_err"] <= RING_O_MEAN
             and fwd["lse_max_abs_err"] <= RING_LSE_MAX
             and bwd["max_rel_err"] <= RING_GRAD_REL_MAX
             and bwd["mean_rel_err"] <= RING_GRAD_REL_MEAN
             and all(bool(torch.isfinite(t).all()) for t in (o_r, *grads_r))):
-        raise AssertionError(f"ring-kernels at {s} tokens: {fwd} {bwd} "
+        raise AssertionError(f"ring-kernels, {label}: {fwd} {bwd} "
                              f"(launches expected {want})")
-    recs.setdefault("flash_fwd_lse", []).append(dict(fwd, case=fwd["case"]))
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        recs.setdefault(name, []).append(dict(bwd, case=bwd["case"]))
-    del q, k, v, do, qt, kt, vt, dot, o_w, lse_w, grads_w, o_r, grads_r
-    del ins, lib_in, res
+    recs.setdefault(fwd_name, []).append(dict(fwd))
+    for name in bwd_names:
+        recs.setdefault(name, []).append(dict(bwd))
+    return counts
+
+
+def check_ring_kernels(g, recs):
+    """``ring-kernels``: the ring of ``ops/ring_attention.py`` on the
+    card's kernels against the whole sequence's (``_ring_fwd_bwd``):
+    (1, 24, 4608, 128) over a ring of 4 (1152-token shards), forward and
+    backward; at 2048^2 (16,896 tokens), forward only, a ring of 4
+    (4224-token shards, K1 with the lse) and a ring of 2 (8448, K2 with the
+    lse) against K2 with the lse on the whole sequence. Then the f32 ring
+    pairs (f32 tensors take the kernels' f32 instances) at (1, 24, 4608,
+    128) over a ring of 4; and head dim 256 (the 12 x 256 DiT): a ring of 4
+    at (1, 12, 4608, 256) and a ring of 2 at (1, 12, 16896, 256) (K2 with
+    the lse on 8448-token pairs, K3 and K4 on them), each forward and
+    backward. Each ring's time stands beside the whole kernels', the
+    ring's plain pair functions', SDPA's and the whole sequence's bound
+    (the ring does the same work in n^2 launches and the merges). ->
+    {run label: launches}."""
+    import torch
+    import torch.nn.functional as F
+    from x2i_torch.ops import flash_attention as fa
+    from x2i_torch.ops import ring_attention as ra
+    from x2i_torch.parallel.axis import LocalAxis
+
+    dev = torch.device("cuda")
+
+    def randn(s, heads=RING_HEADS, d=RING_D, dtype=torch.bfloat16):
+        return torch.randn((1, s, heads, d), generator=g, device=dev,
+                           dtype=dtype)
+
+    runs = {}
+    s = 512 + (1024 // 16) ** 2
+    runs["ring-4608"] = _ring_fwd_bwd(
+        "DiT 1024^2", *(randn(s) for _ in range(4)), RING, recs)
     torch.cuda.empty_cache()
 
     s = 512 + (2048 // 16) ** 2
@@ -6918,7 +7210,8 @@ def check_ring_kernels(g, recs):
     flops = 4.0 * s * s * RING_D * RING_HEADS
     whole_ms = kernel_ms(lambda *t: fa.flash_forward_chunked(
         *t, return_lse=True), q, k, v)
-    library_ms = kernel_ms(sdpa, *lib_in)
+    library_ms = kernel_ms(lambda *t: F.scaled_dot_product_attention(*t),
+                           *lib_in)
     for ring in (RING, 2):
         axis = LocalAxis(ring, "tensor")
         reset_counts()
@@ -6953,6 +7246,22 @@ def check_ring_kernels(g, recs):
         recs.setdefault(kernel, []).append(dict(rec))
         del o_r, lse_r, diff
     del q, k, v, o_w, lse_w, lib_in
+    torch.cuda.empty_cache()
+
+    s = 512 + (1024 // 16) ** 2
+    runs["ring-4608-f32"] = _ring_fwd_bwd(
+        "DiT 1024^2 f32", *(randn(s, dtype=torch.float32) for _ in range(4)),
+        RING, recs)
+    torch.cuda.empty_cache()
+    heads, d = D256["num_attention_heads"], 256
+    runs["ring-4608-d256"] = _ring_fwd_bwd(
+        "12 x 256 DiT 1024^2", *(randn(s, heads, d) for _ in range(4)), RING,
+        recs)
+    torch.cuda.empty_cache()
+    s = 512 + (2048 // 16) ** 2
+    runs["ring-16896-d256"] = _ring_fwd_bwd(
+        "12 x 256 DiT 2048^2", *(randn(s, heads, d) for _ in range(4)), 2,
+        recs, time_plain=False)
     torch.cuda.empty_cache()
     return runs
 
@@ -7685,6 +7994,18 @@ KERNEL_TABLE = (
     ("flash_fwd_rope_f32", "cuda", FLASH_SRC, f"{TPU_FLASH}:90", "f32-fused",
      0),
     ("ln_mod_f32", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:84", "f32-fused", 2),
+    ("flash_fwd_lse_d256", "cuda", FLASH_SRC, f"{TPU_FLASH}:220",
+     "d256-train", 0),
+    ("flash_bwd_dq_d256", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:526",
+     "d256-train", 0),
+    ("flash_bwd_dkv_d256", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581",
+     "d256-train", 0),
+    ("flash_fwd_lse_f32_d256", "cuda", FLASH_SRC, f"{TPU_FLASH}:220",
+     "lightcontrol-train-f32-d256", 0),
+    ("flash_bwd_dq_f32_d256", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:526",
+     "lightcontrol-train-f32-d256", 0),
+    ("flash_bwd_dkv_f32_d256", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581",
+     "lightcontrol-train-f32-d256", 0),
 )
 
 
@@ -7723,7 +8044,10 @@ def main(argv=None) -> int:
     launches_image = phase_image(pipe, lm, args.seed, smi)
     launches_2048, pixels_2048 = phase_text2image_2048(pipe, args.seed)
     launches_long = phase_long_prompt(pipe, lm, args.seed)
-    launches_d256 = phase_d256(pipe, args.seed, smi)
+    launches_d256, d256_images = phase_d256(pipe, args.seed, smi)
+    launches_d256.update(phase_d256_train(pipe, args.seed, smi))
+    launches_d256.update(phase_d256_ring(pipe, d256_images, args.seed, smi))
+    del d256_images
     launches_f32 = phase_f32(pipe, pixels_2048, args.seed, smi)
     del pixels_2048
     train_s = []

@@ -99,15 +99,19 @@ def test_build_faults(case):
 
 
 def test_flash_libraries_gate_their_wgmma_kernels():
-    """Every instance, and by name the head dim 256 instances of K1 and K2
-    and K1's f32 rope-and-norm instance at D = 128 (mangled template
-    arguments <D, WGS, ROPE, BODY, float>)."""
+    """Every instance, and by name the head dim 256 instances of K1, K2,
+    K3 and K4 (and K4's reduce kernel at 256) and K1's f32 rope-and-norm
+    instance at D = 128 (mangled template arguments <D, WGS, ROPE, BODY,
+    float>)."""
     from x2i_torch.ops import flash_attention as tfa
     assert tfa.KERNEL.wgmma_kernels == (
         "flash_fwd_kernel", "flash_fwd_kernelILi256E",
         "flash_fwd_kernelILi128ELi2ELb1ELi0EfE")
-    assert tfa.KERNEL_BWD.wgmma_kernels == ("flash_bwd_dq_kernel",
-                                            "flash_bwd_dkv_kernel")
+    assert tfa.KERNEL_BWD.wgmma_kernels == (
+        "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+        "flash_bwd_dq_kernelILi256E", "flash_bwd_dkv_kernelILi256E")
+    assert tfa.KERNEL_BWD.gated_kernels == tfa.KERNEL_BWD.wgmma_kernels + (
+        "round_rows_kernel", "dkv_reduce_kernelILi256E")
     assert tfa.KERNEL_CHUNKED.wgmma_kernels == ("flash_chunked_kernel",
                                                 "flash_chunked_kernelILi256E")
 

@@ -7,9 +7,9 @@ package on the CPU:
   Pallas kernel in interpret mode;
 * the plain K2 at D = 256 against ``_flash_forward_chunked`` in interpret
   mode;
-* the route (``attention.route`` on meta tensors): the D = 256 forward
-  takes the kernel, the pad route admits 256, and under autograd D = 256
-  takes the plain attention (K1 with the lse, K3 and K4 take 64 and 128);
+* the route (``attention.route`` on meta tensors): D = 256 takes the
+  kernel, and the pad route admits 256, under autograd too (every
+  instance, K1 and K2 with the lse, K3 and K4, takes 64, 128 and 256);
 * a tiny FLUX of 2 heads x 256 (``axes_dims_rope=(32, 112, 112)``, 1 + 1
   blocks) carried across by the bridge, JAX on its kernel route in
   interpret mode, the port on its kernel wrappers (their plain versions
@@ -183,50 +183,51 @@ def test_k2_plain_matches_jax(case):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_at_d256(dtype):
-    """Meta tensors: the D = 256 forward takes the kernel (the DiT's 4608
-    and 16,896 tokens) or the pad route (4112 tokens, as JAX's ``pad_path``
-    admits 256); under autograd (``grad``) D = 256 takes the plain route
-    on both, where D = 128 keeps the kernels; ``supported`` (the forward)
-    and ``check_shapes`` say the same per instance."""
+    """Meta tensors that require grad (a call autograd records): D = 256
+    takes the kernel (the DiT's 4608 and 16,896 tokens) or the pad route
+    (4112 tokens, as JAX's ``pad_path`` admits 256), as D = 128 does and
+    as the forward does; ``supported`` says so, and the shape checks of
+    the lse wrappers and of K3 and K4 (``check_kernel_shapes``) and of K2
+    (``check_shapes``) take the shapes without a raise."""
     def meta(s, d):
-        return torch.empty((1, s, 12, d), dtype=dtype, device="meta")
+        return torch.empty((1, s, 12, d), dtype=dtype, device="meta",
+                           requires_grad=True)
 
     for s, want in ((4608, "kernel"), (16896, "kernel"), (4112, "pad")):
         assert tattn.route(meta(s, D), meta(s, D)) == want
-        assert tattn.route(meta(s, D), meta(s, D), grad=True) == "plain"
-        assert tattn.route(meta(s, 128), meta(s, 128), grad=True) == want
-    # "kernel" keeps the kernel wrappers under autograd too (on the card
-    # K1 with the lse then raises at D = 256; on the CPU the plain versions
-    # run)
-    assert tattn.route(meta(4608, D), meta(4608, D), implementation="kernel",
-                       grad=True) == "kernel"
+        assert tattn.route(meta(s, 128), meta(s, 128)) == want
+    assert tattn.route(meta(4608, D), meta(4608, D),
+                       implementation="kernel") == "kernel"
     assert tfa.supported((1, 12, 4608, D), 4608)
-    assert D in tfa.HEAD_DIMS and D not in tfa.GRAD_HEAD_DIMS
-    shape = (1, 12, 4608, D)
-    assert tfa.check_shapes(shape, shape, shape, head_dims=tfa.HEAD_DIMS
-                            )[-1] == D
-    with pytest.raises(ValueError, match="unsupported"):
-        tfa.check_shapes(shape, shape, shape)
+    assert tfa.HEAD_DIMS == (64, 128, 256)
+    for s in (4608, 16896):
+        shape = (1, 12, s, D)
+        assert tfa.check_kernel_shapes(shape, shape, shape, [shape]
+                                       )[-1] == D
+        assert tfa.check_shapes(shape, shape, shape)[-1] == D
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
 def test_dispatcher_tells_the_route_whether_autograd_records(
         requires_grad, monkeypatch):
-    """``attention`` hands ``route`` whether the call is recorded: an input
-    that requires grad under grad mode, not one under ``no_grad``."""
+    """``attention`` on the kernel route at D = 256 takes the flash
+    kernels' autograd ``Function`` when the call is recorded (an input that
+    requires grad under grad mode) and not under ``no_grad``; the route
+    itself reads no autograd state."""
     seen = []
-    route = tattn.route
+    apply = tfa._FlashAttention.apply
 
-    def spy(*args, **kw):
-        seen.append(args[-1] if len(args) > 6 else kw.get("grad", False))
-        return route(*args, **kw)
+    def spy(*args):
+        seen.append(args[0].shape)
+        return apply(*args)
 
-    monkeypatch.setattr(tattn, "route", spy)
+    monkeypatch.setattr(tfa._FlashAttention, "apply", spy)
     q = torch.zeros((1, 128, 2, D), requires_grad=requires_grad)
-    tattn.attention(q, q, q)
+    out = tattn.attention(q, q, q, implementation="kernel")
     with torch.no_grad():
-        tattn.attention(q, q, q)
-    assert seen == [requires_grad, False]
+        tattn.attention(q, q, q, implementation="kernel")
+    assert seen == ([(1, 2, 128, D)] if requires_grad else [])
+    assert (out.grad_fn is not None) == requires_grad
 
 
 # --------------------------------------------------------- the DiT, tiny

@@ -27,6 +27,7 @@ K2_LEGAL = {
     "last kv tile of 64": ((2, 3, 256, 64), (2, 3, 704, 64)),
     "last q tile of 64": ((2, 6, 320, 128), (2, 2, 1152, 128)),
     "one tile of 64": ((1, 1, 64, 64), (1, 1, 64, 64)),
+    "head dim 256": ((1, 12, 16896, 256), (1, 12, 16896, 256)),
 }
 
 
@@ -40,7 +41,7 @@ K2_ILLEGAL = {
     "sq % 64": ((1, 2, 96, 64), (1, 2, 128, 64), None),
     "skv % 64": ((1, 2, 128, 64), (1, 2, 200, 64), None),
     "head dim 32": ((1, 2, 128, 32), (1, 2, 128, 32), None),
-    "head dim 256": ((1, 2, 128, 256), (1, 2, 128, 256), None),
+    "head dim 512": ((1, 2, 128, 512), (1, 2, 128, 512), None),
     "hq % hk": ((1, 5, 128, 64), (1, 2, 128, 64), None),
     "k and v differ": ((1, 2, 128, 64), (1, 2, 128, 64), (1, 2, 192, 64)),
     "batch differs": ((2, 2, 128, 64), (1, 2, 128, 64), None),

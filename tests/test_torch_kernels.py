@@ -55,7 +55,10 @@ rounded to bf16, their outputs rounded to bf16 bit for bit the bf16
 instances'. Head dim 256: K1's bodies (64-row kv tiles in a ring of 2
 stages, both grid instances) within K1's bars, K2 within them plus one
 bf16 step of |o| (causal rows of a few keys reach |o| of 2-4), K1 and K2
-with the lse refused; K1's f32 rope-and-norm instance rounded to bf16 bit
+with the lse within the lse bar, K3 (32-row kv tiles in a ring of 2) and
+K4 (64-row kv blocks, each warpgroup on half of the columns) on every case
+of the D = 64 and 128 ones, bf16 and f32; K1's f32 rope-and-norm
+instance rounded to bf16 bit
 for bit the bf16 K1a's on the rounded inputs; K5 on f32 rows within 1e-5
 of the plain version (f32 row statistics summed in another order). The
 data
@@ -94,7 +97,7 @@ def _randn(g, dev, *shape):
 
 
 def _tables(s, d, dev):
-    axes = (16, 24, 24) if d == 64 else (16, 56, 56)
+    axes = {64: (16, 24, 24), 128: (16, 56, 56), 256: (32, 112, 112)}[d]
     ids = torch.cat([torch.zeros((s - 64, 3), device=dev),
                      prepare_latent_image_ids(16, 16, dev)])
     return flux_rope_freqs_half(ids, axes)
@@ -212,7 +215,9 @@ def _grad_close(got, want):
 # a fully masked row under the causal mask, "rope" the rotation inside.
 # K3 and K4 stream 64-row tiles through a ring of four stages, which wraps
 # above 256 rows; K4 splits its stages over the grid where its 128-row kv
-# blocks are fewer than the card's SMs (every case but the "wide" ones)
+# blocks are fewer than the card's SMs (every case but the "wide" ones).
+# At D = 256 K3's ring is 2 stages of 32 kv rows and K4's blocks 64 rows
+# (its rope cases write partial sums that the reduce kernel rotates).
 LSE_CASES = {
     "plain": (256, 3, 3, "strided", 2),
     "mask-causal-gqa": (256, 6, 2, "strided", 2),
@@ -237,7 +242,7 @@ LSE_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(LSE_CASES))
 def test_flash_lse_and_backward_kernels(dev, d, case):
     """K1 with the lse (exact body), K3 and K4 against their plain
@@ -275,7 +280,8 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
         _grad_close(got, want)
     after = {**tfa.KERNEL.launches, **tfa.KERNEL_BWD.launches}
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]
-            } == {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+            } == {tfa.launch_name(n, d): 1 for n in (
+                "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def _valid_rows(mask, causal, sq):
@@ -605,7 +611,7 @@ F32_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(F32_CASES))
 def test_f32_lse_and_backward_instances(dev, d, case):
     """K1's f32 instance with the lse and K3's and K4's f32 instances (f32
@@ -645,11 +651,10 @@ def test_f32_lse_and_backward_instances(dev, d, case):
         _no_farther(got, got16, want_g if isinstance(want_g, tuple)
                     else (want_g,))
     assert {n: after[n] - before[n] for n in after if after[n] != before[n]
-            } == {"flash_fwd_lse_f32": 1}
-    assert tfa.KERNEL_BWD.launches["flash_bwd_dq_f32"] == before[
-        "flash_bwd_dq_f32"] + 1
-    assert tfa.KERNEL_BWD.launches["flash_bwd_dkv_f32"] == before[
-        "flash_bwd_dkv_f32"] + 1
+            } == {tfa.launch_name("flash_fwd_lse_f32", d): 1}
+    for name in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
+        name = tfa.launch_name(name, d)
+        assert tfa.KERNEL_BWD.launches[name] == before[name] + 1
 
 
 @pytest.mark.cuda
@@ -769,7 +774,8 @@ def test_flash_d256_kernel(dev, case):
     the per-row and the shared qk norm (the pipelined body; the exact one
     at one kv tile), K1c and K1b (kv mask, causal, GQA), each against its
     plain version within the bf16 bars, one launch of its ``_d256``
-    count; with the lse (K1's training forward) it is refused."""
+    count; with the lse (K1's training forward, the exact body, the rope
+    without the norm) within the same bars and its lse within 1e-3."""
     s, hq, hk, what = D256_CASES[case]
     d = 256
     g = torch.Generator(device=dev).manual_seed(s + hq)
@@ -796,8 +802,13 @@ def test_flash_d256_kernel(dev, case):
     got = tfa.flash_attention(q, k, v, **kw)
     assert tfa.KERNEL.launches == dict(before, **{name: before[name] + 1})
     _close(got, tfa.flash_attention_plain(q, k, v, **kw))
-    with pytest.raises(ValueError, match="unsupported"):
-        tfa.flash_forward_lse(q, k, v)
+    # with the lse (the training forward, no qk norm inside): the exact
+    # body, its lse
+    kw.pop("qk_norm", None)
+    o, lse = tfa.flash_forward_lse(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _close(o, o_p)
+    assert (lse - lse_p).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
@@ -808,7 +819,8 @@ def test_flash_chunked_d256_kernel(dev, case):
     mask as two ballots of two keys a lane), batch 2 on strided views:
     against its plain version and the plain f32 attention on the rows that
     have a valid key, one launch of ``flash_chunked_d256``; with the lse
-    it is refused. The bar is ``_close``'s, with one bf16 step of |o| on
+    the same o and the plain version's lse within 1e-3 on those rows. The
+    bar is ``_close``'s, with one bf16 step of |o| on
     top at each element: under the causal mask the first rows average a
     few keys, so |o| reaches 2-4, where a bf16 step is 2^-6 (an output
     rounded on the other side, or p rounded to bf16 against the f32
@@ -842,8 +854,11 @@ def test_flash_chunked_d256_kernel(dev, case):
         assert bool(torch.isfinite(got).all())
         assert bool((diff.abs() <= 1e-2 + 2.0 ** -7 * want.abs()).all())
         assert diff.abs().mean().item() <= 1e-3
-    with pytest.raises(ValueError, match="unsupported"):
-        tfa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+    o_l, lse = tfa.flash_forward_chunked(q, k, v, return_lse=True, **kw)
+    _, lse_p = tfa.flash_forward_chunked_plain(q, k, v, return_lse=True,
+                                               **kw)
+    assert torch.equal(o_l, got)
+    assert ((lse - lse_p).abs() * rows[..., 0]).max().item() <= 1e-3
 
 
 @pytest.mark.cuda

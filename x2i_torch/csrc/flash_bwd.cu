@@ -37,21 +37,22 @@
 // 5.2e11 FLOP (0.53 ms), against about 170 MB of inputs and outputs: the
 // tensor cores bound both. The 5.1e8 exp2 of each kernel are about 0.14 ms
 // of the special-function units, so they have to run under the products.
+// The 12 x 256 DiT's point (1, 12, 4608, 256) has the same FLOP.
 //
 // Design: two kernels, each with K1's skeleton (flash_fwd.cu), so that the
 // gradients stay deterministic (no f32 atomics) and each keeps its TPU
 // body's rounding points:
 //   * a block is two consumer warpgroups and a producer warpgroup. The
-//     producer keeps a ring of kStages stages full by TMA through tensor
-//     maps over the strided (B, H, S, D) views (hopper_mma.cuh), then
-//     gives its registers back (setmaxnreg 24 / 240). `full` mbarriers
-//     count the bytes as they land, `empty` ones the consumer threads that
-//     are done with a stage;
-//   * every product is wgmma.mma_async: the two score products (m64n64k16)
-//     read both operands K-major from 128-byte-swizzled shared memory, the
-//     gradient products take their A operand from the score registers,
-//     rounded to bf16 where the TPU body casts it, and read their B tile as
-//     it lies, through the descriptor's transpose bit (as K1 reads V);
+//     producer keeps a ring of stages full by TMA through tensor maps over
+//     the strided (B, H, S, D) views (hopper_mma.cuh), then gives its
+//     registers back (setmaxnreg 24 / 240). `full` mbarriers count the
+//     bytes as they land, `empty` ones the consumer threads that are done
+//     with a stage;
+//   * every product is wgmma.mma_async: the two score products read both
+//     operands K-major from 128-byte-swizzled shared memory, the gradient
+//     products take their A operand from the score registers, rounded to
+//     bf16 where the TPU body casts it, and read their B tile as it lies,
+//     through the descriptor's transpose bit (as K1 reads V);
 //   * per stage a warpgroup queues the gradient products of the stage
 //     before and the score products of this one (K4: once the former are
 //     done), then computes p and ds of this stage while the other
@@ -59,22 +60,35 @@
 //     named barriers, as in K1;
 //   * K3: one block per (128-row q tile, q head, batch); each warpgroup
 //     owns 64 q rows, its q and do tiles stay in shared memory, the ring
-//     brings (K tile, V tile) stages of 64 kv rows. Registers at D = 128:
-//     dq 64, s 32, dp 32, ds 16;
-//   * K4: one block per (128-row kv tile, kv head, batch); each warpgroup
-//     owns 64 kv rows, its K and V tiles stay in shared memory, the ring
-//     brings (q tile, do tile, lse, delta) stages of 64 q rows over every
-//     (head of the group, q tile) pair, with no round trip of p or ds
-//     through shared memory. Registers at D = 128: dk 64, dv 64, s 32,
-//     dp 32, then p and ds as bf16 A operands (16 + 16) as s and dp die;
-//   * K4 at a small grid (fewer 128-row blocks than the card has SMs: the
-//     LM's 2 kv heads x 512 tokens give 8) splits the (group x q tiles)
-//     loop over a grid dimension; each split writes f32 partial dk and dv
-//     into a scratch buffer that the wrapper allocates, and a second kernel
-//     sums the splits in a fixed order, counter-rotates and rounds.
-// Requires Sq and Skv to be multiples of 128, D in {64, 128}, the last dim
-// contiguous and the other strides multiples of 8 elements, lse and delta
-// 16-byte aligned.
+//     brings (K tile, V tile) stages. Up to D = 128 the ring holds 4
+//     stages of 64 kv rows (m64n64k16 scores); registers at D = 128: dq 64,
+//     s 32, dp 32, ds 16. At D = 256 the resident q and do tiles take 128
+//     KB of the 227, so the ring holds 2 stages of 32 kv rows (2 x 32 KB)
+//     and the scores are m64n32k16: dq 128, s 16, dp 16, ds 8;
+//   * K4: one block per (kv tile, kv head, batch), its K and V tiles
+//     resident, the ring bringing (q tile, do tile, lse, delta) stages of
+//     64 q rows over every (head of the group, q tile) pair, with no round
+//     trip of p or ds through shared memory. Up to D = 128 the block is 128
+//     kv rows in 4 stages and each warpgroup owns 64 of them, all D columns:
+//     dk 64, dv 64, s 32, dp 32, then p and ds as bf16 A operands (16 + 16)
+//     as s and dp die (at D = 128). At D = 256, dk and dv of 64 rows would
+//     be 256 registers a thread, over setmaxnreg's 240: the block is 64 kv
+//     rows (resident 64 KB, 2 stages of 64.5 KB) that both warpgroups take,
+//     each owning half of dk's and dv's columns (64 + 64 registers, as at
+//     D = 128) and each computing the whole s and dp over D (those two
+//     products are done twice: 6 products' work where 4 would do). Every
+//     thread runs the same code, so that no product is queued under a
+//     condition. A thread then holds column j of dk but not its rotation
+//     partner j + 128, so with rope K4 at D = 256 writes f32 partial sums
+//     and the split's reduce kernel counter-rotates (dkv_reduces);
+//   * K4 at a small grid (fewer blocks than the card has SMs: the LM's 2
+//     kv heads x 512 tokens give 8) splits the (group x q tiles) loop over
+//     a grid dimension; each split writes f32 partial dk and dv into a
+//     scratch buffer that the wrapper allocates, and a second kernel sums
+//     the splits in a fixed order, counter-rotates and rounds.
+// Requires Sq and Skv to be multiples of 128, D in {64, 128, 256}, the
+// last dim contiguous and the other strides multiples of 8 elements, lse
+// and delta 16-byte aligned.
 //
 // The f32 instances (x2i_flash_bwd_dq_f32, x2i_flash_bwd_dkv_f32), which the
 // TPU kernels' f32 inputs take (an f32 DiT's phase-2 training step), follow
@@ -98,9 +112,24 @@ namespace {
 
 constexpr int kConsumers = 256;               // two consumer warpgroups
 constexpr int kBlockThreads = kConsumers + 128;
-constexpr int kStages = 4;
-constexpr int kRows = 64;                     // rows of a ring tile
-constexpr int kBlockRows = 128;               // q rows (K3), kv rows (K4)
+constexpr int kRows = 64;                     // q rows of a K4 ring tile
+constexpr int kQRows = 128;                   // q rows of a K3 block
+
+// K3's ring at head dim D: kv rows of a tile and stages.
+template <int D>
+struct DqTiles {
+  static constexpr int kv = D == 256 ? 32 : 64;
+  static constexpr int stages = D == 256 ? 2 : 4;
+};
+
+// K4's tiles at head dim D: kv rows of a block, the dk and dv columns a
+// warpgroup owns, and the ring's stages.
+template <int D>
+struct DkvTiles {
+  static constexpr int block = D == 256 ? 64 : 128;
+  static constexpr int cols = D == 256 ? D / 2 : D;
+  static constexpr int stages = D == 256 ? 2 : 4;
+};
 
 struct BwdArgs {
   const bf16* q;                // (B, Hq, Sq, D), or rotated Q (K4, rope)
@@ -112,7 +141,7 @@ struct BwdArgs {
   void* dq;                     // (B, Hq, Sq, D), bf16 or f32 (OutT)
   void* dk;                     // (B, Hk, Skv, D), bf16 or f32 (OutT)
   void* dv;
-  float* partial;               // K4 split: (2, splits, B, Hk, Skv, D) f32
+  float* partial;               // K4 reduce: (2, splits, B, Hk, Skv, D) f32
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss;
   long long dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
@@ -125,43 +154,43 @@ struct BwdArgs {
   float scale, scale_log2e;
 };
 
-// Shared memory of a block: two resident tiles of kBlockRows rows, the
-// ring of kStages stages of two kRows-row tiles and `extra` bytes each,
+// Shared memory of a block: two resident tiles of `rows` rows, the ring
+// of `stages` stages of two `tile_rows`-row tiles and `extra` bytes each,
 // the barriers, and the slack that aligns the tiles to the swizzle.
 template <int D>
-constexpr int smem_bytes(int extra) {
-  return 2 * kBlockRows * D * 2 + kStages * (2 * kRows * D * 2 + extra) +
-         2 * kStages * static_cast<int>(sizeof(uint64_t)) + kSwizzleAtomBytes;
+constexpr int smem_bytes(int rows, int stages, int tile_rows, int extra) {
+  return 2 * rows * D * 2 + stages * (2 * tile_rows * D * 2 + extra) +
+         2 * stages * static_cast<int>(sizeof(uint64_t)) + kSwizzleAtomBytes;
 }
 
-// The resident tiles, each kBlockRows rows of one (b, h) from row row0 on:
-// the rows of `rope_src` rotated (no norm), times `post` and rounded with
+// The resident tiles, each ROWS rows of one (b, h) from row row0 on: the
+// rows of `rope_src` rotated (no norm), times `post` and rounded with
 // rope, else copied, into the tile at sa (generic address tile_a), and the
 // rows of `src` copied into the tile at sb; by the consumer threads, then
 // published to the tensor cores.
-template <int D, bool ROPE>
+template <int D, int ROWS, bool ROPE>
 __device__ __forceinline__ void load_resident(
     const bf16* rope_src, long long rope_ss, const bf16* src, long long ss,
     int row0, const BwdArgs& a, float post, unsigned char* tile_a,
     uint32_t sa, uint32_t sb, int tid) {
-  cp_async_tile<D, kBlockRows, kConsumers>(src + row0 * ss, ss, sb, tid);
+  cp_async_tile<D, ROWS, kConsumers>(src + row0 * ss, ss, sb, tid);
   if (ROPE) {
     const int lane = tid % 32;
 #pragma unroll 4
-    for (int r = tid / 32; r < kBlockRows; r += kConsumers / 32) {
+    for (int r = tid / 32; r < ROWS; r += kConsumers / 32) {
       const int row = row0 + r;
       float y[D / 32];
       norm_rope_vals<D>(rope_src + row * rope_ss, y, a.cos + row * a.tab_rs,
                         a.sin + row * a.tab_rs, nullptr, 0.f, post, lane);
 #pragma unroll
       for (int t = 0; t < D / 32; ++t)
-        *reinterpret_cast<bf16*>(tile_a + swizzled_offset<kBlockRows>(
+        *reinterpret_cast<bf16*>(tile_a + swizzled_offset<ROWS>(
                                               r, lane + 32 * t)) =
             __float2bfloat16_rn(y[t]);
     }
   } else {
-    cp_async_tile<D, kBlockRows, kConsumers>(rope_src + row0 * rope_ss,
-                                             rope_ss, sa, tid);
+    cp_async_tile<D, ROWS, kConsumers>(rope_src + row0 * rope_ss, rope_ss,
+                                       sa, tid);
   }
   cp_async_wait_all();
   fence_proxy_async();
@@ -175,42 +204,66 @@ __device__ __forceinline__ void zero(float (&d)[N][4]) {
   for (int j = 0; j < N; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
 }
 
-// acc (64 x 64) = A B^T over D, both K-major: the A tile's 64 rows at
-// desc_a in a tile of kBlockRows rows, the B tile of kRows rows at desc_b.
-template <int D>
-__device__ __forceinline__ void score_product(float (&acc)[kRows / 8][4],
+// A special register read anew: a value derived from it after a long loop
+// is computed there, and need not stay live across the loop.
+__device__ __forceinline__ int read_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
+  return v;
+}
+
+// x, as the compiler cannot see it: a descriptor derived from it inside a
+// loop is made there, not kept across the loop with all its k steps.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t y;
+  asm volatile("mov.u32 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ int3 read_ctaid() {
+  int3 v;
+  asm volatile("mov.u32 %0, %%ctaid.x;\nmov.u32 %1, %%ctaid.y;\n"
+               "mov.u32 %2, %%ctaid.z;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z));
+  return v;
+}
+
+// acc (64 x N) = A B^T over D, both K-major: the A tile's 64 rows at
+// desc_a in a tile of AR rows, the B tile of N rows at desc_b.
+template <int D, int AR, int N>
+__device__ __forceinline__ void score_product(float (&acc)[N / 8][4],
                                               uint64_t desc_a,
                                               uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(acc, desc_advance(desc_a, kmajor_kstep<kBlockRows>(kk)),
-                 desc_advance(desc_b, kmajor_kstep<kRows>(kk)), kk != 0);
+    wgmma_ss<N>(acc, desc_advance(desc_a, kmajor_kstep<AR>(kk)),
+                desc_advance(desc_b, kmajor_kstep<N>(kk)), kk != 0);
 }
 
-// acc (64 x D) += A B over the kRows rows of a ring tile: A from registers,
-// B the tile as it lies (MN-major).
-template <int D>
-__device__ __forceinline__ void grad_product(float (&acc)[D / 8][4],
-                                             const uint32_t (&a)[kRows / 16]
-                                                                [4],
+// acc (64 x N) += A B over the R rows of a ring tile: A from registers, B
+// the tile's N columns from `tile` (a 64-column block) on, as they lie
+// (MN-major).
+template <int N, int R>
+__device__ __forceinline__ void grad_product(float (&acc)[N / 8][4],
+                                             const uint32_t (&a)[R / 16][4],
                                              uint32_t tile) {
   const uint64_t desc =
-      wgmma_desc(tile, kRows * kSwizzleRowBytes, kSwizzleAtomBytes);
+      wgmma_desc(tile, R * kSwizzleRowBytes, kSwizzleAtomBytes);
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk)
-    wgmma_rs<D>(acc, a[kk], desc_advance(desc, kk * 2 * kSwizzleAtomBytes));
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs<N>(acc, a[kk], desc_advance(desc, kk * 2 * kSwizzleAtomBytes));
 }
 
 // One thread: a ring stage's TMA copies, 64 columns at a time, of two
-// tiles of kRows rows at sequence row `row`.
-template <int D>
+// tiles of R rows at sequence row `row`.
+template <int D, int R>
 __device__ __forceinline__ void tma_stage(const TileMap& m0,
                                           const TileMap& m1, uint32_t s0,
                                           uint32_t s1, int row, int h, int b,
                                           uint64_t* bar) {
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb) {
-    const uint32_t off = cb * kRows * kSwizzleRowBytes;
+    const uint32_t off = cb * R * kSwizzleRowBytes;
     tma_load_tile(m0, s0 + off, cb * 64, row, h, b, bar);
     tma_load_tile(m1, s1 + off, cb * 64, row, h, b, bar);
   }
@@ -222,8 +275,9 @@ template <int D, bool ROPE, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, BwdArgs a) {
-  constexpr uint32_t kResBytes = kBlockRows * D * 2;
-  constexpr uint32_t kTileBytes = kRows * D * 2;
+  constexpr int KR = DqTiles<D>::kv, kStages = DqTiles<D>::stages;
+  constexpr uint32_t kResBytes = kQRows * D * 2;
+  constexpr uint32_t kTileBytes = KR * D * 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
@@ -238,8 +292,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
   const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, hkv = h / a.group;
-  const int q0 = blockIdx.x * kBlockRows;
-  const int n_tiles = a.skv / kRows;
+  const int q0 = blockIdx.x * kQRows;
+  const int n_tiles = a.skv / KR;
 
   if (tid == 0) {
 #pragma unroll
@@ -260,8 +314,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
         mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
-        tma_stage<D>(map_k, map_v, sK + st * kTileBytes,
-                     sV + st * kTileBytes, t * kRows, hkv, b, &full[st]);
+        tma_stage<D, KR>(map_k, map_v, sK + st * kTileBytes,
+                         sV + st * kTileBytes, t * KR, hkv, b, &full[st]);
       }
     }
     return;
@@ -269,9 +323,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
 
   setmaxnreg_inc<240>();
   // the q tile (rotated, scaled and rounded with rope) and the do tile
-  load_resident<D, ROPE>(a.q + b * a.q_sb + h * a.q_sh, a.q_ss,
-                         a.dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a,
-                         a.scale_log2e, smem, sQ, sDO, tid);
+  load_resident<D, kQRows, ROPE>(a.q + b * a.q_sb + h * a.q_sh, a.q_ss,
+                                 a.dout + b * a.do_sb + h * a.do_sh, a.do_ss,
+                                 q0, a, a.scale_log2e, smem, sQ, sDO, tid);
 
   const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
   const long long bh = static_cast<long long>(b) * a.hq + h;
@@ -281,13 +335,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   const float dl1 = a.delta[bh * a.sq + row_b];
   const unsigned char* mask =
       MASKED && a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
-  const uint64_t q_desc =
-      wgmma_desc(sQ + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
-  const uint64_t do_desc =
-      wgmma_desc(sDO + wg * 64 * kSwizzleRowBytes, 16, kSwizzleAtomBytes);
+  // The descriptor of this warpgroup's 64 rows of a resident tile, made
+  // anew in every stage from the thread index read anew: descriptors kept
+  // across the loop are kept with all their k steps, 128 registers at
+  // D = 256.
+  auto resident_desc = [&](uint32_t tile) {
+    return wgmma_desc(tile + (read_tid() / 128) * 64 * kSwizzleRowBytes, 16,
+                      kSwizzleAtomBytes);
+  };
 
-  float dq[D / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
-  uint32_t ds[kRows / 16][4];
+  float dq[D / 8][4], s[KR / 8][4], dp[KR / 8][4];
+  uint32_t ds[KR / 16][4];
   zero(dq);
 
   // s = q k^T and dp = do v^T for kv tile t, queued and committed
@@ -297,17 +355,19 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     wgmma_fresh(s);
     wgmma_fresh(dp);
     wgmma_fence();
-    score_product<D>(s, q_desc,
-                     wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes));
-    score_product<D>(dp, do_desc,
-                     wgmma_desc(sV + st * kTileBytes, 16, kSwizzleAtomBytes));
+    score_product<D, kQRows, KR>(
+        s, resident_desc(sQ),
+        wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes));
+    score_product<D, kQRows, KR>(
+        dp, resident_desc(sDO),
+        wgmma_desc(sV + st * kTileBytes, 16, kSwizzleAtomBytes));
     wgmma_commit();
   };
   // dq += bf16(ds) k for kv tile t, queued and committed
   auto dq_product = [&](int t) {
     wgmma_pin(dq);
     wgmma_fence();
-    grad_product<D>(dq, ds, sK + (t % kStages) * kTileBytes);
+    grad_product<D, KR>(dq, ds, sK + (t % kStages) * kTileBytes);
     wgmma_commit();
   };
   // the scores of kv tile t -> ds = p (dp - delta) scale, in s; then ds
@@ -316,17 +376,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     if (!ROPE) {
       // without rope the scale is not folded into q: the TPU's _logits
 #pragma unroll
-      for (int jj = 0; jj < kRows / 8; ++jj)
+      for (int jj = 0; jj < KR / 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale_log2e;
     }
     if (MASKED) {
-      const int kv0 = t * kRows;
+      const int kv0 = t * KR;
       // a causal tile wholly at or below the warp's first row needs no test
-      const bool diag = a.causal && kv0 + kRows - 1 > row_a - g;
+      const bool diag = a.causal && kv0 + KR - 1 > row_a - g;
       if (mask != nullptr || diag) {
 #pragma unroll
-        for (int jj = 0; jj < kRows / 8; ++jj)
+        for (int jj = 0; jj < KR / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = kv0 + jj * 8 + t4 * 2 + (e & 1);
@@ -338,14 +398,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
       }
     }
 #pragma unroll
-    for (int jj = 0; jj < kRows / 8; ++jj)
+    for (int jj = 0; jj < KR / 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = fast_exp2(s[jj][e] - (e < 2 ? lse0 : lse1));
         s[jj][e] = p * (dp[jj][e] - (e < 2 ? dl0 : dl1)) * a.scale;
       }
 #pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk)
+    for (int kk = 0; kk < KR / 16; ++kk)
       pack_a(ds[kk], s[2 * kk], s[2 * kk + 1]);
   };
 
@@ -390,76 +450,69 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
 
 // ------------------------------------------------------------------- K4
 
-// Rows row_a and row_b of a C-fragment accumulator in f32, into rows of D.
-template <int D>
+// Rows row_a and row_b of a C-fragment accumulator of N columns in f32,
+// into rows of STRIDE floats.
+template <int N, int STRIDE>
 __device__ __forceinline__ void store_rows_f32(float* base,
                                                const float (*acc)[4],
                                                int row_a, int row_b, int t4) {
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < N / 8; ++dn) {
     const int col = dn * 8 + t4 * 2;
-    *reinterpret_cast<float2*>(base + row_a * D + col) =
+    *reinterpret_cast<float2*>(base + row_a * STRIDE + col) =
         make_float2(acc[dn][0], acc[dn][1]);
-    *reinterpret_cast<float2*>(base + row_b * D + col) =
+    *reinterpret_cast<float2*>(base + row_b * STRIDE + col) =
         make_float2(acc[dn][2], acc[dn][3]);
   }
 }
 
-// A special register read anew: a value derived from it after a long loop
-// is computed there, and need not stay live across the loop.
-__device__ __forceinline__ int read_tid() {
-  int v;
-  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ int3 read_ctaid() {
-  int3 v;
-  asm volatile("mov.u32 %0, %%ctaid.x;\nmov.u32 %1, %%ctaid.y;\n"
-               "mov.u32 %2, %%ctaid.z;\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z));
-  return v;
-}
-
-// K4's epilogue: dk and dv of the thread's rows, counter-rotated and
-// written as OutT (bf16: rounded), or as f32 partial sums of a split, (2,
-// splits, B, Hk, Skv, D). It derives its rows and pointers from the indices
-// read anew: at D = 128 the main loop has no register to spare for them.
+// K4's epilogue: dk and dv of the thread's rows and columns,
+// counter-rotated and written as OutT (bf16: rounded), or as f32 partial
+// sums, (2, splits, B, Hk, Skv, D), for the reduce kernel. It derives its
+// rows and pointers from the indices read anew: at D = 128 the main loop
+// has no register to spare for them.
 template <int D, bool ROPE, typename OutT>
-__device__ __forceinline__ void store_dkv(float (&dk)[D / 8][4],
-                                          float (&dv)[D / 8][4],
-                                          const BwdArgs& a) {
+__device__ __forceinline__ void store_dkv(
+    float (&dk)[DkvTiles<D>::cols / 8][4],
+    float (&dv)[DkvTiles<D>::cols / 8][4], const BwdArgs& a) {
+  constexpr int BR = DkvTiles<D>::block, DO = DkvTiles<D>::cols;
   const int tid = read_tid();
   const int3 blk = read_ctaid();
-  const int lane = tid % 32, t4 = lane & 3;
+  const int lane = tid % 32, t4 = lane & 3, wg = tid / 128;
   const int hk = blk.y, b = blk.z / a.splits, split = blk.z % a.splits;
-  const int row_a =
-      blk.x * kBlockRows + (tid / 128) * 64 + (tid % 128) / 32 * 16 +
-      (lane >> 2);
-  const int row_b = row_a + 8;
+  const int row_a = blk.x * BR + (DO < D ? 0 : wg * 64) +
+                    (tid % 128) / 32 * 16 + (lane >> 2);
+  const int row_b = row_a + 8, col = DO < D ? wg * DO : 0;
   if (a.partial != nullptr) {
     const long long half =
         static_cast<long long>(gridDim.z) * gridDim.y * a.skv * D;
     float* part = a.partial +
                   ((static_cast<long long>(split) * (gridDim.z / a.splits) +
-                    b) * gridDim.y + hk) * a.skv * D;
-    store_rows_f32<D>(part, dk, row_a, row_b, t4);
-    store_rows_f32<D>(part + half, dv, row_a, row_b, t4);
+                    b) * gridDim.y + hk) * a.skv * D + col;
+    store_rows_f32<DO, D>(part, dk, row_a, row_b, t4);
+    store_rows_f32<DO, D>(part + half, dv, row_a, row_b, t4);
     return;
   }
   // dv first: its registers are free while dk is counter-rotated
-  store_rows<D>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh,
-                a.dv_ss, dv, row_a, row_b, t4);
-  if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
-  store_rows<D>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh,
-                a.dk_ss, dk, row_a, row_b, t4);
+  store_rows<DO>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh + col,
+                 a.dv_ss, dv, row_a, row_b, t4);
+  // with columns split (D = 256) rope always takes the partial sums
+  if constexpr (DO == D) {
+    if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
+  }
+  store_rows<DO>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh + col,
+                 a.dk_ss, dk, row_a, row_b, t4);
 }
 
 template <int D, bool ROPE, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ TileMap map_q,
     const __grid_constant__ TileMap map_do, BwdArgs a) {
-  constexpr uint32_t kResBytes = kBlockRows * D * 2;
+  constexpr int BR = DkvTiles<D>::block, DO = DkvTiles<D>::cols;
+  constexpr int kStages = DkvTiles<D>::stages;
+  // both warpgroups on the block's rows, each on half of the columns
+  constexpr bool kSplitCols = DO < D;
+  constexpr uint32_t kResBytes = BR * D * 2;
   constexpr uint32_t kTileBytes = kRows * D * 2;
   constexpr uint32_t kVecBytes = kRows * 4;     // lse or delta of a stage
   extern __shared__ unsigned char smem_raw[];
@@ -478,7 +531,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
   const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
   const int hk = blockIdx.y, b = blockIdx.z / a.splits;
   const int split = blockIdx.z % a.splits;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int k0 = blockIdx.x * BR;
   // this block's share of the (head of the group, q tile) stages
   const int nq = a.sq / kRows, first = split * a.per_split;
   const int n = min(a.group * nq - first, a.per_split);
@@ -504,8 +557,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
         mbar_arrive_expect_tx(&full[st], 2 * kTileBytes + 2 * kVecBytes);
         const int idx = first + t, h = hk * a.group + idx / nq;
         const int q_row = (idx % nq) * kRows;
-        tma_stage<D>(map_q, map_do, sQ + st * kTileBytes,
-                     sDO + st * kTileBytes, q_row, h, b, &full[st]);
+        tma_stage<D, kRows>(map_q, map_do, sQ + st * kTileBytes,
+                            sDO + st * kTileBytes, q_row, h, b, &full[st]);
         const long long r = (static_cast<long long>(b) * a.hq + h) * a.sq +
                             q_row;
         bulk_load(sL + st * kVecBytes, a.lse + r, kVecBytes, &full[st]);
@@ -517,16 +570,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
 
   setmaxnreg_inc<240>();
   // the k tile (rotated and rounded, no scale, with rope) and the v tile
-  load_resident<D, ROPE>(a.k + b * a.k_sb + hk * a.k_sh, a.k_ss,
-                         a.v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a, 1.f,
-                         smem, sK, sV, tid);
+  load_resident<D, BR, ROPE>(a.k + b * a.k_sb + hk * a.k_sh, a.k_ss,
+                             a.v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a,
+                             1.f, smem, sK, sV, tid);
 
   // q column c of a stage is masked for kv row r where c < key(r) - the
   // stage's first q row: every column when the kv mask drops r, the
   // columns before r under the causal mask, none otherwise
   int key_a = 0, key_b = 0;
   if (MASKED) {
-    const int row_a = k0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;
+    const int row_a = k0 + (kSplitCols ? 0 : wg * 64) + warp * 16 + g;
+    const int row_b = row_a + 8;
     const unsigned char* mask =
         a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
     constexpr int kAll = 1 << 30, kNone = -(1 << 30);
@@ -534,15 +588,24 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
     key_b = mask != nullptr && !mask[row_b] ? kAll : a.causal ? row_b : kNone;
   }
   // The descriptor of this warpgroup's 64 rows of a resident tile, made
-  // anew in every stage from the thread index read anew: descriptors kept
-  // across the loop are kept with all their k steps, and at D = 128 the
+  // anew in every stage from the thread index read anew (with the columns
+  // split, from the tile's address made opaque): descriptors kept across
+  // the loop are kept with all their k steps, and at D = 128 and 256 the
   // loop has no registers for them (ptxas spilled them).
   auto resident_desc = [&](uint32_t tile) {
-    return wgmma_desc(tile + (read_tid() / 128) * 64 * kSwizzleRowBytes, 16,
-                      kSwizzleAtomBytes);
+    return wgmma_desc(
+        kSplitCols ? opaque(tile)
+                   : tile + (read_tid() / 128) * 64 * kSwizzleRowBytes,
+        16, kSwizzleAtomBytes);
+  };
+  // This warpgroup's first column block of a stage tile, likewise.
+  auto own_cols = [&](uint32_t tile) {
+    return tile + (kSplitCols ? (read_tid() / 128) * (DO / 64) * kRows *
+                                    kSwizzleRowBytes
+                              : 0);
   };
 
-  float dk[D / 8][4], dv[D / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
   uint32_t pa[kRows / 16][4], da[kRows / 16][4];
   zero(dk);
   zero(dv);
@@ -554,21 +617,23 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
     wgmma_fresh(s);
     wgmma_fresh(dp);
     wgmma_fence();
-    score_product<D>(s, resident_desc(sK),
-                     wgmma_desc(sQ + st * kTileBytes, 16, kSwizzleAtomBytes));
-    score_product<D>(dp, resident_desc(sV),
-                     wgmma_desc(sDO + st * kTileBytes, 16,
-                                kSwizzleAtomBytes));
+    score_product<D, BR, kRows>(
+        s, resident_desc(sK),
+        wgmma_desc(sQ + st * kTileBytes, 16, kSwizzleAtomBytes));
+    score_product<D, BR, kRows>(
+        dp, resident_desc(sV),
+        wgmma_desc(sDO + st * kTileBytes, 16, kSwizzleAtomBytes));
     wgmma_commit();
   };
-  // dv += bf16(p)^T do and dk += bf16(ds)^T q for stage t
+  // dv += bf16(p)^T do and dk += bf16(ds)^T q for stage t, over the
+  // warpgroup's columns
   auto kv_products = [&](int t) {
     const int st = t % kStages;
     wgmma_pin(dk);
     wgmma_pin(dv);
     wgmma_fence();
-    grad_product<D>(dv, pa, sDO + st * kTileBytes);
-    grad_product<D>(dk, da, sQ + st * kTileBytes);
+    grad_product<DO, kRows>(dv, pa, own_cols(sDO + st * kTileBytes));
+    grad_product<DO, kRows>(dk, da, own_cols(sQ + st * kTileBytes));
     wgmma_commit();
   };
   // the scores of stage t -> p^T = exp2(s^T scale log2(e) - lse[col]) and
@@ -652,9 +717,9 @@ __device__ __forceinline__ void put(bf16* p, float x) {
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-// K4's splits summed in split order, dk counter-rotated with rope, both
-// written as OutT (bf16: rounded): one thread per row and column pair (j,
-// j + D/2).
+// K4's partial sums (its splits, or with rope at D = 256 its one share)
+// summed in split order, dk counter-rotated with rope, both written as
+// OutT (bf16: rounded): one thread per row and column pair (j, j + D/2).
 template <int D, typename OutT>
 __global__ void __launch_bounds__(256) dkv_reduce_kernel(BwdArgs a, int hk,
                                                          long long rows) {
@@ -713,12 +778,18 @@ cudaError_t launch_masked(const TileMap& m0, const TileMap& m1,
   if constexpr (DQ) {
     auto k = masked ? &flash_bwd_dq_kernel<D, ROPE, true, OutT>
                     : &flash_bwd_dq_kernel<D, ROPE, false, OutT>;
-    return launch_kernel(k, grid, smem_bytes<D>(0), m0, m1, a, stream);
+    return launch_kernel(k, grid,
+                         smem_bytes<D>(kQRows, DqTiles<D>::stages,
+                                       DqTiles<D>::kv, 0),
+                         m0, m1, a, stream);
   } else {
     auto k = masked ? &flash_bwd_dkv_kernel<D, ROPE, true, OutT>
                     : &flash_bwd_dkv_kernel<D, ROPE, false, OutT>;
-    return launch_kernel(k, grid, smem_bytes<D>(2 * kRows * 4), m0, m1, a,
-                         stream);
+    return launch_kernel(k, grid,
+                         smem_bytes<D>(DkvTiles<D>::block,
+                                       DkvTiles<D>::stages, kRows,
+                                       2 * kRows * 4),
+                         m0, m1, a, stream);
   }
 }
 
@@ -735,6 +806,14 @@ cudaError_t launch(const TileMap& m0, const TileMap& m1, const BwdArgs& a,
   }
 }
 
+// Whether K4 writes f32 partial sums that dkv_reduce_kernel sums,
+// counter-rotates and writes: with a split, and with rope at D = 256,
+// where a thread holds column j of dk but not its rotation partner
+// j + 128, which the other warpgroup owns.
+bool dkv_reduces(int splits, bool rope, int d) {
+  return splits > 1 || (rope && d == 256);
+}
+
 // Fill the arguments both entry points share; false on shapes the kernels
 // do not take.
 bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
@@ -743,8 +822,8 @@ bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
                long long tab_rs, const unsigned char* mask, long long mask_sb,
                int hq, int hk, int sq, int skv, int d, int causal,
                float scale, float scale_log2e) {
-  if ((d != 64 && d != 128) || sq <= 0 || skv <= 0 || sq % kBlockRows ||
-      skv % kBlockRows || hk <= 0 || hq % hk ||
+  if ((d != 64 && d != 128 && d != 256) || sq <= 0 || skv <= 0 ||
+      sq % kQRows || skv % kQRows || hk <= 0 || hq % hk ||
       (cos != nullptr && sq != skv) ||
       reinterpret_cast<uintptr_t>(lse) % 16 ||
       reinterpret_cast<uintptr_t>(delta) % 16)
@@ -784,13 +863,11 @@ cudaError_t rotate_into(const bf16*& x, long long& sb, long long& sh,
                         int seq, int d, const BwdArgs& a,
                         cudaStream_t stream) {
   bf16* out = static_cast<bf16*>(scratch);
-  cudaError_t err =
-      d == 64 ? launch_rope_rows<64>(x, out, sb, sh, ss, batch, heads, seq,
-                                     a.cos, a.sin, a.tab_rs, nullptr, 0, 0.f,
-                                     1.f, stream)
-              : launch_rope_rows<128>(x, out, sb, sh, ss, batch, heads, seq,
-                                      a.cos, a.sin, a.tab_rs, nullptr, 0,
-                                      0.f, 1.f, stream);
+  const cudaError_t err = with_head_dim(d, [&](auto dim) {
+    return launch_rope_rows<decltype(dim)::value>(
+        x, out, sb, sh, ss, batch, heads, seq, a.cos, a.sin, a.tab_rs,
+        nullptr, 0, 0.f, 1.f, stream);
+  });
   x = out;
   ss = d;
   sh = static_cast<long long>(seq) * d;
@@ -811,21 +888,24 @@ cudaError_t run_dq(BwdArgs& a, void* dq, const long long* so,
     // K rotated once per launch, no scale (K3 folds it into the q tile)
     err = rotate_into(a.k, a.k_sb, a.k_sh, a.k_ss, k_scratch, batch, hk, skv,
                       d, a, stream);
-  TileMap mk, mv;
-  if (err == cudaSuccess)
-    err = make_tile_map(&mk, a.k, a.k_sb, a.k_sh, a.k_ss, batch, hk, skv, d,
-                        kRows);
-  if (err == cudaSuccess)
-    err = make_tile_map(&mv, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
-                        kRows);
   if (err != cudaSuccess) return err;
-  const dim3 grid(sq / kBlockRows, hq, batch);
-  return d == 64 ? launch<64, true, OutT>(mk, mv, a, grid, stream)
-                 : launch<128, true, OutT>(mk, mv, a, grid, stream);
+  const dim3 grid(sq / kQRows, hq, batch);
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    TileMap mk, mv;
+    cudaError_t e = make_tile_map(&mk, a.k, a.k_sb, a.k_sh, a.k_ss, batch,
+                                  hk, skv, d, DqTiles<D>::kv);
+    if (e == cudaSuccess)
+      e = make_tile_map(&mv, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
+                        DqTiles<D>::kv);
+    if (e != cudaSuccess) return e;
+    return launch<D, true, OutT>(mk, mv, a, grid, stream);
+  });
 }
 
 // K4 on the arguments in `a`, dk and dv (OutT) at the (b, h, s) strides
-// so[0..2] and so[3..5]; `splits` as x2i_flash_bwd_dkv takes it.
+// so[0..2] and so[3..5]; `splits` and `partial` as x2i_flash_bwd_dkv
+// takes them.
 template <typename OutT>
 cudaError_t run_dkv(BwdArgs& a, void* dk, void* dv, const long long* so,
                     void* q_scratch, float* partial, int splits, int batch,
@@ -836,7 +916,8 @@ cudaError_t run_dkv(BwdArgs& a, void* dk, void* dv, const long long* so,
   a.per_split = (stages + splits - 1) / splits;
   if ((splits - 1) * a.per_split >= stages)        // an empty split
     return cudaErrorInvalidValue;
-  a.partial = splits > 1 ? partial : nullptr;
+  const bool reduce = dkv_reduces(splits, a.cos != nullptr, d);
+  a.partial = reduce ? partial : nullptr;
   a.dk = dk;
   a.dv = dv;
   a.dk_sb = so[0]; a.dk_sh = so[1]; a.dk_ss = so[2];
@@ -854,17 +935,16 @@ cudaError_t run_dkv(BwdArgs& a, void* dk, void* dv, const long long* so,
     err = make_tile_map(&mdo, a.dout, a.do_sb, a.do_sh, a.do_ss, batch, hq,
                         sq, d, kRows);
   if (err != cudaSuccess) return err;
-  const dim3 grid(skv / kBlockRows, hk, batch * splits);
-  err = d == 64 ? launch<64, false, OutT>(mq, mdo, a, grid, stream)
-                : launch<128, false, OutT>(mq, mdo, a, grid, stream);
-  if (err != cudaSuccess || splits == 1) return err;
   const long long rows = static_cast<long long>(batch) * hk * skv;
   const unsigned blocks = static_cast<unsigned>((rows * (d / 2) + 255) / 256);
-  if (d == 64)
-    dkv_reduce_kernel<64, OutT><<<blocks, 256, 0, stream>>>(a, hk, rows);
-  else
-    dkv_reduce_kernel<128, OutT><<<blocks, 256, 0, stream>>>(a, hk, rows);
-  return cudaGetLastError();
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    const dim3 grid(skv / DkvTiles<D>::block, hk, batch * splits);
+    cudaError_t e = launch<D, false, OutT>(mq, mdo, a, grid, stream);
+    if (e != cudaSuccess || !reduce) return e;
+    dkv_reduce_kernel<D, OutT><<<blocks, 256, 0, stream>>>(a, hk, rows);
+    return cudaGetLastError();
+  });
 }
 
 // The f32 instances' inputs: q, k, v and do (f32, at the strides st[0..11])
@@ -923,8 +1003,9 @@ extern "C" int x2i_flash_bwd_dq(
 
 // K4: dk, dv (B, Hk, Skv, D) bf16 at st[12..14] and st[15..17]. With rope,
 // q_scratch holds B*Hq*Sq*D bf16 for the rotated Q. `splits` > 1 splits
-// each block's (group x Sq/64) stages into that many shares, none empty;
-// `partial` then holds 2*splits*B*Hk*Skv*D f32 for their sums.
+// each block's (group x Sq/64) stages into that many shares, none empty.
+// Where K4 writes partial sums (dkv_reduces: a split, or rope at D = 256)
+// `partial` holds 2*splits*B*Hk*Skv*D f32 for them.
 extern "C" int x2i_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
@@ -937,11 +1018,22 @@ extern "C" int x2i_flash_bwd_dkv(
   if (!fill_args(a, q, k, v, dout, lse, delta, st, cos, sin, tab_rs, mask,
                  mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
       (cos != nullptr && q_scratch == nullptr) || splits < 1 ||
-      (splits > 1 && partial == nullptr))
+      (dkv_reduces(splits, cos != nullptr, d) && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run_dkv<bf16>(
       a, dk, dv, st + 12, q_scratch, partial, splits, batch, hq, hk, sq, skv,
       d, static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// K4's kv rows a block at head dim d, and whether a launch with `splits`
+// and rope writes partial sums (dkv_reduces): the wrapper sizes the split
+// and allocates `partial` by them.
+extern "C" int x2i_flash_bwd_dkv_block_rows(int d) {
+  return d == 256 ? DkvTiles<256>::block : DkvTiles<128>::block;
+}
+
+extern "C" int x2i_flash_bwd_dkv_reduces(int splits, int rope, int d) {
+  return dkv_reduces(splits, rope != 0, d) ? 1 : 0;
 }
 
 // The f32 instances: q, k, v, do f32 at the strides in `st` as above

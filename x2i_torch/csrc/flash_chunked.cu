@@ -79,8 +79,9 @@
 // ring 2 stages (q 64 KB + 2 x 64 KB); o is 128 registers a thread, s 32
 // and p 16; s = q k^T is m64n64k16 and o += p v m64n256k16 through the
 // transpose bit. A tile's kv mask is then two ballots of two keys a lane.
-// No lse at D = 256 (the backward kernels do not take it yet), and no
-// tile overhangs Skv (a multiple of 64).
+// The lse epilogue is the same at every D (the forward of a 12 x 256 DiT
+// under autograd above MAX_KV_SEQ, and a ring's pairs of more than 8192
+// keys), and no tile overhangs Skv (a multiple of 64).
 //
 // The f32 instance (x2i_flash_chunked_f32), which the TPU kernel's f32
 // inputs take (an f32 DiT above 8192 tokens: the 2048^2 image), is K1's f32
@@ -480,7 +481,7 @@ extern "C" int x2i_flash_chunked(
     const long long* st, const unsigned char* mask, long long mask_sb,
     int batch, int hq, int hk, int sq, int skv, int d, int causal,
     float scale_log2e, void* stream_ptr) {
-  if (bad_shapes(batch, hq, hk, sq, skv, d) || (lse != nullptr && d == 256))
+  if (bad_shapes(batch, hq, hk, sq, skv, d))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run<bf16>(q, k, v, o, lse, st, mask, mask_sb, batch,
                                     hq, hk, sq, skv, d, causal, scale_log2e,
@@ -496,8 +497,7 @@ extern "C" int x2i_flash_chunked_f32(
     void* scratch, const long long* st, const unsigned char* mask,
     long long mask_sb, int batch, int hq, int hk, int sq, int skv, int d,
     int causal, float scale_log2e, void* stream_ptr) {
-  if (bad_shapes(batch, hq, hk, sq, skv, d) || scratch == nullptr ||
-      (lse != nullptr && d == 256))
+  if (bad_shapes(batch, hq, hk, sq, skv, d) || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   bf16* rq = static_cast<bf16*>(scratch);

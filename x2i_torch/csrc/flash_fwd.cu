@@ -93,7 +93,9 @@
 //   * the products: s = q k^T is m64n64k16 (16 k steps over D) and
 //     o += p v is m64n256k16 with p from registers and the V tile through
 //     the transpose bit (wgmma_rs_bf16_n256<1>, hopper_mma.cuh).
-// The rope pass reads the first 128 floats of each table row.
+// The rope pass reads the first 128 floats of each table row. The exact
+// body writes the lse at every D: at D = 256 it is the training forward of
+// the 12 x 256 DiT and a ring's pair forward.
 //
 // The f32 instance (x2i_flash_fwd_f32). The TPU kernel takes f32 q, k, v as
 // they come (the CLIP scorer evaluates in f32, an f32 DiT trains in f32)

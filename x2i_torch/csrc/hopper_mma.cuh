@@ -147,6 +147,25 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // ---------------------------------------------------------------- wgmma
 
+// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) B^T (B 32 x 16, shared,
+// K-major); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B^T (B 64 x 16, shared,
 // K-major); scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
@@ -274,17 +293,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
 }
 
 // d (64 x N, f32) (+)= A (64 x 16, shared, K-major) B^T (B N x 16, shared,
-// K-major), for the kv tile widths N = 64 and 128 of the attention
+// K-major), for the kv tile widths N = 32, 64 and 128 of the attention
 // kernels' scores.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4],
                                          uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "kv tile");
+  static_assert(N == 32 || N == 64 || N == 128, "kv tile");
   if constexpr (N == 128) {
     wgmma_ss_n128(d, desc_a, desc_b, scale_d);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
   }
 }
 

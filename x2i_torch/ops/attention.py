@@ -28,7 +28,7 @@ from x2i_torch.ops.rope import apply_rope_half
 
 def route(q: torch.Tensor, k: torch.Tensor, causal: bool = False,
           implementation: str = "auto", bias=None,
-          causal_offset: int = 0, grad: bool = False) -> str:
+          causal_offset: int = 0) -> str:
     """The dispatcher's static choice for q (B, Sq, Hq, D) against k (B,
     Skv, Hk, D): "kernel" (the flash kernel at these shapes), "pad" (the
     kernel on q, k and v padded to multiples of 128 with masked keys) or
@@ -38,14 +38,11 @@ def route(q: torch.Tensor, k: torch.Tensor, causal: bool = False,
     forward and backward at every length (K1 and its lse, K2 above
     ``MAX_KV_SEQ``, K3 and K4), as JAX's Pallas kernels take every dtype;
     any other dtype takes the plain route. Head dims 64, 128 and 256 take
-    the kernels, as JAX's ``supported`` and its pad route do, except under
-    autograd (``grad``: the call is recorded), where "auto" takes the plain
-    route at D = 256: K1 with the lse, K3 and K4 are not built for it yet.
-    Reads only shapes, dtype and device: meta tensors do."""
+    the kernels, forward and backward, as JAX's ``supported`` and its pad
+    route do. Reads only shapes, dtype and device: meta tensors do."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
-    auto_ok = (q.device.type != "cpu" and q.dtype in fa.KERNEL_DTYPES
-               and (not grad or d in fa.GRAD_HEAD_DIMS))
+    auto_ok = q.device.type != "cpu" and q.dtype in fa.KERNEL_DTYPES
     kernel_ok = bias is None and causal_offset == 0 and (
         implementation == "kernel" or (implementation == "auto" and auto_ok))
     if not kernel_ok:
@@ -84,11 +81,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
 
-    norm_scales = () if qk_norm is None else qk_norm[:2]
-    recording = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, *norm_scales))
-    which = route(q, k, causal, implementation, bias, causal_offset,
-                  recording)
+    which = route(q, k, causal, implementation, bias, causal_offset)
     use_kernel, pad_path = which == "kernel", which == "pad"
     pad_q, pad_kv = (-sq) % 128, (-skv) % 128
 

@@ -48,11 +48,8 @@ carried by autograd; in f32 the TPU kernels' rounding of the rotated q
 and k to the input dtype is the identity, so that is JAX's f32 function.
 Every other dtype takes the plain attention (``attention.route``).
 
-Head dims: the forward instances without the lse (K1's bodies, bf16 and
-f32, and K2) take ``HEAD_DIMS`` (64, 128 and 256, the TPU kernels'
-``supported``); the instances that autograd runs (K1 and K2 with the lse,
-K3 and K4) take ``GRAD_HEAD_DIMS`` (64 and 128), so that under autograd
-``attention.route`` takes the plain attention at D = 256.
+Head dims: every instance, forward and backward, bf16 and f32, takes
+``HEAD_DIMS`` (64, 128 and 256), the TPU kernels' ``supported``.
 
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
@@ -83,8 +80,7 @@ from x2i_torch.ops.norms import rms_norm
 
 NEG_INF = -1e30
 LOG2_E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)        # the forward instances without the lse
-GRAD_HEAD_DIMS = (64, 128)        # K1 and K2 with the lse, K3, K4
+HEAD_DIMS = (64, 128, 256)        # every instance
 # the JAX package's limits: above MAX_KV_SEQ kv tokens the forward is the
 # chunked kernel K2 (norm and rope outside) and the backward recomputes
 # through the plain attention; above ROPE_MAX_KV the differentiable route
@@ -95,8 +91,8 @@ ROPE_MAX_KV = 6144
 
 def supported(q_shape, kv_seq: int) -> bool:
     """Whether the forward kernels apply to these shapes: the TPU rule
-    (``supported``, S % 128 == 0, D in 64, 128 and 256). Under autograd
-    D = 256 takes the plain attention (``attention.route``)."""
+    (``supported``, S % 128 == 0, D in 64, 128 and 256), forward and
+    backward."""
     _, _, sq, d = q_shape
     return d in HEAD_DIMS and kv_seq % 128 == 0 and sq % 128 == 0
 
@@ -387,8 +383,11 @@ def _bind_bwd(lib):
     lib.x2i_flash_bwd_dkv_f32.argtypes = [
         p, p, p, p, p, p, p, p, p, p, i, p, p, ll,
         i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_bwd_dkv_block_rows.argtypes = [i]
+    lib.x2i_flash_bwd_dkv_reduces.argtypes = [i, i, i]
     for name in ("x2i_flash_bwd_dq", "x2i_flash_bwd_dkv",
-                 "x2i_flash_bwd_dq_f32", "x2i_flash_bwd_dkv_f32"):
+                 "x2i_flash_bwd_dq_f32", "x2i_flash_bwd_dkv_f32",
+                 "x2i_flash_bwd_dkv_block_rows", "x2i_flash_bwd_dkv_reduces"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -401,14 +400,15 @@ def _bind_bwd(lib):
 # ``flash_fwd_f32`` for every forward on f32 inputs without the lse or
 # rope (any body), ``flash_fwd_rope_f32`` for the f32 rope-and-norm
 # instance, ``flash_fwd_lse_f32`` for every f32 forward with the lse; at
-# D = 256 the forwards without the lse count apart, under these names with
-# ``_d256`` (``launch_name``)
+# D = 256 every forward counts apart, under these names with ``_d256``
+# (``launch_name``)
 KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                      ("flash_fwd_rope", "flash_fwd", "flash_fwd_pipe",
                       "flash_fwd_lse", "flash_fwd_f32", "flash_fwd_lse_f32",
                       "flash_fwd_rope_f32", "flash_fwd_rope_d256",
                       "flash_fwd_d256", "flash_fwd_pipe_d256",
-                      "flash_fwd_f32_d256", "flash_fwd_rope_f32_d256"),
+                      "flash_fwd_lse_d256", "flash_fwd_f32_d256",
+                      "flash_fwd_lse_f32_d256", "flash_fwd_rope_f32_d256"),
                      _bind,
                      # every instance, and by name the D = 256 ones and the
                      # f32 rope-and-norm one at D = 128 (mangled: <D, WGS,
@@ -429,18 +429,26 @@ KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
 
 
 def launch_name(name: str, d: int) -> str:
-    """The launch count a forward of head dim d raises: ``name``, or at
+    """The launch count a kernel of head dim d raises: ``name``, or at
     D = 256 ``name`` + "_d256"."""
     return f"{name}_d256" if d == 256 else name
 
 
-# the backward library: K3 and K4, and their f32 instances
+# the backward library: K3 and K4, and their f32 instances, counted apart
+# at D = 256
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                          ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
-                          "flash_bwd_dkv_f32"), _bind_bwd,
+                          "flash_bwd_dkv_f32", "flash_bwd_dq_d256",
+                          "flash_bwd_dkv_d256", "flash_bwd_dq_f32_d256",
+                          "flash_bwd_dkv_f32_d256"), _bind_bwd,
+                         # every instance, and by name the D = 256 ones
+                         # (mangled: <D, ROPE, MASKED, OutT>)
                          wgmma_kernels=("flash_bwd_dq_kernel",
-                                        "flash_bwd_dkv_kernel"),
-                         checked_kernels=("round_rows_kernel",))
+                                        "flash_bwd_dkv_kernel",
+                                        "flash_bwd_dq_kernelILi256E",
+                                        "flash_bwd_dkv_kernelILi256E"),
+                         checked_kernels=("round_rows_kernel",
+                                          "dkv_reduce_kernelILi256E"))
 
 
 def check_rows(name, shape, strides, data_ptr, ndim=4, itemsize=2):
@@ -510,22 +518,20 @@ def _qk_scale(w, s, d):
                       s, d), d
 
 
-def check_shapes(q_shape, k_shape, v_shape, extra=(),
-                 head_dims=GRAD_HEAD_DIMS):
+def check_shapes(q_shape, k_shape, v_shape, extra=()):
     """The shapes a flash kernel takes -> (b, hq, hk, sq, skv, d): q
     (B, Hq, Sq, D), k and v (B, Hk, Skv, D) with Hq a multiple of Hk, D in
-    ``head_dims`` (by default ``GRAD_HEAD_DIMS``, which every flash kernel
-    takes; the forwards without the lse take ``HEAD_DIMS``), Sq and Skv
-    multiples of 64 (K2's tiles overhang a last 64 rows; K1, K3 and K4 ask
-    for 128 on top), and each shape in ``extra`` equal to q's; raises
-    ValueError otherwise."""
+    ``HEAD_DIMS``, Sq and Skv multiples of 64 (K2's tiles overhang a last
+    64 rows; K1, K3 and K4 ask for 128 on top: ``check_kernel_shapes``),
+    and each shape in ``extra`` equal to q's; raises ValueError
+    otherwise."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         raise ValueError(f"flash kernel: unsupported shapes q "
                          f"{tuple(q_shape)} k {tuple(k_shape)}")
     b, hq, sq, d = q_shape
     hk, skv = k_shape[1], k_shape[2]
     if (tuple(k_shape) != tuple(v_shape) or k_shape[0] != b
-            or k_shape[3] != d or hk < 1 or hq % hk or d not in head_dims
+            or k_shape[3] != d or hk < 1 or hq % hk or d not in HEAD_DIMS
             or sq < 64 or skv < 64 or sq % 64 or skv % 64
             or any(tuple(e) != tuple(q_shape) for e in extra)):
         raise ValueError(f"flash kernel: unsupported shapes q "
@@ -534,19 +540,27 @@ def check_shapes(q_shape, k_shape, v_shape, extra=(),
     return b, hq, hk, sq, skv, d
 
 
-def _shapes(q, k, v, extra=(), head_dims=GRAD_HEAD_DIMS):
+def check_kernel_shapes(q_shape, k_shape, v_shape, extra=()):
+    """``check_shapes`` with Sq and Skv multiples of 128: the shapes K1
+    (with and without the lse), K3 and K4 take; raises ValueError
+    otherwise."""
+    shapes = check_shapes(q_shape, k_shape, v_shape, extra)
+    sq, skv = shapes[3], shapes[4]
+    if sq % 128 or skv % 128:
+        raise ValueError(f"flash kernel: unsupported shapes: K1, K3 and K4 "
+                         f"take Sq and Skv in multiples of 128, got {sq} "
+                         f"and {skv}")
+    return shapes
+
+
+def _shapes(q, k, v, extra=(), check=check_shapes):
     """Check q, k, v (and the (B, Hq, Sq, D) tensors in ``extra``), all
-    bf16 or all f32, D in ``head_dims`` -> (b, hq, hk, sq, skv, d)."""
+    bf16 or all f32, by ``check`` -> (b, hq, hk, sq, skv, d)."""
     tensors = (("q", q), ("k", k), ("v", v), *extra)
     dtype = instance_dtype(*(t.dtype for _, t in tensors))
     for name, t in tensors:
         _check(name, t, 4, dtype)
-    return check_shapes(q.shape, k.shape, v.shape,
-                        [t.shape for _, t in extra], head_dims)
-
-
-def _fwd_head_dims(return_lse: bool):
-    return GRAD_HEAD_DIMS if return_lse else HEAD_DIMS
+    return check(q.shape, k.shape, v.shape, [t.shape for _, t in extra])
 
 
 def _mask_arg(kv_mask, b, skv, device):
@@ -618,16 +632,12 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
     to bf16 on the card, o and the lse written in f32; with rope tables
     the rope-and-norm instance, whose rounding points are the bf16 K1a's
     on the rounded inputs). With the lse (the forward of
-    ``_FlashAttention``) D = 256 and, in f32, rope are refused, as the
-    backward kernels take neither."""
+    ``_FlashAttention``) rope in f32 is refused, as the f32 backward
+    kernels take none."""
     f32 = q.dtype == torch.float32
     if f32 and return_lse:
         _no_rope_f32("K1 with the lse", rope)
-    b, hq, hk, sq, skv, d = _shapes(q, k, v,
-                                    head_dims=_fwd_head_dims(return_lse))
-    if sq % 128 or skv % 128:
-        raise ValueError(f"flash kernel: unsupported shapes: K1 takes Sq and "
-                         f"Skv in multiples of 128, got {sq} and {skv}")
+    b, hq, hk, sq, skv, d = _shapes(q, k, v, check=check_kernel_shapes)
     exact = return_lse or is_exact(kv_mask, causal, skv)
     cos, sin, tab_rs, qw, qw_rs, kw, kw_rs, eps = _rope_norm_args(
         rope, qk_norm, sq, skv, d)
@@ -658,21 +668,19 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
     if return_lse:
         name = "flash_fwd_lse_f32" if f32 else "flash_fwd_lse"
     elif f32:
-        name = launch_name("flash_fwd_rope_f32" if rope is not None
-                           else "flash_fwd_f32", d)
+        name = ("flash_fwd_rope_f32" if rope is not None
+                else "flash_fwd_f32")
     else:
-        name = launch_name("flash_fwd_rope" if rope is not None else
-                           "flash_fwd" if exact else "flash_fwd_pipe", d)
-    KERNEL.launches[name] += 1
+        name = ("flash_fwd_rope" if rope is not None else
+                "flash_fwd" if exact else "flash_fwd_pipe")
+    KERNEL.launches[launch_name(name, d)] += 1
     return (out, lse) if return_lse else out
 
 
 def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
     """K2, or its f32 instance on f32 inputs (rounded to bf16 on the card
-    into a scratch buffer, o and the lse written in f32); with the lse not
-    at D = 256."""
-    b, hq, hk, sq, skv, d = _shapes(q, k, v,
-                                    head_dims=_fwd_head_dims(return_lse))
+    into a scratch buffer, o and the lse written in f32)."""
+    b, hq, hk, sq, skv, d = _shapes(q, k, v)
     f32 = q.dtype == torch.float32
     mask, mask_sb = _mask_arg(kv_mask, b, skv, q.device)
     out = _out_bhsd(b, hq, sq, d, q)
@@ -697,11 +705,8 @@ def _flash_chunked_cuda(q, k, v, kv_mask, causal, scale, return_lse=False):
 
 
 def _bwd_args(q, k, v, do, lse, delta, kv_mask, rope):
-    b, hq, hk, sq, skv, d = _shapes(q, k, v, (("do", do),))
-    if sq % 128 or skv % 128:
-        raise ValueError(f"flash kernel: unsupported shapes: K3 and K4 take "
-                         f"Sq and Skv in multiples of 128, got {sq} and "
-                         f"{skv}")
+    b, hq, hk, sq, skv, d = _shapes(q, k, v, (("do", do),),
+                                    check_kernel_shapes)
     for name, t in (("lse", lse), ("delta", delta)):
         _rows_f32(name, t, (b, hq, sq), q.device)
         if t.data_ptr() % 16:
@@ -739,15 +744,16 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     if err != 0:
         raise RuntimeError(f"flash dq kernel launch failed: cudaError_t "
                            f"{err}")
-    KERNEL_BWD.launches["flash_bwd_dq_f32" if f32 else "flash_bwd_dq"] += 1
+    KERNEL_BWD.launches[launch_name(
+        "flash_bwd_dq_f32" if f32 else "flash_bwd_dq", d)] += 1
     return dq
 
 
 def dkv_splits(blocks: int, stages: int, sms: int) -> int:
     """How many shares K4 splits each block's ``stages`` (GQA group x
-    64-row q tiles) into: 1 where its ``blocks`` (128-row kv tiles x kv
-    heads x batch) fill the card's ``sms``, else enough for about one block
-    per SM, each share non-empty."""
+    64-row q tiles) into: 1 where its ``blocks`` (kv tiles x kv heads x
+    batch; a tile is 128 rows, 64 at D = 256) fill the card's ``sms``,
+    else enough for about one block per SM, each share non-empty."""
     if blocks >= sms:
         return 1
     per = -(-stages // min(stages, -(-sms // blocks)))
@@ -766,15 +772,18 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
         _bwd_args(q, k, v, do, lse, delta, kv_mask, rope)
     f32 = q.dtype == torch.float32
     dk, dv = _out_bhsd(b, hk, skv, d, k), _out_bhsd(b, hk, skv, d, v)
-    splits = dkv_splits(skv // 128 * hk * b, hq // hk * sq // 64,
-                        _sm_count(q.device))
-    # a split's f32 partial dk and dv, summed in split order by the library
+    lib = KERNEL_BWD.lib()
+    splits = dkv_splits(skv // lib.x2i_flash_bwd_dkv_block_rows(d) * hk * b,
+                        hq // hk * sq // 64, _sm_count(q.device))
+    # the f32 partial dk and dv of a split, or with rope at D = 256 of the
+    # one share, summed, counter-rotated and written by the library's
+    # reduce kernel
+    reduce = lib.x2i_flash_bwd_dkv_reduces(splits, int(rope is not None), d)
     partial = (torch.empty((2, splits, b, hk, skv, d), dtype=torch.float32,
-                           device=q.device) if splits > 1 else None)
+                           device=q.device) if reduce else None)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3])
-    lib = KERNEL_BWD.lib()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tail = (_ptr(mask), mask_sb, b, hq, hk, sq, skv, d, int(causal), scale,
@@ -793,7 +802,8 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     if err != 0:
         raise RuntimeError(f"flash dk/dv kernel launch failed: cudaError_t "
                            f"{err}")
-    KERNEL_BWD.launches["flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv"] += 1
+    KERNEL_BWD.launches[launch_name(
+        "flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv", d)] += 1
     return dk, dv
 
 
@@ -925,10 +935,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     instances with the lse and the backward's take no rope; in f32 the
     rounding is the identity, so this is JAX's function), with qk_norm
     forward-only below ``ROPE_MAX_KV`` as before; f32 without autograd
-    takes both inside K1's f32 rope-and-norm instance. D = 256 takes the
-    forward kernels only: under autograd it raises on the card (K1 with the
-    lse, K3 and K4 take 64 and 128; ``attention.route`` sends such calls to
-    the plain attention).
+    takes both inside K1's f32 rope-and-norm instance. Head dims 64, 128
+    and 256 take every kernel, forward and backward.
 
     Without autograd recording, a CUDA tensor launches the forward kernel
     (which raises on what it does not take) and a CPU tensor takes the

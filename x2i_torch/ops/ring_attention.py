@@ -12,10 +12,11 @@ approximation (Liu et al. 2023).
 Each (q shard, kv shard) pair takes K1 with its lse
 (``flash_forward_lse``), or above ``MAX_KV_SEQ`` kv tokens a shard K2 with
 its lse (``flash_forward_chunked(return_lse=True)``), as JAX's
-``_fwd_impl`` routes them, on bf16 CUDA tensors whose shards the kernels
-take; otherwise (CPU tensors, other dtypes, "plain") the plain pair
-functions of JAX's XLA route. The partials merge in f32, with one cast at
-the end of the ring.
+``_fwd_impl`` routes them, on CUDA tensors of the kernels' dtypes (bf16
+and f32) whose shards the kernels take, by their own shape check
+(``kernels_take``), at every head dim they take (64, 128, 256); otherwise
+(CPU tensors, other dtypes, "plain") the plain pair functions of JAX's XLA
+route. The partials merge in f32, with one cast at the end of the ring.
 
 The backward runs the ring again: dq accumulates in f32 on the owner of
 q, while (k, v, dk, dv) make the full circle of n hops, each pair adding
@@ -66,15 +67,33 @@ def _pair_bwd_plain(q, k, v, o, lse, do, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def kernels_take(q_shape, kv_seq: int, dtype) -> bool:
+    """Whether the pair wrappers' kernels take a (B, H, Sq, D) q shard
+    against kv_seq keys in ``dtype``: the forward with its lse (K1, or K2
+    above ``MAX_KV_SEQ``) and K3 and K4, asked through their own shape
+    check (``check_kernel_shapes``), so that this rule and the kernels
+    cannot part."""
+    if dtype not in fa.KERNEL_DTYPES:
+        return False
+    b, h, _, d = q_shape
+    kv_shape = (b, h, kv_seq, d)
+    try:
+        fa.check_kernel_shapes(q_shape, kv_shape, kv_shape)
+    except ValueError:
+        return False
+    return True
+
+
 def use_kernels(q, kv_seq: int, implementation: str) -> bool:
     """Whether a pair takes the kernels' wrappers: always under "kernel"
-    (on a CPU tensor their plain versions), under "auto" on a bf16 CUDA
-    tensor whose shards they take, never under "plain"."""
+    (on a CPU tensor their plain versions), under "auto" on a CUDA tensor
+    whose dtype and shards they take (``kernels_take``), never under
+    "plain"."""
     if implementation not in ("auto", "kernel", "plain"):
         raise ValueError(f"implementation={implementation!r}")
     return implementation == "kernel" or (
         implementation == "auto" and q.device.type == "cuda"
-        and q.dtype == torch.bfloat16 and fa.supported(q.shape, kv_seq))
+        and kernels_take(q.shape, kv_seq, q.dtype))
 
 
 def _attend_lse(q, k, v, scale, implementation):

@@ -37,8 +37,15 @@ Phases, each printing one JSON line per record:
    the f32 DiT's fused glue: K1's
    f32 rope-and-norm instance at (1, 24, 4608, 128) (its o rounded to
    bf16 against the bf16 K1a's on the rounded inputs) beside SDPA in f32,
-   and K5's f32 instance at the DiT's three row counts beside
-   F.layer_norm in f32; the int8 GEMM at the
+   and K5's f32 instance at the DiT's three row counts (its warp body
+   timed beside f32_rows_kernel at 4608 rows) and at 4608 rows x 4096 and
+   6144 beside F.layer_norm in f32; the f32 w8a8 and w4a8 DiT's: K8 on
+   f32 rows bit for bit at every width of the path and on tie rows, K6
+   and K7 on f32 rows (codes within one step, at most 0.1% flipped,
+   scales within 1e-5), also at the 32 x 128 DiT's 4096 and 16384, the
+   int8 and w4a8 GEMMs' f32 epilogue bit for bit at the DiT's twelve
+   shapes (timed beside the bf16 epilogue), the f32 int8 and w4
+   dequantize kernels bit for bit at the DiT's weights; the int8 GEMM at the
    w8a8 DiT's twelve shapes; the w4a8 GEMM at the same twelve, the LM's and
    two more chunks (its int32 sum exact and its output bit for bit, timed
    beside the int8 GEMM on its materialized operand and the bf16 product);
@@ -159,7 +166,9 @@ Phases, each printing one JSON line per record:
    f32 instance 460 in the fused one), the two within 2e-2 relative L2;
    the DiT cast back to bf16, bit for bit the one before; the 2+2-block
    route checks in f32 (the image's at 1536^2, the fused glue's at 512^2,
-   the phase-2 gradient's);
+   the phase-2 gradient's), and on a DiT of 32 heads x 128 (width 4096)
+   in f32 unquantized and in w8a8 with the glue fused (K5 f32 at 4096;
+   K6, K7 and K8 f32 at 4096, 16384 and 4096);
 5. distill: the full-width phase-1 distillation trainer on the same bf16
    DiT and LM (no second copy), with T5-XXL's encoder and CLIP-L's text
    tower drawn on the card: one warm-up step and three timed steps, each
@@ -235,7 +244,13 @@ Phases, each printing one JSON line per record:
    2+2-block full-width w8a8 DiT holds the kernel route against the plain
    route (unfused glue, plain quantization and product, plain attention)
    on the same int8 weights; then the same image with the bank
-   (``lightcontrol-w8a8``), with the same counts;
+   (``lightcontrol-w8a8``), with the same counts; then f32-w8a8: the same
+   DiT cast in place to f32 (its layers' dtype too; the codes and scales
+   stay), the 1024^2 image unfused, then with the glue fused once as the
+   warm-up and once timed (K6, K7, K8 on f32 rows, the int8 GEMM's f32
+   epilogue: 460 / 304 / 412 / 1936 launches), within 2e-2 relative L2 of
+   the unfused f32 image, its distance from the bf16 w8a8 image, then
+   cast back bit for bit, and its 2+2-block f32 route check;
 7. w4a8 and w4: the bf16 DiT drawn again from the generator state it was
    drawn from (the same weights), quantized in place to w4a8 and makes
    the same image through K6/K7/K8 and the w4a8 GEMM; then drawn again
@@ -243,8 +258,10 @@ Phases, each printing one JSON line per record:
    GEMM; each with exact launch counts, its pixels compared with the bf16
    ones, and a 2+2-block full-width DiT in the mode holding the kernel
    route against the plain route on the same int4 weights; then w8 the
-   same way (K5 and the dequantizing GEMM); after the w4a8 and the w4
-   images, a phase-2 step with 8-bit AdamW on that DiT
+   same way (K5 and the dequantizing GEMM); in w4a8 also f32-w4a8 as
+   f32-w8a8 (the w4a8 GEMM's f32 epilogue), in w4 and w8 the 2+2-block
+   f32 route check (K5 f32, the f32 dequantize kernel before F.linear);
+   after the w4a8 and the w4 images, a phase-2 step with 8-bit AdamW on that DiT
    (``lightcontrol-train-w4a8``: the w4a8 GEMM and K8 forward, the w4a8
    dequantize kernel's straight-through backward;
    ``lightcontrol-train-w4``: the dequantizing GEMM forward, the w4
@@ -1044,6 +1061,10 @@ def check_f32_attention(g, records):
 D256 = dict(attention_head_dim=256, num_attention_heads=12,
             axes_dims_rope=(32, 112, 112))
 D256_PAD_TOKENS = 512 + (960 // 16) ** 2      # 4112: the pad route
+# a DiT of 32 heads x 128 (width 4096, MLP 16384): JAX's FluxConfig takes
+# it, the registry has none; the route checks of K5-K8's f32 instances at
+# those widths
+W4096 = dict(num_attention_heads=32)
 
 
 def check_d256_attention(g, rows, records):
@@ -1204,10 +1225,12 @@ def check_f32_glue(g, records):
     bf16 (``check_f32_instance``: no farther in relative L2; its o rounded
     to bf16 is expected to be the bf16 K1a's bit for bit, and is reported),
     SDPA in f32 (no norm, no rope) the library's time; K5 on f32 rows at
-    the DiT's three row counts (4096 image, 512 text, 4608 joint) x 3072,
-    rows whose scale spans four decades, against its plain version within
-    1e-5 relative and absolute (f32 row statistics summed in another
-    order), ``F.layer_norm`` in f32 the library's time."""
+    the DiT's three row counts (4096 image, 512 text, 4608 joint) x 3072
+    (the warp body) and at 4608 rows x 4096 (the 32 x 128 DiT's width) and
+    6144 (f32_rows_kernel), rows whose scale spans four decades, against
+    its plain version within 1e-5 relative and absolute (f32 row
+    statistics summed in another order), ``F.layer_norm`` in f32 the
+    library's time."""
     import functools
 
     import torch
@@ -1239,25 +1262,27 @@ def check_f32_glue(g, records):
     del q, k, v, lib
     torch.cuda.empty_cache()
     recs = records.setdefault("ln_mod_f32", [])
-    for rows_n in (4096, 512, 4608):
+    for rows_n, width in ((4096, 3072), (512, 3072), (4608, 3072),
+                          (4608, 4096), (4608, 6144)):
         lead = (1, rows_n, 1)
         sigma = 10.0 ** torch.empty(lead, device=dev).uniform_(
             -2.0, 2.0, generator=g)
-        x = f32(1, rows_n, 3072) * sigma + 3.0 * sigma * f32(*lead)
-        shift, scale = 0.5 * f32(1, 3072), 0.5 * f32(1, 3072)
+        x = f32(1, rows_n, width) * sigma + 3.0 * sigma * f32(*lead)
+        shift, scale = 0.5 * f32(1, width), 0.5 * f32(1, width)
         got = fg.ln_mod(x, shift, scale)
         want = fg.ln_mod_plain(x, shift, scale)
         diff = (got - want).abs()
         ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
         rec = {"phase": "kernels", "kernel": "ln_mod_f32",
                "shape": list(x.shape), "dtype": "float32",
+               "instance": list(fg.f32_instance("ln_mod", width)),
                "max_abs_err": diff.max().item(),
                "mean_abs_err": diff.mean().item(), "within_1e-5": ok,
                "ms": kernel_ms(lambda t: fg.ln_mod(t, shift, scale), x),
                "plain_ms": kernel_ms(
                    lambda t: fg.ln_mod_plain(t, shift, scale), x),
                "library_ms": kernel_ms(
-                   lambda t: F.layer_norm(t, (3072,), 1.0 + scale[0],
+                   lambda t: F.layer_norm(t, (width,), 1.0 + scale[0],
                                           shift[0], 1e-6), x),
                "library": "F.layer_norm, f32, weight 1 + scale, bias shift",
                "copy_ms": kernel_ms(torch.clone, x)}
@@ -1265,6 +1290,18 @@ def check_f32_glue(g, records):
             10.0 * x.numel(), nbytes(x, got, shift, scale), PEAK_F32_FLOPS)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["gb_per_s"] = nbytes(x, got, shift, scale) / rec["ms"] / 1e6
+        if width == 3072 and rows_n == 4608:
+            # the warp body (launched) and f32_rows_kernel at a block a
+            # row, as wider rows take it: the time of each
+            rows_body = ("rows", 256, 4)
+            wide = fg._launch_f32("ln_mod", x, shift, scale,
+                                  instance=rows_body)
+            rec["rows_body_within_1e-5"] = bool(
+                ((wide - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+            ok = ok and rec["rows_body_within_1e-5"]
+            rec["ms_by_body"] = {"warp": rec["ms"], "rows": kernel_ms(
+                lambda t: fg._launch_f32("ln_mod", t, shift, scale,
+                                         instance=rows_body), x)}
         emit(rec)
         if not (ok and bool(torch.isfinite(got).all())):
             raise AssertionError(f"ln_mod_f32 disagrees with its plain "
@@ -1422,6 +1459,9 @@ def phase_kernels(seed: int):
     check_w4_dequant(g, recs)
     check_dequant_gemms(g, rows, recs)
     check_grad_dequant(g, recs)
+    check_f32_quant_glue(g, recs)
+    check_f32_gemms(g, rows, recs)
+    check_f32_dequant(g, recs)
     check_straight_through(g)
     return recs
 
@@ -1651,11 +1691,11 @@ def check_glue(g, randn, rows, recs):
         recs.setdefault(name, []).append(rec)
 
 
-def tie_rows(g, n: int, d: int):
-    """n rows of d bf16 values (2k + 1) / 16, k in [-127, 126], each row
+def tie_rows(g, n: int, d: int, dtype=None):
+    """n rows of d values (2k + 1) / 16, k in [-127, 126], each row
     with one value of magnitude 15.875 = 127 / 8: the row scale is 2^-3
     exactly and every quotient lands on k + 0.5, where the codes round
-    half to even."""
+    half to even; bf16, or ``dtype`` (the same values: f32 holds them)."""
     import torch
     dev = torch.device("cuda")
     k = torch.randint(-127, 127, (n, d), generator=g, device=dev)
@@ -1663,7 +1703,7 @@ def tie_rows(g, n: int, d: int):
     at = torch.randint(0, d, (n,), generator=g, device=dev)
     sign = torch.randint(0, 2, (n,), generator=g, device=dev) * 2 - 1
     x[torch.arange(n, device=dev), at] = 15.875 * sign
-    return x.to(torch.bfloat16)
+    return x.to(dtype or torch.bfloat16)
 
 
 # the DiT's int8 products at 1024^2: (label, M, K, N, weight width, k0,
@@ -2072,6 +2112,253 @@ def check_grad_dequant(g, recs):
             recs.setdefault(name, []).append(rec)
 
 
+# K6, K7 and K8 on f32 rows: (kernel, case, shape), the DiT's rows and the
+# unfused w8a8 layers' inputs, tie rows, and the 32 x 128 DiT's widths
+F32_GLUE_CASES = (
+    [("quant_rows", label, shape) for label, shape in (
+        ("x_embedder", (1, 4096, 64)), ("context_embedder", (1, 512, 4096)),
+        ("time in", (1, 256)), ("pooled in", (1, 768)),
+        ("mods pass", (4, 3072)))]
+    + [case for n_rows in (4096, 512, 4608) for case in (
+        ("quant_rows", f"attention, {n_rows} rows", (1, n_rows, 3072)),
+        ("gelu_quant", f"{n_rows} rows", (1, n_rows, 12288)),
+        ("ln_mod_quant", f"{n_rows} rows", (1, n_rows, 3072)))]
+    + [("ln_mod_quant", "batch 2", (2, 512, 3072)),
+       ("quant_rows", "tie rows", (1, 256, 12288)),
+       ("quant_rows", "tie rows", (64, 3072)),
+       ("quant_rows", "width 4096, 4608 rows", (1, 4608, 4096)),
+       ("gelu_quant", "width 16384, 4608 rows", (1, 4608, 16384)),
+       ("ln_mod_quant", "width 4096, 4608 rows", (1, 4608, 4096))])
+# the case of each whose plain version is timed too (the kernels line's)
+F32_GLUE_MAIN = {"quant_rows": "attention, 4608 rows",
+                 "gelu_quant": "4608 rows", "ln_mod_quant": "4096 rows"}
+
+
+def check_f32_quant_glue(g, recs):
+    """K6, K7 and K8 on f32 rows (the f32 w8a8 and w4a8 DiT's fused glue)
+    at ``F32_GLUE_CASES``, rows whose scale spans four decades (K7's
+    centred): K8 bit for bit its plain version, tie rows included; K6 and
+    K7 codes within one step, at most 0.1% of them flipped, and scales
+    within 1e-5 relative (f32 row statistics summed in another order; K7's
+    exp form of the tanh against PyTorch's tanhf); K6 bit for bit K8 after
+    K5 on f32 rows where K5 takes f32_rows_kernel too (above 3072: one
+    LayerNorm + modulate in both; reported at 3072). Each counts one
+    launch under its ``_f32`` name; timed beside the bound (bytes: the
+    f32 rows and modulation rows read once, the codes and scales written
+    once) and, at ``F32_GLUE_MAIN``'s cases, the plain version. No one
+    PyTorch call computes them."""
+    import torch
+    from x2i_torch.ops import fused_glue as fg
+
+    dev = torch.device("cuda")
+
+    def rows32(*shape, mean=3.0):
+        lead = (*shape[:-1], 1)
+        sigma = 10.0 ** torch.empty(lead, device=dev).uniform_(
+            -2.0, 2.0, generator=g)
+        mu = sigma * mean * torch.randn(lead, generator=g, device=dev)
+        return torch.randn(shape, generator=g, device=dev) * sigma + mu
+
+    ops = {"ln_mod_quant": 16, "gelu_quant": 20, "quant_rows": 5}
+    for name, label, shape in F32_GLUE_CASES:
+        if label == "tie rows":
+            x = tie_rows(g, math.prod(shape[:-1]), shape[-1],
+                         torch.float32).view(shape)
+        else:
+            x = rows32(*shape, mean=0.0 if name == "gelu_quant" else 3.0)
+        inputs = (x,)
+        if name == "ln_mod_quant":
+            mod = 0.5 * torch.randn((shape[0], 6 * shape[-1]), generator=g,
+                                    device=dev)
+            inputs = (x, mod[:, :shape[-1]], mod[:, shape[-1]:2 * shape[-1]])
+        fn, plain = getattr(fg, name), getattr(fg, name + "_plain")
+        key = name + "_f32"
+        before = dict(fg.LAUNCHES)
+        q, a = fn(*inputs)
+        counted = fg.LAUNCHES == dict(before, **{key: before[key] + 1})
+        qp, ap = plain(*inputs)
+        torch.cuda.synchronize()
+        d = (q.int() - qp.int()).abs()
+        scale_rel = ((a - ap).abs() / ap).max().item()
+        rec = {"phase": "kernels", "kernel": key, "case": label,
+               "shape": list(x.shape), "dtype": "float32",
+               "instance": list(fg.f32_instance(name, shape[-1])),
+               "max_abs_err": (q.float() * a - qp.float() * ap).abs().max()
+               .item(),
+               "max_code_diff": int(d.max()), "codes_flipped": int(
+                   (d != 0).sum()), "codes": d.numel(),
+               "max_scale_rel_err": scale_rel, "counted_once": counted,
+               "bit_for_bit": torch.equal(q, qp) and torch.equal(a, ap),
+               "ms": kernel_ms(fn, *inputs),
+               "plain_ms": (kernel_ms(plain, *inputs)
+                            if F32_GLUE_MAIN[name] == label else None),
+               "library_ms": None,
+               "library": "none: no one PyTorch call computes it"}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            ops[name] * x.numel(), nbytes(*inputs, q, a), PEAK_F32_FLOPS)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["gb_per_s"] = nbytes(*inputs, q, a) / rec["ms"] / 1e6
+        flips = rec["codes_flipped"] / rec["codes"]
+        ok = counted and (rec["bit_for_bit"] if name == "quant_rows" else
+                          rec["max_code_diff"] <= 1 and flips <= 1e-3
+                          and scale_rel <= 1e-5)
+        if name == "ln_mod_quant":
+            q8, a8 = fg.quant_rows(fg.ln_mod(*inputs))
+            rec["k8_after_k5_exact"] = (torch.equal(q, q8)
+                                        and torch.equal(a, a8))
+            if fg.f32_instance("ln_mod", shape[-1])[0] == "rows":
+                ok = ok and rec["k8_after_k5_exact"]
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"{key} disagrees with its plain version "
+                                 f"or was not counted once: {rec}")
+        recs.setdefault(key, []).append(rec)
+
+
+def check_f32_gemms(g, rows, recs):
+    """The f32 epilogue of the int8 and the w4a8 GEMM (an f32 layer's
+    output, bias and addend) at the twelve DiT shapes of ``GEMM_SHAPES``,
+    with the bias and the addend where the DiT's layers have them, on
+    weights from ``quantize_kernel`` and ``quantize_kernel_w4a8`` and
+    activation codes of f32 rows: bit for bit the plain version (every
+    step rounded once in f32 in its order; the int32 sums are exact), one
+    launch counted under ``int8_gemm_f32`` / ``w4a8_gemm_f32``. Timed at
+    every shape; at ``GEMM_MAIN`` also the plain version, ``torch._int_mm``
+    (the int32 product alone) and the bf16 epilogue on the same codes
+    (``bf16_out_ms``: what the f32 output's bytes cost)."""
+    import torch
+    from x2i_torch.ops import fused_glue as fg
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as ig
+    from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4a8
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    for kernel in ("int8_gemm", "w4a8_gemm"):
+        for label, m, k, n, width, k0, with_add, with_bias in GEMM_SHAPES:
+            width = width or k
+            wf = torch.randn((n, width), generator=g, device=dev) / width ** 0.5
+            if kernel == "int8_gemm":
+                q, scale = quantize_kernel(wf.t())
+                w, extra_w = q.t().contiguous(), ()
+                fn, plain = ig.int8_linear, ig.int8_linear_plain
+                weight_bytes = n * k
+            else:
+                pk, ms, scale = quantize_kernel_w4a8(wf.t())
+                w, extra_w = pk.t().contiguous(), (ms,)
+                fn, plain = i4.w4a8_linear, i4.w4a8_linear_plain
+                weight_bytes = n * k // 2 + n * (k // (width // ms.shape[0]))
+            del wf
+            xq, a = fg.quant_rows_plain(rows(m, k).float())
+            bias = (0.1 * torch.randn(n, generator=g, device=dev)
+                    if with_bias else None)
+            add = (torch.randn((m, n), generator=g, device=dev)
+                   if with_add else None)
+
+            def kern(x, s, *d, b=bias, out=f32):
+                return fn(x, s, w, *extra_w, scale, b, k0,
+                          d[0] if d else None, out_dtype=out)
+
+            def ref(x, s, *d):
+                return plain(x, s, w, *extra_w, scale, bias, k0,
+                             d[0] if d else None, out_dtype=f32)
+
+            extra = (add,) if with_add else ()
+            key = kernel + "_f32"
+            before = ig.GEMM.launches[key]
+            got, want = kern(xq, a, *extra), ref(xq, a, *extra)
+            counted = ig.GEMM.launches[key] == before + 1
+            torch.cuda.synchronize()
+            rec = {"phase": "kernels", "kernel": key, "case": label,
+                   "shape": [m, k, n], "k0": k0, "dtype": "float32",
+                   "bias": with_bias, "addend": with_add,
+                   "bit_for_bit": torch.equal(got, want),
+                   "out_dtype": str(got.dtype), "counted_once": counted,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "ms": kernel_ms(kern, xq, a, *extra),
+                   "plain_ms": None, "library_ms": None,
+                   "library": "torch._int_mm (int32 product only)"
+                   if kernel == "int8_gemm" else
+                   "none: no one PyTorch call computes it"}
+            if label == GEMM_MAIN:
+                rec["plain_ms"] = kernel_ms(ref, xq, a, *extra)
+                b16 = None if bias is None else bias.to(torch.bfloat16)
+                rec["bf16_out_ms"] = kernel_ms(
+                    lambda *t: kern(*t, b=b16, out=torch.bfloat16), xq, a,
+                    *(t.to(torch.bfloat16) for t in extra))
+                if kernel == "int8_gemm":
+                    w_k = w[:, k0:k0 + k].contiguous()
+                    rec["library_ms"] = kernel_ms(torch._int_mm, xq, w_k.t())
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2.0 * m * n * k,
+                nbytes(xq, a, scale, bias, add, got) + weight_bytes,
+                PEAK_INT8_OPS)
+            rec["tops"] = 2.0 * m * n * k / rec["ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            if not (rec["bit_for_bit"] and counted
+                    and got.dtype == torch.float32):
+                raise AssertionError(f"{key} disagrees with its plain "
+                                     f"version: {rec}")
+            recs.setdefault(key, []).append(rec)
+
+
+def check_f32_dequant(g, recs):
+    """The f32 instances of the int8 and the w4 dequantize kernels (the
+    f32 w8 and w4 DiT's weights) at the DiT's weight shapes
+    (``DEQUANT_SHAPES``), on weights from ``quantize_kernel`` and
+    ``quantize_kernel_w4``: bit for bit ``dequant_weight_plain(...,
+    torch.float32)`` (f32(code) times the f32 scale, rounded once), one
+    launch counted under ``int8_dequant_f32`` / ``w4_dequant_f32``;
+    timed at every shape beside the bound (bytes: the codes and scales
+    read once, the f32 weight written once) and, at ``DEQUANT_MAIN``, the
+    plain version and a ``torch.clone`` of the weight (the rate the card
+    reaches on the bytes it writes). No one PyTorch call computes them."""
+    import torch
+    from x2i_torch.ops import int4_gemm as i4
+    from x2i_torch.ops import int8_gemm as ig
+    from x2i_torch.ops.quant import quantize_kernel, quantize_kernel_w4
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    for label, n, inn in DEQUANT_SHAPES:
+        wf = torch.randn((n, inn), generator=g, device=dev) / inn ** 0.5
+        q, s8 = quantize_kernel(wf.t())
+        pk, s4 = quantize_kernel_w4(wf.t())
+        del wf
+        for key, fn, args, mode in (
+                ("int8_dequant_f32", ig.int8_dequant,
+                 (q.t().contiguous(), s8), "w8"),
+                ("w4_dequant_f32", i4.w4_dequant, (pk.t().contiguous(), s4),
+                 "w4")):
+            before = ig.GEMM.launches[key]
+            got = fn(*args, f32)
+            counted = ig.GEMM.launches[key] == before + 1
+            want = i4.dequant_weight_plain(*args, mode, f32)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernels", "kernel": key, "case": label,
+                   "shape": [n, inn], "dtype": "float32",
+                   "bit_for_bit": torch.equal(got, want),
+                   "out_dtype": str(got.dtype), "counted_once": counted,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "ms": kernel_ms(lambda *t: fn(*t, f32), *args),
+                   "plain_ms": None, "library_ms": None,
+                   "library": "none: no one PyTorch call computes it"}
+            if label == DEQUANT_MAIN:
+                rec["plain_ms"] = kernel_ms(
+                    lambda *t: i4.dequant_weight_plain(*t, mode, f32), *args)
+                rec["copy_ms"] = kernel_ms(torch.clone, got)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                float(n * inn), nbytes(*args, got), PEAK_F32_FLOPS)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            if not (rec["bit_for_bit"] and counted
+                    and got.dtype == torch.float32):
+                raise AssertionError(f"{key} disagrees with its plain "
+                                     f"version: {rec}")
+            recs.setdefault(key, []).append(rec)
+
+
 # one QuantLinear's straight-through dx: rows, in, out (the single
 # block's mlp_in at 64 tokens)
 STE_SHAPE = (64, 3072, 12288)
@@ -2244,7 +2531,10 @@ NO_LAUNCHES = {"flash_fwd_rope": 0, "flash_fwd": 0, "flash_fwd_pipe": 0,
                "gelu_quant": 0, "quant_rows": 0, "row_absmax": 0,
                "quant_rows_at": 0, "int8_gemm": 0, "int8_gemm_acc": 0,
                "w4a8_gemm": 0, "w4a8_gemm_acc": 0, "dequant_gemm": 0,
-               "w4_dequant": 0, "int8_dequant": 0, "w4a8_dequant": 0}
+               "w4_dequant": 0, "int8_dequant": 0, "w4a8_dequant": 0,
+               "ln_mod_quant_f32": 0, "gelu_quant_f32": 0,
+               "quant_rows_f32": 0, "int8_gemm_f32": 0, "w4a8_gemm_f32": 0,
+               "int8_dequant_f32": 0, "w4_dequant_f32": 0}
 
 
 def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
@@ -2261,23 +2551,26 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     w4 and w8 launch the dequantizing GEMM once per dense call; w4a8
     counts w8a8's products on its GEMM. ``dtype="f32"``: an f32 DiT (the
     LM stays bf16), its attention in the f32 instances (K2's above 8192
-    joint tokens, else K1's rope-and-norm instance), its glue unfused (no
-    K5) or with ``f32_fused`` K5's f32 instance. ``head_dim=256``: the
-    12 x 256 DiT, whose attention counts under its ``_d256`` names (on
-    the pad route too: K1's rope variant, the masked body)."""
+    joint tokens, else K1's rope-and-norm instance), its kernels the f32
+    instances (counted as ``_f32``: w8 and w4 the f32 dequantize kernel
+    once per dense call, before ``F.linear``), its glue unfused (no K5;
+    in w8a8 and w4a8 one K8 a dense call) or with ``f32_fused`` K5-K8's
+    f32 instances as the bf16 DiT's. ``head_dim=256``: the 12 x 256 DiT,
+    whose attention counts under its ``_d256`` names (on the pad route
+    too: K1's rope variant, the masked body)."""
     lm = lm_layers if mods_pass else 0    # one K1b per LM layer
     want = dict(NO_LAUNCHES, flash_fwd=lm)
     d256 = "_d256" if head_dim == 256 else ""
-    if dtype == "f32":
+    f32 = dtype == "f32"
+    fused = not f32 or f32_fused
+    sfx = "_f32" if f32 else ""
+    if f32:
         dit = ("flash_chunked_f32" if joint_tokens > 8192 else
                "flash_fwd_f32" if rope_layout == "interleaved" else
                "flash_fwd_rope_f32")
-        want[dit + d256] = (n2 + n1) * steps
-        if f32_fused:
-            want["ln_mod_f32"] = (4 * n2 + n1 + 1) * steps
-        return want
-    dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
-           if rope_layout == "interleaved" else "flash_fwd_rope")
+    else:
+        dit = ("flash_chunked" if joint_tokens > 8192 else "flash_fwd_pipe"
+               if rope_layout == "interleaved" else "flash_fwd_rope")
     want[dit + d256] = (n2 + n1) * steps
     # the adaLN mod layers (2 per double block, 1 per single): once per
     # image over all steps' rows, with the time and pooled embedders' 4
@@ -2285,33 +2578,41 @@ def expected_launches(quantized, steps: int, n2: int = 19, n1: int = 38,
     mods = 2 * n2 + n1
     per_step_mods = 0 if mods_pass else mods
     once = mods + 4 if mods_pass else 0
+    # per step 12 dense calls per double block, 5 per single (q, k, v,
+    # mlp_in, out), the 7 unfused layers and proj_out
+    dense = (12 * n2 + 5 * n1 + 8 + per_step_mods) * steps + once
     if quantized not in ("w8a8", "w4a8"):
         # per step 4 per double block, 1 per single block, 1 for the head
-        want["ln_mod"] = (4 * n2 + n1 + 1) * steps
+        if fused:
+            want["ln_mod" + sfx] = (4 * n2 + n1 + 1) * steps
         if quantized in ("w4", "w8"):
-            # per step 12 per double block, 5 per single (q, k, v, mlp_in,
-            # out), the 7 unfused layers and proj_out
-            want["dequant_gemm"] = ((12 * n2 + 5 * n1 + 8 + per_step_mods)
-                                    * steps + once)
+            want["dequant_gemm" if not f32 else "int8_dequant_f32"
+                 if quantized == "w8" else "w4_dequant_f32"] = dense
         return want
-    gemm = "w4a8_gemm" if quantized == "w4a8" else "int8_gemm"
-    want.update(
-        ln_mod_quant=(4 * n2 + n1 + 1) * steps,
-        gelu_quant=(2 * n2 + n1) * steps,
+    gemm = ("w4a8_gemm" if quantized == "w4a8" else "int8_gemm") + sfx
+    if not fused:
+        # one K8 and one product a dense call (the single block's out
+        # layer takes its concatenated input whole)
+        want.update({"quant_rows" + sfx: dense, gemm: dense})
+        return want
+    want.update({
+        "ln_mod_quant" + sfx: (4 * n2 + n1 + 1) * steps,
+        "gelu_quant" + sfx: (2 * n2 + n1) * steps,
         # per step the attention outputs (2 per double, 1 per single) and
         # the 7 layers fed unfused: x_embedder, context_embedder, time
         # in/out, pooled in/out, norm_out
-        quant_rows=(2 * n2 + n1 + 7 + per_step_mods) * steps + once,
+        "quant_rows" + sfx: (2 * n2 + n1 + 7 + per_step_mods) * steps + once,
         # per step 12 per double block, 6 per single (q, k, v, mlp_in and
         # the two chunks of out), 7 unfused layers and proj_out
-        **{gemm: (12 * n2 + 6 * n1 + 8 + per_step_mods) * steps + once})
+        gemm: (12 * n2 + 6 * n1 + 8 + per_step_mods) * steps + once})
     return want
 
 
 def check_routes(seed: int, px: int = 512,
                  label: str = "text2image-reference", bank=None,
                  rope_layout: str = "half", dtype: str = "bf16",
-                 head_dim: int = 128, f32_fused: bool = False):
+                 head_dim: int = 128, f32_fused: bool = False,
+                 wide: bool = False):
     """Agreement with a reference on a small input: a full-width DiT cut to
     2 double + 2 single blocks, one step at px^2 (512^2: 1024 image + 512
     text tokens; 1536^2: 9216 + 512, above 8192, where the attention is
@@ -2331,7 +2632,8 @@ def check_routes(seed: int, px: int = 512,
     the f32 kernel DiT's glue fused (K5's f32 instance, the qk norm inside
     K1's rope-and-norm instance). ``head_dim=256``: both DiTs 12 heads x
     256 (``D256``), the kernel route K1 or K2 at D = 256 (at 960^2's
-    4112 tokens or 480^2's 1412, the pad route)."""
+    4112 tokens or 480^2's 1412, the pad route). ``wide``: both 32 heads
+    x 128 (``W4096``: K5's f32 instance at 4096)."""
     import dataclasses
 
     import torch
@@ -2345,7 +2647,8 @@ def check_routes(seed: int, px: int = 512,
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
                                num_single_layers=2, rope_layout=rope_layout,
                                **({"dtype": torch.float32} if f32 else {}),
-                               **(D256 if head_dim == 256 else {}))
+                               **(D256 if head_dim == 256 else {}),
+                               **(W4096 if wide else {}))
     g = torch.Generator(device=dev).manual_seed(seed)
     kern = random_init_(FluxTransformer2D(
         dataclasses.replace(base, fused_glue=not f32 or f32_fused), dev), g)
@@ -2375,6 +2678,7 @@ def check_routes(seed: int, px: int = 512,
     rel = ((got - want).norm() / want.norm()).item()
     rec = {"phase": label, "blocks": [2, 2], "controls": bank is not None,
            "rope_layout": rope_layout, "dtype": dtype, "head_dim": head_dim,
+           "width": kern.cfg.num_attention_heads * kern.cfg.attention_head_dim,
            "fused_glue": kern.cfg.fused_glue,
            "tokens": [s_img, 512], "rel_l2_err": rel,
            "max_abs_err": (got - want).abs().max().item(),
@@ -2388,9 +2692,11 @@ def check_routes(seed: int, px: int = 512,
     if not (rec["finite"] and rel <= 2e-2 and used == want_used):
         raise AssertionError(f"kernel route disagrees with the plain route: "
                              f"{rec}")
+    return used
 
 
-def check_routes_quant(seed: int, mode: str = "w8a8"):
+def check_routes_quant(seed: int, mode: str = "w8a8", dtype: str = "bf16",
+                       wide: bool = False):
     """The same 2 + 2-block full-width DiT, one step at 512^2, in a
     quantized mode: the kernel route (fused glue, K1a, and in w8a8 K6/K7/K8
     with the int8 GEMM, in w4a8 the same glue with the w4a8 GEMM, in w4 K5
@@ -2398,7 +2704,11 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
     plain quantization and product, plain attention) on the same
     quantized weights, held to the JAX package's bar for two w8a8
     evaluations (tests/test_fused_glue.py): correlation above 0.999 and
-    relative L2 error below 5e-2."""
+    relative L2 error below 5e-2. ``dtype="f32"``: both DiTs in f32, the
+    kernel route the f32 instances (K1's rope-and-norm, K5-K8's, the GEMMs'
+    f32 epilogue, in w8 and w4 the f32 dequantize kernel before
+    ``F.linear``); ``wide``: both 32 heads x 128 (``W4096``: K5-K8 at
+    4096 and 16384). -> the kernel route's launch counts."""
     import dataclasses
 
     import torch
@@ -2409,7 +2719,10 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
 
     dev = torch.device("cuda")
     base = dataclasses.replace(MODEL_REGISTRY[MODEL].flux, num_layers=2,
-                               num_single_layers=2, quantized=mode)
+                               num_single_layers=2, quantized=mode,
+                               **({"dtype": torch.float32}
+                                  if dtype == "f32" else {}),
+                               **(W4096 if wide else {}))
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     kern = random_init_(FluxTransformer2D(
         dataclasses.replace(base, fused_glue=True), dev), g)
@@ -2435,8 +2748,12 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
     rel = ((got - want).norm() / want.norm()).item()
     corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()])
                           )[0, 1].item()
-    want_used = expected_launches(mode, 1, 2, 2, mods_pass=False)
-    rec = {"phase": f"{mode}-reference", "blocks": [2, 2],
+    want_used = expected_launches(mode, 1, 2, 2, mods_pass=False,
+                                  dtype=dtype, f32_fused=True)
+    label = mode if dtype == "bf16" else f"f32-{mode}"
+    rec = {"phase": f"{label}{'-4096' if wide else ''}-reference",
+           "blocks": [2, 2], "dtype": dtype,
+           "width": kern.cfg.num_attention_heads * kern.cfg.attention_head_dim,
            "tokens": [1024, 512], "rel_l2_err": rel, "corr": corr,
            "max_abs_err": (got - want).abs().max().item(),
            "finite": bool(torch.isfinite(got).all()),
@@ -2448,6 +2765,7 @@ def check_routes_quant(seed: int, mode: str = "w8a8"):
             and not any(used_plain.values())):
         raise AssertionError(f"{mode} kernel route disagrees with the plain "
                              f"route: {rec}")
+    return used
 
 
 def run_image(pipe, seed: int, label: str, want: dict, px: int = 1024,
@@ -2897,8 +3215,15 @@ F32_PX = 2048
 def set_dit_dtype(flux, dtype):
     """The DiT's parameters cast to ``dtype`` in place, one tensor at a
     time (never a second whole DiT: 23.8 GB in bf16, 47.6 in f32), and its
-    config's dtype set. bf16 -> f32 -> bf16 is exact."""
+    config's dtype set. bf16 -> f32 -> bf16 is exact. A quantized DiT's
+    layers take ``dtype`` as theirs (their codes and f32 scales stay as
+    they are, the quantizers' f32 result on the bf16-exact weights: the
+    tree JAX builds for an f32 DiT)."""
     import torch
+    from x2i_torch.ops.quant import QuantLinear
+    for m in flux.modules():
+        if isinstance(m, QuantLinear):
+            m.dtype = dtype
     moved = 0
     for p in flux.parameters():
         p.data = p.data.to(dtype)
@@ -3102,6 +3427,13 @@ def phase_f32(pipe, bf16_2048, seed: int, card: str):
     check_routes(seed + 4, 512, "f32-fused-reference", dtype="f32",
                  f32_fused=True)
     check_lightcontrol_routes(seed, dtype="f32")
+    # the 32 x 128 DiT in f32: K5's f32 instance at 4096, and in w8a8 K6,
+    # K7 and K8's at 4096, 16384 and 4096
+    runs["f32-4096-reference"] = check_routes(
+        seed + 5, 512, "f32-4096-reference", dtype="f32", f32_fused=True,
+        wide=True)
+    runs["f32-w8a8-4096-reference"] = check_routes_quant(
+        seed + 6, "w8a8", "f32", wide=True)
     return runs
 
 
@@ -4674,13 +5006,90 @@ def check_train_cli():
                              f"{lc[1][-2000:]}")
 
 
-def phase_w8a8(pipe, bf16_pixels, seed: int, control, quant_s: float):
+def phase_f32_quant(pipe, mode_pixels, seed: int, card: str, mode: str):
+    """The serving DiT in ``mode`` (w8a8 or w4a8) cast in place to f32
+    (``set_dit_dtype``: its floating parameters and its layers' dtype; the
+    codes and scales stay), the LM bf16: the same 1024^2, 4-step
+    text2image with the glue unfused (one K8 a dense call), then with
+    ``fused_glue=True`` once as the warm-up and once timed (K6, K7 and K8
+    on f32 rows, the GEMM's f32 epilogue, K1's f32 rope-and-norm
+    instance), each with every launch count set to 0 just before and read
+    just after (exact), the timed one's s/image and peak memory, its
+    relative L2 distance from the unfused f32 image (at most 2e-2, as
+    ``f32-fused`` holds) and from the bf16 image of the mode
+    (``mode_pixels``, reported); then the DiT cast back to bf16 in its
+    serving config, bit for bit the one before (a checksum), and the
+    2 + 2-block f32 route check of the mode. -> {run label: launches}."""
+    import numpy as np
+    import torch
+    from x2i_torch.models.vae import postprocess
+
+    px, flux = F32_FUSED_PX, pipe.flux
+    checksum = param_checksum(flux)
+    serving = flux.cfg.fused_glue
+    t0 = time.perf_counter()
+    set_dit_dtype(flux, torch.float32)
+    _free()
+    cast_s = time.perf_counter() - t0
+    label = f"f32-{mode}"
+    runs, images, secs = {}, {}, {}
+    try:
+        for run, fused in ((f"{label}-unfused", False),
+                           (f"{label}-warm-up", True), (label, True)):
+            flux.replace_config(fused_glue=fused)
+            want = expected_launches(mode, 4, dtype="f32", f32_fused=fused)
+            if run == label:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            images[run] = pipe.text2image(PROMPTS[0], seed=seed, height=px,
+                                          width=px, num_steps=4)
+            secs[run] = time.perf_counter() - t0
+            runs[run] = launch_counts()
+            if runs[run] != want:
+                raise AssertionError(f"the {run} image missed its kernels: "
+                                     f"{runs[run]} != {want}")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        set_dit_dtype(flux, torch.bfloat16)
+        flux.replace_config(fused_glue=serving)
+        _free()
+    restored = param_checksum(flux) == checksum
+    got = images[label].astype(np.float32)
+    unfused = images[f"{label}-unfused"].astype(np.float32)
+    ref = postprocess(mode_pixels).float().cpu().numpy()
+    rec = {"phase": label, "model": MODEL, "px": px, "steps": 4,
+           "dtype": "float32", "quantized": mode, "fused_glue": True,
+           "cast_s": cast_s, "s_per_image": secs[label],
+           "warmup_s": secs[f"{label}-warm-up"],
+           "s_per_image_unfused": secs[f"{label}-unfused"],
+           "rel_l2_vs_unfused_image": float(np.linalg.norm(got - unfused)
+                                            / np.linalg.norm(unfused)),
+           "rel_l2_vs_bf16_image": float(np.linalg.norm(got - ref)
+                                         / np.linalg.norm(ref)),
+           "image_shape": list(images[label].shape),
+           "pixels_std": float(images[label].std()),
+           "max_memory_allocated": peak, "bf16_restored": restored,
+           "launches": runs[label],
+           "launches_unfused": runs[f"{label}-unfused"], "card": card}
+    emit(rec)
+    if not (rec["rel_l2_vs_unfused_image"] <= 2e-2 and restored
+            and rec["pixels_std"] > 0
+            and tuple(images[label].shape) == (1, px, px, 3)):
+        raise AssertionError(f"the {label} image is wrong: {rec}")
+    return {label: runs[label],
+            f"{label}-reference": check_routes_quant(seed, mode, "f32")}
+
+
+def phase_w8a8(pipe, bf16_pixels, seed: int, control, quant_s: float,
+               card: str):
     """The DiT quantized in place to w8a8 by ``phase_train_resume`` (its
     bf16 weights freed layer by layer in ``quant_s``; LM, proj and VAE
     stay bf16) makes the same image; then the same image with
     LightControl's ``control`` = (config, bank, guidance image) of
-    ``phase_lightcontrol``, with the same counts. -> (the launches of
-    each)."""
+    ``phase_lightcontrol``, with the same counts; then the same DiT in f32
+    (``phase_f32_quant``). -> (the launches of each, {f32 run label:
+    launches})."""
     want = expected_launches("w8a8", 4)
     rec, pixels, counts = run_image(pipe, seed, "text2image-w8a8", want)
     ref = bf16_pixels.float()
@@ -4702,14 +5111,19 @@ def phase_w8a8(pipe, bf16_pixels, seed: int, control, quant_s: float):
     if ccounts != want or not crec["rel_l2_vs_no_controls"] > 0:
         raise AssertionError(f"the w8a8 controlled image is wrong: {crec} "
                              f"(launches expected {want})")
-    return counts, ccounts
+    return counts, ccounts, phase_f32_quant(pipe, pixels, seed, card,
+                                            "w8a8")
 
 
-def phase_quant(pipe, bf16_pixels, seed: int, dit_state, mode: str):
+def phase_quant(pipe, bf16_pixels, seed: int, dit_state, mode: str,
+                card: str):
     """The bf16 DiT drawn again from its generator state (the quantized
     one before it freed first), quantized in place to ``mode`` ("w4a8",
     "w4" or "w8"), then the same image as the bf16 one; the 2 + 2-block
-    route check in the mode."""
+    route check in the mode; then in f32: in w4a8 the images of
+    ``phase_f32_quant``, in w4 and w8 the 2 + 2-block f32 route check (the
+    f32 dequantize kernel before ``F.linear``). -> (the launches, {f32
+    run label: launches})."""
     import gc
 
     import torch
@@ -4735,7 +5149,10 @@ def phase_quant(pipe, bf16_pixels, seed: int, dit_state, mode: str):
         raise AssertionError(f"{mode} main path missed its kernels: "
                              f"{counts} != {want}")
     check_routes_quant(seed, mode)
-    return counts
+    if mode == "w4a8":
+        return counts, phase_f32_quant(pipe, pixels, seed, card, mode)
+    return counts, {f"f32-{mode}-reference": check_routes_quant(seed, mode,
+                                                                "f32")}
 
 
 def phase_serve(pipe):
@@ -8006,6 +8423,20 @@ KERNEL_TABLE = (
      "lightcontrol-train-f32-d256", 0),
     ("flash_bwd_dkv_f32_d256", "cuda", FLASH_BWD_SRC, f"{TPU_FLASH}:581",
      "lightcontrol-train-f32-d256", 0),
+    ("ln_mod_quant_f32", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:62", "f32-w8a8",
+     F32_GLUE_MAIN["ln_mod_quant"]),
+    ("gelu_quant_f32", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:70", "f32-w8a8",
+     F32_GLUE_MAIN["gelu_quant"]),
+    ("quant_rows_f32", "cuda", ROW_GLUE_SRC, f"{TPU_GLUE}:78", "f32-w8a8",
+     F32_GLUE_MAIN["quant_rows"]),
+    ("int8_gemm_f32", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:94",
+     "f32-w8a8", GEMM_MAIN),
+    ("w4a8_gemm_f32", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:281",
+     "f32-w4a8", GEMM_MAIN),
+    ("int8_dequant_f32", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:102",
+     "f32-w8-reference", DEQUANT_MAIN),
+    ("w4_dequant_f32", "cuda", GEMM_SRC, "x2i_tpu/ops/quant.py:153",
+     "f32-w4-reference", DEQUANT_MAIN),
 )
 
 
@@ -8075,25 +8506,29 @@ def main(argv=None) -> int:
     launches_lc_train, _ = phase_lightcontrol_train(pipe, lm, args.seed, smi)
     launches_resume, quantize_s, launches_lc_train_w8a8 = phase_train_resume(
         pipe, lm, args.seed, smi)
-    launches_w8a8, launches_lc_w8a8 = phase_w8a8(pipe, bf16_pixels,
-                                                 args.seed, control,
-                                                 quantize_s)
+    launches_w8a8, launches_lc_w8a8, launches_f32_quant = phase_w8a8(
+        pipe, bf16_pixels, args.seed, control, quantize_s, smi)
     del control
     launches_tp_quant = tensor_image(pipe, args.seed, smi, "tp-w8a8", "tp")
-    launches_w4a8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
-                                "w4a8")
+    launches_w4a8, more = phase_quant(pipe, bf16_pixels, args.seed,
+                                      dit_state, "w4a8", smi)
+    launches_f32_quant.update(more)
     launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4a8",
                                           "tp"))
     launches_lc_train_w4a8 = phase_lightcontrol_steps(
         pipe, args.seed, smi, "lightcontrol-train-w4a8",
         LIGHTCONTROL_W4A8_LAUNCHES, steps=2, use_8bit_adam=True)
-    launches_w4 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w4")
+    launches_w4, more = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
+                                    "w4", smi)
+    launches_f32_quant.update(more)
     launches_tp_quant.update(tensor_image(pipe, args.seed, smi, "tp-w4",
                                           "tp"))
     launches_lc_train_w4 = phase_lightcontrol_steps(
         pipe, args.seed, smi, "lightcontrol-train-w4",
         LIGHTCONTROL_W4_LAUNCHES, steps=2, use_8bit_adam=True)
-    launches_w8 = phase_quant(pipe, bf16_pixels, args.seed, dit_state, "w8")
+    launches_w8, more = phase_quant(pipe, bf16_pixels, args.seed, dit_state,
+                                    "w8", smi)
+    launches_f32_quant.update(more)
     launches_tp_w8 = tensor_image(pipe, args.seed, smi, "tp-w8", "tp")
     launches_registry = phase_registry(pipe, args.seed, dit_state, smi)
     runs = {"bf16": launches, "image": launches_image,
@@ -8109,7 +8544,7 @@ def main(argv=None) -> int:
             "lightcontrol-train-w4a8": launches_lc_train_w4a8,
             "lightcontrol-train-w4": launches_lc_train_w4,
             "long-prompt": launches_long, "interleaved": launches_inter,
-            **launches_f32, **launches_d256,
+            **launches_f32, **launches_f32_quant, **launches_d256,
             **launches_proj, **launches_ckpt, **launches_tp_w8,
             **launches_tp_quant, **launches_tp_lc,
             **launches_registry, **launches_parallel}

@@ -118,9 +118,10 @@ def test_flash_libraries_gate_their_wgmma_kernels():
 
 def test_gemm_library_gates_its_wgmma_kernel():
     """The int8 GEMM, the w4a8 GEMM and the dequantizing GEMM of w4 and w8
-    are built on wgmma; the w4 dequantize kernel and the straight-through
-    backward's int8 and w4a8 dequantize kernels beside them are gated
-    too."""
+    are built on wgmma (each GEMM's bf16, f32 and int32 outputs are
+    instances of its name); the w4 dequantize kernel and the
+    straight-through backward's int8 and w4a8 dequantize kernels beside
+    them (the first two with their f32 instances) are gated too."""
     from x2i_torch.ops import int8_gemm as tgemm
     assert tgemm.GEMM.wgmma_kernels == ("int8_gemm_kernel",
                                         "w4a8_gemm_kernel",
@@ -133,20 +134,20 @@ def test_gemm_library_gates_its_wgmma_kernel():
                                         "w4a8_dequant_kernel")
 
 
-# the instances of K2 (D, masked) and of the int8 GEMM (acc_only), named
-# as nvcc 12 mangles them
+# the instances of K2 (D, masked) and of the int8 GEMM (its output: bf16,
+# f32, the int32 accumulator), named as nvcc 12 mangles them
 _CHUNKED_TU = "_ZN49_GLOBAL__N__9351ae3b_16_flash_chunked_cu_be12862a"
 CHUNKED = tuple(
     f"{_CHUNKED_TU}20flash_chunked_kernelILi{d}ELb{m}EEEvNS_7TileMapES1_S1_"
     f"NS_4ArgsE" for d in (64, 128) for m in (0, 1))
 _GEMM_TU = "_ZN49_GLOBAL__N__b0cd12f3_12_int8_gemm_cu_004656628"
 GEMM_KERNELS = tuple(
-    f"{_GEMM_TU}16int8_gemm_kernelILb{a}EEEv14CUtensorMap_stS1_NS_4ArgsE"
-    for a in (0, 1))
-# the w4a8 GEMM's instances (acc_only) in the same library
+    f"{_GEMM_TU}16int8_gemm_kernelILi{o}EEEv14CUtensorMap_stS1_NS_4ArgsE"
+    for o in (0, 1, 2))
+# the w4a8 GEMM's instances (its output) in the same library
 W4A8_KERNELS = tuple(
-    f"{_GEMM_TU}16w4a8_gemm_kernelILb{a}EEEv14CUtensorMap_stS1_NS_4ArgsE"
-    for a in (0, 1))
+    f"{_GEMM_TU}16w4a8_gemm_kernelILi{o}EEEv14CUtensorMap_stS1_NS_4ArgsE"
+    for o in (0, 1, 2))
 # the dequantizing GEMM's instances (w4, w8) in the same library
 DEQUANT_GEMM_KERNELS = tuple(
     f"{_GEMM_TU}19dequant_gemm_kernelILi{m}EEEv14CUtensorMap_stS1_NS_4ArgsE"
@@ -201,7 +202,9 @@ def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
 # the row glue library's kernels (K5, K6 and K8's warp body, K5's and K6's
 # generic instance, K7's and K8's ring kernel and their generic one, then
 # K8's halves: the row absmax and the codes at a given absmax, warp body
-# and generic), named as nvcc 12 mangles them; none is built on wgmma
+# and generic; then the f32 instances: K5's warp body and f32_rows_kernel
+# for K5, K6, K8 and K7 at 4 and 16 chunks a thread),
+# named as nvcc 12 mangles them; none is built on wgmma
 _ROW_TU = "_ZN49_GLOBAL__N__5c1e07a2_11_row_glue_cu_8d2f6b41"
 ROW_GLUE_KERNELS = (
     f"{_ROW_TU}13ln_mod_kernelENS_7RowArgsE",
@@ -215,7 +218,9 @@ ROW_GLUE_KERNELS = (
     f"{_ROW_TU}20quant_at_warp_kernelENS_7RowArgsE",
     *(f"{_ROW_TU}17quant_rows_kernelILb0ELi{op}EEEvNS_7RowArgsE"
       for op in (3, 4)),
-    f"{_ROW_TU}17ln_mod_f32_kernelENS_10F32RowArgsE")
+    f"{_ROW_TU}17ln_mod_f32_kernelENS_10F32RowArgsE",
+    *(f"{_ROW_TU}15f32_rows_kernelILi{op}ELi{c}EEEvNS_10F32RowArgsE"
+      for op in (0, 1, 2, 5) for c in (4, 16)))
 
 
 def _row_glue_log(drop=(), spill=None, no_regs=None):
@@ -245,6 +250,12 @@ ROW_GLUE_CASES = {
                              "quant_at_warp_kernel"]),
     "no register count": (_row_glue_log(no_regs=ROW_GLUE_KERNELS[0]),
                           ["register count"]),
+    "f32 K7 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[-1]),
+                       ["spills"]),
+    "f32 K5 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[13:14]),
+                       ["ln_mod_f32_kernel"]),
+    "f32 rows kernel missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[14:]),
+                                ["f32_rows_kernel"]),
 }
 
 
@@ -296,7 +307,8 @@ def test_row_glue_library_gates_every_kernel():
     assert tfg.ROW_GLUE.gated_kernels == (
         "ln_mod_kernel", "ln_mod_quant_kernel", "quant_warp_kernel",
         "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel",
-        "row_amax_warp_kernel", "quant_at_warp_kernel", "ln_mod_f32_kernel")
+        "row_amax_warp_kernel", "quant_at_warp_kernel", "ln_mod_f32_kernel",
+        "f32_rows_kernel")
     # no gated name is a part of another kernel's, so each names its own
     for gated in tfg.ROW_GLUE.gated_kernels:
         assert [n for n in ROW_GLUE_KERNELS

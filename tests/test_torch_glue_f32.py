@@ -2,7 +2,8 @@
 K5 (``ln_mod``) on f32 rows and K1's f32 rope-and-norm forward (the rope
 and the qk RMSNorm inside the attention), which an f32 DiT serving with
 ``fused_glue=True`` takes, as JAX's ``_use_fused_glue`` gives it the "ln"
-mode:
+mode; and K6, K7 and K8 (``ln_mod_quant``, ``gelu_quant``,
+``quant_rows``) on f32 rows, the "quant" mode of an f32 w8a8 or w4a8 DiT:
 
 * ``ln_mod_plain`` in f32 against JAX's ``ln_mod`` (the Pallas kernel in
   interpret mode) at the DiT's widths;
@@ -12,13 +13,24 @@ mode:
 * a tiny f32 FLUX with ``fused_glue=True`` against JAX's (its kernel route
   in interpret mode), the wrappers spied on to show that K5 and the f32
   rope-and-norm forward are the ones called;
+* K6, K7 and K8's plain versions on f32 rows against JAX's kernels in
+  interpret mode, at the widths of the 24 x 128 and the 32 x 128 DiT
+  (3072, 12288, 4096, 16384), and K8 bit for bit against the quantization
+  of JAX's ``w8a8_matmul`` (``_row_quantize``);
+* a tiny f32 FLUX in w8a8 and in w4a8 with ``fused_glue=True`` against
+  JAX's, the glue wrappers spied on to show that K6, K7 and K8 get f32
+  rows;
 * K5's f32 argument checks (``row_views``), plain functions that run here
   on CPU tensors without a card.
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are
 ``tests/test_torch_kernels.py``'s ``cuda`` cases. Inputs from
 ``np.random.default_rng``. Tolerance: 1e-4 absolute and relative (float32
-sums in another order), 2e-5 for ``ln_mod``'s normalized rows.
+sums in another order), 2e-5 for ``ln_mod``'s normalized rows; K6-K8 the
+JAX package's bar for its glue kernels (``tests/test_torch_quant.py``:
+codes within one step, at most 10% flipped, scales within rtol 2e-2; K8
+bit for bit); the tiny quantized FLUX 1e-3 relative L2 (a code flips where
+f32 sums in another order cross a rounding boundary).
 """
 
 import importlib
@@ -31,16 +43,20 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from test_torch_params import flux_tree, one_thread  # noqa: F401
+from test_torch_models import _flux_inputs
 from x2i_tpu.core import config as jcfg
 from x2i_tpu.diffusion.sampling import prepare_latent_image_ids
 from x2i_tpu.models.flux import FluxTransformer2D as JFlux
 from x2i_tpu.ops import flash_attention as jfa
+from x2i_tpu.models.flux import chunk_single_scan_params
 from x2i_tpu.ops import fused_glue as jfg
+from x2i_tpu.ops import quant as jq
 from x2i_tpu.ops.rope import flux_rope_freqs_half
 from x2i_torch.core import config as tcfg
 from x2i_torch.models import flux as tflux
 from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
+from x2i_torch.ops import quant as tq
 from x2i_torch.params import load_flax
 
 jattn = importlib.import_module("x2i_tpu.ops.attention")
@@ -187,7 +203,11 @@ def _k5_f32_cases():
         "f32 D 3072": ((_aligned((1, 2, 3072)), _aligned((1, 3072)),
                         _aligned((1, 3072))), None),
         "f32 D 3076": ((_aligned((1, 2, 3076)), _aligned((1, 3076)),
-                        _aligned((1, 3076))), "at most 3072"),
+                        _aligned((1, 3076))), None),
+        "f32 D 4096": ((_aligned((1, 2, 4096)), _aligned((1, 4096)),
+                        _aligned((1, 4096))), None),
+        "f32 D 6144": ((_aligned((1, 2, 6144)), _aligned((1, 6144)),
+                        _aligned((1, 6144))), None),
         "f32 D 6": ((_aligned((3, 6)), _aligned((1, 6)), _aligned((1, 6))),
                     "multiple of 4"),
         "f32 unaligned x": ((wide[:, :, 2:66], mod[:1, :64],
@@ -202,20 +222,122 @@ def _k5_f32_cases():
 @pytest.mark.parametrize("case", list(_k5_f32_cases()))
 def test_k5_f32_row_views(case):
     """Every check K5 takes on f32 rows, on CPU tensors: D a multiple of 4
-    (16 bytes) and at most 3072 (the row it holds in registers), 16-byte
-    row starts, the modulation rows in x's dtype; f16 is refused. The
-    wrapper raises these before it builds or launches anything, and never
-    drops to the plain version; K6 takes no f32."""
+    (16 bytes), any width (above 3072 f32_rows_kernel takes the row),
+    16-byte row starts, the modulation rows in x's dtype; f16 is refused.
+    The wrapper raises these before it builds or launches anything, and
+    never drops to the plain version; K6 takes the same f32 rows (K5's
+    warp body up to 3072, f32_rows_kernel above it and for K6)."""
     args, error = _k5_f32_cases()[case]
     if error is None:
         x3, shift, scale = tfg.row_views("ln_mod", *args)
         assert x3.dim() == 3 and x3.data_ptr() == args[0].data_ptr()
         assert shift.dtype == scale.dtype == torch.float32
-        with pytest.raises(ValueError, match="bf16"):
-            tfg.row_views("ln_mod_quant", *args)
+        x6 = tfg.row_views("ln_mod_quant", *args)[0]
+        assert x6.data_ptr() == x3.data_ptr()
+        d = x3.shape[-1]
+        assert ((tfg.f32_instance("ln_mod", d)[0] == "warp")
+                == (d <= tfg.F32_WARP_D))
+        assert tfg.f32_instance("ln_mod_quant", d)[0] == "rows"
     else:
         with pytest.raises(ValueError, match=error):
             tfg.row_views("ln_mod", *args)
         with pytest.raises(ValueError, match=error):
             tfg._ln_mod_cuda(*args, 1e-6)
     assert tfg.ROW_GLUE._lib is None
+
+
+# ------------------------------------------------- K6, K7 and K8 on f32 rows
+
+def _rows(rng, *shape, mean=3.0):
+    """f32 rows x * sigma + mu, sigma per row over 1e-2..1e2."""
+    lead = (*shape[:-1], 1)
+    sigma = 10.0 ** rng.uniform(-2, 2, lead)
+    mu = sigma * mean * rng.standard_normal(lead)
+    return (rng.standard_normal(shape) * sigma + mu).astype(np.float32)
+
+
+def _codes_close(q, q_ref, max_flip_frac=0.10):
+    d = np.abs(np.asarray(q, np.int32) - np.asarray(q_ref, np.int32))
+    assert d.max() <= 1, d.max()
+    assert (d != 0).mean() <= max_flip_frac, (d != 0).mean()
+
+
+@pytest.mark.parametrize("width", [3072, 12288, 4096, 16384])
+@pytest.mark.parametrize("kernel", ["ln_mod_quant", "gelu_quant",
+                                    "quant_rows"])
+def test_quant_glue_f32_matches_jax(kernel, width):
+    """K6, K7 and K8's plain versions on f32 CPU rows (the f32 instances'
+    function) against JAX's kernels in interpret mode on the same f32
+    rows, batch 2, 20 rows (a ragged last block of 8): codes, f32 scales
+    of x's shape; K8 bit for bit the quantization of JAX's
+    ``w8a8_matmul`` too."""
+    rng = np.random.default_rng(width + len(kernel))
+    x = _rows(rng, 2, 20, width, mean=0.0 if kernel == "gelu_quant" else 3.0)
+    xj = jnp.asarray(x)
+    if kernel == "ln_mod_quant":
+        shift, scale = (0.5 * rng.standard_normal((2, width)).astype(
+            np.float32) for _ in range(2))
+        want = jax.jit(lambda *a: jfg.ln_mod_quant(
+            *a, block_rows=8, interpret=True))(xj, jnp.asarray(shift),
+                                               jnp.asarray(scale))
+        got = tfg.ln_mod_quant(t(x), t(shift), t(scale))
+    else:
+        want = jax.jit(lambda a: getattr(jfg, kernel)(
+            a, block_rows=8, interpret=True))(xj)
+        got = getattr(tfg, kernel)(t(x))
+    (q, a), (q_ref, a_ref) = got, want
+    assert q.dtype == torch.int8 and tuple(q.shape) == x.shape
+    assert a.dtype == torch.float32 and tuple(a.shape) == (2, 20, 1)
+    _codes_close(q.numpy(), q_ref)
+    np.testing.assert_allclose(a.numpy(), np.asarray(a_ref), rtol=2e-2)
+    if kernel == "quant_rows":
+        q_jnp, a_jnp = jfg._row_quantize(xj)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(q_jnp))
+        np.testing.assert_array_equal(a.numpy(), np.asarray(a_jnp))
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w4a8"])
+def test_tiny_f32_quant_dit_fused_glue_matches_jax(mode, monkeypatch):
+    """One call of a tiny f32 FLUX (2 + 4 blocks) in w8a8 and in w4a8 with
+    ``fused_glue=True`` on the same quantized tree as JAX's (its "quant"
+    glue, the Pallas kernels in interpret mode): K6 gets f32 rows 4 times
+    a double block, once a single block and once for the head, K7 twice a
+    double block and once a single block, K8 for the attention outputs
+    (2 a double block, 1 a single) and for every layer fed unfused (the
+    7 embedder and head layers and the blocks' adaLN layers), all spied
+    on; the output within 1e-3 relative L2 of JAX's."""
+    jc = jcfg.tiny_flux_config(quantized=mode, fused_glue=True,
+                               dtype=jnp.float32, param_dtype=jnp.float32)
+    tc = tcfg.tiny_flux_config(quantized=mode, fused_glue=True)
+    # the tree and inputs of test_torch_quant.py's tiny quantized FLUX
+    tree = chunk_single_scan_params(jq.quantize_tree(flux_tree(5), mode), 1)
+    x = _flux_inputs(np.random.default_rng(5), jc, 16, 8)
+    args = [np.asarray(x[k], np.float32) for k in (
+        "lat", "txt", "pooled", "t", "img_ids", "txt_ids")]
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.jit(JFlux(jc).apply)(
+            tree, *map(jnp.asarray, args)))
+    model = load_flax(tflux.FluxTransformer2D(tc), tree)
+    calls = {"ln_mod_quant": [], "gelu_quant": [], "quant_rows": []}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(x, *a, **kw):
+            calls[name].append(x.dtype)
+            return fn(x, *a, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+    for name in calls:
+        spy(tflux, name)
+    spy(tq, "quant_rows")
+    with torch.inference_mode():
+        got = n(model(*map(t, args)))
+    n2, n1 = tc.num_layers, tc.num_single_layers
+    assert calls == {
+        "ln_mod_quant": [torch.float32] * (4 * n2 + n1 + 1),
+        "gelu_quant": [torch.float32] * (2 * n2 + n1),
+        "quant_rows": [torch.float32] * ((2 * n2 + n1) + 7 + (2 * n2 + n1))}
+    assert np.isfinite(got).all() and got.std() > 0
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-3, rel

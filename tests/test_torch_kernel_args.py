@@ -310,7 +310,18 @@ def _k6_k8_cases():
         "K8, unaligned x": ((wide[:, :, 4:68],), "16-byte"),
         "K8, row stride % 8": ((_aligned(_bf16(5, 68))[:, :64],),
                                "16-byte"),
-        "K8, f32 x": ((torch.zeros(4, 64),), "bf16"),
+        "K8, f32 x": ((_aligned(torch.zeros(4, 64)),), None),
+        "K8, f32 D 12": ((_aligned(torch.zeros(3, 12)),), None),
+        "K8, f32 D 6": ((_aligned(torch.zeros(3, 6)),), "multiple of 4"),
+        "K8, f16 x": ((_aligned(torch.zeros(4, 64, dtype=torch.float16)),),
+                      "bf16 or f32"),
+        "K6, f32 rows": ((_aligned(torch.zeros(2, 5, 64)),
+                          _aligned(torch.zeros(2, 6 * 64))[:, :64],
+                          _aligned(torch.zeros(2, 6 * 64))[:, 64:128]),
+                         None),
+        "K6, f32 x, bf16 rows": ((_aligned(torch.zeros(2, 5, 64)),
+                                  mod[:, :64], mod[:, 64:128]),
+                                 "shift must be"),
         "K8, last dim strided": ((_aligned(_bf16(64, 4)).t(),), "bf16"),
         "K6, unaligned x": ((wide[:, :, 4:68][:1].expand(2, 5, 64),
                              mod[:, :64], mod[:, 64:128]), "16-byte"),
@@ -327,10 +338,11 @@ def _k6_k8_cases():
 
 @pytest.mark.parametrize("case", list(_k6_k8_cases()))
 def test_k6_k8_row_views(case):
-    """Every check that K6 and K8 take, on CPU tensors: D % 8, x's and the
-    modulation rows' 16-byte starts and strides, (N, D) inputs. The
-    wrappers raise these before they build or launch anything, and never
-    drop to the plain version."""
+    """Every check that K6 and K8 take, on CPU tensors: bf16 or f32 rows,
+    D % 8 (bf16) or % 4 (f32), x's and the modulation rows' 16-byte
+    starts and strides, the modulation rows in x's dtype, (N, D) inputs.
+    The wrappers raise these before they build or launch anything, and
+    never drop to the plain version."""
     args, error = _k6_k8_cases()[case]
     name = "ln_mod_quant" if len(args) == 3 else "quant_rows"
     if error is None:
@@ -380,3 +392,108 @@ def test_quant_instance_follows_the_width(d):
             assert 256 % lanes == 0
             assert lanes == 256 or (lanes * 8 >= d
                                     and (lanes == 1 or lanes * 4 < d))
+
+
+# width -> the f32 instance of (K5, K6-K8): K5's warp body up to 3072,
+# else f32_rows_kernel at one 16-byte chunk a thread up to a block of 256
+# a row, then 4 or 16 chunks a thread in registers
+F32_INSTANCES = {
+    64: (("warp", 32, 24), ("rows", 16, 4)),
+    256: (("warp", 32, 24), ("rows", 64, 4)),
+    768: (("warp", 32, 24), ("rows", 256, 4)),
+    3072: (("warp", 32, 24), ("rows", 256, 4)),
+    3076: (("rows", 256, 4), ("rows", 256, 4)),
+    4096: (("rows", 256, 4), ("rows", 256, 4)),
+    6144: (("rows", 256, 16), ("rows", 256, 16)),
+    12288: (("rows", 256, 16), ("rows", 256, 16)),
+    16384: (("rows", 256, 16), ("rows", 256, 16)),
+    16388: (("rows", 256, 16), ("rows", 256, 16)),
+}
+
+
+@pytest.mark.parametrize("d", list(F32_INSTANCES))
+def test_f32_instance_follows_the_width(d):
+    """K5-K8's f32 instances by width: every width that is a multiple of
+    4 has one (no limit), K5 keeps its warp body up to 3072."""
+    k5, rest = F32_INSTANCES[d]
+    assert tfg.f32_instance("ln_mod", d) == k5
+    for name in ("ln_mod_quant", "quant_rows", "gelu_quant"):
+        assert tfg.f32_instance(name, d) == rest
+    for kind, lanes, chunks in (k5, rest):
+        assert kind in tfg.F32_KINDS and 256 % lanes == 0
+        assert kind == "warp" or chunks in (4, 16)
+
+
+@pytest.mark.parametrize("name", ["row_absmax", "quant_rows_at"])
+def test_k8_halves_take_bf16_rows_only(name):
+    """K8's halves (the sharded DiT's row-split layers) have no f32
+    instance: f32 rows are refused before anything is built."""
+    x = _aligned(torch.zeros(4, 64))
+    with pytest.raises(ValueError, match="bf16 with"):
+        tfg.row_views(name, x)
+    assert tfg.ROW_GLUE._lib is None
+
+
+def _epilogue(m, n, dtype, add_dtype=None, bias_dtype=None, ldd=None,
+              offset=0):
+    """The epilogue's operands on the CPU: a_scale (m, 1), scale (n,), a
+    bias (n,) and an addend (m, n) rows ldd apart, ``offset`` elements
+    into a 16-byte aligned buffer."""
+    ldd = ldd or n
+    buf = _aligned(torch.zeros(m * ldd + 8, dtype=add_dtype or dtype))
+    addend = buf[offset:offset + m * ldd].view(m, ldd)[:, :n]
+    return (torch.ones(m, 1), torch.ones(n),
+            torch.zeros(n, dtype=bias_dtype or dtype), addend)
+
+
+# case -> (epilogue arguments, the error's words or None where taken)
+EPILOGUE_CASES = {
+    "bf16": (dict(m=8, n=64, dtype=torch.bfloat16), None),
+    "f32": (dict(m=8, n=64, dtype=torch.float32), None),
+    "f32, addend rows of a wider tensor": (
+        dict(m=8, n=64, dtype=torch.float32, ldd=72), None),
+    "f16 out": (dict(m=8, n=64, dtype=torch.float16), "bf16 or f32"),
+    "f32 out, bf16 bias": (dict(m=8, n=64, dtype=torch.float32,
+                                bias_dtype=torch.bfloat16), "bias must be"),
+    "f32 out, f16 addend": (dict(m=8, n=64, dtype=torch.float32,
+                                 add_dtype=torch.float16), "addend must be"),
+    "bf16 out, f32 addend": (dict(m=8, n=64, dtype=torch.bfloat16,
+                                  add_dtype=torch.float32), "addend must be"),
+    "f32 addend row stride % 4": (
+        dict(m=8, n=64, dtype=torch.float32, ldd=66), "16-byte"),
+    "f32 addend start % 16": (
+        dict(m=8, n=64, dtype=torch.float32, offset=2), "16-byte"),
+}
+
+
+@pytest.mark.parametrize("kernel", ["int8 GEMM kernel", "w4a8 GEMM kernel"])
+@pytest.mark.parametrize("case", list(EPILOGUE_CASES))
+def test_gemm_epilogue_checks(kernel, case):
+    """The int8 and w4a8 GEMMs' epilogue operands (``check_epilogue``), on
+    CPU tensors: a bf16 or f32 output, the bias and the addend in its
+    dtype, an f32 addend's rows on 16-byte boundaries; f16 is refused."""
+    kw, error = EPILOGUE_CASES[case]
+    m, n, dtype = kw["m"], kw["n"], kw["dtype"]
+    args = _epilogue(**kw)
+    if error is None:
+        a, d = tgemm.check_epilogue(kernel, m, n, *args, dtype,
+                                    torch.device("cpu"))
+        assert a.shape == (m,) and d.shape == (m, n)
+    else:
+        with pytest.raises(ValueError, match=error):
+            tgemm.check_epilogue(kernel, m, n, *args, dtype,
+                                 torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype,taken", [(torch.bfloat16, True),
+                                         (torch.float32, True),
+                                         (torch.float16, False)])
+def test_dequant_kernels_write_bf16_or_f32(dtype, taken):
+    """The int8 and w4 dequantize kernels write a bf16 or an f32 weight;
+    f16 is refused (``check_dequant_dtype``)."""
+    for kernel in ("int8 dequantize kernel", "w4 dequantize kernel"):
+        if taken:
+            tgemm.check_dequant_dtype(kernel, dtype)
+        else:
+            with pytest.raises(ValueError, match="bf16 or f32"):
+                tgemm.check_dequant_dtype(kernel, dtype)

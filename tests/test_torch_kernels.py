@@ -957,8 +957,9 @@ def test_ln_mod_quant_kernel(dev, rows, batch):
     _codes_close(got, want, 0.01)
     rel = (got[1] - want[1]).abs() / want[1]
     assert rel.max().item() <= 2.0 ** -7
-    with pytest.raises(ValueError, match="bf16"):
-        tfg.ln_mod_quant(x.float(), shift.float(), scale.float())
+    # bf16 and f32 (its own instance); no other dtype
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tfg.ln_mod_quant(x.half(), shift.half(), scale.half())
 
 
 @pytest.mark.cuda
@@ -1015,24 +1016,30 @@ def test_ln_mod_kernel_spans(dev, case):
     assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
 
 
-# K5's f32 instance: case -> (B, S, D)
+# K5's f32 instances: case -> (B, S, D). Up to 3072 the warp body, above
+# it f32_rows_kernel (a block a row, 4 or 16 chunks a thread in
+# registers, past 16384 the rest read again from memory)
 LN_MOD_F32_CASES = {
     "4608 rows": (1, 4608, 3072),
     "B 2, odd S, spans cross the batch": (2, 2305, 3072),
     "1 row": (1, 1, 3072),
     "D 64": (3, 257, 64),
     "D 1028, a partial last chunk": (2, 33, 1028),
+    "D 3076, the first wide row": (2, 33, 3076),
+    "D 4096, 4608 rows": (1, 4608, 4096),
+    "D 6144, B 3, spans cross the batch": (3, 700, 6144),
+    "D 16388, chunks read again": (2, 5, 16388),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(LN_MOD_F32_CASES))
 def test_ln_mod_f32_kernel(dev, case):
-    """K5 on f32 rows (one warp a row, the row in registers) against the
-    plain version in f32, on strided chunk(6) modulation rows and rows
-    whose scale spans four decades: within 1e-5 relative and absolute
-    (the row statistics are f32 sums in another order); one launch of
-    ``ln_mod_f32``. Above 3072 it is refused."""
+    """K5 on f32 rows (up to 3072 one warp a row, the row in registers;
+    above it f32_rows_kernel) against the plain version in f32, on strided
+    chunk(6) modulation rows and rows whose scale spans four decades:
+    within 1e-5 relative and absolute (the row statistics are f32 sums in
+    another order); one launch of ``ln_mod_f32``. f16 is refused."""
     b, s, d = LN_MOD_F32_CASES[case]
     g = torch.Generator(device=dev).manual_seed(s + d)
     x = _rows(g, dev, b, s, d).float()
@@ -1044,9 +1051,8 @@ def test_ln_mod_f32_kernel(dev, case):
     assert got.dtype == torch.float32 and got.shape == x.shape
     torch.testing.assert_close(got, tfg.ln_mod_plain(x, shift, scale),
                                rtol=1e-5, atol=1e-5)
-    wide = torch.zeros((1, 2, 3076), device=dev)
-    with pytest.raises(ValueError, match="at most 3072"):
-        tfg.ln_mod(wide, wide[:, 0], wide[:, 0])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tfg.ln_mod(x.half(), shift.half(), scale.half())
 
 
 def _tie_rows(g, dev, n, d):
@@ -1446,8 +1452,11 @@ def test_int8_gemm_refuses_what_it_does_not_take(dev):
         tgemm.int8_linear(xq, a, w[:60], scale[:60])         # N % 8
     with pytest.raises(ValueError, match="unsupported"):
         tgemm.int8_linear(xq[:, :64], a, w, scale, k0=8)     # k0 % 16
-    with pytest.raises(ValueError, match="bf16"):
-        tgemm.int8_linear(xq, a, w, scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tgemm.int8_linear(xq, a, w, scale, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="bias must be"):
+        tgemm.int8_linear(xq, a, w, scale, bias=torch.zeros(64, device=dev),
+                          out_dtype=BF)
     with pytest.raises(ValueError, match="int8"):
         tgemm.int8_linear(xq.float(), a, w, scale)
 
@@ -1537,8 +1546,8 @@ def test_w4a8_gemm_refuses_what_it_does_not_take(dev):
         t4.w4a8_linear(xq[:, :256], a, pw, ms, scale, k0=192)  # across 256
     with pytest.raises(ValueError, match="unsupported"):
         t4.w4a8_linear(xq, a, pw[:60], ms[:, :60], scale[:60])  # N % 8
-    with pytest.raises(ValueError, match="bf16"):
-        t4.w4a8_linear(xq, a, pw, ms, scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        t4.w4a8_linear(xq, a, pw, ms, scale, out_dtype=torch.float16)
     with pytest.raises(RuntimeError, match="no backward"):
         t4.w4a8_linear(xq, a, pw, ms, scale.requires_grad_())
 
@@ -1609,7 +1618,8 @@ def test_dequant_gemm_against_its_plain_version(dev, m, k, n, group):
 @pytest.mark.cuda
 def test_dequant_gemm_refusals(dev):
     """What the kernel does not take raises before a launch: K off a
-    multiple of 64, w4 groups of 8, f32 input."""
+    multiple of 64, w4 groups of 8, f16 input (f32 input takes the f32
+    dequantize kernel and F.linear)."""
     q = torch.zeros((64, 96), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="unsupported"):
         t4.dequant_linear(torch.zeros((4, 96), dtype=BF, device=dev), q,
@@ -1619,7 +1629,8 @@ def test_dequant_gemm_refusals(dev):
         t4.dequant_linear(torch.zeros((4, 128), dtype=BF, device=dev), p4,
                           torch.ones((16, 64), device=dev), mode="w4")
     with pytest.raises(ValueError, match="bfloat16"):
-        t4.dequant_linear(torch.zeros((4, 128), device=dev),
+        t4.dequant_linear(torch.zeros((4, 128), dtype=torch.float16,
+                                      device=dev),
                           torch.zeros((64, 128), dtype=torch.int8,
                                       device=dev), torch.ones(64, device=dev))
 
@@ -1658,9 +1669,9 @@ def test_grad_dequant_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((8, 36), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="unsupported"):
         tgemm.int8_dequant(q, torch.ones(8, device=dev))
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="bf16 or f32"):
         tgemm.int8_dequant(q[:, :32], torch.ones(8, device=dev),
-                           torch.float32)
+                           torch.float16)
     pw = torch.zeros((8, 48), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="groups"):
         t4.w4a8_dequant(pw, torch.ones((5, 8), dtype=torch.int8,
@@ -1740,3 +1751,237 @@ def test_stream_copy_batches_on_the_card_equal_their_numpy_batches(dev):
             assert torch.equal(got[k].cpu(), torch.from_numpy(want[k]))
         for k, total in sums.items():
             assert total.item() == int(want[k].astype(np.int64).sum())
+
+
+def _rows32(g, dev, *shape, mean=3.0):
+    """f32 rows x * sigma + mu, sigma per row over four decades."""
+    lead = (*shape[:-1], 1)
+    sigma = 10.0 ** (4 * torch.rand(lead, generator=g, device=dev) - 2)
+    mu = mean * sigma * torch.randn(lead, generator=g, device=dev)
+    return torch.randn(shape, generator=g, device=dev) * sigma + mu
+
+
+# K6, K7 and K8 on f32 rows: case -> x's shape. They take f32_rows_kernel
+# at every width: 16 threads a row at D = 64, a block a row from 1024 on,
+# 4 or 16 chunks a thread in registers, past 16384 the rest read again
+# from memory.
+F32_GLUE_CASES = {
+    "4608 rows": (1, 4608, 3072),
+    "B 2, odd S, spans cross the batch": (2, 2305, 3072),
+    "1 row": (1, 1, 3072),
+    "(N, D) 4 rows": (4, 3072),
+    "D 64, 16 threads a row": (3, 1001, 64),
+    "D 768, a block a row": (1, 257, 768),
+    "D 4096": (1, 700, 4096),
+    "D 12288": (1, 300, 12288),
+    "D 16384": (2, 130, 16384),
+    "D 16388, chunks read again": (2, 5, 16388),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["rows", "tie rows"])
+@pytest.mark.parametrize("case", list(F32_GLUE_CASES))
+def test_f32_quant_rows_kernel_is_exact(dev, case, ties):
+    """K8 on f32 rows bit for bit the plain quantization, codes and
+    scales, on rows whose scale spans four decades and on tie rows (every
+    quotient k + 0.5), one launch of ``quant_rows_f32`` a call; at
+    D = 3072 also on 32 and on 256 threads a row, the same bits."""
+    shape = F32_GLUE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + ties)
+    if ties:
+        x = _tie_rows(g, dev, math.prod(shape[:-1]), shape[-1]).float()
+        x = x.view(shape)
+    else:
+        x = _rows32(g, dev, *shape)
+    before = dict(tfg.LAUNCHES)
+    q, a = tfg.quant_rows(x)
+    assert tfg.LAUNCHES == dict(
+        before, quant_rows_f32=before["quant_rows_f32"] + 1)
+    q_plain, a_plain = tfg.quant_rows_plain(x)
+    assert q.shape == x.shape and a.shape == (*x.shape[:-1], 1)
+    assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+    if shape[-1] == 3072:
+        for lanes in (32, 256):
+            q, a = tfg._quant_rows_cuda(x, instance=("rows", lanes, 16))
+            assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_GLUE_CASES))
+def test_f32_gelu_quant_kernel(dev, case):
+    """K7 on f32 rows against its f32 plain version: codes within one
+    step, at most 0.1% flipped, scales within 1e-5 relative (its
+    x / (1 + exp(-2u)) form against PyTorch's tanh form); one launch of
+    ``gelu_quant_f32``."""
+    shape = F32_GLUE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = _rows32(g, dev, *shape, mean=0.0)
+    before = dict(tfg.LAUNCHES)
+    got = tfg.gelu_quant(x)
+    assert tfg.LAUNCHES == dict(
+        before, gelu_quant_f32=before["gelu_quant_f32"] + 1)
+    want = tfg.gelu_quant_plain(x)
+    _codes_close(got, want, 1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in F32_GLUE_CASES
+                                  if len(F32_GLUE_CASES[c]) == 3])
+def test_f32_ln_mod_quant_kernel(dev, case):
+    """K6 on f32 rows against its f32 plain version (codes within one
+    step, at most 0.1% flipped, scales within 1e-5 relative: the row
+    statistics are f32 sums in another order), on strided chunk(6)
+    modulation rows; above 3072, where K5 takes f32_rows_kernel too, bit
+    for bit ``quant_rows(ln_mod(x, shift, scale))`` on the card (one
+    LayerNorm + modulate in both); one launch each."""
+    b, s, d = F32_GLUE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(b + s + d)
+    x = _rows32(g, dev, b, s, d)
+    mod = 0.5 * torch.randn((b, 6 * d), generator=g, device=dev)
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    before = dict(tfg.LAUNCHES)
+    got = tfg.ln_mod_quant(x, shift, scale)
+    assert tfg.LAUNCHES == dict(
+        before, ln_mod_quant_f32=before["ln_mod_quant_f32"] + 1)
+    want = tfg.ln_mod_quant_plain(x, shift, scale)
+    _codes_close(got, want, 1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    if d > tfg.F32_WARP_D:
+        q, a = tfg.quant_rows(tfg.ln_mod(x, shift, scale))
+        assert torch.equal(got[0], q) and torch.equal(got[1], a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["int8", "w4a8"])
+@pytest.mark.parametrize("m,k,n,chunked", [
+    (300, 3072, 640, False), (4, 3072, 1152, False), (1, 256, 3072, False),
+    (129, 64, 64, False), (200, 3072, 384, True)])
+def test_f32_gemm_epilogue_is_exact(dev, kernel, m, k, n, chunked):
+    """The f32 epilogue of the int8 and the w4a8 GEMM bit for bit its plain
+    version (each step rounded once in f32 in its order; the int32 sums
+    are exact), with and without the f32 bias, and as the single block's
+    two chunks (K-slices of one weight, the second adding the first's f32
+    part and the bias); one launch of ``int8_gemm_f32`` /
+    ``w4a8_gemm_f32`` a call. f16 is refused."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    width = k + (4096 if chunked else 0)
+    if kernel == "int8":
+        xq, a, w, scale, bias = _gemm_inputs(g, dev, m, k, n, width)
+        extra, fn, plain = (), tgemm.int8_linear, tgemm.int8_linear_plain
+    else:
+        groups = width // 32
+        xq, a, w, ms, scale, bias = _w4a8_inputs(g, dev, m, k, n, width,
+                                                 groups)
+        extra, fn, plain = (ms,), t4.w4a8_linear, t4.w4a8_linear_plain
+    bias = bias.float()
+    f32 = torch.float32
+    key = f"{kernel}_gemm_f32"
+    before = tgemm.GEMM.launches[key]
+    for b in (None, bias):
+        got = fn(xq, a, w, *extra, scale, bias=b, out_dtype=f32)
+        assert got.dtype == f32
+        assert torch.equal(got, plain(xq, a, w, *extra, scale, bias=b,
+                                      out_dtype=f32))
+    assert tgemm.GEMM.launches[key] == before + 2
+    if chunked:
+        xb, ab = tfg.quant_rows_plain(_rows(g, dev, m, 4096))
+        first = fn(xq, a, w, *extra, scale, out_dtype=f32)
+        got = fn(xb, ab, w, *extra, scale, bias=bias, k0=k, addend=first,
+                 out_dtype=f32)
+        want = plain(xb, ab, w, *extra, scale, bias=bias, k0=k,
+                     addend=first, out_dtype=f32)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fn(xq, a, w, *extra, scale, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="bias must be"):
+        fn(xq, a, w, *extra, scale, bias=bias.to(BF), out_dtype=f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,inn,groups", [(3072, 3072, 24), (12288, 3072, 24),
+                                          (3072, 12288, 96), (3072, 64, 1),
+                                          (96, 96, 8), (200, 15360, 120)])
+def test_f32_dequant_kernels_bit_for_bit(dev, n, inn, groups):
+    """The f32 instances of the int8 and the w4 dequantize kernels equal
+    ``dequant_weight_plain(..., torch.float32)`` bit for bit (f32(code)
+    times the f32 scale, rounded once), one launch each; and the weight-only
+    product on f32 x (the f32 dequantize kernel, then ``F.linear`` in f32
+    and the f32 bias) equals the plain version's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n + inn)
+    f32 = torch.float32
+    q = torch.randint(-127, 128, (n, inn), generator=g, device=dev,
+                      dtype=torch.int8)
+    s8 = torch.rand(n, generator=g, device=dev) / 100
+    pw = torch.randint(-128, 128, (n, inn // 2), generator=g, device=dev,
+                       dtype=torch.int8)
+    s4 = torch.rand((groups, n), generator=g, device=dev) / 7
+    x = torch.randn((5, inn), generator=g, device=dev)
+    bias = torch.randn(n, generator=g, device=dev)
+    for key, fn, codes, scale, mode in (
+            ("int8_dequant_f32", tgemm.int8_dequant, q, s8, "w8"),
+            ("w4_dequant_f32", t4.w4_dequant, pw, s4, "w4")):
+        before = dict(tgemm.GEMM.launches)
+        got = fn(codes, scale, f32)
+        assert tgemm.GEMM.launches == dict(before, **{key: before[key] + 1})
+        assert got.dtype == f32 and torch.equal(
+            got, t4.dequant_weight_plain(codes, scale, mode, f32))
+        y = t4.dequant_linear(x, codes, scale, bias, mode)
+        assert y.dtype == f32 and torch.equal(
+            y, t4.dequant_linear_plain(x, codes, scale, bias, mode))
+        with pytest.raises(ValueError, match="bias must be"):
+            t4.dequant_linear(x, codes, scale, bias.to(BF), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["w8a8", "w4a8", "w8", "w4"])
+def test_f32_quantized_dit_takes_the_kernels(dev, mode):
+    """A tiny f32 FLUX in each quantized mode with ``fused_glue=True`` on
+    the card: every product and glue call launches an f32 instance (K6,
+    K7 and K8 with the GEMM's f32 epilogue in w8a8 and w4a8; K5 with the
+    f32 dequantize kernel in w8 and w4), and no bf16 instance; its output
+    against the same weights on the plain route on the card within the
+    route checks' bar (correlation above 0.999, relative L2 below
+    5e-2)."""
+    import dataclasses
+
+    cfg = tiny_flux_config(quantized=mode, fused_glue=True,
+                           dtype=torch.float32, attention_head_dim=128,
+                           num_attention_heads=2, axes_dims_rope=(16, 56, 56),
+                           joint_attention_dim=256,
+                           pooled_projection_dim=256, time_embed_dim=256,
+                           attention_impl="kernel")
+    g = torch.Generator(device=dev).manual_seed(7)
+    kern = random_init_(FluxTransformer2D(cfg, dev), g)
+    plain = FluxTransformer2D(dataclasses.replace(
+        cfg, fused_glue=False, quant_impl="plain", attention_impl="plain"),
+        dev)
+    plain.load_state_dict(kern.state_dict())
+    s_img, s_txt = 256, 128
+    args = (torch.randn((1, s_img, cfg.in_channels), generator=g, device=dev),
+            torch.randn((1, s_txt, cfg.joint_attention_dim), generator=g,
+                        device=dev),
+            torch.randn((1, cfg.pooled_projection_dim), generator=g,
+                        device=dev),
+            torch.full((1,), 0.7, device=dev),
+            prepare_latent_image_ids(32, 32, dev),
+            torch.zeros((s_txt, 3), device=dev))
+    before = {**tfg.LAUNCHES, **tgemm.GEMM.launches}
+    with torch.inference_mode():
+        got = kern(*args)
+        used = {k: v - before[k] for k, v in
+                {**tfg.LAUNCHES, **tgemm.GEMM.launches}.items()
+                if v != before[k]}
+        want = plain(*args)
+    assert got.dtype == torch.float32
+    f32_names = ({"ln_mod_quant_f32", "gelu_quant_f32", "quant_rows_f32",
+                  f"{'int8' if mode == 'w8a8' else 'w4a8'}_gemm_f32"}
+                 if mode in ("w8a8", "w4a8") else
+                 {"ln_mod_f32", f"{'int8' if mode == 'w8' else 'w4'}"
+                                f"_dequant_f32"})
+    assert set(used) == f32_names, used
+    rel = ((got - want).norm() / want.norm()).item()
+    corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()])
+                          )[0, 1].item()
+    assert corr > 0.999 and rel < 5e-2, (corr, rel)

@@ -15,9 +15,14 @@
 //   out       = bf16(out + bias[n])                         (optional)
 //
 // the rounding points of quant.py:54-55 and :97 followed by QuantDense's
-// bf16 chunk sum and bias add (:485-500). With acc_only the kernel writes
-// the int32 accumulator instead (the function of torch._int_mm), which the
-// checks use to hold it exact.
+// bf16 chunk sum and bias add (:485-500). An f32 layer (an f32 DiT) takes
+// the f32 instance of the epilogue: the same steps, each rounded once in
+// f32 (JAX rescales in f32 and returns out_dtype f32, quant.py:43-52 and
+// :94-98, and QuantDense adds the chunks and the bias in f32), with an f32
+// addend and bias, so that it is bit for bit the plain version: the int32
+// sums are exact. It writes twice the bf16 output's bytes. With the
+// int32 output the kernel writes the accumulator instead (the function of
+// torch._int_mm), which the checks use to hold it exact.
 //
 // What bounds it on an H100: at the DiT's shapes (M = 4608 tokens, K and
 // N 3072..18432) it does 2MNK = 0.09-0.35 TOP per call against 30-80 MB
@@ -139,6 +144,12 @@
 // holds inputs 2j low and 2j + 1 high) times bf16(scale[g, n]), rounded
 // once to bf16, into the (N, in) weight that cuBLAS then multiplies. It
 // moves bytes only: a thread reads 4 packed bytes and writes 8 bf16.
+// Its f32 instance, and the int8 dequantize kernel's (int8_dequant_kernel
+// below), are the weight-only modes' product for an f32 DiT (JAX's
+// w8_matmul and w4_matmul dequantize to an f32 x's dtype, :102-111 and
+// :153-169): f32(code) * scale[g, n] (w4) or * scale[n] (w8), rounded once
+// in f32, the weight that F.linear then multiplies in f32. They write
+// twice the bf16 weight's bytes; the dequantizing GEMM keeps bf16 x.
 //
 // The two dequantize kernels of the straight-through backward
 // (int8_dequant_kernel, w4a8_dequant_kernel) replace the dequantize of
@@ -168,8 +179,8 @@ struct Args {
   long long ldb;
   const float* a_scale;
   const float* scale;
-  const __nv_bfloat16* bias;
-  const __nv_bfloat16* addend;
+  const void* bias;     // (N,): bf16, or f32 with an f32 output
+  const void* addend;   // (M, N) rows ldd apart: as the bias
   long long ldd;
   void* out;
   long long ldo;
@@ -186,6 +197,10 @@ struct Args {
 __device__ __forceinline__ float bf(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// What the GEMM writes: the bf16 or the f32 output (the w8a8 epilogue in
+// that dtype), or the int32 accumulator.
+enum Out { kOutBf16, kOutF32, kOutS32 };
 
 constexpr int kRows = 128;              // output rows per block
 constexpr int BN = 256;                 // output columns per block
@@ -235,7 +250,7 @@ __device__ __forceinline__ uint32_t nibbles_times(uint32_t nib, uint32_t m,
   return ((x | 0x80808080u) - m8) ^ (~x & 0x80808080u);
 }
 
-template <bool ACC_ONLY, bool W4A8>
+template <int OUT, bool W4A8>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& map_a,
                                           const CUtensorMap& map_b,
                                           const Args& p) {
@@ -454,11 +469,16 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& map_a,
   const int r0 = (tid % 128) / kChunks, row0 = m0 + wg * 64 + r0;
   const bool live = col < p.n;               // N % 8 == 0: all or nothing
   float sc[8], bias[8], as[kPasses];
-  if (!ACC_ONLY && live) {
+  if (OUT != kOutS32 && live) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       sc[e] = p.scale[col + e];
-      bias[e] = p.bias ? bf(p.bias[col + e]) : 0.f;
+      if constexpr (OUT == kOutF32)
+        bias[e] = p.bias ? static_cast<const float*>(p.bias)[col + e] : 0.f;
+      else
+        bias[e] = p.bias ? bf(static_cast<const __nv_bfloat16*>(p.bias)
+                                  [col + e])
+                         : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kPasses; ++i) {
@@ -494,15 +514,39 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& map_a,
     const int4 hi =
         *reinterpret_cast<const int4*>(tile + rr * kPitch + c * 32 + 16);
     const long long at = static_cast<long long>(row) * p.ldo + col;
-    if (ACC_ONLY) {
+    if constexpr (OUT == kOutS32) {
       int4* o = reinterpret_cast<int4*>(static_cast<int*>(p.out) + at);
       o[0] = lo;
       o[1] = hi;
       continue;
     }
     const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const long long add_at = static_cast<long long>(row) * p.ldd + col;
+    if constexpr (OUT == kOutF32) {
+      // every step rounded once in f32, in the plain version's order;
+      // the addend's 8 values in two 16-byte loads (the wrapper checks
+      // its alignment)
+      float y[8], add[8] = {};
+      if (p.addend) {
+        const float4* a4 = reinterpret_cast<const float4*>(
+            static_cast<const float*>(p.addend) + add_at);
+        const float4 d0 = a4[0], d1 = a4[1];
+        add[0] = d0.x, add[1] = d0.y, add[2] = d0.z, add[3] = d0.w;
+        add[4] = d1.x, add[5] = d1.y, add[6] = d1.z, add[7] = d1.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        y[e] = __fmul_rn(__fmul_rn(__int2float_rn(v[e]), as[i]), sc[e]);
+        if (p.addend) y[e] = __fadd_rn(add[e], y[e]);
+        if (p.bias) y[e] = __fadd_rn(y[e], bias[e]);
+      }
+      float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) + at);
+      o[0] = make_float4(y[0], y[1], y[2], y[3]);
+      o[1] = make_float4(y[4], y[5], y[6], y[7]);
+      continue;
+    }
     const __nv_bfloat16* add =
-        p.addend ? p.addend + static_cast<long long>(row) * p.ldd + col
+        p.addend ? static_cast<const __nv_bfloat16*>(p.addend) + add_at
                  : nullptr;
     uint32_t w[4];
 #pragma unroll
@@ -519,24 +563,23 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& map_a,
   }
 }
 
-template <bool ACC_ONLY>
+template <int OUT>
 __global__ void __launch_bounds__(kConsumers + 128, 1) int8_gemm_kernel(
     const __grid_constant__ CUtensorMap map_a,
     const __grid_constant__ CUtensorMap map_b, Args p) {
-  gemm_body<ACC_ONLY, false>(map_a, map_b, p);
+  gemm_body<OUT, false>(map_a, map_b, p);
 }
 
-template <bool ACC_ONLY>
+template <int OUT>
 __global__ void __launch_bounds__(kConsumers + 128, 1) w4a8_gemm_kernel(
     const __grid_constant__ CUtensorMap map_a,
     const __grid_constant__ CUtensorMap map_b, Args p) {
-  gemm_body<ACC_ONLY, true>(map_a, map_b, p);
+  gemm_body<OUT, true>(map_a, map_b, p);
 }
 
-template <bool ACC_ONLY, bool W4A8>
+template <int OUT, bool W4A8>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  auto kernel =
-      W4A8 ? w4a8_gemm_kernel<ACC_ONLY> : int8_gemm_kernel<ACC_ONLY>;
+  auto kernel = W4A8 ? w4a8_gemm_kernel<OUT> : int8_gemm_kernel<OUT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -557,18 +600,28 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool W4A8>
+cudaError_t launch_out(const Args& p, int out, cudaStream_t stream) {
+  return out == kOutBf16  ? launch<kOutBf16, W4A8>(p, stream)
+         : out == kOutF32 ? launch<kOutF32, W4A8>(p, stream)
+                          : launch<kOutS32, W4A8>(p, stream);
+}
+
 }  // namespace
 
-// The wrapper (x2i_torch/ops/int8_gemm.py) checks types, shapes,
-// alignment (16 bytes for a, b, lda, ldb and koff) and K % 64 == 0.
-// Returns the cudaError_t of the launch.
+// `out_kind` is what it writes (Out): 0 bf16 (bias and addend bf16), 1 f32
+// (bias and addend f32), 2 the int32 accumulator. The wrapper
+// (x2i_torch/ops/int8_gemm.py) checks types, shapes, alignment (16 bytes
+// for a, b, lda, ldb and koff, and for an f32 addend's rows) and
+// K % 64 == 0. Returns the cudaError_t of the launch.
 extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
                              long long ldb, long long koff,
                              const void* a_scale, const void* scale,
                              const void* bias, const void* addend,
                              long long ldd, void* out, long long ldo, int m,
-                             int n, int k, int acc_only, void* stream) {
-  if (m < 1 || n < 8 || n % 8 || k < 64 || k % 64)
+                             int n, int k, int out_kind, void* stream) {
+  if (m < 1 || n < 8 || n % 8 || k < 64 || k % 64 || out_kind < kOutBf16 ||
+      out_kind > kOutS32)
     return static_cast<int>(cudaErrorInvalidValue);
   Args p;
   p.a = static_cast<const int8_t*>(a);
@@ -577,8 +630,8 @@ extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
   p.ldb = ldb;
   p.a_scale = static_cast<const float*>(a_scale);
   p.scale = static_cast<const float*>(scale);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.addend = static_cast<const __nv_bfloat16*>(addend);
+  p.bias = bias;
+  p.addend = addend;
   p.ldd = ldd;
   p.out = out;
   p.ldo = ldo;
@@ -587,23 +640,24 @@ extern "C" int x2i_int8_gemm(const void* a, long long lda, const void* b,
   p.k = k;
   p.mscale = nullptr;
   p.half = p.group = p.koff = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(acc_only ? launch<true, false>(p, s)
-                                   : launch<false, false>(p, s));
+  return static_cast<int>(
+      launch_out<false>(p, out_kind, static_cast<cudaStream_t>(stream)));
 }
 
-// The wrapper (x2i_torch/ops/int4_gemm.py) checks types, shapes and
-// alignment: K, koff, in/2 and the group size multiples of 16, an even
-// group count, koff a multiple of 128 for a chunk across in/2; a and b
-// 16-byte aligned. Returns the cudaError_t of the launch.
+// `out_kind` as for x2i_int8_gemm. The wrapper (x2i_torch/ops/int4_gemm.py)
+// checks types, shapes and alignment: K, koff, in/2 and the group size
+// multiples of 16, an even group count, koff a multiple of 128 for a chunk
+// across in/2; a and b 16-byte aligned. Returns the cudaError_t of the
+// launch.
 extern "C" int x2i_w4a8_gemm(const void* a, long long lda, const void* b,
                              long long ldb, const void* mscale, int half,
                              int group, int koff, const void* a_scale,
                              const void* scale, const void* bias,
                              const void* addend, long long ldd, void* out,
                              long long ldo, int m, int n, int k,
-                             int acc_only, void* stream) {
-  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16 || half < 16 ||
+                             int out_kind, void* stream) {
+  if (out_kind < kOutBf16 || out_kind > kOutS32 || m < 1 || n < 8 ||
+      n % 8 || k < 16 || k % 16 || half < 16 ||
       half % 16 || group < 16 || group % 16 || half % group ||
       (half / group) < 1 || koff < 0 || koff % 16 || koff + k > 2 * half ||
       (koff < half && koff + k > half && koff % 128))
@@ -615,8 +669,8 @@ extern "C" int x2i_w4a8_gemm(const void* a, long long lda, const void* b,
   p.ldb = ldb;
   p.a_scale = static_cast<const float*>(a_scale);
   p.scale = static_cast<const float*>(scale);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.addend = static_cast<const __nv_bfloat16*>(addend);
+  p.bias = bias;
+  p.addend = addend;
   p.ldd = ldd;
   p.out = out;
   p.ldo = ldo;
@@ -627,9 +681,8 @@ extern "C" int x2i_w4a8_gemm(const void* a, long long lda, const void* b,
   p.half = half;
   p.group = group;
   p.koff = koff;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(acc_only ? launch<true, true>(p, s)
-                                   : launch<false, true>(p, s));
+  return static_cast<int>(
+      launch_out<true>(p, out_kind, static_cast<cudaStream_t>(stream)));
 }
 
 namespace {
@@ -969,7 +1022,9 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) dequant_gemm_kernel(
   float bias[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e)
-    bias[e] = p.bias && n < p.n ? bf(p.bias[n + e]) : 0.f;
+    bias[e] = p.bias && n < p.n
+                  ? bf(static_cast<const __nv_bfloat16*>(p.bias)[n + e])
+                  : 0.f;
 #pragma unroll 4
   for (int tok = tid / kChunks; tok < tok_end; tok += kTokPerPass) {
     const int m = m0 + tok;
@@ -1042,7 +1097,7 @@ extern "C" int x2i_dequant_gemm(const void* x, long long ldx,
   p.b = static_cast<const int8_t*>(codes);
   p.ldb = ldc;
   p.scale = static_cast<const float*>(scale);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.bias = bias;
   p.out = out;
   p.ldo = ldo;
   p.m = m;
@@ -1057,14 +1112,31 @@ extern "C" int x2i_dequant_gemm(const void* x, long long ldx,
 
 namespace {
 
+// The scale a weight of an F32 (else bf16) output is multiplied by: the
+// f32 scale as it is, or rounded to bf16 (JAX casts it to the weight's
+// dtype first).
+template <bool F32>
+__device__ __forceinline__ float weight_scale(float s) {
+  return F32 ? s : __bfloat162float(__float2bfloat16_rn(s));
+}
+
+// 8 f32 values to out (16-byte aligned): two 16-byte stores.
+__device__ __forceinline__ void store8(float* out, const float (&v)[8]) {
+  float4* o = reinterpret_cast<float4*>(out);
+  o[0] = make_float4(v[0], v[1], v[2], v[3]);
+  o[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // One thread: 4 packed bytes of a row (8 inputs) -> 8 bf16, each the code
 // times the bf16 scale of its group, rounded once (a bf16 times a code of
 // at most 4 bits is exact in f32), in one 16-byte store: a warp reads 128
 // contiguous bytes and writes 512. `group` is even, so the two inputs of
-// a byte share a group.
+// a byte share a group. F32: 8 f32, each f32(code) times the f32 scale
+// rounded once (w4 in f32, JAX's _dequant_w4 to an f32 x), in two stores.
+template <bool F32>
 __global__ void __launch_bounds__(256) w4_dequant_kernel(
     const int8_t* __restrict__ pw, long long ldp,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int n,
+    const float* __restrict__ scale, void* __restrict__ out, int n,
     int half, int group) {
   const int per_row = half / 4;
   const long long idx =
@@ -1076,44 +1148,59 @@ __global__ void __launch_bounds__(256) w4_dequant_kernel(
       __ldg(reinterpret_cast<const uint32_t*>(pw + row * ldp) + c);
   const int first = 8 * c;
   const bool one_group = first / group == (first + 7) / group;
-  const float s0 = __bfloat162float(
-      __float2bfloat16_rn(__ldg(scale + (first / group) * n + row)));
-  uint32_t o[4];
+  const float s0 =
+      weight_scale<F32>(__ldg(scale + (first / group) * n + row));
+  const long long at = static_cast<long long>(row) * 2 * half + first;
+  float v[8];
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
     const int byte = (w >> (8 * b)) & 0xFF;
     const float s =
-        one_group ? s0
-                  : __bfloat162float(__float2bfloat16_rn(
-                        __ldg(scale + ((first + 2 * b) / group) * n + row)));
-    const float lo = static_cast<float>(((byte & 0xF) ^ 8) - 8);
-    const float hi = static_cast<float>(((byte >> 4) ^ 8) - 8);
-    o[b] = static_cast<uint32_t>(
-               __bfloat16_as_ushort(__float2bfloat16_rn(lo * s))) |
-           static_cast<uint32_t>(
-               __bfloat16_as_ushort(__float2bfloat16_rn(hi * s)))
-               << 16;
+        one_group
+            ? s0
+            : weight_scale<F32>(
+                  __ldg(scale + ((first + 2 * b) / group) * n + row));
+    v[2 * b] = __fmul_rn(static_cast<float>(((byte & 0xF) ^ 8) - 8), s);
+    v[2 * b + 1] = __fmul_rn(static_cast<float>(((byte >> 4) ^ 8) - 8), s);
   }
-  *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * 2 * half +
-                            first) = make_uint4(o[0], o[1], o[2], o[3]);
+  if constexpr (F32) {
+    store8(static_cast<float*>(out) + at, v);
+  } else {
+    uint32_t o[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      o[b] = static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * b]))) |
+             static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * b + 1])))
+                 << 16;
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
 }  // namespace
 
 // pw (n, half) packed with rows ldp bytes apart (16-byte aligned), scale
-// (half * 2 / group, n) f32, out (n, 2 * half) bf16. Returns the
-// cudaError_t of the launch.
+// (half * 2 / group, n) f32, out (n, 2 * half) bf16, or f32 with `f32`.
+// Returns the cudaError_t of the launch.
 extern "C" int x2i_w4_dequant(const void* pw, long long ldp,
                               const void* scale, void* out, int n, int half,
-                              int group, void* stream) {
+                              int group, int f32, void* stream) {
   if (n < 1 || half < 16 || half % 16 || group < 2 || group % 2 ||
       (2 * half) % group || ldp % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = static_cast<long long>(n) * (half / 4);
   const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
-  w4_dequant_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(pw), ldp, static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), n, half, group);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* q = static_cast<const int8_t*>(pw);
+  const float* sc = static_cast<const float*>(scale);
+  if (f32)
+    w4_dequant_kernel<true><<<blocks, 256, 0, st>>>(q, ldp, sc, out, n, half,
+                                                    group);
+  else
+    w4_dequant_kernel<false><<<blocks, 256, 0, st>>>(q, ldp, sc, out, n,
+                                                     half, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1131,10 +1218,13 @@ __device__ __forceinline__ int byte_of(const uint2& w, int i) {
 }
 
 // One thread: 8 int8 codes of a row -> 8 bf16, each code times the bf16
-// scale of the row, rounded once, in one 16-byte store.
+// scale of the row, rounded once, in one 16-byte store; F32: 8 f32, each
+// f32(code) times the f32 scale rounded once (w8 in f32, JAX's w8_matmul
+// to an f32 x), in two.
+template <bool F32>
 __global__ void __launch_bounds__(256) int8_dequant_kernel(
     const int8_t* __restrict__ q, long long ldq,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int n,
+    const float* __restrict__ scale, void* __restrict__ out, int n,
     int k) {
   const int per_row = k / 8;
   const long long idx =
@@ -1143,18 +1233,19 @@ __global__ void __launch_bounds__(256) int8_dequant_kernel(
   const int row = static_cast<int>(idx / per_row);
   const int c = static_cast<int>(idx % per_row);
   const uint2 w = __ldg(reinterpret_cast<const uint2*>(q + row * ldq) + c);
-  const float s = __bfloat162float(__float2bfloat16_rn(__ldg(scale + row)));
-  uint32_t o[4];
+  const float s = weight_scale<F32>(__ldg(scale + row));
+  const long long at = static_cast<long long>(row) * k + 8 * c;
+  float v[8];
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    // a byte sign-extended: (byte ^ 0x80) - 0x80
-    const float lo = static_cast<float>((byte_of(w, 2 * b) ^ 0x80) - 0x80);
-    const float hi =
-        static_cast<float>((byte_of(w, 2 * b + 1) ^ 0x80) - 0x80);
-    o[b] = bf16_pair(__fmul_rn(lo, s), __fmul_rn(hi, s));
+  for (int i = 0; i < 8; ++i)   // a byte sign-extended: (byte ^ 0x80) - 0x80
+    v[i] = __fmul_rn(static_cast<float>((byte_of(w, i) ^ 0x80) - 0x80), s);
+  if constexpr (F32) {
+    store8(static_cast<float*>(out) + at, v);
+  } else {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at) =
+        make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                   bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
   }
-  *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * k + 8 * c) =
-      make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // One thread: 8 packed bytes of a row (packed columns j..j+7) -> the 8
@@ -1204,18 +1295,24 @@ unsigned blocks_of(long long threads) {
 
 }  // namespace
 
-// q (n, k) int8 with rows ldq bytes apart, scale (n,) f32, out (n, k) bf16;
-// k, ldq and q's address multiples of 8. Returns the cudaError_t of the
-// launch.
+// q (n, k) int8 with rows ldq bytes apart, scale (n,) f32, out (n, k) bf16,
+// or f32 with `f32`; k, ldq and q's address multiples of 8. Returns the
+// cudaError_t of the launch.
 extern "C" int x2i_int8_dequant(const void* q, long long ldq,
                                 const void* scale, void* out, int n, int k,
-                                void* stream) {
+                                int f32, void* stream) {
   if (n < 1 || k < 8 || k % 8 || ldq % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  int8_dequant_kernel<<<blocks_of(static_cast<long long>(n) * (k / 8)), 256,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), ldq, static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), n, k);
+  const unsigned blocks = blocks_of(static_cast<long long>(n) * (k / 8));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* codes = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
+  if (f32)
+    int8_dequant_kernel<true><<<blocks, 256, 0, st>>>(codes, ldq, sc, out, n,
+                                                      k);
+  else
+    int8_dequant_kernel<false><<<blocks, 256, 0, st>>>(codes, ldq, sc, out,
+                                                       n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 // The row glue kernels of the DiT for sm_90a: K5 (LayerNorm + AdaLN
 // modulate), K6 (K5's LayerNorm + modulate, then per-row int8
 // quantization), K7 (tanh-gelu + per-row int8 quantization) and K8 (the
-// per-row int8 quantization alone).
+// per-row int8 quantization alone), on bf16 rows and on f32 rows.
 //
 // Replaces, in the JAX package's x2i_tpu/ops/fused_glue.py (all launched
 // through _rows_call, :118):
@@ -91,17 +91,6 @@
 // approximate, flushing subnormals: their inputs are never subnormal, and
 // an output that would be is a gelu value of about 1e-38, which rounds to
 // code 0); K6 and K8 none.
-// K5 on f32 rows (ln_mod_f32_kernel: an f32 DiT's glue; JAX's _ln_mod_kernel
-// takes any float dtype): y = (x - mean) rsqrt(var + eps) in f32 (its
-// rounding to x's dtype is the identity), out = y * (1 + scale) + shift,
-// each product and sum rounded once in f32, as PyTorch's f32 `*` and `+`.
-// A 3072-wide f32 row is 96 values a lane, so K5's register double buffer
-// (192) would spill: one warp a row holds the row once (24 16-byte chunks
-// a lane), and the SM's other warps keep its row bytes in flight instead
-// of the next row. At 128 registers a thread (two blocks of eight warps an
-// SM) ptxas spilled, so a block may take up to 255 (one block an SM at
-// least). The modulation rows are read through L1 beside it. Any
-// D that is a multiple of 4 up to 3072 (every FLUX width of the registry).
 // Other widths (any D that is a multiple of 8) take a generic instance:
 // K5 and K6 a warp per row that reads its row from memory once per pass
 // (the same two pieces, ln_chunk and the quantization epilogue), K7 and K8
@@ -110,6 +99,34 @@
 // x_embedder's input; a block for the 4096-wide rows of the
 // context_embedder's) that reads its row once for the max and once for
 // the codes.
+// K5-K8 on f32 rows (an f32 DiT's glue; JAX's _rows_call takes any float
+// dtype, and its rounding to x's dtype is then the identity): K5's y =
+// (x - mean) rsqrt(var + eps) in f32, out = y * (1 + scale) + shift, each
+// product and sum rounded once in f32, as PyTorch's f32 `*` and `+`; K6
+// the quantization of that out, K7 of the f32 gelu, K8 of x. The
+// quantization epilogue is the bf16 one's on four f32 values a 16-byte
+// chunk (codes4). They move twice the bf16 rows' bytes.
+// K5 up to D = 3072 (ln_mod_f32_kernel; every FLUX width of the
+// registry): a 3072-wide f32 row is 96 values a lane, so K5's register
+// double buffer (192) would spill: one warp a row holds the row once (24
+// 16-byte chunks a lane), and the SM's other warps keep its row bytes in
+// flight instead of the next row. At 128 registers a thread (two blocks of
+// eight warps an SM) ptxas spilled, so a block may take up to 255 (one
+// block an SM at least). The modulation rows are read through L1 beside
+// it.
+// K5 above 3072, K6, K7 and K8 at every width (f32_rows_kernel): a group
+// of threads a row (the wrapper's f32_instance: one 16-byte chunk a thread
+// up to a block of 256 a row, then 4 or 16 chunks a thread in registers),
+// the group's sums and max through shuffles and, past a warp, shared
+// memory; a row wider than 16 chunks a thread (D above 16384) reads its
+// remaining chunks again from memory in each pass, from L2. K6 as K5's
+// warp body with the quantization after it (the bf16 K6's design) was
+// slower at the DiT's 4096 and 4608 rows x 3072 on an H100 than this
+// kernel at a block a row, and was dropped; K5's warp body stays (the
+// kernels phase times K5 on both, ms_by_body). K7 on f32
+// rows keeps the bf16 K7's x / (1 + exp(-2u)) form, but with the accurate
+// expf and an IEEE division: no bf16 rounding absorbs the approximate
+// ex2 and rcp's ulps there, and .ftz would flush subnormal values.
 
 #include "hopper_mma.cuh"
 
@@ -509,8 +526,10 @@ __global__ void __launch_bounds__(kLnWarps * 32)
 
 constexpr int kLnF32Chunks = kLnD / 4 / 32;  // 16-byte chunks a lane, at most
 
-// K5's arguments on f32 rows: x (B, S, D) at strides sxb, sxs, shift and
-// scale (B, D) at batch stride seb, out (B * S, D) contiguous.
+// The arguments of K5-K8 on f32 rows: x (B, S, D) at strides sxb, sxs,
+// shift and scale (B, D) at batch stride seb (K5, K6), out (B * S, D)
+// contiguous (f32 for K5, int8 codes for K6-K8, whose row scales go to a),
+// and for f32_rows_kernel the threads of a row.
 struct F32RowArgs {
   const float* x;
   long long sxb, sxs;
@@ -518,9 +537,11 @@ struct F32RowArgs {
   const float* shift;
   const float* scale;
   long long seb;
-  float* out;
+  void* out;
   int rows, d;
   float eps;
+  float* a;
+  int lanes;
 };
 
 __device__ __forceinline__ float4 f4_at(const float* p, int i) {
@@ -543,9 +564,31 @@ __device__ __forceinline__ float ln_f32(float x, float mean, float rstd,
   return __fadd_rn(__fmul_rn(y, __fadd_rn(1.0f, sc)), sh);
 }
 
-// K5 on f32 rows: a block of eight warps, one row a warp at a time over the
-// block's span, the row in registers between its two reductions and the
-// modulate.
+__device__ __forceinline__ float4 ln_f32x4(const float4& v, float mean,
+                                          float rstd, const float4& sc,
+                                          const float4& sh) {
+  return make_float4(ln_f32(v.x, mean, rstd, sc.x, sh.x),
+                     ln_f32(v.y, mean, rstd, sc.y, sh.y),
+                     ln_f32(v.z, mean, rstd, sc.z, sh.z),
+                     ln_f32(v.w, mean, rstd, sc.w, sh.w));
+}
+
+__device__ __forceinline__ float f4_amax(const float4& v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// The four codes of four f32 values, one a byte (code_bits' low bytes).
+__device__ __forceinline__ uint32_t codes4(const float4& v, float2 ar) {
+  const uint32_t c01 = __byte_perm(code_bits(v.x, ar.x, ar.y),
+                                   code_bits(v.y, ar.x, ar.y), 0x0040);
+  const uint32_t c23 = __byte_perm(code_bits(v.z, ar.x, ar.y),
+                                   code_bits(v.w, ar.x, ar.y), 0x0040);
+  return __byte_perm(c01, c23, 0x5410);
+}
+
+// K5 on f32 rows of at most 3072: a block of eight warps, one row a warp at
+// a time over the block's span, the row in registers between its two
+// reductions and the modulate.
 __global__ void __launch_bounds__(kLnWarps * 32, 1)
     ln_mod_f32_kernel(const F32RowArgs p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -572,8 +615,8 @@ __global__ void __launch_bounds__(kLnWarps * 32, 1)
     const float rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
     const float* sc = p.scale + b * p.seb;
     const float* sh = p.shift + b * p.seb;
-    float4* o = reinterpret_cast<float4*>(p.out + static_cast<long long>(r) *
-                                          p.d);
+    float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) +
+                                          static_cast<long long>(r) * p.d);
 #pragma unroll
     for (int c = 0; c < kLnF32Chunks; ++c) {
       const int at = c * 32 + lane;
@@ -776,6 +819,167 @@ __global__ void __launch_bounds__(kQThreads)
   }
 }
 
+// ------------------------------------------------- K5-K8 on f32 rows
+
+// What f32_rows_kernel computes: K5, K6, K8 (the RowOp values) or K7.
+constexpr int kGeluQuant = kQuantAt + 1;
+
+// The tanh-gelu of an f32 row value in K7's form x / (1 + exp(-2u)), with
+// the accurate expf and an IEEE division: nothing rounds after it. Past
+// -2u = 64 (x below about -8.5) the quotient is below 1e-27, which is code
+// 0 at any row scale (at least 1e-6 / 127) and never a row's max unless
+// the row's max is below the 1e-6 floor: it is taken as a signed zero,
+// which spares the division's slow path for a divisor near the top of the
+// f32 range (or infinite).
+__device__ __forceinline__ float gelu_f32(float x) {
+  const float u = __fmul_rn(0.7978845608028654f,
+                            fmaf(0.044715f, __fmul_rn(__fmul_rn(x, x), x), x));
+  const float t = __fmul_rn(-2.0f, u);
+  return t > 64.0f ? __fmul_rn(x, 0.0f)
+                   : __fdiv_rn(x, __fadd_rn(1.0f, expf(t)));
+}
+
+__device__ __forceinline__ float4 gelu_f32x4(const float4& v) {
+  return make_float4(gelu_f32(v.x), gelu_f32(v.y), gelu_f32(v.z),
+                     gelu_f32(v.w));
+}
+
+// The sum (or, with MAX, the max) of v over a group of `lanes` threads (a
+// power of two, 2^shift; `group` is the thread's group): shuffles inside
+// a warp, then, for a group wider than a warp, its warps' values through
+// rd[kQWarps] (a block barrier), summed in warp order so that every thread
+// of the group holds the same bits.
+template <bool MAX>
+__device__ __forceinline__ float group_reduce(float v, int lanes, int shift,
+                                              int group, float* rd) {
+  for (int o = min(lanes, 32) >> 1; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    v = MAX ? fmaxf(v, w) : v + w;
+  }
+  if (lanes > 32) {
+    if ((threadIdx.x & 31) == 0) rd[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int w0 = (group << shift) >> 5;
+    v = rd[w0];
+    for (int w = 1; w < lanes >> 5; ++w)
+      v = MAX ? fmaxf(v, rd[w0 + w]) : v + rd[w0 + w];
+  }
+  return v;
+}
+
+// The blocks of f32_rows_kernel an SM holds at least, which caps its
+// registers: at 4 chunks a thread three (85 registers; without a bound
+// ptxas took 48 and spilled K6's instance), at 16 two (128: K7 and K8
+// keep two blocks an SM), K6's at 16 one (its 145 registers; no path of
+// the DiT runs it).
+template <int OP, int C>
+constexpr int kF32RowsMinBlocks = C == 4 ? 3 : OP == kLnModQuant ? 1 : 2;
+
+// K6, K7 and K8 on f32 rows of any D that is a multiple of 4, and K5
+// above 3072: a group of p.lanes threads a row (a power of two up to the
+// block's 256), 16-byte chunks at li + lanes c. The first C chunks of
+// a thread stay in registers from the load to the store; a row wider than
+// lanes x C chunks reads the rest again from memory (L2) in each pass, and
+// computes its values again to the same bits. The group's sums and maxima
+// go through `red`, one slot a reduction and a pair of slots alternating
+// between iterations: one barrier a reduction.
+template <int OP, int C>
+__global__ void __launch_bounds__(kQThreads, kF32RowsMinBlocks<OP, C>)
+    f32_rows_kernel(const F32RowArgs p) {
+  __shared__ float red[2][3][kQWarps];
+  constexpr bool kLn = OP == kLnMod || OP == kLnModQuant;
+  const int shift = __ffs(p.lanes) - 1;
+  const int lanes = 1 << shift, groups = kQThreads >> shift;
+  const int t = threadIdx.x, group = t >> shift, li = t & (lanes - 1);
+  const int quads = p.d / 4;
+  const float inv_d = 1.0f / p.d;
+  int r0, r1;
+  block_span(p.rows, r0, r1);
+  // the loop is uniform over the block: every thread reaches the shuffles
+  // and the barriers
+  for (int base = r0, it = 0; base < r1; base += groups, ++it) {
+    const int r = base + group;
+    const bool valid = r < r1;
+    const int row = valid ? r : r0;
+    const int b = row / p.s;
+    const float* x = p.x + b * p.sxb + (row - b * p.s) * p.sxs;
+    float(*rd)[kQWarps] = red[it & 1];
+    const int tail = valid ? li + C * lanes : quads;   // chunks past C
+    float4 v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int at = li + c * lanes;
+      v[c] = valid && at < quads ? f4_at(x, at)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float mean = 0.0f, rstd = 0.0f;
+    const float* sc = p.scale + b * p.seb;
+    const float* sh = p.shift + b * p.seb;
+    if constexpr (kLn) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) sum += f4_sum(v[c]);
+      for (int at = tail; at < quads; at += lanes) sum += f4_sum(f4_at(x, at));
+      mean = group_reduce<false>(sum, lanes, shift, group, rd[0]) * inv_d;
+      float sq = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (valid && li + c * lanes < quads) sq += f4_sq(v[c], mean);
+      for (int at = tail; at < quads; at += lanes)
+        sq += f4_sq(f4_at(x, at), mean);
+      rstd = rsqrtf(group_reduce<false>(sq, lanes, shift, group, rd[1]) *
+                        inv_d +
+                    p.eps);
+    }
+    // the value that leaves at chunk `at` for chunk xv of x
+    auto value = [&](const float4& xv, int at) {
+      if constexpr (kLn)
+        return ln_f32x4(xv, mean, rstd, f4_at(sc, at), f4_at(sh, at));
+      else if constexpr (OP == kGeluQuant)
+        return gelu_f32x4(xv);
+      else
+        return xv;
+    };
+    const long long at0 = static_cast<long long>(r) * p.d;
+    if constexpr (OP == kLnMod) {
+      if (!valid) continue;
+      float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) + at0);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int at = li + c * lanes;
+        if (at < quads) o[at] = value(v[c], at);
+      }
+      for (int at = tail; at < quads; at += lanes)
+        o[at] = value(f4_at(x, at), at);
+    } else {
+      float m = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int at = li + c * lanes;
+        if (valid && at < quads) {
+          v[c] = value(v[c], at);
+          m = fmaxf(m, f4_amax(v[c]));
+        }
+      }
+      for (int at = tail; at < quads; at += lanes)
+        m = fmaxf(m, f4_amax(value(f4_at(x, at), at)));
+      const float amax = group_reduce<true>(m, lanes, shift, group, rd[2]);
+      if (!valid) continue;
+      const float2 ar = row_scale(amax);
+      uint32_t* q =
+          reinterpret_cast<uint32_t*>(static_cast<int8_t*>(p.out) + at0);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int at = li + c * lanes;
+        if (at < quads) q[at] = codes4(v[c], ar);
+      }
+      for (int at = tail; at < quads; at += lanes)
+        q[at] = codes4(value(f4_at(x, at), at), ar);
+      if (li == 0) p.a[r] = ar.x;
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 constexpr int kMaxDevices = 64;
@@ -861,21 +1065,57 @@ extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
   return static_cast<int>(err);
 }
 
-// K5 on f32 rows: x (B, S, D) f32 with strides sxb, sxs (elements) and a
-// contiguous last dim; shift and scale (B, D) f32 at batch stride seb; out
-// (B, S, D) f32 contiguous. D a multiple of 4 up to 3072; the wrapper
-// checks 16-byte aligned row starts. Returns the cudaError_t of the launch.
-extern "C" int x2i_ln_mod_f32(const float* x, long long sxb, long long sxs,
-                              const float* shift, const float* scale,
-                              long long seb, float* out, int b, int s, int d,
-                              float eps, void* stream) {
-  if (b < 1 || s < 1 || d < 4 || d % 4 || d > kLnD)
+// K5-K8 on f32 rows. `op` is what they compute: 0 K5, 1 K6, 2 K8, 3 K7.
+// x (B, S, D) f32 with strides sxb, sxs (elements) and a contiguous last
+// dim; K5 and K6: shift and scale (B, D) f32 at batch stride seb; out
+// (B, S, D) contiguous, f32 for K5, int8 codes for the others, whose row
+// scales go to a (B * S) f32. `kind` is the instance, which the wrapper's
+// f32_instance chooses: 0 K5's warp body (D at most 3072), 1
+// f32_rows_kernel at `lanes` threads a row (a power of two up to 256) with
+// `chunks` (4 or 16) 16-byte chunks a thread in registers. D is a multiple
+// of 4; the wrapper checks 16-byte aligned row starts. Returns the
+// cudaError_t of the launch.
+extern "C" int x2i_rows_f32(int op, const float* x, long long sxb,
+                            long long sxs, const float* shift,
+                            const float* scale, long long seb, void* out,
+                            float* a, int b, int s, int d, float eps,
+                            int kind, int lanes, int chunks, void* stream) {
+  if (b < 1 || s < 1 || d < 4 || d % 4 || op < 0 || op > 3 || kind < 0 ||
+      kind > 1 || (kind == 0 && (op != 0 || d > kLnD)) ||
+      (kind == 1 && (lanes < 1 || lanes > kQThreads || (lanes & (lanes - 1)) ||
+                     (chunks != 4 && chunks != 16))) ||
+      (op == 0) != (a == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  F32RowArgs p = {x, sxb, sxs, s, shift, scale, seb, out, b * s, d, eps};
-  static int cap[kMaxDevices] = {};
-  return static_cast<int>(launch(ln_mod_f32_kernel, kLnWarps * 32, 0,
-                                 kLnWarps, cap, p,
-                                 static_cast<cudaStream_t>(stream)));
+  F32RowArgs p = {x, sxb, sxs, s, shift, scale, seb, out, b * s, d, eps, a,
+                  lanes};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static int warp_cap[kMaxDevices] = {};
+  static int cap[4][2][kMaxDevices] = {};       // [op][chunks 16][device]
+  if (kind == 0)
+    return static_cast<int>(launch(ln_mod_f32_kernel, kLnWarps * 32, 0,
+                                   kLnWarps, warp_cap, p, st));
+  int* c = cap[op][chunks == 16];
+  const int per_block = kQThreads / lanes;
+  cudaError_t err;
+  switch (op * 2 + (chunks == 16)) {
+    case 0: err = launch(f32_rows_kernel<kLnMod, 4>, kQThreads, 0, per_block,
+                         c, p, st); break;
+    case 1: err = launch(f32_rows_kernel<kLnMod, 16>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    case 2: err = launch(f32_rows_kernel<kLnModQuant, 4>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    case 3: err = launch(f32_rows_kernel<kLnModQuant, 16>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    case 4: err = launch(f32_rows_kernel<kQuantOnly, 4>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    case 5: err = launch(f32_rows_kernel<kQuantOnly, 16>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    case 6: err = launch(f32_rows_kernel<kGeluQuant, 4>, kQThreads, 0,
+                         per_block, c, p, st); break;
+    default: err = launch(f32_rows_kernel<kGeluQuant, 16>, kQThreads, 0,
+                          per_block, c, p, st); break;
+  }
+  return static_cast<int>(err);
 }
 
 // K7 (`gelu` 1) or K8 (`gelu` 0). x as for K5; q (B * S, D) int8 and a

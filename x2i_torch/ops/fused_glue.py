@@ -6,8 +6,7 @@ Counterparts of the TPU kernels of ``x2i_tpu/ops/fused_glue.py``, all
 launched there through ``_rows_call``:
 
 * K5 ``ln_mod`` (``_ln_mod_kernel``): ``modulate(layer_norm(x), shift,
-  scale)`` in x.dtype, the glue of the bf16 and w8 paths, and on f32 rows
-  (an f32 DiT's glue, counted as ``ln_mod_f32``) in f32;
+  scale)`` in x.dtype, the glue of the bf16, w8 and w4 paths;
 * K6 ``ln_mod_quant`` (``_ln_mod_quant_kernel``): the same, then per-row
   int8 quantization;
 * K7 ``gelu_quant`` (``_gelu_quant_kernel``): tanh-gelu rounded to x.dtype,
@@ -19,6 +18,10 @@ launched there through ``_rows_call``:
   the row's max|x| (f32), and ``quant_rows_at``, the quantization at a
   given absmax (the members' ``pmax``). At the whole row's absmax a
   member's codes and scale are the whole row's K8 bits.
+
+K5-K8 take bf16 rows and f32 rows (an f32 DiT's glue, each f32 instance
+counted as its name with ``_f32``: ``ln_mod_f32``, ``ln_mod_quant_f32``,
+``gelu_quant_f32``, ``quant_rows_f32``); K8's halves take bf16 rows.
 
 The LayerNorm has f32 row statistics (eps 1e-6, no affine) and rounds the
 normalized row to x.dtype before ``* (1 + scale) + shift``, the rounding
@@ -35,8 +38,9 @@ pre-quantized input form of ``QuantLinear``.
 What bounds them on an H100: each reads a bf16 row block once and writes
 it once (bf16, or int8 plus a scale per row) against a few operations per
 byte, so memory bandwidth does: at 4608 rows about 17 us for K5, 13 us
-for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s); K5 on
-f32 rows moves twice K5's bytes, 34 us.
+for K6 and K8 at D = 3072, 51 us for K7 at D = 12288 (3.35 TB/s). On
+f32 rows they read twice the bytes: 34 us for K5, 21 us for K8, 85 us
+for K7.
 
 The kernels are one library (``ROW_GLUE``; the design is in its header):
 persistent blocks walking spans of rows with the next rows' loads in
@@ -45,11 +49,13 @@ LayerNorm + modulate with the quantization after it, K8 the quantization
 alone); K7 and K8 at D = 12288 are two warpgroups per row on a ring of
 two rows; other widths (multiples of 8) take a generic instance, for K7
 and K8 with the threads per row that ``quant_instance`` chooses from D.
-K5's f32 instance is one warp a row holding its row once (no next row in
-flight: 96 values a lane). ``row_views`` holds every check they take (K6,
-K7 and K8 take bf16 only; K5 bf16, and f32 at D up to 3072); a wrapper
-raises ValueError on anything else and never drops to the plain version.
-The library is built at its first launch, so a machine without nvcc can
+On f32 rows (an f32 DiT's glue) K5-K8 have f32 instances, counted
+under their names with ``_f32``: K5 up to D = 3072 one warp a row
+holding its row once (96 values a lane), above it and for K6, K7 and K8
+a group of threads a row that ``f32_instance`` chooses. ``row_views``
+holds every check they take (bf16 and f32 rows; K8's halves bf16 only);
+a wrapper raises ValueError on anything else and never drops to the plain
+version. The library is built at its first launch, so a machine without nvcc can
 still import this module and run the plain versions.
 
 Every wrapper takes its plain version for a CPU tensor or for
@@ -71,11 +77,16 @@ from x2i_torch.ops.cuda_lib import CudaLibrary, refuse_grad
 # every glue kernel's launches
 LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
             "quant_rows": 0, "row_absmax": 0, "quant_rows_at": 0,
-            "ln_mod_f32": 0}
-# the dtypes a kernel takes where not bf16 alone (K5 also has an f32
-# instance), and the widest f32 row of K5's (a row it holds in registers)
-ROW_DTYPES = {"ln_mod": (torch.bfloat16, torch.float32)}
-F32_MAX_D = 3072
+            "ln_mod_f32": 0, "ln_mod_quant_f32": 0, "gelu_quant_f32": 0,
+            "quant_rows_f32": 0}
+# the dtypes a kernel takes where not bf16 alone (K5-K8 also have f32
+# instances; K8's halves have none)
+ROW_DTYPES = {name: (torch.bfloat16, torch.float32)
+              for name in ("ln_mod", "ln_mod_quant", "gelu_quant",
+                           "quant_rows")}
+# the widest f32 row of K5's warp body (a row it holds in registers);
+# wider rows take f32_rows_kernel
+F32_WARP_D = 3072
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -87,9 +98,9 @@ def _bind(lib):
     lib.x2i_quant_rows.argtypes = [p, ll, ll, p, p, i, i, i, i, i, i, i, p,
                                    p]
     lib.x2i_quant_rows.restype = i
-    lib.x2i_ln_mod_f32.argtypes = [p, ll, ll, p, p, ll, p, i, i, i,
-                                   ctypes.c_float, p]
-    lib.x2i_ln_mod_f32.restype = i
+    lib.x2i_rows_f32.argtypes = [i, p, ll, ll, p, p, ll, p, p, i, i, i,
+                                 ctypes.c_float, i, i, i, p]
+    lib.x2i_rows_f32.restype = i
 
 
 # K5-K8; their launches count in LAUNCHES. The build gate checks every
@@ -100,13 +111,17 @@ ROW_GLUE = CudaLibrary(
                      "quant_warp_kernel", "ln_mod_rows_kernel",
                      "quant_ring_kernel", "quant_rows_kernel",
                      "row_amax_warp_kernel", "quant_at_warp_kernel",
-                     "ln_mod_f32_kernel"))
+                     "ln_mod_f32_kernel", "f32_rows_kernel"))
 
 # the instances of K7 and K8 (``x2i_quant_rows``'s `kind`)
 QUANT_KINDS = {"generic": 0, "warp": 1, "ring": 2}
 # what K8 computes (``x2i_quant_rows``'s `op`): the codes and scales, the
 # row absmax alone, the codes and scales at a given absmax
 QUANT_OPS = {"quant_rows": 0, "row_absmax": 1, "quant_rows_at": 2}
+# the kernels on f32 rows (``x2i_rows_f32``'s `op`) and their instances
+# (its `kind`)
+F32_OPS = {"ln_mod": 0, "ln_mod_quant": 1, "quant_rows": 2, "gelu_quant": 3}
+F32_KINDS = {"warp": 0, "rows": 1}
 
 
 def reset_launches():
@@ -193,18 +208,16 @@ def _extras(name, x, shift, scale):
 def check_row_args(name: str, d: int, rows: int, strides, ptrs,
                    itemsize: int = 2):
     """The widths and layouts that the row glue kernels take: at least one
-    row, D a multiple of the elements in 16 bytes (8 of bf16, 4 of f32;
-    on f32 rows at most ``F32_MAX_D``), and every row of x (and of shift
-    and scale) starting on a 16-byte boundary: each of ``ptrs`` 16-byte
-    aligned and each stride of ``strides``, given as (size, stride in
-    elements) of a dim, a multiple of the same where the dim's size is
-    above 1. Raises ValueError otherwise."""
+    row, D a multiple of the elements in 16 bytes (8 of bf16, 4 of f32),
+    and every row of x (and of shift and scale) starting on a 16-byte
+    boundary: each of ``ptrs`` 16-byte aligned and each stride of
+    ``strides``, given as (size, stride in elements) of a dim, a multiple
+    of the same where the dim's size is above 1. Raises ValueError
+    otherwise."""
     per16 = 16 // itemsize
-    if (rows < 1 or d < per16 or d % per16
-            or (itemsize == 4 and d > F32_MAX_D)):
-        limit = f" and at most {F32_MAX_D}" if itemsize == 4 else ""
+    if rows < 1 or d < per16 or d % per16:
         raise ValueError(f"{name} kernel: unsupported shape: {rows} rows of "
-                         f"D = {d} (D must be a multiple of {per16}{limit})")
+                         f"D = {d} (D must be a multiple of {per16})")
     if (any(size > 1 and stride % per16 for size, stride in strides)
             or any(p % 16 for p in ptrs)):
         raise ValueError(f"{name} kernel: rows must start on 16-byte "
@@ -239,10 +252,9 @@ def quant_instance(d: int, gelu: bool = False, op: str = "quant_rows"):
 
 def row_views(name: str, x, shift=None, scale=None):
     """Every check of the row glue kernels: x (B, S, D) or (N, D) bf16
-    (for K5 also f32) with a contiguous last dim, shift and scale (B, D)
-    of its dtype on its device, then ``check_row_args`` (D % 8, or % 4 and
-    at most ``F32_MAX_D`` in f32, 16-byte row starts). Raises
-    ValueError on anything else. -> (x as (B, S, D), shift, scale), the
+    (for K5-K8 also f32) with a contiguous last dim, shift and scale (B, D)
+    of its dtype on its device, then ``check_row_args`` (D % 8, or % 4 in
+    f32, 16-byte row starts). Raises ValueError on anything else. -> (x as (B, S, D), shift, scale), the
     modulation rows made contiguous where their strides differ."""
     x = _rows3(name, x)
     b, s, d = x.shape
@@ -261,18 +273,51 @@ def _quant_out(shape, device):
                         device=device))
 
 
-def _launch_ln(name, x, shift, scale, eps, quant):
+def f32_instance(name: str, d: int):
+    """The instance of ``csrc/row_glue.cu`` that runs ``name`` (a key of
+    ``F32_OPS``) on f32 rows of width d: K5's warp body up to
+    ``F32_WARP_D``, else f32_rows_kernel at one 16-byte chunk a thread up
+    to a block of 256 a row (16 threads at D = 64), then 4 or 16 chunks a
+    thread held in registers (past 16, read again from memory). -> (kind,
+    lanes, chunks), kind a key of ``F32_KINDS``."""
+    if name == "ln_mod" and d <= F32_WARP_D:
+        return "warp", 32, F32_WARP_D // 128
+    quads = d // 4
+    lanes = min(256, 1 << max(0, quads - 1).bit_length())
+    return "rows", lanes, 4 if quads <= 4 * lanes else 16
+
+
+def _launch_f32(name, x, shift=None, scale=None, eps=1e-6, instance=None):
+    """K5 (-> f32 (B, S, D)), K6, K7 or K8 (-> int8 codes of x's shape,
+    f32 row scales (..., 1)) on f32 x (B, S, D) or (N, D), counted as
+    ``name`` + "_f32", on ``instance`` (kind, lanes, chunks) or the one
+    ``f32_instance`` chooses."""
     shape = x.shape
     x, shift, scale = row_views(name, x, shift, scale)
     b, s, d = x.shape
+    if name == "ln_mod":
+        out, a = torch.empty((b, s, d), dtype=x.dtype, device=x.device), None
+    else:
+        out, a = _quant_out(shape, x.device)
+    kind, lanes, chunks = instance or f32_instance(name, d)
+    modulated = shift is not None
+    _check_launch(f"{name}_f32", ROW_GLUE.lib().x2i_rows_f32(
+        F32_OPS[name], x.data_ptr(), x.stride(0), x.stride(1),
+        shift.data_ptr() if modulated else None,
+        scale.data_ptr() if modulated else None,
+        shift.stride(0) if modulated else 0, out.data_ptr(),
+        None if a is None else a.data_ptr(), b, s, d, eps, F32_KINDS[kind],
+        lanes, chunks, _stream(x)))
+    LAUNCHES[f"{name}_f32"] += 1
+    return out if a is None else (out, a)
+
+
+def _launch_ln(name, x, shift, scale, eps, quant):
     if x.dtype == torch.float32:
-        out = torch.empty((b, s, d), dtype=x.dtype, device=x.device)
-        _check_launch("ln_mod_f32", ROW_GLUE.lib().x2i_ln_mod_f32(
-            x.data_ptr(), x.stride(0), x.stride(1), shift.data_ptr(),
-            scale.data_ptr(), shift.stride(0), out.data_ptr(), b, s, d, eps,
-            _stream(x)))
-        LAUNCHES["ln_mod_f32"] += 1
-        return out
+        return _launch_f32(name, x, shift, scale, eps)
+    shape = x.shape
+    x, shift, scale = row_views(name, x, shift, scale)
+    b, s, d = x.shape
     if quant:
         out, a = _quant_out(shape, x.device)
     else:
@@ -312,6 +357,9 @@ def _quant_cuda(name, x, gelu: bool, instance=None, amax=None):
     (B, S, D) or (N, D) x -> (int8 codes of x's shape, f32 row scales
     (..., 1)), or the f32 row absmax (..., 1) alone for "row_absmax", on
     ``instance`` (kind, lanes) or the one ``quant_instance`` chooses."""
+    if x.dtype == torch.float32 and name in F32_OPS:
+        return _launch_f32("gelu_quant" if gelu else name, x,
+                           instance=instance)
     shape = x.shape
     x = row_views(name, x)[0]
     b, s, d = x.shape
@@ -366,7 +414,8 @@ def ln_mod(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
 def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-6, impl: str = "auto"):
     """K6: quantize(modulate(layer_norm(x), shift, scale)) in one pass.
-    x (B, S, D); shift/scale (B, D) -> (int8 (B, S, D), f32 (B, S, 1))."""
+    x (B, S, D) bf16 or f32 (its f32 instance, ``ln_mod_quant_f32``);
+    shift/scale (B, D) -> (int8 (B, S, D), f32 (B, S, 1))."""
     if _plain("ln_mod_quant", impl, x, shift, scale):
         return ln_mod_quant_plain(x, shift, scale, eps)
     return _ln_mod_quant_cuda(x, shift, scale, eps)
@@ -374,7 +423,7 @@ def ln_mod_quant(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
 
 def gelu_quant(x: torch.Tensor, impl: str = "auto"):
     """K7: quantize(gelu_tanh(x) rounded to x.dtype) in one pass; x is
-    (B, S, D) or (N, D)."""
+    (B, S, D) or (N, D), bf16 or f32 (``gelu_quant_f32``)."""
     if _plain("gelu_quant", impl, x):
         return gelu_quant_plain(x)
     return _gelu_quant_cuda(x)
@@ -382,7 +431,7 @@ def gelu_quant(x: torch.Tensor, impl: str = "auto"):
 
 def quant_rows(x: torch.Tensor, impl: str = "auto"):
     """K8: per-row int8 quantization in one pass; x is (B, S, D) or
-    (N, D)."""
+    (N, D), bf16 or f32 (``quant_rows_f32``)."""
     if _plain("quant_rows", impl, x):
         return quant_rows_plain(x)
     return _quant_rows_cuda(x)

@@ -20,13 +20,16 @@ differ in which inputs share a byte, so each has its own unpack:
       out = ((f32(acc) * a_scale) * scale).to(out_dtype)
 
   then the addend and the bias as the int8 GEMM does
-  (``int8_gemm.py``). |code x m| <= 105, so 105 * 127 * 15360 < 2^31.
+  (``int8_gemm.py``), in bf16 or, for an f32 layer, in f32 (the
+  epilogue's f32 instance, counted as ``w4a8_gemm_f32``). |code x m| <=
+  105, so 105 * 127 * 15360 < 2^31.
 * w4 (``quantize_kernel_w4``), row-interleaved: byte j holds input 2j
   low and 2j + 1 high; the weight is ``bf16(code) * bf16(scale[g, n])``
   (``scale`` f32 (G, N)), rounded once, the JAX ``_dequant_w4`` in bf16.
   The dequantize kernel writes that (N, in) weight for the
   straight-through backward's dx; the forward takes the dequantizing
-  GEMM.
+  GEMM. Its f32 instance (``w4_dequant_f32``) writes ``f32(code) *
+  scale[g, n]``.
 
 The dequantizing GEMM (counterpart of the JAX ``w8_matmul`` and
 ``w4_matmul``, ``x2i_tpu/ops/quant.py:102-111`` and ``:163-169``, whose
@@ -38,7 +41,11 @@ w8 ``qweight`` int8 (N, K) with ``scale`` f32 (N,), or w4 ``pweight``
 kernels write (the scale in the weight, never in the epilogue); the sums
 are f32 and the output bf16, rounded once, then the bias added in bf16.
 ``dequant_gemm_weight`` has the kernel write the converted weight (N, K)
-instead of the product, for the checks.
+instead of the product, for the checks. On f32 x (an f32 DiT) the product
+is the f32 dequantize kernel's weight (``int8_dequant`` or ``w4_dequant``
+in f32) then ``F.linear`` in f32 and the f32 bias, the JAX
+``jnp.dot`` on the weight dequantized to x's dtype; the dequantizing GEMM
+keeps bf16 x.
 
 The w4a8 dequantize kernel of the straight-through backward
 (``ops/quant.py``) writes the (N, in) weight ``bf16(code x m) *
@@ -62,9 +69,12 @@ import torch
 import torch.nn.functional as F
 
 from x2i_torch.ops.cuda_lib import refuse_grad
-from x2i_torch.ops.int8_gemm import (GEMM, check_dequant_rows,
-                                     check_gemm_layout, int8_dequant_plain,
-                                     int8_matmul_acc_plain, _check, _rows)
+from x2i_torch.ops.int8_gemm import (GEMM, OUT_KINDS, check_dequant_dtype,
+                                     check_dequant_rows, check_epilogue,
+                                     check_gemm_layout, int8_dequant,
+                                     int8_dequant_plain,
+                                     int8_matmul_acc_plain, launch_name,
+                                     _check, _rows)
 
 W4A8_K_STEP = 16       # K, k0, in/2 and the group size: multiples of it
                        # (a 16-byte chunk of packed codes is one group)
@@ -174,44 +184,23 @@ def _launch_w4a8(xq, a_scale, pweight, mscale, scale, bias, k0, addend,
                       pweight.data_ptr())
     if not mscale.is_contiguous():
         raise ValueError("w4a8 GEMM kernel: mscale must be contiguous")
-    a = sc = b = d = None
-    ldd = 0
+    a = d = None
     if acc_only:
-        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+        out_dtype = torch.int32
     else:
-        if out_dtype != torch.bfloat16:
-            raise ValueError(f"w4a8 GEMM kernel: bf16 output only, got "
-                             f"{out_dtype}")
-        a, sc = a_scale.reshape(-1), scale
-        _check("a_scale", a, torch.float32, dev)
-        _check("scale", sc, torch.float32, dev)
-        if a.shape != (m,) or sc.shape != (n,) or a.stride(0) != 1 \
-                or sc.stride(0) != 1:
-            raise ValueError(f"w4a8 GEMM kernel: a_scale must hold {m} and "
-                             f"scale {n} contiguous f32 values, got "
-                             f"{tuple(a_scale.shape)}, {tuple(scale.shape)}")
-        if bias is not None:
-            b = bias
-            _check("bias", b, torch.bfloat16, dev)
-            if b.shape != (n,) or b.stride(0) != 1:
-                raise ValueError(f"w4a8 GEMM kernel: bias must be ({n},)")
-        if addend is not None:
-            d = _rows(addend)
-            _check("addend", d, torch.bfloat16, dev)
-            if d.shape != (m, n) or d.stride(1) != 1 or d.stride(0) % 2:
-                raise ValueError(f"w4a8 GEMM kernel: addend must be "
-                                 f"({m}, {n}) with contiguous rows")
-            ldd = d.stride(0)
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        a, d = check_epilogue("w4a8 GEMM kernel", m, n, a_scale, scale, bias,
+                              addend, out_dtype, dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     err = GEMM.lib().x2i_w4a8_gemm(
         x.data_ptr(), x.stride(0), pweight.data_ptr(), pweight.stride(0),
-        mscale.data_ptr(), half, 2 * half // groups, k0, ptr(a), ptr(sc),
-        ptr(b), ptr(d), ldd, out.data_ptr(), n, m, n, k, int(acc_only),
+        mscale.data_ptr(), half, 2 * half // groups, k0, ptr(a), ptr(scale),
+        ptr(bias), ptr(d), 0 if d is None else d.stride(0), out.data_ptr(),
+        n, m, n, k, OUT_KINDS[out_dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w4a8 GEMM launch failed: cudaError_t {err}")
-    GEMM.launches["w4a8_gemm_acc" if acc_only else "w4a8_gemm"] += 1
+    GEMM.launches[launch_name("w4a8_gemm", out_dtype)] += 1
     return out.reshape(*xq.shape[:-1], n)
 
 
@@ -263,9 +252,9 @@ def check_dequant_args(n: int, half: int, groups: int, row_stride: int,
 
 def w4_dequant(pweight: torch.Tensor, scale: torch.Tensor,
                dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
-    """The (N, in) weight of w4 codes (N, in/2) and scales (G, N): the
-    kernel for a CUDA tensor (bf16 only), ``w4_dequant_plain`` for a CPU
-    one or with ``impl="plain"``."""
+    """The (N, in) weight of w4 codes (N, in/2) and scales (G, N) in dtype
+    (bf16, or f32: ``w4_dequant_f32``): the kernel for a CUDA tensor,
+    ``w4_dequant_plain`` for a CPU one or with ``impl="plain"``."""
     if impl != "plain":
         refuse_grad("the w4 dequantize kernel", scale)
     if impl == "plain" or pweight.device.type == "cpu":
@@ -273,9 +262,7 @@ def w4_dequant(pweight: torch.Tensor, scale: torch.Tensor,
     dev = pweight.device
     _check("pweight", pweight, torch.int8, dev)
     _check("scale", scale, torch.float32, dev)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"w4 dequantize kernel: bf16 output only, got "
-                         f"{dtype}")
+    check_dequant_dtype("w4 dequantize kernel", dtype)
     if pweight.dim() != 2 or scale.dim() != 2 \
             or scale.shape[1] != pweight.shape[0] or pweight.stride(1) != 1 \
             or not scale.is_contiguous():
@@ -290,10 +277,11 @@ def w4_dequant(pweight: torch.Tensor, scale: torch.Tensor,
     err = GEMM.lib().x2i_w4_dequant(
         pweight.data_ptr(), pweight.stride(0), scale.data_ptr(),
         out.data_ptr(), n, half, 2 * half // scale.shape[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(dtype == torch.float32), torch.cuda.current_stream(dev)
+        .cuda_stream)
     if err != 0:
         raise RuntimeError(f"w4 dequantize launch failed: cudaError_t {err}")
-    GEMM.launches["w4_dequant"] += 1
+    GEMM.launches[launch_name("w4_dequant", dtype)] += 1
     return out
 
 
@@ -448,17 +436,35 @@ def _launch_dequant(x, codes, scale, bias, mode, dump):
     return out if dump else out.reshape(*x.shape[:-1], n)
 
 
+def _dequant_linear_f32(x, codes, scale, bias, mode):
+    """The weight-only product on f32 x: the f32 dequantize kernel's
+    weight, then ``F.linear`` in f32 and the f32 bias added."""
+    width = (2 if mode == "w4" else 1) * codes.shape[-1]
+    if mode not in ("w8", "w4") or x.shape[-1] != width:
+        raise ValueError(f"weight-only product: x {tuple(x.shape)} and the "
+                         f"{mode!r} codes {tuple(codes.shape)} are not "
+                         f"(..., K) and the w8 or w4 codes of K inputs")
+    if bias is not None:
+        _check("bias", bias, torch.float32, x.device, "weight-only product")
+    dequant = int8_dequant if mode == "w8" else w4_dequant
+    y = F.linear(x, dequant(codes, scale, torch.float32))
+    return y if bias is None else y + bias
+
+
 def dequant_linear(x: torch.Tensor, codes: torch.Tensor,
                    scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                    mode: str = "w8", impl: str = "auto") -> torch.Tensor:
     """The weight-only product of a w8 or w4 layer (see the module
-    docstring): a CUDA tensor launches the dequantizing GEMM (bf16 only),
-    which raises on what it does not take; a CPU tensor, or
-    ``impl="plain"``, takes ``dequant_linear_plain``."""
+    docstring): a CUDA tensor launches the dequantizing GEMM on bf16 x, or
+    the f32 dequantize kernel before ``F.linear`` on f32 x, each raising
+    on what it does not take; a CPU tensor, or ``impl="plain"``, takes
+    ``dequant_linear_plain``."""
     if impl != "plain":
         refuse_grad("the dequantizing GEMM", x, scale, bias)
     if impl == "plain" or x.device.type == "cpu":
         return dequant_linear_plain(x, codes, scale, bias, mode)
+    if x.dtype == torch.float32:
+        return _dequant_linear_f32(x, codes, scale, bias, mode)
     return _launch_dequant(x, codes, scale, bias, mode, dump=False)
 
 

@@ -16,9 +16,12 @@ scales ``scale`` (N,) f32, it computes over the weight's columns
 in the JAX package's order and at its rounding points: the rescale in f32
 and rounded once, each addition then rounded in ``out_dtype``. The int32
 sum is exact: at most 127 * 127 * 15360 < 2^31 on the DiT's widest input.
+``out_dtype`` is bf16 (the bf16 DiT) or f32 (an f32 DiT's layers, the
+epilogue's f32 instance, counted as ``int8_gemm_f32``), the bias and the
+addend in it; in f32 the kernel is bit for bit the plain version.
 
-``int8_linear`` launches the kernel for a CUDA tensor (bf16 out only) and
-takes ``int8_linear_plain`` for a CPU tensor; there is no other fallback.
+``int8_linear`` launches the kernel for a CUDA tensor and takes
+``int8_linear_plain`` for a CPU tensor; there is no other fallback.
 The kernel is built on ``wgmma``, on 128 x 256 output tiles.
 The kernel has no backward: off ``impl="plain"`` the wrapper raises when
 autograd records and an input requires grad.
@@ -29,7 +32,9 @@ The same source holds the int8 dequantize kernel of the straight-through
 backward (``ops/quant.py``), the counterpart of the dequantize in the JAX
 ``_w8a8_bwd`` (``x2i_tpu/ops/quant.py:77``): ``int8_dequant`` writes the
 (N, in) weight ``bf16(code) * bf16(scale[n])``, rounded once, that the
-output gradient is multiplied by.
+output gradient is multiplied by. Its f32 instance (``int8_dequant_f32``)
+writes ``f32(code) * scale[n]``, the weight of the w8 mode's product on
+f32 x (``int4_gemm.dequant_linear``).
 """
 
 from __future__ import annotations
@@ -51,8 +56,8 @@ def _bind(lib):
                                   i, i, i, i, p]
     lib.x2i_w4a8_gemm.argtypes = [p, ll, p, ll, p, i, i, i, p, p, p, p, ll,
                                   p, ll, i, i, i, i, p]
-    lib.x2i_w4_dequant.argtypes = [p, ll, p, p, i, i, i, p]
-    lib.x2i_int8_dequant.argtypes = [p, ll, p, p, i, i, p]
+    lib.x2i_w4_dequant.argtypes = [p, ll, p, p, i, i, i, i, p]
+    lib.x2i_int8_dequant.argtypes = [p, ll, p, p, i, i, i, p]
     lib.x2i_w4a8_dequant.argtypes = [p, ll, p, p, p, i, i, i, p]
     lib.x2i_dequant_gemm.argtypes = [p, ll, p, ll, p, i, p, p, ll, i, i, i,
                                      i, i, p]
@@ -66,11 +71,13 @@ def _bind(lib):
 # GEMM of the weight-only modes (ops/int4_gemm.py): the w4a8 GEMM is this
 # GEMM with a B stage converted from packed int4 codes, the dequantizing
 # GEMM a bf16 GEMM whose weight the consumers convert in registers; and
-# the dequantize kernels of the straight-through backward
+# the dequantize kernels of the straight-through backward and of the
+# weight-only modes on f32 x; the "_f32" counts are the f32 instances'
 GEMM = CudaLibrary("int8_gemm.cu", "libx2i_int8_gemm",
                    ("int8_gemm", "w4a8_gemm", "dequant_gemm", "w4_dequant",
                     "int8_dequant", "w4a8_dequant", "int8_gemm_acc",
-                    "w4a8_gemm_acc"), _bind,
+                    "w4a8_gemm_acc", "int8_gemm_f32", "w4a8_gemm_f32",
+                    "int8_dequant_f32", "w4_dequant_f32"), _bind,
                    wgmma_kernels=("int8_gemm_kernel", "w4a8_gemm_kernel",
                                   "dequant_gemm_kernel"),
                    checked_kernels=("w4_dequant_kernel",
@@ -131,10 +138,60 @@ def int8_linear_plain(xq: torch.Tensor, a_scale: torch.Tensor,
     return out
 
 
-def _check(name, t, dtype, device):
+def _check(name, t, dtype, device, kernel="int8 GEMM"):
     if t.dtype != dtype or t.device != device:
-        raise ValueError(f"int8 GEMM: {name} must be {dtype} on {device}, "
+        raise ValueError(f"{kernel}: {name} must be {dtype} on {device}, "
                          f"got {t.dtype} on {t.device}")
+
+
+# the epilogue's output dtypes, and what the kernels' `out_kind` calls them
+# (the int32 accumulator the third)
+OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
+
+
+def check_epilogue(kernel: str, m: int, n: int, a_scale, scale, bias,
+                   addend, out_dtype, device):
+    """The epilogue's operands of the int8 and w4a8 GEMMs: out_dtype bf16
+    or f32; a_scale m and scale n contiguous f32 values; the bias (n,) and
+    the addend (m, n) with contiguous rows, both in out_dtype, an f32
+    addend's rows starting on 16-byte boundaries (two 16-byte loads a
+    thread); all on ``device``. Raises ValueError otherwise. -> (a_scale
+    as (m,), the addend as (m, n) rows or None)."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel}: bf16 or f32 output only, got "
+                         f"{out_dtype}")
+    a = a_scale.reshape(-1)
+    _check("a_scale", a, torch.float32, device, kernel)
+    _check("scale", scale, torch.float32, device, kernel)
+    if a.shape != (m,) or scale.shape != (n,) or a.stride(0) != 1 \
+            or scale.stride(0) != 1:
+        raise ValueError(f"{kernel}: a_scale must hold {m} and scale {n} "
+                         f"contiguous f32 values, got "
+                         f"{tuple(a_scale.shape)}, {tuple(scale.shape)}")
+    if bias is not None:
+        _check("bias", bias, out_dtype, device, kernel)
+        if bias.shape != (n,) or bias.stride(0) != 1:
+            raise ValueError(f"{kernel}: bias must be ({n},)")
+    d = None
+    if addend is not None:
+        d = _rows(addend)
+        _check("addend", d, out_dtype, device, kernel)
+        per16 = 16 // d.element_size()
+        f32 = out_dtype == torch.float32
+        if (d.shape != (m, n) or d.stride(1) != 1 or d.stride(0) % 2
+                or (f32 and (d.stride(0) % per16 or d.data_ptr() % 16))):
+            raise ValueError(f"{kernel}: addend must be ({m}, {n}) with "
+                             f"contiguous rows" + (" starting on 16-byte "
+                                                   "boundaries" if f32
+                                                   else ""))
+    return a, d
+
+
+def check_dequant_dtype(kernel: str, dtype) -> None:
+    """The dequantize kernels write a bf16 or an f32 weight. Raises
+    ValueError otherwise."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel}: bf16 or f32 output only, got {dtype}")
 
 
 def _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
@@ -154,45 +211,31 @@ def _launch(xq, a_scale, qweight, scale, bias, k0, addend, out_dtype,
     check_gemm_shapes(m, k, n, width, k0)
     check_gemm_layout(x.stride(), qweight.stride(), x.data_ptr(),
                       qweight.data_ptr())
-    a = sc = b = d = None
-    ldd = 0
+    a = d = None
     if acc_only:
-        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+        out_dtype = torch.int32
     else:
-        if out_dtype != torch.bfloat16:
-            raise ValueError(f"int8 GEMM kernel: bf16 output only, got "
-                             f"{out_dtype}")
-        a = a_scale.reshape(-1)
-        sc = scale
-        _check("a_scale", a, torch.float32, dev)
-        _check("scale", sc, torch.float32, dev)
-        if a.shape != (m,) or sc.shape != (n,) or a.stride(0) != 1 \
-                or sc.stride(0) != 1:
-            raise ValueError(f"int8 GEMM kernel: a_scale must hold {m} and "
-                             f"scale {n} contiguous f32 values, got "
-                             f"{tuple(a_scale.shape)}, {tuple(scale.shape)}")
-        if bias is not None:
-            b = bias
-            _check("bias", b, torch.bfloat16, dev)
-            if b.shape != (n,) or b.stride(0) != 1:
-                raise ValueError(f"int8 GEMM kernel: bias must be ({n},)")
-        if addend is not None:
-            d = _rows(addend)
-            _check("addend", d, torch.bfloat16, dev)
-            if d.shape != (m, n) or d.stride(1) != 1 or d.stride(0) % 2:
-                raise ValueError(f"int8 GEMM kernel: addend must be "
-                                 f"({m}, {n}) with contiguous rows")
-            ldd = d.stride(0)
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        a, d = check_epilogue("int8 GEMM kernel", m, n, a_scale, scale, bias,
+                              addend, out_dtype, dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     err = GEMM.lib().x2i_int8_gemm(
         x.data_ptr(), x.stride(0), qweight.data_ptr(), qweight.stride(0), k0,
-        ptr(a), ptr(sc), ptr(b), ptr(d), ldd, out.data_ptr(), n, m, n, k,
-        int(acc_only), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(a), ptr(scale), ptr(bias), ptr(d),
+        0 if d is None else d.stride(0), out.data_ptr(), n, m, n, k,
+        OUT_KINDS[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 GEMM launch failed: cudaError_t {err}")
-    GEMM.launches["int8_gemm_acc" if acc_only else "int8_gemm"] += 1
+    GEMM.launches[launch_name("int8_gemm", out_dtype)] += 1
     return out.reshape(*xq.shape[:-1], n)
+
+
+def launch_name(kernel: str, out_dtype) -> str:
+    """The count of a GEMM's (or dequantize kernel's) instance for
+    ``out_dtype``: ``kernel``, "_f32" after it for f32, "_acc" for the
+    int32 accumulator."""
+    return kernel + {torch.float32: "_f32", torch.int32: "_acc"}.get(
+        out_dtype, "")
 
 
 def int8_linear(xq: torch.Tensor, a_scale: torch.Tensor,
@@ -250,9 +293,9 @@ def check_dequant_rows(n: int, width: int, row_stride: int, ptr: int,
 
 def int8_dequant(qweight: torch.Tensor, scale: torch.Tensor,
                  dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
-    """The (N, in) weight of int8 codes (N, in) and scales (N,): the
-    kernel for a CUDA tensor (bf16 only), ``int8_dequant_plain`` for a CPU
-    one or with ``impl="plain"``."""
+    """The (N, in) weight of int8 codes (N, in) and scales (N,) in dtype
+    (bf16, or f32: ``int8_dequant_f32``): the kernel for a CUDA tensor,
+    ``int8_dequant_plain`` for a CPU one or with ``impl="plain"``."""
     if impl != "plain":
         refuse_grad("the int8 dequantize kernel", scale)
     if impl == "plain" or qweight.device.type == "cpu":
@@ -260,9 +303,7 @@ def int8_dequant(qweight: torch.Tensor, scale: torch.Tensor,
     dev = qweight.device
     _check("qweight", qweight, torch.int8, dev)
     _check("scale", scale, torch.float32, dev)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"int8 dequantize kernel: bf16 output only, got "
-                         f"{dtype}")
+    check_dequant_dtype("int8 dequantize kernel", dtype)
     if qweight.dim() != 2 or qweight.stride(1) != 1 \
             or scale.shape != (qweight.shape[0],) or scale.stride(0) != 1:
         raise ValueError(f"int8 dequantize kernel: qweight "
@@ -275,9 +316,10 @@ def int8_dequant(qweight: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((n, k), dtype=dtype, device=dev)
     err = GEMM.lib().x2i_int8_dequant(
         qweight.data_ptr(), qweight.stride(0), scale.data_ptr(),
-        out.data_ptr(), n, k, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), n, k, int(dtype == torch.float32),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 dequantize launch failed: cudaError_t "
                            f"{err}")
-    GEMM.launches["int8_dequant"] += 1
+    GEMM.launches[launch_name("int8_dequant", dtype)] += 1
     return out

@@ -16,10 +16,12 @@ Phases, each printing one JSON line per record:
    path's shapes, on rows whose scale spans decades, and time kernel,
    plain version and, as a yardstick, the one PyTorch call that computes
    the same function (device time, see ``kernel_ms``), the K1 records
-   with their TFLOP/s and share of the bound, K1b's with the host time
-   of one call; K5-K8 with their share of the bound, K8 bit for bit
-   against the plain quantization at every width of the w8a8 path and on
-   tie rows, K6 bit for bit K8 after K5; the attention
+   with their TFLOP/s and share of the bound, their grid instance, blocks
+   an SM (CUDA's occupancy calculator, held to what the instance is built
+   for) and waves, K1b's with the host time of one call; K5-K8 with
+   their share of the bound, K8 bit for bit against the plain
+   quantization at every width of the w8a8 path and on tie rows, K6 bit
+   for bit K8 after K5; the attention
    backward (K1 with its lse, K3, K4) at the distillation step's shapes;
    the chunked forward K2 at the 2048^2 DiT's and the 32k-token LM's
    shapes, also against the plain f32 attention; the f32 instances of K1
@@ -60,9 +62,11 @@ Phases, each printing one JSON line per record:
    LM's products at one decode row and at the 512-token prefill, and K8
    at its decode rows (3584 and 18944 wide); K1b at InternViT-300M's
    shape (16 heads x 64, 1025 tokens padded to 1152, 127 masked keys,
-   non-causal), at the CLIP ViT-L/14's (4 images, 16 heads x 64, 257
-   tokens padded to 384; also K1's f32 instance there, f32 in and out,
-   within the bf16 bars of the f32 plain version) and at MiniCPM-o's
+   non-causal; beside it the same heads at 1024 rows, 127 masked keys,
+   which fit one wave of 128-row blocks), at the CLIP ViT-L/14's (4
+   images, 16 heads x 64, 257 tokens padded to 384; also K1's f32
+   instance there, f32 in and out, within the bf16 bars of the f32 plain
+   version) and at MiniCPM-o's
    resampler's (28 heads x 128, 64 query rows padded to 128, one slice
    of 1024 patches and a batch of slices of 1024 and 600), SDPA on the
    same padded, masked tensors beside each; the straight-through
@@ -535,6 +539,29 @@ def rate(rec, flops):
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
+def k1_grid(q_shape, f32: bool = False) -> dict:
+    """K1's grid for (B, H, S, D) q on this card: the instance
+    (``fwd_instance``: consumer warpgroups, the blocks an SM it is built
+    for; the f32 instances take 128-row blocks, one an SM), its blocks, the
+    blocks one SM holds at once by CUDA's occupancy calculator, and the
+    waves. Fails where the card holds fewer blocks than the instance is
+    built for."""
+    import torch
+    from x2i_torch.ops import flash_attention as fa
+    b, hq, sq, d = q_shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wgs, per_sm = (2, 1) if f32 else fa.fwd_instance(b, hq, sq, d, sms)
+    blocks = b * hq * sq // (64 * wgs)
+    resident = fa.fwd_blocks_per_sm(d, wgs, per_sm)
+    if resident != per_sm:
+        raise AssertionError(f"K1's instance {(d, wgs, per_sm)} is built for "
+                             f"{per_sm} blocks an SM; the card holds "
+                             f"{resident}")
+    return {"instance": [wgs, per_sm], "blocks": blocks,
+            "blocks_per_sm": resident,
+            "waves": math.ceil(blocks / (resident * sms))}
+
+
 def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
                 library=None, host_time=False, valid_rows=None, **kw):
     """q (B, S, H, D) etc. are passed as (B, H, S, D) views, as the
@@ -566,7 +593,8 @@ def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
            "kv_shape": list(kt.shape), "max_abs_err": err_max,
            "mean_abs_err": err_mean, "finite": finite, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-           "bound_by": by}
+           "bound_by": by,
+           **k1_grid(qt.shape, qt.dtype == torch.float32)}
     rate(rec, flops)
     if host_time:
         rec["call_ms"] = call_ms(
@@ -625,7 +653,8 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
            "plain_ms": kernel_ms(lambda *t: fa.flash_attention_plain(
                *t, return_lse=True, **kw), q, k, v),
            "library_ms": kernel_ms(lib_fwd, *lib_in[:3]),
-           "library": "SDPA forward (no rope, no lse output)"}
+           "library": "SDPA forward (no rope, no lse output)",
+           **k1_grid(q.shape)}
     fwd["bound_ms"], fwd["bound_by"] = bound(
         4.0 * pairs * d, nbytes(q, k, v, o, lse, mask, *tables))
     rate(fwd, 4.0 * pairs * d)
@@ -950,6 +979,8 @@ def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
            "ms": kernel_ms(lambda *t: fn(*t, *rest), *f32_in),
            "plain_ms": kernel_ms(lambda *t: plain(*t, *rest), *f32_in),
            "library_ms": lib_ms, "library": library_name, "flop": flops}
+    if name.startswith("flash_fwd"):
+        rec.update(k1_grid(f32_in[0].shape, f32=True))
     rec["bound_ms"], rec["bound_by"] = bound(
         flops, nbytes(*f32_in, *rest, *got))
     rate(rec, flops)
@@ -1400,7 +1431,9 @@ def phase_kernels(seed: int):
             check_flash(f"flash_fwd[{hq}/{hk} heads x 128, {valid} valid "
                         f"keys]", q, k, v, recs, library=lib,
                         host_time=True, kv_mask=mask, causal=True)
-    check_vit_attention(randn, recs)
+    diag_g = torch.Generator(device=dev).manual_seed(seed + 1)
+    check_vit_attention(randn, recs, lambda *shape: torch.randn(
+        shape, generator=diag_g, device=dev).to(torch.bfloat16))
     check_clip_attention(randn, recs)
     check_clip_attention_f32(g, flash.setdefault("flash_fwd_f32", []))
     check_resampler_attention(randn, recs)
@@ -1468,26 +1501,36 @@ def phase_kernels(seed: int):
 
 VIT_TOKENS = 1025                  # a 448 tile's CLS and 32 x 32 patches
 VIT_CASE = "ViT: 16 heads x 64, 1025 of 1152 keys, non-causal"
+# the same heads at 128 128-row blocks, one wave on the card's 132 SMs,
+# beside the ViT's 144 (two waves of 128-row blocks, one at three 64-row
+# blocks an SM): what the grid alone costs
+VIT_DIAG_CASE = "ViT diagnostic: 16 heads x 64, 897 of 1024 keys, non-causal"
 
 
-def check_vit_attention(randn, recs):
+def check_vit_attention(randn, recs, diag_randn):
     """K1 at InternViT-300M's shape, one 448 tile: 16 heads x 64, 1025
     tokens padded to 1152 with 127 masked keys, non-causal, no rope, as
     the dispatcher's pad route hands it to the exact body (the padded q
-    rows are sliced off after it; the bound counts the 1025 kept). SDPA
-    on the same padded, masked tensors is the library's time."""
+    rows are sliced off after it; the bound counts the 1025 kept); then
+    the diagnostic beside it, the same heads at 1024 rows with 127 masked
+    keys, drawn by ``diag_randn`` (a generator of its own, so that the
+    checks after it see the draws they saw without it). SDPA on the same
+    padded, masked tensors is the library's time."""
     import torch
     import torch.nn.functional as F
 
-    pad = 1152
-    q, k, v = (randn(1, pad, 16, 64) for _ in range(3))
-    mask = torch.arange(pad, device=q.device)[None] < VIT_TOKENS
-    qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = ((lambda *t, m=mask[:, None, None, :]:
-            F.scaled_dot_product_attention(*t, attn_mask=m)), (qc, kc, vc))
-    check_flash(f"flash_fwd[{VIT_CASE}]", q, k, v, recs, library=lib,
-                host_time=True, valid_rows=VIT_TOKENS, kv_mask=mask)
-    recs[-1]["case"] = VIT_CASE
+    for case, pad, valid, draw in (
+            (VIT_CASE, 1152, VIT_TOKENS, randn),
+            (VIT_DIAG_CASE, 1024, 1024 - 127, diag_randn)):
+        q, k, v = (draw(1, pad, 16, 64) for _ in range(3))
+        mask = torch.arange(pad, device=q.device)[None] < valid
+        qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = ((lambda *t, m=mask[:, None, None, :]:
+                F.scaled_dot_product_attention(*t, attn_mask=m)),
+               (qc, kc, vc))
+        check_flash(f"flash_fwd[{case}]", q, k, v, recs, library=lib,
+                    host_time=True, valid_rows=valid, kv_mask=mask)
+        recs[-1]["case"] = case
 
 
 CLIP_TOKENS = 257                  # CLIP ViT-L/14's CLS and 16 x 16 patches
@@ -8565,14 +8608,16 @@ def main(argv=None) -> int:
             "main_path": run})
         for extra in ("library", "tflops", "tops", "bound_share",
                       "call_ms", "int8_gemm_ms", "linear_ms",
-                      "dequant_linear_ms"):
+                      "dequant_linear_ms", "blocks_per_sm", "waves"):
             if top.get(extra) is not None:
                 table[-1][extra] = top[extra]
         # the kernel's other shapes on the main paths (K1b at the ViT's)
         cases = [{k: r.get(k) for k in (
             "case", "shape", "kv_shape", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "tflops", "bound_share",
-            "call_ms")} | {k: r[k] for k in ("library_padded_ms",) if k in r}
+            "call_ms")} | {k: r[k] for k in ("library_padded_ms",
+                                              "blocks_per_sm", "waves")
+                           if k in r}
             for r in rows if r.get("case")]
         if cases:
             table[-1]["cases"] = cases

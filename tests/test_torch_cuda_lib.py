@@ -100,13 +100,14 @@ def test_build_faults(case):
 
 def test_flash_libraries_gate_their_wgmma_kernels():
     """Every instance, and by name the head dim 256 instances of K1, K2,
-    K3 and K4 (and K4's reduce kernel at 256) and K1's f32 rope-and-norm
-    instance at D = 128 (mangled template arguments <D, WGS, ROPE, BODY,
-    float>)."""
+    K3 and K4 (and K4's reduce kernel at 256), K1's f32 rope-and-norm
+    instance at D = 128 and K1's D = 64 grid instance at three blocks an
+    SM (mangled template arguments <D, WGS, MINB, ROPE, BODY, float>)."""
     from x2i_torch.ops import flash_attention as tfa
     assert tfa.KERNEL.wgmma_kernels == (
         "flash_fwd_kernel", "flash_fwd_kernelILi256E",
-        "flash_fwd_kernelILi128ELi2ELb1ELi0EfE")
+        "flash_fwd_kernelILi128ELi2ELi1ELb1ELi0EfE",
+        "flash_fwd_kernelILi64ELi1ELi3E")
     assert tfa.KERNEL_BWD.wgmma_kernels == (
         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
         "flash_bwd_dq_kernelILi256E", "flash_bwd_dkv_kernelILi256E")

@@ -3,8 +3,9 @@ shapes and layouts that the chunked flash forward K2
 (``ops/flash_attention.py``), the int8 GEMM (``ops/int8_gemm.py``), the
 w4a8 GEMM and the w4 dequantize kernel (``ops/int4_gemm.py``), the
 straight-through backward's int8 and w4a8 dequantize kernels and the
-row glue kernels K5-K8 (``ops/fused_glue.py``) take, and the width ->
-instance choice of K7 and K8. The checks are plain functions of
+row glue kernels K5-K8 (``ops/fused_glue.py``) take, the width ->
+instance choice of K7 and K8, and K1's grid instance by shape
+(``flash_attention.fwd_instance``). The checks are plain functions of
 shapes, strides and addresses, so they run here without a card; the
 kernels themselves are held against their plain versions by the ``cuda``
 tests in ``test_torch_kernels.py``.
@@ -497,3 +498,46 @@ def test_dequant_kernels_write_bf16_or_f32(dtype, taken):
         else:
             with pytest.raises(ValueError, match="bf16 or f32"):
                 tgemm.check_dequant_dtype(kernel, dtype)
+
+
+# K1's grid instance on an H100's 132 SMs: (batch, q heads, q rows, head
+# dim) -> (consumer warpgroups, blocks an SM)
+H100_SMS = 132
+FWD_INSTANCE_CASES = {
+    # the pad route's vision towers at D = 64: 144 and 192 128-row blocks
+    # (two waves) as 288 and 384 64-row blocks at three an SM (one wave)
+    "InternViT-300M (1,16,1152,64)": ((1, 16, 1152, 64), (1, 3)),
+    "CLIP ViT-L/14 (4,16,384,64)": ((4, 16, 384, 64), (1, 3)),
+    # MiniCPM-o's resampler: 64-row blocks, one an SM
+    "resampler (1,28,128,128)": ((1, 28, 128, 128), (1, 1)),
+    "resampler, 2 slices (2,28,128,128)": ((2, 28, 128, 128), (1, 1)),
+    # the LM prefills keep their instance
+    "LM 0.5B (1,14,512,64)": ((1, 14, 512, 64), (1, 1)),
+    "LM 3B / 4B (1,16,512,128)": ((1, 16, 512, 128), (1, 1)),
+    "LM 7B (1,28,512,128)": ((1, 28, 512, 128), (2, 1)),
+    # the 24 x 128 DiT's 864 blocks
+    "DiT 24 x 128 (1,24,4608,128)": ((1, 24, 4608, 128), (2, 1)),
+    # D = 128 and 256 at the vision towers' grids keep the 128-row blocks
+    "D 128 at InternViT's grid": ((1, 16, 1152, 128), (2, 1)),
+    "D 256 at CLIP's grid": ((4, 16, 384, 256), (2, 1)),
+    "DiT 12 x 256 (1,12,4608,256)": ((1, 12, 4608, 256), (2, 1)),
+    "12 x 256 ring shard (1,12,1152,256)": ((1, 12, 1152, 256), (2, 1)),
+    "12 x 256 pad route (1,12,4224,256)": ((1, 12, 4224, 256), (2, 1)),
+    # D = 64 past three 64-row blocks an SM: the 128-row blocks
+    "D 64, 400 128-row blocks": ((1, 16, 3200, 64), (2, 1)),
+    "D 64, one wave of 128-row blocks": ((1, 16, 1024, 64), (2, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_INSTANCE_CASES))
+def test_fwd_instance(case):
+    """K1's grid instance: the rule's choice, an instance the kernel
+    library has, and one wave wherever the rule takes 64-row blocks."""
+    (b, hq, sq, d), want = FWD_INSTANCE_CASES[case]
+    got = tfa.fwd_instance(b, hq, sq, d, H100_SMS)
+    assert got == want
+    assert (d, *got) in tfa.FWD_INSTANCES
+    wgs, per_sm = got
+    blocks = b * hq * sq // (64 * wgs)
+    if wgs == 1:
+        assert blocks <= per_sm * H100_SMS

@@ -7,7 +7,9 @@ run on a machine that has only PyTorch:
 
 Without a CUDA device each test skips itself: a CUDA kernel has no CPU
 mode. The K1 cases sit on the edges of its tiling (128-row q tiles on two
-warpgroups, or 64-row ones where the grid is small; 128-row kv tiles): one
+warpgroups, or 64-row ones where the grid is small; 128-row kv tiles in K
+and V rings of 3; at D = 64 the 64-row instance at three blocks an SM, its
+kv tiles 64 rows in rings of 4, on every grid instance): one
 and two kv tiles, 4608 and 8192 tokens, Sq != Skv, GQA groups 1, 3 and 7,
 strided and contiguous inputs, MiniCPM-o's resampler (64 queries padded
 to 128 rows on a batch of slices with masked keys); the K3 and K4 cases on the edges of theirs
@@ -52,8 +54,8 @@ bf16 bars of the f32 plain version, on the routes "auto" gives it; the f32
 instances of K1 with the lse, K2, K3 and K4 no farther in relative L2 from
 their f32 plain versions than the bf16 instances on the same inputs
 rounded to bf16, their outputs rounded to bf16 bit for bit the bf16
-instances'. Head dim 256: K1's bodies (64-row kv tiles in a ring of 2
-stages, both grid instances) within K1's bars, K2 within them plus one
+instances'. Head dim 256: K1's bodies (64-row kv tiles in K and V rings
+of 2 stages, both grid instances) within K1's bars, K2 within them plus one
 bf16 step of |o| (causal rows of a few keys reach |o| of 2-4), K1 and K2
 with the lse within the lse bar, K3 (32-row kv tiles in a ring of 2) and
 K4 (64-row kv blocks, each warpgroup on half of the columns) on every case
@@ -751,6 +753,59 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
         for fn in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
             with pytest.raises(ValueError, match="unsupported"):
                 fn(q, k, k, q, rows, rows)
+
+
+# K1's D = 64 grid instances on the edges of their tiling: case -> (batch,
+# q heads, S, valid keys, causal). InternViT-300M's 1152 rows (1025 valid
+# keys: a partly masked last kv tile) and CLIP ViT-L/14's 4 x 384 (257),
+# which the rule sends to the 64-row instance at three blocks an SM (kv
+# tiles of 64 in rings of 4 stages that wrap); 128 rows, the shortest
+# sequence (one kv tile of 128, two of 64), with a row whose keys are all
+# masked under the causal mask.
+D64_GRID_CASES = {
+    "ViT 1152, 1025 keys": (1, 16, 1152, 1025, False),
+    "CLIP 4 x 384, 257 keys": (4, 16, 384, 257, False),
+    "128 rows, mask, causal": (2, 3, 128, 100, True),
+    "640 rows, mask, causal, GQA": (2, 6, 640, 600, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", [i[1:] for i in tfa.FWD_INSTANCES
+                                      if i[0] == 64])
+@pytest.mark.parametrize("case", list(D64_GRID_CASES))
+def test_flash_d64_grid_instances(dev, monkeypatch, case, instance):
+    """K1b and K1-lse at D = 64 on each grid instance (the rule replaced
+    for the call), (B, H, S, D) views of (B, S, H, D) storage: within the
+    bf16 bars of the plain version, the lse within 1e-3, a row with no
+    valid key the mean of V; the rule's own choice at the two vision
+    towers' shapes is the 64-row instance at three blocks an SM, which the
+    card holds three at a time."""
+    b, hq, s, valid, causal = D64_GRID_CASES[case]
+    hk = hq // 3 if "GQA" in case else hq
+    g = torch.Generator(device=dev).manual_seed(s + hq)
+    q = _randn(g, dev, b, s, hq, 64).transpose(1, 2)
+    k, v = (_randn(g, dev, b, s, hk, 64).transpose(1, 2) for _ in range(2))
+    mask = (torch.arange(s, device=dev)[None] < valid).expand(b, s).clone()
+    if causal:
+        mask[-1, 0] = False
+    kw = dict(kv_mask=mask, causal=causal)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms == 132 and case.startswith(("ViT", "CLIP")):
+        assert tfa.fwd_instance(b, hq, s, 64, sms) == (1, 3)
+    assert tfa.fwd_blocks_per_sm(64, *instance) == instance[1]
+    monkeypatch.setattr(tfa, "fwd_instance", lambda *a: instance)
+    before = tfa.KERNEL.launches["flash_fwd"]
+    got = tfa.flash_attention(q, k, v, **kw)
+    assert tfa.KERNEL.launches["flash_fwd"] == before + 1
+    _close(got, tfa.flash_attention_plain(q, k, v, **kw))
+    o, lse = tfa.flash_forward_lse(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _close(o, o_p)
+    assert (lse - lse_p).abs().max().item() <= 1e-3
+    if causal:
+        mean_v = v[-1].float().mean(dim=1).repeat_interleave(hq // hk, 0)
+        assert (got[-1, :, 0].float() - mean_v).abs().max() <= 1e-2
 
 
 # head dim 256 in the forward kernels: case -> (S, q heads, kv heads, what

@@ -48,18 +48,22 @@
 //     casts p before its PV matmul (:193, :217), and the V tile from
 //     shared memory as it lies, kv rows x D, through the descriptor's
 //     transpose bit. 128 q rows halve the L2 reads of K and V against 64;
-//   * 128-row kv tiles in a ring of 3 (K tile, V tile) stages (at D = 128:
-//     q 32 KB + 3 x 64 KB of the 227 KB; D = 256 below), filled by TMA: one
-//     thread of a producer warpgroup starts cp.async.bulk.tensor copies of
-//     128 rows x 64 columns through tensor maps that carry the (B, H, S, D)
-//     strides of K and V as they lie (views of (B, S, H, D) storage
-//     included) and write the swizzle; it runs up to three tiles ahead. A
-//     `full` mbarrier per stage counts the bytes as they land, an `empty`
-//     one the consumer threads that are done reading. The producer gives
-//     its registers back (setmaxnreg), the consumers take 232 each (240 at
-//     D = 256). The
-//     consumers spend no instruction on K and V; they load only their q
-//     tile (cp.async, or the rope variant's rows by ordinary stores);
+//   * 128-row kv tiles in two rings of 3 stages, one of K tiles and one of
+//     V tiles (at D = 128: q 32 KB + 3 x (32 + 32) KB of the 227 KB; D = 256
+//     below), filled by TMA: one thread of a producer warpgroup starts
+//     cp.async.bulk.tensor copies of 128 rows x 64 columns through tensor
+//     maps that carry the (B, H, S, D) strides of K and V as they lie
+//     (views of (B, S, H, D) storage included) and write the swizzle; it
+//     runs up to three tiles ahead. Each stage of each ring has a `full`
+//     mbarrier that counts the bytes as they land and an `empty` one that
+//     counts the consumer threads done reading. K's stage is released as
+//     soon as the score product that read it has completed, before the
+//     softmax, V's after p v; the producer issues K of tile t before V of
+//     tile t - 1, so K runs ahead of V by the softmax and p v of a tile.
+//     The producer gives its registers back (setmaxnreg), the consumers
+//     take 232 each (240 at D = 256). The consumers spend no instruction
+//     on K and V; they load only their q tile (cp.async, or the rope
+//     variant's rows by ordinary stores);
 //   * the softmax runs under the tensor cores. A warpgroup queues the
 //     scores of tile j and, behind them, p v of tile j - 1; once the scores
 //     are there it does the softmax of tile j while p v of tile j - 1 is
@@ -71,21 +75,49 @@
 //     in the instance that gets a mask or the causal flag, and there only
 //     on tiles that reach above the diagonal or carry a kv mask; o is
 //     rescaled (just before the next p v is queued, when the previous one
-//     has left it) only when a row maximum of the warp moved;
-//   * a grid whose 64-row blocks still fit in one wave on the card (the
-//     LM prefill at 14 or 16 heads: 56 or 64 128-row blocks) takes the
-//     one-warpgroup instance of the same kernel, 64 q rows per block.
+//     has left it) only when a row maximum of the warp moved. The kv mask
+//     of a tile is one byte a lane per 32 keys, loaded while the tile's
+//     scores are in flight and read as warp ballots (as K2 reads it): a
+//     load per score, each waiting on L2 after the scores, had cost the
+//     masked body some 5 us a tile at D = 64 (H100, 700 W);
+//   * the grid instance comes from the caller (ops/flash_attention.py
+//     fwd_instance, from the batch, heads, q rows, D and the card's SMs):
+//     the two-warpgroup blocks of 128 q rows, one an SM; a grid whose
+//     64-row blocks still fit in one wave (the LM prefill at 14 or 16
+//     heads: 56 or 64 128-row blocks) the one-warpgroup instance, 64 q rows
+//     a block, one an SM; and at D = 64 a grid whose 128-row blocks take
+//     two waves and whose 64-row blocks fit one wave at three an SM
+//     (InternViT-300M's 144 128-row blocks on 132 SMs, CLIP ViT-L/14's
+//     192) the one-warpgroup instance built for
+//     three blocks an SM (Tiles<64, 1, 3>): 64-row kv tiles in rings of 4
+//     (q 8 KB + 4 x (8 + 8) KB, 74.9 KB with its barriers and slack, three
+//     in the SM's 228 KB), 80 registers a thread at entry under
+//     __launch_bounds__(256, 3), the producer keeps 24 and the consumers
+//     take 136 (o 32, s 32 and p 16 of them). A block that shares out its
+//     registers launches only where ptxas gave it exactly the entry count
+//     its setmaxnreg pair is balanced for: with fewer, the consumers would
+//     wait forever for registers the producer cannot free. Two warpgroups
+//     at two blocks an SM (104 registers a consumer) spilled, had ptxas
+//     serialize their products and ran 1.4x slower at InternViT's shape.
 // Requires Sq and Skv to be multiples of 128, D in {64, 128, 256}, the last
 // dim contiguous and the other strides multiples of 8 elements.
 //
 // Head dim 256 (a FLUX DiT of 12 heads x 256 at FLUX's width; the TPU
 // kernel admits D = 256 as it does 64 and 128). Three things do not scale
-// from D = 128 (Tiles<D> below):
+// from D = 128 (Tiles below):
 //   * shared memory: a 128-row q tile is 64 KB and a (K, V) stage of 128
-//     rows 128 KB, so the 3-stage ring would need 448 KB of the 227. The kv
-//     tile is 64 rows and the ring 2 stages: q 64 KB + 2 x 64 KB. With two
-//     stages the copy of tile j + 1 starts only when tile j - 1 is done, so
-//     its latency is not hidden behind a third stage (a later PR's work);
+//     rows 128 KB, so rings of 3 would need 448 KB of the 227. The kv
+//     tile is 64 rows and each ring 2 stages: q 64 KB + 2 x (32 + 32) KB.
+//     The split rings keep the copies ahead: K of tile j + 1 starts when
+//     the score product of tile j - 1 is done, in the middle of tile j -
+//     1's step, and V of tile j + 1 when p v of tile j - 1 is, a step
+//     before p v of tile j + 1 is queued (one ring of (K, V) stages
+//     started both only when p v of tile j - 1 was done, at the end of
+//     step j, just before the score product of tile j + 1 needed K: their
+//     latency was exposed, 0.76 against 0.50 ms at (1, 12, 4608, 256) on an
+//     H100 at 700 W). Kv tiles of 80 rows (q 64 KB + 2 x (40 + 40)
+//     KB, m64n80k16 scores, a last tile that overhangs Skv) ran level with
+//     64 (within 1%) and spilled in the masked instances;
 //   * registers: the o accumulator alone is 64 x 256 f32 over a warpgroup,
 //     128 registers a thread. 64-row kv tiles keep s at 32 and p at 16, so
 //     o, s and p in flight are 176 of the 240 that the consumers take
@@ -132,20 +164,24 @@
 
 namespace {
 
-// The tiles of head dim D (see the header): kv rows per tile, (K tile, V
-// tile) stages in the ring, and the registers a thread of the producer's
-// and of the consumers' warpgroups keep (setmaxnreg; 128 x (168 - P) >=
-// 256 x (C - 168) for two consumer warpgroups).
-template <int D>
+// The tiles of an instance: head dim D, WGS consumer warpgroups of 64 q
+// rows, built for MINB blocks an SM (see the header). kv rows per tile and
+// stages in each of the K and V rings. With setmaxnreg (two consumer
+// warpgroups, or more than one block an SM) the kernel starts with
+// entry_regs a thread, the register file shared by MINB blocks of WGS + 1
+// warpgroups in steps of 8; the producer's warpgroup keeps producer_regs
+// and the consumers take what it gives back, consumer_regs each.
+template <int D, int WGS, int MINB>
 struct Tiles {
-  static constexpr int kv = D == 256 ? 64 : 128;
-  static constexpr int stages = D == 256 ? 2 : 3;
-  static constexpr int producer_regs = D == 256 ? 24 : 40;
-  static constexpr int consumer_regs = D == 256 ? 240 : 232;
+  static constexpr int kv = D == 256 ? 64 : MINB == 1 ? 128 : 64;
+  static constexpr int stages = D == 256 ? 2 : MINB == 1 ? 3 : 4;
+  static constexpr bool split_regs = WGS == 2 || MINB > 1;
+  static constexpr int entry_regs = 65536 / (128 * (WGS + 1) * MINB) / 8 * 8;
+  static constexpr int producer_regs = D == 256 || MINB > 1 ? 24 : 40;
+  static constexpr int free_regs =
+      (entry_regs + (entry_regs - producer_regs) / WGS) / 8 * 8;
+  static constexpr int consumer_regs = free_regs < 240 ? free_regs : 240;
 };
-
-// The kv rows of a tile, for the tensor maps.
-int kv_tile(int d) { return d == 256 ? Tiles<256>::kv : Tiles<128>::kv; }
 
 enum Body { kPipelined = 0, kExactBody = 1, kExactMasked = 2 };
 
@@ -173,33 +209,41 @@ struct Args {
   float scale_log2e, eps;
 };
 
-// Shared memory of one block: the q tile, the ring, the barriers, and the
-// slack that aligns the tiles to the swizzle's 1024 bytes.
-template <int D, int WGS>
+// Shared memory of one block: the q tile, the K ring, the V ring, their
+// barriers, and the slack that aligns the tiles to the swizzle's 1024
+// bytes.
+template <int D, int WGS, int MINB>
 constexpr int smem_bytes() {
-  constexpr int stages = Tiles<D>::stages;
-  return 64 * WGS * D * 2 + 2 * stages * Tiles<D>::kv * D * 2 +
-         (2 * stages + 1) * static_cast<int>(sizeof(uint64_t)) +
+  using T = Tiles<D, WGS, MINB>;
+  return 64 * WGS * D * 2 + 2 * T::stages * T::kv * D * 2 +
+         (4 * T::stages + 1) * static_cast<int>(sizeof(uint64_t)) +
          kSwizzleAtomBytes;
 }
 
-template <int D, int WGS, bool ROPE, int BODY, typename OutT>
-__global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
+template <int D, int WGS, int MINB, bool ROPE, int BODY, typename OutT>
+__global__ void __launch_bounds__(128 * WGS + 128, MINB) flash_fwd_kernel(
     const __grid_constant__ TileMap map_k,
     const __grid_constant__ TileMap map_v, Args a) {
-  constexpr int BQ = 64 * WGS, NT = 128 * WGS, BK = Tiles<D>::kv;
-  constexpr int kStages = Tiles<D>::stages;
+  using T = Tiles<D, WGS, MINB>;
+  constexpr int BQ = 64 * WGS, NT = 128 * WGS, BK = T::kv;
+  constexpr int kStages = T::stages;
   constexpr bool EXACT = BODY != kPipelined, MASKED = BODY == kExactMasked;
   constexpr uint32_t kQBytes = BQ * D * 2, kTileBytes = BK * D * 2;
+  static_assert(!T::split_regs ||
+                    T::entry_regs - T::producer_regs >=
+                        WGS * (T::consumer_regs - T::entry_regs),
+                "the producer frees the registers the consumers take");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
   unsigned char* smem = smem_raw + (sQ - raw);
   const uint32_t sK = sQ + kQBytes, sV = sK + kStages * kTileBytes;
-  uint64_t* full =
+  uint64_t* full_k =
       reinterpret_cast<uint64_t*>(smem + kQBytes + 2 * kStages * kTileBytes);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_ready = empty + kStages;
+  uint64_t* empty_k = full_k + kStages;
+  uint64_t* full_v = empty_k + kStages;
+  uint64_t* empty_v = full_v + kStages;
+  uint64_t* q_ready = empty_v + kStages;
 
   // NT consumer threads (WGS warpgroups), then the producer's warpgroup
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
@@ -211,8 +255,10 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   if (tid == 0) {
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], NT);
+      mbar_init(&full_k[st], 1);
+      mbar_init(&empty_k[st], NT);
+      mbar_init(&full_v[st], 1);
+      mbar_init(&empty_v[st], NT);
     }
     mbar_init(q_ready, NT);
     mbar_init_fence();
@@ -220,36 +266,40 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   __syncthreads();
 
   // The register file is shared out by warpgroup: the kernel starts with
-  // the 168 registers that three warpgroups leave each thread, the
-  // producer hands back what it does not need and the consumers take it.
-  // From here the two roles never meet again (setmaxnreg needs that).
-  // (One consumer warpgroup and the producer's have 255 registers a thread
-  // from the start.)
+  // entry_regs a thread, the producer hands back what it does not need
+  // and the consumers take it. From here the two roles never meet again
+  // (setmaxnreg needs that). (One consumer warpgroup alone on an SM and
+  // the producer's have 255 registers a thread from the start.)
   if (tid >= NT) {
-    if constexpr (WGS == 2) setmaxnreg_dec<Tiles<D>::producer_regs>();
-    // The producer: one thread keeps the ring full, up to kStages tiles
-    // ahead of the consumers. A stage is two TMA copies per 64 columns
-    // (K rows and V rows of the tile), all completing on its `full`.
+    if constexpr (T::split_regs) setmaxnreg_dec<T::producer_regs>();
+    // The producer: one thread keeps the K and V rings full, up to
+    // kStages tiles ahead of the consumers; a tile is one TMA copy per 64
+    // columns, completing on its ring's `full`. K of tile t goes before V
+    // of tile t - 1: K's stage comes free as soon as the score product
+    // that read it is done, V's only after p v, so K runs ahead.
     if (tid == NT) {
-#pragma unroll 1
-      for (int t = 0; t < n_tiles; ++t) {
+      auto stage_in = [&](const TileMap& map, uint32_t ring, uint64_t* full,
+                          uint64_t* empty, int t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        mbar_arrive_expect_tx(&full[st], kTileBytes);
 #pragma unroll
-        for (int cb = 0; cb < D / 64; ++cb) {
-          const uint32_t off =
-              st * kTileBytes + cb * BK * kSwizzleRowBytes;
-          tma_load_tile(map_k, sK + off, cb * 64, t * BK, hkv, b, &full[st]);
-          tma_load_tile(map_v, sV + off, cb * 64, t * BK, hkv, b, &full[st]);
-        }
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_tile(map,
+                        ring + st * kTileBytes + cb * BK * kSwizzleRowBytes,
+                        cb * 64, t * BK, hkv, b, &full[st]);
+      };
+#pragma unroll 1
+      for (int t = 0; t <= n_tiles; ++t) {
+        if (t < n_tiles) stage_in(map_k, sK, full_k, empty_k, t);
+        if (t > 0) stage_in(map_v, sV, full_v, empty_v, t - 1);
       }
     }
     return;
   }
 
   // The consumers bring in the q tile meanwhile.
-  if constexpr (WGS == 2) setmaxnreg_inc<Tiles<D>::consumer_regs>();
+  if constexpr (T::split_regs) setmaxnreg_inc<T::consumer_regs>();
   const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
   if (ROPE) {
     // 16 rows per warp, four in flight: a row is a chain of dependent
@@ -306,7 +356,7 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   // s = q k^T for kv tile t, queued and committed
   auto qk_product = [&](int t) {
     const int st = t % kStages;
-    mbar_wait(&full[st], (t / kStages) & 1);
+    mbar_wait(&full_k[st], (t / kStages) & 1);
     const uint64_t k_desc =
         wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes);
     wgmma_pin(s);
@@ -330,15 +380,31 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
         o[dn][3] *= al1;
       }
     }
-    const uint64_t v_desc =
-        wgmma_desc(sV + (t % kStages) * kTileBytes, BK * kSwizzleRowBytes,
-                   kSwizzleAtomBytes);
+    const int st = t % kStages;
+    mbar_wait(&full_v[st], (t / kStages) & 1);
+    const uint64_t v_desc = wgmma_desc(
+        sV + st * kTileBytes, BK * kSwizzleRowBytes, kSwizzleAtomBytes);
     wgmma_pin(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs<D>(o, p[kk], desc_advance(v_desc, kk * 2 * kSwizzleAtomBytes));
     wgmma_commit();
+  };
+
+  // The masked body's kv mask of a tile, loaded while its scores are in
+  // flight: one key a lane in each 32, which softmax_tile turns into
+  // ballots
+  constexpr int kWords = BK / 32;
+  bool kept[kWords];
+  auto fetch_mask = [&](int t) {
+    if (MASKED) {
+#pragma unroll
+      for (int c = 0; c < kWords; ++c) {
+        const int col = t * BK + 32 * c + lane;
+        kept[c] = mask == nullptr || mask[col] != 0;
+      }
+    }
   };
 
   // the scores of kv tile t in s -> the unnormalized probabilities, in
@@ -351,20 +417,30 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] *= a.scale_log2e;
     }
+    const int kv0 = t * BK;
     if (EXACT) {
       if (MASKED) {
-        const int kv0 = t * BK;
+        // bit 8 (jj % 4) + (e & 1) of w[jj / 4] is this thread's column
+        // 8 jj + 2 t4 + (e & 1) of the tile
+        uint32_t w[kWords];
+        bool all = true;
+#pragma unroll
+        for (int c = 0; c < kWords; ++c) {
+          const uint32_t word = __ballot_sync(0xffffffffu, kept[c]);
+          all = all && word == ~0u;
+          w[c] = word >> (2 * t4);
+        }
         // a causal tile wholly at or below the warp's first row needs no
         // test
-        const bool diag = a.causal && kv0 + BK - 1 > row_a - g;
-        if (mask != nullptr || diag) {
+        if (!all || (a.causal && kv0 + BK - 1 > row_a - g)) {
 #pragma unroll
           for (int jj = 0; jj < BK / 8; ++jj)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = kv0 + jj * 8 + t4 * 2 + (e & 1);
               const int row = e < 2 ? row_a : row_b;
-              const bool keep = (mask == nullptr || mask[col]) &&
+              const bool keep = ((w[jj >> 2] >> ((jj & 3) * 8 + (e & 1))) &
+                                 1u) &&
                                 (!a.causal || col <= row);
               if (!keep) s[jj][e] = kNegInf;
             }
@@ -422,10 +498,10 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
 
   // The schedule, per warpgroup: the scores of tile j and, behind them,
   // p v of tile j - 1 are queued on the tensor cores; as soon as the
-  // scores are there the softmax of tile j runs while p v of tile j - 1
-  // is still in flight (the TPU body's pipeline, :185-195, with the two
-  // products in the other order). Tile j + kStages - 2 is copied
-  // meanwhile, into the stage that tile j - 2 left.
+  // scores are there K's stage is released and the softmax of tile j
+  // runs while p v of tile j - 1 is still in flight (the TPU body's
+  // pipeline, :185-195, with the two products in the other order); V's
+  // stage of tile j - 1 is released when p v is done.
   // With two warpgroups, they take turns at queueing their products, so
   // that one's softmax falls under the other's products instead of both
   // leaving the tensor cores idle at once: named barrier 1 + wg opens
@@ -440,8 +516,10 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
   turn_wait();
   qk_product(0);
   turn_pass();
+  fetch_mask(0);
   wgmma_wait<0>();
   wgmma_pin(s);
+  mbar_arrive(&empty_k[0]);
   softmax_tile(0);
   round_p();
 #pragma unroll 1
@@ -450,13 +528,15 @@ __global__ void __launch_bounds__(128 * WGS + 128) flash_fwd_kernel(
     qk_product(j);
     pv_queue(j - 1);
     turn_pass();
+    fetch_mask(j);
     wgmma_wait<1>();
     wgmma_pin(s);
+    mbar_arrive(&empty_k[j % kStages]);
     softmax_tile(j);
     wgmma_wait<0>();
     wgmma_pin(o);
     wgmma_pin_a(p);
-    mbar_arrive(&empty[(j - 1) % kStages]);
+    mbar_arrive(&empty_v[(j - 1) % kStages]);
     round_p();
   }
   pv_queue(n_tiles - 1);
@@ -489,57 +569,87 @@ struct Maps {
   TileMap k, v;
 };
 
-template <int D, int WGS, bool ROPE, int BODY, typename OutT = bf16>
+// The kernel of an instance, made ready to launch: its shared memory
+// allowed and, for more than one block an SM, the largest shared-memory
+// carveout asked for. An instance that shares out its registers refuses
+// to launch unless ptxas gave it the register count its setmaxnreg pair
+// is balanced for (with fewer, the consumers would wait forever for the
+// registers the producer cannot free).
+template <int D, int WGS, int MINB, bool ROPE, int BODY, typename OutT>
+cudaError_t prepare() {
+  using T = Tiles<D, WGS, MINB>;
+  auto kernel = flash_fwd_kernel<D, WGS, MINB, ROPE, BODY, OutT>;
+  if (T::split_regs) {
+    static const int regs = [&] {
+      cudaFuncAttributes attr;
+      return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess
+                 ? attr.numRegs
+                 : -1;
+    }();
+    if (regs != T::entry_regs) return cudaErrorInvalidConfiguration;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<D, WGS, MINB>());
+  if (err == cudaSuccess && MINB > 1)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int D, int WGS, int MINB, bool ROPE, int BODY, typename OutT>
 cudaError_t launch_main(const Maps& m, const Args& a, int batch, int hq,
                         int sq, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D, WGS>();
-  auto kernel = flash_fwd_kernel<D, WGS, ROPE, BODY, OutT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = prepare<D, WGS, MINB, ROPE, BODY, OutT>();
   if (err != cudaSuccess) return err;
   dim3 grid(sq / (64 * WGS), hq, batch);
-  kernel<<<grid, 128 * WGS + 128, smem, stream>>>(m.k, m.v, a);
+  flash_fwd_kernel<D, WGS, MINB, ROPE, BODY, OutT>
+      <<<grid, 128 * WGS + 128, smem_bytes<D, WGS, MINB>(), stream>>>(
+          m.k, m.v, a);
   return cudaGetLastError();
 }
 
-template <int D, int WGS, bool ROPE, typename OutT = bf16>
+template <int D, int WGS, int MINB, typename OutT, bool ROPE>
 cudaError_t launch_body(const Maps& m, const Args& a, int batch, int hq,
                         int sq, int body, cudaStream_t stream) {
   if (body == kPipelined)
-    return launch_main<D, WGS, ROPE, kPipelined, OutT>(m, a, batch, hq, sq,
-                                                       stream);
+    return launch_main<D, WGS, MINB, ROPE, kPipelined, OutT>(m, a, batch, hq,
+                                                             sq, stream);
   if (body == kExactBody)
-    return launch_main<D, WGS, ROPE, kExactBody, OutT>(m, a, batch, hq, sq,
-                                                       stream);
-  return launch_main<D, WGS, ROPE, kExactMasked, OutT>(m, a, batch, hq, sq,
-                                                       stream);
+    return launch_main<D, WGS, MINB, ROPE, kExactBody, OutT>(m, a, batch, hq,
+                                                             sq, stream);
+  return launch_main<D, WGS, MINB, ROPE, kExactMasked, OutT>(m, a, batch, hq,
+                                                             sq, stream);
 }
 
-template <int D>
+template <int D, int WGS, int MINB, typename OutT = bf16>
 cudaError_t launch(const Maps& m, const Args& a, int batch, int hq, int sq,
-                   bool rope, int body, bool small_grid,
-                   cudaStream_t stream) {
-  if (small_grid)
-    return rope ? launch_body<D, 1, true>(m, a, batch, hq, sq, body, stream)
-                : launch_body<D, 1, false>(m, a, batch, hq, sq, body, stream);
-  return rope ? launch_body<D, 2, true>(m, a, batch, hq, sq, body, stream)
-              : launch_body<D, 2, false>(m, a, batch, hq, sq, body, stream);
+                   bool rope, int body, cudaStream_t stream) {
+  return rope ? launch_body<D, WGS, MINB, OutT, true>(m, a, batch, hq, sq,
+                                                      body, stream)
+              : launch_body<D, WGS, MINB, OutT, false>(m, a, batch, hq, sq,
+                                                       body, stream);
 }
 
-// The card's SM count, asked once per device.
-cudaError_t sm_count(int* sms) {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = cached[dev];
-  return cudaSuccess;
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<D>, Int<WGS>, Int<MINB>) for a grid instance of the bf16 kernel
+// (ops/flash_attention.py FWD_INSTANCES: the 128-row instance at every D,
+// the 64-row one at 1 block an SM, and at D = 64 the 64-row one at 3
+// blocks an SM): its cudaError_t, or cudaErrorInvalidValue for another.
+template <typename F>
+cudaError_t with_instance(int d, int wgs, int minb, F&& f) {
+  if (wgs == 2 && minb == 1)
+    return with_head_dim(
+        d, [&](auto dim) { return f(dim, Int<2>(), Int<1>()); });
+  if (wgs == 1 && minb == 1)
+    return with_head_dim(
+        d, [&](auto dim) { return f(dim, Int<1>(), Int<1>()); });
+  if (d == 64 && wgs == 1 && minb == 3)
+    return f(Int<64>(), Int<1>(), Int<3>());
+  return cudaErrorInvalidValue;
 }
 
 // The shapes every instance takes.
@@ -580,14 +690,14 @@ int body_of(int exact, const unsigned char* mask, int causal) {
                                        : kExactBody;
 }
 
-// K and V as the producer reads them.
+// K and V as the producer reads them, in tiles of kv rows.
 cudaError_t make_maps(Maps* m, const Args& a, int batch, int hk, int skv,
-                      int d) {
+                      int d, int kv) {
   cudaError_t err = make_tile_map(&m->k, a.k, a.k_sb, a.k_sh, a.k_ss, batch,
-                                  hk, skv, d, kv_tile(d));
+                                  hk, skv, d, kv);
   if (err != cudaSuccess) return err;
   return make_tile_map(&m->v, a.v, a.v_sb, a.v_sh, a.v_ss, batch, hk, skv, d,
-                       kv_tile(d));
+                       kv);
 }
 
 // K (bf16, or f32 rounded to bf16 as it is read) at the (b, h, s) strides
@@ -618,15 +728,16 @@ cudaError_t rope_k_into(const T* k, bf16* ks, const long long* st, Args* a,
 // body. cos/sin: (Sq, >= D/2) f32 rows at tab_rs, or null (no rope).
 // qw/kw: f32 qk-norm scales with row strides qw_rs/kw_rs (0 = one shared
 // (D,) row), or null (no norm; rope only). k_scratch: B*Hk*Skv*D bf16 when
-// rope is given. mask: (B, Skv) bytes at mask_sb, or null. Returns the
-// cudaError_t of the launches.
+// rope is given. mask: (B, Skv) bytes at mask_sb, or null. wgs,
+// blocks_per_sm: the grid instance (ops/flash_attention.py fwd_instance).
+// Returns the cudaError_t of the launches.
 extern "C" int x2i_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     void* k_scratch, const long long* st, const float* cos, const float* sin,
     long long tab_rs, const float* qw, long long qw_rs, const float* kw,
     long long kw_rs, const unsigned char* mask, long long mask_sb, int batch,
-    int hq, int hk, int sq, int skv, int d, int causal, int exact,
-    float scale_log2e, float eps, void* stream_ptr) {
+    int hq, int hk, int sq, int skv, int d, int causal, int exact, int wgs,
+    int blocks_per_sm, float scale_log2e, float eps, void* stream_ptr) {
   if (bad_shapes(hq, hk, sq, skv, d) ||
       (cos != nullptr && (k_scratch == nullptr || sq != skv)) ||
       (lse != nullptr && !exact) ||
@@ -644,9 +755,7 @@ extern "C" int x2i_flash_fwd(
   a.qw = qw;
   a.qw_rs = qw_rs;
   a.eps = eps;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
   if (rope) {
     // K normalized and rotated once per launch (no scale: it is folded
     // into the q tile)
@@ -655,20 +764,40 @@ extern "C" int x2i_flash_fwd(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int body = body_of(exact, mask, causal);
-  // 64-row blocks fill more of the card where twice as many of them
-  // still fit in one wave (the 28-head LM's 112 128-row blocks stay one
-  // wave; as 224 64-row blocks they took two)
-  const bool small_grid =
-      2 * static_cast<long long>(sq / 128) * hq * batch <= sms;
-  // K and V as the producer reads them: K from the scratch under rope
-  Maps m;
-  err = make_maps(&m, a, batch, hk, skv, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = with_head_dim(d, [&](auto dim) {
-    return launch<decltype(dim)::value>(m, a, batch, hq, sq, rope, body,
-                                        small_grid, stream);
+  err = with_instance(d, wgs, blocks_per_sm, [&](auto dim, auto w, auto mb) {
+    constexpr int D = decltype(dim)::value, WGS = decltype(w)::value,
+                  MINB = decltype(mb)::value;
+    // K and V as the producer reads them: K from the scratch under rope
+    Maps m;
+    cudaError_t e = make_maps(&m, a, batch, hk, skv, D,
+                              Tiles<D, WGS, MINB>::kv);
+    return e != cudaSuccess
+               ? e
+               : launch<D, WGS, MINB>(m, a, batch, hq, sq, rope, body, stream);
   });
   return static_cast<int>(err);
+}
+
+// The blocks of the bf16 grid instance (d, wgs, blocks_per_sm) that one SM
+// holds at once, into *out: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// of its exact masked kernel without rope, with its shared memory (the
+// instance's bodies share their launch bounds and shared memory; they
+// differ in registers only where one block takes the SM). Returns the
+// cudaError_t.
+extern "C" int x2i_flash_fwd_blocks_per_sm(int d, int wgs, int blocks_per_sm,
+                                           int* out) {
+  return static_cast<int>(
+      with_instance(d, wgs, blocks_per_sm, [&](auto dim, auto w, auto mb) {
+        constexpr int D = decltype(dim)::value, WGS = decltype(w)::value,
+                      MINB = decltype(mb)::value;
+        cudaError_t e = prepare<D, WGS, MINB, false, kExactMasked, bf16>();
+        return e != cudaSuccess
+                   ? e
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         out, flash_fwd_kernel<D, WGS, MINB, false,
+                                               kExactMasked, bf16>,
+                         128 * WGS + 128, smem_bytes<D, WGS, MINB>());
+      }));
 }
 
 // The f32 instances: q, k, v, o (B, H, S, D) f32 with the strides in `st`,
@@ -718,15 +847,13 @@ extern "C" int x2i_flash_fwd_f32(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int body = body_of(exact, mask, causal);
-  Maps m;
-  err = make_maps(&m, a, batch, hk, skv, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
   err = with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return rope ? launch_body<D, 2, true, float>(m, a, batch, hq, sq, body,
-                                                 stream)
-                : launch_body<D, 2, false, float>(m, a, batch, hq, sq, body,
-                                                  stream);
+    Maps m;
+    cudaError_t e = make_maps(&m, a, batch, hk, skv, D, Tiles<D, 2, 1>::kv);
+    return e != cudaSuccess ? e
+                            : launch<D, 2, 1, float>(m, a, batch, hq, sq,
+                                                     rope, body, stream);
   });
   return static_cast<int>(err);
 }

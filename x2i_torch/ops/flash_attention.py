@@ -51,6 +51,10 @@ Every other dtype takes the plain attention (``attention.route``).
 Head dims: every instance, forward and backward, bf16 and f32, takes
 ``HEAD_DIMS`` (64, 128 and 256), the TPU kernels' ``supported``.
 
+K1's grid instance, the q rows of a block and the blocks an SM holds, is
+chosen here from the shapes and the card's SM count (``fwd_instance``)
+and handed to the library with each bf16 launch.
+
 Rope tables are ``(S, D)`` f32 as ``flux_rope_freqs_half`` makes them,
 cos = cat(c, c) and sin = cat(s, s); only their first halves are read, as
 ``apply_rope_half`` reads them.
@@ -70,6 +74,7 @@ fallback. The kernels are built from the repository's sources with
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -352,10 +357,14 @@ def _bind(lib):
                    ctypes.c_float)
     lib.x2i_flash_fwd.argtypes = [
         p, p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
+        i, i, i, i, i, i, i, i, i, i, f, f, p]
+    lib.x2i_flash_fwd_f32.argtypes = [
+        p, p, p, p, p, p, p, p, p, ll, p, ll, p, ll, p, ll,
         i, i, i, i, i, i, i, i, f, f, p]
-    lib.x2i_flash_fwd.restype = ctypes.c_int
-    lib.x2i_flash_fwd_f32.argtypes = lib.x2i_flash_fwd.argtypes
-    lib.x2i_flash_fwd_f32.restype = ctypes.c_int
+    lib.x2i_flash_fwd_blocks_per_sm.argtypes = [i, i, i, p]
+    for name in ("x2i_flash_fwd", "x2i_flash_fwd_f32",
+                 "x2i_flash_fwd_blocks_per_sm"):
+        getattr(lib, name).restype = ctypes.c_int
 
 
 def _bind_chunked(lib):
@@ -410,12 +419,14 @@ KERNEL = CudaLibrary("flash_fwd.cu", "libx2i_flash",
                       "flash_fwd_lse_d256", "flash_fwd_f32_d256",
                       "flash_fwd_lse_f32_d256", "flash_fwd_rope_f32_d256"),
                      _bind,
-                     # every instance, and by name the D = 256 ones and the
-                     # f32 rope-and-norm one at D = 128 (mangled: <D, WGS,
+                     # every instance, and by name the D = 256 ones, the
+                     # f32 rope-and-norm one at D = 128 and the D = 64
+                     # one at three blocks an SM (mangled: <D, WGS, MINB,
                      # ROPE, BODY, float>)
                      wgmma_kernels=("flash_fwd_kernel",
                                     "flash_fwd_kernelILi256E",
-                                    "flash_fwd_kernelILi128ELi2ELb1ELi0EfE"),
+                                    "flash_fwd_kernelILi128ELi2ELi1ELb1ELi0EfE",
+                                    "flash_fwd_kernelILi64ELi1ELi3E"),
                      checked_kernels=("round_rows_kernel",))
 # K2, the chunked forward above MAX_KV_SEQ kv tokens, and its f32 instance,
 # counted apart at D = 256
@@ -426,6 +437,49 @@ KERNEL_CHUNKED = CudaLibrary("flash_chunked.cu", "libx2i_flash_chunked",
                              wgmma_kernels=("flash_chunked_kernel",
                                             "flash_chunked_kernelILi256E"),
                              checked_kernels=("round_rows_kernel",))
+
+
+# K1's grid instances, (head dim, consumer warpgroups, blocks an SM): a
+# block is 64 q rows a warpgroup. The 128-row instance at every head dim;
+# the 64-row one alone on an SM; at D = 64 the 64-row one with a smaller
+# ring and register budget, three blocks an SM (csrc/flash_fwd.cu Tiles)
+FWD_INSTANCES = ((64, 2, 1), (64, 1, 1), (64, 1, 3), (128, 2, 1),
+                 (128, 1, 1), (256, 2, 1), (256, 1, 1))
+
+
+def fwd_instance(batch: int, heads: int, q_rows: int, d: int,
+                 sms: int) -> tuple:
+    """K1's grid instance for a bf16 launch -> (consumer warpgroups, blocks
+    an SM). ``blocks`` counts 128-row q tiles over heads and batch:
+
+    * 64-row blocks where twice as many still fit in one wave on the
+      card's ``sms`` (the LM prefill at 14 or 16 heads; the 28-head LM's
+      112 128-row blocks stay one wave, as 224 64-row blocks they took
+      two);
+    * at D = 64, where the 128-row blocks take more than one wave and the
+      64-row blocks fit one wave at three an SM (InternViT-300M's 144,
+      CLIP ViT-L/14's 192): those;
+    * else the 128-row blocks, one an SM."""
+    blocks = batch * heads * (q_rows // 128)
+    if 2 * blocks <= sms:
+        return (1, 1)
+    if d == 64 and sms < blocks and 2 * blocks <= 3 * sms:
+        return (1, 3)
+    return (2, 1)
+
+
+def fwd_blocks_per_sm(d: int, wgs: int, blocks_per_sm: int) -> int:
+    """The blocks of the bf16 instance that one SM of the current card
+    holds at once, as CUDA's occupancy calculator counts them: what the
+    instance is built for, or fewer if its registers or shared memory do
+    not fit."""
+    out = ctypes.c_int(0)
+    err = KERNEL.lib().x2i_flash_fwd_blocks_per_sm(d, wgs, blocks_per_sm,
+                                                   ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"flash kernel occupancy failed: cudaError_t "
+                           f"{err}")
+    return out.value
 
 
 def launch_name(name: str, d: int) -> str:
@@ -658,11 +712,16 @@ def _flash_cuda(q, k, v, kv_mask, causal, scale, rope, qk_norm,
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = KERNEL.lib()
-    err = (lib.x2i_flash_fwd_f32 if f32 else lib.x2i_flash_fwd)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs, _ptr(qw),
-        qw_rs, _ptr(kw), kw_rs, _ptr(mask), mask_sb, b, hq, hk, sq, skv, d,
-        int(causal), int(exact), scale * LOG2_E, eps, _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _ptr(lse), _ptr(scratch), strides, _ptr(cos), _ptr(sin), tab_rs,
+            _ptr(qw), qw_rs, _ptr(kw), kw_rs, _ptr(mask), mask_sb, b, hq, hk,
+            sq, skv, d, int(causal), int(exact))
+    tail = (scale * LOG2_E, eps, _stream(q))
+    if f32:
+        err = lib.x2i_flash_fwd_f32(*args, *tail)
+    else:
+        err = lib.x2i_flash_fwd(
+            *args, *fwd_instance(b, hq, sq, d, _sm_count(q.device)), *tail)
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError_t {err}")
     if return_lse:
@@ -760,7 +819,10 @@ def dkv_splits(blocks: int, stages: int, sms: int) -> int:
     return -(-stages // per)
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
+    """The card's SM count, asked once per device (every K1 launch reads
+    it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

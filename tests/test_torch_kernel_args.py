@@ -4,11 +4,12 @@ shapes and layouts that the chunked flash forward K2
 w4a8 GEMM and the w4 dequantize kernel (``ops/int4_gemm.py``), the
 straight-through backward's int8 and w4a8 dequantize kernels and the
 row glue kernels K5-K8 (``ops/fused_glue.py``) take, the width ->
-instance choice of K7 and K8, and K1's grid instance by shape
-(``flash_attention.fwd_instance``). The checks are plain functions of
-shapes, strides and addresses, so they run here without a card; the
-kernels themselves are held against their plain versions by the ``cuda``
-tests in ``test_torch_kernels.py``.
+instance choice of K7 and K8, K1's grid instance by shape
+(``flash_attention.fwd_instance``), and the shapes of the K2 / K3 variants
+tool (``x2i_torch/tools/flash_d256_variants.py``). The checks are plain
+functions of shapes, strides and addresses, so they run here without a
+card; the kernels themselves are held against their plain versions by the
+``cuda`` tests in ``test_torch_kernels.py``.
 """
 
 import pytest
@@ -18,6 +19,7 @@ from x2i_torch.ops import flash_attention as tfa
 from x2i_torch.ops import fused_glue as tfg
 from x2i_torch.ops import int4_gemm as t4
 from x2i_torch.ops import int8_gemm as tgemm
+from x2i_torch.tools import flash_d256_variants as d256v
 
 # (q shape, k shape), each legal for K2: Sq and Skv multiples of 64, a last
 # tile of 64 rows on either side, GQA, the 2048^2 DiT's and the LM's shapes
@@ -541,3 +543,17 @@ def test_fwd_instance(case):
     blocks = b * hq * sq // (64 * wgs)
     if wgs == 1:
         assert blocks <= per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("label", list(d256v.CASES))
+def test_d256_variant_cases_are_kernel_shapes(label):
+    """Each case of the K2 / K3 variants tool is a shape its kernel takes
+    (K2: Sq and Skv multiples of 64; K3: of 128), in a dtype the kernels
+    have and with an input the tool knows how to make."""
+    kernel, b, hq, hk, sq, skv, d, dtype, what = d256v.CASES[label]
+    check = tfa.check_shapes if kernel == "k2" else tfa.check_kernel_shapes
+    k = (b, hk, skv, d)
+    assert check((b, hq, sq, d), k, k) == (b, hq, hk, sq, skv, d)
+    assert dtype in ("bf16", "f32")
+    assert what in {"k2": ("plain", "lse", "lm", "odd"),
+                    "k3": ("plain", "rope", "pad", "lm")}[kernel]

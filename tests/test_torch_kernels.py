@@ -218,7 +218,7 @@ def _grad_close(got, want):
 # K3 and K4 stream 64-row tiles through a ring of four stages, which wraps
 # above 256 rows; K4 splits its stages over the grid where its 128-row kv
 # blocks are fewer than the card's SMs (every case but the "wide" ones).
-# At D = 256 K3's ring is 2 stages of 32 kv rows and K4's blocks 64 rows
+# At D = 256 K3's ring is 3 stages of 32 kv rows and K4's blocks 64 rows
 # (its rope cases write partial sums that the reduce kernel rotates).
 LSE_CASES = {
     "plain": (256, 3, 3, "strided", 2),

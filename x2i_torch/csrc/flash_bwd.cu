@@ -63,8 +63,21 @@
 //     brings (K tile, V tile) stages. Up to D = 128 the ring holds 4
 //     stages of 64 kv rows (m64n64k16 scores); registers at D = 128: dq 64,
 //     s 32, dp 32, ds 16. At D = 256 the resident q and do tiles take 128
-//     KB of the 227, so the ring holds 2 stages of 32 kv rows (2 x 32 KB)
-//     and the scores are m64n32k16: dq 128, s 16, dp 16, ds 8;
+//     KB of the 227, so the ring holds 3 stages of 32 kv rows (3 x 32 KB,
+//     230,448 bytes of the 232,448 with the barriers and the slack) and
+//     the scores are m64n32k16: dq 128, s 16, dp 16, ds 8. A stage comes
+//     free when every product of the step after it is done, so with 2
+//     stages the copy of tile j + 1 started at the end of step j, just
+//     before its score products needed it: 1.132 against 0.702 ms at
+//     (1, 12, 4608, 256) (NVIDIA H100 80GB HBM3, 700.00 W). Separate K and
+//     V rings (V released after the scores, K after the dq product that
+//     last reads it, the two waited on apart) took 2 stages to 1.028 ms,
+//     but ran 5% slower than the one ring at 3 stages (0.741 / 0.704) and
+//     4% slower at D = 128 (0.547 / 0.526);
+//   * the masked K3 reads a tile's kv mask as warp ballots of bytes
+//     loaded while its scores are in flight, as K1 does: a load per score
+//     after the scores had kept the pad route at 0.882 ms whatever the
+//     ring (0.558 with the ballots);
 //   * K4: one block per (kv tile, kv head, batch), its K and V tiles
 //     resident, the ring bringing (q tile, do tile, lse, delta) stages of
 //     64 q rows over every (head of the group, q tile) pair, with no round
@@ -119,7 +132,7 @@ constexpr int kQRows = 128;                   // q rows of a K3 block
 template <int D>
 struct DqTiles {
   static constexpr int kv = D == 256 ? 32 : 64;
-  static constexpr int stages = D == 256 ? 2 : 4;
+  static constexpr int stages = D == 256 ? 3 : 4;
 };
 
 // K4's tiles at head dim D: kv rows of a block, the dk and dv columns a
@@ -370,6 +383,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     grad_product<D, KR>(dq, ds, sK + (t % kStages) * kTileBytes);
     wgmma_commit();
   };
+  // The masked body's kv mask of a tile, loaded while its scores are in
+  // flight: one key a lane in each 32, which ds_tile turns into ballots
+  constexpr int kWords = KR / 32;
+  bool kept[kWords];
+  auto fetch_mask = [&](int t) {
+    if (MASKED) {
+#pragma unroll
+      for (int c = 0; c < kWords; ++c)
+        kept[c] = mask == nullptr || mask[t * KR + 32 * c + lane] != 0;
+    }
+  };
   // the scores of kv tile t -> ds = p (dp - delta) scale, in s; then ds
   // rounded to bf16, the A operand of the dq product
   auto ds_tile = [&](int t) {
@@ -382,17 +406,27 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     }
     if (MASKED) {
       const int kv0 = t * KR;
+      // bit 8 (jj % 4) + (e & 1) of w[jj / 4] is this thread's column
+      // 8 jj + 2 t4 + (e & 1) of the tile
+      uint32_t w[kWords];
+      bool all = true;
+#pragma unroll
+      for (int c = 0; c < kWords; ++c) {
+        const uint32_t word = __ballot_sync(0xffffffffu, kept[c]);
+        all = all && word == ~0u;
+        w[c] = word >> (2 * t4);
+      }
       // a causal tile wholly at or below the warp's first row needs no test
-      const bool diag = a.causal && kv0 + KR - 1 > row_a - g;
-      if (mask != nullptr || diag) {
+      if (!all || (a.causal && kv0 + KR - 1 > row_a - g)) {
 #pragma unroll
         for (int jj = 0; jj < KR / 8; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = kv0 + jj * 8 + t4 * 2 + (e & 1);
             const int row = e < 2 ? row_a : row_b;
-            const bool keep = (mask == nullptr || mask[col]) &&
-                              (!a.causal || col <= row);
+            const bool keep =
+                ((w[jj >> 2] >> ((jj & 3) * 8 + (e & 1))) & 1u) &&
+                (!a.causal || col <= row);
             if (!keep) s[jj][e] = kNegInf;
           }
       }
@@ -420,6 +454,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   turn_wait();
   score_products(0);
   turn_pass();
+  fetch_mask(0);
   wgmma_wait<0>();
   wgmma_pin(s);
   wgmma_pin(dp);
@@ -430,6 +465,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     dq_product(j - 1);
     score_products(j);
     turn_pass();
+    fetch_mask(j);
     wgmma_wait<0>();
     wgmma_pin(dq);
     wgmma_pin(s);

@@ -46,12 +46,20 @@
 //     (m64n128k16, q and K tiles K-major in 128-byte-swizzled shared
 //     memory) and o += p v with p from the score registers, rounded to
 //     bf16, and the V tile read as it lies through the transpose bit;
-//   * the producer's one thread loads the q tile and then keeps a ring of
-//     3 (K tile, V tile) stages of 128 kv rows (D = 256: below) full by TMA,
-//     through tensor maps that carry the (B, H, S, D) strides as they lie
-//     (views of (B, S, H, D) storage included); it gives its registers
+//   * the producer's one thread loads the q tile and then keeps a K ring
+//     and a V ring of 3 stages of 128 kv rows each (D = 256: below) full by
+//     TMA, through tensor maps that carry the (B, H, S, D) strides as they
+//     lie (views of (B, S, H, D) storage included); K's stage is released
+//     as soon as the score product that read it has completed, before the
+//     softmax, V's after p v, and the producer stages K of tile t before V
+//     of tile t - 1, as K1 does (flash_fwd.cu); it gives its registers
 //     back (setmaxnreg 24) and the consumers take 240. At D = 128 the
-//     block holds q 32 KB + 3 x 64 KB of the 227 KB;
+//     block holds q 32 KB + 3 x (32 + 32) KB of the 227 KB. With 3
+//     stages the split matters less than at D = 256 (below): against one
+//     ring of (K, V) stages it ran the DiT's (1, 24, 16896, 128) level to
+//     4% faster, the 32k LMs' prefills 2% (D = 64) and 6-8% (the 7B's,
+//     D = 128) faster, and the odd case (2, 6, 640, 128) on (2, 2, 1152,
+//     128), 17 us, 1-3% slower (NVIDIA H100 80GB HBM3, 700.00 W);
 //   * the softmax of tile j runs while p v of tile j - 1 is in flight, and
 //     the two warpgroups take turns at queueing their products (named
 //     barriers), so that one's softmax falls under the other's products;
@@ -74,11 +82,19 @@
 // aligned bases; every offset is 64-bit.
 //
 // Head dim 256 (the 12 x 256 FLUX DiT at 2048^2), as K1 takes it
-// (flash_fwd.cu): the 3-stage ring of 128-row kv tiles would need 448 KB of
-// shared memory beside the 64 KB q tile, so the kv tile is 64 rows and the
-// ring 2 stages (q 64 KB + 2 x 64 KB); o is 128 registers a thread, s 32
-// and p 16; s = q k^T is m64n64k16 and o += p v m64n256k16 through the
-// transpose bit. A tile's kv mask is then two ballots of two keys a lane.
+// (flash_fwd.cu): rings of 3 stages of 128-row kv tiles would need 384 KB
+// of shared memory beside the 64 KB q tile, so the kv tile is 64 rows and
+// each ring 2 stages (q 64 KB + 2 x (32 + 32) KB); o is 128 registers a
+// thread, s 32 and p 16; s = q k^T is m64n64k16 and o += p v m64n256k16
+// through the transpose bit. A tile's kv mask is then two ballots of two
+// keys a lane. With 2 stages the split rings matter: K of tile j + 1 is
+// copied once the score product of tile j - 1 is done, in the middle of
+// step j - 1, V of tile j + 1 once p v of tile j - 1 is, a step before p v
+// of tile j + 1 is queued. One ring of (K, V) stages started both copies
+// only when p v of tile j - 1 was done, at the end of step j, just before
+// the score product of tile j + 1 needed K: their latency was exposed,
+// 7.33 against 4.28 ms at (1, 12, 16896, 256) (NVIDIA H100 80GB HBM3,
+// 700.00 W), now under SDPA's 4.56.
 // The lse epilogue is the same at every D (the forward of a 12 x 256 DiT
 // under autograd above MAX_KV_SEQ, and a ring's pairs of more than 8192
 // keys), and no tile overhangs Skv (a multiple of 64).
@@ -101,7 +117,7 @@ namespace {
 constexpr int kTileQ = 128;      // q rows per block: two warpgroups of 64
 constexpr int kConsumers = 256;  // two consumer warpgroups
 
-// kv rows per tile and (K tile, V tile) stages in the ring, by head dim
+// kv rows per tile and stages in each of the K and V rings, by head dim
 template <int D>
 struct Tiles {
   static constexpr int kv = D == 256 ? 64 : 128;
@@ -118,12 +134,13 @@ struct Args {
   float scale_log2e;
 };
 
-// Shared memory of one block: the q tile, the ring, the barriers, and the
-// slack that aligns the tiles to the swizzle's 1024 bytes.
+// Shared memory of one block: the q tile, the K ring, the V ring, their
+// barriers, and the slack that aligns the tiles to the swizzle's 1024
+// bytes.
 template <int D>
 constexpr int smem_bytes() {
   return kTileQ * D * 2 + 2 * Tiles<D>::stages * Tiles<D>::kv * D * 2 +
-         (2 * Tiles<D>::stages + 1) * static_cast<int>(sizeof(uint64_t)) +
+         (4 * Tiles<D>::stages + 1) * static_cast<int>(sizeof(uint64_t)) +
          kSwizzleAtomBytes;
 }
 
@@ -140,10 +157,12 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
   const uint32_t sQ = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
   unsigned char* smem = smem_raw + (sQ - raw);
   const uint32_t sK = sQ + kQBytes, sV = sK + kStages * kTileBytes;
-  uint64_t* full =
+  uint64_t* full_k =
       reinterpret_cast<uint64_t*>(smem + kQBytes + 2 * kStages * kTileBytes);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_full = empty + kStages;
+  uint64_t* empty_k = full_k + kStages;
+  uint64_t* full_v = empty_k + kStages;
+  uint64_t* empty_v = full_v + kStages;
+  uint64_t* q_full = empty_v + kStages;
 
   // NT consumer threads (two warpgroups), then the producer's warpgroup
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
@@ -158,8 +177,10 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
   if (tid == 0) {
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], NT);
+      mbar_init(&full_k[st], 1);
+      mbar_init(&empty_k[st], NT);
+      mbar_init(&full_v[st], 1);
+      mbar_init(&empty_v[st], NT);
     }
     mbar_init(q_full, 1);
     mbar_init_fence();
@@ -171,27 +192,33 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
   // roles never meet again (setmaxnreg needs that).
   if (tid >= NT) {
     setmaxnreg_dec<24>();
-    // The producer: one thread loads the q tile, then keeps the ring
-    // full, up to kStages tiles ahead of the consumers. A stage is two TMA
-    // copies per 64 columns (K rows and V rows of the tile), all
-    // completing on its `full`.
+    // The producer: one thread loads the q tile, then keeps the K and V
+    // rings full, up to kStages tiles ahead of the consumers; a tile is
+    // one TMA copy per 64 columns, completing on its ring's `full`. K of
+    // tile t goes before V of tile t - 1: K's stage comes free as soon as
+    // the score product that read it is done, V's only after p v, so K
+    // runs ahead.
     if (tid == NT) {
       mbar_arrive_expect_tx(q_full, kQBytes);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb)
         tma_load_tile(map_q, sQ + cb * BQ * kSwizzleRowBytes, cb * 64, q0, h,
                       b, q_full);
-#pragma unroll 1
-      for (int t = 0; t < n_tiles; ++t) {
+      auto stage_in = [&](const TileMap& map, uint32_t ring, uint64_t* full,
+                          uint64_t* empty, int t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes);
+        mbar_arrive_expect_tx(&full[st], kTileBytes);
 #pragma unroll
-        for (int cb = 0; cb < D / 64; ++cb) {
-          const uint32_t off = st * kTileBytes + cb * BK * kSwizzleRowBytes;
-          tma_load_tile(map_k, sK + off, cb * 64, t * BK, hkv, b, &full[st]);
-          tma_load_tile(map_v, sV + off, cb * 64, t * BK, hkv, b, &full[st]);
-        }
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_tile(map,
+                        ring + st * kTileBytes + cb * BK * kSwizzleRowBytes,
+                        cb * 64, t * BK, hkv, b, &full[st]);
+      };
+#pragma unroll 1
+      for (int t = 0; t <= n_tiles; ++t) {
+        if (t < n_tiles) stage_in(map_k, sK, full_k, empty_k, t);
+        if (t > 0) stage_in(map_v, sV, full_v, empty_v, t - 1);
       }
     }
     return;
@@ -221,7 +248,7 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
   // s = q k^T for kv tile t, queued and committed
   auto qk_product = [&](int t) {
     const int st = t % kStages;
-    mbar_wait(&full[st], (t / kStages) & 1);
+    mbar_wait(&full_k[st], (t / kStages) & 1);
     const uint64_t k_desc =
         wgmma_desc(sK + st * kTileBytes, 16, kSwizzleAtomBytes);
     wgmma_pin(s);
@@ -245,9 +272,10 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
         o[dn][3] *= al1;
       }
     }
-    const uint64_t v_desc =
-        wgmma_desc(sV + (t % kStages) * kTileBytes, BK * kSwizzleRowBytes,
-                   kSwizzleAtomBytes);
+    const int st = t % kStages;
+    mbar_wait(&full_v[st], (t / kStages) & 1);
+    const uint64_t v_desc = wgmma_desc(
+        sV + st * kTileBytes, BK * kSwizzleRowBytes, kSwizzleAtomBytes);
     wgmma_pin(o);
     wgmma_fence();
 #pragma unroll
@@ -354,10 +382,11 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
 
   // The schedule, per warpgroup, as in K1: the scores of tile j and,
   // behind them, p v of tile j - 1 are queued on the tensor cores; as soon
-  // as the scores are there the softmax of tile j runs while p v of tile
-  // j - 1 is still in flight. The two warpgroups take turns at queueing
-  // their products: named barrier 1 + wg opens warpgroup wg's turn, and
-  // warpgroup 1 opens the first one.
+  // as the scores are there K's stage is released and the softmax of tile
+  // j runs while p v of tile j - 1 is still in flight; V's stage of tile
+  // j - 1 is released when p v is done. The two warpgroups take turns at
+  // queueing their products: named barrier 1 + wg opens warpgroup wg's
+  // turn, and warpgroup 1 opens the first one.
   auto turn_wait = [&]() { named_barrier_sync(1 + wg, NT); };
   auto turn_pass = [&]() { named_barrier_arrive(2 - wg, NT); };
   if (wg == 1) named_barrier_arrive(1, NT);
@@ -366,6 +395,7 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
   turn_pass();
   wgmma_wait<0>();
   wgmma_pin(s);
+  mbar_arrive(&empty_k[0]);
   softmax_tile(0);
   round_p();
 #pragma unroll 1
@@ -376,11 +406,12 @@ __global__ void __launch_bounds__(kConsumers + 128, 1) flash_chunked_kernel(
     turn_pass();
     wgmma_wait<1>();
     wgmma_pin(s);
+    mbar_arrive(&empty_k[j % kStages]);
     softmax_tile(j);
     wgmma_wait<0>();
     wgmma_pin(o);
     wgmma_pin_a(p);
-    mbar_arrive(&empty[(j - 1) % kStages]);
+    mbar_arrive(&empty_v[(j - 1) % kStages]);
     round_p();
   }
   pv_queue(n_tiles - 1);

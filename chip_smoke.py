@@ -39,10 +39,9 @@ Phases, each printing one JSON line per record:
    the f32 DiT's fused glue: K1's
    f32 rope-and-norm instance at (1, 24, 4608, 128) (its o rounded to
    bf16 against the bf16 K1a's on the rounded inputs) beside SDPA in f32,
-   and K5's f32 instance at the DiT's three row counts (its warp body
-   timed beside f32_rows_kernel at 4608 rows) and at 4608 rows x 4096 and
-   6144 beside F.layer_norm in f32; the f32 w8a8 and w4a8 DiT's: K8 on
-   f32 rows bit for bit at every width of the path and on tie rows, K6
+   and K5's f32 instance at the DiT's three row counts and at 4608 rows x
+   4096 and 6144 beside F.layer_norm in f32; the f32 w8a8 and w4a8 DiT's:
+   K8 on f32 rows bit for bit at every width of the path and on tie rows, K6
    and K7 on f32 rows (codes within one step, at most 0.1% flipped,
    scales within 1e-5), also at the 32 x 128 DiT's 4096 and 16384, the
    int8 and w4a8 GEMMs' f32 epilogue bit for bit at the DiT's twelve
@@ -562,6 +561,31 @@ def k1_grid(q_shape, f32: bool = False) -> dict:
             "waves": math.ceil(blocks / (resident * sms))}
 
 
+def dkv_d256(k_shape, q_heads, q_rows, rope: bool, masked: bool,
+             f32: bool, reduce_launches: int):
+    """What a K4 record at head dim 256 carries of the instance that ran:
+    its design (warpgroups by role), the registers ptxas gave it (from the
+    library's build log; ``flash_bwd_dkv_roles_kernel`` <ROPE, MASKED,
+    OutT>), its split (``dkv_splits`` of its 64-row blocks of (B, Hk, Skv,
+    D) keys on this card) and the reduce kernel's launches in one call,
+    which a split's alone has (``reduce_as_split``)."""
+    import torch
+    from x2i_torch.ops import cuda_lib
+    from x2i_torch.ops import flash_attention as fa
+    name = (f"flash_bwd_dkv_roles_kernelILb{int(rope)}ELb{int(masked)}E"
+            f"{'f' if f32 else '13__nv_bfloat16'}E")
+    regs = [r["registers"] for k, r in cuda_lib.ptxas_report(
+        fa.KERNEL_BWD.build_log).items() if name in k]
+    b, hk, skv, _ = k_shape
+    splits = fa.dkv_splits(b * hk * skv // 64, q_heads // hk * q_rows // 64,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    return {"design": "warpgroups by role: s, p and dv; dp, ds and dk",
+            "instance": name, "registers": regs[0] if regs else None,
+            "splits": splits, "reduce_launches": reduce_launches,
+            "reduce_as_split": reduce_launches == int(fa.dkv_reduces(splits))}
+
+
 def check_flash(name, q, k, v, records, tol_max=1e-2, tol_mean=1e-3,
                 library=None, host_time=False, valid_rows=None, **kw):
     """q (B, S, H, D) etc. are passed as (B, H, S, D) views, as the
@@ -631,7 +655,9 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
     delta = fa._delta(o_p, do)
     res = (do, lse_p, delta)
     dq = fa.flash_bwd_dq(q, k, v, *res, **kw)
+    reduces = fa.DKV_REDUCE_LAUNCHES["dkv_reduce"]
     dk, dv = fa.flash_bwd_dkv(q, k, v, *res, **kw)
+    reduces = fa.DKV_REDUCE_LAUNCHES["dkv_reduce"] - reduces
     plain_kw = {n: kw[n] for n in ("causal", "rope") if n in kw}
     dq_p, dk_p, dv_p = fa.flash_backward_plain(
         q, k, v, kw.get("kv_mask"), o_p, lse_p, do, **plain_kw)
@@ -683,6 +709,11 @@ def check_flash_train(label, q, k, v, do, records, library, **kw):
         rec["bound_ms"], rec["bound_by"] = bound(
             flops * pairs * d, nbytes(q, k, v, *res, mask, *tables, *got))
         rate(rec, flops * pairs * d)
+        if name == "flash_bwd_dkv_d256":
+            rec.update(dkv_d256(k.shape, q.shape[1], q.shape[2], "rope" in kw,
+                                mask is not None or kw.get("causal", False),
+                                False, reduces))
+            ok = ok and rec["reduce_as_split"]
         ok = ok and (rec["finite"] and rec["max_rel_err"] <= 2e-2
                      and rec["mean_rel_err"] <= 2e-3)
         out.append((name, rec))
@@ -938,7 +969,7 @@ def _distance(got, want):
 
 
 def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
-                       library, library_name, flops):
+                       library, library_name, flops, info=None):
     """One f32 instance against its f32 plain version: ``fn(*f32_in,
     *rest)`` (the f32 instance: f32 q, k, v (and do) rounded to bf16 on the
     card), the same call on the inputs rounded to bf16 (the bf16 instance)
@@ -951,7 +982,7 @@ def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
     rounded operands). Times: the f32 instance, the plain version and
     ``library``, (fn, inputs) or a time in ms; the bound's bytes are the
     f32 inputs' and outputs', its operations the bf16 products the tensor
-    cores run (989 TFLOP/s)."""
+    cores run (989 TFLOP/s). ``info`` joins the record."""
     import torch
 
     def outs(x):
@@ -981,6 +1012,7 @@ def check_f32_instance(name, label, fn, plain, f32_in, rest, records,
            "library_ms": lib_ms, "library": library_name, "flop": flops}
     if name.startswith("flash_fwd"):
         rec.update(k1_grid(f32_in[0].shape, f32=True))
+    rec.update(info or {})
     rec["bound_ms"], rec["bound_by"] = bound(
         flops, nbytes(*f32_in, *rest, *got))
     rate(rec, flops)
@@ -1036,6 +1068,9 @@ def check_f32_training(g, records, heads: int, d: int, label: str):
     o_p, lse_p = fa.flash_attention_plain(q, k, v, return_lse=True)
     res = [lse_p, fa._delta(o_p, do)]
     del o_p
+    reduces = fa.DKV_REDUCE_LAUNCHES["dkv_reduce"]
+    fa.flash_bwd_dkv(q, k, v, do, *res)
+    reduces = fa.DKV_REDUCE_LAUNCHES["dkv_reduce"] - reduces
     for name, fn, plain, flops in (
             ("flash_bwd_dq_f32", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 6.0),
             ("flash_bwd_dkv_f32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
@@ -1044,7 +1079,14 @@ def check_f32_training(g, records, heads: int, d: int, label: str):
             fa.launch_name(name, d), label, fn, plain, [q, k, v, do], res,
             records, bwd_ms, "SDPA backward, f32: forward + backward by "
             "autograd minus the forward (both kernels' work)",
-            flops * pairs * d)
+            flops * pairs * d,
+            info=(dkv_d256(k.shape, heads, 4608, False, False, True, reduces)
+                  if d == 256 and name == "flash_bwd_dkv_f32" else None))
+    if d == 256 and not records["flash_bwd_dkv_f32_d256"][-1][
+            "reduce_as_split"]:
+        raise AssertionError(f"K4 f32 at D = 256 ran the reduce kernel "
+                             f"without a split: "
+                             f"{records['flash_bwd_dkv_f32_d256'][-1]}")
     del q, k, v, do, res
     torch.cuda.empty_cache()
 
@@ -1257,11 +1299,11 @@ def check_f32_glue(g, records):
     to bf16 is expected to be the bf16 K1a's bit for bit, and is reported),
     SDPA in f32 (no norm, no rope) the library's time; K5 on f32 rows at
     the DiT's three row counts (4096 image, 512 text, 4608 joint) x 3072
-    (the warp body) and at 4608 rows x 4096 (the 32 x 128 DiT's width) and
-    6144 (f32_rows_kernel), rows whose scale spans four decades, against
-    its plain version within 1e-5 relative and absolute (f32 row
-    statistics summed in another order), ``F.layer_norm`` in f32 the
-    library's time."""
+    and at 4608 rows x 4096 (the 32 x 128 DiT's width) and 6144, rows
+    whose scale spans four decades, against its plain version within 1e-5
+    relative and absolute (f32 row statistics summed in another order),
+    ``F.layer_norm`` in f32 the library's time (at batch 1 the same
+    function)."""
     import functools
 
     import torch
@@ -1306,7 +1348,7 @@ def check_f32_glue(g, records):
         ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
         rec = {"phase": "kernels", "kernel": "ln_mod_f32",
                "shape": list(x.shape), "dtype": "float32",
-               "instance": list(fg.f32_instance("ln_mod", width)),
+               "instance": list(fg.f32_instance(width)),
                "max_abs_err": diff.max().item(),
                "mean_abs_err": diff.mean().item(), "within_1e-5": ok,
                "ms": kernel_ms(lambda t: fg.ln_mod(t, shift, scale), x),
@@ -1321,18 +1363,6 @@ def check_f32_glue(g, records):
             10.0 * x.numel(), nbytes(x, got, shift, scale), PEAK_F32_FLOPS)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["gb_per_s"] = nbytes(x, got, shift, scale) / rec["ms"] / 1e6
-        if width == 3072 and rows_n == 4608:
-            # the warp body (launched) and f32_rows_kernel at a block a
-            # row, as wider rows take it: the time of each
-            rows_body = ("rows", 256, 4)
-            wide = fg._launch_f32("ln_mod", x, shift, scale,
-                                  instance=rows_body)
-            rec["rows_body_within_1e-5"] = bool(
-                ((wide - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
-            ok = ok and rec["rows_body_within_1e-5"]
-            rec["ms_by_body"] = {"warp": rec["ms"], "rows": kernel_ms(
-                lambda t: fg._launch_f32("ln_mod", t, shift, scale,
-                                         instance=rows_body), x)}
         emit(rec)
         if not (ok and bool(torch.isfinite(got).all())):
             raise AssertionError(f"ln_mod_f32 disagrees with its plain "
@@ -2184,8 +2214,8 @@ def check_f32_quant_glue(g, recs):
     K7 codes within one step, at most 0.1% of them flipped, and scales
     within 1e-5 relative (f32 row statistics summed in another order; K7's
     exp form of the tanh against PyTorch's tanhf); K6 bit for bit K8 after
-    K5 on f32 rows where K5 takes f32_rows_kernel too (above 3072: one
-    LayerNorm + modulate in both; reported at 3072). Each counts one
+    K5 on f32 rows at every width (K5's group and order of sums are K6's:
+    one LayerNorm + modulate in both). Each counts one
     launch under its ``_f32`` name; timed beside the bound (bytes: the
     f32 rows and modulation rows read once, the codes and scales written
     once) and, at ``F32_GLUE_MAIN``'s cases, the plain version. No one
@@ -2225,7 +2255,7 @@ def check_f32_quant_glue(g, recs):
         scale_rel = ((a - ap).abs() / ap).max().item()
         rec = {"phase": "kernels", "kernel": key, "case": label,
                "shape": list(x.shape), "dtype": "float32",
-               "instance": list(fg.f32_instance(name, shape[-1])),
+               "instance": list(fg.f32_instance(shape[-1])),
                "max_abs_err": (q.float() * a - qp.float() * ap).abs().max()
                .item(),
                "max_code_diff": int(d.max()), "codes_flipped": int(
@@ -2249,8 +2279,7 @@ def check_f32_quant_glue(g, recs):
             q8, a8 = fg.quant_rows(fg.ln_mod(*inputs))
             rec["k8_after_k5_exact"] = (torch.equal(q, q8)
                                         and torch.equal(a, a8))
-            if fg.f32_instance("ln_mod", shape[-1])[0] == "rows":
-                ok = ok and rec["k8_after_k5_exact"]
+            ok = ok and rec["k8_after_k5_exact"]
         emit(rec)
         if not ok:
             raise AssertionError(f"{key} disagrees with its plain version "

@@ -100,7 +100,8 @@ def test_build_faults(case):
 
 def test_flash_libraries_gate_their_wgmma_kernels():
     """Every instance, and by name the head dim 256 instances of K1, K2,
-    K3 and K4 (and K4's reduce kernel at 256), K1's f32 rope-and-norm
+    K3 and K4 (K4's roles kernel in each of its six instances, <ROPE,
+    MASKED, OutT>, and K4's reduce kernel at 256), K1's f32 rope-and-norm
     instance at D = 128 and K1's D = 64 grid instance at three blocks an
     SM (mangled template arguments <D, WGS, MINB, ROPE, BODY, float>)."""
     from x2i_torch.ops import flash_attention as tfa
@@ -108,9 +109,13 @@ def test_flash_libraries_gate_their_wgmma_kernels():
         "flash_fwd_kernel", "flash_fwd_kernelILi256E",
         "flash_fwd_kernelILi128ELi2ELi1ELb1ELi0EfE",
         "flash_fwd_kernelILi64ELi1ELi3E")
+    roles = "flash_bwd_dkv_roles_kernelI"
     assert tfa.KERNEL_BWD.wgmma_kernels == (
         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-        "flash_bwd_dq_kernelILi256E", "flash_bwd_dkv_kernelILi256E")
+        "flash_bwd_dq_kernelILi256E",
+        f"{roles}Lb0ELb0E13__nv_bfloat16E", f"{roles}Lb0ELb1E13__nv_bfloat16E",
+        f"{roles}Lb1ELb0E13__nv_bfloat16E", f"{roles}Lb1ELb1E13__nv_bfloat16E",
+        f"{roles}Lb0ELb0EfE", f"{roles}Lb0ELb1EfE")
     assert tfa.KERNEL_BWD.gated_kernels == tfa.KERNEL_BWD.wgmma_kernels + (
         "round_rows_kernel", "dkv_reduce_kernelILi256E")
     assert tfa.KERNEL_CHUNKED.wgmma_kernels == ("flash_chunked_kernel",
@@ -203,8 +208,8 @@ def test_build_faults_of_the_chunked_and_gemm_libraries(library, case):
 # the row glue library's kernels (K5, K6 and K8's warp body, K5's and K6's
 # generic instance, K7's and K8's ring kernel and their generic one, then
 # K8's halves: the row absmax and the codes at a given absmax, warp body
-# and generic; then the f32 instances: K5's warp body and f32_rows_kernel
-# for K5, K6, K8 and K7 at 4 and 16 chunks a thread),
+# and generic; then the f32 instances: f32_rows_kernel for K5, K6, K8 and
+# K7 at 4 and 16 chunks a thread),
 # named as nvcc 12 mangles them; none is built on wgmma
 _ROW_TU = "_ZN49_GLOBAL__N__5c1e07a2_11_row_glue_cu_8d2f6b41"
 ROW_GLUE_KERNELS = (
@@ -219,7 +224,6 @@ ROW_GLUE_KERNELS = (
     f"{_ROW_TU}20quant_at_warp_kernelENS_7RowArgsE",
     *(f"{_ROW_TU}17quant_rows_kernelILb0ELi{op}EEEvNS_7RowArgsE"
       for op in (3, 4)),
-    f"{_ROW_TU}17ln_mod_f32_kernelENS_10F32RowArgsE",
     *(f"{_ROW_TU}15f32_rows_kernelILi{op}ELi{c}EEEvNS_10F32RowArgsE"
       for op in (0, 1, 2, 5) for c in (4, 16)))
 
@@ -253,10 +257,10 @@ ROW_GLUE_CASES = {
                           ["register count"]),
     "f32 K7 spilled": (_row_glue_log(spill=ROW_GLUE_KERNELS[-1]),
                        ["spills"]),
-    "f32 K5 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[13:14]),
-                       ["ln_mod_f32_kernel"]),
-    "f32 rows kernel missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[14:]),
-                                ["f32_rows_kernel"]),
+    "f32 K5 missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[13:15]),
+                       ["f32_rows_kernelILi0E"]),
+    "f32 rows kernel missing": (_row_glue_log(drop=ROW_GLUE_KERNELS[13:]),
+                                ["f32_rows_kernel", "f32_rows_kernelILi0E"]),
 }
 
 
@@ -308,13 +312,15 @@ def test_row_glue_library_gates_every_kernel():
     assert tfg.ROW_GLUE.gated_kernels == (
         "ln_mod_kernel", "ln_mod_quant_kernel", "quant_warp_kernel",
         "ln_mod_rows_kernel", "quant_ring_kernel", "quant_rows_kernel",
-        "row_amax_warp_kernel", "quant_at_warp_kernel", "ln_mod_f32_kernel",
-        "f32_rows_kernel")
-    # no gated name is a part of another kernel's, so each names its own
+        "row_amax_warp_kernel", "quant_at_warp_kernel", "f32_rows_kernel",
+        "f32_rows_kernelILi0E")
+    # no gated kernel name is a part of another kernel's, so each names
+    # its own (K5's f32 instances: the template arguments <0, C> of one)
     for gated in tfg.ROW_GLUE.gated_kernels:
+        ident = gated.split("ILi")[0]
         assert [n for n in ROW_GLUE_KERNELS
                 if gated in n] == [n for n in ROW_GLUE_KERNELS
-                                   if f"{len(gated)}{gated}" in n]
+                                   if f"{len(ident)}{gated}" in n]
     assert tfg.ROW_GLUE.src.name == "row_glue.cu" and tfg.ROW_GLUE.src.exists()
 
 

@@ -397,34 +397,31 @@ def test_quant_instance_follows_the_width(d):
                                     and (lanes == 1 or lanes * 4 < d))
 
 
-# width -> the f32 instance of (K5, K6-K8): K5's warp body up to 3072,
-# else f32_rows_kernel at one 16-byte chunk a thread up to a block of 256
-# a row, then 4 or 16 chunks a thread in registers
+# width -> the f32 instance of K5-K8, (threads a row, chunks a thread):
+# one 16-byte chunk a thread up to a block of 256 a row, then 4 or 16
+# chunks a thread in registers
 F32_INSTANCES = {
-    64: (("warp", 32, 24), ("rows", 16, 4)),
-    256: (("warp", 32, 24), ("rows", 64, 4)),
-    768: (("warp", 32, 24), ("rows", 256, 4)),
-    3072: (("warp", 32, 24), ("rows", 256, 4)),
-    3076: (("rows", 256, 4), ("rows", 256, 4)),
-    4096: (("rows", 256, 4), ("rows", 256, 4)),
-    6144: (("rows", 256, 16), ("rows", 256, 16)),
-    12288: (("rows", 256, 16), ("rows", 256, 16)),
-    16384: (("rows", 256, 16), ("rows", 256, 16)),
-    16388: (("rows", 256, 16), ("rows", 256, 16)),
+    64: (16, 4),
+    256: (64, 4),
+    768: (256, 4),
+    3072: (256, 4),
+    3076: (256, 4),
+    4096: (256, 4),
+    6144: (256, 16),
+    12288: (256, 16),
+    16384: (256, 16),
+    16388: (256, 16),
 }
 
 
 @pytest.mark.parametrize("d", list(F32_INSTANCES))
 def test_f32_instance_follows_the_width(d):
-    """K5-K8's f32 instances by width: every width that is a multiple of
-    4 has one (no limit), K5 keeps its warp body up to 3072."""
-    k5, rest = F32_INSTANCES[d]
-    assert tfg.f32_instance("ln_mod", d) == k5
-    for name in ("ln_mod_quant", "quant_rows", "gelu_quant"):
-        assert tfg.f32_instance(name, d) == rest
-    for kind, lanes, chunks in (k5, rest):
-        assert kind in tfg.F32_KINDS and 256 % lanes == 0
-        assert kind == "warp" or chunks in (4, 16)
+    """K5-K8's f32 instance by width: every width that is a multiple of 4
+    has one (no limit), the same for every op (K5's order of sums is K6's:
+    K6 is bit for bit K8 after K5)."""
+    assert tfg.f32_instance(d) == F32_INSTANCES[d]
+    lanes, chunks = F32_INSTANCES[d]
+    assert 256 % lanes == 0 and chunks in (4, 16)
 
 
 @pytest.mark.parametrize("name", ["row_absmax", "quant_rows_at"])
@@ -547,13 +544,48 @@ def test_fwd_instance(case):
 
 @pytest.mark.parametrize("label", list(d256v.CASES))
 def test_d256_variant_cases_are_kernel_shapes(label):
-    """Each case of the K2 / K3 variants tool is a shape its kernel takes
-    (K2: Sq and Skv multiples of 64; K3: of 128), in a dtype the kernels
-    have and with an input the tool knows how to make."""
+    """Each case of the K2 / K3 / K4 / K5 variants tool is a shape its
+    kernel takes (K2: Sq and Skv multiples of 64; K3 and K4: of 128; K5:
+    f32 rows of a width that is a multiple of 4, on the wrapper's instance
+    or one it takes), in a dtype the kernels have and with an input the
+    tool knows how to make."""
+    if d256v.CASES[label][0] == "k5":
+        _, b, rows, width, instance = d256v.CASES[label]
+        lanes, chunks = instance or tfg.f32_instance(width)
+        assert b * rows > 0 and width % 4 == 0
+        assert 256 % lanes == 0 and chunks in (4, 16)
+        return
     kernel, b, hq, hk, sq, skv, d, dtype, what = d256v.CASES[label]
     check = tfa.check_shapes if kernel == "k2" else tfa.check_kernel_shapes
     k = (b, hk, skv, d)
     assert check((b, hq, sq, d), k, k) == (b, hq, hk, sq, skv, d)
     assert dtype in ("bf16", "f32")
     assert what in {"k2": ("plain", "lse", "lm", "odd"),
-                    "k3": ("plain", "rope", "pad", "lm")}[kernel]
+                    "k3": ("plain", "rope", "pad", "lm"),
+                    "k4": ("plain", "rope", "pad", "lm")}[kernel]
+
+
+# K4's launches: (B, q heads, kv heads, S, D) -> (splits, whether the
+# reduce kernel runs) on an H100's 132 SMs; kv blocks of 64 rows at
+# D = 256, 128 below. With rope or without, a launch without a split
+# writes dk and dv itself (at D = 256 the warpgroup that keeps dk holds
+# each column's rotation partner and counter-rotates it in registers).
+DKV_LAUNCHES = {
+    "12 x 256 DiT, rope in the kernel": ((1, 12, 12, 4608, 256), (1, False)),
+    "12 x 256 ring shard, rope": ((1, 12, 12, 1152, 256), (1, False)),
+    "FLUX 24 x 128, rope": ((1, 24, 24, 4608, 128), (1, False)),
+    "LM 14 on 2 kv heads x 64": ((1, 14, 2, 512, 64), (14, True)),
+    "small grid at D = 256, rope": ((1, 2, 2, 512, 256), (8, True)),
+    "small grid at D = 128": ((1, 2, 2, 256, 128), (4, True)),
+}
+
+
+@pytest.mark.parametrize("case", list(DKV_LAUNCHES))
+def test_dkv_reduces_with_a_split_alone(case):
+    """K4's split (``dkv_splits`` over its blocks) and the reduce kernel
+    behind it (``dkv_reduces``): f32 partial sums with a split alone, at
+    every head dim, with rope or without."""
+    (b, hq, hk, s, d), want = DKV_LAUNCHES[case]
+    rows = 64 if d == 256 else 128
+    splits = tfa.dkv_splits(s // rows * hk * b, hq // hk * s // 64, H100_SMS)
+    assert (splits, tfa.dkv_reduces(splits)) == want

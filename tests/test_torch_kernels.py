@@ -218,8 +218,8 @@ def _grad_close(got, want):
 # K3 and K4 stream 64-row tiles through a ring of four stages, which wraps
 # above 256 rows; K4 splits its stages over the grid where its 128-row kv
 # blocks are fewer than the card's SMs (every case but the "wide" ones).
-# At D = 256 K3's ring is 3 stages of 32 kv rows and K4's blocks 64 rows
-# (its rope cases write partial sums that the reduce kernel rotates).
+# At D = 256 K3's ring is 3 stages of 32 kv rows and K4's blocks 64 rows,
+# its warpgroups by role (the "wide" cases take no split).
 LSE_CASES = {
     "plain": (256, 3, 3, "strided", 2),
     "mask-causal-gqa": (256, 6, 2, "strided", 2),
@@ -284,6 +284,41 @@ def test_flash_lse_and_backward_kernels(dev, d, case):
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]
             } == {tfa.launch_name(n, d): 1 for n in (
                 "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rope", "rope-mask-causal"])
+def test_dkv_d256_rope_without_a_split_writes_dk_itself(dev, case):
+    """K4 at D = 256 with the rope inside and no split (the ring shard's
+    216 blocks of 64 kv rows): the warpgroup that keeps dk holds each
+    column's rotation partner and counter-rotates it in registers, so the
+    launch allocates no f32 partial sums (its peak is below their bytes:
+    the outputs and the rotated Q alone) and launches no reduce kernel;
+    dk and dv against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, h, s, d = 1, 12, 1152, 256
+    q, k, v, do = (_layout(_randn(g, dev, b, s, h, d), "strided")
+                   for _ in range(4))
+    kw = {"rope": _tables(s, d, dev)}
+    if "mask" in case:
+        kw.update(kv_mask=torch.arange(s, device=dev)[None] < s - 56,
+                  causal=True)
+    o, lse = tfa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = tfa._delta(o, do)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tfa.dkv_splits(b * h * s // 64, s // 64, sms) == 1
+    partial_bytes = 2 * b * h * s * d * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(tfa.DKV_REDUCE_LAUNCHES)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < partial_bytes
+    assert tfa.DKV_REDUCE_LAUNCHES == before
+    for got, want in zip((dk, dv), tfa.flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta, **kw)):
+        _grad_close(got, want)
 
 
 def _valid_rows(mask, causal, sq):
@@ -1071,11 +1106,13 @@ def test_ln_mod_kernel_spans(dev, case):
     assert torch.equal(got, y * (1.0 + scale[:, None]) + shift[:, None])
 
 
-# K5's f32 instances: case -> (B, S, D). Up to 3072 the warp body, above
-# it f32_rows_kernel (a block a row, 4 or 16 chunks a thread in
-# registers, past 16384 the rest read again from memory)
+# K5's f32 instances: case -> (B, S, D). f32_rows_kernel, K6's group of
+# threads a row (a block a row from D = 1024 on), 4 or 16 chunks a thread
+# in registers, past 16384 the rest read again from memory
 LN_MOD_F32_CASES = {
     "4608 rows": (1, 4608, 3072),
+    "4096 rows": (1, 4096, 3072),
+    "512 rows": (1, 512, 3072),
     "B 2, odd S, spans cross the batch": (2, 2305, 3072),
     "1 row": (1, 1, 3072),
     "D 64": (3, 257, 64),
@@ -1090,11 +1127,11 @@ LN_MOD_F32_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(LN_MOD_F32_CASES))
 def test_ln_mod_f32_kernel(dev, case):
-    """K5 on f32 rows (up to 3072 one warp a row, the row in registers;
-    above it f32_rows_kernel) against the plain version in f32, on strided
-    chunk(6) modulation rows and rows whose scale spans four decades:
-    within 1e-5 relative and absolute (the row statistics are f32 sums in
-    another order); one launch of ``ln_mod_f32``. f16 is refused."""
+    """K5 on f32 rows (f32_rows_kernel) against the plain version
+    in f32, on strided chunk(6) modulation rows and rows whose scale spans
+    four decades: within 1e-5 relative and absolute (the row statistics
+    are f32 sums in another order); one launch of ``ln_mod_f32``. f16 is
+    refused."""
     b, s, d = LN_MOD_F32_CASES[case]
     g = torch.Generator(device=dev).manual_seed(s + d)
     x = _rows(g, dev, b, s, d).float()
@@ -1858,7 +1895,7 @@ def test_f32_quant_rows_kernel_is_exact(dev, case, ties):
     assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
     if shape[-1] == 3072:
         for lanes in (32, 256):
-            q, a = tfg._quant_rows_cuda(x, instance=("rows", lanes, 16))
+            q, a = tfg._quant_rows_cuda(x, instance=(lanes, 16))
             assert torch.equal(q, q_plain) and torch.equal(a, a_plain)
 
 
@@ -1888,9 +1925,9 @@ def test_f32_ln_mod_quant_kernel(dev, case):
     """K6 on f32 rows against its f32 plain version (codes within one
     step, at most 0.1% flipped, scales within 1e-5 relative: the row
     statistics are f32 sums in another order), on strided chunk(6)
-    modulation rows; above 3072, where K5 takes f32_rows_kernel too, bit
-    for bit ``quant_rows(ln_mod(x, shift, scale))`` on the card (one
-    LayerNorm + modulate in both); one launch each."""
+    modulation rows; at every width bit for bit ``quant_rows(ln_mod(x,
+    shift, scale))`` on the card (K5's group and order of sums are K6's:
+    one LayerNorm + modulate in both); one launch each."""
     b, s, d = F32_GLUE_CASES[case]
     g = torch.Generator(device=dev).manual_seed(b + s + d)
     x = _rows32(g, dev, b, s, d)
@@ -1903,9 +1940,8 @@ def test_f32_ln_mod_quant_kernel(dev, case):
     want = tfg.ln_mod_quant_plain(x, shift, scale)
     _codes_close(got, want, 1e-3)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
-    if d > tfg.F32_WARP_D:
-        q, a = tfg.quant_rows(tfg.ln_mod(x, shift, scale))
-        assert torch.equal(got[0], q) and torch.equal(got[1], a)
+    q, a = tfg.quant_rows(tfg.ln_mod(x, shift, scale))
+    assert torch.equal(got[0], q) and torch.equal(got[1], a)
 
 
 @pytest.mark.cuda

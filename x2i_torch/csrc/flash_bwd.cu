@@ -57,7 +57,7 @@
 //     before and the score products of this one (K4: once the former are
 //     done), then computes p and ds of this stage while the other
 //     warpgroup's products run: the two take turns at queueing through
-//     named barriers, as in K1;
+//     named barriers, as in K1 (K3, and K4 up to D = 128);
 //   * K3: one block per (128-row q tile, q head, batch); each warpgroup
 //     owns 64 q rows, its q and do tiles stay in shared memory, the ring
 //     brings (K tile, V tile) stages. Up to D = 128 the ring holds 4
@@ -80,20 +80,41 @@
 //     ring (0.558 with the ballots);
 //   * K4: one block per (kv tile, kv head, batch), its K and V tiles
 //     resident, the ring bringing (q tile, do tile, lse, delta) stages of
-//     64 q rows over every (head of the group, q tile) pair, with no round
-//     trip of p or ds through shared memory. Up to D = 128 the block is 128
-//     kv rows in 4 stages and each warpgroup owns 64 of them, all D columns:
-//     dk 64, dv 64, s 32, dp 32, then p and ds as bf16 A operands (16 + 16)
-//     as s and dp die (at D = 128). At D = 256, dk and dv of 64 rows would
-//     be 256 registers a thread, over setmaxnreg's 240: the block is 64 kv
-//     rows (resident 64 KB, 2 stages of 64.5 KB) that both warpgroups take,
-//     each owning half of dk's and dv's columns (64 + 64 registers, as at
-//     D = 128) and each computing the whole s and dp over D (those two
-//     products are done twice: 6 products' work where 4 would do). Every
-//     thread runs the same code, so that no product is queued under a
-//     condition. A thread then holds column j of dk but not its rotation
-//     partner j + 128, so with rope K4 at D = 256 writes f32 partial sums
-//     and the split's reduce kernel counter-rotates (dkv_reduces);
+//     64 q rows over every (head of the group, q tile) pair. Up to D = 128
+//     the block is 128 kv rows in 4 stages and each warpgroup owns 64 of
+//     them, all D columns: dk 64, dv 64, s 32, dp 32, then p and ds as bf16
+//     A operands (16 + 16) as s and dp die (at D = 128), with no round trip
+//     of p or ds through shared memory;
+//   * K4 at D = 256 (flash_bwd_dkv_roles_kernel): dk and dv of 64 rows
+//     would be 256 registers a thread, over setmaxnreg's 240, so the block
+//     is 64 kv rows (resident 64 KB) and its two warpgroups split the work
+//     by role. Warpgroup 0 computes s^T = k q^T and p^T, and keeps all 256
+//     columns of dv += bf16(p)^T do; warpgroup 1 computes dp^T = v do^T
+//     and ds^T = p^T (dp^T - delta) scale, and keeps all 256 columns of
+//     dk += bf16(ds)^T q (each gradient 128 registers, m64n256k16
+//     products). JAX's ds takes the f32 p, so warpgroup 0 hands p^T over
+//     in f32 through one of two 16 KB buffers in shared memory, each
+//     thread of warpgroup 1 reading what the thread of its index in
+//     warpgroup 0 wrote, under two named barriers a buffer (written,
+//     read): 4 products' work a stage, as JAX's body. Each role is its own
+//     body with its own fence / commit / wait sequence. The stages come in
+//     two rings of 2 (231,488 bytes of the 232,448 in all): q tiles with
+//     their lse rows and do tiles with their delta rows, each with its own
+//     barriers, so that warpgroup 0's scores wait for the q tile alone and
+//     warpgroup 1's dp for the do tile, and each tile goes back to the
+//     producer as soon as its two products are done (a stage's gradient
+//     products are queued before the next stage's score products). At
+//     (1, 12, 4608, 256) on an H100 (PERF.md) that ran 0.867 ms
+//     against 1.070 for both warpgroups on every row and half of the
+//     columns (6 products' work); one (q, do) ring 0.883, and 1.11 with
+//     each stage given back only after the next one's scores; 32-row
+//     stages in rings of 4 1.02 (m64n32k16 scores read twice the shared
+//     memory a product); warpgroup 1 computing s and p itself (5 products,
+//     no exchange) 0.982; the dk product queued ahead of the dv or the
+//     score product 0.99-1.06; the stages multicast to a cluster of two kv
+//     blocks 1.78. A thread of warpgroup 1 holds dk's columns j and j + 128
+//     of its rows, so with rope it counter-rotates dk in registers, as at
+//     D = 128;
 //   * K4 at a small grid (fewer blocks than the card has SMs: the LM's 2
 //     kv heads x 512 tokens give 8) splits the (group x q tiles) loop over
 //     a grid dimension; each split writes f32 partial dk and dv into a
@@ -135,12 +156,10 @@ struct DqTiles {
   static constexpr int stages = D == 256 ? 3 : 4;
 };
 
-// K4's tiles at head dim D: kv rows of a block, the dk and dv columns a
-// warpgroup owns, and the ring's stages.
+// K4's tiles at head dim D: kv rows of a block and the ring's stages.
 template <int D>
 struct DkvTiles {
   static constexpr int block = D == 256 ? 64 : 128;
-  static constexpr int cols = D == 256 ? D / 2 : D;
   static constexpr int stages = D == 256 ? 2 : 4;
 };
 
@@ -502,52 +521,93 @@ __device__ __forceinline__ void store_rows_f32(float* base,
   }
 }
 
-// K4's epilogue: dk and dv of the thread's rows and columns,
+// The f32 partial sums of a K4 block's split, (2, splits, B, Hk, Skv, D):
+// where rows of dk (which 0) or dv (which 1) of this block's (split, b,
+// kv head) start.
+template <int D>
+__device__ __forceinline__ float* partial_rows(const BwdArgs& a, int3 blk,
+                                               int which) {
+  const int hk = blk.y, b = blk.z / a.splits, split = blk.z % a.splits;
+  const long long half =
+      static_cast<long long>(gridDim.z) * gridDim.y * a.skv * D;
+  return a.partial + which * half +
+         ((static_cast<long long>(split) * (gridDim.z / a.splits) + b) *
+              gridDim.y + hk) * a.skv * D;
+}
+
+// K4's epilogue up to D = 128: dk and dv of the thread's rows,
 // counter-rotated and written as OutT (bf16: rounded), or as f32 partial
-// sums, (2, splits, B, Hk, Skv, D), for the reduce kernel. It derives its
-// rows and pointers from the indices read anew: at D = 128 the main loop
-// has no register to spare for them.
+// sums for the reduce kernel. It derives its rows and pointers from the
+// indices read anew: at D = 128 the main loop has no register to spare for
+// them.
 template <int D, bool ROPE, typename OutT>
-__device__ __forceinline__ void store_dkv(
-    float (&dk)[DkvTiles<D>::cols / 8][4],
-    float (&dv)[DkvTiles<D>::cols / 8][4], const BwdArgs& a) {
-  constexpr int BR = DkvTiles<D>::block, DO = DkvTiles<D>::cols;
+__device__ __forceinline__ void store_dkv(float (&dk)[D / 8][4],
+                                          float (&dv)[D / 8][4],
+                                          const BwdArgs& a) {
+  constexpr int BR = DkvTiles<D>::block;
   const int tid = read_tid();
   const int3 blk = read_ctaid();
   const int lane = tid % 32, t4 = lane & 3, wg = tid / 128;
-  const int hk = blk.y, b = blk.z / a.splits, split = blk.z % a.splits;
-  const int row_a = blk.x * BR + (DO < D ? 0 : wg * 64) +
-                    (tid % 128) / 32 * 16 + (lane >> 2);
-  const int row_b = row_a + 8, col = DO < D ? wg * DO : 0;
+  const int hk = blk.y, b = blk.z / a.splits;
+  const int row_a = blk.x * BR + wg * 64 + (tid % 128) / 32 * 16 +
+                    (lane >> 2);
+  const int row_b = row_a + 8;
   if (a.partial != nullptr) {
-    const long long half =
-        static_cast<long long>(gridDim.z) * gridDim.y * a.skv * D;
-    float* part = a.partial +
-                  ((static_cast<long long>(split) * (gridDim.z / a.splits) +
-                    b) * gridDim.y + hk) * a.skv * D + col;
-    store_rows_f32<DO, D>(part, dk, row_a, row_b, t4);
-    store_rows_f32<DO, D>(part + half, dv, row_a, row_b, t4);
+    store_rows_f32<D, D>(partial_rows<D>(a, blk, 0), dk, row_a, row_b, t4);
+    store_rows_f32<D, D>(partial_rows<D>(a, blk, 1), dv, row_a, row_b, t4);
     return;
   }
   // dv first: its registers are free while dk is counter-rotated
-  store_rows<DO>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh + col,
-                 a.dv_ss, dv, row_a, row_b, t4);
-  // with columns split (D = 256) rope always takes the partial sums
-  if constexpr (DO == D) {
-    if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
+  store_rows<D>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh,
+                a.dv_ss, dv, row_a, row_b, t4);
+  if (ROPE) counter_rotate<D>(dk, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
+  store_rows<D>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh,
+                a.dk_ss, dk, row_a, row_b, t4);
+}
+
+// One thread of K4's producer warpgroup up to D = 128: the (q tile, do
+// tile, lse, delta) stages of the block's share, the n stages from
+// `first` on of its (head of the group, q tile) pairs, each into ring slot
+// t % STAGES once the consumers have freed it.
+template <int D>
+__device__ __forceinline__ void produce_dkv(
+    const TileMap& map_q, const TileMap& map_do, const BwdArgs& a,
+    uint32_t sQ, uint32_t sDO, uint32_t sL, uint32_t sDl, uint64_t* full,
+    uint64_t* empty, int hk, int b, int first, int nq, int n) {
+  constexpr int STAGES = DkvTiles<D>::stages;
+  constexpr uint32_t kTileBytes = kRows * D * 2, kVecBytes = kRows * 4;
+#pragma unroll 1
+  for (int t = 0; t < n; ++t) {
+    const int st = t % STAGES;
+    if (t >= STAGES) mbar_wait(&empty[st], (t / STAGES - 1) & 1);
+    mbar_arrive_expect_tx(&full[st], 2 * kTileBytes + 2 * kVecBytes);
+    const int idx = first + t, h = hk * a.group + idx / nq;
+    const int q_row = (idx % nq) * kRows;
+    tma_stage<D, kRows>(map_q, map_do, sQ + st * kTileBytes,
+                        sDO + st * kTileBytes, q_row, h, b, &full[st]);
+    const long long r = (static_cast<long long>(b) * a.hq + h) * a.sq +
+                        q_row;
+    bulk_load(sL + st * kVecBytes, a.lse + r, kVecBytes, &full[st]);
+    bulk_load(sDl + st * kVecBytes, a.delta + r, kVecBytes, &full[st]);
   }
-  store_rows<DO>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh + col,
-                 a.dk_ss, dk, row_a, row_b, t4);
+}
+
+// q column c of a stage is masked for kv row `row` where c < key(row) - the
+// stage's first q row: every column when the kv mask drops the row, the
+// columns before it under the causal mask, none otherwise.
+__device__ __forceinline__ int masked_below(const BwdArgs& a,
+                                            const unsigned char* mask,
+                                            int row) {
+  constexpr int kAll = 1 << 30, kNone = -(1 << 30);
+  return mask != nullptr && !mask[row] ? kAll : a.causal ? row : kNone;
 }
 
 template <int D, bool ROPE, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ TileMap map_q,
     const __grid_constant__ TileMap map_do, BwdArgs a) {
-  constexpr int BR = DkvTiles<D>::block, DO = DkvTiles<D>::cols;
-  constexpr int kStages = DkvTiles<D>::stages;
-  // both warpgroups on the block's rows, each on half of the columns
-  constexpr bool kSplitCols = DO < D;
+  static_assert(D <= 128, "D = 256 takes flash_bwd_dkv_roles_kernel");
+  constexpr int BR = DkvTiles<D>::block, kStages = DkvTiles<D>::stages;
   constexpr uint32_t kResBytes = BR * D * 2;
   constexpr uint32_t kTileBytes = kRows * D * 2;
   constexpr uint32_t kVecBytes = kRows * 4;     // lse or delta of a stage
@@ -584,23 +644,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
 
   if (tid >= kConsumers) {
     setmaxnreg_dec<24>();
-    // the producer: (q tile, do tile, lse, delta) stages
-    if (tid == kConsumers) {
-#pragma unroll 1
-      for (int t = 0; t < n; ++t) {
-        const int st = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[st], 2 * kTileBytes + 2 * kVecBytes);
-        const int idx = first + t, h = hk * a.group + idx / nq;
-        const int q_row = (idx % nq) * kRows;
-        tma_stage<D, kRows>(map_q, map_do, sQ + st * kTileBytes,
-                            sDO + st * kTileBytes, q_row, h, b, &full[st]);
-        const long long r = (static_cast<long long>(b) * a.hq + h) * a.sq +
-                            q_row;
-        bulk_load(sL + st * kVecBytes, a.lse + r, kVecBytes, &full[st]);
-        bulk_load(sDl + st * kVecBytes, a.delta + r, kVecBytes, &full[st]);
-      }
-    }
+    if (tid == kConsumers)
+      produce_dkv<D>(map_q, map_do, a, sQ, sDO, sL, sDl, full, empty, hk, b,
+                     first, nq, n);
     return;
   }
 
@@ -610,38 +656,24 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
                              a.v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a,
                              1.f, smem, sK, sV, tid);
 
-  // q column c of a stage is masked for kv row r where c < key(r) - the
-  // stage's first q row: every column when the kv mask drops r, the
-  // columns before r under the causal mask, none otherwise
   int key_a = 0, key_b = 0;
   if (MASKED) {
-    const int row_a = k0 + (kSplitCols ? 0 : wg * 64) + warp * 16 + g;
-    const int row_b = row_a + 8;
+    const int row_a = k0 + wg * 64 + warp * 16 + g;
     const unsigned char* mask =
         a.mask != nullptr ? a.mask + b * a.mask_sb : nullptr;
-    constexpr int kAll = 1 << 30, kNone = -(1 << 30);
-    key_a = mask != nullptr && !mask[row_a] ? kAll : a.causal ? row_a : kNone;
-    key_b = mask != nullptr && !mask[row_b] ? kAll : a.causal ? row_b : kNone;
+    key_a = masked_below(a, mask, row_a);
+    key_b = masked_below(a, mask, row_a + 8);
   }
   // The descriptor of this warpgroup's 64 rows of a resident tile, made
-  // anew in every stage from the thread index read anew (with the columns
-  // split, from the tile's address made opaque): descriptors kept across
-  // the loop are kept with all their k steps, and at D = 128 and 256 the
+  // anew in every stage from the thread index read anew: descriptors kept
+  // across the loop are kept with all their k steps, and at D = 128 the
   // loop has no registers for them (ptxas spilled them).
   auto resident_desc = [&](uint32_t tile) {
-    return wgmma_desc(
-        kSplitCols ? opaque(tile)
-                   : tile + (read_tid() / 128) * 64 * kSwizzleRowBytes,
-        16, kSwizzleAtomBytes);
-  };
-  // This warpgroup's first column block of a stage tile, likewise.
-  auto own_cols = [&](uint32_t tile) {
-    return tile + (kSplitCols ? (read_tid() / 128) * (DO / 64) * kRows *
-                                    kSwizzleRowBytes
-                              : 0);
+    return wgmma_desc(tile + (read_tid() / 128) * 64 * kSwizzleRowBytes, 16,
+                      kSwizzleAtomBytes);
   };
 
-  float dk[DO / 8][4], dv[DO / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
+  float dk[D / 8][4], dv[D / 8][4], s[kRows / 8][4], dp[kRows / 8][4];
   uint32_t pa[kRows / 16][4], da[kRows / 16][4];
   zero(dk);
   zero(dv);
@@ -661,15 +693,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
         wgmma_desc(sDO + st * kTileBytes, 16, kSwizzleAtomBytes));
     wgmma_commit();
   };
-  // dv += bf16(p)^T do and dk += bf16(ds)^T q for stage t, over the
-  // warpgroup's columns
+  // dv += bf16(p)^T do and dk += bf16(ds)^T q for stage t
   auto kv_products = [&](int t) {
     const int st = t % kStages;
     wgmma_pin(dk);
     wgmma_pin(dv);
     wgmma_fence();
-    grad_product<DO, kRows>(dv, pa, own_cols(sDO + st * kTileBytes));
-    grad_product<DO, kRows>(dk, da, own_cols(sQ + st * kTileBytes));
+    grad_product<D, kRows>(dv, pa, sDO + st * kTileBytes);
+    grad_product<D, kRows>(dk, da, sQ + st * kTileBytes);
     wgmma_commit();
   };
   // the scores of stage t -> p^T = exp2(s^T scale log2(e) - lse[col]) and
@@ -747,15 +778,355 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_kernel(
   store_dkv<D, ROPE, OutT>(dk, dv, a);
 }
 
+// ------------------------------------------------ K4 at D = 256, by role
+
+constexpr int kRoleRows = DkvTiles<256>::block;   // kv rows of a block
+constexpr uint32_t kPBytes = kRoleRows * kRows * 4;  // f32 p^T of a stage
+// named barriers of the p^T buffers: buffer i written (kPWritten + i) and
+// read (kPRead + i), each by one warpgroup's arrival and the other's sync
+constexpr int kPWritten = 4, kPRead = 6;
+
+// Where the roles kernel's tiles lie in shared memory: K and V resident,
+// the q ring (q tiles and lse rows) and the do ring (do tiles and delta
+// rows), the two p^T buffers, and each ring's barriers.
+struct RoleSmem {
+  uint32_t k, v, q, dout, lse, delta, p;
+  uint64_t* full_q;
+  uint64_t* full_do;
+  uint64_t* empty_q;
+  uint64_t* empty_do;
+};
+
+// One thread of the roles kernel's producer warpgroup: the block's n
+// stages, each a q tile with its lse rows into the q ring and a do tile
+// with its delta rows into the do ring, each ring's slot once its readers
+// have freed it.
+__device__ __forceinline__ void produce_roles(
+    const TileMap& map_q, const TileMap& map_do, const BwdArgs& a,
+    const RoleSmem& m, int hk, int b, int first, int nq, int n) {
+  constexpr int kStages = DkvTiles<256>::stages;
+  constexpr uint32_t kTileBytes = kRows * 256 * 2, kVecBytes = kRows * 4;
+#pragma unroll 1
+  for (int t = 0; t < n; ++t) {
+    const int st = t % kStages, phase = (t / kStages - 1) & 1;
+    const int idx = first + t, h = hk * a.group + idx / nq;
+    const int q_row = (idx % nq) * kRows;
+    const long long r = (static_cast<long long>(b) * a.hq + h) * a.sq +
+                        q_row;
+    if (t >= kStages) mbar_wait(&m.empty_q[st], phase);
+    mbar_arrive_expect_tx(&m.full_q[st], kTileBytes + kVecBytes);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+      tma_load_tile(map_q, m.q + st * kTileBytes + cb * kRows *
+                               kSwizzleRowBytes,
+                    cb * 64, q_row, h, b, &m.full_q[st]);
+    bulk_load(m.lse + st * kVecBytes, a.lse + r, kVecBytes, &m.full_q[st]);
+    if (t >= kStages) mbar_wait(&m.empty_do[st], phase);
+    mbar_arrive_expect_tx(&m.full_do[st], kTileBytes + kVecBytes);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+      tma_load_tile(map_do, m.dout + st * kTileBytes + cb * kRows *
+                                 kSwizzleRowBytes,
+                    cb * 64, q_row, h, b, &m.full_do[st]);
+    bulk_load(m.delta + st * kVecBytes, a.delta + r, kVecBytes,
+              &m.full_do[st]);
+  }
+}
+
+// A role's gradient (dk: which 0, dv: which 1) of the block's 64 kv rows,
+// all 256 columns: as OutT (bf16: rounded) at its strides, dk
+// counter-rotated with rope, or as f32 partial sums for the reduce kernel
+// (which rotates them).
+template <bool ROPE, typename OutT>
+__device__ __forceinline__ void store_role(float (&acc)[32][4],
+                                           const BwdArgs& a, int which) {
+  const int tid = read_tid();
+  const int3 blk = read_ctaid();
+  const int lane = tid % 32, t4 = lane & 3;
+  const int row_a = blk.x * kRoleRows + (tid % 128) / 32 * 16 + (lane >> 2);
+  const int row_b = row_a + 8;
+  if (a.partial != nullptr) {
+    store_rows_f32<256, 256>(partial_rows<256>(a, blk, which), acc, row_a,
+                             row_b, t4);
+    return;
+  }
+  const int hk = blk.y, b = blk.z / a.splits;
+  if (which == 0) {
+    if (ROPE)
+      counter_rotate<256>(acc, a.cos, a.sin, a.tab_rs, row_a, row_b, t4);
+    store_rows<256>(static_cast<OutT*>(a.dk) + b * a.dk_sb + hk * a.dk_sh,
+                    a.dk_ss, acc, row_a, row_b, t4);
+  } else {
+    store_rows<256>(static_cast<OutT*>(a.dv) + b * a.dv_sb + hk * a.dv_sh,
+                    a.dv_ss, acc, row_a, row_b, t4);
+  }
+}
+
+// Warpgroup 0 of the roles kernel, over the block's n stages: s^T = k q^T,
+// p^T = exp2(s^T scale log2(e) - lse[col]) with the masks, p^T in f32 into
+// buffer t % 2 for warpgroup 1, and dv += bf16(p)^T do over all 256
+// columns. Per stage it queues the dv product of the stage before, then,
+// once this stage's q tile has landed, the score product of this one; it
+// gives each tile back as soon as its last product here is done, forms p^T
+// while warpgroup 1's products run, and writes a buffer once warpgroup 1
+// has read what it held.
+template <bool MASKED, typename OutT>
+__device__ __forceinline__ void dkv_p_role(const BwdArgs& a,
+                                           const RoleSmem& m, int n,
+                                           int first, int nq, int k0) {
+  constexpr int D = 256, kStages = DkvTiles<D>::stages;
+  constexpr uint32_t kTileBytes = kRows * D * 2, kVecBytes = kRows * 4;
+  const int lane = threadIdx.x % 32, t4 = lane & 3;
+  int key_a = 0, key_b = 0;
+  if (MASKED) {
+    const int row_a = k0 + threadIdx.x / 32 * 16 + (lane >> 2);
+    const unsigned char* mask =
+        a.mask != nullptr ? a.mask + (blockIdx.z / a.splits) * a.mask_sb
+                          : nullptr;
+    key_a = masked_below(a, mask, row_a);
+    key_b = masked_below(a, mask, row_a + 8);
+  }
+  float dv[D / 8][4], s[kRows / 8][4];
+  uint32_t pa[kRows / 16][4];
+  zero(dv);
+
+  // s^T for stage t, queued and committed
+  auto score = [&](int t) {
+    wgmma_fresh(s);
+    wgmma_fence();
+    score_product<D, kRoleRows, kRows>(
+        s, wgmma_desc(opaque(m.k), 16, kSwizzleAtomBytes),
+        wgmma_desc(m.q + (t % kStages) * kTileBytes, 16, kSwizzleAtomBytes));
+    wgmma_commit();
+  };
+  // dv += bf16(p)^T do for stage t, queued and committed
+  auto dv_product = [&](int t) {
+    wgmma_pin(dv);
+    wgmma_fence();
+    grad_product<D, kRows>(dv, pa, m.dout + (t % kStages) * kTileBytes);
+    wgmma_commit();
+  };
+  // the scores of stage t -> p^T, 8 columns at a time into the buffer (a
+  // float4 a thread: conflict-free), then rounded to bf16, the A operand
+  // of the dv product
+  auto p_tile = [&](int t) {
+    const uint32_t lse = m.lse + (t % kStages) * kVecBytes;
+    const uint32_t out = m.p + (t & 1) * kPBytes + (threadIdx.x % 128) * 16;
+    const int q_row = MASKED ? ((first + t) % nq) * kRows : 0;
+    const int lim_a = key_a - q_row, lim_b = key_b - q_row;
+#pragma unroll
+    for (int jj = 0; jj < kRows / 8; ++jj) {
+      const int c = jj * 8 + t4 * 2;
+      const float2 l = ld_shared_f2(lse + c * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[jj][e] * a.scale_log2e;
+        if (MASKED && c + (e & 1) < (e < 2 ? lim_a : lim_b)) x = kNegInf;
+        s[jj][e] = fast_exp2(x - ((e & 1) ? l.y : l.x));
+      }
+      st_shared_f4(out + jj * 128 * 16, s[jj]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+  };
+
+  // stage t's slot and the phase its full barriers complete
+  auto slot = [](int t) { return t % kStages; };
+  auto phase = [](int t) { return (t / kStages) & 1; };
+  mbar_wait(&m.full_q[0], 0);
+  score(0);
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  mbar_arrive(&m.empty_q[0]);
+  p_tile(0);
+  named_barrier_arrive(kPWritten, kConsumers);
+#pragma unroll 1
+  for (int t = 1; t < n; ++t) {
+    mbar_wait(&m.full_do[slot(t - 1)], phase(t - 1));
+    dv_product(t - 1);
+    mbar_wait(&m.full_q[slot(t)], phase(t));
+    score(t);
+    wgmma_wait<1>();
+    wgmma_pin(dv);
+    wgmma_pin_a(pa);
+    mbar_arrive(&m.empty_do[slot(t - 1)]);
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    mbar_arrive(&m.empty_q[slot(t)]);
+    if (t >= 2) named_barrier_sync(kPRead + (t & 1), kConsumers);
+    p_tile(t);
+    named_barrier_arrive(kPWritten + (t & 1), kConsumers);
+  }
+  mbar_wait(&m.full_do[slot(n - 1)], phase(n - 1));
+  dv_product(n - 1);
+  wgmma_wait<0>();
+  wgmma_pin(dv);
+  wgmma_pin_a(pa);
+  // the reads of the last two buffers: each barrier ends as it began
+  for (int t = max(n - 2, 0); t < n; ++t)
+    named_barrier_sync(kPRead + (t & 1), kConsumers);
+  store_role<false, OutT>(dv, a, 1);
+}
+
+// Warpgroup 1 of the roles kernel, over the block's n stages: dp^T = v
+// do^T, ds^T = p^T (dp^T - delta[col]) scale with warpgroup 0's f32 p^T,
+// and dk += bf16(ds)^T q over all 256 columns, counter-rotated with rope.
+// Per stage it queues the dk product of the stage before and, once this
+// stage's do tile has landed, the dp product of this one, as warpgroup 0
+// does, then waits for p^T and forms ds^T.
+template <bool ROPE, typename OutT>
+__device__ __forceinline__ void dkv_ds_role(const BwdArgs& a,
+                                            const RoleSmem& m, int n) {
+  constexpr int D = 256, kStages = DkvTiles<D>::stages;
+  constexpr uint32_t kTileBytes = kRows * D * 2, kVecBytes = kRows * 4;
+  const int t4 = threadIdx.x % 4;
+  float dk[D / 8][4], dp[kRows / 8][4];
+  uint32_t da[kRows / 16][4];
+  zero(dk);
+
+  // dp^T for stage t, queued and committed
+  auto dp_product = [&](int t) {
+    wgmma_fresh(dp);
+    wgmma_fence();
+    score_product<D, kRoleRows, kRows>(
+        dp, wgmma_desc(opaque(m.v), 16, kSwizzleAtomBytes),
+        wgmma_desc(m.dout + (t % kStages) * kTileBytes, 16,
+                   kSwizzleAtomBytes));
+    wgmma_commit();
+  };
+  // dk += bf16(ds)^T q for stage t, queued and committed
+  auto dk_product = [&](int t) {
+    wgmma_pin(dk);
+    wgmma_fence();
+    grad_product<D, kRows>(dk, da, m.q + (t % kStages) * kTileBytes);
+    wgmma_commit();
+  };
+  // dp^T of stage t and its p^T -> ds^T, rounded to bf16, the A operand of
+  // the dk product; the buffer is given back as soon as it is read
+  auto ds_tile = [&](int t) {
+    const uint32_t delta = m.delta + (t % kStages) * kVecBytes;
+    const uint32_t in = m.p + (t & 1) * kPBytes + (threadIdx.x % 128) * 16;
+    named_barrier_sync(kPWritten + (t & 1), kConsumers);
+#pragma unroll
+    for (int jj = 0; jj < kRows / 8; ++jj) {
+      const float2 dl = ld_shared_f2(delta + (jj * 8 + t4 * 2) * 4);
+      const float4 p = ld_shared_f4(in + jj * 128 * 16);
+      dp[jj][0] = p.x * (dp[jj][0] - dl.x) * a.scale;
+      dp[jj][1] = p.y * (dp[jj][1] - dl.y) * a.scale;
+      dp[jj][2] = p.z * (dp[jj][2] - dl.x) * a.scale;
+      dp[jj][3] = p.w * (dp[jj][3] - dl.y) * a.scale;
+    }
+    named_barrier_arrive(kPRead + (t & 1), kConsumers);
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      pack_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+  };
+
+  auto slot = [](int t) { return t % kStages; };
+  auto phase = [](int t) { return (t / kStages) & 1; };
+  mbar_wait(&m.full_do[0], 0);
+  dp_product(0);
+  wgmma_wait<0>();
+  wgmma_pin(dp);
+  mbar_arrive(&m.empty_do[0]);
+  ds_tile(0);
+#pragma unroll 1
+  for (int t = 1; t < n; ++t) {
+    mbar_wait(&m.full_q[slot(t - 1)], phase(t - 1));
+    dk_product(t - 1);
+    mbar_wait(&m.full_do[slot(t)], phase(t));
+    dp_product(t);
+    wgmma_wait<1>();
+    wgmma_pin(dk);
+    wgmma_pin_a(da);
+    mbar_arrive(&m.empty_q[slot(t - 1)]);
+    wgmma_wait<0>();
+    wgmma_pin(dp);
+    mbar_arrive(&m.empty_do[slot(t)]);
+    ds_tile(t);
+  }
+  mbar_wait(&m.full_q[slot(n - 1)], phase(n - 1));
+  dk_product(n - 1);
+  wgmma_wait<0>();
+  wgmma_pin(dk);
+  wgmma_pin_a(da);
+  store_role<ROPE, OutT>(dk, a, 0);
+}
+
+// K4 at D = 256: one block per (64-row kv tile, kv head, batch x split),
+// its producer in produce_roles, warpgroup 0 in dkv_p_role and warpgroup 1
+// in dkv_ds_role.
+template <bool ROPE, bool MASKED, typename OutT>
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkv_roles_kernel(
+    const __grid_constant__ TileMap map_q,
+    const __grid_constant__ TileMap map_do, BwdArgs a) {
+  constexpr int D = 256, kStages = DkvTiles<D>::stages;
+  constexpr uint32_t kResBytes = kRoleRows * D * 2;
+  constexpr uint32_t kTileBytes = kRows * D * 2, kVecBytes = kRows * 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  RoleSmem m;
+  m.k = (raw + kSwizzleAtomBytes - 1) & ~(kSwizzleAtomBytes - 1);
+  unsigned char* smem = smem_raw + (m.k - raw);
+  m.v = m.k + kResBytes;
+  m.q = m.v + kResBytes;
+  m.dout = m.q + kStages * kTileBytes;
+  m.lse = m.dout + kStages * kTileBytes;
+  m.delta = m.lse + kStages * kVecBytes;
+  m.p = m.delta + kStages * kVecBytes;
+  m.full_q = reinterpret_cast<uint64_t*>(smem + (m.p - m.k) + 2 * kPBytes);
+  m.full_do = m.full_q + kStages;
+  m.empty_q = m.full_do + kStages;
+  m.empty_do = m.empty_q + kStages;
+
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.y, b = blockIdx.z / a.splits;
+  const int split = blockIdx.z % a.splits;
+  const int k0 = blockIdx.x * kRoleRows;
+  const int nq = a.sq / kRows, first = split * a.per_split;
+  const int n = min(a.group * nq - first, a.per_split);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&m.full_q[st], 1);
+      mbar_init(&m.full_do[st], 1);
+      mbar_init(&m.empty_q[st], kConsumers);
+      mbar_init(&m.empty_do[st], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (tid == kConsumers)
+      produce_roles(map_q, map_do, a, m, hk, b, first, nq, n);
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  // the k tile (rotated and rounded, no scale, with rope) and the v tile,
+  // by both warpgroups
+  load_resident<D, kRoleRows, ROPE>(a.k + b * a.k_sb + hk * a.k_sh, a.k_ss,
+                                    a.v + b * a.v_sb + hk * a.v_sh, a.v_ss,
+                                    k0, a, 1.f, smem, m.k, m.v, tid);
+  if (tid < 128)
+    dkv_p_role<MASKED, OutT>(a, m, n, first, nq, k0);
+  else
+    dkv_ds_role<ROPE, OutT>(a, m, n);
+}
+
 __device__ __forceinline__ void put(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-// K4's partial sums (its splits, or with rope at D = 256 its one share)
-// summed in split order, dk counter-rotated with rope, both written as
-// OutT (bf16: rounded): one thread per row and column pair (j, j + D/2).
+// K4's partial sums of its splits summed in split order, dk
+// counter-rotated with rope, both written as OutT (bf16: rounded): one
+// thread per row and column pair (j, j + D/2).
 template <int D, typename OutT>
 __global__ void __launch_bounds__(256) dkv_reduce_kernel(BwdArgs a, int hk,
                                                          long long rows) {
@@ -818,6 +1189,15 @@ cudaError_t launch_masked(const TileMap& m0, const TileMap& m1,
                          smem_bytes<D>(kQRows, DqTiles<D>::stages,
                                        DqTiles<D>::kv, 0),
                          m0, m1, a, stream);
+  } else if constexpr (D == 256) {
+    auto k = masked ? &flash_bwd_dkv_roles_kernel<ROPE, true, OutT>
+                    : &flash_bwd_dkv_roles_kernel<ROPE, false, OutT>;
+    return launch_kernel(k, grid,
+                         smem_bytes<D>(kRoleRows, DkvTiles<D>::stages,
+                                       kRows, 2 * kRows * 4) +
+                             2 * kPBytes +
+                             2 * DkvTiles<D>::stages * sizeof(uint64_t),
+                         m0, m1, a, stream);
   } else {
     auto k = masked ? &flash_bwd_dkv_kernel<D, ROPE, true, OutT>
                     : &flash_bwd_dkv_kernel<D, ROPE, false, OutT>;
@@ -840,14 +1220,6 @@ cudaError_t launch(const TileMap& m0, const TileMap& m1, const BwdArgs& a,
                ? launch_masked<D, DQ, true, OutT>(m0, m1, a, grid, stream)
                : launch_masked<D, DQ, false, OutT>(m0, m1, a, grid, stream);
   }
-}
-
-// Whether K4 writes f32 partial sums that dkv_reduce_kernel sums,
-// counter-rotates and writes: with a split, and with rope at D = 256,
-// where a thread holds column j of dk but not its rotation partner
-// j + 128, which the other warpgroup owns.
-bool dkv_reduces(int splits, bool rope, int d) {
-  return splits > 1 || (rope && d == 256);
 }
 
 // Fill the arguments both entry points share; false on shapes the kernels
@@ -886,7 +1258,6 @@ bool fill_args(BwdArgs& a, const void* q, const void* k, const void* v,
   a.skv = skv;
   a.causal = causal;
   a.splits = 1;
-  a.per_split = a.group * (sq / kRows);
   a.scale = scale;
   a.scale_log2e = scale_log2e;
   return true;
@@ -947,12 +1318,14 @@ cudaError_t run_dkv(BwdArgs& a, void* dk, void* dv, const long long* so,
                     void* q_scratch, float* partial, int splits, int batch,
                     int hq, int hk, int sq, int skv, int d,
                     cudaStream_t stream) {
-  const int stages = a.per_split;
+  // the (head of the group, q tile) stages of a block
+  const int stages = a.group * (sq / kRows);
   a.splits = splits;
   a.per_split = (stages + splits - 1) / splits;
   if ((splits - 1) * a.per_split >= stages)        // an empty split
     return cudaErrorInvalidValue;
-  const bool reduce = dkv_reduces(splits, a.cos != nullptr, d);
+  // the splits' f32 partial sums, summed by dkv_reduce_kernel
+  const bool reduce = splits > 1;
   a.partial = reduce ? partial : nullptr;
   a.dk = dk;
   a.dv = dv;
@@ -1039,9 +1412,8 @@ extern "C" int x2i_flash_bwd_dq(
 
 // K4: dk, dv (B, Hk, Skv, D) bf16 at st[12..14] and st[15..17]. With rope,
 // q_scratch holds B*Hq*Sq*D bf16 for the rotated Q. `splits` > 1 splits
-// each block's (group x Sq/64) stages into that many shares, none empty.
-// Where K4 writes partial sums (dkv_reduces: a split, or rope at D = 256)
-// `partial` holds 2*splits*B*Hk*Skv*D f32 for them.
+// each block's (group x Sq/64) stages into that many shares, none empty,
+// whose partial sums `partial` then holds: 2*splits*B*Hk*Skv*D f32.
 extern "C" int x2i_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
@@ -1054,22 +1426,16 @@ extern "C" int x2i_flash_bwd_dkv(
   if (!fill_args(a, q, k, v, dout, lse, delta, st, cos, sin, tab_rs, mask,
                  mask_sb, hq, hk, sq, skv, d, causal, scale, scale_log2e) ||
       (cos != nullptr && q_scratch == nullptr) || splits < 1 ||
-      (dkv_reduces(splits, cos != nullptr, d) && partial == nullptr))
+      (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run_dkv<bf16>(
       a, dk, dv, st + 12, q_scratch, partial, splits, batch, hq, hk, sq, skv,
       d, static_cast<cudaStream_t>(stream_ptr)));
 }
 
-// K4's kv rows a block at head dim d, and whether a launch with `splits`
-// and rope writes partial sums (dkv_reduces): the wrapper sizes the split
-// and allocates `partial` by them.
+// K4's kv rows a block at head dim d: the wrapper sizes the split by them.
 extern "C" int x2i_flash_bwd_dkv_block_rows(int d) {
   return d == 256 ? DkvTiles<256>::block : DkvTiles<128>::block;
-}
-
-extern "C" int x2i_flash_bwd_dkv_reduces(int splits, int rope, int d) {
-  return dkv_reduces(splits, rope != 0, d) ? 1 : 0;
 }
 
 // The f32 instances: q, k, v, do f32 at the strides in `st` as above

@@ -106,27 +106,26 @@
 // the quantization of that out, K7 of the f32 gelu, K8 of x. The
 // quantization epilogue is the bf16 one's on four f32 values a 16-byte
 // chunk (codes4). They move twice the bf16 rows' bytes.
-// K5 up to D = 3072 (ln_mod_f32_kernel; every FLUX width of the
-// registry): a 3072-wide f32 row is 96 values a lane, so K5's register
-// double buffer (192) would spill: one warp a row holds the row once (24
-// 16-byte chunks a lane), and the SM's other warps keep its row bytes in
-// flight instead of the next row. At 128 registers a thread (two blocks of
-// eight warps an SM) ptxas spilled, so a block may take up to 255 (one
-// block an SM at least). The modulation rows are read through L1 beside
-// it.
-// K5 above 3072, K6, K7 and K8 at every width (f32_rows_kernel): a group
-// of threads a row (the wrapper's f32_instance: one 16-byte chunk a thread
-// up to a block of 256 a row, then 4 or 16 chunks a thread in registers),
-// the group's sums and max through shuffles and, past a warp, shared
-// memory; a row wider than 16 chunks a thread (D above 16384) reads its
-// remaining chunks again from memory in each pass, from L2. K6 as K5's
-// warp body with the quantization after it (the bf16 K6's design) was
-// slower at the DiT's 4096 and 4608 rows x 3072 on an H100 than this
-// kernel at a block a row, and was dropped; K5's warp body stays (the
-// kernels phase times K5 on both, ms_by_body). K7 on f32
-// rows keeps the bf16 K7's x / (1 + exp(-2u)) form, but with the accurate
-// expf and an IEEE division: no bf16 rounding absorbs the approximate
-// ex2 and rcp's ulps there, and .ftz would flush subnormal values.
+// Every f32 kernel is f32_rows_kernel: a group of threads a row (the
+// wrapper's f32_instance: one 16-byte chunk a thread up to a block of 256
+// a row, then 4 or 16 chunks a thread held in registers), the group's sums
+// and max through shuffles and, past a warp, shared memory; a row wider
+// than 16 chunks a thread (D above 16384) reads the rest again from memory
+// in each pass, from L2. K5 and K6 share its group and order of sums, so K6
+// is bit for bit K8 after K5 at every width. K5 reads its rows and writes
+// its output with the streaming (evict-first) hint: at 4608 rows x 3072 on
+// an H100 that took it from 0.0469 to 0.0453 ms (PERF.md). The
+// group's next row loaded while this row is reduced and written (the bf16
+// K5's double buffer) ran level or slower at the DiT's row counts, four
+// blocks an SM and 128 threads a row level, and a warp a row holding a
+// 3072-wide row (24 chunks a lane, 150 registers, one block of eight warps
+// an SM) 0.0590 ms: all dropped. K6 as K5's bf16 warp body with the
+// quantization after it was slower at the DiT's 4096 and 4608 rows x 3072
+// than f32_rows_kernel at a block a row, and was dropped.
+// K7 on f32 rows keeps the bf16 K7's x / (1 + exp(-2u)) form, but with the
+// accurate expf and an IEEE division: no bf16 rounding absorbs the
+// approximate ex2 and rcp's ulps there, and .ftz would flush subnormal
+// values.
 
 #include "hopper_mma.cuh"
 
@@ -522,9 +521,7 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
-// ------------------------------------------------------------ K5 in f32
-
-constexpr int kLnF32Chunks = kLnD / 4 / 32;  // 16-byte chunks a lane, at most
+// ------------------------------------------------------- K5-K8 in f32
 
 // The arguments of K5-K8 on f32 rows: x (B, S, D) at strides sxb, sxs,
 // shift and scale (B, D) at batch stride seb (K5, K6), out (B * S, D)
@@ -584,51 +581,6 @@ __device__ __forceinline__ uint32_t codes4(const float4& v, float2 ar) {
   const uint32_t c23 = __byte_perm(code_bits(v.z, ar.x, ar.y),
                                    code_bits(v.w, ar.x, ar.y), 0x0040);
   return __byte_perm(c01, c23, 0x5410);
-}
-
-// K5 on f32 rows of at most 3072: a block of eight warps, one row a warp at
-// a time over the block's span, the row in registers between its two
-// reductions and the modulate.
-__global__ void __launch_bounds__(kLnWarps * 32, 1)
-    ln_mod_f32_kernel(const F32RowArgs p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quads = p.d / 4;
-  const float inv_d = 1.0f / p.d;
-  int r0, r1;
-  block_span(p.rows, r0, r1);
-  for (int r = r0 + warp; r < r1; r += kLnWarps) {
-    const int b = r / p.s;
-    const float* x = p.x + b * p.sxb + (r - b * p.s) * p.sxs;
-    float4 v[kLnF32Chunks];
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kLnF32Chunks; ++c) {
-      const int at = c * 32 + lane;
-      v[c] = at < quads ? f4_at(x, at) : make_float4(0.f, 0.f, 0.f, 0.f);
-      sum += f4_sum(v[c]);
-    }
-    const float mean = warp_sum(sum) * inv_d;
-    float sq = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kLnF32Chunks; ++c)
-      if (c * 32 + lane < quads) sq += f4_sq(v[c], mean);
-    const float rstd = rsqrtf(warp_sum(sq) * inv_d + p.eps);
-    const float* sc = p.scale + b * p.seb;
-    const float* sh = p.shift + b * p.seb;
-    float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) +
-                                          static_cast<long long>(r) * p.d);
-#pragma unroll
-    for (int c = 0; c < kLnF32Chunks; ++c) {
-      const int at = c * 32 + lane;
-      if (at < quads) {
-        const float4 m = f4_at(sc, at), a = f4_at(sh, at);
-        o[at] = make_float4(ln_f32(v[c].x, mean, rstd, m.x, a.x),
-                            ln_f32(v[c].y, mean, rstd, m.y, a.y),
-                            ln_f32(v[c].z, mean, rstd, m.z, a.z),
-                            ln_f32(v[c].w, mean, rstd, m.w, a.w));
-      }
-    }
-  }
 }
 
 // -------------------------------------------------------- K7 and K8
@@ -867,6 +819,17 @@ __device__ __forceinline__ float group_reduce(float v, int lanes, int shift,
   return v;
 }
 
+// Chunk `at` of an f32 row: K5 reads it with the streaming (evict-first)
+// hint and writes its output likewise, each byte once; K6-K8 through the
+// read-only path.
+template <int OP>
+__device__ __forceinline__ float4 x_at(const float* x, int at) {
+  if constexpr (OP == kLnMod)
+    return __ldcs(reinterpret_cast<const float4*>(x) + at);
+  else
+    return f4_at(x, at);
+}
+
 // The blocks of f32_rows_kernel an SM holds at least, which caps its
 // registers: at 4 chunks a thread three (85 registers; without a bound
 // ptxas took 48 and spilled K6's instance), at 16 two (128: K7 and K8
@@ -875,12 +838,12 @@ __device__ __forceinline__ float group_reduce(float v, int lanes, int shift,
 template <int OP, int C>
 constexpr int kF32RowsMinBlocks = C == 4 ? 3 : OP == kLnModQuant ? 1 : 2;
 
-// K6, K7 and K8 on f32 rows of any D that is a multiple of 4, and K5
-// above 3072: a group of p.lanes threads a row (a power of two up to the
-// block's 256), 16-byte chunks at li + lanes c. The first C chunks of
-// a thread stay in registers from the load to the store; a row wider than
-// lanes x C chunks reads the rest again from memory (L2) in each pass, and
-// computes its values again to the same bits. The group's sums and maxima
+// K5, K6, K7 and K8 on f32 rows of any D that is a multiple of 4: a group
+// of p.lanes threads a row (a power of two up to the block's 256), 16-byte
+// chunks at li + lanes c. The first C chunks of a thread stay in registers
+// from the load to the store; a row wider than lanes x C chunks reads the
+// rest again from memory (L2) in each pass, and computes its values again
+// to the same bits. The group's sums and maxima
 // go through `red`, one slot a reduction and a pair of slots alternating
 // between iterations: one barrier a reduction.
 template <int OP, int C>
@@ -909,7 +872,7 @@ __global__ void __launch_bounds__(kQThreads, kF32RowsMinBlocks<OP, C>)
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int at = li + c * lanes;
-      v[c] = valid && at < quads ? f4_at(x, at)
+      v[c] = valid && at < quads ? x_at<OP>(x, at)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     float mean = 0.0f, rstd = 0.0f;
@@ -919,14 +882,15 @@ __global__ void __launch_bounds__(kQThreads, kF32RowsMinBlocks<OP, C>)
       float sum = 0.0f;
 #pragma unroll
       for (int c = 0; c < C; ++c) sum += f4_sum(v[c]);
-      for (int at = tail; at < quads; at += lanes) sum += f4_sum(f4_at(x, at));
+      for (int at = tail; at < quads; at += lanes)
+        sum += f4_sum(x_at<OP>(x, at));
       mean = group_reduce<false>(sum, lanes, shift, group, rd[0]) * inv_d;
       float sq = 0.0f;
 #pragma unroll
       for (int c = 0; c < C; ++c)
         if (valid && li + c * lanes < quads) sq += f4_sq(v[c], mean);
       for (int at = tail; at < quads; at += lanes)
-        sq += f4_sq(f4_at(x, at), mean);
+        sq += f4_sq(x_at<OP>(x, at), mean);
       rstd = rsqrtf(group_reduce<false>(sq, lanes, shift, group, rd[1]) *
                         inv_d +
                     p.eps);
@@ -947,10 +911,10 @@ __global__ void __launch_bounds__(kQThreads, kF32RowsMinBlocks<OP, C>)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int at = li + c * lanes;
-        if (at < quads) o[at] = value(v[c], at);
+        if (at < quads) __stcs(o + at, value(v[c], at));
       }
       for (int at = tail; at < quads; at += lanes)
-        o[at] = value(f4_at(x, at), at);
+        __stcs(o + at, value(x_at<OP>(x, at), at));
     } else {
       float m = 0.0f;
 #pragma unroll
@@ -1069,31 +1033,24 @@ extern "C" int x2i_ln_mod(const void* x, long long sxb, long long sxs,
 // x (B, S, D) f32 with strides sxb, sxs (elements) and a contiguous last
 // dim; K5 and K6: shift and scale (B, D) f32 at batch stride seb; out
 // (B, S, D) contiguous, f32 for K5, int8 codes for the others, whose row
-// scales go to a (B * S) f32. `kind` is the instance, which the wrapper's
-// f32_instance chooses: 0 K5's warp body (D at most 3072), 1
-// f32_rows_kernel at `lanes` threads a row (a power of two up to 256) with
-// `chunks` (4 or 16) 16-byte chunks a thread in registers. D is a multiple
-// of 4; the wrapper checks 16-byte aligned row starts. Returns the
-// cudaError_t of the launch.
+// scales go to a (B * S) f32. The instance of f32_rows_kernel, which the
+// wrapper's f32_instance chooses: `lanes` threads a row (a power of two up
+// to 256) with `chunks` (4 or 16) 16-byte chunks a thread in registers. D
+// is a multiple of 4; the wrapper checks 16-byte aligned row starts.
+// Returns the cudaError_t of the launch.
 extern "C" int x2i_rows_f32(int op, const float* x, long long sxb,
                             long long sxs, const float* shift,
                             const float* scale, long long seb, void* out,
                             float* a, int b, int s, int d, float eps,
-                            int kind, int lanes, int chunks, void* stream) {
-  if (b < 1 || s < 1 || d < 4 || d % 4 || op < 0 || op > 3 || kind < 0 ||
-      kind > 1 || (kind == 0 && (op != 0 || d > kLnD)) ||
-      (kind == 1 && (lanes < 1 || lanes > kQThreads || (lanes & (lanes - 1)) ||
-                     (chunks != 4 && chunks != 16))) ||
-      (op == 0) != (a == nullptr))
+                            int lanes, int chunks, void* stream) {
+  if (b < 1 || s < 1 || d < 4 || d % 4 || op < 0 || op > 3 || lanes < 1 ||
+      lanes > kQThreads || (lanes & (lanes - 1)) ||
+      (chunks != 4 && chunks != 16) || (op == 0) != (a == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   F32RowArgs p = {x, sxb, sxs, s, shift, scale, seb, out, b * s, d, eps, a,
                   lanes};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int warp_cap[kMaxDevices] = {};
   static int cap[4][2][kMaxDevices] = {};       // [op][chunks 16][device]
-  if (kind == 0)
-    return static_cast<int>(launch(ln_mod_f32_kernel, kLnWarps * 32, 0,
-                                   kLnWarps, warp_cap, p, st));
   int* c = cap[op][chunks == 16];
   const int per_block = kQThreads / lanes;
   cudaError_t err;

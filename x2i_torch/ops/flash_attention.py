@@ -393,10 +393,9 @@ def _bind_bwd(lib):
         p, p, p, p, p, p, p, p, p, p, i, p, p, ll,
         i, i, i, i, i, i, i, f, f, p]
     lib.x2i_flash_bwd_dkv_block_rows.argtypes = [i]
-    lib.x2i_flash_bwd_dkv_reduces.argtypes = [i, i, i]
     for name in ("x2i_flash_bwd_dq", "x2i_flash_bwd_dkv",
                  "x2i_flash_bwd_dq_f32", "x2i_flash_bwd_dkv_f32",
-                 "x2i_flash_bwd_dkv_block_rows", "x2i_flash_bwd_dkv_reduces"):
+                 "x2i_flash_bwd_dkv_block_rows"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -488,6 +487,16 @@ def launch_name(name: str, d: int) -> str:
     return f"{name}_d256" if d == 256 else name
 
 
+# K4's instances at D = 256 (csrc/flash_bwd.cu flash_bwd_dkv_roles_kernel,
+# mangled <ROPE, MASKED, OutT>): bf16 with and without rope and masks, f32
+# with and without masks
+DKV_ROLES_INSTANCES = tuple(
+    f"flash_bwd_dkv_roles_kernelILb{rope}ELb{masked}E{out}E"
+    for rope, masked, out in ((0, 0, "13__nv_bfloat16"),
+                              (0, 1, "13__nv_bfloat16"),
+                              (1, 0, "13__nv_bfloat16"),
+                              (1, 1, "13__nv_bfloat16"), (0, 0, "f"),
+                              (0, 1, "f")))
 # the backward library: K3 and K4, and their f32 instances, counted apart
 # at D = 256
 KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
@@ -496,13 +505,17 @@ KERNEL_BWD = CudaLibrary("flash_bwd.cu", "libx2i_flash_bwd",
                           "flash_bwd_dkv_d256", "flash_bwd_dq_f32_d256",
                           "flash_bwd_dkv_f32_d256"), _bind_bwd,
                          # every instance, and by name the D = 256 ones
-                         # (mangled: <D, ROPE, MASKED, OutT>)
+                         # (mangled: K3 <D, ROPE, MASKED, OutT>, K4's
+                         # roles kernel <ROPE, MASKED, OutT>)
                          wgmma_kernels=("flash_bwd_dq_kernel",
                                         "flash_bwd_dkv_kernel",
                                         "flash_bwd_dq_kernelILi256E",
-                                        "flash_bwd_dkv_kernelILi256E"),
+                                        *DKV_ROLES_INSTANCES),
                          checked_kernels=("round_rows_kernel",
                                           "dkv_reduce_kernelILi256E"))
+# the launches of K4's reduce kernel, which sums the f32 partial sums of a
+# split (``dkv_reduces``); not one of the path's kernels' counts
+DKV_REDUCE_LAUNCHES = {"dkv_reduce": 0}
 
 
 def check_rows(name, shape, strides, data_ptr, ndim=4, itemsize=2):
@@ -819,6 +832,15 @@ def dkv_splits(blocks: int, stages: int, sms: int) -> int:
     return -(-stages // per)
 
 
+def dkv_reduces(splits: int) -> bool:
+    """Whether K4 writes f32 partial sums that the library's reduce
+    kernel sums in split order, counter-rotates (with rope) and writes:
+    with a split alone. Without one every instance writes its outputs
+    itself, with rope too (at D = 256 the warpgroup that keeps dk holds
+    each column's rotation partner)."""
+    return splits > 1
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     """The card's SM count, asked once per device (every K1 launch reads
@@ -837,10 +859,9 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
     lib = KERNEL_BWD.lib()
     splits = dkv_splits(skv // lib.x2i_flash_bwd_dkv_block_rows(d) * hk * b,
                         hq // hk * sq // 64, _sm_count(q.device))
-    # the f32 partial dk and dv of a split, or with rope at D = 256 of the
-    # one share, summed, counter-rotated and written by the library's
-    # reduce kernel
-    reduce = lib.x2i_flash_bwd_dkv_reduces(splits, int(rope is not None), d)
+    # the f32 partial dk and dv of a split, summed, counter-rotated and
+    # written by the library's reduce kernel
+    reduce = dkv_reduces(splits)
     partial = (torch.empty((2, splits, b, hk, skv, d), dtype=torch.float32,
                            device=q.device) if reduce else None)
     strides = (ctypes.c_longlong * 18)(
@@ -866,6 +887,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, kv_mask, causal, scale, rope):
                            f"{err}")
     KERNEL_BWD.launches[launch_name(
         "flash_bwd_dkv_f32" if f32 else "flash_bwd_dkv", d)] += 1
+    DKV_REDUCE_LAUNCHES["dkv_reduce"] += int(reduce)
     return dk, dv
 
 

@@ -50,9 +50,8 @@ alone); K7 and K8 at D = 12288 are two warpgroups per row on a ring of
 two rows; other widths (multiples of 8) take a generic instance, for K7
 and K8 with the threads per row that ``quant_instance`` chooses from D.
 On f32 rows (an f32 DiT's glue) K5-K8 have f32 instances, counted
-under their names with ``_f32``: K5 up to D = 3072 one warp a row
-holding its row once (96 values a lane), above it and for K6, K7 and K8
-a group of threads a row that ``f32_instance`` chooses. ``row_views``
+under their names with ``_f32``: a group of threads a row that
+``f32_instance`` chooses. ``row_views``
 holds every check they take (bf16 and f32 rows; K8's halves bf16 only);
 a wrapper raises ValueError on anything else and never drops to the plain
 version. The library is built at its first launch, so a machine without nvcc can
@@ -84,9 +83,6 @@ LAUNCHES = {"ln_mod": 0, "ln_mod_quant": 0, "gelu_quant": 0,
 ROW_DTYPES = {name: (torch.bfloat16, torch.float32)
               for name in ("ln_mod", "ln_mod_quant", "gelu_quant",
                            "quant_rows")}
-# the widest f32 row of K5's warp body (a row it holds in registers);
-# wider rows take f32_rows_kernel
-F32_WARP_D = 3072
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -99,10 +95,13 @@ def _bind(lib):
                                    p]
     lib.x2i_quant_rows.restype = i
     lib.x2i_rows_f32.argtypes = [i, p, ll, ll, p, p, ll, p, p, i, i, i,
-                                 ctypes.c_float, i, i, i, p]
+                                 ctypes.c_float, i, i, p]
     lib.x2i_rows_f32.restype = i
 
 
+# K5's f32 instances (f32_rows_kernel<kLnMod, C>, mangled <0, C>), gated
+# by name beside the kernel's other instances
+F32_K5_INSTANCES = "f32_rows_kernelILi0E"
 # K5-K8; their launches count in LAUNCHES. The build gate checks every
 # kernel of the library for spills.
 ROW_GLUE = CudaLibrary(
@@ -111,17 +110,15 @@ ROW_GLUE = CudaLibrary(
                      "quant_warp_kernel", "ln_mod_rows_kernel",
                      "quant_ring_kernel", "quant_rows_kernel",
                      "row_amax_warp_kernel", "quant_at_warp_kernel",
-                     "ln_mod_f32_kernel", "f32_rows_kernel"))
+                     "f32_rows_kernel", F32_K5_INSTANCES))
 
 # the instances of K7 and K8 (``x2i_quant_rows``'s `kind`)
 QUANT_KINDS = {"generic": 0, "warp": 1, "ring": 2}
 # what K8 computes (``x2i_quant_rows``'s `op`): the codes and scales, the
 # row absmax alone, the codes and scales at a given absmax
 QUANT_OPS = {"quant_rows": 0, "row_absmax": 1, "quant_rows_at": 2}
-# the kernels on f32 rows (``x2i_rows_f32``'s `op`) and their instances
-# (its `kind`)
+# the kernels on f32 rows (``x2i_rows_f32``'s `op`)
 F32_OPS = {"ln_mod": 0, "ln_mod_quant": 1, "quant_rows": 2, "gelu_quant": 3}
-F32_KINDS = {"warp": 0, "rows": 1}
 
 
 def reset_launches():
@@ -273,24 +270,22 @@ def _quant_out(shape, device):
                         device=device))
 
 
-def f32_instance(name: str, d: int):
-    """The instance of ``csrc/row_glue.cu`` that runs ``name`` (a key of
-    ``F32_OPS``) on f32 rows of width d: K5's warp body up to
-    ``F32_WARP_D``, else f32_rows_kernel at one 16-byte chunk a thread up
-    to a block of 256 a row (16 threads at D = 64), then 4 or 16 chunks a
-    thread held in registers (past 16, read again from memory). -> (kind,
-    lanes, chunks), kind a key of ``F32_KINDS``."""
-    if name == "ln_mod" and d <= F32_WARP_D:
-        return "warp", 32, F32_WARP_D // 128
+def f32_instance(d: int):
+    """The instance of ``csrc/row_glue.cu``'s f32_rows_kernel that runs
+    K5-K8 on f32 rows of width d: a group of threads a row, one 16-byte
+    chunk a thread up to a block of 256 a row (16 threads at D = 64), then
+    4 or 16 chunks a thread held in registers (past 16, read again from
+    memory). The same for every op: K5's order of sums is K6's, so that K6
+    is bit for bit K8 after K5. -> (lanes, chunks)."""
     quads = d // 4
     lanes = min(256, 1 << max(0, quads - 1).bit_length())
-    return "rows", lanes, 4 if quads <= 4 * lanes else 16
+    return lanes, 4 if quads <= 4 * lanes else 16
 
 
 def _launch_f32(name, x, shift=None, scale=None, eps=1e-6, instance=None):
     """K5 (-> f32 (B, S, D)), K6, K7 or K8 (-> int8 codes of x's shape,
     f32 row scales (..., 1)) on f32 x (B, S, D) or (N, D), counted as
-    ``name`` + "_f32", on ``instance`` (kind, lanes, chunks) or the one
+    ``name`` + "_f32", on ``instance`` (lanes, chunks) or the one
     ``f32_instance`` chooses."""
     shape = x.shape
     x, shift, scale = row_views(name, x, shift, scale)
@@ -299,15 +294,15 @@ def _launch_f32(name, x, shift=None, scale=None, eps=1e-6, instance=None):
         out, a = torch.empty((b, s, d), dtype=x.dtype, device=x.device), None
     else:
         out, a = _quant_out(shape, x.device)
-    kind, lanes, chunks = instance or f32_instance(name, d)
+    lanes, chunks = instance or f32_instance(d)
     modulated = shift is not None
     _check_launch(f"{name}_f32", ROW_GLUE.lib().x2i_rows_f32(
         F32_OPS[name], x.data_ptr(), x.stride(0), x.stride(1),
         shift.data_ptr() if modulated else None,
         scale.data_ptr() if modulated else None,
         shift.stride(0) if modulated else 0, out.data_ptr(),
-        None if a is None else a.data_ptr(), b, s, d, eps, F32_KINDS[kind],
-        lanes, chunks, _stream(x)))
+        None if a is None else a.data_ptr(), b, s, d, eps, lanes, chunks,
+        _stream(x)))
     LAUNCHES[f"{name}_f32"] += 1
     return out if a is None else (out, a)
 

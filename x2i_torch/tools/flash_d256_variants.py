@@ -1,29 +1,37 @@
-"""Time K2 (``csrc/flash_chunked.cu``) and K3 (``csrc/flash_bwd.cu``'s dq
-kernel) at the shapes of their head-dim-256 records, and at K2's records
-at D = 64 and 128, on the repo's libraries and on each variant given,
-forced for the call.
+"""Time K2 (``csrc/flash_chunked.cu``), K3 and K4 (``csrc/flash_bwd.cu``)
+at the shapes of their head-dim-256 records and at their records at
+D = 64 and 128, and K5 on f32 rows (``csrc/row_glue.cu``) at its records'
+shapes, on the repo's libraries and on each variant given, forced for the
+call.
 
     python3 x2i_torch/tools/flash_d256_variants.py [--variant NAME=DIR]...
         [--case LABEL]... [--repeat N] [--out FILE]
 
 Run from the root of the repo on a machine with a CUDA card and nvcc. A
-variant is a directory that holds a ``flash_chunked.cu`` and / or a
-``flash_bwd.cu`` beside the headers they include (the ``x2i_torch/csrc``
-of another checkout, say the parent commit's from ``git archive``); its
-libraries are built like the repo's (``cuda_lib.CudaLibrary``) and take
-the wrapper's place (``flash_attention.KERNEL_CHUNKED`` /
-``KERNEL_BWD``) for the call. A variant without a source of a kernel runs
-the repo's.
+variant is a directory that holds a ``flash_chunked.cu``, a
+``flash_bwd.cu`` and / or a ``row_glue.cu`` beside the headers they
+include (the ``x2i_torch/csrc`` of another checkout, say the parent
+commit's from ``git archive``); its libraries are built like the repo's
+(``cuda_lib.CudaLibrary``) and take the wrapper's place
+(``flash_attention.KERNEL_CHUNKED`` / ``KERNEL_BWD``,
+``fused_glue.ROW_GLUE``) for the call. A variant without a source of a
+kernel runs the repo's. A K5 case may force the wrapper's instance, (threads a row,
+chunks a thread) (``fused_glue.f32_instance``); a variant's library is
+called with the same arguments, so a parent's library that takes other
+ones is not a variant of K5.
 
-Per case, each library's output against the plain version
-(``max_abs_err``, and relative to the largest |plain| value) and whether
-it is bit for bit the repo's (``same_as_repo``); its device time
+Per case, each library's outputs against the plain version
+(``max_abs_err``, and relative to the largest |plain| value of each
+output) and whether they are bit for bit the repo's (``same_as_repo``),
+or the error of a library that refuses the call (the parent's K4 at
+D = 256 with rope asks for partial sums the wrapper no longer makes); its device time
 (``kernel_ms`` of ``chip_smoke.py``), taken in turns, the repo's library
 first and last (repo, variants..., variants reversed, repo), so that each
 library's two readings bracket the others (``--repeat`` N: N such
 rounds). Prints one JSON object: per
 library the build's faults (``cuda_lib.build_faults`` on the library's
-gated kernels) and the registers of every K2 and K3 instance; per case
+gated kernels) and the registers of every K2, K3, K4 and K5 instance;
+per case
 and library ``ms`` (the readings), ``max_abs_err``,
 ``rel_max_err`` and ``same_as_repo``; the card's name and power limit as
 ``nvidia-smi`` gives them.
@@ -41,9 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 # label -> (kernel, batch, q heads, kv heads, Sq, Skv, D, dtype, what):
 # K2 "plain" / "lse" (with the lse) / "lm" (kv mask of 30,000 keys and
-# causal) / "odd" (per-batch masks 1100 and 37 and causal); K3 "plain" (rope
-# outside), "rope" (inside), "pad" (4112 of 4224 keys, rope inside), "lm"
-# (the LM prefill's 40 keys, causal)
+# causal) / "odd" (per-batch masks 1100 and 37 and causal); K3 and K4
+# "plain" (rope outside), "rope" (inside), "pad" (4112 of 4224 keys, rope
+# inside), "lm" (the LM prefill's 40 keys, causal). K5: (kernel, batch,
+# rows, width, instance or None)
 CASES = {
     "K2 (1,12,16896,256)": ("k2", 1, 12, 12, 16896, 16896, 256, "bf16",
                             "plain"),
@@ -73,9 +82,31 @@ CASES = {
                            "plain"),
     "K3 LM (1,14,512,64) on 2, 40 keys": ("k3", 1, 14, 2, 512, 512, 64,
                                           "bf16", "lm"),
+    "K4 (1,12,4608,256)": ("k4", 1, 12, 12, 4608, 4608, 256, "bf16",
+                           "plain"),
+    "K4 rope (1,12,4608,256)": ("k4", 1, 12, 12, 4608, 4608, 256, "bf16",
+                                "rope"),
+    "K4 pad (1,12,4224,256), 4112 keys": ("k4", 1, 12, 12, 4224, 4224, 256,
+                                          "bf16", "pad"),
+    "K4 shard (1,12,1152,256)": ("k4", 1, 12, 12, 1152, 1152, 256, "bf16",
+                                 "plain"),
+    "K4 f32 (1,12,4608,256)": ("k4", 1, 12, 12, 4608, 4608, 256, "f32",
+                               "plain"),
+    "K4 (1,24,4608,128)": ("k4", 1, 24, 24, 4608, 4608, 128, "bf16",
+                           "plain"),
+    "K4 LM (1,14,512,64) on 2, 40 keys": ("k4", 1, 14, 2, 512, 512, 64,
+                                          "bf16", "lm"),
+    "K5 f32 (1,4608,3072)": ("k5", 1, 4608, 3072, None),
+    "K5 f32 (1,4096,3072)": ("k5", 1, 4096, 3072, None),
+    "K5 f32 (1,512,3072)": ("k5", 1, 512, 3072, None),
+    "K5 f32 (1,4608,4096)": ("k5", 1, 4608, 4096, None),
+    "K5 f32 (1,4608,6144)": ("k5", 1, 4608, 6144, None),
 }
-SOURCES = {"k2": ("flash_chunked.cu", "KERNEL_CHUNKED"),
-           "k3": ("flash_bwd.cu", "KERNEL_BWD")}
+# kernel -> (source, module of its wrapper, its library there)
+SOURCES = {"k2": ("flash_chunked.cu", "flash_attention", "KERNEL_CHUNKED"),
+           "k3": ("flash_bwd.cu", "flash_attention", "KERNEL_BWD"),
+           "k4": ("flash_bwd.cu", "flash_attention", "KERNEL_BWD"),
+           "k5": ("row_glue.cu", "fused_glue", "ROW_GLUE")}
 
 
 def make_case(case, dev, g):
@@ -86,7 +117,17 @@ def make_case(case, dev, g):
 
     import chip_smoke
     from x2i_torch.ops import flash_attention as fa
+    from x2i_torch.ops import fused_glue as fg
 
+    if case[0] == "k5":
+        _, b, rows, width, instance = case
+        x = torch.randn((b, rows, width), generator=g, device=dev)
+        x = x * 10.0 ** torch.empty((b, rows, 1), device=dev).uniform_(
+            -2.0, 2.0, generator=g)
+        shift, scale = (0.5 * torch.randn((b, width), generator=g,
+                                          device=dev) for _ in range(2))
+        fn = functools.partial(fg._launch_f32, "ln_mod", instance=instance)
+        return fn, (x, shift, scale), fg.ln_mod_plain(x, shift, scale)
     kernel, b, hq, hk, sq, skv, d, dtype, what = case
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
 
@@ -121,12 +162,14 @@ def make_case(case, dev, g):
     do = randn(sq, hq)
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     res = (do, lse, fa._delta(o, do))
-    fn = functools.partial(fa.flash_bwd_dq, **kw)
-    return fn, (q, k, v, *res), fa.flash_bwd_dq_plain(q, k, v, *res, **kw)
+    fn, plain = ((fa.flash_bwd_dq, fa.flash_bwd_dq_plain) if kernel == "k3"
+                 else (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain))
+    return (functools.partial(fn, **kw), (q, k, v, *res),
+            plain(q, k, v, *res, **kw))
 
 
-def first(x):
-    return x[0] if isinstance(x, tuple) else x
+def outputs(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def library_report(lib, names):
@@ -153,61 +196,77 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    import importlib
+
     import chip_smoke
     from x2i_torch.ops import cuda_lib
-    from x2i_torch.ops import flash_attention as fa
 
     if not torch.cuda.is_available():
         print("flash_d256_variants: needs a CUDA device", file=sys.stderr)
         return 2
     labels = args.case or list(CASES)
-    # per kernel: [(library name, CudaLibrary)], the repo's first
-    libs = {k: [("repo", getattr(fa, attr))] for k, (_, attr)
-            in SOURCES.items()}
+    modules = {k: importlib.import_module(f"x2i_torch.ops.{module}")
+               for k, (_, module, _) in SOURCES.items()}
+    # per kernel: [(library name, CudaLibrary)], the repo's first; K3 and
+    # K4 share a library
+    libs = {k: [("repo", getattr(modules[k], attr))]
+            for k, (_, _, attr) in SOURCES.items()}
+    built = {}
     for spec in args.variant:
         name, _, directory = spec.partition("=")
-        for kernel, (source, attr) in SOURCES.items():
+        for kernel, (source, _, attr) in SOURCES.items():
             path = Path(directory).resolve() / source
             if not path.exists():
                 continue
-            repo = getattr(fa, attr)
-            libs[kernel].append((name, cuda_lib.CudaLibrary(
-                str(path), f"libx2i_variant_{name}_{kernel}",
-                tuple(repo.launches), repo._bind,
-                wgmma_kernels=repo.wgmma_kernels,
-                checked_kernels=repo.gated_kernels[len(repo.wgmma_kernels):])))
+            repo = getattr(modules[kernel], attr)
+            if (name, source) not in built:
+                built[name, source] = cuda_lib.CudaLibrary(
+                    str(path), f"libx2i_variant_{name}_{path.stem}",
+                    tuple(repo.launches), repo._bind,
+                    wgmma_kernels=repo.wgmma_kernels,
+                    checked_kernels=repo.gated_kernels[
+                        len(repo.wgmma_kernels):])
+            libs[kernel].append((name, built[name, source]))
+    names = ("flash_chunked_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv",
+             "ln_mod_f32")
     result = {"libraries": {
-        f"{kernel} {name}": library_report(
-            lib, ("flash_chunked_kernel", "flash_bwd_dq_kernel"))
+        f"{SOURCES[kernel][0]} {name}": library_report(lib, names)
         for kernel, pairs in libs.items() for name, lib in pairs}}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     for label in labels:
         kernel = CASES[label][0]
-        attr = SOURCES[kernel][1]
-        repo_lib = getattr(fa, attr)
+        module, attr = modules[kernel], SOURCES[kernel][2]
+        repo_lib = getattr(module, attr)
         fn, inputs, want = make_case(CASES[label], dev, g)
-        want = first(want).float()
-        top = want.abs().max().item()
+        want = [w.float() for w in outputs(want)]
+        tops = [w.abs().max().item() for w in want]
         row = result.setdefault(label, {})
-        outs = {}
+        outs, ran = {}, []
         for name, lib in libs[kernel]:
-            setattr(fa, attr, lib)
-            got = fn(*inputs)
-            got = got if isinstance(got, tuple) else (got,)
-            torch.cuda.synchronize()
+            setattr(module, attr, lib)
+            try:
+                got = outputs(fn(*inputs))
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                # a library that refuses the wrapper's arguments
+                row[name] = {"error": str(err)}
+                continue
+            ran.append((name, lib))
             outs[name] = got
-            err = (got[0].float() - want).abs().max().item()
-            row[name] = {"ms": [], "max_abs_err": err,
-                         "rel_max_err": err / top,
+            errs = [(a.float() - w).abs().max().item()
+                    for a, w in zip(got, want)]
+            row[name] = {"ms": [], "max_abs_err": max(errs),
+                         "rel_max_err": max(e / t for e, t
+                                            in zip(errs, tops)),
                          "same_as_repo": all(torch.equal(a, b) for a, b
                                              in zip(got, outs["repo"]))}
         del outs
-        order = (libs[kernel] + libs[kernel][::-1]) * args.repeat
+        order = (ran + ran[::-1]) * args.repeat
         for name, lib in order:
-            setattr(fa, attr, lib)
+            setattr(module, attr, lib)
             row[name]["ms"].append(chip_smoke.kernel_ms(fn, *inputs))
-        setattr(fa, attr, repo_lib)
+        setattr(module, attr, repo_lib)
         print(json.dumps({label: row}), file=sys.stderr, flush=True)
         del fn, inputs, want
         torch.cuda.empty_cache()
